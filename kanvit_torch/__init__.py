@@ -1,0 +1,29 @@
+"""kanvit_torch — the PyTorch / CUDA port of kanvit for NVIDIA Hopper.
+
+The JAX package ``kanvit`` is the reference; this package mirrors its module
+paths and names so each counterpart is found at once:
+
+- ``kanvit_torch.ops``      plain PyTorch math (the kernels' plain versions)
+- ``kanvit_torch.kernels``  hand-written CUDA C++ kernels for sm_90a, built
+                            with nvcc at first use and bound with ctypes
+- ``kanvit_torch.layers``   ``nn.Module`` layers (KANLinear, MSA, blocks)
+- ``kanvit_torch.models``   VisionTransformer assembly
+- ``kanvit_torch.utils``    torch-convention init and weight conversion
+- ``kanvit_torch.infer``    the batched serving ``Predictor``
+
+Ported so far: the ``efficientkan`` serving forward in f32. The other
+variants and training are listed in ``ROADMAP.md``. This package imports
+torch and numpy only, never jax.
+"""
+
+__version__ = "0.1.0"
+
+VARIANTS = (
+    "vanilla",
+    "efficientkan",
+    "fast",
+    "sine",
+    "fourier",
+    "cheby",
+    "flash-attn",
+)

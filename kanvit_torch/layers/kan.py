@@ -1,0 +1,110 @@
+"""KAN layers as ``nn.Module``s (counterpart of ``kanvit/layers/kan.py``).
+
+Parameter names, shapes and init distributions follow the PyTorch reference
+(``models/effkan.py``), so reference-named weights load directly
+(``kanvit_torch.utils.convert``). Modules are built on the CPU from an
+explicit ``torch.Generator``; move them with ``.to(device)``. Only the
+Linear and B-spline (efficient-kan) layers are ported so far.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+from kanvit_torch.kernels import fused_basis as FB
+from kanvit_torch.ops import kan_bases as K
+from kanvit_torch.utils import torch_init as tinit
+
+
+class TorchLinear(nn.Module):
+    """Dense layer with torch conventions: ``weight (out, in)``,
+    kaiming-uniform(a=sqrt(5)) weight, ``U(+-1/sqrt(fan_in))`` bias."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 use_bias: bool = True, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        tinit.linear_default_weight_(self.weight, generator)
+        if use_bias:
+            self.bias = nn.Parameter(torch.empty(out_features))
+            tinit.linear_default_bias_(self.bias, in_features, generator)
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return F.linear(x, self.weight, self.bias)
+
+
+class KANLinear(nn.Module):
+    """efficient-kan B-spline KAN layer (reference ``models/effkan.py:8-97``).
+
+    Params: ``base_weight (out, in)``, ``spline_weight (out, in, G+k)``,
+    ``spline_scaler (out, in)`` when standalone scaling is enabled. The knot
+    grid ``(in, G+2k+1)`` is a non-persistent buffer derived from the
+    constructor arguments. The forward goes through
+    ``kanvit_torch.kernels.fused_basis.bspline_kan``.
+    """
+
+    def __init__(self, in_features: int, out_features: int,
+                 grid_size: int = 5, spline_order: int = 3,
+                 scale_noise: float = 0.1, scale_base: float = 1.0,
+                 scale_spline: float = 1.0,
+                 enable_standalone_scale_spline: bool = True,
+                 grid_range=(-1.0, 1.0), *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.in_features = in_features
+        self.out_features = out_features
+        self.grid_size = grid_size
+        self.spline_order = spline_order
+        self.scale_noise = scale_noise
+        self.scale_base = scale_base
+        self.scale_spline = scale_spline
+        self.enable_standalone_scale_spline = enable_standalone_scale_spline
+        self.register_buffer(
+            "grid",
+            K.make_bspline_grid(in_features, grid_size, spline_order, grid_range),
+            persistent=False,
+        )
+        self.base_weight = nn.Parameter(torch.empty(out_features, in_features))
+        self.spline_weight = nn.Parameter(
+            torch.empty(out_features, in_features, grid_size + spline_order))
+        if enable_standalone_scale_spline:
+            self.spline_scaler = nn.Parameter(
+                torch.empty(out_features, in_features))
+        else:
+            self.register_parameter("spline_scaler", None)
+        self.reset_parameters(generator)
+
+    @torch.no_grad()
+    def reset_parameters(self, generator: torch.Generator | None = None) -> None:
+        """Reference init (``effkan.py:74-97``): kaiming base weight, spline
+        coefficients least-squares fitted to uniform noise, kaiming scaler.
+        Runs on the CPU (the fit is an under-determined lstsq)."""
+        tinit.kaiming_uniform_(self.base_weight,
+                               math.sqrt(5.0) * self.scale_base, generator)
+        noise = (
+            (torch.rand(self.grid_size + 1, self.in_features,
+                        self.out_features, generator=generator) - 0.5)
+            * self.scale_noise / self.grid_size
+        )
+        grid = self.grid.cpu()
+        pts = grid.T[self.spline_order:-self.spline_order]  # (G+1, in)
+        coeff = K.bspline_curve2coeff(pts, noise, grid, self.spline_order)
+        scale = 1.0 if self.enable_standalone_scale_spline else self.scale_spline
+        self.spline_weight.copy_(scale * coeff)
+        if self.spline_scaler is not None:
+            tinit.kaiming_uniform_(self.spline_scaler,
+                                   math.sqrt(5.0) * self.scale_spline, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return FB.bspline_kan(x, self.grid, self.base_weight,
+                              self.spline_weight, self.spline_scaler,
+                              self.spline_order)
