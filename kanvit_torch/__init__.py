@@ -10,10 +10,13 @@ paths and names so each counterpart is found at once:
 - ``kanvit_torch.models``   VisionTransformer assembly
 - ``kanvit_torch.utils``    torch-convention init and weight conversion
 - ``kanvit_torch.infer``    the batched serving ``Predictor``
+- ``kanvit_torch.train``    ``make_optimizer``, the train and eval steps
+- ``kanvit_torch.bench``    the training throughput bench (one JSON line)
 
-Ported so far: the ``efficientkan`` serving forward in f32. The other
-variants and training are listed in ``ROADMAP.md``. This package imports
-torch and numpy only, never jax.
+Ported so far: the ``efficientkan`` model in f32, serving and the training
+step (forward and backward kernels, Adam). The other variants, bf16 and the
+trainer surface are listed in ``ROADMAP.md``. This package imports torch and
+numpy only, never jax.
 """
 
 __version__ = "0.1.0"

@@ -1,8 +1,9 @@
 """Build the CUDA sources in ``csrc/`` with nvcc and load them with ctypes.
 
-The sources have a plain C interface (no PyTorch headers), so one nvcc call
-compiles them all into one shared library in seconds. The library goes to
-``build/kanvit_torch/<hash of the sources and flags>/`` at the root of the
+The sources have a plain C interface (no PyTorch headers). Each ``.cu``
+compiles to an object in its own nvcc process, all started together, and one
+more nvcc call links the objects into one shared library. The library goes
+to ``build/kanvit_torch/<hash of the sources and flags>/`` at the root of the
 checkout (listed in ``.gitignore``) at first use, and later calls in any
 process reuse it. A failed build raises with nvcc's output; nothing falls
 back to the plain versions.
@@ -22,7 +23,7 @@ BUILD_ROOT = Path(__file__).resolve().parents[2] / "build" / "kanvit_torch"
 LIB_NAME = "libkanvit_kernels.so"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
 )
 
 _p, _i64, _i32, _f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
@@ -32,9 +33,15 @@ _p, _i64, _i32, _f32 = (ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int,
 SIGNATURES = {
     "kanvit_bspline_kan_fwd": (
         [_p, _i64, _p, _p, _p, _i32, _i32, _i32, _i32, _p], _i32),
+    "kanvit_bspline_kan_bwd": (
+        [_p, _i64, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _p],
+        _i32),
     "kanvit_attention_lanes_fwd": (
-        [_p, _p, _p, *[_i64] * 9, _p, _p, _i32, _i32, _i32, _i32, _i32, _f32,
-         _p], _i32),
+        [_p, _p, _p, *[_i64] * 9, _p, _p, _p, _i32, _i32, _i32, _i32, _i32,
+         _f32, _p], _i32),
+    "kanvit_attention_lanes_bwd": (
+        [_p, _p, _p, *[_i64] * 9, *[_p] * 8, _i32, _i32, _i32, _i32, _i32,
+         _f32, _p], _i32),
 }
 
 _lib: ctypes.CDLL | None = None
@@ -75,18 +82,32 @@ def build(ptxas_info: bool = False) -> tuple[Path, str]:
     if lib.exists():
         return lib, ""
     out_dir.mkdir(parents=True, exist_ok=True)
-    tmp = out_dir / f"{LIB_NAME}.{os.getpid()}.tmp"
-    cu = [str(s) for s in sources() if s.suffix == ".cu"]
-    cmd = [find_nvcc(), *NVCC_FLAGS, *(["-Xptxas", "-v"] if ptxas_info else []),
-           "-o", str(tmp), *cu]
-    proc = subprocess.run(cmd, capture_output=True, text=True, check=False)
-    if proc.returncode != 0:
-        raise RuntimeError(
-            f"nvcc failed with exit code {proc.returncode}:\n{' '.join(cmd)}\n"
-            f"{proc.stdout}{proc.stderr}"
-        )
+    nvcc, tag = find_nvcc(), f"{os.getpid()}.tmp"
+    info = ["-Xptxas", "-v"] if ptxas_info else []
+    cmds = [[nvcc, *NVCC_FLAGS, *info, "-c", "-o",
+             str(out_dir / f"{src.stem}.{tag}.o"), str(src)]
+            for src in sources() if src.suffix == ".cu"]
+    procs = [subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                              stderr=subprocess.STDOUT, text=True)
+             for cmd in cmds]
+    logs = [proc.communicate()[0] for proc in procs]
+    tmp = out_dir / f"{LIB_NAME}.{tag}"
+    objs = [cmd[cmd.index("-o") + 1] for cmd in cmds]
+    link = [nvcc, *NVCC_FLAGS, "-shared", "-o", str(tmp), *objs]
+    for cmd, proc, log in zip(cmds, procs, logs):
+        _check(cmd, proc.returncode, log)
+    proc = subprocess.run(link, capture_output=True, text=True, check=False)
+    _check(link, proc.returncode, proc.stdout + proc.stderr)
     os.replace(tmp, lib)  # atomic: a concurrent builder sees all or nothing
-    return lib, proc.stdout + proc.stderr
+    for obj in objs:
+        os.remove(obj)
+    return lib, "".join(logs) + proc.stdout + proc.stderr
+
+
+def _check(cmd: list[str], returncode: int, log: str) -> None:
+    if returncode != 0:
+        raise RuntimeError(
+            f"nvcc failed with exit code {returncode}:\n{' '.join(cmd)}\n{log}")
 
 
 def load() -> ctypes.CDLL:

@@ -11,7 +11,10 @@ Only ``efficientkan`` is ported. Its forward is the JAX package's
 shared-basis path (``_shared_basis_qkv``, ``attention.py:56-133``): the
 per-head q/k/v weights concatenate into one grouped weight, one
 ``bspline_qkv_grouped`` launch projects every head, and the lanes attention
-reads the three q/k/v slices of its output in place.
+reads the three q/k/v slices of its output in place. Both are
+differentiable: autograd reaches their backward kernels on the card, and
+the per-head weight stacking carries the packed weight's gradient back to
+each head's KANLinear.
 """
 
 from __future__ import annotations

@@ -49,7 +49,8 @@ class KANLinear(nn.Module):
     ``spline_scaler (out, in)`` when standalone scaling is enabled. The knot
     grid ``(in, G+2k+1)`` is a non-persistent buffer derived from the
     constructor arguments. The forward goes through
-    ``kanvit_torch.kernels.fused_basis.bspline_kan``.
+    ``kanvit_torch.kernels.fused_basis.bspline_kan``, and so does autograd:
+    the backward kernels on the card, the plain version on the CPU.
     """
 
     def __init__(self, in_features: int, out_features: int,

@@ -3,7 +3,8 @@
 Reference ``model.py:40-169``: patchify -> patch embedding -> [class] token
 -> sinusoidal position table (quirk parity) -> N pre-LN encoder blocks ->
 LN + Linear head on the class token. Only the ``efficientkan`` variant is
-ported; the other variant keys raise ``NotImplementedError``.
+ported, for serving and training (``kanvit_torch.train``); the other variant
+keys raise ``NotImplementedError``.
 """
 
 from __future__ import annotations

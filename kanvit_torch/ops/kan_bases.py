@@ -1,9 +1,10 @@
 """B-spline KAN math in plain PyTorch (counterpart of ``kanvit/ops/kan_bases.py``).
 
-These functions are the plain versions of the B-spline CUDA kernel in
-``kanvit_torch.kernels.fused_basis``: the CPU path runs them, and the card
-holds the kernel against them. Only the B-spline (efficient-kan) subset is
-ported so far.
+These functions are the plain versions of the B-spline CUDA kernels in
+``kanvit_torch.kernels.fused_basis``: the CPU path runs them (autograd
+through :func:`bspline_kan_forward` is the backward kernels' plain version),
+and the card holds the kernels against them. Only the B-spline
+(efficient-kan) subset is ported so far.
 """
 
 from __future__ import annotations
@@ -52,6 +53,33 @@ def bspline_bases(x: torch.Tensor, grid: torch.Tensor,
         right = (grid[:, k + 1:] - xe) / (grid[:, k + 1:] - grid[:, 1:-k])
         bases = left * bases[..., :-1] + right * bases[..., 1:]
     return bases
+
+
+def bspline_bases_and_grad(x: torch.Tensor, grid: torch.Tensor,
+                           spline_order: int = 3):
+    """B-spline bases and their x-derivative by the differentiated recurrence.
+
+    Differentiating the Cox–de Boor refinement of :func:`bspline_bases`,
+    ``B_k = w1 * B_{k-1}[:-1] + w2 * B_{k-1}[1:]``, gives
+    ``B_k' = w1' B_{k-1}[:-1] + w1 B_{k-1}'[:-1] + w2' B_{k-1}[1:] +
+    w2 B_{k-1}'[1:]`` with ``w1' = 1/(g[k:-1] - g[:-(k+1)])`` and
+    ``w2' = -1/(g[k+1:] - g[1:-k])``; the order-0 derivative is 0 a.e.
+    Returns ``(bases, dbases)``, each ``(N, in, grid_size + order)``. The
+    plain version the backward kernel's closed-form B' is checked against
+    (counterpart of ``kanvit.ops.kan_bases.bspline_bases_and_grad``).
+    """
+    xe = x.unsqueeze(-1)
+    bases = ((xe >= grid[:, :-1]) & (xe < grid[:, 1:])).to(x.dtype)
+    dbases = torch.zeros_like(bases)
+    for k in range(1, spline_order + 1):
+        inv1 = 1.0 / (grid[:, k:-1] - grid[:, : -(k + 1)])
+        inv2 = 1.0 / (grid[:, k + 1:] - grid[:, 1:-k])
+        w1 = (xe - grid[:, : -(k + 1)]) * inv1
+        w2 = (grid[:, k + 1:] - xe) * inv2
+        dbases = (inv1 * bases[..., :-1] + w1 * dbases[..., :-1]
+                  - inv2 * bases[..., 1:] + w2 * dbases[..., 1:])
+        bases = w1 * bases[..., :-1] + w2 * bases[..., 1:]
+    return bases, dbases
 
 
 def bspline_kan_forward(

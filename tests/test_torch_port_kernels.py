@@ -3,12 +3,20 @@
 On CPU tensors each wrapper in ``kanvit_torch.kernels`` runs its plain
 version; here it is held against the JAX kernel it replaces, run in Pallas
 interpret mode (``dispatch.set_impl("pallas")``, as ``tests/test_kernels.py``
-does), on the same numpy inputs, to 1e-5. The CUDA wrappers' argument
-checks are plain functions and are tested here without a card; the kernels
-themselves run on the card (``tests/test_torch_port_cuda.py``,
-``chip_smoke.py``).
+does), on the same numpy inputs, to 1e-5: forward values, and gradients
+against ``jax.grad`` through the Pallas backward kernels.
+
+The gradient tests run twice: through autograd of the plain version (the CPU
+path), and through the wrappers' ``torch.autograd.Function``s with the
+launches replaced by CPU emulations of the CUDA kernels' own arithmetic
+(closed-form B', the forward's saved (m, l), delta = rowsum(do * o)). The
+second checks the Functions' wiring and the kernels' formulas without a
+card. The CUDA wrappers' argument checks are plain functions and are tested
+here too; the kernels themselves run on the card
+(``tests/test_torch_port_cuda.py``, ``chip_smoke.py``).
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -20,6 +28,7 @@ from kanvit.ops import dispatch as jdispatch
 from kanvit.ops import kan_bases as JK
 from kanvit_torch.kernels import flash_attention as FA
 from kanvit_torch.kernels import fused_basis as FB
+from kanvit_torch.ops import dispatch
 from kanvit_torch.ops import kan_bases as K
 
 TOL = 1e-5
@@ -69,7 +78,9 @@ def test_bspline_kan_matches_pallas(n, nin, nout):
     assert got.shape == (n, nout)
     assert _maxdiff(got, want) <= TOL
     assert _counts() == {"bspline_kan": 0, "bspline_qkv_grouped": 0,
-                         "flash_attention_lanes": 0}
+                         "bspline_kan_bwd": 0, "bspline_qkv_grouped_bwd": 0,
+                         "flash_attention_lanes": 0,
+                         "flash_attention_lanes_bwd": 0}
 
 
 @pytest.mark.parametrize("n,h,dh", [(20, 2, 16), (13, 3, 8)])
@@ -216,6 +227,15 @@ def test_bspline_kernel_arg_checks(bad, err, match):
         FB.check_args(x, grid, w, order)
 
 
+@pytest.mark.parametrize("gy", [torch.zeros(10, 7), torch.zeros(10, 8).double()])
+def test_bspline_backward_arg_checks(gy):
+    """The backward wrapper checks the output gradient before any launch."""
+    x, grid, w = _bspline_args()
+    with pytest.raises(ValueError, match="gradient must be f32"):
+        FB._launch_bwd("bspline_kan_bwd", x, grid, w, gy, True, True)
+    assert sum(_counts().values()) == 0
+
+
 def test_bspline_kernel_arg_checks_accept_valid():
     FB.check_args(*_bspline_args(), 3)
     x = torch.zeros(10, 64)[:, :32]  # row stride 64, unit column stride
@@ -256,20 +276,217 @@ def test_attention_kernel_arg_checks_accept_views():
     assert c.is_contiguous()
 
 
-@pytest.mark.parametrize("entry", ["bspline_kan", "bspline_qkv_grouped",
-                                   "flash_attention_lanes"])
-def test_wrappers_refuse_gradients(entry):
-    """Forward only: a grad-requiring input raises instead of returning a
-    result that silently drops the graph (CPU and CUDA alike)."""
-    x = torch.zeros(4, 2 * 16)
-    w = torch.zeros(2, 3 * 16, 16, requires_grad=True)
-    with pytest.raises(RuntimeError, match="backward kernel is not ported"):
-        if entry == "bspline_kan":
-            FB.bspline_kan(x[:, :16], K.make_bspline_grid(16), w[0], w[0, ..., None]
-                           .expand(-1, -1, 8), w[0])
-        elif entry == "bspline_qkv_grouped":
-            FB.bspline_qkv_grouped(x, K.make_bspline_grid(16), w,
-                                   w[..., None].expand(-1, -1, -1, 8), w)
-        else:
-            q = torch.zeros(1, 4, 32, requires_grad=True)
-            FA.flash_attention_lanes(q, q, q, 2)
+# --- gradients against jax.grad through the Pallas backward kernels ---------
+
+def _emu_bspline_fwd(name, x2d, grid, w, spline_order):
+    """``kanvit_bspline_kan_fwd``'s arithmetic on the CPU."""
+    FB.check_args(x2d, grid, w, spline_order)
+    n = x2d.shape[0]
+    groups, _, nin, out = w.shape
+    xf = x2d.reshape(n * groups, nin)
+    basis = torch.cat([K.bspline_bases(xf, grid), torch.nn.functional.silu(xf)
+                       .unsqueeze(-1)], -1).reshape(n, groups, nin, 9)
+    FB.LAUNCHES[name] += 1
+    return torch.einsum("ngis,gsio->ngo", basis, w).reshape(n, groups * out)
+
+
+def _emu_bspline_bwd(name, x2d, grid, w, gy, need_dx, need_dw):
+    """``kanvit_bspline_kan_bwd``'s arithmetic on the CPU: dx through the
+    closed-form B'_{3,j} = 3 (B_{2,j}/(g_{j+3}-g_j) - B_{2,j+1}/(g_{j+4}-g_{j+1}))
+    and silu' = sig + silu (1 - sig); dW = B^T gy."""
+    n = x2d.shape[0]
+    groups, _, nin, out = w.shape
+    xf = x2d.reshape(n * groups, nin)
+    b2 = K.bspline_bases(xf, grid, 2)                  # (nG, nin, 9)
+    inv3 = 1.0 / (grid[:, 3:] - grid[:, :-3])          # (nin, 9)
+    db = 3 * (b2[..., :-1] * inv3[:, :-1] - b2[..., 1:] * inv3[:, 1:])
+    sig = torch.sigmoid(xf)
+    silu = xf * sig
+    deriv = torch.cat([db, (sig + silu * (1 - sig)).unsqueeze(-1)], -1)
+    basis = torch.cat([K.bspline_bases(xf, grid), silu.unsqueeze(-1)], -1)
+    gyg = gy.reshape(n, groups, out)
+    gw = torch.einsum("ngo,gsio->ngis", gyg, w)
+    dx = (gw * deriv.reshape(n, groups, nin, 9)).sum(-1).reshape(n, -1)
+    dw = torch.einsum("ngis,ngo->gsio", basis.reshape(n, groups, nin, 9), gyg)
+    FB.LAUNCHES[name] += 1
+    return (dx if need_dx else None), (dw if need_dw else None)
+
+
+def _emu_lanes_probs(q4, k4, maskb, causal, stats=None):
+    """Scores, validity and (from ``stats`` or afresh) normalised
+    probabilities, as the kernels compute them."""
+    b, t, h, dh = q4.shape
+    qs = q4.transpose(1, 2) * dh ** -0.5
+    s = qs @ k4.transpose(1, 2).transpose(-1, -2)
+    valid = torch.ones(b, 1, 1, t, dtype=torch.bool) if maskb is None else (
+        maskb.bool()[:, None, None, :])
+    if causal:
+        valid = valid & torch.ones(t, t, dtype=torch.bool).tril()
+    s = torch.where(valid, s, float("-inf"))
+    if stats is None:
+        m = s.amax(-1).clamp_min(-1e30)
+        stats = torch.stack([m, torch.exp(s - m[..., None]).sum(-1)], -1)
+    p = torch.exp(s - stats[..., :1]) / stats[..., 1:].clamp_min(1e-10)
+    return qs, torch.where(valid, p, 0.0), stats
+
+
+def _emu_lanes_fwd(q4, k4, v4, maskb, causal, with_stats):
+    b, t, h, dh = q4.shape
+    _, p, stats = _emu_lanes_probs(q4, k4, maskb, causal)
+    o = (p @ v4.transpose(1, 2)).transpose(1, 2).reshape(b, t, h * dh)
+    FA.LAUNCHES["flash_attention_lanes"] += 1
+    return o, (stats if with_stats else None)
+
+
+def _emu_lanes_bwd(q4, k4, v4, maskb, o, stats, do, causal):
+    b, t, h, dh = q4.shape
+    qs, p, _ = _emu_lanes_probs(q4, k4, maskb, causal, stats)
+    do4 = do.reshape(b, t, h, dh).transpose(1, 2)
+    delta = (do4 * o.reshape(b, t, h, dh).transpose(1, 2)).sum(-1, keepdim=True)
+    ds = p * (do4 @ v4.transpose(1, 2).transpose(-1, -2) - delta)
+    dq = ds @ k4.transpose(1, 2) * dh ** -0.5
+    dk = ds.transpose(-1, -2) @ qs
+    dv = p.transpose(-1, -2) @ do4
+    FA.LAUNCHES["flash_attention_lanes_bwd"] += 1
+    return [g.transpose(1, 2).contiguous() for g in (dq, dk, dv)]
+
+
+@pytest.fixture(params=["plain", "kernel_math"])
+def grad_path(request, monkeypatch):
+    """``plain``: the CPU path. ``kernel_math``: the CUDA path's Functions
+    with each launch emulated on the CPU."""
+    if request.param == "kernel_math":
+        monkeypatch.setattr(dispatch, "use_kernel", lambda x: True)
+        monkeypatch.setattr(FB, "_launch", _emu_bspline_fwd)
+        monkeypatch.setattr(FB, "_launch_bwd", _emu_bspline_bwd)
+        monkeypatch.setattr(FA, "_launch", _emu_lanes_fwd)
+        monkeypatch.setattr(FA, "_launch_bwd", _emu_lanes_bwd)
+    return request.param
+
+
+def _torch_grads(fn, arrays, g):
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    out = fn(*leaves)
+    return out.detach().numpy(), [t.numpy() for t in torch.autograd.grad(
+        out, leaves, torch.from_numpy(g))]
+
+
+def _jax_grads(fn, arrays, g):
+    out, vjp = jax.vjp(fn, *map(jnp.asarray, arrays))
+    return np.asarray(out), [np.asarray(a) for a in vjp(jnp.asarray(g))]
+
+
+def _close_grads(got, want):
+    for a, b in zip(got, want):
+        assert a.shape == b.shape
+        assert _maxdiff(a, b) <= TOL * max(1.0, float(np.abs(b).max()))
+
+
+def _expect_launches(path, **bwd):
+    if path == "plain":
+        assert sum(_counts().values()) == 0
+    else:
+        for name, n in bwd.items():
+            assert _counts()[name] == n, (name, _counts())
+
+
+@pytest.mark.parametrize("n,nin,nout", [(37, 16, 8), (20, 24, 12)])
+def test_bspline_kan_grads_match_pallas(grad_path, n, nin, nout):
+    """dx and the three parameter grads, with inputs on knots and beyond
+    every span."""
+    rng = np.random.default_rng(16)
+    grid = np.array(JK.make_bspline_grid(nin))
+    x = spline_inputs(rng, (n, nin), grid[0])
+    params = kan_params(rng, nout, nin)
+    g = rng.standard_normal((n, nout)).astype(np.float32)
+    want_y, want = _jax_grads(
+        lambda *a: JFB.bspline_kan(a[0], jnp.asarray(grid), *a[1:]), (x, *params), g)
+    tgrid = torch.from_numpy(grid)
+    got_y, got = _torch_grads(lambda *a: FB.bspline_kan(a[0], tgrid, *a[1:]),
+                              (x, *params), g)
+    assert _maxdiff(got_y, want_y) <= TOL
+    _close_grads(got, want)
+    _expect_launches(grad_path, bspline_kan=1, bspline_kan_bwd=1)
+
+
+@pytest.mark.parametrize("n,h,dh", [(20, 2, 16), (13, 3, 8)])
+def test_bspline_qkv_grouped_grads_match_pallas(grad_path, n, h, dh):
+    rng = np.random.default_rng(17)
+    grid = np.array(JK.make_bspline_grid(dh))
+    x2d = spline_inputs(rng, (n, h * dh), grid[0])
+    params = (rng.standard_normal((h, 3 * dh, dh)).astype(np.float32) * 0.3,
+              rng.standard_normal((h, 3 * dh, dh, 8)).astype(np.float32) * 0.3,
+              rng.standard_normal((h, 3 * dh, dh)).astype(np.float32))
+    g = rng.standard_normal((n, h * 3 * dh)).astype(np.float32)
+    want_y, want = _jax_grads(
+        lambda *a: JFB.bspline_qkv_grouped(a[0], jnp.asarray(grid), *a[1:]),
+        (x2d, *params), g)
+    tgrid = torch.from_numpy(grid)
+    got_y, got = _torch_grads(
+        lambda *a: FB.bspline_qkv_grouped(a[0], tgrid, *a[1:]), (x2d, *params), g)
+    assert _maxdiff(got_y, want_y) <= TOL
+    _close_grads(got, want)
+    _expect_launches(grad_path, bspline_qkv_grouped=1, bspline_qkv_grouped_bwd=1)
+
+
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, False),
+                                           (False, True), (True, True)])
+def test_lanes_attention_grads_match_pallas(grad_path, causal, masked):
+    """dq, dk, dv with no mask, a key mask, causal, and a fully masked batch
+    item, whose gradients must be exactly 0 (kanvit's separate (m, l))."""
+    rng = np.random.default_rng(18)
+    b, t, h, dh = 2, 20, 3, 16
+    q, k, v = _attention_inputs(rng, b, t, h, dh)
+    g = rng.standard_normal((b, t, h * dh)).astype(np.float32)
+    mask = _mask(b, t) if masked else None
+    jmask = None if mask is None else jnp.asarray(mask)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    want_o, want = _jax_grads(lambda *a: JFA.flash_attention_lanes(
+        *a, h, causal=causal, mask=jmask), (q, k, v), g)
+    got_o, got = _torch_grads(lambda *a: FA.flash_attention_lanes(
+        *a, h, causal=causal, mask=tmask), (q, k, v), g)
+    assert _maxdiff(got_o, want_o) <= TOL
+    _close_grads(got, want)
+    for grad in got:
+        assert np.isfinite(grad).all()
+        if masked:
+            assert np.all(grad[0] == 0)
+    if masked:
+        assert all(np.all(a[0] == 0) for a in want)
+    _expect_launches(grad_path, flash_attention_lanes=1,
+                     flash_attention_lanes_bwd=1)
+
+
+def test_model_gradients_take_the_function_path(monkeypatch):
+    """A model's backward reaches each Function once per launch: the
+    embedder once, q/k/v and attention once per block."""
+    from kanvit_torch.models import create_model
+
+    monkeypatch.setattr(dispatch, "use_kernel", lambda x: True)
+    monkeypatch.setattr(FB, "_launch", _emu_bspline_fwd)
+    monkeypatch.setattr(FB, "_launch_bwd", _emu_bspline_bwd)
+    monkeypatch.setattr(FA, "_launch", _emu_lanes_fwd)
+    monkeypatch.setattr(FA, "_launch_bwd", _emu_lanes_bwd)
+    model = create_model("efficientkan", chw=(1, 28, 28), n_patches=7,
+                         n_blocks=2, d_hidden=32, n_heads=2, out_d=10)
+    x = torch.from_numpy(np.random.default_rng(19).standard_normal(
+        (3, 1, 28, 28)).astype(np.float32))
+    model(x).square().sum().backward()
+    assert _counts() == {"bspline_kan": 1, "bspline_qkv_grouped": 2,
+                         "bspline_kan_bwd": 1, "bspline_qkv_grouped_bwd": 2,
+                         "flash_attention_lanes": 2,
+                         "flash_attention_lanes_bwd": 2}
+    assert all(p.grad is not None and bool(p.grad.isfinite().all())
+               for p in model.parameters())
+
+
+@pytest.mark.parametrize("n,groups,nin,out,want", [
+    (12544, 1, 768, 384, 2),    # vit-s embedder: 576 tiles
+    (12608, 6, 64, 192, 8),     # vit-s q/k/v: 144 tiles
+    (37 * 49, 1, 16, 64, 14),   # MNIST embedder: capped by 128 rows a split
+    (100, 1, 16, 64, 1),
+])
+def test_dw_splits(n, groups, nin, out, want):
+    """Enough blocks for 132 SMs, at least 128 rows a split, and a function
+    of the shape and the card only."""
+    assert FB.dw_splits(n, groups, nin, out, 132) == want

@@ -229,7 +229,7 @@ def test_create_model_is_seeded():
     assert not torch.equal(a["v_class"], c["v_class"])
 
 
-# --- what is not ported yet ---------------------------------------------------
+# --- what is not ported yet, and gradients ------------------------------------
 
 def test_unknown_kinds_raise():
     with pytest.raises(ValueError, match="invalid. Please use a different argument"):
@@ -251,8 +251,13 @@ def test_unported_variants_raise(kind):
         create_model(kind, **MNIST)
 
 
-def test_forward_with_grad_enabled_raises():
-    """Training is a later slice: the serving forward refuses autograd."""
+def test_forward_carries_gradients():
+    """With grad enabled the forward keeps its graph: every parameter gets a
+    finite gradient (on the CPU, autograd through the plain versions)."""
     model = create_model("efficientkan", **MNIST)
-    with pytest.raises(RuntimeError, match="backward kernel is not ported"):
-        model(torch.zeros(1, 1, 28, 28))
+    x = torch.from_numpy(np.random.default_rng(23).standard_normal(
+        (2, 1, 28, 28)).astype(np.float32))
+    model(x).logsumexp(-1).sum().backward()
+    for name, p in model.named_parameters():
+        assert p.grad is not None and bool(p.grad.isfinite().all()), name
+    assert float(model.linear_mapper.base_weight.grad.abs().max()) > 0
