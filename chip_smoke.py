@@ -18,21 +18,37 @@ Phases, in order; any failure raises, so the script exits non-zero:
 4. each backward kernel against autograd through its plain version on the
    card, at the same shapes (the attention also causal, masked and with a
    fully masked row), with error and time of both;
-5. serving: ``create_model("efficientkan", **PRESETS["vit-s"])`` served by
+5. the tiled attention's forward, dq and dk/dv kernels against
+   ``flash_attention_reference`` and autograd through it, at the causal
+   decoder's shapes (B 16, H 4, T 2048 and B 4, H 4, T 8192, dh 64) and at
+   ragged masked shapes whose rows see no valid key (``tq < tk`` and keys
+   0-3 masked), with error and time of both; then ``flash_attention``'s
+   single-tile route against ``lanes_attention``;
+6. serving: ``create_model("efficientkan", **PRESETS["vit-s"])`` served by
    ``Predictor(batch_size=64, device="cuda")`` for three requests (64, 64
    and 37 images), with the launch count of every kernel (no backward
    launch), the logits of two images against the same model's CPU forward,
    and the steady-state images/s;
-6. training: the same model, batch 64, 6 Adam steps on one fixed batch
+7. training: the same model, batch 64, 6 Adam steps on one fixed batch
    through ``kanvit_torch.train`` (loss finite and falling, exactly
    1 + 12 + 12 forward and 1 + 12 + 12 backward launches a step), the
    gradients of a 4-image batch against the same model's CPU gradients,
    the steady-state step time and images/s, and a ``torch.profiler``
    breakdown of one step;
-7. the reference MNIST preset (batch 128) through ``kanvit_torch.bench``,
-   whose JSON line is printed;
-8. one JSON line of per-kernel results, the card's ``nvidia-smi`` line, and
-   last the result line ``{"ok": true, "device": {...}}``.
+8. decoder training through ``kanvit_torch.bench_decoder`` at
+   ``benchmarks/causal_decoder.py``'s configs (d 256, 4 heads, 4 blocks,
+   vocab 1024; seq 2048 batch 16 and seq 8192 batch 4): 6 Adam steps (loss
+   finite and falling, exactly 4 tiled forward, 4 dq and 4 dk/dv launches a
+   step and no lanes launch), the gradients of a 1-sequence batch at seq
+   2048 against the CPU, tokens/s and ms a step of the kernel impl and, at
+   seq 2048, of the plain impl, and a ``torch.profiler`` breakdown;
+9. flash-attn serving: ``create_model("flash-attn", **PRESETS["vit-s"])``
+   through ``Predictor`` for the same three requests (12 lanes launches a
+   batch, no tiled and no backward launch), GPU against CPU logits;
+10. the reference MNIST preset (batch 128) through ``kanvit_torch.bench``,
+    whose JSON line is printed;
+11. one JSON line of per-kernel results, the card's ``nvidia-smi`` line, and
+    last the result line ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and kanvit_torch only (no jax).
 """
@@ -64,6 +80,9 @@ TOL_GRADS = 1e-3
 TRAIN_STEPS = 6
 GRAD_IMAGES = 4
 SEED = 0
+# benchmarks/causal_decoder.py's model and its (seq, batch) configs
+DECODER = dict(dim=256, heads=4, n_blocks=4, vocab=1024)
+DECODER_CONFIGS = ((2048, 16), (8192, 4))
 
 
 class SmokeFailure(RuntimeError):
@@ -422,7 +441,165 @@ def phase_backward_kernels(torch):
 
 
 # --------------------------------------------------------------------------
-# Phase 5: serving
+# Phase 5: the tiled attention kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def flash_inputs(torch, rng, b, h, tq, tk, dh):
+    """q, k, v as ``(B, H, T, dh)`` views of ``(B, T, H, dh)`` tensors, the
+    layout ``FlashAttentionBlock`` hands them over in."""
+    def draw(t):
+        return torch.from_numpy(rng.standard_normal((b, t, h, dh))
+                                .astype(np.float32)).cuda().transpose(1, 2)
+    return draw(tq), draw(tk), draw(tk)
+
+
+def check_flash(torch, rng, b, h, tq, tk, dh, causal, mask, label, iters):
+    """Forward, dq and dk/dv of ``flash_attention`` (tiled tier, buckets
+    512/1024) against ``flash_attention_reference`` and autograd through
+    it; times of each kernel alone and of its plain counterpart (the plain
+    forward; autograd's backward to q, and to k and v). Returns ``(o, v,
+    {kernel: (err, ms, plain_ms)})``."""
+    from kanvit_torch.kernels import flash_attention as FA
+    from kanvit_torch.ops import attention as A
+
+    q, k, v = flash_inputs(torch, rng, b, h, tq, tk, dh)
+    g = torch.from_numpy(rng.standard_normal((b, h, tq, dh)).astype(np.float32)).cuda()
+    keys = None if mask is None else A.key_valid(mask, b, tk, mask.device)
+    check(not FA.use_small(tq, tk, dh, h, 512, 1024), f"{label}: not the tiled tier")
+
+    def kernel(*a):
+        return FA.flash_attention(*a, causal, 512, 1024, mask)
+
+    def plain(*a):
+        return A.flash_attention_reference(*a, causal, 512, 1024, keys)[0]
+
+    tag = (f"{label} B={b} H={h} Tq={tq} Tk={tk} dh={dh} causal={causal} "
+           f"mask={'none' if mask is None else 'yes'}")
+    with torch.inference_mode():
+        o = kernel(q, k, v)
+        err_fwd = compare(f"flash_attention {tag}", o, plain(q, k, v), TOL_ATTN)
+    _, _, got = grads_of(torch, kernel, [q, k, v], g)
+    leaves, out, want = grads_of(torch, plain, [q, k, v], g)
+    torch.cuda.synchronize()
+    err_dq = compare(f"flash_attention_dq {tag} dq", got[0], want[0], TOL_BWD)
+    err_dkv = max(compare(f"flash_attention_dkv {tag} d{nm}", a, w, TOL_BWD)
+                  for nm, a, w in zip("kv", got[1:], want[1:]))
+
+    maskb = None if keys is None else keys.to(torch.uint8).contiguous()
+    do = g.transpose(1, 2).contiguous()
+    with torch.inference_mode():
+        o4, stats = FA._launch_tiled(q, k, v, maskb, causal, True)
+        _, delta = FA._launch_tiled_dq(q, k, v, maskb, o4, stats, do, causal)
+        ms = {
+            "fwd": time_ms(torch, lambda: FA._launch_tiled(q, k, v, maskb, causal,
+                                                           False), iters, 2),
+            "dq": time_ms(torch, lambda: FA._launch_tiled_dq(
+                q, k, v, maskb, o4, stats, do, causal), iters, 2),
+            "dkv": time_ms(torch, lambda: FA._launch_tiled_dkv(
+                q, k, v, maskb, stats, do, delta, causal), iters, 2),
+            "plain fwd": time_ms(torch, lambda: plain(q, k, v), iters, 2),
+        }
+    ms["plain dq"] = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves[:1], g, retain_graph=True), iters, 2)
+    ms["plain dkv"] = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves[1:], g, retain_graph=True), iters, 2)
+    print(f"[kernel] tiled attention {label}: " + "  ".join(
+        f"{key} {val:.4f} ms" for key, val in ms.items()))
+    return o, v, {
+        "flash_attention": (err_fwd, ms["fwd"], ms["plain fwd"]),
+        "flash_attention_dq": (err_dq, ms["dq"], ms["plain dq"]),
+        "flash_attention_dkv": (err_dkv, ms["dkv"], ms["plain dkv"]),
+    }
+
+
+def check_no_visible_key(torch, o, v, mask, rows, item, label):
+    """Rows of ``item`` that see no valid key causally are the mean of v
+    over every valid key (the tiled tier's semantics), or 0 with none."""
+    valid = mask[item].bool()
+    want = (v[item][:, valid].mean(dim=1) if bool(valid.any())
+            else torch.zeros_like(v[item][:, 0]))
+    err = float((o[item][:, rows] - want[:, None]).abs().max())
+    print(f"[kernel] tiled attention {label}: rows with no visible valid key "
+          f"against the mean of v over the valid keys: max|err| {err:.3e}")
+    check(err <= TOL_ATTN * max(1.0, float(want.abs().max())),
+          f"{label}: rows with no visible valid key are not the mean of v")
+
+
+def check_single_tile(torch, rng):
+    """``flash_attention`` where kanvit's ``_use_small`` holds: the lanes
+    kernels on (B, T, H, dh) views, against ``lanes_attention``."""
+    from kanvit_torch.kernels import flash_attention as FA
+    from kanvit_torch.ops import attention as A
+
+    b, h, t, dh = 16, 4, 256, 64
+    check(FA.use_small(t, t, dh, h, 512, 1024), "single tile: not the small tier")
+    q, k, v = flash_inputs(torch, rng, b, h, t, t, dh)
+    mask = torch.from_numpy(rng.random((b, t)) > 0.2).cuda()
+    mask[0, :4] = False
+    g = torch.from_numpy(rng.standard_normal((b, h, t, dh)).astype(np.float32)).cuda()
+
+    def plain(*a):
+        o = A.lanes_attention(*(x.transpose(1, 2) for x in a), h, causal=True,
+                              mask=mask)
+        return o.view(b, t, h, dh).transpose(1, 2)
+
+    def kernel(*a):
+        return FA.flash_attention(*a, True, 512, 1024, mask)
+
+    reset_counts()
+    leaves, out, got = grads_of(torch, kernel, [q, k, v], g)
+    plain_leaves, ref, want = grads_of(torch, plain, [q, k, v], g)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    tag = f"single-tile route B={b} H={h} T={t} dh={dh} causal masked"
+    compare(f"flash_attention {tag}", out.detach(), ref.detach(), TOL_ATTN)
+    compare_grads(f"flash_attention {tag}", ("q", "k", "v"), got, want)
+    check(bool((out[0, :, :4] == 0).all()),
+          "single tile: rows with no visible valid key must be 0")
+    check(counts["flash_attention_lanes"] == 1 and counts["flash_attention_lanes_bwd"] == 1
+          and counts["flash_attention"] == 0,
+          f"single tile: launches {counts}, want one lanes forward and backward")
+    with torch.inference_mode():
+        ms = {"fwd": time_ms(torch, lambda: kernel(q, k, v)),
+              "plain fwd": time_ms(torch, lambda: plain(q, k, v))}
+    ms["bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+        out, leaves, g, retain_graph=True))
+    ms["plain bwd"] = time_ms(torch, lambda: torch.autograd.grad(
+        ref, plain_leaves, g, retain_graph=True))
+    print(f"[kernel] {tag}: " + "  ".join(f"{key} {val:.4f} ms"
+                                          for key, val in ms.items()))
+
+
+def phase_flash_kernels(torch):
+    rng = np.random.default_rng(SEED + 4)
+    _, _, main = check_flash(torch, rng, 16, 4, 2048, 2048, 64, True, None,
+                             "decoder seq 2048", iters=10)
+    _, _, long = check_flash(torch, rng, 4, 4, 8192, 8192, 64, True, None,
+                             "decoder seq 8192", iters=3)
+    # tq < tk: rows 0-216 sit at qpos < 0 and see no key; item 1 masks every
+    # key, item 0 keys 0-3
+    mask = torch.from_numpy(rng.random((3, 517)) > 0.2).cuda()
+    mask[0, :4] = False
+    mask[1] = False
+    o, v, _ = check_flash(torch, rng, 3, 2, 300, 517, 32, True, mask,
+                          "ragged tq<tk masked", iters=3)
+    for item in (0, 1, 2):
+        check_no_visible_key(torch, o, v, mask, slice(0, 217), item,
+                             f"ragged tq<tk masked, item {item}")
+    # tq == tk, keys 0-3 masked: causal rows 0-3 see no valid key
+    mask = torch.ones(2, 1000, dtype=torch.bool, device="cuda")
+    mask[0, :4] = False
+    o, v, _ = check_flash(torch, rng, 2, 2, 1000, 1000, 16, True, mask,
+                          "keys 0-3 masked", iters=3)
+    check_no_visible_key(torch, o, v, mask, slice(0, 4), 0, "keys 0-3 masked")
+    check_single_tile(torch, rng)
+    return {name: (*main[name], {"at_seq_8192_batch_4": {
+        "max_abs_err": long[name][0], "ms": long[name][1],
+        "plain_ms": long[name][2]}}) for name in main}
+
+
+# --------------------------------------------------------------------------
+# Phase 6: serving
 # --------------------------------------------------------------------------
 
 def launch_counts():
@@ -470,9 +647,9 @@ def phase_serve(torch, smi, model_cpu):
     counts = launch_counts()
     n_fwd = len(REQUESTS)  # each request is one padded batch
     blocks = geom["n_blocks"]
-    want = {"bspline_kan": n_fwd, "bspline_qkv_grouped": n_fwd * blocks,
-            "flash_attention_lanes": n_fwd * blocks, "bspline_kan_bwd": 0,
-            "bspline_qkv_grouped_bwd": 0, "flash_attention_lanes_bwd": 0}
+    want = {k: 0 for k in counts}
+    want.update(bspline_kan=n_fwd, bspline_qkv_grouped=n_fwd * blocks,
+                flash_attention_lanes=n_fwd * blocks)
     print(f"[main] launches over {n_fwd} forward batches: {counts} "
           f"(want {want}: 1 + {blocks} + {blocks} per batch, no backward)")
     check(counts == want, f"launch counts {counts} != {want}")
@@ -516,7 +693,7 @@ def phase_serve(torch, smi, model_cpu):
 
 
 # --------------------------------------------------------------------------
-# Phase 6: training
+# Phase 7: training
 # --------------------------------------------------------------------------
 
 def device_ms(torch, fn):
@@ -543,10 +720,11 @@ def phase_train(torch, smi, model_cpu):
     y = torch.from_numpy(rng.integers(0, geom["out_d"], BATCH)).cuda()
     state = create_train_state(model, 1e-3)
     step = make_train_step()
-    per_step = {"bspline_kan": 1, "bspline_qkv_grouped": blocks,
-                "flash_attention_lanes": blocks, "bspline_kan_bwd": 1,
-                "bspline_qkv_grouped_bwd": blocks,
-                "flash_attention_lanes_bwd": blocks}
+    per_step = {k: 0 for k in launch_counts()}
+    per_step.update(bspline_kan=1, bspline_qkv_grouped=blocks,
+                    flash_attention_lanes=blocks, bspline_kan_bwd=1,
+                    bspline_qkv_grouped_bwd=blocks,
+                    flash_attention_lanes_bwd=blocks)
 
     reset_counts()
     losses, steps_ok = [], True
@@ -629,6 +807,9 @@ KERNEL_GROUPS = (
                      "sum_splits_kernel")),
     ("attention fwd", ("attention_lanes_fwd_kernel",)),
     ("attention bwd", ("attention_lanes_dq_kernel", "attention_lanes_dkv_kernel")),
+    ("tiled attention fwd", ("flash_fwd_kernel",)),
+    ("tiled attention dq", ("flash_dq_kernel",)),
+    ("tiled attention dk/dv", ("flash_dkv_kernel",)),
     ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
     ("Adam", ("multi_tensor", "adam", "Adam")),
 )
@@ -675,7 +856,166 @@ def phase_profile(torch, step, state, x, y, label, steps=2):
 
 
 # --------------------------------------------------------------------------
-# Phase 7: the reference preset through the port's bench
+# Phase 8: decoder training
+# --------------------------------------------------------------------------
+
+def decoder_parts(torch, model, tokens):
+    """Device ms of forward + loss, backward and an Adam step (CUDA events),
+    medians of 3."""
+    from kanvit_torch import bench_decoder as BD
+
+    opt = torch.optim.Adam(model.parameters(), lr=1e-3)
+    parts = {"forward+loss": [], "backward": [], "optimizer": []}
+    for _ in range(3):
+        opt.zero_grad()
+        loss, ev_f = device_ms(torch, lambda: BD.lm_loss(model(tokens), tokens))
+        _, ev_b = device_ms(torch, loss.backward)
+        _, ev_o = device_ms(torch, opt.step)
+        torch.cuda.synchronize()
+        for key, (a, b) in zip(parts, (ev_f, ev_b, ev_o)):
+            parts[key].append(a.elapsed_time(b))
+    return {k: float(np.median(v)) for k, v in parts.items()}
+
+
+def decoder_grads_against_cpu(torch, tokens):
+    """Parameter gradients of a 1-sequence batch on the card against the
+    same model's on the CPU; the worst max|err| / max|g| over tensors."""
+    from kanvit_torch import bench_decoder as BD
+
+    cpu = BD.build_model(**DECODER, seed=SEED)
+    gpu = copy.deepcopy(cpu).cuda()
+    one = tokens[:1]
+    BD.lm_loss(gpu(one), one).backward()
+    BD.lm_loss(cpu(one.cpu()), one.cpu()).backward()
+    worst, worst_name = 0.0, ""
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        scale = float(pc.grad.abs().max())
+        err = float((pg.grad.cpu() - pc.grad).abs().max())
+        rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def phase_decoder(torch, smi):
+    from kanvit_torch import bench_decoder as BD
+
+    blocks = DECODER["n_blocks"]
+    per_step = {k: 0 for k in launch_counts()}
+    per_step.update(flash_attention=blocks, flash_attention_dq=blocks,
+                    flash_attention_dkv=blocks)
+    launches = {k: 0 for k in per_step}
+    out = []
+    for seq, batch in DECODER_CONFIGS:
+        model = BD.build_model(**DECODER, seed=SEED).cuda()
+        tokens = BD.make_tokens(batch, seq, DECODER["vocab"], SEED).cuda()
+        step = BD.make_step(model)
+        reset_counts()
+        losses, steps_ok = [], True
+        for _ in range(TRAIN_STEPS):
+            before = launch_counts()
+            losses.append(step(tokens))
+            after = launch_counts()
+            steps_ok &= {k: after[k] - before[k] for k in after} == per_step
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        launches = {k: launches[k] + counts[k] for k in launches}
+        losses = [float(v) for v in losses]
+        label = f"decoder seq {seq} batch {batch}"
+        print(f"[decoder] {label}, {TRAIN_STEPS} Adam(1e-3) steps on one batch: "
+              f"losses {[round(v, 6) for v in losses]}")
+        print(f"[decoder] launches over {TRAIN_STEPS} steps: {counts} (want per "
+              f"step {blocks} tiled forward, {blocks} dq, {blocks} dk/dv, nothing else)")
+        check(steps_ok, f"{label}: a step's launches differ from {per_step}")
+        check(all(np.isfinite(losses)), f"{label}: losses are not finite: {losses}")
+        check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
+        result = {"seq": seq, "batch": batch, "losses": losses}
+        if seq == DECODER_CONFIGS[0][0]:
+            worst, name = decoder_grads_against_cpu(torch, tokens)
+            print(f"[decoder] {label}: gradients of 1 sequence, GPU against CPU, per "
+                  f"tensor: worst max|err| / max|g| {worst:.3e} ({name})  limit "
+                  f"{TOL_GRADS:.0e}")
+            check(worst <= TOL_GRADS, f"{label}: GPU gradients differ from the "
+                                      f"CPU's: {name} {worst:.3e}")
+            result["grad_rel_err"] = worst
+        parts = decoder_parts(torch, model, tokens)
+        total = sum(parts.values())
+        print(f"[decoder] {label}: device ms per step: " + ", ".join(
+            f"{k} {v:.2f} ({v / total:.1%})" for k, v in parts.items()))
+        result["parts_ms"] = parts
+        result["profile"] = phase_profile(torch, lambda *_: step(tokens), None, None,
+                                          None, label)
+        impls = ("kernel", "plain") if seq == DECODER_CONFIGS[0][0] else ("kernel",)
+        for impl in impls:
+            r = BD.bench_config(seq, batch, **DECODER, steps=5, warmup=2, impl=impl,
+                                seed=SEED)
+            print(f"[decoder] {json.dumps(r)}")
+            print(f"[decoder] {label} impl={impl}: {r['tokens_per_sec']:.1f} tokens/s, "
+                  f"{r['step_ms']:.2f} ms per step  [{smi}]")
+            check(np.isfinite(r["loss"]) and r["step_ms"] > 0, f"{label}: bench result")
+            result[impl] = r
+        out.append(result)
+        del model, step
+        torch.cuda.empty_cache()
+    return {"launches": launches, "configs": out}
+
+
+# --------------------------------------------------------------------------
+# Phase 9: flash-attn serving
+# --------------------------------------------------------------------------
+
+def phase_flash_serve(torch, smi):
+    from kanvit_torch.infer import Predictor
+    from kanvit_torch.models import PRESETS, create_model
+
+    geom = PRESETS["vit-s"]
+    model_cpu = create_model("flash-attn", **geom, seed=SEED)
+    model = copy.deepcopy(model_cpu).cuda()
+    pred = Predictor(model, batch_size=BATCH, device="cuda")
+    rng = np.random.default_rng(SEED + 5)
+    images = rng.standard_normal((sum(REQUESTS), *geom["chw"])).astype(np.float32)
+    bounds = np.cumsum((0,) + REQUESTS)
+    reqs = [images[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+    reset_counts()
+    logits = [pred.logits(r) for r in reqs]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want["flash_attention_lanes"] = len(REQUESTS) * geom["n_blocks"]
+    print(f"[flash-serve] vit-s flash-attn f32, launches over {len(REQUESTS)} "
+          f"batches: {counts} (want {geom['n_blocks']} lanes forward per batch, "
+          "nothing else)")
+    check(counts == want, f"flash-attn serving launches {counts} != {want}")
+    for r, y in zip(reqs, logits):
+        check(y.shape == (len(r), geom["out_d"]) and bool(np.isfinite(y).all()),
+              f"flash-attn logits {y.shape}")
+    with torch.inference_mode():
+        ref = model_cpu(torch.from_numpy(reqs[0][:2])).numpy()
+    err = float(np.abs(logits[0][:2] - ref).max())
+    print(f"[flash-serve] logits of 2 images, GPU against CPU plain forward: "
+          f"max|err| {err:.3e}  limit {TOL_LOGITS:.0e}")
+    check(err <= TOL_LOGITS, f"flash-attn GPU logits differ from the CPU's by {err}")
+    for _ in range(3):
+        pred.logits(reqs[0])
+    torch.cuda.synchronize()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pred.logits(reqs[0])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    x = torch.from_numpy(reqs[0]).cuda()
+    with torch.inference_mode():
+        fwd_ms = time_ms(torch, lambda: model(x), iters=10)
+    print(f"[flash-serve] Predictor.logits steady state, batch {BATCH}: "
+          f"{iters * BATCH / secs:.1f} images/s ({secs / iters * 1e3:.2f} ms per batch, "
+          f"host to host); device forward {fwd_ms:.2f} ms per batch  [{smi}]")
+    return {"launches": counts, "logits_err": err, "device_forward_ms": fwd_ms}
+
+
+# --------------------------------------------------------------------------
+# Phase 10: the reference preset through the port's bench
 # --------------------------------------------------------------------------
 
 def phase_bench(torch, smi):
@@ -707,7 +1047,7 @@ def phase_bench(torch, smi):
 
 
 # --------------------------------------------------------------------------
-# Phase 8: results
+# Phase 11: results
 # --------------------------------------------------------------------------
 
 SOURCES = {
@@ -723,7 +1063,21 @@ SOURCES = {
                                 "kanvit/kernels/fused_basis.py:1278"),
     "flash_attention_lanes_bwd": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
                                   "kanvit/kernels/flash_attention.py:604"),
+    "flash_attention": ("kanvit_torch/kernels/csrc/flash_attention.cu",
+                        "kanvit/kernels/flash_attention.py:132"),
+    "flash_attention_dq": ("kanvit_torch/kernels/csrc/flash_attention.cu",
+                           "kanvit/kernels/flash_attention.py:806"),
+    "flash_attention_dkv": ("kanvit_torch/kernels/csrc/flash_attention.cu",
+                            "kanvit/kernels/flash_attention.py:831"),
 }
+# The single-tile tier of flash_attention runs the lanes kernels (phase 5).
+ALSO_REPLACES = {
+    "flash_attention_lanes": ["kanvit/kernels/flash_attention.py:410"],
+    "flash_attention_lanes_bwd": ["kanvit/kernels/flash_attention.py:442"],
+}
+# The main path each kernel must have been launched on.
+MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
+             "flash_attention_dkv": "decoder"}
 
 
 def main():
@@ -731,19 +1085,28 @@ def main():
     phase_build()
     results = phase_kernels(torch)
     results.update(phase_backward_kernels(torch))
+    results.update(phase_flash_kernels(torch))
     model_cpu = build_model()
-    serve = phase_serve(torch, smi, model_cpu)
-    train = phase_train(torch, smi, model_cpu)
+    paths = {"serve": phase_serve(torch, smi, model_cpu)["launches"],
+             "train": phase_train(torch, smi, model_cpu)["launches"],
+             "decoder": phase_decoder(torch, smi)["launches"],
+             "flash_serve": phase_flash_serve(torch, smi)["launches"]}
     phase_bench(torch, smi)
     kernels = []
-    for name, (err, ms, plain_ms) in results.items():
+    for name, (err, ms, plain_ms, *extra) in results.items():
         src, replaces = SOURCES[name]
-        by_path = {"serve": serve["launches"][name], "train": train["launches"][name]}
-        check(by_path["train"] > 0, f"the training path never launched {name}")
-        kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": replaces, "launches": sum(by_path.values()),
-                        "launches_by_path": by_path,
-                        "max_abs_err": err, "ms": ms, "plain_ms": plain_ms})
+        by_path = {path: counts[name] for path, counts in paths.items()}
+        main_path = MAIN_PATH.get(name, "train")
+        check(by_path[main_path] > 0, f"the {main_path} path never launched {name}")
+        entry = {"name": name, "route": "cuda", "source": src,
+                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "launches_by_path": by_path,
+                 "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+        if name in ALSO_REPLACES:
+            entry["also_replaces"] = ALSO_REPLACES[name]
+        for more in extra:
+            entry.update(more)
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -42,6 +42,12 @@ SIGNATURES = {
     "kanvit_attention_lanes_bwd": (
         [_p, _p, _p, *[_i64] * 9, *[_p] * 8, _i32, _i32, _i32, _i32, _i32,
          _f32, _p], _i32),
+    "kanvit_flash_attention_fwd": (
+        [_p, _p, _p, *[_i64] * 9, *[_p] * 3, *[_i32] * 6, _f32, _p], _i32),
+    "kanvit_flash_attention_dq": (
+        [_p, _p, _p, *[_i64] * 9, *[_p] * 6, *[_i32] * 6, _f32, _p], _i32),
+    "kanvit_flash_attention_dkv": (
+        [_p, _p, _p, *[_i64] * 9, *[_p] * 6, *[_i32] * 6, _f32, _p], _i32),
 }
 
 _lib: ctypes.CDLL | None = None

@@ -56,6 +56,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include "attention_common.cuh"
+
 namespace {
 
 constexpr int BQ = 64;   // query rows per block, one thread each
@@ -154,29 +156,6 @@ attention_lanes_fwd_kernel(const float* __restrict__ q,
     }
   }
 }
-
-// Sum of a two-thread row's halves (the pair are neighbouring lanes).
-__device__ __forceinline__ float pair_sum(float x) {
-  return x + __shfl_xor_sync(0xffffffffu, x, 1);
-}
-
-// Four floats from shared memory, 16-byte aligned.
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
-
-// Row pitch of a staged (rows, DH) tile: half 1 of a row starts 4 floats
-// late when DH/2 is a multiple of 32 floats, so the pair's two 16-byte
-// reads fall in different banks. Every half row starts 16-byte aligned.
-template <int DH>
-struct Tile {
-  static constexpr int HD = DH / 2;
-  static constexpr int PAD = (HD % 32 == 0) ? 4 : 0;
-  static constexpr int PITCH = DH + PAD;
-  static __device__ __forceinline__ int at(int half, int d) {
-    return half * (HD + PAD) + d;
-  }
-};
 
 // dq and delta. One block per (query tile of BR rows, head, batch), two
 // threads per query row.

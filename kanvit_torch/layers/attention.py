@@ -15,6 +15,10 @@ reads the three q/k/v slices of its output in place. Both are
 differentiable: autograd reaches their backward kernels on the card, and
 the per-head weight stacking carries the packed weight's gradient back to
 each head's KANLinear.
+
+``FlashAttentionBlock`` is the reference's flash-attention module
+(``attention.py:13-109``): bias-free ``to_q`` / ``to_kv`` / ``to_out``
+around the lanes or the tiled attention, chosen as kanvit chooses them.
 """
 
 from __future__ import annotations
@@ -24,7 +28,7 @@ from torch import nn
 
 from kanvit_torch.kernels import flash_attention as FA
 from kanvit_torch.kernels import fused_basis as FB
-from kanvit_torch.layers.kan import KANLinear
+from kanvit_torch.layers.kan import KANLinear, TorchLinear
 
 # Projection kinds of the reference MSA dispatch table
 # (``_head_projection_cls_and_kwargs``) that are not ported yet.
@@ -93,3 +97,62 @@ class MSA(nn.Module):
         y4 = y.view(b, t, h, 3 * dh)
         q, k, v = (y4[..., i * dh:(i + 1) * dh] for i in range(3))
         return FA.flash_attention_lanes(q, k, v, h)
+
+
+class FlashAttentionBlock(nn.Module):
+    """Flash-attention module (counterpart of kanvit's
+    ``layers/attention.py:581-676``).
+
+    Projections ``to_q (dim -> h*dh)``, ``to_kv (dim -> 2*h*dh)`` and
+    ``to_out (h*dh -> dim)``, all bias-free ``TorchLinear``; default
+    ``dim_head=64``. Where kanvit's ``_lanes_ok`` and bucket guard hold, the
+    attention runs on the head-concatenated projections in place
+    (``flash_attention_lanes``); elsewhere on ``(B, H, T, dh)`` views of
+    them (``flash_attention``, which takes kanvit's single-tile or tiled
+    tier). Ring attention (``seq_axis``) is not ported.
+    """
+
+    def __init__(self, dim: int, heads: int = 8, dim_head: int = 64,
+                 causal: bool = False, q_bucket_size: int = 512,
+                 k_bucket_size: int = 1024, seq_axis: str | None = None, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        if seq_axis is not None:
+            raise NotImplementedError(
+                "ring attention (seq_axis) is not ported to kanvit_torch yet "
+                "(ROADMAP.md, Queue 1 item 8)")
+        self.heads = heads
+        self.dim_head = dim_head
+        self.causal = causal
+        self.q_bucket_size = q_bucket_size
+        self.k_bucket_size = k_bucket_size
+        inner = heads * dim_head
+        self.to_q = TorchLinear(dim, inner, use_bias=False, generator=generator)
+        self.to_kv = TorchLinear(dim, 2 * inner, use_bias=False,
+                                 generator=generator)
+        self.to_out = TorchLinear(inner, dim, use_bias=False, generator=generator)
+
+    def forward(self, x: torch.Tensor, context: torch.Tensor | None = None,
+                mask: torch.Tensor | None = None,
+                q_bucket_size: int | None = None,
+                k_bucket_size: int | None = None) -> torch.Tensor:
+        """``(B, T, dim) -> (B, T, dim)``; ``context`` ``(B, Tk, dim)`` for
+        the keys and values, ``mask`` an optional ``(B, Tk)`` key mask."""
+        qb = q_bucket_size or self.q_bucket_size
+        kb = k_bucket_size or self.k_bucket_size
+        h, dh = self.heads, self.dim_head
+        q = self.to_q(x)
+        k, v = self.to_kv(x if context is None else context).chunk(2, dim=-1)
+        b, t, inner = q.shape
+        tk = k.shape[1]
+        if FA.lanes_applicable(t, tk, inner, h, qb, kb):
+            out = FA.flash_attention_lanes(q, k, v, h, causal=self.causal,
+                                           mask=mask)
+        else:
+            out = FA.flash_attention(
+                q.view(b, t, h, dh).transpose(1, 2),
+                k.view(b, tk, h, dh).transpose(1, 2),
+                v.view(b, tk, h, dh).transpose(1, 2),
+                causal=self.causal, q_block=qb, k_block=kb, mask=mask,
+            ).transpose(1, 2).reshape(b, t, inner)
+        return self.to_out(out)

@@ -2,9 +2,11 @@
 
 Reference ``model.py:40-169``: patchify -> patch embedding -> [class] token
 -> sinusoidal position table (quirk parity) -> N pre-LN encoder blocks ->
-LN + Linear head on the class token. Only the ``efficientkan`` variant is
-ported, for serving and training (``kanvit_torch.train``); the other variant
-keys raise ``NotImplementedError``.
+LN + Linear head on the class token. Ported, for serving and training
+(``kanvit_torch.train``): ``efficientkan`` (KANLinear embedder, pre-LN
+blocks) and ``flash-attn`` (Linear embedder, raw ``FlashAttentionBlock``s
+with no LayerNorm, FF or residual, reference ``model.py:93-95,156-159``);
+the other variant keys raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -13,6 +15,7 @@ import torch
 from torch import nn
 
 from kanvit_torch import VARIANTS
+from kanvit_torch.layers.attention import FlashAttentionBlock
 from kanvit_torch.layers.kan import KANLinear, TorchLinear
 from kanvit_torch.layers.transformer import TransformerBlock
 from kanvit_torch.ops.patchify import patchify
@@ -32,7 +35,7 @@ PRESETS = {
                   d_hidden=1024, n_heads=16, out_d=1000),
 }
 
-PORTED = ("efficientkan",)
+PORTED = ("efficientkan", "flash-attn")
 
 
 class VisionTransformer(nn.Module):
@@ -64,7 +67,8 @@ class VisionTransformer(nn.Module):
         self.type = type
         input_d = c * (h // n_patches) * (w // n_patches)
 
-        self.linear_mapper = KANLinear(input_d, d_hidden, generator=generator)
+        mapper = TorchLinear if type == "flash-attn" else KANLinear
+        self.linear_mapper = mapper(input_d, d_hidden, generator=generator)
         # Classification token (reference model.py:83: torch.randn)
         self.v_class = nn.Parameter(torch.randn(1, d_hidden, generator=generator))
         self.register_buffer(
@@ -73,11 +77,15 @@ class VisionTransformer(nn.Module):
                 n_patches ** 2 + 1, d_hidden)),
             persistent=False,
         )
-        self.blocks = nn.ModuleList(
-            TransformerBlock(d_hidden, n_heads, feedforward_dim=4 * d_hidden,
-                             attn_type=type, generator=generator)
-            for _ in range(n_blocks)
-        )
+        if type == "flash-attn":
+            blocks = (FlashAttentionBlock(d_hidden, n_heads, generator=generator)
+                      for _ in range(n_blocks))
+        else:
+            blocks = (TransformerBlock(d_hidden, n_heads,
+                                       feedforward_dim=4 * d_hidden,
+                                       attn_type=type, generator=generator)
+                      for _ in range(n_blocks))
+        self.blocks = nn.ModuleList(blocks)
         self.mlp_head = nn.Sequential(
             nn.LayerNorm(d_hidden, eps=1e-5),
             TorchLinear(d_hidden, out_d, generator=generator),

@@ -6,7 +6,10 @@
 head-concatenated layout and the same edge semantics as the TPU kernel
 (``kanvit/kernels/flash_attention.py:312-341``), which differ from
 ``multi_head_attention`` on a fully masked row: there the kernel outputs 0
-where plain softmax gives a uniform row.
+where plain softmax gives a uniform row. ``flash_attention_reference`` is the
+plain version of the tiled attention kernels
+(``kanvit_torch.kernels.flash_attention.flash_attention``), a copy of
+``kanvit/ops/attention.py::flash_attention_reference``.
 """
 
 from __future__ import annotations
@@ -82,3 +85,62 @@ def lanes_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     l = p.sum(dim=-1, keepdim=True).clamp_min(EPSILON)
     o = (p @ vh) * (1.0 / l)
     return o.transpose(1, 2).reshape(b, t, h * dh)
+
+
+def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                              causal: bool = False, q_block: int = 512,
+                              k_block: int = 1024,
+                              mask: torch.Tensor | None = None):
+    """Blocked online-softmax attention; returns ``(o, lse)``.
+
+    ``q`` ``(B, H, Tq, D)``; ``k, v`` ``(B, H, Tk, D)``; optional key mask
+    ``(B, Tk)`` (True = attend). For each ``q_block`` tile the ``k_block``
+    tiles stream through a running row max ``m`` and row sum ``l``; blocks
+    are capped at the 8-aligned sequence length. The edge semantics are the
+    TPU tiled kernel's, and differ from ``lanes_attention``'s:
+    - masked scores are the finite float32 min, not -inf, and ``p`` is
+      re-zeroed only on invalid (masked or padded) keys, so a row that sees
+      no valid key causally gets ``exp(min - min) = 1`` on every valid key:
+      the uniform mean of v over the valid keys, later keys included;
+    - causal rows sit at ``qpos = row - max(tk - tq, 0)`` (the reference's
+      sign, the opposite of ``multi_head_attention``'s ``tril(tk - tq)``);
+    - each block's row sum, and the final ``l``, is clamped at 1e-10.
+    Autograd differentiates it.
+    """
+    q, k, v = (t.to(torch.float32) for t in (q, k, v))
+    b, h, tq, d = q.shape
+    tk = k.shape[2]
+    scale = d ** -0.5
+    qk_len_diff = max(tk - tq, 0)
+    q_block = min(q_block, -(-tq // 8) * 8)
+    k_block = min(k_block, -(-tk // 8) * 8)
+    keys = (torch.ones(b, tk, dtype=torch.bool, device=q.device) if mask is None
+            else mask.to(torch.bool))
+    outs, lses = [], []
+    for q0 in range(0, tq, q_block):
+        qc = q[:, :, q0:q0 + q_block]
+        qpos = torch.arange(q0, q0 + qc.shape[2], device=q.device) - qk_len_diff
+        o = torch.zeros_like(qc)
+        m = torch.full((b, h, qc.shape[2], 1), NEG, device=q.device)
+        l = torch.zeros(b, h, qc.shape[2], 1, device=q.device)
+        for k0 in range(0, tk, k_block):
+            kc, vc = k[:, :, k0:k0 + k_block], v[:, :, k0:k0 + k_block]
+            s = (qc @ kc.transpose(-1, -2)) * scale
+            key_valid = keys[:, None, None, k0:k0 + k_block]
+            s = torch.where(key_valid, s, NEG)
+            if causal:
+                kpos = torch.arange(k0, k0 + kc.shape[2], device=q.device)
+                s = torch.where(qpos[:, None] >= kpos[None, :], s, NEG)
+            m_new = torch.maximum(s.amax(dim=-1, keepdim=True), m)
+            p = torch.where(key_valid, torch.exp(s - m_new), 0.0)
+            block_sum = p.sum(dim=-1, keepdim=True).clamp_min(EPSILON)
+            correction = torch.exp(m - m_new)
+            l = correction * l + block_sum
+            o = o * correction + p @ vc
+            m = m_new
+        l = l.clamp_min(EPSILON)
+        outs.append(o / l)
+        lses.append((torch.log(l) + m)[..., 0])
+    # The last tile of each axis may be short where the JAX reference pads
+    # it: padded keys are invalid there (p = 0) and padded rows are dropped.
+    return torch.cat(outs, dim=2), torch.cat(lses, dim=2)

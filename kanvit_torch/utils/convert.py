@@ -44,7 +44,8 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, np.ndarray]:
     reference's per-head ``ModuleList`` entries; flax LayerNorm
     ``scale``/``bias`` become ``weight``/``bias``. Same output as
     ``kanvit.utils.torch_compat.torch_state_dict_from_params`` on an
-    efficientkan tree.
+    efficientkan or flash-attn tree. A ``CausalDecoder`` tree (``embed``,
+    ``blocks_N``, ``norm``, ``lm_head``) maps to ``CausalDecoder``'s names.
     """
     sd: Dict[str, np.ndarray] = {}
 
@@ -54,12 +55,15 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, np.ndarray]:
     for top, sub in params.items():
         if top == "v_class":
             emit("v_class", sub)
-        elif top == "linear_mapper":
+        elif top == "embed":
+            emit("embed.weight", sub["embedding"])
+        elif top in ("linear_mapper", "lm_head"):
             for leaf, arr in sub.items():
-                emit(f"linear_mapper.{_leaf(top, leaf)}", arr)
-        elif top == "head_norm":
-            emit("mlp_head.0.weight", sub["scale"])
-            emit("mlp_head.0.bias", sub["bias"])
+                emit(f"{top}.{_leaf(top, leaf)}", arr)
+        elif top in ("head_norm", "norm"):
+            name = "mlp_head.0" if top == "head_norm" else top
+            emit(f"{name}.weight", sub["scale"])
+            emit(f"{name}.bias", sub["bias"])
         elif top == "head_linear":
             emit("mlp_head.1.weight", sub["weight"])
             emit("mlp_head.1.bias", sub["bias"])
@@ -72,6 +76,9 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, np.ndarray]:
                 elif name in ("ff_0", "ff_2"):
                     for leaf, arr in node.items():
                         emit(f"blocks.{blk}.ff.{name[-1]}.{_leaf(name, leaf)}", arr)
+                elif name in ("to_q", "to_kv", "to_out"):
+                    for leaf, arr in node.items():
+                        emit(f"blocks.{blk}.{name}.{_leaf(name, leaf)}", arr)
                 elif name == "attn":
                     for proj, leaves in node.items():
                         n_heads = len(next(iter(leaves.values())))

@@ -239,3 +239,129 @@ def test_train_step_on_card(cuda):
     assert FB.LAUNCHES["bspline_kan_bwd"] == 2
     assert FB.LAUNCHES["bspline_qkv_grouped_bwd"] == 4
     assert FA.LAUNCHES["flash_attention_lanes_bwd"] == 4
+
+
+# --- the tiled attention (flash_attention.cu) and its model family ------------
+
+def _flash_inputs(rng, b, h, tq, tk, dh, masked):
+    """q, k, v as (B, H, T, dh) views of (B, T, H, dh) projections; the key
+    mask hides keys 0-3 of item 0 (causal rows there see no valid key) and
+    every key of item 1."""
+    q = torch.from_numpy(rng.standard_normal((b, tq, h, dh)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((b, tk, h, dh)).astype(np.float32))
+            for _ in range(2))
+    mask = None
+    if masked:
+        mask = torch.from_numpy(rng.random((b, tk)) > 0.2)
+        mask[0, :4] = False
+        if b > 1:
+            mask[1] = False
+    return [a.cuda().transpose(1, 2) for a in (q, k, v)], (
+        None if mask is None else mask.cuda())
+
+
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, False),
+                                           (False, True), (True, True)])
+@pytest.mark.parametrize("b,h,tq,tk,dh,blocks", [
+    (2, 3, 200, 200, 64, (128, 128)),
+    (2, 2, 300, 517, 32, (512, 1024)),   # tq < tk: rows with qpos < 0
+    (2, 2, 517, 300, 16, (512, 1024)),   # tq > tk
+    (1, 4, 1100, 1100, 64, (512, 1024)),
+])
+def test_flash_attention_kernels(cuda, b, h, tq, tk, dh, blocks, causal, masked):
+    """Forward within 1e-5 and dq, dk, dv within 1e-4 (x max(1, max|y|)) of
+    autograd through ``flash_attention_reference`` on the card."""
+    rng = np.random.default_rng(49)
+    (q, k, v), mask = _flash_inputs(rng, b, h, tq, tk, dh, masked)
+    g = torch.from_numpy(rng.standard_normal((b, h, tq, dh)).astype(np.float32)).cuda()
+    assert not FA.use_small(tq, tk, dh, h, *blocks)
+    keys = None if mask is None else mask
+    out, got = _grads(lambda *a: FA.flash_attention(*a, causal, *blocks, mask),
+                      [q, k, v], g)
+    ref, want = _grads(lambda *a: A.flash_attention_reference(
+        *a, causal, *blocks, keys)[0], [q, k, v], g)
+    _close(out, ref, 1e-5)
+    for a, w in zip(got, want):
+        _close(a, w, 1e-4)
+    assert (FA.LAUNCHES["flash_attention"], FA.LAUNCHES["flash_attention_dq"],
+            FA.LAUNCHES["flash_attention_dkv"]) == (1, 1, 1)
+    assert FA.LAUNCHES["flash_attention_lanes"] == 0
+
+
+def test_flash_attention_backward_repeats_its_bits(cuda):
+    rng = np.random.default_rng(50)
+    (q, k, v), mask = _flash_inputs(rng, 2, 4, 700, 700, 64, True)
+    g = torch.randn(2, 4, 700, 64, device=cuda)
+    fn = lambda *a: FA.flash_attention(*a, True, 512, 1024, mask)  # noqa: E731
+    first, second = _grads(fn, [q, k, v], g), _grads(fn, [q, k, v], g)
+    assert torch.equal(first[0], second[0])
+    assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
+
+
+def test_flash_attention_single_tile_route(cuda):
+    """Where kanvit's ``_use_small`` holds, ``flash_attention`` runs the lanes
+    kernels on (B, T, H, dh) views: a row with no visible valid key is 0."""
+    rng = np.random.default_rng(51)
+    (q, k, v), mask = _flash_inputs(rng, 3, 2, 100, 100, 32, True)
+    g = torch.from_numpy(rng.standard_normal((3, 2, 100, 32)).astype(np.float32)).cuda()
+    assert FA.use_small(100, 100, 32, 2, 512, 1024)
+
+    def plain(q, k, v):
+        o = A.lanes_attention(*(a.transpose(1, 2) for a in (q, k, v)), 2,
+                              causal=True, mask=mask)
+        return o.view(3, 100, 2, 32).transpose(1, 2)
+
+    out, got = _grads(lambda *a: FA.flash_attention(*a, True, 512, 1024, mask),
+                      [q, k, v], g)
+    ref, want = _grads(plain, [q, k, v], g)
+    _close(out, ref, 1e-5)
+    for a, w in zip(got, want):
+        _close(a, w, 1e-4)
+    assert bool((out[0, :, :4] == 0).all())
+    assert (FA.LAUNCHES["flash_attention_lanes"], FA.LAUNCHES["flash_attention_lanes_bwd"],
+            FA.LAUNCHES["flash_attention"]) == (1, 1, 0)
+
+
+def test_flash_kernels_raise_not_fall_back(cuda):
+    q = torch.zeros(1, 2, 600, 24, device=cuda)
+    with pytest.raises(ValueError, match="head dim"):
+        FA.flash_attention(q, q, q, True)
+    q = torch.zeros(1, 2, 600, 32, device=cuda, dtype=torch.float64)
+    with pytest.raises(TypeError, match="float32"):
+        FA.flash_attention(q, q, q, True)
+    assert sum(FA.LAUNCHES.values()) == 0
+
+
+def test_decoder_train_step_on_card(cuda):
+    """Two LM steps of a 2-block decoder at T = 600 (tiled tier) on the card
+    against the same steps on the CPU: losses and params within 1e-4."""
+    import copy
+
+    from kanvit_torch import bench_decoder as BD
+
+    cpu = BD.build_model(64, 2, 2, 128, seed=6)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    tokens = BD.make_tokens(2, 600, 128)
+    sc, sg = BD.make_step(cpu), BD.make_step(gpu)
+    for _ in range(2):
+        lc, lg = sc(tokens), sg(tokens.to(cuda))
+        assert abs(float(lc) - float(lg)) <= 1e-4
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        assert float((pc - pg.cpu()).detach().abs().max()) <= 1e-4, name
+    assert (FA.LAUNCHES["flash_attention"], FA.LAUNCHES["flash_attention_dq"],
+            FA.LAUNCHES["flash_attention_dkv"], FA.LAUNCHES["flash_attention_lanes"]
+            ) == (4, 4, 4, 0)
+
+
+def test_flash_vit_forward_on_card(cuda):
+    from kanvit_torch.models import create_model
+
+    model = create_model("flash-attn", chw=(1, 28, 28), n_patches=7, n_blocks=2,
+                         d_hidden=64, n_heads=2, out_d=10)
+    x = torch.from_numpy(np.random.default_rng(52).standard_normal(
+        (5, 1, 28, 28)).astype(np.float32))
+    with torch.inference_mode():
+        want = model(x)
+        got = model.to(cuda)(x.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-3
+    assert (FA.LAUNCHES["flash_attention_lanes"], FA.LAUNCHES["flash_attention"]) == (2, 0)

@@ -80,7 +80,8 @@ def test_bspline_kan_matches_pallas(n, nin, nout):
     assert _counts() == {"bspline_kan": 0, "bspline_qkv_grouped": 0,
                          "bspline_kan_bwd": 0, "bspline_qkv_grouped_bwd": 0,
                          "flash_attention_lanes": 0,
-                         "flash_attention_lanes_bwd": 0}
+                         "flash_attention_lanes_bwd": 0, "flash_attention": 0,
+                         "flash_attention_dq": 0, "flash_attention_dkv": 0}
 
 
 @pytest.mark.parametrize("n,h,dh", [(20, 2, 16), (13, 3, 8)])
@@ -475,7 +476,8 @@ def test_model_gradients_take_the_function_path(monkeypatch):
     assert _counts() == {"bspline_kan": 1, "bspline_qkv_grouped": 2,
                          "bspline_kan_bwd": 1, "bspline_qkv_grouped_bwd": 2,
                          "flash_attention_lanes": 2,
-                         "flash_attention_lanes_bwd": 2}
+                         "flash_attention_lanes_bwd": 2, "flash_attention": 0,
+                         "flash_attention_dq": 0, "flash_attention_dkv": 0}
     assert all(p.grad is not None and bool(p.grad.isfinite().all())
                for p in model.parameters())
 
