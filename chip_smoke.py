@@ -24,31 +24,39 @@ Phases, in order; any failure raises, so the script exits non-zero:
    ragged masked shapes whose rows see no valid key (``tq < tk`` and keys
    0-3 masked), with error and time of both; then ``flash_attention``'s
    single-tile route against ``lanes_attention``;
-6. serving: ``create_model("efficientkan", **PRESETS["vit-s"])`` served by
-   ``Predictor(batch_size=64, device="cuda")`` for three requests (64, 64
-   and 37 images), with the launch count of every kernel (no backward
-   launch), the logits of two images against the same model's CPU forward,
-   and the steady-state images/s;
-7. training: the same model, batch 64, 6 Adam steps on one fixed batch
-   through ``kanvit_torch.train`` (loss finite and falling, exactly
-   1 + 12 + 12 forward and 1 + 12 + 12 backward launches a step), the
-   gradients of a 4-image batch against the same model's CPU gradients,
-   the steady-state step time and images/s, and a ``torch.profiler``
-   breakdown of one step;
-8. decoder training through ``kanvit_torch.bench_decoder`` at
+6. the Chebyshev and Fourier kernels (forward, dx and dW) against their
+   plain versions and autograd through them on the card: ``chebykan`` and
+   ``fourierkan`` (grid 28) at the vit-s embedder's shapes (12,544 x 768
+   -> 384), ``cheby_qkv_grouped`` at the vit-s q/k/v (12,608 tokens, 6
+   heads of 64 -> 192), ragged narrow shapes of each, inputs where tanh
+   saturates (|x| >= 9.5) and Fourier inputs up to |x| = 10; the backward's
+   bits repeated; error and time of both;
+7. serving, through ``Predictor(batch_size=64, device="cuda")`` for three
+   requests (64, 64 and 37 images), of the vit-s ``efficientkan`` (1 + 12
+   + 12 launches a batch), ``flash-attn`` (12 lanes), ``cheby`` (1
+   ``chebykan`` + 12 ``cheby_qkv_grouped`` + 12 lanes), ``fourier`` (1
+   ``fourierkan`` + 12 lanes; q/k/v on cuBLAS) and ``vanilla`` (12 lanes)
+   models: exact launch counts and no backward launch, the logits of two
+   images against the same model's CPU forward, the steady-state images/s;
+8. training of the vit-s ``efficientkan``, ``cheby`` and ``fourier``
+   models, batch 64, 6 Adam steps on one fixed batch through
+   ``kanvit_torch.train``: loss finite and falling, exact forward and
+   backward launch counts a step, the embedder's backward computing dW
+   only, the gradients of a 4-image batch against the same model's CPU
+   gradients, the steady-state step time and images/s, and a
+   ``torch.profiler`` breakdown;
+9. decoder training through ``kanvit_torch.bench_decoder`` at
    ``benchmarks/causal_decoder.py``'s configs (d 256, 4 heads, 4 blocks,
    vocab 1024; seq 2048 batch 16 and seq 8192 batch 4): 6 Adam steps (loss
    finite and falling, exactly 4 tiled forward, 4 dq and 4 dk/dv launches a
    step and no lanes launch), the gradients of a 1-sequence batch at seq
    2048 against the CPU, tokens/s and ms a step of the kernel impl and, at
    seq 2048, of the plain impl, and a ``torch.profiler`` breakdown;
-9. flash-attn serving: ``create_model("flash-attn", **PRESETS["vit-s"])``
-   through ``Predictor`` for the same three requests (12 lanes launches a
-   batch, no tiled and no backward launch), GPU against CPU logits;
 10. the reference MNIST preset (batch 128) through ``kanvit_torch.bench``,
     whose JSON line is printed;
-11. one JSON line of per-kernel results, the card's ``nvidia-smi`` line, and
-    last the result line ``{"ok": true, "device": {...}}``.
+11. one JSON line of per-kernel results (each kernel's launches on its main
+    path, and by path), the card's ``nvidia-smi`` line, and last the result
+    line ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and kanvit_torch only (no jax).
 """
@@ -68,14 +76,21 @@ HERE = Path(__file__).resolve().parent
 BATCH = 64
 REQUESTS = (64, 64, 37)
 TOL_BSPLINE = 1e-4   # x max(1, max|y|): f32 sums of depth 6912 / 576 in another order
+# Chebyshev and Fourier forwards, x max(1, max|y|): f32 sums of depth 3840
+# (Chebyshev) and 43,008 (Fourier G 28) in another order, CUDA's sincosf and
+# tanhf against the CPU's (each within 2 ulp).
+TOL_KAN = 1e-4
 TOL_ATTN = 1e-5      # x max(1, max|y|): f32 softmax, reduction depth 197
 TOL_LOGITS = 1e-3    # GPU against CPU logits, 12 blocks deep
 # Backward kernels, x max(1, max|g|) per gradient: f32 sums of depth up to
 # 12,608 rows (dW), 3,456 (dx) and 197 (attention) in another order than
 # cuBLAS / autograd, and probabilities recomputed from the forward's (m, l).
 TOL_BWD = 1e-4
-# GPU against CPU parameter gradients of a 4-image step, x max|g| of each
-# tensor: f32 through 12 blocks with every sum in another order on each side.
+# GPU parameter gradients of a 4-image step against the CPU's in f64, x max|g|
+# of each tensor: f32 through 12 blocks. The reference is f64 because f32
+# rounding, on either side, flips ReLUs whose input lies within it of 0, and
+# one flip in an early block moves that block's FF gradient by ~2e-3 of its
+# max: the vit-s fourier model's CPU f32 gradients are 1.98e-3 from f64.
 TOL_GRADS = 1e-3
 TRAIN_STEPS = 6
 GRAD_IMAGES = 4
@@ -198,7 +213,8 @@ def check_bspline(torch, rng, n, nin, nout, label):
         torch.cuda.synchronize()
         err = compare(f"bspline_kan {label} N={n} {nin}->{nout}", y, ref, TOL_BSPLINE)
         w = FB.pack_weight(*p[1:]).unsqueeze(0).contiguous()
-        ms = time_ms(torch, lambda: FB._launch("bspline_kan", x, layer.grid, w, 3))
+        ms = time_ms(torch, lambda: FB._launch("bspline_kan", "bspline", x, w,
+                                               layer.grid))
         wrapper_ms = time_ms(torch, lambda: FB.bspline_kan(x, *p))
         plain_ms = time_ms(torch, lambda: K.bspline_kan_forward(x, *p))
     print(f"[kernel] bspline_kan {label}: kernel {ms:.4f} ms  (with weight packing "
@@ -230,7 +246,8 @@ def check_qkv(torch, rng, n, heads, dh, label):
         err = compare(f"bspline_qkv_grouped {label} N={n} H={heads} dh={dh}",
                       y, ref, TOL_BSPLINE)
         w = FB.pack_qkv_weight(bw, sw, sc).contiguous()
-        ms = time_ms(torch, lambda: FB._launch("bspline_qkv_grouped", x, grid, w, 3))
+        ms = time_ms(torch, lambda: FB._launch("bspline_qkv_grouped", "bspline", x,
+                                               w, grid))
         wrapper_ms = time_ms(torch, lambda: FB.bspline_qkv_grouped(x, grid, bw, sw, sc))
         plain_ms = time_ms(torch, plain)
     print(f"[kernel] bspline_qkv_grouped {label}: kernel {ms:.4f} ms  (with weight "
@@ -328,10 +345,10 @@ def check_bspline_bwd(torch, rng, n, nin, nout, label):
                         ("x", "base_weight", "spline_weight", "spline_scaler"),
                         got, want)
     w = FB.pack_weight(*inputs[1:]).unsqueeze(0).contiguous().detach()
-    ms = time_ms(torch, lambda: FB._launch_bwd("bspline_kan_bwd", x, grid, w, g,
-                                               True, True))
-    dw_ms = time_ms(torch, lambda: FB._launch_bwd("bspline_kan_bwd", x, grid, w, g,
-                                                  False, True))
+    ms = time_ms(torch, lambda: FB._launch_bwd("bspline_kan_bwd", "bspline", x, w,
+                                               grid, g, True, True))
+    dw_ms = time_ms(torch, lambda: FB._launch_bwd("bspline_kan_bwd", "bspline", x, w,
+                                                  grid, g, False, True))
     plain_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g,
                                                           retain_graph=True))
     print(f"[kernel] bspline_kan_bwd {label}: kernel dx+dW {ms:.4f} ms (dW alone, "
@@ -366,8 +383,8 @@ def check_qkv_bwd(torch, rng, n, heads, dh, label):
     err = compare_grads(f"bspline_qkv_grouped_bwd {label} N={n} H={heads} dh={dh}",
                         ("x", "bw", "sw", "sc"), got, want)
     w = FB.pack_qkv_weight(*inputs[1:]).contiguous()
-    ms = time_ms(torch, lambda: FB._launch_bwd("bspline_qkv_grouped_bwd", x, grid,
-                                               w, g, True, True))
+    ms = time_ms(torch, lambda: FB._launch_bwd("bspline_qkv_grouped_bwd", "bspline",
+                                               x, w, grid, g, True, True))
     plain_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g,
                                                           retain_graph=True))
     print(f"[kernel] bspline_qkv_grouped_bwd {label}: kernel {ms:.4f} ms  "
@@ -599,7 +616,128 @@ def phase_flash_kernels(torch):
 
 
 # --------------------------------------------------------------------------
-# Phase 6: serving
+# Phase 6: the Chebyshev and Fourier kernels against their plain versions
+# --------------------------------------------------------------------------
+
+def cheby_inputs(rng, shape, saturated):
+    """Normal inputs with a share where tanh(x) rounds to +-1 in f32
+    (|x| in [9.5, 20], either sign): there the kernels' derivative is
+    T'_n(+-1) (1 - t^2) = 0, and must be finite."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    flat = x.reshape(-1)
+    idx = rng.choice(flat.size, int(flat.size * saturated), replace=False)
+    flat[idx] = (rng.uniform(9.5, 20.0, idx.size)
+                 * rng.choice([-1.0, 1.0], idx.size)).astype(np.float32)
+    return x
+
+
+def fourier_inputs(rng, shape):
+    """Normal inputs, every 7th entry spread over [-10, 10]."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[::7] = rng.uniform(-10.0, 10.0, flat[::7].size).astype(np.float32)
+    return x
+
+
+def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
+                names):
+    """Forward, dx and the parameter gradients of a Chebyshev or Fourier
+    wrapper against its plain version and autograd through it, on the card;
+    the backward's bits repeated; CUDA-event times of the forward kernel,
+    the backward kernels (dx + dW, and dW alone, as on the training path),
+    the plain forward and autograd's backward. ``w`` is the packed weight
+    and ``aux`` the degree or grid size the kernels take. Returns the
+    ``(err, ms, plain_ms, extra)`` of the forward and of the backward."""
+    from kanvit_torch.kernels import fused_basis as FB
+
+    x = inputs[0]
+    with torch.inference_mode():
+        y = kernel(*inputs)
+        ref = plain(*inputs)
+        torch.cuda.synchronize()
+        err_fwd = compare(f"{name} {label} {tuple(x.shape)}", y, ref, TOL_KAN)
+    g = torch.from_numpy(rng.standard_normal(tuple(ref.shape))
+                         .astype(np.float32)).cuda()
+    _, _, got = grads_of(torch, kernel, inputs, g)
+    leaves, out, want = grads_of(torch, plain, inputs, g)
+    torch.cuda.synchronize()
+    err_bwd = compare_grads(f"{name}_bwd {label}", names, got, want)
+    _, _, again = grads_of(torch, kernel, inputs, g)
+    torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip(got, again))
+    print(f"[kernel] {name}_bwd {label}: a second backward repeats the bits: {same}")
+    check(same, f"{name}_bwd {label}: a second backward gave other bits")
+    with torch.inference_mode():
+        ms = time_ms(torch, lambda: FB._launch(name, family, x, w, aux))
+        plain_ms = time_ms(torch, lambda: plain(*inputs))
+    bwd_ms = time_ms(torch, lambda: FB._launch_bwd(f"{name}_bwd", family, x, w, aux,
+                                                   g, True, True))
+    dw_ms = time_ms(torch, lambda: FB._launch_bwd(f"{name}_bwd", family, x, w, aux,
+                                                  g, False, True))
+    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g,
+                                                              retain_graph=True))
+    print(f"[kernel] {name} {label}: forward kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
+          f" | backward kernels dx+dW {bwd_ms:.4f} ms (dW alone {dw_ms:.4f} ms)  "
+          f"plain autograd {plain_bwd_ms:.4f} ms")
+    return ((err_fwd, ms, plain_ms), (err_bwd, bwd_ms, plain_bwd_ms,
+                                      {"dw_only_ms": dw_ms}))
+
+
+def phase_basis_kernels(torch):
+    """``chebykan`` and ``fourierkan`` at the vit-s embedder (batch 64: 12,544
+    patches, 768 -> 384; Fourier grid 28), ``cheby_qkv_grouped`` at the
+    vit-s q/k/v (12,608 tokens, 6 heads, 64 -> 192 each), and ragged narrow
+    shapes of each. Coefficients of unit output scale."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    rng = np.random.default_rng(SEED + 6)
+
+    def cuda(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    results = {}
+
+    def keep(name, fwd_bwd):
+        results.setdefault(name, fwd_bwd[0])
+        results.setdefault(f"{name}_bwd", fwd_bwd[1])
+
+    for n, nin, nout, label in ((BATCH * 196, 768, 384, "vit-s embedder"),
+                                (1000, 16, 24, "ragged")):
+        x = cuda(cheby_inputs(rng, (n, nin), 0.1))
+        cc = cuda(rng.standard_normal((nin, nout, 5)) / np.sqrt(nin * 5))
+        keep("chebykan", check_basis(
+            torch, rng, "chebykan", "cheby", label, FB.chebykan,
+            K.chebykan_forward, [x, cc], FB.pack_cheby_weight(cc).contiguous(), 4,
+            ("x", "coeffs")))
+    for n, h, dh, label in ((BATCH * 197, 6, 64, "vit-s q/k/v"),
+                            (37 * 50, 2, 32, "ragged")):
+        x = cuda(cheby_inputs(rng, (n, h * dh), 0.02))
+        cc = cuda(rng.standard_normal((h, dh, 3 * dh, 5)) / np.sqrt(dh * 5))
+
+        def plain(x, cc, h=h, dh=dh):
+            return torch.cat([K.chebykan_forward(x[:, i * dh:(i + 1) * dh], cc[i])
+                              for i in range(h)], dim=1)
+
+        keep("cheby_qkv_grouped", check_basis(
+            torch, rng, "cheby_qkv_grouped", "cheby", label, FB.cheby_qkv_grouped,
+            plain, [x, cc], FB.pack_cheby_qkv_weight(cc).contiguous(), 4,
+            ("x", "cc")))
+    for n, nin, nout, gs, label in ((BATCH * 196, 768, 384, 28, "vit-s embedder G28"),
+                                    (1000, 16, 24, 5, "ragged G5"),
+                                    (999, 20, 70, 7, "ragged G7")):
+        x = cuda(fourier_inputs(rng, (n, nin)))
+        co = cuda(rng.standard_normal((2, nout, nin, gs)) / np.sqrt(nin * gs))
+        bias = cuda(rng.standard_normal((1, nout)) * 0.1)
+        keep("fourierkan", check_basis(
+            torch, rng, "fourierkan", "fourier", label, FB.fourierkan,
+            K.fourierkan_forward, [x, co, bias], FB.pack_fourier_weight(co).contiguous(),
+            gs, ("x", "coeffs", "bias")))
+    return results
+
+
+# --------------------------------------------------------------------------
+# Phase 7: serving
 # --------------------------------------------------------------------------
 
 def launch_counts():
@@ -617,25 +755,30 @@ def reset_counts():
     FA.reset_launches()
 
 
-def build_model():
+def build_model(variant):
     from kanvit_torch.models import PRESETS, create_model
 
     t0 = time.perf_counter()
-    model_cpu = create_model("efficientkan", **PRESETS["vit-s"], seed=SEED)
+    model_cpu = create_model(variant, **PRESETS["vit-s"], seed=SEED)
     n_params = sum(p.numel() for p in model_cpu.parameters())
-    print(f"[main] vit-s efficientkan f32: {n_params} params, built in "
+    print(f"[main] vit-s {variant} f32: {n_params} params, built in "
           f"{time.perf_counter() - t0:.2f} s")
     return model_cpu
 
 
-def phase_serve(torch, smi, model_cpu):
+def phase_serve(torch, smi, model_cpu, tag, per_batch, seed):
+    """Serve three requests (64, 64 and 37 images) through ``Predictor``:
+    exactly ``per_batch`` kernel launches a forward batch and no backward
+    launch, finite logits of the right shapes, probabilities that sum to 1,
+    two images' logits against the same model's CPU forward, and the
+    steady-state images/s."""
     from kanvit_torch.infer import Predictor
     from kanvit_torch.models import PRESETS
 
     geom = PRESETS["vit-s"]
     model = copy.deepcopy(model_cpu).to("cuda")
     pred = Predictor(model, batch_size=BATCH, device="cuda")
-    rng = np.random.default_rng(SEED + 1)
+    rng = np.random.default_rng(seed)
     images = rng.standard_normal((sum(REQUESTS), *geom["chw"])).astype(np.float32)
     bounds = np.cumsum((0,) + REQUESTS)
     reqs = [images[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
@@ -646,28 +789,27 @@ def phase_serve(torch, smi, model_cpu):
     torch.cuda.synchronize()
     counts = launch_counts()
     n_fwd = len(REQUESTS)  # each request is one padded batch
-    blocks = geom["n_blocks"]
     want = {k: 0 for k in counts}
-    want.update(bspline_kan=n_fwd, bspline_qkv_grouped=n_fwd * blocks,
-                flash_attention_lanes=n_fwd * blocks)
-    print(f"[main] launches over {n_fwd} forward batches: {counts} "
-          f"(want {want}: 1 + {blocks} + {blocks} per batch, no backward)")
-    check(counts == want, f"launch counts {counts} != {want}")
+    want.update({k: n_fwd * n for k, n in per_batch.items()})
+    print(f"[{tag}] vit-s {model_cpu.type} launches over {n_fwd} forward batches: "
+          f"{ {k: n for k, n in counts.items() if n} } (want per batch {per_batch}, "
+          "nothing else, no backward)")
+    check(counts == want, f"{tag}: launch counts {counts} != {want}")
     for r, y in zip(reqs, logits):
-        check(y.shape == (len(r), geom["out_d"]), f"logits shape {y.shape}")
-        check(bool(np.isfinite(y).all()), "logits are not finite")
+        check(y.shape == (len(r), geom["out_d"]), f"{tag}: logits shape {y.shape}")
+        check(bool(np.isfinite(y).all()), f"{tag}: logits are not finite")
     check(probs.shape == (REQUESTS[2], geom["out_d"]) and labels.shape == (REQUESTS[2],),
-          f"predict shapes {probs.shape}, {labels.shape}")
+          f"{tag}: predict shapes {probs.shape}, {labels.shape}")
     check(bool(np.isfinite(probs).all())
           and float(np.abs(probs.sum(-1) - 1).max()) < 1e-6,
-          "predict probabilities do not sum to 1")
+          f"{tag}: predict probabilities do not sum to 1")
 
     with torch.inference_mode():
         ref = model_cpu(torch.from_numpy(reqs[0][:2])).numpy()
     err = float(np.abs(logits[0][:2] - ref).max())
-    print(f"[main] logits of 2 images, GPU against CPU plain forward: max|err| "
+    print(f"[{tag}] logits of 2 images, GPU against CPU plain forward: max|err| "
           f"{err:.3e}  limit {TOL_LOGITS:.0e}")
-    check(err <= TOL_LOGITS, f"GPU logits differ from the CPU forward by {err}")
+    check(err <= TOL_LOGITS, f"{tag}: GPU logits differ from the CPU forward by {err}")
 
     # steady state, batch 64: host images in, host logits out
     batch = reqs[0]
@@ -684,7 +826,7 @@ def phase_serve(torch, smi, model_cpu):
     x = torch.from_numpy(batch).cuda()
     with torch.inference_mode():
         fwd_ms = time_ms(torch, lambda: model(x), iters=10)
-    print(f"[main] Predictor.logits steady state, batch {BATCH}: {ips:.1f} images/s "
+    print(f"[{tag}] Predictor.logits steady state, batch {BATCH}: {ips:.1f} images/s "
           f"({secs / iters * 1e3:.2f} ms per batch, host to host); device forward "
           f"{fwd_ms:.2f} ms per batch ({BATCH / fwd_ms * 1e3:.1f} images/s)  "
           f"[{smi}]")
@@ -693,7 +835,7 @@ def phase_serve(torch, smi, model_cpu):
 
 
 # --------------------------------------------------------------------------
-# Phase 7: training
+# Phase 8: training
 # --------------------------------------------------------------------------
 
 def device_ms(torch, fn):
@@ -705,14 +847,41 @@ def device_ms(torch, fn):
     return out, (start, end)
 
 
-def phase_train(torch, smi, model_cpu):
+def grad_scale(name, grads):
+    """max|g| of a tensor's CPU gradient; for a key projection's Linear bias
+    that of its weight. The softmax cancels the bias (it adds the same
+    q . b to every score of a row), so its gradient is 0 in exact
+    arithmetic and rounding noise on both sides."""
+    if ".k_mappings." in name and name.endswith(".bias"):
+        name = name[: -len("bias")] + "weight"
+    return float(grads[name].abs().max())
+
+
+def grads_against(got, want):
+    """The worst ``max|got - want| / grad_scale`` over tensors, and its name."""
+    worst, worst_name = 0.0, ""
+    for name, g in want.items():
+        scale = grad_scale(name, want)
+        err = float((got[name] - g).abs().max())
+        rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+        if rel > worst:
+            worst, worst_name = rel, name
+    return worst, worst_name
+
+
+def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
+    """6 Adam steps at batch 64 on one batch through ``kanvit_torch.train``:
+    exactly ``per_step_fwd`` forward launches a step and as many backward
+    ones, the embedder's (``embedder``) asked for dW only; losses finite
+    and falling; 4-image gradients against the CPU; ms a step and images/s;
+    the device time's split and a ``torch.profiler`` breakdown."""
     import torch.nn.functional as F
 
+    from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.models import PRESETS
     from kanvit_torch.train import create_train_state, make_train_step
 
     geom = PRESETS["vit-s"]
-    blocks = geom["n_blocks"]
     model = copy.deepcopy(model_cpu).to("cuda")
     rng = np.random.default_rng(SEED + 2)
     x = torch.from_numpy(rng.standard_normal((BATCH, *geom["chw"]))
@@ -721,49 +890,65 @@ def phase_train(torch, smi, model_cpu):
     state = create_train_state(model, 1e-3)
     step = make_train_step()
     per_step = {k: 0 for k in launch_counts()}
-    per_step.update(bspline_kan=1, bspline_qkv_grouped=blocks,
-                    flash_attention_lanes=blocks, bspline_kan_bwd=1,
-                    bspline_qkv_grouped_bwd=blocks,
-                    flash_attention_lanes_bwd=blocks)
+    per_step.update(per_step_fwd)
+    per_step.update({f"{k}_bwd": n for k, n in per_step_fwd.items()})
+
+    asked = []  # (need_dx, need_dw) of each embedder backward launch
+    launch_bwd = FB._launch_bwd
+
+    def recording_launch_bwd(name, *args):
+        if name == f"{embedder}_bwd":
+            asked.append(tuple(args[-2:]))
+        return launch_bwd(name, *args)
 
     reset_counts()
     losses, steps_ok = [], True
-    for _ in range(TRAIN_STEPS):
-        before = launch_counts()
-        state, loss, logits = step(state, x, y)
-        after = launch_counts()
-        steps_ok &= {k: after[k] - before[k] for k in after} == per_step
-        losses.append(loss)
+    FB._launch_bwd = recording_launch_bwd
+    try:
+        for _ in range(TRAIN_STEPS):
+            before = launch_counts()
+            state, loss, logits = step(state, x, y)
+            after = launch_counts()
+            steps_ok &= {k: after[k] - before[k] for k in after} == per_step
+            losses.append(loss)
+    finally:
+        FB._launch_bwd = launch_bwd
     torch.cuda.synchronize()
     counts = launch_counts()
     losses = [float(v) for v in losses]
-    print(f"[train] vit-s batch {BATCH}, {TRAIN_STEPS} Adam(1e-3) steps on one batch: "
-          f"losses {[round(v, 6) for v in losses]}")
-    print(f"[train] launches over {TRAIN_STEPS} steps: {counts} (want per step "
-          f"{per_step}: 1 + {blocks} + {blocks} forward and backward)")
-    check(steps_ok, f"a training step's launches differ from {per_step}")
-    check(all(np.isfinite(losses)), f"training losses are not finite: {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    print(f"[{tag}] vit-s {model_cpu.type} batch {BATCH}, {TRAIN_STEPS} Adam(1e-3) "
+          f"steps on one batch: losses {[round(v, 6) for v in losses]}")
+    print(f"[{tag}] launches over {TRAIN_STEPS} steps: "
+          f"{ {k: n for k, n in counts.items() if n} } (want per step "
+          f"{ {k: n for k, n in per_step.items() if n} }, nothing else); the "
+          f"embedder's backward asked for (dx, dW): {sorted(set(asked))}")
+    check(steps_ok, f"{tag}: a training step's launches differ from {per_step}")
+    check(asked == [(False, True)] * TRAIN_STEPS,
+          f"{tag}: the embedder's backward must compute dW only, got {asked}")
+    check(all(np.isfinite(losses)), f"{tag}: training losses are not finite: {losses}")
+    check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
     check(tuple(logits.shape) == (BATCH, geom["out_d"])
-          and bool(logits.isfinite().all()), "training logits")
+          and bool(logits.isfinite().all()), f"{tag}: training logits")
 
-    # gradients of a small batch on the card against the same model's CPU step
+    # gradients of a small batch on the card against the same model's on the
+    # CPU in f64, the CPU's f32 gradients beside them
     xg, yg = x[:GRAD_IMAGES], y[:GRAD_IMAGES]
-    gpu = copy.deepcopy(model_cpu).to("cuda")
-    F.cross_entropy(gpu(xg), yg).backward()
-    F.cross_entropy(model_cpu(xg.cpu()), yg.cpu()).backward()
-    worst, worst_name = 0.0, ""
-    for (name, pc), pg in zip(model_cpu.named_parameters(), gpu.parameters()):
-        scale = float(pc.grad.abs().max())
-        err = float((pg.grad.cpu() - pc.grad).abs().max())
-        rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
-        if rel > worst:
-            worst, worst_name = rel, name
-        pc.grad = None
-    print(f"[train] gradients of {GRAD_IMAGES} images, GPU against CPU, per tensor: "
-          f"worst max|err| / max|g| {worst:.3e} ({worst_name})  limit {TOL_GRADS:.0e}")
-    check(worst <= TOL_GRADS, f"GPU gradients differ from the CPU's: {worst_name} "
-                              f"{worst:.3e}")
+    grads = {}
+    for key, net, dtype in (("gpu", copy.deepcopy(model_cpu).to("cuda"), torch.float32),
+                            ("cpu", copy.deepcopy(model_cpu), torch.float32),
+                            ("cpu64", copy.deepcopy(model_cpu).double(), torch.float64)):
+        dev = next(net.parameters()).device
+        F.cross_entropy(net(xg.to(dev, dtype)), yg.to(dev)).backward()
+        grads[key] = {name: p.grad.double().cpu() for name, p in net.named_parameters()}
+    worst, worst_name = grads_against(grads["gpu"], grads["cpu64"])
+    cpu_worst, cpu_name = grads_against(grads["cpu"], grads["cpu64"])
+    f32_worst, f32_name = grads_against(grads["gpu"], grads["cpu"])
+    print(f"[{tag}] gradients of {GRAD_IMAGES} images, per tensor, worst max|err| / "
+          f"max|g|: GPU against CPU f64 {worst:.3e} ({worst_name})  limit "
+          f"{TOL_GRADS:.0e}; CPU f32 against CPU f64 {cpu_worst:.3e} ({cpu_name}); "
+          f"GPU against CPU f32 {f32_worst:.3e} ({f32_name})")
+    check(worst <= TOL_GRADS, f"{tag}: GPU gradients differ from the CPU's: "
+                              f"{worst_name} {worst:.3e}")
 
     # steady state: host clock around a synchronised window, as the bench,
     # and CUDA events around the same window
@@ -790,21 +975,22 @@ def phase_train(torch, smi, model_cpu):
             parts[key].append(a.elapsed_time(b))
     parts = {k: float(np.median(v)) for k, v in parts.items()}
     total = sum(parts.values())
-    print(f"[train] steady state, vit-s batch {BATCH}: {step_ms:.2f} ms per step, "
-          f"{ips:.1f} images/s (host clock; CUDA events {dev_step_ms:.2f} ms per "
-          f"step)  [{smi}]")
-    print("[train] device ms per step: " + ", ".join(
+    print(f"[{tag}] steady state, vit-s {model_cpu.type} batch {BATCH}: "
+          f"{step_ms:.2f} ms per step, {ips:.1f} images/s (host clock; CUDA events "
+          f"{dev_step_ms:.2f} ms per step)  [{smi}]")
+    print(f"[{tag}] device ms per step: " + ", ".join(
         f"{k} {v:.2f} ({v / total:.1%})" for k, v in parts.items()))
-    profile = phase_profile(torch, step, state, x, y, "vit-s")
+    profile = phase_profile(torch, step, state, x, y, f"vit-s {model_cpu.type}")
     return {"images_per_s": ips, "step_ms": step_ms, "launches": counts,
             "losses": losses, "grad_rel_err": worst, "parts_ms": parts,
             "profile": profile}
 
 
+# KAN basis kernels are grouped by family too (their template argument).
+KAN_FAMILIES = ("Bspline", "Cheby", "Fourier")
 KERNEL_GROUPS = (
-    ("bspline fwd", ("bspline_kan_fwd_kernel",)),
-    ("bspline bwd", ("bspline_kan_dx_kernel", "bspline_kan_dw_kernel",
-                     "sum_splits_kernel")),
+    ("KAN basis fwd", ("kan_fwd_kernel",)),
+    ("KAN basis bwd", ("kan_dx_kernel", "kan_dw_kernel", "sum_splits_kernel")),
     ("attention fwd", ("attention_lanes_fwd_kernel",)),
     ("attention bwd", ("attention_lanes_dq_kernel", "attention_lanes_dkv_kernel")),
     ("tiled attention fwd", ("flash_fwd_kernel",)),
@@ -843,6 +1029,9 @@ def phase_profile(torch, step, state, x, y, label, steps=2):
     for name, us in by_name.items():
         group = next((g for g, keys in KERNEL_GROUPS
                       if any(k in name for k in keys)), "other")
+        family = next((f for f in KAN_FAMILIES if f in name), None)
+        if group.startswith("KAN") and family:
+            group = f"{group} ({family})"
         groups[group] = groups.get(group, 0.0) + us
     print(f"[profile] {steps} {label} training steps: device busy "
           f"{busy / steps / 1e3:.3f} ms per step, idle share "
@@ -856,7 +1045,7 @@ def phase_profile(torch, step, state, x, y, label, steps=2):
 
 
 # --------------------------------------------------------------------------
-# Phase 8: decoder training
+# Phase 9: decoder training
 # --------------------------------------------------------------------------
 
 def decoder_parts(torch, model, tokens):
@@ -961,60 +1150,6 @@ def phase_decoder(torch, smi):
 
 
 # --------------------------------------------------------------------------
-# Phase 9: flash-attn serving
-# --------------------------------------------------------------------------
-
-def phase_flash_serve(torch, smi):
-    from kanvit_torch.infer import Predictor
-    from kanvit_torch.models import PRESETS, create_model
-
-    geom = PRESETS["vit-s"]
-    model_cpu = create_model("flash-attn", **geom, seed=SEED)
-    model = copy.deepcopy(model_cpu).cuda()
-    pred = Predictor(model, batch_size=BATCH, device="cuda")
-    rng = np.random.default_rng(SEED + 5)
-    images = rng.standard_normal((sum(REQUESTS), *geom["chw"])).astype(np.float32)
-    bounds = np.cumsum((0,) + REQUESTS)
-    reqs = [images[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
-
-    reset_counts()
-    logits = [pred.logits(r) for r in reqs]
-    torch.cuda.synchronize()
-    counts = launch_counts()
-    want = {k: 0 for k in counts}
-    want["flash_attention_lanes"] = len(REQUESTS) * geom["n_blocks"]
-    print(f"[flash-serve] vit-s flash-attn f32, launches over {len(REQUESTS)} "
-          f"batches: {counts} (want {geom['n_blocks']} lanes forward per batch, "
-          "nothing else)")
-    check(counts == want, f"flash-attn serving launches {counts} != {want}")
-    for r, y in zip(reqs, logits):
-        check(y.shape == (len(r), geom["out_d"]) and bool(np.isfinite(y).all()),
-              f"flash-attn logits {y.shape}")
-    with torch.inference_mode():
-        ref = model_cpu(torch.from_numpy(reqs[0][:2])).numpy()
-    err = float(np.abs(logits[0][:2] - ref).max())
-    print(f"[flash-serve] logits of 2 images, GPU against CPU plain forward: "
-          f"max|err| {err:.3e}  limit {TOL_LOGITS:.0e}")
-    check(err <= TOL_LOGITS, f"flash-attn GPU logits differ from the CPU's by {err}")
-    for _ in range(3):
-        pred.logits(reqs[0])
-    torch.cuda.synchronize()
-    iters = 10
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        pred.logits(reqs[0])
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    x = torch.from_numpy(reqs[0]).cuda()
-    with torch.inference_mode():
-        fwd_ms = time_ms(torch, lambda: model(x), iters=10)
-    print(f"[flash-serve] Predictor.logits steady state, batch {BATCH}: "
-          f"{iters * BATCH / secs:.1f} images/s ({secs / iters * 1e3:.2f} ms per batch, "
-          f"host to host); device forward {fwd_ms:.2f} ms per batch  [{smi}]")
-    return {"launches": counts, "logits_err": err, "device_forward_ms": fwd_ms}
-
-
-# --------------------------------------------------------------------------
 # Phase 10: the reference preset through the port's bench
 # --------------------------------------------------------------------------
 
@@ -1050,17 +1185,15 @@ def phase_bench(torch, smi):
 # Phase 11: results
 # --------------------------------------------------------------------------
 
+KAN_SRC = "kanvit_torch/kernels/csrc/kan_basis.cu"
+FB_PY = "kanvit/kernels/fused_basis.py"
 SOURCES = {
-    "bspline_kan": ("kanvit_torch/kernels/csrc/bspline_kan.cu",
-                    "kanvit/kernels/fused_basis.py:1067"),
-    "bspline_qkv_grouped": ("kanvit_torch/kernels/csrc/bspline_kan.cu",
-                            "kanvit/kernels/fused_basis.py:1240"),
+    "bspline_kan": (KAN_SRC, f"{FB_PY}:1067"),
+    "bspline_qkv_grouped": (KAN_SRC, f"{FB_PY}:1240"),
     "flash_attention_lanes": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
                               "kanvit/kernels/flash_attention.py:571"),
-    "bspline_kan_bwd": ("kanvit_torch/kernels/csrc/bspline_kan.cu",
-                        "kanvit/kernels/fused_basis.py:1159"),
-    "bspline_qkv_grouped_bwd": ("kanvit_torch/kernels/csrc/bspline_kan.cu",
-                                "kanvit/kernels/fused_basis.py:1278"),
+    "bspline_kan_bwd": (KAN_SRC, f"{FB_PY}:1159"),
+    "bspline_qkv_grouped_bwd": (KAN_SRC, f"{FB_PY}:1278"),
     "flash_attention_lanes_bwd": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
                                   "kanvit/kernels/flash_attention.py:604"),
     "flash_attention": ("kanvit_torch/kernels/csrc/flash_attention.cu",
@@ -1069,29 +1202,78 @@ SOURCES = {
                            "kanvit/kernels/flash_attention.py:806"),
     "flash_attention_dkv": ("kanvit_torch/kernels/csrc/flash_attention.cu",
                             "kanvit/kernels/flash_attention.py:831"),
+    "chebykan": (KAN_SRC, f"{FB_PY}:1067"),
+    "chebykan_bwd": (KAN_SRC, f"{FB_PY}:1159"),
+    "cheby_qkv_grouped": (KAN_SRC, f"{FB_PY}:1240"),
+    "cheby_qkv_grouped_bwd": (KAN_SRC, f"{FB_PY}:1278"),
+    "fourierkan": (KAN_SRC, f"{FB_PY}:2317"),
+    "fourierkan_bwd": (KAN_SRC, f"{FB_PY}:2564"),
 }
-# The single-tile tier of flash_attention runs the lanes kernels (phase 5).
+# The single-tile tier of flash_attention runs the lanes kernels (phase 5);
+# fourierkan's kernels serve kanvit's generic tier below its K-blocked one
+# too, and its backward both the K-blocked dx and dW.
 ALSO_REPLACES = {
     "flash_attention_lanes": ["kanvit/kernels/flash_attention.py:410"],
     "flash_attention_lanes_bwd": ["kanvit/kernels/flash_attention.py:442"],
+    "bspline_kan": [f"{FB_PY}:777"],
+    "bspline_kan_bwd": [f"{FB_PY}:810", f"{FB_PY}:969", f"{FB_PY}:1006"],
+    "fourierkan": [f"{FB_PY}:1067"],
+    "fourierkan_bwd": [f"{FB_PY}:2492", f"{FB_PY}:1159"],
 }
-# The main path each kernel must have been launched on.
+# The main path each kernel must have been launched on ("train" otherwise).
 MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
-             "flash_attention_dkv": "decoder"}
+             "flash_attention_dkv": "decoder",
+             "chebykan": "cheby_train", "chebykan_bwd": "cheby_train",
+             "cheby_qkv_grouped": "cheby_train",
+             "cheby_qkv_grouped_bwd": "cheby_train",
+             "fourierkan": "fourier_train", "fourierkan_bwd": "fourier_train"}
+
+
+def timed(label, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    print(f"[time] {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    return out
 
 
 def main():
     torch, smi = phase_toolchain()
-    phase_build()
-    results = phase_kernels(torch)
-    results.update(phase_backward_kernels(torch))
-    results.update(phase_flash_kernels(torch))
-    model_cpu = build_model()
-    paths = {"serve": phase_serve(torch, smi, model_cpu)["launches"],
-             "train": phase_train(torch, smi, model_cpu)["launches"],
-             "decoder": phase_decoder(torch, smi)["launches"],
-             "flash_serve": phase_flash_serve(torch, smi)["launches"]}
-    phase_bench(torch, smi)
+    timed("build", phase_build)
+    results = timed("forward kernels", phase_kernels, torch)
+    results.update(timed("backward kernels", phase_backward_kernels, torch))
+    results.update(timed("tiled attention kernels", phase_flash_kernels, torch))
+    results.update(timed("Chebyshev and Fourier kernels", phase_basis_kernels, torch))
+
+    from kanvit_torch.models import PRESETS
+
+    blocks = PRESETS["vit-s"]["n_blocks"]
+    lanes = {"flash_attention_lanes": blocks}
+    efficientkan = {"bspline_kan": 1, "bspline_qkv_grouped": blocks, **lanes}
+    cheby = {"chebykan": 1, "cheby_qkv_grouped": blocks, **lanes}
+    fourier = {"fourierkan": 1, **lanes}
+    paths = {}
+    model_cpu = build_model("efficientkan")
+    paths["serve"] = timed("efficientkan serving", phase_serve, torch, smi, model_cpu,
+                           "main", efficientkan, SEED + 1)["launches"]
+    paths["train"] = timed("efficientkan training", phase_train, torch, smi, model_cpu,
+                           "train", efficientkan, "bspline_kan")["launches"]
+    paths["decoder"] = timed("decoder training", phase_decoder, torch, smi)["launches"]
+    paths["flash_serve"] = timed(
+        "flash-attn serving", phase_serve, torch, smi, build_model("flash-attn"),
+        "flash-serve", lanes, SEED + 5)["launches"]
+    for variant, per_batch, embedder in (("cheby", cheby, "chebykan"),
+                                         ("fourier", fourier, "fourierkan")):
+        model_cpu = build_model(variant)
+        paths[f"{variant}_serve"] = timed(
+            f"{variant} serving", phase_serve, torch, smi, model_cpu,
+            f"{variant}-serve", per_batch, SEED + 7)["launches"]
+        paths[f"{variant}_train"] = timed(
+            f"{variant} training", phase_train, torch, smi, model_cpu,
+            f"{variant}-train", per_batch, embedder)["launches"]
+    paths["vanilla_serve"] = timed(
+        "vanilla serving", phase_serve, torch, smi, build_model("vanilla"),
+        "vanilla-serve", lanes, SEED + 8)["launches"]
+    timed("reference bench", phase_bench, torch, smi)
     kernels = []
     for name, (err, ms, plain_ms, *extra) in results.items():
         src, replaces = SOURCES[name]
@@ -1099,7 +1281,7 @@ def main():
         main_path = MAIN_PATH.get(name, "train")
         check(by_path[main_path] > 0, f"the {main_path} path never launched {name}")
         entry = {"name": name, "route": "cuda", "source": src,
-                 "replaces": replaces, "launches": sum(by_path.values()),
+                 "replaces": replaces, "launches": by_path[main_path],
                  "launches_by_path": by_path,
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         if name in ALSO_REPLACES:

@@ -36,6 +36,12 @@ SIGNATURES = {
     "kanvit_bspline_kan_bwd": (
         [_p, _i64, _p, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32, _p],
         _i32),
+    "kanvit_chebykan_fwd": ([_p, _i64, _p, _p, *[_i32] * 4, _p], _i32),
+    "kanvit_chebykan_bwd": (
+        [_p, _i64, *[_p] * 5, *[_i32] * 5, _p], _i32),
+    "kanvit_fourierkan_fwd": ([_p, _i64, _p, _p, *[_i32] * 5, _p], _i32),
+    "kanvit_fourierkan_bwd": (
+        [_p, _i64, *[_p] * 5, *[_i32] * 6, _p], _i32),
     "kanvit_attention_lanes_fwd": (
         [_p, _p, _p, *[_i64] * 9, _p, _p, _p, _i32, _i32, _i32, _i32, _i32,
          _f32, _p], _i32),

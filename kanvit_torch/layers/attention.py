@@ -7,14 +7,23 @@ model dim splits into ``n_heads`` slices, each head has its own
 ``softmax(q k^T / sqrt(d_head)) v`` per head and the heads concatenate back,
 with no output projection and no dropout.
 
-Only ``efficientkan`` is ported. Its forward is the JAX package's
-shared-basis path (``_shared_basis_qkv``, ``attention.py:56-133``): the
-per-head q/k/v weights concatenate into one grouped weight, one
-``bspline_qkv_grouped`` launch projects every head, and the lanes attention
-reads the three q/k/v slices of its output in place. Both are
-differentiable: autograd reaches their backward kernels on the card, and
-the per-head weight stacking carries the packed weight's gradient back to
-each head's KANLinear.
+The projection follows kanvit's dispatch (``attention.py:36-53``, forward
+``:455-563``), and every kind feeds the lanes attention the q/k/v slices of
+one ``(N, H*3dh)`` projection as strided views, with no copy:
+
+- ``efficientkan`` and ``cheby``: the shared-basis path (``_shared_basis_qkv``,
+  ``attention.py:56-133``): the per-head q/k/v weights concatenate into one
+  grouped weight and one ``bspline_qkv_grouped`` or ``cheby_qkv_grouped``
+  launch projects every head;
+- ``vanilla``, ``fourier``, ``flash-attn`` and ``linear``: per-head
+  ``TorchLinear`` q/k/v as one batched matmul over the heads (kanvit runs a
+  block-diagonal dense matmul outside any Pallas kernel,
+  ``_fused_qkv_linear_bd``, ``attention.py:164-186``);
+- ``fast`` and ``sine`` are not ported.
+
+All of it is differentiable: autograd reaches the backward kernels on the
+card, and the per-head weight stacking carries the packed weight's gradient
+back to each head's projection.
 
 ``FlashAttentionBlock`` is the reference's flash-attention module
 (``attention.py:13-109``): bias-free ``to_q`` / ``to_kv`` / ``to_out``
@@ -28,18 +37,21 @@ from torch import nn
 
 from kanvit_torch.kernels import flash_attention as FA
 from kanvit_torch.kernels import fused_basis as FB
-from kanvit_torch.layers.kan import KANLinear, TorchLinear
+from kanvit_torch.layers.kan import TorchLinear, make_kan_layer
 
 # Projection kinds of the reference MSA dispatch table
-# (``_head_projection_cls_and_kwargs``) that are not ported yet.
-NOT_PORTED = ("vanilla", "flash-attn", "fourier", "linear", "fast", "sine",
-              "cheby")
+# (``_head_projection_cls_and_kwargs``, ``attention.py:36-53``).
+LINEAR_KINDS = ("vanilla", "flash-attn", "fourier", "linear")
+SHARED_BASIS_KINDS = ("efficientkan", "cheby")
+NOT_PORTED = ("fast", "sine")
+# The MSA's Chebyshev degree (reference attention.py:160-162).
+MSA_CHEBY_DEGREE = 4
 
 
 def check_kind(kind: str) -> None:
     """ValueError for an unknown kind (the JAX message), NotImplementedError
     for a known kind that is not ported yet."""
-    if kind == "efficientkan":
+    if kind in LINEAR_KINDS or kind in SHARED_BASIS_KINDS:
         return
     if kind in NOT_PORTED:
         raise NotImplementedError(
@@ -50,11 +62,12 @@ def check_kind(kind: str) -> None:
 
 
 class MSA(nn.Module):
-    """Multi-head self-attention with per-head KANLinear q/k/v projections.
+    """Multi-head self-attention with per-head q/k/v projections.
 
     Parameters live in reference naming: ``q_mappings.<h>``,
-    ``k_mappings.<h>``, ``v_mappings.<h>`` ``ModuleList``s of
-    ``KANLinear(d_head, d_head)``.
+    ``k_mappings.<h>``, ``v_mappings.<h>`` ``ModuleList``s of the kind's
+    ``d_head -> d_head`` layer (``KANLinear``, ``ChebyKANLayer`` of degree
+    4, or ``TorchLinear`` with bias).
     """
 
     def __init__(self, d: int, n_heads: int = 4, type: str = "vanilla", *,
@@ -67,32 +80,52 @@ class MSA(nn.Module):
         self.n_heads = n_heads
         self.type = type
         self.d_head = d // n_heads
+        kind = "linear" if type in LINEAR_KINDS else type
         for name in ("q_mappings", "k_mappings", "v_mappings"):
             setattr(self, name, nn.ModuleList(
-                KANLinear(self.d_head, self.d_head, generator=generator)
+                make_kan_layer(kind, self.d_head, self.d_head,
+                               cheby_degree=MSA_CHEBY_DEGREE, generator=generator)
                 for _ in range(n_heads)
             ))
 
     def grouped_weights(self):
-        """Per-head q|k|v-concatenated ``(bw, sw, sc)``: ``(H, 3dh, dh)``,
-        ``(H, 3dh, dh, 8)``, ``(H, 3dh, dh)`` (``attention.py:82-87``).
-        Rebuilt on every forward; caching it for serving is later work."""
+        """Per-head q|k|v-concatenated weights (``attention.py:82-87,
+        115-116``), rebuilt on every forward (caching them for serving is
+        later work):
+
+        - efficientkan: ``(bw, sw, sc)``, ``(H, 3dh, dh)``, ``(H, 3dh, dh, 8)``,
+          ``(H, 3dh, dh)``;
+        - cheby: ``(cc,)``, ``(H, dh, 3dh, 5)``;
+        - the Linear kinds: ``(w, b)``, ``(H, 3dh, dh)``, ``(H, 3dh)``.
+        """
         heads = list(zip(self.q_mappings, self.k_mappings, self.v_mappings))
 
-        def stack(attr):
+        def stack(attr, dim=0):
             return torch.stack([
-                torch.cat([getattr(m, attr) for m in qkv], dim=0) for qkv in heads
+                torch.cat([getattr(m, attr) for m in qkv], dim=dim) for qkv in heads
             ])
 
-        return stack("base_weight"), stack("spline_weight"), stack("spline_scaler")
+        if self.type == "efficientkan":
+            return stack("base_weight"), stack("spline_weight"), stack("spline_scaler")
+        if self.type == "cheby":
+            return (stack("cheby_coeffs", dim=1),)
+        return stack("weight"), stack("bias")
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, T, d) -> (B, T, d)``."""
         b, t, d = x.shape
         h, dh = self.n_heads, self.d_head
-        bw, sw, sc = self.grouped_weights()
-        grid = self.q_mappings[0].grid  # every head's (dh, knots) grid is equal
-        y = FB.bspline_qkv_grouped(x.reshape(b * t, d), grid, bw, sw, sc)
+        x2d = x.reshape(b * t, d)
+        if self.type == "efficientkan":
+            grid = self.q_mappings[0].grid  # every head's (dh, knots) grid is equal
+            y = FB.bspline_qkv_grouped(x2d, grid, *self.grouped_weights())
+        elif self.type == "cheby":
+            y = FB.cheby_qkv_grouped(x2d, *self.grouped_weights())
+        else:
+            w, bias = self.grouped_weights()
+            # (H, N, dh) @ (H, dh, 3dh) + (H, 1, 3dh) -> (H, N, 3dh)
+            y = torch.baddbmm(bias.unsqueeze(1), x2d.view(b * t, h, dh).transpose(0, 1),
+                              w.transpose(1, 2)).transpose(0, 1)
         # (N, H*[q|k|v]) -> three (B, T, H, dh) strided views, no copy.
         y4 = y.view(b, t, h, 3 * dh)
         q, k, v = (y4[..., i * dh:(i + 1) * dh] for i in range(3))

@@ -3,8 +3,9 @@
 Parameter names, shapes and init distributions follow the PyTorch reference
 (``models/effkan.py``), so reference-named weights load directly
 (``kanvit_torch.utils.convert``). Modules are built on the CPU from an
-explicit ``torch.Generator``; move them with ``.to(device)``. Only the
-Linear and B-spline (efficient-kan) layers are ported so far.
+explicit ``torch.Generator``; move them with ``.to(device)``. Ported: the
+Linear, B-spline (efficient-kan), Chebyshev and Fourier layers; the FastKAN
+and SineKAN layers are not yet (``ROADMAP.md`` Queue 1 item 5).
 """
 
 from __future__ import annotations
@@ -109,3 +110,80 @@ class KANLinear(nn.Module):
         return FB.bspline_kan(x, self.grid, self.base_weight,
                               self.spline_weight, self.spline_scaler,
                               self.spline_order)
+
+
+class ChebyKANLayer(nn.Module):
+    """ChebyKAN layer (reference ``models/cheby.py:10-48``).
+
+    Param ``cheby_coeffs (in, out, degree+1)``, normal with std
+    ``1/(in*(degree+1))``. The reference's ``arange`` buffer is derived, not
+    stored. Output preserves leading dims (kanvit's repair of SURVEY §2.9.1).
+    The forward goes through ``kanvit_torch.kernels.fused_basis.chebykan``.
+    """
+
+    def __init__(self, input_dim: int, output_dim: int, degree: int, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.degree = degree
+        self.cheby_coeffs = nn.Parameter(
+            torch.empty(input_dim, output_dim, degree + 1))
+        tinit.chebykan_coeffs_(self.cheby_coeffs, input_dim, degree, generator)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return FB.chebykan(x, self.cheby_coeffs)
+
+
+class FourierKANLayer(nn.Module):
+    """NaiveFourierKAN layer (reference ``models/nfkan.py:5-52``).
+
+    Params ``fouriercoeffs (2, out, in, grid)``, ``randn / (sqrt(in) *
+    sqrt(grid))`` (or the per-harmonic ``k**2`` norm under smooth init), and
+    ``bias (1, out)`` zeros, the reference's shape. The reference ViT passes
+    ``grid_size=`` where the layer spells ``gridsize`` and crashes; kanvit
+    and the port take ``grid_size``. The forward goes through
+    ``kanvit_torch.kernels.fused_basis.fourierkan``.
+    """
+
+    def __init__(self, input_dim: int, output_dim: int, grid_size: int,
+                 add_bias: bool = True, smooth_initialization: bool = False, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.grid_size = grid_size
+        self.fouriercoeffs = nn.Parameter(
+            torch.empty(2, output_dim, input_dim, grid_size))
+        tinit.fourierkan_coeffs_(self.fouriercoeffs, input_dim, grid_size,
+                                 smooth_initialization, generator)
+        if add_bias:
+            self.bias = nn.Parameter(torch.zeros(1, output_dim))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return FB.fourierkan(x, self.fouriercoeffs, self.bias)
+
+
+def make_kan_layer(kind: str, in_features: int, out_features: int, *,
+                   fourier_grid_size: int = 5, cheby_degree: int = 4,
+                   generator: torch.Generator | None = None) -> nn.Module:
+    """Variant-keyed layer factory of the patch embedder and the MSA
+    projections (kanvit ``layers/kan.py:394-427``, reference ``model.py:67-80``
+    and ``attention.py:135-173``). ``fast`` and ``sine`` are not ported."""
+    if kind in ("vanilla", "flash-attn", "linear"):
+        return TorchLinear(in_features, out_features, generator=generator)
+    if kind == "efficientkan":
+        return KANLinear(in_features, out_features, generator=generator)
+    if kind == "fourier":
+        return FourierKANLayer(in_features, out_features, fourier_grid_size,
+                               generator=generator)
+    if kind == "cheby":
+        return ChebyKANLayer(in_features, out_features, cheby_degree,
+                             generator=generator)
+    if kind in ("fast", "sine"):
+        raise NotImplementedError(
+            f"KAN layer kind {kind!r} is not ported to kanvit_torch yet "
+            "(ROADMAP.md, Queue 1)")
+    raise ValueError(f"Unknown KAN layer kind: {kind!r}")

@@ -3,10 +3,13 @@
 Reference ``model.py:40-169``: patchify -> patch embedding -> [class] token
 -> sinusoidal position table (quirk parity) -> N pre-LN encoder blocks ->
 LN + Linear head on the class token. Ported, for serving and training
-(``kanvit_torch.train``): ``efficientkan`` (KANLinear embedder, pre-LN
-blocks) and ``flash-attn`` (Linear embedder, raw ``FlashAttentionBlock``s
-with no LayerNorm, FF or residual, reference ``model.py:93-95,156-159``);
-the other variant keys raise ``NotImplementedError``.
+(``kanvit_torch.train``): ``vanilla`` (Linear embedder), ``efficientkan``
+(KANLinear), ``cheby`` (ChebyKAN, degree 4) and ``fourier`` (FourierKAN,
+grid 28), each with pre-LN blocks whose MSA projects q/k/v per head with
+the kind's layer (Linear for ``vanilla`` and ``fourier``); and
+``flash-attn`` (Linear embedder, raw ``FlashAttentionBlock``s with no
+LayerNorm, FF or residual, reference ``model.py:93-95,156-159``). ``fast``
+and ``sine`` raise ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -16,7 +19,7 @@ from torch import nn
 
 from kanvit_torch import VARIANTS
 from kanvit_torch.layers.attention import FlashAttentionBlock
-from kanvit_torch.layers.kan import KANLinear, TorchLinear
+from kanvit_torch.layers.kan import TorchLinear, make_kan_layer
 from kanvit_torch.layers.transformer import TransformerBlock
 from kanvit_torch.ops.patchify import patchify
 from kanvit_torch.ops.posemb import sinusoidal_positional_embeddings
@@ -35,7 +38,11 @@ PRESETS = {
                   d_hidden=1024, n_heads=16, out_d=1000),
 }
 
-PORTED = ("efficientkan", "flash-attn")
+PORTED = ("vanilla", "efficientkan", "cheby", "fourier", "flash-attn")
+# The embedder's per-variant constants (reference call sites, model.py:72-76;
+# kanvit models/vit.py:44-47).
+MAPPER_FOURIER_GRID = 28
+MAPPER_CHEBY_DEGREE = 4
 
 
 class VisionTransformer(nn.Module):
@@ -67,8 +74,9 @@ class VisionTransformer(nn.Module):
         self.type = type
         input_d = c * (h // n_patches) * (w // n_patches)
 
-        mapper = TorchLinear if type == "flash-attn" else KANLinear
-        self.linear_mapper = mapper(input_d, d_hidden, generator=generator)
+        self.linear_mapper = make_kan_layer(
+            type, input_d, d_hidden, fourier_grid_size=MAPPER_FOURIER_GRID,
+            cheby_degree=MAPPER_CHEBY_DEGREE, generator=generator)
         # Classification token (reference model.py:83: torch.randn)
         self.v_class = nn.Parameter(torch.randn(1, d_hidden, generator=generator))
         self.register_buffer(

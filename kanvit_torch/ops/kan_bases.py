@@ -1,10 +1,12 @@
-"""B-spline KAN math in plain PyTorch (counterpart of ``kanvit/ops/kan_bases.py``).
+"""KAN basis math in plain PyTorch (counterpart of ``kanvit/ops/kan_bases.py``).
 
-These functions are the plain versions of the B-spline CUDA kernels in
+These functions are the plain versions of the CUDA kernels in
 ``kanvit_torch.kernels.fused_basis``: the CPU path runs them (autograd
-through :func:`bspline_kan_forward` is the backward kernels' plain version),
-and the card holds the kernels against them. Only the B-spline
-(efficient-kan) subset is ported so far.
+through :func:`bspline_kan_forward`, :func:`chebykan_forward` and
+:func:`fourierkan_forward` is the backward kernels' plain version), and the
+card holds the kernels against them. Ported: the B-spline (efficient-kan),
+Chebyshev and Fourier families; the RBF (FastKAN) and sine families are not
+yet.
 """
 
 from __future__ import annotations
@@ -127,3 +129,86 @@ def bspline_curve2coeff(x: torch.Tensor, y: torch.Tensor, grid: torch.Tensor,
     b = y.permute(1, 0, 2)  # (in, batch, out)
     sol = torch.linalg.lstsq(a, b, driver="gelsd").solution  # (in, K, out)
     return sol.permute(2, 0, 1).contiguous()
+
+
+# --- Fourier (NaiveFourierKAN) ------------------------------------------------
+
+def fourier_bases(x: torch.Tensor, grid_size: int) -> torch.Tensor:
+    """``cat([cos(k x), sin(k x)], -1)`` for ``k = 1..grid_size``, each
+    argument ``k x`` rounded to f32 first, as kanvit computes it. Returns
+    ``(..., in, 2*grid_size)``."""
+    k = torch.arange(1, grid_size + 1, dtype=x.dtype, device=x.device)
+    kx = x.unsqueeze(-1) * k
+    return torch.cat([torch.cos(kx), torch.sin(kx)], dim=-1)
+
+
+def fourier_bases_and_grad(x: torch.Tensor, grid_size: int):
+    """Fourier bases and their x-derivative, ``d cos(kx) = -k sin(kx)`` and
+    ``d sin(kx) = k cos(kx)``, in :func:`fourier_bases`' layout."""
+    k = torch.arange(1, grid_size + 1, dtype=x.dtype, device=x.device)
+    kx = x.unsqueeze(-1) * k
+    c, s = torch.cos(kx), torch.sin(kx)
+    return torch.cat([c, s], dim=-1), torch.cat([-k * s, k * c], dim=-1)
+
+
+def fourierkan_forward(x: torch.Tensor, coeffs: torch.Tensor,
+                       bias: torch.Tensor | None) -> torch.Tensor:
+    """NaiveFourierKAN forward (reference ``nfkan.py:36-52``).
+
+    ``coeffs (2, out, in, grid)``: ``coeffs[0]`` weights the cos terms,
+    ``coeffs[1]`` the sin terms; ``bias`` ``(out,)`` or the reference's
+    ``(1, out)``, or None. Shape-preserving over leading dims.
+    """
+    lead, nin = x.shape[:-1], x.shape[-1]
+    _, nout, _, grid_size = coeffs.shape
+    basis = fourier_bases(x.reshape(-1, nin), grid_size)  # (N, in, 2G)
+    w = torch.cat([coeffs[0], coeffs[1]], dim=-1)         # (out, in, 2G)
+    y = basis.reshape(basis.shape[0], -1) @ w.reshape(nout, -1).T
+    if bias is not None:
+        y = y + bias.reshape(nout)
+    return y.reshape(*lead, nout)
+
+
+# --- Chebyshev (ChebyKAN) -----------------------------------------------------
+
+def cheby_bases(x: torch.Tensor, degree: int) -> torch.Tensor:
+    """Chebyshev polynomials ``T_0..T_degree`` of ``t = tanh(x)``.
+
+    The three-term recurrence ``T_n = 2 t T_{n-1} - T_{n-2}``, which is what
+    the kernel computes (kanvit's ``cheby_family``), not the reference's
+    ``cos(n acos t)``: the values agree to f32 rounding, and autograd through
+    the recurrence stays finite where ``tanh(x)`` rounds to +-1 (``|x| >~
+    9.01``: ``dt/dx = 1 - t^2 = 0`` there), while autograd through ``acos``
+    gives ``-inf * 0 = NaN``. Returns ``(..., in, degree+1)``.
+    """
+    t = torch.tanh(x)
+    ts = [torch.ones_like(t), t]
+    for _ in range(2, degree + 1):
+        ts.append(2.0 * t * ts[-1] - ts[-2])
+    return torch.stack(ts[: degree + 1], dim=-1)
+
+
+def cheby_bases_and_grad(x: torch.Tensor, degree: int):
+    """Chebyshev bases of ``t = tanh(x)`` and their x-derivative by the
+    differentiated recurrence ``T'_n = 2 T_{n-1} + 2 t T'_{n-1} - T'_{n-2}``
+    times ``dt/dx = 1 - t^2``; finite (0) where ``t`` rounds to +-1. The
+    plain version the backward kernel's derivative is checked against."""
+    t = torch.tanh(x)
+    ts, dts = [torch.ones_like(t), t], [torch.zeros_like(t), torch.ones_like(t)]
+    for n in range(2, degree + 1):
+        ts.append(2.0 * t * ts[n - 1] - ts[n - 2])
+        dts.append(2.0 * ts[n - 1] + 2.0 * t * dts[n - 1] - dts[n - 2])
+    dtdx = (1.0 - t * t).unsqueeze(-1)
+    return (torch.stack(ts[: degree + 1], dim=-1),
+            torch.stack(dts[: degree + 1], dim=-1) * dtdx)
+
+
+def chebykan_forward(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
+    """ChebyKAN forward (reference ``cheby.py:36-48``), ``coeffs (in, out,
+    degree+1)``. Shape-preserving over leading dims: the reference collapses
+    them and crashes the ViT, kanvit repairs that (SURVEY §2.9.1)."""
+    lead, nin = x.shape[:-1], x.shape[-1]
+    _, nout, deg1 = coeffs.shape
+    basis = cheby_bases(x.reshape(-1, nin), deg1 - 1)  # (N, in, deg+1)
+    y = basis.reshape(basis.shape[0], -1) @ coeffs.transpose(0, 1).reshape(nout, -1).T
+    return y.reshape(*lead, nout)

@@ -19,22 +19,32 @@ import numpy as np
 import torch
 
 # Leaves of the layers the port builds, named alike in kanvit and the
-# reference: TorchLinear (weight, bias) and KANLinear (bare Parameters, plus
-# the knot grid of stateful-grid trees).
+# reference: TorchLinear (weight, bias), KANLinear (bare Parameters, plus
+# the knot grid of stateful-grid trees), ChebyKANLayer and FourierKANLayer.
 _LEAVES = ("weight", "bias", "base_weight", "spline_weight", "spline_scaler",
-           "grid")
-# Reference entries the port derives instead of loading (non-persistent
-# buffers): the knot grids and the positional table.
-_BUFFERS = re.compile(r"(.*\.)?(grid|pos_embeddings)")
+           "grid", "cheby_coeffs", "fouriercoeffs")
+# Reference entries the port derives instead of loading: the knot grids,
+# ChebyKAN's ``arange`` buffer and the positional table.
+_BUFFERS = re.compile(r"(.*\.)?(grid|arange|pos_embeddings)")
 
 
 def _leaf(path: str, leaf: str) -> str:
     if leaf not in _LEAVES:
         raise NotImplementedError(
-            f"{path}.{leaf}: only the efficientkan/Linear leaves {_LEAVES} "
-            "are ported (ROADMAP.md, Queue 1)"
+            f"{path}.{leaf}: only the efficientkan, cheby, fourier and Linear "
+            f"leaves {_LEAVES} are ported (ROADMAP.md, Queue 1)"
         )
     return leaf
+
+
+def _shaped(leaf: str, arr, siblings) -> np.ndarray:
+    """FourierKAN's bias is ``(out,)`` in kanvit and ``(1, out)`` in the
+    reference and the port, told apart by its ``fouriercoeffs`` sibling
+    (``kanvit/utils/torch_compat.py::_unshape_leaf``)."""
+    arr = np.asarray(arr)
+    if leaf == "bias" and arr.ndim == 1 and "fouriercoeffs" in siblings:
+        return arr.reshape(1, -1)
+    return arr
 
 
 def state_dict_from_jax_params(params: Mapping) -> Dict[str, np.ndarray]:
@@ -42,9 +52,10 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, np.ndarray]:
 
     Per-head stacked ``(n_heads, ...)`` q/k/v params unstack into the
     reference's per-head ``ModuleList`` entries; flax LayerNorm
-    ``scale``/``bias`` become ``weight``/``bias``. Same output as
-    ``kanvit.utils.torch_compat.torch_state_dict_from_params`` on an
-    efficientkan or flash-attn tree. A ``CausalDecoder`` tree (``embed``,
+    ``scale``/``bias`` become ``weight``/``bias``; FourierKAN's bias becomes
+    ``(1, out)``. Same output as
+    ``kanvit.utils.torch_compat.torch_state_dict_from_params`` on a vanilla,
+    efficientkan, cheby, fourier or flash-attn tree. A ``CausalDecoder`` tree (``embed``,
     ``blocks_N``, ``norm``, ``lm_head``) maps to ``CausalDecoder``'s names.
     """
     sd: Dict[str, np.ndarray] = {}
@@ -59,7 +70,7 @@ def state_dict_from_jax_params(params: Mapping) -> Dict[str, np.ndarray]:
             emit("embed.weight", sub["embedding"])
         elif top in ("linear_mapper", "lm_head"):
             for leaf, arr in sub.items():
-                emit(f"{top}.{_leaf(top, leaf)}", arr)
+                emit(f"{top}.{_leaf(top, leaf)}", _shaped(leaf, arr, sub))
         elif top in ("head_norm", "norm"):
             name = "mlp_head.0" if top == "head_norm" else top
             emit(f"{name}.weight", sub["scale"])
@@ -101,8 +112,9 @@ def load_reference_state_dict(module: torch.nn.Module,
     """Copy a reference-named numpy state_dict into ``module`` in place.
 
     Loads with ``strict=False`` so the derived buffers the reference also
-    saves (``*.grid``, ``pos_embeddings``) are skipped, then raises if any
-    parameter was left unloaded or any other entry was not recognized.
+    saves (``*.grid``, ``*.arange``, ``pos_embeddings``) are skipped, then
+    raises if any parameter was left unloaded or any other entry was not
+    recognized.
     """
     tensors = {k: torch.tensor(np.asarray(v)) for k, v in state_dict.items()}
     result = module.load_state_dict(tensors, strict=False)

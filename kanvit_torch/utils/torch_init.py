@@ -36,3 +36,26 @@ def linear_default_bias_(t: torch.Tensor, fan_in: int,
     """torch ``nn.Linear`` default bias init: ``U(-1/sqrt(fan_in), +)``."""
     bound = 1.0 / math.sqrt(fan_in) if fan_in > 0 else 0.0
     return t.uniform_(-bound, bound, generator=generator)
+
+
+@torch.no_grad()
+def chebykan_coeffs_(t: torch.Tensor, in_features: int, degree: int,
+                     generator: torch.Generator | None = None) -> torch.Tensor:
+    """ChebyKAN coefficients ``(in, out, degree+1)``: normal with std
+    ``1 / (in * (degree + 1))`` (reference ``cheby.py:21-23``, kanvit
+    ``layers/kan.py:376-383``)."""
+    return t.normal_(0.0, 1.0 / (in_features * (degree + 1)), generator=generator)
+
+
+@torch.no_grad()
+def fourierkan_coeffs_(t: torch.Tensor, in_features: int, grid_size: int,
+                       smooth: bool = False,
+                       generator: torch.Generator | None = None) -> torch.Tensor:
+    """NaiveFourierKAN coefficients ``(2, out, in, grid)``: ``randn / (sqrt(in)
+    * norm)`` with ``norm = sqrt(grid)``, or the per-harmonic ``(k)**2``
+    under smooth init (reference ``nfkan.py:24-30``, kanvit
+    ``layers/kan.py:332-346``)."""
+    norm = ((torch.arange(grid_size, dtype=t.dtype) + 1) ** 2 if smooth
+            else math.sqrt(grid_size))
+    t.normal_(0.0, 1.0, generator=generator)
+    return t.div_(math.sqrt(in_features) * norm)

@@ -365,3 +365,151 @@ def test_flash_vit_forward_on_card(cuda):
         got = model.to(cuda)(x.to(cuda)).cpu()
     assert float((got - want).abs().max()) <= 1e-3
     assert (FA.LAUNCHES["flash_attention_lanes"], FA.LAUNCHES["flash_attention"]) == (2, 0)
+
+
+# --- the Chebyshev and Fourier kernels (kan_basis.cu) and their ViTs ----------
+
+def _cheby_x(rng, shape, saturated=0.1):
+    """Normal inputs with a share where tanh(x) rounds to +-1 (|x| >= 9.5)."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    flat = x.reshape(-1)
+    idx = rng.choice(flat.size, int(flat.size * saturated), replace=False)
+    flat[idx] = (rng.uniform(9.5, 20.0, idx.size)
+                 * rng.choice([-1.0, 1.0], idx.size)).astype(np.float32)
+    return torch.from_numpy(x)
+
+
+def _fourier_x(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    x.reshape(-1)[::7] = rng.uniform(-10.0, 10.0, x.reshape(-1)[::7].size)
+    return torch.from_numpy(x)
+
+
+def _param(rng, shape, scale):
+    return torch.from_numpy((rng.standard_normal(shape) * scale).astype(np.float32))
+
+
+@pytest.mark.parametrize("n,nin,nout", [(1, 8, 3), (1000, 16, 24), (300, 100, 70)])
+def test_chebykan_kernels(cuda, n, nin, nout):
+    """Forward, dx and dcoeffs, with saturated inputs: finite, and 0 dx there."""
+    rng = np.random.default_rng(60)
+    x = _cheby_x(rng, (n, nin)).to(cuda)
+    cc = _param(rng, (nin, nout, 5), 1.0 / nin).to(cuda)
+    g = _param(rng, (n, nout), 1.0).to(cuda)
+    y, got = _grads(FB.chebykan, [x, cc], g)
+    ref, want = _grads(K.chebykan_forward, [x, cc], g)
+    _close(y, ref, 1e-4)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    assert bool((got[0][x.abs() >= 9.5] == 0).all())
+    assert FB.LAUNCHES["chebykan"] == 1 and FB.LAUNCHES["chebykan_bwd"] == 1
+
+
+@pytest.mark.parametrize("n,h,dh", [(37 * 50, 2, 32), (129, 6, 64)])
+def test_cheby_qkv_grouped_kernels(cuda, n, h, dh):
+    rng = np.random.default_rng(61)
+    x = _cheby_x(rng, (n, h * dh), 0.02).to(cuda)
+    cc = _param(rng, (h, dh, 3 * dh, 5), 1.0 / dh).to(cuda)
+    g = _param(rng, (n, h * 3 * dh), 1.0).to(cuda)
+
+    def plain(x, cc):
+        return torch.cat([K.chebykan_forward(x[:, i * dh:(i + 1) * dh], cc[i])
+                          for i in range(h)], dim=1)
+
+    y, got = _grads(FB.cheby_qkv_grouped, [x, cc], g)
+    ref, want = _grads(plain, [x, cc], g)
+    _close(y, ref, 1e-4)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    assert FB.LAUNCHES["cheby_qkv_grouped"] == 1
+    assert FB.LAUNCHES["cheby_qkv_grouped_bwd"] == 1
+
+
+@pytest.mark.parametrize("n,nin,nout,grid_size", [
+    (1, 8, 3, 1), (1000, 16, 24, 5), (999, 20, 70, 7), (300, 64, 96, 28)])
+def test_fourierkan_kernels(cuda, n, nin, nout, grid_size):
+    """Forward, dx, dcoeffs and dbias at |x| up to 10, G from 1 to 28 (a
+    ragged last chunk of 4 harmonics at 1, 5 and 7)."""
+    rng = np.random.default_rng(62)
+    x = _fourier_x(rng, (n, nin)).to(cuda)
+    co = _param(rng, (2, nout, nin, grid_size), 1.0 / np.sqrt(nin * grid_size)).to(cuda)
+    bias = _param(rng, (1, nout), 0.1).to(cuda)
+    g = _param(rng, (n, nout), 1.0).to(cuda)
+    y, got = _grads(FB.fourierkan, [x, co, bias], g)
+    ref, want = _grads(K.fourierkan_forward, [x, co, bias], g)
+    _close(y, ref, 1e-4)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    assert FB.LAUNCHES["fourierkan"] == 1 and FB.LAUNCHES["fourierkan_bwd"] == 1
+
+
+@pytest.mark.parametrize("family", ["cheby", "fourier"])
+def test_new_backward_repeats_its_bits(cuda, family):
+    """dW splits its rows and sums the splits in a fixed order."""
+    rng = np.random.default_rng(63)
+    if family == "cheby":
+        x = _cheby_x(rng, (12544, 96)).to(cuda)
+        params = [_param(rng, (96, 48, 5), 0.01).to(cuda)]
+        fn = FB.chebykan
+    else:
+        x = _fourier_x(rng, (12544, 96)).to(cuda)
+        params = [_param(rng, (2, 48, 96, 28), 0.02).to(cuda), None]
+        fn = FB.fourierkan
+    g = _param(rng, (12544, 48), 1.0).to(cuda)
+    _, first = _grads(lambda *a: fn(*a, *params[1:]), [x, params[0]], g)
+    _, second = _grads(lambda *a: fn(*a, *params[1:]), [x, params[0]], g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_new_kernels_raise_not_fall_back(cuda):
+    x = torch.zeros(4, 16, device=cuda)
+    with torch.inference_mode(), pytest.raises(ValueError, match="Chebyshev degree"):
+        FB.chebykan(x, torch.zeros(16, 3, 4, device=cuda))
+    with torch.inference_mode(), pytest.raises(TypeError, match="float32"):
+        FB.fourierkan(x.double(), torch.zeros(2, 3, 16, 5, device=cuda,
+                                              dtype=torch.float64), None)
+    assert sum(FB.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("variant,launches", [
+    ("cheby", {"chebykan": 1, "cheby_qkv_grouped": 2, "flash_attention_lanes": 2}),
+    ("fourier", {"fourierkan": 1, "flash_attention_lanes": 2}),
+    ("vanilla", {"flash_attention_lanes": 2})])
+def test_variant_train_step_on_card(cuda, variant, launches):
+    """A forward, then two Adam steps, of a 2-block MNIST-geometry model on
+    the card against the CPU: logits within 1e-3, losses and params within
+    1e-4; the launches of one forward. A key projection's constant term (a
+    Linear key's bias, a ChebyKAN key's T_0 slice) has a gradient of 0 in
+    exact arithmetic, since the softmax cancels it, so Adam moves it by
+    rounding noise of either sign: it is held within 2 steps of lr."""
+    import copy
+
+    from kanvit_torch.models import create_model
+    from kanvit_torch.train import create_train_state, make_train_step
+
+    cpu = create_model(variant, chw=(1, 28, 28), n_patches=7, n_blocks=2,
+                       d_hidden=64, n_heads=2, out_d=10, seed=3)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(64)
+    x = torch.from_numpy(rng.standard_normal((6, 1, 28, 28)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 6))
+    with torch.inference_mode():
+        want = cpu(x)
+        got = gpu(x.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-3
+    assert {k: n for k, n in {**FB.LAUNCHES, **FA.LAUNCHES}.items() if n} == launches
+    step = make_train_step()
+    sc, sg = create_train_state(cpu), create_train_state(gpu)
+    for _ in range(2):
+        sc, lc, _ = step(sc, x, y)
+        sg, lg, _ = step(sg, x.to(cuda), y.to(cuda))
+        assert abs(float(lc) - float(lg)) <= 1e-4
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        diff = (pc - pg.cpu()).detach().abs()
+        noise = torch.zeros_like(diff, dtype=torch.bool)
+        if ".k_mappings." in name and name.endswith(".bias"):
+            noise[...] = True
+        elif ".k_mappings." in name and name.endswith(".cheby_coeffs"):
+            noise[..., 0] = True
+        assert float(torch.where(noise, 0.0, diff).max()) <= 1e-4, name
+        assert float(torch.where(noise, diff, 0.0).max()) <= 2 * 2 * 1e-3, name

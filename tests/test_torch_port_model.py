@@ -24,6 +24,7 @@ from kanvit.utils.torch_compat import (
     torch_state_dict_from_params,
 )
 from kanvit_torch.layers import MSA, KANLinear, TorchLinear, TransformerBlock
+from kanvit_torch.layers.kan import ChebyKANLayer, FourierKANLayer
 from kanvit_torch.models import VisionTransformer, create_model
 from kanvit_torch.utils.convert import (
     load_reference_state_dict,
@@ -238,17 +239,44 @@ def test_unknown_kinds_raise():
         VisionTransformer((1, 28, 28), type="bogus")
 
 
-@pytest.mark.parametrize("kind", ["vanilla", "fast", "sine", "cheby", "fourier",
-                                  "flash-attn"])
+@pytest.mark.parametrize("kind", ["fast", "sine"])
 def test_unported_msa_kinds_raise(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         MSA(16, 2, type=kind)
 
 
-@pytest.mark.parametrize("kind", ["vanilla", "fast", "sine", "fourier", "cheby"])
+@pytest.mark.parametrize("kind", ["fast", "sine"])
 def test_unported_variants_raise(kind):
     with pytest.raises(NotImplementedError, match="ROADMAP.md"):
         create_model(kind, **MNIST)
+
+
+@pytest.mark.parametrize("kind,layer", [
+    ("vanilla", TorchLinear), ("flash-attn", TorchLinear), ("fourier", TorchLinear),
+    ("linear", TorchLinear), ("efficientkan", KANLinear), ("cheby", ChebyKANLayer)])
+def test_ported_msa_kinds_construct(kind, layer):
+    """kanvit's dispatch table (``attention.py:36-53``): Linear q/k/v for
+    vanilla, flash-attn, fourier and linear; KANLinear; ChebyKAN degree 4."""
+    msa = MSA(16, 2, type=kind)
+    assert all(type(m) is layer for m in msa.q_mappings)
+    if kind == "cheby":
+        assert msa.q_mappings[0].degree == 4
+
+
+@pytest.mark.parametrize("kind,layer", [
+    ("vanilla", TorchLinear), ("efficientkan", KANLinear),
+    ("cheby", ChebyKANLayer), ("fourier", FourierKANLayer),
+    ("flash-attn", TorchLinear)])
+def test_ported_variants_embedder(kind, layer):
+    """The patch embedder per variant, with the mapper's constants (fourier
+    grid 28, cheby degree 4: kanvit ``models/vit.py:44-47``)."""
+    mapper = create_model(kind, **MNIST).linear_mapper
+    assert type(mapper) is layer
+    if kind == "fourier":
+        assert mapper.fouriercoeffs.shape == (2, 64, 16, 28)
+        assert mapper.bias.shape == (1, 64)
+    if kind == "cheby":
+        assert mapper.cheby_coeffs.shape == (16, 64, 5)
 
 
 def test_forward_carries_gradients():

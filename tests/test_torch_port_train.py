@@ -4,7 +4,8 @@
   fed the same numpy gradients for 5 steps.
 - The train step: kanvit's ``make_train_step`` (its Pallas kernels in
   interpret mode) against the port's over K = 3 steps on fixed batches, on
-  the same weights carried across by ``state_dict_from_jax_params``.
+  the same weights carried across by ``state_dict_from_jax_params``
+  (``run_steps`` and its checks, shared with the other variants' files).
 - ``grad_accum``, the bench entry point and its FLOP count.
 
 f32 on the CPU. Inputs come from numpy seeds.
@@ -155,19 +156,20 @@ def _adam_state(opt_state):
     return next(f for f in found if f is not None) if found else None
 
 
-@pytest.fixture(scope="module")
-def step_run():
-    """K steps of kanvit (Pallas kernels in interpret mode) and of the port
-    from the same weights on the same fixed batches."""
-    rng = np.random.default_rng(31)
-    xs = rng.standard_normal((K_STEPS, 8, *SMALL["chw"])).astype(np.float32)
-    ys = rng.integers(0, SMALL["out_d"], (K_STEPS, 8))
+def run_steps(variant, geometry, seed=31, steps=K_STEPS):
+    """``steps`` train steps of kanvit (Pallas kernels in interpret mode)
+    and of the port, from the same weights on the same fixed batches.
+    Returns the losses of both, the step-1 gradients and the final params,
+    kanvit's carried across by ``state_dict_from_jax_params``."""
+    rng = np.random.default_rng(seed)
+    xs = rng.standard_normal((steps, 8, *geometry["chw"])).astype(np.float32)
+    ys = rng.integers(0, geometry["out_d"], (steps, 8))
 
-    jmodel = j_create_model("efficientkan", **SMALL)
+    jmodel = j_create_model(variant, **geometry)
     jdispatch.set_impl("jnp")  # init is plain jnp; only the weights matter
     try:
         state = j_create_train_state(jmodel, jax.random.PRNGKey(4),
-                                     jnp.zeros((1, *SMALL["chw"])))
+                                     jnp.zeros((1, *geometry["chw"])))
     finally:
         jdispatch.set_impl("pallas")
     try:
@@ -186,7 +188,7 @@ def step_run():
     finally:
         jdispatch.set_impl("auto")
 
-    model = create_model("efficientkan", **SMALL, seed=9)
+    model = create_model(variant, **geometry, seed=9)
     load_reference_state_dict(model, state_dict_from_jax_params(params0))
     tstate = create_train_state(model, LR)
     tstep = make_train_step()
@@ -203,25 +205,39 @@ def step_run():
                 tparams={k: p.detach() for k, p in model.named_parameters()})
 
 
-def test_train_step_losses_match_kanvit(step_run):
+def check_losses(run):
     """Per-step CE loss: f32 logits agree to ~1e-6, so the losses to 1e-5."""
-    assert len(step_run["tlosses"]) == K_STEPS
-    for got, want in zip(step_run["tlosses"], step_run["jlosses"]):
+    assert len(run["tlosses"]) == len(run["jlosses"]) > 0
+    for got, want in zip(run["tlosses"], run["jlosses"]):
         assert abs(got - want) <= 1e-5
 
 
-def test_train_step_grads_match_kanvit(step_run):
+def check_grads(run):
     """Step-1 gradients per tensor within 1e-5 x max(1, max|g|); the JAX
     grads carried across by the same converter as the weights."""
-    jg, tg = step_run["jgrads"], step_run["tgrads"]
+    jg, tg = run["jgrads"], run["tgrads"]
     assert set(jg) == set(tg)
     for k in jg:
         assert tg[k].shape == jg[k].shape, k
+        assert bool(tg[k].isfinite().all()), k
         assert _maxdiff(tg[k], jg[k]) <= GRAD_TOL * max(1.0, float(np.abs(jg[k]).max())), k
 
 
-def test_train_step_params_match_kanvit(step_run):
-    """Params after K = 3 Adam steps.
+def _zero_in_exact_arithmetic(name, shape):
+    """The constant term of each key projection: it adds the same q . b to
+    every score of a query's row, which the softmax cancels, so its
+    gradient is 0 in exact arithmetic and f32 rounding noise in both
+    frameworks (a Linear key's bias, a ChebyKAN key's T_0 = 1 slice)."""
+    mask = np.zeros(shape, bool)
+    if ".k_mappings." in name and name.endswith(".bias"):
+        mask[...] = True
+    elif ".k_mappings." in name and name.endswith(".cheby_coeffs"):
+        mask[..., 0] = True
+    return mask
+
+
+def check_params(run, steps=K_STEPS):
+    """Params after ``steps`` Adam steps.
 
     Adam normalises each element's step to about lr = 1e-3 whatever the
     gradient's size (the first step is lr * g / (|g| + 1e-8)). Where a
@@ -232,20 +248,41 @@ def test_train_step_params_match_kanvit(step_run):
     1e-6 x its tensor's max (an order above f32 rounding of a sum of this
     depth, ~1e-7 relative), or exactly 0 in both (spline coefficients of
     bases no input reaches: Adam leaves them in place), are held within
-    1e-5, 1% of one step; they are at least 99% of all elements.
+    1e-5, 1% of one step; they are at least 99% of all elements whose
+    gradient is not 0 in exact arithmetic (``_zero_in_exact_arithmetic``).
     """
-    jp, tp = step_run["jparams"], step_run["tparams"]
-    jg, tg = step_run["jgrads"], step_run["tgrads"]
-    resolved = 0
+    jp, tp = run["jparams"], run["tparams"]
+    jg, tg = run["jgrads"], run["tgrads"]
+    resolved = total = 0
     for k in jp:
         diff = np.abs(tp[k].numpy().astype(np.float64) - jp[k])
-        assert diff.max() <= 2 * K_STEPS * LR, k
+        assert diff.max() <= 2 * steps * LR, k
         g = np.abs(jg[k])
-        held = (g > 1e-6 * g.max()) | ((g == 0) & (tg[k].numpy() == 0))
+        live = ~_zero_in_exact_arithmetic(k, g.shape)
+        held = live & ((g > 1e-6 * g[live].max(initial=0.0))
+                       | ((g == 0) & (tg[k].numpy() == 0)))
         resolved += int(held.sum())
-        assert diff[held].max() <= 1e-5, k
-    total = sum(v.size for v in jp.values())
+        total += int(live.sum())
+        if held.any():
+            assert diff[held].max() <= 1e-5, k
     assert resolved >= 0.99 * total
+
+
+@pytest.fixture(scope="module")
+def step_run():
+    return run_steps("efficientkan", SMALL)
+
+
+def test_train_step_losses_match_kanvit(step_run):
+    check_losses(step_run)
+
+
+def test_train_step_grads_match_kanvit(step_run):
+    check_grads(step_run)
+
+
+def test_train_step_params_match_kanvit(step_run):
+    check_params(step_run)
 
 
 def test_grad_accum_matches_one_batch():
