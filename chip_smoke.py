@@ -31,32 +31,46 @@ Phases, in order; any failure raises, so the script exits non-zero:
    heads of 64 -> 192), ragged narrow shapes of each, inputs where tanh
    saturates (|x| >= 9.5) and Fourier inputs up to |x| = 10; the backward's
    bits repeated; error and time of both;
-7. serving, through ``Predictor(batch_size=64, device="cuda")`` for three
+7. the RBF and sine kernels (forward, and the backward: dx, dW, the
+   LayerNorm's dgamma and dbeta, sine's dfreq) against their plain versions
+   and autograd through them: ``fastkan`` and ``sinekan`` (grid 28) at the
+   vit-s embedder's shapes, ``fastkan_qkv_grouped`` and
+   ``sinekan_qkv_grouped`` (grid 4) at one vit-s q/k/v projection, ragged
+   narrow shapes of each (nin 16, d_head 32, odd N), inputs where silu, the
+   RBF and the LayerNorm saturate (|x| up to 60, a constant row) and sine
+   arguments of several pi; the sine embedder's gradients also against f64;
+   the backward's bits repeated; error and time of both;
+8. serving, through ``Predictor(batch_size=64, device="cuda")`` for three
    requests (64, 64 and 37 images), of the vit-s ``efficientkan`` (1 + 12
    + 12 launches a batch), ``flash-attn`` (12 lanes), ``cheby`` (1
    ``chebykan`` + 12 ``cheby_qkv_grouped`` + 12 lanes), ``fourier`` (1
-   ``fourierkan`` + 12 lanes; q/k/v on cuBLAS) and ``vanilla`` (12 lanes)
+   ``fourierkan`` + 12 lanes; q/k/v on cuBLAS), ``fast`` (1 ``fastkan`` +
+   36 ``fastkan_qkv_grouped`` + 12 lanes), ``sine`` (1 ``sinekan`` + 36
+   ``sinekan_qkv_grouped`` + 12 lanes) and ``vanilla`` (12 lanes)
    models: exact launch counts and no backward launch, the logits of two
    images against the same model's CPU forward, the steady-state images/s;
-8. training of the vit-s ``efficientkan``, ``cheby`` and ``fourier``
-   models, batch 64, 6 Adam steps on one fixed batch through
+9. training of the vit-s ``efficientkan``, ``cheby``, ``fourier``, ``fast``
+   and ``sine`` models, batch 64, 6 Adam steps on one fixed batch through
    ``kanvit_torch.train``: loss finite and falling, exact forward and
-   backward launch counts a step, the embedder's backward computing dW
-   only, the gradients of a 4-image batch against the same model's CPU
+   backward launch counts a step, the embedder's backward computing no dx,
+   the gradients of a 4-image batch against the same model's CPU
    gradients, the steady-state step time and images/s, and a
    ``torch.profiler`` breakdown;
-9. decoder training through ``kanvit_torch.bench_decoder`` at
+10. decoder training through ``kanvit_torch.bench_decoder`` at
    ``benchmarks/causal_decoder.py``'s configs (d 256, 4 heads, 4 blocks,
    vocab 1024; seq 2048 batch 16 and seq 8192 batch 4): 6 Adam steps (loss
    finite and falling, exactly 4 tiled forward, 4 dq and 4 dk/dv launches a
    step and no lanes launch), the gradients of a 1-sequence batch at seq
    2048 against the CPU, tokens/s and ms a step of the kernel impl and, at
    seq 2048, of the plain impl, and a ``torch.profiler`` breakdown;
-10. the reference MNIST preset (batch 128) through ``kanvit_torch.bench``,
+11. the reference MNIST preset (batch 128) through ``kanvit_torch.bench``,
     whose JSON line is printed;
-11. one JSON line of per-kernel results (each kernel's launches on its main
-    path, and by path), the card's ``nvidia-smi`` line, and last the result
-    line ``{"ok": true, "device": {...}}``.
+12. one JSON line of per-kernel results (each kernel's launches on its main
+    path, and by path; its error, time and plain version's time; its bound,
+    the least time the card could take for the same work, and, for the
+    attention kernels, ``scaled_dot_product_attention``'s time on the same
+    inputs), the card's ``nvidia-smi`` line, and last the result line
+    ``{"ok": true, "device": {...}}``.
 
 It imports torch, numpy and kanvit_torch only (no jax).
 """
@@ -65,6 +79,7 @@ from __future__ import annotations
 
 import copy
 import json
+import re
 import subprocess
 import sys
 import time
@@ -92,6 +107,11 @@ TOL_BWD = 1e-4
 # one flip in an early block moves that block's FF gradient by ~2e-3 of its
 # max: the vit-s fourier model's CPU f32 gradients are 1.98e-3 from f64.
 TOL_GRADS = 1e-3
+# The card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms: f32
+# outside the tensor cores (every kernel here is f32 on the CUDA cores) and
+# HBM3.
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
 TRAIN_STEPS = 6
 GRAD_IMAGES = 4
 SEED = 0
@@ -198,6 +218,74 @@ def compare(name, got, want, tol):
     return err
 
 
+def bound(flops, nbytes, library_ms=None):
+    """The least time the card could take for ``flops`` f32 operations on
+    ``nbytes`` of inputs read once and outputs written once: the larger of
+    the two over the published peaks, and which one binds. ``library_ms``
+    is one PyTorch call's time for the same function, or None."""
+    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+    return {"bound_ms": max(t_ops, t_bytes),
+            "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+            "library_ms": library_ms}
+
+
+def kan_bound(n, groups, slices, nin, out, backward=False, extra_floats=0):
+    """A KAN pass over x (n, G*nin) and the packed weight (G, S, nin, out):
+    2 n G S nin out FLOPs a contraction, one forward, two backward (gW for
+    dx, and dW); bytes of x, W and y (backward: x, W, gy, dx and dW), plus
+    ``extra_floats`` (the LayerNorm's, sine's freq and phase tables)."""
+    flops = 2.0 * n * groups * slices * nin * out * (2 if backward else 1)
+    floats = n * groups * nin + groups * slices * nin * out + n * groups * out
+    if backward:
+        floats += n * groups * nin + groups * slices * nin * out
+    return bound(flops, 4.0 * (floats + extra_floats))
+
+
+def attention_bound(b, h, tq, tk, dh, causal, part, library_ms=None):
+    """Attention over b*h heads: 2 tq tk dh FLOPs a product, of which the
+    forward does 2 (q k^T, p v), dq 3 (s, dp, dq), dk/dv 4 (s, dp, dv, dk)
+    and a joint backward 5; causal counts only the keys at or before each
+    query (tq == tk). Bytes: q, k, v (+ o and do backward) in, o (dq, dk, dv)
+    out, and the per-row (m, l) where the kernel reads them."""
+    pairs = tk * (tk + 1) / 2 if causal else tq * tk
+    products = {"fwd": 2, "dq": 3, "dkv": 4, "bwd": 5}[part]
+    row, col = b * h * tq * dh, b * h * tk * dh
+    floats = {"fwd": 2 * row + 2 * col,
+              "dq": 3 * row + 2 * col + 3 * b * h * tq,
+              "dkv": 2 * row + 4 * col + 3 * b * h * tq,
+              "bwd": 4 * row + 4 * col + 2 * b * h * tq}[part]
+    return bound(2.0 * b * h * pairs * dh * products, 4.0 * floats, library_ms)
+
+
+def sdpa_ms(torch, q, k, v, causal, mask, backward=None, iters=20):
+    """``scaled_dot_product_attention`` on (B, H, T, dh) views with the same
+    key mask and causality (query row r at position r - max(tk - tq, 0), as
+    the port's kernels), forward alone, or its backward through autograd to
+    the inputs in ``backward`` ("q", "kv" or "qkv"): the yardstick call,
+    never used by the port."""
+    import torch.nn.functional as F
+
+    b, _, tq, _ = q.shape
+    tk = k.shape[2]
+    attn_mask = None if mask is None else mask.bool().reshape(b, 1, 1, tk)
+    if causal and (attn_mask is not None or tq != tk):
+        seen = torch.ones(tq, tk, dtype=torch.bool, device=q.device).tril(
+            -max(tk - tq, 0))
+        attn_mask = seen if attn_mask is None else attn_mask & seen
+    causal_arg = causal and attn_mask is None
+    if backward is None:
+        with torch.inference_mode():
+            return time_ms(torch, lambda: F.scaled_dot_product_attention(
+                q, k, v, attn_mask=attn_mask, is_causal=causal_arg), iters)
+    leaves = [a.detach().clone().requires_grad_(True) for a in (q, k, v)]
+    out = F.scaled_dot_product_attention(*leaves, attn_mask=attn_mask,
+                                         is_causal=causal_arg)
+    g = torch.randn_like(out)
+    want = {"q": leaves[:1], "kv": leaves[1:], "qkv": leaves}[backward]
+    return time_ms(torch, lambda: torch.autograd.grad(out, want, g, retain_graph=True),
+                   iters)
+
+
 def check_bspline(torch, rng, n, nin, nout, label):
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.layers import KANLinear
@@ -219,7 +307,7 @@ def check_bspline(torch, rng, n, nin, nout, label):
         plain_ms = time_ms(torch, lambda: K.bspline_kan_forward(x, *p))
     print(f"[kernel] bspline_kan {label}: kernel {ms:.4f} ms  (with weight packing "
           f"{wrapper_ms:.4f} ms)  plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, kan_bound(n, 1, 9, nin, nout)
 
 
 def check_qkv(torch, rng, n, heads, dh, label):
@@ -252,7 +340,7 @@ def check_qkv(torch, rng, n, heads, dh, label):
         plain_ms = time_ms(torch, plain)
     print(f"[kernel] bspline_qkv_grouped {label}: kernel {ms:.4f} ms  (with weight "
           f"packing {wrapper_ms:.4f} ms)  plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, kan_bound(n, heads, 9, dh, 3 * dh)
 
 
 def check_attention(torch, rng, b, t, heads, dh, label, cases):
@@ -282,9 +370,11 @@ def check_attention(torch, rng, b, t, heads, dh, label, cases):
             q, k, v, heads, causal=causal, mask=mask))
         plain_ms = time_ms(torch, lambda: A.lanes_attention(
             q, k, v, heads, causal=causal, mask=mask))
+    lib_ms = sdpa_ms(torch, *(a.transpose(1, 2) for a in (q, k, v)), causal, mask)
     print(f"[kernel] flash_attention_lanes {label}: kernel {ms:.4f} ms  "
-          f"plain {plain_ms:.4f} ms")
-    return errs[0], ms, plain_ms
+          f"plain {plain_ms:.4f} ms  scaled_dot_product_attention {lib_ms:.4f} ms")
+    return errs[0], ms, plain_ms, attention_bound(b, heads, t, t, dh, causal, "fwd",
+                                                  lib_ms)
 
 
 def phase_kernels(torch):
@@ -353,7 +443,7 @@ def check_bspline_bwd(torch, rng, n, nin, nout, label):
                                                           retain_graph=True))
     print(f"[kernel] bspline_kan_bwd {label}: kernel dx+dW {ms:.4f} ms (dW alone, "
           f"as on the training path, {dw_ms:.4f} ms)  plain autograd {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, {"no_dx_ms": dw_ms}, kan_bound(n, 1, 9, nin, nout, True)
 
 
 def check_qkv_bwd(torch, rng, n, heads, dh, label):
@@ -389,7 +479,7 @@ def check_qkv_bwd(torch, rng, n, heads, dh, label):
                                                           retain_graph=True))
     print(f"[kernel] bspline_qkv_grouped_bwd {label}: kernel {ms:.4f} ms  "
           f"plain autograd {plain_ms:.4f} ms")
-    return err, ms, plain_ms
+    return err, ms, plain_ms, kan_bound(n, heads, 9, dh, 3 * dh, True)
 
 
 def check_attention_bwd(torch, rng, b, t, heads, dh, label, cases):
@@ -431,9 +521,13 @@ def check_attention_bwd(torch, rng, b, t, heads, dh, label, cases):
     leaves, out, _ = grads_of(torch, through(A.lanes_attention, causal, mask), [y], g)
     plain_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g,
                                                           retain_graph=True))
+    lib_ms = sdpa_ms(torch, q4.transpose(1, 2), k4.transpose(1, 2), v4.transpose(1, 2),
+                     causal, mask, backward="qkv")
     print(f"[kernel] flash_attention_lanes_bwd {label}: kernel {ms:.4f} ms  "
-          f"plain autograd {plain_ms:.4f} ms")
-    return errs[0], ms, plain_ms
+          f"plain autograd {plain_ms:.4f} ms  scaled_dot_product_attention backward "
+          f"{lib_ms:.4f} ms")
+    return errs[0], ms, plain_ms, attention_bound(b, heads, t, t, dh, causal, "bwd",
+                                                  lib_ms)
 
 
 def phase_backward_kernels(torch):
@@ -520,12 +614,17 @@ def check_flash(torch, rng, b, h, tq, tk, dh, causal, mask, label, iters):
         out, leaves[:1], g, retain_graph=True), iters, 2)
     ms["plain dkv"] = time_ms(torch, lambda: torch.autograd.grad(
         out, leaves[1:], g, retain_graph=True), iters, 2)
+    for part in ("fwd", "dq", "dkv"):
+        ms[f"sdpa {part}"] = sdpa_ms(torch, q, k, v, causal, keys,
+                                     None if part == "fwd" else part[1:], iters)
     print(f"[kernel] tiled attention {label}: " + "  ".join(
         f"{key} {val:.4f} ms" for key, val in ms.items()))
+    bounds = {part: attention_bound(b, h, tq, tk, dh, causal and tq == tk, part,
+                                    ms[f"sdpa {part}"]) for part in ("fwd", "dq", "dkv")}
     return o, v, {
-        "flash_attention": (err_fwd, ms["fwd"], ms["plain fwd"]),
-        "flash_attention_dq": (err_dq, ms["dq"], ms["plain dq"]),
-        "flash_attention_dkv": (err_dkv, ms["dkv"], ms["plain dkv"]),
+        "flash_attention": (err_fwd, ms["fwd"], ms["plain fwd"], bounds["fwd"]),
+        "flash_attention_dq": (err_dq, ms["dq"], ms["plain dq"], bounds["dq"]),
+        "flash_attention_dkv": (err_dkv, ms["dkv"], ms["plain dkv"], bounds["dkv"]),
     }
 
 
@@ -612,11 +711,11 @@ def phase_flash_kernels(torch):
     check_single_tile(torch, rng)
     return {name: (*main[name], {"at_seq_8192_batch_4": {
         "max_abs_err": long[name][0], "ms": long[name][1],
-        "plain_ms": long[name][2]}}) for name in main}
+        "plain_ms": long[name][2], **long[name][3]}}) for name in main}
 
 
 # --------------------------------------------------------------------------
-# Phase 6: the Chebyshev and Fourier kernels against their plain versions
+# Phases 6 and 7: the Chebyshev, Fourier, RBF and sine kernels
 # --------------------------------------------------------------------------
 
 def cheby_inputs(rng, shape, saturated):
@@ -639,17 +738,18 @@ def fourier_inputs(rng, shape):
     return x
 
 
-def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
-                names):
-    """Forward, dx and the parameter gradients of a Chebyshev or Fourier
-    wrapper against its plain version and autograd through it, on the card;
-    the backward's bits repeated; CUDA-event times of the forward kernel,
-    the backward kernels (dx + dW, and dW alone, as on the training path),
-    the plain forward and autograd's backward. ``w`` is the packed weight
-    and ``aux`` the degree or grid size the kernels take. Returns the
-    ``(err, ms, plain_ms, extra)`` of the forward and of the backward."""
-    from kanvit_torch.kernels import fused_basis as FB
-
+def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
+              shape, f64=False):
+    """Forward, dx and the parameter gradients of a KAN wrapper against its
+    plain version and autograd through it, on the card; the backward's bits
+    repeated; CUDA-event times of the forward kernel, the backward kernels
+    (everything, and as on the training path: no dx for an embedder), the
+    plain forward and autograd's backward. ``launches`` is ``(forward(),
+    backward(g), backward_train(g))``, the launches alone; ``shape`` ``(n,
+    G, S, nin, out, extra floats)`` for the bound. ``f64``: also hold the
+    gradients against autograd through the plain version in f64. Returns
+    the ``(err, ms, plain_ms, extras...)`` of the forward and of the
+    backward."""
     x = inputs[0]
     with torch.inference_mode():
         y = kernel(*inputs)
@@ -662,25 +762,162 @@ def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
     leaves, out, want = grads_of(torch, plain, inputs, g)
     torch.cuda.synchronize()
     err_bwd = compare_grads(f"{name}_bwd {label}", names, got, want)
+    if f64:
+        _, _, want64 = grads_of(torch, lambda *a: plain(*a).double(),
+                                [a.double() for a in inputs], g.double())
+        for nm, a, b, c in zip(names, got, want, want64):
+            scale = max(1.0, float(c.abs().max()))
+            print(f"[kernel] {name}_bwd {label} d{nm} against f64: kernel "
+                  f"{float((a.double() - c).abs().max()) / scale:.3e}, plain f32 "
+                  f"{float((b.double() - c).abs().max()) / scale:.3e} (x max(1, max|g|))")
+        compare_grads(f"{name}_bwd {label} against f64", names,
+                      [a.double() for a in got], want64)
     _, _, again = grads_of(torch, kernel, inputs, g)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
     print(f"[kernel] {name}_bwd {label}: a second backward repeats the bits: {same}")
     check(same, f"{name}_bwd {label}: a second backward gave other bits")
+    fwd, bwd, bwd_train = launches
     with torch.inference_mode():
-        ms = time_ms(torch, lambda: FB._launch(name, family, x, w, aux))
+        ms = time_ms(torch, fwd)
         plain_ms = time_ms(torch, lambda: plain(*inputs))
-    bwd_ms = time_ms(torch, lambda: FB._launch_bwd(f"{name}_bwd", family, x, w, aux,
-                                                   g, True, True))
-    dw_ms = time_ms(torch, lambda: FB._launch_bwd(f"{name}_bwd", family, x, w, aux,
-                                                  g, False, True))
+    bwd_ms = time_ms(torch, lambda: bwd(g))
+    train_ms = time_ms(torch, lambda: bwd_train(g))
     plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g,
                                                               retain_graph=True))
+    *dims, extra = shape
     print(f"[kernel] {name} {label}: forward kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
-          f" | backward kernels dx+dW {bwd_ms:.4f} ms (dW alone {dw_ms:.4f} ms)  "
-          f"plain autograd {plain_bwd_ms:.4f} ms")
-    return ((err_fwd, ms, plain_ms), (err_bwd, bwd_ms, plain_bwd_ms,
-                                      {"dw_only_ms": dw_ms}))
+          f" | backward kernels, all gradients {bwd_ms:.4f} ms (no dx, as an "
+          f"embedder's training step {train_ms:.4f} ms)  plain autograd "
+          f"{plain_bwd_ms:.4f} ms")
+    return ((err_fwd, ms, plain_ms, kan_bound(*dims, extra_floats=extra)),
+            (err_bwd, bwd_ms, plain_bwd_ms, {"no_dx_ms": train_ms},
+             kan_bound(*dims, backward=True, extra_floats=extra)))
+
+
+def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
+                names):
+    """``check_kan`` for the Chebyshev and Fourier wrappers: ``w`` is the
+    packed weight and ``aux`` the degree or grid size the kernels take."""
+    from kanvit_torch.kernels import fused_basis as FB
+
+    x, bname = inputs[0], f"{name}_bwd"
+    launches = (lambda: FB._launch(name, family, x, w, aux),
+                lambda g: FB._launch_bwd(bname, family, x, w, aux, g, True, True),
+                lambda g: FB._launch_bwd(bname, family, x, w, aux, g, False, True))
+    return check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
+                     (x.shape[0], *w.shape, 0))
+
+
+def fast_inputs(rng, shape):
+    """Normal inputs (std 1.5) with a share at |x| in [20, 60], where silu's
+    sigmoid and the RBF's exp saturate and one entry dominates its row's
+    LayerNorm, and the first row constant (the LayerNorm's variance 0)."""
+    x = (rng.standard_normal(shape) * 1.5).astype(np.float32)
+    flat = x.reshape(-1)
+    idx = rng.choice(flat.size, flat.size // 50, replace=False)
+    flat[idx] = (rng.uniform(20.0, 60.0, idx.size)
+                 * rng.choice([-1.0, 1.0], idx.size)).astype(np.float32)
+    x.reshape(-1, shape[-1])[0] = 0.5
+    return x
+
+
+def sine_inputs(rng, shape):
+    """Normal inputs, every 7th entry spread over [-20, 20]: arguments of
+    x freq + phase over several pi."""
+    x = rng.standard_normal(shape).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[::7] = rng.uniform(-20.0, 20.0, flat[::7].size).astype(np.float32)
+    return x
+
+
+def check_rbf(torch, rng, name, label, n, groups, nin, nout):
+    """``fastkan`` (groups 1) or ``fastkan_qkv_grouped`` against the plain
+    FastKAN forward (per head) and autograd through it: x, the LayerNorm's
+    gamma and beta, spline and base weights, base bias."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    def cuda(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    lead = () if groups == 1 else (groups,)
+    x = cuda(fast_inputs(rng, (n, groups * nin)))
+    params = [cuda(1 + 0.1 * rng.standard_normal((*lead, nin))),
+              cuda(0.1 * rng.standard_normal((*lead, nin))),
+              cuda(rng.standard_normal((*lead, nout, nin * 8)) / np.sqrt(nin * 8)),
+              cuda(rng.standard_normal((*lead, nout, nin)) / np.sqrt(nin)),
+              cuda(0.1 * rng.standard_normal((*lead, nout)))]
+    grid, den = torch.linspace(-2.0, 2.0, 8, device="cuda"), 4.0 / 7.0
+    if groups == 1:
+        kernel = lambda x, ga, be, *w: FB.fastkan(x, ga, be, grid, den, *w)  # noqa: E731
+        plain = lambda x, ga, be, *w: K.fastkan_forward(x, ga, be, grid, den, *w)  # noqa: E731
+        w = FB.pack_fastkan_weight(params[2], params[3], 8).unsqueeze(0)
+    else:
+        kernel = lambda x, ga, be, *w: FB.fastkan_qkv_grouped(  # noqa: E731
+            x, ga, be, grid, den, *w)
+
+        def plain(x, ga, be, sw, bw, bb):
+            return torch.cat([K.fastkan_forward(
+                x[:, i * nin:(i + 1) * nin], ga[i], be[i], grid, den, sw[i], bw[i], bb[i])
+                for i in range(groups)], dim=1)
+        w = FB.pack_fastkan_qkv_weight(params[2], params[3], 8)
+    w = w.contiguous()
+    ga, be = (p.reshape(groups, nin) for p in params[:2])
+    with torch.inference_mode():
+        _, stats = FB._launch_rbf(name, x, w, ga, be, grid, den)
+    bname = f"{name}_bwd"
+    launches = (
+        lambda: FB._launch_rbf(name, x, w, ga, be, grid, den),
+        lambda g: FB._launch_rbf_bwd(bname, x, w, ga, be, grid, den, stats, g, True, True),
+        lambda g: FB._launch_rbf_bwd(bname, x, w, ga, be, grid, den, stats, g, False,
+                                     True))
+    return check_kan(torch, rng, name, label, kernel, plain, [x, *params],
+                     ("x", "gamma", "beta", "spline_weight", "base_weight", "base_bias"),
+                     launches, (n, groups, 9, nin, nout, 2 * groups * nin + 8))
+
+
+def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size):
+    """``sinekan`` (groups 1) or ``sinekan_qkv_grouped`` against the plain
+    SineKAN forward (per head) and autograd through it: x, freq, amplitudes,
+    bias. At the embedder dfreq sums N * nin = 9.6M terms a slice: the
+    gradients are held against f64 too."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    def cuda(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    lead = () if groups == 1 else (groups,)
+    x = cuda(sine_inputs(rng, (n, groups * nin)))
+    k = np.arange(1, grid_size + 1)
+    params = [cuda(k / (grid_size + 1) + 0.05 * rng.standard_normal((*lead, grid_size))),
+              cuda(rng.uniform(-1.0, 1.0, (*lead, nout, nin, grid_size)) / nout / k),
+              cuda(np.full((*lead, nout), 1.0 / nout))]
+    phase = K.sinekan_phase_init(nin, grid_size).cuda()
+    if groups == 1:
+        kernel = lambda x, f, a, b: FB.sinekan(x, f, phase, a, b)  # noqa: E731
+        plain = lambda x, f, a, b: K.sinekan_forward(  # noqa: E731
+            x, f, phase.to(x.dtype), a, b)
+        w = FB.pack_sine_weight(params[1])
+    else:
+        kernel = lambda x, f, a, b: FB.sinekan_qkv_grouped(x, f, phase, a, b)  # noqa: E731
+
+        def plain(x, f, a, b):
+            return torch.cat([K.sinekan_forward(x[:, i * nin:(i + 1) * nin], f[i],
+                                                phase.to(x.dtype), a[i], b[i])
+                              for i in range(groups)], dim=1)
+        w = FB.pack_sine_qkv_weight(params[1])
+    w, freq2d = w.contiguous(), params[0].reshape(groups, grid_size)
+    bname = f"{name}_bwd"
+    launches = (
+        lambda: FB._launch_sine(name, x, w, freq2d, phase),
+        lambda g: FB._launch_sine_bwd(bname, x, w, freq2d, phase, g, True, True),
+        lambda g: FB._launch_sine_bwd(bname, x, w, freq2d, phase, g, False, True))
+    return check_kan(torch, rng, name, label, kernel, plain, [x, *params],
+                     ("x", "freq", "amplitudes", "bias"), launches,
+                     (n, groups, grid_size, nin, nout, (groups + nin) * grid_size),
+                     f64=groups == 1 and nin >= 768)
 
 
 def phase_basis_kernels(torch):
@@ -736,8 +973,38 @@ def phase_basis_kernels(torch):
     return results
 
 
+def phase_rbf_sine_kernels(torch):
+    """``fastkan`` and ``sinekan`` (grid 28) at the vit-s embedder (12,544
+    patches, 768 -> 384), ``fastkan_qkv_grouped`` and ``sinekan_qkv_grouped``
+    (grid 4) at one vit-s q/k/v projection (12,608 tokens, 6 heads of 64 ->
+    64), and ragged narrow shapes of each (nin 16, d_head 32, odd N)."""
+    rng = np.random.default_rng(SEED + 9)
+    results = {}
+
+    def keep(name, fwd_bwd):
+        results.setdefault(name, fwd_bwd[0])
+        results.setdefault(f"{name}_bwd", fwd_bwd[1])
+
+    for n, nin, nout, label in ((BATCH * 196, 768, 384, "vit-s embedder"),
+                                (37 * 49, 16, 64, "ragged")):
+        keep("fastkan", check_rbf(torch, rng, "fastkan", label, n, 1, nin, nout))
+    for n, h, dh, label in ((BATCH * 197, 6, 64, "vit-s q/k/v"),
+                            (37 * 50 - 1, 2, 32, "ragged")):
+        keep("fastkan_qkv_grouped", check_rbf(torch, rng, "fastkan_qkv_grouped",
+                                              label, n, h, dh, dh))
+    for n, nin, nout, gs, label in ((BATCH * 196, 768, 384, 28, "vit-s embedder G28"),
+                                    (37 * 49, 16, 64, 28, "ragged G28"),
+                                    (999, 20, 70, 7, "ragged G7")):
+        keep("sinekan", check_sine(torch, rng, "sinekan", label, n, 1, nin, nout, gs))
+    for n, h, dh, label in ((BATCH * 197, 6, 64, "vit-s q/k/v"),
+                            (37 * 50 - 1, 2, 32, "ragged")):
+        keep("sinekan_qkv_grouped", check_sine(torch, rng, "sinekan_qkv_grouped",
+                                               label, n, h, dh, dh, 4))
+    return results
+
+
 # --------------------------------------------------------------------------
-# Phase 7: serving
+# Phase 8: serving
 # --------------------------------------------------------------------------
 
 def launch_counts():
@@ -835,7 +1102,7 @@ def phase_serve(torch, smi, model_cpu, tag, per_batch, seed):
 
 
 # --------------------------------------------------------------------------
-# Phase 8: training
+# Phase 9: training
 # --------------------------------------------------------------------------
 
 def device_ms(torch, fn):
@@ -848,12 +1115,15 @@ def device_ms(torch, fn):
 
 
 def grad_scale(name, grads):
-    """max|g| of a tensor's CPU gradient; for a key projection's Linear bias
-    that of its weight. The softmax cancels the bias (it adds the same
-    q . b to every score of a row), so its gradient is 0 in exact
-    arithmetic and rounding noise on both sides."""
-    if ".k_mappings." in name and name.endswith(".bias"):
-        name = name[: -len("bias")] + "weight"
+    """max|g| of a tensor's CPU gradient; for a key projection's bias (Linear,
+    FastKAN base branch or SineKAN) that of the projection's weight. The
+    softmax cancels the bias (it adds the same q . b to every score of a
+    row), so its gradient is 0 in exact arithmetic and rounding noise on
+    both sides."""
+    m = re.fullmatch(r"(.*\.k_mappings\.\d+\.)(base_linear\.)?bias", name)
+    if m:
+        name = next(m.group(1) + w for w in ("weight", "base_linear.weight", "amplitudes")
+                    if m.group(1) + w in grads)
     return float(grads[name].abs().max())
 
 
@@ -869,10 +1139,41 @@ def grads_against(got, want):
     return worst, worst_name
 
 
+def relu_patterns(torch, net, impose=None):
+    """Forward hooks on every ReLU of ``net``: record each one's pattern
+    (output > 0) into the returned dict, or, given ``impose`` (such a dict),
+    compute ``input * pattern`` instead, so that the net takes the same
+    linear piece as the run that recorded it. f32 rounding puts some
+    pre-activations that lie within it of 0 on the other side (a few of
+    vit-s's 14.5M a batch of 4), and each such flip moves its block's FF
+    gradient by up to ~4e-3 of the tensor's max; on one pattern the
+    gradients of the f32 run and of f64 differ by rounding alone. Returns
+    ``(patterns, hooks)``."""
+    seen, hooks = {}, []
+
+    def record(name):
+        return lambda mod, inp, out: seen.__setitem__(name, (out > 0).cpu())
+
+    def follow(name):
+        return lambda mod, inp, out: inp[0] * impose[name].to(inp[0].device,
+                                                               inp[0].dtype)
+
+    for name, mod in net.named_modules():
+        if isinstance(mod, torch.nn.ReLU):
+            hook = record(name) if impose is None else follow(name)
+            hooks.append(mod.register_forward_hook(hook))
+    return seen, hooks
+
+
+# The launcher of each embedder's backward, whose last two arguments are
+# (need_dx, need_dw).
+EMBEDDER_BWD = {"fastkan": "_launch_rbf_bwd", "sinekan": "_launch_sine_bwd"}
+
+
 def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
     """6 Adam steps at batch 64 on one batch through ``kanvit_torch.train``:
     exactly ``per_step_fwd`` forward launches a step and as many backward
-    ones, the embedder's (``embedder``) asked for dW only; losses finite
+    ones, the embedder's (``embedder``) asked for no dx; losses finite
     and falling; 4-image gradients against the CPU; ms a step and images/s;
     the device time's split and a ``torch.profiler`` breakdown."""
     import torch.nn.functional as F
@@ -894,7 +1195,8 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
     per_step.update({f"{k}_bwd": n for k, n in per_step_fwd.items()})
 
     asked = []  # (need_dx, need_dw) of each embedder backward launch
-    launch_bwd = FB._launch_bwd
+    attr = EMBEDDER_BWD.get(embedder, "_launch_bwd")
+    launch_bwd = getattr(FB, attr)
 
     def recording_launch_bwd(name, *args):
         if name == f"{embedder}_bwd":
@@ -903,7 +1205,7 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
 
     reset_counts()
     losses, steps_ok = [], True
-    FB._launch_bwd = recording_launch_bwd
+    setattr(FB, attr, recording_launch_bwd)
     try:
         for _ in range(TRAIN_STEPS):
             before = launch_counts()
@@ -912,7 +1214,7 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
             steps_ok &= {k: after[k] - before[k] for k in after} == per_step
             losses.append(loss)
     finally:
-        FB._launch_bwd = launch_bwd
+        setattr(FB, attr, launch_bwd)
     torch.cuda.synchronize()
     counts = launch_counts()
     losses = [float(v) for v in losses]
@@ -924,29 +1226,43 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
           f"embedder's backward asked for (dx, dW): {sorted(set(asked))}")
     check(steps_ok, f"{tag}: a training step's launches differ from {per_step}")
     check(asked == [(False, True)] * TRAIN_STEPS,
-          f"{tag}: the embedder's backward must compute dW only, got {asked}")
+          f"{tag}: the embedder's backward must compute no dx, got {asked}")
     check(all(np.isfinite(losses)), f"{tag}: training losses are not finite: {losses}")
     check(losses[-1] < losses[0], f"{tag}: loss did not fall: {losses}")
     check(tuple(logits.shape) == (BATCH, geom["out_d"])
           and bool(logits.isfinite().all()), f"{tag}: training logits")
 
     # gradients of a small batch on the card against the same model's on the
-    # CPU in f64, the CPU's f32 gradients beside them
+    # CPU in f64, on the card's own ReLU pattern (see relu_patterns), the
+    # free f64 and the CPU's f32 gradients beside them
     xg, yg = x[:GRAD_IMAGES], y[:GRAD_IMAGES]
-    grads = {}
+    grads, patterns = {}, {}
     for key, net, dtype in (("gpu", copy.deepcopy(model_cpu).to("cuda"), torch.float32),
                             ("cpu", copy.deepcopy(model_cpu), torch.float32),
-                            ("cpu64", copy.deepcopy(model_cpu).double(), torch.float64)):
+                            ("cpu64", copy.deepcopy(model_cpu).double(), torch.float64),
+                            ("cpu64_gpu_relus", copy.deepcopy(model_cpu).double(),
+                             torch.float64)):
         dev = next(net.parameters()).device
+        seen, hooks = relu_patterns(torch, net, patterns.get("gpu")
+                                    if key == "cpu64_gpu_relus" else None)
         F.cross_entropy(net(xg.to(dev, dtype)), yg.to(dev)).backward()
+        for h in hooks:
+            h.remove()
+        patterns[key] = seen
         grads[key] = {name: p.grad.double().cpu() for name, p in net.named_parameters()}
-    worst, worst_name = grads_against(grads["gpu"], grads["cpu64"])
+    flips = sum(int((patterns["gpu"][k] != patterns["cpu64"][k]).sum())
+                for k in patterns["gpu"])
+    worst, worst_name = grads_against(grads["gpu"], grads["cpu64_gpu_relus"])
+    free_worst, free_name = grads_against(grads["gpu"], grads["cpu64"])
     cpu_worst, cpu_name = grads_against(grads["cpu"], grads["cpu64"])
     f32_worst, f32_name = grads_against(grads["gpu"], grads["cpu"])
     print(f"[{tag}] gradients of {GRAD_IMAGES} images, per tensor, worst max|err| / "
-          f"max|g|: GPU against CPU f64 {worst:.3e} ({worst_name})  limit "
-          f"{TOL_GRADS:.0e}; CPU f32 against CPU f64 {cpu_worst:.3e} ({cpu_name}); "
-          f"GPU against CPU f32 {f32_worst:.3e} ({f32_name})")
+          f"max|g|: GPU against CPU f64 on the GPU's ReLU pattern {worst:.3e} "
+          f"({worst_name})  limit {TOL_GRADS:.0e}; against free CPU f64 "
+          f"{free_worst:.3e} ({free_name}; {flips} ReLU outputs of the GPU's "
+          f"forward on the other side of 0 than f64's); CPU f32 against CPU f64 "
+          f"{cpu_worst:.3e} ({cpu_name}); GPU against CPU f32 {f32_worst:.3e} "
+          f"({f32_name})")
     check(worst <= TOL_GRADS, f"{tag}: GPU gradients differ from the CPU's: "
                               f"{worst_name} {worst:.3e}")
 
@@ -987,10 +1303,12 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
 
 
 # KAN basis kernels are grouped by family too (their template argument).
-KAN_FAMILIES = ("Bspline", "Cheby", "Fourier")
+KAN_FAMILIES = ("Bspline", "Cheby", "Fourier", "Rbf", "Sine")
 KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
-    ("KAN basis bwd", ("kan_dx_kernel", "kan_dw_kernel", "sum_splits_kernel")),
+    ("KAN basis bwd", ("kan_dx_kernel", "kan_dw_kernel", "sum_splits_kernel",
+                       "sum_blocks_kernel")),
+    ("RBF LayerNorm stats and VJP", ("ln_stats_kernel", "ln_dx_kernel", "ln_dgb_kernel")),
     ("attention fwd", ("attention_lanes_fwd_kernel",)),
     ("attention bwd", ("attention_lanes_dq_kernel", "attention_lanes_dkv_kernel")),
     ("tiled attention fwd", ("flash_fwd_kernel",)),
@@ -1045,7 +1363,7 @@ def phase_profile(torch, step, state, x, y, label, steps=2):
 
 
 # --------------------------------------------------------------------------
-# Phase 9: decoder training
+# Phase 10: decoder training
 # --------------------------------------------------------------------------
 
 def decoder_parts(torch, model, tokens):
@@ -1150,7 +1468,7 @@ def phase_decoder(torch, smi):
 
 
 # --------------------------------------------------------------------------
-# Phase 10: the reference preset through the port's bench
+# Phase 11: the reference preset through the port's bench
 # --------------------------------------------------------------------------
 
 def phase_bench(torch, smi):
@@ -1182,10 +1500,11 @@ def phase_bench(torch, smi):
 
 
 # --------------------------------------------------------------------------
-# Phase 11: results
+# Phase 12: results
 # --------------------------------------------------------------------------
 
 KAN_SRC = "kanvit_torch/kernels/csrc/kan_basis.cu"
+RBF_SINE_SRC = "kanvit_torch/kernels/csrc/kan_rbf_sine.cu"
 FB_PY = "kanvit/kernels/fused_basis.py"
 SOURCES = {
     "bspline_kan": (KAN_SRC, f"{FB_PY}:1067"),
@@ -1208,10 +1527,21 @@ SOURCES = {
     "cheby_qkv_grouped_bwd": (KAN_SRC, f"{FB_PY}:1278"),
     "fourierkan": (KAN_SRC, f"{FB_PY}:2317"),
     "fourierkan_bwd": (KAN_SRC, f"{FB_PY}:2564"),
+    "fastkan": (RBF_SINE_SRC, f"{FB_PY}:2947"),
+    "fastkan_bwd": (RBF_SINE_SRC, f"{FB_PY}:2995"),
+    "fastkan_qkv_grouped": (RBF_SINE_SRC, f"{FB_PY}:3191"),
+    "fastkan_qkv_grouped_bwd": (RBF_SINE_SRC, f"{FB_PY}:3246"),
+    "sinekan": (RBF_SINE_SRC, f"{FB_PY}:2317"),
+    "sinekan_bwd": (RBF_SINE_SRC, f"{FB_PY}:2523"),
+    "sinekan_qkv_grouped": (RBF_SINE_SRC, f"{FB_PY}:1518"),
+    "sinekan_qkv_grouped_bwd": (RBF_SINE_SRC, f"{FB_PY}:1557"),
 }
 # The single-tile tier of flash_attention runs the lanes kernels (phase 5);
-# fourierkan's kernels serve kanvit's generic tier below its K-blocked one
-# too, and its backward both the K-blocked dx and dW.
+# fourierkan's and sinekan's kernels serve kanvit's generic tier below its
+# K-blocked one too, and their backward both the K-blocked dx and dW (sine's
+# opt-in split-residual pair and basis-saving forward, and sinekan_qkv, are
+# the same functions); fastkan's, with the LayerNorm or the silu slice off,
+# serve _rbf_base_op and _rbf_op.
 ALSO_REPLACES = {
     "flash_attention_lanes": ["kanvit/kernels/flash_attention.py:410"],
     "flash_attention_lanes_bwd": ["kanvit/kernels/flash_attention.py:442"],
@@ -1219,6 +1549,11 @@ ALSO_REPLACES = {
     "bspline_kan_bwd": [f"{FB_PY}:810", f"{FB_PY}:969", f"{FB_PY}:1006"],
     "fourierkan": [f"{FB_PY}:1067"],
     "fourierkan_bwd": [f"{FB_PY}:2492", f"{FB_PY}:1159"],
+    "fastkan": [f"{FB_PY}:2726", f"{FB_PY}:1067"],
+    "fastkan_bwd": [f"{FB_PY}:2769", f"{FB_PY}:1159"],
+    "sinekan": [f"{FB_PY}:1067", f"{FB_PY}:2354"],
+    "sinekan_bwd": [f"{FB_PY}:2492", f"{FB_PY}:1728", f"{FB_PY}:2401",
+                    f"{FB_PY}:2433"],
 }
 # The main path each kernel must have been launched on ("train" otherwise).
 MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
@@ -1226,7 +1561,11 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
              "chebykan": "cheby_train", "chebykan_bwd": "cheby_train",
              "cheby_qkv_grouped": "cheby_train",
              "cheby_qkv_grouped_bwd": "cheby_train",
-             "fourierkan": "fourier_train", "fourierkan_bwd": "fourier_train"}
+             "fourierkan": "fourier_train", "fourierkan_bwd": "fourier_train",
+             **{f"{name}{sfx}": f"{variant}_train"
+                for variant, names in (("fast", ("fastkan", "fastkan_qkv_grouped")),
+                                       ("sine", ("sinekan", "sinekan_qkv_grouped")))
+                for name in names for sfx in ("", "_bwd")}}
 
 
 def timed(label, fn, *args):
@@ -1243,6 +1582,7 @@ def main():
     results.update(timed("backward kernels", phase_backward_kernels, torch))
     results.update(timed("tiled attention kernels", phase_flash_kernels, torch))
     results.update(timed("Chebyshev and Fourier kernels", phase_basis_kernels, torch))
+    results.update(timed("RBF and sine kernels", phase_rbf_sine_kernels, torch))
 
     from kanvit_torch.models import PRESETS
 
@@ -1251,6 +1591,9 @@ def main():
     efficientkan = {"bspline_kan": 1, "bspline_qkv_grouped": blocks, **lanes}
     cheby = {"chebykan": 1, "cheby_qkv_grouped": blocks, **lanes}
     fourier = {"fourierkan": 1, **lanes}
+    # one grouped launch per q, k and v projection
+    fast = {"fastkan": 1, "fastkan_qkv_grouped": 3 * blocks, **lanes}
+    sine = {"sinekan": 1, "sinekan_qkv_grouped": 3 * blocks, **lanes}
     paths = {}
     model_cpu = build_model("efficientkan")
     paths["serve"] = timed("efficientkan serving", phase_serve, torch, smi, model_cpu,
@@ -1262,7 +1605,9 @@ def main():
         "flash-attn serving", phase_serve, torch, smi, build_model("flash-attn"),
         "flash-serve", lanes, SEED + 5)["launches"]
     for variant, per_batch, embedder in (("cheby", cheby, "chebykan"),
-                                         ("fourier", fourier, "fourierkan")):
+                                         ("fourier", fourier, "fourierkan"),
+                                         ("fast", fast, "fastkan"),
+                                         ("sine", sine, "sinekan")):
         model_cpu = build_model(variant)
         paths[f"{variant}_serve"] = timed(
             f"{variant} serving", phase_serve, torch, smi, model_cpu,
@@ -1288,6 +1633,8 @@ def main():
             entry["also_replaces"] = ALSO_REPLACES[name]
         for more in extra:
             entry.update(more)
+        check({"bound_ms", "bound_by", "library_ms"} <= set(entry),
+              f"{name}: no bound in its result")
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}))
     print(smi)

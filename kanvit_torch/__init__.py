@@ -14,10 +14,11 @@ paths and names so each counterpart is found at once:
 - ``kanvit_torch.bench``    the training throughput bench (one JSON line)
 
 Ported so far, in f32, serving and the training step (forward and backward
-kernels, Adam): the ``vanilla``, ``efficientkan``, ``cheby``, ``fourier`` and
-``flash-attn`` ViTs, and the ``CausalDecoder`` on the tiled flash attention.
-``fast``, ``sine``, bf16 and the trainer surface are listed in
-``ROADMAP.md``. This package imports torch and numpy only, never jax.
+kernels, Adam): every ViT variant (``vanilla``, ``efficientkan``, ``fast``,
+``sine``, ``fourier``, ``cheby``, ``flash-attn``), and the ``CausalDecoder``
+on the tiled flash attention. bf16, the opt-in fused FFN and int8 kernels
+and the trainer surface are listed in ``ROADMAP.md``. This package imports
+torch and numpy only, never jax.
 """
 
 __version__ = "0.1.0"

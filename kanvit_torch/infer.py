@@ -1,8 +1,8 @@
 """Inference: the batched serving ``Predictor`` (counterpart of
 ``kanvit/infer.py``).
 
-Images are classified in fixed-size batches on an explicit device, the
-ragged tail zero-padded so every forward sees the same shape, with the whole
+Images are classified in fixed-size batches on the card unless the caller
+names another device (``device="cpu"``), the ragged tail zero-padded so every forward sees the same shape, with the whole
 forward under ``torch.inference_mode()``. ``microbatch`` runs each batch as
 a plain loop over equal chunks.
 
@@ -35,7 +35,7 @@ class Predictor:
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 256,
-                 microbatch: int | None = None, *, device):
+                 microbatch: int | None = None, *, device="cuda"):
         self.model = model
         self.batch_size = batch_size
         self.microbatch = microbatch
@@ -80,7 +80,7 @@ def load_predictor(
     model_type: str,
     state_dict_npz: str,
     *,
-    device,
+    device="cuda",
     chw=(1, 28, 28),
     n_patches=7,
     n_blocks=8,

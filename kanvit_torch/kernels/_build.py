@@ -42,6 +42,12 @@ SIGNATURES = {
     "kanvit_fourierkan_fwd": ([_p, _i64, _p, _p, *[_i32] * 5, _p], _i32),
     "kanvit_fourierkan_bwd": (
         [_p, _i64, *[_p] * 5, *[_i32] * 6, _p], _i32),
+    "kanvit_fastkan_fwd": (
+        [_p, _i64, _p, _p, _p, _f32, _p, _p, _p, *[_i32] * 5, _p], _i32),
+    "kanvit_fastkan_bwd": (
+        [_p, _i64, _p, _p, _p, _f32, *[_p] * 9, *[_i32] * 7, _p], _i32),
+    "kanvit_sinekan_fwd": ([_p, _i64, *[_p] * 4, *[_i32] * 5, _p], _i32),
+    "kanvit_sinekan_bwd": ([_p, _i64, *[_p] * 9, *[_i32] * 6, _p], _i32),
     "kanvit_attention_lanes_fwd": (
         [_p, _p, _p, *[_i64] * 9, _p, _p, _p, _i32, _i32, _i32, _i32, _i32,
          _f32, _p], _i32),

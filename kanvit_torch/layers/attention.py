@@ -8,18 +8,22 @@ model dim splits into ``n_heads`` slices, each head has its own
 with no output projection and no dropout.
 
 The projection follows kanvit's dispatch (``attention.py:36-53``, forward
-``:455-563``), and every kind feeds the lanes attention the q/k/v slices of
-one ``(N, H*3dh)`` projection as strided views, with no copy:
+``:455-563``), and every kind feeds the lanes attention its q, k and v as views of the projections'
+outputs, with no copy:
 
 - ``efficientkan`` and ``cheby``: the shared-basis path (``_shared_basis_qkv``,
   ``attention.py:56-133``): the per-head q/k/v weights concatenate into one
   grouped weight and one ``bspline_qkv_grouped`` or ``cheby_qkv_grouped``
   launch projects every head;
+- ``fast`` and ``sine``: no shared basis (each projection applies its own
+  LayerNorm, or has its own freq), so one ``fastkan_qkv_grouped`` or
+  ``sinekan_qkv_grouped`` launch per projection, three a block, each
+  projecting every head (``_fused_qkv_fast``, ``_fused_qkv_sine_grouped``,
+  ``attention.py:136-161,189-209``); sine with grid 4;
 - ``vanilla``, ``fourier``, ``flash-attn`` and ``linear``: per-head
   ``TorchLinear`` q/k/v as one batched matmul over the heads (kanvit runs a
   block-diagonal dense matmul outside any Pallas kernel,
-  ``_fused_qkv_linear_bd``, ``attention.py:164-186``);
-- ``fast`` and ``sine`` are not ported.
+  ``_fused_qkv_linear_bd``, ``attention.py:164-186``).
 
 All of it is differentiable: autograd reaches the backward kernels on the
 card, and the per-head weight stacking carries the packed weight's gradient
@@ -43,22 +47,16 @@ from kanvit_torch.layers.kan import TorchLinear, make_kan_layer
 # (``_head_projection_cls_and_kwargs``, ``attention.py:36-53``).
 LINEAR_KINDS = ("vanilla", "flash-attn", "fourier", "linear")
 SHARED_BASIS_KINDS = ("efficientkan", "cheby")
-NOT_PORTED = ("fast", "sine")
-# The MSA's Chebyshev degree (reference attention.py:160-162).
+PER_PROJECTION_KINDS = ("fast", "sine")
+# The MSA's Chebyshev degree and sine grid (reference attention.py:159-162).
 MSA_CHEBY_DEGREE = 4
+MSA_SINE_GRID = 4
 
 
 def check_kind(kind: str) -> None:
-    """ValueError for an unknown kind (the JAX message), NotImplementedError
-    for a known kind that is not ported yet."""
-    if kind in LINEAR_KINDS or kind in SHARED_BASIS_KINDS:
-        return
-    if kind in NOT_PORTED:
-        raise NotImplementedError(
-            f"MSA type {kind!r} is not ported to kanvit_torch yet "
-            "(ROADMAP.md, Queue 1)"
-        )
-    raise ValueError(f"{kind} invalid. Please use a different argument.")
+    """ValueError for an unknown kind, with the JAX message."""
+    if kind not in (*LINEAR_KINDS, *SHARED_BASIS_KINDS, *PER_PROJECTION_KINDS):
+        raise ValueError(f"{kind} invalid. Please use a different argument.")
 
 
 class MSA(nn.Module):
@@ -84,6 +82,7 @@ class MSA(nn.Module):
         for name in ("q_mappings", "k_mappings", "v_mappings"):
             setattr(self, name, nn.ModuleList(
                 make_kan_layer(kind, self.d_head, self.d_head,
+                               sine_grid_size=MSA_SINE_GRID,
                                cheby_degree=MSA_CHEBY_DEGREE, generator=generator)
                 for _ in range(n_heads)
             ))
@@ -97,6 +96,8 @@ class MSA(nn.Module):
           ``(H, 3dh, dh)``;
         - cheby: ``(cc,)``, ``(H, dh, 3dh, 5)``;
         - the Linear kinds: ``(w, b)``, ``(H, 3dh, dh)``, ``(H, 3dh)``.
+
+        For ``fast`` and ``sine`` see :meth:`projection_weights`.
         """
         heads = list(zip(self.q_mappings, self.k_mappings, self.v_mappings))
 
@@ -111,11 +112,43 @@ class MSA(nn.Module):
             return (stack("cheby_coeffs", dim=1),)
         return stack("weight"), stack("bias")
 
+    def projection_weights(self, mappings: nn.ModuleList):
+        """One projection's per-head weights, stacked over the heads:
+
+        - fast: ``(ln_gamma, ln_beta, spline_weight, base_weight,
+          base_bias)``, ``(H, dh)``, ``(H, dh)``, ``(H, dh, dh*8)``,
+          ``(H, dh, dh)``, ``(H, dh)``;
+        - sine: ``(freq, amplitudes, bias)``, ``(H, 4)``, ``(H, dh, dh, 4)``,
+          ``(H, dh)``.
+        """
+        def stack(get):
+            return torch.stack([get(m) for m in mappings])
+
+        if self.type == "fast":
+            return (stack(lambda m: m.layernorm.weight), stack(lambda m: m.layernorm.bias),
+                    stack(lambda m: m.spline_linear.weight),
+                    stack(lambda m: m.base_linear.weight),
+                    stack(lambda m: m.base_linear.bias))
+        return (stack(lambda m: m.freq.reshape(-1)), stack(lambda m: m.amplitudes),
+                stack(lambda m: m.bias.reshape(-1)))
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, T, d) -> (B, T, d)``."""
         b, t, d = x.shape
         h, dh = self.n_heads, self.d_head
         x2d = x.reshape(b * t, d)
+        if self.type in PER_PROJECTION_KINDS:
+            first = self.q_mappings[0]  # every head's centres / phase table
+            qkv = []
+            for mappings in (self.q_mappings, self.k_mappings, self.v_mappings):
+                w = self.projection_weights(mappings)
+                if self.type == "fast":
+                    y = FB.fastkan_qkv_grouped(x2d, *w[:2], first.rbf_grid,
+                                               first.denominator, *w[2:])
+                else:
+                    y = FB.sinekan_qkv_grouped(x2d, w[0], first.phase, *w[1:])
+                qkv.append(y.view(b, t, d))
+            return FA.flash_attention_lanes(*qkv, h)
         if self.type == "efficientkan":
             grid = self.q_mappings[0].grid  # every head's (dh, knots) grid is equal
             y = FB.bspline_qkv_grouped(x2d, grid, *self.grouped_weights())

@@ -3,9 +3,8 @@
 Parameter names, shapes and init distributions follow the PyTorch reference
 (``models/effkan.py``), so reference-named weights load directly
 (``kanvit_torch.utils.convert``). Modules are built on the CPU from an
-explicit ``torch.Generator``; move them with ``.to(device)``. Ported: the
-Linear, B-spline (efficient-kan), Chebyshev and Fourier layers; the FastKAN
-and SineKAN layers are not yet (``ROADMAP.md`` Queue 1 item 5).
+explicit ``torch.Generator``; move them with ``.to(device)``: the Linear,
+B-spline (efficient-kan), Chebyshev, Fourier, FastKAN and SineKAN layers.
 """
 
 from __future__ import annotations
@@ -166,12 +165,103 @@ class FourierKANLayer(nn.Module):
         return FB.fourierkan(x, self.fouriercoeffs, self.bias)
 
 
+class SplineLinear(nn.Module):
+    """FastKAN's bias-free spline Linear (reference ``fastkan.py:6-12``):
+    ``weight (out, in)``, trunc-normal with std ``init_scale`` cut at the
+    absolute bounds [-2, 2]."""
+
+    def __init__(self, in_features: int, out_features: int,
+                 init_scale: float = 0.1, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.weight = nn.Parameter(torch.empty(out_features, in_features))
+        tinit.trunc_normal_(self.weight, init_scale, generator=generator)
+
+
+class FastKANLayer(nn.Module):
+    """FastKAN RBF layer (reference ``models/fastkan.py:33-76``).
+
+    The reference's names: ``layernorm.weight`` / ``.bias (in,)`` (the
+    LayerNorm inside the layer; only its parameters are used, the kernels
+    normalise), ``spline_linear.weight (out, in*num_grids)`` trunc-normal
+    0.1, and with the base branch ``base_linear.weight (out, in)`` /
+    ``.bias (out,)``. The RBF centres ``torch.linspace(grid_min, grid_max,
+    num_grids)``, the reference's bits (kanvit's ``jnp.linspace`` differs by
+    up to 6 ulp), are a non-persistent buffer. The forward goes through
+    ``kanvit_torch.kernels.fused_basis.fastkan``; ``time_benchmark`` skips
+    the LayerNorm (reference ``fastkan.py:66-70``).
+    """
+
+    def __init__(self, input_dim: int, output_dim: int, grid_min: float = -2.0,
+                 grid_max: float = 2.0, num_grids: int = 8,
+                 use_base_update: bool = True,
+                 spline_weight_init_scale: float = 0.1, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.denominator = (grid_max - grid_min) / (num_grids - 1)
+        self.layernorm = nn.LayerNorm(input_dim, eps=1e-5)
+        self.register_buffer("rbf_grid",
+                             torch.linspace(grid_min, grid_max, num_grids),
+                             persistent=False)
+        self.spline_linear = SplineLinear(input_dim * num_grids, output_dim,
+                                          spline_weight_init_scale,
+                                          generator=generator)
+        self.base_linear = (TorchLinear(input_dim, output_dim, generator=generator)
+                            if use_base_update else None)
+
+    def forward(self, x: torch.Tensor, time_benchmark: bool = False) -> torch.Tensor:
+        ln = None if time_benchmark else self.layernorm
+        base = self.base_linear
+        return FB.fastkan(x, None if ln is None else ln.weight,
+                          None if ln is None else ln.bias, self.rbf_grid,
+                          self.denominator, self.spline_linear.weight,
+                          None if base is None else base.weight,
+                          None if base is None else base.bias)
+
+
+class SineKANLayer(nn.Module):
+    """SineKAN layer (reference ``models/sinekan.py:26-91``).
+
+    Params in the reference's shapes: ``amplitudes (out, in, grid)`` (one
+    draw per (out, in), divided by ``out * k``), trainable ``freq (1, 1, 1,
+    grid)`` (``k / (grid + 1)``) and ``bias (1, out)`` (``1 / out``). The
+    damped ``phase (in, grid)`` table is a non-persistent buffer, so kanvit's
+    converted weights, which omit it, load. The forward goes through
+    ``kanvit_torch.kernels.fused_basis.sinekan``.
+    """
+
+    def __init__(self, input_dim: int, output_dim: int, grid_size: int = 5,
+                 is_first: bool = False, add_bias: bool = True,
+                 norm_freq: bool = True, *,
+                 generator: torch.Generator | None = None):
+        super().__init__()
+        self.input_dim = input_dim
+        self.output_dim = output_dim
+        self.grid_size = grid_size
+        self.register_buffer("phase", K.sinekan_phase_init(input_dim, grid_size),
+                             persistent=False)
+        self.amplitudes = nn.Parameter(torch.empty(output_dim, input_dim, grid_size))
+        tinit.sinekan_amplitudes_(self.amplitudes, is_first, generator)
+        self.freq = nn.Parameter(torch.empty(1, 1, 1, grid_size))
+        tinit.sinekan_freq_(self.freq, is_first, norm_freq)
+        if add_bias:
+            self.bias = nn.Parameter(torch.full((1, output_dim), 1.0 / output_dim))
+        else:
+            self.register_parameter("bias", None)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        return FB.sinekan(x, self.freq, self.phase, self.amplitudes, self.bias)
+
+
 def make_kan_layer(kind: str, in_features: int, out_features: int, *,
-                   fourier_grid_size: int = 5, cheby_degree: int = 4,
+                   sine_grid_size: int = 5, fourier_grid_size: int = 5,
+                   cheby_degree: int = 4,
                    generator: torch.Generator | None = None) -> nn.Module:
     """Variant-keyed layer factory of the patch embedder and the MSA
     projections (kanvit ``layers/kan.py:394-427``, reference ``model.py:67-80``
-    and ``attention.py:135-173``). ``fast`` and ``sine`` are not ported."""
+    and ``attention.py:135-173``)."""
     if kind in ("vanilla", "flash-attn", "linear"):
         return TorchLinear(in_features, out_features, generator=generator)
     if kind == "efficientkan":
@@ -182,8 +272,9 @@ def make_kan_layer(kind: str, in_features: int, out_features: int, *,
     if kind == "cheby":
         return ChebyKANLayer(in_features, out_features, cheby_degree,
                              generator=generator)
-    if kind in ("fast", "sine"):
-        raise NotImplementedError(
-            f"KAN layer kind {kind!r} is not ported to kanvit_torch yet "
-            "(ROADMAP.md, Queue 1)")
+    if kind == "fast":
+        return FastKANLayer(in_features, out_features, generator=generator)
+    if kind == "sine":
+        return SineKANLayer(in_features, out_features, sine_grid_size,
+                            generator=generator)
     raise ValueError(f"Unknown KAN layer kind: {kind!r}")

@@ -2,14 +2,14 @@
 
 Reference ``model.py:40-169``: patchify -> patch embedding -> [class] token
 -> sinusoidal position table (quirk parity) -> N pre-LN encoder blocks ->
-LN + Linear head on the class token. Ported, for serving and training
-(``kanvit_torch.train``): ``vanilla`` (Linear embedder), ``efficientkan``
-(KANLinear), ``cheby`` (ChebyKAN, degree 4) and ``fourier`` (FourierKAN,
-grid 28), each with pre-LN blocks whose MSA projects q/k/v per head with
-the kind's layer (Linear for ``vanilla`` and ``fourier``); and
-``flash-attn`` (Linear embedder, raw ``FlashAttentionBlock``s with no
-LayerNorm, FF or residual, reference ``model.py:93-95,156-159``). ``fast``
-and ``sine`` raise ``NotImplementedError``.
+LN + Linear head on the class token. Every variant is ported, for serving
+and training (``kanvit_torch.train``): ``vanilla`` (Linear embedder),
+``efficientkan`` (KANLinear), ``fast`` (FastKAN), ``sine`` (SineKAN, grid
+28), ``cheby`` (ChebyKAN, degree 4) and ``fourier`` (FourierKAN, grid 28),
+each with pre-LN blocks whose MSA projects q/k/v per head with the kind's
+layer (Linear for ``vanilla`` and ``fourier``, SineKAN grid 4 for
+``sine``); and ``flash-attn`` (Linear embedder, raw ``FlashAttentionBlock``s
+with no LayerNorm, FF or residual, reference ``model.py:93-95,156-159``).
 """
 
 from __future__ import annotations
@@ -38,9 +38,9 @@ PRESETS = {
                   d_hidden=1024, n_heads=16, out_d=1000),
 }
 
-PORTED = ("vanilla", "efficientkan", "cheby", "fourier", "flash-attn")
 # The embedder's per-variant constants (reference call sites, model.py:72-76;
 # kanvit models/vit.py:44-47).
+MAPPER_SINE_GRID = 28
 MAPPER_FOURIER_GRID = 28
 MAPPER_CHEBY_DEGREE = 4
 
@@ -59,11 +59,6 @@ class VisionTransformer(nn.Module):
         super().__init__()
         if type not in VARIANTS:
             raise ValueError(f"Unknown transformer type: {type}")
-        if type not in PORTED:
-            raise NotImplementedError(
-                f"variant {type!r} is not ported to kanvit_torch yet "
-                "(ROADMAP.md, Queue 1)"
-            )
         c, h, w = chw
         if h % n_patches or w % n_patches:
             raise ValueError(f"image {h}x{w} not divisible by n_patches={n_patches}")
@@ -75,7 +70,8 @@ class VisionTransformer(nn.Module):
         input_d = c * (h // n_patches) * (w // n_patches)
 
         self.linear_mapper = make_kan_layer(
-            type, input_d, d_hidden, fourier_grid_size=MAPPER_FOURIER_GRID,
+            type, input_d, d_hidden, sine_grid_size=MAPPER_SINE_GRID,
+            fourier_grid_size=MAPPER_FOURIER_GRID,
             cheby_degree=MAPPER_CHEBY_DEGREE, generator=generator)
         # Classification token (reference model.py:83: torch.randn)
         self.v_class = nn.Parameter(torch.randn(1, d_hidden, generator=generator))

@@ -2,15 +2,16 @@
 
 These functions are the plain versions of the CUDA kernels in
 ``kanvit_torch.kernels.fused_basis``: the CPU path runs them (autograd
-through :func:`bspline_kan_forward`, :func:`chebykan_forward` and
-:func:`fourierkan_forward` is the backward kernels' plain version), and the
-card holds the kernels against them. Ported: the B-spline (efficient-kan),
-Chebyshev and Fourier families; the RBF (FastKAN) and sine families are not
-yet.
+through :func:`bspline_kan_forward`, :func:`chebykan_forward`,
+:func:`fourierkan_forward`, :func:`fastkan_forward` and
+:func:`sinekan_forward` is the backward kernels' plain version), and the
+card holds the kernels against them: the B-spline (efficient-kan),
+Chebyshev, Fourier, RBF (FastKAN, with its LayerNorm) and sine families.
 """
 
 from __future__ import annotations
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 
@@ -212,3 +213,90 @@ def chebykan_forward(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     basis = cheby_bases(x.reshape(-1, nin), deg1 - 1)  # (N, in, deg+1)
     y = basis.reshape(basis.shape[0], -1) @ coeffs.transpose(0, 1).reshape(nout, -1).T
     return y.reshape(*lead, nout)
+
+
+# --- Gaussian RBF (FastKAN) ---------------------------------------------------
+
+def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+              eps: float = 1e-5) -> torch.Tensor:
+    """LayerNorm over the last axis, biased variance (kanvit's
+    ``kan_bases.layernorm``, the reference's ``nn.LayerNorm`` default)."""
+    mean = x.mean(-1, keepdim=True)
+    var = (x - mean).square().mean(-1, keepdim=True)
+    return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
+
+
+def rbf_bases(x: torch.Tensor, grid: torch.Tensor,
+              denominator: float) -> torch.Tensor:
+    """``exp(-((x[..., None] - grid) / denominator)**2)`` (reference
+    ``fastkan.py:29-30``); ``grid (num_grids,)``."""
+    return torch.exp(-((x.unsqueeze(-1) - grid) / denominator) ** 2)
+
+
+def rbf_bases_and_grad(x: torch.Tensor, grid: torch.Tensor, denominator: float):
+    """RBF bases and their x-derivative ``-2u/denominator * exp(-u^2)``."""
+    u = (x.unsqueeze(-1) - grid) / denominator
+    b = torch.exp(-u * u)
+    return b, (-2.0 / denominator) * u * b
+
+
+def fastkan_forward(x, ln_gamma, ln_beta, rbf_grid, rbf_denominator,
+                    spline_weight, base_weight, base_bias) -> torch.Tensor:
+    """FastKAN layer forward (reference ``fastkan.py:66-76``): LayerNorm
+    inside the layer, RBF expansion, ``spline_weight (out, in*num_grids)``;
+    plus ``silu(x) @ base_weight.T + base_bias`` of the RAW x when the base
+    branch exists. ``ln_gamma=None`` skips the LayerNorm (the reference's
+    ``time_benchmark`` flag). Shape-preserving over leading dims."""
+    lead, nin = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, nin)
+    ln = xf if ln_gamma is None else layernorm(xf, ln_gamma, ln_beta)
+    basis = rbf_bases(ln, rbf_grid, rbf_denominator)  # (N, in, G)
+    y = basis.reshape(xf.shape[0], -1) @ spline_weight.T
+    if base_weight is not None:
+        y = y + F.silu(xf) @ base_weight.T + base_bias
+    return y.reshape(*lead, spline_weight.shape[0])
+
+
+# --- Sine (SineKAN) -----------------------------------------------------------
+
+def sine_bases(x: torch.Tensor, freq: torch.Tensor,
+               phase: torch.Tensor) -> torch.Tensor:
+    """``sin(x[..., None] * freq + phase)`` (reference ``sinekan.py:85-86``);
+    ``freq`` with ``grid`` entries (any shape, broadcast over inputs),
+    ``phase (in, grid)``. Returns ``(..., in, grid)``."""
+    return torch.sin(x.unsqueeze(-1) * freq.reshape(-1) + phase)
+
+
+def sine_bases_and_grad(x: torch.Tensor, freq: torch.Tensor, phase: torch.Tensor):
+    """Sine bases and their derivatives with respect to x, ``freq cos(arg)``,
+    and to each slice's freq, ``x cos(arg)``."""
+    f = freq.reshape(-1)
+    arg = x.unsqueeze(-1) * f + phase
+    c = torch.cos(arg)
+    return torch.sin(arg), f * c, x.unsqueeze(-1) * c
+
+
+def sinekan_forward(x, freq, phase, amplitudes, bias) -> torch.Tensor:
+    """SineKAN forward (reference ``sinekan.py:81-91``): ``amplitudes (out,
+    in, grid)``, ``bias`` ``(out,)``, ``(1, out)`` or None; the reference's
+    einsum as one flattened matmul. Shape-preserving over leading dims."""
+    lead, nin = x.shape[:-1], x.shape[-1]
+    nout = amplitudes.shape[0]
+    s = sine_bases(x.reshape(-1, nin), freq, phase)  # (N, in, grid)
+    y = s.reshape(s.shape[0], -1) @ amplitudes.reshape(nout, -1).T
+    if bias is not None:
+        y = y + bias.reshape(nout)
+    return y.reshape(*lead, nout)
+
+
+def sinekan_phase_init(input_dim: int, grid_size: int) -> torch.Tensor:
+    """SineKAN's phase table ``(input_dim, grid_size)`` f32 (reference
+    ``sinekan.py:59-75``, a copy of kanvit's): ``grid_phase + input_phase``
+    through ``grid_size - 1`` damping steps ``phase *= A i^-K + C``, in f64."""
+    a, k, c = 0.9724108095811765, 0.9884401790754128, 0.999449553483052
+    grid_phase = np.arange(1, grid_size + 1, dtype=np.float64) / (grid_size + 1)
+    input_phase = np.linspace(0, np.pi, input_dim)
+    phase = grid_phase[None, :] + input_phase[:, None]
+    for i in range(1, grid_size):
+        phase = (a * i ** (-k) + c) * phase
+    return torch.from_numpy(phase.astype(np.float32))

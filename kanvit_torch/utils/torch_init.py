@@ -59,3 +59,50 @@ def fourierkan_coeffs_(t: torch.Tensor, in_features: int, grid_size: int,
             else math.sqrt(grid_size))
     t.normal_(0.0, 1.0, generator=generator)
     return t.div_(math.sqrt(in_features) * norm)
+
+
+@torch.no_grad()
+def trunc_normal_(t: torch.Tensor, std: float, mean: float = 0.0,
+                  lower: float = -2.0, upper: float = 2.0,
+                  generator: torch.Generator | None = None) -> torch.Tensor:
+    """torch ``trunc_normal_``: normal(mean, std) cut at the ABSOLUTE bounds
+    ``[lower, upper]`` (kanvit ``utils/torch_init.py:50``, reference
+    ``fastkan.py:11-12``); entries outside are drawn again."""
+    t.normal_(mean, std, generator=generator)
+    while True:
+        out = (t < lower) | (t > upper)
+        count = int(out.sum())
+        if count == 0:
+            return t
+        t[out] = torch.empty(count, dtype=t.dtype).normal_(mean, std,
+                                                            generator=generator)
+
+
+@torch.no_grad()
+def sinekan_amplitudes_(t: torch.Tensor, is_first: bool = False,
+                        generator: torch.Generator | None = None) -> torch.Tensor:
+    """SineKAN amplitudes ``(out, in, grid)``: ONE draw per (out, in),
+    ``normal * 0.4`` for a first layer else ``U(-1, 1)``, broadcast over the
+    grid and divided by ``out * k`` for harmonic k = 1..grid (reference
+    ``sinekan.py:49-57``, kanvit ``layers/kan.py:270-280``)."""
+    nout, nin, grid_size = t.shape
+    base = torch.empty(nout, nin, 1, dtype=t.dtype)
+    if is_first:
+        base.normal_(0.0, 1.0, generator=generator).mul_(0.4)
+    else:
+        base.uniform_(-1.0, 1.0, generator=generator)
+    k = torch.arange(1, grid_size + 1, dtype=t.dtype)
+    return t.copy_(base / nout / k)
+
+
+@torch.no_grad()
+def sinekan_freq_(t: torch.Tensor, is_first: bool = False,
+                  norm_freq: bool = True) -> torch.Tensor:
+    """SineKAN freq: ``k / (grid + 1)`` for k = 1..grid (``k`` for a first
+    layer, or without ``norm_freq``), in ``t``'s shape (the reference's
+    ``(1, 1, 1, grid)``)."""
+    grid_size = t.numel()
+    f = torch.arange(1, grid_size + 1, dtype=t.dtype)
+    if norm_freq:
+        f = f / (grid_size + 1) ** (1 - int(is_first))
+    return t.copy_(f.reshape(t.shape))

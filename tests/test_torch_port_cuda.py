@@ -5,10 +5,12 @@ an NVIDIA GPU and nvcc (jax not needed, so skip the JAX conftest):
 
     python -m pytest --noconftest -m cuda tests/test_torch_port_cuda.py -q
 
-Tolerances as ``chip_smoke.py``: forward B-spline 1e-4 and attention 1e-5,
+Tolerances as ``chip_smoke.py``: forward KAN 1e-4 and attention 1e-5,
 backward 1e-4, times max(1, max|y|), all f32 with TF32 off. A backward
 kernel is held against autograd through its plain version on the card.
 """
+
+import re
 
 import numpy as np
 import pytest
@@ -474,12 +476,15 @@ def test_new_kernels_raise_not_fall_back(cuda):
 @pytest.mark.parametrize("variant,launches", [
     ("cheby", {"chebykan": 1, "cheby_qkv_grouped": 2, "flash_attention_lanes": 2}),
     ("fourier", {"fourierkan": 1, "flash_attention_lanes": 2}),
-    ("vanilla", {"flash_attention_lanes": 2})])
+    ("vanilla", {"flash_attention_lanes": 2}),
+    ("fast", {"fastkan": 1, "fastkan_qkv_grouped": 6, "flash_attention_lanes": 2}),
+    ("sine", {"sinekan": 1, "sinekan_qkv_grouped": 6, "flash_attention_lanes": 2})])
 def test_variant_train_step_on_card(cuda, variant, launches):
     """A forward, then two Adam steps, of a 2-block MNIST-geometry model on
     the card against the CPU: logits within 1e-3, losses and params within
     1e-4; the launches of one forward. A key projection's constant term (a
-    Linear key's bias, a ChebyKAN key's T_0 slice) has a gradient of 0 in
+    Linear, FastKAN or SineKAN key's bias, a ChebyKAN key's T_0 slice) has a
+    gradient of 0 in
     exact arithmetic, since the softmax cancels it, so Adam moves it by
     rounding noise of either sign: it is held within 2 steps of lr."""
     import copy
@@ -507,9 +512,164 @@ def test_variant_train_step_on_card(cuda, variant, launches):
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         diff = (pc - pg.cpu()).detach().abs()
         noise = torch.zeros_like(diff, dtype=torch.bool)
-        if ".k_mappings." in name and name.endswith(".bias"):
+        if re.search(r"\.k_mappings\.\d+\.(base_linear\.)?bias$", name):
             noise[...] = True
         elif ".k_mappings." in name and name.endswith(".cheby_coeffs"):
             noise[..., 0] = True
         assert float(torch.where(noise, 0.0, diff).max()) <= 1e-4, name
         assert float(torch.where(noise, diff, 0.0).max()) <= 2 * 2 * 1e-3, name
+
+
+# --- the RBF and sine kernels (kan_rbf_sine.cu) ---------------------------------
+
+RBF_GRID = torch.linspace(-2.0, 2.0, 8)
+
+
+def _fast_x(rng, shape):
+    """Normal inputs (std 1.5), every 9th entry at |x| in [20, 60], the
+    first row constant (the LayerNorm's variance 0)."""
+    x = (rng.standard_normal(shape) * 1.5).astype(np.float32)
+    flat = x.reshape(-1)
+    flat[4::9] = rng.uniform(20.0, 60.0, flat[4::9].size) * rng.choice([-1, 1], flat[4::9].size)
+    x.reshape(-1, shape[-1])[0] = 0.5
+    return torch.from_numpy(x)
+
+
+def _fast_params(rng, nout, nin, lead=()):
+    return [_param(rng, (*lead, nin), 0.1) + 1.0, _param(rng, (*lead, nin), 0.1),
+            _param(rng, (*lead, nout, nin * 8), 0.1), _param(rng, (*lead, nout, nin), 0.3),
+            _param(rng, (*lead, nout), 0.1)]
+
+
+@pytest.mark.parametrize("ln,base", [(True, True), (True, False), (False, True)])
+@pytest.mark.parametrize("n,nin,nout", [(1, 8, 3), (37 * 49, 16, 64), (300, 100, 70)])
+def test_fastkan_kernels(cuda, n, nin, nout, ln, base):
+    """Forward, dx, dgamma, dbeta, the spline and base weights and bias; with
+    and without the LayerNorm and the base branch."""
+    rng = np.random.default_rng(65)
+    x = _fast_x(rng, (n, nin)).to(cuda)
+    params = [p.to(cuda) for p in _fast_params(rng, nout, nin)]
+    g = _param(rng, (n, nout), 1.0).to(cuda)
+    grid = RBF_GRID.to(cuda)
+    used = [True, ln, ln, True, base, base]
+
+    def through(fn):
+        def call(*a):
+            it = iter(a)
+            full = [next(it) if u else None for u in used]
+            return fn(full[0], full[1], full[2], grid, 4 / 7, *full[3:])
+        return call
+
+    inputs = [t for t, u in zip([x, *params], used) if u]
+    y, got = _grads(through(FB.fastkan), inputs, g)
+    ref, want = _grads(through(K.fastkan_forward), inputs, g)
+    _close(y, ref, 1e-4)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    assert FB.LAUNCHES["fastkan"] == 1 and FB.LAUNCHES["fastkan_bwd"] == 1
+
+
+@pytest.mark.parametrize("n,h,dh", [(37 * 50, 2, 32), (129, 6, 64)])
+def test_fastkan_qkv_grouped_kernels(cuda, n, h, dh):
+    rng = np.random.default_rng(66)
+    x = _fast_x(rng, (n, h * dh)).to(cuda)
+    params = [p.to(cuda) for p in _fast_params(rng, dh, dh, (h,))]
+    g = _param(rng, (n, h * dh), 1.0).to(cuda)
+    grid = RBF_GRID.to(cuda)
+
+    def plain(x, ga, be, sw, bw, bb):
+        return torch.cat([K.fastkan_forward(x[:, i * dh:(i + 1) * dh], ga[i], be[i], grid,
+                                            4 / 7, sw[i], bw[i], bb[i])
+                          for i in range(h)], dim=1)
+
+    y, got = _grads(lambda x, ga, be, *w: FB.fastkan_qkv_grouped(x, ga, be, grid, 4 / 7, *w),
+                    [x, *params], g)
+    ref, want = _grads(plain, [x, *params], g)
+    _close(y, ref, 1e-4)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    assert FB.LAUNCHES["fastkan_qkv_grouped"] == 1
+    assert FB.LAUNCHES["fastkan_qkv_grouped_bwd"] == 1
+
+
+def _sine_x(rng, shape):
+    x = rng.standard_normal(shape).astype(np.float32)
+    x.reshape(-1)[::7] = rng.uniform(-20.0, 20.0, x.reshape(-1)[::7].size)
+    return torch.from_numpy(x)
+
+
+@pytest.mark.parametrize("n,nin,nout,grid_size", [
+    (1, 8, 3, 1), (1000, 16, 24, 5), (999, 20, 70, 7), (300, 64, 96, 28)])
+def test_sinekan_kernels(cuda, n, nin, nout, grid_size):
+    """Forward, dx, dfreq, damplitudes and dbias at |x| up to 20, G from 1
+    to 28 (a ragged last chunk of 4 slices at 1, 5 and 7)."""
+    rng = np.random.default_rng(67)
+    x = _sine_x(rng, (n, nin)).to(cuda)
+    freq = (torch.arange(1, grid_size + 1) / (grid_size + 1)).reshape(1, 1, 1, -1).to(cuda)
+    phase = K.sinekan_phase_init(nin, grid_size).to(cuda)
+    amps = _param(rng, (nout, nin, grid_size), 1.0 / nout).to(cuda)
+    bias = _param(rng, (1, nout), 0.1).to(cuda)
+    g = _param(rng, (n, nout), 1.0).to(cuda)
+    y, got = _grads(lambda x, f, a, b: FB.sinekan(x, f, phase, a, b), [x, freq, amps, bias], g)
+    ref, want = _grads(lambda x, f, a, b: K.sinekan_forward(x, f, phase, a, b),
+                       [x, freq, amps, bias], g)
+    _close(y, ref, 1e-4)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    assert FB.LAUNCHES["sinekan"] == 1 and FB.LAUNCHES["sinekan_bwd"] == 1
+
+
+@pytest.mark.parametrize("n,h,dh", [(37 * 50, 2, 32), (129, 6, 64)])
+def test_sinekan_qkv_grouped_kernels(cuda, n, h, dh):
+    rng = np.random.default_rng(68)
+    x = _sine_x(rng, (n, h * dh)).to(cuda)
+    freq = (torch.arange(1, 5) / 5).repeat(h, 1).to(cuda) + _param(rng, (h, 4), 0.05).to(cuda)
+    phase = K.sinekan_phase_init(dh, 4).to(cuda)
+    amps = _param(rng, (h, dh, dh, 4), 1.0 / dh).to(cuda)
+    bias = _param(rng, (h, dh), 0.1).to(cuda)
+    g = _param(rng, (n, h * dh), 1.0).to(cuda)
+
+    def plain(x, f, a, b):
+        return torch.cat([K.sinekan_forward(x[:, i * dh:(i + 1) * dh], f[i], phase, a[i], b[i])
+                          for i in range(h)], dim=1)
+
+    y, got = _grads(lambda x, f, a, b: FB.sinekan_qkv_grouped(x, f, phase, a, b),
+                    [x, freq, amps, bias], g)
+    ref, want = _grads(plain, [x, freq, amps, bias], g)
+    _close(y, ref, 1e-4)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    assert FB.LAUNCHES["sinekan_qkv_grouped_bwd"] == 1
+
+
+@pytest.mark.parametrize("family", ["rbf", "sine"])
+def test_rbf_sine_backward_repeats_its_bits(cuda, family):
+    """dW, dgamma, dbeta and dfreq are per-block partials summed in a fixed
+    order."""
+    rng = np.random.default_rng(69)
+    g = _param(rng, (12544, 48), 1.0).to(cuda)
+    if family == "rbf":
+        x = _fast_x(rng, (12544, 96)).to(cuda)
+        grid = RBF_GRID.to(cuda)
+        inputs = [x, *[p.to(cuda) for p in _fast_params(rng, 48, 96)]]
+        fn = lambda x, ga, be, *w: FB.fastkan(x, ga, be, grid, 4 / 7, *w)  # noqa: E731
+    else:
+        x = _sine_x(rng, (12544, 96)).to(cuda)
+        phase = K.sinekan_phase_init(96, 28).to(cuda)
+        inputs = [x, torch.rand(28, device=cuda), _param(rng, (48, 96, 28), 0.02).to(cuda)]
+        fn = lambda x, f, a: FB.sinekan(x, f, phase, a, None)  # noqa: E731
+    _, first = _grads(fn, inputs, g)
+    _, second = _grads(fn, inputs, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_rbf_sine_kernels_raise_not_fall_back(cuda):
+    x = torch.zeros(4, 16, device=cuda)
+    with torch.inference_mode(), pytest.raises(ValueError, match="8 RBF centres"):
+        FB.fastkan(x, None, None, torch.zeros(5, device=cuda), 1.0,
+                   torch.zeros(3, 16 * 5, device=cuda), None, None)
+    with torch.inference_mode(), pytest.raises(TypeError, match="float32"):
+        FB.sinekan(x.double(), torch.zeros(4, device=cuda, dtype=torch.float64),
+                   torch.zeros(16, 4, device=cuda, dtype=torch.float64),
+                   torch.zeros(3, 16, 4, device=cuda, dtype=torch.float64), None)
+    assert sum(FB.LAUNCHES.values()) == 0

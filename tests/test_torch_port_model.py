@@ -24,7 +24,12 @@ from kanvit.utils.torch_compat import (
     torch_state_dict_from_params,
 )
 from kanvit_torch.layers import MSA, KANLinear, TorchLinear, TransformerBlock
-from kanvit_torch.layers.kan import ChebyKANLayer, FourierKANLayer
+from kanvit_torch.layers.kan import (
+    ChebyKANLayer,
+    FastKANLayer,
+    FourierKANLayer,
+    SineKANLayer,
+)
 from kanvit_torch.models import VisionTransformer, create_model
 from kanvit_torch.utils.convert import (
     load_reference_state_dict,
@@ -154,8 +159,8 @@ def test_state_dict_uses_reference_naming():
 
 
 def test_converter_rejects_unported_leaves():
-    with pytest.raises(NotImplementedError, match="only the efficientkan"):
-        state_dict_from_jax_params({"linear_mapper": {"ln_weight": np.zeros(3)}})
+    with pytest.raises(NotImplementedError, match="not a leaf of any layer"):
+        state_dict_from_jax_params({"linear_mapper": {"bogus_leaf": np.zeros(3)}})
     with pytest.raises(ValueError, match="Unrecognized kanvit param group"):
         state_dict_from_jax_params({"bogus": {}})
 
@@ -230,7 +235,7 @@ def test_create_model_is_seeded():
     assert not torch.equal(a["v_class"], c["v_class"])
 
 
-# --- what is not ported yet, and gradients ------------------------------------
+# --- every kind constructs, and gradients ---------------------------------------
 
 def test_unknown_kinds_raise():
     with pytest.raises(ValueError, match="invalid. Please use a different argument"):
@@ -239,37 +244,29 @@ def test_unknown_kinds_raise():
         VisionTransformer((1, 28, 28), type="bogus")
 
 
-@pytest.mark.parametrize("kind", ["fast", "sine"])
-def test_unported_msa_kinds_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        MSA(16, 2, type=kind)
-
-
-@pytest.mark.parametrize("kind", ["fast", "sine"])
-def test_unported_variants_raise(kind):
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        create_model(kind, **MNIST)
-
-
 @pytest.mark.parametrize("kind,layer", [
     ("vanilla", TorchLinear), ("flash-attn", TorchLinear), ("fourier", TorchLinear),
-    ("linear", TorchLinear), ("efficientkan", KANLinear), ("cheby", ChebyKANLayer)])
+    ("linear", TorchLinear), ("efficientkan", KANLinear), ("cheby", ChebyKANLayer),
+    ("fast", FastKANLayer), ("sine", SineKANLayer)])
 def test_ported_msa_kinds_construct(kind, layer):
     """kanvit's dispatch table (``attention.py:36-53``): Linear q/k/v for
-    vanilla, flash-attn, fourier and linear; KANLinear; ChebyKAN degree 4."""
+    vanilla, flash-attn, fourier and linear; KANLinear; ChebyKAN degree 4;
+    FastKAN; SineKAN grid 4."""
     msa = MSA(16, 2, type=kind)
     assert all(type(m) is layer for m in msa.q_mappings)
     if kind == "cheby":
         assert msa.q_mappings[0].degree == 4
+    if kind == "sine":
+        assert msa.q_mappings[0].amplitudes.shape == (8, 8, 4)
 
 
 @pytest.mark.parametrize("kind,layer", [
     ("vanilla", TorchLinear), ("efficientkan", KANLinear),
     ("cheby", ChebyKANLayer), ("fourier", FourierKANLayer),
-    ("flash-attn", TorchLinear)])
+    ("flash-attn", TorchLinear), ("fast", FastKANLayer), ("sine", SineKANLayer)])
 def test_ported_variants_embedder(kind, layer):
-    """The patch embedder per variant, with the mapper's constants (fourier
-    grid 28, cheby degree 4: kanvit ``models/vit.py:44-47``)."""
+    """The patch embedder per variant, with the mapper's constants (sine and
+    fourier grid 28, cheby degree 4: kanvit ``models/vit.py:44-47``)."""
     mapper = create_model(kind, **MNIST).linear_mapper
     assert type(mapper) is layer
     if kind == "fourier":
@@ -277,6 +274,18 @@ def test_ported_variants_embedder(kind, layer):
         assert mapper.bias.shape == (1, 64)
     if kind == "cheby":
         assert mapper.cheby_coeffs.shape == (16, 64, 5)
+    if kind == "sine":
+        assert mapper.amplitudes.shape == (64, 16, 28)
+        assert mapper.freq.shape == (1, 1, 1, 28) and mapper.bias.shape == (1, 64)
+
+
+@pytest.mark.parametrize("kind", ["fast", "sine"])
+def test_fast_and_sine_variants_construct_and_run(kind):
+    """The two variants ported last build and classify (CPU, plain path)."""
+    model = create_model(kind, **MNIST)
+    x = np.random.default_rng(24).standard_normal((2, 1, 28, 28)).astype(np.float32)
+    y = _run(model, x)
+    assert y.shape == (2, 10) and np.isfinite(y).all()
 
 
 def test_forward_carries_gradients():

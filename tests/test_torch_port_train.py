@@ -13,6 +13,7 @@ f32 on the CPU. Inputs come from numpy seeds.
 
 import json
 import math
+import re
 import subprocess
 import sys
 
@@ -227,16 +228,17 @@ def _zero_in_exact_arithmetic(name, shape):
     """The constant term of each key projection: it adds the same q . b to
     every score of a query's row, which the softmax cancels, so its
     gradient is 0 in exact arithmetic and f32 rounding noise in both
-    frameworks (a Linear key's bias, a ChebyKAN key's T_0 = 1 slice)."""
+    frameworks (a Linear, FastKAN or SineKAN key's bias, a ChebyKAN key's
+    T_0 = 1 slice; not a FastKAN key's LayerNorm bias)."""
     mask = np.zeros(shape, bool)
-    if ".k_mappings." in name and name.endswith(".bias"):
+    if re.search(r"\.k_mappings\.\d+\.(base_linear\.)?bias$", name):
         mask[...] = True
     elif ".k_mappings." in name and name.endswith(".cheby_coeffs"):
         mask[..., 0] = True
     return mask
 
 
-def check_params(run, steps=K_STEPS):
+def check_params(run, steps=K_STEPS, g_floor=0.0, min_resolved=0.99):
     """Params after ``steps`` Adam steps.
 
     Adam normalises each element's step to about lr = 1e-3 whatever the
@@ -248,8 +250,12 @@ def check_params(run, steps=K_STEPS):
     1e-6 x its tensor's max (an order above f32 rounding of a sum of this
     depth, ~1e-7 relative), or exactly 0 in both (spline coefficients of
     bases no input reaches: Adam leaves them in place), are held within
-    1e-5, 1% of one step; they are at least 99% of all elements whose
-    gradient is not 0 in exact arithmetic (``_zero_in_exact_arithmetic``).
+    1e-5, 1% of one step; they are at least ``min_resolved`` (99%) of all
+    elements whose gradient is not 0 in exact arithmetic
+    (``_zero_in_exact_arithmetic``). ``g_floor`` also leaves out elements
+    whose step-1 gradient is below it: where |g| is near Adam's eps (1e-8)
+    the first update lr g / (|g| + eps) carries the gradient's relative
+    rounding error over in full.
     """
     jp, tp = run["jparams"], run["tparams"]
     jg, tg = run["jgrads"], run["tgrads"]
@@ -259,13 +265,13 @@ def check_params(run, steps=K_STEPS):
         assert diff.max() <= 2 * steps * LR, k
         g = np.abs(jg[k])
         live = ~_zero_in_exact_arithmetic(k, g.shape)
-        held = live & ((g > 1e-6 * g[live].max(initial=0.0))
+        held = live & (((g > 1e-6 * g[live].max(initial=0.0)) & (g >= g_floor))
                        | ((g == 0) & (tg[k].numpy() == 0)))
         resolved += int(held.sum())
         total += int(live.sum())
         if held.any():
             assert diff[held].max() <= 1e-5, k
-    assert resolved >= 0.99 * total
+    assert resolved >= min_resolved * total
 
 
 @pytest.fixture(scope="module")
