@@ -14,16 +14,22 @@ Phases, in order; any failure raises, so the script exits non-zero:
    process per source, all started together);
 3. each forward kernel against its plain PyTorch version on the card, at
    the vit-s path's shapes (batch 64) and at a ragged narrow shape, with
-   error and time (CUDA events) of both;
+   error and time (CUDA events) of both; the grouped q/k/v also at nin 8
+   and with refit grids a head at vit-s, the lanes attention also at the
+   reference geometry's head dim 8 (MNIST 50 and CIFAR 17 tokens, 8 heads,
+   batch 64) and at head dims 40 and 128 (the generic kernels), causal,
+   masked and with a fully masked item;
 4. each backward kernel against autograd through its plain version on the
    card, at the same shapes (the attention also causal, masked and with a
-   fully masked row), with error and time of both;
+   fully masked row), with error and time of both, the backward's bits
+   repeated for the grouped q/k/v;
 5. the tiled attention's forward, dq and dk/dv kernels against
    ``flash_attention_reference`` and autograd through it, at the causal
    decoder's shapes (B 16, H 4, T 2048 and B 4, H 4, T 8192, dh 64) and at
    ragged masked shapes whose rows see no valid key (``tq < tk`` and keys
-   0-3 masked), with error and time of both; then ``flash_attention``'s
-   single-tile route against ``lanes_attention``;
+   0-3 masked, also at head dims 8, 40 and 128), with error and time of
+   both; then ``flash_attention``'s single-tile route against
+   ``lanes_attention``;
 6. the Chebyshev and Fourier kernels (forward, dx and dW) against their
    plain versions and autograd through them on the card: ``chebykan`` and
    ``fourierkan`` (grid 28) at the vit-s embedder's shapes (12,544 x 768
@@ -40,32 +46,59 @@ Phases, in order; any failure raises, so the script exits non-zero:
    RBF and the LayerNorm saturate (|x| up to 60, a constant row) and sine
    arguments of several pi; the sine embedder's gradients also against f64;
    the backward's bits repeated; error and time of both;
-8. serving, through ``Predictor(batch_size=64, device="cuda")`` for three
+8. the fused pre-LN FF (``ffn_pre_ln``, forward and backward) and the W8A8
+   ``int8_linear`` against their plain versions and autograd through them:
+   at vit-s (12,608 rows, D 384, F 1,536; the embedder and both FF
+   Linears) and ragged shapes (odd N, D 100), ``int8_linear`` within
+   kanvit's tie-aware bound with the count of elements that differ at all,
+   the FF's ReLU pattern held to the plain version's up to rounding,
+   and at the TPU probe's (n, 768) x (768, 3072); the backward's bits
+   repeated; times of the kernels, the plain versions and the library calls
+   (``F.layer_norm`` + cuBLAS ``F.linear``; ``torch._int_mm`` with its
+   quantize and dequantize passes, and f32 ``F.linear``);
+9. serving, through ``Predictor(batch_size=64, device="cuda")`` for three
    requests (64, 64 and 37 images), of the vit-s ``efficientkan`` (1 + 12
    + 12 launches a batch), ``flash-attn`` (12 lanes), ``cheby`` (1
    ``chebykan`` + 12 ``cheby_qkv_grouped`` + 12 lanes), ``fourier`` (1
    ``fourierkan`` + 12 lanes; q/k/v on cuBLAS), ``fast`` (1 ``fastkan`` +
    36 ``fastkan_qkv_grouped`` + 12 lanes), ``sine`` (1 ``sinekan`` + 36
    ``sinekan_qkv_grouped`` + 12 lanes) and ``vanilla`` (12 lanes)
-   models: exact launch counts and no backward launch, the logits of two
-   images against the same model's CPU forward, the steady-state images/s;
-9. training of the vit-s ``efficientkan``, ``cheby``, ``fourier``, ``fast``
-   and ``sine`` models, batch 64, 6 Adam steps on one fixed batch through
-   ``kanvit_torch.train``: loss finite and falling, exact forward and
-   backward launch counts a step, the embedder's backward computing no dx,
-   the gradients of a 4-image batch against the same model's CPU
-   gradients, the steady-state step time and images/s, and a
+   models, and of the vit-s ``efficientkan`` with ``fused_ff=True`` (+ 12
+   ``ffn_pre_ln``): exact launch counts and no backward launch, the logits
+   of two images against the same model's CPU forward, the steady-state
+   images/s;
+10. training of the vit-s ``efficientkan``, ``cheby``, ``fourier``, ``fast``
+   and ``sine`` models and of the fused-FF ``efficientkan`` (+ 12
+   ``ffn_pre_ln`` forward and backward), batch 64, 6 Adam steps on one
+   fixed batch through ``kanvit_torch.train``: loss finite and falling,
+   exact forward and backward launch counts a step, the embedder's backward
+   computing no dx, the gradients of a 4-image batch against the same
+   model's CPU gradients (in f64 on the card's own ReLU pattern, which the
+   fused FF kernel reports, after bounding that pattern's flips against
+   f64's), the steady-state step time and images/s, and a
    ``torch.profiler`` breakdown;
-10. decoder training through ``kanvit_torch.bench_decoder`` at
+11. int8 serving of the vit-s ``vanilla`` model through
+   ``Predictor(quant="int8")``: with the ``int8_linear`` kernel (25
+   launches a batch, the 1000-class head on qdot), calibrated, and on qdot
+   alone; top-1 agreement with f32 and the probabilities' change (kanvit's
+   gates), four images against the CPU's int8 forward, images/s of each and
+   of f32, the device forward's time and profile of each and of f32, and the
+   time of quantizing the weights once over;
+12. the repaired faults: ``load_predictor``'s defaults (MNIST, d 64, 8 heads
+   of 8) serving a request, the CIFAR geometry (d 64, 8 heads, 17 tokens)
+   training ``efficientkan`` and ``vanilla`` with the gradient gate, and a
+   vit-s ``efficientkan`` with refit grids per head serving (3 grouped
+   launches a block);
+13. decoder training through ``kanvit_torch.bench_decoder`` at
    ``benchmarks/causal_decoder.py``'s configs (d 256, 4 heads, 4 blocks,
    vocab 1024; seq 2048 batch 16 and seq 8192 batch 4): 6 Adam steps (loss
    finite and falling, exactly 4 tiled forward, 4 dq and 4 dk/dv launches a
    step and no lanes launch), the gradients of a 1-sequence batch at seq
    2048 against the CPU, tokens/s and ms a step of the kernel impl and, at
    seq 2048, of the plain impl, and a ``torch.profiler`` breakdown;
-11. the reference MNIST preset (batch 128) through ``kanvit_torch.bench``,
+14. the reference MNIST preset (batch 128) through ``kanvit_torch.bench``,
     whose JSON line is printed;
-12. one JSON line of per-kernel results (each kernel's launches on its main
+15. one JSON line of per-kernel results (each kernel's launches on its main
     path, and by path; its error, time and plain version's time; its bound,
     the least time the card could take for the same work, and, for the
     attention kernels, ``scaled_dot_product_attention``'s time on the same
@@ -77,6 +110,7 @@ It imports torch, numpy and kanvit_torch only (no jax).
 
 from __future__ import annotations
 
+import contextlib
 import copy
 import json
 import re
@@ -111,7 +145,27 @@ TOL_GRADS = 1e-3
 # outside the tensor cores (every kernel here is f32 on the CUDA cores) and
 # HBM3.
 PEAK_F32_FLOPS = 67e12
+PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
 PEAK_BYTES = 3.35e12
+# The fused FF against its plain version, x max(1, max|y|) and per gradient
+# x max(1, max|g|): f32 sums of depth D (384) and F (1,536) and, for dW1,
+# dW2, N (12,608) rows in another order than cuBLAS.
+TOL_FFN = 1e-4
+# int8 serving on the card against the CPU's, x max|logit|: the int8 values
+# agree but where an activation lies within f32 rounding of a .5 step (the
+# two sides' LayerNorms and attention round apart), each such flip moving one
+# product term by s_x s_w |q(w)|.
+TOL_INT8_LOGITS = 2e-2
+# ReLU inputs that fall on the other side of 0 on the kernel's side than on
+# the reference's: at most FLIP_SHARE of them (and FLIP_FLOOR), and each
+# within rounding of 0. For the fused FF against its plain version: |h| at
+# most 2 D 2^-24 of its sum of |terms| (sum_i |LN(x)_i W1_ji| + |b1_j|), the
+# worst rounding of a depth-D f32 sum on each side. For a model's f32
+# forward against f64: |h| at most FLIP_TOL_F64 of its row's max|h|, 100x the
+# f32 error the served logits show (~1.5e-6, PERF.md).
+FLIP_SHARE = 4e-6
+FLIP_FLOOR = 8
+FLIP_TOL_F64 = 1e-4
 TRAIN_STEPS = 6
 GRAD_IMAGES = 4
 SEED = 0
@@ -218,12 +272,13 @@ def compare(name, got, want, tol):
     return err
 
 
-def bound(flops, nbytes, library_ms=None):
-    """The least time the card could take for ``flops`` f32 operations on
-    ``nbytes`` of inputs read once and outputs written once: the larger of
-    the two over the published peaks, and which one binds. ``library_ms``
-    is one PyTorch call's time for the same function, or None."""
-    t_ops, t_bytes = flops / PEAK_F32_FLOPS * 1e3, nbytes / PEAK_BYTES * 1e3
+def bound(flops, nbytes, library_ms=None, peak=PEAK_F32_FLOPS):
+    """The least time the card could take for ``flops`` operations (f32,
+    or at ``peak``) on ``nbytes`` of inputs read once and outputs written
+    once: the larger of the two over the published peaks, and which one
+    binds. ``library_ms`` is one PyTorch call's time for the same function,
+    or None."""
+    t_ops, t_bytes = flops / peak * 1e3, nbytes / PEAK_BYTES * 1e3
     return {"bound_ms": max(t_ops, t_bytes),
             "bound_by": "operations" if t_ops >= t_bytes else "bytes",
             "library_ms": library_ms}
@@ -310,37 +365,58 @@ def check_bspline(torch, rng, n, nin, nout, label):
     return err, ms, plain_ms, kan_bound(n, 1, 9, nin, nout)
 
 
-def check_qkv(torch, rng, n, heads, dh, label):
-    from kanvit_torch.kernels import fused_basis as FB
+def qkv_case(torch, rng, n, heads, dh, per_head):
+    """An efficientkan MSA's grouped projection: ``x (N, H*dh)`` (entries on
+    and beyond the knots), ``(grid, bw, sw, sc)`` and the plain version
+    (each head through the plain KANLinear forward). The shared grid and
+    the q|k|v weights; or, ``per_head``, a refit grid a head (each head's
+    q knots scaled and shifted) and the q projection's weights, as the MSA
+    launches one projection when its grids differ."""
     from kanvit_torch.layers import MSA
     from kanvit_torch.ops import kan_bases as K
 
     msa = MSA(heads * dh, heads, "efficientkan",
               generator=torch.Generator().manual_seed(SEED)).cuda()
-    grid = msa.q_mappings[0].grid
-    x = torch.from_numpy(
-        spline_inputs(rng, (n, heads * dh), grid[0].cpu().numpy())).cuda()
+    with torch.no_grad():
+        if per_head:
+            for m in msa.q_mappings:
+                m.grid.mul_(float(rng.uniform(0.8, 1.3))).add_(
+                    float(rng.uniform(-0.3, 0.3)))
+            check(not msa.grids_equal(), "refit grids: the heads' grids are equal")
+            params = msa.projection_weights(msa.q_mappings)
+        else:
+            params = (msa.q_mappings[0].grid, *msa.grouped_weights())
+    grid = params[0]
+    knots = grid.reshape(-1, grid.shape[-1])[:: dh].reshape(-1).cpu().numpy()
+    x = torch.from_numpy(spline_inputs(rng, (n, heads * dh), knots)).cuda()
+
+    def plain(x, bw, sw, sc):
+        return torch.cat([K.bspline_kan_forward(
+            x[:, i * dh:(i + 1) * dh], grid[i] if per_head else grid, bw[i], sw[i],
+            sc[i]) for i in range(heads)], dim=1)
+
+    return x, params, plain
+
+
+def check_qkv(torch, rng, n, heads, dh, label, per_head=False):
+    from kanvit_torch.kernels import fused_basis as FB
+
+    x, (grid, bw, sw, sc), plain = qkv_case(torch, rng, n, heads, dh, per_head)
+    out = bw.shape[1]
+    tag = f"{label} N={n} H={heads} dh={dh} out={out} grid {tuple(grid.shape)}"
     with torch.inference_mode():
-        bw, sw, sc = msa.grouped_weights()
-
-        def plain():  # each head's q|k|v through the plain KANLinear forward
-            return torch.cat([K.bspline_kan_forward(
-                x[:, i * dh:(i + 1) * dh], grid, bw[i], sw[i], sc[i])
-                for i in range(heads)], dim=1)
-
         y = FB.bspline_qkv_grouped(x, grid, bw, sw, sc)
-        ref = plain()
+        ref = plain(x, bw, sw, sc)
         torch.cuda.synchronize()
-        err = compare(f"bspline_qkv_grouped {label} N={n} H={heads} dh={dh}",
-                      y, ref, TOL_BSPLINE)
+        err = compare(f"bspline_qkv_grouped {tag}", y, ref, TOL_BSPLINE)
         w = FB.pack_qkv_weight(bw, sw, sc).contiguous()
         ms = time_ms(torch, lambda: FB._launch("bspline_qkv_grouped", "bspline", x,
                                                w, grid))
         wrapper_ms = time_ms(torch, lambda: FB.bspline_qkv_grouped(x, grid, bw, sw, sc))
-        plain_ms = time_ms(torch, plain)
+        plain_ms = time_ms(torch, lambda: plain(x, bw, sw, sc))
     print(f"[kernel] bspline_qkv_grouped {label}: kernel {ms:.4f} ms  (with weight "
           f"packing {wrapper_ms:.4f} ms)  plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms, kan_bound(n, heads, 9, dh, 3 * dh)
+    return err, ms, plain_ms, kan_bound(n, heads, 9, dh, out)
 
 
 def check_attention(torch, rng, b, t, heads, dh, label, cases):
@@ -377,6 +453,42 @@ def check_attention(torch, rng, b, t, heads, dh, label, cases):
                                                   lib_ms)
 
 
+def sub_entry(result):
+    """A check's ``(err, ms, plain_ms, *extras)`` as a labelled sub-entry of
+    its kernel in the ``kernels`` line."""
+    err, ms, plain_ms, *extra = result
+    entry = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    for more in extra:
+        entry.update(more)
+    return entry
+
+
+def masked_items(torch, rng, b, t):
+    """A key mask of ``(b, t)``: a fifth of the keys off at random, every
+    key of item 0 off (its rows fully masked), and key 0 of item 1 (its
+    causal query 0 sees no key)."""
+    mask = torch.from_numpy(rng.random((b, t)) > 0.2).cuda()
+    mask[0] = False
+    mask[1, 0] = False
+    return mask
+
+
+# The head dims the paths run besides vit-s's 64: 8 (the reference geometry,
+# d 64 in 8 heads: MNIST 50 tokens, CIFAR 17, at batch 64) on the templated
+# kernels, and two the generic kernels take (csrc/attention_common.cuh).
+ATTN_GEOMETRIES = (
+    ("at_dh_8_mnist", BATCH, 50, 8, 8),
+    ("at_dh_8_cifar", BATCH, 17, 8, 8),
+    ("at_dh_40_generic", 16, 197, 4, 40),
+    ("at_dh_128_generic", 16, 197, 2, 128),
+)
+
+
+def attention_cases(torch, rng, b, t):
+    return [(False, None), (False, masked_items(torch, rng, b, t)),
+            (True, masked_items(torch, rng, b, t))]
+
+
 def phase_kernels(torch):
     rng = np.random.default_rng(SEED)
     geo = {"n_img": BATCH, "tokens": 197, "heads": 6, "dh": 64, "d": 384}
@@ -396,6 +508,17 @@ def phase_kernels(torch):
     mask[1, 0] = False       # batch item 1, causal: query 0 sees no key
     check_attention(torch, rng, 37, 50, 2, 32, "mnist",
                     [(False, mask), (True, mask), (True, None)])
+    # the grouped q/k/v at nin 8 (the reference geometry), and with refit
+    # grids a head at vit-s (one projection, as the refit-grid path runs it)
+    results["bspline_qkv_grouped"] += (
+        {"at_dh_8_mnist": sub_entry(check_qkv(torch, rng, BATCH * 50, 8, 8,
+                                              "dh-8 mnist q/k/v"))},
+        {"refit_grids_per_head": sub_entry(check_qkv(
+            torch, rng, BATCH * geo["tokens"], geo["heads"], geo["dh"],
+            "vit-s refit grids a head", per_head=True))})
+    for key, b, t, heads, dh in ATTN_GEOMETRIES:
+        results["flash_attention_lanes"] += ({key: sub_entry(check_attention(
+            torch, rng, b, t, heads, dh, key[3:], attention_cases(torch, rng, b, t)))},)
     return results
 
 
@@ -446,40 +569,33 @@ def check_bspline_bwd(torch, rng, n, nin, nout, label):
     return err, ms, plain_ms, {"no_dx_ms": dw_ms}, kan_bound(n, 1, 9, nin, nout, True)
 
 
-def check_qkv_bwd(torch, rng, n, heads, dh, label):
+def check_qkv_bwd(torch, rng, n, heads, dh, label, per_head=False):
     from kanvit_torch.kernels import fused_basis as FB
-    from kanvit_torch.layers import MSA
-    from kanvit_torch.ops import kan_bases as K
 
-    msa = MSA(heads * dh, heads, "efficientkan",
-              generator=torch.Generator().manual_seed(SEED)).cuda()
-    grid = msa.q_mappings[0].grid
-    x = torch.from_numpy(
-        spline_inputs(rng, (n, heads * dh), grid[0].cpu().numpy())).cuda()
-    g = torch.from_numpy(rng.standard_normal((n, heads * 3 * dh))
+    x, (grid, *weights), plain = qkv_case(torch, rng, n, heads, dh, per_head)
+    out = weights[0].shape[1]
+    g = torch.from_numpy(rng.standard_normal((n, heads * out))
                          .astype(np.float32)).cuda()
-    with torch.no_grad():
-        inputs = [x, *msa.grouped_weights()]
-
-    def plain(x, bw, sw, sc):
-        return torch.cat([K.bspline_kan_forward(x[:, i * dh:(i + 1) * dh], grid,
-                                                bw[i], sw[i], sc[i])
-                          for i in range(heads)], dim=1)
-
+    inputs = [x, *(w.detach() for w in weights)]
     _, _, got = grads_of(torch, lambda *a: FB.bspline_qkv_grouped(a[0], grid, *a[1:]),
                          inputs, g)
-    leaves, out, want = grads_of(torch, plain, inputs, g)
+    leaves, y, want = grads_of(torch, plain, inputs, g)
+    _, _, again = grads_of(torch, lambda *a: FB.bspline_qkv_grouped(a[0], grid, *a[1:]),
+                           inputs, g)
     torch.cuda.synchronize()
-    err = compare_grads(f"bspline_qkv_grouped_bwd {label} N={n} H={heads} dh={dh}",
+    err = compare_grads(f"bspline_qkv_grouped_bwd {label} N={n} H={heads} dh={dh} "
+                        f"out={out} grid {tuple(grid.shape)}",
                         ("x", "bw", "sw", "sc"), got, want)
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"bspline_qkv_grouped_bwd {label}: a second backward gave other bits")
     w = FB.pack_qkv_weight(*inputs[1:]).contiguous()
     ms = time_ms(torch, lambda: FB._launch_bwd("bspline_qkv_grouped_bwd", "bspline",
                                                x, w, grid, g, True, True))
-    plain_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g,
+    plain_ms = time_ms(torch, lambda: torch.autograd.grad(y, leaves, g,
                                                           retain_graph=True))
     print(f"[kernel] bspline_qkv_grouped_bwd {label}: kernel {ms:.4f} ms  "
-          f"plain autograd {plain_ms:.4f} ms")
-    return err, ms, plain_ms, kan_bound(n, heads, 9, dh, 3 * dh, True)
+          f"plain autograd {plain_ms:.4f} ms  (bits repeated)")
+    return err, ms, plain_ms, kan_bound(n, heads, 9, dh, out, True)
 
 
 def check_attention_bwd(torch, rng, b, t, heads, dh, label, cases):
@@ -548,6 +664,15 @@ def phase_backward_kernels(torch):
     mask[1, 0] = False       # batch item 1, causal: query 0 sees no key
     check_attention_bwd(torch, rng, 37, 50, 2, 32, "mnist",
                         [(False, mask), (True, mask), (True, None)])
+    results["bspline_qkv_grouped_bwd"] += (
+        {"at_dh_8_mnist": sub_entry(check_qkv_bwd(torch, rng, BATCH * 50, 8, 8,
+                                                  "dh-8 mnist q/k/v"))},
+        {"refit_grids_per_head": sub_entry(check_qkv_bwd(
+            torch, rng, BATCH * 197, 6, 64, "vit-s refit grids a head",
+            per_head=True))})
+    for key, b, t, heads, dh in ATTN_GEOMETRIES:
+        results["flash_attention_lanes_bwd"] += ({key: sub_entry(check_attention_bwd(
+            torch, rng, b, t, heads, dh, key[3:], attention_cases(torch, rng, b, t)))},)
     return results
 
 
@@ -682,6 +807,9 @@ def check_single_tile(torch, rng):
         out, leaves, g, retain_graph=True))
     ms["plain bwd"] = time_ms(torch, lambda: torch.autograd.grad(
         ref, plain_leaves, g, retain_graph=True))
+    ms["scaled_dot_product_attention fwd"] = sdpa_ms(torch, q, k, v, True, mask)
+    ms["scaled_dot_product_attention bwd"] = sdpa_ms(torch, q, k, v, True, mask,
+                                                     backward="qkv")
     print(f"[kernel] {tag}: " + "  ".join(f"{key} {val:.4f} ms"
                                           for key, val in ms.items()))
 
@@ -708,10 +836,18 @@ def phase_flash_kernels(torch):
     o, v, _ = check_flash(torch, rng, 2, 2, 1000, 1000, 16, True, mask,
                           "keys 0-3 masked", iters=3)
     check_no_visible_key(torch, o, v, mask, slice(0, 4), 0, "keys 0-3 masked")
+    # head dim 8 (templated) and two the generic kernels take
+    by_dh = {}
+    for key, dh in (("at_dh_8", 8), ("at_dh_40_generic", 40),
+                    ("at_dh_128_generic", 128)):
+        o, v, by_dh[key] = check_flash(torch, rng, 2, 2, 1000, 1000, dh, True, mask,
+                                       f"keys 0-3 masked dh {dh}", iters=3)
+        check_no_visible_key(torch, o, v, mask, slice(0, 4), 0,
+                             f"keys 0-3 masked dh {dh}")
     check_single_tile(torch, rng)
-    return {name: (*main[name], {"at_seq_8192_batch_4": {
-        "max_abs_err": long[name][0], "ms": long[name][1],
-        "plain_ms": long[name][2], **long[name][3]}}) for name in main}
+    return {name: (*main[name], {"at_seq_8192_batch_4": sub_entry(long[name])},
+                   *({key: sub_entry(r[name])} for key, r in by_dh.items()))
+            for name in main}
 
 
 # --------------------------------------------------------------------------
@@ -1004,33 +1140,230 @@ def phase_rbf_sine_kernels(torch):
 
 
 # --------------------------------------------------------------------------
-# Phase 8: serving
+# Phase 8: the fused FF and the int8 linear kernels
+# --------------------------------------------------------------------------
+
+FFN_GRADS = ("x", "gamma", "beta", "w1", "b1", "w2", "b2")
+
+
+def ffn_bound(n, d, f, backward, library_ms):
+    """The FF over x (n, d): 2 n d f FLOPs a product, two forward, five
+    backward (h, g W2, dln, dW2, dW1); bytes of x, y, the weights and
+    vectors (backward: x, g, dx, W1, W2, dW1, dW2 and the vectors)."""
+    flops = (10.0 if backward else 4.0) * n * d * f
+    floats = (3 * n * d + 4 * d * f + 2 * f + 6 * d if backward
+              else 2 * n * d + 2 * d * f + f + 3 * d)
+    return bound(flops, 4.0 * floats, library_ms)
+
+
+def ffn_library(x, gamma, beta, w1, b1, w2, b2):
+    """The same function in PyTorch's calls: F.layer_norm, F.linear
+    (cuBLAS f32), relu, F.linear, add; the yardstick, never used by the
+    port."""
+    import torch.nn.functional as F
+
+    h = F.relu(F.linear(F.layer_norm(x, (x.shape[-1],), gamma, beta, 1e-5), w1, b1))
+    return x + F.linear(h, w2, b2)
+
+
+def check_flips(tag, flips, total, worst, limit):
+    """Gate the ReLU inputs on the other side of 0 (see FLIP_SHARE)."""
+    most = max(FLIP_FLOOR, int(FLIP_SHARE * total))
+    print(f"{tag}: {flips} of {total} ReLU inputs on the other side of 0 (at most "
+          f"{most}); the largest such |h| {worst:.3e} (limit {limit:.3e})")
+    check(flips <= most and worst <= limit,
+          f"{tag}: ReLU inputs on the other side of 0 beyond rounding")
+
+
+def check_ffn(torch, rng, n, d, f, label):
+    """``ffn_pre_ln`` forward against the plain version, and backward against
+    autograd through the plain version on the kernel's own ReLU pattern
+    (f32 rounding puts a few of the N x F pre-activations that lie within it
+    of 0 on the other side in cuBLAS's h, and each such flip moves its row's
+    dx by ~0.1): the pattern is first held to the plain version's up to
+    rounding (``check_flips``); the backward's bits repeated; times of the
+    kernels, the plain version and the library calls."""
+    from kanvit_torch.kernels import fused_ffn as FFN
+    from kanvit_torch.ops import kan_bases as K
+
+    shapes = ((n, d), (d,), (d,), (f, d), (f,), (d, f), (d,))
+    scales = (1.0, 0.3, 0.1, d ** -0.5, 0.1, f ** -0.5, 0.1)
+    args = [torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).cuda()
+            for s, sc in zip(shapes, scales)]
+    args[1] += 1.0
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).cuda()
+    tag = f"{label} N={n} D={d} F={f}"
+    with torch.inference_mode():
+        y = FFN.ffn_pre_ln(*args)
+        ref = K.ffn_pre_ln(*args)
+        torch.cuda.synchronize()
+        err = compare(f"ffn_pre_ln {tag}", y, ref, TOL_FFN)
+    mask = torch.empty(n, f, dtype=torch.uint8, device=args[0].device)
+    with torch.inference_mode():
+        FFN._launch(*args, relu_mask=mask)
+    pattern = mask.bool()
+    with torch.no_grad():
+        ln = K.layernorm(args[0], args[1], args[2])
+        h = ln @ args[3].T + args[4]
+        flipped = pattern != (h > 0)
+        flips = int(flipped.sum())
+        terms = ln.abs() @ args[3].abs().T + args[4].abs()
+        worst = float((h.abs() / terms)[flipped].max()) if flips else 0.0
+        del ln, h, terms
+    check_flips(f"[kernel] ffn_pre_ln {tag}", flips, n * f, worst, 2 * d * 2.0 ** -24)
+
+    def plain_on_pattern(x, gamma, beta, w1, b1, w2, b2):
+        h = K.layernorm(x, gamma, beta) @ w1.T + b1
+        return x + ((h * pattern) @ w2.T + b2)
+
+    _, _, got = grads_of(torch, FFN.ffn_pre_ln, args, g)
+    leaves, out, want = grads_of(torch, plain_on_pattern, args, g)
+    _, _, again = grads_of(torch, FFN.ffn_pre_ln, args, g)
+    torch.cuda.synchronize()
+    err_bwd = max(compare(f"ffn_pre_ln_bwd {tag} d{nm}", a, b, TOL_FFN)
+                  for nm, a, b in zip(FFN_GRADS, got, want))
+    check(all(torch.equal(a, b) for a, b in zip(got, again)),
+          f"ffn_pre_ln_bwd {tag}: a second backward gave other bits")
+    with torch.inference_mode():
+        ms = time_ms(torch, lambda: FFN._launch(*args))
+        plain_ms = time_ms(torch, lambda: K.ffn_pre_ln(*args))
+        lib_ms = time_ms(torch, lambda: ffn_library(*args))
+    bwd_ms = time_ms(torch, lambda: FFN._launch_bwd(*args[:6], g))
+    plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g,
+                                                              retain_graph=True))
+    lib_leaves, lib_out, _ = grads_of(torch, ffn_library, args, g)
+    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, lib_leaves, g,
+                                                            retain_graph=True))
+    print(f"[kernel] ffn_pre_ln {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"library (F.layer_norm, F.linear) {lib_ms:.4f} ms; backward: kernels "
+          f"{bwd_ms:.4f} ms  plain autograd {plain_bwd_ms:.4f} ms  library autograd "
+          f"{lib_bwd_ms:.4f} ms")
+    return ((err, ms, plain_ms, ffn_bound(n, d, f, False, lib_ms)),
+            (err_bwd, bwd_ms, plain_bwd_ms, ffn_bound(n, d, f, True, lib_bwd_ms)))
+
+
+def int8_bound(n, k, out, library_ms):
+    """W8A8 (n, k) x (out, k): 2 n k out int8 operations at the dense int8
+    rate; bytes of x and y in f32, W in int8 and its scales and bias."""
+    return bound(2.0 * n * k * out, 4.0 * n * k + k * out + 4.0 * n * out + 8.0 * out,
+                 library_ms, peak=PEAK_INT8_OPS)
+
+
+def check_int8(torch, rng, n, k, out, label):
+    """``int8_linear`` against ``qdot_rowwise`` on the card within kanvit's
+    tie-aware bound (``tests/test_quant.py:44-48``), with the count of
+    elements that differ at all; times of the kernel (weight quantized
+    beforehand, as the kernel takes it), the plain version, the library
+    route (per-row quantize, ``torch._int_mm``, dequantize) and f32
+    ``F.linear``."""
+    import torch.nn.functional as F
+
+    from kanvit_torch.kernels import int8_matmul as IM
+    from kanvit_torch.ops import quant as Q
+
+    x = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).cuda()
+    w = torch.from_numpy((rng.standard_normal((out, k)) * 0.05).astype(np.float32)).cuda()
+    b = torch.from_numpy(rng.standard_normal(out).astype(np.float32)).cuda()
+    tag = f"{label} N={n} K={k} out={out}"
+    with torch.inference_mode():
+        y = IM.int8_linear(x, w, b)
+        ref = Q.qdot_rowwise(x, w, b)
+        torch.cuda.synchronize()
+        err = float((y - ref).abs().max())
+        differ = int((y != ref).sum())
+        limit = 3.0 * float(x.abs().amax(-1).max()) * float(w.abs().amax(-1).max()) / 127.0
+        ok = bool(y.isfinite().all()) and y.dtype == torch.float32 and err <= limit
+        print(f"[kernel] int8_linear {tag}: max|err| {err:.3e}  tie-aware limit "
+              f"{limit:.3e}  {differ} of {y.numel()} elements differ at all  "
+              f"{'ok' if ok else 'FAIL'}")
+        check(ok, f"int8_linear {tag}: kernel disagrees with qdot_rowwise")
+        wq, sw = Q._quantize(w, dim=-1)
+        swr = sw.reshape(-1).contiguous()
+
+        def library():
+            xq, sx = Q._quantize(x, dim=-1)
+            return torch._int_mm(xq, wq.t()).float() * sx * sw.reshape(1, -1) + b
+
+        ms = time_ms(torch, lambda: IM._launch(x, wq, swr, b))
+        plain_ms = time_ms(torch, lambda: Q.qdot_rowwise(x, w, b))
+        lib_ms = time_ms(torch, library)
+        xq = Q._quantize(x, dim=-1)[0]
+        int_mm_ms = time_ms(torch, lambda: torch._int_mm(xq, wq.t()))
+        f32_ms = time_ms(torch, lambda: F.linear(x, w, b))
+    print(f"[kernel] int8_linear {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
+          f"library (quantize, torch._int_mm, dequantize) {lib_ms:.4f} ms  "
+          f"torch._int_mm alone {int_mm_ms:.4f} ms  f32 F.linear {f32_ms:.4f} ms")
+    return (err, ms, plain_ms, {"elements_differing": differ, "int_mm_ms": int_mm_ms,
+                                "f32_linear_ms": f32_ms},
+            int8_bound(n, k, out, lib_ms))
+
+
+def phase_ffn_int8_kernels(torch):
+    rng = np.random.default_rng(SEED + 9)
+    results = {}
+    n = BATCH * 197
+    results["ffn_pre_ln"], results["ffn_pre_ln_bwd"] = check_ffn(
+        torch, rng, n, 384, 1536, "vit-s")
+    # ragged: odd N, D not a multiple of 32
+    check_ffn(torch, rng, 37 * 50 + 1, 100, 400, "ragged")
+    results["int8_linear"] = check_int8(torch, rng, n, 384, 1536, "vit-s FF1")
+    check_int8(torch, rng, n, 1536, 384, "vit-s FF2")
+    check_int8(torch, rng, BATCH * 196, 768, 384, "vit-s embedder")
+    check_int8(torch, rng, 37 * 50 + 1, 256, 128, "ragged")
+    # tools/tpu_probe_mosaic_int8_rate.py's shape, (n, 768) x (768, 3072) at
+    # batch 64: the kernel against torch._int_mm of pre-quantized operands
+    probe = check_int8(torch, rng, n, 768, 3072, "TPU probe shape")
+    results["int8_linear"][3]["at_probe_shape_768x3072"] = {
+        "ms": probe[1], "int_mm_ms": probe[3]["int_mm_ms"],
+        "library_ms": probe[4]["library_ms"], "bound_ms": probe[4]["bound_ms"]}
+    return results
+
+
+# --------------------------------------------------------------------------
+# Phase 9: serving
 # --------------------------------------------------------------------------
 
 def launch_counts():
     from kanvit_torch.kernels import flash_attention as FA
     from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.kernels import fused_ffn as FFN
+    from kanvit_torch.kernels import int8_matmul as IM
 
-    return {**FB.LAUNCHES, **FA.LAUNCHES}
+    return {**FB.LAUNCHES, **FA.LAUNCHES, **FFN.LAUNCHES, **IM.LAUNCHES}
 
 
 def reset_counts():
     from kanvit_torch.kernels import flash_attention as FA
     from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.kernels import fused_ffn as FFN
+    from kanvit_torch.kernels import int8_matmul as IM
 
-    FB.reset_launches()
-    FA.reset_launches()
+    for module in (FB, FA, FFN, IM):
+        module.reset_launches()
 
 
-def build_model(variant):
+def build_model(variant, **kw):
     from kanvit_torch.models import PRESETS, create_model
 
     t0 = time.perf_counter()
-    model_cpu = create_model(variant, **PRESETS["vit-s"], seed=SEED)
+    model_cpu = create_model(variant, **PRESETS["vit-s"], seed=SEED, **kw)
     n_params = sum(p.numel() for p in model_cpu.parameters())
-    print(f"[main] vit-s {variant} f32: {n_params} params, built in "
+    print(f"[main] vit-s {variant} {kw or ''} f32: {n_params} params, built in "
           f"{time.perf_counter() - t0:.2f} s")
     return model_cpu
+
+
+def serve_rate(torch, pred, batch):
+    """Steady-state images/s of ``pred.logits`` at one batch, host to host."""
+    for _ in range(3):
+        pred.logits(batch)
+    torch.cuda.synchronize()
+    iters = 10
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        pred.logits(batch)
+    torch.cuda.synchronize()
+    return iters * len(batch) / (time.perf_counter() - t0)
 
 
 def phase_serve(torch, smi, model_cpu, tag, per_batch, seed):
@@ -1080,21 +1413,12 @@ def phase_serve(torch, smi, model_cpu, tag, per_batch, seed):
 
     # steady state, batch 64: host images in, host logits out
     batch = reqs[0]
-    for _ in range(3):
-        pred.logits(batch)
-    torch.cuda.synchronize()
-    iters = 10
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        pred.logits(batch)
-    torch.cuda.synchronize()
-    secs = time.perf_counter() - t0
-    ips = iters * BATCH / secs
+    ips = serve_rate(torch, pred, batch)
     x = torch.from_numpy(batch).cuda()
     with torch.inference_mode():
         fwd_ms = time_ms(torch, lambda: model(x), iters=10)
     print(f"[{tag}] Predictor.logits steady state, batch {BATCH}: {ips:.1f} images/s "
-          f"({secs / iters * 1e3:.2f} ms per batch, host to host); device forward "
+          f"({BATCH / ips * 1e3:.2f} ms per batch, host to host); device forward "
           f"{fwd_ms:.2f} ms per batch ({BATCH / fwd_ms * 1e3:.1f} images/s)  "
           f"[{smi}]")
     return {"images_per_s": ips, "device_forward_ms": fwd_ms,
@@ -1102,7 +1426,7 @@ def phase_serve(torch, smi, model_cpu, tag, per_batch, seed):
 
 
 # --------------------------------------------------------------------------
-# Phase 9: training
+# Phase 10: training
 # --------------------------------------------------------------------------
 
 def device_ms(torch, fn):
@@ -1139,7 +1463,7 @@ def grads_against(got, want):
     return worst, worst_name
 
 
-def relu_patterns(torch, net, impose=None):
+def relu_patterns(torch, net, impose=None, inputs=None):
     """Forward hooks on every ReLU of ``net``: record each one's pattern
     (output > 0) into the returned dict, or, given ``impose`` (such a dict),
     compute ``input * pattern`` instead, so that the net takes the same
@@ -1147,22 +1471,113 @@ def relu_patterns(torch, net, impose=None):
     pre-activations that lie within it of 0 on the other side (a few of
     vit-s's 14.5M a batch of 4), and each such flip moves its block's FF
     gradient by up to ~4e-3 of the tensor's max; on one pattern the
-    gradients of the f32 run and of f64 differ by rounding alone. Returns
+    gradients of the f32 run and of f64 differ by rounding alone. Given
+    ``inputs`` (a dict), also record each ReLU's input there. Returns
     ``(patterns, hooks)``."""
     seen, hooks = {}, []
 
     def record(name):
-        return lambda mod, inp, out: seen.__setitem__(name, (out > 0).cpu())
+        def hook(mod, inp, out):
+            seen[name] = (out > 0).cpu()
+            if inputs is not None:
+                inputs[name] = inp[0].detach().cpu()
+        return hook
 
     def follow(name):
-        return lambda mod, inp, out: inp[0] * impose[name].to(inp[0].device,
-                                                               inp[0].dtype)
+        return lambda mod, inp, out: inp[0] * impose[name].to(
+            inp[0].device, inp[0].dtype).reshape(inp[0].shape)
 
     for name, mod in net.named_modules():
         if isinstance(mod, torch.nn.ReLU):
             hook = record(name) if impose is None else follow(name)
             hooks.append(mod.register_forward_hook(hook))
     return seen, hooks
+
+
+def fused_relu_patterns(torch, net):
+    """The ReLU patterns of a fused-FF model's forward, as its kernel decides
+    them (``relu_mask``), under the names of the unfused FF's ReLU modules
+    (``blocks.<i>.ff.1``), whose hooks the references take them up with.
+    Returns ``(patterns, restore)``."""
+    from kanvit_torch.kernels import fused_ffn as FFN
+
+    launch, seen = FFN._launch, {}
+    names = iter([f"blocks.{i}.ff.1" for i in range(len(net.blocks))])
+
+    def recording(x2d, gamma, beta, w1, *rest):
+        mask = torch.empty(x2d.shape[0], w1.shape[0], dtype=torch.uint8,
+                           device=x2d.device)
+        y = launch(x2d, gamma, beta, w1, *rest, relu_mask=mask)
+        seen[next(names)] = mask.bool().cpu()
+        return y
+
+    FFN._launch = recording
+    return seen, lambda: setattr(FFN, "_launch", launch)
+
+
+def unfused(net):
+    """``net`` with its blocks' FF unfused (the same function, plain
+    modules whose ReLUs the pattern hooks see)."""
+    for blk in getattr(net, "blocks", ()):
+        if getattr(blk, "fused_ff", False):
+            blk.fused_ff = False
+    return net
+
+
+def grad_gate(torch, model_cpu, xg, yg, tag):
+    """Parameter gradients of the batch ``xg, yg`` on the card against the
+    same model's on the CPU in f64, on the card's own ReLU pattern (see
+    relu_patterns; a fused FF reports the kernel's), the free f64 and the
+    CPU's f32 gradients beside them. Returns the worst relative error."""
+    import torch.nn.functional as F
+
+    grads, patterns, pre64 = {}, {}, {}
+    for key, net, dtype in (("gpu", copy.deepcopy(model_cpu).to("cuda"), torch.float32),
+                            ("cpu", unfused(copy.deepcopy(model_cpu)), torch.float32),
+                            ("cpu64", unfused(copy.deepcopy(model_cpu)).double(),
+                             torch.float64),
+                            ("cpu64_gpu_relus", unfused(copy.deepcopy(model_cpu)).double(),
+                             torch.float64)):
+        dev = next(net.parameters()).device
+        if any(getattr(b, "fused_ff", False) for b in getattr(net, "blocks", ())):
+            seen, restore = fused_relu_patterns(torch, net)
+        else:
+            seen, hooks = relu_patterns(
+                torch, net, patterns.get("gpu") if key == "cpu64_gpu_relus" else None,
+                pre64 if key == "cpu64" else None)
+            restore = lambda hooks=hooks: [h.remove() for h in hooks]  # noqa: E731
+        try:
+            F.cross_entropy(net(xg.to(dev, dtype)), yg.to(dev)).backward()
+        finally:
+            restore()
+        patterns[key] = seen
+        grads[key] = {name: p.grad.double().cpu() for name, p in net.named_parameters()}
+    # the card's pattern (a fused FF's as its kernel reports it) against
+    # f64's: few flips, each within rounding of 0
+    flips, total, worst_flip = 0, 0, 0.0
+    for k, gpu_pattern in patterns["gpu"].items():
+        h64 = pre64[k].reshape(-1, pre64[k].shape[-1])
+        flipped = gpu_pattern.reshape(h64.shape) != (h64 > 0)
+        flips, total = flips + int(flipped.sum()), total + flipped.numel()
+        if bool(flipped.any()):
+            rel = h64.abs() / h64.abs().amax(-1, keepdim=True).clamp_min(1e-300)
+            worst_flip = max(worst_flip, float(rel[flipped].max()))
+    check_flips(f"[{tag}] gradients of {len(xg)} images: the GPU's forward against f64",
+                flips, total, worst_flip, FLIP_TOL_F64)
+    worst, worst_name = grads_against(grads["gpu"], grads["cpu64_gpu_relus"])
+    free_worst, free_name = grads_against(grads["gpu"], grads["cpu64"])
+    cpu_worst, cpu_name = grads_against(grads["cpu"], grads["cpu64"])
+    f32_worst, f32_name = grads_against(grads["gpu"], grads["cpu"])
+    print(f"[{tag}] gradients of {len(xg)} images, per tensor, worst max|err| / "
+          f"max|g|: GPU against CPU f64 on the GPU's ReLU pattern {worst:.3e} "
+          f"({worst_name})  limit {TOL_GRADS:.0e}; against free CPU f64 "
+          f"{free_worst:.3e} ({free_name}; {flips} ReLU outputs of the GPU's "
+          f"forward on the other side of 0 than f64's); CPU f32 against CPU f64 "
+          f"{cpu_worst:.3e} ({cpu_name}); GPU against CPU f32 {f32_worst:.3e} "
+          f"({f32_name})")
+    check(worst <= TOL_GRADS, f"{tag}: GPU gradients differ from the CPU's: "
+                              f"{worst_name} {worst:.3e}")
+    return worst
 
 
 # The launcher of each embedder's backward, whose last two arguments are
@@ -1233,38 +1648,8 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
           and bool(logits.isfinite().all()), f"{tag}: training logits")
 
     # gradients of a small batch on the card against the same model's on the
-    # CPU in f64, on the card's own ReLU pattern (see relu_patterns), the
-    # free f64 and the CPU's f32 gradients beside them
-    xg, yg = x[:GRAD_IMAGES], y[:GRAD_IMAGES]
-    grads, patterns = {}, {}
-    for key, net, dtype in (("gpu", copy.deepcopy(model_cpu).to("cuda"), torch.float32),
-                            ("cpu", copy.deepcopy(model_cpu), torch.float32),
-                            ("cpu64", copy.deepcopy(model_cpu).double(), torch.float64),
-                            ("cpu64_gpu_relus", copy.deepcopy(model_cpu).double(),
-                             torch.float64)):
-        dev = next(net.parameters()).device
-        seen, hooks = relu_patterns(torch, net, patterns.get("gpu")
-                                    if key == "cpu64_gpu_relus" else None)
-        F.cross_entropy(net(xg.to(dev, dtype)), yg.to(dev)).backward()
-        for h in hooks:
-            h.remove()
-        patterns[key] = seen
-        grads[key] = {name: p.grad.double().cpu() for name, p in net.named_parameters()}
-    flips = sum(int((patterns["gpu"][k] != patterns["cpu64"][k]).sum())
-                for k in patterns["gpu"])
-    worst, worst_name = grads_against(grads["gpu"], grads["cpu64_gpu_relus"])
-    free_worst, free_name = grads_against(grads["gpu"], grads["cpu64"])
-    cpu_worst, cpu_name = grads_against(grads["cpu"], grads["cpu64"])
-    f32_worst, f32_name = grads_against(grads["gpu"], grads["cpu"])
-    print(f"[{tag}] gradients of {GRAD_IMAGES} images, per tensor, worst max|err| / "
-          f"max|g|: GPU against CPU f64 on the GPU's ReLU pattern {worst:.3e} "
-          f"({worst_name})  limit {TOL_GRADS:.0e}; against free CPU f64 "
-          f"{free_worst:.3e} ({free_name}; {flips} ReLU outputs of the GPU's "
-          f"forward on the other side of 0 than f64's); CPU f32 against CPU f64 "
-          f"{cpu_worst:.3e} ({cpu_name}); GPU against CPU f32 {f32_worst:.3e} "
-          f"({f32_name})")
-    check(worst <= TOL_GRADS, f"{tag}: GPU gradients differ from the CPU's: "
-                              f"{worst_name} {worst:.3e}")
+    # CPU in f64, on the card's own ReLU pattern
+    worst = grad_gate(torch, model_cpu, x[:GRAD_IMAGES], y[:GRAD_IMAGES], tag)
 
     # steady state: host clock around a synchronised window, as the bench,
     # and CUDA events around the same window
@@ -1314,15 +1699,22 @@ KERNEL_GROUPS = (
     ("tiled attention fwd", ("flash_fwd_kernel",)),
     ("tiled attention dq", ("flash_dq_kernel",)),
     ("tiled attention dk/dv", ("flash_dkv_kernel",)),
-    ("GEMM (cuBLAS)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
+    ("fused FF fwd", ("ffn_fwd_kernel",)),
+    ("fused FF bwd", ("ffn_bwd_rows_kernel", "ffn_dw_kernel", "ffn_sum_parts_kernel")),
+    ("int8 linear", ("int8_linear_kernel",)),
+    ("GEMM (cuBLAS; torch._int_mm)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
     ("Adam", ("multi_tensor", "adam", "Adam")),
+    ("elementwise (int8 quantize and dequantize, residuals, activations)",
+     ("elementwise_kernel",)),
+    ("reductions (int8 amax)", ("reduce_kernel",)),
+    ("LayerNorm", ("layer_norm",)),
 )
 
 
-def phase_profile(torch, step, state, x, y, label, steps=2):
-    """Device time of ``steps`` training steps by kernel, from
-    ``torch.profiler``; the idle share is of the window from the first
-    kernel's start to the last kernel's end."""
+def phase_profile(torch, step, state, x, y, label, steps=2, what="training steps"):
+    """Device time of ``steps`` training steps (or other calls, ``what``) by
+    kernel, from ``torch.profiler``; the idle share is of the window from
+    the first kernel's start to the last kernel's end."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
@@ -1351,7 +1743,7 @@ def phase_profile(torch, step, state, x, y, label, steps=2):
         if group.startswith("KAN") and family:
             group = f"{group} ({family})"
         groups[group] = groups.get(group, 0.0) + us
-    print(f"[profile] {steps} {label} training steps: device busy "
+    print(f"[profile] {steps} {label} {what}: device busy "
           f"{busy / steps / 1e3:.3f} ms per step, idle share "
           f"{1 - busy / window:.4f} of the device window")
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
@@ -1363,7 +1755,226 @@ def phase_profile(torch, step, state, x, y, label, steps=2):
 
 
 # --------------------------------------------------------------------------
-# Phase 10: decoder training
+# Phase 11: int8 serving
+# --------------------------------------------------------------------------
+
+def top1_and_probs(logits, ref):
+    """Top-1 agreement of ``logits`` with ``ref`` and the largest change of
+    a probability (kanvit's int8 gates, ``tests/test_quant.py``)."""
+    def probs(z):
+        z = z.astype(np.float64) - z.max(-1, keepdims=True)
+        return np.exp(z) / np.exp(z).sum(-1, keepdims=True)
+
+    return (float((logits.argmax(-1) == ref.argmax(-1)).mean()),
+            float(np.abs(probs(logits) - probs(ref)).max()))
+
+
+def phase_int8_serve(torch, smi, model_cpu, blocks):
+    """vit-s vanilla served f32 and int8 through ``Predictor``: with the
+    ``int8_linear`` kernel (25 launches a batch: the embedder and 12 FF
+    pairs; the 1000-class head on qdot), calibrated, and on qdot alone;
+    exact launch counts, top-1 agreement with f32 at least 0.9 and
+    probabilities within 0.2, four images' logits against the CPU's int8
+    forward, and images/s of each; the device forward's time (CUDA events)
+    and its ``torch.profiler`` split for f32 and each int8 route, and the
+    time of quantizing the weights that run once over (which every int8
+    forward does again)."""
+    from kanvit_torch.infer import Predictor
+    from kanvit_torch.models import PRESETS
+    from kanvit_torch.ops import quant as Q
+
+    geom = PRESETS["vit-s"]
+    model = copy.deepcopy(model_cpu).to("cuda")
+    rng = np.random.default_rng(SEED + 11)
+    images = rng.standard_normal((sum(REQUESTS), *geom["chw"])).astype(np.float32)
+    bounds = np.cumsum((0,) + REQUESTS)
+    reqs = [images[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+    x = torch.from_numpy(reqs[0]).cuda()
+
+    def device_forward(name, scales=None, kernel=None):
+        """CUDA-event ms of one batch-64 forward, and its profile, f32
+        (``kernel`` None) or under int8 serving."""
+        def fwd(*_):
+            with torch.inference_mode(), (
+                    contextlib.nullcontext() if kernel is None
+                    else Q.int8_serving(model, scales, kernel=kernel)):
+                return model(x)
+        ms = time_ms(torch, fwd, iters=10)
+        profile = phase_profile(torch, fwd, None, None, None, f"vit-s vanilla {name}",
+                                steps=3, what="forwards at batch 64")
+        return ms, profile
+
+    f32_pred = Predictor(model, batch_size=BATCH, device="cuda")
+    f32 = np.concatenate([f32_pred.logits(r) for r in reqs])
+    f32_ms, f32_profile = device_forward("f32")
+    out = {"f32_images_per_s": serve_rate(torch, f32_pred, reqs[0]),
+           "f32_device_forward_ms": f32_ms, "f32_profile": f32_profile}
+    print(f"[int8] vit-s vanilla f32: {out['f32_images_per_s']:.1f} images/s host to "
+          f"host; device forward {f32_ms:.3f} ms  [{smi}]")
+    # the Linear layers an int8 forward quantizes (those that run), and the
+    # time of quantizing their weights, once over
+    with torch.inference_mode(), Q.calibrating(model) as ran:
+        model(x)
+    modules = dict(model.named_modules())
+    weights = [modules[name].weight for name in ran]
+    with torch.inference_mode():
+        wq_ms = time_ms(torch, lambda: [Q._quantize(w, dim=-1) for w in weights],
+                        iters=10)
+    out["weight_quantize_ms"] = wq_ms
+    print(f"[int8] quantizing the weights of the {len(weights)} Linear layers that run, "
+          f"per output channel, once over: {wq_ms:.3f} ms (every int8 forward does it "
+          f"again)  [{smi}]")
+    configs = (("kernel", dict(int8_kernel=True), False),
+               ("calibrated", dict(int8_kernel=True), True),
+               ("qdot", dict(int8_kernel=False), False))
+    for name, kw, calibrate in configs:
+        pred = Predictor(model, batch_size=BATCH, device="cuda", quant="int8", **kw)
+        if calibrate:
+            pred.calibrate(images)
+        reset_counts()
+        logits = np.concatenate([pred.logits(r) for r in reqs])
+        torch.cuda.synchronize()
+        counts = launch_counts()
+        want = {k: 0 for k in counts}
+        want["flash_attention_lanes"] = len(REQUESTS) * blocks
+        if kw["int8_kernel"]:
+            want["int8_linear"] = len(REQUESTS) * (1 + 2 * blocks)
+        check(counts == want, f"int8 {name}: launch counts {counts} != {want}")
+        agree, dprob = top1_and_probs(logits, f32)
+        # the same 4-image batch on the card and the CPU: qdot's per-tensor
+        # scale is the batch's, so both sides must see one batch
+        few = reqs[0][:4]
+        on = {}
+        for dev, net in (("cuda", model), ("cpu", model_cpu)):
+            small = Predictor(net, batch_size=len(few), device=dev, quant="int8", **kw)
+            small.scales = pred.scales
+            on[dev] = small.logits(few)
+        cpu_err = float(np.abs(on["cuda"] - on["cpu"]).max())
+        scale = float(np.abs(on["cpu"]).max())
+        f32_err = float(np.abs(logits - f32).max())
+        ips = serve_rate(torch, pred, reqs[0])
+        fwd_ms, profile = device_forward(name, pred.scales, kw["int8_kernel"])
+        print(f"[int8] {name}: launches over {len(REQUESTS)} batches "
+              f"{ {k: n for k, n in counts.items() if n} }; top-1 agreement with f32 "
+              f"{agree:.4f} (gate 0.9), max probability change {dprob:.4f} (gate 0.2), "
+              f"max|logit - f32| {f32_err:.4f}; 4 images against the CPU's int8 "
+              f"forward: max|err| {cpu_err:.3e}  limit {TOL_INT8_LOGITS * scale:.3e}; "
+              f"{ips:.1f} images/s host to host; device forward {fwd_ms:.3f} ms "
+              f"(f32 {f32_ms:.3f} ms)  [{smi}]")
+        check(agree >= 0.9 and dprob < 0.2, f"int8 {name}: off f32 beyond the gates")
+        check(cpu_err <= TOL_INT8_LOGITS * scale, f"int8 {name}: GPU logits differ "
+                                                   f"from the CPU's by {cpu_err}")
+        out[name] = {"images_per_s": ips, "device_forward_ms": fwd_ms,
+                     "profile": profile, "top1_agreement": agree,
+                     "max_prob_change": dprob, "launches": counts}
+    return out
+
+
+# --------------------------------------------------------------------------
+# Phase 12: the repaired faults: head dim 8 and refit grids
+# --------------------------------------------------------------------------
+
+def train_steps(torch, model_cpu, per_step_fwd, steps, batch, tag):
+    """``steps`` Adam steps on one batch through ``kanvit_torch.train``:
+    exact forward and backward launches a step, losses finite and falling,
+    and the 4-image gradient gate. Returns the launch counts."""
+    from kanvit_torch.train import create_train_state, make_train_step
+
+    model = copy.deepcopy(model_cpu).to("cuda")
+    rng = np.random.default_rng(SEED + 12)
+    x = torch.from_numpy(rng.standard_normal((batch, *model_cpu.chw))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, model_cpu.out_d, batch)).cuda()
+    state, step = create_train_state(model, 1e-3), make_train_step()
+    per_step = {k: 0 for k in launch_counts()}
+    per_step.update(per_step_fwd)
+    per_step.update({f"{k}_bwd": n for k, n in per_step_fwd.items()})
+    reset_counts()
+    losses, steps_ok = [], True
+    for _ in range(steps):
+        before = launch_counts()
+        state, loss, _ = step(state, x, y)
+        after = launch_counts()
+        steps_ok &= {k: after[k] - before[k] for k in after} == per_step
+        losses.append(float(loss))
+    counts = launch_counts()
+    print(f"[{tag}] {steps} Adam(1e-3) steps at batch {batch}: losses "
+          f"{[round(v, 6) for v in losses]}; launches {({k: n for k, n in counts.items() if n})}")
+    check(steps_ok, f"{tag}: a step's launches differ from {per_step}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{tag}: losses not finite or not falling: {losses}")
+    grad_gate(torch, model_cpu, x[:GRAD_IMAGES].cpu(), y[:GRAD_IMAGES].cpu(), tag)
+    return counts
+
+
+def moved_grids(torch, model_cpu, seed):
+    """``model_cpu`` with every MSA knot grid scaled and shifted per head and
+    projection, as refits leave them."""
+    rng = np.random.default_rng(seed)
+    with torch.no_grad():
+        for blk in model_cpu.blocks:
+            for maps in (blk.attn.q_mappings, blk.attn.k_mappings, blk.attn.v_mappings):
+                for m in maps:
+                    m.grid.mul_(float(rng.uniform(0.8, 1.3))).add_(
+                        float(rng.uniform(-0.3, 0.3)))
+    return model_cpu
+
+
+def phase_faults(torch, smi):
+    """The reference's own geometry, head dim 8, on the card:
+    ``load_predictor``'s defaults (MNIST, d 64, 8 heads, 8 blocks) serving a
+    request, and the CIFAR geometry (32x32 in 4x4 patches, 17 tokens, d 64,
+    8 heads) training efficientkan and vanilla; then a vit-s efficientkan
+    model with refit grids per head serving (three grouped launches a
+    block)."""
+    from kanvit_torch.infer import load_predictor
+    from kanvit_torch.models import create_model
+
+    paths = {}
+    src = create_model("efficientkan", chw=(1, 28, 28), n_patches=7, out_d=10, seed=SEED)
+    blocks = len(src.blocks)
+    out_dir = HERE / "build" / "chip_smoke"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    npz = out_dir / "mnist_efficientkan.npz"
+    np.savez(npz, **{k: v.numpy() for k, v in src.state_dict().items()})
+    images = np.random.default_rng(SEED + 13).standard_normal(
+        (BATCH, 1, 28, 28)).astype(np.float32)
+    reset_counts()
+    pred = load_predictor("efficientkan", str(npz))
+    logits = pred.logits(images)
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update(bspline_kan=1, bspline_qkv_grouped=blocks, flash_attention_lanes=blocks)
+    with torch.inference_mode():
+        err = float(np.abs(logits[:4] - src(torch.from_numpy(images[:4])).numpy()).max())
+    print(f"[faults] load_predictor defaults (MNIST, d 64, 8 heads of 8, {blocks} "
+          f"blocks): launches {({k: n for k, n in counts.items() if n})}; logits of 4 "
+          f"images against the CPU: max|err| {err:.3e}  limit {TOL_LOGITS:.0e}")
+    check(counts == want, f"load_predictor: launch counts {counts} != {want}")
+    check(err <= TOL_LOGITS, f"load_predictor: GPU logits differ by {err}")
+    paths["mnist_serve"] = counts
+
+    for variant in ("efficientkan", "vanilla"):
+        model_cpu = create_model(variant, seed=SEED)  # the CIFAR defaults
+        blocks = len(model_cpu.blocks)
+        per_step = {"flash_attention_lanes": blocks}
+        if variant == "efficientkan":
+            per_step.update(bspline_kan=1, bspline_qkv_grouped=blocks)
+        paths[f"cifar_train_{variant}"] = train_steps(
+            torch, model_cpu, per_step, 3, BATCH, f"faults cifar {variant}")
+
+    model_cpu = moved_grids(torch, build_model("efficientkan"), SEED + 14)
+    blocks = len(model_cpu.blocks)
+    paths["refit_serve"] = phase_serve(
+        torch, smi, model_cpu, "refit-serve",
+        {"bspline_kan": 1, "bspline_qkv_grouped": 3 * blocks,
+         "flash_attention_lanes": blocks}, SEED + 15)["launches"]
+    return paths
+
+
+# --------------------------------------------------------------------------
+# Phase 13: decoder training
 # --------------------------------------------------------------------------
 
 def decoder_parts(torch, model, tokens):
@@ -1468,7 +2079,7 @@ def phase_decoder(torch, smi):
 
 
 # --------------------------------------------------------------------------
-# Phase 11: the reference preset through the port's bench
+# Phase 14: the reference preset through the port's bench
 # --------------------------------------------------------------------------
 
 def phase_bench(torch, smi):
@@ -1500,7 +2111,7 @@ def phase_bench(torch, smi):
 
 
 # --------------------------------------------------------------------------
-# Phase 12: results
+# Phase 15: results
 # --------------------------------------------------------------------------
 
 KAN_SRC = "kanvit_torch/kernels/csrc/kan_basis.cu"
@@ -1535,6 +2146,12 @@ SOURCES = {
     "sinekan_bwd": (RBF_SINE_SRC, f"{FB_PY}:2523"),
     "sinekan_qkv_grouped": (RBF_SINE_SRC, f"{FB_PY}:1518"),
     "sinekan_qkv_grouped_bwd": (RBF_SINE_SRC, f"{FB_PY}:1557"),
+    "ffn_pre_ln": ("kanvit_torch/kernels/csrc/fused_ffn.cu",
+                   "kanvit/kernels/fused_ffn.py:177"),
+    "ffn_pre_ln_bwd": ("kanvit_torch/kernels/csrc/fused_ffn.cu",
+                       "kanvit/kernels/fused_ffn.py:217"),
+    "int8_linear": ("kanvit_torch/kernels/csrc/int8_matmul.cu",
+                    "kanvit/kernels/int8_matmul.py:134"),
 }
 # The single-tile tier of flash_attention runs the lanes kernels (phase 5);
 # fourierkan's and sinekan's kernels serve kanvit's generic tier below its
@@ -1565,7 +2182,9 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
              **{f"{name}{sfx}": f"{variant}_train"
                 for variant, names in (("fast", ("fastkan", "fastkan_qkv_grouped")),
                                        ("sine", ("sinekan", "sinekan_qkv_grouped")))
-                for name in names for sfx in ("", "_bwd")}}
+                for name in names for sfx in ("", "_bwd")},
+             "ffn_pre_ln": "ffn_train", "ffn_pre_ln_bwd": "ffn_train",
+             "int8_linear": "int8_serve"}
 
 
 def timed(label, fn, *args):
@@ -1583,6 +2202,7 @@ def main():
     results.update(timed("tiled attention kernels", phase_flash_kernels, torch))
     results.update(timed("Chebyshev and Fourier kernels", phase_basis_kernels, torch))
     results.update(timed("RBF and sine kernels", phase_rbf_sine_kernels, torch))
+    results.update(timed("fused FF and int8 kernels", phase_ffn_int8_kernels, torch))
 
     from kanvit_torch.models import PRESETS
 
@@ -1615,9 +2235,19 @@ def main():
         paths[f"{variant}_train"] = timed(
             f"{variant} training", phase_train, torch, smi, model_cpu,
             f"{variant}-train", per_batch, embedder)["launches"]
+    vanilla_cpu = build_model("vanilla")
     paths["vanilla_serve"] = timed(
-        "vanilla serving", phase_serve, torch, smi, build_model("vanilla"),
+        "vanilla serving", phase_serve, torch, smi, vanilla_cpu,
         "vanilla-serve", lanes, SEED + 8)["launches"]
+    fused_cpu = build_model("efficientkan", fused_ff=True)
+    fused = {**efficientkan, "ffn_pre_ln": blocks}
+    paths["ffn_serve"] = timed("fused-FF serving", phase_serve, torch, smi, fused_cpu,
+                               "ffn-serve", fused, SEED + 10)["launches"]
+    paths["ffn_train"] = timed("fused-FF training", phase_train, torch, smi, fused_cpu,
+                               "ffn-train", fused, "bspline_kan")["launches"]
+    paths["int8_serve"] = timed("int8 serving", phase_int8_serve, torch, smi,
+                                vanilla_cpu, blocks)["kernel"]["launches"]
+    paths.update(timed("head dim 8 and refit grids", phase_faults, torch, smi))
     timed("reference bench", phase_bench, torch, smi)
     kernels = []
     for name, (err, ms, plain_ms, *extra) in results.items():

@@ -15,10 +15,11 @@ paths and names so each counterpart is found at once:
 
 Ported so far, in f32, serving and the training step (forward and backward
 kernels, Adam): every ViT variant (``vanilla``, ``efficientkan``, ``fast``,
-``sine``, ``fourier``, ``cheby``, ``flash-attn``), and the ``CausalDecoder``
-on the tiled flash attention. bf16, the opt-in fused FFN and int8 kernels
-and the trainer surface are listed in ``ROADMAP.md``. This package imports
-torch and numpy only, never jax.
+``sine``, ``fourier``, ``cheby``, ``flash-attn``), the opt-in fused pre-LN
+FF (``fused_ff=True``), int8 serving (``Predictor(quant="int8")``, with the
+W8A8 ``int8_linear`` kernel on request), and the ``CausalDecoder`` on the
+tiled flash attention. bf16, export and the trainer surface are listed in
+``ROADMAP.md``. This package imports torch and numpy only, never jax.
 """
 
 __version__ = "0.1.0"

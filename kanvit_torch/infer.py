@@ -4,18 +4,23 @@
 Images are classified in fixed-size batches on the card unless the caller
 names another device (``device="cpu"``), the ragged tail zero-padded so every forward sees the same shape, with the whole
 forward under ``torch.inference_mode()``. ``microbatch`` runs each batch as
-a plain loop over equal chunks.
+a plain loop over equal chunks. ``quant="int8"`` serves W8A8 Linear layers
+(``kanvit_torch.ops.quant``); :meth:`Predictor.calibrate` pins calibrated
+static activation scales.
 
-Not ported yet: reading flax msgpack checkpoints, int8 serving, ``export``
-and the CLI (``ROADMAP.md``, Queue 1).
+Not ported yet: reading flax msgpack checkpoints, ``export`` and the CLI
+(``ROADMAP.md``, Queue 1).
 """
 
 from __future__ import annotations
+
+import contextlib
 
 import numpy as np
 import torch
 
 from kanvit_torch.models import create_model
+from kanvit_torch.ops import quant as Q
 from kanvit_torch.utils.convert import load_reference_state_dict
 
 
@@ -32,13 +37,28 @@ class Predictor:
     ``model`` must already live on ``device`` (move it with
     ``model.to(device)``); the Predictor moves nothing behind the caller's
     back and raises on a mismatch.
+
+    ``quant="int8"`` runs every forward under
+    ``kanvit_torch.ops.quant.int8_serving``: the Linear layers that run
+    (FF pairs, a Linear embedder, the flash-attention projections, the head)
+    go W8A8 with dynamic per-tensor scales, or the static ones
+    :meth:`calibrate` pins. ``int8_kernel=True`` runs the ``int8_linear``
+    kernel (per-row scales) where K and out are multiples of 128, as kanvit
+    does when its kernel is switched on (``KANVIT_INT8_KERNEL``); off by
+    default, as kanvit's auto mode leaves it.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 256,
-                 microbatch: int | None = None, *, device="cuda"):
+                 microbatch: int | None = None, *, device="cuda",
+                 quant: str | None = None, int8_kernel: bool = False):
+        if quant not in (None, "int8"):
+            raise ValueError(f"unknown quant mode {quant!r} (int8)")
         self.model = model
         self.batch_size = batch_size
         self.microbatch = microbatch
+        self.quant = quant
+        self.int8_kernel = int8_kernel
+        self.scales: dict[str, float] | None = None
         self.device = _resolve(device)
         placed = {t.device for t in (*model.parameters(), *model.buffers())}
         if placed != {self.device}:
@@ -51,21 +71,44 @@ class Predictor:
             return torch.cat([self.model(c) for c in x.split(mb)])
         return self.model(x)
 
+    def _batches(self, images: np.ndarray):
+        """Each ``batch_size`` chunk of ``images`` on the device, the tail
+        zero-padded, with the number of real images in it."""
+        for lo in range(0, images.shape[0], self.batch_size):
+            chunk = np.ascontiguousarray(images[lo:lo + self.batch_size],
+                                         dtype=np.float32)
+            real = chunk.shape[0]
+            if real < self.batch_size:
+                chunk = np.concatenate([chunk, np.zeros(
+                    (self.batch_size - real, *chunk.shape[1:]), np.float32)])
+            yield torch.from_numpy(chunk).to(self.device), real
+
+    def _serving(self):
+        if self.quant != "int8":
+            return contextlib.nullcontext()
+        return Q.int8_serving(self.model, self.scales, kernel=self.int8_kernel)
+
+    def calibrate(self, images: np.ndarray, max_batches: int = 2) -> dict:
+        """Record each Linear layer's input max over float forwards of up to
+        ``max_batches`` batches of ``images`` (tails zero-padded, as kanvit
+        pads them), pin them as static int8 scales and return the scales,
+        ``{module name: scale}``."""
+        if self.quant != "int8":
+            raise ValueError("calibrate() only applies to quant='int8'")
+        n = min(len(images), self.batch_size * max_batches)
+        with torch.inference_mode(), Q.calibrating(self.model) as amax:
+            for x, _ in self._batches(images[:n]):
+                self._forward(x)
+        self.scales = Q.scales_from_amax(amax)
+        return self.scales
+
     def logits(self, images: np.ndarray) -> np.ndarray:
         """``(N, C, H, W) -> (N, out_d)`` float32; the tail batch is
         zero-padded so every forward has ``batch_size`` images."""
-        n = images.shape[0]
         out = []
-        with torch.inference_mode():
-            for lo in range(0, n, self.batch_size):
-                chunk = np.ascontiguousarray(images[lo:lo + self.batch_size],
-                                             dtype=np.float32)
-                pad = self.batch_size - chunk.shape[0]
-                if pad:
-                    chunk = np.concatenate(
-                        [chunk, np.zeros((pad, *chunk.shape[1:]), np.float32)])
-                y = self._forward(torch.from_numpy(chunk).to(self.device))
-                out.append(y[: self.batch_size - pad].cpu().numpy())
+        with torch.inference_mode(), self._serving():
+            for x, real in self._batches(images):
+                out.append(self._forward(x)[:real].cpu().numpy())
         return np.concatenate(out) if out else np.zeros((0,))
 
     def predict(self, images: np.ndarray):
@@ -89,6 +132,7 @@ def load_predictor(
     out_d=10,
     batch_size=256,
     microbatch=None,
+    quant=None,
 ) -> Predictor:
     """A Predictor over weights in reference naming, read from an ``.npz``
     (what ``python -m kanvit.utils.torch_compat --ckpt-dir ckpts --out
@@ -99,4 +143,5 @@ def load_predictor(
     )
     with np.load(state_dict_npz) as data:
         load_reference_state_dict(model, {k: data[k] for k in data.files})
-    return Predictor(model.to(device), batch_size, microbatch, device=device)
+    return Predictor(model.to(device), batch_size, microbatch, device=device,
+                     quant=quant)

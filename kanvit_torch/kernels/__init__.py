@@ -6,6 +6,10 @@
 - ``flash_attention``: the lanes-layout attention (``csrc/attention_lanes.cu``)
   and the tiled flash attention (``csrc/flash_attention.cu``), forward and
   backward.
+- ``fused_ffn``: the pre-LN feed-forward (``csrc/fused_ffn.cu``), forward
+  and backward.
+- ``int8_matmul``: the W8A8 linear layer of int8 serving
+  (``csrc/int8_matmul.cu``), forward.
 
 ``_build`` compiles ``csrc/*.cu`` with nvcc at first use. Every kernel has a
 plain PyTorch version in ``kanvit_torch.ops``; the wrappers run it for CPU

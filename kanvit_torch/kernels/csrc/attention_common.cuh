@@ -1,12 +1,37 @@
 // Helpers shared by the attention kernels (attention_lanes.cu,
-// flash_attention.cu): the two-threads-a-row reductions and the padded
-// shared-memory tile they read.
+// flash_attention.cu): which head dims run templated or generic kernels,
+// the two-threads-a-row reductions and the padded shared-memory tile they
+// read.
 
 #pragma once
 
 #include <cuda_runtime.h>
 
 namespace {
+
+// Head dims. The kernels templated on dh, which keep a row in registers,
+// are instantiated for 8 (the reference geometry: d 64 in 8 heads), 16, 32
+// and 64. Every other multiple of 8 through 128
+// (kanvit's lanes tier takes any dh % 8 == 0) runs the generic kernels,
+// which walk the head dim at run time in chunks of GENERIC_CHUNK with the
+// accumulators in shared memory: their code does not grow with dh, so one
+// instantiation serves every dh. (ptxas time of a templated instantiation
+// grows with dh: one per dh made the build of the whole set run for many
+// minutes.)
+constexpr int GENERIC_CHUNK = 8;
+constexpr int MAX_HEAD_DIM = 128;
+
+inline bool generic_head_dim(int dh) {
+  return dh % GENERIC_CHUNK == 0 && dh >= GENERIC_CHUNK && dh <= MAX_HEAD_DIM;
+}
+
+// Dynamic shared memory above the static 48 KB needs the kernel's opt-in.
+template <class K>
+int allow_shared(K kernel, size_t bytes) {
+  if (bytes <= 48 * 1024) return 0;
+  return (int)cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+}
 
 // Sum of a two-thread row's halves (the pair are neighbouring lanes).
 __device__ __forceinline__ float pair_sum(float x) {

@@ -46,7 +46,8 @@
 // query tiles that see none of its keys causally unless a row in them has
 // m = NEG_INF. All math is f32 on the CUDA cores, with IEEE expf (no fast
 // math, which would change the fully masked rows); tensor-core products are
-// later work.
+// later work. As in attention_lanes.cu, head dims other than 8, 16, 32 and
+// 64 run generic kernels that walk dh at run time in chunks of 8.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -386,14 +387,320 @@ bool bad_dims(int batch, int tq, int tk, int heads) {
          heads > 65535;
 }
 
+// --- generic head dims (attention_common.cuh): the same functions, one
+// thread a row, the head dim walked at run time in chunks of C; the q (and
+// do) row re-read per staged tile, the accumulators in shared memory.
+
+constexpr int C = GENERIC_CHUNK;
+
+// Forward. Dynamic shared memory (floats): ks, vs (BKV, dh), acc (dh, BQ).
+__global__ void __launch_bounds__(BQ)
+flash_fwd_generic(View q, View k, View v, const uint8_t* __restrict__ mask,
+                  float* __restrict__ o, float* __restrict__ stats, int tq,
+                  int tk, int heads, int dh, int causal, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  float* ks = sm;
+  float* vs = ks + BKV * dh;
+  float* acc = vs + BKV * dh;  // acc[d * BQ + tid]
+  __shared__ int kvalid[BKV];
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BQ;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int qi = q0 + tid;
+  const bool live = qi < tq;
+  const int diff = max(tk - tq, 0);
+  const int qpos = qi - diff;
+  const float* qp = q.at(b, live ? qi : 0, h);
+  for (int d = 0; d < dh; ++d) acc[d * BQ + tid] = 0.f;
+  float m = NEG_INF;
+  float l = 0.f;
+
+  // Keys past the block's last row are causally masked for all its rows.
+  const int frontier = causal ? min(tk, max(0, q0 + BQ - diff)) : tk;
+  for (int k0 = 0; k0 < tk; k0 += BKV) {
+    // Past the frontier only a row with no valid key so far still changes.
+    if (k0 >= frontier && !__syncthreads_or(live && m == NEG_INF)) break;
+    __syncthreads();  // the previous tile is no longer read
+    for (int e = tid; e < BKV * dh; e += BQ) {
+      const int j = e / dh, d = e % dh, key = k0 + j;
+      const bool in = key < tk;
+      ks[e] = in ? k.at(b, key, h)[d] : 0.f;
+      vs[e] = in ? v.at(b, key, h)[d] : 0.f;
+    }
+    if (tid < BKV) kvalid[tid] = key_ok(mask, b, tk, k0 + tid);
+    __syncthreads();
+
+    float s[BKV];
+#pragma unroll
+    for (int j = 0; j < BKV; ++j) s[j] = 0.f;
+    for (int c = 0; c < dh; c += C) {
+      float qc[C];
+#pragma unroll
+      for (int u = 0; u < C; ++u) qc[u] = live ? qp[c + u] * scale : 0.f;
+#pragma unroll
+      for (int j = 0; j < BKV; ++j)
+#pragma unroll
+        for (int u = 0; u < C; ++u) s[j] = fmaf(qc[u], ks[j * dh + c + u], s[j]);
+    }
+    float mt = m;
+#pragma unroll
+    for (int j = 0; j < BKV; ++j) {
+      const bool ok = kvalid[j] && (!causal || k0 + j <= qpos);
+      s[j] = ok ? s[j] : NEG_INF;
+      mt = fmaxf(mt, s[j]);
+    }
+    const float corr = expf(m - mt);
+    float bsum = 0.f;
+#pragma unroll
+    for (int j = 0; j < BKV; ++j) {
+      // 1 on a valid, causally masked key of a row whose max is NEG_INF
+      s[j] = kvalid[j] ? expf(s[j] - mt) : 0.f;
+      bsum += s[j];
+    }
+    for (int c = 0; c < dh; c += C) {
+      float a[C];
+#pragma unroll
+      for (int u = 0; u < C; ++u) a[u] = acc[(c + u) * BQ + tid] * corr;
+#pragma unroll
+      for (int j = 0; j < BKV; ++j)
+#pragma unroll
+        for (int u = 0; u < C; ++u) a[u] = fmaf(s[j], vs[j * dh + c + u], a[u]);
+#pragma unroll
+      for (int u = 0; u < C; ++u) acc[(c + u) * BQ + tid] = a[u];
+    }
+    l = corr * l + fmaxf(bsum, EPSILON);
+    m = mt;
+  }
+
+  if (live) {
+    const float lc = fmaxf(l, EPSILON);
+    float* op = o + (((long long)b * tq + qi) * heads + h) * dh;
+    for (int d = 0; d < dh; ++d) op[d] = acc[d * BQ + tid] / lc;
+    if (stats != nullptr) {
+      float* sp = stats + (((long long)b * heads + h) * tq + qi) * 2;
+      sp[0] = m;
+      sp[1] = lc;
+    }
+  }
+}
+
+// dq and delta, one thread a query row. Dynamic shared memory (floats):
+// ks, vs (BT, dh), dq (dh, BR).
+__global__ void __launch_bounds__(BR)
+flash_dq_generic(View q, View k, View v, const uint8_t* __restrict__ mask,
+                 const float* __restrict__ o, const float* __restrict__ dout,
+                 const float* __restrict__ stats, float* __restrict__ delta_out,
+                 float* __restrict__ dq, int tq, int tk, int heads, int dh,
+                 int causal, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  float* ks = sm;
+  float* vs = ks + BT * dh;
+  float* acc = vs + BT * dh;  // acc[d * BR + tid]
+  __shared__ int kvalid[BT];
+
+  const int tid = threadIdx.x;
+  const int q0 = blockIdx.x * BR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int qi = q0 + tid;
+  const bool live = qi < tq;
+  const int diff = max(tk - tq, 0);
+  const int qpos = qi - diff;
+  const long long row = ((long long)b * tq + (live ? qi : 0)) * heads + h;
+  const float* qp = q.at(b, live ? qi : 0, h);
+  const float* dp = dout + row * dh;
+  float dlt = 0.f, m = 0.f, linv = 0.f;
+  if (live) {
+    const float* op = o + row * dh;
+    for (int d = 0; d < dh; ++d) dlt = fmaf(dp[d], op[d], dlt);
+    const float* sp = stats + (((long long)b * heads + h) * tq + qi) * 2;
+    m = sp[0];
+    linv = 1.f / sp[1];
+  }
+  for (int d = 0; d < dh; ++d) acc[d * BR + tid] = 0.f;
+
+  // ds is 0 wherever the causal mask applies, so keys past the block's last
+  // row add nothing to dq.
+  const int kend = causal ? min(tk, max(0, q0 + BR - diff)) : tk;
+  for (int k0 = 0; k0 < kend; k0 += BT) {
+    __syncthreads();  // the previous tile is no longer read
+    for (int e = tid; e < BT * dh; e += BR) {
+      const int j = e / dh, d = e % dh, key = k0 + j;
+      const bool in = key < tk;
+      ks[e] = in ? k.at(b, key, h)[d] : 0.f;
+      vs[e] = in ? v.at(b, key, h)[d] : 0.f;
+    }
+    if (tid < BT) kvalid[tid] = key_ok(mask, b, tk, k0 + tid);
+    __syncthreads();
+
+    float s[BT], dpv[BT];
+#pragma unroll
+    for (int j = 0; j < BT; ++j) s[j] = dpv[j] = 0.f;
+    for (int c = 0; c < dh; c += C) {
+      float qc[C], dc[C];
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        qc[u] = live ? qp[c + u] * scale : 0.f;
+        dc[u] = live ? dp[c + u] : 0.f;
+      }
+#pragma unroll
+      for (int j = 0; j < BT; ++j)
+#pragma unroll
+        for (int u = 0; u < C; ++u) {
+          s[j] = fmaf(qc[u], ks[j * dh + c + u], s[j]);
+          dpv[j] = fmaf(dc[u], vs[j * dh + c + u], dpv[j]);
+        }
+    }
+#pragma unroll
+    for (int j = 0; j < BT; ++j) {  // s[j] becomes ds
+      const bool vis = !causal || k0 + j <= qpos;
+      const float p = (live && kvalid[j]) ? expf((vis ? s[j] : NEG_INF) - m) * linv
+                                          : 0.f;
+      s[j] = vis ? p * (dpv[j] - dlt) : 0.f;
+    }
+    for (int c = 0; c < dh; c += C) {
+      float a[C];
+#pragma unroll
+      for (int u = 0; u < C; ++u) a[u] = acc[(c + u) * BR + tid];
+#pragma unroll
+      for (int j = 0; j < BT; ++j)
+#pragma unroll
+        for (int u = 0; u < C; ++u) a[u] = fmaf(s[j], ks[j * dh + c + u], a[u]);
+#pragma unroll
+      for (int u = 0; u < C; ++u) acc[(c + u) * BR + tid] = a[u];
+    }
+  }
+
+  if (live) {
+    float* dqp = dq + row * dh;
+    for (int d = 0; d < dh; ++d) dqp[d] = acc[d * BR + tid] * scale;
+    delta_out[((long long)b * heads + h) * tq + qi] = dlt;
+  }
+}
+
+// dk and dv, one thread a key. Dynamic shared memory (floats): qs (q *
+// scale), dos (BT, dh), dk, dv (dh, BR).
+__global__ void __launch_bounds__(BR)
+flash_dkv_generic(View q, View k, View v, const uint8_t* __restrict__ mask,
+                  const float* __restrict__ dout, const float* __restrict__ stats,
+                  const float* __restrict__ delta, float* __restrict__ dk,
+                  float* __restrict__ dv, int tq, int tk, int heads, int dh,
+                  int causal, float scale) {
+  extern __shared__ __align__(16) float sm[];
+  float* qs = sm;
+  float* dos = qs + BT * dh;
+  float* dka = dos + BT * dh;  // dka[d * BR + tid]
+  float* dva = dka + dh * BR;
+  __shared__ float mrow[BT], lirow[BT], drow[BT];
+
+  const int tid = threadIdx.x;
+  const int k0 = blockIdx.x * BR;
+  const int h = blockIdx.y;
+  const int b = blockIdx.z;
+  const int kj = k0 + tid;
+  const bool live = kj < tk;
+  const bool valid = live && key_ok(mask, b, tk, kj);
+  const int diff = max(tk - tq, 0);
+  const long long srow = ((long long)b * heads + h) * tq;  // of stats, delta
+  const float* kp = k.at(b, live ? kj : 0, h);
+  const float* vp = v.at(b, live ? kj : 0, h);
+  for (int d = 0; d < dh; ++d) dka[d * BR + tid] = dva[d * BR + tid] = 0.f;
+
+  // The first row that sees key k0 causally (qpos >= k0).
+  const int first = causal ? k0 + diff : 0;
+  for (int i0 = 0; i0 < tq; i0 += BT) {
+    __syncthreads();  // the previous tile is no longer read
+    bool dead = false;
+    if (tid < BT) {
+      const int qi = i0 + tid;
+      const bool in = qi < tq;
+      const float mi = in ? stats[(srow + qi) * 2] : 0.f;
+      mrow[tid] = mi;
+      lirow[tid] = in ? 1.f / stats[(srow + qi) * 2 + 1] : 0.f;
+      drow[tid] = in ? delta[srow + qi] : 0.f;
+      dead = in && mi == NEG_INF;
+    }
+    // A tile whose rows see none of this block's keys causally adds only
+    // the uniform p of rows that saw no valid key (m = NEG_INF) to dv.
+    if (!__syncthreads_or(dead) && i0 + BT <= first) continue;
+    for (int e = tid; e < BT * dh; e += BR) {
+      const int r = e / dh, d = e % dh, qi = i0 + r;
+      const bool in = qi < tq;
+      qs[e] = in ? q.at(b, qi, h)[d] * scale : 0.f;
+      dos[e] = in ? dout[(((long long)b * tq + qi) * heads + h) * dh + d] : 0.f;
+    }
+    __syncthreads();
+
+    float s[BT], dpv[BT];
+#pragma unroll
+    for (int r = 0; r < BT; ++r) s[r] = dpv[r] = 0.f;
+    for (int c = 0; c < dh; c += C) {
+      float kc[C], vc[C];
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        kc[u] = live ? kp[c + u] : 0.f;
+        vc[u] = live ? vp[c + u] : 0.f;
+      }
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+#pragma unroll
+        for (int u = 0; u < C; ++u) {
+          s[r] = fmaf(qs[r * dh + c + u], kc[u], s[r]);
+          dpv[r] = fmaf(dos[r * dh + c + u], vc[u], dpv[r]);
+        }
+    }
+#pragma unroll
+    for (int r = 0; r < BT; ++r) {  // s[r] becomes p, dpv[r] ds
+      const int qi = i0 + r;
+      const bool vis = !causal || kj <= qi - diff;
+      const float p = (valid && qi < tq)
+                          ? expf((vis ? s[r] : NEG_INF) - mrow[r]) * lirow[r]
+                          : 0.f;
+      dpv[r] = vis ? p * (dpv[r] - drow[r]) : 0.f;
+      s[r] = p;
+    }
+    for (int c = 0; c < dh; c += C) {
+      float av[C], ak[C];
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        av[u] = dva[(c + u) * BR + tid];
+        ak[u] = dka[(c + u) * BR + tid];
+      }
+#pragma unroll
+      for (int r = 0; r < BT; ++r)
+#pragma unroll
+        for (int u = 0; u < C; ++u) {
+          av[u] = fmaf(s[r], dos[r * dh + c + u], av[u]);
+          ak[u] = fmaf(dpv[r], qs[r * dh + c + u], ak[u]);  // qs carries the scale
+        }
+#pragma unroll
+      for (int u = 0; u < C; ++u) {
+        dva[(c + u) * BR + tid] = av[u];
+        dka[(c + u) * BR + tid] = ak[u];
+      }
+    }
+  }
+
+  if (live) {
+    const long long off = (((long long)b * tk + kj) * heads + h) * dh;
+    for (int d = 0; d < dh; ++d) {
+      dk[off + d] = dka[d * BR + tid];
+      dv[off + d] = dva[d * BR + tid];
+    }
+  }
+}
+
 }  // namespace
 
 // q: f32, element (b, t, h, d) of a (batch, tq, heads, dh) tensor at
 // b*q_sb + t*q_st + h*q_sh + d (strides in elements); k, v alike over tk
 // keys. mask: (batch, tk) uint8 (nonzero = attend) or null. o: (batch, tq,
 // heads*dh) f32 contiguous; stats: (batch, heads, tq, 2) f32, each row's
-// (max, clamped sum) for the backward, or null. dh must be 16, 32 or 64.
-// Launches on `stream` and returns cudaGetLastError() (0 on success).
+// (max, clamped sum) for the backward, or null. dh is a multiple of 8 from 8
+// through 128 (attention_common.cuh). Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int kanvit_flash_attention_fwd(
     const float* q, const float* k, const float* v, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
@@ -406,13 +713,22 @@ extern "C" int kanvit_flash_attention_fwd(
   const dim3 grid((tq + BQ - 1) / BQ, heads, batch);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
+    case 8: flash_fwd_kernel<8><<<grid, BQ, 0, st>>>(
+        qv, kv, vv, mask, o, stats, tq, tk, heads, causal, scale); break;
     case 16: flash_fwd_kernel<16><<<grid, BQ, 0, st>>>(
         qv, kv, vv, mask, o, stats, tq, tk, heads, causal, scale); break;
     case 32: flash_fwd_kernel<32><<<grid, BQ, 0, st>>>(
         qv, kv, vv, mask, o, stats, tq, tk, heads, causal, scale); break;
     case 64: flash_fwd_kernel<64><<<grid, BQ, 0, st>>>(
         qv, kv, vv, mask, o, stats, tq, tk, heads, causal, scale); break;
-    default: return (int)cudaErrorInvalidValue;
+    default: {
+      if (!generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
+      const size_t smem = sizeof(float) * (2 * BKV + BQ) * dh;
+      const int err = allow_shared(flash_fwd_generic, smem);
+      if (err != 0) return err;
+      flash_fwd_generic<<<grid, BQ, smem, st>>>(
+        qv, kv, vv, mask, o, stats, tq, tk, heads, dh, causal, scale);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -435,6 +751,9 @@ extern "C" int kanvit_flash_attention_dq(
   const dim3 grid((tq + BR - 1) / BR, heads, batch);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
+    case 8: flash_dq_kernel<8><<<grid, 2 * BR, 0, st>>>(
+        qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, causal,
+        scale); break;
     case 16: flash_dq_kernel<16><<<grid, 2 * BR, 0, st>>>(
         qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, causal,
         scale); break;
@@ -444,7 +763,15 @@ extern "C" int kanvit_flash_attention_dq(
     case 64: flash_dq_kernel<64><<<grid, 2 * BR, 0, st>>>(
         qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, causal,
         scale); break;
-    default: return (int)cudaErrorInvalidValue;
+    default: {
+      if (!generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
+      const size_t smem = sizeof(float) * (2 * BT + BR) * dh;
+      const int err = allow_shared(flash_dq_generic, smem);
+      if (err != 0) return err;
+      flash_dq_generic<<<grid, BR, smem, st>>>(
+        qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, dh,
+        causal, scale);
+    }
   }
   return (int)cudaGetLastError();
 }
@@ -466,6 +793,9 @@ extern "C" int kanvit_flash_attention_dkv(
   const dim3 grid((tk + BR - 1) / BR, heads, batch);
   const cudaStream_t st = (cudaStream_t)stream;
   switch (dh) {
+    case 8: flash_dkv_kernel<8><<<grid, 2 * BR, 0, st>>>(
+        qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, causal,
+        scale); break;
     case 16: flash_dkv_kernel<16><<<grid, 2 * BR, 0, st>>>(
         qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, causal,
         scale); break;
@@ -475,7 +805,15 @@ extern "C" int kanvit_flash_attention_dkv(
     case 64: flash_dkv_kernel<64><<<grid, 2 * BR, 0, st>>>(
         qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, causal,
         scale); break;
-    default: return (int)cudaErrorInvalidValue;
+    default: {
+      if (!generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
+      const size_t smem = sizeof(float) * (2 * BT + 2 * BR) * dh;
+      const int err = allow_shared(flash_dkv_generic, smem);
+      if (err != 0) return err;
+      flash_dkv_generic<<<grid, BR, smem, st>>>(
+        qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, dh,
+        causal, scale);
+    }
   }
   return (int)cudaGetLastError();
 }

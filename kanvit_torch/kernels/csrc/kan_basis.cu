@@ -61,7 +61,10 @@ struct Bspline : FamilyDefaults {
   static constexpr int SC = NSPLINE + 1;  // one chunk: all 9 slices
   static constexpr int BK = 8;
   static constexpr int DX_BK = 16;
-  struct Params { const float* gridt; };  // (12, nin) row-major
+  // The knots, (12, nin) row-major, of group g at gridt + g * gstride:
+  // gstride 0 shares one grid among the groups, 12 * nin gives each group
+  // its own (the refit grids of a stateful-grid MSA, one per head).
+  struct Params { const float* gridt; long long gstride; };
   // knots[kf][j], inv[kf][(k-1)*KNOTS + j] = 1 / (g[j+k] - g[j])
   template <int NF> struct Stage { float knots[NF][KNOTS]; float inv[NF][NINV]; };
 
@@ -69,14 +72,15 @@ struct Bspline : FamilyDefaults {
   __host__ __device__ static int chunks(Params) { return 1; }
   __device__ static int slice(Params, int, int j) { return j; }
 
-  // Knots of features [k0, k0 + NF) and their reciprocals into shared
-  // memory. Every thread of the block must call it (it synchronises).
+  // Knots of group g's features [k0, k0 + NF) and their reciprocals into
+  // shared memory. Every thread of the block must call it (it synchronises).
   template <int NF>
-  __device__ static void stage(Params p, int nin, int k0, int, Stage<NF>& st) {
+  __device__ static void stage(Params p, int nin, int k0, int g, Stage<NF>& st) {
     const int tid = threadIdx.x, nt = blockDim.x;
+    const float* gt = p.gridt + g * p.gstride;
     for (int e = tid; e < NF * KNOTS; e += nt) {
       const int kf = e / KNOTS, j = e % KNOTS, i = k0 + kf;
-      st.knots[kf][j] = i < nin ? p.gridt[(long long)j * nin + i] : 0.f;
+      st.knots[kf][j] = i < nin ? gt[(long long)j * nin + i] : 0.f;
     }
     __syncthreads();
     for (int e = tid; e < NF * NINV; e += nt) {
@@ -265,22 +269,25 @@ struct Fourier : FamilyDefaults {
 // dw_part is scratch of splits * groups * S * nin * nout floats, summed
 // into dw by a second pass.
 
-// B-spline: gridt (12, nin) f32 row-major, S = 9.
+// B-spline: gridt (12, nin) f32 row-major, S = 9; group g's knots at
+// gridt + g * gstride (0: one grid for every group; 12 * nin: a grid each).
 extern "C" int kanvit_bspline_kan_fwd(const float* x, long long ldx,
-                                      const float* gridt, const float* w,
-                                      float* y, int n, int groups, int nin,
-                                      int nout, void* stream) {
-  return launch_fwd<Bspline>(x, ldx, {gridt}, w, y, n, groups, nin, nout, stream);
+                                      const float* gridt, long long gstride,
+                                      const float* w, float* y, int n,
+                                      int groups, int nin, int nout,
+                                      void* stream) {
+  return launch_fwd<Bspline>(x, ldx, {gridt, gstride}, w, y, n, groups, nin,
+                             nout, stream);
 }
 
 extern "C" int kanvit_bspline_kan_bwd(const float* x, long long ldx,
-                                      const float* gridt, const float* w,
-                                      const float* gy, float* dx, float* dw,
-                                      float* dw_part, int n, int groups,
-                                      int nin, int nout, int splits,
-                                      void* stream) {
-  return launch_bwd<Bspline>(x, ldx, {gridt}, w, gy, dx, dw, dw_part, n,
-                             groups, nin, nout, splits, stream);
+                                      const float* gridt, long long gstride,
+                                      const float* w, const float* gy,
+                                      float* dx, float* dw, float* dw_part,
+                                      int n, int groups, int nin, int nout,
+                                      int splits, void* stream) {
+  return launch_bwd<Bspline>(x, ldx, {gridt, gstride}, w, gy, dx, dw, dw_part,
+                             n, groups, nin, nout, splits, stream);
 }
 
 // Chebyshev, degree 4: S = 5.

@@ -10,7 +10,8 @@ Dispatch is by device: a CPU tensor runs the plain version
 (``kanvit_torch.ops.attention.lanes_attention`` or
 ``flash_attention_reference``), which autograd differentiates; a CUDA tensor
 goes through :class:`_LanesFn` or :class:`_FlashFn`, whose forward and
-backward launch the kernels or raise. f32 only, dh in {16, 32, 64}.
+backward launch the kernels or raise. f32 only; dh a multiple of 8 from 8
+through 128 (:func:`check_head_dim`).
 
 ``LAUNCHES`` counts kernel launches (``flash_attention_lanes`` forward and
 ``flash_attention_lanes_bwd`` backward; ``flash_attention`` tiled forward,
@@ -27,7 +28,13 @@ import torch
 from kanvit_torch.ops import attention as A
 from kanvit_torch.ops import dispatch
 
-HEAD_DIMS = (16, 32, 64)
+# kanvit's lanes tier takes any head dim with dh % 8 == 0
+# (flash_attention.py:537-543). The kernels take each such dh up to
+# MAX_HEAD_DIM: templated on dh for 8, 16, 32 and 64, whose threads hold a
+# row in registers, and generic kernels that walk dh in chunks of 8 for the
+# rest (csrc/attention_common.cuh).
+HEAD_DIM_STEP = 8
+MAX_HEAD_DIM = 128
 
 LAUNCHES = {"flash_attention_lanes": 0, "flash_attention_lanes_bwd": 0,
             "flash_attention": 0, "flash_attention_dq": 0,
@@ -77,6 +84,14 @@ def reset_launches() -> None:
         LAUNCHES[key] = 0
 
 
+def check_head_dim(dh: int) -> None:
+    """Raise unless the kernels are built for head dim ``dh``."""
+    if dh % HEAD_DIM_STEP or not HEAD_DIM_STEP <= dh <= MAX_HEAD_DIM:
+        raise ValueError(f"head dim {dh}: the kernels take a multiple of "
+                         f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} through "
+                         f"{MAX_HEAD_DIM}")
+
+
 def check_args(q, k, v, n_heads, mask):
     """Raise on anything the kernel does not take (device aside); return
     ``q, k, v`` as ``(B, T, H, dh)`` views.
@@ -94,8 +109,7 @@ def check_args(q, k, v, n_heads, mask):
                          f"{tuple(v.shape)}")
     q4, k4, v4 = (A.split_lanes(a, n_heads) for a in (q, k, v))
     b, t, _, dh = q4.shape
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in the kernel's {HEAD_DIMS}")
+    check_head_dim(dh)
     if b > 65535 or n_heads > 65535:
         raise ValueError(f"batch {b} x heads {n_heads} exceed the launch grid")
     if mask is not None and tuple(mask.shape) != (b, t):
@@ -239,8 +253,7 @@ def check_flash_args(q, k, v, mask):
                          f"{tuple(v.shape)}")
     b, h, _, dh = q.shape
     tk = k.shape[2]
-    if dh not in HEAD_DIMS:
-        raise ValueError(f"head dim {dh} not in the kernel's {HEAD_DIMS}")
+    check_head_dim(dh)
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} x heads {h} exceed the launch grid")
     if tk == 0:

@@ -183,16 +183,26 @@ def check_args(x2d: torch.Tensor, grid: torch.Tensor, w: torch.Tensor,
                spline_order: int) -> None:
     """Raise on anything the B-spline kernel does not take (device aside).
 
-    ``x2d (N, G*nin)`` with a unit column stride; ``grid (nin, 12)``;
-    ``w (G, 9, nin, out)`` contiguous; all f32.
+    ``x2d (N, G*nin)`` with a unit column stride; ``grid (nin, 12)``, one
+    for every group, or ``(G, nin, 12)``, a grid a group; ``w (G, 9, nin,
+    out)`` contiguous; all f32.
     """
     _check_spline_order(spline_order)
     if grid.dtype != torch.float32:
         raise TypeError(f"grid must be float32, got {grid.dtype}")
     _check_common(x2d, w, N_SLICES)
-    if tuple(grid.shape) != (w.shape[2], KNOTS):
-        raise ValueError(f"grid must be ({w.shape[2]}, {KNOTS}), got "
-                         f"{tuple(grid.shape)}")
+    groups, _, nin, _ = w.shape
+    if tuple(grid.shape) not in ((nin, KNOTS), (groups, nin, KNOTS)):
+        raise ValueError(f"grid must be ({nin}, {KNOTS}) or ({groups}, {nin}, "
+                         f"{KNOTS}), got {tuple(grid.shape)}")
+
+
+def _knot_rows(grid: torch.Tensor) -> tuple[torch.Tensor, int]:
+    """The knots as the kernels read them, ``(12, nin)`` rows (a grid a
+    group: ``(G, 12, nin)``), and the stride between two groups' grids (0
+    when they share one)."""
+    gridt = grid.transpose(-1, -2).contiguous()
+    return gridt, (gridt[0].numel() if grid.dim() == 3 else 0)
 
 
 def check_cheby_args(x2d: torch.Tensor, w: torch.Tensor, degree: int) -> None:
@@ -328,9 +338,10 @@ def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
     with torch.cuda.device(x2d.device):
         stream = _stream(x2d.device)
         if family == "bspline":
-            gridt = aux.T.contiguous()  # (12, nin): the kernel reads knot rows
-            err = lib.kanvit_bspline_kan_fwd(*args, gridt.data_ptr(), w.data_ptr(),
-                                             y.data_ptr(), *shape, stream)
+            gridt, gstride = _knot_rows(aux)
+            err = lib.kanvit_bspline_kan_fwd(*args, gridt.data_ptr(), gstride,
+                                             w.data_ptr(), y.data_ptr(), *shape,
+                                             stream)
         elif family == "cheby":
             err = lib.kanvit_chebykan_fwd(*args, w.data_ptr(), y.data_ptr(),
                                           *shape, stream)
@@ -378,9 +389,9 @@ def _launch_bwd(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
     with torch.cuda.device(dev):
         stream = _stream(dev)
         if family == "bspline":
-            gridt = aux.T.contiguous()
-            err = lib.kanvit_bspline_kan_bwd(*args, gridt.data_ptr(), w.data_ptr(),
-                                             *grads, splits, stream)
+            gridt, gstride = _knot_rows(aux)
+            err = lib.kanvit_bspline_kan_bwd(*args, gridt.data_ptr(), gstride,
+                                             w.data_ptr(), *grads, splits, stream)
         elif family == "cheby":
             err = lib.kanvit_chebykan_bwd(*args, w.data_ptr(), *grads, splits,
                                           stream)
@@ -441,14 +452,16 @@ def bspline_qkv_grouped(x2d, grid, bw, sw, sc, spline_order=3):
 
     ``x2d (N, H*dh)`` with head h at columns ``[h*dh, (h+1)*dh)``;
     ``bw (H, out, dh)``, ``sw (H, out, dh, 8)``, ``sc (H, out, dh)`` the
-    per-head q|k|v-concatenated KANLinear params (out = 3*dh); ``grid
-    (dh, 12)`` shared by all heads. Returns ``y (N, H*out)`` with head h at
+    per-head q|k|v-concatenated KANLinear params (out = 3*dh), or one
+    projection's (out = dh); ``grid (dh, 12)`` shared by all heads, or
+    ``(H, dh, 12)``, a grid a head. Returns ``y (N, H*out)`` with head h at
     ``[h*out, (h+1)*out)``.
     """
     h, _, dh = bw.shape
     if not dispatch.use_kernel(x2d):
         return torch.cat([
-            K.bspline_kan_forward(x2d[:, i * dh:(i + 1) * dh], grid, bw[i],
+            K.bspline_kan_forward(x2d[:, i * dh:(i + 1) * dh],
+                                  grid[i] if grid.dim() == 3 else grid, bw[i],
                                   sw[i], sc[i], spline_order)
             for i in range(h)
         ], dim=1)

@@ -1,0 +1,172 @@
+"""The fused pre-LN feed-forward on the card, forward and backward
+(counterpart of ``kanvit/kernels/fused_ffn.py``).
+
+:func:`ffn_pre_ln` computes ``x + relu(LN(x) W1^T + b1) W2^T + b2`` through
+the kernels of ``csrc/fused_ffn.cu``: the forward keeps the (rows, F)
+hidden block out of device memory; the backward recomputes LN and the first
+product from x and returns all seven gradients, the weight gradients summed
+over the rows in a fixed order (no atomics). A CPU tensor runs the plain
+version, ``kanvit_torch.ops.kan_bases.ffn_pre_ln``, which autograd
+differentiates; a CUDA tensor goes through :class:`_FfnFn`, whose forward
+and backward launch the kernels or raise. f32, D at most ``MAX_D``.
+
+It is ``TransformerBlock``'s opt-in FF (``fused_ff=True``), off by default
+as kanvit's ``KANVIT_FF=1`` is.
+
+``LAUNCHES`` counts kernel launches (``ffn_pre_ln`` forward,
+``ffn_pre_ln_bwd`` backward); the CPU path never counts.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from kanvit_torch.ops import dispatch
+from kanvit_torch.ops import kan_bases as K
+
+LAUNCHES = {"ffn_pre_ln": 0, "ffn_pre_ln_bwd": 0}
+MAX_D = 512          # a thread's row of the (rows, D) accumulator: 4 x D / 32
+ROWS_PER_BLOCK = 32  # as in the kernels
+DW_TILE = 64         # (M, P) tile of the weight-gradient kernel
+DW_TARGET_BLOCKS = 528  # 4 blocks of the weight-gradient kernel per SM of 132
+DW_MIN_ROWS_PER_SPLIT = 256
+
+
+def reset_launches() -> None:
+    for key in LAUNCHES:
+        LAUNCHES[key] = 0
+
+
+def check_args(x2d, gamma, beta, w1, b1, w2, b2) -> None:
+    """Raise on anything the kernels do not take (device aside): ``x2d (N,
+    D)``, ``gamma, beta, b2 (D,)``, ``w1 (F, D)``, ``b1 (F,)``, ``w2 (D, F)``,
+    all f32, ``1 <= D <= MAX_D``."""
+    named = (("x", x2d), ("gamma", gamma), ("beta", beta), ("w1", w1),
+             ("b1", b1), ("w2", w2), ("b2", b2))
+    for name, t in named:
+        if t.dtype != torch.float32:
+            raise TypeError(f"{name} must be float32, got {t.dtype} "
+                            "(bf16 is not ported yet)")
+    if x2d.dim() != 2 or w1.dim() != 2:
+        raise ValueError(f"expected x (N, D) and w1 (F, D), got {tuple(x2d.shape)}, "
+                         f"{tuple(w1.shape)}")
+    d, f = x2d.shape[1], w1.shape[0]
+    want = {"gamma": (d,), "beta": (d,), "w1": (f, d), "b1": (f,),
+            "w2": (d, f), "b2": (d,)}
+    for name, t in named[1:]:
+        if tuple(t.shape) != want[name]:
+            raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
+    if not 1 <= d <= MAX_D:
+        raise ValueError(f"D {d}: the kernels take 1 <= D <= {MAX_D}")
+
+
+def dw_splits(n: int, d: int, f: int) -> int:
+    """Row splits of the weight-gradient reduction: enough (D/64 x F/64)
+    tiles times splits to fill the card, each split at least
+    ``DW_MIN_ROWS_PER_SPLIT`` rows. A function of the shape only, so a run
+    repeats its bits."""
+    tiles = -(-d // DW_TILE) * -(-f // DW_TILE)
+    return max(1, min(-(-DW_TARGET_BLOCKS // tiles), n // DW_MIN_ROWS_PER_SPLIT,
+                      65535))
+
+
+def _stream(dev) -> int:
+    return torch.cuda.current_stream(dev).cuda_stream
+
+
+def _check_err(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: kernel launch failed with CUDA error {err}")
+
+
+def _launch(x2d, gamma, beta, w1, b1, w2, b2, relu_mask=None) -> torch.Tensor:
+    """``y (N, D)`` from the forward kernel; given ``relu_mask``, a uint8
+    ``(N, F)`` tensor, the kernel also writes its ReLU pattern (h > 0)
+    there. ``relu_mask`` is for checks only (``chip_smoke.py`` holds the
+    backward and a model's gradients against references on the kernel's own
+    pattern, after bounding how far it is from the plain version's); the
+    model path never passes it."""
+    from kanvit_torch.kernels import _build
+
+    n, d = x2d.shape
+    y = torch.empty_like(x2d)
+    if n == 0:
+        return y
+    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    with torch.cuda.device(x2d.device):
+        err = _build.load().kanvit_ffn_fwd(
+            x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1t.data_ptr(),
+            b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), y.data_ptr(),
+            None if relu_mask is None else relu_mask.data_ptr(), n, d,
+            w1.shape[0], _stream(x2d.device))
+    _check_err(err, "ffn_pre_ln")
+    LAUNCHES["ffn_pre_ln"] += 1
+    return y
+
+
+def _launch_bwd(x2d, gamma, beta, w1, b1, w2, g):
+    """``(dx, dgamma, dbeta, dw1, db1, dw2, db2)`` from the backward kernels;
+    ``g`` is the gradient of the forward's output."""
+    from kanvit_torch.kernels import _build
+
+    n, d = x2d.shape
+    f = w1.shape[0]
+    dev = x2d.device
+    g = g.contiguous()
+    dx = torch.empty_like(x2d)
+    f32 = dict(dtype=torch.float32, device=dev)
+    dgb = torch.empty(2, d, **f32)
+    dw1, db1 = torch.empty_like(w1), torch.empty(f, **f32)
+    dw2, db2 = torch.empty_like(w2), torch.empty(d, **f32)
+    if n == 0:
+        return (dx, dgb[0].zero_(), dgb[1].zero_(), dw1.zero_(), db1.zero_(),
+                dw2.zero_(), db2.zero_())
+    splits = dw_splits(n, d, f)
+    # device-memory scratch: r and dh (N, F), LN(x) (N, D), the row blocks'
+    # dgamma/dbeta partials and, with splits > 1, the weight gradients' split
+    # partials
+    r, dh = torch.empty(n, f, **f32), torch.empty(n, f, **f32)
+    ln = torch.empty(n, d, **f32)
+    dgb_part = torch.empty(-(-n // ROWS_PER_BLOCK), 2, d, **f32)
+    parts = ([torch.empty(splits, *shape, **f32)
+              for shape in ((f, d), (f,), (d, f), (d,))] if splits > 1
+             else [None] * 4)
+    w1t = w1.t().contiguous()
+    with torch.cuda.device(dev):
+        err = _build.load().kanvit_ffn_bwd(
+            *(t.data_ptr() for t in (x2d, g, gamma, beta, w1t, w1, w2, b1, dx,
+                                     dgb, dw1, db1, dw2, db2, r, dh, ln, dgb_part)),
+            *(None if p is None else p.data_ptr() for p in parts),
+            n, d, f, splits, _stream(dev))
+    _check_err(err, "ffn_pre_ln_bwd")
+    LAUNCHES["ffn_pre_ln_bwd"] += 1
+    return dx, dgb[0], dgb[1], dw1, db1, dw2, db2
+
+
+class _FfnFn(torch.autograd.Function):
+    """The fused FF on the card. Saves its inputs only (kanvit's residuals,
+    ``fused_ffn.py:197-199``); the backward recomputes LN and h."""
+
+    @staticmethod
+    def forward(ctx, x2d, gamma, beta, w1, b1, w2, b2):
+        ctx.save_for_backward(x2d, gamma, beta, w1, b1, w2)
+        return _launch(x2d, gamma, beta, w1, b1, w2, b2)
+
+    @staticmethod
+    def backward(ctx, g):
+        return _launch_bwd(*ctx.saved_tensors, g)
+
+
+def ffn_pre_ln(x, gamma, beta, w1, b1, w2, b2):
+    """``x + relu(LN(x) @ w1.T + b1) @ w2.T + b2``, ``(..., D) -> (..., D)``,
+    differentiable in every argument. Same signature as
+    ``kanvit_torch.ops.kan_bases.ffn_pre_ln``."""
+    if not dispatch.use_kernel(x):
+        return K.ffn_pre_ln(x, gamma, beta, w1, b1, w2, b2)
+    d = x.shape[-1]
+    x2d = x.reshape(-1, d)
+    args = [t.contiguous() for t in (x2d, gamma, beta, w1, b1, w2, b2)]
+    check_args(*args)
+    if {t.device for t in args} != {x.device}:
+        raise ValueError("ffn_pre_ln: every tensor must be on one device")
+    return _FfnFn.apply(*args).reshape(x.shape)

@@ -14,7 +14,10 @@ outputs, with no copy:
 - ``efficientkan`` and ``cheby``: the shared-basis path (``_shared_basis_qkv``,
   ``attention.py:56-133``): the per-head q/k/v weights concatenate into one
   grouped weight and one ``bspline_qkv_grouped`` or ``cheby_qkv_grouped``
-  launch projects every head;
+  launch projects every head. Where an efficientkan MSA's 3H knot grids
+  differ (refit grids loaded from a stateful-grid tree, kanvit's per-head
+  modules, ``attention.py:493-505``), no basis is shared: one
+  ``bspline_qkv_grouped`` launch per projection, a grid per head;
 - ``fast`` and ``sine``: no shared basis (each projection applies its own
   LayerNorm, or has its own freq), so one ``fastkan_qkv_grouped`` or
   ``sinekan_qkv_grouped`` launch per projection, three a block, each
@@ -42,6 +45,7 @@ from torch import nn
 from kanvit_torch.kernels import flash_attention as FA
 from kanvit_torch.kernels import fused_basis as FB
 from kanvit_torch.layers.kan import TorchLinear, make_kan_layer
+from kanvit_torch.ops import quant
 
 # Projection kinds of the reference MSA dispatch table
 # (``_head_projection_cls_and_kwargs``, ``attention.py:36-53``).
@@ -78,6 +82,7 @@ class MSA(nn.Module):
         self.n_heads = n_heads
         self.type = type
         self.d_head = d // n_heads
+        self._grid_key, self._grids_equal = None, True
         kind = "linear" if type in LINEAR_KINDS else type
         for name in ("q_mappings", "k_mappings", "v_mappings"):
             setattr(self, name, nn.ModuleList(
@@ -119,11 +124,16 @@ class MSA(nn.Module):
           base_bias)``, ``(H, dh)``, ``(H, dh)``, ``(H, dh, dh*8)``,
           ``(H, dh, dh)``, ``(H, dh)``;
         - sine: ``(freq, amplitudes, bias)``, ``(H, 4)``, ``(H, dh, dh, 4)``,
-          ``(H, dh)``.
+          ``(H, dh)``;
+        - efficientkan: ``(grid, base_weight, spline_weight, spline_scaler)``,
+          ``(H, dh, 12)``, ``(H, dh, dh)``, ``(H, dh, dh, 8)``, ``(H, dh, dh)``.
         """
         def stack(get):
             return torch.stack([get(m) for m in mappings])
 
+        if self.type == "efficientkan":
+            return tuple(stack(lambda m, a=a: getattr(m, a)) for a in (
+                "grid", "base_weight", "spline_weight", "spline_scaler"))
         if self.type == "fast":
             return (stack(lambda m: m.layernorm.weight), stack(lambda m: m.layernorm.bias),
                     stack(lambda m: m.spline_linear.weight),
@@ -132,12 +142,29 @@ class MSA(nn.Module):
         return (stack(lambda m: m.freq.reshape(-1)), stack(lambda m: m.amplitudes),
                 stack(lambda m: m.bias.reshape(-1)))
 
+    def grids_equal(self) -> bool:
+        """True when the 3H q/k/v knot grids of an efficientkan MSA are all
+        equal, so that one basis serves every projection. Compared again
+        only when a grid tensor is replaced or written in place (its
+        version counter; inference tensors have none and are compared on
+        every call)."""
+        grids = [m.grid for maps in (self.q_mappings, self.k_mappings,
+                                     self.v_mappings) for m in maps]
+        key = (None if any(g.is_inference() for g in grids)
+               else tuple((g.data_ptr(), g._version) for g in grids))
+        if key is None or key != self._grid_key:
+            self._grid_key = key
+            self._grids_equal = all(torch.equal(grids[0], g) for g in grids[1:])
+        return self._grids_equal
+
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         """``(B, T, d) -> (B, T, d)``."""
         b, t, d = x.shape
         h, dh = self.n_heads, self.d_head
         x2d = x.reshape(b * t, d)
-        if self.type in PER_PROJECTION_KINDS:
+        per_projection = self.type in PER_PROJECTION_KINDS or (
+            self.type == "efficientkan" and not self.grids_equal())
+        if per_projection:
             first = self.q_mappings[0]  # every head's centres / phase table
             qkv = []
             for mappings in (self.q_mappings, self.k_mappings, self.v_mappings):
@@ -145,8 +172,10 @@ class MSA(nn.Module):
                 if self.type == "fast":
                     y = FB.fastkan_qkv_grouped(x2d, *w[:2], first.rbf_grid,
                                                first.denominator, *w[2:])
-                else:
+                elif self.type == "sine":
                     y = FB.sinekan_qkv_grouped(x2d, w[0], first.phase, *w[1:])
+                else:
+                    y = FB.bspline_qkv_grouped(x2d, *w)
                 qkv.append(y.view(b, t, d))
             return FA.flash_attention_lanes(*qkv, h)
         if self.type == "efficientkan":
@@ -155,6 +184,15 @@ class MSA(nn.Module):
         elif self.type == "cheby":
             y = FB.cheby_qkv_grouped(x2d, *self.grouped_weights())
         else:
+            # kanvit runs these q/k/v as block-diagonal float matmuls, int8
+            # serving or not, where its lanes tier applies; elsewhere its
+            # per-head Linear modules, which int8 serving quantizes.
+            if quant.int8_enabled() and not FA.lanes_applicable(
+                    t, t, d, h, FA.SMALL_MAX_T, FA.SMALL_MAX_T):
+                raise NotImplementedError(
+                    f"int8 serving of a {self.type} MSA at T={t}, d={d}, "
+                    f"{h} heads, outside kanvit's lanes layout, is not ported "
+                    "(ROADMAP.md, Queue 1 item 7c)")
             w, bias = self.grouped_weights()
             # (H, N, dh) @ (H, dh, 3dh) + (H, 1, 3dh) -> (H, N, 3dh)
             y = torch.baddbmm(bias.unsqueeze(1), x2d.view(b * t, h, dh).transpose(0, 1),

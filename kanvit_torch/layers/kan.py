@@ -16,13 +16,22 @@ import torch.nn.functional as F
 from torch import nn
 
 from kanvit_torch.kernels import fused_basis as FB
+from kanvit_torch.kernels import int8_matmul as IM
 from kanvit_torch.ops import kan_bases as K
+from kanvit_torch.ops import quant
 from kanvit_torch.utils import torch_init as tinit
 
 
 class TorchLinear(nn.Module):
     """Dense layer with torch conventions: ``weight (out, in)``,
-    kaiming-uniform(a=sqrt(5)) weight, ``U(+-1/sqrt(fan_in))`` bias."""
+    kaiming-uniform(a=sqrt(5)) weight, ``U(+-1/sqrt(fan_in))`` bias.
+
+    Under ``kanvit_torch.ops.quant.int8_serving`` it runs W8A8, in kanvit's
+    order (``kan.py:63-70``): the ``int8_linear`` kernel when it is switched
+    on and K and out are multiples of 128 (per-row activation scales, the
+    bias in its epilogue); otherwise ``qdot`` with the layer's calibrated
+    static scale, or a dynamic one, and the bias added in f32.
+    """
 
     def __init__(self, in_features: int, out_features: int,
                  use_bias: bool = True, *,
@@ -39,7 +48,13 @@ class TorchLinear(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return F.linear(x, self.weight, self.bias)
+        if not quant.int8_enabled():
+            return F.linear(x, self.weight, self.bias)
+        if quant.kernel_enabled() and IM.applicable(self.in_features,
+                                                    self.out_features):
+            return IM.int8_linear(x, self.weight, self.bias)
+        y = quant.qdot(x, self.weight, quant.static_scale_for(self))
+        return y if self.bias is None else y + self.bias
 
 
 class KANLinear(nn.Module):
@@ -47,8 +62,9 @@ class KANLinear(nn.Module):
 
     Params: ``base_weight (out, in)``, ``spline_weight (out, in, G+k)``,
     ``spline_scaler (out, in)`` when standalone scaling is enabled. The knot
-    grid ``(in, G+2k+1)`` is a non-persistent buffer derived from the
-    constructor arguments. The forward goes through
+    grid ``(in, G+2k+1)`` is a non-persistent buffer: the uniform grid of the
+    constructor arguments, unless ``load_reference_state_dict`` loads the
+    refit knots of a stateful-grid tree into it. The forward goes through
     ``kanvit_torch.kernels.fused_basis.bspline_kan``, and so does autograd:
     the backward kernels on the card, the plain version on the CPU.
     """

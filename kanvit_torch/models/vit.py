@@ -10,6 +10,8 @@ each with pre-LN blocks whose MSA projects q/k/v per head with the kind's
 layer (Linear for ``vanilla`` and ``fourier``, SineKAN grid 4 for
 ``sine``); and ``flash-attn`` (Linear embedder, raw ``FlashAttentionBlock``s
 with no LayerNorm, FF or residual, reference ``model.py:93-95,156-159``).
+``fused_ff=True`` runs each block's FF as the fused ``ffn_pre_ln`` kernels
+(kanvit's ``KANVIT_FF=1``); off by default, as in kanvit.
 """
 
 from __future__ import annotations
@@ -54,7 +56,7 @@ class VisionTransformer(nn.Module):
 
     def __init__(self, chw: tuple, n_patches: int = 7, n_blocks: int = 4,
                  d_hidden: int = 64, n_heads: int = 2, out_d: int = 10,
-                 type: str = "vanilla", *,
+                 type: str = "vanilla", fused_ff: bool = False, *,
                  generator: torch.Generator | None = None):
         super().__init__()
         if type not in VARIANTS:
@@ -87,7 +89,8 @@ class VisionTransformer(nn.Module):
         else:
             blocks = (TransformerBlock(d_hidden, n_heads,
                                        feedforward_dim=4 * d_hidden,
-                                       attn_type=type, generator=generator)
+                                       attn_type=type, fused_ff=fused_ff,
+                                       generator=generator)
                       for _ in range(n_blocks))
         self.blocks = nn.ModuleList(blocks)
         self.mlp_head = nn.Sequential(
@@ -120,6 +123,7 @@ def create_model(
     n_heads: int = 8,
     out_d: int = 100,
     seed: int = 0,
+    fused_ff: bool = False,
 ) -> VisionTransformer:
     """Registry entry point with ``kanvit.models.create_model``'s defaults.
 
@@ -129,6 +133,6 @@ def create_model(
     """
     return VisionTransformer(
         chw=chw, n_patches=n_patches, n_blocks=n_blocks, d_hidden=d_hidden,
-        n_heads=n_heads, out_d=out_d, type=model_type,
+        n_heads=n_heads, out_d=out_d, type=model_type, fused_ff=fused_ff,
         generator=torch.Generator().manual_seed(seed),
     )

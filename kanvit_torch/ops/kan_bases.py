@@ -226,6 +226,18 @@ def layernorm(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     return (x - mean) * torch.rsqrt(var + eps) * gamma + beta
 
 
+def ffn_pre_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
+               w1: torch.Tensor, b1: torch.Tensor, w2: torch.Tensor,
+               b2: torch.Tensor) -> torch.Tensor:
+    """Pre-LN transformer feed-forward (reference ``model.py:14-37``):
+    ``x + relu(LN(x) @ w1.T + b1) @ w2.T + b2`` with torch-layout weights
+    ``w1 (F, D)``, ``w2 (D, F)`` and LayerNorm eps 1e-5. kanvit's
+    ``kan_bases.ffn_pre_ln``, the plain version of
+    ``kanvit_torch.kernels.fused_ffn``."""
+    h = torch.relu(layernorm(x, gamma, beta) @ w1.T + b1)
+    return x + (h @ w2.T + b2)
+
+
 def rbf_bases(x: torch.Tensor, grid: torch.Tensor,
               denominator: float) -> torch.Tensor:
     """``exp(-((x[..., None] - grid) / denominator)**2)`` (reference

@@ -32,10 +32,11 @@ _FASTKAN_NAMES = {"ln_weight": "layernorm.weight", "ln_bias": "layernorm.bias",
                   "spline_weight": "spline_linear.weight",
                   "base_weight": "base_linear.weight",
                   "base_bias": "base_linear.bias"}
-# Reference entries the port derives instead of loading: the knot grids and
-# RBF centres, ChebyKAN's ``arange`` buffer, SineKAN's phase table and the
-# positional table.
-_BUFFERS = re.compile(r"(.*\.)?(grid|arange|phase|pos_embeddings)")
+# Reference entries the port derives instead of loading: FastKAN's RBF
+# centres, ChebyKAN's ``arange`` buffer, SineKAN's phase table and the
+# positional table. A KANLinear's knot grid is loaded: a tree trained with
+# grid refits carries moved knots (kanvit/layers/kan.py:103-119).
+_BUFFERS = re.compile(r"(.*\.)?(rbf\.grid|arange|phase|pos_embeddings)")
 
 
 def _leaf(path: str, leaf: str, siblings) -> str:
@@ -125,15 +126,65 @@ def load_reference_state_dict(module: torch.nn.Module,
                               state_dict: Mapping[str, np.ndarray]) -> None:
     """Copy a reference-named numpy state_dict into ``module`` in place.
 
-    Loads with ``strict=False`` so the derived buffers the reference also
-    saves (``*.grid``, ``*.arange``, ``*.phase``, ``pos_embeddings``) are
-    skipped, then
-    raises if any parameter was left unloaded or any other entry was not
-    recognized.
+    A KANLinear's ``*.grid`` entry, where there is one, replaces the layer's
+    knot grid (a layer with none keeps its default uniform grid). The rest
+    loads with ``strict=False`` so the derived buffers the reference also
+    saves (``*.rbf.grid``, ``*.arange``, ``*.phase``, ``pos_embeddings``)
+    are skipped, then raises if any parameter was left unloaded or any other
+    entry was not recognized.
     """
     tensors = {k: torch.tensor(np.asarray(v)) for k, v in state_dict.items()}
+    grids = {}
+    for key in list(tensors):
+        layer = _kan_grid_owner(module, key)
+        if layer is not None:
+            grids[key] = (layer, tensors.pop(key))
     result = module.load_state_dict(tensors, strict=False)
     unexpected = [k for k in result.unexpected_keys if not _BUFFERS.fullmatch(k)]
     if result.missing_keys or unexpected:
         raise KeyError(f"state_dict mismatch: missing {result.missing_keys}, "
                        f"unexpected {unexpected}")
+    with torch.no_grad():
+        for key, (layer, grid) in grids.items():
+            if grid.shape != layer.grid.shape:
+                raise ValueError(f"{key}: grid {tuple(grid.shape)} does not match "
+                                 f"the layer's {tuple(layer.grid.shape)}")
+            layer.grid.copy_(grid)
+
+
+def _kan_grid_owner(module: torch.nn.Module, key: str):
+    """The KANLinear whose knot grid ``key`` names, or None."""
+    from kanvit_torch.layers.kan import KANLinear
+
+    prefix, _, leaf = key.rpartition(".")
+    if leaf != "grid":
+        return None
+    try:
+        owner = module.get_submodule(prefix)
+    except AttributeError:
+        return None
+    return owner if isinstance(owner, KANLinear) else None
+
+
+def scales_from_jax(scales: Mapping[str, float]) -> Dict[str, float]:
+    """kanvit's calibrated int8 activation scales, keyed by flax scope path
+    (``blocks_0/ff_0``, ``head_linear``, ``linear_mapper``,
+    ``blocks_3/to_kv``; ``kanvit.ops.quant.amax_from_mutable``), keyed by the
+    port's module names (``blocks.0.ff.0``, ``mlp_head.1``,
+    ``linear_mapper``, ``blocks.3.to_kv``), so both can serve with the same
+    scales."""
+    out = {}
+    for key, scale in scales.items():
+        if key in ("linear_mapper", "lm_head"):
+            name = key
+        elif key == "head_linear":
+            name = "mlp_head.1"
+        elif m := re.fullmatch(r"blocks_(\d+)/(ff_[02]|to_q|to_kv|to_out)", key):
+            blk, layer = m.groups()
+            name = f"blocks.{blk}." + (f"ff.{layer[-1]}" if layer.startswith("ff_")
+                                       else layer)
+        else:
+            raise ValueError(f"{key}: not the scope of a Linear layer the port "
+                             "quantizes")
+        out[name] = scale
+    return out

@@ -105,7 +105,7 @@ def test_kernels_raise_not_fall_back(cuda):
     w = torch.zeros(3, 16, device=cuda)
     with torch.inference_mode(), pytest.raises(TypeError, match="float32"):
         FB.bspline_kan(x, grid, w, w[..., None].expand(-1, -1, 8), w)
-    q = torch.zeros(1, 4, 2 * 8, device=cuda)
+    q = torch.zeros(1, 4, 2 * 12, device=cuda)
     with torch.inference_mode(), pytest.raises(ValueError, match="head dim"):
         FA.flash_attention_lanes(q, q, q, 2)
     assert FB.LAUNCHES["bspline_kan"] == 0 and FA.LAUNCHES["flash_attention_lanes"] == 0
@@ -325,7 +325,7 @@ def test_flash_attention_single_tile_route(cuda):
 
 
 def test_flash_kernels_raise_not_fall_back(cuda):
-    q = torch.zeros(1, 2, 600, 24, device=cuda)
+    q = torch.zeros(1, 2, 600, 12, device=cuda)
     with pytest.raises(ValueError, match="head dim"):
         FA.flash_attention(q, q, q, True)
     q = torch.zeros(1, 2, 600, 32, device=cuda, dtype=torch.float64)
@@ -673,3 +673,290 @@ def test_rbf_sine_kernels_raise_not_fall_back(cuda):
                    torch.zeros(16, 4, device=cuda, dtype=torch.float64),
                    torch.zeros(3, 16, 4, device=cuda, dtype=torch.float64), None)
     assert sum(FB.LAUNCHES.values()) == 0
+
+
+# --- head dims 8-128, refit grids, the fused FF and int8 serving --------------
+
+@pytest.fixture
+def cuda_all(cuda):
+    from kanvit_torch.kernels import fused_ffn as FFN
+    from kanvit_torch.kernels import int8_matmul as IM
+
+    FFN.reset_launches()
+    IM.reset_launches()
+    return cuda
+
+
+@pytest.mark.parametrize("dh", [8, 24, 40, 128])
+def test_attention_lanes_head_dims(cuda, dh):
+    """Every multiple of 8 through 128: forward and backward against the
+    plain version, causal and masked."""
+    b, t, h = 3, 50, 2
+    rng = np.random.default_rng(90 + dh)
+    y = torch.from_numpy(rng.standard_normal((b * t, h * 3 * dh)).astype(np.float32))
+    y = y.to(cuda)
+    g = torch.from_numpy(rng.standard_normal((b, t, h * dh)).astype(np.float32)).to(cuda)
+    mask = torch.from_numpy(rng.random((b, t)) > 0.3).to(cuda)
+
+    def through(attn):
+        def fn(y):
+            y4 = y.view(b, t, h, 3 * dh)
+            q, k, v = (y4[..., i * dh:(i + 1) * dh] for i in range(3))
+            return attn(q, k, v, h, causal=True, mask=mask)
+        return fn
+
+    got, (gy,) = _grads(through(FA.flash_attention_lanes), [y], g)
+    want, (wy,) = _grads(through(A.lanes_attention), [y], g)
+    _close(got, want, 1e-5)
+    _close(gy, wy, 1e-4)
+    assert (FA.LAUNCHES["flash_attention_lanes"],
+            FA.LAUNCHES["flash_attention_lanes_bwd"]) == (1, 1)
+
+
+@pytest.mark.parametrize("dh", [8, 40, 128])
+def test_flash_attention_head_dims(cuda, dh):
+    """The tiled kernels (600 tokens, past one tile) at dh 8, 40 and 128."""
+    rng = np.random.default_rng(95 + dh)
+    (q, k, v), mask = _flash_inputs(rng, 2, 2, 600, 600, dh, masked=True)
+    g = torch.from_numpy(rng.standard_normal((2, 2, 600, dh)).astype(np.float32)).to(cuda)
+    fn = lambda *a: FA.flash_attention(*a, True, 512, 1024, mask)  # noqa: E731
+    ref = lambda *a: A.flash_attention_reference(*a, True, 512, 1024, mask)[0]  # noqa: E731
+    got, gg = _grads(fn, [q, k, v], g)
+    want, wg = _grads(ref, [q, k, v], g)
+    _close(got, want, 1e-5)
+    for a, b in zip(gg, wg):
+        _close(a, b, 1e-4)
+    assert (FA.LAUNCHES["flash_attention"], FA.LAUNCHES["flash_attention_dq"],
+            FA.LAUNCHES["flash_attention_dkv"]) == (1, 1, 1)
+
+
+def _spline_params(rng, h, out, dh, cuda):
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
+            for s in ((h, out, dh), (h, out, dh, 8), (h, out, dh))]
+
+
+@pytest.mark.parametrize("per_head", [False, True])
+def test_bspline_qkv_grouped_dh8_and_per_head_grids(cuda, per_head):
+    """nin 8 (the reference's d 64 with 8 heads), with one grid or a moved
+    grid a head: forward and backward against the plain version."""
+    n, h, dh = 17 * 6, 8, 8
+    out = dh if per_head else 3 * dh
+    rng = np.random.default_rng(99)
+    x = _spline_x(rng, (n, h * dh)).to(cuda)
+    grid = K.make_bspline_grid(dh, device=cuda)
+    if per_head:
+        shift = torch.from_numpy(rng.uniform(-0.3, 0.3, (h, dh, 1)).astype(np.float32))
+        grid = grid * torch.from_numpy(rng.uniform(0.8, 1.3, (h, 1, 1)).astype(
+            np.float32)).to(cuda) + shift.to(cuda)
+    params = _spline_params(rng, h, out, dh, cuda)
+    g = torch.from_numpy(rng.standard_normal((n, h * out)).astype(np.float32)).to(cuda)
+
+    def plain(x, bw, sw, sc):
+        return torch.cat([K.bspline_kan_forward(
+            x[:, i * dh:(i + 1) * dh], grid[i] if per_head else grid, bw[i], sw[i],
+            sc[i]) for i in range(h)], dim=1)
+
+    got, gg = _grads(lambda *a: FB.bspline_qkv_grouped(a[0], grid, *a[1:]),
+                     [x, *params], g)
+    want, wg = _grads(plain, [x, *params], g)
+    _close(got, want, 1e-4)
+    for a, b in zip(gg, wg):
+        _close(a, b, 1e-4)
+    assert (FB.LAUNCHES["bspline_qkv_grouped"],
+            FB.LAUNCHES["bspline_qkv_grouped_bwd"]) == (1, 1)
+
+
+def _ffn_inputs(rng, n, d, f, cuda):
+    shapes = ((n, d), (d,), (d,), (f, d), (f,), (d, f), (d,))
+    scales = (1.0, 0.3, 0.1, d ** -0.5, 0.1, f ** -0.5, 0.1)
+    out = [torch.from_numpy((rng.standard_normal(s) * sc).astype(np.float32)).to(cuda)
+           for s, sc in zip(shapes, scales)]
+    out[1] += 1.0  # gamma around 1
+    return out
+
+
+@pytest.mark.parametrize("n,d,f", [(1, 8, 32), (37, 100, 400), (1000, 384, 1536),
+                                   (129, 512, 200)])
+def test_ffn_pre_ln_kernels(cuda_all, n, d, f):
+    from kanvit_torch.kernels import fused_ffn as FFN
+
+    rng = np.random.default_rng(100 + d)
+    args = _ffn_inputs(rng, n, d, f, cuda_all)
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda_all)
+    # the gradients are held on the kernel's own ReLU pattern: a pre-activation
+    # within f32 rounding of 0 may fall on the other side in cuBLAS's h
+    mask = torch.empty(n, f, dtype=torch.uint8, device=cuda_all)
+    with torch.inference_mode():
+        FFN._launch(*args, relu_mask=mask)
+    pattern = mask.bool()
+
+    def plain_on_pattern(x, gamma, beta, w1, b1, w2, b2):
+        return x + ((K.layernorm(x, gamma, beta) @ w1.T + b1) * pattern) @ w2.T + b2
+
+    got, gg = _grads(FFN.ffn_pre_ln, args, g)
+    _, wg = _grads(plain_on_pattern, args, g)
+    want = K.ffn_pre_ln(*args)
+    _close(got, want, 1e-4)
+    for a, b in zip(gg, wg):
+        _close(a, b, 1e-4)
+    _, again = _grads(FFN.ffn_pre_ln, args, g)
+    assert all(torch.equal(a, b) for a, b in zip(gg, again))
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2}
+
+
+def test_ffn_pre_ln_raises_not_fall_back(cuda_all):
+    from kanvit_torch.kernels import fused_ffn as FFN
+
+    args = _ffn_inputs(np.random.default_rng(7), 4, 640, 64, cuda_all)
+    with pytest.raises(ValueError, match="D 640"):
+        FFN.ffn_pre_ln(*args)
+    with pytest.raises(TypeError, match="float32"):
+        FFN.ffn_pre_ln(args[0].double(), *args[1:])
+    assert FFN.LAUNCHES["ffn_pre_ln"] == 0
+
+
+def _quant_step_bound(x, w):
+    """The most one rounding-tie flip of q(x) can move an output (kanvit's
+    ``tests/test_quant.py:44-48``)."""
+    sx = float(x.abs().amax(-1).max()) / 127.0
+    sw = float(w.abs().amax(-1).max()) / 127.0
+    return 3.0 * sx * sw * 127.0
+
+
+@pytest.mark.parametrize("n,k,out", [(1, 128, 128), (37, 256, 384), (300, 384, 1536),
+                                     (129, 1536, 384)])
+@pytest.mark.parametrize("with_bias", [True, False])
+def test_int8_linear_kernel(cuda_all, n, k, out, with_bias):
+    from kanvit_torch.kernels import int8_matmul as IM
+    from kanvit_torch.ops import quant as Q
+
+    rng = np.random.default_rng(110 + k)
+    x = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_all)
+    w = torch.from_numpy((rng.standard_normal((out, k)) * 0.05).astype(np.float32))
+    w = w.to(cuda_all)
+    b = (torch.from_numpy(rng.standard_normal(out).astype(np.float32)).to(cuda_all)
+         if with_bias else None)
+    with torch.inference_mode():
+        y = IM.int8_linear(x, w, b)
+        want = Q.qdot_rowwise(x, w, b)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32 and y.shape == (n, out)
+    assert float((y - want).abs().max()) <= _quant_step_bound(x, w)
+    assert IM.LAUNCHES["int8_linear"] == 1
+
+
+def test_int8_predictor_on_card(cuda_all):
+    """A vanilla ViT whose Linears are multiples of 128 serves int8 with the
+    kernel (embedder, 2 FF pairs: 5 launches a batch; the 10-class head on
+    qdot), calibrated and without the kernel, near its f32 logits and the
+    CPU's int8 logits."""
+    import copy
+
+    from kanvit_torch.infer import Predictor
+    from kanvit_torch.kernels import int8_matmul as IM
+    from kanvit_torch.models import create_model
+
+    cpu = create_model("vanilla", chw=(2, 32, 32), n_patches=4, n_blocks=2,
+                       d_hidden=128, n_heads=4, out_d=10, seed=5)
+    gpu = copy.deepcopy(cpu).to(cuda_all)
+    x = np.random.default_rng(111).standard_normal((20, 2, 32, 32)).astype(np.float32)
+    f32 = Predictor(gpu, batch_size=8, device=cuda_all).logits(x)
+    scale = float(np.abs(f32).max())
+    for kernel in (True, False):
+        pred = Predictor(gpu, batch_size=8, device=cuda_all, quant="int8",
+                         int8_kernel=kernel)
+        ref = Predictor(cpu, batch_size=8, device="cpu", quant="int8",
+                        int8_kernel=kernel)
+        IM.reset_launches()
+        got = pred.logits(x)
+        assert IM.LAUNCHES["int8_linear"] == (3 * 5 if kernel else 0)
+        assert float(np.abs(got - ref.logits(x)).max()) <= 0.02 * scale
+        assert float(np.abs(got - f32).max()) <= 0.05 * scale
+        assert pred.calibrate(x).keys() == ref.calibrate(x).keys()
+        assert float(np.abs(pred.logits(x) - f32).max()) <= 0.05 * scale
+
+
+def test_fused_ff_train_step_on_card(cuda_all):
+    """Two Adam steps with the fused FF at the reference geometry (d 64, 8
+    heads: dh 8), on the card against the CPU."""
+    from kanvit_torch.kernels import fused_ffn as FFN
+
+    _train_against_cpu(cuda_all, "efficientkan", fused_ff=True)
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 4, "ffn_pre_ln_bwd": 4}
+    assert FA.LAUNCHES["flash_attention_lanes_bwd"] == 4
+
+
+@pytest.mark.parametrize("variant", ["efficientkan", "vanilla"])
+def test_cifar_geometry_train_step_on_card(cuda, variant):
+    """The CIFAR geometry (32x32, 4x4 patches, d 64, 8 heads of 8, 17
+    tokens): the lanes and grouped KAN kernels at dh 8."""
+    _train_against_cpu(cuda, variant)
+    assert FA.LAUNCHES["flash_attention_lanes_bwd"] == 4
+    assert FB.LAUNCHES["bspline_qkv_grouped_bwd"] == (4 if variant == "efficientkan"
+                                                      else 0)
+
+
+def _train_against_cpu(cuda, variant, **kw):
+    import copy
+
+    from kanvit_torch.models import create_model
+    from kanvit_torch.train import create_train_state, make_train_step
+
+    cpu = create_model(variant, chw=(3, 32, 32), n_patches=4, n_blocks=2,
+                       d_hidden=64, n_heads=8, out_d=100, seed=6, **kw)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(112)
+    x = torch.from_numpy(rng.standard_normal((6, 3, 32, 32)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 100, 6))
+    step = make_train_step()
+    sc, sg = create_train_state(cpu), create_train_state(gpu)
+    for _ in range(2):
+        sc, lc, _ = step(sc, x, y)
+        sg, lg, _ = step(sg, x.to(cuda), y.to(cuda))
+        assert abs(float(lc) - float(lg)) <= 1e-4
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        # a key projection's bias has a gradient of exactly 0 (the softmax
+        # cancels it) and rounding noise on either side, which Adam turns
+        # into steps of up to lr each
+        tol = 2 * 2 * 1e-3 if re.search(r"k_mappings\.\d+\.bias", name) else 1e-4
+        assert float((pc - pg.cpu()).detach().abs().max()) <= tol, name
+
+
+def test_load_predictor_default_geometry_on_card(cuda, tmp_path):
+    """``load_predictor``'s defaults (MNIST, d 64, 8 heads of 8, 8 blocks,
+    device cuda) serve a request."""
+    from kanvit_torch.infer import load_predictor
+    from kanvit_torch.models import create_model
+
+    src = create_model("efficientkan", chw=(1, 28, 28), n_patches=7, out_d=10, seed=7)
+    path = tmp_path / "sd.npz"
+    np.savez(path, **{k: v.numpy() for k, v in src.state_dict().items()})
+    pred = load_predictor("efficientkan", str(path))
+    x = np.random.default_rng(113).standard_normal((5, 1, 28, 28)).astype(np.float32)
+    with torch.inference_mode():
+        want = src(torch.from_numpy(x)).numpy()
+    assert float(np.abs(pred.logits(x) - want).max()) <= 1e-3
+    assert FA.LAUNCHES["flash_attention_lanes"] == 8
+
+
+def test_refit_grid_model_on_card(cuda):
+    """An efficientkan model with a moved grid per head: three grouped
+    launches a block (one per projection), logits as on the CPU."""
+    import copy
+
+    from kanvit_torch.models import create_model
+
+    cpu = create_model("efficientkan", chw=(1, 28, 28), n_patches=7, n_blocks=2,
+                       d_hidden=64, n_heads=2, out_d=10, seed=8)
+    rng = np.random.default_rng(114)
+    with torch.no_grad():
+        for name, mod in cpu.named_modules():
+            if hasattr(mod, "grid") and "attn" in name:
+                mod.grid.mul_(float(rng.uniform(0.8, 1.3))).add_(float(rng.uniform(-.3, .3)))
+    gpu = copy.deepcopy(cpu).to(cuda)
+    x = torch.from_numpy(rng.standard_normal((5, 1, 28, 28)).astype(np.float32))
+    with torch.inference_mode():
+        want = cpu(x)
+        got = gpu(x.to(cuda)).cpu()
+    assert float((got - want).abs().max()) <= 1e-3
+    assert FB.LAUNCHES["bspline_qkv_grouped"] == 6

@@ -346,7 +346,7 @@ def test_flash_kernel_arg_checks(bad, err, match):
     if bad == "dtype":
         k = k.double()
     elif bad == "headdim":
-        q, k, v = torch.zeros(2, 3, 5, 24), torch.zeros(2, 3, 7, 24), torch.zeros(2, 3, 7, 24)
+        q, k, v = torch.zeros(2, 3, 5, 12), torch.zeros(2, 3, 7, 12), torch.zeros(2, 3, 7, 12)
     elif bad == "shapes":
         v = torch.zeros(2, 3, 6, 16)
     elif bad == "mask":

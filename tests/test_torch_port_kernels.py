@@ -259,7 +259,7 @@ def test_attention_kernel_arg_checks(bad, err, match):
     if bad == "dtype":
         q = q.double()
     elif bad == "headdim":
-        q = k = v = torch.zeros(2, 5, 2 * 8)
+        q = k = v = torch.zeros(2, 5, 2 * 12)
     elif bad == "shapes":
         k = torch.zeros(2, 6, 2 * 16)
     elif bad == "mask":

@@ -157,11 +157,12 @@ def _adam_state(opt_state):
     return next(f for f in found if f is not None) if found else None
 
 
-def run_steps(variant, geometry, seed=31, steps=K_STEPS):
+def run_steps(variant, geometry, seed=31, steps=K_STEPS, **port_kw):
     """``steps`` train steps of kanvit (Pallas kernels in interpret mode)
     and of the port, from the same weights on the same fixed batches.
     Returns the losses of both, the step-1 gradients and the final params,
-    kanvit's carried across by ``state_dict_from_jax_params``."""
+    kanvit's carried across by ``state_dict_from_jax_params``. ``port_kw``
+    goes to the port's ``create_model`` (``fused_ff``)."""
     rng = np.random.default_rng(seed)
     xs = rng.standard_normal((steps, 8, *geometry["chw"])).astype(np.float32)
     ys = rng.integers(0, geometry["out_d"], (steps, 8))
@@ -189,7 +190,7 @@ def run_steps(variant, geometry, seed=31, steps=K_STEPS):
     finally:
         jdispatch.set_impl("auto")
 
-    model = create_model(variant, **geometry, seed=9)
+    model = create_model(variant, **geometry, seed=9, **port_kw)
     load_reference_state_dict(model, state_dict_from_jax_params(params0))
     tstate = create_train_state(model, LR)
     tstep = make_train_step()
