@@ -6,6 +6,8 @@
 //             _flash_lanes (:547) and flash_attention_lanes (:647);
 //   backward: _lanes_bwd (pallas_call at :604, body _lanes_bwd_kernel
 //             :498-534), _flash_lanes' VJP.
+// The single-tile tier (_small_fwd_impl :410, _small_bwd_impl :442) runs on
+// these kernels too, through (B, T, H, dh) views.
 //
 // Per batch item b and head h:
 //   o_h = softmax(q_h k_h^T * dh^-1/2 + key bias + causal bias) v_h
@@ -25,37 +27,83 @@
 // 64) the forward's two products are 4*B*H*T^2*dh = 3.8 GFLOP per layer
 // against ~78 MB of q, k, v and o; the backward's seven (the scores and
 // do v^T in each of its two kernels, then dq, dk and dv) are 13.4 GFLOP
-// against ~0.2 GB of q, k, v, o, do and gradients. Both are bound by
-// arithmetic and by the exp of every score; the TPU kernel was bound by its
-// exp throughput too.
+// against ~0.2 GB of q, k, v, o, do and gradients. On the CUDA cores (67
+// TFLOP/s f32) that is 0.057 and 0.20 ms of arithmetic; on the tensor cores
+// in 3xTF32 (three TF32 products for each f32 one, 495 TFLOP/s dense) 0.023
+// and 0.081 ms, level with the bytes (0.023 and 0.06 ms at 3.35 TB/s).
+// Besides the products, every score takes one expf (14.9M a forward layer,
+// twice that in the backward): full-precision expf, never __expf, as the
+// TPU kernel's exp. What bounds these kernels in practice is neither: it is
+// the instructions issued beside each mma (chip_smoke.py prints the SASS
+// mix: 192 HMMA of 3,272 instructions in the dh-64 forward) -- the operand
+// splits, the f32 adds of the per-step accumulators, the masks and the
+// online softmax -- and the latency of a product's three dependent mma, at
+// 3 blocks of 4 warps an SM. They run at about 12% of the 3xTF32 bound
+// (PERF.md section 6). Splitting each staged tile once for the block's
+// warps instead of in every warp, a 128-register cap and 2-warp blocks
+// were each no faster.
 //
-// Forward: one block per (query tile of BQ rows, head, batch), one thread per
-// query row. The thread keeps its scaled q row and its output accumulator in
-// registers and streams the keys in tiles of BKV that the block stages in
-// shared memory (K and V tiles: 2*BKV*dh*4 bytes, 16 KB at dh = 64, far
-// under the 48 KB static limit at any T). An online softmax keeps the
-// running max m (starting at the -1e30 clamp) and the running sum l; a masked
-// key gets a score of -inf and so a probability of exactly 0. Causal blocks
-// stop at their last query's key. When asked, the forward writes each row's
-// (m, l), which the backward reads instead of recomputing them: kept as two
-// numbers, as kanvit keeps them, so a fully masked row (m = -1e30, l = 0)
-// gives p = 0 and gradients of exactly 0.
+// Head dims 8, 16, 32 and 64 (vit-s/b/l 64, the reference preset 32,
+// load_predictor's defaults 8) run the tensor-core kernels below; every
+// other multiple of 8 through 128 runs the generic CUDA-core kernels at the
+// end of the file (attention_common.cuh): no main path runs them, and a
+// templated instantiation per dh made the build run past its time limit.
 //
-// Backward: dk and dv sum over every query row, dq over every key. K, V, dK
-// and dV of one (b, h) would take 4*197*64*4 B = 202 KB, near the 227 KB of
-// shared memory, so the backward is two kernels, as the TPU's tiled
-// _flash_bwd (:806, :831) is: a dq kernel per query tile that streams the
-// keys (and writes delta), then a dk/dv kernel per key tile that streams the
-// queries. Each keeps its rows in registers, two threads per row with half
-// the head dims each (a row's dot products meet with one warp shuffle), so a
-// thread holds 3 (dq) or 4 (dk/dv) half rows. Both are deterministic: no
-// atomics. All math is f32 on the CUDA cores; tensor-core products (mma /
-// wgmma) are later work.
+// -- Arithmetic: 3xTF32 on mma.sync.m16n8k8 --------------------------------
+// Every product runs as mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.
+// Each f32 operand x is split in registers into big = tf32(x) and small =
+// tf32(x - big) (cvt.rna.tf32.f32 both), and a product is three mma into
+// one f32 accumulator, in the order small*big, big*small, big*big (CUTLASS's
+// OpMultiplyAddFastF32, the arithmetic of PyTorch's f32 memory-efficient
+// attention). The dropped small*small term is ~2^-22 of each product. Each
+// 8-wide step's three mma go into a zeroed accumulator that an f32 add
+// (round to nearest) takes into the running sum (mma3): the tensor cores'
+// own accumulation truncates, and chained through the running sum it put
+// the vit-s forward further from f64 than the 1e-6 that the card test
+// allows. With the fresh accumulator the forward is 4.5e-7 of max(1,
+// max|o|) from f64 on the card (chip_smoke.py), where plain 1xTF32 would be
+// ~6e-4 off and break the 1e-5 gate (tests/test_torch_port_attention_tc.py
+// emulates both).
 //
-// These kernels are templated on dh and built for 8, 16, 32 and 64; every other
-// multiple of 8 through 128 runs the generic kernels at the end of the file
-// (attention_common.cuh says why): one thread a row, the head dim in chunks
-// of 8 at run time, the accumulators in shared memory.
+// -- Fragment route ---------------------------------------------------------
+// m16n8k8 fragments (g = lane / 4, t = lane % 4): A holds (g, t), (g+8, t),
+// (g, t+4), (g+8, t+4); B holds (k t, n g), (k t+4, n g); the accumulator C
+// holds (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1). A score tile comes out
+// as C, with each thread on columns 2t and 2t+1, while the next product
+// needs it as A on columns t and t+4. A contraction does not care about the
+// order of its index, so within each 8-wide step the kernels number the
+// contracted index (keys in the forward and dq, queries in dk/dv) as
+// k t <-> 2t and k t+4 <-> 2t+1: C's four registers become A's as they are
+// (c0, c2, c1, c3), and the B operand of that product reads rows 2t and
+// 2t+1 of its staged tile at column g. No probability touches shared memory.
+//   forward  S = (q scale) K^T    A q rows (registers)   B K tile, row g
+//            O += P V             A P from S's C         B V tile, rows 2t, 2t+1
+//   dq       S, dP = do V^T       A q, do rows           B K, V tiles, row g
+//            dQ += dS K           A dS from C            B K tile, rows 2t, 2t+1
+//   dk/dv    S^T = K (q scale)^T  A K, V rows of the     B q, do tiles, row g
+//            dP^T = V do^T          warp's keys
+//            dV += P^T do         A P^T from S^T's C     B do tile, rows 2t, 2t+1
+//            dK += dS^T (q scale) A dS^T from C          B q tile, rows 2t, 2t+1
+// The dk/dv kernel computes the transposed scores itself (keys as the M
+// rows), so P^T and dS^T are C fragments like P and dS, and take the same
+// register route. Staged tiles have a row pitch of dh + 4 floats, which
+// puts both read patterns (row g, column t; rows 2t and 2t+1, column g) on
+// 32 distinct banks.
+//
+// -- Layout -----------------------------------------------------------------
+// A block is 4 warps; each warp owns 16 rows (queries in the forward and dq,
+// keys in dk/dv), so T = 197 runs 13 warps of rows (208), and a warp whose
+// rows all lie past T only helps stage tiles. Tiles of 32 keys (queries in
+// dk/dv) are staged with 16-byte cp.async, double buffered, shared by the
+// block's warps; keys and queries past T are zero-filled, and a warp skips
+// each 8-wide step that lies wholly past T or, causal, wholly outside its
+// rows' reach. The forward keeps the online softmax (running max from the
+// -1e30 clamp, running sum) on the S accumulator in registers and writes
+// each row's (m, l) when asked; the backward reads them instead of
+// recomputing. The backward is two kernels, no atomics, so its bits repeat:
+// dq (which writes delta) per query tile streaming the keys, then dk/dv per
+// key tile streaming the queries. 16-byte copies need every staged row
+// 16-byte aligned: the wrapper checks q, k and v and raises otherwise.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -65,318 +113,572 @@
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per block, one thread each
-constexpr int BKV = 32;  // keys per staged tile
-constexpr int BR = 64;   // rows per backward block, two threads each
-constexpr int BT = 32;   // rows per staged backward tile
 constexpr float EPSILON = 1e-10f;
 constexpr float MAX_CLAMP = -1e30f;
 
-template <int DH>
-__global__ void __launch_bounds__(BQ)
-attention_lanes_fwd_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           long long q_sb, long long q_st, long long q_sh,
-                           long long k_sb, long long k_st, long long k_sh,
-                           long long v_sb, long long v_st, long long v_sh,
-                           const uint8_t* __restrict__ mask,
-                           float* __restrict__ o, float* __restrict__ stats,
-                           int t_len, int heads, int causal, float scale) {
-  __shared__ float ks[BKV][DH];
-  __shared__ float vs[BKV][DH];
-  __shared__ int kvalid[BKV];
+// --- tensor-core kernels: dh 8, 16, 32, 64 ---------------------------------
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int qi = q0 + tid;
-  const bool live = qi < t_len;
+constexpr int TC_WARPS = 4;
+constexpr int TC_ROWS = 16 * TC_WARPS;  // rows a block: queries (fwd, dq), keys (dk/dv)
+constexpr int TC_TILE = 32;             // keys (queries in dk/dv) a staged tile
+constexpr int TC_STEPS = TC_TILE / 8;   // 8-wide steps a tile
+constexpr int TC_PAD = 4;               // row pitch dh + 4 floats
 
-  float qr[DH], acc[DH];
-  if (live) {
-    const float* qp = q + b * q_sb + qi * q_st + h * q_sh;
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, both TF32.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// An A fragment (4 floats) or a B fragment (2 floats), split.
+template <int N>
+struct Frag {
+  uint32_t big[N], small[N];
+  Frag() = default;
+  __device__ __forceinline__ explicit Frag(const float (&x)[N]) {
 #pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = qp[d] * scale;
-  } else {
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = 0.f;
+    for (int i = 0; i < N; ++i) split(x[i], big[i], small[i]);
   }
-#pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  float m = MAX_CLAMP;
-  float l = 0.f;
+};
 
-  const int kend = causal ? min(t_len, q0 + BQ) : t_len;
-  for (int k0 = 0; k0 < kend; k0 += BKV) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < BKV * DH; e += BQ) {
-      const int j = e / DH, d = e % DH, key = k0 + j;
-      const bool in = key < t_len;
-      ks[j][d] = in ? k[b * k_sb + key * k_st + h * k_sh + d] : 0.f;
-      vs[j][d] = in ? v[b * v_sb + key * v_st + h * v_sh + d] : 0.f;
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: small*big, big*small, big*big into a zeroed
+// accumulator, which an f32 add (round to nearest) then takes into d (the
+// header says why).
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a,
+                                     const Frag<2>& b) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += c[i];
+}
+
+// A from a C fragment, the contracted index permuted (c0, c2, c1, c3).
+__device__ __forceinline__ Frag<4> c_as_a(const float (&c)[4]) {
+  const float a[4] = {c[0], c[2], c[1], c[3]};
+  return Frag<4>(a);
+}
+
+// B at (k t, n g), (k t+4, n g) of a tile stored (n, k): row g, columns
+// t and t+4 of `row_g` (row g's first column of this step).
+__device__ __forceinline__ Frag<2> b_row(const float* row_g, float scale = 1.f) {
+  const float b[2] = {row_g[0] * scale, row_g[4] * scale};
+  return Frag<2>(b);
+}
+
+// B at (k t, n g), (k t+4, n g) of a tile stored (k, n) with k permuted:
+// rows 2t and 2t+1, column g. `at` points at row 2t, column g.
+template <int PITCH>
+__device__ __forceinline__ Frag<2> b_pair(const float* at, float scale = 1.f) {
+  const float b[2] = {at[0] * scale, at[PITCH] * scale};
+  return Frag<2>(b);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Stage rows row0 .. row0+ROWS-1 (row r at src + r*stride, dh floats) into
+// a (ROWS, DH + TC_PAD) tile with 16-byte cp.async; rows past t_len are
+// zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           long long stride, int row0,
+                                           int t_len, int tid) {
+  constexpr int CH = DH / 4;  // 16-byte chunks a row
+  constexpr int NT = 32 * TC_WARPS;
+#pragma unroll
+  for (int i = 0; i < (ROWS * CH + NT - 1) / NT; ++i) {
+    const int e = tid + i * NT;
+    if (ROWS * CH % NT != 0 && e >= ROWS * CH) break;
+    const int r = e / CH, c = (e % CH) * 4, row = row0 + r;
+    const bool in = row < t_len;
+    cp_async16(dst + r * (DH + TC_PAD) + c, in ? src + row * stride + c : src, in);
+  }
+}
+
+// Max and sum across the four threads of a fragment row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// Forward. One block per (64 query rows, head, batch); warp w owns rows
+// q0 + 16w .. +15.
+template <int DH>
+__global__ void __launch_bounds__(32 * TC_WARPS)
+attention_lanes_fwd_tc(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       long long q_sb, long long q_st, long long q_sh,
+                       long long k_sb, long long k_st, long long k_sh,
+                       long long v_sb, long long v_st, long long v_sh,
+                       const uint8_t* __restrict__ mask,
+                       float* __restrict__ o, float* __restrict__ stats,
+                       int t_len, int heads, int causal, float scale) {
+  constexpr int P = DH + TC_PAD;
+  constexpr int KD = DH / 8;  // 8-wide steps over dh
+  __shared__ __align__(16) float ks[2][TC_TILE][P];
+  __shared__ __align__(16) float vs[2][TC_TILE][P];
+  __shared__ int kvalid[2][TC_TILE];
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * TC_ROWS;
+  const int r0 = q0 + (tid >> 5) * 16;  // the warp's first row
+  const bool active = r0 < t_len;
+  const int last = min(r0 + 15, t_len - 1);  // the warp's last live row
+  const int ra = r0 + g, rb = r0 + g + 8;
+
+  // The warp's q rows, scaled, as split A fragments.
+  Frag<4> qf[KD];
+  {
+    const float* qpa = q + b * q_sb + (long long)min(ra, t_len - 1) * q_st + h * q_sh;
+    const float* qpb = q + b * q_sb + (long long)min(rb, t_len - 1) * q_st + h * q_sh;
+    const float fa = ra < t_len ? scale : 0.f, fb = rb < t_len ? scale : 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const int c = kd * 8 + t;
+      const float x[4] = {qpa[c] * fa, qpb[c] * fb, qpa[c + 4] * fa, qpb[c + 4] * fb};
+      qf[kd] = Frag<4>(x);
     }
-    if (tid < BKV) {
-      const int key = k0 + tid;
-      kvalid[tid] = key < t_len &&
-                    (mask == nullptr || mask[(long long)b * t_len + key] != 0);
+  }
+
+  float acc[KD][4];
+#pragma unroll
+  for (int d = 0; d < KD; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float ma = MAX_CLAMP, mb = MAX_CLAMP, la = 0.f, lb = 0.f;
+
+  const float* kh = k + b * k_sb + h * k_sh;
+  const float* vh = v + b * v_sb + h * v_sh;
+  const int kend = causal ? min(t_len, q0 + TC_ROWS) : t_len;
+  const int tiles = (kend + TC_TILE - 1) / TC_TILE;
+  auto stage = [&](int tile, int buf) {
+    stage_tile<DH, TC_TILE>(&ks[buf][0][0], kh, k_st, tile * TC_TILE, t_len, tid);
+    stage_tile<DH, TC_TILE>(&vs[buf][0][0], vh, v_st, tile * TC_TILE, t_len, tid);
+    cp_async_commit();
+    if (tid < TC_TILE) {
+      const int key = tile * TC_TILE + tid;
+      kvalid[buf][tid] = key < t_len &&
+                         (mask == nullptr || mask[(long long)b * t_len + key] != 0);
+    }
+  };
+  stage(0, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, k0 = it * TC_TILE;
+    if (it + 1 < tiles) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    float s[BKV];
-    float mt = m;
+    // 8-key steps with a key this warp may see: below t_len and, causal,
+    // at or before its last row.
+    const int steps = min(TC_STEPS, ((causal ? last + 1 : t_len) - k0 + 7) / 8);
+    if (active && steps > 0) {
+      float s[TC_STEPS][4];
 #pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      float dot = 0.f;
+      for (int n = 0; n < TC_STEPS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-      const bool ok = kvalid[j] && (!causal || k0 + j <= qi);
-      s[j] = ok ? dot : -INFINITY;
-      mt = fmaxf(mt, s[j]);
+      for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+        for (int n = 0; n < TC_STEPS; ++n)
+          if (n < steps) mma3(s[n], qf[kd], b_row(&ks[buf][n * 8 + g][kd * 8 + t]));
+      float mxa = ma, mxb = mb;
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = n * 8 + 2 * t + (c & 1);
+          const bool ok = kvalid[buf][j] && (!causal || k0 + j <= (c < 2 ? ra : rb));
+          s[n][c] = ok ? s[n][c] : -INFINITY;
+          if (c < 2) mxa = fmaxf(mxa, s[n][c]);
+          else mxb = fmaxf(mxb, s[n][c]);
+        }
+      mxa = quad_max(mxa);
+      mxb = quad_max(mxb);
+      const float ca = expf(ma - mxa), cb = expf(mb - mxb);
+      la *= ca;
+      lb *= cb;
+#pragma unroll
+      for (int d = 0; d < KD; ++d) {
+        acc[d][0] *= ca;
+        acc[d][1] *= ca;
+        acc[d][2] *= cb;
+        acc[d][3] *= cb;
+      }
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[n][c] = expf(s[n][c] - (c < 2 ? mxa : mxb));  // exactly 0 for a masked key
+          if (c < 2) la += s[n][c];
+          else lb += s[n][c];
+        }
+      ma = mxa;
+      mb = mxb;
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n) {
+        if (n >= steps) continue;
+        const Frag<4> pa = c_as_a(s[n]);
+#pragma unroll
+        for (int d = 0; d < KD; ++d)
+          mma3(acc[d], pa, b_pair<P>(&vs[buf][n * 8 + 2 * t][d * 8 + g]));
+      }
     }
-    const float corr = expf(m - mt);
-    l *= corr;
-#pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= corr;
-#pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      const float p = expf(s[j] - mt);  // exactly 0 for a masked key
-      l += p;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
-    }
-    m = mt;
+    __syncthreads();  // this buffer is restaged two tiles on
   }
 
-  if (live) {
-    const float rl = 1.f / fmaxf(l, EPSILON);
-    float* op = o + (((long long)b * t_len + qi) * heads + h) * DH;
+  la = quad_sum(la);
+  lb = quad_sum(lb);
+  const float rla = 1.f / fmaxf(la, EPSILON), rlb = 1.f / fmaxf(lb, EPSILON);
 #pragma unroll
-    for (int d = 0; d < DH; ++d) op[d] = acc[d] * rl;
-    if (stats != nullptr) {
-      float* sp = stats + (((long long)b * heads + h) * t_len + qi) * 2;
-      sp[0] = m;
-      sp[1] = l;
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (!active || row >= t_len) continue;
+    const float rl = half ? rlb : rla;
+    float* op = o + (((long long)b * t_len + row) * heads + h) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < KD; ++d)
+      *reinterpret_cast<float2*>(op + d * 8) =
+          make_float2(acc[d][2 * half] * rl, acc[d][2 * half + 1] * rl);
+    if (stats != nullptr && t == 0) {
+      float* sp = stats + (((long long)b * heads + h) * t_len + row) * 2;
+      sp[0] = half ? mb : ma;
+      sp[1] = half ? lb : la;
     }
   }
 }
 
-// dq and delta. One block per (query tile of BR rows, head, batch), two
-// threads per query row.
-template <int DH>
-__global__ void __launch_bounds__(2 * BR)
-attention_lanes_dq_kernel(const float* __restrict__ q,
-                          const float* __restrict__ k,
-                          const float* __restrict__ v,
-                          long long q_sb, long long q_st, long long q_sh,
-                          long long k_sb, long long k_st, long long k_sh,
-                          long long v_sb, long long v_st, long long v_sh,
-                          const uint8_t* __restrict__ mask,
-                          const float* __restrict__ o,
-                          const float* __restrict__ dout,
-                          const float* __restrict__ stats,
-                          float* __restrict__ delta_out,
-                          float* __restrict__ dq, int t_len, int heads,
-                          int causal, float scale) {
-  using TL = Tile<DH>;
-  constexpr int HD = TL::HD;
-  __shared__ __align__(16) float ks[BT][TL::PITCH];
-  __shared__ __align__(16) float vs[BT][TL::PITCH];
-  __shared__ int kvalid[BT];
-
-  const int tid = threadIdx.x;
-  const int half = tid & 1;
-  const int q0 = blockIdx.x * BR;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int qi = q0 + (tid >> 1);
-  const bool live = qi < t_len;
-  const long long row = ((long long)b * t_len + qi) * heads + h;  // of o, do, dq
-
-  float qr[HD], dor[HD], acc[HD];
-  float dlt = 0.f, m = 0.f, rl = 0.f;
-  if (live) {
-    const float* qp = q + b * q_sb + qi * q_st + h * q_sh + half * HD;
-    const float* op = o + row * DH + half * HD;
-    const float* dp = dout + row * DH + half * HD;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      qr[d] = qp[d] * scale;
-      dor[d] = dp[d];
-      dlt = fmaf(dor[d], op[d], dlt);
-    }
-    const float* sp = stats + (((long long)b * heads + h) * t_len + qi) * 2;
-    m = sp[0];
-    rl = 1.f / fmaxf(sp[1], EPSILON);
-  } else {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = dor[d] = 0.f;
-  }
-  dlt = pair_sum(dlt);
-#pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
-
-  const int kend = causal ? min(t_len, q0 + BR) : t_len;
-  for (int k0 = 0; k0 < kend; k0 += BT) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < BT * DH; e += 2 * BR) {
-      const int j = e / DH, d = e % DH, key = k0 + j;
-      const bool in = key < t_len;
-      const int c = TL::at(d / HD, d % HD);
-      ks[j][c] = in ? k[b * k_sb + key * k_st + h * k_sh + d] : 0.f;
-      vs[j][c] = in ? v[b * v_sb + key * v_st + h * v_sh + d] : 0.f;
-    }
-    if (tid < BT) {
-      const int key = k0 + tid;
-      kvalid[tid] = key < t_len &&
-                    (mask == nullptr || mask[(long long)b * t_len + key] != 0);
-    }
-    __syncthreads();
-
-    for (int j = 0; j < BT; ++j) {
-      const float* kr = &ks[j][TL::at(half, 0)];
-      const float* vr = &vs[j][TL::at(half, 0)];
-      float s = 0.f, dpv = 0.f;
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 k4 = ld4(kr + d), v4 = ld4(vr + d);
-        s = fmaf(qr[d], k4.x, fmaf(qr[d + 1], k4.y,
-                 fmaf(qr[d + 2], k4.z, fmaf(qr[d + 3], k4.w, s))));
-        dpv = fmaf(dor[d], v4.x, fmaf(dor[d + 1], v4.y,
-                   fmaf(dor[d + 2], v4.z, fmaf(dor[d + 3], v4.w, dpv))));
-      }
-      s = pair_sum(s);
-      dpv = pair_sum(dpv);
-      const bool ok = live && kvalid[j] && (!causal || k0 + j <= qi);
-      const float p = ok ? expf(s - m) * rl : 0.f;
-      const float ds = p * (dpv - dlt);
-#pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 k4 = ld4(kr + d);
-        acc[d] = fmaf(ds, k4.x, acc[d]);
-        acc[d + 1] = fmaf(ds, k4.y, acc[d + 1]);
-        acc[d + 2] = fmaf(ds, k4.z, acc[d + 2]);
-        acc[d + 3] = fmaf(ds, k4.w, acc[d + 3]);
-      }
-    }
-  }
-
-  if (live) {
-    float* dqp = dq + row * DH + half * HD;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) dqp[d] = acc[d] * scale;
-    if (half == 0) delta_out[((long long)b * heads + h) * t_len + qi] = dlt;
-  }
+// Rows of a block's operand kept in shared memory (the backward's A
+// operands): A at rows r, r+8 and columns c, c+4 of a (rows, DH + TC_PAD)
+// tile, `at` pointing at (r, c), scaled and split.
+template <int PITCH>
+__device__ __forceinline__ Frag<4> a_rows(const float* at, float scale = 1.f) {
+  const float a[4] = {at[0] * scale, at[8 * PITCH] * scale, at[4] * scale,
+                      at[8 * PITCH + 4] * scale};
+  return Frag<4>(a);
 }
 
-// dk and dv. One block per (key tile of BR keys, head, batch), two threads
-// per key; reads the (m, l) of the forward and the delta of the dq kernel.
+// dq and delta. One block per (64 query rows, head, batch); warp w owns
+// rows q0 + 16w .. +15 and streams the keys. Dynamic shared memory: the
+// block's q and do rows (A operands, read at each 8-wide step of dh), then
+// the double-buffered K and V tiles.
 template <int DH>
-__global__ void __launch_bounds__(2 * BR)
-attention_lanes_dkv_kernel(const float* __restrict__ q,
-                           const float* __restrict__ k,
-                           const float* __restrict__ v,
-                           long long q_sb, long long q_st, long long q_sh,
-                           long long k_sb, long long k_st, long long k_sh,
-                           long long v_sb, long long v_st, long long v_sh,
-                           const uint8_t* __restrict__ mask,
-                           const float* __restrict__ dout,
-                           const float* __restrict__ stats,
-                           const float* __restrict__ delta,
-                           float* __restrict__ dk, float* __restrict__ dv,
-                           int t_len, int heads, int causal, float scale) {
-  using TL = Tile<DH>;
-  constexpr int HD = TL::HD;
-  __shared__ __align__(16) float qs[BT][TL::PITCH];   // q * scale
-  __shared__ __align__(16) float dos[BT][TL::PITCH];
-  __shared__ float mrow[BT], rlrow[BT], drow[BT];
+__global__ void __launch_bounds__(32 * TC_WARPS)
+attention_lanes_dq_tc(const float* __restrict__ q,
+                      const float* __restrict__ k,
+                      const float* __restrict__ v,
+                      long long q_sb, long long q_st, long long q_sh,
+                      long long k_sb, long long k_st, long long k_sh,
+                      long long v_sb, long long v_st, long long v_sh,
+                      const uint8_t* __restrict__ mask,
+                      const float* __restrict__ o,
+                      const float* __restrict__ dout,
+                      const float* __restrict__ stats,
+                      float* __restrict__ delta_out,
+                      float* __restrict__ dq, int t_len, int heads,
+                      int causal, float scale) {
+  constexpr int P = DH + TC_PAD;
+  constexpr int KD = DH / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* qrow = smem;                    // [TC_ROWS][P]
+  float* drow = qrow + TC_ROWS * P;      // [TC_ROWS][P]
+  float* ks = drow + TC_ROWS * P;        // [2][TC_TILE][P]
+  float* vs = ks + 2 * TC_TILE * P;      // [2][TC_TILE][P]
+  __shared__ int kvalid[2][TC_TILE];
 
-  const int tid = threadIdx.x;
-  const int half = tid & 1;
-  const int k0 = blockIdx.x * BR;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kj = k0 + (tid >> 1);
-  const bool live = kj < t_len;
-  const bool valid =
-      live && (mask == nullptr || mask[(long long)b * t_len + kj] != 0);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * TC_ROWS;
+  const int r0 = q0 + warp * 16;
+  const bool active = r0 < t_len;
+  const int last = min(r0 + 15, t_len - 1);
+  const int ra = r0 + g, rb = r0 + g + 8;
+  const bool la_ok = ra < t_len, lb_ok = rb < t_len;
   const long long srow = ((long long)b * heads + h) * t_len;  // of stats, delta
 
-  float kr[HD], vr[HD], dka[HD], dva[HD];
-  if (live) {
-    const float* kp = k + b * k_sb + kj * k_st + h * k_sh + half * HD;
-    const float* vp = v + b * v_sb + kj * v_st + h * v_sh + half * HD;
-#pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      kr[d] = kp[d];
-      vr[d] = vp[d];
+  const float* kh = k + b * k_sb + h * k_sh;
+  const float* vh = v + b * v_sb + h * v_sh;
+  const int kend = causal ? min(t_len, q0 + TC_ROWS) : t_len;
+  const int tiles = (kend + TC_TILE - 1) / TC_TILE;
+  auto stage = [&](int tile, int buf) {
+    stage_tile<DH, TC_TILE>(ks + buf * TC_TILE * P, kh, k_st, tile * TC_TILE, t_len, tid);
+    stage_tile<DH, TC_TILE>(vs + buf * TC_TILE * P, vh, v_st, tile * TC_TILE, t_len, tid);
+    cp_async_commit();
+    if (tid < TC_TILE) {
+      const int key = tile * TC_TILE + tid;
+      kvalid[buf][tid] = key < t_len &&
+                         (mask == nullptr || mask[(long long)b * t_len + key] != 0);
     }
-  } else {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) kr[d] = vr[d] = 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dka[d] = dva[d] = 0.f;
+  };
+  stage_tile<DH, TC_ROWS>(qrow, q + b * q_sb + h * q_sh, q_st, q0, t_len, tid);
+  stage_tile<DH, TC_ROWS>(drow, dout + (long long)b * t_len * heads * DH + h * DH,
+                          (long long)heads * DH, q0, t_len, tid);
+  stage(0, 0);  // one group with the rows
 
-  // Causal: query i sees key j only for i >= j, so the tile starts at k0.
-  for (int i0 = causal ? k0 : 0; i0 < t_len; i0 += BT) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < BT * DH; e += 2 * BR) {
-      const int r = e / DH, d = e % DH, qi = i0 + r;
-      const bool in = qi < t_len;
-      const int c = TL::at(d / HD, d % HD);
-      qs[r][c] = in ? q[b * q_sb + qi * q_st + h * q_sh + d] * scale : 0.f;
-      dos[r][c] = in ? dout[(((long long)b * t_len + qi) * heads + h) * DH + d] : 0.f;
-    }
-    if (tid < BT) {
-      const int qi = i0 + tid;
-      const bool in = qi < t_len;
-      mrow[tid] = in ? stats[(srow + qi) * 2] : 0.f;
-      rlrow[tid] = in ? 1.f / fmaxf(stats[(srow + qi) * 2 + 1], EPSILON) : 0.f;
-      drow[tid] = in ? delta[srow + qi] : 0.f;
+  // delta = rowsum(do * o) of rows ra and rb, and the forward's (m, 1/l).
+  float dla = 0.f, dlb = 0.f;
+  {
+    const long long oa = (((long long)b * t_len + min(ra, t_len - 1)) * heads + h) * DH;
+    const long long ob = (((long long)b * t_len + min(rb, t_len - 1)) * heads + h) * DH;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int e = 0; e < 8; e += 4) {
+        const int c = kd * 8 + t + e;
+        dla = fmaf(dout[oa + c], o[oa + c], dla);
+        dlb = fmaf(dout[ob + c], o[ob + c], dlb);
+      }
+  }
+  dla = quad_sum(dla);  // every lane shuffles; rows past t_len read row t_len-1
+  dlb = quad_sum(dlb);
+  const float ma = la_ok ? stats[(srow + ra) * 2] : 0.f;
+  const float mb = lb_ok ? stats[(srow + rb) * 2] : 0.f;
+  const float rla = la_ok ? 1.f / fmaxf(stats[(srow + ra) * 2 + 1], EPSILON) : 0.f;
+  const float rlb = lb_ok ? 1.f / fmaxf(stats[(srow + rb) * 2 + 1], EPSILON) : 0.f;
+
+  float acc[KD][4];
+#pragma unroll
+  for (int d = 0; d < KD; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+
+  const float* qw = qrow + (warp * 16 + g) * P + t;  // A at (g, t) of step 0
+  const float* dw = drow + (warp * 16 + g) * P + t;
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, k0 = it * TC_TILE;
+    if (it + 1 < tiles) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
     }
     __syncthreads();
-
-    for (int r = 0; r < BT; ++r) {
-      const float* qrow = &qs[r][TL::at(half, 0)];
-      const float* drw = &dos[r][TL::at(half, 0)];
-      float s = 0.f, dpv = 0.f;
+    const float* kt = ks + buf * TC_TILE * P;
+    const float* vt = vs + buf * TC_TILE * P;
+    const int steps = min(TC_STEPS, ((causal ? last + 1 : t_len) - k0 + 7) / 8);
+    if (active && steps > 0) {
+      float s[TC_STEPS][4], dp[TC_STEPS][4];
 #pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 q4 = ld4(qrow + d), o4 = ld4(drw + d);
-        s = fmaf(q4.x, kr[d], fmaf(q4.y, kr[d + 1],
-                 fmaf(q4.z, kr[d + 2], fmaf(q4.w, kr[d + 3], s))));
-        dpv = fmaf(o4.x, vr[d], fmaf(o4.y, vr[d + 1],
-                   fmaf(o4.z, vr[d + 2], fmaf(o4.w, vr[d + 3], dpv))));
+      for (int n = 0; n < TC_STEPS; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll 1
+      for (int kd = 0; kd < KD; ++kd) {
+        const Frag<4> qf = a_rows<P>(qw + kd * 8, scale), df = a_rows<P>(dw + kd * 8);
+#pragma unroll
+        for (int n = 0; n < TC_STEPS; ++n) {
+          if (n >= steps) continue;
+          mma3(s[n], qf, b_row(kt + (n * 8 + g) * P + kd * 8 + t));
+          mma3(dp[n], df, b_row(vt + (n * 8 + g) * P + kd * 8 + t));
+        }
       }
-      s = pair_sum(s);
-      dpv = pair_sum(dpv);
-      const int qi = i0 + r;
-      const bool ok = valid && qi < t_len && (!causal || kj <= qi);
-      const float p = ok ? expf(s - mrow[r]) * rlrow[r] : 0.f;
-      const float ds = p * (dpv - drow[r]);
 #pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 q4 = ld4(qrow + d), o4 = ld4(drw + d);
-        dva[d] = fmaf(p, o4.x, dva[d]);
-        dva[d + 1] = fmaf(p, o4.y, dva[d + 1]);
-        dva[d + 2] = fmaf(p, o4.z, dva[d + 2]);
-        dva[d + 3] = fmaf(p, o4.w, dva[d + 3]);
-        dka[d] = fmaf(ds, q4.x, dka[d]);  // qs carries the scale
-        dka[d + 1] = fmaf(ds, q4.y, dka[d + 1]);
-        dka[d + 2] = fmaf(ds, q4.z, dka[d + 2]);
-        dka[d + 3] = fmaf(ds, q4.w, dka[d + 3]);
+      for (int n = 0; n < TC_STEPS; ++n)  // s becomes ds
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = n * 8 + 2 * t + (c & 1);
+          const bool hi = c >= 2;
+          const bool ok = (hi ? lb_ok : la_ok) && kvalid[buf][j] &&
+                          (!causal || k0 + j <= (hi ? rb : ra));
+          const float p = ok ? expf(s[n][c] - (hi ? mb : ma)) * (hi ? rlb : rla) : 0.f;
+          s[n][c] = p * (dp[n][c] - (hi ? dlb : dla));
+        }
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n) {
+        if (n >= steps) continue;
+        const Frag<4> sa = c_as_a(s[n]);
+#pragma unroll
+        for (int d = 0; d < KD; ++d)
+          mma3(acc[d], sa, b_pair<P>(kt + (n * 8 + 2 * t) * P + d * 8 + g));
       }
     }
+    __syncthreads();  // this buffer is restaged two tiles on
   }
 
-  if (live) {
-    const long long off = (((long long)b * t_len + kj) * heads + h) * DH + half * HD;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      dk[off + d] = dka[d];
-      dv[off + d] = dva[d];
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (!active || row >= t_len) continue;
+    float* dqp = dq + (((long long)b * t_len + row) * heads + h) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < KD; ++d)
+      *reinterpret_cast<float2*>(dqp + d * 8) =
+          make_float2(acc[d][2 * half] * scale, acc[d][2 * half + 1] * scale);
+    if (t == 0) delta_out[srow + row] = half ? dlb : dla;
+  }
+}
+
+// dk and dv. One block per (64 keys, head, batch); warp w owns keys
+// k0 + 16w .. +15 and streams the queries, reading the forward's (m, l) and
+// the dq kernel's delta. Dynamic shared memory: the block's k and v rows (A
+// operands), then the double-buffered q (unscaled) and do tiles.
+template <int DH>
+__global__ void __launch_bounds__(32 * TC_WARPS)
+attention_lanes_dkv_tc(const float* __restrict__ q,
+                       const float* __restrict__ k,
+                       const float* __restrict__ v,
+                       long long q_sb, long long q_st, long long q_sh,
+                       long long k_sb, long long k_st, long long k_sh,
+                       long long v_sb, long long v_st, long long v_sh,
+                       const uint8_t* __restrict__ mask,
+                       const float* __restrict__ dout,
+                       const float* __restrict__ stats,
+                       const float* __restrict__ delta,
+                       float* __restrict__ dk, float* __restrict__ dv,
+                       int t_len, int heads, int causal, float scale) {
+  constexpr int P = DH + TC_PAD;
+  constexpr int KD = DH / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* krow = smem;                    // [TC_ROWS][P]
+  float* vrow = krow + TC_ROWS * P;      // [TC_ROWS][P]
+  float* qs = vrow + TC_ROWS * P;        // [2][TC_TILE][P]
+  float* dos = qs + 2 * TC_TILE * P;     // [2][TC_TILE][P]
+  __shared__ float mrow[2][TC_TILE], rlrow[2][TC_TILE], drow[2][TC_TILE];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * TC_ROWS;
+  const int j0 = k0 + warp * 16;  // the warp's first key
+  const bool active = j0 < t_len;
+  const int ja = j0 + g, jb = j0 + g + 8;
+  const bool va = ja < t_len && (mask == nullptr || mask[(long long)b * t_len + ja] != 0);
+  const bool vb = jb < t_len && (mask == nullptr || mask[(long long)b * t_len + jb] != 0);
+  const long long srow = ((long long)b * heads + h) * t_len;
+
+  float dka[KD][4], dva[KD][4];
+#pragma unroll
+  for (int d = 0; d < KD; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dka[d][c] = dva[d][c] = 0.f;
+
+  const float* qh = q + b * q_sb + h * q_sh;
+  const float* doh = dout + (long long)b * t_len * heads * DH + h * DH;
+  // Causal: query i sees key j only for i >= j, so the tiles start at k0.
+  const int i_start = causal ? k0 : 0;
+  const int tiles = (t_len - i_start + TC_TILE - 1) / TC_TILE;
+  auto stage = [&](int tile, int buf) {
+    const int i0 = i_start + tile * TC_TILE;
+    stage_tile<DH, TC_TILE>(qs + buf * TC_TILE * P, qh, q_st, i0, t_len, tid);
+    stage_tile<DH, TC_TILE>(dos + buf * TC_TILE * P, doh, (long long)heads * DH, i0,
+                            t_len, tid);
+    cp_async_commit();
+    if (tid < TC_TILE) {
+      const int qi = i0 + tid;
+      const bool in = qi < t_len;
+      mrow[buf][tid] = in ? stats[(srow + qi) * 2] : 0.f;
+      rlrow[buf][tid] = in ? 1.f / fmaxf(stats[(srow + qi) * 2 + 1], EPSILON) : 0.f;
+      drow[buf][tid] = in ? delta[srow + qi] : 0.f;
+    }
+  };
+  stage_tile<DH, TC_ROWS>(krow, k + b * k_sb + h * k_sh, k_st, k0, t_len, tid);
+  stage_tile<DH, TC_ROWS>(vrow, v + b * v_sb + h * v_sh, v_st, k0, t_len, tid);
+  stage(0, 0);  // one group with the rows
+
+  const float* kw = krow + (warp * 16 + g) * P + t;  // A at (g, t) of step 0
+  const float* vw = vrow + (warp * 16 + g) * P + t;
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, i0 = i_start + it * TC_TILE;
+    if (it + 1 < tiles) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* qt = qs + buf * TC_TILE * P;
+    const float* dt = dos + buf * TC_TILE * P;
+    // 8-query steps this warp's keys may be seen from: below t_len and,
+    // causal, ending at or after its first key.
+    const int hi_step = min(TC_STEPS, (t_len - i0 + 7) / 8);
+    const int lo_step = causal ? max(0, (j0 - i0) / 8) : 0;
+    if (active && lo_step < hi_step) {
+      float st[TC_STEPS][4], dpt[TC_STEPS][4];
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) st[n][c] = dpt[n][c] = 0.f;
+#pragma unroll 1
+      for (int kd = 0; kd < KD; ++kd) {
+        const Frag<4> kf = a_rows<P>(kw + kd * 8), vf = a_rows<P>(vw + kd * 8);
+#pragma unroll
+        for (int n = 0; n < TC_STEPS; ++n) {
+          if (n < lo_step || n >= hi_step) continue;
+          mma3(st[n], kf, b_row(qt + (n * 8 + g) * P + kd * 8 + t, scale));
+          mma3(dpt[n], vf, b_row(dt + (n * 8 + g) * P + kd * 8 + t));
+        }
+      }
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n)  // st becomes p^T, dpt ds^T
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = n * 8 + 2 * t + (c & 1), qi = i0 + r;
+          const bool hi = c >= 2;
+          const bool ok = (hi ? vb : va) && qi < t_len &&
+                          (!causal || (hi ? jb : ja) <= qi);
+          const float p = ok ? expf(st[n][c] - mrow[buf][r]) * rlrow[buf][r] : 0.f;
+          dpt[n][c] = p * (dpt[n][c] - drow[buf][r]);
+          st[n][c] = p;
+        }
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n) {
+        if (n < lo_step || n >= hi_step) continue;
+        const Frag<4> pa = c_as_a(st[n]), sa = c_as_a(dpt[n]);
+#pragma unroll
+        for (int d = 0; d < KD; ++d) {
+          mma3(dva[d], pa, b_pair<P>(dt + (n * 8 + 2 * t) * P + d * 8 + g));
+          mma3(dka[d], sa, b_pair<P>(qt + (n * 8 + 2 * t) * P + d * 8 + g, scale));
+        }
+      }
+    }
+    __syncthreads();  // this buffer is restaged two tiles on
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? jb : ja;
+    if (!active || key >= t_len) continue;
+    const long long off = (((long long)b * t_len + key) * heads + h) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < KD; ++d) {
+      *reinterpret_cast<float2*>(dk + off + d * 8) =
+          make_float2(dka[d][2 * half], dka[d][2 * half + 1]);
+      *reinterpret_cast<float2*>(dv + off + d * 8) =
+          make_float2(dva[d][2 * half], dva[d][2 * half + 1]);
     }
   }
 }
@@ -388,8 +690,8 @@ int launch_fwd(const float* q, const float* k, const float* v, long long q_sb,
                const uint8_t* mask, float* o, float* stats, int batch,
                int t_len, int heads, int causal, float scale,
                cudaStream_t stream) {
-  const dim3 grid((t_len + BQ - 1) / BQ, heads, batch);
-  attention_lanes_fwd_kernel<DH><<<grid, BQ, 0, stream>>>(
+  const dim3 grid((t_len + TC_ROWS - 1) / TC_ROWS, heads, batch);
+  attention_lanes_fwd_tc<DH><<<grid, 32 * TC_WARPS, 0, stream>>>(
       q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask, o,
       stats, t_len, heads, causal, scale);
   return (int)cudaGetLastError();
@@ -403,22 +705,33 @@ int launch_bwd(const float* q, const float* k, const float* v, long long q_sb,
                const float* stats, float* delta, float* dq, float* dk,
                float* dv, int batch, int t_len, int heads, int causal,
                float scale, cudaStream_t stream) {
-  const dim3 grid((t_len + BR - 1) / BR, heads, batch);
-  attention_lanes_dq_kernel<DH><<<grid, 2 * BR, 0, stream>>>(
+  const dim3 grid((t_len + TC_ROWS - 1) / TC_ROWS, heads, batch);
+  // the block's rows and the double-buffered tiles
+  const size_t smem = sizeof(float) * (2 * TC_ROWS + 4 * TC_TILE) * (DH + TC_PAD);
+  int err = allow_shared(attention_lanes_dq_tc<DH>, smem);
+  if (err == 0) err = allow_shared(attention_lanes_dkv_tc<DH>, smem);
+  if (err != 0) return err;
+  attention_lanes_dq_tc<DH><<<grid, 32 * TC_WARPS, smem, stream>>>(
       q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask, o,
       dout, stats, delta, dq, t_len, heads, causal, scale);
-  const int err = (int)cudaGetLastError();
+  err = (int)cudaGetLastError();
   if (err != 0) return err;
-  attention_lanes_dkv_kernel<DH><<<grid, 2 * BR, 0, stream>>>(
+  attention_lanes_dkv_tc<DH><<<grid, 32 * TC_WARPS, smem, stream>>>(
       q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask,
       dout, stats, delta, dk, dv, t_len, heads, causal, scale);
   return (int)cudaGetLastError();
 }
 
-// --- generic head dims (attention_common.cuh): the same functions, one
-// thread a row, the head dim walked at run time in chunks of C; the q (and
-// do) row re-read per staged tile, the accumulators in shared memory. The
-// forward's arithmetic is the templated kernel's, in the same order.
+// --- generic head dims (attention_common.cuh): one thread a row on the CUDA
+// cores, the head dim walked at run time in chunks of C; the q (and do) row
+// re-read per staged tile, the accumulators in shared memory. The forward's
+// arithmetic is that of the CUDA-core kernels that dh 8, 16, 32 and 64 ran
+// before the tensor-core kernels above, in the same order.
+
+constexpr int BQ = 64;   // query rows per block, one thread each
+constexpr int BKV = 32;  // keys per staged tile
+constexpr int BR = 64;   // rows per backward block
+constexpr int BT = 32;   // rows per staged backward tile
 
 constexpr int C = GENERIC_CHUNK;
 
@@ -773,14 +1086,31 @@ int launch_bwd_generic(const float* q, const float* k, const float* v,
   return (int)cudaGetLastError();
 }
 
+inline bool tc_head_dim(int dh) {
+  return dh == 8 || dh == 16 || dh == 32 || dh == 64;
+}
+
+// Every row of q, k and v starts 16-byte aligned (cp.async of 16 bytes).
+inline bool rows_aligned(const float* q, const float* k, const float* v,
+                         long long q_sb, long long q_st, long long q_sh,
+                         long long k_sb, long long k_st, long long k_sh,
+                         long long v_sb, long long v_st, long long v_sh) {
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  const long long strides =
+      q_sb | q_st | q_sh | k_sb | k_st | k_sh | v_sb | v_st | v_sh;
+  return ptrs % 16 == 0 && strides % 4 == 0;
+}
+
 }  // namespace
 
 // q, k, v: f32, element (b, t, h, d) at b*sb + t*st + h*sh + d (strides in
 // elements); mask: (batch, t_len) uint8 (nonzero = attend) or null;
 // o: (batch, t_len, heads*dh) f32 contiguous; stats: (batch, heads, t_len, 2)
 // f32, each row's (max, sum) for the backward, or null. dh is a multiple of 8
-// from 8 through 128 (attention_common.cuh). Launches on `stream` and
-// returns cudaGetLastError() (0 on success).
+// from 8 through 128 (attention_common.cuh); at dh 8, 16, 32 and 64 (the
+// tensor-core kernels) q, k and v must be 16-byte aligned with strides that
+// are multiples of 4, else cudaErrorMisalignedAddress. Launches on `stream`
+// and returns cudaGetLastError() (0 on success).
 extern "C" int kanvit_attention_lanes_fwd(
     const float* q, const float* k, const float* v, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
@@ -790,6 +1120,9 @@ extern "C" int kanvit_attention_lanes_fwd(
   if (batch <= 0 || t_len <= 0 || heads <= 0 || batch > 65535 || heads > 65535)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (tc_head_dim(dh) && !rows_aligned(q, k, v, q_sb, q_st, q_sh, k_sb, k_st,
+                                       k_sh, v_sb, v_st, v_sh))
+    return (int)cudaErrorMisalignedAddress;
 #define KANVIT_FWD(D)                                                       \
   launch_fwd<D>(q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,   \
                 v_sh, mask, o, stats, batch, t_len, heads, causal, scale, st)
@@ -811,8 +1144,9 @@ extern "C" int kanvit_attention_lanes_fwd(
 // forward's output and dout its gradient, (batch, t_len, heads*dh) f32
 // contiguous; stats: the forward's (batch, heads, t_len, 2); delta: scratch
 // of batch*heads*t_len floats; dq, dk, dv: (batch, t_len, heads*dh) f32
-// contiguous. Launches the dq kernel, then the dk/dv kernel, on `stream` and
-// returns cudaGetLastError() (0 on success).
+// contiguous (dout 16-byte aligned at the tensor-core head dims). Launches
+// the dq kernel, then the dk/dv kernel, on `stream` and returns
+// cudaGetLastError() (0 on success).
 extern "C" int kanvit_attention_lanes_bwd(
     const float* q, const float* k, const float* v, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
@@ -825,6 +1159,10 @@ extern "C" int kanvit_attention_lanes_bwd(
       heads > 65535 || stats == nullptr)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
+  if (tc_head_dim(dh) && (!rows_aligned(q, k, v, q_sb, q_st, q_sh, k_sb, k_st,
+                                        k_sh, v_sb, v_st, v_sh) ||
+                          (uintptr_t)dout % 16 != 0))
+    return (int)cudaErrorMisalignedAddress;
 #define KANVIT_BWD(D)                                                       \
   launch_bwd<D>(q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,   \
                 v_sh, mask, o, dout, stats, delta, dq, dk, dv, batch, t_len, \

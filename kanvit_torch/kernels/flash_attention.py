@@ -30,11 +30,15 @@ from kanvit_torch.ops import dispatch
 
 # kanvit's lanes tier takes any head dim with dh % 8 == 0
 # (flash_attention.py:537-543). The kernels take each such dh up to
-# MAX_HEAD_DIM: templated on dh for 8, 16, 32 and 64, whose threads hold a
-# row in registers, and generic kernels that walk dh in chunks of 8 for the
+# MAX_HEAD_DIM: the lanes kernels run 8, 16, 32 and 64 on the tensor cores
+# (3xTF32 mma.sync, TC_HEAD_DIMS; the tiled kernels template the same dims on
+# the CUDA cores), and generic kernels that walk dh in chunks of 8 take the
 # rest (csrc/attention_common.cuh).
 HEAD_DIM_STEP = 8
 MAX_HEAD_DIM = 128
+TC_HEAD_DIMS = (8, 16, 32, 64)
+# The tensor-core lanes kernels stage rows with 16-byte copies.
+ROW_ALIGN_BYTES = 16
 
 LAUNCHES = {"flash_attention_lanes": 0, "flash_attention_lanes_bwd": 0,
             "flash_attention": 0, "flash_attention_dq": 0,
@@ -125,6 +129,26 @@ def _unit_inner(a: torch.Tensor, name: str) -> torch.Tensor:
     return a.contiguous()
 
 
+def rows_aligned(a: torch.Tensor) -> bool:
+    """True where every row of ``a`` (its last dim) starts 16-byte aligned."""
+    per_row = ROW_ALIGN_BYTES // a.element_size()
+    return (a.data_ptr() % ROW_ALIGN_BYTES == 0
+            and all(st % per_row == 0 for st in a.stride()[:-1]))
+
+
+def check_aligned(**tensors: torch.Tensor) -> None:
+    """Raise unless every row of each tensor starts 16-byte aligned, as the
+    tensor-core lanes kernels (head dims ``TC_HEAD_DIMS``) need. Nothing is
+    copied: a caller with an unaligned view makes it contiguous itself."""
+    for name, a in tensors.items():
+        if a.shape[-1] in TC_HEAD_DIMS and not rows_aligned(a):
+            raise ValueError(
+                f"flash_attention_lanes: {name}'s rows are not 16-byte aligned "
+                f"(data_ptr % 16 = {a.data_ptr() % ROW_ALIGN_BYTES}, strides "
+                f"{tuple(a.stride())}); the tensor-core kernels stage them with "
+                "16-byte copies")
+
+
 def _strides(*views: torch.Tensor) -> list[int]:
     return [st for a in views for st in a.stride()[:3]]
 
@@ -167,6 +191,7 @@ def _launch_bwd(q4, k4, v4, maskb, o, stats, do, causal):
     if b == 0 or t == 0:
         return grads
     do = do.reshape(b, t, h * dh).contiguous()
+    check_aligned(do=do.view(b, t, h, dh))
     delta = torch.empty(b, h, t, dtype=torch.float32, device=dev)
     with torch.cuda.device(dev):
         err = _build.load().kanvit_attention_lanes_bwd(
@@ -214,7 +239,9 @@ def flash_attention_lanes(q, k, v, n_heads, causal=False, mask=None):
     q/k/v slices of the grouped projection's output, read without a copy);
     ``mask``: optional ``(B, T)`` key mask (> 0.5 = attend). Masked keys add
     exactly 0 and a fully masked row outputs 0 and gets gradients of exactly
-    0, as on the TPU.
+    0, as on the TPU. On the card at head dims ``TC_HEAD_DIMS`` every row of
+    ``q``, ``k`` and ``v`` must start 16-byte aligned (the grouped
+    projection's slices do); an unaligned view raises.
     """
     if not dispatch.use_kernel(q):
         return A.lanes_attention(q, k, v, n_heads, causal=causal, mask=mask)
@@ -227,6 +254,7 @@ def flash_attention_lanes(q, k, v, n_heads, causal=False, mask=None):
     if devices != {dev}:
         raise ValueError("flash_attention_lanes: q, k, v and mask must be on "
                          "one device")
+    check_aligned(q=q4, k=k4, v=v4)
     b, t = q4.shape[:2]
     maskb = (None if mask is None
              else A.key_valid(mask, b, t, dev).to(torch.uint8).contiguous())

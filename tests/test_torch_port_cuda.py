@@ -99,6 +99,41 @@ def test_attention_lanes_kernel(cuda, b, t, h, dh, causal, masked):
     assert FA.LAUNCHES["flash_attention_lanes"] == 1
 
 
+def test_attention_lanes_vit_s_repeats_bits_and_holds_f64(cuda):
+    """The 3xTF32 tensor-core kernels at vit-s (B 64, T 197, 6 heads of
+    64): forward and backward give the same bits twice, and the forward is
+    within 1e-6 x max(1, max|o|) of f64 computed on the card."""
+    rng = np.random.default_rng(96)
+    b, t, h, dh = 64, 197, 6, 64
+    y = torch.from_numpy(rng.standard_normal((b * t, h * 3 * dh)).astype(np.float32))
+    y = y.to(cuda)
+    g = torch.from_numpy(rng.standard_normal((b, t, h * dh)).astype(np.float32)).to(cuda)
+
+    def fn(y):
+        y4 = y.view(b, t, h, 3 * dh)
+        return FA.flash_attention_lanes(*(y4[..., i * dh:(i + 1) * dh]
+                                          for i in range(3)), h)
+
+    first, (g1,) = _grads(fn, [y], g)
+    again, (g2,) = _grads(fn, [y], g)
+    assert torch.equal(first, again) and torch.equal(g1, g2)
+    y4 = y.double().view(b, t, h, 3 * dh)
+    exact = A.lanes_attention(*(y4[..., i * dh:(i + 1) * dh] for i in range(3)), h)
+    _close(first.double(), exact, 1e-6)
+    assert (FA.LAUNCHES["flash_attention_lanes"],
+            FA.LAUNCHES["flash_attention_lanes_bwd"]) == (2, 2)
+
+
+def test_attention_lanes_unaligned_rows_raise(cuda):
+    """The tensor-core head dims stage 16-byte rows: a view whose rows are
+    not 16-byte aligned raises, with no copy and no launch."""
+    flat = torch.randn(2 * 9 * 16 + 1, device=cuda)
+    q = flat[1:].view(2, 9, 16)
+    with torch.inference_mode(), pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention_lanes(q, q, q, 2)
+    assert FA.LAUNCHES["flash_attention_lanes"] == 0
+
+
 def test_kernels_raise_not_fall_back(cuda):
     x = torch.zeros(4, 16, device=cuda, dtype=torch.float64)
     grid = K.make_bspline_grid(16, device=cuda)
@@ -486,8 +521,20 @@ def test_variant_train_step_on_card(cuda, variant, launches):
     Linear, FastKAN or SineKAN key's bias, a ChebyKAN key's T_0 slice) has a
     gradient of 0 in
     exact arithmetic, since the softmax cancels it, so Adam moves it by
-    rounding noise of either sign: it is held within 2 steps of lr."""
+    rounding noise of either sign: it is held within 2 steps of lr. So is an
+    element at which the CPU, the reference, is itself unresolved: its Adam
+    step more than half the tolerance from the step that f64 takes from the
+    same parameters (an f64 copy of the CPU model at each step, Adam's
+    moments in f64). The CPU and f64 alone choose these, before the card is
+    compared; they are elements whose gradient is at rounding level beside
+    Adam's eps (fourier's blocks.0.ff.2.weight[352]: 4.1e-9 in f64 beside
+    the tensor's max|g| of 0.116), and the test prints how many. Before the
+    second step the card takes the CPU's values and Adam moments at those
+    elements, so that their first step, which rounding decides, does not
+    move the second step's forward (ReLUs near 0 in the next block)."""
     import copy
+
+    import torch.nn.functional as F
 
     from kanvit_torch.models import create_model
     from kanvit_torch.train import create_train_state, make_train_step
@@ -505,13 +552,36 @@ def test_variant_train_step_on_card(cuda, variant, launches):
     assert {k: n for k, n in {**FB.LAUNCHES, **FA.LAUNCHES}.items() if n} == launches
     step = make_train_step()
     sc, sg = create_train_state(cpu), create_train_state(gpu)
-    for _ in range(2):
+    moments, unresolved = {}, {}
+    for t in (1, 2):
+        exact = copy.deepcopy(cpu).double()
+        exact.zero_grad(set_to_none=True)
+        F.cross_entropy(exact(x.double()), y).backward()
+        before = [p.detach().double().clone() for p in cpu.parameters()]
         sc, lc, _ = step(sc, x, y)
         sg, lg, _ = step(sg, x.to(cuda), y.to(cuda))
         assert abs(float(lc) - float(lg)) <= 1e-4
+        for (name, pc), p0, pe in zip(cpu.named_parameters(), before, exact.parameters()):
+            m, v = moments.get(name, (0.0, 0.0))
+            m, v = 0.9 * m + 0.1 * pe.grad, 0.999 * v + 0.001 * pe.grad ** 2
+            moments[name] = m, v
+            step64 = -1e-3 * (m / (1 - 0.9 ** t)) / ((v / (1 - 0.999 ** t)).sqrt() + 1e-8)
+            off = (pc.detach().double() - p0 - step64).abs() > 0.5e-4
+            unresolved[name] = unresolved.get(name, off) | off
+        if t == 1:
+            with torch.no_grad():
+                for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+                    u = unresolved[name].to(cuda)
+                    pg.copy_(torch.where(u, pc.to(cuda), pg))
+                    mc, mg = sc.tx.optim.state[pc], sg.tx.optim.state[pg]
+                    for key in ("exp_avg", "exp_avg_sq"):
+                        mg[key].copy_(torch.where(u, mc[key].to(cuda), mg[key]))
+    print(f"{variant}: {sum(int(u.sum()) for u in unresolved.values())} elements where "
+          "the CPU's Adam step is off f64's", {k: int(u.sum()) for k, u in unresolved.items()
+                                              if u.any()})
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         diff = (pc - pg.cpu()).detach().abs()
-        noise = torch.zeros_like(diff, dtype=torch.bool)
+        noise = unresolved[name].clone()
         if re.search(r"\.k_mappings\.\d+\.(base_linear\.)?bias$", name):
             noise[...] = True
         elif ".k_mappings." in name and name.endswith(".cheby_coeffs"):
