@@ -12,9 +12,9 @@ Phases, in order; any failure raises, so the script exits non-zero:
    power limit; no CUDA device is an error, never a fall-back to the CPU;
 2. build the CUDA kernels from ``kanvit_torch/kernels/csrc`` (nvcc, one
    process per source, all started together), with each kernel's registers
-   and spills and the SASS instruction mix of the lanes attention's
-   tensor-core kernels at dh 64 (HMMA against the rest, cuobjdump; a
-   report, not a gate);
+   and spills and the SASS instruction mix of the lanes and the tiled
+   attention's tensor-core kernels at dh 64 (HMMA against the rest,
+   cuobjdump; a report, not a gate);
 3. each forward kernel against its plain PyTorch version on the card, at
    the vit-s path's shapes (batch 64) and at a ragged narrow shape, with
    error and time (CUDA events) of both; the grouped q/k/v also at nin 8
@@ -35,8 +35,11 @@ Phases, in order; any failure raises, so the script exits non-zero:
    decoder's shapes (B 16, H 4, T 2048 and B 4, H 4, T 8192, dh 64) and at
    ragged masked shapes whose rows see no valid key (``tq < tk`` and keys
    0-3 masked, also at head dims 8, 40 and 128), with error and time of
-   both; then ``flash_attention``'s single-tile route against
-   ``lanes_attention``, forward and backward, with its device time;
+   both, each kernel's and ``scaled_dot_product_attention``'s device time,
+   and the bits of a repeated forward and backward; the forward at dh 64,
+   seq 2048 also against f64 on the card (1e-6 x max(1, max|o|)); then
+   ``flash_attention``'s single-tile route against ``lanes_attention``,
+   forward and backward, with its device time;
 6. the Chebyshev and Fourier kernels (forward, dx and dW) against their
    plain versions and autograd through them on the card: ``chebykan`` and
    ``fourierkan`` (grid 28) at the vit-s embedder's shapes (12,544 x 768
@@ -108,9 +111,10 @@ Phases, in order; any failure raises, so the script exits non-zero:
     whose JSON line is printed;
 15. one JSON line of per-kernel results (each kernel's launches on its main
     path, and by path; its error, time and plain version's time; its bound,
-    the least time the card could take for the same work, for the lanes
-    attention at the dense TF32 rate for its three products a product with
-    the CUDA-core f32 bound beside it, and, for the attention kernels,
+    the least time the card could take for the same work, for the
+    tensor-core attention kernels at the dense TF32 rate for their three
+    products a product with the CUDA-core f32 bound beside it, and, for the
+    attention kernels,
     ``scaled_dot_product_attention``'s time on the same inputs), the card's
     ``nvidia-smi`` line, and last the result line
     ``{"ok": true, "device": {...}}``.
@@ -159,9 +163,9 @@ TOL_GRADS = 1e-3
 # at f32 rounding level (2^-24): its gradient is held against the largest.
 F32_ROUNDING = 2.0 ** -24
 # The card's published peaks (NVIDIA H100 SXM data sheet) for bound_ms: f32
-# outside the tensor cores (the KAN, FF and tiled attention kernels), dense
-# TF32 on the tensor cores (the lanes attention, 3xTF32: three TF32 products
-# for each f32 one) and HBM3.
+# outside the tensor cores (the KAN and FF kernels, the generic attention
+# head dims), dense TF32 on the tensor cores (the attention kernels at
+# TC_HEAD_DIMS, 3xTF32: three TF32 products for each f32 one) and HBM3.
 PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 TF32_PASSES = 3
@@ -255,7 +259,8 @@ def phase_build():
 # The tensor-core kernels whose instruction mix the build reports: what
 # issues beside each HMMA (mma.sync) bounds them (PERF.md).
 SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
-                "attention_lanes_dkv_tcILi64")
+                "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
+                "flash_dq_tcILi64", "flash_dkv_tcILi64")
 
 
 def sass_mix(lib):
@@ -273,17 +278,27 @@ def sass_mix(lib):
     sass = run.stdout
     for name in SASS_KERNELS:
         body = sass.split(name, 1)[1].split("Function : ", 1)[0] if name in sass else ""
-        ops = re.findall(r"^\s+/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)",
-                         body, re.M)
-        if not ops:
+        code = [(int(at, 16), op, rest) for at, op, rest in re.findall(
+            r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(.*)$",
+            body, re.M)]
+        if not code:
             print(f"[build] SASS {name}: not found in the library")
             continue
         counts = {}
-        for op in ops:
+        for _, op, _ in code:
             counts[op] = counts.get(op, 0) + 1
         top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
-        print(f"[build] SASS {name}: {counts.get('HMMA', 0)} HMMA of {len(ops)} "
-              f"instructions; " + " ".join(f"{op} {n}" for op, n in top))
+        # the main loop: the backward branch spanning the most code
+        back = [(int(m.group(1), 16), at) for at, op, rest in code if op == "BRA"
+                for m in [re.search(r"0x([0-9a-f]+)", rest)]
+                if m and int(m.group(1), 16) < at]
+        loop = ""
+        if back:
+            lo, hi = max(back, key=lambda b: b[1] - b[0])
+            ops = [op for at, op, _ in code if lo <= at <= hi]
+            loop = f"; main loop {ops.count('HMMA')} HMMA of {len(ops)}"
+        print(f"[build] SASS {name}: {counts.get('HMMA', 0)} HMMA of {len(code)} "
+              f"instructions{loop}; " + " ".join(f"{op} {n}" for op, n in top))
 
 
 # --------------------------------------------------------------------------
@@ -834,9 +849,11 @@ def flash_inputs(torch, rng, b, h, tq, tk, dh):
 def check_flash(torch, rng, b, h, tq, tk, dh, causal, mask, label, iters):
     """Forward, dq and dk/dv of ``flash_attention`` (tiled tier, buckets
     512/1024) against ``flash_attention_reference`` and autograd through
-    it; times of each kernel alone and of its plain counterpart (the plain
-    forward; autograd's backward to q, and to k and v). Returns ``(o, v,
-    {kernel: (err, ms, plain_ms)})``."""
+    it, and the bits of a repeated forward and backward; times of each
+    kernel alone (CUDA events, and its device time from the profiler) and
+    of its plain counterpart (the plain forward; autograd's backward to q,
+    and to k and v), and ``scaled_dot_product_attention``'s. Returns ``(o,
+    v, {kernel: (err, ms, plain_ms, extras, bound)})``."""
     from kanvit_torch.kernels import flash_attention as FA
     from kanvit_torch.ops import attention as A
 
@@ -856,43 +873,82 @@ def check_flash(torch, rng, b, h, tq, tk, dh, causal, mask, label, iters):
     with torch.inference_mode():
         o = kernel(q, k, v)
         err_fwd = compare(f"flash_attention {tag}", o, plain(q, k, v), TOL_ATTN)
+        same_fwd = torch.equal(o, kernel(q, k, v))
     _, _, got = grads_of(torch, kernel, [q, k, v], g)
+    _, _, again = grads_of(torch, kernel, [q, k, v], g)
     leaves, out, want = grads_of(torch, plain, [q, k, v], g)
     torch.cuda.synchronize()
     err_dq = compare(f"flash_attention_dq {tag} dq", got[0], want[0], TOL_BWD)
     err_dkv = max(compare(f"flash_attention_dkv {tag} d{nm}", a, w, TOL_BWD)
                   for nm, a, w in zip("kv", got[1:], want[1:]))
+    same_bwd = all(torch.equal(a, w) for a, w in zip(got, again))
+    print(f"[kernel] tiled attention {label}: bits repeat forward {same_fwd}, "
+          f"backward {same_bwd}")
+    check(same_fwd and same_bwd, f"tiled attention {label}: the bits of a "
+                                 "repeated forward or backward differ")
 
     maskb = None if keys is None else keys.to(torch.uint8).contiguous()
     do = g.transpose(1, 2).contiguous()
     with torch.inference_mode():
         o4, stats = FA._launch_tiled(q, k, v, maskb, causal, True)
         _, delta = FA._launch_tiled_dq(q, k, v, maskb, o4, stats, do, causal)
-        ms = {
-            "fwd": time_ms(torch, lambda: FA._launch_tiled(q, k, v, maskb, causal,
-                                                           False), iters, 2),
-            "dq": time_ms(torch, lambda: FA._launch_tiled_dq(
-                q, k, v, maskb, o4, stats, do, causal), iters, 2),
-            "dkv": time_ms(torch, lambda: FA._launch_tiled_dkv(
-                q, k, v, maskb, stats, do, delta, causal), iters, 2),
-            "plain fwd": time_ms(torch, lambda: plain(q, k, v), iters, 2),
+        calls = {
+            "fwd": lambda: FA._launch_tiled(q, k, v, maskb, causal, False),
+            "dq": lambda: FA._launch_tiled_dq(q, k, v, maskb, o4, stats, do, causal),
+            "dkv": lambda: FA._launch_tiled_dkv(q, k, v, maskb, stats, do, delta,
+                                                causal),
         }
+        ms = {part: time_ms(torch, fn, iters, 2) for part, fn in calls.items()}
+        ms.update({f"{part} device": kernel_ms(torch, fn, iters, 2)
+                   for part, fn in calls.items()})
+        ms["plain fwd"] = time_ms(torch, lambda: plain(q, k, v), iters, 2)
     ms["plain dq"] = time_ms(torch, lambda: torch.autograd.grad(
         out, leaves[:1], g, retain_graph=True), iters, 2)
     ms["plain dkv"] = time_ms(torch, lambda: torch.autograd.grad(
         out, leaves[1:], g, retain_graph=True), iters, 2)
     for part in ("fwd", "dq", "dkv"):
-        ms[f"sdpa {part}"] = sdpa_ms(torch, q, k, v, causal, keys,
-                                     None if part == "fwd" else part[1:], iters)
+        grad_of = None if part == "fwd" else part[1:]
+        ms[f"sdpa {part}"] = sdpa_ms(torch, q, k, v, causal, keys, grad_of, iters)
+        ms[f"sdpa {part} device"] = sdpa_ms(torch, q, k, v, causal, keys, grad_of,
+                                            iters, device=True)
     print(f"[kernel] tiled attention {label}: " + "  ".join(
         f"{key} {val:.4f} ms" for key, val in ms.items()))
-    bounds = {part: attention_bound(b, h, tq, tk, dh, causal and tq == tk, part,
-                                    ms[f"sdpa {part}"]) for part in ("fwd", "dq", "dkv")}
-    return o, v, {
-        "flash_attention": (err_fwd, ms["fwd"], ms["plain fwd"], bounds["fwd"]),
-        "flash_attention_dq": (err_dq, ms["dq"], ms["plain dq"], bounds["dq"]),
-        "flash_attention_dkv": (err_dkv, ms["dkv"], ms["plain dkv"], bounds["dkv"]),
-    }
+    tc = dh in FA.TC_HEAD_DIMS
+    results = {}
+    for name, part, err in (("flash_attention", "fwd", err_fwd),
+                            ("flash_attention_dq", "dq", err_dq),
+                            ("flash_attention_dkv", "dkv", err_dkv)):
+        bnd = attention_bound(b, h, tq, tk, dh, causal and tq == tk, part,
+                              ms[f"sdpa {part}"], tensor_cores=tc)
+        results[name] = (err, ms[part], ms[f"plain {part}"],
+                         {"device_ms": ms[f"{part} device"],
+                          "library_device_ms": ms[f"sdpa {part} device"]}, bnd)
+        print(f"[kernel] {name} {label}: {ms[part]:.4f} ms (device "
+              f"{ms[f'{part} device']:.4f}); bound {bnd['bound_ms']:.4f} ms "
+              f"({bnd['bound_by']}, {bnd['bound_ms'] / ms[f'{part} device']:.1%} of "
+              f"the device time)" + (f", f32 bound {bnd['f32_bound_ms']:.4f}" if tc
+                                     else ""))
+    return o, v, results
+
+
+def check_flash_f64(torch, rng):
+    """The tiled forward at dh 64 on the decoder's seq 2048 (B 2, H 4,
+    causal) against ``flash_attention_reference`` in f64 on the card:
+    within TOL_ATTN_F64 x max(1, max|o|), the accuracy of f32."""
+    from kanvit_torch.kernels import flash_attention as FA
+    from kanvit_torch.ops import attention as A
+
+    q, k, v = flash_inputs(torch, rng, 2, 4, 2048, 2048, 64)
+    with torch.inference_mode():
+        o = FA.flash_attention(q, k, v, True, 512, 1024)
+        exact = A.flash_attention_reference(q.double(), k.double(), v.double(),
+                                            True, 512, 1024)[0]
+    err = float((o.double() - exact).abs().max()) / max(1.0, float(exact.abs().max()))
+    print(f"[kernel] flash_attention B=2 H=4 T=2048 dh=64 causal: against f64 on "
+          f"the card {err:.3e} of max(1, max|o|)  limit {TOL_ATTN_F64:.0e}")
+    check(err <= TOL_ATTN_F64, f"flash_attention: {err:.3e} from f64, over "
+                               f"{TOL_ATTN_F64:.0e}")
+    return err
 
 
 def check_no_visible_key(torch, o, v, mask, rows, item, label):
@@ -994,7 +1050,7 @@ def phase_flash_kernels(torch):
     o, v, _ = check_flash(torch, rng, 2, 2, 1000, 1000, 16, True, mask,
                           "keys 0-3 masked", iters=3)
     check_no_visible_key(torch, o, v, mask, slice(0, 4), 0, "keys 0-3 masked")
-    # head dim 8 (templated) and two the generic kernels take
+    # head dim 8 (tensor cores) and two the generic kernels take
     by_dh = {}
     for key, dh in (("at_dh_8", 8), ("at_dh_40_generic", 40),
                     ("at_dh_128_generic", 128)):
@@ -1002,9 +1058,12 @@ def phase_flash_kernels(torch):
                                        f"keys 0-3 masked dh {dh}", iters=3)
         check_no_visible_key(torch, o, v, mask, slice(0, 4), 0,
                              f"keys 0-3 masked dh {dh}")
-    return {name: (*main[name], {"at_seq_8192_batch_4": sub_entry(long[name])},
-                   *({key: sub_entry(r[name])} for key, r in by_dh.items()))
-            for name in main}
+    err64 = check_flash_f64(torch, rng)
+    out = {name: (*main[name], {"at_seq_8192_batch_4": sub_entry(long[name])},
+                  *({key: sub_entry(r[name])} for key, r in by_dh.items()))
+           for name in main}
+    out["flash_attention"] += ({"err_vs_f64": err64},)
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -1863,9 +1922,9 @@ KERNEL_GROUPS = (
     ("RBF LayerNorm stats and VJP", ("ln_stats_kernel", "ln_dx_kernel", "ln_dgb_kernel")),
     ("attention fwd", ("attention_lanes_fwd",)),
     ("attention bwd", ("attention_lanes_dq", "attention_lanes_dkv")),
-    ("tiled attention fwd", ("flash_fwd_kernel",)),
-    ("tiled attention dq", ("flash_dq_kernel",)),
-    ("tiled attention dk/dv", ("flash_dkv_kernel",)),
+    ("tiled attention fwd", ("flash_fwd_",)),
+    ("tiled attention dq", ("flash_dq_",)),
+    ("tiled attention dk/dv", ("flash_dkv_",)),
     ("fused FF fwd", ("ffn_fwd_kernel",)),
     ("fused FF bwd", ("ffn_bwd_rows_kernel", "ffn_dw_kernel", "ffn_sum_parts_kernel")),
     ("int8 linear", ("int8_linear_kernel",)),

@@ -49,7 +49,7 @@
 // end of the file (attention_common.cuh): no main path runs them, and a
 // templated instantiation per dh made the build run past its time limit.
 //
-// -- Arithmetic: 3xTF32 on mma.sync.m16n8k8 --------------------------------
+// -- Arithmetic: 3xTF32 on mma.sync.m16n8k8 (helpers: attention_tc.cuh) ----
 // Every product runs as mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.
 // Each f32 operand x is split in registers into big = tf32(x) and small =
 // tf32(x - big) (cvt.rna.tf32.f32 both), and a product is three mma into
@@ -110,6 +110,7 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
@@ -118,121 +119,9 @@ constexpr float MAX_CLAMP = -1e30f;
 
 // --- tensor-core kernels: dh 8, 16, 32, 64 ---------------------------------
 
-constexpr int TC_WARPS = 4;
 constexpr int TC_ROWS = 16 * TC_WARPS;  // rows a block: queries (fwd, dq), keys (dk/dv)
 constexpr int TC_TILE = 32;             // keys (queries in dk/dv) a staged tile
 constexpr int TC_STEPS = TC_TILE / 8;   // 8-wide steps a tile
-constexpr int TC_PAD = 4;               // row pitch dh + 4 floats
-
-__device__ __forceinline__ uint32_t tf32_rna(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// x = big + small, both TF32.
-__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
-  big = tf32_rna(x);
-  small = tf32_rna(x - __uint_as_float(big));
-}
-
-// An A fragment (4 floats) or a B fragment (2 floats), split.
-template <int N>
-struct Frag {
-  uint32_t big[N], small[N];
-  Frag() = default;
-  __device__ __forceinline__ explicit Frag(const float (&x)[N]) {
-#pragma unroll
-    for (int i = 0; i < N; ++i) split(x[i], big[i], small[i]);
-  }
-};
-
-__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
-                                         const uint32_t (&b)[2]) {
-  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
-}
-
-// d += a b in 3xTF32: small*big, big*small, big*big into a zeroed
-// accumulator, which an f32 add (round to nearest) then takes into d (the
-// header says why).
-__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a,
-                                     const Frag<2>& b) {
-  float c[4] = {0.f, 0.f, 0.f, 0.f};
-  mma_tf32(c, a.small, b.big);
-  mma_tf32(c, a.big, b.small);
-  mma_tf32(c, a.big, b.big);
-#pragma unroll
-  for (int i = 0; i < 4; ++i) d[i] += c[i];
-}
-
-// A from a C fragment, the contracted index permuted (c0, c2, c1, c3).
-__device__ __forceinline__ Frag<4> c_as_a(const float (&c)[4]) {
-  const float a[4] = {c[0], c[2], c[1], c[3]};
-  return Frag<4>(a);
-}
-
-// B at (k t, n g), (k t+4, n g) of a tile stored (n, k): row g, columns
-// t and t+4 of `row_g` (row g's first column of this step).
-__device__ __forceinline__ Frag<2> b_row(const float* row_g, float scale = 1.f) {
-  const float b[2] = {row_g[0] * scale, row_g[4] * scale};
-  return Frag<2>(b);
-}
-
-// B at (k t, n g), (k t+4, n g) of a tile stored (k, n) with k permuted:
-// rows 2t and 2t+1, column g. `at` points at row 2t, column g.
-template <int PITCH>
-__device__ __forceinline__ Frag<2> b_pair(const float* at, float scale = 1.f) {
-  const float b[2] = {at[0] * scale, at[PITCH] * scale};
-  return Frag<2>(b);
-}
-
-__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
-               :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
-}
-
-// Stage rows row0 .. row0+ROWS-1 (row r at src + r*stride, dh floats) into
-// a (ROWS, DH + TC_PAD) tile with 16-byte cp.async; rows past t_len are
-// zero-filled.
-template <int DH, int ROWS>
-__device__ __forceinline__ void stage_tile(float* dst, const float* src,
-                                           long long stride, int row0,
-                                           int t_len, int tid) {
-  constexpr int CH = DH / 4;  // 16-byte chunks a row
-  constexpr int NT = 32 * TC_WARPS;
-#pragma unroll
-  for (int i = 0; i < (ROWS * CH + NT - 1) / NT; ++i) {
-    const int e = tid + i * NT;
-    if (ROWS * CH % NT != 0 && e >= ROWS * CH) break;
-    const int r = e / CH, c = (e % CH) * 4, row = row0 + r;
-    const bool in = row < t_len;
-    cp_async16(dst + r * (DH + TC_PAD) + c, in ? src + row * stride + c : src, in);
-  }
-}
-
-// Max and sum across the four threads of a fragment row.
-__device__ __forceinline__ float quad_max(float x) {
-  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
-  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
-}
-
-__device__ __forceinline__ float quad_sum(float x) {
-  x += __shfl_xor_sync(0xffffffffu, x, 1);
-  return x + __shfl_xor_sync(0xffffffffu, x, 2);
-}
 
 // Forward. One block per (64 query rows, head, batch); warp w owns rows
 // q0 + 16w .. +15.
@@ -381,16 +270,6 @@ attention_lanes_fwd_tc(const float* __restrict__ q,
       sp[1] = half ? lb : la;
     }
   }
-}
-
-// Rows of a block's operand kept in shared memory (the backward's A
-// operands): A at rows r, r+8 and columns c, c+4 of a (rows, DH + TC_PAD)
-// tile, `at` pointing at (r, c), scaled and split.
-template <int PITCH>
-__device__ __forceinline__ Frag<4> a_rows(const float* at, float scale = 1.f) {
-  const float a[4] = {at[0] * scale, at[8 * PITCH] * scale, at[4] * scale,
-                      at[8 * PITCH + 4] * scale};
-  return Frag<4>(a);
 }
 
 // dq and delta. One block per (64 query rows, head, batch); warp w owns
@@ -1084,21 +963,6 @@ int launch_bwd_generic(const float* q, const float* k, const float* v,
       q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask,
       dout, stats, delta, dk, dv, t_len, heads, dh, causal, scale);
   return (int)cudaGetLastError();
-}
-
-inline bool tc_head_dim(int dh) {
-  return dh == 8 || dh == 16 || dh == 32 || dh == 64;
-}
-
-// Every row of q, k and v starts 16-byte aligned (cp.async of 16 bytes).
-inline bool rows_aligned(const float* q, const float* k, const float* v,
-                         long long q_sb, long long q_st, long long q_sh,
-                         long long k_sb, long long k_st, long long k_sh,
-                         long long v_sb, long long v_st, long long v_sh) {
-  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
-  const long long strides =
-      q_sb | q_st | q_sh | k_sb | k_st | k_sh | v_sb | v_st | v_sh;
-  return ptrs % 16 == 0 && strides % 4 == 0;
 }
 
 }  // namespace

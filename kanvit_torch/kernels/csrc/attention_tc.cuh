@@ -1,0 +1,183 @@
+// The 3xTF32 tensor-core helpers of the attention kernels
+// (attention_lanes.cu, flash_attention.cu): the TF32 split of an f32
+// operand, mma.sync.m16n8k8 fragments and the three-product step, 16-byte
+// cp.async staging, the reductions across a fragment row's four threads,
+// and which head dims take these kernels.
+//
+// Arithmetic: every product runs as
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32. Each f32 operand x is
+// split into big = tf32(x) and small = tf32(x - big), both rounded to
+// nearest with ties away from zero, and a product is three mma into one
+// zeroed f32 accumulator, in the order small*big, big*small, big*big
+// (CUTLASS's OpMultiplyAddFastF32), which an f32 add then takes into the
+// running sum (mma3): the tensor cores' own accumulation truncates, and
+// chained through the running sum it put the vit-s lanes forward further
+// from f64 than 1e-6. The dropped small*small term is ~2^-22 of a product.
+//
+// Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A holds (g, t),
+// (g+8, t), (g, t+4), (g+8, t+4); B holds (k t, n g), (k t+4, n g); the
+// accumulator C holds (g, 2t), (g, 2t+1), (g+8, 2t), (g+8, 2t+1). A C
+// fragment becomes the next product's A when the contracted index of each
+// 8-wide step is numbered k t <-> 2t, k t+4 <-> 2t+1 (c_as_a); that
+// product's B then reads rows 2t and 2t+1 of its tile at column g.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int TC_WARPS = 4;  // warps a block
+constexpr int TC_PAD = 4;    // a staged f32 tile's row pitch is dh + 4 floats
+
+inline bool tc_head_dim(int dh) {
+  return dh == 8 || dh == 16 || dh == 32 || dh == 64;
+}
+
+// Every row of q, k and v starts 16-byte aligned (cp.async of 16 bytes).
+inline bool rows_aligned(const float* q, const float* k, const float* v,
+                         long long q_sb, long long q_st, long long q_sh,
+                         long long k_sb, long long k_st, long long k_sh,
+                         long long v_sb, long long v_st, long long v_sh) {
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  const long long strides =
+      q_sb | q_st | q_sh | k_sb | k_st | k_sh | v_sb | v_st | v_sh;
+  return ptrs % 16 == 0 && strides % 4 == 0;
+}
+
+__device__ __forceinline__ uint32_t tf32_rna(float x) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
+  return r;
+}
+
+// x = big + small, both TF32.
+__device__ __forceinline__ void split(float x, uint32_t& big, uint32_t& small) {
+  big = tf32_rna(x);
+  small = tf32_rna(x - __uint_as_float(big));
+}
+
+// tf32_rna in two integer instructions: add half of the dropped 13 bits'
+// range to the magnitude's bits, then clear them. The same bits as
+// cvt.rna.tf32.f32 for every finite x; cvt adds a check for inf and NaN
+// (the FSETP and SEL of the lanes kernels' SASS). The tiled kernels split
+// with it; the lanes kernels keep tf32_rna, and their bits.
+__device__ __forceinline__ uint32_t tf32_round(float x) {
+  return (__float_as_uint(x) + 0x1000u) & 0xffffe000u;
+}
+
+__device__ __forceinline__ void split_round(float x, uint32_t& big,
+                                            uint32_t& small) {
+  big = tf32_round(x);
+  small = tf32_round(x - __uint_as_float(big));
+}
+
+// An A fragment (4 floats) or a B fragment (2 floats), split.
+template <int N>
+struct Frag {
+  uint32_t big[N], small[N];
+  Frag() = default;
+  __device__ __forceinline__ explicit Frag(const float (&x)[N]) {
+#pragma unroll
+    for (int i = 0; i < N; ++i) split(x[i], big[i], small[i]);
+  }
+};
+
+__device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// d += a b in 3xTF32: small*big, big*small, big*big into a zeroed
+// accumulator, which an f32 add (round to nearest) then takes into d.
+__device__ __forceinline__ void mma3(float (&d)[4], const Frag<4>& a,
+                                     const Frag<2>& b) {
+  float c[4] = {0.f, 0.f, 0.f, 0.f};
+  mma_tf32(c, a.small, b.big);
+  mma_tf32(c, a.big, b.small);
+  mma_tf32(c, a.big, b.big);
+#pragma unroll
+  for (int i = 0; i < 4; ++i) d[i] += c[i];
+}
+
+// A from a C fragment, the contracted index permuted (c0, c2, c1, c3).
+__device__ __forceinline__ Frag<4> c_as_a(const float (&c)[4]) {
+  const float a[4] = {c[0], c[2], c[1], c[3]};
+  return Frag<4>(a);
+}
+
+// B at (k t, n g), (k t+4, n g) of a tile stored (n, k): row g, columns
+// t and t+4 of `row_g` (row g's first column of this step).
+__device__ __forceinline__ Frag<2> b_row(const float* row_g, float scale = 1.f) {
+  const float b[2] = {row_g[0] * scale, row_g[4] * scale};
+  return Frag<2>(b);
+}
+
+// B at (k t, n g), (k t+4, n g) of a tile stored (k, n) with k permuted:
+// rows 2t and 2t+1, column g. `at` points at row 2t, column g.
+template <int PITCH>
+__device__ __forceinline__ Frag<2> b_pair(const float* at, float scale = 1.f) {
+  const float b[2] = {at[0] * scale, at[PITCH] * scale};
+  return Frag<2>(b);
+}
+
+// Rows of a block's operand kept in shared memory: A at rows r, r+8 and
+// columns c, c+4 of a (rows, DH + TC_PAD) tile, `at` pointing at (r, c),
+// scaled and split.
+template <int PITCH>
+__device__ __forceinline__ Frag<4> a_rows(const float* at, float scale = 1.f) {
+  const float a[4] = {at[0] * scale, at[8 * PITCH] * scale, at[4] * scale,
+                      at[8 * PITCH + 4] * scale};
+  return Frag<4>(a);
+}
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;"
+               :: "r"(s), "l"(src), "r"(in ? 16 : 0) : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;" :: "n"(N) : "memory");
+}
+
+// Stage rows row0 .. row0+ROWS-1 (row r at src + r*stride, dh floats) into
+// a (ROWS, DH + TC_PAD) tile with 16-byte cp.async; rows past t_len are
+// zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void stage_tile(float* dst, const float* src,
+                                           long long stride, int row0,
+                                           int t_len, int tid) {
+  constexpr int CH = DH / 4;  // 16-byte chunks a row
+  constexpr int NT = 32 * TC_WARPS;
+#pragma unroll
+  for (int i = 0; i < (ROWS * CH + NT - 1) / NT; ++i) {
+    const int e = tid + i * NT;
+    if (ROWS * CH % NT != 0 && e >= ROWS * CH) break;
+    const int r = e / CH, c = (e % CH) * 4, row = row0 + r;
+    const bool in = row < t_len;
+    cp_async16(dst + r * (DH + TC_PAD) + c, in ? src + row * stride + c : src, in);
+  }
+}
+
+// Max and sum across the four threads of a fragment row.
+__device__ __forceinline__ float quad_max(float x) {
+  x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 1));
+  return fmaxf(x, __shfl_xor_sync(0xffffffffu, x, 2));
+}
+
+__device__ __forceinline__ float quad_sum(float x) {
+  x += __shfl_xor_sync(0xffffffffu, x, 1);
+  return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+}  // namespace

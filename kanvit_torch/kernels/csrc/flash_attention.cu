@@ -31,23 +31,56 @@
 // What bounds them on the H100: at the causal decoder's shapes (B*H = 64,
 // T = 2048, or B*H = 16, T = 8192, dh = 64) the forward's two products are
 // 2*B*H*T^2*dh FLOP with causal skipping (34 GFLOP at T = 2048) against
-// 4*B*H*T*dh*4 B = 134 MB of q, k, v and o: arithmetic, and the exp of every
-// score, bound them, as the lanes kernels. The backward recomputes the
-// scores in both of its kernels (7 products in all).
+// 4*B*H*T*dh*4 B = 134 MB of q, k, v and o: arithmetic bounds them, 0.21 ms
+// at the dense TF32 rate for three TF32 products an f32 one, and the expf of
+// every score. The backward recomputes the scores in both of its kernels
+// (7 products in all).
 //
-// Design, as attention_lanes.cu: the forward takes one thread per query row
-// (BQ rows a block), keeps its scaled q row and accumulator in registers and
-// streams K/V tiles of BKV keys staged in shared memory. The backward is a
-// dq kernel per query tile (which also writes delta) and a dk/dv kernel per
-// key tile, two threads per row with half the head dims each, deterministic
-// (no atomics). Causal blocks stop at their last row's key, unless one of
-// their rows has seen no valid key yet: that row needs every later tile
-// (p = 1 on every valid key), so the block goes on. The dk/dv kernel skips
-// query tiles that see none of its keys causally unless a row in them has
-// m = NEG_INF. All math is f32 on the CUDA cores, with IEEE expf (no fast
-// math, which would change the fully masked rows); tensor-core products are
-// later work. As in attention_lanes.cu, head dims other than 8, 16, 32 and
-// 64 run generic kernels that walk dh at run time in chunks of 8.
+// Head dims 8, 16, 32 and 64 run the tensor-core kernels below; every other
+// multiple of 8 through 128 runs the generic CUDA-core kernels at the end
+// of the file (attention_common.cuh).
+//
+// -- Arithmetic: 3xTF32 on mma.sync.m16n8k8 (attention_tc.cuh), as the
+// lanes kernels: each f32 operand split into two TF32 parts, three products
+// a step into a zeroed accumulator, an f32 add into the running sum. IEEE
+// expf (never __expf or ex2.approx, which would change the rows that see no
+// valid key). Masks are applied to S after the products, as the finite
+// NEG_INF; keys and queries past T are zero-filled and invalid.
+//
+// -- Layout. A block is 4 warps and owns 64 resident rows, 16 a warp
+// (queries in the forward and dq, keys in dk/dv), and streams tiles of the
+// other side: 32 keys (forward), 16 keys (dq) or 16 queries (dk/dv). What
+// bounded the lanes kernels was the instructions beside each mma, above all
+// the operand splits each warp repeated on its own fragments. Here each
+// streamed tile lands in shared memory by 16-byte cp.async and is split
+// once, by the whole block, into big/small TF32 words laid out so that
+// every fragment is 16-byte loads (the rows, pairs and afrags layouts
+// below; split_rows_pairs writes a tile's two layouts from one read). No
+// split remains in the product loops but that of P and dS, which go from
+// the accumulator registers into the next product (c_as_a_round: the
+// contracted index renumbered, as in the lanes kernels; dk/dv computes
+// S^T = K (q scale)^T and dP^T = V do^T itself, so P^T and dS^T take the
+// same route). The resident rows are split once too: the forward's and
+// dq's q in registers (A fragments), dq's do and dk/dv's k and v in shared
+// memory. Per tile: wait for the copy, barrier, split, barrier, start the
+// next tile's copy, compute; the copy overlaps the products. Each exp is
+// computed for every score and then selected, never under a branch. Block
+// shapes and tiles are set by registers and shared memory: the forward
+// caps registers at 168 for 3 blocks an SM, dq (255 registers, 66 KB) and
+// dk/dv (201, 107 KB) run 2; what bounds them then is latency (PERF.md).
+//
+// -- Semantics on the tiles. A block stops at its causal frontier only when
+// no live row still has m == NEG_INF (such a row takes every later valid
+// key); a warp skips a key tile past its last row unless one of its rows
+// has m == NEG_INF, and masks the rest per score. dq skips keys past its
+// rows (ds is 0 there). dk/dv skips the query tiles that see none of its
+// keys causally only when no row before the block's last key has
+// m == NEG_INF (read from stats); else it streams every query tile. Causal
+// blocks of the forward and dq are launched longest first (the query tile
+// is the slowest grid dimension, reversed); dk/dv's longest key tile is the
+// first. Two backward kernels, one per query tile (dq, which writes delta)
+// and one per key tile (dk, dv), each summing in a fixed order: no
+// atomics, the bits repeat.
 
 #include <cuda_runtime.h>
 #include <float.h>
@@ -55,13 +88,14 @@
 #include <stdint.h>
 
 #include "attention_common.cuh"
+#include "attention_tc.cuh"
 
 namespace {
 
-constexpr int BQ = 64;   // query rows per forward block, one thread each
-constexpr int BKV = 32;  // keys per staged forward tile
-constexpr int BR = 64;   // rows per backward block, two threads each
-constexpr int BT = 32;   // rows per staged backward tile
+constexpr int BQ = 64;   // query rows per generic forward block, one thread each
+constexpr int BKV = 32;  // keys per staged generic forward tile
+constexpr int BR = 64;   // rows per generic backward block
+constexpr int BT = 32;   // rows per staged generic backward tile
 constexpr float EPSILON = 1e-10f;
 constexpr float NEG_INF = -FLT_MAX;
 
@@ -79,312 +113,692 @@ __device__ __forceinline__ bool key_ok(const uint8_t* mask, int b, int tk,
   return key < tk && (mask == nullptr || mask[(long long)b * tk + key] != 0);
 }
 
-// Forward. One block per (query tile of BQ rows, head, batch), one thread
-// per query row.
+// The tensor-core kernels' grids hold the 64-row tiles in z (at most 65535).
+bool bad_dims(int batch, int tq, int tk, int heads) {
+  return batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 || batch > 65535 ||
+         heads > 65535 || tq > 65535 * 64 || tk > 65535 * 64;
+}
+
+// --- tensor-core kernels: dh 8, 16, 32, 64 ---------------------------------
+
+constexpr int NT = 32 * TC_WARPS;       // threads a block
+constexpr int TC_ROWS = 16 * TC_WARPS;  // resident rows a block
+constexpr int FWD_KEYS = 32;            // keys a streamed forward tile
+constexpr int DQ_KEYS = 16;             // keys a streamed dq tile
+constexpr int DKV_QUERIES = 16;         // queries a streamed dk/dv tile
+
+// Split operands in shared memory, 32-bit TF32 words laid out so that
+// each thread's fragment is 16-byte loads, with no padding:
+//   rows:   an (R, DH) tile, row r's 8-column step s at words
+//           r*2DH + 16*(s ^ (r & 1)) + 4t + [big(c t), big(c t+4),
+//           small(c t), small(c t+4)] of its columns 8s + t, 8s + t + 4:
+//           the B fragment (k t, n g) of a tile stored (n, k), at row g;
+//   pairs:  an (R, DH) tile stored by column, column c's 8-row step s at
+//           c*2R + 16*(s ^ (c & 1)) + 4t + [big(2t), big(2t+1), small(2t),
+//           small(2t+1)] of its rows 8s + 2t, 8s + 2t + 1: the B fragment of
+//           a tile stored (k, n) with k renumbered, at column g;
+//   afrags: R resident rows, block w of 16 rows and 8-column step kd at
+//           (w*KD + kd)*256: the 32 lanes' big parts, 4 words each in the A
+//           register order (g, t), (g+8, t), (g, t+4), (g+8, t+4), then
+//           their small parts.
+// The swizzle (s ^ parity) puts the 16-byte loads of each quarter-warp
+// (rows or columns g, g+1; t = 0..3) on 32 distinct banks; at dh 8 a row
+// is one 16-word step and needs none.
 template <int DH>
-__global__ void __launch_bounds__(BQ)
-flash_fwd_kernel(View q, View k, View v, const uint8_t* __restrict__ mask,
-                 float* __restrict__ o, float* __restrict__ stats, int tq,
-                 int tk, int heads, int causal, float scale) {
-  __shared__ float ks[BKV][DH];
-  __shared__ float vs[BKV][DH];
-  __shared__ int kvalid[BKV];
+__device__ __forceinline__ int rows_word(int r, int s) {
+  return r * 2 * DH + 16 * (DH > 8 ? s ^ (r & 1) : s);
+}
 
-  const int tid = threadIdx.x;
-  const int q0 = blockIdx.x * BQ;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int qi = q0 + tid;
-  const bool live = qi < tq;
-  const int diff = max(tk - tq, 0);
-  const int qpos = qi - diff;
+template <int R>
+__device__ __forceinline__ int pairs_word(int c, int s) {
+  return c * 2 * R + 16 * (s ^ (c & 1));
+}
 
-  float qr[DH], acc[DH];
-  if (live) {
-    const float* qp = q.at(b, qi, h);
+template <int N>
+__device__ __forceinline__ Frag<N> split_frag(const float (&x)[N]) {
+  Frag<N> f;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = qp[d] * scale;
-  } else {
-#pragma unroll
-    for (int d = 0; d < DH; ++d) qr[d] = 0.f;
+  for (int i = 0; i < N; ++i) split_round(x[i], f.big[i], f.small[i]);
+  return f;
+}
+
+// c_as_a with the integer split.
+__device__ __forceinline__ Frag<4> c_as_a_round(const float (&c)[4]) {
+  const float a[4] = {c[0], c[2], c[1], c[3]};
+  return split_frag(a);
+}
+
+// One thread's B fragments of a rows or pairs tile (PITCH = 2DH or 2R
+// words): at(i, j) is the fragment of rows (columns) 8i .. 8i+7, step j.
+template <int PITCH, bool SWIZZLED>
+struct TileB {
+  const uint32_t* even;
+  const uint32_t* odd;
+  __device__ __forceinline__ TileB(const uint32_t* tile, int g, int t) {
+    const int sw = SWIZZLED ? 16 * (g & 1) : 0;
+    even = tile + g * PITCH + 4 * t + sw;
+    odd = tile + g * PITCH + 4 * t - sw;
   }
+  __device__ __forceinline__ Frag<2> at(int i, int j) const {
+    const uint4 w = *reinterpret_cast<const uint4*>((j & 1 ? odd : even) +
+                                                   i * 8 * PITCH + 16 * j);
+    Frag<2> f;
+    f.big[0] = w.x;
+    f.big[1] = w.y;
+    f.small[0] = w.z;
+    f.small[1] = w.w;
+    return f;
+  }
+};
+
+template <int DH>
+using RowsB = TileB<2 * DH, (DH > 8)>;
+template <int R>
+using PairsB = TileB<2 * R, true>;
+
+// The A fragment of an afrags tile; `at`: the block's step, plus 4 lane.
+__device__ __forceinline__ Frag<4> a_frag(const uint32_t* at) {
+  const uint4 b = *reinterpret_cast<const uint4*>(at);
+  const uint4 s = *reinterpret_cast<const uint4*>(at + 128);
+  Frag<4> f;
+  f.big[0] = b.x;
+  f.big[1] = b.y;
+  f.big[2] = b.z;
+  f.big[3] = b.w;
+  f.small[0] = s.x;
+  f.small[1] = s.y;
+  f.small[2] = s.z;
+  f.small[3] = s.w;
+  return f;
+}
+
+// A staged (R, DH + TC_PAD) tile into a rows tile.
+template <int DH, int R>
+__device__ __forceinline__ void split_rows(uint32_t* dst, const float* raw, int tid) {
+  constexpr int KD = DH / 8, UNITS = R * KD * 4;
 #pragma unroll
-  for (int d = 0; d < DH; ++d) acc[d] = 0.f;
-  float m = NEG_INF;
-  float l = 0.f;
+  for (int i = 0; i < (UNITS + NT - 1) / NT; ++i) {
+    const int u = tid + i * NT;
+    if (UNITS % NT != 0 && u >= UNITS) break;
+    const int t = u & 3, kd = (u >> 2) % KD, r = (u >> 2) / KD;
+    const float* at = raw + r * (DH + TC_PAD) + kd * 8 + t;
+    uint4 w;
+    split_round(at[0], w.x, w.z);
+    split_round(at[4], w.y, w.w);
+    *reinterpret_cast<uint4*>(dst + rows_word<DH>(r, kd) + 4 * t) = w;
+  }
+}
+
+// A staged (R, DH + TC_PAD) tile into a pairs tile.
+template <int DH, int R>
+__device__ __forceinline__ void split_pairs(uint32_t* dst, const float* raw, int tid) {
+  constexpr int UNITS = DH * (R / 8) * 4;
+#pragma unroll
+  for (int i = 0; i < (UNITS + NT - 1) / NT; ++i) {
+    const int u = tid + i * NT;
+    if (UNITS % NT != 0 && u >= UNITS) break;
+    const int t = u & 3, c = (u >> 2) % DH, s = (u >> 2) / DH;
+    const float* at = raw + (s * 8 + 2 * t) * (DH + TC_PAD) + c;
+    uint4 w;
+    split_round(at[0], w.x, w.z);
+    split_round(at[DH + TC_PAD], w.y, w.w);
+    *reinterpret_cast<uint4*>(dst + pairs_word<R>(c, s) + 4 * t) = w;
+  }
+}
+
+// A staged (R, DH + TC_PAD) tile, times scale, into a rows and a pairs
+// tile at once: each thread splits a 2x2 block (rows 2p, 2p+1; columns
+// c, c+4) and writes its two rows' and two columns' words.
+template <int DH, int R>
+__device__ __forceinline__ void split_rows_pairs(uint32_t* rows, uint32_t* pairs,
+                                                 const float* raw, float scale,
+                                                 int tid) {
+  constexpr int KD = DH / 8, UNITS = (R / 2) * KD * 4;
+#pragma unroll
+  for (int i = 0; i < (UNITS + NT - 1) / NT; ++i) {
+    const int u = tid + i * NT;
+    if (UNITS % NT != 0 && u >= UNITS) break;
+    const int t = u & 3, tp = (u >> 2) & 3, kd = (u >> 4) % KD, s = (u >> 4) / KD;
+    const int r0 = s * 8 + 2 * tp, c0 = kd * 8 + t;
+    const float* at = raw + r0 * (DH + TC_PAD) + c0;
+    uint32_t b00, s00, b01, s01, b10, s10, b11, s11;
+    split_round(at[0] * scale, b00, s00);
+    split_round(at[4] * scale, b01, s01);
+    split_round(at[DH + TC_PAD] * scale, b10, s10);
+    split_round(at[DH + TC_PAD + 4] * scale, b11, s11);
+    *reinterpret_cast<uint4*>(rows + rows_word<DH>(r0, kd) + 4 * t) =
+        make_uint4(b00, b01, s00, s01);
+    *reinterpret_cast<uint4*>(rows + rows_word<DH>(r0 + 1, kd) + 4 * t) =
+        make_uint4(b10, b11, s10, s11);
+    *reinterpret_cast<uint4*>(pairs + pairs_word<R>(c0, s) + 4 * tp) =
+        make_uint4(b00, b10, s00, s10);
+    *reinterpret_cast<uint4*>(pairs + pairs_word<R>(c0 + 4, s) + 4 * tp) =
+        make_uint4(b01, b11, s01, s11);
+  }
+}
+
+// Rows row0 .. row0+TC_ROWS-1 of src (row r at src + r*stride; rows past
+// t_len read as 0) into an afrags tile.
+template <int DH>
+__device__ __forceinline__ void split_afrags(uint32_t* dst, const float* src,
+                                             long long stride, int row0,
+                                             int t_len, int tid) {
+  constexpr int KD = DH / 8, UNITS = TC_WARPS * KD * 32;
+#pragma unroll
+  for (int i = 0; i < UNITS / NT; ++i) {
+    const int u = tid + i * NT;
+    const int lane = u & 31, kd = (u >> 5) % KD, w = (u >> 5) / KD;
+    const int ra = row0 + w * 16 + (lane >> 2), rb = ra + 8;
+    const int c = kd * 8 + (lane & 3);
+    const float* pa = src + ra * stride + c;
+    const float* pb = src + rb * stride + c;
+    const bool ia = ra < t_len, ib = rb < t_len;
+    uint4 big, small;
+    split_round(ia ? pa[0] : 0.f, big.x, small.x);
+    split_round(ib ? pb[0] : 0.f, big.y, small.y);
+    split_round(ia ? pa[4] : 0.f, big.z, small.z);
+    split_round(ib ? pb[4] : 0.f, big.w, small.w);
+    uint32_t* at = dst + (w * KD + kd) * 256 + lane * 4;
+    *reinterpret_cast<uint4*>(at) = big;
+    *reinterpret_cast<uint4*>(at + 128) = small;
+  }
+}
+
+// A 4- or 8-byte cp.async (cached); zero-filled when !in.
+template <int BYTES>
+__device__ __forceinline__ void cp_async_small(void* dst, const void* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], %2, %3;"
+               :: "r"(s), "l"(src), "n"(BYTES), "r"(in ? BYTES : 0) : "memory");
+}
+
+// Bit j of the result: key k0 + j is valid (below tk and not masked). One
+// warp's ballot; every lane gets the word.
+__device__ __forceinline__ unsigned key_bits(const uint8_t* mask, int b, int tk,
+                                             int k0, int lane) {
+  return __ballot_sync(0xffffffffu, key_ok(mask, b, tk, k0 + lane));
+}
+
+// Dynamic shared memory of each kernel, in bytes.
+template <int DH>
+constexpr size_t fwd_smem() {
+  return sizeof(float) * (2 * FWD_KEYS * (DH + TC_PAD) + 2 * FWD_KEYS * 2 * DH);
+}
+template <int DH>
+constexpr size_t dq_smem() {
+  return sizeof(float) * (2 * DQ_KEYS * (DH + TC_PAD) +
+                          (3 * DQ_KEYS + TC_ROWS) * 2 * DH);
+}
+template <int DH>
+constexpr size_t dkv_smem() {
+  return sizeof(float) * (2 * DKV_QUERIES * (DH + TC_PAD) +
+                          (4 * DKV_QUERIES + 2 * TC_ROWS) * 2 * DH);
+}
+
+// Forward. One block per (head, batch, 64 query rows), the query tiles
+// longest first; warp w owns rows q0 + 16w .. +15, its q rows (scaled) as
+// split A fragments in registers.
+template <int DH>
+__global__ void __launch_bounds__(NT, 3)
+flash_fwd_tc(View q, View k, View v, const uint8_t* __restrict__ mask,
+             float* __restrict__ o, float* __restrict__ stats, int tq, int tk,
+             int heads, int causal, float scale) {
+  constexpr int KD = DH / 8, RAW = DH + TC_PAD, STEPS = FWD_KEYS / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* kraw = smem;                                   // [FWD_KEYS][RAW]
+  float* vraw = kraw + FWD_KEYS * RAW;                  // [FWD_KEYS][RAW]
+  uint32_t* ks = reinterpret_cast<uint32_t*>(vraw + FWD_KEYS * RAW);  // rows
+  uint32_t* vs = ks + FWD_KEYS * 2 * DH;                // pairs
+  __shared__ unsigned kbits;                            // key_bits of the tile
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  const int r0 = q0 + warp * 16;
+  const bool active = r0 < tq;
+  const int ra = r0 + g, rb = ra + 8;
+  const bool la = ra < tq, lb = rb < tq;
+  const int diff = max(tk - tq, 0);
+  // Keys the warp's rows may see: below tk and, causal, at or before its
+  // last live row's position.
+  const int wkeys = causal ? min(tk, min(r0 + 15, tq - 1) - diff + 1) : tk;
+  const RowsB<DH> kB(ks, g, t);         // B of S = (q scale) K^T: at(n, kd)
+  const PairsB<FWD_KEYS> vB(vs, g, t);  // B of O += P V: at(d, n)
+
+  Frag<4> qf[KD];
+  {
+    const float* qa = q.at(b, min(ra, tq - 1), h);
+    const float* qb = q.at(b, min(rb, tq - 1), h);
+    const float fa = la ? scale : 0.f, fb = lb ? scale : 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const int c = kd * 8 + t;
+      const float x[4] = {qa[c] * fa, qb[c] * fb, qa[c + 4] * fa, qb[c + 4] * fb};
+      qf[kd] = split_frag(x);
+    }
+  }
+  float acc[KD][4];
+#pragma unroll
+  for (int d = 0; d < KD; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float ma = NEG_INF, mb = NEG_INF, sa = 0.f, sb = 0.f;  // running max and sum
 
   // Keys past the block's last row are causally masked for all its rows.
-  const int frontier = causal ? min(tk, max(0, q0 + BQ - diff)) : tk;
-  for (int k0 = 0; k0 < tk; k0 += BKV) {
+  const int frontier = causal ? min(tk, max(0, q0 + TC_ROWS - diff)) : tk;
+  const int tiles = (tk + FWD_KEYS - 1) / FWD_KEYS;
+  const float* kh = k.at(b, 0, h);
+  const float* vh = v.at(b, 0, h);
+  auto stage = [&](int tile) {
+    stage_tile<DH, FWD_KEYS>(kraw, kh, k.st, tile * FWD_KEYS, tk, tid);
+    stage_tile<DH, FWD_KEYS>(vraw, vh, v.st, tile * FWD_KEYS, tk, tid);
+    cp_async_commit();
+  };
+  stage(0);
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * FWD_KEYS;
+    cp_async_wait<0>();
+    const bool dead = (la && ma == NEG_INF) || (lb && mb == NEG_INF);
     // Past the frontier only a row with no valid key so far still changes.
-    if (k0 >= frontier && !__syncthreads_or(live && m == NEG_INF)) break;
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < BKV * DH; e += BQ) {
-      const int j = e / DH, d = e % DH, key = k0 + j;
-      const bool in = key < tk;
-      ks[j][d] = in ? k.at(b, key, h)[d] : 0.f;
-      vs[j][d] = in ? v.at(b, key, h)[d] : 0.f;
+    if (!__syncthreads_or(k0 < frontier || dead)) break;
+    split_rows<DH, FWD_KEYS>(ks, kraw, tid);
+    split_pairs<DH, FWD_KEYS>(vs, vraw, tid);
+    if (warp == 0) {
+      const unsigned bits = key_bits(mask, b, tk, k0, lane);
+      if (lane == 0) kbits = bits;
     }
-    if (tid < BKV) kvalid[tid] = key_ok(mask, b, tk, k0 + tid);
-    __syncthreads();
+    __syncthreads();  // the split tile is ready, the staged one free
+    if (it + 1 < tiles) stage(it + 1);
 
-    float s[BKV];
-    float mt = m;
+    // Skip the tile when no row of the warp sees one of its keys, unless a
+    // row has m == NEG_INF: it takes every valid key, seen or not. Every
+    // 8-key step is computed otherwise; the masks below zero what lies
+    // past a row.
+    if (!active || (k0 >= wkeys && !__any_sync(0xffffffffu, dead))) continue;
+    const unsigned kv = kbits >> (2 * t);  // bit 8n + c: key k0 + 8n + 2t + c
+    // key k0 + j (j = 8n + 2t + (c & 1)) is causally seen by row ra iff
+    // 8n + (c & 1) <= ra - diff - k0 - 2t
+    const int lim_a = causal ? ra - diff - k0 - 2 * t : FWD_KEYS;
+    const int lim_b = causal ? rb - diff - k0 - 2 * t : FWD_KEYS;
+    float s[STEPS][4];
 #pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      float dot = 0.f;
+    for (int n = 0; n < STEPS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
 #pragma unroll
-      for (int d = 0; d < DH; ++d) dot = fmaf(qr[d], ks[j][d], dot);
-      const bool ok = kvalid[j] && (!causal || k0 + j <= qpos);
-      s[j] = ok ? dot : NEG_INF;
-      mt = fmaxf(mt, s[j]);
+    for (int kd = 0; kd < KD; ++kd)
+#pragma unroll
+      for (int n = 0; n < STEPS; ++n) mma3(s[n], qf[kd], kB.at(n, kd));
+    float mxa = ma, mxb = mb;
+#pragma unroll
+    for (int n = 0; n < STEPS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = n * 8 + (c & 1);
+        const bool ok = ((kv >> j) & 1u) && j <= (c < 2 ? lim_a : lim_b);
+        s[n][c] = ok ? s[n][c] : NEG_INF;
+        if (c < 2) mxa = fmaxf(mxa, s[n][c]);
+        else mxb = fmaxf(mxb, s[n][c]);
+      }
+    mxa = quad_max(mxa);
+    mxb = quad_max(mxb);
+    const float ca = expf(ma - mxa), cb = expf(mb - mxb);
+    float ta = 0.f, tb = 0.f;
+#pragma unroll
+    for (int n = 0; n < STEPS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        // 1 on a valid, causally masked key of a row whose max is NEG_INF
+        const int j = n * 8 + (c & 1);
+        const float e = expf(s[n][c] - (c < 2 ? mxa : mxb));  // in [0, 1]
+        s[n][c] = ((kv >> j) & 1u) ? e : 0.f;
+        if (c < 2) ta += s[n][c];
+        else tb += s[n][c];
+      }
+    sa = ca * sa + fmaxf(quad_sum(ta), EPSILON);
+    sb = cb * sb + fmaxf(quad_sum(tb), EPSILON);
+    ma = mxa;
+    mb = mxb;
+    if (__any_sync(0xffffffffu, ca != 1.f || cb != 1.f)) {  // a max moved
+#pragma unroll
+      for (int d = 0; d < KD; ++d) {
+        acc[d][0] *= ca;
+        acc[d][1] *= ca;
+        acc[d][2] *= cb;
+        acc[d][3] *= cb;
+      }
     }
-    const float corr = expf(m - mt);
 #pragma unroll
-    for (int d = 0; d < DH; ++d) acc[d] *= corr;
-    float bsum = 0.f;
+    for (int n = 0; n < STEPS; ++n) {
+      const Frag<4> pa = c_as_a_round(s[n]);
 #pragma unroll
-    for (int j = 0; j < BKV; ++j) {
-      // 1 on a valid, causally masked key of a row whose max is NEG_INF
-      const float p = kvalid[j] ? expf(s[j] - mt) : 0.f;
-      bsum += p;
-#pragma unroll
-      for (int d = 0; d < DH; ++d) acc[d] = fmaf(p, vs[j][d], acc[d]);
+      for (int d = 0; d < KD; ++d) mma3(acc[d], pa, vB.at(d, n));
     }
-    l = corr * l + fmaxf(bsum, EPSILON);
-    m = mt;
   }
+  cp_async_wait<0>();
 
-  if (live) {
-    const float lc = fmaxf(l, EPSILON);
-    float* op = o + (((long long)b * tq + qi) * heads + h) * DH;
 #pragma unroll
-    for (int d = 0; d < DH; ++d) op[d] = acc[d] / lc;
-    if (stats != nullptr) {
-      float* sp = stats + (((long long)b * heads + h) * tq + qi) * 2;
-      sp[0] = m;
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (row >= tq) continue;
+    const float lc = fmaxf(half ? sb : sa, EPSILON);
+    float* op = o + (((long long)b * tq + row) * heads + h) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < KD; ++d)
+      *reinterpret_cast<float2*>(op + d * 8) =
+          make_float2(acc[d][2 * half] / lc, acc[d][2 * half + 1] / lc);
+    if (stats != nullptr && t == 0) {
+      float* sp = stats + (((long long)b * heads + h) * tq + row) * 2;
+      sp[0] = half ? mb : ma;
       sp[1] = lc;
     }
   }
 }
 
-// dq and delta. One block per (query tile of BR rows, head, batch), two
-// threads per query row.
+// dq and delta. One block per (head, batch, 64 query rows), the query tiles
+// longest first; warp w owns rows q0 + 16w .. +15: its q rows (scaled) as
+// split A fragments in registers, the block's do rows split in shared
+// memory. Streams K and V tiles up to the block's causal frontier.
 template <int DH>
-__global__ void __launch_bounds__(2 * BR)
-flash_dq_kernel(View q, View k, View v, const uint8_t* __restrict__ mask,
-                const float* __restrict__ o, const float* __restrict__ dout,
-                const float* __restrict__ stats, float* __restrict__ delta_out,
-                float* __restrict__ dq, int tq, int tk, int heads, int causal,
-                float scale) {
-  using TL = Tile<DH>;
-  constexpr int HD = TL::HD;
-  __shared__ __align__(16) float ks[BT][TL::PITCH];
-  __shared__ __align__(16) float vs[BT][TL::PITCH];
-  __shared__ int kvalid[BT];
+__global__ void __launch_bounds__(NT)
+flash_dq_tc(View q, View k, View v, const uint8_t* __restrict__ mask,
+            const float* __restrict__ o, const float* __restrict__ dout,
+            const float* __restrict__ stats, float* __restrict__ delta_out,
+            float* __restrict__ dq, int tq, int tk, int heads, int causal,
+            float scale) {
+  constexpr int KD = DH / 8, RAW = DH + TC_PAD, STEPS = DQ_KEYS / 8;
+  extern __shared__ __align__(16) float smem[];
+  float* kraw = smem;                                   // [DQ_KEYS][RAW]
+  float* vraw = kraw + DQ_KEYS * RAW;                   // [DQ_KEYS][RAW]
+  uint32_t* ks = reinterpret_cast<uint32_t*>(vraw + DQ_KEYS * RAW);  // rows
+  uint32_t* vs = ks + DQ_KEYS * 2 * DH;                 // rows
+  uint32_t* kp = vs + DQ_KEYS * 2 * DH;                 // pairs
+  uint32_t* dos = kp + DQ_KEYS * 2 * DH;                // afrags, TC_ROWS rows
+  __shared__ unsigned kbits;                            // key_bits of the tile
 
-  const int tid = threadIdx.x;
-  const int half = tid & 1;
-  const int q0 = blockIdx.x * BR;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int qi = q0 + (tid >> 1);
-  const bool live = qi < tq;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  const int r0 = q0 + warp * 16;
+  const bool active = r0 < tq;
+  const int ra = r0 + g, rb = ra + 8;
+  const bool la = ra < tq, lb = rb < tq;
   const int diff = max(tk - tq, 0);
-  const int qpos = qi - diff;
-  const long long row = ((long long)b * tq + qi) * heads + h;  // of o, do, dq
+  const int wkeys = causal ? min(tk, min(r0 + 15, tq - 1) - diff + 1) : tk;
+  const RowsB<DH> kB(ks, g, t);        // B of S = (q scale) K^T: at(n, kd)
+  const RowsB<DH> vB(vs, g, t);        // B of dP = do V^T: at(n, kd)
+  const PairsB<DQ_KEYS> kpB(kp, g, t);  // B of dQ += dS K: at(d, n)
+  const uint32_t* dw = dos + warp * KD * 256 + lane * 4;  // A of step kd: + 256 kd
+  const long long hs = (long long)heads * DH;  // row stride of o, do and dq
+  const float* doh = dout + (long long)b * tq * hs + h * DH;
+  const float* oh = o + (long long)b * tq * hs + h * DH;
+  const long long srow = ((long long)b * heads + h) * tq;  // of stats, delta
 
-  float qr[HD], dor[HD], acc[HD];
-  float dlt = 0.f, m = 0.f, linv = 0.f;
-  if (live) {
-    const float* qp = q.at(b, qi, h) + half * HD;
-    const float* op = o + row * DH + half * HD;
-    const float* dp = dout + row * DH + half * HD;
+  // The block's do rows; the first barrier of the loop publishes them.
+  split_afrags<DH>(dos, doh, hs, q0, tq, tid);
+  Frag<4> qf[KD];
+  float dla = 0.f, dlb = 0.f;  // delta = rowsum(do * o)
+  {
+    const int ca = min(ra, tq - 1), cb = min(rb, tq - 1);
+    const float* qa = q.at(b, ca, h);
+    const float* qb = q.at(b, cb, h);
+    const float fa = la ? scale : 0.f, fb = lb ? scale : 0.f;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      qr[d] = qp[d] * scale;
-      dor[d] = dp[d];
-      dlt = fmaf(dor[d], op[d], dlt);
+    for (int kd = 0; kd < KD; ++kd) {
+      const int c = kd * 8 + t;
+      const float x[4] = {qa[c] * fa, qb[c] * fb, qa[c + 4] * fa, qb[c + 4] * fb};
+      qf[kd] = split_frag(x);
+#pragma unroll
+      for (int e = 0; e < 8; e += 4) {
+        dla = fmaf(doh[ca * hs + c + e], oh[ca * hs + c + e], dla);
+        dlb = fmaf(doh[cb * hs + c + e], oh[cb * hs + c + e], dlb);
+      }
     }
-    const float* sp = stats + (((long long)b * heads + h) * tq + qi) * 2;
-    m = sp[0];
-    linv = 1.f / sp[1];
-  } else {
-#pragma unroll
-    for (int d = 0; d < HD; ++d) qr[d] = dor[d] = 0.f;
   }
-  dlt = pair_sum(dlt);
+  dla = quad_sum(dla);
+  dlb = quad_sum(dlb);
+  const float ma = la ? stats[(srow + ra) * 2] : 0.f;
+  const float mb = lb ? stats[(srow + rb) * 2] : 0.f;
+  const float rla = la ? 1.f / stats[(srow + ra) * 2 + 1] : 0.f;
+  const float rlb = lb ? 1.f / stats[(srow + rb) * 2 + 1] : 0.f;
+
+  float acc[KD][4];
 #pragma unroll
-  for (int d = 0; d < HD; ++d) acc[d] = 0.f;
+  for (int d = 0; d < KD; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
 
   // ds is 0 wherever the causal mask applies, so keys past the block's last
   // row add nothing to dq.
-  const int kend = causal ? min(tk, max(0, q0 + BR - diff)) : tk;
-  for (int k0 = 0; k0 < kend; k0 += BT) {
-    __syncthreads();  // the previous tile is no longer read
-    for (int e = tid; e < BT * DH; e += 2 * BR) {
-      const int j = e / DH, d = e % DH, key = k0 + j;
-      const bool in = key < tk;
-      const int c = TL::at(d / HD, d % HD);
-      ks[j][c] = in ? k.at(b, key, h)[d] : 0.f;
-      vs[j][c] = in ? v.at(b, key, h)[d] : 0.f;
+  const int kend = causal ? min(tk, max(0, q0 + TC_ROWS - diff)) : tk;
+  const int tiles = (kend + DQ_KEYS - 1) / DQ_KEYS;
+  const float* kh = k.at(b, 0, h);
+  const float* vh = v.at(b, 0, h);
+  auto stage = [&](int tile) {
+    stage_tile<DH, DQ_KEYS>(kraw, kh, k.st, tile * DQ_KEYS, tk, tid);
+    stage_tile<DH, DQ_KEYS>(vraw, vh, v.st, tile * DQ_KEYS, tk, tid);
+    cp_async_commit();
+  };
+  if (tiles > 0) stage(0);
+  for (int it = 0; it < tiles; ++it) {
+    const int k0 = it * DQ_KEYS;
+    cp_async_wait<0>();
+    __syncthreads();  // the staged tile has landed; the split one is free
+    split_rows_pairs<DH, DQ_KEYS>(ks, kp, kraw, 1.f, tid);
+    split_rows<DH, DQ_KEYS>(vs, vraw, tid);
+    if (warp == 0) {
+      const unsigned bits = key_bits(mask, b, tk, k0, lane);
+      if (lane == 0) kbits = bits;
     }
-    if (tid < BT) kvalid[tid] = key_ok(mask, b, tk, k0 + tid);
-    __syncthreads();
+    __syncthreads();  // the split tiles are ready, the staged ones free
+    if (it + 1 < tiles) stage(it + 1);
 
-    for (int j = 0; j < BT; ++j) {
-      const float* kr = &ks[j][TL::at(half, 0)];
-      const float* vr = &vs[j][TL::at(half, 0)];
-      float s = 0.f, dpv = 0.f;
+    // Every 8-key step of a tile with a key the warp's rows see; the masks
+    // zero ds past a row.
+    if (!active || k0 >= wkeys) continue;
+    const unsigned kv = kbits >> (2 * t);  // bit 8n + c: key k0 + 8n + 2t + c
+    // key k0 + 8n + 2t + (c & 1) is seen by row r iff 8n + (c & 1) <= lim
+    const int lim_a = !la ? -1 : causal ? ra - diff - k0 - 2 * t : DQ_KEYS;
+    const int lim_b = !lb ? -1 : causal ? rb - diff - k0 - 2 * t : DQ_KEYS;
+    float s[STEPS][4], dp[STEPS][4];
 #pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 k4 = ld4(kr + d), v4 = ld4(vr + d);
-        s = fmaf(qr[d], k4.x, fmaf(qr[d + 1], k4.y,
-                 fmaf(qr[d + 2], k4.z, fmaf(qr[d + 3], k4.w, s))));
-        dpv = fmaf(dor[d], v4.x, fmaf(dor[d + 1], v4.y,
-                   fmaf(dor[d + 2], v4.z, fmaf(dor[d + 3], v4.w, dpv))));
-      }
-      s = pair_sum(s);
-      dpv = pair_sum(dpv);
-      const bool vis = !causal || k0 + j <= qpos;
-      const float p = (live && kvalid[j]) ? expf((vis ? s : NEG_INF) - m) * linv
-                                          : 0.f;
-      const float ds = vis ? p * (dpv - dlt) : 0.f;
+    for (int n = 0; n < STEPS; ++n)
 #pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 k4 = ld4(kr + d);
-        acc[d] = fmaf(ds, k4.x, acc[d]);
-        acc[d + 1] = fmaf(ds, k4.y, acc[d + 1]);
-        acc[d + 2] = fmaf(ds, k4.z, acc[d + 2]);
-        acc[d + 3] = fmaf(ds, k4.w, acc[d + 3]);
+      for (int c = 0; c < 4; ++c) s[n][c] = dp[n][c] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const Frag<4> df = a_frag(dw + kd * 256);
+#pragma unroll
+      for (int n = 0; n < STEPS; ++n) {
+        mma3(s[n], qf[kd], kB.at(n, kd));
+        mma3(dp[n], df, vB.at(n, kd));
       }
+    }
+#pragma unroll
+    for (int n = 0; n < STEPS; ++n)  // s becomes ds
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = n * 8 + (c & 1);
+        const bool hi = c >= 2;
+        const bool ok = ((kv >> j) & 1u) && j <= (hi ? lim_b : lim_a);
+        // computed for every entry, then selected: no branch a score
+        const float p = expf(s[n][c] - (hi ? mb : ma)) * (hi ? rlb : rla);
+        s[n][c] = ok ? p * (dp[n][c] - (hi ? dlb : dla)) : 0.f;
+      }
+#pragma unroll
+    for (int n = 0; n < STEPS; ++n) {
+      const Frag<4> da = c_as_a_round(s[n]);
+#pragma unroll
+      for (int d = 0; d < KD; ++d) mma3(acc[d], da, kpB.at(d, n));
     }
   }
+  cp_async_wait<0>();
 
-  if (live) {
-    float* dqp = dq + row * DH + half * HD;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) dqp[d] = acc[d] * scale;
-    if (half == 0) delta_out[((long long)b * heads + h) * tq + qi] = dlt;
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (row >= tq) continue;
+    float* dqp = dq + ((long long)b * tq + row) * hs + h * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < KD; ++d)
+      *reinterpret_cast<float2*>(dqp + d * 8) =
+          make_float2(acc[d][2 * half] * scale, acc[d][2 * half + 1] * scale);
+    if (t == 0) delta_out[srow + row] = half ? dlb : dla;
   }
 }
 
-// dk and dv. One block per (key tile of BR keys, head, batch), two threads
-// per key; reads the (m, l) of the forward and the delta of the dq kernel.
+// dk and dv. One block per (head, batch, 64 keys); warp w owns keys
+// k0 + 16w .. +15, the block's k and v rows split in shared memory (A
+// fragments). Streams q (scaled) and do tiles, reading the forward's (m, l)
+// and the dq kernel's delta.
 template <int DH>
-__global__ void __launch_bounds__(2 * BR)
-flash_dkv_kernel(View q, View k, View v, const uint8_t* __restrict__ mask,
-                 const float* __restrict__ dout, const float* __restrict__ stats,
-                 const float* __restrict__ delta, float* __restrict__ dk,
-                 float* __restrict__ dv, int tq, int tk, int heads, int causal,
-                 float scale) {
-  using TL = Tile<DH>;
-  constexpr int HD = TL::HD;
-  __shared__ __align__(16) float qs[BT][TL::PITCH];   // q * scale
-  __shared__ __align__(16) float dos[BT][TL::PITCH];
-  __shared__ float mrow[BT], lirow[BT], drow[BT];
+__global__ void __launch_bounds__(NT)
+flash_dkv_tc(View q, View k, View v, const uint8_t* __restrict__ mask,
+             const float* __restrict__ dout, const float* __restrict__ stats,
+             const float* __restrict__ delta, float* __restrict__ dk,
+             float* __restrict__ dv, int tq, int tk, int heads, int causal,
+             float scale) {
+  constexpr int KD = DH / 8, RAW = DH + TC_PAD, STEPS = DKV_QUERIES / 8;
+  constexpr int TILE = DKV_QUERIES * 2 * DH;  // words of a split tile
+  extern __shared__ __align__(16) float smem[];
+  float* qraw = smem;                                     // [DKV_QUERIES][RAW]
+  float* draw = qraw + DKV_QUERIES * RAW;                 // [DKV_QUERIES][RAW]
+  uint32_t* qr = reinterpret_cast<uint32_t*>(draw + DKV_QUERIES * RAW);  // rows
+  uint32_t* dr = qr + TILE;                               // rows
+  uint32_t* qp = dr + TILE;                               // pairs
+  uint32_t* dp = qp + TILE;                               // pairs
+  uint32_t* kres = dp + TILE;                             // afrags, TC_ROWS rows
+  uint32_t* vres = kres + TC_ROWS * 2 * DH;               // afrags
+  __shared__ float mrow[DKV_QUERIES], lrow[DKV_QUERIES], drow[DKV_QUERIES];
+  __shared__ __align__(8) float2 ml_raw[DKV_QUERIES];  // staged (m, l) and delta
+  __shared__ float delta_raw[DKV_QUERIES];
 
-  const int tid = threadIdx.x;
-  const int half = tid & 1;
-  const int k0 = blockIdx.x * BR;
-  const int h = blockIdx.y;
-  const int b = blockIdx.z;
-  const int kj = k0 + (tid >> 1);
-  const bool live = kj < tk;
-  const bool valid = live && key_ok(mask, b, tk, kj);
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * TC_ROWS;  // key tile 0 sees the most queries
+  const int j0 = k0 + warp * 16;        // the warp's first key
+  const bool active = j0 < tk;
+  const int ja = j0 + g, jb = ja + 8;
+  const bool va = key_ok(mask, b, tk, ja), vb = key_ok(mask, b, tk, jb);
   const int diff = max(tk - tq, 0);
+  const long long hs = (long long)heads * DH;  // row stride of do, dk and dv
   const long long srow = ((long long)b * heads + h) * tq;  // of stats, delta
+  const RowsB<DH> qB(qr, g, t);             // B of S^T = K (q scale)^T: at(n, kd)
+  const RowsB<DH> doB(dr, g, t);            // B of dP^T = V do^T: at(n, kd)
+  const PairsB<DKV_QUERIES> qpB(qp, g, t);  // B of dK += dS^T (q scale): at(d, n)
+  const PairsB<DKV_QUERIES> dopB(dp, g, t); // B of dV += P^T do: at(d, n)
+  const uint32_t* kw = kres + warp * KD * 256 + lane * 4;  // A of step kd: + 256 kd
+  const uint32_t* vw = vres + warp * KD * 256 + lane * 4;
 
-  float kr[HD], vr[HD], dka[HD], dva[HD];
-  if (live) {
-    const float* kp = k.at(b, kj, h) + half * HD;
-    const float* vp = v.at(b, kj, h) + half * HD;
+  // The block's k and v rows; the first barrier of the loop publishes them.
+  split_afrags<DH>(kres, k.at(b, 0, h), k.st, k0, tk, tid);
+  split_afrags<DH>(vres, v.at(b, 0, h), v.st, k0, tk, tid);
+  float dka[KD][4], dva[KD][4];
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      kr[d] = kp[d];
-      vr[d] = vp[d];
-    }
-  } else {
+  for (int d = 0; d < KD; ++d)
 #pragma unroll
-    for (int d = 0; d < HD; ++d) kr[d] = vr[d] = 0.f;
-  }
-#pragma unroll
-  for (int d = 0; d < HD; ++d) dka[d] = dva[d] = 0.f;
+    for (int c = 0; c < 4; ++c) dka[d][c] = dva[d][c] = 0.f;
 
-  // The first row that sees key k0 causally (qpos >= k0).
-  const int first = causal ? k0 + diff : 0;
-  for (int i0 = 0; i0 < tq; i0 += BT) {
-    __syncthreads();  // the previous tile is no longer read
+  // Causal: query i sees key j only for i - diff >= j. A query that sees
+  // none of the block's keys adds only where it saw no valid key at all
+  // (m = NEG_INF: p = 1/l on every valid key, into dv). Unless a row before
+  // the one that sees the block's last key is such a row, the block starts
+  // at the first query that sees its first key and each warp skips the
+  // tiles that see none of its keys; else it streams every query.
+  bool skip = false;
+  int i_start = 0;
+  if (causal) {
+    const int scan = min(tq, k0 + TC_ROWS - 1 + diff);
     bool dead = false;
-    if (tid < BT) {
+    for (int r = tid; r < scan; r += NT) dead |= stats[(srow + r) * 2] == NEG_INF;
+    skip = !__syncthreads_or(dead);
+    if (skip) i_start = min(tq, k0 + diff) / DKV_QUERIES * DKV_QUERIES;
+  }
+  const int tiles = (tq - i_start + DKV_QUERIES - 1) / DKV_QUERIES;
+  const float* qh = q.at(b, 0, h);
+  const float* doh = dout + (long long)b * tq * hs + h * DH;
+  // A tile's q and do rows, and its queries' (m, l) and delta, in one
+  // group: no load of the tile waits on device memory in the loop.
+  auto stage = [&](int tile) {
+    const int i0 = i_start + tile * DKV_QUERIES;
+    stage_tile<DH, DKV_QUERIES>(qraw, qh, q.st, i0, tq, tid);
+    stage_tile<DH, DKV_QUERIES>(draw, doh, hs, i0, tq, tid);
+    if (tid < DKV_QUERIES) {
       const int qi = i0 + tid;
       const bool in = qi < tq;
-      const float mi = in ? stats[(srow + qi) * 2] : 0.f;
-      mrow[tid] = mi;
-      lirow[tid] = in ? 1.f / stats[(srow + qi) * 2 + 1] : 0.f;
-      drow[tid] = in ? delta[srow + qi] : 0.f;
-      dead = in && mi == NEG_INF;
+      cp_async_small<8>(&ml_raw[tid], stats + (srow + (in ? qi : 0)) * 2, in);
+      cp_async_small<4>(&delta_raw[tid], delta + srow + (in ? qi : 0), in);
     }
-    // A tile whose rows see none of this block's keys causally adds only
-    // the uniform p of rows that saw no valid key (m = NEG_INF) to dv.
-    if (!__syncthreads_or(dead) && i0 + BT <= first) continue;
-    for (int e = tid; e < BT * DH; e += 2 * BR) {
-      const int r = e / DH, d = e % DH, qi = i0 + r;
-      const bool in = qi < tq;
-      const int c = TL::at(d / HD, d % HD);
-      qs[r][c] = in ? q.at(b, qi, h)[d] * scale : 0.f;
-      dos[r][c] = in ? dout[(((long long)b * tq + qi) * heads + h) * DH + d] : 0.f;
+    cp_async_commit();
+  };
+  if (tiles > 0) stage(0);
+  for (int it = 0; it < tiles; ++it) {
+    const int i0 = i_start + it * DKV_QUERIES;
+    cp_async_wait<0>();
+    __syncthreads();  // the staged tile has landed; the split one is free
+    split_rows_pairs<DH, DKV_QUERIES>(qr, qp, qraw, scale, tid);
+    split_rows_pairs<DH, DKV_QUERIES>(dr, dp, draw, 1.f, tid);
+    if (tid < DKV_QUERIES) {
+      const bool in = i0 + tid < tq;
+      mrow[tid] = in ? ml_raw[tid].x : 0.f;
+      lrow[tid] = in ? 1.f / ml_raw[tid].y : 0.f;
+      drow[tid] = in ? delta_raw[tid] : 0.f;
     }
-    __syncthreads();
+    __syncthreads();  // the split tiles are ready, the staged ones free
+    if (it + 1 < tiles) stage(it + 1);
 
-    for (int r = 0; r < BT; ++r) {
-      const float* qrow = &qs[r][TL::at(half, 0)];
-      const float* drw = &dos[r][TL::at(half, 0)];
-      float s = 0.f, dpv = 0.f;
+    // Skipping, a tile whose last query sees none of the warp's keys adds
+    // nothing; every 8-query step is computed otherwise, the masks zeroing
+    // p and ds where a query does not see a key.
+    if (!active || (skip && i0 + DKV_QUERIES - 1 - diff < j0)) continue;
+    float st[STEPS][4], dpt[STEPS][4];
 #pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 q4 = ld4(qrow + d), o4 = ld4(drw + d);
-        s = fmaf(q4.x, kr[d], fmaf(q4.y, kr[d + 1],
-                 fmaf(q4.z, kr[d + 2], fmaf(q4.w, kr[d + 3], s))));
-        dpv = fmaf(o4.x, vr[d], fmaf(o4.y, vr[d + 1],
-                   fmaf(o4.z, vr[d + 2], fmaf(o4.w, vr[d + 3], dpv))));
+    for (int n = 0; n < STEPS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) st[n][c] = dpt[n][c] = 0.f;
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const Frag<4> kf = a_frag(kw + kd * 256), vf = a_frag(vw + kd * 256);
+#pragma unroll
+      for (int n = 0; n < STEPS; ++n) {
+        mma3(st[n], kf, qB.at(n, kd));
+        mma3(dpt[n], vf, doB.at(n, kd));
       }
-      s = pair_sum(s);
-      dpv = pair_sum(dpv);
-      const int qi = i0 + r;
-      const bool vis = !causal || kj <= qi - diff;
-      const float p = (valid && qi < tq)
-                          ? expf((vis ? s : NEG_INF) - mrow[r]) * lirow[r]
-                          : 0.f;
-      const float ds = vis ? p * (dpv - drow[r]) : 0.f;
+    }
 #pragma unroll
-      for (int d = 0; d < HD; d += 4) {
-        const float4 q4 = ld4(qrow + d), o4 = ld4(drw + d);
-        dva[d] = fmaf(p, o4.x, dva[d]);
-        dva[d + 1] = fmaf(p, o4.y, dva[d + 1]);
-        dva[d + 2] = fmaf(p, o4.z, dva[d + 2]);
-        dva[d + 3] = fmaf(p, o4.w, dva[d + 3]);
-        dka[d] = fmaf(ds, q4.x, dka[d]);  // qs carries the scale
-        dka[d + 1] = fmaf(ds, q4.y, dka[d + 1]);
-        dka[d + 2] = fmaf(ds, q4.z, dka[d + 2]);
-        dka[d + 3] = fmaf(ds, q4.w, dka[d + 3]);
+    for (int n = 0; n < STEPS; ++n)  // st becomes p^T, dpt ds^T
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int r = n * 8 + 2 * t + (c & 1), qi = i0 + r;
+        const bool hi = c >= 2;
+        const bool vis = !causal || (hi ? jb : ja) <= qi - diff;
+        const float e = expf((vis ? st[n][c] : NEG_INF) - mrow[r]) * lrow[r];
+        const float p = ((hi ? vb : va) && qi < tq) ? e : 0.f;
+        dpt[n][c] = vis ? p * (dpt[n][c] - drow[r]) : 0.f;
+        st[n][c] = p;
+      }
+#pragma unroll
+    for (int n = 0; n < STEPS; ++n) {
+      const Frag<4> pa = c_as_a_round(st[n]), sa = c_as_a_round(dpt[n]);
+#pragma unroll
+      for (int d = 0; d < KD; ++d) {
+        mma3(dva[d], pa, dopB.at(d, n));
+        mma3(dka[d], sa, qpB.at(d, n));  // qp carries the scale
       }
     }
   }
+  cp_async_wait<0>();
 
-  if (live) {
-    const long long off = (((long long)b * tk + kj) * heads + h) * DH + half * HD;
 #pragma unroll
-    for (int d = 0; d < HD; ++d) {
-      dk[off + d] = dka[d];
-      dv[off + d] = dva[d];
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? jb : ja;
+    if (key >= tk) continue;
+    const long long off = ((long long)b * tk + key) * hs + h * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < KD; ++d) {
+      *reinterpret_cast<float2*>(dk + off + d * 8) =
+          make_float2(dka[d][2 * half], dka[d][2 * half + 1]);
+      *reinterpret_cast<float2*>(dv + off + d * 8) =
+          make_float2(dva[d][2 * half], dva[d][2 * half + 1]);
     }
   }
-}
-
-bool bad_dims(int batch, int tq, int tk, int heads) {
-  return batch <= 0 || tq <= 0 || tk <= 0 || heads <= 0 || batch > 65535 ||
-         heads > 65535;
 }
 
 // --- generic head dims (attention_common.cuh): the same functions, one
@@ -694,13 +1108,23 @@ flash_dkv_generic(View q, View k, View v, const uint8_t* __restrict__ mask,
 
 }  // namespace
 
+#define KANVIT_TC_SWITCH(LAUNCH) \
+  switch (dh) {                  \
+    case 8: LAUNCH(8); break;    \
+    case 16: LAUNCH(16); break;  \
+    case 32: LAUNCH(32); break;  \
+    case 64: LAUNCH(64); break;  \
+  }
+
 // q: f32, element (b, t, h, d) of a (batch, tq, heads, dh) tensor at
 // b*q_sb + t*q_st + h*q_sh + d (strides in elements); k, v alike over tk
 // keys. mask: (batch, tk) uint8 (nonzero = attend) or null. o: (batch, tq,
 // heads*dh) f32 contiguous; stats: (batch, heads, tq, 2) f32, each row's
 // (max, clamped sum) for the backward, or null. dh is a multiple of 8 from 8
-// through 128 (attention_common.cuh). Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// through 128 (attention_common.cuh); at dh 8, 16, 32 and 64 (the
+// tensor-core kernels) q, k and v must be 16-byte aligned with strides that
+// are multiples of 4, else cudaErrorMisalignedAddress. Launches on `stream`
+// and returns cudaGetLastError() (0 on success).
 extern "C" int kanvit_flash_attention_fwd(
     const float* q, const float* k, const float* v, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
@@ -710,26 +1134,27 @@ extern "C" int kanvit_flash_attention_fwd(
   if (bad_dims(batch, tq, tk, heads)) return (int)cudaErrorInvalidValue;
   const View qv{q, q_sb, q_st, q_sh}, kv{k, k_sb, k_st, k_sh},
       vv{v, v_sb, v_st, v_sh};
-  const dim3 grid((tq + BQ - 1) / BQ, heads, batch);
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (dh) {
-    case 8: flash_fwd_kernel<8><<<grid, BQ, 0, st>>>(
-        qv, kv, vv, mask, o, stats, tq, tk, heads, causal, scale); break;
-    case 16: flash_fwd_kernel<16><<<grid, BQ, 0, st>>>(
-        qv, kv, vv, mask, o, stats, tq, tk, heads, causal, scale); break;
-    case 32: flash_fwd_kernel<32><<<grid, BQ, 0, st>>>(
-        qv, kv, vv, mask, o, stats, tq, tk, heads, causal, scale); break;
-    case 64: flash_fwd_kernel<64><<<grid, BQ, 0, st>>>(
-        qv, kv, vv, mask, o, stats, tq, tk, heads, causal, scale); break;
-    default: {
-      if (!generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
-      const size_t smem = sizeof(float) * (2 * BKV + BQ) * dh;
-      const int err = allow_shared(flash_fwd_generic, smem);
-      if (err != 0) return err;
-      flash_fwd_generic<<<grid, BQ, smem, st>>>(
-        qv, kv, vv, mask, o, stats, tq, tk, heads, dh, causal, scale);
-    }
+  if (tc_head_dim(dh)) {
+    if (!rows_aligned(q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh))
+      return (int)cudaErrorMisalignedAddress;
+    const dim3 grid(heads, batch, (tq + TC_ROWS - 1) / TC_ROWS);
+    int err = 0;
+#define KANVIT_FWD(D)                                                        \
+  err = allow_shared(flash_fwd_tc<D>, fwd_smem<D>());                        \
+  if (err == 0)                                                              \
+    flash_fwd_tc<D><<<grid, NT, fwd_smem<D>(), st>>>(                        \
+        qv, kv, vv, mask, o, stats, tq, tk, heads, causal, scale)
+    KANVIT_TC_SWITCH(KANVIT_FWD)
+#undef KANVIT_FWD
+    return err != 0 ? err : (int)cudaGetLastError();
   }
+  if (!generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (2 * BKV + BQ) * dh;
+  const int err = allow_shared(flash_fwd_generic, smem);
+  if (err != 0) return err;
+  flash_fwd_generic<<<dim3((tq + BQ - 1) / BQ, heads, batch), BQ, smem, st>>>(
+      qv, kv, vv, mask, o, stats, tq, tk, heads, dh, causal, scale);
   return (int)cudaGetLastError();
 }
 
@@ -748,38 +1173,36 @@ extern "C" int kanvit_flash_attention_dq(
   if (bad_dims(batch, tq, tk, heads)) return (int)cudaErrorInvalidValue;
   const View qv{q, q_sb, q_st, q_sh}, kv{k, k_sb, k_st, k_sh},
       vv{v, v_sb, v_st, v_sh};
-  const dim3 grid((tq + BR - 1) / BR, heads, batch);
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (dh) {
-    case 8: flash_dq_kernel<8><<<grid, 2 * BR, 0, st>>>(
-        qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, causal,
-        scale); break;
-    case 16: flash_dq_kernel<16><<<grid, 2 * BR, 0, st>>>(
-        qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, causal,
-        scale); break;
-    case 32: flash_dq_kernel<32><<<grid, 2 * BR, 0, st>>>(
-        qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, causal,
-        scale); break;
-    case 64: flash_dq_kernel<64><<<grid, 2 * BR, 0, st>>>(
-        qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, causal,
-        scale); break;
-    default: {
-      if (!generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
-      const size_t smem = sizeof(float) * (2 * BT + BR) * dh;
-      const int err = allow_shared(flash_dq_generic, smem);
-      if (err != 0) return err;
-      flash_dq_generic<<<grid, BR, smem, st>>>(
-        qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, dh,
-        causal, scale);
-    }
+  if (tc_head_dim(dh)) {
+    if (!rows_aligned(q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh))
+      return (int)cudaErrorMisalignedAddress;
+    const dim3 grid(heads, batch, (tq + TC_ROWS - 1) / TC_ROWS);
+    int err = 0;
+#define KANVIT_DQ(D)                                                         \
+  err = allow_shared(flash_dq_tc<D>, dq_smem<D>());                          \
+  if (err == 0)                                                              \
+    flash_dq_tc<D><<<grid, NT, dq_smem<D>(), st>>>(                          \
+        qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, causal,  \
+        scale)
+    KANVIT_TC_SWITCH(KANVIT_DQ)
+#undef KANVIT_DQ
+    return err != 0 ? err : (int)cudaGetLastError();
   }
+  if (!generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (2 * BT + BR) * dh;
+  const int err = allow_shared(flash_dq_generic, smem);
+  if (err != 0) return err;
+  flash_dq_generic<<<dim3((tq + BR - 1) / BR, heads, batch), BR, smem, st>>>(
+      qv, kv, vv, mask, o, dout, stats, delta, dq, tq, tk, heads, dh, causal,
+      scale);
   return (int)cudaGetLastError();
 }
 
 // dk and dv of kanvit_flash_attention_fwd. q, k, v, mask, dout and stats as
-// for the dq kernel; delta: what the dq kernel wrote; dk, dv: (batch, tk,
-// heads*dh) f32 contiguous. Launches on `stream` and returns
-// cudaGetLastError().
+// for the dq kernel (dout 16-byte aligned at the tensor-core head dims);
+// delta: what the dq kernel wrote; dk, dv: (batch, tk, heads*dh) f32
+// contiguous. Launches on `stream` and returns cudaGetLastError().
 extern "C" int kanvit_flash_attention_dkv(
     const float* q, const float* k, const float* v, long long q_sb,
     long long q_st, long long q_sh, long long k_sb, long long k_st,
@@ -790,30 +1213,29 @@ extern "C" int kanvit_flash_attention_dkv(
   if (bad_dims(batch, tq, tk, heads)) return (int)cudaErrorInvalidValue;
   const View qv{q, q_sb, q_st, q_sh}, kv{k, k_sb, k_st, k_sh},
       vv{v, v_sb, v_st, v_sh};
-  const dim3 grid((tk + BR - 1) / BR, heads, batch);
   const cudaStream_t st = (cudaStream_t)stream;
-  switch (dh) {
-    case 8: flash_dkv_kernel<8><<<grid, 2 * BR, 0, st>>>(
-        qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, causal,
-        scale); break;
-    case 16: flash_dkv_kernel<16><<<grid, 2 * BR, 0, st>>>(
-        qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, causal,
-        scale); break;
-    case 32: flash_dkv_kernel<32><<<grid, 2 * BR, 0, st>>>(
-        qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, causal,
-        scale); break;
-    case 64: flash_dkv_kernel<64><<<grid, 2 * BR, 0, st>>>(
-        qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, causal,
-        scale); break;
-    default: {
-      if (!generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
-      const size_t smem = sizeof(float) * (2 * BT + 2 * BR) * dh;
-      const int err = allow_shared(flash_dkv_generic, smem);
-      if (err != 0) return err;
-      flash_dkv_generic<<<grid, BR, smem, st>>>(
-        qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, dh,
-        causal, scale);
-    }
+  if (tc_head_dim(dh)) {
+    if (!rows_aligned(q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh) ||
+        (uintptr_t)dout % 16 != 0)
+      return (int)cudaErrorMisalignedAddress;
+    const dim3 grid(heads, batch, (tk + TC_ROWS - 1) / TC_ROWS);
+    int err = 0;
+#define KANVIT_DKV(D)                                                        \
+  err = allow_shared(flash_dkv_tc<D>, dkv_smem<D>());                        \
+  if (err == 0)                                                              \
+    flash_dkv_tc<D><<<grid, NT, dkv_smem<D>(), st>>>(                        \
+        qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, causal, \
+        scale)
+    KANVIT_TC_SWITCH(KANVIT_DKV)
+#undef KANVIT_DKV
+    return err != 0 ? err : (int)cudaGetLastError();
   }
+  if (!generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (2 * BT + 2 * BR) * dh;
+  const int err = allow_shared(flash_dkv_generic, smem);
+  if (err != 0) return err;
+  flash_dkv_generic<<<dim3((tk + BR - 1) / BR, heads, batch), BR, smem, st>>>(
+      qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, dh, causal,
+      scale);
   return (int)cudaGetLastError();
 }

@@ -30,14 +30,13 @@ from kanvit_torch.ops import dispatch
 
 # kanvit's lanes tier takes any head dim with dh % 8 == 0
 # (flash_attention.py:537-543). The kernels take each such dh up to
-# MAX_HEAD_DIM: the lanes kernels run 8, 16, 32 and 64 on the tensor cores
-# (3xTF32 mma.sync, TC_HEAD_DIMS; the tiled kernels template the same dims on
-# the CUDA cores), and generic kernels that walk dh in chunks of 8 take the
-# rest (csrc/attention_common.cuh).
+# MAX_HEAD_DIM: the lanes and the tiled kernels run 8, 16, 32 and 64 on the
+# tensor cores (3xTF32 mma.sync, TC_HEAD_DIMS), and generic kernels that
+# walk dh in chunks of 8 take the rest (csrc/attention_common.cuh).
 HEAD_DIM_STEP = 8
 MAX_HEAD_DIM = 128
 TC_HEAD_DIMS = (8, 16, 32, 64)
-# The tensor-core lanes kernels stage rows with 16-byte copies.
+# The tensor-core kernels stage rows with 16-byte copies.
 ROW_ALIGN_BYTES = 16
 
 LAUNCHES = {"flash_attention_lanes": 0, "flash_attention_lanes_bwd": 0,
@@ -136,14 +135,16 @@ def rows_aligned(a: torch.Tensor) -> bool:
             and all(st % per_row == 0 for st in a.stride()[:-1]))
 
 
-def check_aligned(**tensors: torch.Tensor) -> None:
+def check_aligned(who: str = "flash_attention_lanes",
+                  **tensors: torch.Tensor) -> None:
     """Raise unless every row of each tensor starts 16-byte aligned, as the
-    tensor-core lanes kernels (head dims ``TC_HEAD_DIMS``) need. Nothing is
-    copied: a caller with an unaligned view makes it contiguous itself."""
+    tensor-core kernels (head dims ``TC_HEAD_DIMS``) need; ``who`` names
+    the caller in the message. Nothing is copied: a caller with an
+    unaligned view makes it contiguous itself."""
     for name, a in tensors.items():
         if a.shape[-1] in TC_HEAD_DIMS and not rows_aligned(a):
             raise ValueError(
-                f"flash_attention_lanes: {name}'s rows are not 16-byte aligned "
+                f"{who}: {name}'s rows are not 16-byte aligned "
                 f"(data_ptr % 16 = {a.data_ptr() % ROW_ALIGN_BYTES}, strides "
                 f"{tuple(a.stride())}); the tensor-core kernels stage them with "
                 "16-byte copies")
@@ -393,7 +394,9 @@ def flash_attention(q, k, v, causal=False, q_block=512, k_block=1024,
     ``k`` and ``v``; ``(B, H, Tq, dh)`` out.
 
     ``q, k, v`` may be ``(B, T, H, dh)`` strided views transposed to
-    ``(B, H, T, dh)``, read without a copy. ``mask``: optional ``(B, Tk)``
+    ``(B, H, T, dh)``, read without a copy; on the card at head dims
+    ``TC_HEAD_DIMS`` their rows must start 16-byte aligned (an unaligned
+    view raises). ``mask``: optional ``(B, Tk)``
     key mask (> 0.5 = attend). Where kanvit's ``_use_small`` holds (one
     tile of the buckets covers ``tq == tk``) this is the lanes attention, a
     fully masked row giving 0; elsewhere the tiled attention with
@@ -418,6 +421,7 @@ def flash_attention(q, k, v, causal=False, q_block=512, k_block=1024,
         devices.add(mask.device)
     if devices != {q.device}:
         raise ValueError("flash_attention: q, k, v and mask must be on one device")
+    check_aligned("flash_attention", q=q, k=k, v=v)
     maskb = None if keys is None else keys.to(torch.uint8).contiguous()
     for_grad = torch.is_grad_enabled() and any(
         a.requires_grad for a in (q, k, v))

@@ -335,6 +335,36 @@ def test_flash_attention_backward_repeats_its_bits(cuda):
     assert all(torch.equal(a, b) for a, b in zip(first[1], second[1]))
 
 
+@pytest.mark.parametrize("dh", [64, 8])
+def test_flash_attention_tc_repeats_bits_and_holds_f64(cuda, dh):
+    """The tiled 3xTF32 tensor-core kernels at the decoder's seq 2048 (B 2,
+    H 4, causal): forward and backward give the same bits twice, and the
+    forward is within 1e-6 x max(1, max|o|) of f64 computed on the card."""
+    rng = np.random.default_rng(98 + dh)
+    (q, k, v), _ = _flash_inputs(rng, 2, 4, 2048, 2048, dh, masked=False)
+    g = torch.from_numpy(rng.standard_normal((2, 4, 2048, dh)).astype(np.float32)).to(cuda)
+    fn = lambda *a: FA.flash_attention(*a, True, 512, 1024)  # noqa: E731
+    first, g1 = _grads(fn, [q, k, v], g)
+    again, g2 = _grads(fn, [q, k, v], g)
+    assert torch.equal(first, again)
+    assert all(torch.equal(a, b) for a, b in zip(g1, g2))
+    exact = A.flash_attention_reference(q.double(), k.double(), v.double(), True,
+                                        512, 1024)[0]
+    _close(first.double(), exact, 1e-6)
+    assert (FA.LAUNCHES["flash_attention"], FA.LAUNCHES["flash_attention_dq"],
+            FA.LAUNCHES["flash_attention_dkv"]) == (2, 2, 2)
+
+
+def test_flash_attention_unaligned_rows_raise(cuda):
+    """The tiled tensor-core head dims stage 16-byte rows: a view whose rows
+    are not 16-byte aligned raises, with no copy and no launch."""
+    flat = torch.randn(2 * 600 * 2 * 16 + 1, device=cuda)
+    q = flat[1:].view(2, 600, 2, 16).transpose(1, 2)
+    with torch.inference_mode(), pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention(q, q, q, True)
+    assert FA.LAUNCHES["flash_attention"] == 0
+
+
 def test_flash_attention_single_tile_route(cuda):
     """Where kanvit's ``_use_small`` holds, ``flash_attention`` runs the lanes
     kernels on (B, T, H, dh) views: a row with no visible valid key is 0."""
