@@ -12,9 +12,9 @@ Phases, in order; any failure raises, so the script exits non-zero:
    power limit; no CUDA device is an error, never a fall-back to the CPU;
 2. build the CUDA kernels from ``kanvit_torch/kernels/csrc`` (nvcc, one
    process per source, all started together), with each kernel's registers
-   and spills and the SASS instruction mix of the lanes and the tiled
-   attention's tensor-core kernels at dh 64 (HMMA against the rest,
-   cuobjdump; a report, not a gate);
+   and spills and the SASS instruction mix of the tensor-core kernels: the
+   lanes and the tiled attention's at dh 64 and the fused FF's at D 384
+   (HMMA against the rest, cuobjdump; a report, not a gate);
 3. each forward kernel against its plain PyTorch version on the card, at
    the vit-s path's shapes (batch 64) and at a ragged narrow shape, with
    error and time (CUDA events) of both; the grouped q/k/v also at nin 8
@@ -62,10 +62,14 @@ Phases, in order; any failure raises, so the script exits non-zero:
    Linears) and ragged shapes (odd N, D 100), ``int8_linear`` within
    kanvit's tie-aware bound with the count of elements that differ at all,
    the FF's ReLU pattern held to the plain version's up to rounding,
-   and at the TPU probe's (n, 768) x (768, 3072); the backward's bits
-   repeated; times of the kernels, the plain versions and the library calls
-   (``F.layer_norm`` + cuBLAS ``F.linear``; ``torch._int_mm`` with its
-   quantize and dequantize passes, and f32 ``F.linear``);
+   the FF forward at vit-s also against f64 on the card (within 1e-6 x
+   max(1, max|y|)), and ``int8_linear`` at the TPU probe's (n, 768) x
+   (768, 3072); the backward's bits repeated; times of the kernels (CUDA
+   events, and the FF's by its kernels' device time), the plain versions
+   and the library calls (``F.layer_norm`` + cuBLAS ``F.linear``;
+   ``torch._int_mm`` with its quantize and dequantize passes, and f32
+   ``F.linear``), and the card's ``mma.sync`` TF32 rate, the FF kernels'
+   instruction (``csrc/mma_rate_probe.cu``);
 9. serving, through ``Predictor(batch_size=64, device="cuda")`` for three
    requests (64, 64 and 37 images), of the vit-s ``efficientkan`` (1 + 12
    + 12 launches a batch), ``flash-attn`` (12 lanes), ``cheby`` (1
@@ -112,10 +116,12 @@ Phases, in order; any failure raises, so the script exits non-zero:
 15. one JSON line of per-kernel results (each kernel's launches on its main
     path, and by path; its error, time and plain version's time; its bound,
     the least time the card could take for the same work, for the
-    tensor-core attention kernels at the dense TF32 rate for their three
-    products a product with the CUDA-core f32 bound beside it, and, for the
-    attention kernels,
-    ``scaled_dot_product_attention``'s time on the same inputs), the card's
+    tensor-core attention and FF kernels at the dense TF32 rate for their
+    three products a product with the CUDA-core f32 bound beside it, and the
+    library call's time on the same inputs: for the attention kernels
+    ``scaled_dot_product_attention``'s, for the FF ``F.layer_norm`` and
+    cuBLAS ``F.linear``'s; the FF entries also carry the measured
+    ``mma.sync`` TF32 rate and the bound at that rate), the card's
     ``nvidia-smi`` line, and last the result line
     ``{"ok": true, "device": {...}}``.
 
@@ -175,6 +181,10 @@ PEAK_BYTES = 3.35e12
 # x max(1, max|g|): f32 sums of depth D (384) and F (1,536) and, for dW1,
 # dW2, N (12,608) rows in another order than cuBLAS.
 TOL_FFN = 1e-4
+# The 3xTF32 FF forward against f64 on the card, x max(1, max|y|): the split
+# keeps f32's accuracy (plain 1xTF32 is ~2e-4 off at vit-s widths,
+# tests/test_torch_port_ffn_tc.py).
+TOL_FFN_F64 = 1e-6
 # int8 serving on the card against the CPU's, x max|logit|: the int8 values
 # agree but where an activation lies within f32 rounding of a .5 step (the
 # two sides' LayerNorms and attention round apart), each such flip moving one
@@ -260,7 +270,8 @@ def phase_build():
 # issues beside each HMMA (mma.sync) bounds them (PERF.md).
 SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
-                "flash_dq_tcILi64", "flash_dkv_tcILi64")
+                "flash_dq_tcILi64", "flash_dkv_tcILi64", "ffn_fwd_tcILi3",
+                "ffn_bwd_hidden_tc", "ffn_bwd_dx_tcILi3", "ffn_dw_tc")
 
 
 def sass_mix(lib):
@@ -288,15 +299,36 @@ def sass_mix(lib):
         for _, op, _ in code:
             counts[op] = counts.get(op, 0) + 1
         top = sorted(counts.items(), key=lambda kv: -kv[1])[:8]
-        # the main loop: the backward branch spanning the most code
+        # the main loop: the shortest backward branch spanning the most HMMA;
+        # its HMMA blocks: the basic blocks that hold an HMMA (the products,
+        # without the loop's once-a-tile or once-a-chunk code)
         back = [(int(m.group(1), 16), at) for at, op, rest in code if op == "BRA"
                 for m in [re.search(r"0x([0-9a-f]+)", rest)]
                 if m and int(m.group(1), 16) < at]
         loop = ""
         if back:
-            lo, hi = max(back, key=lambda b: b[1] - b[0])
-            ops = [op for at, op, _ in code if lo <= at <= hi]
-            loop = f"; main loop {ops.count('HMMA')} HMMA of {len(ops)}"
+            def hmma(span):
+                return sum(1 for at, op, _ in code if span[0] <= at <= span[1]
+                           and op == "HMMA")
+
+            most = max(hmma(b) for b in back)
+            lo, hi = min((b for b in back if hmma(b) == most), key=lambda b: b[1] - b[0])
+            body = [(at, op, rest) for at, op, rest in code if lo <= at <= hi]
+            targets = {int(m.group(1), 16) for _, op, rest in body if op == "BRA"
+                       for m in [re.search(r"0x([0-9a-f]+)", rest)] if m}
+            blocks, cur = [], []
+            for at, op, _ in body:
+                if at in targets and cur:
+                    blocks.append(cur)
+                    cur = []
+                cur.append(op)
+                if op in ("BRA", "EXIT"):
+                    blocks.append(cur)
+                    cur = []
+            blocks.append(cur)
+            in_blocks = sum(len(b) for b in blocks if "HMMA" in b)
+            loop = (f"; main loop {most} HMMA of {len(body)}, its HMMA blocks "
+                    f"{in_blocks} ({(in_blocks - most) / max(most, 1):.2f} others a HMMA)")
         print(f"[build] SASS {name}: {counts.get('HMMA', 0)} HMMA of {len(code)} "
               f"instructions{loop}; " + " ".join(f"{op} {n}" for op, n in top))
 
@@ -1365,11 +1397,17 @@ FFN_GRADS = ("x", "gamma", "beta", "w1", "b1", "w2", "b2")
 def ffn_bound(n, d, f, backward, library_ms):
     """The FF over x (n, d): 2 n d f FLOPs a product, two forward, five
     backward (h, g W2, dln, dW2, dW1); bytes of x, y, the weights and
-    vectors (backward: x, g, dx, W1, W2, dW1, dW2 and the vectors)."""
+    vectors (backward: x, g, dx, W1, W2, dW1, dW2 and the vectors). The
+    kernels' route is 3xTF32 on the tensor cores: ``bound_ms`` counts three
+    TF32 products for each f32 one at the dense TF32 peak, and
+    ``f32_bound_ms`` keeps the CUDA-core f32 bound beside it, as
+    ``attention_bound`` does."""
     flops = (10.0 if backward else 4.0) * n * d * f
     floats = (3 * n * d + 4 * d * f + 2 * f + 6 * d if backward
               else 2 * n * d + 2 * d * f + f + 3 * d)
-    return bound(flops, 4.0 * floats, library_ms)
+    f32 = bound(flops, 4.0 * floats, library_ms)
+    tc = bound(TF32_PASSES * flops, 4.0 * floats, library_ms, peak=PEAK_TF32_FLOPS)
+    return {**tc, "f32_bound_ms": f32["bound_ms"], "f32_bound_by": f32["bound_by"]}
 
 
 def ffn_library(x, gamma, beta, w1, b1, w2, b2):
@@ -1382,6 +1420,29 @@ def ffn_library(x, gamma, beta, w1, b1, w2, b2):
     return x + F.linear(h, w2, b2)
 
 
+def mma_sync_rate(torch, smi):
+    """TFLOP/s of ``mma.sync.m16n8k8`` TF32 on this card: 8 blocks of 8
+    warps an SM, each warp 8 independent accumulators, operands in
+    registers (``csrc/mma_rate_probe.cu``); CUDA events."""
+    from kanvit_torch.kernels import _build
+
+    sms = torch.cuda.get_device_properties(0).multi_processor_count
+    blocks, iters = 8 * sms, 256
+    out = torch.empty(blocks * 256, device="cuda")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        check(_build.load().kanvit_tf32_mma_rate(out.data_ptr(), blocks, iters,
+                                                 stream) == 0, "mma rate probe launch")
+
+    ms = time_ms(torch, run, iters=5, warmup=2)
+    tflops = blocks * 8 * iters * 8 * 2048 / (ms * 1e-3) / 1e12
+    print(f"[kernel] mma.sync.m16n8k8 TF32 issue rate on this card: {tflops:.1f} TFLOP/s "
+          f"({tflops / (PEAK_TF32_FLOPS / 1e12):.1%} of the {PEAK_TF32_FLOPS / 1e12:.0f} "
+          f"dense TF32 peak; {ms:.4f} ms for {blocks} blocks)  [{smi}]")
+    return tflops
+
+
 def check_flips(tag, flips, total, worst, limit):
     """Gate the ReLU inputs on the other side of 0 (see FLIP_SHARE)."""
     most = max(FLIP_FLOOR, int(FLIP_SHARE * total))
@@ -1391,14 +1452,27 @@ def check_flips(tag, flips, total, worst, limit):
           f"{tag}: ReLU inputs on the other side of 0 beyond rounding")
 
 
-def check_ffn(torch, rng, n, d, f, label):
-    """``ffn_pre_ln`` forward against the plain version, and backward against
+def ffn_f64_err(torch, args):
+    """The FF kernel's forward against the plain version in f64 on the card,
+    as a share of max(1, max|y|)."""
+    from kanvit_torch.kernels import fused_ffn as FFN
+    from kanvit_torch.ops import kan_bases as K
+
+    with torch.inference_mode():
+        y = FFN.ffn_pre_ln(*args)
+        exact = K.ffn_pre_ln(*(a.double() for a in args))
+    return float((y.double() - exact).abs().max()) / max(1.0, float(exact.abs().max()))
+
+
+def check_ffn(torch, rng, n, d, f, label, f64=False):
+    """``ffn_pre_ln`` forward against the plain version (with ``f64``, also
+    against f64 on the card within TOL_FFN_F64), and backward against
     autograd through the plain version on the kernel's own ReLU pattern
     (f32 rounding puts a few of the N x F pre-activations that lie within it
     of 0 on the other side in cuBLAS's h, and each such flip moves its row's
     dx by ~0.1): the pattern is first held to the plain version's up to
     rounding (``check_flips``); the backward's bits repeated; times of the
-    kernels, the plain version and the library calls."""
+    kernels (events and device), the plain version and the library calls."""
     from kanvit_torch.kernels import fused_ffn as FFN
     from kanvit_torch.ops import kan_bases as K
 
@@ -1414,6 +1488,14 @@ def check_ffn(torch, rng, n, d, f, label):
         ref = K.ffn_pre_ln(*args)
         torch.cuda.synchronize()
         err = compare(f"ffn_pre_ln {tag}", y, ref, TOL_FFN)
+    extra = {}
+    if f64:
+        err64 = ffn_f64_err(torch, args)
+        print(f"[kernel] ffn_pre_ln {tag}: against f64 on the card {err64:.3e} of "
+              f"max(1, max|y|)  limit {TOL_FFN_F64:.0e}")
+        check(err64 <= TOL_FFN_F64, f"ffn_pre_ln {tag}: {err64:.3e} from f64, over "
+                                    f"{TOL_FFN_F64:.0e}")
+        extra["f64_rel_err"] = err64
     mask = torch.empty(n, f, dtype=torch.uint8, device=args[0].device)
     with torch.inference_mode():
         FFN._launch(*args, relu_mask=mask)
@@ -1426,6 +1508,11 @@ def check_ffn(torch, rng, n, d, f, label):
         terms = ln.abs() @ args[3].abs().T + args[4].abs()
         worst = float((h.abs() / terms)[flipped].max()) if flips else 0.0
         del ln, h, terms
+    # The limit counts the worst rounding of a depth-D f32 sum on each side,
+    # D 2^-24 of sum|terms| each. The kernel's 3xTF32 h adds its own error:
+    # small*small dropped (<= 2^-22 of each |term|) and each 8-term step
+    # summed inside the tensor core, ~3 2^-22 of sum|terms| in all, 12 2^-24
+    # against the 2 D 2^-24 allowed: 6% of it at D 100, 1.6% at D 384.
     check_flips(f"[kernel] ffn_pre_ln {tag}", flips, n * f, worst, 2 * d * 2.0 ** -24)
 
     def plain_on_pattern(x, gamma, beta, w1, b1, w2, b2):
@@ -1444,18 +1531,36 @@ def check_ffn(torch, rng, n, d, f, label):
         ms = time_ms(torch, lambda: FFN._launch(*args))
         plain_ms = time_ms(torch, lambda: K.ffn_pre_ln(*args))
         lib_ms = time_ms(torch, lambda: ffn_library(*args))
+        dev_ms = kernel_ms(torch, lambda: FFN._launch(*args),
+                           label=f"ffn_pre_ln {tag}")
+        lib_dev_ms = kernel_ms(torch, lambda: ffn_library(*args))
     bwd_ms = time_ms(torch, lambda: FFN._launch_bwd(*args[:6], g))
+    bwd_dev_ms = kernel_ms(torch, lambda: FFN._launch_bwd(*args[:6], g),
+                           label=f"ffn_pre_ln_bwd {tag}")
     plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g,
                                                               retain_graph=True))
     lib_leaves, lib_out, _ = grads_of(torch, ffn_library, args, g)
-    lib_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(lib_out, lib_leaves, g,
-                                                            retain_graph=True))
-    print(f"[kernel] ffn_pre_ln {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"library (F.layer_norm, F.linear) {lib_ms:.4f} ms; backward: kernels "
-          f"{bwd_ms:.4f} ms  plain autograd {plain_bwd_ms:.4f} ms  library autograd "
-          f"{lib_bwd_ms:.4f} ms")
-    return ((err, ms, plain_ms, ffn_bound(n, d, f, False, lib_ms)),
-            (err_bwd, bwd_ms, plain_bwd_ms, ffn_bound(n, d, f, True, lib_bwd_ms)))
+
+    def lib_grad():
+        return torch.autograd.grad(lib_out, lib_leaves, g, retain_graph=True)
+
+    lib_bwd_ms = time_ms(torch, lib_grad)
+    lib_bwd_dev_ms = kernel_ms(torch, lib_grad)
+    # the backward's device-memory scratch, written once and read again: LN
+    # (n, d), r and dh (n, f), each at a pitch rounded up to 4 floats
+    scratch = 4.0 * n * (-(-d // 4) * 4 + 2 * -(-f // 4) * 4)
+    print(f"[kernel] ffn_pre_ln {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f})  "
+          f"plain {plain_ms:.4f} ms  library (F.layer_norm, F.linear) {lib_ms:.4f} ms "
+          f"(device {lib_dev_ms:.4f}); backward: kernels {bwd_ms:.4f} ms (device "
+          f"{bwd_dev_ms:.4f})  plain autograd {plain_bwd_ms:.4f} ms  library autograd "
+          f"{lib_bwd_ms:.4f} ms (device {lib_bwd_dev_ms:.4f}); backward scratch "
+          f"{scratch / 1e6:.1f} MB, {2 * scratch / PEAK_BYTES * 1e3:.4f} ms to write "
+          f"and read once at {PEAK_BYTES / 1e12:.2f} TB/s")
+    return ((err, ms, plain_ms, ffn_bound(n, d, f, False, lib_ms),
+             {**extra, "device_ms": dev_ms, "library_device_ms": lib_dev_ms}),
+            (err_bwd, bwd_ms, plain_bwd_ms, ffn_bound(n, d, f, True, lib_bwd_ms),
+             {"device_ms": bwd_dev_ms, "library_device_ms": lib_bwd_dev_ms,
+              "scratch_bytes": scratch}))
 
 
 def int8_bound(n, k, out, library_ms):
@@ -1514,12 +1619,17 @@ def check_int8(torch, rng, n, k, out, label):
             int8_bound(n, k, out, lib_ms))
 
 
-def phase_ffn_int8_kernels(torch):
+def phase_ffn_int8_kernels(torch, smi):
     rng = np.random.default_rng(SEED + 9)
     results = {}
     n = BATCH * 197
     results["ffn_pre_ln"], results["ffn_pre_ln_bwd"] = check_ffn(
-        torch, rng, n, 384, 1536, "vit-s")
+        torch, rng, n, 384, 1536, "vit-s", f64=True)
+    # the FF kernels beside what their instruction, mma.sync, reaches here
+    rate = mma_sync_rate(torch, smi)
+    for name, products in (("ffn_pre_ln", 4.0), ("ffn_pre_ln_bwd", 10.0)):
+        results[name] += ({"mma_sync_tf32_tflops": rate, "mma_sync_bound_ms":
+                           TF32_PASSES * products * n * 384 * 1536 / (rate * 1e12) * 1e3},)
     # ragged: odd N, D not a multiple of 32
     check_ffn(torch, rng, 37 * 50 + 1, 100, 400, "ragged")
     results["int8_linear"] = check_int8(torch, rng, n, 384, 1536, "vit-s FF1")
@@ -1925,8 +2035,9 @@ KERNEL_GROUPS = (
     ("tiled attention fwd", ("flash_fwd_",)),
     ("tiled attention dq", ("flash_dq_",)),
     ("tiled attention dk/dv", ("flash_dkv_",)),
-    ("fused FF fwd", ("ffn_fwd_kernel",)),
-    ("fused FF bwd", ("ffn_bwd_rows_kernel", "ffn_dw_kernel", "ffn_sum_parts_kernel")),
+    ("fused FF fwd", ("ffn_fwd_tc",)),
+    ("fused FF bwd", ("ffn_ln_rows", "ffn_split_weights", "ffn_bwd_hidden_tc",
+                      "ffn_bwd_dx_tc", "ffn_dw_tc", "ffn_sum_parts_kernel")),
     ("int8 linear", ("int8_linear_kernel",)),
     ("GEMM (cuBLAS; torch._int_mm)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
     ("Adam", ("multi_tensor", "adam", "Adam")),
@@ -2427,7 +2538,8 @@ def main():
     results["flash_attention_lanes_bwd"] += ({"single_tile_route": sub_entry(bwd)},)
     results.update(timed("Chebyshev and Fourier kernels", phase_basis_kernels, torch))
     results.update(timed("RBF and sine kernels", phase_rbf_sine_kernels, torch))
-    results.update(timed("fused FF and int8 kernels", phase_ffn_int8_kernels, torch))
+    results.update(timed("fused FF and int8 kernels", phase_ffn_int8_kernels, torch,
+                         smi))
 
     from kanvit_torch.models import PRESETS
 

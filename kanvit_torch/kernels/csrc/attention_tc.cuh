@@ -1,8 +1,8 @@
 // The 3xTF32 tensor-core helpers of the attention kernels
-// (attention_lanes.cu, flash_attention.cu): the TF32 split of an f32
-// operand, mma.sync.m16n8k8 fragments and the three-product step, 16-byte
-// cp.async staging, the reductions across a fragment row's four threads,
-// and which head dims take these kernels.
+// (attention_lanes.cu, flash_attention.cu) and the fused FF (fused_ffn.cu):
+// the TF32 split of an f32 operand, mma.sync.m16n8k8 fragments and the
+// three-product step, 16-byte cp.async staging, the reductions across a
+// fragment row's four threads, and which head dims take these kernels.
 //
 // Arithmetic: every product runs as
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32. Each f32 operand x is
@@ -83,6 +83,16 @@ struct Frag {
     for (int i = 0; i < N; ++i) split(x[i], big[i], small[i]);
   }
 };
+
+// Frag with the integer split (split_round): the tiled attention's and the
+// fused FF's operands.
+template <int N>
+__device__ __forceinline__ Frag<N> split_frag(const float (&x)[N]) {
+  Frag<N> f;
+#pragma unroll
+  for (int i = 0; i < N; ++i) split_round(x[i], f.big[i], f.small[i]);
+  return f;
+}
 
 __device__ __forceinline__ void mma_tf32(float (&d)[4], const uint32_t (&a)[4],
                                          const uint32_t (&b)[2]) {

@@ -154,14 +154,6 @@ __device__ __forceinline__ int pairs_word(int c, int s) {
   return c * 2 * R + 16 * (s ^ (c & 1));
 }
 
-template <int N>
-__device__ __forceinline__ Frag<N> split_frag(const float (&x)[N]) {
-  Frag<N> f;
-#pragma unroll
-  for (int i = 0; i < N; ++i) split_round(x[i], f.big[i], f.small[i]);
-  return f;
-}
-
 // c_as_a with the integer split.
 __device__ __forceinline__ Frag<4> c_as_a_round(const float (&c)[4]) {
   const float a[4] = {c[0], c[2], c[1], c[3]};

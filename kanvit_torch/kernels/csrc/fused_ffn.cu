@@ -16,49 +16,104 @@
 //   dx = g + rstd (gs - mean(gs) - xhat mean(gs xhat)),  gs = dln gamma.
 //
 // What bounds it on the H100: at ViT-S (N = 12,608 rows at batch 64, D 384,
-// F 1,536) the forward is 4 N D F = 29.7 GFLOP, 0.44 ms at 67 TFLOP/s f32,
-// against 39 MB of x and y: arithmetic. The backward is 10 N D F = 74.4
-// GFLOP, 1.11 ms.
+// F 1,536) the forward is 4 N D F = 29.7 GFLOP against 39 MB of x and y, the
+// backward 10 N D F = 74.4 GFLOP: arithmetic. On the tensor cores in 3xTF32
+// (three TF32 products for each f32 one) that is 0.18 ms forward and 0.45 ms
+// backward at the published 495 TFLOP/s dense TF32, which only wgmma
+// reaches; mma.sync issues ~306 TFLOP/s on an H100 80GB HBM3 at 700 W
+// (chip_smoke.py's probe, csrc/mma_rate_probe.cu): 0.29 and 0.73 ms. The
+// CUDA cores' f32 (67 TFLOP/s) would take 0.44 and 1.11 ms.
 //
-// Design. The Pallas kernel keeps a (rows, F) f32 block on chip; at 64 rows
-// and F = 1,536 that is 384 KB, more than an SM's shared memory, so the
-// forward tiles F instead: a block owns BM = 32 rows, writes their LN into
-// shared memory (k-major, so a thread reads its 4 rows as one float4), and
-// for each chunk of BF = 128 hidden units computes h = LN W1^T + b1 and its
-// ReLU into shared memory, then adds r W2^T of the chunk into a (BM, D)
-// accumulator that stays in registers (4 rows by 4 * JJ columns a thread,
-// D <= 128 JJ); the epilogue adds b2 + x. W1^T and W2^T (transposed outside
-// the kernel) stream through shared memory in KS = 16-deep tiles. SIMT f32
-// on the CUDA cores, a 4 x 4 (4 x 4 JJ) register tile per thread.
+// -- Arithmetic: every product runs on mma.sync.m16n8k8 in 3xTF32
+// (attention_tc.cuh): each f32 operand split into big = tf32(x) and small =
+// tf32(x - big) (split_round), and each 8-deep step of the contracted index
+// three mma (small*big, big*small, big*big) into a zeroed accumulator, which
+// an f32 add takes into the running sum (mma3). Plain 1xTF32 would put the
+// ViT-S forward ~2.4e-4 of max|y| from f64, past the 1e-4 gate; the split
+// keeps f32's accuracy (tests/test_torch_port_ffn_tc.py). Inside each 8-deep
+// step the contracted index is renumbered (the fragment's t <-> 2t, t+4 <->
+// 2t+1) on both operands, so an operand stored along k is one 8-byte load;
+// the sum of a step is the mma's own either way. What costs beside the mma
+// is the split (4-5 instructions a value) and the f32 adds, so each kernel
+// splits a value as few times as it can: once a block where a value is
+// shared by several warps, once a call for the weights the backward reads
+// from every row block.
 //
-// The backward's row kernel does the same walk with g beside LN: for each
-// chunk h and g W2 (one staged pass over D), dh into shared memory, and dln
-// += dh W1 into registers; the epilogue turns dln into dx (a warp holds whole
-// rows, so the two row means are shuffle sums) and writes the block's dgamma
-// and dbeta partials. r, dh and LN(x) go to device-memory scratch, (N, F),
-// (N, F) and (N, D): dW2 = g^T r and dW1 = dh^T LN(x) are reductions over
-// all N rows, which one row block cannot own. A second kernel computes each
-// as a tiled A^T B over a split of the rows (with db2 and db1, the column
-// sums of A, on the side), and a last pass sums the splits in a fixed order:
-// no atomics, the same bits every run. The scratch (173 MB at ViT-S) is the
-// cost a later redesign removes.
+// -- Forward (ffn_fwd_tc). The Pallas kernel keeps a (rows, F) block on chip;
+// here a block of 8 warps owns BM = 48 rows and all of D, so y needs no sum
+// across blocks (12,608 rows make 263 blocks: two full waves at one block an
+// SM, where 64-row blocks left the second wave half empty). LN of the rows
+// stays in shared memory (75 KB at D 384), and for each chunk of BF hidden
+// units (256; 128 past D 384, where shared memory is short):
+//   h = LN W1c^T + b1, warp w the chunk's units w BF/8 .. (w+1) BF/8 - 1 of
+//   all 48 rows;
+//   r = relu(h) into shared memory, written split, in the A-fragment order
+//   of the next product: a thread's accumulators are that fragment;
+//   y_acc += r W2c^T, warp w columns w D/8 .. (w+1) D/8 - 1 of all rows, in
+//   registers for the whole kernel (72 floats a thread at D 384).
+// The epilogue adds b2 + x. W1c's and W2c's tiles follow each other in one
+// stream, in the weights' torch layout, (n, k) tiles 16 deep, by 16-byte
+// cp.async, double-buffered (one barrier a tile: the next tile's copy is
+// started after it and runs under the products). A tile's two 8-wide halves
+// are swapped on every other pair of rows, so a half-warp's 8-byte fragment
+// loads hit 32 distinct banks with no padding (the resident LN is padded to
+// a pitch of 8 mod 32 instead). Each weight value is split once a block,
+// by the one warp that uses it; LN's A fragments are split by every warp.
+// 223 KB of shared memory at D 384 (LN, r split, two weight tiles).
+//
+// -- Backward. The weight gradients sum over all N rows and dx needs all of
+// F for each row, and one block cannot hold a row tile's LN and g (196 KB at
+// 64 rows and D 384, 262 KB at 512) beside its weight tiles. So the backward
+// runs GEMM kernels that keep no more than a tile resident:
+//   ffn_ln_rows:        LN(x) (N, D) and each row's (mean, rstd), with the
+//                       forward's arithmetic, so h repeats its bits;
+//   ffn_split_weights:  W1 and W2 split once into TF32 words, in the tile
+//                       layout the next two kernels stage as they are (14 MB
+//                       at ViT-S): 197 x 12 hidden blocks and 263 dx blocks
+//                       would otherwise split every weight again;
+//   ffn_bwd_hidden_tc:  a (64 rows x 128 hidden units) tile, 2 x 4 warps, of
+//                       h = LN W1^T + b1 and dr = g W2, both contracting over
+//                       D: the LN and g tiles land raw and are split once by
+//                       the block, the weight tiles land split; writes
+//                       r = relu(h) and dh = dr [h > 0];
+//   ffn_bwd_dx_tc:      dln = dh W1 for 48 rows and all of D (as the
+//                       forward's y; W1 split, dh split by every warp), then
+//                       dx and the block's dgamma, dbeta partials (row means
+//                       by quad shuffles and a fixed-order sum of the 8
+//                       warps; column sums by shuffles);
+//   ffn_dw_tc:          dW2 = g^T r and dW1 = dh^T LN, (128 x 128) tiles, 2 x 4
+//                       warps, over row splits (7 at ViT-S), both operands
+//                       landing raw and split once a block, with db2 and
+//                       db1 as the column sums of A;
+//   ffn_sum_parts_kernel: the splits' and row blocks' partials summed in a
+//                       fixed order: no atomics, a second backward gives
+//                       the same bits.
+// Scratch in device memory: LN (N, D), r and dh (N, F), 174 MB at ViT-S
+// written once and read once or twice (~0.1 ms at 3.35 TB/s beside a 0.45
+// ms bound), the split weights and the split partials (2 x 7 x D F floats).
+//
+// Rows, D and F past a tile's edge are zero-filled in shared memory. The
+// staged operands (W1, W2, g and the scratch) need 16-byte-aligned rows: the
+// wrapper passes them at pitches ldd = D and ldf = F rounded up to 4, copying
+// an input whose pitch or address is off (zero-padded), and refuses nothing.
 
 #include <cuda_runtime.h>
 #include <math.h>
+#include <stdint.h>
+
+#include "attention_tc.cuh"
 
 namespace {
 
-constexpr int BM = 32;         // rows per block of the row kernels
-constexpr int THREADS = 256;   // 8 warps: warp ty owns rows 4 ty .. 4 ty + 3
-constexpr int BF = 128;        // hidden units per chunk
-constexpr int KS = 16;         // depth of a staged weight tile
-constexpr int LP = BM + 4;     // pitch of a k-major (k, BM) tile
-constexpr int WB = 64;         // (M, P) tile of the dW kernel
+constexpr int THREADS = 256;  // 8 warps
+constexpr int BM = 48;        // rows a block of the forward and dx kernels
+constexpr int MT = BM / 16;   // their m16 tiles: every warp holds all BM rows
+constexpr int BM_H = 64;      // rows a block of the hidden kernel (2 x 4 warps)
+constexpr int KS = 16;        // depth of a staged tile: two mma steps
+constexpr int KP = 4;         // pad of a k-major tile's rows: pitch 4 mod 32
+constexpr int BN_H = 128;     // hidden units a block of the hidden kernel
+constexpr int BW = 128;       // (M, P) tile of the weight-gradient kernel
 constexpr float LN_EPS = 1e-5f;
-
-__device__ __forceinline__ float4 ld4(const float* p) {
-  return *reinterpret_cast<const float4*>(p);
-}
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -66,348 +121,806 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// acc[i][j] += a[i] * b[j] over a 4 x 4 tile.
-__device__ __forceinline__ void outer4(float (&acc)[4][4], float4 a, float4 b) {
-  const float av[4] = {a.x, a.y, a.z, a.w}, bv[4] = {b.x, b.y, b.z, b.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
+// A row's mean and rstd, by one warp (every lane gets them).
+__device__ __forceinline__ void ln_stats(const float* __restrict__ xr, int d,
+                                         int lane, float& mean, float& rstd) {
+  float s = 0.f;
+  for (int k = lane; k < d; k += 32) s += xr[k];
+  mean = warp_sum(s) / d;
+  float v = 0.f;
+  for (int k = lane; k < d; k += 32) {
+    const float c = xr[k] - mean;
+    v = fmaf(c, c, v);
+  }
+  rstd = 1.f / sqrtf(warp_sum(v) / d + LN_EPS);
 }
 
-// LN of the block's rows into lnt (k-major, rows k < dp, zero past d), each
-// row's mean and rstd into mean_s and rstd_s, and, if ln_out is given, LN(x)
-// into ln_out (n, d). Warp ty normalises rows 4 ty .. 4 ty + 3.
-__device__ void layer_norm_rows(const float* __restrict__ x,
-                                const float* __restrict__ gamma,
-                                const float* __restrict__ beta, float* lnt,
-                                float* mean_s, float* rstd_s,
-                                float* __restrict__ ln_out, int r0, int n,
-                                int d, int dp) {
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i, row = r0 + r;
+__device__ __forceinline__ float ln_value(float xv, float mean, float rstd,
+                                          float gm, float bt) {
+  return fmaf((xv - mean) * rstd, gm, bt);
+}
+
+// --- staged tiles and fragments ---------------------------------------------
+//
+// A swizzled tile holds (rows, KS) of a matrix stored along k: row r at
+// r*KS, its two 8-wide halves swapped when bit 1 of r is set. A fragment
+// reads 2 consecutive words (k = 2t, 2t+1 of an 8-wide step) of rows g (and
+// g+8); a half-warp's rows g = 0..3 then land on 32 distinct banks.
+__device__ __forceinline__ int sw_word(int r, int k) {
+  return r * KS + ((((k >> 3) ^ (r >> 1)) & 1) << 3) + (k & 7);
+}
+
+// Stage rows r0 .. r0+ROWS-1, columns k0 .. k0+KS-1 of the row-major
+// (rows, ld) matrix src into a swizzled tile; zero outside (rows, ld).
+template <int ROWS>
+__device__ __forceinline__ void stage_rows(float* dst, const float* __restrict__ src,
+                                           int ld, int rows, int r0, int k0) {
+  constexpr int CH = ROWS * KS / 4;  // 16-byte chunks
+#pragma unroll
+  for (int i = 0; i < (CH + THREADS - 1) / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    if (CH % THREADS != 0 && e >= CH) break;
+    const int r = e / (KS / 4), k = (e % (KS / 4)) * 4, row = r0 + r, col = k0 + k;
+    const bool in = row < rows && col < ld;
+    cp_async16(dst + sw_word(r, k), in ? src + (long long)row * ld + col : src, in);
+  }
+}
+
+// Stage rows k0 .. k0+KS-1, columns c0 .. c0+COLS-1 of the row-major
+// (rows, ld) matrix src into a (KS, COLS + KP) tile; zero outside (rows, ld).
+template <int COLS>
+__device__ __forceinline__ void stage_kmajor(float* dst, const float* __restrict__ src,
+                                             int ld, int rows, int k0, int c0) {
+  constexpr int CPR = COLS / 4, CH = KS * CPR;
+#pragma unroll
+  for (int i = 0; i < (CH + THREADS - 1) / THREADS; ++i) {
+    const int e = threadIdx.x + i * THREADS;
+    if (CH % THREADS != 0 && e >= CH) break;
+    const int kk = e / CPR, c = (e % CPR) * 4, row = k0 + kk, col = c0 + c;
+    const bool in = row < rows && col < ld;
+    cp_async16(dst + kk * (COLS + KP) + c, in ? src + (long long)row * ld + col : src,
+               in);
+  }
+}
+
+__device__ __forceinline__ float2 ld2(const float* p) {
+  return *reinterpret_cast<const float2*>(p);
+}
+
+// A fragment (rows m, m+8; step s) of a swizzled tile stored (m, k).
+__device__ __forceinline__ Frag<4> a_tile(const float* tile, int m, int s, int t) {
+  const int off = (((s ^ (m >> 1)) & 1) << 3) + 2 * t;  // rows m, m+8 alike
+  const float2 lo = ld2(tile + m * KS + off), hi = ld2(tile + (m + 8) * KS + off);
+  const float a[4] = {lo.x, hi.x, lo.y, hi.y};
+  return split_frag(a);
+}
+
+// B fragment (column n; step s) of a swizzled tile stored (n, k).
+__device__ __forceinline__ Frag<2> b_tile(const float* tile, int n, int s, int t) {
+  const float2 v = ld2(tile + n * KS + (((s ^ (n >> 1)) & 1) << 3) + 2 * t);
+  const float b[2] = {v.x, v.y};
+  return split_frag(b);
+}
+
+// A fragment of a resident row-major block of pitch P (8 mod 32): `at`
+// points at row m, the step's first column.
+template <int P>
+__device__ __forceinline__ Frag<4> a_resident(const float* at, int t) {
+  const float2 lo = ld2(at + 2 * t), hi = ld2(at + 8 * P + 2 * t);
+  const float a[4] = {lo.x, hi.x, lo.y, hi.y};
+  return split_frag(a);
+}
+
+// --- split operands ----------------------------------------------------------
+//
+// The backward's staged tiles land raw by cp.async and are then split once by
+// the block into TF32 words laid out per fragment (the forward's r is written
+// so from its accumulators), so the product loops load split fragments with
+// 16-byte loads and split nothing:
+//   afrags: A of m16 tile i, 8-deep step s at (i S + s) * 256 words (S the
+//           steps a row of tiles holds):
+//           lane l's big words at 4l in the register order (g, 2t),
+//           (g+8, 2t), (g, 2t+1), (g+8, 2t+1), its small words at 128 + 4l;
+//   bpairs: B of column n, step s at n 2KS + 16 (s ^ (n & 1)) + 4t:
+//           big(2t), big(2t+1), small(2t), small(2t+1); the XOR puts the
+//           16-byte loads of a quarter-warp (columns g, g+1) on 32 banks.
+// A split pass unit is one such 16-byte group; the raw reads and the
+// split stores of a warp are conflict-free.
+
+constexpr int KSTEP = KS / 8;  // mma steps a tile
+
+__device__ __forceinline__ void store_a(uint32_t* at, float a0, float a1, float a2,
+                                        float a3) {
+  uint4 b, s;
+  split_round(a0, b.x, s.x);
+  split_round(a1, b.y, s.y);
+  split_round(a2, b.z, s.z);
+  split_round(a3, b.w, s.w);
+  *reinterpret_cast<uint4*>(at) = b;
+  *reinterpret_cast<uint4*>(at + 128) = s;
+}
+
+__device__ __forceinline__ void store_b(uint32_t* at, float b0, float b1) {
+  uint4 w;
+  split_round(b0, w.x, w.z);
+  split_round(b1, w.y, w.w);
+  *reinterpret_cast<uint4*>(at) = w;
+}
+
+__device__ __forceinline__ int bpairs_word(int n, int s, int t) {
+  return n * 2 * KS + 16 * (s ^ (n & 1)) + 4 * t;
+}
+
+// afrags of rows 0 .. R-1 from a swizzled raw tile stored (m, k).
+template <int R>
+__device__ __forceinline__ void split_a_rows(uint32_t* dst, const float* raw) {
+  constexpr int UNITS = R / 16 * KSTEP * 32;
+#pragma unroll
+  for (int q = 0; q < (UNITS + THREADS - 1) / THREADS; ++q) {
+    const int u = threadIdx.x + q * THREADS;
+    if (UNITS % THREADS != 0 && u >= UNITS) break;
+    const int lane = u & 31, blk = u >> 5, s = blk % KSTEP;
+    const int m = 16 * (blk / KSTEP) + (lane >> 2);
+    const int off = (((s ^ (m >> 1)) & 1) << 3) + 2 * (lane & 3);  // rows m, m+8 alike
+    const float2 lo = ld2(raw + m * KS + off), hi = ld2(raw + (m + 8) * KS + off);
+    store_a(dst + blk * 256 + 4 * lane, lo.x, hi.x, lo.y, hi.y);
+  }
+}
+
+// afrags of columns 0 .. C-1 from a raw tile stored (k, m), pitch C + KP.
+template <int C>
+__device__ __forceinline__ void split_a_kmajor(uint32_t* dst, const float* raw) {
+  constexpr int P = C + KP, UNITS = C / 16 * KSTEP * 32;
+#pragma unroll
+  for (int q = 0; q < (UNITS + THREADS - 1) / THREADS; ++q) {
+    const int u = threadIdx.x + q * THREADS;
+    if (UNITS % THREADS != 0 && u >= UNITS) break;
+    const int lane = u & 31, blk = u >> 5, s = blk % KSTEP;
+    const float* r0 =
+        raw + (8 * s + 2 * (lane & 3)) * P + 16 * (blk / KSTEP) + (lane >> 2);
+    store_a(dst + blk * 256 + 4 * lane, r0[0], r0[8], r0[P], r0[P + 8]);
+  }
+}
+
+// bpairs of columns 0 .. C-1 from a raw tile stored (k, n), pitch C + KP.
+template <int C>
+__device__ __forceinline__ void split_b_kmajor(uint32_t* dst, const float* raw) {
+  constexpr int P = C + KP, UNITS = C * KSTEP * 4;
+#pragma unroll
+  for (int q = 0; q < (UNITS + THREADS - 1) / THREADS; ++q) {
+    const int u = threadIdx.x + q * THREADS;
+    if (UNITS % THREADS != 0 && u >= UNITS) break;
+    const int t = u & 3, blk = u >> 5, s = blk % KSTEP;
+    const int n = 8 * (blk / KSTEP) + ((u >> 2) & 7);
+    const float* r0 = raw + (8 * s + 2 * t) * P + n;
+    store_b(dst + bpairs_word(n, s, t), r0[0], r0[P]);
+  }
+}
+
+// A fragment of m16 tile i, step s of an afrags tile of STEPS steps.
+template <int STEPS = KSTEP>
+__device__ __forceinline__ Frag<4> a_split(const uint32_t* tile, int i, int s, int lane) {
+  const uint32_t* at = tile + (i * STEPS + s) * 256 + 4 * lane;
+  const uint4 b = *reinterpret_cast<const uint4*>(at);
+  const uint4 sm = *reinterpret_cast<const uint4*>(at + 128);
+  Frag<4> f;
+  f.big[0] = b.x;
+  f.big[1] = b.y;
+  f.big[2] = b.z;
+  f.big[3] = b.w;
+  f.small[0] = sm.x;
+  f.small[1] = sm.y;
+  f.small[2] = sm.z;
+  f.small[3] = sm.w;
+  return f;
+}
+
+// B fragment of column n, step s of a bpairs tile.
+__device__ __forceinline__ Frag<2> b_split(const uint32_t* tile, int n, int s, int t) {
+  const uint4 w = *reinterpret_cast<const uint4*>(tile + bpairs_word(n, s, t));
+  Frag<2> f;
+  f.big[0] = w.x;
+  f.big[1] = w.y;
+  f.small[0] = w.z;
+  f.small[1] = w.w;
+  return f;
+}
+
+// --- forward -----------------------------------------------------------------
+
+template <int JJ>
+struct Fwd {
+  static constexpr int DP = 128 * JJ;            // D <= DP
+  static constexpr int BF = JJ <= 3 ? 256 : 128;  // hidden units a chunk
+  static constexpr int LNP = DP + 8;             // LN's pitch, 8 mod 32
+  static constexpr int RS = BF / 8;              // mma steps of a chunk
+  static constexpr int WR = DP > BF ? DP : BF;   // rows of a staged weight tile
+  static constexpr int NH = BF / 64;             // n8 tiles of h a warp
+  static constexpr int NY = DP / 64;             // n8 tiles of y a warp
+  static constexpr size_t SMEM =
+      sizeof(float) * (BM * LNP + 2 * BM * BF + 2 * WR * KS);
+};
+
+// The forward's stream of weight tiles: for each chunk c0 of hidden units,
+// phase 0 walks D (W1c tiles), phase 1 the chunk's hidden units (W2c tiles).
+struct Tile {
+  int c0, phase, k0;
+};
+
+__device__ __forceinline__ Tile next_tile(Tile c, int d, int f, int bf) {
+  c.k0 += KS;
+  if (c.phase == 0) {
+    if (c.k0 >= d) {
+      c.phase = 1;
+      c.k0 = 0;
+    }
+  } else if (c.k0 >= bf || c.c0 + c.k0 >= f) {
+    c.phase = 0;
+    c.k0 = 0;
+    c.c0 += bf;
+  }
+  return c;
+}
+
+// One block per BM rows. relu_mask, when not null, gets h > 0 (n, f): the
+// ReLU pattern, for a gradient check that holds a reference to the kernel's
+// own linear piece. Checks only: the model path passes null.
+template <int JJ>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_fwd_tc(const float* __restrict__ x, const float* __restrict__ gamma,
+           const float* __restrict__ beta, const float* __restrict__ w1,
+           const float* __restrict__ b1, const float* __restrict__ w2,
+           const float* __restrict__ b2, float* __restrict__ y,
+           unsigned char* __restrict__ relu_mask, int n, int d, int f, int ldd,
+           int ldf) {
+  using S = Fwd<JJ>;
+  constexpr int DP = S::DP, BF = S::BF, LNP = S::LNP, RS = S::RS, WR = S::WR;
+  constexpr int NH = S::NH, NY = S::NY;
+  extern __shared__ __align__(16) float sm[];
+  float* ln = sm;  // (BM, LNP)
+  uint32_t* rs = reinterpret_cast<uint32_t*>(ln + BM * LNP);  // r, split: afrags
+  float* wt = ln + BM * LNP + 2 * BM * BF;  // 2 x (WR, KS), swizzled
+  const int wn = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * BM;
+
+  auto issue = [&](const Tile& c, int buf) {
+    float* dst = wt + buf * WR * KS;
+    if (c.phase == 0)
+      stage_rows<BF>(dst, w1, ldd, f, c.c0, c.k0);
+    else
+      stage_rows<DP>(dst, w2, ldf, d, 0, c.c0 + c.k0);
+  };
+  Tile cur = {0, 0, 0};
+  issue(cur, 0);
+  cp_async_commit();
+
+  for (int r = wn; r < BM; r += THREADS / 32) {
+    float* lr = ln + r * LNP;
+    const int row = r0 + r;
     if (row >= n) {
-      for (int k = tx; k < dp; k += 32) lnt[k * LP + r] = 0.f;
-      if (tx == 0) mean_s[r] = rstd_s[r] = 0.f;
+      for (int k = lane; k < DP; k += 32) lr[k] = 0.f;
       continue;
     }
     const float* xr = x + (long long)row * d;
-    float s = 0.f;
-    for (int k = tx; k < d; k += 32) s += xr[k];
-    const float mean = warp_sum(s) / d;
-    float v = 0.f;
-    for (int k = tx; k < d; k += 32) {
-      const float c = xr[k] - mean;
-      v = fmaf(c, c, v);
+    float mean, rstd;
+    ln_stats(xr, d, lane, mean, rstd);
+    for (int k = lane; k < DP; k += 32)
+      lr[k] = k < d ? ln_value(xr[k], mean, rstd, gamma[k], beta[k]) : 0.f;
+  }
+
+  float yacc[MT][NY][4], hacc[MT][NH][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NY; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) yacc[i][j][e] = 0.f;
+
+  int buf = 0;
+  while (cur.c0 < f) {
+    const Tile nxt = next_tile(cur, d, f, BF);
+    cp_async_wait<0>();
+    __syncthreads();  // tile `buf` (and LN, r) visible; tile buf^1 is free
+    if (nxt.c0 < f) issue(nxt, buf ^ 1);
+    cp_async_commit();
+    const float* w = wt + buf * WR * KS;
+    if (cur.phase == 0) {
+      if (cur.k0 == 0) {
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NH; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) hacc[i][j][e] = 0.f;
+      }
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        Frag<4> a[MT];
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+          a[i] = a_resident<LNP>(ln + (16 * i + g) * LNP + cur.k0 + 8 * s, t);
+#pragma unroll
+        for (int j = 0; j < NH; ++j) {
+          const Frag<2> b = b_tile(w, wn * (BF / 8) + 8 * j + g, s, t);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) mma3(hacc[i][j], a[i], b);
+        }
+      }
+      if (nxt.phase == 1) {
+        // The chunk's h is complete: r into shared memory, split, as the
+        // next product's A fragments. This thread's accumulator holds rows
+        // g, g+8 and hidden units 2t, 2t+1 of one 8-wide step: the A
+        // fragment of the same lane with the hidden units renumbered.
+#pragma unroll
+        for (int i = 0; i < MT; ++i)
+#pragma unroll
+          for (int j = 0; j < NH; ++j) {
+            const int step = wn * NH + j, c = cur.c0 + 8 * step + 2 * t;
+            const bool in0 = c < f, in1 = c + 1 < f;
+            const float bias0 = in0 ? b1[c] : 0.f, bias1 = in1 ? b1[c + 1] : 0.f;
+            float rv[4];
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const float hv = hacc[i][j][e] + (e & 1 ? bias1 : bias0);
+              rv[e] = (e & 1 ? in1 : in0) ? fmaxf(hv, 0.f) : 0.f;
+              const int row = r0 + 16 * i + 8 * (e >> 1) + g;
+              if (relu_mask != nullptr && row < n && (e & 1 ? in1 : in0))
+                relu_mask[(long long)row * f + c + (e & 1)] = hv > 0.f;
+            }
+            store_a(rs + (i * RS + step) * 256 + 4 * lane, rv[0], rv[2], rv[1], rv[3]);
+          }
+      }
+    } else {
+#pragma unroll
+      for (int s = 0; s < 2; ++s) {
+        Frag<4> a[MT];
+#pragma unroll
+        for (int i = 0; i < MT; ++i) a[i] = a_split<RS>(rs, i, cur.k0 / 8 + s, lane);
+#pragma unroll
+        for (int j = 0; j < NY; ++j) {
+          const Frag<2> b = b_tile(w, wn * (DP / 8) + 8 * j + g, s, t);
+#pragma unroll
+          for (int i = 0; i < MT; ++i) mma3(yacc[i][j], a[i], b);
+        }
+      }
     }
-    const float rstd = 1.f / sqrtf(warp_sum(v) / d + LN_EPS);
-    for (int k = tx; k < dp; k += 32) {
-      const float ln = k < d ? (xr[k] - mean) * rstd * gamma[k] + beta[k] : 0.f;
-      lnt[k * LP + r] = ln;
-      if (ln_out != nullptr && k < d) ln_out[(long long)row * d + k] = ln;
+    cur = nxt;
+    buf ^= 1;
+  }
+
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int row = r0 + 16 * i + 8 * hh + g;
+      if (row >= n) continue;
+#pragma unroll
+      for (int j = 0; j < NY; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int col = wn * (DP / 8) + 8 * j + 2 * t + e;
+          if (col < d) {
+            const long long o = (long long)row * d + col;
+            y[o] = x[o] + (yacc[i][j][2 * hh + e] + b2[col]);
+          }
+        }
     }
-    if (tx == 0) {
-      mean_s[r] = mean;
-      rstd_s[r] = rstd;
-    }
+}
+
+// --- backward ----------------------------------------------------------------
+
+// LN(x) into ln (n, ldd), zero past d, and each row's (mean, rstd) into
+// stats (n, 2); one warp a row.
+__global__ void __launch_bounds__(THREADS)
+ffn_ln_rows(const float* __restrict__ x, const float* __restrict__ gamma,
+            const float* __restrict__ beta, float* __restrict__ ln,
+            float* __restrict__ stats, int n, int d, int ldd) {
+  const int lane = threadIdx.x & 31;
+  const long long row = (long long)blockIdx.x * (THREADS / 32) + (threadIdx.x >> 5);
+  if (row >= n) return;
+  const float* xr = x + row * d;
+  float mean, rstd;
+  ln_stats(xr, d, lane, mean, rstd);
+  for (int k = lane; k < ldd; k += 32)
+    ln[row * ldd + k] = k < d ? ln_value(xr[k], mean, rstd, gamma[k], beta[k]) : 0.f;
+  if (lane == 0) {
+    stats[2 * row] = mean;
+    stats[2 * row + 1] = rstd;
   }
 }
 
-// Stage rows [k0, k0 + KS) x columns [c0, c0 + width) of the row-major
-// (rows, ld) matrix src into dst (KS, width), zero outside (rows, cols).
-__device__ __forceinline__ void stage(float* dst, const float* __restrict__ src,
-                                      int ld, int k0, int rows, int c0,
-                                      int cols, int width) {
-  for (int e = threadIdx.x; e < KS * width; e += THREADS) {
-    const int kk = e / width, j = e % width, k = k0 + kk, c = c0 + j;
-    dst[e] = (k < rows && c < cols) ? src[(long long)k * ld + c] : 0.f;
+// W1 and W2 split once for the hidden kernel, as bpairs tiles of BN_H
+// hidden units by KS of D: ws[(kt fp + n) 2KS + ...] holds B(k, n) for k in
+// tile kt of D and hidden unit n < fp (f rounded up to BN_H), W1's B(k, n)
+// = W1[n][k] and W2's B(k, n) = W2[k][n]; zero outside (d, f). Every row
+// block of the hidden kernel stages these words as they are.
+__global__ void __launch_bounds__(THREADS)
+ffn_split_weights(const float* __restrict__ w1, const float* __restrict__ w2,
+                  uint32_t* __restrict__ w1s, uint32_t* __restrict__ w2s,
+                  uint32_t* __restrict__ w1d, int d, int f, int ldd, int ldf, int fp,
+                  int dp) {
+  const long long units = (long long)((d + KS - 1) / KS) * fp * KSTEP * 4;
+  const long long stride = (long long)gridDim.x * blockDim.x;
+  // W1: a group's two words along k, k fastest (reads along W1's rows)
+  for (long long u = blockIdx.x * (long long)blockDim.x + threadIdx.x; u < units;
+       u += stride) {
+    const int t = u & 3, s = (u >> 2) % KSTEP;
+    const long long row = u / (4 * KSTEP);  // kt fp + n
+    const int n = row % fp, k = (int)(row / fp) * KS + 8 * s + 2 * t;
+    const float* wr = w1 + (long long)n * ldd;
+    store_b(w1s + row * 2 * KS + 16 * (s ^ (n & 1)) + 4 * t,
+            n < f && k < d ? wr[k] : 0.f, n < f && k + 1 < d ? wr[k + 1] : 0.f);
+  }
+  // W2: n fastest (reads along W2's rows)
+  for (long long u = blockIdx.x * (long long)blockDim.x + threadIdx.x; u < units;
+       u += stride) {
+    const int n = u % fp, rest = (int)(u / fp), t = rest & 3, s = (rest >> 2) % KSTEP;
+    const int kt = rest / (4 * KSTEP), k = kt * KS + 8 * s + 2 * t;
+    const long long row = (long long)kt * fp + n;
+    store_b(w2s + row * 2 * KS + 16 * (s ^ (n & 1)) + 4 * t,
+            n < f && k < d ? w2[(long long)k * ldf + n] : 0.f,
+            n < f && k + 1 < d ? w2[(long long)(k + 1) * ldf + n] : 0.f);
+  }
+  // W1 for the dx kernel: B(k, n) = W1[k][n] for k in tile kt of F and
+  // n < dp (d rounded up to 128), n fastest
+  const long long units_dx = (long long)((f + KS - 1) / KS) * dp * KSTEP * 4;
+  for (long long u = blockIdx.x * (long long)blockDim.x + threadIdx.x; u < units_dx;
+       u += stride) {
+    const int n = u % dp, rest = (int)(u / dp), t = rest & 3, s = (rest >> 2) % KSTEP;
+    const int kt = rest / (4 * KSTEP), k = kt * KS + 8 * s + 2 * t;
+    const long long row = (long long)kt * dp + n;
+    store_b(w1d + row * 2 * KS + 16 * (s ^ (n & 1)) + 4 * t,
+            n < d && k < f ? w1[(long long)k * ldd + n] : 0.f,
+            n < d && k + 1 < f ? w1[(long long)(k + 1) * ldd + n] : 0.f);
   }
 }
 
-// acc (4 rows x 4 JJ columns) += at[k][rows] * W[c0 + k][columns] over the
-// chunk's hidden units k < min(BF, f - c0); at is the chunk's k-major
-// (BF, LP) tile, W (f, d) row-major, staged through bs (KS, 128 JJ).
+// Shared memory of the hidden kernel (words): LN and g raw (swizzled) and
+// split (afrags), and two stages of the split W1 and W2 tiles.
+constexpr int H_RAW = 2 * BM_H * KS;
+constexpr int H_SPLIT = 2 * 2 * BM_H * KS;
+constexpr int H_W = 2 * 2 * BN_H * KS;
+constexpr size_t H_SMEM = sizeof(float) * (H_RAW + H_SPLIT + 2 * H_W);
+
+// h = LN W1^T + b1 and dr = g W2 over a (BM_H rows, BN_H hidden units) tile,
+// both contracting over D; writes r = relu(h) and dh = dr [h > 0] (n, ldf),
+// zero at hidden units past f. h repeats the forward's bits: the same split
+// words in the same mma order.
+__global__ void __launch_bounds__(THREADS, 2)
+ffn_bwd_hidden_tc(const float* __restrict__ ln, const float* __restrict__ g,
+                  const uint32_t* __restrict__ w1s, const uint32_t* __restrict__ w2s,
+                  const float* __restrict__ b1, float* __restrict__ r,
+                  float* __restrict__ dh, int n, int d, int f, int ldd, int ldf,
+                  int fp) {
+  extern __shared__ __align__(16) float sm[];
+  float* raw = sm;  // LN, g (BM_H, KS), swizzled
+  uint32_t* ln_s = reinterpret_cast<uint32_t*>(sm + H_RAW);  // afrags
+  uint32_t* g_s = ln_s + 2 * BM_H * KS;                       // afrags
+  uint32_t* w_s = g_s + 2 * BM_H * KS;  // 2 stages of W1, W2 bpairs
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
+  const int r0 = blockIdx.x * BM_H, n0 = blockIdx.y * BN_H;
+
+  auto stage = [&](int kt) {
+    const int k0 = kt * KS;
+    stage_rows<BM_H>(raw, ln, ldd, n, r0, k0);
+    stage_rows<BM_H>(raw + BM_H * KS, g, ldd, n, r0, k0);
+    uint32_t* dst = w_s + (kt & 1) * H_W;
+    const long long at = ((long long)kt * fp + n0) * 2 * KS;
+    constexpr int CH = 2 * BN_H * KS / 4;  // 16-byte chunks of a W tile
+#pragma unroll
+    for (int i = 0; i < CH / THREADS; ++i) {
+      const int e = 4 * (threadIdx.x + i * THREADS);
+      cp_async16(reinterpret_cast<float*>(dst + e),
+                 reinterpret_cast<const float*>(w1s + at + e), true);
+      cp_async16(reinterpret_cast<float*>(dst + 2 * BN_H * KS + e),
+                 reinterpret_cast<const float*>(w2s + at + e), true);
+    }
+  };
+
+  float hacc[2][4][4], dracc[2][4][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) hacc[i][j][e] = dracc[i][j][e] = 0.f;
+
+  const int kt_n = (d + KS - 1) / KS;
+  stage(0);
+  cp_async_commit();
+  for (int kt = 0; kt < kt_n; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; LN and g's split words are free
+    split_a_rows<BM_H>(ln_s, raw);
+    split_a_rows<BM_H>(g_s, raw + BM_H * KS);
+    __syncthreads();  // split words ready; the raw tile is free
+    if (kt + 1 < kt_n) stage(kt + 1);
+    cp_async_commit();
+    const uint32_t* w1_t = w_s + (kt & 1) * H_W;
+    const uint32_t* w2_t = w1_t + 2 * BN_H * KS;
+#pragma unroll
+    for (int s8 = 0; s8 < KSTEP; ++s8) {
+      Frag<4> a[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) a[i] = a_split(ln_s, 2 * wm + i, s8, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const Frag<2> b = b_split(w1_t, 32 * wn + 8 * j + gq, s8, t);
+        mma3(hacc[0][j], a[0], b);
+        mma3(hacc[1][j], a[1], b);
+      }
+#pragma unroll
+      for (int i = 0; i < 2; ++i) a[i] = a_split(g_s, 2 * wm + i, s8, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const Frag<2> b = b_split(w2_t, 32 * wn + 8 * j + gq, s8, t);
+        mma3(dracc[0][j], a[0], b);
+        mma3(dracc[1][j], a[1], b);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + 32 * wn + 8 * j + 2 * t;  // even; ldf % 4 == 0
+    if (col >= ldf) continue;
+    const float bias0 = col < f ? b1[col] : 0.f, bias1 = col + 1 < f ? b1[col + 1] : 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 32 * wm + 16 * i + 8 * hh + gq;
+        if (row >= n) continue;
+        const float h0 = hacc[i][j][2 * hh] + bias0, h1 = hacc[i][j][2 * hh + 1] + bias1;
+        const long long o = (long long)row * ldf + col;
+        *reinterpret_cast<float2*>(r + o) = make_float2(fmaxf(h0, 0.f), fmaxf(h1, 0.f));
+        *reinterpret_cast<float2*>(dh + o) =
+            make_float2(h0 > 0.f ? dracc[i][j][2 * hh] : 0.f,
+                        h1 > 0.f ? dracc[i][j][2 * hh + 1] : 0.f);
+      }
+  }
+}
+
 template <int JJ>
-__device__ __forceinline__ void chunk_times_rows(float (&acc)[4][4 * JJ],
-                                                 const float* at,
-                                                 const float* __restrict__ w,
-                                                 float* bs, int c0, int f,
-                                                 int d) {
-  constexpr int DP = 128 * JJ;
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  for (int k0 = 0; k0 < BF && c0 + k0 < f; k0 += KS) {
-    __syncthreads();  // bs is no longer read
-    stage(bs, w, d, c0 + k0, f, 0, d, DP);
+struct Dx {
+  static constexpr int DP = 128 * JJ;
+  static constexpr int STAGE = BM * KS + 2 * DP * KS;  // dh swizzled, W1 split
+  static constexpr int NY = DP / 64;                   // n8 tiles of dln a warp
+  static constexpr size_t SMEM = sizeof(float) * 2 * STAGE;
+};
+
+// dln = dh W1 for BM rows and all of D, contracting over F; then dx and the
+// block's dgamma, dbeta partials dgb_part[block] (2, d). g at pitch ldd;
+// w1d: W1 split once, bpairs tiles of KS hidden units by DP
+// (ffn_split_weights). Warp w holds all BM rows and columns w DP/8 ..
+// (w+1) DP/8 - 1.
+template <int JJ>
+__global__ void __launch_bounds__(THREADS, 1)
+ffn_bwd_dx_tc(const float* __restrict__ dh, const uint32_t* __restrict__ w1d,
+              const float* __restrict__ x, const float* __restrict__ g,
+              const float* __restrict__ gamma, const float* __restrict__ stats,
+              float* __restrict__ dx, float* __restrict__ dgb_part, int n, int d,
+              int f, int ldd, int ldf) {
+  using S = Dx<JJ>;
+  constexpr int DP = S::DP, STAGE = S::STAGE, NY = S::NY;
+  extern __shared__ __align__(16) float sm[];
+  const int wn = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3;
+  const int r0 = blockIdx.x * BM;
+
+  auto stage = [&](int kt, int buf) {
+    float* s = sm + buf * STAGE;
+    stage_rows<BM>(s, dh, ldf, n, r0, kt * KS);
+    const uint32_t* src = w1d + (long long)kt * DP * 2 * KS;
+    constexpr int CH = 2 * DP * KS / 4;  // 16-byte chunks of the W1 tile
+#pragma unroll
+    for (int i = 0; i < CH / THREADS; ++i) {
+      const int e = 4 * (threadIdx.x + i * THREADS);
+      cp_async16(s + BM * KS + e, reinterpret_cast<const float*>(src + e), true);
+    }
+  };
+
+  float acc[MT][NY][4];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int j = 0; j < NY; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int kt_n = (f + KS - 1) / KS;
+  stage(0, 0);
+  cp_async_commit();
+  for (int kt = 0; kt < kt_n; ++kt) {
+    cp_async_wait<0>();
     __syncthreads();
-#pragma unroll 4
-    for (int kk = 0; kk < KS; ++kk) {
-      const float4 a = ld4(at + (k0 + kk) * LP + 4 * ty);
-      const float av[4] = {a.x, a.y, a.z, a.w};
+    if (kt + 1 < kt_n) stage(kt + 1, (kt + 1) & 1);
+    cp_async_commit();
+    const float* at = sm + (kt & 1) * STAGE;
+    const uint32_t* bt = reinterpret_cast<const uint32_t*>(at + BM * KS);
 #pragma unroll
-      for (int jj = 0; jj < JJ; ++jj) {
-        const float4 b = ld4(bs + kk * DP + 128 * jj + 4 * tx);
-        const float bv[4] = {b.x, b.y, b.z, b.w};
+    for (int s8 = 0; s8 < KSTEP; ++s8) {
+      Frag<4> a[MT];
 #pragma unroll
-        for (int i = 0; i < 4; ++i)
+      for (int i = 0; i < MT; ++i) a[i] = a_tile(at, 16 * i + gq, s8, t);
 #pragma unroll
-          for (int e = 0; e < 4; ++e)
-            acc[i][4 * jj + e] = fmaf(av[i], bv[e], acc[i][4 * jj + e]);
+      for (int j = 0; j < NY; ++j) {
+        const Frag<2> b = b_split(bt, wn * (DP / 8) + 8 * j + gq, s8, t);
+#pragma unroll
+        for (int i = 0; i < MT; ++i) mma3(acc[i][j], a[i], b);
       }
     }
   }
-}
+  __syncthreads();  // the stages are free
 
-// Forward. One block per BM rows; dynamic shared memory (floats):
-// lnt (DP, LP), rt (BF, LP), bs (KS, DP). relu_mask, when not null, gets
-// h > 0 (n, f): the ReLU pattern, for a gradient check that holds a
-// reference to the kernel's own linear piece. Checks only: the model path
-// passes null.
-template <int JJ>
-__global__ void __launch_bounds__(THREADS)
-ffn_fwd_kernel(const float* __restrict__ x, const float* __restrict__ gamma,
-               const float* __restrict__ beta, const float* __restrict__ w1t,
-               const float* __restrict__ b1, const float* __restrict__ w2t,
-               const float* __restrict__ b2, float* __restrict__ y,
-               unsigned char* __restrict__ relu_mask, int n, int d, int f) {
-  constexpr int DP = 128 * JJ;
-  extern __shared__ __align__(16) float sm[];
-  float* lnt = sm;
-  float* rt = lnt + DP * LP;
-  float* bs = rt + BF * LP;
-  __shared__ float mean_s[BM], rstd_s[BM];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * BM;
-
-  layer_norm_rows(x, gamma, beta, lnt, mean_s, rstd_s, nullptr, r0, n, d, DP);
-
-  float acc[4][4 * JJ];
+  // The rows' sums of gs = dln gamma and gs xhat: this thread's columns,
+  // its quad, then the eight warps in order.
+  float* red = sm;  // (8, BM, 2)
+  float mean[MT][2], rstd[MT][2];
 #pragma unroll
-  for (int i = 0; i < 4; ++i)
+  for (int i = 0; i < MT; ++i)
 #pragma unroll
-    for (int j = 0; j < 4 * JJ; ++j) acc[i][j] = 0.f;
-
-  for (int c0 = 0; c0 < f; c0 += BF) {
-    float h[4][4] = {};
-    for (int k0 = 0; k0 < d; k0 += KS) {
-      __syncthreads();  // bs (and, at k0 = 0, rt) is no longer read
-      stage(bs, w1t, f, k0, d, c0, f, BF);
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KS; ++kk)
-        outer4(h, ld4(lnt + (k0 + kk) * LP + 4 * ty), ld4(bs + kk * BF + 4 * tx));
-    }
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rr = 16 * i + 8 * hh + gq, row = r0 + rr;
+      const bool live = row < n;
+      mean[i][hh] = live ? stats[2LL * row] : 0.f;
+      rstd[i][hh] = live ? stats[2LL * row + 1] : 0.f;
+      float s1 = 0.f, s2 = 0.f;
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 4 * tx + j;
-      const float bias = c < f ? b1[c] : 0.f;
+      for (int j = 0; j < NY; ++j)
 #pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float hv = h[i][j] + bias;
-        rt[(4 * tx + j) * LP + 4 * ty + i] = fmaxf(hv, 0.f);
-        const int row = r0 + 4 * ty + i;
-        if (relu_mask != nullptr && row < n && c < f)
-          relu_mask[(long long)row * f + c] = hv > 0.f;
-      }
-    }
-    chunk_times_rows<JJ>(acc, rt, w2t, bs, c0, f, d);
-  }
-
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = r0 + 4 * ty + i;
-    if (row >= n) continue;
-#pragma unroll
-    for (int jj = 0; jj < JJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int col = 128 * jj + 4 * tx + e;
-        if (col < d) {
-          const long long o = (long long)row * d + col;
-          y[o] = x[o] + (acc[i][4 * jj + e] + b2[col]);
+        for (int e = 0; e < 2; ++e) {
+          const int col = wn * (DP / 8) + 8 * j + 2 * t + e;
+          if (live && col < d) {
+            const float xh = (x[(long long)row * d + col] - mean[i][hh]) * rstd[i][hh];
+            const float gs = acc[i][j][2 * hh + e] * gamma[col];
+            s1 += gs;
+            s2 = fmaf(gs, xh, s2);
+          }
         }
+      s1 = quad_sum(s1);
+      s2 = quad_sum(s2);
+      if (t == 0) {
+        red[(wn * BM + rr) * 2] = s1;
+        red[(wn * BM + rr) * 2 + 1] = s2;
       }
-  }
-}
-
-// Backward, the row kernel. One block per BM rows; dynamic shared memory
-// (floats): lnt (DP, LP), gt (DP, LP), dht (BF, LP), bs (KS, max(2 BF, DP)).
-// Writes dx, the (n, f) scratch r and dh, LN(x) (n, d), and the block's
-// dgamma and dbeta partials dgb_part[block] (2, d).
-template <int JJ>
-__global__ void __launch_bounds__(THREADS)
-ffn_bwd_rows_kernel(const float* __restrict__ x, const float* __restrict__ g,
-                    const float* __restrict__ gamma,
-                    const float* __restrict__ beta,
-                    const float* __restrict__ w1t, const float* __restrict__ w1,
-                    const float* __restrict__ w2, const float* __restrict__ b1,
-                    float* __restrict__ dx, float* __restrict__ r_out,
-                    float* __restrict__ dh_out, float* __restrict__ ln_out,
-                    float* __restrict__ dgb_part, int n, int d, int f) {
-  constexpr int DP = 128 * JJ;
-  extern __shared__ __align__(16) float sm[];
-  float* lnt = sm;
-  float* gt = lnt + DP * LP;
-  float* dht = gt + DP * LP;
-  float* bs = dht + BF * LP;
-  __shared__ float mean_s[BM], rstd_s[BM];
-  const int tx = threadIdx.x & 31, ty = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * BM;
-
-  layer_norm_rows(x, gamma, beta, lnt, mean_s, rstd_s, ln_out, r0, n, d, DP);
-  for (int e = threadIdx.x; e < BM * DP; e += THREADS) {
-    const int r = e / DP, k = e % DP, row = r0 + r;
-    gt[k * LP + r] = (row < n && k < d) ? g[(long long)row * d + k] : 0.f;
-  }
-
-  float acc[4][4 * JJ];  // dln
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int j = 0; j < 4 * JJ; ++j) acc[i][j] = 0.f;
-
-  float* bs1 = bs;            // W1^T tile (KS, BF)
-  float* bs2 = bs + KS * BF;  // W2 tile (KS, BF)
-  for (int c0 = 0; c0 < f; c0 += BF) {
-    float h[4][4] = {}, dr[4][4] = {};
-    for (int k0 = 0; k0 < d; k0 += KS) {
-      __syncthreads();  // bs (and, at k0 = 0, dht) is no longer read
-      stage(bs1, w1t, f, k0, d, c0, f, BF);
-      stage(bs2, w2, f, k0, d, c0, f, BF);
-      __syncthreads();
-#pragma unroll 4
-      for (int kk = 0; kk < KS; ++kk) {
-        const int o = (k0 + kk) * LP + 4 * ty;
-        outer4(h, ld4(lnt + o), ld4(bs1 + kk * BF + 4 * tx));
-        outer4(dr, ld4(gt + o), ld4(bs2 + kk * BF + 4 * tx));
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int c = c0 + 4 * tx + j;
-      const float bias = c < f ? b1[c] : 0.f;
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const float hv = h[i][j] + bias;
-        const float dh = hv > 0.f ? dr[i][j] : 0.f;
-        dht[(4 * tx + j) * LP + 4 * ty + i] = dh;
-        const int row = r0 + 4 * ty + i;
-        if (row < n && c < f) {
-          const long long o = (long long)row * f + c;
-          r_out[o] = fmaxf(hv, 0.f);
-          dh_out[o] = dh;
-        }
-      }
-    }
-    chunk_times_rows<JJ>(acc, dht, w1, bs, c0, f, d);
-  }
-
-  // dx from dln; each row's columns are all in warp ty.
-  float pg[4 * JJ], pb[4 * JJ];  // this thread's dgamma, dbeta over its rows
-#pragma unroll
-  for (int j = 0; j < 4 * JJ; ++j) pg[j] = pb[j] = 0.f;
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int r = 4 * ty + i, row = r0 + r;
-    const bool live = row < n;
-    const float mean = mean_s[r], rstd = rstd_s[r];
-    float xh[4 * JJ], s1 = 0.f, s2 = 0.f;
-#pragma unroll
-    for (int jj = 0; jj < JJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 4 * jj + e, col = 128 * jj + 4 * tx + e;
-        const bool in = live && col < d;
-        xh[j] = in ? (x[(long long)row * d + col] - mean) * rstd : 0.f;
-        const float gs = in ? acc[i][j] * gamma[col] : 0.f;
-        s1 += gs;
-        s2 = fmaf(gs, xh[j], s2);
-        pg[j] = fmaf(acc[i][j], xh[j], pg[j]);
-        pb[j] += acc[i][j];
-      }
-    const float m1 = warp_sum(s1) / d, m2 = warp_sum(s2) / d;
-    if (!live) continue;
-#pragma unroll
-    for (int jj = 0; jj < JJ; ++jj)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int j = 4 * jj + e, col = 128 * jj + 4 * tx + e;
-        if (col < d) {
-          const long long o = (long long)row * d + col;
-          const float gs = acc[i][j] * gamma[col];
-          dx[o] = g[o] + rstd * (gs - m1 - xh[j] * m2);
-        }
-      }
-  }
-
-  // The block's dgamma, dbeta: the 8 warps' partials summed in warp order.
-  __syncthreads();  // lnt is free
-  float* red = lnt;  // (8, 2, DP)
-#pragma unroll
-  for (int jj = 0; jj < JJ; ++jj)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const int j = 4 * jj + e, col = 128 * jj + 4 * tx + e;
-      red[(ty * 2) * DP + col] = pg[j];
-      red[(ty * 2 + 1) * DP + col] = pb[j];
     }
   __syncthreads();
-  for (int e = threadIdx.x; e < 2 * d; e += THREADS) {
-    const int which = e / d, col = e % d;
-    float s = 0.f;
-    for (int w = 0; w < THREADS / 32; ++w) s += red[(w * 2 + which) * DP + col];
-    dgb_part[(long long)blockIdx.x * 2 * d + e] = s;
-  }
+  float m1[MT][2], m2[MT][2];
+#pragma unroll
+  for (int i = 0; i < MT; ++i)
+#pragma unroll
+    for (int hh = 0; hh < 2; ++hh) {
+      const int rr = 16 * i + 8 * hh + gq;
+      float s1 = 0.f, s2 = 0.f;
+#pragma unroll
+      for (int w = 0; w < THREADS / 32; ++w) {
+        s1 += red[(w * BM + rr) * 2];
+        s2 += red[(w * BM + rr) * 2 + 1];
+      }
+      m1[i][hh] = s1 / d;
+      m2[i][hh] = s2 / d;
+    }
+
+  // dx, and dgamma, dbeta over the block's rows: this thread's rows, then
+  // the 8 row groups of its quad column (shuffles).
+  float* part = dgb_part + (long long)blockIdx.x * 2 * d;
+#pragma unroll
+  for (int j = 0; j < NY; ++j)
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      const int col = wn * (DP / 8) + 8 * j + 2 * t + e;
+      float pg = 0.f, pb = 0.f;
+#pragma unroll
+      for (int i = 0; i < MT; ++i)
+#pragma unroll
+        for (int hh = 0; hh < 2; ++hh) {
+          const int row = r0 + 16 * i + 8 * hh + gq;
+          if (row < n && col < d) {
+            const long long o = (long long)row * d + col;
+            const float dln = acc[i][j][2 * hh + e];
+            const float xh = (x[o] - mean[i][hh]) * rstd[i][hh];
+            const float gs = dln * gamma[col];
+            dx[o] = g[(long long)row * ldd + col] +
+                    rstd[i][hh] * (gs - m1[i][hh] - xh * m2[i][hh]);
+            pg = fmaf(dln, xh, pg);
+            pb += dln;
+          }
+        }
+#pragma unroll
+      for (int off = 4; off < 32; off <<= 1) {
+        pg += __shfl_xor_sync(0xffffffffu, pg, off);
+        pb += __shfl_xor_sync(0xffffffffu, pb, off);
+      }
+      if (gq == 0 && col < d) {
+        part[col] = pg;
+        part[d + col] = pb;
+      }
+    }
 }
 
+constexpr int W_RAW = 2 * KS * (BW + KP);  // A and B, k-major
+constexpr int W_SPLIT = 2 * 2 * BW * KS;   // afrags, bpairs
+constexpr size_t W_SMEM = sizeof(float) * (W_RAW + W_SPLIT);
+
 // out (m, p) [of split blockIdx.z] = sum over that split's rows of
-// a[row][m] * b[row][p]; a (n, m) and b (n, p) row-major. Blocks with
+// a[row][m] b[row][p]; a (n, lda), b (n, ldb) row-major. Blocks with
 // blockIdx.x == 0 also write the split's column sums of a, colsum (m).
-// 256 threads as 16 x 16, a 4 x 4 tile each of the WB x WB block tile.
-__global__ void __launch_bounds__(THREADS)
-ffn_dw_kernel(const float* __restrict__ a, const float* __restrict__ b,
-              float* __restrict__ out, float* __restrict__ colsum, int n,
-              int m, int p, int rows_per_split) {
-  __shared__ __align__(16) float as[KS][WB];
-  __shared__ __align__(16) float bsh[KS][WB];
-  const int tid = threadIdx.x, ty = tid >> 4, tx = tid & 15;
-  const int p0 = blockIdx.x * WB, m0 = blockIdx.y * WB, split = blockIdx.z;
+// Warp tile 64 (m) x 32 (p) of the BW x BW block tile.
+__global__ void __launch_bounds__(THREADS, 2)
+ffn_dw_tc(const float* __restrict__ a, const float* __restrict__ b,
+          float* __restrict__ out, float* __restrict__ colsum, int n, int m,
+          int p, int lda, int ldb, int rows_per_split) {
+  extern __shared__ __align__(16) float sm[];
+  float* raw = sm;  // A (KS, BW + KP), then B
+  uint32_t* a_s = reinterpret_cast<uint32_t*>(sm + W_RAW);
+  uint32_t* b_s = a_s + 2 * BW * KS;
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
+  const int p0 = blockIdx.x * BW, m0 = blockIdx.y * BW, split = blockIdx.z;
   const int lo = split * rows_per_split, hi = min(n, lo + rows_per_split);
-  const bool sums = blockIdx.x == 0 && tx == 0;
-  float acc[4][4] = {}, cs[4] = {};
+  const bool sums = blockIdx.x == 0 && threadIdx.x < BW;
+
+  auto stage = [&](int k0) {
+    stage_kmajor<BW>(raw, a, lda, hi, k0, m0);
+    stage_kmajor<BW>(raw + KS * (BW + KP), b, ldb, hi, k0, p0);
+  };
+
+  float acc[4][4][4], cs = 0.f;
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  if (lo < hi) stage(lo);
+  cp_async_commit();
   for (int k0 = lo; k0 < hi; k0 += KS) {
-    __syncthreads();  // as, bsh are no longer read
-    for (int e = tid; e < KS * WB; e += THREADS) {
-      const int kk = e / WB, j = e % WB, row = k0 + kk;
-      const bool in = row < hi;
-      as[kk][j] = (in && m0 + j < m) ? a[(long long)row * m + m0 + j] : 0.f;
-      bsh[kk][j] = (in && p0 + j < p) ? b[(long long)row * p + p0 + j] : 0.f;
+    cp_async_wait<0>();
+    __syncthreads();
+    split_a_kmajor<BW>(a_s, raw);
+    split_b_kmajor<BW>(b_s, raw + KS * (BW + KP));
+    if (sums) {
+#pragma unroll
+      for (int kk = 0; kk < KS; ++kk) cs += raw[kk * (BW + KP) + threadIdx.x];
     }
     __syncthreads();
+    if (k0 + KS < hi) stage(k0 + KS);
+    cp_async_commit();
 #pragma unroll
-    for (int kk = 0; kk < KS; ++kk) {
-      const float4 av = ld4(&as[kk][4 * ty]);
-      outer4(acc, av, ld4(&bsh[kk][4 * tx]));
-      if (sums) {
-        cs[0] += av.x;
-        cs[1] += av.y;
-        cs[2] += av.z;
-        cs[3] += av.w;
+    for (int s8 = 0; s8 < KSTEP; ++s8) {
+      Frag<4> af[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) af[i] = a_split(a_s, 4 * wm + i, s8, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const Frag<2> bf = b_split(b_s, 32 * wn + 8 * j + gq, s8, t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma3(acc[i][j], af[i], bf);
       }
     }
   }
+
   float* dst = out + (long long)split * m * p;
 #pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    const int row = m0 + 4 * ty + i;
-    if (row >= m) continue;
+  for (int i = 0; i < 4; ++i)
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = p0 + 4 * tx + j;
-      if (col < p) dst[(long long)row * p + col] = acc[i][j];
+    for (int hh = 0; hh < 2; ++hh) {
+      const int mm = m0 + 64 * wm + 16 * i + 8 * hh + gq;
+      if (mm >= m) continue;
+#pragma unroll
+      for (int j = 0; j < 4; ++j)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const int pp = p0 + 32 * wn + 8 * j + 2 * t + e;
+          if (pp < p) dst[(long long)mm * p + pp] = acc[i][j][2 * hh + e];
+        }
     }
-    if (sums) colsum[(long long)split * m + row] = cs[i];
-  }
+  if (sums && m0 + (int)threadIdx.x < m)
+    colsum[(long long)split * m + m0 + threadIdx.x] = cs;
 }
 
 // out[e] = sum over s < parts of part[s * total + e], in order of s.
@@ -430,14 +943,6 @@ int sum_parts(const float* part, float* out, long long total, int parts,
   return (int)cudaGetLastError();
 }
 
-size_t fwd_smem(int jj) {
-  return sizeof(float) * (128 * jj * LP + BF * LP + KS * 128 * jj);
-}
-
-size_t bwd_smem(int jj) {
-  return sizeof(float) * (2 * 128 * jj * LP + BF * LP + KS * max(2 * BF, 128 * jj));
-}
-
 template <class K>
 int prepare(K kernel, size_t smem) {
   if (smem <= 48 * 1024) return 0;
@@ -447,108 +952,142 @@ int prepare(K kernel, size_t smem) {
 
 template <int JJ>
 int launch_fwd(const float* x, const float* gamma, const float* beta,
-               const float* w1t, const float* b1, const float* w2t,
+               const float* w1, const float* b1, const float* w2,
                const float* b2, float* y, unsigned char* relu_mask, int n,
-               int d, int f, cudaStream_t st) {
-  const size_t smem = fwd_smem(JJ);
-  int err = prepare(ffn_fwd_kernel<JJ>, smem);
+               int d, int f, int ldd, int ldf, cudaStream_t st) {
+  const size_t smem = Fwd<JJ>::SMEM;
+  int err = prepare(ffn_fwd_tc<JJ>, smem);
   if (err != 0) return err;
-  ffn_fwd_kernel<JJ><<<(n + BM - 1) / BM, THREADS, smem, st>>>(
-      x, gamma, beta, w1t, b1, w2t, b2, y, relu_mask, n, d, f);
+  ffn_fwd_tc<JJ><<<(n + BM - 1) / BM, THREADS, smem, st>>>(
+      x, gamma, beta, w1, b1, w2, b2, y, relu_mask, n, d, f, ldd, ldf);
   return (int)cudaGetLastError();
 }
 
 template <int JJ>
-int launch_bwd_rows(const float* x, const float* g, const float* gamma,
-                    const float* beta, const float* w1t, const float* w1,
-                    const float* w2, const float* b1, float* dx, float* r,
-                    float* dh, float* ln, float* dgb_part, int n, int d, int f,
-                    cudaStream_t st) {
-  const size_t smem = bwd_smem(JJ);
-  int err = prepare(ffn_bwd_rows_kernel<JJ>, smem);
+int launch_dx(const float* dh, const uint32_t* w1d, const float* x, const float* g,
+              const float* gamma, const float* stats, float* dx,
+              float* dgb_part, int n, int d, int f, int ldd, int ldf,
+              cudaStream_t st) {
+  const size_t smem = Dx<JJ>::SMEM;
+  int err = prepare(ffn_bwd_dx_tc<JJ>, smem);
   if (err != 0) return err;
-  ffn_bwd_rows_kernel<JJ><<<(n + BM - 1) / BM, THREADS, smem, st>>>(
-      x, g, gamma, beta, w1t, w1, w2, b1, dx, r, dh, ln, dgb_part, n, d, f);
+  ffn_bwd_dx_tc<JJ><<<(n + BM - 1) / BM, THREADS, smem, st>>>(
+      dh, w1d, x, g, gamma, stats, dx, dgb_part, n, d, f, ldd, ldf);
   return (int)cudaGetLastError();
 }
 
 // dW (m, p) and the column sums (m) of a, over `splits` row splits, then
 // summed in split order (with one split, written in place).
 int weight_grad(const float* a, const float* b, float* dw, float* dcol,
-                float* dw_part, float* col_part, int n, int m, int p,
-                int splits, cudaStream_t st) {
+                float* dw_part, float* col_part, int n, int m, int p, int lda,
+                int ldb, int splits, cudaStream_t st) {
   const int per = (n + splits - 1) / splits;
-  const dim3 grid((p + WB - 1) / WB, (m + WB - 1) / WB, splits);
+  const dim3 grid((p + BW - 1) / BW, (m + BW - 1) / BW, splits);
   float* out = splits > 1 ? dw_part : dw;
   float* cs = splits > 1 ? col_part : dcol;
-  ffn_dw_kernel<<<grid, THREADS, 0, st>>>(a, b, out, cs, n, m, p, per);
-  int err = (int)cudaGetLastError();
+  int err = prepare(ffn_dw_tc, W_SMEM);
+  if (err != 0) return err;
+  ffn_dw_tc<<<grid, THREADS, W_SMEM, st>>>(a, b, out, cs, n, m, p, lda, ldb, per);
+  err = (int)cudaGetLastError();
   if (err != 0 || splits == 1) return err;
   err = sum_parts(dw_part, dw, (long long)m * p, splits, st);
   if (err != 0) return err;
   return sum_parts(col_part, dcol, m, splits, st);
 }
 
+bool bad_layout(const float* w1, const float* w2, int d, int f, int ldd, int ldf) {
+  return ldd < d || ldf < f || ldd % 4 != 0 || ldf % 4 != 0 ||
+         ((uintptr_t)w1 | (uintptr_t)w2) % 16 != 0;
+}
+
 }  // namespace
 
-// The widest row a thread's registers hold: D <= 128 * jj for the
-// instantiated jj.
+// The D tiers: D <= 128 * jj for the instantiated jj.
 #define KANVIT_FFN_JJ(X) X(1) X(2) X(3) X(4)
 
-// Forward. x (n, d), y (n, d); gamma, beta, b2 (d); w1t = W1^T (d, f);
-// b1 (f); w2t = W2^T (f, d); all f32 contiguous, 1 <= d <= 512; relu_mask
+// Forward. x (n, d), y (n, d); gamma, beta, b2 (d); w1 (f, ldd) and w2
+// (d, ldf) row-major, 16-byte aligned, zero in the pad columns (ldd, ldf:
+// d and f rounded up to 4); b1 (f); all f32, 1 <= d <= 512; relu_mask
 // (n, f) uint8, h > 0, or null. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
 extern "C" int kanvit_ffn_fwd(const float* x, const float* gamma,
-                              const float* beta, const float* w1t,
-                              const float* b1, const float* w2t,
+                              const float* beta, const float* w1,
+                              const float* b1, const float* w2,
                               const float* b2, float* y,
                               unsigned char* relu_mask, int n, int d, int f,
-                              void* stream) {
-  if (n <= 0 || d <= 0 || f <= 0) return (int)cudaErrorInvalidValue;
+                              int ldd, int ldf, void* stream) {
+  if (n <= 0 || d <= 0 || f <= 0 || bad_layout(w1, w2, d, f, ldd, ldf))
+    return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-#define KANVIT_CASE(J)                                                     \
-  if (d <= 128 * J)                                                        \
-    return launch_fwd<J>(x, gamma, beta, w1t, b1, w2t, b2, y, relu_mask, n, \
-                         d, f, st);
+#define KANVIT_CASE(J)                                                      \
+  if (d <= 128 * J)                                                         \
+    return launch_fwd<J>(x, gamma, beta, w1, b1, w2, b2, y, relu_mask, n, d, \
+                         f, ldd, ldf, st);
   KANVIT_FFN_JJ(KANVIT_CASE)
 #undef KANVIT_CASE
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward of kanvit_ffn_fwd. x, g (n, d): the input and the gradient of y;
-// w1t (d, f) = W1^T, w1 (f, d), w2 (d, f), b1 (f), gamma, beta (d).
-// Writes dx (n, d), dgb (2, d) = (dgamma, dbeta), dw1 (f, d), db1 (f),
-// dw2 (d, f), db2 (d). Scratch: r, dh (n, f); ln (n, d); dgb_part
-// (ceil(n / 32), 2, d); with splits > 1, dw1_part (splits, f, d), db1_part
-// (splits, f), dw2_part (splits, d, f), db2_part (splits, d). All f32
-// contiguous, 1 <= d <= 512, splits >= 1. Launches the row kernel, the two
-// weight-gradient kernels and the fixed-order sums on `stream`; returns
-// cudaGetLastError() (0 on success).
+// Backward of kanvit_ffn_fwd. x (n, d); g (n, ldd), the gradient of y, and
+// w1 (f, ldd), w2 (d, ldf) as the forward takes them; b1 (f), gamma,
+// beta (d). Writes dx (n, d), dgb (2, d) = (dgamma, dbeta), dw1 (f, d),
+// db1 (f), dw2 (d, f), db2 (d). Scratch: ln (n, ldd), stats (n, 2), r and
+// dh (n, ldf), w1s and w2s (ceil(d / 16) * fp * 32 words each, fp = f
+// rounded up to 128), w1d (ceil(f / 16) * dp * 32 words, dp = d rounded up
+// to 128), dgb_part (ceil(n / 48), 2, d); with splits > 1, dw1_part
+// (splits, f, d), db1_part (splits, f), dw2_part (splits, d, f), db2_part
+// (splits, d). All f32, the scratch 16-byte aligned, 1 <= d <= 512,
+// splits >= 1. Launches the LN pass, the hidden, dx and weight-gradient
+// kernels and the fixed-order sums on `stream`; returns cudaGetLastError()
+// (0 on success).
 extern "C" int kanvit_ffn_bwd(const float* x, const float* g,
                               const float* gamma, const float* beta,
-                              const float* w1t, const float* w1,
-                              const float* w2, const float* b1, float* dx,
-                              float* dgb, float* dw1, float* db1, float* dw2,
-                              float* db2, float* r, float* dh, float* ln,
+                              const float* w1, const float* w2,
+                              const float* b1, float* dx, float* dgb,
+                              float* dw1, float* db1, float* dw2, float* db2,
+                              float* ln, float* stats, float* r, float* dh,
+                              unsigned int* w1s, unsigned int* w2s,
+                              unsigned int* w1d,
                               float* dgb_part, float* dw1_part,
                               float* db1_part, float* dw2_part,
-                              float* db2_part, int n, int d, int f, int splits,
-                              void* stream) {
-  if (n <= 0 || d <= 0 || f <= 0 || splits < 1 || splits > 65535)
+                              float* db2_part, int n, int d, int f, int ldd,
+                              int ldf, int splits, void* stream) {
+  const int h_tiles = (f + BN_H - 1) / BN_H;
+  if (n <= 0 || d <= 0 || d > 512 || f <= 0 || splits < 1 || splits > 65535 ||
+      h_tiles > 65535 || bad_layout(w1, w2, d, f, ldd, ldf) ||
+      ((uintptr_t)g | (uintptr_t)ln | (uintptr_t)r | (uintptr_t)dh |
+       (uintptr_t)w1s | (uintptr_t)w2s | (uintptr_t)w1d) % 16 != 0)
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  int err = (int)cudaErrorInvalidValue;
+  const int row_blocks = (n + BM - 1) / BM;
+  ffn_ln_rows<<<(n + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, st>>>(
+      x, gamma, beta, ln, stats, n, d, ldd);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const int fp = h_tiles * BN_H;
+  ffn_split_weights<<<4 * 132, THREADS, 0, st>>>(w1, w2, w1s, w2s, w1d, d, f, ldd,
+                                                 ldf, fp, (d + 127) / 128 * 128);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = prepare(ffn_bwd_hidden_tc, H_SMEM);
+  if (err != 0) return err;
+  ffn_bwd_hidden_tc<<<dim3((n + BM_H - 1) / BM_H, h_tiles), THREADS, H_SMEM, st>>>(
+      ln, g, w1s, w2s, b1, r, dh, n, d, f, ldd, ldf, fp);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  err = (int)cudaErrorInvalidValue;
 #define KANVIT_CASE(J)                                                     \
   if (err == (int)cudaErrorInvalidValue && d <= 128 * J)                   \
-    err = launch_bwd_rows<J>(x, g, gamma, beta, w1t, w1, w2, b1, dx, r, dh, \
-                             ln, dgb_part, n, d, f, st);
+    err = launch_dx<J>(dh, w1d, x, g, gamma, stats, dx, dgb_part, n, d, f, \
+                       ldd, ldf, st);
   KANVIT_FFN_JJ(KANVIT_CASE)
 #undef KANVIT_CASE
   if (err != 0) return err;
-  err = sum_parts(dgb_part, dgb, 2LL * d, (n + BM - 1) / BM, st);
+  err = sum_parts(dgb_part, dgb, 2LL * d, row_blocks, st);
   if (err != 0) return err;
-  err = weight_grad(g, r, dw2, db2, dw2_part, db2_part, n, d, f, splits, st);
+  err = weight_grad(g, r, dw2, db2, dw2_part, db2_part, n, d, f, ldd, ldf,
+                    splits, st);
   if (err != 0) return err;
-  return weight_grad(dh, ln, dw1, db1, dw1_part, db1_part, n, f, d, splits, st);
+  return weight_grad(dh, ln, dw1, db1, dw1_part, db1_part, n, f, d, ldf, ldd,
+                     splits, st);
 }

@@ -2,13 +2,14 @@
 (counterpart of ``kanvit/kernels/fused_ffn.py``).
 
 :func:`ffn_pre_ln` computes ``x + relu(LN(x) W1^T + b1) W2^T + b2`` through
-the kernels of ``csrc/fused_ffn.cu``: the forward keeps the (rows, F)
-hidden block out of device memory; the backward recomputes LN and the first
-product from x and returns all seven gradients, the weight gradients summed
-over the rows in a fixed order (no atomics). A CPU tensor runs the plain
-version, ``kanvit_torch.ops.kan_bases.ffn_pre_ln``, which autograd
-differentiates; a CUDA tensor goes through :class:`_FfnFn`, whose forward
-and backward launch the kernels or raise. f32, D at most ``MAX_D``.
+the kernels of ``csrc/fused_ffn.cu``, every product on the tensor cores in
+3xTF32: the forward keeps the (rows, F) hidden block out of device memory;
+the backward recomputes LN and the first product from x and returns all
+seven gradients, the weight gradients summed over the rows in a fixed order
+(no atomics). A CPU tensor runs the plain version,
+``kanvit_torch.ops.kan_bases.ffn_pre_ln``, which autograd differentiates; a
+CUDA tensor goes through :class:`_FfnFn`, whose forward and backward launch
+the kernels or raise. f32, D at most ``MAX_D``.
 
 It is ``TransformerBlock``'s opt-in FF (``fused_ff=True``), off by default
 as kanvit's ``KANVIT_FF=1`` is.
@@ -25,10 +26,13 @@ from kanvit_torch.ops import dispatch
 from kanvit_torch.ops import kan_bases as K
 
 LAUNCHES = {"ffn_pre_ln": 0, "ffn_pre_ln_bwd": 0}
-MAX_D = 512          # a thread's row of the (rows, D) accumulator: 4 x D / 32
-ROWS_PER_BLOCK = 32  # as in the kernels
-DW_TILE = 64         # (M, P) tile of the weight-gradient kernel
-DW_TARGET_BLOCKS = 528  # 4 blocks of the weight-gradient kernel per SM of 132
+# A 48-row tile's LN stays in shared memory over all of D, and its y (the
+# backward's dln) in registers: 100 KB and 96 accumulators a thread at D 512.
+MAX_D = 512
+ROWS_PER_BLOCK = 48  # rows a block of the forward and dx kernels
+HIDDEN_TILE = 128    # hidden units a block of the backward's hidden kernel
+DW_TILE = 128        # (M, P) tile of the weight-gradient kernel
+DW_TARGET_BLOCKS = 264  # 2 blocks of the weight-gradient kernel per SM of 132
 DW_MIN_ROWS_PER_SPLIT = 256
 
 
@@ -61,13 +65,12 @@ def check_args(x2d, gamma, beta, w1, b1, w2, b2) -> None:
 
 
 def dw_splits(n: int, d: int, f: int) -> int:
-    """Row splits of the weight-gradient reduction: enough (D/64 x F/64)
-    tiles times splits to fill the card, each split at least
+    """Row splits of the weight-gradient reduction: as many (D/128 x F/128)
+    tiles times splits as the card runs at once, each split at least
     ``DW_MIN_ROWS_PER_SPLIT`` rows. A function of the shape only, so a run
     repeats its bits."""
     tiles = -(-d // DW_TILE) * -(-f // DW_TILE)
-    return max(1, min(-(-DW_TARGET_BLOCKS // tiles), n // DW_MIN_ROWS_PER_SPLIT,
-                      65535))
+    return max(1, min(DW_TARGET_BLOCKS // tiles, n // DW_MIN_ROWS_PER_SPLIT, 65535))
 
 
 def _stream(dev) -> int:
@@ -77,6 +80,23 @@ def _stream(dev) -> int:
 def _check_err(err: int, what: str) -> None:
     if err != 0:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {err}")
+
+
+def _pitch(cols: int) -> int:
+    """The row pitch the kernels stage with 16-byte copies: ``cols`` rounded
+    up to 4 floats."""
+    return -(-cols // 4) * 4
+
+
+def _pitched(t: torch.Tensor, ld: int) -> torch.Tensor:
+    """``t (rows, cols)`` as row-major rows of ``ld`` floats starting on 16
+    bytes, zero in the pad columns: ``t`` itself where it is one, else a
+    copy."""
+    if t.shape[1] == ld and t.data_ptr() % 16 == 0:
+        return t
+    out = t.new_zeros(t.shape[0], ld)
+    out[:, :t.shape[1]] = t
+    return out
 
 
 def _launch(x2d, gamma, beta, w1, b1, w2, b2, relu_mask=None) -> torch.Tensor:
@@ -89,16 +109,18 @@ def _launch(x2d, gamma, beta, w1, b1, w2, b2, relu_mask=None) -> torch.Tensor:
     from kanvit_torch.kernels import _build
 
     n, d = x2d.shape
+    f = w1.shape[0]
     y = torch.empty_like(x2d)
     if n == 0:
         return y
-    w1t, w2t = w1.t().contiguous(), w2.t().contiguous()
+    ldd, ldf = _pitch(d), _pitch(f)
+    w1p, w2p = _pitched(w1, ldd), _pitched(w2, ldf)
     with torch.cuda.device(x2d.device):
         err = _build.load().kanvit_ffn_fwd(
-            x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1t.data_ptr(),
-            b1.data_ptr(), w2t.data_ptr(), b2.data_ptr(), y.data_ptr(),
-            None if relu_mask is None else relu_mask.data_ptr(), n, d,
-            w1.shape[0], _stream(x2d.device))
+            x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1p.data_ptr(),
+            b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(), y.data_ptr(),
+            None if relu_mask is None else relu_mask.data_ptr(), n, d, f, ldd,
+            ldf, _stream(x2d.device))
     _check_err(err, "ffn_pre_ln")
     LAUNCHES["ffn_pre_ln"] += 1
     return y
@@ -122,22 +144,31 @@ def _launch_bwd(x2d, gamma, beta, w1, b1, w2, g):
         return (dx, dgb[0].zero_(), dgb[1].zero_(), dw1.zero_(), db1.zero_(),
                 dw2.zero_(), db2.zero_())
     splits = dw_splits(n, d, f)
-    # device-memory scratch: r and dh (N, F), LN(x) (N, D), the row blocks'
-    # dgamma/dbeta partials and, with splits > 1, the weight gradients' split
-    # partials
-    r, dh = torch.empty(n, f, **f32), torch.empty(n, f, **f32)
-    ln = torch.empty(n, d, **f32)
+    ldd, ldf = _pitch(d), _pitch(f)
+    gp, w1p, w2p = _pitched(g, ldd), _pitched(w1, ldd), _pitched(w2, ldf)
+    # device-memory scratch: LN(x) and each row's (mean, rstd), r and dh, the
+    # row blocks' dgamma/dbeta partials and, with splits > 1, the weight
+    # gradients' split partials
+    ln, stats = torch.empty(n, ldd, **f32), torch.empty(n, 2, **f32)
+    r, dh = torch.empty(n, ldf, **f32), torch.empty(n, ldf, **f32)
+    # W1 and W2 split once into TF32 words, 32 words a 16-deep tile and
+    # column: for the hidden kernel, tiles of D by F rounded up to
+    # HIDDEN_TILE; W1 for the dx kernel, tiles of F by D rounded up to 128
+    i32 = dict(dtype=torch.int32, device=dev)
+    w_hidden = torch.empty(2, -(-d // 16) * -(-f // HIDDEN_TILE) * HIDDEN_TILE * 32,
+                           **i32)
+    w_dx = torch.empty(-(-f // 16) * -(-d // 128) * 128 * 32, **i32)
     dgb_part = torch.empty(-(-n // ROWS_PER_BLOCK), 2, d, **f32)
     parts = ([torch.empty(splits, *shape, **f32)
               for shape in ((f, d), (f,), (d, f), (d,))] if splits > 1
              else [None] * 4)
-    w1t = w1.t().contiguous()
     with torch.cuda.device(dev):
         err = _build.load().kanvit_ffn_bwd(
-            *(t.data_ptr() for t in (x2d, g, gamma, beta, w1t, w1, w2, b1, dx,
-                                     dgb, dw1, db1, dw2, db2, r, dh, ln, dgb_part)),
+            *(t.data_ptr() for t in (x2d, gp, gamma, beta, w1p, w2p, b1, dx, dgb,
+                                     dw1, db1, dw2, db2, ln, stats, r, dh,
+                                     w_hidden[0], w_hidden[1], w_dx, dgb_part)),
             *(None if p is None else p.data_ptr() for p in parts),
-            n, d, f, splits, _stream(dev))
+            n, d, f, ldd, ldf, splits, _stream(dev))
     _check_err(err, "ffn_pre_ln_bwd")
     LAUNCHES["ffn_pre_ln_bwd"] += 1
     return dx, dgb[0], dgb[1], dw1, db1, dw2, db2

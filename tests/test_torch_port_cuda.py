@@ -876,7 +876,7 @@ def _ffn_inputs(rng, n, d, f, cuda):
 
 
 @pytest.mark.parametrize("n,d,f", [(1, 8, 32), (37, 100, 400), (1000, 384, 1536),
-                                   (129, 512, 200)])
+                                   (129, 512, 200), (50, 30, 50)])
 def test_ffn_pre_ln_kernels(cuda_all, n, d, f):
     from kanvit_torch.kernels import fused_ffn as FFN
 
@@ -902,6 +902,54 @@ def test_ffn_pre_ln_kernels(cuda_all, n, d, f):
     _, again = _grads(FFN.ffn_pre_ln, args, g)
     assert all(torch.equal(a, b) for a, b in zip(gg, again))
     assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2}
+
+
+def test_ffn_pre_ln_vit_s_holds_f64_and_repeats_bits(cuda_all):
+    """At vit-s widths the 3xTF32 forward is within 1e-6 x max(1, max|y|) of
+    f64 on the card (plain 1xTF32 would be ~2e-4 off), and two backwards
+    give the same bits."""
+    from kanvit_torch.kernels import fused_ffn as FFN
+
+    rng = np.random.default_rng(120)
+    args = _ffn_inputs(rng, 12 * 197, 384, 1536, cuda_all)
+    g = torch.from_numpy(rng.standard_normal((12 * 197, 384)).astype(np.float32))
+    g = g.to(cuda_all)
+    with torch.inference_mode():
+        y = FFN.ffn_pre_ln(*args)
+        exact = K.ffn_pre_ln(*(a.double() for a in args))
+    err = float((y.double() - exact).abs().max())
+    assert err <= 1e-6 * max(1.0, float(exact.abs().max())), err
+    _, first = _grads(FFN.ffn_pre_ln, args, g)
+    _, second = _grads(FFN.ffn_pre_ln, args, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2}
+
+
+def test_ffn_pre_ln_unaligned_inputs_run(cuda_all):
+    """Inputs whose rows start off 16 bytes (views one float into their
+    storage) are copied by the wrapper, not refused, and give the aligned
+    inputs' values and gradients."""
+    from kanvit_torch.kernels import fused_ffn as FFN
+
+    rng = np.random.default_rng(121)
+    n, d, f = 37, 64, 96
+    args = _ffn_inputs(rng, n, d, f, cuda_all)
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda_all)
+
+    def off16(t):
+        flat = torch.zeros(t.numel() + 1, device=t.device)
+        view = flat[1:].view(t.shape)
+        view.copy_(t)
+        assert view.data_ptr() % 16 != 0
+        return view
+
+    shifted = [off16(t).requires_grad_(True) for t in args]
+    got = FFN.ffn_pre_ln(*shifted)
+    gg = torch.autograd.grad(got, shifted, off16(g))
+    want, wg = _grads(FFN.ffn_pre_ln, args, g)
+    assert torch.equal(got, want)
+    assert all(torch.equal(a, b) for a, b in zip(gg, wg))
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 2, "ffn_pre_ln_bwd": 2}
 
 
 def test_ffn_pre_ln_raises_not_fall_back(cuda_all):
