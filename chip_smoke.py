@@ -13,8 +13,9 @@ Phases, in order; any failure raises, so the script exits non-zero:
 2. build the CUDA kernels from ``kanvit_torch/kernels/csrc`` (nvcc, one
    process per source, all started together), with each kernel's registers
    and spills and the SASS instruction mix of the tensor-core kernels: the
-   lanes and the tiled attention's at dh 64 and the fused FF's at D 384
-   (HMMA against the rest, cuobjdump; a report, not a gate);
+   lanes and the tiled attention's at dh 64, the fused FF's at D 384 and
+   the Fourier and sine forward and dW kernels (HMMA against the rest,
+   cuobjdump; a report, not a gate);
 3. each forward kernel against its plain PyTorch version on the card, at
    the vit-s path's shapes (batch 64) and at a ragged narrow shape, with
    error and time (CUDA events) of both; the grouped q/k/v also at nin 8
@@ -46,7 +47,10 @@ Phases, in order; any failure raises, so the script exits non-zero:
    -> 384), ``cheby_qkv_grouped`` at the vit-s q/k/v (12,608 tokens, 6
    heads of 64 -> 192), ragged narrow shapes of each, inputs where tanh
    saturates (|x| >= 9.5) and Fourier inputs up to |x| = 10; the backward's
-   bits repeated; error and time of both;
+   bits repeated; error and time of both; ``fourierkan``'s tensor-core
+   forward and dW also on the training path's backward (no dx, its bits
+   those of the all-gradients route) and, at the embedder, no further from
+   f64 than twice the plain f32 version, with their kernels' device times;
 7. the RBF and sine kernels (forward, and the backward: dx, dW, the
    LayerNorm's dgamma and dbeta, sine's dfreq) against their plain versions
    and autograd through them: ``fastkan`` and ``sinekan`` (grid 28) at the
@@ -54,7 +58,9 @@ Phases, in order; any failure raises, so the script exits non-zero:
    ``sinekan_qkv_grouped`` (grid 4) at one vit-s q/k/v projection, ragged
    narrow shapes of each (nin 16, d_head 32, odd N), inputs where silu, the
    RBF and the LayerNorm saturate (|x| up to 60, a constant row) and sine
-   arguments of several pi; the sine embedder's gradients also against f64;
+   arguments of several pi; the sine embedder's gradients also against f64,
+   and its tensor-core forward, dW and dfreq (on both backward routes) no
+   further from f64 than twice the plain f32 version, with device times;
    the backward's bits repeated; error and time of both;
 8. the fused pre-LN FF (``ffn_pre_ln``, forward and backward) and the W8A8
    ``int8_linear`` against their plain versions and autograd through them:
@@ -268,10 +274,14 @@ def phase_build():
 
 # The tensor-core kernels whose instruction mix the build reports: what
 # issues beside each HMMA (mma.sync) bounds them (PERF.md).
+# An entry is a kernel's name, or the parts its mangled name holds (the
+# Fourier and sine tensor-core kernels: the family, and Lb0 forward, Lb1 dW).
 SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
                 "flash_dq_tcILi64", "flash_dkv_tcILi64", "ffn_fwd_tcILi3",
-                "ffn_bwd_hidden_tc", "ffn_bwd_dx_tcILi3", "ffn_dw_tc")
+                "ffn_bwd_hidden_tc", "ffn_bwd_dx_tcILi3", "ffn_dw_tc",
+                ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
+                ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"))
 
 
 def sass_mix(lib):
@@ -286,9 +296,12 @@ def sass_mix(lib):
     if run.returncode:
         print(f"[build] SASS: cuobjdump failed: {run.stderr.strip()[:200]}")
         return
-    sass = run.stdout
-    for name in SASS_KERNELS:
-        body = sass.split(name, 1)[1].split("Function : ", 1)[0] if name in sass else ""
+    functions = run.stdout.split("Function : ")[1:]
+    for entry in SASS_KERNELS:
+        parts = (entry,) if isinstance(entry, str) else entry
+        name = " ".join(parts)
+        body = next((f for f in functions
+                     if all(part in f.split("\n", 1)[0] for part in parts)), "")
         code = [(int(at, 16), op, rest) for at, op, rest in re.findall(
             r"^\s+/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P\w+\s+)?([A-Z][A-Z0-9_]*)(.*)$",
             body, re.M)]
@@ -426,16 +439,28 @@ def bound(flops, nbytes, library_ms=None, peak=PEAK_F32_FLOPS):
             "library_ms": library_ms}
 
 
-def kan_bound(n, groups, slices, nin, out, backward=False, extra_floats=0):
+def kan_bound(n, groups, slices, nin, out, backward=False, extra_floats=0,
+              tensor_cores=False, contractions=None, dx=True):
     """A KAN pass over x (n, G*nin) and the packed weight (G, S, nin, out):
     2 n G S nin out FLOPs a contraction, one forward, two backward (gW for
-    dx, and dW); bytes of x, W and y (backward: x, W, gy, dx and dW), plus
-    ``extra_floats`` (the LayerNorm's, sine's freq and phase tables)."""
-    flops = 2.0 * n * groups * slices * nin * out * (2 if backward else 1)
+    dx, and dW; ``contractions`` overrides the count); bytes of x, W and y
+    (backward: x, W, gy, dx (``dx``) and dW), plus ``extra_floats`` (the
+    LayerNorm's, sine's freq and phase tables).
+
+    ``tensor_cores``: the route is 3xTF32 on the tensor cores, so
+    ``bound_ms`` counts three TF32 products for each f32 one at the dense
+    TF32 peak and ``f32_bound_ms`` keeps the CUDA-core f32 bound beside it,
+    as ``attention_bound`` does."""
+    count = contractions or (2 if backward else 1)
+    flops = 2.0 * n * groups * slices * nin * out * count
     floats = n * groups * nin + groups * slices * nin * out + n * groups * out
     if backward:
-        floats += n * groups * nin + groups * slices * nin * out
-    return bound(flops, 4.0 * (floats + extra_floats))
+        floats += n * groups * nin * dx + groups * slices * nin * out
+    f32 = bound(flops, 4.0 * (floats + extra_floats))
+    if not tensor_cores:
+        return f32
+    tc = bound(TF32_PASSES * flops, 4.0 * (floats + extra_floats), peak=PEAK_TF32_FLOPS)
+    return {**tc, "f32_bound_ms": f32["bound_ms"], "f32_bound_by": f32["bound_by"]}
 
 
 def attention_bound(b, h, tq, tk, dh, causal, part, library_ms=None,
@@ -704,12 +729,16 @@ def phase_kernels(torch):
 # Phase 4: backward kernels against autograd through their plain versions
 # --------------------------------------------------------------------------
 
-def grads_of(torch, fn, inputs, g):
+def grads_of(torch, fn, inputs, g, with_dx=True):
     """``(leaves, output, gradients of (output * g).sum())``; the graph is
-    kept, so the backward alone can be timed again."""
-    leaves = [t.detach().clone().requires_grad_(True) for t in inputs]
+    kept, so the backward alone can be timed again. Without ``with_dx`` the
+    first input is no leaf (an embedder's training step) and the gradients
+    are the other inputs'."""
+    leaves = [t.detach().clone().requires_grad_(with_dx or i > 0)
+              for i, t in enumerate(inputs)]
     out = fn(*leaves)
-    return leaves, out, torch.autograd.grad(out, leaves, g, retain_graph=True)
+    asked = leaves if with_dx else leaves[1:]
+    return leaves, out, torch.autograd.grad(out, asked, g, retain_graph=True)
 
 
 def compare_grads(label, names, got, want):
@@ -1122,17 +1151,40 @@ def fourier_inputs(rng, shape):
     return x
 
 
+def f64_gate(tag, got, plain32, exact):
+    """The kernel's result no further from f64 than twice the plain f32
+    version's, each x max(1, max|exact|)."""
+    scale = max(1.0, float(exact.abs().max()))
+    k = float((got.double() - exact).abs().max()) / scale
+    p = float((plain32.double() - exact).abs().max()) / scale
+    ok = bool(got.isfinite().all()) and k <= 2 * p
+    print(f"[kernel] {tag} against f64: kernel {k:.3e}, plain f32 {p:.3e} (x max(1, "
+          f"max|.|); limit twice the plain's)  {'ok' if ok else 'FAIL'}")
+    check(ok, f"{tag}: further from f64 than twice the plain f32 version "
+              f"({k:.3e} > 2 x {p:.3e})")
+    return k
+
+
 def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
-              shape, f64=False):
+              shape, f64=False, tc_grads=(), f64_gates=False):
     """Forward, dx and the parameter gradients of a KAN wrapper against its
     plain version and autograd through it, on the card; the backward's bits
     repeated; CUDA-event times of the forward kernel, the backward kernels
     (everything, and as on the training path: no dx for an embedder), the
     plain forward and autograd's backward. ``launches`` is ``(forward(),
     backward(g), backward_train(g))``, the launches alone; ``shape`` ``(n,
-    G, S, nin, out, extra floats)`` for the bound. ``f64``: also hold the
-    gradients against autograd through the plain version in f64. Returns
-    the ``(err, ms, plain_ms, extras...)`` of the forward and of the
+    G, S, nin, out, extra floats, contractions of the training path's
+    backward)`` for the bound. ``f64``: also hold the gradients against
+    autograd through the plain version in f64 within TOL_BWD.
+
+    ``tc_grads``: the wrapper runs the tensor-core kernels, whose weight
+    gradients (and sine's dfreq) are these inputs': the training path's
+    backward (no dx) is held against the plain version too and repeats the
+    all-gradients route's bits, the bounds are the 3xTF32 ones, the device
+    times are measured, and with ``f64_gates`` the forward and these
+    gradients on both routes are held no further from f64 than twice the
+    plain f32 version.
+    Returns the ``(err, ms, plain_ms, extras...)`` of the forward and of the
     backward."""
     x = inputs[0]
     with torch.inference_mode():
@@ -1140,13 +1192,25 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
         ref = plain(*inputs)
         torch.cuda.synchronize()
         err_fwd = compare(f"{name} {label} {tuple(x.shape)}", y, ref, TOL_KAN)
+        extra_fwd = {}
+        if f64_gates:
+            extra_fwd["f64_err"] = f64_gate(f"{name} {label}", y, ref,
+                                            plain(*(a.double() for a in inputs)))
     g = torch.from_numpy(rng.standard_normal(tuple(ref.shape))
                          .astype(np.float32)).cuda()
     _, _, got = grads_of(torch, kernel, inputs, g)
     leaves, out, want = grads_of(torch, plain, inputs, g)
     torch.cuda.synchronize()
     err_bwd = compare_grads(f"{name}_bwd {label}", names, got, want)
-    if f64:
+    if tc_grads:
+        step = dict(zip(names[1:], grads_of(torch, kernel, inputs, g, with_dx=False)[2]))
+        compare_grads(f"{name}_bwd {label} no dx", names[1:], list(step.values()), want[1:])
+        same = all(torch.equal(step[nm], a) for nm, a in zip(names, got) if nm in step)
+        print(f"[kernel] {name}_bwd {label}: the training path's backward (no dx) "
+              f"gives the all-gradients route's bits: {same}")
+        check(same, f"{name}_bwd {label}: the no-dx route's gradients differ")
+    extra_bwd = {}
+    if f64 or f64_gates:
         _, _, want64 = grads_of(torch, lambda *a: plain(*a).double(),
                                 [a.double() for a in inputs], g.double())
         for nm, a, b, c in zip(names, got, want, want64):
@@ -1154,8 +1218,16 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
             print(f"[kernel] {name}_bwd {label} d{nm} against f64: kernel "
                   f"{float((a.double() - c).abs().max()) / scale:.3e}, plain f32 "
                   f"{float((b.double() - c).abs().max()) / scale:.3e} (x max(1, max|g|))")
+    if f64:
         compare_grads(f"{name}_bwd {label} against f64", names,
                       [a.double() for a in got], want64)
+    if f64_gates:
+        for nm, b, c in zip(names, want, want64):
+            if nm in tc_grads:
+                for route, a in (("all gradients", got[names.index(nm)]),
+                                 ("no dx", step[nm])):
+                    extra_bwd[f"f64_err_d{nm}_{route.replace(' ', '_')}"] = f64_gate(
+                        f"{name}_bwd {label} d{nm} ({route})", a, b, c)
     _, _, again = grads_of(torch, kernel, inputs, g)
     torch.cuda.synchronize()
     same = all(torch.equal(a, b) for a, b in zip(got, again))
@@ -1169,14 +1241,31 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
     train_ms = time_ms(torch, lambda: bwd_train(g))
     plain_bwd_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g,
                                                               retain_graph=True))
-    *dims, extra = shape
+    *dims, extra, train_contractions = shape
+    tc = bool(tc_grads)
+    extra_bwd["no_dx_ms"] = train_ms
+    if f64_gates:
+        with torch.inference_mode():
+            extra_fwd["device_ms"] = kernel_ms(torch, fwd, 10, label=f"{name} {label}")
+        extra_bwd["device_ms"] = kernel_ms(torch, lambda: bwd(g), 10,
+                                           label=f"{name}_bwd {label}, all gradients")
+        extra_bwd["no_dx_device_ms"] = kernel_ms(torch, lambda: bwd_train(g), 10,
+                                                 label=f"{name}_bwd {label}, no dx")
+    if tc:
+        step_bound = kan_bound(*dims, backward=True, extra_floats=extra, tensor_cores=True,
+                               contractions=train_contractions, dx=False)
+        extra_bwd.update({"no_dx_bound_ms": step_bound["bound_ms"],
+                          "no_dx_f32_bound_ms": step_bound["f32_bound_ms"]})
     print(f"[kernel] {name} {label}: forward kernel {ms:.4f} ms  plain {plain_ms:.4f} ms"
           f" | backward kernels, all gradients {bwd_ms:.4f} ms (no dx, as an "
           f"embedder's training step {train_ms:.4f} ms)  plain autograd "
-          f"{plain_bwd_ms:.4f} ms")
-    return ((err_fwd, ms, plain_ms, kan_bound(*dims, extra_floats=extra)),
-            (err_bwd, bwd_ms, plain_bwd_ms, {"no_dx_ms": train_ms},
-             kan_bound(*dims, backward=True, extra_floats=extra)))
+          f"{plain_bwd_ms:.4f} ms" + "".join(
+              f"; {k} {v:.4f}" for k, v in {**extra_fwd, **extra_bwd}.items()
+              if k.endswith("device_ms")))
+    return ((err_fwd, ms, plain_ms, extra_fwd,
+             kan_bound(*dims, extra_floats=extra, tensor_cores=tc)),
+            (err_bwd, bwd_ms, plain_bwd_ms, extra_bwd,
+             kan_bound(*dims, backward=True, extra_floats=extra, tensor_cores=tc)))
 
 
 def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
@@ -1189,8 +1278,10 @@ def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
     launches = (lambda: FB._launch(name, family, x, w, aux),
                 lambda g: FB._launch_bwd(bname, family, x, w, aux, g, True, True),
                 lambda g: FB._launch_bwd(bname, family, x, w, aux, g, False, True))
+    tc = family == "fourier"  # its forward and dW on the tensor cores
     return check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
-                     (x.shape[0], *w.shape, 0))
+                     (x.shape[0], *w.shape, 0, 1), tc_grads=("coeffs",) if tc else (),
+                     f64_gates=tc and x.shape[1] >= 768)
 
 
 def fast_inputs(rng, shape):
@@ -1258,7 +1349,7 @@ def check_rbf(torch, rng, name, label, n, groups, nin, nout):
                                      True))
     return check_kan(torch, rng, name, label, kernel, plain, [x, *params],
                      ("x", "gamma", "beta", "spline_weight", "base_weight", "base_bias"),
-                     launches, (n, groups, 9, nin, nout, 2 * groups * nin + 8))
+                     launches, (n, groups, 9, nin, nout, 2 * groups * nin + 8, 2))
 
 
 def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size):
@@ -1300,8 +1391,10 @@ def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size):
         lambda g: FB._launch_sine_bwd(bname, x, w, freq2d, phase, g, False, True))
     return check_kan(torch, rng, name, label, kernel, plain, [x, *params],
                      ("x", "freq", "amplitudes", "bias"), launches,
-                     (n, groups, grid_size, nin, nout, (groups + nin) * grid_size),
-                     f64=groups == 1 and nin >= 768)
+                     (n, groups, grid_size, nin, nout, (groups + nin) * grid_size, 2),
+                     f64=groups == 1 and nin >= 768,
+                     tc_grads=("freq", "amplitudes") if groups == 1 else (),
+                     f64_gates=groups == 1 and nin >= 768)
 
 
 def phase_basis_kernels(torch):
@@ -2027,6 +2120,8 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
 KAN_FAMILIES = ("Bspline", "Cheby", "Fourier", "Rbf", "Sine")
 KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
+    ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
+     ("kan_tc_kernel", "kan_tc_split")),
     ("KAN basis bwd", ("kan_dx_kernel", "kan_dw_kernel", "sum_splits_kernel",
                        "sum_blocks_kernel")),
     ("RBF LayerNorm stats and VJP", ("ln_stats_kernel", "ln_dx_kernel", "ln_dgb_kernel")),
@@ -2448,6 +2543,7 @@ def phase_bench(torch, smi):
 
 KAN_SRC = "kanvit_torch/kernels/csrc/kan_basis.cu"
 RBF_SINE_SRC = "kanvit_torch/kernels/csrc/kan_rbf_sine.cu"
+KAN_TC_SRC = "kanvit_torch/kernels/csrc/kan_basis_tc.cuh"
 FB_PY = "kanvit/kernels/fused_basis.py"
 SOURCES = {
     "bspline_kan": (KAN_SRC, f"{FB_PY}:1067"),
@@ -2468,14 +2564,14 @@ SOURCES = {
     "chebykan_bwd": (KAN_SRC, f"{FB_PY}:1159"),
     "cheby_qkv_grouped": (KAN_SRC, f"{FB_PY}:1240"),
     "cheby_qkv_grouped_bwd": (KAN_SRC, f"{FB_PY}:1278"),
-    "fourierkan": (KAN_SRC, f"{FB_PY}:2317"),
-    "fourierkan_bwd": (KAN_SRC, f"{FB_PY}:2564"),
+    "fourierkan": (KAN_TC_SRC, f"{FB_PY}:2317"),
+    "fourierkan_bwd": (KAN_TC_SRC, f"{FB_PY}:2564"),
     "fastkan": (RBF_SINE_SRC, f"{FB_PY}:2947"),
     "fastkan_bwd": (RBF_SINE_SRC, f"{FB_PY}:2995"),
     "fastkan_qkv_grouped": (RBF_SINE_SRC, f"{FB_PY}:3191"),
     "fastkan_qkv_grouped_bwd": (RBF_SINE_SRC, f"{FB_PY}:3246"),
-    "sinekan": (RBF_SINE_SRC, f"{FB_PY}:2317"),
-    "sinekan_bwd": (RBF_SINE_SRC, f"{FB_PY}:2523"),
+    "sinekan": (KAN_TC_SRC, f"{FB_PY}:2317"),
+    "sinekan_bwd": (KAN_TC_SRC, f"{FB_PY}:2523"),
     "sinekan_qkv_grouped": (RBF_SINE_SRC, f"{FB_PY}:1518"),
     "sinekan_qkv_grouped_bwd": (RBF_SINE_SRC, f"{FB_PY}:1557"),
     "ffn_pre_ln": ("kanvit_torch/kernels/csrc/fused_ffn.cu",
@@ -2503,6 +2599,20 @@ ALSO_REPLACES = {
     "sinekan": [f"{FB_PY}:1067", f"{FB_PY}:2354"],
     "sinekan_bwd": [f"{FB_PY}:2492", f"{FB_PY}:1728", f"{FB_PY}:2401",
                     f"{FB_PY}:2433"],
+}
+# The Fourier and sine embedders' routes: the tensor-core kernels
+# (kan_basis_tc.cuh, instantiated in the family's source), dx on the
+# CUDA-core template.
+TC_FWD = "3xTF32 mma.sync.m16n8k8 over a basis generated on chip (kan_tc_kernel<{}, false>)"
+TC_BWD = ("dW{} on 3xTF32 mma.sync.m16n8k8 (kan_tc_kernel<{}, true>); dx, where "
+          "asked, on the CUDA-core kan_dx_kernel")
+ROUTES = {
+    "fourierkan": {"kernel": TC_FWD.format("FourierTc"), "instantiated_in": KAN_SRC},
+    "fourierkan_bwd": {"kernel": TC_BWD.format("", "FourierTc"),
+                       "instantiated_in": KAN_SRC},
+    "sinekan": {"kernel": TC_FWD.format("SineTc"), "instantiated_in": RBF_SINE_SRC},
+    "sinekan_bwd": {"kernel": TC_BWD.format(" and dfreq (the D route)", "SineTc"),
+                    "instantiated_in": RBF_SINE_SRC},
 }
 # The main path each kernel must have been launched on ("train" otherwise).
 MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
@@ -2607,6 +2717,7 @@ def main():
                  "max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
         if name in ALSO_REPLACES:
             entry["also_replaces"] = ALSO_REPLACES[name]
+        entry.update(ROUTES.get(name, {}))
         for more in extra:
             entry.update(more)
         check({"bound_ms", "bound_by", "library_ms"} <= set(entry),

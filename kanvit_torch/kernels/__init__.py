@@ -1,8 +1,10 @@
 """Hand-written CUDA kernels for Hopper (sm_90a), bound with ctypes.
 
 - ``fused_basis``: the fused KAN layers, forward and backward, of the
-  B-spline, Chebyshev and Fourier families (``csrc/kan_basis.cu``) for the
-  patch embedder and the grouped q/k/v projection.
+  B-spline, Chebyshev and Fourier families (``csrc/kan_basis.cu``) and the
+  RBF and sine families (``csrc/kan_rbf_sine.cu``) for the patch embedder
+  and the grouped q/k/v projection; the Fourier and sine embedders' forward
+  and weight gradient on the tensor cores (``csrc/kan_basis_tc.cuh``).
 - ``flash_attention``: the lanes-layout attention (``csrc/attention_lanes.cu``)
   and the tiled flash attention (``csrc/flash_attention.cu``), forward and
   backward.

@@ -39,15 +39,16 @@ SIGNATURES = {
     "kanvit_chebykan_fwd": ([_p, _i64, _p, _p, *[_i32] * 4, _p], _i32),
     "kanvit_chebykan_bwd": (
         [_p, _i64, *[_p] * 5, *[_i32] * 5, _p], _i32),
-    "kanvit_fourierkan_fwd": ([_p, _i64, _p, _p, *[_i32] * 5, _p], _i32),
-    "kanvit_fourierkan_bwd": (
-        [_p, _i64, *[_p] * 5, *[_i32] * 6, _p], _i32),
+    "kanvit_fourierkan_fwd": ([_p, _i64, _p, _p, _p, *[_i32] * 4, _p], _i32),
+    "kanvit_fourierkan_bwd": ([_p, _i64, *[_p] * 5, *[_i32] * 4, _p], _i32),
     "kanvit_fastkan_fwd": (
         [_p, _i64, _p, _p, _p, _f32, _p, _p, _p, *[_i32] * 5, _p], _i32),
     "kanvit_fastkan_bwd": (
         [_p, _i64, _p, _p, _p, _f32, *[_p] * 9, *[_i32] * 7, _p], _i32),
     "kanvit_sinekan_fwd": ([_p, _i64, *[_p] * 4, *[_i32] * 5, _p], _i32),
     "kanvit_sinekan_bwd": ([_p, _i64, *[_p] * 9, *[_i32] * 6, _p], _i32),
+    "kanvit_sinekan_tc_fwd": ([_p, _i64, *[_p] * 5, *[_i32] * 4, _p], _i32),
+    "kanvit_sinekan_tc_bwd": ([_p, _i64, *[_p] * 9, *[_i32] * 4, _p], _i32),
     "kanvit_ffn_fwd": ([*[_p] * 9, *[_i32] * 5, _p], _i32),
     "kanvit_ffn_bwd": ([*[_p] * 25, *[_i32] * 6, _p], _i32),
     "kanvit_tf32_mma_rate": ([_p, _i32, _i32, _p], _i32),

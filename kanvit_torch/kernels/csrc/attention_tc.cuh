@@ -1,7 +1,8 @@
 // The 3xTF32 tensor-core helpers of the attention kernels
-// (attention_lanes.cu, flash_attention.cu) and the fused FF (fused_ffn.cu):
-// the TF32 split of an f32 operand, mma.sync.m16n8k8 fragments and the
-// three-product step, 16-byte cp.async staging, the reductions across a
+// (attention_lanes.cu, flash_attention.cu), the fused FF (fused_ffn.cu) and
+// the Fourier and sine KAN kernels (kan_basis_tc.cuh): the TF32 split of an
+// f32 operand, mma.sync.m16n8k8 fragments and the three-product step, split
+// operands stored per fragment, 16-byte cp.async staging, the reductions across a
 // fragment row's four threads, and which head dims take these kernels.
 //
 // Arithmetic: every product runs as
@@ -143,6 +144,53 @@ __device__ __forceinline__ Frag<4> a_rows(const float* at, float scale = 1.f) {
   const float a[4] = {at[0] * scale, at[8 * PITCH] * scale, at[4] * scale,
                       at[8 * PITCH + 4] * scale};
   return Frag<4>(a);
+}
+
+// Split operands laid out per fragment (fused_ffn.cu, kan_basis_tc.cu): an A
+// fragment's four big words at `at` in the register order (g, 2t), (g+8, 2t),
+// (g, 2t+1), (g+8, 2t+1) and its small words at at + 128; a B fragment's
+// big(2t), big(2t+1), small(2t), small(2t+1) in one 16-byte group.
+__device__ __forceinline__ void store_a(uint32_t* at, float a0, float a1, float a2,
+                                        float a3) {
+  uint4 b, s;
+  split_round(a0, b.x, s.x);
+  split_round(a1, b.y, s.y);
+  split_round(a2, b.z, s.z);
+  split_round(a3, b.w, s.w);
+  *reinterpret_cast<uint4*>(at) = b;
+  *reinterpret_cast<uint4*>(at + 128) = s;
+}
+
+__device__ __forceinline__ void store_b(uint32_t* at, float b0, float b1) {
+  uint4 w;
+  split_round(b0, w.x, w.z);
+  split_round(b1, w.y, w.w);
+  *reinterpret_cast<uint4*>(at) = w;
+}
+
+__device__ __forceinline__ Frag<4> load_a(const uint32_t* at) {
+  const uint4 b = *reinterpret_cast<const uint4*>(at);
+  const uint4 sm = *reinterpret_cast<const uint4*>(at + 128);
+  Frag<4> f;
+  f.big[0] = b.x;
+  f.big[1] = b.y;
+  f.big[2] = b.z;
+  f.big[3] = b.w;
+  f.small[0] = sm.x;
+  f.small[1] = sm.y;
+  f.small[2] = sm.z;
+  f.small[3] = sm.w;
+  return f;
+}
+
+__device__ __forceinline__ Frag<2> load_b(const uint32_t* at) {
+  const uint4 w = *reinterpret_cast<const uint4*>(at);
+  Frag<2> f;
+  f.big[0] = w.x;
+  f.big[1] = w.y;
+  f.small[0] = w.z;
+  f.small[1] = w.w;
+  return f;
 }
 
 __device__ __forceinline__ void cp_async16(float* dst, const float* src, bool in) {

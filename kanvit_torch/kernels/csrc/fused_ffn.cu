@@ -229,24 +229,6 @@ __device__ __forceinline__ Frag<4> a_resident(const float* at, int t) {
 
 constexpr int KSTEP = KS / 8;  // mma steps a tile
 
-__device__ __forceinline__ void store_a(uint32_t* at, float a0, float a1, float a2,
-                                        float a3) {
-  uint4 b, s;
-  split_round(a0, b.x, s.x);
-  split_round(a1, b.y, s.y);
-  split_round(a2, b.z, s.z);
-  split_round(a3, b.w, s.w);
-  *reinterpret_cast<uint4*>(at) = b;
-  *reinterpret_cast<uint4*>(at + 128) = s;
-}
-
-__device__ __forceinline__ void store_b(uint32_t* at, float b0, float b1) {
-  uint4 w;
-  split_round(b0, w.x, w.z);
-  split_round(b1, w.y, w.w);
-  *reinterpret_cast<uint4*>(at) = w;
-}
-
 __device__ __forceinline__ int bpairs_word(int n, int s, int t) {
   return n * 2 * KS + 16 * (s ^ (n & 1)) + 4 * t;
 }
@@ -300,30 +282,12 @@ __device__ __forceinline__ void split_b_kmajor(uint32_t* dst, const float* raw) 
 // A fragment of m16 tile i, step s of an afrags tile of STEPS steps.
 template <int STEPS = KSTEP>
 __device__ __forceinline__ Frag<4> a_split(const uint32_t* tile, int i, int s, int lane) {
-  const uint32_t* at = tile + (i * STEPS + s) * 256 + 4 * lane;
-  const uint4 b = *reinterpret_cast<const uint4*>(at);
-  const uint4 sm = *reinterpret_cast<const uint4*>(at + 128);
-  Frag<4> f;
-  f.big[0] = b.x;
-  f.big[1] = b.y;
-  f.big[2] = b.z;
-  f.big[3] = b.w;
-  f.small[0] = sm.x;
-  f.small[1] = sm.y;
-  f.small[2] = sm.z;
-  f.small[3] = sm.w;
-  return f;
+  return load_a(tile + (i * STEPS + s) * 256 + 4 * lane);
 }
 
 // B fragment of column n, step s of a bpairs tile.
 __device__ __forceinline__ Frag<2> b_split(const uint32_t* tile, int n, int s, int t) {
-  const uint4 w = *reinterpret_cast<const uint4*>(tile + bpairs_word(n, s, t));
-  Frag<2> f;
-  f.big[0] = w.x;
-  f.big[1] = w.y;
-  f.small[0] = w.z;
-  f.small[1] = w.w;
-  return f;
+  return load_b(tile + bpairs_word(n, s, t));
 }
 
 // --- forward -----------------------------------------------------------------

@@ -9,38 +9,39 @@
 //
 // Replaces the TPU kernels of kanvit/kernels/fused_basis.py:
 //   forward:  _fused_fwd (pallas_call at :1067) and its out-blocked tier
-//             _fused_fwd_ob (:777), reached from bspline_kan (:3556),
-//             chebykan (:3779) and fourierkan (:3748) below its K-blocked
-//             tier; fourierkan's K-blocked _fused_fwd_kb (:2317,
-//             _fwd_kernel_kbf); _fused_fwd_sg (:1240), reached
-//             from bspline_qkv_grouped (:1361) and cheby_qkv_grouped (:1395),
+//             _fused_fwd_ob (:777), reached from bspline_kan (:3556) and
+//             chebykan (:3779); _fused_fwd_sg (:1240), reached from
+//             bspline_qkv_grouped (:1361) and cheby_qkv_grouped (:1395),
 //             the q/k/v projection of every head in one launch;
 //   backward: _fused_bwd (:1159), _fused_bwd_ob (:810) and the split pair
 //             _fused_fwd_basis (:969) + _fused_bwd_split (:1006), reached
-//             from the VJPs of _bspline_op (:2624), _cheby_op (:3499) and
-//             _fourier_op (:3472); fourierkan's K-blocked _fused_bwd_kb dx
-//             (:2492, _dx_kernel_kbf) and dW (:2564, _dw_kernel_kbf);
+//             from the VJPs of _bspline_op (:2624) and _cheby_op (:3499);
+//             fourierkan's K-blocked _fused_bwd_kb dx (:2492,
+//             _dx_kernel_kbf), from the VJP of _fourier_op (:3472);
 //             _fused_bwd_sg (:1278), reached from the VJPs of _bspline_op_sg
 //             (:1330) and _cheby_op_sg (:1351).
+//   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
+//   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
+//   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on
+//   the tensor cores: kan_basis_tc.cuh, instantiated here as FourierTc.
 //
 // At the ViT-S embedder (N = 64*196, 768 -> 384) each of y, dx and dW is
 // 2*N*S*768*384 FLOPs, 67 GFLOP for B-spline, 37 for Chebyshev and 414 for
 // Fourier G = 28, against ~70-110 MB of x, y (or gy) and W.
 //
-// Fourier runs in chunks of 4 harmonics (8 slices: their cos and sin), so no
-// tile or register array grows with G: at G = 28 a 56-slice chunk would need
-// 2 x 448 x 64 floats of forward tiles (229 KB, over a block's shared
-// memory) and 448 accumulators a thread in dx and dW. Each harmonic is
-// sincosf(k * x) with k * x rounded to f32, the reference's arithmetic
-// (nfkan.py, kanvit's plain fourier_bases): one sincosf per value, harmonic
-// and output tile. kanvit's TPU kernel (_fwd_kernel_kbf) builds them from
-// one sincos(x) pair by angle addition instead, which a chunked walk would
-// have to carry from chunk to chunk; its drift over 28 harmonics put dx ~40x
-// further from the plain version, for a few percent of the kernels' time.
-// B-spline stages its knots and the reciprocals of the knot differences in
-// shared memory; the other families stage nothing. IEEE tanhf, sincosf and
-// expf throughout: the arguments of sincosf reach 28 |x|, far outside where
-// __sinf is accurate, and tanh.approx's 2^-11 error would show in T_4.
+// Fourier's dx runs in chunks of 4 harmonics (8 slices: their cos and sin),
+// so no register array grows with G: 448 accumulators a thread at G = 28 in
+// one chunk. Each harmonic is sincosf(k * x) with k * x rounded to f32, the
+// reference's arithmetic (nfkan.py, kanvit's plain fourier_bases), in dx and
+// in the tensor-core kernels alike. kanvit's TPU kernel (_fwd_kernel_kbf)
+// builds them from one sincos(x) pair by angle addition instead, which a
+// chunked walk would have to carry from chunk to chunk; its drift over 28
+// harmonics put dx ~40x further from the plain version, for a few percent
+// of the kernels' time. B-spline stages its knots and the reciprocals of the
+// knot differences in shared memory; the other families stage nothing. IEEE
+// tanhf, sincosf and expf throughout: the arguments of sincosf reach 28 |x|,
+// far outside where __sinf is accurate, and tanh.approx's 2^-11 error would
+// show in T_4.
 //
 // Edge semantics follow kanvit_torch/ops/kan_bases.py: B-spline order-0
 // bases are the half-open indicators g_j <= x < g_{j+1}, so x on a knot
@@ -49,6 +50,7 @@
 // derivative is T'_n(+-1) * (1 - t^2) = 0.
 
 #include "kan_basis.cuh"
+#include "kan_basis_tc.cuh"
 
 namespace {
 
@@ -189,19 +191,13 @@ struct Cheby : FamilyDefaults {
   }
 };
 
-// Fourier, G harmonics at run time, in chunks of HC = 4: chunk c holds
+// Fourier's dx, G harmonics at run time, in chunks of HC = 4: chunk c holds
 // harmonics k = 4c+1 .. 4c+4, entry j < 4 is cos(kx) (stored slice k-1) and
 // entry 4 + j is sin(kx) (stored slice G + k-1).
 struct Fourier : FamilyDefaults {
   static constexpr int HC = 4;
   static constexpr int SC = 2 * HC;
-  static constexpr int BK = 8;
   static constexpr int DX_BK = 16;
-  // The forward reduces over 2G * nin entries (43008 in the ViT's patch
-  // embedder): one FMA chain that long strays ~1e-5 relative from the
-  // exact sum; step sums of 64 entries cut that ~5x, to cuBLAS's level,
-  // at no measurable cost.
-  static constexpr bool STEP_SUMS = true;
   struct Params { int grid_size; };
   template <int NF> using Stage = Empty;
 
@@ -215,42 +211,18 @@ struct Fourier : FamilyDefaults {
   template <int NF>
   __device__ static void stage(Params, int, int, int, Stage<NF>&) {}
 
-  // cos and sin of harmonics 4c+1 .. 4c+4 into ch[], sh[].
-  __device__ __forceinline__ static void harmonics(float xv, int c,
-                                                   float (&ch)[HC],
-                                                   float (&sh)[HC]) {
-#pragma unroll
-    for (int q = 0; q < HC; ++q) {
-      const float kx = (float)(c * HC + q + 1) * xv;  // rounded, as the reference
-      sincosf(kx, &sh[q], &ch[q]);
-    }
-  }
-
-  template <int NF>
-  __device__ __forceinline__ static void values(Params, const Stage<NF>&,
-                                                const Elem& e, int c,
-                                                float (&v)[SC]) {
-    float ch[HC], sh[HC];
-    harmonics(e.x, c, ch, sh);
-#pragma unroll
-    for (int q = 0; q < HC; ++q) {
-      v[q] = ch[q];
-      v[HC + q] = sh[q];
-    }
-  }
-
   // d cos(kx)/dx = -k sin(kx), d sin(kx)/dx = k cos(kx)
   template <int NF>
   __device__ __forceinline__ static void derivs(Params, const Stage<NF>&,
                                                 const Elem& e, int c,
                                                 float (&d)[SC]) {
-    float ch[HC], sh[HC];
-    harmonics(e.x, c, ch, sh);
 #pragma unroll
     for (int q = 0; q < HC; ++q) {
       const float k = (float)(c * HC + q + 1);
-      d[q] = -k * sh[q];
-      d[HC + q] = k * ch[q];
+      float sh, ch;
+      sincosf(k * e.x, &sh, &ch);  // k * x rounded, as the reference
+      d[q] = -k * sh;
+      d[HC + q] = k * ch;
     }
   }
 };
@@ -305,20 +277,33 @@ extern "C" int kanvit_chebykan_bwd(const float* x, long long ldx,
                            nout, splits, stream);
 }
 
-// Fourier, grid_size G >= 1 harmonics: S = 2G.
+// Fourier, grid_size G >= 1 harmonics: S = 2G, one group. Forward: y (n,
+// nout) from the tensor-core kernel; wsplit is scratch of
+// ceil(nin / 16) * G * npad * 64 words (npad: nout rounded up to 192),
+// 16-byte aligned. Backward: dx (n, nin) or null from the CUDA-core dx
+// kernel, dW (2G, nin, nout) or null from the tensor-core kernel, with
+// gysplit scratch of ceil(n / 32) * npad * 64 words, 16-byte aligned.
 extern "C" int kanvit_fourierkan_fwd(const float* x, long long ldx,
-                                     const float* w, float* y, int n,
-                                     int groups, int nin, int nout,
-                                     int grid_size, void* stream) {
-  return launch_fwd<Fourier>(x, ldx, {grid_size}, w, y, n, groups, nin, nout,
-                             stream);
+                                     const float* w, float* y,
+                                     unsigned int* wsplit, int n, int nin,
+                                     int nout, int grid_size, void* stream) {
+  return launch_tc_fwd<FourierTc>(x, ldx, {grid_size}, w, y, wsplit, n, nin, nout,
+                                  (cudaStream_t)stream);
 }
 
 extern "C" int kanvit_fourierkan_bwd(const float* x, long long ldx,
                                      const float* w, const float* gy,
-                                     float* dx, float* dw, float* dw_part,
-                                     int n, int groups, int nin, int nout,
-                                     int grid_size, int splits, void* stream) {
-  return launch_bwd<Fourier>(x, ldx, {grid_size}, w, gy, dx, dw, dw_part, n,
-                             groups, nin, nout, splits, stream);
+                                     float* dx, float* dw,
+                                     unsigned int* gysplit, int n, int nin,
+                                     int nout, int grid_size, void* stream) {
+  if (bad_shape(n, 1, nin, nout) || grid_size <= 0) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  if (dx != nullptr) {
+    const int err = launch_dx<Fourier>(x, ldx, {grid_size}, w, gy, dx, nullptr, 0,
+                                       nullptr, n, 1, nin, nout, st);
+    if (err != 0) return err;
+  }
+  if (dw == nullptr) return 0;
+  return launch_tc_dw<FourierTc>(x, ldx, {grid_size}, nullptr, gy, dw, gysplit,
+                                 nullptr, n, nin, nout, st);
 }

@@ -2,9 +2,11 @@
 // basis and contract it against the packed weight (forward), or reduce the
 // output gradient back through the same basis (backward), without writing
 // the basis to memory. One set of templated kernels, instantiated per basis
-// family: kan_basis.cu holds B-spline, Chebyshev and Fourier, kan_rbf_sine.cu
-// the RBF (FastKAN, with its LayerNorm) and sine families. `groups` = 1 for a
-// layer, = H for a grouped q/k/v projection.
+// family: kan_basis.cu holds B-spline, Chebyshev and Fourier (its dx),
+// kan_rbf_sine.cu the RBF (FastKAN, with its LayerNorm) and sine families.
+// `groups` = 1 for a layer, = H for a grouped q/k/v projection. The Fourier
+// and sine embedders' forward and dW run on the tensor cores instead
+// (kan_basis_tc.cuh).
 //
 //   y[n, g*nout + o]  = sum_i sum_s B_s(x[n, g*nin + i]) * W[g, s, i, o]
 //   dx[n, g*nin + i]  = sum_s B'_s(x[n, g*nin + i]) * sum_o gy[n, g*nout + o] W[g, s, i, o]
@@ -44,7 +46,8 @@
 // second pass, never an atomic: two runs give the same bits.
 //
 // Ragged rows, outputs, features and a family's last chunk are masked
-// in-kernel. Tensor cores, TMA and a pipelined ring of tiles are later work.
+// in-kernel. Tensor cores for these families are later work (the Fourier
+// and sine embedders' are in kan_basis_tc.cuh).
 
 #pragma once
 

@@ -1,0 +1,583 @@
+// The Fourier and sine KAN layers' forward and weight gradient on Hopper's
+// tensor cores: one templated contraction over a basis generated on chip,
+// instantiated for Fourier in kan_basis.cu and for sine in kan_rbf_sine.cu.
+// dx stays on kan_basis.cuh's CUDA-core kan_dx_kernel, and the grouped sine
+// q/k/v on its CUDA-core kernels.
+//
+//   forward  y[n, o]      = sum_(s,i) B_s(x[n, i]) W[s, i, o]
+//   dW       dW[s, i, o]  = sum_n B_s(x[n, i]) gy[n, o]
+//   sine     D[s, i, o]   = sum_n x[n, i] cos(arg_nis) gy[n, o],
+//            dfreq_s      = sum_(i,o) W[s, i, o] D[s, i, o]
+// (arg_nis = x[n, i] freq_s + phase_is). Both are C = A B with A generated:
+// the forward's A is (rows x (slice, feature)), the basis; dW's is
+// ((slice, feature) x rows), the basis transposed; B is W or gy.
+//
+// What bounds them on the H100: the products. At the vit-s embedder
+// (12,544 rows, 768 -> 384, G 28) the Fourier forward and dW are each
+// 414 GFLOP (f32 bound 6.18 ms at 67 TFLOP/s, 2.51 ms in 3xTF32 at the
+// dense 495 TFLOP/s, 4.01 at mma.sync's measured 309.7), the sine forward
+// 207, the sine dW with D 414; the bytes (x, W, gy or y, dW) take 0.04 ms.
+// Beside the products: one sincosf per (row, feature, harmonic) and output
+// tile (sinf for the sine forward), and the TF32 split of each value.
+//
+// Arithmetic (attention_tc.cuh): mma.sync.m16n8k8 in 3xTF32, each f32
+// operand split into big + small TF32 words, each 8-deep step's three
+// products into a zeroed accumulator that an f32 add takes into the running
+// sum. The running sum is two-level: every FLUSH stages (896 contracted
+// entries) it is added into a total (each element its one thread's) and
+// restarted; one running sum over all 43,008 entries of the Fourier forward
+// (12,544 of dW) would stray past twice the plain f32's distance from f64
+// (tests/test_torch_port_kan_tc.py).
+//
+// Basis values keep the CUDA-core kernels' arithmetic: Fourier
+// sincosf((float)k * x), the f32-rounded product; sine sin / cos of
+// x freq + phase, IEEE sincosf / sinf (|arg| reaches hundreds).
+//
+// Warps. A block of 12: 8 MMA warps, 48 rows x 48 outputs of C each (3 x 6
+// m16n8 tiles, 72 accumulators a thread), and 4 producer warps that fill
+// the next stage while the MMA warps work on this one: they start its B
+// tile's 16-byte cp.async copies, generate its A tile into shared memory,
+// split into TF32 words laid out per fragment (afrags, fused_ffn.cu's
+// layout), from the x (and sine's phase) they loaded into registers a stage
+// before, and load the next stage's. Two buffers, one barrier a stage (bar.sync
+// 1, from both loops). The B operand is split once a call by a pre-pass
+// (kan_tc_split) into the per-column layout the fragments read (bpairs), in
+// the stage order of the contraction: 132 MB for the vit-s Fourier W, 66
+// MB for the sine W, 38.5 MB for gy. Generating the basis in the MMA warps
+// between their stages took ~45% of the Fourier forward's time and ~55% of
+// dW's on the H100: the sincosf chains and the loads of x stalled the
+// tensor cores.
+//
+// Tiles (Tile<F, DW>). The contracted index runs in stages of KT = 32
+// (four mma steps):
+//   Fourier forward: 96 rows x 192 outputs (MMA warps 2 x 4); a stage is 16
+//     features x one harmonic, entries 0-15 cos(kx) of the 16 features,
+//     16-31 sin(kx), so one sincosf gives two entries; stages walk the
+//     harmonics inside each chunk of 16 features. 131 x 2 blocks at vit-s:
+//     two full waves, one block an SM.
+//   sine forward: 48 rows x 384 outputs (MMA warps 1 x 8); a stage is 32
+//     features x one slice, sin(arg). At 96 x 192 its one sinf a value (not
+//     one sincosf for two) bound it; the wider tile feeds each sinf to twice
+//     the outputs. 262 blocks: two full waves.
+//   dW: 96 x 192; a stage is 32 rows. The block's 96 rows of C are 48
+//     features x one harmonic (slice): rows 0-47 Fourier's cos (sine's
+//     sin), rows 48-95 Fourier's sin (sine's x cos, the D route), again one
+//     sincosf for two values. 448 x 2 blocks: 6.8 waves.
+// Shared memory, 216 KB (one block an SM) in each: at 96 x 192 two stages
+// of A 24 KB + B 48 KB and the 72 KB total; at 48 x 384 two stages of A
+// 12 KB + B 96 KB, and the total goes to y instead (a flush's loads of y
+// issued together).
+//
+// dW's rows need no splits: 448 x 2 blocks fill the card, so there is no
+// scratch beyond the split gy and no second pass for dW. Sine's dfreq: each
+// block's epilogue sums W D over its D rows and outputs in a fixed order
+// into one partial, and sum_blocks_kernel (kan_rbf_sine.cu) sums the
+// partials of each slice in a fixed order; D is never written. No atomics:
+// a second backward gives the same bits.
+//
+// Ragged rows, features, outputs and a family's last chunk are zero in the
+// generated A and the split B and never stored.
+
+#pragma once
+
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+#include "attention_tc.cuh"
+
+namespace {
+
+namespace tc {
+constexpr int THREADS = 256;                      // the 8 MMA warps
+constexpr int PRODUCERS = 128;                    // the 4 warps that fill the stages
+constexpr int MI = 3;                             // m16 tiles a warp (48 rows)
+constexpr int NJ = 6;                             // n8 tiles a warp (48 outputs)
+constexpr int KT = 32;                            // contracted entries a stage
+constexpr int KSTEPS = KT / 8;                    // mma steps a stage
+constexpr int ACC = MI * NJ * 4;                  // accumulators a thread
+constexpr int FLUSH = 28;                         // stages a level of the sum
+constexpr int FWD_PAIR_F = 16;                    // features a Fourier forward stage
+constexpr int FWD_ONE_F = 32;                     // features a sine forward stage
+constexpr int DW_F = 48;                          // features a dW block
+}  // namespace tc
+
+__host__ __device__ __forceinline__ int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// Fourier, G harmonics: packed slice h is cos((h+1) x), G + h sin((h+1) x).
+struct FourierTc {
+  struct Params { int grid_size; };
+  static constexpr bool FWD_PAIR = true;  // a forward stage: 16 features, cos and sin
+  static constexpr bool DW_D = false;     // dW's second half is dW (sin), not D
+  __host__ __device__ static int harmonics(Params p) { return p.grid_size; }
+  // The packed slice and feature of forward stage kt's entry k.
+  __device__ static void fwd_entry(Params p, int kt, int k, int& slice, int& feature) {
+    const int h = kt % p.grid_size;
+    slice = k < tc::FWD_PAIR_F ? h : p.grid_size + h;
+    feature = kt / p.grid_size * tc::FWD_PAIR_F + (k & (tc::FWD_PAIR_F - 1));
+  }
+  __device__ static int second_slice(Params p, int h) { return p.grid_size + h; }
+  // What a stage's values share (harmonic k = h + 1), and what a value
+  // needs beside x (nothing).
+  __device__ __forceinline__ static float coef(Params, int h) { return (float)(h + 1); }
+  __device__ __forceinline__ static float aux(Params, int, int) { return 0.f; }
+  // cos and sin of k x: the f32-rounded product, as the reference.
+  __device__ __forceinline__ static void pair(float xv, float, float k, float& first,
+                                              float& second) {
+    sincosf(k * xv, &second, &first);
+  }
+};
+
+// Sine, S slices: sin(x freq_s + phase_is); its dW tile's second half is the
+// D route's x cos(arg).
+struct SineTc {
+  struct Params {
+    const float* freq;   // (S,)
+    const float* phase;  // (nin, S)
+    int grid_size;       // S
+  };
+  static constexpr bool FWD_PAIR = false;  // a forward stage: 32 features, sin
+  static constexpr bool DW_D = true;
+  __host__ __device__ static int harmonics(Params p) { return p.grid_size; }
+  __device__ static void fwd_entry(Params p, int kt, int k, int& slice, int& feature) {
+    slice = kt % p.grid_size;
+    feature = kt / p.grid_size * tc::FWD_ONE_F + k;
+  }
+  __device__ static int second_slice(Params, int) { return -1; }
+  // What a stage's values share (slice s's freq), and what a value needs
+  // beside x (its feature's phase of slice s).
+  __device__ __forceinline__ static float coef(Params p, int s) { return p.freq[s]; }
+  __device__ __forceinline__ static float aux(Params p, int s, int feature) {
+    return p.phase[(long long)feature * p.grid_size + s];
+  }
+  __device__ __forceinline__ static float one(float xv, float phase, float freq) {
+    return sinf(xv * freq + phase);
+  }
+  __device__ __forceinline__ static void pair(float xv, float phase, float freq,
+                                              float& first, float& second) {
+    float sn, cs;
+    sincosf(xv * freq + phase, &sn, &cs);
+    first = sn;
+    second = xv * cs;
+  }
+};
+
+// A block's tile of C and its shared memory. The 8 MMA warps stand WM
+// along the rows and 8 / WM along the outputs, 48 x 48 each: 96 x 192 for
+// the Fourier forward and dW, 48 x 384 for the sine forward, whose one sinf
+// a value (not one sincosf for two) bound it at 96 x 192. The two-level
+// sum's total stays in shared memory where it fits (72 KB beside the two
+// stages); the sine forward, whose stages take 216 KB, adds it into y.
+template <class F, bool DW>
+struct Tile {
+  static constexpr int WM = DW || F::FWD_PAIR ? 2 : 1;
+  static constexpr int WN = 8 / WM;
+  static constexpr int BM = 48 * WM, BN = 48 * WN;
+  static constexpr int A_WORDS = BM / 16 * tc::KSTEPS * 256;  // afrags of a stage
+  static constexpr int B_WORDS = BN * 2 * tc::KT;             // bpairs of a stage
+  static constexpr int STAGE_WORDS = A_WORDS + B_WORDS;
+  static constexpr bool SMEM_TOTAL = WM == 2;
+  static constexpr size_t SMEM =
+      sizeof(float) * (2 * STAGE_WORDS + (SMEM_TOTAL ? tc::ACC * tc::THREADS : 0));
+};
+
+// B operand sources of the split pre-pass: B(k, col) of stage kt.
+template <class F>
+struct WSource {  // the forward's W, in F's stage order
+  const float* w;
+  typename F::Params p;
+  int nin, nout;
+  __device__ float operator()(long long kt, int k, int col) const {
+    int slice, feature;
+    F::fwd_entry(p, (int)kt, k, slice, feature);
+    return feature < nin && col < nout
+               ? w[((long long)slice * nin + feature) * nout + col] : 0.f;
+  }
+};
+
+struct GySource {  // dW's gy, (n, nout) row-major: stage kt is rows 32 kt ..
+  const float* gy;
+  int n, nout;
+  __device__ float operator()(long long kt, int k, int col) const {
+    const long long row = kt * tc::KT + k;
+    return row < n && col < nout ? gy[row * nout + col] : 0.f;
+  }
+};
+
+// bpairs word of column col, step s, fragment thread t in a stage's tile:
+// big(2t), big(2t+1), small(2t), small(2t+1); the XOR on the column's low
+// bit puts a quarter-warp's 16-byte loads (columns g, g+1) on 32 banks.
+__device__ __forceinline__ int tc_bword(int col, int s, int t) {
+  return col * 2 * tc::KT + 16 * (s ^ (col & 1)) + 4 * t;
+}
+
+// out[(kt npad + col) 2KT + ...]: every stage's B tile, split, for all npad
+// columns. A warp covers 8 columns of one step (reads: 8 rows of 32 bytes;
+// writes: 64 contiguous bytes a column), four warps the stage's 4 steps.
+template <class Src>
+__global__ void __launch_bounds__(256)
+kan_tc_split(Src src, uint32_t* __restrict__ out, int npad, long long units) {
+  const int nb = npad / 8;
+  for (long long u = blockIdx.x * 256LL + threadIdx.x; u < units;
+       u += (long long)gridDim.x * 256) {
+    const int t = (int)(u & 3), s = (int)((u >> 5) & 3);
+    const long long rest = u >> 7, kt = rest / nb;
+    const int col = (int)(rest % nb) * 8 + (int)((u >> 2) & 7), k = 8 * s + 2 * t;
+    store_b(out + (kt * npad + col) * 2 * tc::KT + 16 * (s ^ (col & 1)) + 4 * t,
+            src(kt, k, col), src(kt, k + 1, col));
+  }
+}
+
+// A producer thread's share of a stage's A tile: UNITS quads of a fragment
+// (one lane's values at two rows and two contracted entries), U of them a
+// thread. Per quad value q: the forward's (row g + 8 (q & 1), entry 2t +
+// (q >> 1)), dW's (feature g + 8 (q & 1), row 2t + (q >> 1)).
+template <class F, bool DW>
+struct Gen {
+  static constexpr int UNITS =
+      DW ? tc::MI * tc::KSTEPS * 32
+         : Tile<F, DW>::BM / 16 * (F::FWD_PAIR ? 2 : tc::KSTEPS) * 32;
+  static constexpr int U = UNITS / tc::PRODUCERS;
+  int ptid, n, nin, r0, f0, h;  // forward: rows r0 ..; dW: features f0 .., harmonic h
+
+  // Row, feature and slice (harmonic) of unit u's value q in stage kt.
+  __device__ __forceinline__ void at(typename F::Params p, int kt, int u, int q, long long& row,
+                                     int& f, int& s) const {
+    const int lane = u & 31, g = lane >> 2, t = lane & 3;
+    if constexpr (DW) {
+      const int st = (u >> 5) & 3, i = u >> 7;
+      f = f0 + 16 * i + g + 8 * (q & 1);
+      row = (long long)kt * tc::KT + 8 * st + 2 * t + (q >> 1);
+      s = h;
+    } else {
+      const int hs = F::harmonics(p), i = F::FWD_PAIR ? u >> 6 : u >> 7;
+      const int st = F::FWD_PAIR ? (u >> 5) & 1 : (u >> 5) & 3;  // Fourier: the half
+      row = r0 + 16 * i + g + 8 * (q & 1);
+      f = kt / hs * (F::FWD_PAIR ? tc::FWD_PAIR_F : tc::FWD_ONE_F) + 8 * st + 2 * t +
+          (q >> 1);
+      s = kt % hs;
+    }
+  }
+
+  // x and the family's aux values of stage kt into xr, ar (0 outside).
+  __device__ __forceinline__ void load(typename F::Params p, const float* __restrict__ x,
+                                       long long ldx, int kt, float (&xr)[U][4],
+                                       float (&ar)[U][4]) const {
+#pragma unroll
+    for (int q0 = 0; q0 < U; ++q0)
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        long long row;
+        int f, sl;
+        at(p, kt, ptid + q0 * tc::PRODUCERS, q, row, f, sl);
+        const bool in = row < n && f < nin;
+        xr[q0][q] = in ? x[row * ldx + f] : 0.f;
+        ar[q0][q] = in ? F::aux(p, sl, f) : 0.f;
+      }
+  }
+
+  // Stage kt's values from xr, ar, split, into afrags at As.
+  __device__ __forceinline__ void store(typename F::Params p, int kt, const float (&xr)[U][4],
+                                        const float (&ar)[U][4], uint32_t* As) const {
+    const float c = F::coef(p, DW ? h : kt % F::harmonics(p));  // the stage's slice
+#pragma unroll
+    for (int q0 = 0; q0 < U; ++q0) {
+      const int u = ptid + q0 * tc::PRODUCERS, lane = u & 31;
+      float a[4], b[4];
+      int i = 0, sa = 0, sb = 0, ib = 0;  // afrags (m16 tile, step) of each quad
+#pragma unroll
+      for (int q = 0; q < 4; ++q) {
+        long long row;
+        int f, sl;
+        at(p, kt, u, q, row, f, sl);
+        a[q] = b[q] = 0.f;
+        if (row < n && f < nin) {
+          if constexpr (DW || F::FWD_PAIR)
+            F::pair(xr[q0][q], ar[q0][q], c, a[q], b[q]);
+          else
+            a[q] = F::one(xr[q0][q], ar[q0][q], c);
+        }
+      }
+      if constexpr (DW) {  // first values: m16 tiles 0-2; second: 3-5
+        i = u >> 7;
+        sa = sb = (u >> 5) & 3;
+        ib = i + tc::MI;
+      } else if constexpr (F::FWD_PAIR) {  // cos: steps 0, 1; sin: steps 2, 3
+        i = ib = u >> 6;
+        sa = (u >> 5) & 1;
+        sb = 2 + sa;
+      } else {
+        i = u >> 7;
+        sa = (u >> 5) & 3;
+      }
+      store_a(As + (i * tc::KSTEPS + sa) * 256 + 4 * lane, a[0], a[1], a[2], a[3]);
+      if constexpr (DW || F::FWD_PAIR)
+        store_a(As + (ib * tc::KSTEPS + sb) * 256 + 4 * lane, b[0], b[1], b[2], b[3]);
+    }
+  }
+};
+
+// The stage barrier of the MMA and the producer warps, which reach it from
+// their own loops: bar.sync 1 over the block's threads.
+__device__ __forceinline__ void stage_barrier() {
+  asm volatile("bar.sync 1, %0;" ::"n"(tc::THREADS + tc::PRODUCERS) : "memory");
+}
+
+// C = A B over nk stages. Forward (DW false): grid (npad / BN, row tiles),
+// out = y (n, nout). dW: grid (npad / BN, feature tiles x harmonics), out =
+// dW (S, nin, nout); a DW_D family's second half goes to part[b S + h], b =
+// feature tile x gridDim.x + blockIdx.x, through w (S, nin, nout).
+template <class F, bool DW>
+__global__ void __launch_bounds__(tc::THREADS + tc::PRODUCERS, 1)
+kan_tc_kernel(const float* __restrict__ x, long long ldx, typename F::Params p,
+              const uint32_t* __restrict__ bsplit, const float* __restrict__ w,
+              float* __restrict__ out, float* __restrict__ part, int n, int nin,
+              int nout, int npad, int nk) {
+  using T = Tile<F, DW>;
+  // local names: kan_basis.cuh's THREADS shares the namespace
+  constexpr int THREADS = tc::THREADS, MI = tc::MI, NJ = tc::NJ, KT = tc::KT;
+  constexpr int KSTEPS = tc::KSTEPS, PRODUCERS = tc::PRODUCERS, FLUSH = tc::FLUSH;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ float red[THREADS / 32];
+  uint32_t* stages = reinterpret_cast<uint32_t*>(sm);
+  float* total = sm + 2 * T::STAGE_WORDS;  // [accumulator][MMA thread]
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const bool producer = tid >= THREADS;
+  const int ptid = tid - THREADS;  // a producer's thread
+  const int g = lane >> 2, t = lane & 3, wm = warp / T::WN, wn = warp % T::WN;
+  const int n0 = blockIdx.x * T::BN;
+  const int nfc = cdiv(nin, tc::DW_F);
+  const int h = DW ? blockIdx.y / nfc : 0;
+  const int f0 = DW ? blockIdx.y % nfc * tc::DW_F : 0;
+  const int r0 = DW ? 0 : blockIdx.y * T::BM;
+
+  if (producer) {
+    // Stage kt + 1 while the MMA warps work on stage kt: its B tile by
+    // cp.async, the x (and aux) of stage kt + 2 into registers, its A tile
+    // generated from the ones loaded a stage before.
+    using G = Gen<F, DW>;
+    const G gen{ptid, n, nin, r0, f0, h};
+    float xn[G::U][4], an[G::U][4];  // the next stage's
+    auto fill = [&](int kt, int buf) {
+      uint32_t* as = stages + buf * T::STAGE_WORDS;
+      const uint32_t* src = bsplit + ((long long)kt * npad + n0) * 2 * KT;
+#pragma unroll
+      for (int i = 0; i < T::B_WORDS / 4 / PRODUCERS; ++i) {
+        const int e = 4 * (ptid + i * PRODUCERS);
+        cp_async16(reinterpret_cast<float*>(as + T::A_WORDS + e),
+                   reinterpret_cast<const float*>(src + e), true);
+      }
+      cp_async_commit();
+      float xc[G::U][4], ac[G::U][4];
+#pragma unroll
+      for (int u = 0; u < G::U; ++u)
+#pragma unroll
+        for (int q = 0; q < 4; ++q) {
+          xc[u][q] = xn[u][q];
+          ac[u][q] = an[u][q];
+        }
+      if (kt + 1 < nk) gen.load(p, x, ldx, kt + 1, xn, an);
+      gen.store(p, kt, xc, ac, as);
+    };
+    gen.load(p, x, ldx, 0, xn, an);
+    fill(0, 0);
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<0>();
+      stage_barrier();  // stage kt's A and B visible; buffer (kt + 1) & 1 is free
+      if (kt + 1 < nk) fill(kt + 1, (kt + 1) & 1);
+    }
+  } else {
+    float acc[MI][NJ][4];
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    if constexpr (T::SMEM_TOTAL) {
+#pragma unroll
+      for (int e = 0; e < tc::ACC; ++e) total[e * THREADS + tid] = 0.f;
+    }
+    for (int k0 = 0; k0 < nk; k0 += FLUSH) {
+      for (int kt = k0; kt < min(k0 + FLUSH, nk); ++kt) {
+        stage_barrier();
+        const uint32_t* as = stages + (kt & 1) * T::STAGE_WORDS;
+        const uint32_t* bs = as + T::A_WORDS;
+#pragma unroll
+        for (int s = 0; s < KSTEPS; ++s) {
+          Frag<4> a[MI];
+#pragma unroll
+          for (int i = 0; i < MI; ++i)
+            a[i] = load_a(as + ((MI * wm + i) * KSTEPS + s) * 256 + 4 * lane);
+#pragma unroll
+          for (int j = 0; j < NJ; ++j) {
+            const Frag<2> b = load_b(bs + tc_bword(48 * wn + 8 * j + g, s, t));
+#pragma unroll
+            for (int i = 0; i < MI; ++i) mma3(acc[i][j], a[i], b);
+          }
+        }
+      }
+      // the running sum of these FLUSH stages into the total (each element
+      // its one thread's), and restarted: in shared memory, or in y
+      if constexpr (T::SMEM_TOTAL) {
+#pragma unroll
+        for (int e = 0; e < tc::ACC; ++e) {
+          total[e * THREADS + tid] += (&acc[0][0][0])[e];
+          (&acc[0][0][0])[e] = 0.f;
+        }
+      } else {
+#pragma unroll
+        for (int i = 0; i < MI; ++i) {  // an m16 tile's 24 values at a time
+          float old[NJ][4];
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = r0 + 48 * wm + 16 * i + g + 8 * (e >> 1);
+              const int col = n0 + 48 * wn + 8 * j + 2 * t + (e & 1);
+              old[j][e] = k0 > 0 && row < n && col < nout
+                              ? out[(long long)row * nout + col] : 0.f;
+            }
+#pragma unroll
+          for (int j = 0; j < NJ; ++j)
+#pragma unroll
+            for (int e = 0; e < 4; ++e) {
+              const int row = r0 + 48 * wm + 16 * i + g + 8 * (e >> 1);
+              const int col = n0 + 48 * wn + 8 * j + 2 * t + (e & 1);
+              if (row < n && col < nout)
+                out[(long long)row * nout + col] = k0 > 0 ? old[j][e] + acc[i][j][e]
+                                                          : acc[i][j][e];
+              acc[i][j][e] = 0.f;
+            }
+        }
+      }
+    }
+  }
+  if constexpr (!DW) {
+    if constexpr (T::SMEM_TOTAL) {  // y from the total
+#pragma unroll
+      for (int i = 0; i < MI; ++i)
+#pragma unroll
+        for (int j = 0; j < NJ; ++j)
+#pragma unroll
+          for (int e = 0; e < 4; ++e) {
+            const int row = r0 + 48 * wm + 16 * i + g + 8 * (e >> 1);
+            const int col = n0 + 48 * wn + 8 * j + 2 * t + (e & 1);
+            if (!producer && row < n && col < nout)
+              out[(long long)row * nout + col] = total[((i * NJ + j) * 4 + e) * THREADS + tid];
+          }
+    }
+    return;
+  }
+
+  float dsum = 0.f;  // a DW_D family's W D over this thread's D values
+  if (!producer) {
+#pragma unroll
+    for (int i = 0; i < MI; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float v = total[((i * NJ + j) * 4 + e) * THREADS + tid];
+          const int m = 16 * i + g + 8 * (e >> 1);  // within the warp's 48 rows
+          const int col = n0 + 48 * wn + 8 * j + 2 * t + (e & 1);
+          const int f = f0 + m;
+          if (col >= nout || f >= nin) continue;
+          if (wm == 0 || !F::DW_D) {
+            const int slice = wm == 0 ? h : F::second_slice(p, h);
+            out[((long long)slice * nin + f) * nout + col] = v;
+          } else {
+            dsum = fmaf(w[((long long)h * nin + f) * nout + col], v, dsum);
+          }
+        }
+  }
+  if constexpr (F::DW_D) {
+#pragma unroll
+    for (int off = 16; off > 0; off >>= 1) dsum += __shfl_xor_sync(0xffffffffu, dsum, off);
+    if (lane == 0 && !producer) red[warp] = dsum;
+    __syncthreads();
+    if (tid == 0) {
+      float sum = 0.f;
+      for (int wv = THREADS / 64; wv < THREADS / 32; ++wv) sum += red[wv];  // the D warps
+      const long long b = (long long)(blockIdx.y % nfc) * gridDim.x + blockIdx.x;
+      part[b * F::harmonics(p) + h] = sum;
+    }
+  }
+}
+
+template <class F, bool DW>
+int tc_kernel_attr() {
+  return (int)cudaFuncSetAttribute(kan_tc_kernel<F, DW>,
+                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)Tile<F, DW>::SMEM);
+}
+
+// nout rounded up to the tile's outputs.
+template <class F, bool DW>
+int tc_npad(int nout) {
+  return cdiv(nout, Tile<F, DW>::BN) * Tile<F, DW>::BN;
+}
+
+// Stages of the forward's contraction.
+template <class F>
+int tc_fwd_stages(typename F::Params p, int nin) {
+  return cdiv(nin, F::FWD_PAIR ? tc::FWD_PAIR_F : tc::FWD_ONE_F) * F::harmonics(p);
+}
+
+template <class Src>
+int tc_split(Src src, uint32_t* out, int npad, long long stages, cudaStream_t st) {
+  const long long units = stages * npad * tc::KSTEPS * 4;
+  const long long want = (units + 255) / 256;
+  kan_tc_split<Src><<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, st>>>(
+      src, out, npad, units);
+  return (int)cudaGetLastError();
+}
+
+// y (n, nout) = B(x) W for a groups-1 layer; wsplit: scratch of
+// tc_fwd_stages * npad * 2 KT words (npad: tc_npad<F, false>), 16-byte
+// aligned.
+template <class F>
+int launch_tc_fwd(const float* x, long long ldx, typename F::Params p, const float* w,
+                  float* y, uint32_t* wsplit, int n, int nin, int nout,
+                  cudaStream_t st) {
+  if (n <= 0 || nin <= 0 || nout <= 0 || F::harmonics(p) <= 0 ||
+      (uintptr_t)wsplit % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  using T = Tile<F, false>;
+  const int npad = tc_npad<F, false>(nout), nk = tc_fwd_stages<F>(p, nin);
+  const dim3 grid(npad / T::BN, cdiv(n, T::BM));
+  if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
+  int err = tc_split(WSource<F>{w, p, nin, nout}, wsplit, npad, nk, st);
+  if (err != 0) return err;
+  err = tc_kernel_attr<F, false>();
+  if (err != 0) return err;
+  kan_tc_kernel<F, false><<<grid, tc::THREADS + tc::PRODUCERS, T::SMEM, st>>>(
+      x, ldx, p, wsplit, nullptr, y, nullptr, n, nin, nout, npad, nk);
+  return (int)cudaGetLastError();
+}
+
+// dW (S, nin, nout) = B(x)^T gy, and for a DW_D family the per-block
+// partials of dfreq into part (feature tiles x npad / BN x S floats);
+// gysplit: scratch of cdiv(n, KT) * npad * 2 KT words (npad:
+// tc_npad<F, true>), 16-byte aligned.
+template <class F>
+int launch_tc_dw(const float* x, long long ldx, typename F::Params p, const float* w,
+                 const float* gy, float* dw, uint32_t* gysplit, float* part, int n,
+                 int nin, int nout, cudaStream_t st) {
+  if (n <= 0 || nin <= 0 || nout <= 0 || F::harmonics(p) <= 0 ||
+      (uintptr_t)gysplit % 16 != 0 || (F::DW_D && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  using T = Tile<F, true>;
+  const int npad = tc_npad<F, true>(nout), nk = cdiv(n, tc::KT);
+  const long long tiles = (long long)cdiv(nin, tc::DW_F) * F::harmonics(p);
+  if (tiles > 65535) return (int)cudaErrorInvalidValue;
+  int err = tc_split(GySource{gy, n, nout}, gysplit, npad, nk, st);
+  if (err != 0) return err;
+  err = tc_kernel_attr<F, true>();
+  if (err != 0) return err;
+  kan_tc_kernel<F, true><<<dim3(npad / T::BN, (unsigned)tiles),
+                           tc::THREADS + tc::PRODUCERS, T::SMEM, st>>>(
+      x, ldx, p, gysplit, w, dw, part, n, nin, nout, npad, nk);
+  return (int)cudaGetLastError();
+}
+
+}  // namespace

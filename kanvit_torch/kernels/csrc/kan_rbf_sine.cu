@@ -24,10 +24,13 @@
 //   Sine: the K-blocked _fused_fwd_kb (:2317), _fused_bwd_kb dx (:2492) and
 //         dW + dfreq (:2523, _dw_kernel_kb_sine), reached from sinekan
 //         (:3667), the grid-28 patch embedder, and below that tier
-//         _fused_fwd (:1067) and _fused_bwd_sine_plain (:1728);
+//         _fused_fwd (:1067) and _fused_bwd_sine_plain (:1728): the forward
+//         and dW + dfreq on the tensor cores (kan_basis_tc.cuh, SineTc,
+//         the kanvit_sinekan_tc_* entries), dx on the CUDA-core dx kernel;
 //         _sine_op_sg fwd (:1518) and bwd (:1557), reached from
-//         sinekan_qkv_grouped (:1597); the opt-in _fused_fwd_kb_basis
-//         (:2354) and _fused_bwd_kb_sine_res (:2401, :2433), and sinekan_qkv
+//         sinekan_qkv_grouped (:1597), on the CUDA-core kernels (the
+//         kanvit_sinekan_* entries); the opt-in _fused_fwd_kb_basis (:2354)
+//         and _fused_bwd_kb_sine_res (:2401, :2433), and sinekan_qkv
 //         (:3691), compute the same functions.
 //
 // What bounds them on the H100: the contractions, in f32 FMAs, and the
@@ -56,12 +59,16 @@
 // The patch embedder's backward needs no dx (its input is the image) but
 // dgamma and dbeta still need dln: the dln pass runs, the dx pass does not.
 //
-// Sine's dfreq_s = sum_{n,i} gW_s[n, i] x cos(arg) rides the dx kernel,
-// where gW is in registers: per-block sums in a fixed order, then one block
-// per (group, slice) sums the blocks in a fixed order. The embedder's
-// backward needs dfreq but no dx: the dx kernel runs and writes no dx.
+// Sine's dfreq_s = sum_{n,i} gW_s[n, i] x cos(arg). For the grouped q/k/v
+// it rides the dx kernel, where gW is in registers: per-block sums in a
+// fixed order, then one block per (group, slice) sums the blocks in a fixed
+// order; that backward needs no dx, so the dx kernel runs and writes none.
+// For the embedder (sinekan) it rides the tensor-core dW kernel as
+// sum_{i,o} W[s, i, o] D[s, i, o] (kan_basis_tc.cuh), whether dx is asked
+// or not; the dx kernel then computes dx alone.
 
 #include "kan_basis.cuh"
+#include "kan_basis_tc.cuh"
 
 namespace {
 
@@ -452,4 +459,48 @@ extern "C" int kanvit_sinekan_bwd(const float* x, long long ldx,
     return launch_dw<Sine>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout,
                            splits, st);
   return 0;
+}
+
+// SineKAN embedder (sinekan, one group) on the tensor cores. Forward: x, freq
+// (S,), phase (nin, S), w (S, nin, nout) as kanvit_sinekan_fwd's; y (n,
+// nout); wsplit scratch of ceil(nin / 32) * S * npad * 64 words (npad: nout
+// rounded up to 384), 16-byte aligned.
+extern "C" int kanvit_sinekan_tc_fwd(const float* x, long long ldx,
+                                     const float* freq, const float* phase,
+                                     const float* w, float* y,
+                                     unsigned int* wsplit, int n, int nin,
+                                     int nout, int grid_size, void* stream) {
+  return launch_tc_fwd<SineTc>(x, ldx, {freq, phase, grid_size}, w, y, wsplit, n,
+                               nin, nout, (cudaStream_t)stream);
+}
+
+// Backward: dx (n, nin) or null from the CUDA-core dx kernel (no dfreq
+// there); dw (S, nin, nout) and dfreq (S,) from the tensor-core dW kernel
+// and its D route, with gysplit scratch of ceil(n / 32) * npad * 64 words
+// (16-byte aligned) and dfreq_part of ceil(nin / 48) * (npad / 192) * S
+// floats, summed per slice in a fixed order.
+extern "C" int kanvit_sinekan_tc_bwd(const float* x, long long ldx,
+                                     const float* freq, const float* phase,
+                                     const float* w, const float* gy, float* dx,
+                                     float* dw, float* dfreq,
+                                     unsigned int* gysplit, float* dfreq_part,
+                                     int n, int nin, int nout, int grid_size,
+                                     void* stream) {
+  if (bad_shape(n, 1, nin, nout) || grid_size <= 0 || dw == nullptr ||
+      dfreq == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const SineTc::Params p{freq, phase, grid_size};
+  if (dx != nullptr) {
+    const int err = launch_dx<Sine>(x, ldx, {freq, phase, grid_size}, w, gy, dx,
+                                    nullptr, 0, nullptr, n, 1, nin, nout, st);
+    if (err != 0) return err;
+  }
+  int err = launch_tc_dw<SineTc>(x, ldx, p, w, gy, dw, gysplit, dfreq_part, n, nin,
+                                 nout, st);
+  if (err != 0) return err;
+  const int blocks = cdiv(nin, tc::DW_F) * (tc_npad<SineTc, true>(nout) / Tile<SineTc, true>::BN);
+  sum_blocks_kernel<<<dim3(grid_size, 1), RED_THREADS, 0, st>>>(dfreq_part, dfreq,
+                                                                 blocks, grid_size);
+  return (int)cudaGetLastError();
 }

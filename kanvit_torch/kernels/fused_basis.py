@@ -21,6 +21,12 @@ RBF with its LayerNorm, sine):
 - :func:`sinekan_qkv_grouped` — one SineKAN q, k or v projection of every
   head in one launch, a freq per head.
 
+:func:`fourierkan` and :func:`sinekan` run their forward and weight gradient
+(sine's dfreq with it) on the tensor cores instead (``csrc/kan_basis_tc.cuh``,
+3xTF32 ``mma.sync`` over a basis generated on chip), their dx on the
+CUDA-core template; :func:`sinekan_qkv_grouped` keeps the CUDA-core kernels.
+The route is chosen by call site, never by size.
+
 Dispatch is by device (``kanvit_torch.ops.dispatch``): a CPU tensor runs the
 plain version in ``kanvit_torch.ops.kan_bases`` and autograd differentiates
 it; a CUDA tensor goes through :class:`_KanFn`, :class:`_RbfFn` or
@@ -53,7 +59,6 @@ SPLINE_ORDER = 3
 N_SPLINE = KNOTS - SPLINE_ORDER - 1  # 8 spline bases
 N_SLICES = N_SPLINE + 1              # + the silu slice
 CHEBY_DEGREE = 4
-FOURIER_CHUNK = 4                    # harmonics per slice chunk, as in the kernel
 RBF_GRIDS = 8                        # RBF centres, as the kernel is built
 SINE_CHUNK = 4                       # sine slices per chunk, as in the kernel
 MAX_ROW_TILES = 65535                # the kernel's grid.y limit, 64 rows each
@@ -71,6 +76,15 @@ DW_MIN_ROWS_PER_SPLIT = 128
 DW_TILE = (8, 64)  # (features, outputs) per dW block, as in the kernel
 DX_TILE = (64, 16)  # (rows, features) per dx block, as in the kernel
 LN_ROWS_PER_SPLIT = 64  # rows per partial of the LayerNorm's dgamma, dbeta
+# The tensor-core kernels' tiles (csrc/kan_basis_tc.cuh): rows and outputs
+# of C a block (the sine forward's 48 x 384), contracted entries a stage,
+# features of a dW block and of a forward stage (Fourier: 16 features' cos
+# and sin; sine: 32 features' sin).
+TC_OUTS, TC_STAGE, TC_DW_FEATURES = 192, 32, 48
+TC_SINE_FWD_ROWS, TC_SINE_FWD_OUTS = 48, 384
+TC_FWD_FEATURES = {"fourier": 16, "sine": 32}
+# The call sites on the tensor-core kernels (the rest: the CUDA-core ones).
+TC_ROUTES = ("fourierkan", "sinekan")
 
 
 def reset_launches() -> None:
@@ -145,10 +159,7 @@ def pack_sine_qkv_weight(amps):
 
 
 def _chunks(family: str, aux) -> int:
-    """Slice chunks the kernels walk (Fourier: 4 harmonics a chunk; sine:
-    4 slices a chunk)."""
-    if family == "fourier":
-        return -(-aux // FOURIER_CHUNK)
+    """Slice chunks the CUDA-core dW kernel walks (sine: 4 slices a chunk)."""
     return -(-aux // SINE_CHUNK) if family == "sine" else 1
 
 
@@ -214,16 +225,28 @@ def check_cheby_args(x2d: torch.Tensor, w: torch.Tensor, degree: int) -> None:
     _check_common(x2d, w, CHEBY_DEGREE + 1)
 
 
+def _check_tc(x2d: torch.Tensor, w: torch.Tensor, harmonics: int) -> None:
+    """The tensor-core kernels' limits: one group, a forward launch grid of
+    (rows / 48, the sine forward's tile) and a dW grid of (features / 48) x
+    ``harmonics`` (Fourier's harmonics, sine's slices) within 65535."""
+    groups, _, nin, _ = w.shape
+    if groups != 1:
+        raise ValueError(f"the tensor-core kernels take one group, got {groups}")
+    if -(-x2d.shape[0] // TC_SINE_FWD_ROWS) > 65535:
+        raise ValueError(f"{x2d.shape[0]} rows exceed the forward kernel's launch grid")
+    if -(-nin // TC_DW_FEATURES) * harmonics > 65535:
+        raise ValueError(f"{nin} features x {harmonics} harmonics exceed the dW "
+                         "kernel's launch grid")
+
+
 def check_fourier_args(x2d: torch.Tensor, w: torch.Tensor, grid_size: int) -> None:
-    """Raise on anything the Fourier kernel does not take (device aside):
-    ``w (G, 2*grid_size, nin, out)`` contiguous, f32, and a dW launch grid
-    of (features / 8) x (grid_size / 4) blocks within 65535."""
+    """Raise on anything the Fourier kernels do not take (device aside):
+    ``w (1, 2*grid_size, nin, out)`` contiguous, f32, within the
+    tensor-core kernels' launch grids."""
     if grid_size < 1:
         raise ValueError(f"grid size must be >= 1, got {grid_size}")
     _check_common(x2d, w, 2 * grid_size)
-    if -(-w.shape[2] // DW_TILE[0]) * _chunks("fourier", grid_size) > 65535:
-        raise ValueError(f"{w.shape[2]} features x grid size {grid_size} exceed "
-                         "the dW kernel's launch grid")
+    _check_tc(x2d, w, grid_size)
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -254,11 +277,11 @@ def check_rbf_args(x2d, w, gamma, beta, grid) -> None:
             _check_f32(name, t, tuple(w.shape[:1]) + tuple(w.shape[2:3]))
 
 
-def check_sine_args(x2d, w, freq2d, phase) -> None:
+def check_sine_args(x2d, w, freq2d, phase, tc: bool = False) -> None:
     """Raise on anything the sine kernels do not take (device aside): ``w
     (G, S, nin, out)``, ``freq2d (G, S)``, ``phase (nin, S)``, all f32 and
     contiguous, and a dW launch grid of (features / 8) x (S / 4) blocks
-    within 65535."""
+    within 65535; ``tc``: the tensor-core kernels' limits too."""
     if w.dim() != 4 or w.shape[1] < 1:
         raise ValueError(f"packed weight must be (G, S, nin, out), got "
                          f"{tuple(w.shape)}")
@@ -269,6 +292,8 @@ def check_sine_args(x2d, w, freq2d, phase) -> None:
     if -(-nin // DW_TILE[0]) * _chunks("sine", slices) > 65535:
         raise ValueError(f"{nin} features x grid size {slices} exceed the dW "
                          "kernel's launch grid")
+    if tc:
+        _check_tc(x2d, w, slices)
 
 
 def _check(family: str, x2d, w, aux) -> None:
@@ -314,8 +339,30 @@ def _dw_scratch(n, w, family, aux, dev):
     return splits, (_empty(splits, *w.shape, device=dev) if splits > 1 else None)
 
 
+def _tc_split(stages: int, nout: int, dev, outs: int = TC_OUTS) -> torch.Tensor:
+    """Scratch for a tensor-core B operand split into TF32 words: ``stages``
+    stages of ``TC_STAGE`` entries x ``nout`` rounded up to the tile's
+    ``outs`` columns, two words a value."""
+    npad = -(-nout // outs) * outs
+    return torch.empty(stages * npad * 2 * TC_STAGE, dtype=torch.int32, device=dev)
+
+
+def _tc_fwd_stages(family: str, nin: int, slices_per_feature: int) -> int:
+    """Stages of a tensor-core forward: ``nin`` in chunks of the family's
+    features, one harmonic (Fourier) or slice (sine) a stage."""
+    return -(-nin // TC_FWD_FEATURES[family]) * slices_per_feature
+
+
 def _tensors(family: str, x2d, w, aux, *more):
     return (x2d, w, *more, *((aux,) if family == "bspline" else ()))
+
+
+def _counted(name: str, err: int, *outputs):
+    """Raise on a failed launch, else count it and return ``outputs``."""
+    if err != 0:
+        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
+    LAUNCHES[name] += 1
+    return outputs
 
 
 def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
@@ -346,12 +393,11 @@ def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
             err = lib.kanvit_chebykan_fwd(*args, w.data_ptr(), y.data_ptr(),
                                           *shape, stream)
         else:
+            wsplit = _tc_split(_tc_fwd_stages("fourier", nin, aux), out, x2d.device)
             err = lib.kanvit_fourierkan_fwd(*args, w.data_ptr(), y.data_ptr(),
-                                            *shape, aux, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    return y
+                                            wsplit.data_ptr(), n, nin, out, aux,
+                                            stream)
+    return _counted(name, err, y)[0]
 
 
 def dw_splits(n: int, groups: int, nin: int, out: int, n_sm: int,
@@ -382,26 +428,27 @@ def _launch_bwd(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
         return dx, (None if dw is None else dw.zero_())
     from kanvit_torch.kernels import _build
 
-    splits, part = _dw_scratch(n, w, family, aux, dev) if need_dw else (1, None)
     lib = _build.load()
     args = (x2d.data_ptr(), x2d.stride(0))
-    grads = (gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), n, groups, nin, out)
     with torch.cuda.device(dev):
         stream = _stream(dev)
+        if family == "fourier":
+            gysplit = _tc_split(-(-n // TC_STAGE), out, dev) if need_dw else None
+            err = lib.kanvit_fourierkan_bwd(*args, w.data_ptr(), gy.data_ptr(),
+                                            _ptr(dx), _ptr(dw), _ptr(gysplit), n,
+                                            nin, out, aux, stream)
+            return _counted(name, err, dx, dw)
+        splits, part = (_dw_scratch(n, w, family, aux, dev) if need_dw
+                        else (1, None))
+        grads = (gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), n, groups, nin, out)
         if family == "bspline":
             gridt, gstride = _knot_rows(aux)
             err = lib.kanvit_bspline_kan_bwd(*args, gridt.data_ptr(), gstride,
                                              w.data_ptr(), *grads, splits, stream)
-        elif family == "cheby":
+        else:
             err = lib.kanvit_chebykan_bwd(*args, w.data_ptr(), *grads, splits,
                                           stream)
-        else:
-            err = lib.kanvit_fourierkan_bwd(*args, w.data_ptr(), *grads, aux,
-                                            splits, stream)
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    return dx, dw
+    return _counted(name, err, dx, dw)
 
 
 class _KanFn(torch.autograd.Function):
@@ -540,10 +587,7 @@ def _launch_rbf(name: str, x2d, w, gamma, beta, grid, denominator: float):
             x2d.data_ptr(), x2d.stride(0), _ptr(gamma), _ptr(beta),
             grid.data_ptr(), 1.0 / denominator, w.data_ptr(), y.data_ptr(),
             _ptr(stats), n, groups, nin, out, slices - RBF_GRIDS, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    return y, stats
+    return _counted(name, err, y, stats)
 
 
 def _launch_rbf_bwd(name: str, x2d, w, gamma, beta, grid, denominator: float,
@@ -579,10 +623,7 @@ def _launch_rbf_bwd(name: str, x2d, w, gamma, beta, grid, denominator: float,
             gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), _ptr(dln), _ptr(dgb),
             _ptr(dgb_part), n, groups, nin, out, slices - RBF_GRIDS, splits,
             ln_splits, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    return dx, dw, *((None, None) if dgb is None else dgb)
+    return _counted(name, err, dx, dw, *((None, None) if dgb is None else dgb))
 
 
 class _RbfFn(torch.autograd.Function):
@@ -659,8 +700,10 @@ def fastkan_qkv_grouped(x2d, ln_gamma, ln_beta, rbf_grid, rbf_denominator,
 
 
 def _launch_sine(name: str, x2d, w, freq2d, phase) -> torch.Tensor:
-    """``y (N, G*out)`` from the sine forward kernel."""
-    check_sine_args(x2d, w, freq2d, phase)
+    """``y (N, G*out)`` from the sine forward kernel: the tensor-core one
+    for ``sinekan``, the CUDA-core one for the grouped q/k/v."""
+    tc = name in TC_ROUTES
+    check_sine_args(x2d, w, freq2d, phase, tc)
     _check_device(name, x2d, w, freq2d, phase)
     n = x2d.shape[0]
     groups, slices, nin, out = w.shape
@@ -670,35 +713,51 @@ def _launch_sine(name: str, x2d, w, freq2d, phase) -> torch.Tensor:
     from kanvit_torch.kernels import _build
 
     lib = _build.load()
+    args = (x2d.data_ptr(), x2d.stride(0), freq2d.data_ptr(), phase.data_ptr(),
+            w.data_ptr(), y.data_ptr())
     with torch.cuda.device(x2d.device):
-        err = lib.kanvit_sinekan_fwd(
-            x2d.data_ptr(), x2d.stride(0), freq2d.data_ptr(), phase.data_ptr(),
-            w.data_ptr(), y.data_ptr(), n, groups, nin, out, slices,
-            _stream(x2d.device))
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    return y
+        stream = _stream(x2d.device)
+        if tc:
+            wsplit = _tc_split(_tc_fwd_stages("sine", nin, slices), out, x2d.device,
+                               TC_SINE_FWD_OUTS)
+            err = lib.kanvit_sinekan_tc_fwd(*args, wsplit.data_ptr(), n, nin, out,
+                                            slices, stream)
+        else:
+            err = lib.kanvit_sinekan_fwd(*args, n, groups, nin, out, slices, stream)
+    return _counted(name, err, y)[0]
 
 
 def _launch_sine_bwd(name: str, x2d, w, freq2d, phase, gy, need_dx: bool,
                      need_dw: bool):
     """``(dx or None, dw or None, dfreq (G, S))`` from the sine backward
-    kernels: the dx kernel (writing no dx unless asked) with its dfreq
-    sums, and dW."""
-    check_sine_args(x2d, w, freq2d, phase)
+    kernels. ``sinekan``: dx (if asked) from the CUDA-core dx kernel, dW and
+    dfreq (its D route) from the tensor-core dW kernel, which runs even when
+    dW is not asked. The grouped q/k/v: the dx kernel (writing no dx unless
+    asked) with its dfreq sums, and dW."""
+    tc = name[:-len("_bwd")] in TC_ROUTES
+    check_sine_args(x2d, w, freq2d, phase, tc)
     _check_device(name, x2d, w, freq2d, phase, gy)
     n = x2d.shape[0]
     groups, slices, nin, out = w.shape
     gy = _check_gy(name, gy, (n, groups * out))
     dev = x2d.device
     dx = _empty(n, groups * nin, device=dev) if need_dx else None
-    dw = torch.empty_like(w) if need_dw else None
+    dw = torch.empty_like(w) if need_dw or tc else None
     dfreq = _empty(groups, slices, device=dev)
     if n == 0:
-        return dx, None if dw is None else dw.zero_(), dfreq.zero_()
+        return dx, None if not need_dw else dw.zero_(), dfreq.zero_()
     from kanvit_torch.kernels import _build
 
+    if tc:
+        gysplit = _tc_split(-(-n // TC_STAGE), out, dev)
+        part = _empty(-(-nin // TC_DW_FEATURES) * -(-out // TC_OUTS), slices, device=dev)
+        with torch.cuda.device(dev):
+            err = _build.load().kanvit_sinekan_tc_bwd(
+                x2d.data_ptr(), x2d.stride(0), freq2d.data_ptr(), phase.data_ptr(),
+                w.data_ptr(), gy.data_ptr(), _ptr(dx), dw.data_ptr(),
+                dfreq.data_ptr(), gysplit.data_ptr(), part.data_ptr(), n, nin, out,
+                slices, _stream(dev))
+        return _counted(name, err, dx, dw if need_dw else None, dfreq)
     splits, part = (_dw_scratch(n, w, "sine", slices, dev) if need_dw
                     else (1, None))
     blocks = -(-nin // DX_TILE[1]) * -(-n // DX_TILE[0])
@@ -710,10 +769,7 @@ def _launch_sine_bwd(name: str, x2d, w, freq2d, phase, gy, need_dx: bool,
             w.data_ptr(), gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part),
             dfreq.data_ptr(), dfreq_part.data_ptr(), n, groups, nin, out, slices,
             splits, _stream(dev))
-    if err != 0:
-        raise RuntimeError(f"{name}: kernel launch failed with CUDA error {err}")
-    LAUNCHES[name] += 1
-    return dx, dw, dfreq
+    return _counted(name, err, dx, dw, dfreq)
 
 
 class _SineFn(torch.autograd.Function):

@@ -775,6 +775,76 @@ def test_rbf_sine_kernels_raise_not_fall_back(cuda):
     assert sum(FB.LAUNCHES.values()) == 0
 
 
+# --- the Fourier and sine embedders on the tensor cores ----------------------
+
+def _tc_case(family, rng, n, nin, nout, grid_size, cuda):
+    """(kernel wrapper, plain version, inputs, gradient) of ``fourierkan`` or
+    ``sinekan``: the tensor-core forward and dW (sine's dfreq with it)."""
+    g = _param(rng, (n, nout), 1.0).to(cuda)
+    bias = _param(rng, (1, nout), 0.1).to(cuda)
+    if family == "fourier":
+        co = _param(rng, (2, nout, nin, grid_size), 1.0 / np.sqrt(nin * grid_size))
+        return (FB.fourierkan, K.fourierkan_forward,
+                [_fourier_x(rng, (n, nin)).to(cuda), co.to(cuda), bias], g)
+    phase = K.sinekan_phase_init(nin, grid_size).to(cuda)
+    freq = (torch.arange(1, grid_size + 1) / (grid_size + 1)).to(cuda)
+    amps = _param(rng, (nout, nin, grid_size), 1.0 / nout).to(cuda)
+    return (lambda x, f, a, b: FB.sinekan(x, f, phase, a, b),
+            lambda x, f, a, b: K.sinekan_forward(x, f, phase, a, b),
+            [_sine_x(rng, (n, nin)).to(cuda), freq, amps, bias], g)
+
+
+@pytest.mark.parametrize("family", ["fourier", "sine"])
+@pytest.mark.parametrize("n,nin,nout,grid_size", [
+    (97, 13, 200, 5),     # ragged rows, nin not a multiple of 8, two output tiles
+    (2000, 100, 70, 7),   # 49 forward stages and 63 dW stages: two-level sums
+    (33, 3, 1, 1)])
+def test_tc_embedder_kernels(cuda, family, n, nin, nout, grid_size):
+    """Forward and every gradient against the plain version, and the
+    training step's backward (no dx) against it too, with the
+    all-gradients route's bits."""
+    rng = np.random.default_rng(71 + nin)
+    kernel, plain, inputs, g = _tc_case(family, rng, n, nin, nout, grid_size, cuda)
+    y, got = _grads(kernel, inputs, g)
+    ref, want = _grads(plain, inputs, g)
+    _close(y, ref, 1e-4)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    leaves = [t.detach().clone().requires_grad_(i > 0) for i, t in enumerate(inputs)]
+    step = torch.autograd.grad(kernel(*leaves), leaves[1:], g)
+    assert all(torch.equal(a, b) for a, b in zip(step, got[1:]))
+    name = "fourierkan" if family == "fourier" else "sinekan"
+    assert FB.LAUNCHES[name] == 2 and FB.LAUNCHES[f"{name}_bwd"] == 2
+
+
+@pytest.mark.parametrize("family", ["fourier", "sine"])
+def test_tc_embedder_backward_repeats_its_bits(cuda, family):
+    """dW and dfreq: no atomics, per-block partials summed in a fixed order."""
+    rng = np.random.default_rng(72)
+    kernel, _, inputs, g = _tc_case(family, rng, 12544, 96, 48, 28, cuda)
+    _, first = _grads(kernel, inputs, g)
+    _, second = _grads(kernel, inputs, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+
+
+def test_tc_embedder_kernels_raise_not_fall_back(cuda):
+    """A grouped weight or a dW grid past 65535 blocks is refused before
+    any launch, never computed by the plain version."""
+    x = torch.zeros(4, 32, device=cuda)
+    with pytest.raises(ValueError, match="one group"):
+        FB._launch("fourierkan", "fourier", x, torch.zeros(2, 10, 16, 4, device=cuda), 5)
+    with pytest.raises(ValueError, match="one group"):
+        FB._launch_sine("sinekan", x, torch.zeros(2, 4, 16, 4, device=cuda),
+                        torch.zeros(2, 4, device=cuda), torch.zeros(16, 4, device=cuda))
+    nin = FB.TC_DW_FEATURES * 2000 + 1
+    x = torch.zeros(2, nin, device=cuda)
+    with pytest.raises(ValueError, match="dW kernel's launch grid"):
+        FB._launch_bwd("fourierkan_bwd", "fourier", x,
+                       torch.zeros(1, 2 * 33, nin, 1, device=cuda), 33,
+                       torch.zeros(2, 1, device=cuda), False, True)
+    assert sum(FB.LAUNCHES.values()) == 0
+
+
 # --- head dims 8-128, refit grids, the fused FF and int8 serving --------------
 
 @pytest.fixture

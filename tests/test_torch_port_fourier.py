@@ -182,7 +182,7 @@ def test_fourier_kernel_arg_checks(bad, err, match):
     elif bad == "wstrided":
         w = torch.zeros(1, 10, 4, 16).transpose(2, 3)
     elif bad == "features":
-        nin = FB.DW_TILE[0] * 65535 + 1
+        nin = FB.TC_DW_FEATURES * 65535 + 1
         x, w, grid_size = torch.zeros(2, nin), torch.zeros(1, 2, nin, 1), 1
     with pytest.raises(err, match=match):
         FB.check_fourier_args(x, w, grid_size)
