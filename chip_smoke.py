@@ -14,8 +14,9 @@ Phases, in order; any failure raises, so the script exits non-zero:
    process per source, all started together), with each kernel's registers
    and spills and the SASS instruction mix of the tensor-core kernels: the
    lanes and the tiled attention's at dh 64, the fused FF's at D 384 and
-   the Fourier and sine forward and dW kernels (HMMA against the rest,
-   cuobjdump; a report, not a gate);
+   its tiled route's first product, the Fourier and sine forward and dW
+   kernels and the grouped B-spline q/k/v backward's dW and dx (HMMA
+   against the rest, cuobjdump; a report, not a gate);
 3. each forward kernel against its plain PyTorch version on the card, at
    the vit-s path's shapes (batch 64) and at a ragged narrow shape, with
    error and time (CUDA events) of both; the grouped q/k/v also at nin 8
@@ -30,7 +31,10 @@ Phases, in order; any failure raises, so the script exits non-zero:
 4. each backward kernel against autograd through its plain version on the
    card, at the same shapes (the attention also causal, masked and with a
    fully masked row), with error and time of both, the backward's bits
-   repeated for the grouped q/k/v and the lanes attention;
+   repeated for the grouped q/k/v and the lanes attention; the grouped
+   q/k/v backward (dx and dW on the tensor cores, 3xTF32) also no further
+   from f64 than twice the plain f32 version, with its kernels' device time
+   and the CUDA-core kernels' time on the same operands beside it;
 5. the tiled attention's forward, dq and dk/dv kernels against
    ``flash_attention_reference`` and autograd through it, at the causal
    decoder's shapes (B 16, H 4, T 2048 and B 4, H 4, T 8192, dh 64) and at
@@ -65,10 +69,13 @@ Phases, in order; any failure raises, so the script exits non-zero:
 8. the fused pre-LN FF (``ffn_pre_ln``, forward and backward) and the W8A8
    ``int8_linear`` against their plain versions and autograd through them:
    at vit-s (12,608 rows, D 384, F 1,536; the embedder and both FF
-   Linears) and ragged shapes (odd N, D 100), ``int8_linear`` within
+   Linears) and ragged shapes (odd N, D 100), the FF also past D 512 (its
+   tiled route) at vit-b's and vit-l's widths (D 768, F 3,072; D 1,024, F
+   4,096) at vit-s's rows and at D 2,048, each forward also against f64 on
+   the card, ``int8_linear`` within
    kanvit's tie-aware bound with the count of elements that differ at all,
    the FF's ReLU pattern held to the plain version's up to rounding,
-   the FF forward at vit-s also against f64 on the card (within 1e-6 x
+   the FF forwards also against f64 on the card (within 1e-6 x
    max(1, max|y|)), and ``int8_linear`` at the TPU probe's (n, 768) x
    (768, 3072); the backward's bits repeated; times of the kernels (CUDA
    events, and the FF's by its kernels' device time), the plain versions
@@ -280,6 +287,8 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
                 "flash_dq_tcILi64", "flash_dkv_tcILi64", "ffn_fwd_tcILi3",
                 "ffn_bwd_hidden_tc", "ffn_bwd_dx_tcILi3", "ffn_dw_tc",
+                ("ffn_gemm_tcILi0",), ("kan_tc_dw_grouped", "Bspline"),
+                ("kan_tc_dx_kernel", "Bspline"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
                 ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"))
 
@@ -777,6 +786,12 @@ def check_bspline_bwd(torch, rng, n, nin, nout, label):
 
 
 def check_qkv_bwd(torch, rng, n, heads, dh, label, per_head=False):
+    """The grouped q/k/v backward (dx and dW on the tensor cores, 3xTF32)
+    against autograd through the plain version, every gradient no further
+    from f64 than twice the plain f32 version, the bits of a second
+    backward; CUDA-event and device times of the kernels beside the
+    CUDA-core kernels they replace (``kanvit_bspline_kan_bwd`` on the same
+    grouped operands), the plain version, and the 3xTF32 and f32 bounds."""
     from kanvit_torch.kernels import fused_basis as FB
 
     x, (grid, *weights), plain = qkv_case(torch, rng, n, heads, dh, per_head)
@@ -784,25 +799,41 @@ def check_qkv_bwd(torch, rng, n, heads, dh, label, per_head=False):
     g = torch.from_numpy(rng.standard_normal((n, heads * out))
                          .astype(np.float32)).cuda()
     inputs = [x, *(w.detach() for w in weights)]
+    names = ("x", "bw", "sw", "sc")
+    tag = f"bspline_qkv_grouped_bwd {label} N={n} H={heads} dh={dh} out={out}"
     _, _, got = grads_of(torch, lambda *a: FB.bspline_qkv_grouped(a[0], grid, *a[1:]),
                          inputs, g)
     leaves, y, want = grads_of(torch, plain, inputs, g)
     _, _, again = grads_of(torch, lambda *a: FB.bspline_qkv_grouped(a[0], grid, *a[1:]),
                            inputs, g)
     torch.cuda.synchronize()
-    err = compare_grads(f"bspline_qkv_grouped_bwd {label} N={n} H={heads} dh={dh} "
-                        f"out={out} grid {tuple(grid.shape)}",
-                        ("x", "bw", "sw", "sc"), got, want)
+    err = compare_grads(f"{tag} grid {tuple(grid.shape)}", names, got, want)
     check(all(torch.equal(a, b) for a, b in zip(got, again)),
           f"bspline_qkv_grouped_bwd {label}: a second backward gave other bits")
+    _, _, want64 = grads_of(torch, lambda *a: plain(*a).double(),
+                            [a.double() for a in inputs], g.double())
+    f64 = {f"f64_err_d{nm}": f64_gate(f"{tag} d{nm}", a, b, c)
+           for nm, a, b, c in zip(names, got, want, want64)}
+    del want64
     w = FB.pack_qkv_weight(*inputs[1:]).contiguous()
-    ms = time_ms(torch, lambda: FB._launch_bwd("bspline_qkv_grouped_bwd", "bspline",
-                                               x, w, grid, g, True, True))
+
+    def kernels():
+        return FB._launch_bwd("bspline_qkv_grouped_bwd", "bspline", x, w, grid, g, True,
+                              True)
+
+    def cuda_cores():  # the CUDA-core kernels the route replaces
+        return FB._launch_bwd("bspline_kan_bwd", "bspline", x, w, grid, g, True, True)
+
+    ms = time_ms(torch, kernels)
+    dev_ms = kernel_ms(torch, kernels, 10, label=tag)
+    core_ms = time_ms(torch, cuda_cores)
     plain_ms = time_ms(torch, lambda: torch.autograd.grad(y, leaves, g,
                                                           retain_graph=True))
-    print(f"[kernel] bspline_qkv_grouped_bwd {label}: kernel {ms:.4f} ms  "
-          f"plain autograd {plain_ms:.4f} ms  (bits repeated)")
-    return err, ms, plain_ms, kan_bound(n, heads, 9, dh, out, True)
+    bounds = kan_bound(n, heads, 9, dh, out, True, tensor_cores=True)
+    print(f"[kernel] {tag}: kernels {ms:.4f} ms (device {dev_ms:.4f}; the CUDA-core "
+          f"kernels {core_ms:.4f})  plain autograd {plain_ms:.4f} ms  bound 3xTF32 "
+          f"{bounds['bound_ms']:.4f}, f32 {bounds['f32_bound_ms']:.4f}  (bits repeated)")
+    return err, ms, plain_ms, {**f64, "device_ms": dev_ms, "cuda_core_ms": core_ms}, bounds
 
 
 def check_attention_bwd(torch, rng, b, t, heads, dh, label, cases):
@@ -1718,6 +1749,13 @@ def phase_ffn_int8_kernels(torch, smi):
     n = BATCH * 197
     results["ffn_pre_ln"], results["ffn_pre_ln_bwd"] = check_ffn(
         torch, rng, n, 384, 1536, "vit-s", f64=True)
+    # past D 512, the tiled route: vit-b's and vit-l's widths at vit-s's rows,
+    # and a D past every preset
+    for key, d, f, rows in (("vit_b_widths", 768, 3072, n), ("vit_l_widths", 1024, 4096, n),
+                            ("d_2048", 2048, 256, 1000)):
+        fwd, bwd = check_ffn(torch, rng, rows, d, f, key.replace("_", "-"), f64=True)
+        results["ffn_pre_ln"] += ({key: sub_entry(fwd)},)
+        results["ffn_pre_ln_bwd"] += ({key: sub_entry(bwd)},)
     # the FF kernels beside what their instruction, mma.sync, reaches here
     rate = mma_sync_rate(torch, smi)
     for name, products in (("ffn_pre_ln", 4.0), ("ffn_pre_ln_bwd", 10.0)):
@@ -2120,6 +2158,8 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
 KAN_FAMILIES = ("Bspline", "Cheby", "Fourier", "Rbf", "Sine")
 KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
+    ("KAN q/k/v bwd on the tensor cores (B-spline: dW, dx)",
+     ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
      ("kan_tc_kernel", "kan_tc_split")),
     ("KAN basis bwd", ("kan_dx_kernel", "kan_dw_kernel", "sum_splits_kernel",
@@ -2130,9 +2170,10 @@ KERNEL_GROUPS = (
     ("tiled attention fwd", ("flash_fwd_",)),
     ("tiled attention dq", ("flash_dq_",)),
     ("tiled attention dk/dv", ("flash_dkv_",)),
-    ("fused FF fwd", ("ffn_fwd_tc",)),
+    ("fused FF fwd", ("ffn_fwd_tc", "ffn_gemm_tc<0>", "ffn_gemm_tc<1>", "ffn_split_rows")),
     ("fused FF bwd", ("ffn_ln_rows", "ffn_split_weights", "ffn_bwd_hidden_tc",
-                      "ffn_bwd_dx_tc", "ffn_dw_tc", "ffn_sum_parts_kernel")),
+                      "ffn_bwd_dx_tc", "ffn_dw_tc", "ffn_sum_parts_kernel",
+                      "ffn_gemm_tc<2>", "ffn_dx_rows")),
     ("int8 linear", ("int8_linear_kernel",)),
     ("GEMM (cuBLAS; torch._int_mm)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
     ("Adam", ("multi_tensor", "adam", "Adam")),
@@ -2551,7 +2592,7 @@ SOURCES = {
     "flash_attention_lanes": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
                               "kanvit/kernels/flash_attention.py:571"),
     "bspline_kan_bwd": (KAN_SRC, f"{FB_PY}:1159"),
-    "bspline_qkv_grouped_bwd": (KAN_SRC, f"{FB_PY}:1278"),
+    "bspline_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:1278"),
     "flash_attention_lanes_bwd": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
                                   "kanvit/kernels/flash_attention.py:604"),
     "flash_attention": ("kanvit_torch/kernels/csrc/flash_attention.cu",
@@ -2607,6 +2648,11 @@ TC_FWD = "3xTF32 mma.sync.m16n8k8 over a basis generated on chip (kan_tc_kernel<
 TC_BWD = ("dW{} on 3xTF32 mma.sync.m16n8k8 (kan_tc_kernel<{}, true>); dx, where "
           "asked, on the CUDA-core kan_dx_kernel")
 ROUTES = {
+    "bspline_qkv_grouped_bwd": {
+        "kernel": "dW and dx on 3xTF32 mma.sync.m16n8k8: kan_tc_dw_grouped<Bspline, NJ> "
+                  "over a basis generated on chip, in row splits summed in a fixed order; "
+                  "kan_tc_dx_kernel<Bspline> with B' in its epilogue",
+        "instantiated_in": KAN_SRC},
     "fourierkan": {"kernel": TC_FWD.format("FourierTc"), "instantiated_in": KAN_SRC},
     "fourierkan_bwd": {"kernel": TC_BWD.format("", "FourierTc"),
                        "instantiated_in": KAN_SRC},

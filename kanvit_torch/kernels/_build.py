@@ -36,6 +36,8 @@ SIGNATURES = {
     "kanvit_bspline_kan_bwd": (
         [_p, _i64, _p, _i64, _p, _p, _p, _p, _p, _i32, _i32, _i32, _i32, _i32,
          _p], _i32),
+    "kanvit_bspline_qkv_tc_bwd": (
+        [_p, _i64, _p, _i64, *[_p] * 6, *[_i32] * 5, _p], _i32),
     "kanvit_chebykan_fwd": ([_p, _i64, _p, _p, *[_i32] * 4, _p], _i32),
     "kanvit_chebykan_bwd": (
         [_p, _i64, *[_p] * 5, *[_i32] * 5, _p], _i32),
@@ -50,7 +52,8 @@ SIGNATURES = {
     "kanvit_sinekan_tc_fwd": ([_p, _i64, *[_p] * 5, *[_i32] * 4, _p], _i32),
     "kanvit_sinekan_tc_bwd": ([_p, _i64, *[_p] * 9, *[_i32] * 4, _p], _i32),
     "kanvit_ffn_fwd": ([*[_p] * 9, *[_i32] * 5, _p], _i32),
-    "kanvit_ffn_bwd": ([*[_p] * 25, *[_i32] * 6, _p], _i32),
+    "kanvit_ffn_fwd_wide": ([*[_p] * 14, *[_i32] * 5, _p], _i32),
+    "kanvit_ffn_bwd": ([*[_p] * 26, *[_i32] * 6, _p], _i32),
     "kanvit_tf32_mma_rate": ([_p, _i32, _i32, _p], _i32),
     "kanvit_int8_linear_fwd": ([_p, _i64, *[_p] * 4, *[_i32] * 3, _p], _i32),
     "kanvit_attention_lanes_fwd": (

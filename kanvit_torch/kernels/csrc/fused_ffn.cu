@@ -92,6 +92,25 @@
 // written once and read once or twice (~0.1 ms at 3.35 TB/s beside a 0.45
 // ms bound), the split weights and the split partials (2 x 7 x D F floats).
 //
+// -- Past D 512 (vit-b D 768, vit-l D 1024, any larger D). The forward and
+// dx kernels above hold a 48-row tile's LN (or dln) over all of D in shared
+// memory and registers, which stops at D 512. Past it both run as tiled
+// products that hold no row over all of D:
+//   forward: ffn_ln_rows, W1 and W2 split once (ffn_split_rows), then
+//            ffn_gemm_tc twice: r = relu(LN W1^T + b1) into device memory
+//            (n, F), then y = x + (r W2^T + b2);
+//   backward: as above through the hidden kernel, then ffn_gemm_tc for
+//            dln = dh W1 into device memory (n, D), ffn_dx_rows for dx and
+//            the 48-row blocks' dgamma, dbeta partials, and the same
+//            weight-gradient kernels.
+// ffn_gemm_tc is a 128 x 128 tile of 2 x 4 warps (64 x 32 each), A staged raw
+// and split once a block, B split once a call. The forward's h takes the
+// hidden kernel's split words in the same order, so the forward's ReLU
+// pattern is the backward's. What the route costs beside the products: r
+// (and dln) written once and read once, 310 MB at vit-b (N 12,608, F 3,072),
+// ~0.09 ms at 3.35 TB/s beside a 0.72 ms 3xTF32 forward bound. It has no
+// limit on D or F beyond device memory for the scratch.
+//
 // Rows, D and F past a tile's edge are zero-filled in shared memory. The
 // staged operands (W1, W2, g and the scratch) need 16-byte-aligned rows: the
 // wrapper passes them at pitches ldd = D and ldf = F rounded up to 4, copying
@@ -494,6 +513,21 @@ ffn_ln_rows(const float* __restrict__ x, const float* __restrict__ gamma,
   }
 }
 
+// Unit u of splitting B(k, n) = src[n][k] (a row-major (rows, ld) matrix,
+// k < cols) into bpairs tiles of KS along k by np columns: tile kt at
+// (kt np + n) 2KS; zero outside (rows, cols). A unit is a group's two words
+// along k, k fastest (reads along src's rows).
+__device__ __forceinline__ void split_row_unit(const float* __restrict__ src,
+                                               uint32_t* __restrict__ dst, int rows,
+                                               int cols, int ld, int np, long long u) {
+  const int t = u & 3, s = (u >> 2) % KSTEP;
+  const long long row = u / (4 * KSTEP);  // kt np + n
+  const int n = row % np, k = (int)(row / np) * KS + 8 * s + 2 * t;
+  const float* sr = src + (long long)n * ld;
+  store_b(dst + row * 2 * KS + 16 * (s ^ (n & 1)) + 4 * t,
+          n < rows && k < cols ? sr[k] : 0.f, n < rows && k + 1 < cols ? sr[k + 1] : 0.f);
+}
+
 // W1 and W2 split once for the hidden kernel, as bpairs tiles of BN_H
 // hidden units by KS of D: ws[(kt fp + n) 2KS + ...] holds B(k, n) for k in
 // tile kt of D and hidden unit n < fp (f rounded up to BN_H), W1's B(k, n)
@@ -506,16 +540,9 @@ ffn_split_weights(const float* __restrict__ w1, const float* __restrict__ w2,
                   int dp) {
   const long long units = (long long)((d + KS - 1) / KS) * fp * KSTEP * 4;
   const long long stride = (long long)gridDim.x * blockDim.x;
-  // W1: a group's two words along k, k fastest (reads along W1's rows)
   for (long long u = blockIdx.x * (long long)blockDim.x + threadIdx.x; u < units;
-       u += stride) {
-    const int t = u & 3, s = (u >> 2) % KSTEP;
-    const long long row = u / (4 * KSTEP);  // kt fp + n
-    const int n = row % fp, k = (int)(row / fp) * KS + 8 * s + 2 * t;
-    const float* wr = w1 + (long long)n * ldd;
-    store_b(w1s + row * 2 * KS + 16 * (s ^ (n & 1)) + 4 * t,
-            n < f && k < d ? wr[k] : 0.f, n < f && k + 1 < d ? wr[k + 1] : 0.f);
-  }
+       u += stride)
+    split_row_unit(w1, w1s, f, d, ldd, fp, u);
   // W2: n fastest (reads along W2's rows)
   for (long long u = blockIdx.x * (long long)blockDim.x + threadIdx.x; u < units;
        u += stride) {
@@ -887,6 +914,177 @@ ffn_dw_tc(const float* __restrict__ a, const float* __restrict__ b,
     colsum[(long long)split * m + m0 + threadIdx.x] = cs;
 }
 
+// --- past D 512 ----------------------------------------------------------------
+
+// B(k, n) = src[n][k] split once (split_row_unit): W1 for h as
+// ffn_split_weights splits it, W2 for y.
+__global__ void __launch_bounds__(THREADS)
+ffn_split_rows(const float* __restrict__ src, uint32_t* __restrict__ dst, int rows,
+               int cols, int ld, int np) {
+  const long long units = (long long)((cols + KS - 1) / KS) * np * KSTEP * 4;
+  for (long long u = blockIdx.x * (long long)blockDim.x + threadIdx.x; u < units;
+       u += (long long)gridDim.x * blockDim.x)
+    split_row_unit(src, dst, rows, cols, ld, np, u);
+}
+
+enum { EPI_RELU, EPI_RESID, EPI_RAW };
+
+constexpr int BM_G = 128;                   // rows a block of ffn_gemm_tc
+constexpr int BN_G = 128;                   // columns a block
+constexpr int G_SPLIT = 2 * BM_G * KS;      // A split (afrags)
+constexpr int G_B = 2 * BN_G * KS;          // a stage of B (bpairs)
+constexpr size_t G_SMEM = sizeof(float) * (BM_G * KS + G_SPLIT + 2 * G_B);
+
+// c = a b over k for rows < n, a (n, lda) row-major (16-byte aligned rows,
+// zero past k), b split once (bpairs tiles of KS by np columns). Epilogue:
+//   EPI_RELU:  c (n, ldc) = relu(acc + bias), zero at columns p .. ldc - 1,
+//              and relu_mask (n, p) = acc + bias > 0 where not null;
+//   EPI_RESID: c (n, ldc) = resid + (acc + bias) at columns < p;
+//   EPI_RAW:   c (n, ldc) = acc at columns < ldc.
+template <int EPI>
+__global__ void __launch_bounds__(THREADS, 2)
+ffn_gemm_tc(const float* __restrict__ a, const uint32_t* __restrict__ bs,
+            const float* __restrict__ bias, const float* __restrict__ resid,
+            float* __restrict__ c, unsigned char* __restrict__ relu_mask, int n, int k,
+            int p, int lda, int ldc, int np) {
+  extern __shared__ __align__(16) float sm[];
+  float* raw = sm;  // A (BM_G, KS), swizzled
+  uint32_t* a_s = reinterpret_cast<uint32_t*>(sm + BM_G * KS);
+  uint32_t* b_s = a_s + G_SPLIT;  // 2 stages
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int gq = lane >> 2, t = lane & 3, wm = warp >> 2, wn = warp & 3;
+  const int r0 = blockIdx.y * BM_G, n0 = blockIdx.x * BN_G;
+
+  auto stage = [&](int kt) {
+    stage_rows<BM_G>(raw, a, lda, n, r0, kt * KS);
+    uint32_t* dst = b_s + (kt & 1) * G_B;
+    const long long at = ((long long)kt * np + n0) * 2 * KS;
+#pragma unroll
+    for (int i = 0; i < G_B / 4 / THREADS; ++i) {
+      const int e = 4 * (threadIdx.x + i * THREADS);
+      cp_async16(reinterpret_cast<float*>(dst + e),
+                 reinterpret_cast<const float*>(bs + at + e), true);
+    }
+  };
+
+  float acc[4][4][4];
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  const int kt_n = (k + KS - 1) / KS;
+  stage(0);
+  cp_async_commit();
+  for (int kt = 0; kt < kt_n; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // tile kt landed; the split A words are free
+    split_a_rows<BM_G>(a_s, raw);
+    __syncthreads();  // split words ready; the raw tile is free
+    if (kt + 1 < kt_n) stage(kt + 1);
+    cp_async_commit();
+    const uint32_t* bt = b_s + (kt & 1) * G_B;
+#pragma unroll
+    for (int s8 = 0; s8 < KSTEP; ++s8) {
+      Frag<4> af[4];
+#pragma unroll
+      for (int i = 0; i < 4; ++i) af[i] = a_split(a_s, 4 * wm + i, s8, lane);
+#pragma unroll
+      for (int j = 0; j < 4; ++j) {
+        const Frag<2> bf = b_split(bt, 32 * wn + 8 * j + gq, s8, t);
+#pragma unroll
+        for (int i = 0; i < 4; ++i) mma3(acc[i][j], af[i], bf);
+      }
+    }
+  }
+
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const int col = n0 + 32 * wn + 8 * j + 2 * t;  // even
+    if (col >= (EPI == EPI_RESID ? p : ldc)) continue;
+    float bias0 = 0.f, bias1 = 0.f;
+    if constexpr (EPI != EPI_RAW) {
+      bias0 = col < p ? bias[col] : 0.f;
+      bias1 = col + 1 < p ? bias[col + 1] : 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int hh = 0; hh < 2; ++hh) {
+        const int row = r0 + 64 * wm + 16 * i + 8 * hh + gq;
+        if (row >= n) continue;
+        const float v0 = acc[i][j][2 * hh], v1 = acc[i][j][2 * hh + 1];
+        const long long o = (long long)row * ldc + col;
+        if constexpr (EPI == EPI_RELU) {  // ldc % 4 == 0: col + 1 < ldc
+          const float h0 = v0 + bias0, h1 = v1 + bias1;
+          *reinterpret_cast<float2*>(c + o) = make_float2(fmaxf(h0, 0.f), fmaxf(h1, 0.f));
+          if (relu_mask != nullptr) {
+            const long long m = (long long)row * p + col;
+            if (col < p) relu_mask[m] = h0 > 0.f;
+            if (col + 1 < p) relu_mask[m + 1] = h1 > 0.f;
+          }
+        } else if constexpr (EPI == EPI_RESID) {
+          c[o] = resid[o] + (v0 + bias0);
+          if (col + 1 < p) c[o + 1] = resid[o + 1] + (v1 + bias1);
+        } else {  // ldc % 4 == 0
+          *reinterpret_cast<float2*>(c + o) = make_float2(v0, v1);
+        }
+      }
+  }
+}
+
+// dx and the block's dgamma, dbeta partials dgb_part[block] (2, d) from
+// dln (n, ldd), past D 512: one block per BM rows, as ffn_bwd_dx_tc's. The
+// rows' means of gs = dln gamma and gs xhat, one warp a row, then a thread
+// a column over the block's rows.
+__global__ void __launch_bounds__(THREADS)
+ffn_dx_rows(const float* __restrict__ dln, const float* __restrict__ x,
+            const float* __restrict__ g, const float* __restrict__ gamma,
+            const float* __restrict__ stats, float* __restrict__ dx,
+            float* __restrict__ dgb_part, int n, int d, int ldd) {
+  __shared__ float m1[BM], m2[BM];
+  const int warp = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const int r0 = blockIdx.x * BM;
+  for (int rr = warp; rr < BM; rr += THREADS / 32) {
+    const long long row = r0 + rr;
+    float s1 = 0.f, s2 = 0.f;
+    if (row < n) {
+      const float mean = stats[2 * row], rstd = stats[2 * row + 1];
+      for (int col = lane; col < d; col += 32) {
+        const float gs = dln[row * ldd + col] * gamma[col];
+        s1 += gs;
+        s2 = fmaf(gs, (x[row * d + col] - mean) * rstd, s2);
+      }
+      s1 = warp_sum(s1);
+      s2 = warp_sum(s2);
+    }
+    if (lane == 0) {
+      m1[rr] = s1 / d;
+      m2[rr] = s2 / d;
+    }
+  }
+  __syncthreads();
+  float* part = dgb_part + (long long)blockIdx.x * 2 * d;
+  for (int col = threadIdx.x; col < d; col += THREADS) {
+    const float gm = gamma[col];
+    float pg = 0.f, pb = 0.f;
+    for (int rr = 0; rr < BM && r0 + rr < n; ++rr) {
+      const long long row = r0 + rr;
+      const float mean = stats[2 * row], rstd = stats[2 * row + 1];
+      const float dl = dln[row * ldd + col];
+      const float xh = (x[row * d + col] - mean) * rstd;
+      dx[row * d + col] =
+          g[row * ldd + col] + rstd * (dl * gm - m1[rr] - xh * m2[rr]);
+      pg = fmaf(dl, xh, pg);
+      pb += dl;
+    }
+    part[col] = pg;
+    part[d + col] = pb;
+  }
+}
+
 // out[e] = sum over s < parts of part[s * total + e], in order of s.
 __global__ void ffn_sum_parts_kernel(const float* __restrict__ part,
                                      float* __restrict__ out, long long total,
@@ -964,6 +1162,30 @@ bool bad_layout(const float* w1, const float* w2, int d, int f, int ldd, int ldf
          ((uintptr_t)w1 | (uintptr_t)w2) % 16 != 0;
 }
 
+int split_rows(const float* src, uint32_t* dst, int rows, int cols, int ld, int np,
+               cudaStream_t st) {
+  ffn_split_rows<<<4 * 132, THREADS, 0, st>>>(src, dst, rows, cols, ld, np);
+  return (int)cudaGetLastError();
+}
+
+// ffn_gemm_tc over n rows and np / BN_G column tiles.
+template <int EPI>
+int gemm(const float* a, const uint32_t* bs, const float* bias, const float* resid,
+         float* c, unsigned char* relu_mask, int n, int k, int p, int lda, int ldc,
+         int np, cudaStream_t st) {
+  const int row_tiles = (n + BM_G - 1) / BM_G;
+  if (row_tiles > 65535) return (int)cudaErrorInvalidValue;
+  int err = prepare(ffn_gemm_tc<EPI>, G_SMEM);
+  if (err != 0) return err;
+  ffn_gemm_tc<EPI><<<dim3(np / BN_G, row_tiles), THREADS, G_SMEM, st>>>(
+      a, bs, bias, resid, c, relu_mask, n, k, p, lda, ldc, np);
+  return (int)cudaGetLastError();
+}
+
+constexpr int FUSED_MAX_D = 512;  // D the fused forward and dx kernels take
+
+int round_up(int v, int m) { return (v + m - 1) / m * m; }
+
 }  // namespace
 
 // The D tiers: D <= 128 * jj for the instantiated jj.
@@ -992,18 +1214,47 @@ extern "C" int kanvit_ffn_fwd(const float* x, const float* gamma,
   return (int)cudaErrorInvalidValue;
 }
 
-// Backward of kanvit_ffn_fwd. x (n, d); g (n, ldd), the gradient of y, and
-// w1 (f, ldd), w2 (d, ldf) as the forward takes them; b1 (f), gamma,
-// beta (d). Writes dx (n, d), dgb (2, d) = (dgamma, dbeta), dw1 (f, d),
-// db1 (f), dw2 (d, f), db2 (d). Scratch: ln (n, ldd), stats (n, 2), r and
-// dh (n, ldf), w1s and w2s (ceil(d / 16) * fp * 32 words each, fp = f
-// rounded up to 128), w1d (ceil(f / 16) * dp * 32 words, dp = d rounded up
-// to 128), dgb_part (ceil(n / 48), 2, d); with splits > 1, dw1_part
-// (splits, f, d), db1_part (splits, f), dw2_part (splits, d, f), db2_part
-// (splits, d). All f32, the scratch 16-byte aligned, 1 <= d <= 512,
-// splits >= 1. Launches the LN pass, the hidden, dx and weight-gradient
-// kernels and the fixed-order sums on `stream`; returns cudaGetLastError()
-// (0 on success).
+// Forward past D 512 (any d >= 1): as kanvit_ffn_fwd, through scratch ln
+// (n, ldd), stats (n, 2), r (n, ldf), w1s (ceil(d / 16) * fp * 32 words, fp
+// = f rounded up to 128) and w2s (ceil(f / 16) * dp * 32 words, dp = d
+// rounded up to 128), all 16-byte aligned.
+extern "C" int kanvit_ffn_fwd_wide(const float* x, const float* gamma,
+                                   const float* beta, const float* w1,
+                                   const float* b1, const float* w2,
+                                   const float* b2, float* y,
+                                   unsigned char* relu_mask, float* ln,
+                                   float* stats, float* r, unsigned int* w1s,
+                                   unsigned int* w2s, int n, int d, int f,
+                                   int ldd, int ldf, void* stream) {
+  if (n <= 0 || d <= 0 || f <= 0 || bad_layout(w1, w2, d, f, ldd, ldf) ||
+      ((uintptr_t)ln | (uintptr_t)r | (uintptr_t)w1s | (uintptr_t)w2s) % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int fp = round_up(f, BN_G), dp = round_up(d, BN_G);
+  ffn_ln_rows<<<(n + THREADS / 32 - 1) / (THREADS / 32), THREADS, 0, st>>>(
+      x, gamma, beta, ln, stats, n, d, ldd);
+  int err = (int)cudaGetLastError();
+  if (err == 0) err = split_rows(w1, w1s, f, d, ldd, fp, st);
+  if (err == 0) err = split_rows(w2, w2s, d, f, ldf, dp, st);
+  if (err == 0)
+    err = gemm<EPI_RELU>(ln, w1s, b1, nullptr, r, relu_mask, n, d, f, ldd, ldf, fp, st);
+  if (err == 0)
+    err = gemm<EPI_RESID>(r, w2s, b2, x, y, nullptr, n, f, d, ldf, d, dp, st);
+  return err;
+}
+
+// Backward of kanvit_ffn_fwd and kanvit_ffn_fwd_wide. x (n, d); g (n, ldd),
+// the gradient of y, and w1 (f, ldd), w2 (d, ldf) as the forward takes them;
+// b1 (f), gamma, beta (d). Writes dx (n, d), dgb (2, d) = (dgamma, dbeta),
+// dw1 (f, d), db1 (f), dw2 (d, f), db2 (d). Scratch: ln (n, ldd), stats (n,
+// 2), r and dh (n, ldf), w1s and w2s (ceil(d / 16) * fp * 32 words each, fp
+// = f rounded up to 128), w1d (ceil(f / 16) * dp * 32 words, dp = d rounded
+// up to 128), dgb_part (ceil(n / 48), 2, d); past D 512 also dln (n, ldd)
+// (null at d <= 512); with splits > 1, dw1_part (splits, f, d), db1_part
+// (splits, f), dw2_part (splits, d, f), db2_part (splits, d). All f32, the
+// scratch 16-byte aligned, d >= 1, splits >= 1. Launches the LN pass, the
+// hidden, dx and weight-gradient kernels and the fixed-order sums on
+// `stream`; returns cudaGetLastError() (0 on success).
 extern "C" int kanvit_ffn_bwd(const float* x, const float* g,
                               const float* gamma, const float* beta,
                               const float* w1, const float* w2,
@@ -1012,15 +1263,16 @@ extern "C" int kanvit_ffn_bwd(const float* x, const float* g,
                               float* ln, float* stats, float* r, float* dh,
                               unsigned int* w1s, unsigned int* w2s,
                               unsigned int* w1d,
-                              float* dgb_part, float* dw1_part,
+                              float* dgb_part, float* dln, float* dw1_part,
                               float* db1_part, float* dw2_part,
                               float* db2_part, int n, int d, int f, int ldd,
                               int ldf, int splits, void* stream) {
   const int h_tiles = (f + BN_H - 1) / BN_H;
-  if (n <= 0 || d <= 0 || d > 512 || f <= 0 || splits < 1 || splits > 65535 ||
+  if (n <= 0 || d <= 0 || f <= 0 || splits < 1 || splits > 65535 ||
       h_tiles > 65535 || bad_layout(w1, w2, d, f, ldd, ldf) ||
       ((uintptr_t)g | (uintptr_t)ln | (uintptr_t)r | (uintptr_t)dh |
-       (uintptr_t)w1s | (uintptr_t)w2s | (uintptr_t)w1d) % 16 != 0)
+       (uintptr_t)w1s | (uintptr_t)w2s | (uintptr_t)w1d | (uintptr_t)dln) % 16 != 0 ||
+      (d > FUSED_MAX_D && dln == nullptr))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const int row_blocks = (n + BM - 1) / BM;
@@ -1039,13 +1291,22 @@ extern "C" int kanvit_ffn_bwd(const float* x, const float* g,
       ln, g, w1s, w2s, b1, r, dh, n, d, f, ldd, ldf, fp);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  err = (int)cudaErrorInvalidValue;
+  if (d > FUSED_MAX_D) {
+    err = gemm<EPI_RAW>(dh, w1d, nullptr, nullptr, dln, nullptr, n, f, d, ldf, ldd,
+                        round_up(d, BN_G), st);
+    if (err != 0) return err;
+    ffn_dx_rows<<<row_blocks, THREADS, 0, st>>>(dln, x, g, gamma, stats, dx, dgb_part,
+                                                n, d, ldd);
+    err = (int)cudaGetLastError();
+  } else {
+    err = (int)cudaErrorInvalidValue;
 #define KANVIT_CASE(J)                                                     \
   if (err == (int)cudaErrorInvalidValue && d <= 128 * J)                   \
     err = launch_dx<J>(dh, w1d, x, g, gamma, stats, dx, dgb_part, n, d, f, \
                        ldd, ldf, st);
-  KANVIT_FFN_JJ(KANVIT_CASE)
+    KANVIT_FFN_JJ(KANVIT_CASE)
 #undef KANVIT_CASE
+  }
   if (err != 0) return err;
   err = sum_parts(dgb_part, dgb, 2LL * d, row_blocks, st);
   if (err != 0) return err;

@@ -19,7 +19,9 @@
 //             fourierkan's K-blocked _fused_bwd_kb dx (:2492,
 //             _dx_kernel_kbf), from the VJP of _fourier_op (:3472);
 //             _fused_bwd_sg (:1278), reached from the VJPs of _bspline_op_sg
-//             (:1330) and _cheby_op_sg (:1351).
+//             (:1330) and _cheby_op_sg (:1351); bspline_qkv_grouped's runs
+//             on the tensor cores (kan_basis_tc.cuh, part 2, instantiated
+//             here for Bspline), cheby_qkv_grouped's on the CUDA cores.
 //   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
 //   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
 //   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on
@@ -260,6 +262,21 @@ extern "C" int kanvit_bspline_kan_bwd(const float* x, long long ldx,
                                       int splits, void* stream) {
   return launch_bwd<Bspline>(x, ldx, {gridt, gstride}, w, gy, dx, dw, dw_part,
                              n, groups, nin, nout, splits, stream);
+}
+
+// The grouped q/k/v backward (bspline_qkv_grouped's) on the tensor cores
+// (kan_basis_tc.cuh, part 2): dx and dW as kanvit_bspline_kan_bwd, splits
+// the dW kernel's row splits (at most), with scratch wtsplit
+// (launch_tc_grouped_bwd says its size) and, with splits > 1, dw_part.
+extern "C" int kanvit_bspline_qkv_tc_bwd(const float* x, long long ldx,
+                                         const float* gridt, long long gstride,
+                                         const float* w, const float* gy, float* dx,
+                                         float* dw, float* dw_part, unsigned int* wtsplit,
+                                         int n, int groups, int nin, int nout,
+                                         int splits, void* stream) {
+  return launch_tc_grouped_bwd<Bspline>(x, ldx, {gridt, gstride}, w, gy, dx, dw, dw_part,
+                                        wtsplit, n, groups, nin, nout, splits,
+                                        (cudaStream_t)stream);
 }
 
 // Chebyshev, degree 4: S = 5.

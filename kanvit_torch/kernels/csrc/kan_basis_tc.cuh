@@ -1,8 +1,17 @@
-// The Fourier and sine KAN layers' forward and weight gradient on Hopper's
-// tensor cores: one templated contraction over a basis generated on chip,
+// KAN contractions on Hopper's tensor cores, in two parts.
+//
+// Part 1: the Fourier and sine KAN layers' forward and weight gradient: one
+// templated contraction over a basis generated on chip (kan_tc_kernel),
 // instantiated for Fourier in kan_basis.cu and for sine in kan_rbf_sine.cu.
-// dx stays on kan_basis.cuh's CUDA-core kan_dx_kernel, and the grouped sine
-// q/k/v on its CUDA-core kernels.
+// Their dx stays on kan_basis.cuh's CUDA-core kan_dx_kernel, and the grouped
+// sine q/k/v on its CUDA-core kernels.
+//
+// Part 2 (below, "The grouped q/k/v backward"): dW and dx of a grouped KAN
+// projection, one group a head, templated over kan_basis.cuh's basis
+// families (kan_tc_dw_grouped, kan_tc_dx_kernel); instantiated for B-spline
+// in kan_basis.cu.
+//
+// Part 1:
 //
 //   forward  y[n, o]      = sum_(s,i) B_s(x[n, i]) W[s, i, o]
 //   dW       dW[s, i, o]  = sum_n B_s(x[n, i]) gy[n, o]
@@ -84,6 +93,7 @@
 #include <stdint.h>
 
 #include "attention_tc.cuh"
+#include "kan_basis.cuh"
 
 namespace {
 
@@ -211,18 +221,20 @@ __device__ __forceinline__ int tc_bword(int col, int s, int t) {
 }
 
 // out[(kt npad + col) 2KT + ...]: every stage's B tile, split, for all npad
-// columns. A warp covers 8 columns of one step (reads: 8 rows of 32 bytes;
-// writes: 64 contiguous bytes a column), four warps the stage's 4 steps.
-template <class Src>
+// columns, stages of KTS entries (tc::KT, or the grouped dx's 16). A warp
+// covers 8 columns of one step (reads: 8 rows of 32 bytes; writes: 64
+// contiguous bytes a column), KTS / 8 warps a stage's steps.
+template <class Src, int KTS = tc::KT>
 __global__ void __launch_bounds__(256)
 kan_tc_split(Src src, uint32_t* __restrict__ out, int npad, long long units) {
+  constexpr int STEPS = KTS / 8;
   const int nb = npad / 8;
   for (long long u = blockIdx.x * 256LL + threadIdx.x; u < units;
        u += (long long)gridDim.x * 256) {
-    const int t = (int)(u & 3), s = (int)((u >> 5) & 3);
-    const long long rest = u >> 7, kt = rest / nb;
+    const int t = (int)(u & 3), s = (int)((u >> 5) % STEPS);
+    const long long rest = (u >> 5) / STEPS, kt = rest / nb;
     const int col = (int)(rest % nb) * 8 + (int)((u >> 2) & 7), k = 8 * s + 2 * t;
-    store_b(out + (kt * npad + col) * 2 * tc::KT + 16 * (s ^ (col & 1)) + 4 * t,
+    store_b(out + (kt * npad + col) * 2 * KTS + 16 * (s ^ (col & 1)) + 4 * t,
             src(kt, k, col), src(kt, k + 1, col));
   }
 }
@@ -504,11 +516,11 @@ kan_tc_kernel(const float* __restrict__ x, long long ldx, typename F::Params p,
   }
 }
 
-template <class F, bool DW>
-int tc_kernel_attr() {
-  return (int)cudaFuncSetAttribute(kan_tc_kernel<F, DW>,
-                                   cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                   (int)Tile<F, DW>::SMEM);
+// A kernel's dynamic shared memory past 48 KB.
+template <class K>
+int tc_attr(K kernel, size_t smem) {
+  return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                   (int)smem);
 }
 
 // nout rounded up to the tile's outputs.
@@ -523,11 +535,11 @@ int tc_fwd_stages(typename F::Params p, int nin) {
   return cdiv(nin, F::FWD_PAIR ? tc::FWD_PAIR_F : tc::FWD_ONE_F) * F::harmonics(p);
 }
 
-template <class Src>
+template <class Src, int KTS = tc::KT>
 int tc_split(Src src, uint32_t* out, int npad, long long stages, cudaStream_t st) {
-  const long long units = stages * npad * tc::KSTEPS * 4;
+  const long long units = stages * npad * (KTS / 8) * 4;
   const long long want = (units + 255) / 256;
-  kan_tc_split<Src><<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, st>>>(
+  kan_tc_split<Src, KTS><<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, st>>>(
       src, out, npad, units);
   return (int)cudaGetLastError();
 }
@@ -548,7 +560,7 @@ int launch_tc_fwd(const float* x, long long ldx, typename F::Params p, const flo
   if (grid.y > 65535u) return (int)cudaErrorInvalidValue;
   int err = tc_split(WSource<F>{w, p, nin, nout}, wsplit, npad, nk, st);
   if (err != 0) return err;
-  err = tc_kernel_attr<F, false>();
+  err = tc_attr(kan_tc_kernel<F, false>, T::SMEM);
   if (err != 0) return err;
   kan_tc_kernel<F, false><<<grid, tc::THREADS + tc::PRODUCERS, T::SMEM, st>>>(
       x, ldx, p, wsplit, nullptr, y, nullptr, n, nin, nout, npad, nk);
@@ -572,12 +584,462 @@ int launch_tc_dw(const float* x, long long ldx, typename F::Params p, const floa
   if (tiles > 65535) return (int)cudaErrorInvalidValue;
   int err = tc_split(GySource{gy, n, nout}, gysplit, npad, nk, st);
   if (err != 0) return err;
-  err = tc_kernel_attr<F, true>();
+  err = tc_attr(kan_tc_kernel<F, true>, T::SMEM);
   if (err != 0) return err;
   kan_tc_kernel<F, true><<<dim3(npad / T::BN, (unsigned)tiles),
                            tc::THREADS + tc::PRODUCERS, T::SMEM, st>>>(
       x, ldx, p, gysplit, w, dw, part, n, nin, nout, npad, nk);
   return (int)cudaGetLastError();
+}
+
+// ===========================================================================
+// Part 2: the grouped q/k/v backward on the tensor cores.
+//
+// Replaces the CUDA-core kan_dx_kernel + kan_dw_kernel pair for the grouped
+// q/k/v projection's backward (kanvit/kernels/fused_basis.py::_fused_bwd_sg,
+// pallas_call at :1278, reached from _bspline_op_sg_bwd :1330 and
+// bspline_qkv_grouped :1361). For every group (head) g, x_g (n, nin) and
+// gy_g (n, nout) the columns of x and gy that belong to it, W_g (S, nin,
+// nout) packed:
+//   dW_g[s, f, o] = sum_n B_s(x_g[n, f]) gy_g[n, o]     (over the rows)
+//   dx_g[n, f]    = sum_s B'_s(x_g[n, f]) gW[n, (s, f)],
+//   gW            = gy_g W_g^T                          (over the outputs)
+// with the family's basis B and derivative B' (kan_basis.cu's B-spline: the
+// 8 cubic bases of a 12-knot grid and silu, S = 9, the knots of group g at
+// gridt + g gstride, so a refit grid a head is one more stride).
+//
+// What bounds it on the H100: the products. At the vit-s q/k/v (n 12,608,
+// 6 heads of nin 64, nout 192) dW and dx are 16.73 GFLOP each: 0.4995 ms in
+// f32 at 67 TFLOP/s, 0.2028 ms in 3xTF32 at the dense 495 TFLOP/s, 0.324 at
+// mma.sync's measured 309.7; the bytes (x, gy, W, dx, dW) take 0.04 ms.
+// Arithmetic: 3xTF32 mma.sync.m16n8k8 (attention_tc.cuh), through the
+// operand type Op (Tf32x3; a bf16 type would take one product a step).
+//
+// dW (kan_tc_dw_grouped<F, NJ>): C = A B with A the basis transposed,
+// ((slice, feature) x rows), generated on chip, and B gy, landing raw by
+// cp.async two stages ahead and split once a block (a pre-pass writing gy
+// split, 116 MB at vit-s, took 0.151 ms of the first form's 0.902 on the
+// H100 80GB HBM3 at 700 W, probe_qkv.py). A block holds 16
+// features of one group, all F::SC slices of each: SC m16 tiles of C (144
+// rows for B-spline), by 64 NJ outputs (NJ 3: 192, the vit-s q|k|v; NJ 1:
+// 64 where nout <= 64), 8 warps side by side along the outputs, SC x NJ
+// m16n8 tiles a warp (108 accumulators at NJ 3). A stage is 32 rows: while
+// the warps run stage kt's products, every thread makes stage kt + 1: it
+// splits its share of that stage's gy into bpairs and generates two x
+// values' SC basis values (one Cox-de Boor pass for all 9, never one a
+// slice), split into afrags; two buffers of each, one barrier a stage. The
+// grouped dW is only 6 heads x 4 feature tiles x 1 output tile at vit-s, 24
+// blocks, so the rows are cut into splits (22 there: 528 blocks, four
+// waves at one block an SM), each writing its partial, summed in split
+// order by sum_splits_kernel: no atomics, a second backward repeats the
+// bits. Inside a split the running sum is added into the split's partial
+// every tc::FLUSH stages (part 1's two-level sum; the partial is the
+// block's own slab).
+//
+// dx (kan_tc_dx_kernel<F>): C = gy_g W_g^T, gy landing raw by cp.async and
+// split by each warp as it loads its fragments, W^T split once a call by the
+// pre-pass (WtSource, stages of 16 outputs). A block holds 128 rows x 16
+// features of one group, every slice of each: C's columns are (half,
+// slice, feature), so warp (row group, half) holds 32 rows x the 8 features
+// of its half x all SC slices, and each thread all SC values of its (row,
+// feature) pairs. The epilogue generates B'_s(x) (the family's closed form)
+// and reduces over s in registers: gW never leaves them. 8 warps, 2 blocks
+// an SM; 2,376 blocks at vit-s. The contraction is nout deep (192), one
+// running sum.
+//
+// Ragged rows, features and outputs are zero in the generated A and the
+// split operands and never stored. gy rows need no alignment: 16-byte
+// copies where every row of gy starts on 16 bytes, 4-byte copies otherwise.
+// ===========================================================================
+
+// The operand type of the grouped kernels: 3xTF32 (each f32 operand split
+// into big + small TF32 words, three mma a step into a zeroed accumulator
+// added in f32).
+struct Tf32x3 {
+  using A = Frag<4>;
+  using B = Frag<2>;
+  __device__ __forceinline__ static A load_a(const uint32_t* at) { return ::load_a(at); }
+  __device__ __forceinline__ static B load_b(const uint32_t* at) { return ::load_b(at); }
+  // Two of a lane's four afrag words (2h, 2h + 1), split: big at at, small at
+  // at + 128.
+  __device__ __forceinline__ static void store_a2(uint32_t* at, float a0, float a1) {
+    uint2 b, sm;
+    split_round(a0, b.x, sm.x);
+    split_round(a1, b.y, sm.y);
+    *reinterpret_cast<uint2*>(at) = b;
+    *reinterpret_cast<uint2*>(at + 128) = sm;
+  }
+  // A fragment (rows m, m + 8; k = 2t, 2t + 1 of the step) of a raw row-major
+  // tile: `at` points at (m, the step's first column + 2t).
+  template <int PITCH>
+  __device__ __forceinline__ static A rows(const float* at) {
+    const float2 lo = *reinterpret_cast<const float2*>(at);
+    const float2 hi = *reinterpret_cast<const float2*>(at + 8 * PITCH);
+    const float v[4] = {lo.x, hi.x, lo.y, hi.y};
+    return split_frag(v);
+  }
+  __device__ __forceinline__ static void mma(float (&d)[4], const A& a, const B& b) {
+    mma3(d, a, b);
+  }
+};
+
+namespace tcg {
+constexpr int THREADS = 256;       // 8 warps
+constexpr int FT = 16;             // features a block: an m16 tile a slice (dW)
+constexpr int DX_BM = 128;         // rows a dx block
+constexpr int DX_KS = 16;          // outputs a dx stage
+constexpr int DX_PITCH = DX_KS + 8;  // the raw gy tile's pitch, 8 mod 32
+constexpr int DW_WIDE = 3;         // NJ of nout > 64
+}  // namespace tcg
+
+__device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;"
+               :: "r"(s), "l"(src), "r"(in ? 4 : 0) : "memory");
+}
+
+// dx's W^T of every group and feature tile: stage kt' = (g ftn + ft) nk + kt
+// holds outputs 16 kt .. 16 kt + 15 by the tile's columns (half, slice,
+// feature): column c is feature 16 ft + 8 (c / 8 SC) + c % 8 of slice
+// c / 8 % SC.
+template <int SC>
+struct WtSource {
+  const float* w;  // (groups, SC, nin, nout)
+  int nin, nout, ftn, nk;
+  __device__ float operator()(long long kt, int k, int col) const {
+    const long long gft = kt / nk;
+    const int g = (int)(gft / ftn), ft = (int)(gft % ftn);
+    const int o = (int)(kt % nk) * tcg::DX_KS + k;
+    const int s = col / 8 % SC, f = ft * tcg::FT + col / (8 * SC) * 8 + col % 8;
+    return o < nout && f < nin ? w[(((long long)g * SC + s) * nin + f) * nout + o] : 0.f;
+  }
+};
+
+// dW of one group's 16 features x 64 NJ outputs over the rows of one split:
+// grid (npad / 64 NJ, feature tiles x groups, splits). out: dW (groups, SC,
+// nin, nout) with one split, else split z's partial at z groups SC nin nout.
+// gy (n, ldg), group g's columns at g nout; vec: 16-byte copies of it.
+template <class F, int NJ, class Op = Tf32x3>
+__global__ void __launch_bounds__(tcg::THREADS, 1)
+kan_tc_dw_grouped(const float* __restrict__ x, long long ldx, typename F::Params p,
+                  const float* __restrict__ gy, long long ldg, float* __restrict__ out,
+                  int n, int groups, int nin, int nout, int nk, int stages_per_split,
+                  int vec) {
+  constexpr int THREADS = tcg::THREADS, SC = F::SC, KT = tc::KT, KSTEPS = tc::KSTEPS;
+  constexpr int BN = 64 * NJ;
+  constexpr int A_WORDS = SC * KSTEPS * 256;  // afrags of a stage: SC m16 tiles
+  constexpr int B_WORDS = BN * 2 * KT;        // bpairs of a stage
+  constexpr int STAGE = A_WORDS + B_WORDS;
+  constexpr int RAW_P = BN + 4;               // raw gy's pitch, 4 mod 32
+  extern __shared__ __align__(16) float sm[];
+  __shared__ typename F::template Stage<tcg::FT> st;
+  uint32_t* stages = reinterpret_cast<uint32_t*>(sm);
+  float* raw = sm + 2 * STAGE;  // 2 x (KT, RAW_P): gy of the stage after next
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t = lane & 3;
+  const int ftn = cdiv(nin, tcg::FT);
+  const int o0 = blockIdx.x * BN, grp = blockIdx.y / ftn;
+  const int f0 = blockIdx.y % ftn * tcg::FT;
+  const int kt0 = blockIdx.z * stages_per_split;
+  const int kt1 = min(nk, kt0 + stages_per_split);
+  const float* gyg = gy + (long long)grp * nout + o0;
+  F::template stage<tcg::FT>(p, nin, f0, grp, st);
+
+  // gy of stage kt (32 rows x BN outputs) into raw buffer buf, by cp.async
+  auto load_gy = [&](int kt, int buf) {
+    float* r = raw + buf * KT * RAW_P;
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < KT * BN / 4 / THREADS; ++i) {
+        const int e = tid + i * THREADS, k = e / (BN / 4), c = e % (BN / 4) * 4;
+        const long long row = (long long)kt * KT + k;
+        const bool in = row < n && o0 + c < nout;
+        cp_async16(r + k * RAW_P + c, in ? gyg + row * ldg + c : gyg, in);
+      }
+    } else {
+#pragma unroll 4
+      for (int i = 0; i < KT * BN / THREADS; ++i) {
+        const int e = tid + i * THREADS, k = e / BN, c = e % BN;
+        const long long row = (long long)kt * KT + k;
+        const bool in = row < n && o0 + c < nout;
+        cp_async4(r + k * RAW_P + c, in ? gyg + row * ldg + c : gyg, in);
+      }
+    }
+  };
+
+  // This thread's two x values a stage: row 8 gs + 2 gt + hr of the stage,
+  // features f0 + gg and f0 + gg + 8 (half hr of lane gl's quad, step gs).
+  const int hr = tid & 1, gl = (tid >> 1) & 31, gs = tid >> 6;
+  const int gg = gl >> 2, gt = gl & 3;
+  const int fa = f0 + gg, fb = fa + 8;
+  const float* xg = x + (long long)grp * nin;
+  auto row_of = [&](int kt) { return (long long)kt * KT + 8 * gs + 2 * gt + hr; };
+  float xa, xb;  // x of the next stage to make
+  auto load_x = [&](int kt) {
+    const long long row = row_of(kt);
+    const bool live = kt < kt1 && row < n;
+    xa = live && fa < nin ? xg[row * ldx + fa] : 0.f;
+    xb = live && fb < nin ? xg[row * ldx + fb] : 0.f;
+  };
+  // Stage kt into buffer buf: gy split from raw buffer rb into bpairs (a
+  // quarter-warp: columns c, c + 1 x 4 fragment threads), and the basis of
+  // xa, xb split into afrags.
+  auto make = [&](int kt, int buf, int rb) {
+    uint32_t* as = stages + buf * STAGE;
+    const float* r = raw + rb * KT * RAW_P;
+#pragma unroll
+    for (int i = 0; i < BN * KSTEPS * 4 / THREADS; ++i) {
+      const int u = tid + i * THREADS, ut = u & 3, s = (u >> 5) & 3;
+      const int col = (u >> 7) * 8 + ((u >> 2) & 7);
+      const float* at = r + (8 * s + 2 * ut) * RAW_P + col;
+      store_b(as + A_WORDS + tc_bword(col, s, ut), at[0], at[RAW_P]);
+    }
+    const long long row = row_of(kt);
+    float va[SC], vb[SC];
+#pragma unroll
+    for (int s = 0; s < SC; ++s) va[s] = vb[s] = 0.f;
+    if (row < n && fa < nin) F::template values<tcg::FT>(p, st, Elem{xa, gg, fa, grp, row}, 0, va);
+    if (row < n && fb < nin)
+      F::template values<tcg::FT>(p, st, Elem{xb, gg + 8, fb, grp, row}, 0, vb);
+#pragma unroll
+    for (int s = 0; s < SC; ++s)
+      Op::store_a2(as + (s * KSTEPS + gs) * 256 + 4 * gl + 2 * hr, va[s], vb[s]);
+  };
+
+  float acc[SC][NJ][4];
+#pragma unroll
+  for (int i = 0; i < SC; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // the running sum added into this split's partial (the first time
+  // written), then restarted
+  float* dst = out + ((long long)blockIdx.z * groups + grp) * SC * nin * nout;
+  auto flush = [&](bool first) {
+#pragma unroll
+    for (int i = 0; i < SC; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int f = f0 + g8 + 8 * (e >> 1);
+          const int o = o0 + 8 * (warp * NJ + j) + 2 * t + (e & 1);
+          if (f < nin && o < nout) {
+            float* d = dst + ((long long)i * nin + f) * nout + o;
+            *d = first ? acc[i][j][e] : *d + acc[i][j][e];
+          }
+          acc[i][j][e] = 0.f;
+        }
+  };
+
+  // Stage kt + 1 is made (and kt + 2's gy lands) while stage kt's products
+  // run: buffers by (stage - kt0) & 1.
+  load_gy(kt0, 0);
+  cp_async_commit();
+  if (kt0 + 1 < kt1) load_gy(kt0 + 1, 1);
+  cp_async_commit();
+  load_x(kt0);
+  cp_async_wait<1>();
+  __syncthreads();  // stage kt0's gy landed
+  make(kt0, 0, 0);
+  load_x(kt0 + 1);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int b = (kt - kt0) & 1;
+    cp_async_wait<0>();
+    __syncthreads();  // stage kt made, stage kt + 1's gy landed; buffers b ^ 1 free
+    if (kt + 2 < kt1) load_gy(kt + 2, b);
+    cp_async_commit();
+    if (kt + 1 < kt1) {
+      make(kt + 1, b ^ 1, b ^ 1);
+      load_x(kt + 2);
+    }
+    const uint32_t* as = stages + b * STAGE;
+    const uint32_t* bs = as + A_WORDS;
+#pragma unroll
+    for (int s = 0; s < KSTEPS; ++s) {
+      typename Op::B bf[NJ];
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        bf[j] = Op::load_b(bs + tc_bword(8 * (warp * NJ + j) + g8, s, t));
+#pragma unroll
+      for (int i = 0; i < SC; ++i) {
+        const typename Op::A a = Op::load_a(as + (i * KSTEPS + s) * 256 + 4 * lane);
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) Op::mma(acc[i][j], a, bf[j]);
+      }
+    }
+    const int done = kt + 1 - kt0;
+    if (done % tc::FLUSH == 0 || kt + 1 == kt1) flush(done <= tc::FLUSH);
+  }
+}
+
+// dx of one group's 128 rows x 16 features: grid (feature tiles, row tiles,
+// groups); wsplit from WtSource, 16-output stages of 2 SC 8 columns.
+template <class F, class Op = Tf32x3>
+__global__ void __launch_bounds__(tcg::THREADS, 2)
+kan_tc_dx_kernel(const float* __restrict__ x, long long ldx, typename F::Params p,
+                 const float* __restrict__ gy, long long ldg,
+                 const uint32_t* __restrict__ wsplit, float* __restrict__ dx, int n,
+                 int groups, int nin, int nout, int nk, int vec) {
+  constexpr int THREADS = tcg::THREADS, SC = F::SC, BM = tcg::DX_BM;
+  constexpr int KS = tcg::DX_KS, PITCH = tcg::DX_PITCH;
+  constexpr int NC = 2 * SC * 8;           // columns of C: (half, slice, feature)
+  constexpr int A_FLOATS = BM * PITCH;     // gy, raw
+  constexpr int B_WORDS = NC * 2 * KS;     // W^T, split
+  constexpr int STAGE = A_FLOATS + B_WORDS;
+  extern __shared__ __align__(16) float sm[];
+  __shared__ typename F::template Stage<tcg::FT> st;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t = lane & 3, wr = warp >> 1, wh = warp & 1;
+  const int ftn = cdiv(nin, tcg::FT);
+  const int f0 = blockIdx.x * tcg::FT, r0 = blockIdx.y * BM, grp = blockIdx.z;
+  const float* gyg = gy + (long long)grp * nout;
+  const uint32_t* wsrc = wsplit + ((long long)grp * ftn + blockIdx.x) * nk * B_WORDS;
+  F::template stage<tcg::FT>(p, nin, f0, grp, st);
+
+  auto stage = [&](int kt, int buf) {
+    float* a = sm + buf * STAGE;
+    const int k0 = kt * KS;
+    if (vec) {  // rows of gy on 16 bytes, nout % 4 == 0
+#pragma unroll
+      for (int i = 0; i < BM * KS / 4 / THREADS; ++i) {
+        const int e = tid + i * THREADS, r = e / (KS / 4), c = e % (KS / 4) * 4;
+        const int row = r0 + r, col = k0 + c;
+        const bool in = row < n && col < nout;
+        cp_async16(a + r * PITCH + c, in ? gyg + row * ldg + col : gyg, in);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < BM * KS / THREADS; ++i) {
+        const int e = tid + i * THREADS, r = e / KS, c = e % KS;
+        const int row = r0 + r, col = k0 + c;
+        const bool in = row < n && col < nout;
+        cp_async4(a + r * PITCH + c, in ? gyg + row * ldg + col : gyg, in);
+      }
+    }
+    uint32_t* b = reinterpret_cast<uint32_t*>(a + A_FLOATS);
+    const uint32_t* src = wsrc + (long long)kt * B_WORDS;
+    for (int e = 4 * tid; e < B_WORDS; e += 4 * THREADS)
+      cp_async16(reinterpret_cast<float*>(b + e), reinterpret_cast<const float*>(src + e),
+                 true);
+    cp_async_commit();
+  };
+
+  float acc[2][SC][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < SC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  stage(0, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage kt landed; the other buffer is free
+    if (kt + 1 < nk) stage(kt + 1, (kt + 1) & 1);
+    const float* a = sm + (kt & 1) * STAGE;
+    const uint32_t* b = reinterpret_cast<const uint32_t*>(a + A_FLOATS);
+#pragma unroll
+    for (int s = 0; s < KS / 8; ++s) {
+      typename Op::A af[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i)
+        af[i] = Op::template rows<PITCH>(a + (32 * wr + 16 * i + g8) * PITCH + 8 * s + 2 * t);
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        const int col = (wh * SC + j) * 8 + g8;
+        const typename Op::B bf = Op::load_b(b + col * 2 * KS + 16 * (s ^ (col & 1)) + 4 * t);
+#pragma unroll
+        for (int i = 0; i < 2; ++i) Op::mma(acc[i][j], af[i], bf);
+      }
+    }
+  }
+
+  // dx of this thread's rows (g8, g8 + 8 of its two m16 tiles) and features
+  // (2t, 2t + 1 of its half): sum_s B'_s(x) gW_s, in slice order
+  const long long ldd = (long long)groups * nin;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long row = r0 + 32 * wr + 16 * i + g8 + 8 * (e >> 1);
+      const int kf = 8 * wh + 2 * t + (e & 1), f = f0 + kf;
+      if (row >= n || f >= nin) continue;
+      const Elem el{x[row * ldx + (long long)grp * nin + f], kf, f, grp, row};
+      float d[SC];
+      F::template derivs<tcg::FT>(p, st, el, 0, d);
+      float sum = 0.f;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) sum = fmaf(acc[i][j][e], d[j], sum);
+      dx[row * ldd + (long long)grp * nin + f] = sum;
+    }
+}
+
+
+template <class F, int NJ>
+int launch_tc_dw_grouped(const float* x, long long ldx, typename F::Params p,
+                         const float* gy, long long ldg, int vec, float* dw,
+                         float* dw_part, int n, int groups, int nin, int nout, int splits,
+                         cudaStream_t st) {
+  constexpr int BN = 64 * NJ;
+  const int nk = cdiv(n, tc::KT);
+  const int per = cdiv(nk, min(splits, nk));
+  splits = cdiv(nk, per);  // no split left empty
+  if (splits > 1 && dw_part == nullptr) return (int)cudaErrorInvalidValue;
+  const long long tiles = (long long)cdiv(nin, tcg::FT) * groups;
+  if (tiles > 65535 || splits > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * (2 * (F::SC * tc::KSTEPS * 256 + BN * 2 * tc::KT) +
+                                       2 * tc::KT * (BN + 4));
+  int err = tc_attr(kan_tc_dw_grouped<F, NJ>, smem);
+  if (err != 0) return err;
+  kan_tc_dw_grouped<F, NJ><<<dim3(cdiv(nout, BN), (unsigned)tiles, splits), tcg::THREADS,
+                             smem, st>>>(x, ldx, p, gy, ldg, splits > 1 ? dw_part : dw, n,
+                                         groups, nin, nout, nk, per, vec);
+  err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  return sum_splits(dw_part, dw, (long long)groups * F::SC * nin * nout, splits, st);
+}
+
+// dx (n, groups nin) and dW (groups, S, nin, nout) of a grouped layer, either
+// null to skip it; x (n, groups nin) with row stride ldx, gy (n, groups
+// nout) contiguous, w (groups, S, nin, nout) contiguous. Scratch: wtsplit,
+// groups ceil(nin / 16) ceil(nout / 16) 2 S 8 32 words, 16-byte aligned
+// (dx); dw_part, splits groups S nin nout floats (dW, splits > 1).
+template <class F>
+int launch_tc_grouped_bwd(const float* x, long long ldx, typename F::Params p,
+                          const float* w, const float* gy, float* dx, float* dw,
+                          float* dw_part, uint32_t* wtsplit, int n, int groups, int nin,
+                          int nout, int splits, cudaStream_t st) {
+  if (bad_shape(n, groups, nin, nout) || splits < 1 || (uintptr_t)wtsplit % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  const long long ldg = (long long)groups * nout;
+  const int vec = ldg % 4 == 0 && nout % 4 == 0 && (uintptr_t)gy % 16 == 0;
+  if (dx != nullptr) {
+    const int ftn = cdiv(nin, tcg::FT), nk = cdiv(nout, tcg::DX_KS);
+    const dim3 grid(ftn, cdiv(n, tcg::DX_BM), groups);
+    if (wtsplit == nullptr || grid.y > 65535u || grid.z > 65535u)
+      return (int)cudaErrorInvalidValue;
+    int err = tc_split<WtSource<F::SC>, tcg::DX_KS>(
+        WtSource<F::SC>{w, nin, nout, ftn, nk}, wtsplit, 2 * F::SC * 8,
+        (long long)groups * ftn * nk, st);
+    if (err != 0) return err;
+    const size_t smem = sizeof(float) * 2 *
+                        (tcg::DX_BM * tcg::DX_PITCH + 2 * F::SC * 8 * 2 * tcg::DX_KS);
+    err = tc_attr(kan_tc_dx_kernel<F>, smem);
+    if (err != 0) return err;
+    kan_tc_dx_kernel<F><<<grid, tcg::THREADS, smem, st>>>(
+        x, ldx, p, gy, ldg, wtsplit, dx, n, groups, nin, nout, nk, vec);
+    err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  if (dw == nullptr) return 0;
+  if (nout <= 64)
+    return launch_tc_dw_grouped<F, 1>(x, ldx, p, gy, ldg, vec, dw, dw_part, n, groups,
+                                      nin, nout, splits, st);
+  return launch_tc_dw_grouped<F, tcg::DW_WIDE>(x, ldx, p, gy, ldg, vec, dw, dw_part, n,
+                                               groups, nin, nout, splits, st);
 }
 
 }  // namespace

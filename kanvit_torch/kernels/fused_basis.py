@@ -25,7 +25,11 @@ RBF with its LayerNorm, sine):
 (sine's dfreq with it) on the tensor cores instead (``csrc/kan_basis_tc.cuh``,
 3xTF32 ``mma.sync`` over a basis generated on chip), their dx on the
 CUDA-core template; :func:`sinekan_qkv_grouped` keeps the CUDA-core kernels.
-The route is chosen by call site, never by size.
+:func:`bspline_qkv_grouped`'s backward (dx and dW) runs on the tensor cores
+too (``csrc/kan_basis_tc.cuh``, part 2: 3xTF32 ``mma.sync``, dW over a
+basis generated on chip in row splits summed in a fixed order, dx with the
+basis derivative in the epilogue). The route is chosen by call site, never
+by size.
 
 Dispatch is by device (``kanvit_torch.ops.dispatch``): a CPU tensor runs the
 plain version in ``kanvit_torch.ops.kan_bases`` and autograd differentiates
@@ -85,6 +89,13 @@ TC_SINE_FWD_ROWS, TC_SINE_FWD_OUTS = 48, 384
 TC_FWD_FEATURES = {"fourier": 16, "sine": 32}
 # The call sites on the tensor-core kernels (the rest: the CUDA-core ones).
 TC_ROUTES = ("fourierkan", "sinekan")
+# The grouped backward on the tensor cores (csrc/kan_basis_tc.cuh, part 2):
+# features a block (an m16 tile a slice), the dW kernel's 32-row stages and
+# its outputs a block (64 up to nout 64, else 192), and the dx kernel's rows
+# a block and 16-output stages.
+TC_GROUPED_BWD = ("bspline_qkv_grouped_bwd",)
+TCG_FEATURES, TCG_DX_ROWS, TCG_DX_STAGE = 16, 128, 16
+TCG_DW_TARGET_BLOCKS = 4  # blocks an SM the dW row splits aim at
 
 
 def reset_launches() -> None:
@@ -411,6 +422,47 @@ def dw_splits(n: int, groups: int, nin: int, out: int, n_sm: int,
     return max(1, min(want, n // DW_MIN_ROWS_PER_SPLIT, 65535 // groups))
 
 
+def tc_dw_outs(nout: int) -> int:
+    """Outputs a block of the grouped tensor-core dW kernel."""
+    return 64 if nout <= 64 else 192
+
+
+def tc_grouped_dw_splits(n: int, groups: int, nin: int, nout: int, n_sm: int) -> int:
+    """Row splits of the grouped tensor-core dW: enough (feature tile x
+    group x output tile) blocks times splits for ``TCG_DW_TARGET_BLOCKS``
+    blocks an SM, whole 32-row stages a split, none left empty. A function
+    of the shape and the card only, so a run repeats its bits."""
+    tiles = groups * -(-nin // TCG_FEATURES) * -(-nout // tc_dw_outs(nout))
+    stages = -(-n // TC_STAGE)
+    per = -(-stages // min(stages, -(-TCG_DW_TARGET_BLOCKS * n_sm // tiles)))
+    return -(-stages // per)
+
+
+def _launch_grouped_tc_bwd(name, x2d, w, grid, gy, dx, dw, lib, stream):
+    """``(dx, dw)`` of ``bspline_qkv_grouped`` from the tensor-core kernels,
+    into ``dx`` and ``dw`` (either None to skip it)."""
+    n = x2d.shape[0]
+    groups, slices, nin, out = w.shape
+    dev = x2d.device
+    # W^T for dx, split once into TF32 words in the dx kernel's stage order
+    # (2 words a value)
+    wtsplit = (torch.empty(groups * -(-nin // TCG_FEATURES) * -(-out // TCG_DX_STAGE)
+                           * 2 * slices * 8 * 2 * TCG_DX_STAGE, dtype=torch.int32,
+                           device=dev)
+               if dx is not None else None)
+    splits, part = 1, None
+    if dw is not None:
+        splits = tc_grouped_dw_splits(
+            n, groups, nin, out, torch.cuda.get_device_properties(dev).multi_processor_count)
+        part = _empty(splits, *w.shape, device=dev) if splits > 1 else None
+    gridt, gstride = _knot_rows(grid)
+    err = lib.kanvit_bspline_qkv_tc_bwd(
+        x2d.data_ptr(), x2d.stride(0), gridt.data_ptr(), gstride, w.data_ptr(),
+        gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), _ptr(wtsplit), n, groups, nin,
+        out, splits, stream)
+    return _counted(name, err, dx, dw)
+
+
 def _launch_bwd(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
                 aux, gy: torch.Tensor, need_dx: bool, need_dw: bool):
     """``(dx (N, G*nin) or None, dw (G, S, nin, out) or None)`` from the
@@ -432,6 +484,8 @@ def _launch_bwd(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
     args = (x2d.data_ptr(), x2d.stride(0))
     with torch.cuda.device(dev):
         stream = _stream(dev)
+        if name in TC_GROUPED_BWD:
+            return _launch_grouped_tc_bwd(name, x2d, w, aux, gy, dx, dw, lib, stream)
         if family == "fourier":
             gysplit = _tc_split(-(-n // TC_STAGE), out, dev) if need_dw else None
             err = lib.kanvit_fourierkan_bwd(*args, w.data_ptr(), gy.data_ptr(),

@@ -9,7 +9,12 @@ seven gradients, the weight gradients summed over the rows in a fixed order
 (no atomics). A CPU tensor runs the plain version,
 ``kanvit_torch.ops.kan_bases.ffn_pre_ln``, which autograd differentiates; a
 CUDA tensor goes through :class:`_FfnFn`, whose forward and backward launch
-the kernels or raise. f32, D at most ``MAX_D``.
+the kernels or raise. f32, any D >= 1 and F >= 1: D at most
+``FUSED_MAX_D`` (512; vit-s's is 384) runs the fused forward, whose 48-row tiles
+keep LN and y on chip over all of D; past it (vit-b's 768, vit-l's 1,024,
+any larger D) the forward and the backward's dln run as tiled products
+through device-memory scratch, r (N, F) and dln (N, D), and take any D
+device memory holds.
 
 It is ``TransformerBlock``'s opt-in FF (``fused_ff=True``), off by default
 as kanvit's ``KANVIT_FF=1`` is.
@@ -28,11 +33,17 @@ from kanvit_torch.ops import kan_bases as K
 LAUNCHES = {"ffn_pre_ln": 0, "ffn_pre_ln_bwd": 0}
 # A 48-row tile's LN stays in shared memory over all of D, and its y (the
 # backward's dln) in registers: 100 KB and 96 accumulators a thread at D 512.
-MAX_D = 512
+# Past it the tiled route (csrc/fused_ffn.cu, "Past D 512").
+FUSED_MAX_D = 512
+WIDE_TILE = 128      # columns a block of the tiled route's products
 ROWS_PER_BLOCK = 48  # rows a block of the forward and dx kernels
 HIDDEN_TILE = 128    # hidden units a block of the backward's hidden kernel
 DW_TILE = 128        # (M, P) tile of the weight-gradient kernel
 DW_TARGET_BLOCKS = 264  # 2 blocks of the weight-gradient kernel per SM of 132
+# Past FUSED_MAX_D: four such waves (vit-b's 144 tiles of 128 x 128 ran as
+# one split, half the card's block slots, 3.69 ms of the 7.28 ms backward on
+# the H100; probe_qkv.py)
+DW_TARGET_BLOCKS_WIDE = 4 * DW_TARGET_BLOCKS
 DW_MIN_ROWS_PER_SPLIT = 256
 
 
@@ -44,7 +55,7 @@ def reset_launches() -> None:
 def check_args(x2d, gamma, beta, w1, b1, w2, b2) -> None:
     """Raise on anything the kernels do not take (device aside): ``x2d (N,
     D)``, ``gamma, beta, b2 (D,)``, ``w1 (F, D)``, ``b1 (F,)``, ``w2 (D, F)``,
-    all f32, ``1 <= D <= MAX_D``."""
+    all f32, ``D >= 1`` and ``F >= 1``."""
     named = (("x", x2d), ("gamma", gamma), ("beta", beta), ("w1", w1),
              ("b1", b1), ("w2", w2), ("b2", b2))
     for name, t in named:
@@ -60,17 +71,18 @@ def check_args(x2d, gamma, beta, w1, b1, w2, b2) -> None:
     for name, t in named[1:]:
         if tuple(t.shape) != want[name]:
             raise ValueError(f"{name} must be {want[name]}, got {tuple(t.shape)}")
-    if not 1 <= d <= MAX_D:
-        raise ValueError(f"D {d}: the kernels take 1 <= D <= {MAX_D}")
+    if d < 1 or f < 1:
+        raise ValueError(f"D {d}, F {f}: the kernels take D >= 1 and F >= 1")
 
 
 def dw_splits(n: int, d: int, f: int) -> int:
     """Row splits of the weight-gradient reduction: as many (D/128 x F/128)
-    tiles times splits as the card runs at once, each split at least
-    ``DW_MIN_ROWS_PER_SPLIT`` rows. A function of the shape only, so a run
-    repeats its bits."""
+    tiles times splits as the card runs at once (four times that past
+    ``FUSED_MAX_D``), each split at least ``DW_MIN_ROWS_PER_SPLIT`` rows. A
+    function of the shape only, so a run repeats its bits."""
     tiles = -(-d // DW_TILE) * -(-f // DW_TILE)
-    return max(1, min(DW_TARGET_BLOCKS // tiles, n // DW_MIN_ROWS_PER_SPLIT, 65535))
+    target = DW_TARGET_BLOCKS if d <= FUSED_MAX_D else DW_TARGET_BLOCKS_WIDE
+    return max(1, min(target // tiles, n // DW_MIN_ROWS_PER_SPLIT, 65535))
 
 
 def _stream(dev) -> int:
@@ -82,10 +94,14 @@ def _check_err(err: int, what: str) -> None:
         raise RuntimeError(f"{what}: kernel launch failed with CUDA error {err}")
 
 
+def _round(v: int, m: int) -> int:
+    return -(-v // m) * m
+
+
 def _pitch(cols: int) -> int:
     """The row pitch the kernels stage with 16-byte copies: ``cols`` rounded
     up to 4 floats."""
-    return -(-cols // 4) * 4
+    return _round(cols, 4)
 
 
 def _pitched(t: torch.Tensor, ld: int) -> torch.Tensor:
@@ -115,12 +131,25 @@ def _launch(x2d, gamma, beta, w1, b1, w2, b2, relu_mask=None) -> torch.Tensor:
         return y
     ldd, ldf = _pitch(d), _pitch(f)
     w1p, w2p = _pitched(w1, ldd), _pitched(w2, ldf)
-    with torch.cuda.device(x2d.device):
-        err = _build.load().kanvit_ffn_fwd(
-            x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1p.data_ptr(),
+    args = (x2d.data_ptr(), gamma.data_ptr(), beta.data_ptr(), w1p.data_ptr(),
             b1.data_ptr(), w2p.data_ptr(), b2.data_ptr(), y.data_ptr(),
-            None if relu_mask is None else relu_mask.data_ptr(), n, d, f, ldd,
-            ldf, _stream(x2d.device))
+            None if relu_mask is None else relu_mask.data_ptr())
+    lib = _build.load()
+    with torch.cuda.device(x2d.device):
+        if d <= FUSED_MAX_D:
+            err = lib.kanvit_ffn_fwd(*args, n, d, f, ldd, ldf, _stream(x2d.device))
+        else:
+            # the tiled route's scratch: LN and its row stats, r, and W1, W2
+            # split once into TF32 words (bpairs tiles of 16 by 128 columns)
+            f32 = dict(dtype=torch.float32, device=x2d.device)
+            i32 = dict(dtype=torch.int32, device=x2d.device)
+            ln, stats = torch.empty(n, ldd, **f32), torch.empty(n, 2, **f32)
+            r = torch.empty(n, ldf, **f32)
+            w1s = torch.empty(-(-d // 16) * _round(f, WIDE_TILE) * 32, **i32)
+            w2s = torch.empty(-(-f // 16) * _round(d, WIDE_TILE) * 32, **i32)
+            err = lib.kanvit_ffn_fwd_wide(
+                *args, *(t.data_ptr() for t in (ln, stats, r, w1s, w2s)), n, d, f,
+                ldd, ldf, _stream(x2d.device))
     _check_err(err, "ffn_pre_ln")
     LAUNCHES["ffn_pre_ln"] += 1
     return y
@@ -159,6 +188,7 @@ def _launch_bwd(x2d, gamma, beta, w1, b1, w2, g):
                            **i32)
     w_dx = torch.empty(-(-f // 16) * -(-d // 128) * 128 * 32, **i32)
     dgb_part = torch.empty(-(-n // ROWS_PER_BLOCK), 2, d, **f32)
+    dln = torch.empty(n, ldd, **f32) if d > FUSED_MAX_D else None
     parts = ([torch.empty(splits, *shape, **f32)
               for shape in ((f, d), (f,), (d, f), (d,))] if splits > 1
              else [None] * 4)
@@ -167,7 +197,7 @@ def _launch_bwd(x2d, gamma, beta, w1, b1, w2, g):
             *(t.data_ptr() for t in (x2d, gp, gamma, beta, w1p, w2p, b1, dx, dgb,
                                      dw1, db1, dw2, db2, ln, stats, r, dh,
                                      w_hidden[0], w_hidden[1], w_dx, dgb_part)),
-            *(None if p is None else p.data_ptr() for p in parts),
+            *(None if p is None else p.data_ptr() for p in (dln, *parts)),
             n, d, f, ldd, ldf, splits, _stream(dev))
     _check_err(err, "ffn_pre_ln_bwd")
     LAUNCHES["ffn_pre_ln_bwd"] += 1

@@ -936,6 +936,55 @@ def test_bspline_qkv_grouped_dh8_and_per_head_grids(cuda, per_head):
             FB.LAUNCHES["bspline_qkv_grouped_bwd"]) == (1, 1)
 
 
+def _f64_gate(got, plain, exact):
+    """The kernel's result no further from f64 than twice the plain f32
+    version's, each x max(1, max|exact|)."""
+    scale = max(1.0, float(exact.abs().max()))
+    k = float((got.double() - exact).abs().max()) / scale
+    p = float((plain.double() - exact).abs().max()) / scale
+    assert got.isfinite().all() and k <= 2 * p, (k, p)
+
+
+@pytest.mark.parametrize("n,h,dh,per_head", [(12608, 6, 64, False), (12608, 6, 64, True),
+                                             (3200, 8, 8, False), (301, 2, 5, False)])
+def test_bspline_qkv_grouped_tc_backward(cuda, n, h, dh, per_head):
+    """The tensor-core backward (dx and dW in 3xTF32) at the vit-s q/k/v,
+    with a grid a head (one projection, out = dh), at dh 8 and at dh 5,
+    whose 15 outputs a head take the 4-byte copies of gy: every gradient
+    within 1e-4 x max(1, max|g|) of the plain version and a second backward
+    with the same bits; at the first three (chip_smoke.py's shapes) no
+    further from f64 than twice the plain version."""
+    out = dh if per_head else 3 * dh
+    rng = np.random.default_rng(98 + dh)
+    x = _spline_x(rng, (n, h * dh)).to(cuda)
+    grid = K.make_bspline_grid(dh, device=cuda)
+    if per_head:
+        grid = grid * torch.from_numpy(rng.uniform(0.8, 1.3, (h, 1, 1)).astype(
+            np.float32)).to(cuda) + 0.1
+    params = [p * 0.3 for p in _spline_params(rng, h, out, dh, cuda)]
+    g = torch.from_numpy(rng.standard_normal((n, h * out)).astype(np.float32)).to(cuda)
+
+    def plain(x, bw, sw, sc):
+        return torch.cat([K.bspline_kan_forward(
+            x[:, i * dh:(i + 1) * dh], grid[i] if per_head else grid, bw[i], sw[i],
+            sc[i]) for i in range(h)], dim=1)
+
+    def kernel(*a):
+        return FB.bspline_qkv_grouped(a[0], grid, *a[1:])
+
+    _, got = _grads(kernel, [x, *params], g)
+    _, again = _grads(kernel, [x, *params], g)
+    _, want = _grads(plain, [x, *params], g)
+    _, exact = _grads(lambda *a: plain(*a).double(), [t.double() for t in (x, *params)],
+                      g.double())
+    for a, b, c in zip(got, want, exact):
+        _close(a, b, 1e-4)
+        if dh != 5:
+            _f64_gate(a, b, c)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert FB.LAUNCHES["bspline_qkv_grouped_bwd"] == 2
+
+
 def _ffn_inputs(rng, n, d, f, cuda):
     shapes = ((n, d), (d,), (d,), (f, d), (f,), (d, f), (d,))
     scales = (1.0, 0.3, 0.1, d ** -0.5, 0.1, f ** -0.5, 0.1)
@@ -946,7 +995,8 @@ def _ffn_inputs(rng, n, d, f, cuda):
 
 
 @pytest.mark.parametrize("n,d,f", [(1, 8, 32), (37, 100, 400), (1000, 384, 1536),
-                                   (129, 512, 200), (50, 30, 50)])
+                                   (129, 512, 200), (50, 30, 50), (300, 768, 3072),
+                                   (200, 1024, 4096), (100, 2048, 256), (37, 520, 40)])
 def test_ffn_pre_ln_kernels(cuda_all, n, d, f):
     from kanvit_torch.kernels import fused_ffn as FFN
 
@@ -995,6 +1045,27 @@ def test_ffn_pre_ln_vit_s_holds_f64_and_repeats_bits(cuda_all):
     assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2}
 
 
+def test_ffn_pre_ln_wide_holds_f64_and_repeats_bits(cuda_all):
+    """Past D 512 (vit-b's D 768, F 3,072) the tiled route's forward is
+    within 1e-6 x max(1, max|y|) of f64 on the card, and two backwards give
+    the same bits."""
+    from kanvit_torch.kernels import fused_ffn as FFN
+
+    rng = np.random.default_rng(122)
+    n, d, f = 12 * 197, 768, 3072
+    args = _ffn_inputs(rng, n, d, f, cuda_all)
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda_all)
+    with torch.inference_mode():
+        y = FFN.ffn_pre_ln(*args)
+        exact = K.ffn_pre_ln(*(a.double() for a in args))
+    err = float((y.double() - exact).abs().max())
+    assert err <= 1e-6 * max(1.0, float(exact.abs().max())), err
+    _, first = _grads(FFN.ffn_pre_ln, args, g)
+    _, second = _grads(FFN.ffn_pre_ln, args, g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2}
+
+
 def test_ffn_pre_ln_unaligned_inputs_run(cuda_all):
     """Inputs whose rows start off 16 bytes (views one float into their
     storage) are copied by the wrapper, not refused, and give the aligned
@@ -1025,7 +1096,9 @@ def test_ffn_pre_ln_unaligned_inputs_run(cuda_all):
 def test_ffn_pre_ln_raises_not_fall_back(cuda_all):
     from kanvit_torch.kernels import fused_ffn as FFN
 
-    args = _ffn_inputs(np.random.default_rng(7), 4, 640, 64, cuda_all)
+    args = _ffn_inputs(np.random.default_rng(7), 4, 640, 1, cuda_all)
+    # no hidden unit: every D is taken, F must be at least 1
+    args[3], args[4], args[5] = args[3][:0], args[4][:0], args[5][:, :0].contiguous()
     with pytest.raises(ValueError, match="D 640"):
         FFN.ffn_pre_ln(*args)
     with pytest.raises(TypeError, match="float32"):

@@ -164,6 +164,33 @@ def test_ffn_pre_ln_matches_kanvit_kernel(ffn_path, monkeypatch, n, d, f):
     assert (FFN.LAUNCHES["ffn_pre_ln"], FFN.LAUNCHES["ffn_pre_ln_bwd"]) == want_launches
 
 
+def test_ffn_pre_ln_at_vit_b_width_matches_kanvit_kernel(ffn_path, monkeypatch):
+    """vit-b's width (D 768, F 3,072; 9 rows), past the fused route's D 512:
+    values within 1e-5 and all seven gradients within 1e-5 x max(1, max|g|)
+    of kanvit's Pallas kernel (interpret mode) and ``jax.grad`` through it.
+    The weights are scaled by 1/sqrt(fan-in), as a model initialises them,
+    so y stays O(1)."""
+    monkeypatch.setenv("KANVIT_FF", "1")
+    monkeypatch.setenv("KANVIT_FF_BN", "8")
+    n, d, f = 9, 768, 3072
+    arrays, g = _ffn_arrays(78, n, d, f)
+    arrays[3] *= np.float32(0.3 / np.sqrt(d))
+    arrays[5] *= np.float32(0.3 / np.sqrt(f))
+    jargs = [jnp.asarray(a) for a in arrays]
+    want = JFFN.ffn_pre_ln(*jargs)
+    jgrads = jax.grad(lambda *a: jnp.sum(JFFN.ffn_pre_ln(*a) * g),
+                      argnums=tuple(range(7)))(*jargs)
+    leaves = [torch.from_numpy(a).requires_grad_(True) for a in arrays]
+    got = FFN.ffn_pre_ln(*leaves)
+    tgrads = torch.autograd.grad(got, leaves, torch.from_numpy(g))
+    assert _maxdiff(got.detach(), want) <= TOL
+    for name, a, b in zip(("x", "gamma", "beta", "w1", "b1", "w2", "b2"),
+                          tgrads, jgrads):
+        assert _rel(a, b) <= TOL, name
+    want_launches = (1, 1) if ffn_path == "kernel_math" else (0, 0)
+    assert (FFN.LAUNCHES["ffn_pre_ln"], FFN.LAUNCHES["ffn_pre_ln_bwd"]) == want_launches
+
+
 @pytest.mark.parametrize("bad,err,match", [
     ("dtype", TypeError, "b1 must be float32"),
     ("shape", ValueError, r"w2 must be \(8, 32\)"),
@@ -176,10 +203,19 @@ def test_ffn_kernel_arg_checks(bad, err, match):
         args[4] = args[4].double()
     elif bad == "shape":
         args[5] = args[5].T
-    else:
-        args = [torch.from_numpy(a) for a in _ffn_arrays(72, 4, 520, 32)[0]]
+    else:  # no hidden unit: every D is taken, F must be at least 1
+        args = [torch.from_numpy(a) for a in _ffn_arrays(72, 4, 520, 0)[0]]
     with pytest.raises(err, match=match):
         FFN.check_args(*args)
+
+
+@pytest.mark.parametrize("d,f", [(768, 3072), (1024, 4096), (2048, 256), (4096, 64)])
+def test_ffn_kernel_arg_checks_take_every_width(d, f):
+    """vit-b's and vit-l's widths and D past every preset: the fused
+    route up to D 512, the tiled route past it."""
+    shapes = ((3, d), (d,), (d,), (f, d), (f,), (d, f), (d,))
+    FFN.check_args(*(torch.empty(s) for s in shapes))
+    assert d > FFN.FUSED_MAX_D
 
 
 def test_ffn_dw_splits_fill_the_card():
@@ -192,6 +228,24 @@ def test_ffn_dw_splits_fill_the_card():
 def _vit_params(model):
     return params_from_torch_state_dict(
         {k: v.numpy() for k, v in model.state_dict().items()})
+
+
+def test_fused_ff_block_at_vit_b_width_matches_kanvit_apply(monkeypatch):
+    """A fused-FF ViT block at vit-b's width (D 768, 12 heads of 64, F
+    3,072): the logits against kanvit's ``apply`` with ``KANVIT_FF=1``
+    (its Pallas ``ffn_pre_ln`` in interpret mode)."""
+    monkeypatch.setenv("KANVIT_FF", "1")
+    monkeypatch.setenv("KANVIT_FF_BN", "8")
+    geom = dict(SMALL, n_blocks=1, d_hidden=768, n_heads=12)
+    params = _vit_params(create_model("vanilla", **geom, seed=76))
+    x = np.random.default_rng(77).standard_normal((2, 1, 28, 28)).astype(np.float32)
+    want = j_create_model("vanilla", **geom).apply({"params": params}, jnp.asarray(x))
+    model = create_model("vanilla", **geom, seed=1, fused_ff=True)
+    load_reference_state_dict(model, state_dict_from_jax_params(params))
+    assert model.blocks[0].fused_ff and model.blocks[0].ff[0].out_features == 3072
+    with torch.inference_mode():
+        got = model(torch.from_numpy(x))
+    assert _maxdiff(got, want) <= LOGIT_TOL
 
 
 @pytest.mark.parametrize("variant", ["vanilla", "efficientkan"])

@@ -10,9 +10,11 @@ arithmetic replaces ``_launch`` / ``_launch_bwd`` in the kernels' order:
 
 - the forward: h = LN W1^T + b1 over D, then y_acc += relu(h) W2^T chunk by
   chunk of hidden units (256, or 128 past D 384), one running sum, then
-  x + (y_acc + b2);
-- the backward: h and dr = g W2 over D, dh = dr [h > 0], dln = dh W1 over F,
-  dx and the 48-row blocks' dgamma, dbeta partials summed in block order,
+  x + (y_acc + b2); past D 512 the tiled route's products sum in the same
+  order (h over D, then r W2^T over all of F in one running sum);
+- the backward: h and dr = g W2 over D, dh = dr [h > 0], dln = dh W1 over F
+  (past D 512 into device memory, then dx a row block at a time), dx and the
+  48-row blocks' dgamma, dbeta partials summed in block order,
   and dW2 = g^T r, dW1 = dh^T LN over the row splits of ``dw_splits``,
   summed in split order, with db2, db1 the splits' column sums.
 
@@ -147,6 +149,7 @@ def _rel(a, b):
     (37, 24, 48),
     (20, 400, 136),  # past D 384: chunks of 128
     (520, 16, 40),   # two row splits of the weight gradients, 11 row blocks
+    (12, 768, 512),  # past D 512: the tiled route (vit-b's D)
 ])
 def test_ffn_tc_matches_kanvit_kernel(kernel_math, n, d, f):
     arrays, g = _arrays(130 + d, n, d, f)
