@@ -282,13 +282,16 @@ def phase_build():
 # The tensor-core kernels whose instruction mix the build reports: what
 # issues beside each HMMA (mma.sync) bounds them (PERF.md).
 # An entry is a kernel's name, or the parts its mangled name holds (the
-# Fourier and sine tensor-core kernels: the family, and Lb0 forward, Lb1 dW).
+# Fourier and sine tensor-core kernels: the family, and Lb0 forward, Lb1 dW;
+# the grouped backward's: the family, and its NJ).
 SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
                 "flash_dq_tcILi64", "flash_dkv_tcILi64", "ffn_fwd_tcILi3",
                 "ffn_bwd_hidden_tc", "ffn_bwd_dx_tcILi3", "ffn_dw_tc",
                 ("ffn_gemm_tcILi0",), ("kan_tc_dw_grouped", "Bspline"),
-                ("kan_tc_dx_kernel", "Bspline"),
+                ("kan_tc_dx_kernel", "Bspline"), ("kan_tc_dw_grouped", "3RbfELi1E"),
+                ("kan_tc_dx_kernel", "3RbfE"), ("kan_tc_dw_grouped", "4SineELi1E"),
+                ("kan_tc_dx_kernel", "4SineE"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
                 ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"))
 
@@ -389,22 +392,31 @@ def kernel_ms(torch, fn, iters=20, warmup=3, label=None):
     """The card's own time of one call of ``fn``: the summed durations of
     the kernels it launches, from ``torch.profiler``, over ``iters`` calls,
     without the host's time or the gaps between launches. ``label``: print
-    the kernels by name."""
+    the kernels by name. A profile now and then drops device events (all of
+    them, or all but a few kernels'), so it profiles twice and keeps the
+    trace with the most kernels, a third time if neither has any."""
     from torch.profiler import ProfilerActivity, profile
 
     for _ in range(warmup):
         fn()
-    for _ in range(3):  # a profile now and then records no device event
+    by_name, events = {}, 0
+    for attempt in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
-        by_name = kernel_times(prof.events())
-        if by_name:
+        got = kernel_times(prof.events())
+        count = sum(1 for e in prof.events()
+                    if "cuda" in str(getattr(e, "device_type", "")).lower()
+                    and not getattr(e, "is_user_annotation", False))
+        if count > events:
+            by_name, events = got, count
+        if attempt >= 1 and by_name:
             break
-        print(f"[kernel] {label or 'kernel_ms'}: the profiler recorded no device "
-              "event; profiling again")
+        if not got:
+            print(f"[kernel] {label or 'kernel_ms'}: the profiler recorded no device "
+                  "event; profiling again")
     check(bool(by_name), "the profiler recorded no device time")
     if label:
         print(f"[kernel] {label}, device ms a call: " + "; ".join(
@@ -1197,7 +1209,7 @@ def f64_gate(tag, got, plain32, exact):
 
 
 def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
-              shape, f64=False, tc_grads=(), f64_gates=False):
+              shape, f64=False, tc_grads=(), f64_gates=False, cuda_cores=None):
     """Forward, dx and the parameter gradients of a KAN wrapper against its
     plain version and autograd through it, on the card; the backward's bits
     repeated; CUDA-event times of the forward kernel, the backward kernels
@@ -1215,6 +1227,13 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
     times are measured, and with ``f64_gates`` the forward and these
     gradients on both routes are held no further from f64 than twice the
     plain f32 version.
+
+    ``cuda_cores(g)``: the backward is a grouped q/k/v's on the tensor cores
+    (3xTF32), and this launches the CUDA-core kernels it replaces on the
+    same operands: every gradient is held no further from f64 than twice
+    the plain f32 version, the backward's device time is measured beside
+    the CUDA-core kernels' time, and its bounds are the 3xTF32 ones (the
+    forward stays on the CUDA cores).
     Returns the ``(err, ms, plain_ms, extras...)`` of the forward and of the
     backward."""
     x = inputs[0]
@@ -1241,7 +1260,7 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
               f"gives the all-gradients route's bits: {same}")
         check(same, f"{name}_bwd {label}: the no-dx route's gradients differ")
     extra_bwd = {}
-    if f64 or f64_gates:
+    if f64 or f64_gates or cuda_cores is not None:
         _, _, want64 = grads_of(torch, lambda *a: plain(*a).double(),
                                 [a.double() for a in inputs], g.double())
         for nm, a, b, c in zip(names, got, want, want64):
@@ -1252,6 +1271,9 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
     if f64:
         compare_grads(f"{name}_bwd {label} against f64", names,
                       [a.double() for a in got], want64)
+    if cuda_cores is not None:
+        for nm, a, b, c in zip(names, got, want, want64):
+            extra_bwd[f"f64_err_d{nm}"] = f64_gate(f"{name}_bwd {label} d{nm}", a, b, c)
     if f64_gates:
         for nm, b, c in zip(names, want, want64):
             if nm in tc_grads:
@@ -1275,6 +1297,12 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
     *dims, extra, train_contractions = shape
     tc = bool(tc_grads)
     extra_bwd["no_dx_ms"] = train_ms
+    if cuda_cores is not None:
+        extra_bwd["device_ms"] = kernel_ms(torch, lambda: bwd(g), 10,
+                                           label=f"{name}_bwd {label}, tensor cores")
+        extra_bwd["cuda_core_ms"] = time_ms(torch, lambda: cuda_cores(g))
+        extra_bwd["cuda_core_device_ms"] = kernel_ms(torch, lambda: cuda_cores(g), 10,
+                                                     label=f"{name}_bwd {label}, CUDA cores")
     if f64_gates:
         with torch.inference_mode():
             extra_fwd["device_ms"] = kernel_ms(torch, fwd, 10, label=f"{name} {label}")
@@ -1292,11 +1320,12 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
           f"embedder's training step {train_ms:.4f} ms)  plain autograd "
           f"{plain_bwd_ms:.4f} ms" + "".join(
               f"; {k} {v:.4f}" for k, v in {**extra_fwd, **extra_bwd}.items()
-              if k.endswith("device_ms")))
+              if k.endswith(("device_ms", "cuda_core_ms"))))
     return ((err_fwd, ms, plain_ms, extra_fwd,
              kan_bound(*dims, extra_floats=extra, tensor_cores=tc)),
             (err_bwd, bwd_ms, plain_bwd_ms, extra_bwd,
-             kan_bound(*dims, backward=True, extra_floats=extra, tensor_cores=tc)))
+             kan_bound(*dims, backward=True, extra_floats=extra,
+                       tensor_cores=tc or cuda_cores is not None)))
 
 
 def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
@@ -1337,10 +1366,24 @@ def sine_inputs(rng, shape):
     return x
 
 
-def check_rbf(torch, rng, name, label, n, groups, nin, nout):
+def cuda_core_route(FB, launch):
+    """``launch()`` with the grouped q/k/v backwards off the tensor cores: the
+    CUDA-core kernels they replace, on the same operands, to time beside
+    them."""
+    routes = FB.TC_GROUPED_BWD
+    FB.TC_GROUPED_BWD = ()
+    try:
+        return launch()
+    finally:
+        FB.TC_GROUPED_BWD = routes
+
+
+def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False):
     """``fastkan`` (groups 1) or ``fastkan_qkv_grouped`` against the plain
     FastKAN forward (per head) and autograd through it: x, the LayerNorm's
-    gamma and beta, spline and base weights, base bias."""
+    gamma and beta, spline and base weights, base bias. ``tc_gates``: the
+    grouped backward's tensor-core gates and times beside the CUDA-core
+    kernels (``check_kan``'s ``cuda_cores``)."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.ops import kan_bases as K
 
@@ -1378,16 +1421,22 @@ def check_rbf(torch, rng, name, label, n, groups, nin, nout):
         lambda g: FB._launch_rbf_bwd(bname, x, w, ga, be, grid, den, stats, g, True, True),
         lambda g: FB._launch_rbf_bwd(bname, x, w, ga, be, grid, den, stats, g, False,
                                      True))
+
+    def cuda_cores(g):
+        return cuda_core_route(FB, lambda: FB._launch_rbf_bwd(
+            bname, x, w, ga, be, grid, den, stats, g, True, True))
+
     return check_kan(torch, rng, name, label, kernel, plain, [x, *params],
                      ("x", "gamma", "beta", "spline_weight", "base_weight", "base_bias"),
-                     launches, (n, groups, 9, nin, nout, 2 * groups * nin + 8, 2))
+                     launches, (n, groups, 9, nin, nout, 2 * groups * nin + 8, 2),
+                     cuda_cores=cuda_cores if tc_gates else None)
 
 
-def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size):
+def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size, tc_gates=False):
     """``sinekan`` (groups 1) or ``sinekan_qkv_grouped`` against the plain
     SineKAN forward (per head) and autograd through it: x, freq, amplitudes,
     bias. At the embedder dfreq sums N * nin = 9.6M terms a slice: the
-    gradients are held against f64 too."""
+    gradients are held against f64 too. ``tc_gates``: as ``check_rbf``'s."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.ops import kan_bases as K
 
@@ -1420,12 +1469,18 @@ def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size):
         lambda: FB._launch_sine(name, x, w, freq2d, phase),
         lambda g: FB._launch_sine_bwd(bname, x, w, freq2d, phase, g, True, True),
         lambda g: FB._launch_sine_bwd(bname, x, w, freq2d, phase, g, False, True))
+
+    def cuda_cores(g):
+        return cuda_core_route(FB, lambda: FB._launch_sine_bwd(
+            bname, x, w, freq2d, phase, g, True, True))
+
     return check_kan(torch, rng, name, label, kernel, plain, [x, *params],
                      ("x", "freq", "amplitudes", "bias"), launches,
                      (n, groups, grid_size, nin, nout, (groups + nin) * grid_size, 2),
                      f64=groups == 1 and nin >= 768,
                      tc_grads=("freq", "amplitudes") if groups == 1 else (),
-                     f64_gates=groups == 1 and nin >= 768)
+                     f64_gates=groups == 1 and nin >= 768,
+                     cuda_cores=cuda_cores if tc_gates else None)
 
 
 def phase_basis_kernels(torch):
@@ -1499,7 +1554,7 @@ def phase_rbf_sine_kernels(torch):
     for n, h, dh, label in ((BATCH * 197, 6, 64, "vit-s q/k/v"),
                             (37 * 50 - 1, 2, 32, "ragged")):
         keep("fastkan_qkv_grouped", check_rbf(torch, rng, "fastkan_qkv_grouped",
-                                              label, n, h, dh, dh))
+                                              label, n, h, dh, dh, tc_gates=n > 10000))
     for n, nin, nout, gs, label in ((BATCH * 196, 768, 384, 28, "vit-s embedder G28"),
                                     (37 * 49, 16, 64, 28, "ragged G28"),
                                     (999, 20, 70, 7, "ragged G7")):
@@ -1507,7 +1562,7 @@ def phase_rbf_sine_kernels(torch):
     for n, h, dh, label in ((BATCH * 197, 6, 64, "vit-s q/k/v"),
                             (37 * 50 - 1, 2, 32, "ragged")):
         keep("sinekan_qkv_grouped", check_sine(torch, rng, "sinekan_qkv_grouped",
-                                               label, n, h, dh, dh, 4))
+                                               label, n, h, dh, dh, 4, tc_gates=n > 10000))
     return results
 
 
@@ -2158,7 +2213,7 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
 KAN_FAMILIES = ("Bspline", "Cheby", "Fourier", "Rbf", "Sine")
 KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
-    ("KAN q/k/v bwd on the tensor cores (B-spline: dW, dx)",
+    ("KAN q/k/v bwd on the tensor cores (B-spline, RBF, sine: dW, dx)",
      ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
      ("kan_tc_kernel", "kan_tc_split")),
@@ -2610,11 +2665,11 @@ SOURCES = {
     "fastkan": (RBF_SINE_SRC, f"{FB_PY}:2947"),
     "fastkan_bwd": (RBF_SINE_SRC, f"{FB_PY}:2995"),
     "fastkan_qkv_grouped": (RBF_SINE_SRC, f"{FB_PY}:3191"),
-    "fastkan_qkv_grouped_bwd": (RBF_SINE_SRC, f"{FB_PY}:3246"),
+    "fastkan_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:3246"),
     "sinekan": (KAN_TC_SRC, f"{FB_PY}:2317"),
     "sinekan_bwd": (KAN_TC_SRC, f"{FB_PY}:2523"),
     "sinekan_qkv_grouped": (RBF_SINE_SRC, f"{FB_PY}:1518"),
-    "sinekan_qkv_grouped_bwd": (RBF_SINE_SRC, f"{FB_PY}:1557"),
+    "sinekan_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:1557"),
     "ffn_pre_ln": ("kanvit_torch/kernels/csrc/fused_ffn.cu",
                    "kanvit/kernels/fused_ffn.py:177"),
     "ffn_pre_ln_bwd": ("kanvit_torch/kernels/csrc/fused_ffn.cu",
@@ -2653,6 +2708,19 @@ ROUTES = {
                   "over a basis generated on chip, in row splits summed in a fixed order; "
                   "kan_tc_dx_kernel<Bspline> with B' in its epilogue",
         "instantiated_in": KAN_SRC},
+    "fastkan_qkv_grouped_bwd": {
+        "kernel": "dW and dx on 3xTF32 mma.sync.m16n8k8: kan_tc_dw_grouped<Rbf, NJ> over a "
+                  "basis generated on chip, in row splits summed in a fixed order; "
+                  "kan_tc_dx_kernel<Rbf> with the RBF fold (dln, the silu term) in its "
+                  "epilogue; the LayerNorm's VJP, dgamma and dbeta on ln_dx_kernel and "
+                  "ln_dgb_kernel",
+        "instantiated_in": RBF_SINE_SRC},
+    "sinekan_qkv_grouped_bwd": {
+        "kernel": "G <= 4: dW and dx on 3xTF32 mma.sync.m16n8k8: kan_tc_dw_grouped<Sine, NJ> "
+                  "over a basis generated on chip, in row splits summed in a fixed order; "
+                  "kan_tc_dx_kernel<Sine> with the sine fold (dx, dfreq's block sums) in "
+                  "its epilogue, sum_blocks_kernel; G > 4 on the CUDA-core kernels",
+        "instantiated_in": RBF_SINE_SRC},
     "fourierkan": {"kernel": TC_FWD.format("FourierTc"), "instantiated_in": KAN_SRC},
     "fourierkan_bwd": {"kernel": TC_BWD.format("", "FourierTc"),
                        "instantiated_in": KAN_SRC},

@@ -267,16 +267,24 @@ extern "C" int kanvit_bspline_kan_bwd(const float* x, long long ldx,
 // The grouped q/k/v backward (bspline_qkv_grouped's) on the tensor cores
 // (kan_basis_tc.cuh, part 2): dx and dW as kanvit_bspline_kan_bwd, splits
 // the dW kernel's row splits (at most), with scratch wtsplit
-// (launch_tc_grouped_bwd says its size) and, with splits > 1, dw_part.
+// (launch_tc_grouped_dx says its size) and, with splits > 1, dw_part.
 extern "C" int kanvit_bspline_qkv_tc_bwd(const float* x, long long ldx,
                                          const float* gridt, long long gstride,
                                          const float* w, const float* gy, float* dx,
                                          float* dw, float* dw_part, unsigned int* wtsplit,
                                          int n, int groups, int nin, int nout,
                                          int splits, void* stream) {
-  return launch_tc_grouped_bwd<Bspline>(x, ldx, {gridt, gstride}, w, gy, dx, dw, dw_part,
-                                        wtsplit, n, groups, nin, nout, splits,
-                                        (cudaStream_t)stream);
+  if (bad_shape(n, groups, nin, nout)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Bspline::Params p{gridt, gstride};
+  if (dx != nullptr) {
+    const int err = launch_tc_grouped_dx<Bspline>(x, ldx, p, w, gy, dx, nullptr, 0, nullptr,
+                                                  wtsplit, n, groups, nin, nout, st);
+    if (err != 0) return err;
+  }
+  if (dw == nullptr) return 0;
+  return launch_tc_grouped_dw<Bspline>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout,
+                                       splits, st);
 }
 
 // Chebyshev, degree 4: S = 5.

@@ -464,23 +464,35 @@ kan_dw_kernel(const float* __restrict__ x, long long ldx,
   }
 }
 
-// out[e] = sum over splits of part[split][e], in split order.
+// out[e] = sum over splits of part[split][e], in split order: one running
+// sum, or with group > 0 two levels (the splits in groups of `group`, each
+// group's running sum added into the total in order), whose rounding grows
+// with splits / group + group rather than with splits.
 __global__ void sum_splits_kernel(const float* __restrict__ part,
                                   float* __restrict__ out, long long total,
-                                  int splits) {
+                                  int splits, int group) {
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x;
        e < total; e += (long long)gridDim.x * blockDim.x) {
     float acc = 0.f;
-    for (int sp = 0; sp < splits; ++sp) acc += part[(long long)sp * total + e];
+    if (group <= 0) {
+      for (int sp = 0; sp < splits; ++sp) acc += part[(long long)sp * total + e];
+    } else {
+      for (int g0 = 0; g0 < splits; g0 += group) {
+        float sum = 0.f;
+        for (int sp = g0; sp < min(splits, g0 + group); ++sp)
+          sum += part[(long long)sp * total + e];
+        acc += sum;
+      }
+    }
     out[e] = acc;
   }
 }
 
 int sum_splits(const float* part, float* out, long long total, int splits,
-               cudaStream_t st) {
+               cudaStream_t st, int group = 0) {
   const long long want = (total + 255) / 256;
   const long long blocks = want < 4096 ? want : 4096;
-  sum_splits_kernel<<<(unsigned)blocks, 256, 0, st>>>(part, out, total, splits);
+  sum_splits_kernel<<<(unsigned)blocks, 256, 0, st>>>(part, out, total, splits, group);
   return (int)cudaGetLastError();
 }
 

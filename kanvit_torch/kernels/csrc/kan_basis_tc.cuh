@@ -4,12 +4,12 @@
 // templated contraction over a basis generated on chip (kan_tc_kernel),
 // instantiated for Fourier in kan_basis.cu and for sine in kan_rbf_sine.cu.
 // Their dx stays on kan_basis.cuh's CUDA-core kan_dx_kernel, and the grouped
-// sine q/k/v on its CUDA-core kernels.
+// sine q/k/v's forward on its CUDA-core kernel.
 //
 // Part 2 (below, "The grouped q/k/v backward"): dW and dx of a grouped KAN
 // projection, one group a head, templated over kan_basis.cuh's basis
 // families (kan_tc_dw_grouped, kan_tc_dx_kernel); instantiated for B-spline
-// in kan_basis.cu.
+// in kan_basis.cu and for RBF and sine in kan_rbf_sine.cu.
 //
 // Part 1:
 //
@@ -606,35 +606,49 @@ int launch_tc_dw(const float* x, long long ldx, typename F::Params p, const floa
 //   gW            = gy_g W_g^T                          (over the outputs)
 // with the family's basis B and derivative B' (kan_basis.cu's B-spline: the
 // 8 cubic bases of a 12-knot grid and silu, S = 9, the knots of group g at
-// gridt + g gstride, so a refit grid a head is one more stride).
+// gridt + g gstride, so a refit grid a head is one more stride), or the
+// family's own fold of gW (kan_rbf_sine.cu). Instantiated for B-spline in
+// kan_basis.cu, and for RBF (FastKAN: 8 Gaussians of the head's LayerNorm
+// and silu, S = 9, or 8 without the base slice; _rbf_ln_sg_op_bwd, :3246)
+// and sine (S = G <= 4 slices; _sine_op_sg_bwd, :1557) in kan_rbf_sine.cu.
+// A family's tile holds SC slices; a weight of S < SC slices leaves the
+// rest zero in both operands and never stores them.
 //
 // What bounds it on the H100: the products. At the vit-s q/k/v (n 12,608,
 // 6 heads of nin 64, nout 192) dW and dx are 16.73 GFLOP each: 0.4995 ms in
 // f32 at 67 TFLOP/s, 0.2028 ms in 3xTF32 at the dense 495 TFLOP/s, 0.324 at
 // mma.sync's measured 309.7; the bytes (x, gy, W, dx, dW) take 0.04 ms.
+// FastKAN's and sine's q/k/v (one projection: nout 64, S 9 and 4) are 5.58
+// and 2.48 GFLOP each; beside the products, their basis (8 expf and silu,
+// or 4 sinf, per x value in dW; the fold's expf, cosf in dx) and the
+// LayerNorm's row passes (FastKAN: 0.058 of its 0.407 ms on the H100 80GB
+// HBM3 at 700 W, probe_qkv.py) bound them.
 // Arithmetic: 3xTF32 mma.sync.m16n8k8 (attention_tc.cuh), through the
 // operand type Op (Tf32x3; a bf16 type would take one product a step).
 //
 // dW (kan_tc_dw_grouped<F, NJ>): C = A B with A the basis transposed,
 // ((slice, feature) x rows), generated on chip, and B gy, landing raw by
-// cp.async two stages ahead and split once a block (a pre-pass writing gy
-// split, 116 MB at vit-s, took 0.151 ms of the first form's 0.902 on the
-// H100 80GB HBM3 at 700 W, probe_qkv.py). A block holds 16
-// features of one group, all F::SC slices of each: SC m16 tiles of C (144
-// rows for B-spline), by 64 NJ outputs (NJ 3: 192, the vit-s q|k|v; NJ 1:
-// 64 where nout <= 64), 8 warps side by side along the outputs, SC x NJ
-// m16n8 tiles a warp (108 accumulators at NJ 3). A stage is 32 rows: while
-// the warps run stage kt's products, every thread makes stage kt + 1: it
-// splits its share of that stage's gy into bpairs and generates two x
-// values' SC basis values (one Cox-de Boor pass for all 9, never one a
-// slice), split into afrags; two buffers of each, one barrier a stage. The
-// grouped dW is only 6 heads x 4 feature tiles x 1 output tile at vit-s, 24
-// blocks, so the rows are cut into splits (22 there: 528 blocks, four
-// waves at one block an SM), each writing its partial, summed in split
-// order by sum_splits_kernel: no atomics, a second backward repeats the
-// bits. Inside a split the running sum is added into the split's partial
-// every tc::FLUSH stages (part 1's two-level sum; the partial is the
-// block's own slab).
+// cp.async two stages ahead into one of three buffers and split as each
+// warp loads its fragments (each warp owns its outputs, so each value is
+// split once a block; a pre-pass writing gy split, 116 MB at vit-s, took
+// 0.151 ms of the first form's 0.902 on the H100 80GB HBM3 at 700 W,
+// probe_qkv.py; bpairs split a stage ahead held 32 KB more shared memory
+// and one block an SM: FastKAN's dW 0.2405 ms, raw 0.1842). A block holds
+// 16 features of one group, all F::SC slices of each: SC m16 tiles of C
+// (144 rows for B-spline), by 64 NJ outputs (NJ 3: 192, the vit-s q|k|v;
+// NJ 1: 64 where nout <= 64), 8 warps side by side along the outputs, SC x
+// NJ m16n8 tiles a warp (108 accumulators at NJ 3). A stage is 32 rows:
+// while the warps run stage kt's products, every thread generates two x
+// values' SC basis values of stage kt + 1 (one Cox-de Boor pass for all 9,
+// never one a slice), split into afrags; two A buffers, one barrier a
+// stage. One block an SM at NJ 3, two at NJ 1 (three for 4 slices):
+// tc_dw_blocks. The grouped dW is only 6 heads x 4 feature tiles x 1
+// output tile at vit-s, 24 blocks, so the rows are cut into splits (22
+// there: 528 blocks), each writing its partial, summed in split order by
+// sum_splits_kernel: no atomics, a second backward repeats the bits. Inside
+// a split the running sum is added into the split's partial every
+// tc::FLUSH stages (part 1's two-level sum; the partial is the block's own
+// slab).
 //
 // dx (kan_tc_dx_kernel<F>): C = gy_g W_g^T, gy landing raw by cp.async and
 // split by each warp as it loads its fragments, W^T split once a call by the
@@ -643,9 +657,12 @@ int launch_tc_dw(const float* x, long long ldx, typename F::Params p, const floa
 // slice, feature), so warp (row group, half) holds 32 rows x the 8 features
 // of its half x all SC slices, and each thread all SC values of its (row,
 // feature) pairs. The epilogue generates B'_s(x) (the family's closed form)
-// and reduces over s in registers: gW never leaves them. 8 warps, 2 blocks
-// an SM; 2,376 blocks at vit-s. The contraction is nout deep (192), one
-// running sum.
+// and reduces over s in registers, or hands the SC values to the family's
+// fold (kan_dx_kernel's contract: RBF keeps dln and the silu term apart
+// for the LayerNorm's VJP, sine adds x cos(arg) gW_s into per-slice sums
+// for dfreq, reduced over the block in a fixed order): gW never leaves the
+// registers. 8 warps, 2 blocks an SM; 2,376 blocks at the vit-s q|k|v. The
+// contraction is nout deep (192), one running sum.
 //
 // Ragged rows, features and outputs are zero in the generated A and the
 // split operands and never stored. gy rows need no alignment: 16-byte
@@ -668,6 +685,14 @@ struct Tf32x3 {
     split_round(a1, b.y, sm.y);
     *reinterpret_cast<uint2*>(at) = b;
     *reinterpret_cast<uint2*>(at + 128) = sm;
+  }
+  // A B fragment (k = 2t, 2t + 1 of the step; column g) of a raw row-major
+  // (k x column) tile: `at` points at (the step's first row + 2t, g). The
+  // words of store_b.
+  template <int PITCH>
+  __device__ __forceinline__ static B cols(const float* at) {
+    const float v[2] = {at[0], at[PITCH]};
+    return split_frag(v);
   }
   // A fragment (rows m, m + 8; k = 2t, 2t + 1 of the step) of a raw row-major
   // tile: `at` points at (m, the step's first column + 2t).
@@ -701,26 +726,37 @@ __device__ __forceinline__ void cp_async4(float* dst, const float* src, bool in)
 // dx's W^T of every group and feature tile: stage kt' = (g ftn + ft) nk + kt
 // holds outputs 16 kt .. 16 kt + 15 by the tile's columns (half, slice,
 // feature): column c is feature 16 ft + 8 (c / 8 SC) + c % 8 of slice
-// c / 8 % SC.
+// c / 8 % SC; slices past the weight's S are zero.
 template <int SC>
 struct WtSource {
-  const float* w;  // (groups, SC, nin, nout)
-  int nin, nout, ftn, nk;
+  const float* w;  // (groups, S, nin, nout)
+  int slices, nin, nout, ftn, nk;
   __device__ float operator()(long long kt, int k, int col) const {
     const long long gft = kt / nk;
     const int g = (int)(gft / ftn), ft = (int)(gft % ftn);
     const int o = (int)(kt % nk) * tcg::DX_KS + k;
     const int s = col / 8 % SC, f = ft * tcg::FT + col / (8 * SC) * 8 + col % 8;
-    return o < nout && f < nin ? w[(((long long)g * SC + s) * nin + f) * nout + o] : 0.f;
+    return s < slices && o < nout && f < nin
+               ? w[(((long long)g * slices + s) * nin + f) * nout + o] : 0.f;
   }
 };
 
+// Blocks an SM the grouped dW kernel is built for: one at NJ 3 (108
+// accumulators a thread), two at NJ 1, three at NJ 1 for a tile of at most
+// 4 slices (registers 128 and 85 a thread).
+template <int SC, int NJ>
+constexpr int tc_dw_blocks() {
+  return NJ > 1 ? 1 : SC <= 4 ? 3 : 2;
+}
+
 // dW of one group's 16 features x 64 NJ outputs over the rows of one split:
-// grid (npad / 64 NJ, feature tiles x groups, splits). out: dW (groups, SC,
-// nin, nout) with one split, else split z's partial at z groups SC nin nout.
+// grid (npad / 64 NJ, feature tiles x groups, splits). out: dW (groups, S,
+// nin, nout) with one split, else split z's partial at z groups S nin nout
+// (S = F::slices(p) <= SC: a family's tile slices past S are zero, never
+// stored).
 // gy (n, ldg), group g's columns at g nout; vec: 16-byte copies of it.
 template <class F, int NJ, class Op = Tf32x3>
-__global__ void __launch_bounds__(tcg::THREADS, 1)
+__global__ void __launch_bounds__(tcg::THREADS, (tc_dw_blocks<F::SC, NJ>()))
 kan_tc_dw_grouped(const float* __restrict__ x, long long ldx, typename F::Params p,
                   const float* __restrict__ gy, long long ldg, float* __restrict__ out,
                   int n, int groups, int nin, int nout, int nk, int stages_per_split,
@@ -728,13 +764,12 @@ kan_tc_dw_grouped(const float* __restrict__ x, long long ldx, typename F::Params
   constexpr int THREADS = tcg::THREADS, SC = F::SC, KT = tc::KT, KSTEPS = tc::KSTEPS;
   constexpr int BN = 64 * NJ;
   constexpr int A_WORDS = SC * KSTEPS * 256;  // afrags of a stage: SC m16 tiles
-  constexpr int B_WORDS = BN * 2 * KT;        // bpairs of a stage
-  constexpr int STAGE = A_WORDS + B_WORDS;
   constexpr int RAW_P = BN + 4;               // raw gy's pitch, 4 mod 32
+  constexpr int RAW = KT * RAW_P;             // a stage's raw gy
   extern __shared__ __align__(16) float sm[];
   __shared__ typename F::template Stage<tcg::FT> st;
   uint32_t* stages = reinterpret_cast<uint32_t*>(sm);
-  float* raw = sm + 2 * STAGE;  // 2 x (KT, RAW_P): gy of the stage after next
+  float* raw = sm + 2 * A_WORDS;  // 3 x RAW: gy of this stage, the next and the one after
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t = lane & 3;
   const int ftn = cdiv(nin, tcg::FT);
@@ -742,12 +777,13 @@ kan_tc_dw_grouped(const float* __restrict__ x, long long ldx, typename F::Params
   const int f0 = blockIdx.y % ftn * tcg::FT;
   const int kt0 = blockIdx.z * stages_per_split;
   const int kt1 = min(nk, kt0 + stages_per_split);
+  const int S = F::slices(p);
   const float* gyg = gy + (long long)grp * nout + o0;
   F::template stage<tcg::FT>(p, nin, f0, grp, st);
 
   // gy of stage kt (32 rows x BN outputs) into raw buffer buf, by cp.async
   auto load_gy = [&](int kt, int buf) {
-    float* r = raw + buf * KT * RAW_P;
+    float* r = raw + buf * RAW;
     if (vec) {
 #pragma unroll
       for (int i = 0; i < KT * BN / 4 / THREADS; ++i) {
@@ -781,19 +817,9 @@ kan_tc_dw_grouped(const float* __restrict__ x, long long ldx, typename F::Params
     xa = live && fa < nin ? xg[row * ldx + fa] : 0.f;
     xb = live && fb < nin ? xg[row * ldx + fb] : 0.f;
   };
-  // Stage kt into buffer buf: gy split from raw buffer rb into bpairs (a
-  // quarter-warp: columns c, c + 1 x 4 fragment threads), and the basis of
-  // xa, xb split into afrags.
-  auto make = [&](int kt, int buf, int rb) {
-    uint32_t* as = stages + buf * STAGE;
-    const float* r = raw + rb * KT * RAW_P;
-#pragma unroll
-    for (int i = 0; i < BN * KSTEPS * 4 / THREADS; ++i) {
-      const int u = tid + i * THREADS, ut = u & 3, s = (u >> 5) & 3;
-      const int col = (u >> 7) * 8 + ((u >> 2) & 7);
-      const float* at = r + (8 * s + 2 * ut) * RAW_P + col;
-      store_b(as + A_WORDS + tc_bword(col, s, ut), at[0], at[RAW_P]);
-    }
+  // Stage kt's A into buffer buf: the basis of xa, xb split into afrags.
+  auto make = [&](int kt, int buf) {
+    uint32_t* as = stages + buf * A_WORDS;
     const long long row = row_of(kt);
     float va[SC], vb[SC];
 #pragma unroll
@@ -815,7 +841,7 @@ kan_tc_dw_grouped(const float* __restrict__ x, long long ldx, typename F::Params
       for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
   // the running sum added into this split's partial (the first time
   // written), then restarted
-  float* dst = out + ((long long)blockIdx.z * groups + grp) * SC * nin * nout;
+  float* dst = out + ((long long)blockIdx.z * groups + grp) * S * nin * nout;
   auto flush = [&](bool first) {
 #pragma unroll
     for (int i = 0; i < SC; ++i)
@@ -825,7 +851,7 @@ kan_tc_dw_grouped(const float* __restrict__ x, long long ldx, typename F::Params
         for (int e = 0; e < 4; ++e) {
           const int f = f0 + g8 + 8 * (e >> 1);
           const int o = o0 + 8 * (warp * NJ + j) + 2 * t + (e & 1);
-          if (f < nin && o < nout) {
+          if (i < S && f < nin && o < nout) {
             float* d = dst + ((long long)i * nin + f) * nout + o;
             *d = first ? acc[i][j][e] : *d + acc[i][j][e];
           }
@@ -833,35 +859,34 @@ kan_tc_dw_grouped(const float* __restrict__ x, long long ldx, typename F::Params
         }
   };
 
-  // Stage kt + 1 is made (and kt + 2's gy lands) while stage kt's products
-  // run: buffers by (stage - kt0) & 1.
+  // Stage kt + 1's A is made, and kt + 2's gy lands, while stage kt's
+  // products run: A buffers by (stage - kt0) & 1, gy buffers by (stage -
+  // kt0) % 3; one cp.async group a stage.
   load_gy(kt0, 0);
   cp_async_commit();
   if (kt0 + 1 < kt1) load_gy(kt0 + 1, 1);
   cp_async_commit();
   load_x(kt0);
-  cp_async_wait<1>();
-  __syncthreads();  // stage kt0's gy landed
-  make(kt0, 0, 0);
+  make(kt0, 0);
   load_x(kt0 + 1);
   for (int kt = kt0; kt < kt1; ++kt) {
-    const int b = (kt - kt0) & 1;
-    cp_async_wait<0>();
-    __syncthreads();  // stage kt made, stage kt + 1's gy landed; buffers b ^ 1 free
-    if (kt + 2 < kt1) load_gy(kt + 2, b);
+    const int b = (kt - kt0) & 1, r = (kt - kt0) % 3;
+    cp_async_wait<1>();
+    __syncthreads();  // stage kt made, its gy landed; A buffer b ^ 1 and gy buffer r + 2 free
+    if (kt + 2 < kt1) load_gy(kt + 2, (r + 2) % 3);
     cp_async_commit();
     if (kt + 1 < kt1) {
-      make(kt + 1, b ^ 1, b ^ 1);
+      make(kt + 1, b ^ 1);
       load_x(kt + 2);
     }
-    const uint32_t* as = stages + b * STAGE;
-    const uint32_t* bs = as + A_WORDS;
+    const uint32_t* as = stages + b * A_WORDS;
+    const float* rs = raw + r * RAW;
 #pragma unroll
     for (int s = 0; s < KSTEPS; ++s) {
-      typename Op::B bf[NJ];
+      typename Op::B bf[NJ];  // gy's rows 8 s + 2 t, + 1 of column 8 (warp NJ + j) + g8
 #pragma unroll
       for (int j = 0; j < NJ; ++j)
-        bf[j] = Op::load_b(bs + tc_bword(8 * (warp * NJ + j) + g8, s, t));
+        bf[j] = Op::template cols<RAW_P>(rs + (8 * s + 2 * t) * RAW_P + 8 * (warp * NJ + j) + g8);
 #pragma unroll
       for (int i = 0; i < SC; ++i) {
         const typename Op::A a = Op::load_a(as + (i * KSTEPS + s) * 256 + 4 * lane);
@@ -875,12 +900,20 @@ kan_tc_dw_grouped(const float* __restrict__ x, long long ldx, typename F::Params
 }
 
 // dx of one group's 128 rows x 16 features: grid (feature tiles, row tiles,
-// groups); wsplit from WtSource, 16-output stages of 2 SC 8 columns.
+// groups); wsplit from WtSource, 16-output stages of 2 SC 8 columns. The
+// epilogue keeps kan_dx_kernel's contract (kan_basis.cuh): per (row,
+// feature) two outputs, o0 from the family's derivatives (sum_s B'_s gW_s)
+// or, with DX_FOLD, o0 and o1 from its fold; with `split` o0 goes to out0
+// and o1 to out1 (either may be null), without it o0 + o1 to out0 (null:
+// nothing is written). A DX_RED family's per-slice sums are reduced over
+// the block in a fixed order into red_part[g][block][slice] (null:
+// skipped), block = row tile x feature tiles + feature tile.
 template <class F, class Op = Tf32x3>
 __global__ void __launch_bounds__(tcg::THREADS, 2)
 kan_tc_dx_kernel(const float* __restrict__ x, long long ldx, typename F::Params p,
                  const float* __restrict__ gy, long long ldg,
-                 const uint32_t* __restrict__ wsplit, float* __restrict__ dx, int n,
+                 const uint32_t* __restrict__ wsplit, float* __restrict__ out0,
+                 float* __restrict__ out1, int split, float* __restrict__ red_part, int n,
                  int groups, int nin, int nout, int nk, int vec) {
   constexpr int THREADS = tcg::THREADS, SC = F::SC, BM = tcg::DX_BM;
   constexpr int KS = tcg::DX_KS, PITCH = tcg::DX_PITCH;
@@ -890,6 +923,7 @@ kan_tc_dx_kernel(const float* __restrict__ x, long long ldx, typename F::Params 
   constexpr int STAGE = A_FLOATS + B_WORDS;
   extern __shared__ __align__(16) float sm[];
   __shared__ typename F::template Stage<tcg::FT> st;
+  __shared__ float redw[F::DX_RED ? THREADS / 32 : 1][SC];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t = lane & 3, wr = warp >> 1, wh = warp & 1;
   const int ftn = cdiv(nin, tcg::FT);
@@ -957,9 +991,13 @@ kan_tc_dx_kernel(const float* __restrict__ x, long long ldx, typename F::Params 
     }
   }
 
-  // dx of this thread's rows (g8, g8 + 8 of its two m16 tiles) and features
-  // (2t, 2t + 1 of its half): sum_s B'_s(x) gW_s, in slice order
+  // The epilogue of this thread's rows (g8, g8 + 8 of its two m16 tiles)
+  // and features (2t, 2t + 1 of its half), each with all SC slices of gW:
+  // sum_s B'_s(x) gW_s in slice order, or the family's fold.
   const long long ldd = (long long)groups * nin;
+  float red[SC];
+#pragma unroll
+  for (int j = 0; j < SC; ++j) red[j] = 0.f;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -968,15 +1006,46 @@ kan_tc_dx_kernel(const float* __restrict__ x, long long ldx, typename F::Params 
       const int kf = 8 * wh + 2 * t + (e & 1), f = f0 + kf;
       if (row >= n || f >= nin) continue;
       const Elem el{x[row * ldx + (long long)grp * nin + f], kf, f, grp, row};
-      float d[SC];
-      F::template derivs<tcg::FT>(p, st, el, 0, d);
-      float sum = 0.f;
+      float o0 = 0.f, o1 = 0.f;
+      if constexpr (F::DX_FOLD) {
+        float gw[SC];
 #pragma unroll
-      for (int j = 0; j < SC; ++j) sum = fmaf(acc[i][j][e], d[j], sum);
-      dx[row * ldd + (long long)grp * nin + f] = sum;
+        for (int j = 0; j < SC; ++j) gw[j] = acc[i][j][e];
+        F::template fold<tcg::FT>(p, st, el, 0, gw, o0, o1, red);
+      } else {
+        float d[SC];
+        F::template derivs<tcg::FT>(p, st, el, 0, d);
+#pragma unroll
+        for (int j = 0; j < SC; ++j) o0 = fmaf(acc[i][j][e], d[j], o0);
+      }
+      const long long at = row * ldd + (long long)grp * nin + f;
+      if (split) {
+        if (out0 != nullptr) out0[at] = o0;
+        if (out1 != nullptr) out1[at] = o1;
+      } else if (out0 != nullptr) {
+        out0[at] = F::DX_FOLD ? o0 + o1 : o0;
+      }
     }
+  if constexpr (F::DX_RED) {
+    if (red_part != nullptr) {  // lanes by a fixed butterfly, then warps in order
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {
+        float v = red[j];
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+        if (lane == 0) redw[warp][j] = v;
+      }
+      __syncthreads();
+      const int S = F::slices(p);
+      if (tid < S) {
+        float sum = 0.f;
+        for (int wv = 0; wv < THREADS / 32; ++wv) sum += redw[wv][tid];
+        const long long blk = ((long long)grp * gridDim.y + blockIdx.y) * gridDim.x + blockIdx.x;
+        red_part[blk * S + tid] = sum;
+      }
+    }
+  }
 }
-
 
 template <class F, int NJ>
 int launch_tc_dw_grouped(const float* x, long long ldx, typename F::Params p,
@@ -990,8 +1059,7 @@ int launch_tc_dw_grouped(const float* x, long long ldx, typename F::Params p,
   if (splits > 1 && dw_part == nullptr) return (int)cudaErrorInvalidValue;
   const long long tiles = (long long)cdiv(nin, tcg::FT) * groups;
   if (tiles > 65535 || splits > 65535) return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (2 * (F::SC * tc::KSTEPS * 256 + BN * 2 * tc::KT) +
-                                       2 * tc::KT * (BN + 4));
+  const size_t smem = sizeof(float) * (2 * F::SC * tc::KSTEPS * 256 + 3 * tc::KT * (BN + 4));
   int err = tc_attr(kan_tc_dw_grouped<F, NJ>, smem);
   if (err != 0) return err;
   kan_tc_dw_grouped<F, NJ><<<dim3(cdiv(nout, BN), (unsigned)tiles, splits), tcg::THREADS,
@@ -999,42 +1067,59 @@ int launch_tc_dw_grouped(const float* x, long long ldx, typename F::Params p,
                                          groups, nin, nout, nk, per, vec);
   err = (int)cudaGetLastError();
   if (err != 0 || splits == 1) return err;
-  return sum_splits(dw_part, dw, (long long)groups * F::SC * nin * nout, splits, st);
+  return sum_splits(dw_part, dw, (long long)groups * F::slices(p) * nin * nout, splits, st);
 }
 
-// dx (n, groups nin) and dW (groups, S, nin, nout) of a grouped layer, either
-// null to skip it; x (n, groups nin) with row stride ldx, gy (n, groups
-// nout) contiguous, w (groups, S, nin, nout) contiguous. Scratch: wtsplit,
-// groups ceil(nin / 16) ceil(nout / 16) 2 S 8 32 words, 16-byte aligned
-// (dx); dw_part, splits groups S nin nout floats (dW, splits > 1).
+// 16-byte copies of gy (n, groups nout) contiguous: its rows start on 16 bytes.
+inline int tc_gy_vec(const float* gy, int groups, int nout) {
+  return (long long)groups * nout % 4 == 0 && nout % 4 == 0 && (uintptr_t)gy % 16 == 0;
+}
+
+// The grouped dx kernel's grid: (feature tiles, row tiles, groups).
+inline dim3 tc_dx_grid(int n, int groups, int nin) {
+  return dim3(cdiv(nin, tcg::FT), cdiv(n, tcg::DX_BM), groups);
+}
+
+// kan_tc_dx_kernel over x (n, groups nin) with row stride ldx, gy (n, groups
+// nout) contiguous and w (groups, S, nin, nout) contiguous, into out0 /
+// out1 / red_part as the kernel says. wtsplit: scratch of groups ceil(nin /
+// 16) ceil(nout / 16) 2 SC 8 32 words, 16-byte aligned.
 template <class F>
-int launch_tc_grouped_bwd(const float* x, long long ldx, typename F::Params p,
-                          const float* w, const float* gy, float* dx, float* dw,
-                          float* dw_part, uint32_t* wtsplit, int n, int groups, int nin,
-                          int nout, int splits, cudaStream_t st) {
-  if (bad_shape(n, groups, nin, nout) || splits < 1 || (uintptr_t)wtsplit % 16 != 0)
+int launch_tc_grouped_dx(const float* x, long long ldx, typename F::Params p,
+                         const float* w, const float* gy, float* out0, float* out1,
+                         int split, float* red_part, uint32_t* wtsplit, int n, int groups,
+                         int nin, int nout, cudaStream_t st) {
+  const int nk = cdiv(nout, tcg::DX_KS);
+  const dim3 grid = tc_dx_grid(n, groups, nin);
+  if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 || F::slices(p) > F::SC ||
+      wtsplit == nullptr || (uintptr_t)wtsplit % 16 != 0 || grid.y > 65535u ||
+      grid.z > 65535u)
+    return (int)cudaErrorInvalidValue;
+  int err = tc_split<WtSource<F::SC>, tcg::DX_KS>(
+      WtSource<F::SC>{w, F::slices(p), nin, nout, (int)grid.x, nk}, wtsplit,
+      2 * F::SC * 8, (long long)groups * grid.x * nk, st);
+  if (err != 0) return err;
+  const size_t smem = sizeof(float) * 2 *
+                      (tcg::DX_BM * tcg::DX_PITCH + 2 * F::SC * 8 * 2 * tcg::DX_KS);
+  err = tc_attr(kan_tc_dx_kernel<F>, smem);
+  if (err != 0) return err;
+  kan_tc_dx_kernel<F><<<grid, tcg::THREADS, smem, st>>>(
+      x, ldx, p, gy, (long long)groups * nout, wtsplit, out0, out1, split, red_part, n,
+      groups, nin, nout, nk, tc_gy_vec(gy, groups, nout));
+  return (int)cudaGetLastError();
+}
+
+// dW (groups, S, nin, nout) of a grouped layer, as launch_tc_grouped_dx's
+// operands; scratch dw_part of splits groups S nin nout floats (splits > 1).
+template <class F>
+int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
+                         const float* gy, float* dw, float* dw_part, int n, int groups,
+                         int nin, int nout, int splits, cudaStream_t st) {
+  if (bad_shape(n, groups, nin, nout) || splits < 1 || F::slices(p) <= 0 ||
+      F::slices(p) > F::SC)
     return (int)cudaErrorInvalidValue;
   const long long ldg = (long long)groups * nout;
-  const int vec = ldg % 4 == 0 && nout % 4 == 0 && (uintptr_t)gy % 16 == 0;
-  if (dx != nullptr) {
-    const int ftn = cdiv(nin, tcg::FT), nk = cdiv(nout, tcg::DX_KS);
-    const dim3 grid(ftn, cdiv(n, tcg::DX_BM), groups);
-    if (wtsplit == nullptr || grid.y > 65535u || grid.z > 65535u)
-      return (int)cudaErrorInvalidValue;
-    int err = tc_split<WtSource<F::SC>, tcg::DX_KS>(
-        WtSource<F::SC>{w, nin, nout, ftn, nk}, wtsplit, 2 * F::SC * 8,
-        (long long)groups * ftn * nk, st);
-    if (err != 0) return err;
-    const size_t smem = sizeof(float) * 2 *
-                        (tcg::DX_BM * tcg::DX_PITCH + 2 * F::SC * 8 * 2 * tcg::DX_KS);
-    err = tc_attr(kan_tc_dx_kernel<F>, smem);
-    if (err != 0) return err;
-    kan_tc_dx_kernel<F><<<grid, tcg::THREADS, smem, st>>>(
-        x, ldx, p, gy, ldg, wtsplit, dx, n, groups, nin, nout, nk, vec);
-    err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  if (dw == nullptr) return 0;
+  const int vec = tc_gy_vec(gy, groups, nout);
   if (nout <= 64)
     return launch_tc_dw_grouped<F, 1>(x, ldx, p, gy, ldg, vec, dw, dw_part, n, groups,
                                       nin, nout, splits, st);

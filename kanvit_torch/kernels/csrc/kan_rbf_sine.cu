@@ -17,7 +17,9 @@
 //   RBF:  _rbf_ln_base_op fwd (pallas_call at :2947) and bwd (:2995), reached
 //         from fastkan (:3600), the patch embedder; _rbf_ln_sg_op fwd
 //         (:3191) and bwd (:3246), reached from fastkan_qkv_grouped (:3300),
-//         one launch per q/k/v projection over every head; and the tiers
+//         one launch per q/k/v projection over every head, its backward's
+//         dx and dW on the tensor cores (kan_basis_tc.cuh part 2, entry
+//         kanvit_fastkan_qkv_tc_bwd); and the tiers
 //         the same family covers with its flags: _rbf_base_op (:2726,
 //         :2769; the LayerNorm skipped) and _rbf_op (_fused_fwd / _fused_bwd
 //         under rbf_family; no silu slice).
@@ -28,8 +30,11 @@
 //         and dW + dfreq on the tensor cores (kan_basis_tc.cuh, SineTc,
 //         the kanvit_sinekan_tc_* entries), dx on the CUDA-core dx kernel;
 //         _sine_op_sg fwd (:1518) and bwd (:1557), reached from
-//         sinekan_qkv_grouped (:1597), on the CUDA-core kernels (the
-//         kanvit_sinekan_* entries); the opt-in _fused_fwd_kb_basis (:2354)
+//         sinekan_qkv_grouped (:1597): the forward on the CUDA-core kernel,
+//         the backward's dx, dfreq and dW on the tensor cores for G <= 4
+//         (kan_basis_tc.cuh part 2, entry kanvit_sinekan_qkv_tc_bwd), on
+//         the CUDA-core kernels past it (kanvit_sinekan_bwd); the opt-in
+//         _fused_fwd_kb_basis (:2354)
 //         and _fused_bwd_kb_sine_res (:2401, :2433), and sinekan_qkv
 //         (:3691), compute the same functions.
 //
@@ -55,14 +60,19 @@
 //          second, row-wise pass (one warp per segment) adds
 //          rstd (dxh - mean(dxh) - xh mean(dxh xh)), dxh = dln gamma.
 //   dgamma, dbeta: column sums of dln xh and dln over the rows, per-block
-//          partials over fixed row ranges, then a fixed-order second pass.
+//          partials over fixed row ranges, then a fixed-order second pass
+//          in two levels (groups of LN_PART_GROUP partials): one running
+//          sum over the vit-s q/k/v's 197 partials put dbeta 2.3x further
+//          from f64 than the plain f32 version on the H100.
 // The patch embedder's backward needs no dx (its input is the image) but
 // dgamma and dbeta still need dln: the dln pass runs, the dx pass does not.
 //
 // Sine's dfreq_s = sum_{n,i} gW_s[n, i] x cos(arg). For the grouped q/k/v
-// it rides the dx kernel, where gW is in registers: per-block sums in a
-// fixed order, then one block per (group, slice) sums the blocks in a fixed
-// order; that backward needs no dx, so the dx kernel runs and writes none.
+// it rides the dx kernel (the tensor-core one for G <= 4), where gW is in
+// registers: per-block sums in a fixed order, then one block per (group,
+// slice) sums the blocks in a fixed order; that backward needs no dx, so
+// the dx kernel runs and writes none. The RBF grouped backward on the
+// tensor cores runs the same LayerNorm passes after its dx kernel.
 // For the embedder (sinekan) it rides the tensor-core dW kernel as
 // sum_{i,o} W[s, i, o] D[s, i, o] (kan_basis_tc.cuh), whether dx is asked
 // or not; the dx kernel then computes dx alone.
@@ -217,7 +227,8 @@ struct Sine : FamilyDefaults {
 // The RBF layer's LayerNorm
 // ---------------------------------------------------------------------------
 
-constexpr int LN_WARPS = 8;  // segments per block of the row-wise passes
+constexpr int LN_WARPS = 8;       // segments per block of the row-wise passes
+constexpr int LN_PART_GROUP = 16;  // dgamma / dbeta partials a group of the second pass
 
 __device__ __forceinline__ float warp_sum(float v) {
 #pragma unroll
@@ -332,6 +343,69 @@ unsigned ln_blocks(int n, int groups) {
   return (unsigned)(((long long)n * groups + LN_WARPS - 1) / LN_WARPS);
 }
 
+// The LayerNorm's backward from dln: dx += its VJP (dx null: skipped), and
+// dgb = (dgamma, dbeta) (null: skipped) from ln_splits row partials.
+int ln_bwd(const float* x, long long ldx, const float* stats, const float* gamma,
+           const float* dln, float* dx, float* dgb, float* dgb_part, int n, int groups,
+           int nin, int ln_splits, cudaStream_t st) {
+  if (dx != nullptr) {
+    ln_dx_kernel<<<ln_blocks(n, groups), LN_WARPS * 32, 0, st>>>(x, ldx, stats, gamma, dln,
+                                                                 dx, n, groups, nin);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  if (dgb == nullptr) return 0;
+  const int rows = (n + ln_splits - 1) / ln_splits;
+  const dim3 grid((groups * nin + 127) / 128, ln_splits);
+  ln_dgb_kernel<<<grid, 128, 0, st>>>(x, ldx, stats, dln, dgb_part, n, groups, nin, rows);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return sum_splits(dgb_part, dgb, 2LL * groups * nin, ln_splits, st, LN_PART_GROUP);
+}
+
+// The RBF backward's steps over its two launches: dx_launch(out0, out1,
+// split) writes dln and the silu term (split, the LayerNorm on) or dx
+// itself, dw_launch() dW; the LayerNorm's passes after dln.
+template <class DxLaunch, class DwLaunch>
+int rbf_bwd(const float* x, long long ldx, const float* gamma, const float* stats,
+            float* dx, float* dw, float* dln, float* dgb, float* dgb_part, int n,
+            int groups, int nin, int ln_splits, cudaStream_t st, DxLaunch dx_launch,
+            DwLaunch dw_launch) {
+  int err = 0;
+  if (gamma != nullptr && (dx != nullptr || dgb != nullptr)) {
+    if (dln == nullptr || ln_splits <= 0 || (dgb != nullptr && dgb_part == nullptr))
+      return (int)cudaErrorInvalidValue;
+    err = dx_launch(dln, dx, 1);
+    if (err != 0) return err;
+    err = ln_bwd(x, ldx, stats, gamma, dln, dx, dgb, dgb_part, n, groups, nin, ln_splits,
+                 st);
+    if (err != 0) return err;
+  } else if (dx != nullptr) {
+    err = dx_launch(dx, nullptr, 0);
+    if (err != 0) return err;
+  }
+  return dw != nullptr ? dw_launch() : 0;
+}
+
+// The grouped sine backward's steps over its two launches: dx_launch(part)
+// writes dx (if asked) and dfreq's per-block sums into part (null: none),
+// summed over `blocks` blocks a group in a fixed order; dw_launch() dW.
+template <class DxLaunch, class DwLaunch>
+int sine_bwd(float* dx, float* dw, float* dfreq, float* dfreq_part, int blocks, int groups,
+             int grid_size, cudaStream_t st, DxLaunch dx_launch, DwLaunch dw_launch) {
+  if (dx != nullptr || dfreq != nullptr) {
+    int err = dx_launch(dfreq != nullptr ? dfreq_part : nullptr);
+    if (err != 0) return err;
+    if (dfreq != nullptr) {
+      sum_blocks_kernel<<<dim3(grid_size, groups), RED_THREADS, 0, st>>>(
+          dfreq_part, dfreq, blocks, grid_size);
+      err = (int)cudaGetLastError();
+      if (err != 0) return err;
+    }
+  }
+  return dw != nullptr ? dw_launch() : 0;
+}
+
 }  // namespace
 
 // FastKAN forward: x (n, groups*nin) f32, row stride ldx, unit column
@@ -380,39 +454,15 @@ extern "C" int kanvit_fastkan_bwd(const float* x, long long ldx,
   const cudaStream_t st = (cudaStream_t)stream;
   const Rbf::Params p{ln ? stats : nullptr, gamma, beta, centres, inv_h, groups,
                       base ? 1 : 0};
-  int err = 0;
-  if (ln && (dx != nullptr || dgb != nullptr)) {
-    if (dln == nullptr || ln_splits <= 0 || (dgb != nullptr && dgb_part == nullptr))
-      return (int)cudaErrorInvalidValue;
-    // dln, and the silu term straight into dx
-    err = launch_dx<Rbf>(x, ldx, p, w, gy, dln, dx, 1, nullptr, n, groups, nin,
-                         nout, st);
-    if (err != 0) return err;
-    if (dx != nullptr) {
-      ln_dx_kernel<<<ln_blocks(n, groups), LN_WARPS * 32, 0, st>>>(
-          x, ldx, stats, gamma, dln, dx, n, groups, nin);
-      err = (int)cudaGetLastError();
-      if (err != 0) return err;
-    }
-    if (dgb != nullptr) {
-      const int rows = (n + ln_splits - 1) / ln_splits;
-      const dim3 grid((groups * nin + 127) / 128, ln_splits);
-      ln_dgb_kernel<<<grid, 128, 0, st>>>(x, ldx, stats, dln, dgb_part, n,
-                                          groups, nin, rows);
-      err = (int)cudaGetLastError();
-      if (err != 0) return err;
-      err = sum_splits(dgb_part, dgb, 2LL * groups * nin, ln_splits, st);
-      if (err != 0) return err;
-    }
-  } else if (dx != nullptr) {
-    err = launch_dx<Rbf>(x, ldx, p, w, gy, dx, nullptr, 0, nullptr, n, groups,
-                         nin, nout, st);
-    if (err != 0) return err;
-  }
-  if (dw != nullptr)
-    return launch_dw<Rbf>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout,
-                          splits, st);
-  return 0;
+  return rbf_bwd(
+      x, ldx, gamma, stats, dx, dw, dln, dgb, dgb_part, n, groups, nin, ln_splits, st,
+      [&](float* out0, float* out1, int split) {
+        return launch_dx<Rbf>(x, ldx, p, w, gy, out0, out1, split, nullptr, n, groups, nin,
+                              nout, st);
+      },
+      [&] {
+        return launch_dw<Rbf>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout, splits, st);
+      });
 }
 
 // SineKAN forward: x as FastKAN's; freq (groups, S), phase (nin, S), w
@@ -441,24 +491,77 @@ extern "C" int kanvit_sinekan_bwd(const float* x, long long ldx,
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
   const Sine::Params p{freq, phase, grid_size};
-  int err = 0;
-  if (dx != nullptr || dfreq != nullptr) {
-    err = launch_dx<Sine>(x, ldx, p, w, gy, dx, nullptr, 0,
-                          dfreq != nullptr ? dfreq_part : nullptr, n, groups,
-                          nin, nout, st);
-    if (err != 0) return err;
-    if (dfreq != nullptr) {
-      const dim3 g = dx_grid<Sine>(n, groups, nin);
-      sum_blocks_kernel<<<dim3(grid_size, groups), RED_THREADS, 0, st>>>(
-          dfreq_part, dfreq, (int)(g.x * g.y), grid_size);
-      err = (int)cudaGetLastError();
-      if (err != 0) return err;
-    }
-  }
-  if (dw != nullptr)
-    return launch_dw<Sine>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout,
-                           splits, st);
-  return 0;
+  const dim3 g = dx_grid<Sine>(n, groups, nin);
+  return sine_bwd(
+      dx, dw, dfreq, dfreq_part, (int)(g.x * g.y), groups, grid_size, st,
+      [&](float* part) {
+        return launch_dx<Sine>(x, ldx, p, w, gy, dx, nullptr, 0, part, n, groups, nin, nout,
+                               st);
+      },
+      [&] {
+        return launch_dw<Sine>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout, splits, st);
+      });
+}
+
+// The grouped FastKAN q/k/v backward (fastkan_qkv_grouped's) on the tensor
+// cores (kan_basis_tc.cuh, part 2): kanvit_fastkan_bwd's arguments and
+// steps, its dx kernel (dln, and the silu term into dx) and dW kernel the
+// tensor-core ones, with their scratch wtsplit (launch_tc_grouped_dx) and
+// splits the dW kernel's row splits (at most).
+extern "C" int kanvit_fastkan_qkv_tc_bwd(const float* x, long long ldx,
+                                         const float* gamma, const float* beta,
+                                         const float* centres, float inv_h,
+                                         const float* stats, const float* w,
+                                         const float* gy, float* dx, float* dw,
+                                         float* dw_part, float* dln, float* dgb,
+                                         float* dgb_part, unsigned int* wtsplit, int n,
+                                         int groups, int nin, int nout, int base,
+                                         int splits, int ln_splits, void* stream) {
+  const bool ln = gamma != nullptr;
+  if (bad_shape(n, groups, nin, nout) || (dgb != nullptr && !ln))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Rbf::Params p{ln ? stats : nullptr, gamma, beta, centres, inv_h, groups,
+                      base ? 1 : 0};
+  return rbf_bwd(
+      x, ldx, gamma, stats, dx, dw, dln, dgb, dgb_part, n, groups, nin, ln_splits, st,
+      [&](float* out0, float* out1, int split) {
+        return launch_tc_grouped_dx<Rbf>(x, ldx, p, w, gy, out0, out1, split, nullptr,
+                                         wtsplit, n, groups, nin, nout, st);
+      },
+      [&] {
+        return launch_tc_grouped_dw<Rbf>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout,
+                                         splits, st);
+      });
+}
+
+// The grouped SineKAN q/k/v backward (sinekan_qkv_grouped's, grid_size <=
+// 4) on the tensor cores: kanvit_sinekan_bwd's arguments and steps, with
+// dfreq_part of groups * (tc_dx_grid's blocks per group) * S floats and the
+// scratch wtsplit (launch_tc_grouped_dx), needed when dx or dfreq is.
+extern "C" int kanvit_sinekan_qkv_tc_bwd(const float* x, long long ldx,
+                                         const float* freq, const float* phase,
+                                         const float* w, const float* gy, float* dx,
+                                         float* dw, float* dw_part, float* dfreq,
+                                         float* dfreq_part, unsigned int* wtsplit, int n,
+                                         int groups, int nin, int nout, int grid_size,
+                                         int splits, void* stream) {
+  if (bad_shape(n, groups, nin, nout) || grid_size <= 0 || grid_size > Sine::SC ||
+      (dfreq != nullptr && dfreq_part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Sine::Params p{freq, phase, grid_size};
+  const dim3 g = tc_dx_grid(n, groups, nin);
+  return sine_bwd(
+      dx, dw, dfreq, dfreq_part, (int)(g.x * g.y), groups, grid_size, st,
+      [&](float* part) {
+        return launch_tc_grouped_dx<Sine>(x, ldx, p, w, gy, dx, nullptr, 0, part, wtsplit, n,
+                                          groups, nin, nout, st);
+      },
+      [&] {
+        return launch_tc_grouped_dw<Sine>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout,
+                                          splits, st);
+      });
 }
 
 // SineKAN embedder (sinekan, one group) on the tensor cores. Forward: x, freq

@@ -24,12 +24,15 @@ RBF with its LayerNorm, sine):
 :func:`fourierkan` and :func:`sinekan` run their forward and weight gradient
 (sine's dfreq with it) on the tensor cores instead (``csrc/kan_basis_tc.cuh``,
 3xTF32 ``mma.sync`` over a basis generated on chip), their dx on the
-CUDA-core template; :func:`sinekan_qkv_grouped` keeps the CUDA-core kernels.
-:func:`bspline_qkv_grouped`'s backward (dx and dW) runs on the tensor cores
-too (``csrc/kan_basis_tc.cuh``, part 2: 3xTF32 ``mma.sync``, dW over a
-basis generated on chip in row splits summed in a fixed order, dx with the
-basis derivative in the epilogue). The route is chosen by call site, never
-by size.
+CUDA-core template. The backward (dx and dW) of :func:`bspline_qkv_grouped`,
+:func:`fastkan_qkv_grouped` and :func:`sinekan_qkv_grouped` runs on the
+tensor cores too (``csrc/kan_basis_tc.cuh``, part 2: 3xTF32 ``mma.sync``,
+dW over a basis generated on chip in row splits summed in a fixed order, dx
+with the basis derivative or the family's fold in the epilogue: FastKAN's
+dln for its LayerNorm's VJP, sine's dfreq sums); their forwards stay on the
+CUDA-core template. The route is chosen by call site, never by size, with
+one exception: the tensor-core tile holds at most 4 sine slices, so a
+grouped sine backward of a larger grid takes the CUDA-core kernels.
 
 Dispatch is by device (``kanvit_torch.ops.dispatch``): a CPU tensor runs the
 plain version in ``kanvit_torch.ops.kan_bases`` and autograd differentiates
@@ -92,9 +95,11 @@ TC_ROUTES = ("fourierkan", "sinekan")
 # The grouped backward on the tensor cores (csrc/kan_basis_tc.cuh, part 2):
 # features a block (an m16 tile a slice), the dW kernel's 32-row stages and
 # its outputs a block (64 up to nout 64, else 192), and the dx kernel's rows
-# a block and 16-output stages.
-TC_GROUPED_BWD = ("bspline_qkv_grouped_bwd",)
+# a block and 16-output stages; the slices a family's tile holds (its SC).
+TC_GROUPED_BWD = ("bspline_qkv_grouped_bwd", "fastkan_qkv_grouped_bwd",
+                  "sinekan_qkv_grouped_bwd")
 TCG_FEATURES, TCG_DX_ROWS, TCG_DX_STAGE = 16, 128, 16
+TCG_SLICES = {"bspline": N_SLICES, "rbf": RBF_GRIDS + 1, "sine": SINE_CHUNK}
 TCG_DW_TARGET_BLOCKS = 4  # blocks an SM the dW row splits aim at
 
 
@@ -438,23 +443,30 @@ def tc_grouped_dw_splits(n: int, groups: int, nin: int, nout: int, n_sm: int) ->
     return -(-stages // per)
 
 
+def _tc_grouped_scratch(family, w, n, need_dx, need_dw, dev):
+    """``(wtsplit or None, splits, dW partials or None)`` of a grouped
+    tensor-core backward: W^T for the dx kernel, split once into TF32 words
+    in its stage order (2 words a value), and the dW kernel's row splits."""
+    groups, _, nin, out = w.shape
+    wtsplit = (torch.empty(groups * -(-nin // TCG_FEATURES) * -(-out // TCG_DX_STAGE)
+                           * 2 * TCG_SLICES[family] * 8 * 2 * TCG_DX_STAGE,
+                           dtype=torch.int32, device=dev)
+               if need_dx else None)
+    splits, part = 1, None
+    if need_dw:
+        splits = tc_grouped_dw_splits(
+            n, groups, nin, out, torch.cuda.get_device_properties(dev).multi_processor_count)
+        part = _empty(splits, *w.shape, device=dev) if splits > 1 else None
+    return wtsplit, splits, part
+
+
 def _launch_grouped_tc_bwd(name, x2d, w, grid, gy, dx, dw, lib, stream):
     """``(dx, dw)`` of ``bspline_qkv_grouped`` from the tensor-core kernels,
     into ``dx`` and ``dw`` (either None to skip it)."""
     n = x2d.shape[0]
-    groups, slices, nin, out = w.shape
-    dev = x2d.device
-    # W^T for dx, split once into TF32 words in the dx kernel's stage order
-    # (2 words a value)
-    wtsplit = (torch.empty(groups * -(-nin // TCG_FEATURES) * -(-out // TCG_DX_STAGE)
-                           * 2 * slices * 8 * 2 * TCG_DX_STAGE, dtype=torch.int32,
-                           device=dev)
-               if dx is not None else None)
-    splits, part = 1, None
-    if dw is not None:
-        splits = tc_grouped_dw_splits(
-            n, groups, nin, out, torch.cuda.get_device_properties(dev).multi_processor_count)
-        part = _empty(splits, *w.shape, device=dev) if splits > 1 else None
+    groups, _, nin, out = w.shape
+    wtsplit, splits, part = _tc_grouped_scratch("bspline", w, n, dx is not None,
+                                                dw is not None, x2d.device)
     gridt, gstride = _knot_rows(grid)
     err = lib.kanvit_bspline_qkv_tc_bwd(
         x2d.data_ptr(), x2d.stride(0), gridt.data_ptr(), gstride, w.data_ptr(),
@@ -648,7 +660,9 @@ def _launch_rbf_bwd(name: str, x2d, w, gamma, beta, grid, denominator: float,
                     stats, gy, need_dx: bool, need_dw: bool):
     """``(dx or None, dw or None, dgamma, dbeta)`` from the RBF backward
     kernels; dgamma and dbeta ``(G, nin)`` whenever the layer has its
-    LayerNorm (its dln pass runs even with no dx), else None."""
+    LayerNorm (its dln pass runs even with no dx), else None.
+    ``fastkan_qkv_grouped``'s runs its dx and dW on the tensor cores, the
+    embedder's on the CUDA cores."""
     check_rbf_args(x2d, w, gamma, beta, grid)
     ln = gamma is not None
     _check_device(name, x2d, w, grid, gy, *((gamma, beta, stats) if ln else ()))
@@ -665,18 +679,25 @@ def _launch_rbf_bwd(name: str, x2d, w, gamma, beta, grid, denominator: float,
                 *((None, None) if dgb is None else dgb))
     from kanvit_torch.kernels import _build
 
-    splits, part = _dw_scratch(n, w, "rbf", None, dev) if need_dw else (1, None)
     ln_splits = -(-n // LN_ROWS_PER_SPLIT)
     dln = _empty(n, groups * nin, device=dev) if ln else None
     dgb_part = _empty(ln_splits, 2, groups, nin, device=dev) if ln else None
+    common = (x2d.data_ptr(), x2d.stride(0), _ptr(gamma), _ptr(beta), grid.data_ptr(),
+              1.0 / denominator, _ptr(stats), w.data_ptr(), gy.data_ptr(), _ptr(dx),
+              _ptr(dw))
     lib = _build.load()
     with torch.cuda.device(dev):
-        err = lib.kanvit_fastkan_bwd(
-            x2d.data_ptr(), x2d.stride(0), _ptr(gamma), _ptr(beta),
-            grid.data_ptr(), 1.0 / denominator, _ptr(stats), w.data_ptr(),
-            gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), _ptr(dln), _ptr(dgb),
-            _ptr(dgb_part), n, groups, nin, out, slices - RBF_GRIDS, splits,
-            ln_splits, _stream(dev))
+        if name in TC_GROUPED_BWD:
+            wtsplit, splits, part = _tc_grouped_scratch("rbf", w, n, need_dx or ln,
+                                                        need_dw, dev)
+            err = lib.kanvit_fastkan_qkv_tc_bwd(
+                *common, _ptr(part), _ptr(dln), _ptr(dgb), _ptr(dgb_part), _ptr(wtsplit),
+                n, groups, nin, out, slices - RBF_GRIDS, splits, ln_splits, _stream(dev))
+        else:
+            splits, part = _dw_scratch(n, w, "rbf", None, dev) if need_dw else (1, None)
+            err = lib.kanvit_fastkan_bwd(
+                *common, _ptr(part), _ptr(dln), _ptr(dgb), _ptr(dgb_part), n, groups,
+                nin, out, slices - RBF_GRIDS, splits, ln_splits, _stream(dev))
     return _counted(name, err, dx, dw, *((None, None) if dgb is None else dgb))
 
 
@@ -787,7 +808,9 @@ def _launch_sine_bwd(name: str, x2d, w, freq2d, phase, gy, need_dx: bool,
     kernels. ``sinekan``: dx (if asked) from the CUDA-core dx kernel, dW and
     dfreq (its D route) from the tensor-core dW kernel, which runs even when
     dW is not asked. The grouped q/k/v: the dx kernel (writing no dx unless
-    asked) with its dfreq sums, and dW."""
+    asked) with its dfreq sums, and dW; on the tensor cores up to 4 slices
+    (every kanvit q/k/v), on the CUDA cores past that (the tensor-core tile
+    holds 4)."""
     tc = name[:-len("_bwd")] in TC_ROUTES
     check_sine_args(x2d, w, freq2d, phase, tc)
     _check_device(name, x2d, w, freq2d, phase, gy)
@@ -812,17 +835,25 @@ def _launch_sine_bwd(name: str, x2d, w, freq2d, phase, gy, need_dx: bool,
                 dfreq.data_ptr(), gysplit.data_ptr(), part.data_ptr(), n, nin, out,
                 slices, _stream(dev))
         return _counted(name, err, dx, dw if need_dw else None, dfreq)
-    splits, part = (_dw_scratch(n, w, "sine", slices, dev) if need_dw
-                    else (1, None))
-    blocks = -(-nin // DX_TILE[1]) * -(-n // DX_TILE[0])
-    dfreq_part = _empty(groups, blocks, slices, device=dev)
+    common = (x2d.data_ptr(), x2d.stride(0), freq2d.data_ptr(), phase.data_ptr(),
+              w.data_ptr(), gy.data_ptr(), _ptr(dx), _ptr(dw))
     lib = _build.load()
     with torch.cuda.device(dev):
-        err = lib.kanvit_sinekan_bwd(
-            x2d.data_ptr(), x2d.stride(0), freq2d.data_ptr(), phase.data_ptr(),
-            w.data_ptr(), gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part),
-            dfreq.data_ptr(), dfreq_part.data_ptr(), n, groups, nin, out, slices,
-            splits, _stream(dev))
+        if name in TC_GROUPED_BWD and slices <= SINE_CHUNK:
+            wtsplit, splits, part = _tc_grouped_scratch("sine", w, n, True, need_dw, dev)
+            blocks = -(-nin // TCG_FEATURES) * -(-n // TCG_DX_ROWS)
+            dfreq_part = _empty(groups, blocks, slices, device=dev)
+            err = lib.kanvit_sinekan_qkv_tc_bwd(
+                *common, _ptr(part), dfreq.data_ptr(), dfreq_part.data_ptr(),
+                wtsplit.data_ptr(), n, groups, nin, out, slices, splits, _stream(dev))
+        else:
+            splits, part = (_dw_scratch(n, w, "sine", slices, dev) if need_dw
+                            else (1, None))
+            blocks = -(-nin // DX_TILE[1]) * -(-n // DX_TILE[0])
+            dfreq_part = _empty(groups, blocks, slices, device=dev)
+            err = lib.kanvit_sinekan_bwd(
+                *common, _ptr(part), dfreq.data_ptr(), dfreq_part.data_ptr(), n, groups,
+                nin, out, slices, splits, _stream(dev))
     return _counted(name, err, dx, dw, dfreq)
 
 

@@ -1,5 +1,5 @@
-"""The grouped B-spline q/k/v backward and the wide fused FF on the card:
-checks and times, for comparing trees.
+"""The grouped q/k/v backwards and the wide fused FF on the card: checks
+and times, for comparing trees.
 
     python -m kanvit_torch.probe_qkv [--full]
 
@@ -7,7 +7,11 @@ Runs ``chip_smoke.py``'s check of ``bspline_qkv_grouped``'s backward
 (``check_qkv_bwd``: dx and dW on the tensor cores against autograd through
 the plain version and against f64, the bits of a second backward, CUDA-event
 and device times beside the CUDA-core kernels it replaces) at the vit-s
-q/k/v (12,608 rows, 6 heads of 64 -> 192). ``--full`` first builds the
+q/k/v (12,608 rows, 6 heads of 64 -> 192), and its checks of
+``fastkan_qkv_grouped`` and ``sinekan_qkv_grouped`` (``check_rbf`` and
+``check_sine`` with their tensor-core gates: every gradient against f64,
+the bits, device times beside the CUDA-core kernels) at one vit-s q/k/v
+projection (6 heads of 64 -> 64, sine grid 4). ``--full`` first builds the
 kernels (registers, spills and the SASS report), runs the q/k/v check at dh
 8, with a refit grid a head and at a ragged shape too, and then the
 fused-FF check (``check_ffn``) at vit-b's and vit-l's widths (D 768, F
@@ -49,6 +53,12 @@ def main(argv=None) -> None:
     qkv = C.check_qkv_bwd(torch, rng, n, 6, 64, "vit-s q/k/v")
     times = {"bspline_qkv_grouped_bwd": {"ms": qkv[1], **qkv[3],
                                         "bound_ms": qkv[4]["bound_ms"]}}
+    _, bwd = C.check_rbf(torch, rng, "fastkan_qkv_grouped", "vit-s q/k/v", n, 6, 64, 64,
+                         tc_gates=True)
+    times["fastkan_qkv_grouped_bwd"] = {"ms": bwd[1], **bwd[3], **bwd[4]}
+    _, bwd = C.check_sine(torch, rng, "sinekan_qkv_grouped", "vit-s q/k/v", n, 6, 64, 64, 4,
+                          tc_gates=True)
+    times["sinekan_qkv_grouped_bwd"] = {"ms": bwd[1], **bwd[3], **bwd[4]}
     shapes = ((n, 768, 3072, "vit-b widths"), (n, 1024, 4096, "vit-l widths"),
               (1000, 2048, 256, "d-2048"), (n, 384, 1536, "vit-s"),
               (37 * 50 + 1, 100, 400, "ragged"))

@@ -669,12 +669,21 @@ def test_fastkan_kernels(cuda, n, nin, nout, ln, base):
     assert FB.LAUNCHES["fastkan"] == 1 and FB.LAUNCHES["fastkan_bwd"] == 1
 
 
-@pytest.mark.parametrize("n,h,dh", [(37 * 50, 2, 32), (129, 6, 64)])
-def test_fastkan_qkv_grouped_kernels(cuda, n, h, dh):
+# (n, heads, dh, out per head): the tensor-core backward at dh 32, 64 and 8,
+# out = dh and out != dh, ragged rows (37 * 50 is not a multiple of the
+# 32-row dW stage or the 128-row dx block), nout 24 taking gy's 4-byte copies
+GROUPED_TC_SHAPES = [(37 * 50, 2, 32, 32), (129, 6, 64, 64), (301, 4, 8, 24),
+                     (1000, 2, 64, 40)]
+
+
+@pytest.mark.parametrize("n,h,dh,out", GROUPED_TC_SHAPES)
+def test_fastkan_qkv_grouped_kernels(cuda, n, h, dh, out):
+    """Forward and every gradient against the plain version; the backward on
+    the tensor cores."""
     rng = np.random.default_rng(66)
     x = _fast_x(rng, (n, h * dh)).to(cuda)
-    params = [p.to(cuda) for p in _fast_params(rng, dh, dh, (h,))]
-    g = _param(rng, (n, h * dh), 1.0).to(cuda)
+    params = [p.to(cuda) for p in _fast_params(rng, out, dh, (h,))]
+    g = _param(rng, (n, h * out), 1.0).to(cuda)
     grid = RBF_GRID.to(cuda)
 
     def plain(x, ga, be, sw, bw, bb):
@@ -690,6 +699,41 @@ def test_fastkan_qkv_grouped_kernels(cuda, n, h, dh):
         _close(a, b, 1e-4)
     assert FB.LAUNCHES["fastkan_qkv_grouped"] == 1
     assert FB.LAUNCHES["fastkan_qkv_grouped_bwd"] == 1
+
+
+def test_fastkan_grouped_tc_backward_without_base_and_bits(cuda):
+    """The grouped route with an 8-slice weight (no silu slice) against the
+    plain version without the base branch, and a second backward of the
+    9-slice route repeating its bits."""
+    n, h, dh, out = 1000, 3, 32, 48
+    rng = np.random.default_rng(166)
+    x = _fast_x(rng, (n, h * dh)).to(cuda)
+    ga, be, sw, bw, bb = [p.to(cuda) for p in _fast_params(rng, out, dh, (h,))]
+    g = _param(rng, (n, h * out), 1.0).to(cuda)
+    grid = RBF_GRID.to(cuda)
+
+    def plain(x, ga, be, sw):
+        return torch.cat([K.fastkan_forward(x[:, i * dh:(i + 1) * dh], ga[i], be[i], grid,
+                                            4 / 7, sw[i], None, None)
+                          for i in range(h)], dim=1)
+
+    def kernel(x, ga, be, sw):
+        w = sw.reshape(h, out, dh, 8).permute(0, 3, 2, 1).contiguous()
+        return FB._RbfFn.apply(x, w, ga, be, grid, 4 / 7, "fastkan_qkv_grouped")
+
+    y, got = _grads(kernel, [x, ga, be, sw], g)
+    ref, want = _grads(plain, [x, ga, be, sw], g)
+    _close(y, ref, 1e-4)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+
+    def full(*a):
+        return FB.fastkan_qkv_grouped(a[0], a[1], a[2], grid, 4 / 7, *a[3:])
+
+    _, first = _grads(full, [x, ga, be, sw, bw, bb], g)
+    _, second = _grads(full, [x, ga, be, sw, bw, bb], g)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert FB.LAUNCHES["fastkan_qkv_grouped_bwd"] == 3
 
 
 def _sine_x(rng, shape):
@@ -719,27 +763,65 @@ def test_sinekan_kernels(cuda, n, nin, nout, grid_size):
     assert FB.LAUNCHES["sinekan"] == 1 and FB.LAUNCHES["sinekan_bwd"] == 1
 
 
-@pytest.mark.parametrize("n,h,dh", [(37 * 50, 2, 32), (129, 6, 64)])
-def test_sinekan_qkv_grouped_kernels(cuda, n, h, dh):
-    rng = np.random.default_rng(68)
+def _sine_grouped(rng, n, h, dh, out, grid_size, cuda):
+    """(kernel, plain, inputs, g) of ``sinekan_qkv_grouped``."""
     x = _sine_x(rng, (n, h * dh)).to(cuda)
-    freq = (torch.arange(1, 5) / 5).repeat(h, 1).to(cuda) + _param(rng, (h, 4), 0.05).to(cuda)
-    phase = K.sinekan_phase_init(dh, 4).to(cuda)
-    amps = _param(rng, (h, dh, dh, 4), 1.0 / dh).to(cuda)
-    bias = _param(rng, (h, dh), 0.1).to(cuda)
-    g = _param(rng, (n, h * dh), 1.0).to(cuda)
+    freq = ((torch.arange(1, grid_size + 1) / (grid_size + 1)).repeat(h, 1)
+            + _param(rng, (h, grid_size), 0.05)).to(cuda)
+    phase = K.sinekan_phase_init(dh, grid_size).to(cuda)
+    amps = _param(rng, (h, out, dh, grid_size), 1.0 / out).to(cuda)
+    bias = _param(rng, (h, out), 0.1).to(cuda)
+    g = _param(rng, (n, h * out), 1.0).to(cuda)
 
     def plain(x, f, a, b):
         return torch.cat([K.sinekan_forward(x[:, i * dh:(i + 1) * dh], f[i], phase, a[i], b[i])
                           for i in range(h)], dim=1)
 
-    y, got = _grads(lambda x, f, a, b: FB.sinekan_qkv_grouped(x, f, phase, a, b),
-                    [x, freq, amps, bias], g)
-    ref, want = _grads(plain, [x, freq, amps, bias], g)
+    def kernel(x, f, a, b):
+        return FB.sinekan_qkv_grouped(x, f, phase, a, b)
+
+    return kernel, plain, [x, freq, amps, bias], g
+
+
+@pytest.mark.parametrize("grid_size", [4, 3])
+@pytest.mark.parametrize("n,h,dh,out", GROUPED_TC_SHAPES)
+def test_sinekan_qkv_grouped_kernels(cuda, n, h, dh, out, grid_size):
+    """Forward, dx, dfreq, the amplitudes and bias against the plain version;
+    the backward on the tensor cores (grid 3 leaves a tile slice empty)."""
+    kernel, plain, inputs, g = _sine_grouped(np.random.default_rng(68), n, h, dh, out,
+                                             grid_size, cuda)
+    y, got = _grads(kernel, inputs, g)
+    ref, want = _grads(plain, inputs, g)
     _close(y, ref, 1e-4)
     for a, b in zip(got, want):
         _close(a, b, 1e-4)
     assert FB.LAUNCHES["sinekan_qkv_grouped_bwd"] == 1
+
+
+@pytest.mark.parametrize("grid_size,entry", [(4, "kanvit_sinekan_qkv_tc_bwd"),
+                                             (7, "kanvit_sinekan_bwd")])
+def test_sinekan_qkv_grouped_route_by_grid(cuda, monkeypatch, grid_size, entry):
+    """Up to 4 slices the grouped backward runs the tensor-core entry, past
+    it the CUDA-core one; both against the plain version, and a second
+    backward repeats the bits."""
+    from kanvit_torch.kernels import _build
+
+    lib, called = _build.load(), []
+    for name in ("kanvit_sinekan_qkv_tc_bwd", "kanvit_sinekan_bwd"):
+        def record(*args, _fn=getattr(lib, name), _name=name):
+            called.append(_name)
+            return _fn(*args)
+        monkeypatch.setattr(lib, name, record)
+    kernel, plain, inputs, g = _sine_grouped(np.random.default_rng(69), 999, 3, 32, 48,
+                                             grid_size, cuda)
+    y, got = _grads(kernel, inputs, g)
+    assert called == [entry]
+    _, again = _grads(kernel, inputs, g)
+    ref, want = _grads(plain, inputs, g)
+    _close(y, ref, 1e-4)
+    for a, b, c in zip(got, want, again):
+        _close(a, b, 1e-4)
+        assert torch.equal(a, c)
 
 
 @pytest.mark.parametrize("family", ["rbf", "sine"])
