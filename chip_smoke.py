@@ -283,7 +283,8 @@ def phase_build():
 # issues beside each HMMA (mma.sync) bounds them (PERF.md).
 # An entry is a kernel's name, or the parts its mangled name holds (the
 # Fourier and sine tensor-core kernels: the family, and Lb0 forward, Lb1 dW;
-# the grouped backward's: the family, and its NJ).
+# the grouped backward's: the family and its NJ; the forward's: the family
+# and its n8 tiles a warp).
 SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
                 "flash_dq_tcILi64", "flash_dkv_tcILi64", "ffn_fwd_tcILi3",
@@ -291,7 +292,9 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("ffn_gemm_tcILi0",), ("kan_tc_dw_grouped", "Bspline"),
                 ("kan_tc_dx_kernel", "Bspline"), ("kan_tc_dw_grouped", "3RbfELi1E"),
                 ("kan_tc_dx_kernel", "3RbfE"), ("kan_tc_dw_grouped", "4SineELi1E"),
-                ("kan_tc_dx_kernel", "4SineE"),
+                ("kan_tc_dx_kernel", "4SineE"), ("kan_tc_dw_grouped", "5ChebyELi3E"),
+                ("kan_tc_dx_kernel", "5ChebyE"), ("kan_tc_fwd_grouped", "7BsplineELi24E"),
+                ("kan_tc_fwd_grouped", "7BsplineELi8E"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
                 ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"))
 
@@ -604,24 +607,46 @@ def qkv_case(torch, rng, n, heads, dh, per_head):
 
 
 def check_qkv(torch, rng, n, heads, dh, label, per_head=False):
+    """The grouped q/k/v forward (3xTF32 on the tensor cores) against the
+    plain version, no further from f64 than twice the plain f32 version,
+    the bits of a second forward; CUDA-event and device times beside the
+    CUDA-core kernel it replaces (``cuda_core_route``) on the same operands,
+    the plain version, and the 3xTF32 and f32 bounds."""
     from kanvit_torch.kernels import fused_basis as FB
 
     x, (grid, bw, sw, sc), plain = qkv_case(torch, rng, n, heads, dh, per_head)
     out = bw.shape[1]
     tag = f"{label} N={n} H={heads} dh={dh} out={out} grid {tuple(grid.shape)}"
+    w = FB.pack_qkv_weight(bw, sw, sc).contiguous()
+
+    def kernel():
+        return FB._launch("bspline_qkv_grouped", "bspline", x, w, grid)
+
     with torch.inference_mode():
         y = FB.bspline_qkv_grouped(x, grid, bw, sw, sc)
+        again = kernel()
         ref = plain(x, bw, sw, sc)
         torch.cuda.synchronize()
         err = compare(f"bspline_qkv_grouped {tag}", y, ref, TOL_BSPLINE)
-        w = FB.pack_qkv_weight(bw, sw, sc).contiguous()
-        ms = time_ms(torch, lambda: FB._launch("bspline_qkv_grouped", "bspline", x,
-                                               w, grid))
+        check(torch.equal(y, again), f"bspline_qkv_grouped {label}: a second forward "
+                                     "gave other bits")
+        f64 = f64_gate(f"bspline_qkv_grouped {tag}", y, ref,
+                       plain(*(a.double() for a in (x, bw, sw, sc))))
+        ms = time_ms(torch, kernel)
+        dev_ms = kernel_ms(torch, kernel, 10, label=f"bspline_qkv_grouped {tag}")
+        core_ms = cuda_core_route(FB, lambda: time_ms(torch, kernel))
+        core_dev_ms = cuda_core_route(FB, lambda: kernel_ms(
+            torch, kernel, 10, label=f"bspline_qkv_grouped {tag}, CUDA cores"))
         wrapper_ms = time_ms(torch, lambda: FB.bspline_qkv_grouped(x, grid, bw, sw, sc))
         plain_ms = time_ms(torch, lambda: plain(x, bw, sw, sc))
-    print(f"[kernel] bspline_qkv_grouped {label}: kernel {ms:.4f} ms  (with weight "
-          f"packing {wrapper_ms:.4f} ms)  plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms, kan_bound(n, heads, 9, dh, out)
+    bounds = kan_bound(n, heads, 9, dh, out, tensor_cores=True)
+    print(f"[kernel] bspline_qkv_grouped {label}: kernel {ms:.4f} ms (device "
+          f"{dev_ms:.4f}; the CUDA-core kernel {core_ms:.4f}, device {core_dev_ms:.4f})  "
+          f"with weight packing {wrapper_ms:.4f} ms  plain {plain_ms:.4f} ms  bound "
+          f"3xTF32 {bounds['bound_ms']:.4f}, f32 {bounds['f32_bound_ms']:.4f}  "
+          f"(bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "cuda_core_ms": core_ms,
+                               "cuda_core_device_ms": core_dev_ms}, bounds
 
 
 def check_attention(torch, rng, b, t, heads, dh, label, cases):
@@ -1329,19 +1354,26 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
 
 
 def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
-                names):
+                names, tc_gates=False):
     """``check_kan`` for the Chebyshev and Fourier wrappers: ``w`` is the
-    packed weight and ``aux`` the degree or grid size the kernels take."""
+    packed weight and ``aux`` the degree or grid size the kernels take.
+    ``tc_gates``: the grouped Chebyshev backward's tensor-core gates and
+    times beside the CUDA-core kernels (``check_kan``'s ``cuda_cores``)."""
     from kanvit_torch.kernels import fused_basis as FB
 
     x, bname = inputs[0], f"{name}_bwd"
     launches = (lambda: FB._launch(name, family, x, w, aux),
                 lambda g: FB._launch_bwd(bname, family, x, w, aux, g, True, True),
                 lambda g: FB._launch_bwd(bname, family, x, w, aux, g, False, True))
+
+    def cuda_cores(g):
+        return cuda_core_route(FB, lambda: launches[1](g))
+
     tc = family == "fourier"  # its forward and dW on the tensor cores
     return check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
                      (x.shape[0], *w.shape, 0, 1), tc_grads=("coeffs",) if tc else (),
-                     f64_gates=tc and x.shape[1] >= 768)
+                     f64_gates=tc and x.shape[1] >= 768,
+                     cuda_cores=cuda_cores if tc_gates else None)
 
 
 def fast_inputs(rng, shape):
@@ -1367,15 +1399,15 @@ def sine_inputs(rng, shape):
 
 
 def cuda_core_route(FB, launch):
-    """``launch()`` with the grouped q/k/v backwards off the tensor cores: the
-    CUDA-core kernels they replace, on the same operands, to time beside
-    them."""
-    routes = FB.TC_GROUPED_BWD
-    FB.TC_GROUPED_BWD = ()
+    """``launch()`` with the grouped q/k/v backwards and forward off the
+    tensor cores: the CUDA-core kernels they replace, on the same operands,
+    to time beside them."""
+    routes = FB.TC_GROUPED_BWD, FB.TC_GROUPED_FWD
+    FB.TC_GROUPED_BWD = FB.TC_GROUPED_FWD = ()
     try:
         return launch()
     finally:
-        FB.TC_GROUPED_BWD = routes
+        FB.TC_GROUPED_BWD, FB.TC_GROUPED_FWD = routes
 
 
 def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False):
@@ -1483,6 +1515,28 @@ def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size, tc_gate
                      cuda_cores=cuda_cores if tc_gates else None)
 
 
+def check_cheby_qkv(torch, rng, n, h, dh, label):
+    """``cheby_qkv_grouped`` (``check_basis``) over x with a share where
+    tanh(x) rounds to +-1, coefficients of unit output scale; at the vit-s
+    rows with the tensor-core backward's gates beside the CUDA-core
+    kernels."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    x = torch.from_numpy(cheby_inputs(rng, (n, h * dh), 0.02)).cuda()
+    cc = torch.from_numpy((rng.standard_normal((h, dh, 3 * dh, 5)) / np.sqrt(dh * 5))
+                          .astype(np.float32)).cuda()
+
+    def plain(x, cc):
+        return torch.cat([K.chebykan_forward(x[:, i * dh:(i + 1) * dh], cc[i])
+                          for i in range(h)], dim=1)
+
+    return check_basis(torch, rng, "cheby_qkv_grouped", "cheby", label,
+                       FB.cheby_qkv_grouped, plain, [x, cc],
+                       FB.pack_cheby_qkv_weight(cc).contiguous(), 4, ("x", "cc"),
+                       tc_gates=n > 10000)
+
+
 def phase_basis_kernels(torch):
     """``chebykan`` and ``fourierkan`` at the vit-s embedder (batch 64: 12,544
     patches, 768 -> 384; Fourier grid 28), ``cheby_qkv_grouped`` at the
@@ -1512,17 +1566,7 @@ def phase_basis_kernels(torch):
             ("x", "coeffs")))
     for n, h, dh, label in ((BATCH * 197, 6, 64, "vit-s q/k/v"),
                             (37 * 50, 2, 32, "ragged")):
-        x = cuda(cheby_inputs(rng, (n, h * dh), 0.02))
-        cc = cuda(rng.standard_normal((h, dh, 3 * dh, 5)) / np.sqrt(dh * 5))
-
-        def plain(x, cc, h=h, dh=dh):
-            return torch.cat([K.chebykan_forward(x[:, i * dh:(i + 1) * dh], cc[i])
-                              for i in range(h)], dim=1)
-
-        keep("cheby_qkv_grouped", check_basis(
-            torch, rng, "cheby_qkv_grouped", "cheby", label, FB.cheby_qkv_grouped,
-            plain, [x, cc], FB.pack_cheby_qkv_weight(cc).contiguous(), 4,
-            ("x", "cc")))
+        keep("cheby_qkv_grouped", check_cheby_qkv(torch, rng, n, h, dh, label))
     for n, nin, nout, gs, label in ((BATCH * 196, 768, 384, 28, "vit-s embedder G28"),
                                     (1000, 16, 24, 5, "ragged G5"),
                                     (999, 20, 70, 7, "ragged G7")):
@@ -2213,8 +2257,10 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
 KAN_FAMILIES = ("Bspline", "Cheby", "Fourier", "Rbf", "Sine")
 KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
-    ("KAN q/k/v bwd on the tensor cores (B-spline, RBF, sine: dW, dx)",
+    ("KAN q/k/v bwd on the tensor cores (B-spline, Chebyshev, RBF, sine: dW, dx)",
      ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
+    ("KAN q/k/v fwd on the tensor cores (B-spline)",
+     ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
      ("kan_tc_kernel", "kan_tc_split")),
     ("KAN basis bwd", ("kan_dx_kernel", "kan_dw_kernel", "sum_splits_kernel",
@@ -2643,7 +2689,7 @@ KAN_TC_SRC = "kanvit_torch/kernels/csrc/kan_basis_tc.cuh"
 FB_PY = "kanvit/kernels/fused_basis.py"
 SOURCES = {
     "bspline_kan": (KAN_SRC, f"{FB_PY}:1067"),
-    "bspline_qkv_grouped": (KAN_SRC, f"{FB_PY}:1240"),
+    "bspline_qkv_grouped": (KAN_TC_SRC, f"{FB_PY}:1240"),
     "flash_attention_lanes": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
                               "kanvit/kernels/flash_attention.py:571"),
     "bspline_kan_bwd": (KAN_SRC, f"{FB_PY}:1159"),
@@ -2659,7 +2705,7 @@ SOURCES = {
     "chebykan": (KAN_SRC, f"{FB_PY}:1067"),
     "chebykan_bwd": (KAN_SRC, f"{FB_PY}:1159"),
     "cheby_qkv_grouped": (KAN_SRC, f"{FB_PY}:1240"),
-    "cheby_qkv_grouped_bwd": (KAN_SRC, f"{FB_PY}:1278"),
+    "cheby_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:1278"),
     "fourierkan": (KAN_TC_SRC, f"{FB_PY}:2317"),
     "fourierkan_bwd": (KAN_TC_SRC, f"{FB_PY}:2564"),
     "fastkan": (RBF_SINE_SRC, f"{FB_PY}:2947"),
@@ -2703,6 +2749,18 @@ TC_FWD = "3xTF32 mma.sync.m16n8k8 over a basis generated on chip (kan_tc_kernel<
 TC_BWD = ("dW{} on 3xTF32 mma.sync.m16n8k8 (kan_tc_kernel<{}, true>); dx, where "
           "asked, on the CUDA-core kan_dx_kernel")
 ROUTES = {
+    "bspline_qkv_grouped": {
+        "kernel": "3xTF32 mma.sync.m16n8k8: kan_tc_fwd_grouped<Bspline, NT>, each lane's A "
+                  "fragments the basis of its own x values made in registers, W split "
+                  "once a call by kan_tc_fwd_split; both MSA routes (a shared grid, a "
+                  "grid a head)",
+        "instantiated_in": KAN_SRC},
+    "cheby_qkv_grouped_bwd": {
+        "kernel": "dW and dx on 3xTF32 mma.sync.m16n8k8: kan_tc_dw_grouped<Cheby, NJ> "
+                  "over a basis generated on chip, in row splits summed in a fixed order; "
+                  "kan_tc_dx_kernel<Cheby> with T'_n (0 where tanh rounds to +-1) in its "
+                  "epilogue",
+        "instantiated_in": KAN_SRC},
     "bspline_qkv_grouped_bwd": {
         "kernel": "dW and dx on 3xTF32 mma.sync.m16n8k8: kan_tc_dw_grouped<Bspline, NJ> "
                   "over a basis generated on chip, in row splits summed in a fixed order; "

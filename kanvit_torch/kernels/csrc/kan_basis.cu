@@ -19,9 +19,12 @@
 //             fourierkan's K-blocked _fused_bwd_kb dx (:2492,
 //             _dx_kernel_kbf), from the VJP of _fourier_op (:3472);
 //             _fused_bwd_sg (:1278), reached from the VJPs of _bspline_op_sg
-//             (:1330) and _cheby_op_sg (:1351); bspline_qkv_grouped's runs
-//             on the tensor cores (kan_basis_tc.cuh, part 2, instantiated
-//             here for Bspline), cheby_qkv_grouped's on the CUDA cores.
+//             (:1330) and _cheby_op_sg (:1351): both run on the tensor cores
+//             (kan_basis_tc.cuh, part 2, instantiated here for Bspline and
+//             Cheby). bspline_qkv_grouped's forward (_fused_fwd_sg) runs on
+//             the tensor cores too (kan_basis_tc.cuh, part 3, for Bspline);
+//             cheby_qkv_grouped's and the embedders' forwards on the CUDA
+//             cores (kan_basis.cuh).
 //   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
 //   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
 //   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on
@@ -229,6 +232,24 @@ struct Fourier : FamilyDefaults {
   }
 };
 
+// dx (from the family's derivatives) and dW of a grouped layer on the
+// tensor cores (kan_basis_tc.cuh, part 2), either null to skip it.
+template <class F>
+int launch_tc_grouped_bwd(const float* x, long long ldx, typename F::Params p, const float* w,
+                          const float* gy, float* dx, float* dw, float* dw_part,
+                          uint32_t* wtsplit, int n, int groups, int nin, int nout,
+                          int splits, cudaStream_t st) {
+  if (bad_shape(n, groups, nin, nout)) return (int)cudaErrorInvalidValue;
+  if (dx != nullptr) {
+    const int err = launch_tc_grouped_dx<F>(x, ldx, p, w, gy, dx, nullptr, 0, nullptr,
+                                            wtsplit, n, groups, nin, nout, st);
+    if (err != 0) return err;
+  }
+  if (dw == nullptr) return 0;
+  return launch_tc_grouped_dw<F>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout, splits,
+                                 st);
+}
+
 }  // namespace
 
 // Forward: x (n, groups*nin) f32 with row stride ldx and unit column stride;
@@ -274,17 +295,21 @@ extern "C" int kanvit_bspline_qkv_tc_bwd(const float* x, long long ldx,
                                          float* dw, float* dw_part, unsigned int* wtsplit,
                                          int n, int groups, int nin, int nout,
                                          int splits, void* stream) {
-  if (bad_shape(n, groups, nin, nout)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const Bspline::Params p{gridt, gstride};
-  if (dx != nullptr) {
-    const int err = launch_tc_grouped_dx<Bspline>(x, ldx, p, w, gy, dx, nullptr, 0, nullptr,
-                                                  wtsplit, n, groups, nin, nout, st);
-    if (err != 0) return err;
-  }
-  if (dw == nullptr) return 0;
-  return launch_tc_grouped_dw<Bspline>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout,
-                                       splits, st);
+  return launch_tc_grouped_bwd<Bspline>(x, ldx, {gridt, gstride}, w, gy, dx, dw, dw_part,
+                                        wtsplit, n, groups, nin, nout, splits,
+                                        (cudaStream_t)stream);
+}
+
+// The grouped q/k/v forward (bspline_qkv_grouped's) on the tensor cores
+// (kan_basis_tc.cuh, part 3): y as kanvit_bspline_kan_fwd, with scratch
+// wsplit (launch_tc_grouped_fwd says its size).
+extern "C" int kanvit_bspline_qkv_tc_fwd(const float* x, long long ldx,
+                                         const float* gridt, long long gstride,
+                                         const float* w, float* y, unsigned int* wsplit,
+                                         int n, int groups, int nin, int nout,
+                                         void* stream) {
+  return launch_tc_grouped_fwd<Bspline>(x, ldx, {gridt, gstride}, w, y, wsplit, n, groups,
+                                        nin, nout, (cudaStream_t)stream);
 }
 
 // Chebyshev, degree 4: S = 5.
@@ -300,6 +325,17 @@ extern "C" int kanvit_chebykan_bwd(const float* x, long long ldx,
                                    int nin, int nout, int splits, void* stream) {
   return launch_bwd<Cheby>(x, ldx, {}, w, gy, dx, dw, dw_part, n, groups, nin,
                            nout, splits, stream);
+}
+
+// The grouped q/k/v backward (cheby_qkv_grouped's) on the tensor cores
+// (kan_basis_tc.cuh, part 2): as kanvit_bspline_qkv_tc_bwd, for Chebyshev.
+extern "C" int kanvit_cheby_qkv_tc_bwd(const float* x, long long ldx, const float* w,
+                                       const float* gy, float* dx, float* dw,
+                                       float* dw_part, unsigned int* wtsplit, int n,
+                                       int groups, int nin, int nout, int splits,
+                                       void* stream) {
+  return launch_tc_grouped_bwd<Cheby>(x, ldx, {}, w, gy, dx, dw, dw_part, wtsplit, n, groups,
+                                      nin, nout, splits, (cudaStream_t)stream);
 }
 
 // Fourier, grid_size G >= 1 harmonics: S = 2G, one group. Forward: y (n,

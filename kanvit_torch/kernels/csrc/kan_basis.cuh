@@ -5,7 +5,8 @@
 // family: kan_basis.cu holds B-spline, Chebyshev and Fourier (its dx),
 // kan_rbf_sine.cu the RBF (FastKAN, with its LayerNorm) and sine families.
 // `groups` = 1 for a layer, = H for a grouped q/k/v projection. The Fourier
-// and sine embedders' forward and dW run on the tensor cores instead
+// and sine embedders' forward and dW, every grouped q/k/v backward and the
+// B-spline grouped forward run on the tensor cores instead
 // (kan_basis_tc.cuh).
 //
 //   y[n, g*nout + o]  = sum_i sum_s B_s(x[n, g*nin + i]) * W[g, s, i, o]
@@ -46,8 +47,11 @@
 // second pass, never an atomic: two runs give the same bits.
 //
 // Ragged rows, outputs, features and a family's last chunk are masked
-// in-kernel. Tensor cores for these families are later work (the Fourier
-// and sine embedders' are in kan_basis_tc.cuh).
+// in-kernel. What still runs here: the B-spline, Chebyshev and RBF
+// embedders (forward, and their dx and dW), every family's dx of the
+// Fourier and sine embedders, the Chebyshev, RBF and sine grouped q/k/v
+// forwards, and the sine grouped backward past 4 slices; kan_basis_tc.cuh
+// takes the same families' values and derivatives onto the tensor cores.
 
 #pragma once
 

@@ -1,15 +1,20 @@
-// KAN contractions on Hopper's tensor cores, in two parts.
+// KAN contractions on Hopper's tensor cores, in three parts.
 //
 // Part 1: the Fourier and sine KAN layers' forward and weight gradient: one
 // templated contraction over a basis generated on chip (kan_tc_kernel),
 // instantiated for Fourier in kan_basis.cu and for sine in kan_rbf_sine.cu.
-// Their dx stays on kan_basis.cuh's CUDA-core kan_dx_kernel, and the grouped
-// sine q/k/v's forward on its CUDA-core kernel.
+// Their dx stays on kan_basis.cuh's CUDA-core kan_dx_kernel.
 //
 // Part 2 (below, "The grouped q/k/v backward"): dW and dx of a grouped KAN
 // projection, one group a head, templated over kan_basis.cuh's basis
 // families (kan_tc_dw_grouped, kan_tc_dx_kernel); instantiated for B-spline
-// in kan_basis.cu and for RBF and sine in kan_rbf_sine.cu.
+// and Chebyshev in kan_basis.cu and for RBF and sine in kan_rbf_sine.cu.
+//
+// Part 3 (below, "The grouped q/k/v forward"): y of a grouped KAN projection
+// (kan_tc_fwd_grouped), templated over the same families; instantiated for
+// B-spline in kan_basis.cu. The other grouped forwards (Chebyshev, RBF,
+// sine) and the B-spline, Chebyshev and RBF embedders stay on kan_basis.cuh's
+// CUDA-core kan_fwd_kernel.
 //
 // Part 1:
 //
@@ -607,7 +612,8 @@ int launch_tc_dw(const float* x, long long ldx, typename F::Params p, const floa
 // with the family's basis B and derivative B' (kan_basis.cu's B-spline: the
 // 8 cubic bases of a 12-knot grid and silu, S = 9, the knots of group g at
 // gridt + g gstride, so a refit grid a head is one more stride), or the
-// family's own fold of gW (kan_rbf_sine.cu). Instantiated for B-spline in
+// family's own fold of gW (kan_rbf_sine.cu). Instantiated for B-spline and
+// Chebyshev (T_0..T_4 of tanh x, S = 5; _cheby_op_sg_bwd, :1351) in
 // kan_basis.cu, and for RBF (FastKAN: 8 Gaussians of the head's LayerNorm
 // and silu, S = 9, or 8 without the base slice; _rbf_ln_sg_op_bwd, :3246)
 // and sine (S = G <= 4 slices; _sine_op_sg_bwd, :1557) in kan_rbf_sine.cu.
@@ -642,13 +648,16 @@ int launch_tc_dw(const float* x, long long ldx, typename F::Params p, const floa
 // values' SC basis values of stage kt + 1 (one Cox-de Boor pass for all 9,
 // never one a slice), split into afrags; two A buffers, one barrier a
 // stage. One block an SM at NJ 3, two at NJ 1 (three for 4 slices):
-// tc_dw_blocks. The grouped dW is only 6 heads x 4 feature tiles x 1
-// output tile at vit-s, 24 blocks, so the rows are cut into splits (22
-// there: 528 blocks), each writing its partial, summed in split order by
-// sum_splits_kernel: no atomics, a second backward repeats the bits. Inside
-// a split the running sum is added into the split's partial every
-// tc::FLUSH stages (part 1's two-level sum; the partial is the block's own
-// slab).
+// tc_dw_blocks. At NJ 3 a block takes 2 SC 4 KB of A and 73.5 KB of raw
+// gy: 116.2 KB for Chebyshev's 5 slices, so two blocks (with the 1 KB the
+// card reserves for each) would need 234,496 bytes of the SM's 233,472, and
+// Chebyshev runs one block an SM there too. The grouped dW is only 6 heads
+// x 4 feature tiles x 1 output tile at vit-s, 24 blocks, so the rows are
+// cut into splits (22 there: 528 blocks), each writing its partial, summed
+// in split order by sum_splits_kernel: no atomics, a second backward
+// repeats the bits. Inside a split the running sum is added into the
+// split's partial every tc::FLUSH stages (part 1's two-level sum; the
+// partial is the block's own slab).
 //
 // dx (kan_tc_dx_kernel<F>): C = gy_g W_g^T, gy landing raw by cp.async and
 // split by each warp as it loads its fragments, W^T split once a call by the
@@ -703,6 +712,8 @@ struct Tf32x3 {
     const float v[4] = {lo.x, hi.x, lo.y, hi.y};
     return split_frag(v);
   }
+  // An A fragment from its four values in register order, split.
+  __device__ __forceinline__ static A frag(const float (&v)[4]) { return split_frag(v); }
   __device__ __forceinline__ static void mma(float (&d)[4], const A& a, const B& b) {
     mma3(d, a, b);
   }
@@ -1125,6 +1136,240 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
                                       nin, nout, splits, st);
   return launch_tc_dw_grouped<F, tcg::DW_WIDE>(x, ldx, p, gy, ldg, vec, dw, dw_part, n,
                                                groups, nin, nout, splits, st);
+}
+
+// ===========================================================================
+// Part 3: the grouped q/k/v forward on the tensor cores.
+//
+// Replaces the CUDA-core kan_fwd_kernel for the grouped q/k/v projection's
+// forward (kanvit/kernels/fused_basis.py::_fused_fwd_sg, pallas_call at
+// :1240, reached from bspline_qkv_grouped :1361). For every group (head) g,
+// x_g (n, nin) the columns of x that belong to it and W_g (S, nin, nout)
+// packed:
+//   y[n, g nout + o] = sum_(s,f) B_s(x_g[n, f]) W_g[s, f, o]
+// C = A B per group: A the basis, rows x (slice, feature), generated on chip
+// from x; B W_g in (slice, feature) order. Instantiated for B-spline in
+// kan_basis.cu (the knots of group g at gridt + g gstride, so a refit grid a
+// head is one more stride).
+//
+// What bounds it on the H100: the products. At the vit-s q/k/v (n 12,608,
+// 6 heads of nin 64, nout 192, S 9) it is 16.73 GFLOP: 0.2497 ms in f32 at
+// 67 TFLOP/s, 0.1014 in 3xTF32 at the dense 495 TFLOP/s; the bytes (x 19.4
+// MB, y 58.1, W 2.65) take 0.024 ms. Beside the products: the basis, one
+// Cox-de Boor pass for all 9 slices of each x value (the same basis set the
+// pace of part 2's grouped dW), and the TF32 split of each value.
+//
+// kan_tc_fwd_grouped<F, NT>: a block holds 192 rows x 8 NT outputs of one
+// group (NT 24: 192, a head's q|k|v; NT 8: 64 where nout <= 64, one
+// projection; past 192 outputs the grid walks output tiles, the basis made
+// again for each). 12 warps, each 16 rows x all the block's outputs (NT
+// m16n8 tiles, 96 accumulators a thread at NT 24). A stage is 8 features x
+// all SC slices, SC mma steps: step s is slice s of the 8 features. So a
+// lane's A fragment in every step of a stage holds its own four x values
+// (rows g, g + 8 of the warp's 16; features 2t, 2t + 1 of the stage's 8):
+// the lane generates those values' SC basis values in registers (one
+// Cox-de Boor pass for all 9, the family's values) and splits each once. No
+// A tile in shared memory, and each x value's basis is made once a call (at
+// nout <= 192). The knots of a stage's 8 features are staged after its
+// barrier.
+//
+// B: W is split once a call by a pre-pass (kan_tc_fwd_split, 5.3 MB at
+// vit-s) into each stage's layout, (step, column, fragment thread, 4
+// words: big(2t), big(2t+1), small(2t), small(2t+1)), so a quarter-warp's
+// 16-byte loads cover 32 banks. Every warp reads every column of a stage (a
+// split at load would split each value once a warp); a stage lands by
+// 16-byte cp.async one stage ahead into one of two buffers, 2 SC 8 NT 64
+// bytes: 216 KB at NT 24, 72 KB at NT 8.
+//
+// Why 12 warps of 16 rows (kanvit_torch/probe_qkv_fwd.py, the H100 80GB
+// HBM3 at 700 W): the 96 accumulators and 36 basis values a thread leave
+// too few registers for the products' chains to overlap, and 8 warps an SM
+// could not hide them: 0.60 ms at vit-s. 12 warps at 168 registers (the
+// most 384 threads may hold, some spilled) take 0.47, and 12,608 rows in
+// blocks of 192 are 396 blocks, three full waves. 64-output tiles made the
+// basis three times and ran 0.51; the 4 nonzero cubic bases of each x
+// alone (local support, the same Cox-de Boor expressions) ran no faster,
+// so the family's values stay.
+//
+// Arithmetic: 3xTF32 mma.sync.m16n8k8 (Op), each 8-deep step into a zeroed
+// accumulator added in f32, one running sum over the nin / 8 x SC steps
+// (72 at vit-s, 576 entries deep): within twice the plain f32 version's
+// distance from f64 (tests/test_torch_port_qkv_tc_fwd_cheby.py, and on
+// the card chip_smoke.py).
+//
+// Edge semantics as kan_fwd_kernel's: the family's values (B-spline: x on a
+// knot starts the next interval, x outside every span has zero spline
+// bases). Ragged rows, features (nin not a multiple of 8) and outputs are
+// zero in A and the split W and never stored. No atomics, no row splits: a
+// second forward gives the same bits.
+// ===========================================================================
+
+namespace tcf {
+constexpr int WARPS = 12;  // 16 rows each
+constexpr int FS = 8;      // features a stage: one mma step a slice
+}  // namespace tcf
+
+// W (groups, S, nin, nout) split into kan_tc_fwd_grouped's stages: stage kt
+// of output tile ot of group g holds steps s = 0 .. SC - 1 (slice s, zero
+// past S) of features 8 kt .. 8 kt + 7 by the tile's bn columns, the word
+// group of (s, column c, fragment thread t) at ((s bn + c) 4 + t) 4; stages
+// in order (g, ot, kt). One unit a word group.
+template <int SC>
+__global__ void __launch_bounds__(256)
+kan_tc_fwd_split(const float* __restrict__ w, uint32_t* __restrict__ out, int slices,
+                 int nin, int nout, int bn, int otiles, int nk, long long units) {
+  for (long long u = blockIdx.x * 256LL + threadIdx.x; u < units;
+       u += (long long)gridDim.x * 256) {
+    const int t = (int)(u & 3);
+    long long r = u >> 2;
+    const int col = (int)(r % bn);
+    r /= bn;
+    const int s = (int)(r % SC);
+    r /= SC;
+    const int kt = (int)(r % nk);
+    r /= nk;
+    const int o = (int)(r % otiles) * bn + col, f = tcf::FS * kt + 2 * t;
+    const long long g = r / otiles;
+    float b[2] = {0.f, 0.f};
+    if (s < slices && o < nout) {
+      const float* wr = w + ((g * slices + s) * nin + f) * (long long)nout + o;
+      if (f < nin) b[0] = wr[0];
+      if (f + 1 < nin) b[1] = wr[nout];
+    }
+    store_b(out + 4 * u, b[0], b[1]);
+  }
+}
+
+// y of one group's 16 WARPS rows x 8 NT outputs: grid (row tiles, groups,
+// output tiles); wsplit from kan_tc_fwd_split, nk = ceil(nin / 8) stages.
+template <class F, int NT, int WARPS = tcf::WARPS, class Op = Tf32x3>
+__global__ void __launch_bounds__(32 * WARPS, 1)
+kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Params p,
+                   const uint32_t* __restrict__ wsplit, float* __restrict__ y, int n,
+                   int groups, int nin, int nout, int nk) {
+  constexpr int SC = F::SC, BN = 8 * NT, FS = tcf::FS, THREADS = 32 * WARPS;
+  constexpr int STAGE = SC * BN * 16;  // words of a stage's split W
+  extern __shared__ __align__(16) float sm[];
+  __shared__ typename F::template Stage<FS> st;
+  uint32_t* wbuf = reinterpret_cast<uint32_t*>(sm);
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t = lane & 3;
+  const int grp = blockIdx.y, o0 = blockIdx.z * BN;
+  const long long r0 = (long long)blockIdx.x * 16 * WARPS + 16 * warp;  // the warp's rows
+  const uint32_t* wg = wsplit + ((long long)grp * gridDim.z + blockIdx.z) * nk * STAGE;
+  const float* xg = x + (long long)grp * nin;
+
+  // stage kt's split W into buffer kt & 1, by cp.async
+  auto load_w = [&](int kt) {
+    const uint32_t* src = wg + (long long)kt * STAGE;
+    uint32_t* dst = wbuf + (kt & 1) * STAGE;
+#pragma unroll 4
+    for (int e = 4 * tid; e < STAGE; e += 4 * THREADS)
+      cp_async16(reinterpret_cast<float*>(dst + e), reinterpret_cast<const float*>(src + e),
+                 true);
+    cp_async_commit();
+  };
+  // This lane's value q of a stage: row r0 + g8 + 8 (q & 1), feature
+  // 8 kt + 2t + (q >> 1), the A fragment's register order.
+  float xv[4];
+  auto load_x = [&](int kt) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long row = r0 + g8 + 8 * (q & 1);
+      const int f = FS * kt + 2 * t + (q >> 1);
+      xv[q] = row < n && f < nin ? xg[row * ldx + f] : 0.f;
+    }
+  };
+  // The basis of this lane's four values of stage kt (from xv and the
+  // staged knots), 0 outside.
+  auto make = [&](int kt, float (&v)[4][SC]) {
+#pragma unroll
+    for (int q = 0; q < 4; ++q) {
+      const long long row = r0 + g8 + 8 * (q & 1);
+      const int kf = 2 * t + (q >> 1), f = FS * kt + kf;
+      float b[SC];
+      F::template values<FS>(p, st, Elem{xv[q], kf, f, grp, row}, 0, b);
+      const bool live = row < n && f < nin;
+#pragma unroll
+      for (int s = 0; s < SC; ++s) v[q][s] = live ? b[s] : 0.f;
+    }
+  };
+  float acc[NT][4];
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+
+  load_w(0);
+  load_x(0);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage kt's W landed; every warp is past stage kt - 1
+    F::template stage<FS>(p, nin, FS * kt, grp, st);
+    if (kt + 1 < nk) load_w(kt + 1);
+    float v[4][SC];
+    make(kt, v);
+    if (kt + 1 < nk) load_x(kt + 1);
+    const uint32_t* ws = wbuf + (kt & 1) * STAGE + 4 * (4 * g8 + t);
+#pragma unroll
+    for (int s = 0; s < SC; ++s) {
+      const float a4[4] = {v[0][s], v[1][s], v[2][s], v[3][s]};
+      const typename Op::A a = Op::frag(a4);
+#pragma unroll
+      for (int j = 0; j < NT; ++j) Op::mma(acc[j], a, Op::load_b(ws + (s * BN + 8 * j) * 16));
+    }
+  }
+
+  const long long ldy = (long long)groups * nout;
+  float* yg = y + (long long)grp * nout;
+#pragma unroll
+  for (int j = 0; j < NT; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long row = r0 + g8 + 8 * (e >> 1);
+      const int col = o0 + 8 * j + 2 * t + (e & 1);
+      if (row < n && col < nout) yg[row * ldy + col] = acc[j][e];
+    }
+}
+
+// The pre-pass and kan_tc_fwd_grouped<F, NT, WARPS> over the operands of
+// launch_tc_grouped_fwd.
+template <class F, int NT, int WARPS = tcf::WARPS>
+int launch_tc_fwd_grouped(const float* x, long long ldx, typename F::Params p, const float* w,
+                          float* y, uint32_t* wsplit, int n, int groups, int nin, int nout,
+                          cudaStream_t st) {
+  constexpr int BN = 8 * NT;
+  const int nk = cdiv(nin, tcf::FS), otiles = cdiv(nout, BN);
+  if (groups > 65535 || otiles > 65535) return (int)cudaErrorInvalidValue;
+  const long long units = (long long)groups * otiles * nk * F::SC * BN * 4;
+  const long long want = (units + 255) / 256;
+  kan_tc_fwd_split<F::SC><<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, st>>>(
+      w, wsplit, F::slices(p), nin, nout, BN, otiles, nk, units);
+  int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const size_t smem = sizeof(uint32_t) * 2 * F::SC * BN * 16;
+  err = tc_attr(kan_tc_fwd_grouped<F, NT, WARPS>, smem);
+  if (err != 0) return err;
+  kan_tc_fwd_grouped<F, NT, WARPS><<<dim3((unsigned)cdiv(n, 16 * WARPS), groups, otiles),
+                                     32 * WARPS, smem, st>>>(x, ldx, p, wsplit, y, n, groups,
+                                                             nin, nout, nk);
+  return (int)cudaGetLastError();
+}
+
+// y (n, groups nout) of a grouped layer: x (n, groups nin) with row stride
+// ldx and unit column stride, w (groups, S, nin, nout) contiguous, y
+// contiguous; wsplit: scratch of groups ceil(nout / BN) ceil(nin / 8) SC BN
+// 16 words (BN 64 where nout <= 64, else 192), 16-byte aligned.
+template <class F>
+int launch_tc_grouped_fwd(const float* x, long long ldx, typename F::Params p, const float* w,
+                          float* y, uint32_t* wsplit, int n, int groups, int nin, int nout,
+                          cudaStream_t st) {
+  if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 || F::slices(p) > F::SC ||
+      wsplit == nullptr || (uintptr_t)wsplit % 16 != 0)
+    return (int)cudaErrorInvalidValue;
+  if (nout <= 64)
+    return launch_tc_fwd_grouped<F, 8>(x, ldx, p, w, y, wsplit, n, groups, nin, nout, st);
+  return launch_tc_fwd_grouped<F, 24>(x, ldx, p, w, y, wsplit, n, groups, nin, nout, st);
 }
 
 }  // namespace

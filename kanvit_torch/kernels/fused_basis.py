@@ -25,11 +25,14 @@ RBF with its LayerNorm, sine):
 (sine's dfreq with it) on the tensor cores instead (``csrc/kan_basis_tc.cuh``,
 3xTF32 ``mma.sync`` over a basis generated on chip), their dx on the
 CUDA-core template. The backward (dx and dW) of :func:`bspline_qkv_grouped`,
-:func:`fastkan_qkv_grouped` and :func:`sinekan_qkv_grouped` runs on the
-tensor cores too (``csrc/kan_basis_tc.cuh``, part 2: 3xTF32 ``mma.sync``,
-dW over a basis generated on chip in row splits summed in a fixed order, dx
-with the basis derivative or the family's fold in the epilogue: FastKAN's
-dln for its LayerNorm's VJP, sine's dfreq sums); their forwards stay on the
+:func:`cheby_qkv_grouped`, :func:`fastkan_qkv_grouped` and
+:func:`sinekan_qkv_grouped` runs on the tensor cores too
+(``csrc/kan_basis_tc.cuh``, part 2: 3xTF32 ``mma.sync``, dW over a basis
+generated on chip in row splits summed in a fixed order, dx with the basis
+derivative or the family's fold in the epilogue: FastKAN's dln for its
+LayerNorm's VJP, sine's dfreq sums), and so does the forward of
+:func:`bspline_qkv_grouped` (part 3: each lane makes the basis of its own
+A fragments in registers); the other grouped forwards stay on the
 CUDA-core template. The route is chosen by call site, never by size, with
 one exception: the tensor-core tile holds at most 4 sine slices, so a
 grouped sine backward of a larger grid takes the CUDA-core kernels.
@@ -96,10 +99,15 @@ TC_ROUTES = ("fourierkan", "sinekan")
 # features a block (an m16 tile a slice), the dW kernel's 32-row stages and
 # its outputs a block (64 up to nout 64, else 192), and the dx kernel's rows
 # a block and 16-output stages; the slices a family's tile holds (its SC).
-TC_GROUPED_BWD = ("bspline_qkv_grouped_bwd", "fastkan_qkv_grouped_bwd",
-                  "sinekan_qkv_grouped_bwd")
+TC_GROUPED_BWD = ("bspline_qkv_grouped_bwd", "cheby_qkv_grouped_bwd",
+                  "fastkan_qkv_grouped_bwd", "sinekan_qkv_grouped_bwd")
 TCG_FEATURES, TCG_DX_ROWS, TCG_DX_STAGE = 16, 128, 16
-TCG_SLICES = {"bspline": N_SLICES, "rbf": RBF_GRIDS + 1, "sine": SINE_CHUNK}
+TCG_SLICES = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 1,
+              "sine": SINE_CHUNK}
+# The grouped forward on the tensor cores (part 3): its features a stage
+# (one mma step a slice), its outputs a block as the grouped dW's.
+TC_GROUPED_FWD = ("bspline_qkv_grouped",)
+TCG_FWD_FEATURES = 8
 TCG_DW_TARGET_BLOCKS = 4  # blocks an SM the dW row splits aim at
 
 
@@ -402,9 +410,15 @@ def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
         stream = _stream(x2d.device)
         if family == "bspline":
             gridt, gstride = _knot_rows(aux)
-            err = lib.kanvit_bspline_kan_fwd(*args, gridt.data_ptr(), gstride,
-                                             w.data_ptr(), y.data_ptr(), *shape,
-                                             stream)
+            if name in TC_GROUPED_FWD:
+                wsplit = _tc_grouped_fwd_scratch(w, x2d.device)
+                err = lib.kanvit_bspline_qkv_tc_fwd(*args, gridt.data_ptr(), gstride,
+                                                    w.data_ptr(), y.data_ptr(),
+                                                    wsplit.data_ptr(), *shape, stream)
+            else:
+                err = lib.kanvit_bspline_kan_fwd(*args, gridt.data_ptr(), gstride,
+                                                 w.data_ptr(), y.data_ptr(), *shape,
+                                                 stream)
         elif family == "cheby":
             err = lib.kanvit_chebykan_fwd(*args, w.data_ptr(), y.data_ptr(),
                                           *shape, stream)
@@ -427,8 +441,8 @@ def dw_splits(n: int, groups: int, nin: int, out: int, n_sm: int,
     return max(1, min(want, n // DW_MIN_ROWS_PER_SPLIT, 65535 // groups))
 
 
-def tc_dw_outs(nout: int) -> int:
-    """Outputs a block of the grouped tensor-core dW kernel."""
+def tc_grouped_outs(nout: int) -> int:
+    """Outputs a block of the grouped tensor-core dW and forward kernels."""
     return 64 if nout <= 64 else 192
 
 
@@ -437,7 +451,7 @@ def tc_grouped_dw_splits(n: int, groups: int, nin: int, nout: int, n_sm: int) ->
     group x output tile) blocks times splits for ``TCG_DW_TARGET_BLOCKS``
     blocks an SM, whole 32-row stages a split, none left empty. A function
     of the shape and the card only, so a run repeats its bits."""
-    tiles = groups * -(-nin // TCG_FEATURES) * -(-nout // tc_dw_outs(nout))
+    tiles = groups * -(-nin // TCG_FEATURES) * -(-nout // tc_grouped_outs(nout))
     stages = -(-n // TC_STAGE)
     per = -(-stages // min(stages, -(-TCG_DW_TARGET_BLOCKS * n_sm // tiles)))
     return -(-stages // per)
@@ -460,18 +474,32 @@ def _tc_grouped_scratch(family, w, n, need_dx, need_dw, dev):
     return wtsplit, splits, part
 
 
-def _launch_grouped_tc_bwd(name, x2d, w, grid, gy, dx, dw, lib, stream):
-    """``(dx, dw)`` of ``bspline_qkv_grouped`` from the tensor-core kernels,
-    into ``dx`` and ``dw`` (either None to skip it)."""
+def _tc_grouped_fwd_scratch(w, dev) -> torch.Tensor:
+    """W split for the grouped tensor-core forward: for every group and
+    block of outputs, ``ceil(nin / 8)`` stages of all the family's slices
+    x 8 features x the block's outputs, two words a value."""
+    groups, slices, nin, out = w.shape
+    outs = tc_grouped_outs(out)
+    return torch.empty(groups * -(-out // outs) * -(-nin // TCG_FWD_FEATURES) * slices
+                       * outs * TCG_FWD_FEATURES * 2, dtype=torch.int32, device=dev)
+
+
+def _launch_grouped_tc_bwd(name, family, x2d, w, aux, gy, dx, dw, lib, stream):
+    """``(dx, dw)`` of ``bspline_qkv_grouped`` or ``cheby_qkv_grouped``
+    (``family``) from the tensor-core kernels, into ``dx`` and ``dw``
+    (either None to skip it); ``aux`` the knot grid or the degree."""
     n = x2d.shape[0]
     groups, _, nin, out = w.shape
-    wtsplit, splits, part = _tc_grouped_scratch("bspline", w, n, dx is not None,
+    wtsplit, splits, part = _tc_grouped_scratch(family, w, n, dx is not None,
                                                 dw is not None, x2d.device)
-    gridt, gstride = _knot_rows(grid)
-    err = lib.kanvit_bspline_qkv_tc_bwd(
-        x2d.data_ptr(), x2d.stride(0), gridt.data_ptr(), gstride, w.data_ptr(),
-        gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), _ptr(wtsplit), n, groups, nin,
-        out, splits, stream)
+    args = (x2d.data_ptr(), x2d.stride(0))
+    grads = (w.data_ptr(), gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), _ptr(wtsplit), n,
+             groups, nin, out, splits, stream)
+    if family == "bspline":
+        gridt, gstride = _knot_rows(aux)
+        err = lib.kanvit_bspline_qkv_tc_bwd(*args, gridt.data_ptr(), gstride, *grads)
+    else:
+        err = lib.kanvit_cheby_qkv_tc_bwd(*args, *grads)
     return _counted(name, err, dx, dw)
 
 
@@ -497,7 +525,8 @@ def _launch_bwd(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
     with torch.cuda.device(dev):
         stream = _stream(dev)
         if name in TC_GROUPED_BWD:
-            return _launch_grouped_tc_bwd(name, x2d, w, aux, gy, dx, dw, lib, stream)
+            return _launch_grouped_tc_bwd(name, family, x2d, w, aux, gy, dx, dw, lib,
+                                          stream)
         if family == "fourier":
             gysplit = _tc_split(-(-n // TC_STAGE), out, dev) if need_dw else None
             err = lib.kanvit_fourierkan_bwd(*args, w.data_ptr(), gy.data_ptr(),

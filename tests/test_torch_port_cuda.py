@@ -63,20 +63,28 @@ def test_bspline_kan_kernel(cuda, n, nin, nout):
     assert FB.LAUNCHES["bspline_kan"] == 1
 
 
-@pytest.mark.parametrize("n,h,dh", [(37 * 50, 2, 32), (129, 6, 64)])
+@pytest.mark.parametrize("n,h,dh", [(37 * 50, 2, 32), (129, 6, 64), (12608, 6, 64)])
 def test_bspline_qkv_grouped_kernel(cuda, n, h, dh):
+    """The tensor-core forward against the plain version, no further from
+    f64 than twice it, and a second forward with the same bits."""
     rng = np.random.default_rng(41)
     x = _spline_x(rng, (n, h * dh)).to(cuda)
     grid = K.make_bspline_grid(dh, device=cuda)
     bw, sw, sc = (torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(cuda)
                   for s in ((h, 3 * dh, dh), (h, 3 * dh, dh, 8), (h, 3 * dh, dh)))
+
+    def plain(x, bw, sw, sc):
+        return torch.cat([K.bspline_kan_forward(x[:, i * dh:(i + 1) * dh], grid, bw[i],
+                                                sw[i], sc[i]) for i in range(h)], dim=1)
+
     with torch.inference_mode():
         y = FB.bspline_qkv_grouped(x, grid, bw, sw, sc)
-        want = torch.cat([K.bspline_kan_forward(x[:, i * dh:(i + 1) * dh], grid,
-                                                bw[i], sw[i], sc[i])
-                          for i in range(h)], dim=1)
+        again = FB.bspline_qkv_grouped(x, grid, bw, sw, sc)
+        want = plain(x, bw, sw, sc)
         _close(y, want, 1e-4)
-    assert FB.LAUNCHES["bspline_qkv_grouped"] == 1
+        _f64_gate(y, want, plain(*(a.double() for a in (x, bw, sw, sc))))
+    assert torch.equal(y, again)
+    assert FB.LAUNCHES["bspline_qkv_grouped"] == 2
 
 
 @pytest.mark.parametrize("causal,masked", [(False, False), (True, False),
@@ -492,6 +500,35 @@ def test_cheby_qkv_grouped_kernels(cuda, n, h, dh):
     assert FB.LAUNCHES["cheby_qkv_grouped_bwd"] == 1
 
 
+@pytest.mark.parametrize("n,h,dh", [(12608, 6, 64), (37 * 50, 2, 32), (3200, 8, 8),
+                                    (301, 2, 5)])
+def test_cheby_qkv_grouped_tc_backward(cuda, n, h, dh):
+    """The tensor-core backward (dx and dW in 3xTF32) with a share of x where
+    tanh(x) rounds to +-1: every gradient finite, dx 0 there, within 1e-4 x
+    max(1, max|g|) of the plain version and no further from f64 than twice
+    it, and a second backward with the same bits; dh 5's 15 outputs a head
+    take the 4-byte copies of gy."""
+    rng = np.random.default_rng(64 + dh)
+    x = _cheby_x(rng, (n, h * dh), 0.05).to(cuda)
+    cc = _param(rng, (h, dh, 3 * dh, 5), 1.0 / np.sqrt(dh * 5)).to(cuda)
+    g = _param(rng, (n, h * 3 * dh), 1.0).to(cuda)
+
+    def plain(x, cc):
+        return torch.cat([K.chebykan_forward(x[:, i * dh:(i + 1) * dh], cc[i])
+                          for i in range(h)], dim=1)
+
+    _, got = _grads(FB.cheby_qkv_grouped, [x, cc], g)
+    _, again = _grads(FB.cheby_qkv_grouped, [x, cc], g)
+    _, want = _grads(plain, [x, cc], g)
+    _, exact = _grads(lambda *a: plain(*a).double(), [x.double(), cc.double()], g.double())
+    for a, b, c in zip(got, want, exact):
+        _close(a, b, 1e-4)
+        _f64_gate(a, b, c)
+    assert bool((got[0][x.abs() >= 9.5] == 0).all())
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert FB.LAUNCHES["cheby_qkv_grouped_bwd"] == 2
+
+
 @pytest.mark.parametrize("n,nin,nout,grid_size", [
     (1, 8, 3, 1), (1000, 16, 24, 5), (999, 20, 70, 7), (300, 64, 96, 28)])
 def test_fourierkan_kernels(cuda, n, nin, nout, grid_size):
@@ -536,6 +573,36 @@ def test_new_kernels_raise_not_fall_back(cuda):
         FB.fourierkan(x.double(), torch.zeros(2, 3, 16, 5, device=cuda,
                                               dtype=torch.float64), None)
     assert sum(FB.LAUNCHES.values()) == 0
+
+
+def test_grouped_tc_entries_raise_not_fall_back(cuda, monkeypatch):
+    """A tensor-core entry that fails (here: returns a CUDA error) makes the
+    wrapper raise; the CUDA-core entries of the same call sites are never
+    called, and nothing is counted."""
+    from kanvit_torch.kernels import _build
+
+    lib, called = _build.load(), []
+    for name in ("kanvit_bspline_qkv_tc_fwd", "kanvit_cheby_qkv_tc_bwd"):
+        monkeypatch.setattr(lib, name, lambda *args: 98)
+    for name in ("kanvit_bspline_kan_fwd", "kanvit_chebykan_bwd"):
+        def record(*args, _fn=getattr(lib, name), _name=name):
+            called.append(_name)
+            return _fn(*args)
+        monkeypatch.setattr(lib, name, record)
+    rng = np.random.default_rng(65)
+    h, dh = 2, 8
+    x = _spline_x(rng, (50, h * dh)).to(cuda)
+    grid = K.make_bspline_grid(dh, device=cuda)
+    params = _spline_params(rng, h, 3 * dh, dh, cuda)
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="CUDA error 98"):
+        FB.bspline_qkv_grouped(x, grid, *params)
+    cc = _param(rng, (h, dh, 3 * dh, 5), 0.1).to(cuda).requires_grad_(True)
+    y = FB.cheby_qkv_grouped(x, cc)
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        y.sum().backward()
+    assert called == []
+    assert FB.LAUNCHES["bspline_qkv_grouped"] == 0
+    assert FB.LAUNCHES["cheby_qkv_grouped_bwd"] == 0
 
 
 @pytest.mark.parametrize("variant,launches", [
@@ -1014,8 +1081,12 @@ def test_bspline_qkv_grouped_dh8_and_per_head_grids(cuda, per_head):
     _close(got, want, 1e-4)
     for a, b in zip(gg, wg):
         _close(a, b, 1e-4)
+    with torch.inference_mode():
+        again = FB.bspline_qkv_grouped(x, grid, *params)
+        _f64_gate(got, want, plain(*(a.double() for a in (x, *params))))
+    assert torch.equal(got, again)
     assert (FB.LAUNCHES["bspline_qkv_grouped"],
-            FB.LAUNCHES["bspline_qkv_grouped_bwd"]) == (1, 1)
+            FB.LAUNCHES["bspline_qkv_grouped_bwd"]) == (2, 1)
 
 
 def _f64_gate(got, plain, exact):
