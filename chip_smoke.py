@@ -294,7 +294,8 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("kan_tc_dx_kernel", "3RbfE"), ("kan_tc_dw_grouped", "4SineELi1E"),
                 ("kan_tc_dx_kernel", "4SineE"), ("kan_tc_dw_grouped", "5ChebyELi3E"),
                 ("kan_tc_dx_kernel", "5ChebyE"), ("kan_tc_fwd_grouped", "7BsplineELi24E"),
-                ("kan_tc_fwd_grouped", "7BsplineELi8E"),
+                ("kan_tc_fwd_grouped", "7BsplineELi8E"), ("kan_tc_fwd_grouped", "3RbfELi8E"),
+                ("kan_tc_fwd_grouped", "4SineELi8E"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
                 ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"))
 
@@ -1234,7 +1235,8 @@ def f64_gate(tag, got, plain32, exact):
 
 
 def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
-              shape, f64=False, tc_grads=(), f64_gates=False, cuda_cores=None):
+              shape, f64=False, tc_grads=(), f64_gates=False, cuda_cores=None,
+              fwd_cuda_cores=None, kernel_grads=None):
     """Forward, dx and the parameter gradients of a KAN wrapper against its
     plain version and autograd through it, on the card; the backward's bits
     repeated; CUDA-event times of the forward kernel, the backward kernels
@@ -1255,10 +1257,19 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
 
     ``cuda_cores(g)``: the backward is a grouped q/k/v's on the tensor cores
     (3xTF32), and this launches the CUDA-core kernels it replaces on the
-    same operands: every gradient is held no further from f64 than twice
-    the plain f32 version, the backward's device time is measured beside
-    the CUDA-core kernels' time, and its bounds are the 3xTF32 ones (the
-    forward stays on the CUDA cores).
+    same operands: the gradients the kernels compute (``kernel_grads``, by
+    default all) are held no further from f64 than twice the plain f32
+    version, the rest (a bias's sum over the rows, which PyTorch computes
+    outside every kernel) printed beside them, the backward's device time
+    is measured beside the CUDA-core kernels' time, and its bounds are the
+    3xTF32 ones.
+
+    ``fwd_cuda_cores()``: the forward is a grouped q/k/v's on the tensor
+    cores (3xTF32), and this launches the CUDA-core kernel it replaces on
+    the same operands: the forward is held no further from f64 than twice
+    the plain f32 version, a second forward must repeat its bits, its
+    device time is measured beside the CUDA-core kernel's (CUDA events and
+    device), and its bounds are the 3xTF32 ones.
     Returns the ``(err, ms, plain_ms, extras...)`` of the forward and of the
     backward."""
     x = inputs[0]
@@ -1268,9 +1279,13 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
         torch.cuda.synchronize()
         err_fwd = compare(f"{name} {label} {tuple(x.shape)}", y, ref, TOL_KAN)
         extra_fwd = {}
-        if f64_gates:
+        if f64_gates or fwd_cuda_cores is not None:
             extra_fwd["f64_err"] = f64_gate(f"{name} {label}", y, ref,
                                             plain(*(a.double() for a in inputs)))
+        if fwd_cuda_cores is not None:
+            same = torch.equal(y, kernel(*inputs))
+            print(f"[kernel] {name} {label}: a second forward repeats the bits: {same}")
+            check(same, f"{name} {label}: a second forward gave other bits")
     g = torch.from_numpy(rng.standard_normal(tuple(ref.shape))
                          .astype(np.float32)).cuda()
     _, _, got = grads_of(torch, kernel, inputs, g)
@@ -1298,7 +1313,8 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
                       [a.double() for a in got], want64)
     if cuda_cores is not None:
         for nm, a, b, c in zip(names, got, want, want64):
-            extra_bwd[f"f64_err_d{nm}"] = f64_gate(f"{name}_bwd {label} d{nm}", a, b, c)
+            if nm in (names if kernel_grads is None else kernel_grads):
+                extra_bwd[f"f64_err_d{nm}"] = f64_gate(f"{name}_bwd {label} d{nm}", a, b, c)
     if f64_gates:
         for nm, b, c in zip(names, want, want64):
             if nm in tc_grads:
@@ -1328,6 +1344,13 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
         extra_bwd["cuda_core_ms"] = time_ms(torch, lambda: cuda_cores(g))
         extra_bwd["cuda_core_device_ms"] = kernel_ms(torch, lambda: cuda_cores(g), 10,
                                                      label=f"{name}_bwd {label}, CUDA cores")
+    if fwd_cuda_cores is not None:
+        with torch.inference_mode():
+            extra_fwd["device_ms"] = kernel_ms(torch, fwd, 10,
+                                               label=f"{name} {label}, tensor cores")
+            extra_fwd["cuda_core_ms"] = time_ms(torch, fwd_cuda_cores)
+            extra_fwd["cuda_core_device_ms"] = kernel_ms(
+                torch, fwd_cuda_cores, 10, label=f"{name} {label}, CUDA cores")
     if f64_gates:
         with torch.inference_mode():
             extra_fwd["device_ms"] = kernel_ms(torch, fwd, 10, label=f"{name} {label}")
@@ -1344,10 +1367,16 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
           f" | backward kernels, all gradients {bwd_ms:.4f} ms (no dx, as an "
           f"embedder's training step {train_ms:.4f} ms)  plain autograd "
           f"{plain_bwd_ms:.4f} ms" + "".join(
-              f"; {k} {v:.4f}" for k, v in {**extra_fwd, **extra_bwd}.items()
-              if k.endswith(("device_ms", "cuda_core_ms"))))
+              f"; {part} {k} {v:.4f}" for part, extras in (("forward", extra_fwd),
+                                                           ("backward", extra_bwd))
+              for k, v in extras.items() if k.endswith(("device_ms", "cuda_core_ms"))))
+    if fwd_cuda_cores is not None:
+        fwd_bound = kan_bound(*dims, extra_floats=extra, tensor_cores=True)
+        print(f"[kernel] {name} {label}: forward bound 3xTF32 {fwd_bound['bound_ms']:.4f} "
+              f"ms, f32 {fwd_bound['f32_bound_ms']:.4f} ms")
     return ((err_fwd, ms, plain_ms, extra_fwd,
-             kan_bound(*dims, extra_floats=extra, tensor_cores=tc)),
+             kan_bound(*dims, extra_floats=extra,
+                       tensor_cores=tc or fwd_cuda_cores is not None)),
             (err_bwd, bwd_ms, plain_bwd_ms, extra_bwd,
              kan_bound(*dims, backward=True, extra_floats=extra,
                        tensor_cores=tc or cuda_cores is not None)))
@@ -1410,12 +1439,14 @@ def cuda_core_route(FB, launch):
         FB.TC_GROUPED_BWD, FB.TC_GROUPED_FWD = routes
 
 
-def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False):
+def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False, base=True):
     """``fastkan`` (groups 1) or ``fastkan_qkv_grouped`` against the plain
     FastKAN forward (per head) and autograd through it: x, the LayerNorm's
-    gamma and beta, spline and base weights, base bias. ``tc_gates``: the
-    grouped backward's tensor-core gates and times beside the CUDA-core
-    kernels (``check_kan``'s ``cuda_cores``)."""
+    gamma and beta, spline and base weights, base bias; without ``base``
+    (the grouped route only) an 8-slice weight through the grouped
+    Function and no base weights. ``tc_gates``: the grouped forward's and
+    backward's tensor-core gates and times beside the CUDA-core kernels
+    (``check_kan``'s ``fwd_cuda_cores`` and ``cuda_cores``)."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.ops import kan_bases as K
 
@@ -1428,21 +1459,28 @@ def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False):
               cuda(0.1 * rng.standard_normal((*lead, nin))),
               cuda(rng.standard_normal((*lead, nout, nin * 8)) / np.sqrt(nin * 8)),
               cuda(rng.standard_normal((*lead, nout, nin)) / np.sqrt(nin)),
-              cuda(0.1 * rng.standard_normal((*lead, nout)))]
+              cuda(0.1 * rng.standard_normal((*lead, nout)))][:5 if base else 3]
     grid, den = torch.linspace(-2.0, 2.0, 8, device="cuda"), 4.0 / 7.0
     if groups == 1:
         kernel = lambda x, ga, be, *w: FB.fastkan(x, ga, be, grid, den, *w)  # noqa: E731
         plain = lambda x, ga, be, *w: K.fastkan_forward(x, ga, be, grid, den, *w)  # noqa: E731
         w = FB.pack_fastkan_weight(params[2], params[3], 8).unsqueeze(0)
     else:
-        kernel = lambda x, ga, be, *w: FB.fastkan_qkv_grouped(  # noqa: E731
-            x, ga, be, grid, den, *w)
-
-        def plain(x, ga, be, sw, bw, bb):
+        def plain(x, ga, be, sw, bw=None, bb=None):
             return torch.cat([K.fastkan_forward(
-                x[:, i * nin:(i + 1) * nin], ga[i], be[i], grid, den, sw[i], bw[i], bb[i])
+                x[:, i * nin:(i + 1) * nin], ga[i], be[i], grid, den, sw[i],
+                None if bw is None else bw[i], None if bb is None else bb[i])
                 for i in range(groups)], dim=1)
-        w = FB.pack_fastkan_qkv_weight(params[2], params[3], 8)
+
+        if base:
+            kernel = lambda x, ga, be, *w: FB.fastkan_qkv_grouped(  # noqa: E731
+                x, ga, be, grid, den, *w)
+            w = FB.pack_fastkan_qkv_weight(params[2], params[3], 8)
+        else:
+            def kernel(x, ga, be, sw):
+                return FB._RbfFn.apply(x, sw.reshape(groups, nout, nin, 8).permute(
+                    0, 3, 2, 1).contiguous(), ga, be, grid, den, name)
+            w = params[2].reshape(groups, nout, nin, 8).permute(0, 3, 2, 1)
     w = w.contiguous()
     ga, be = (p.reshape(groups, nin) for p in params[:2])
     with torch.inference_mode():
@@ -1458,17 +1496,25 @@ def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False):
         return cuda_core_route(FB, lambda: FB._launch_rbf_bwd(
             bname, x, w, ga, be, grid, den, stats, g, True, True))
 
+    def fwd_cuda_cores():
+        return cuda_core_route(FB, launches[0])
+
+    names = ("x", "gamma", "beta", "spline_weight", "base_weight", "base_bias")
     return check_kan(torch, rng, name, label, kernel, plain, [x, *params],
-                     ("x", "gamma", "beta", "spline_weight", "base_weight", "base_bias"),
-                     launches, (n, groups, 9, nin, nout, 2 * groups * nin + 8, 2),
-                     cuda_cores=cuda_cores if tc_gates else None)
+                     names[:len(params) + 1], launches,
+                     (n, groups, w.shape[1], nin, nout, 2 * groups * nin + 8, 2),
+                     cuda_cores=cuda_cores if tc_gates else None,
+                     fwd_cuda_cores=fwd_cuda_cores if tc_gates else None,
+                     kernel_grads=names[:5])
 
 
 def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size, tc_gates=False):
     """``sinekan`` (groups 1) or ``sinekan_qkv_grouped`` against the plain
     SineKAN forward (per head) and autograd through it: x, freq, amplitudes,
     bias. At the embedder dfreq sums N * nin = 9.6M terms a slice: the
-    gradients are held against f64 too. ``tc_gates``: as ``check_rbf``'s."""
+    gradients are held against f64 too. ``tc_gates``: as ``check_rbf``'s
+    (the grouped forward on the tensor cores up to grid 4; the backward's
+    f64 gates on x, freq and the amplitudes, the bias's gradient printed)."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.ops import kan_bases as K
 
@@ -1506,13 +1552,18 @@ def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size, tc_gate
         return cuda_core_route(FB, lambda: FB._launch_sine_bwd(
             bname, x, w, freq2d, phase, g, True, True))
 
+    def fwd_cuda_cores():
+        return cuda_core_route(FB, launches[0])
+
     return check_kan(torch, rng, name, label, kernel, plain, [x, *params],
                      ("x", "freq", "amplitudes", "bias"), launches,
                      (n, groups, grid_size, nin, nout, (groups + nin) * grid_size, 2),
                      f64=groups == 1 and nin >= 768,
                      tc_grads=("freq", "amplitudes") if groups == 1 else (),
                      f64_gates=groups == 1 and nin >= 768,
-                     cuda_cores=cuda_cores if tc_gates else None)
+                     cuda_cores=cuda_cores if tc_gates else None,
+                     fwd_cuda_cores=fwd_cuda_cores if tc_gates else None,
+                     kernel_grads=("x", "freq", "amplitudes"))
 
 
 def check_cheby_qkv(torch, rng, n, h, dh, label):
@@ -1584,7 +1635,9 @@ def phase_rbf_sine_kernels(torch):
     """``fastkan`` and ``sinekan`` (grid 28) at the vit-s embedder (12,544
     patches, 768 -> 384), ``fastkan_qkv_grouped`` and ``sinekan_qkv_grouped``
     (grid 4) at one vit-s q/k/v projection (12,608 tokens, 6 heads of 64 ->
-    64), and ragged narrow shapes of each (nin 16, d_head 32, odd N)."""
+    64), there also FastKAN without its base branch and sine at grid 3 (the
+    tensor-core tiles' slices left empty, sub-entries of their kernels),
+    and ragged narrow shapes of each (nin 16, d_head 32, odd N)."""
     rng = np.random.default_rng(SEED + 9)
     results = {}
 
@@ -1599,6 +1652,10 @@ def phase_rbf_sine_kernels(torch):
                             (37 * 50 - 1, 2, 32, "ragged")):
         keep("fastkan_qkv_grouped", check_rbf(torch, rng, "fastkan_qkv_grouped",
                                               label, n, h, dh, dh, tc_gates=n > 10000))
+    fwd, bwd = check_rbf(torch, rng, "fastkan_qkv_grouped", "vit-s q/k/v, no base branch",
+                         BATCH * 197, 6, 64, 64, tc_gates=True, base=False)
+    results["fastkan_qkv_grouped"] += ({"no_base_branch": sub_entry(fwd)},)
+    results["fastkan_qkv_grouped_bwd"] += ({"no_base_branch": sub_entry(bwd)},)
     for n, nin, nout, gs, label in ((BATCH * 196, 768, 384, 28, "vit-s embedder G28"),
                                     (37 * 49, 16, 64, 28, "ragged G28"),
                                     (999, 20, 70, 7, "ragged G7")):
@@ -1607,6 +1664,10 @@ def phase_rbf_sine_kernels(torch):
                             (37 * 50 - 1, 2, 32, "ragged")):
         keep("sinekan_qkv_grouped", check_sine(torch, rng, "sinekan_qkv_grouped",
                                                label, n, h, dh, dh, 4, tc_gates=n > 10000))
+    fwd, bwd = check_sine(torch, rng, "sinekan_qkv_grouped", "vit-s q/k/v G3",
+                          BATCH * 197, 6, 64, 64, 3, tc_gates=True)
+    results["sinekan_qkv_grouped"] += ({"grid_3": sub_entry(fwd)},)
+    results["sinekan_qkv_grouped_bwd"] += ({"grid_3": sub_entry(bwd)},)
     return results
 
 
@@ -2259,7 +2320,7 @@ KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
     ("KAN q/k/v bwd on the tensor cores (B-spline, Chebyshev, RBF, sine: dW, dx)",
      ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
-    ("KAN q/k/v fwd on the tensor cores (B-spline)",
+    ("KAN q/k/v fwd on the tensor cores (B-spline, RBF, sine)",
      ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
      ("kan_tc_kernel", "kan_tc_split")),
@@ -2710,11 +2771,11 @@ SOURCES = {
     "fourierkan_bwd": (KAN_TC_SRC, f"{FB_PY}:2564"),
     "fastkan": (RBF_SINE_SRC, f"{FB_PY}:2947"),
     "fastkan_bwd": (RBF_SINE_SRC, f"{FB_PY}:2995"),
-    "fastkan_qkv_grouped": (RBF_SINE_SRC, f"{FB_PY}:3191"),
+    "fastkan_qkv_grouped": (KAN_TC_SRC, f"{FB_PY}:3191"),
     "fastkan_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:3246"),
     "sinekan": (KAN_TC_SRC, f"{FB_PY}:2317"),
     "sinekan_bwd": (KAN_TC_SRC, f"{FB_PY}:2523"),
-    "sinekan_qkv_grouped": (RBF_SINE_SRC, f"{FB_PY}:1518"),
+    "sinekan_qkv_grouped": (KAN_TC_SRC, f"{FB_PY}:1518"),
     "sinekan_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:1557"),
     "ffn_pre_ln": ("kanvit_torch/kernels/csrc/fused_ffn.cu",
                    "kanvit/kernels/fused_ffn.py:177"),
@@ -2766,6 +2827,18 @@ ROUTES = {
                   "over a basis generated on chip, in row splits summed in a fixed order; "
                   "kan_tc_dx_kernel<Bspline> with B' in its epilogue",
         "instantiated_in": KAN_SRC},
+    "fastkan_qkv_grouped": {
+        "kernel": "the LayerNorm's statistics (ln_stats_kernel), then 3xTF32 "
+                  "mma.sync.m16n8k8: kan_tc_fwd_grouped<Rbf, 8, ...>, each lane's A "
+                  "fragments the RBF basis of its own x values made in registers from its "
+                  "rows' statistics, W split once a call by kan_tc_fwd_split",
+        "instantiated_in": RBF_SINE_SRC},
+    "sinekan_qkv_grouped": {
+        "kernel": "G <= 4: 3xTF32 mma.sync.m16n8k8: kan_tc_fwd_grouped<Sine, 8, ...>, each "
+                  "lane's A fragments the sine basis of its own x values made in registers, "
+                  "W split once a call by kan_tc_fwd_split; G > 4 on the CUDA-core "
+                  "kan_fwd_kernel",
+        "instantiated_in": RBF_SINE_SRC},
     "fastkan_qkv_grouped_bwd": {
         "kernel": "dW and dx on 3xTF32 mma.sync.m16n8k8: kan_tc_dw_grouped<Rbf, NJ> over a "
                   "basis generated on chip, in row splits summed in a fixed order; "

@@ -302,14 +302,14 @@ extern "C" int kanvit_bspline_qkv_tc_bwd(const float* x, long long ldx,
 
 // The grouped q/k/v forward (bspline_qkv_grouped's) on the tensor cores
 // (kan_basis_tc.cuh, part 3): y as kanvit_bspline_kan_fwd, with scratch
-// wsplit (launch_tc_grouped_fwd says its size).
+// wsplit of wwords words (launch_tc_grouped_fwd says the size it needs).
 extern "C" int kanvit_bspline_qkv_tc_fwd(const float* x, long long ldx,
                                          const float* gridt, long long gstride,
                                          const float* w, float* y, unsigned int* wsplit,
-                                         int n, int groups, int nin, int nout,
-                                         void* stream) {
-  return launch_tc_grouped_fwd<Bspline>(x, ldx, {gridt, gstride}, w, y, wsplit, n, groups,
-                                        nin, nout, (cudaStream_t)stream);
+                                         long long wwords, int n, int groups, int nin,
+                                         int nout, void* stream) {
+  return launch_tc_grouped_fwd<Bspline>(x, ldx, {gridt, gstride}, w, y, wsplit, wwords, n,
+                                        groups, nin, nout, (cudaStream_t)stream);
 }
 
 // Chebyshev, degree 4: S = 5.

@@ -12,9 +12,10 @@
 //
 // Part 3 (below, "The grouped q/k/v forward"): y of a grouped KAN projection
 // (kan_tc_fwd_grouped), templated over the same families; instantiated for
-// B-spline in kan_basis.cu. The other grouped forwards (Chebyshev, RBF,
-// sine) and the B-spline, Chebyshev and RBF embedders stay on kan_basis.cuh's
-// CUDA-core kan_fwd_kernel.
+// B-spline in kan_basis.cu and for RBF and sine (up to 4 slices) in
+// kan_rbf_sine.cu. The Chebyshev grouped forward, the sine one past 4
+// slices and the B-spline, Chebyshev and RBF embedders stay on
+// kan_basis.cuh's CUDA-core kan_fwd_kernel.
 //
 // Part 1:
 //
@@ -717,6 +718,23 @@ struct Tf32x3 {
   __device__ __forceinline__ static void mma(float (&d)[4], const A& a, const B& b) {
     mma3(d, a, b);
   }
+  // d += a b with each operand in three TF32 words (its split and its
+  // remainder, ar and br): six products, down to small*small and the
+  // remainders against the big words, smallest first, into a zeroed
+  // accumulator added in f32; what is dropped is ~2^-33 of a product.
+  __device__ __forceinline__ static void mma_exact(float (&d)[4], const A& a,
+                                                   const uint32_t (&ar)[4], const B& b,
+                                                   const uint32_t (&br)[2]) {
+    float c[4] = {0.f, 0.f, 0.f, 0.f};
+    mma_tf32(c, ar, b.big);
+    mma_tf32(c, a.big, br);
+    mma_tf32(c, a.small, b.small);
+    mma_tf32(c, a.small, b.big);
+    mma_tf32(c, a.big, b.small);
+    mma_tf32(c, a.big, b.big);
+#pragma unroll
+    for (int i = 0; i < 4; ++i) d[i] += c[i];
+  }
 };
 
 namespace tcg {
@@ -1143,21 +1161,26 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 //
 // Replaces the CUDA-core kan_fwd_kernel for the grouped q/k/v projection's
 // forward (kanvit/kernels/fused_basis.py::_fused_fwd_sg, pallas_call at
-// :1240, reached from bspline_qkv_grouped :1361). For every group (head) g,
-// x_g (n, nin) the columns of x that belong to it and W_g (S, nin, nout)
-// packed:
+// :1240, reached from bspline_qkv_grouped :1361; _rbf_ln_sg_op, :3191, from
+// fastkan_qkv_grouped; _sine_op_sg, :1518, from sinekan_qkv_grouped). For
+// every group (head) g, x_g (n, nin) the columns of x that belong to it and
+// W_g (S, nin, nout) packed:
 //   y[n, g nout + o] = sum_(s,f) B_s(x_g[n, f]) W_g[s, f, o]
 // C = A B per group: A the basis, rows x (slice, feature), generated on chip
 // from x; B W_g in (slice, feature) order. Instantiated for B-spline in
 // kan_basis.cu (the knots of group g at gridt + g gstride, so a refit grid a
-// head is one more stride).
+// head is one more stride), for Rbf (after the LayerNorm's statistics pass)
+// and Sine in kan_rbf_sine.cu (one projection of 64 outputs a launch).
 //
 // What bounds it on the H100: the products. At the vit-s q/k/v (n 12,608,
 // 6 heads of nin 64, nout 192, S 9) it is 16.73 GFLOP: 0.2497 ms in f32 at
 // 67 TFLOP/s, 0.1014 in 3xTF32 at the dense 495 TFLOP/s; the bytes (x 19.4
 // MB, y 58.1, W 2.65) take 0.024 ms. Beside the products: the basis, one
 // Cox-de Boor pass for all 9 slices of each x value (the same basis set the
-// pace of part 2's grouped dW), and the TF32 split of each value.
+// pace of part 2's grouped dW), and the TF32 split of each value. One vit-s
+// projection (64 outputs a head) is 5.58 GFLOP for RBF (S 9; 0.0338 ms in
+// 3xTF32, 0.0832 in f32) and 2.48 for sine (S 4; 0.0150, 0.0370), 8 expf a
+// value beside the products for RBF, 4 sinf for sine.
 //
 // kan_tc_fwd_grouped<F, NT>: a block holds 192 rows x 8 NT outputs of one
 // group (NT 24: 192, a head's q|k|v; NT 8: 64 where nout <= 64, one
@@ -1191,11 +1214,22 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // alone (local support, the same Cox-de Boor expressions) ran no faster,
 // so the family's values stay.
 //
+// At 64 outputs a block the shape is the family's, template parameters of
+// the launch (warps a block, blocks an SM): probe_qkv_fwd.py timed them at
+// one vit-s projection. RBF keeps 12 warps, one block an SM (0.1997 ms with
+// its statistics; 8 warps at two blocks 0.2125; two m16 row tiles a warp,
+// whose B fragments feed two products, 0.2365 at 255 registers and
+// spilling). Sine, 4 slices a stage and 80 registers, takes 8 warps at
+// three blocks an SM (0.1084 against 0.1242 at 12 warps, one block; 24
+// warps an SM against 12): 594 blocks of 128 rows, 1.5 waves of 396.
+//
 // Arithmetic: 3xTF32 mma.sync.m16n8k8 (Op), each 8-deep step into a zeroed
 // accumulator added in f32, one running sum over the nin / 8 x SC steps
 // (72 at vit-s, 576 entries deep): within twice the plain f32 version's
-// distance from f64 (tests/test_torch_port_qkv_tc_fwd_cheby.py, and on
-// the card chip_smoke.py).
+// distance from f64 (tests/test_torch_port_qkv_tc_fwd_cheby.py,
+// tests/test_torch_port_qkv_tc_fwd_rbf_sine.py, and on the card
+// chip_smoke.py). A family may keep a slice of large values apart
+// (TcFwdRow's SPLIT and EXACT: Rbf's silu slice).
 //
 // Edge semantics as kan_fwd_kernel's: the family's values (B-spline: x on a
 // knot starts the next interval, x outside every span has zero spline
@@ -1205,27 +1239,69 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // ===========================================================================
 
 namespace tcf {
-constexpr int WARPS = 12;  // 16 rows each
+constexpr int WARPS = 12;  // warps a block at the route's shape
 constexpr int FS = 8;      // features a stage: one mma step a slice
 }  // namespace tcf
+
+// What kan_tc_fwd_grouped holds of each of a lane's rows for the whole
+// stage loop, and the family's values from it: by default nothing, and
+// F::values. A family specialises it where a value reads something of its
+// row (Rbf: the row's LayerNorm statistics, loaded once a lane instead of
+// once a value). `row` is always a row of x: the kernel clamps the ragged
+// edge's rows to the last one, and zeroes their values itself.
+//
+// SPLIT and EXACT shape the sum for a family with one slice of values far
+// larger than the rest (Rbf's silu(x) of the raw x, up to |x|, beside RBF
+// bases <= 1): the slices from SPLIT on go into a second running sum, added
+// to the first after the last stage, so the large values' rounding is not
+// carried through every later step of the small ones; and slice EXACT's
+// products are exact but for ~2^-33 of a product: both operands in three
+// TF32 words (big, small and the ~2-bit remainder), six products. By
+// default one running sum and no exact slice.
+template <class F>
+struct TcFwdRow {
+  static constexpr int SPLIT = F::SC;
+  static constexpr int EXACT = -1;
+  struct Row {};
+  __device__ __forceinline__ static Row load(const typename F::Params&, int, long long) {
+    return {};
+  }
+  template <int NF>
+  __device__ __forceinline__ static void values(const typename F::Params& p,
+                                                const typename F::template Stage<NF>& st,
+                                                const Elem& e, const Row&,
+                                                float (&v)[F::SC]) {
+    F::template values<NF>(p, st, e, 0, v);
+  }
+};
+
+// The remainder of x past its split_round words: exact in f32, and ~2 bits
+// wide, so exact in TF32 too.
+__device__ __forceinline__ float tf32_rest(float x) {
+  const float d = x - __uint_as_float(tf32_round(x));
+  return d - __uint_as_float(tf32_round(d));
+}
 
 // W (groups, S, nin, nout) split into kan_tc_fwd_grouped's stages: stage kt
 // of output tile ot of group g holds steps s = 0 .. SC - 1 (slice s, zero
 // past S) of features 8 kt .. 8 kt + 7 by the tile's bn columns, the word
-// group of (s, column c, fragment thread t) at ((s bn + c) 4 + t) 4; stages
-// in order (g, ot, kt). One unit a word group.
-template <int SC>
+// group of (s, column c, fragment thread t) at ((s bn + c) 4 + t) 4, and
+// with an exact slice (EXACT >= 0) one more step s = SC holding the
+// remainders of slice EXACT's words (tf32_rest, as big words; zero small
+// ones); stages in order (g, ot, kt). One unit a word group.
+template <int SC, int EXACT>
 __global__ void __launch_bounds__(256)
 kan_tc_fwd_split(const float* __restrict__ w, uint32_t* __restrict__ out, int slices,
                  int nin, int nout, int bn, int otiles, int nk, long long units) {
+  constexpr int STEPS = SC + (EXACT >= 0);
   for (long long u = blockIdx.x * 256LL + threadIdx.x; u < units;
        u += (long long)gridDim.x * 256) {
     const int t = (int)(u & 3);
     long long r = u >> 2;
     const int col = (int)(r % bn);
     r /= bn;
-    const int s = (int)(r % SC);
-    r /= SC;
+    const int step = (int)(r % STEPS), s = step < SC ? step : EXACT;
+    r /= STEPS;
     const int kt = (int)(r % nk);
     r /= nk;
     const int o = (int)(r % otiles) * bn + col, f = tcf::FS * kt + 2 * t;
@@ -1236,26 +1312,33 @@ kan_tc_fwd_split(const float* __restrict__ w, uint32_t* __restrict__ out, int sl
       if (f < nin) b[0] = wr[0];
       if (f + 1 < nin) b[1] = wr[nout];
     }
+    if (step >= SC) {
+      b[0] = tf32_rest(b[0]);
+      b[1] = tf32_rest(b[1]);
+    }
     store_b(out + 4 * u, b[0], b[1]);
   }
 }
 
 // y of one group's 16 WARPS rows x 8 NT outputs: grid (row tiles, groups,
 // output tiles); wsplit from kan_tc_fwd_split, nk = ceil(nin / 8) stages.
-template <class F, int NT, int WARPS = tcf::WARPS, class Op = Tf32x3>
-__global__ void __launch_bounds__(32 * WARPS, 1)
+// MINB blocks an SM bound the registers.
+template <class F, int NT, int WARPS = tcf::WARPS, int MINB = 1, class Op = Tf32x3>
+__global__ void __launch_bounds__(32 * WARPS, MINB)
 kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Params p,
                    const uint32_t* __restrict__ wsplit, float* __restrict__ y, int n,
                    int groups, int nin, int nout, int nk) {
+  using R = TcFwdRow<F>;
   constexpr int SC = F::SC, BN = 8 * NT, FS = tcf::FS, THREADS = 32 * WARPS;
-  constexpr int STAGE = SC * BN * 16;  // words of a stage's split W
+  constexpr int SPLIT = R::SPLIT, EXACT = R::EXACT, SUMS = SPLIT < SC ? 2 : 1;
+  constexpr int STAGE = (SC + (EXACT >= 0)) * BN * 16;  // words of a stage's split W
   extern __shared__ __align__(16) float sm[];
   __shared__ typename F::template Stage<FS> st;
   uint32_t* wbuf = reinterpret_cast<uint32_t*>(sm);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t = lane & 3;
   const int grp = blockIdx.y, o0 = blockIdx.z * BN;
-  const long long r0 = (long long)blockIdx.x * 16 * WARPS + 16 * warp;  // the warp's rows
+  const long long r0 = ((long long)blockIdx.x * WARPS + warp) * 16;  // the warp's rows
   const uint32_t* wg = wsplit + ((long long)grp * gridDim.z + blockIdx.z) * nk * STAGE;
   const float* xg = x + (long long)grp * nin;
 
@@ -1269,36 +1352,45 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
                  true);
     cp_async_commit();
   };
-  // This lane's value q of a stage: row r0 + g8 + 8 (q & 1), feature
-  // 8 kt + 2t + (q >> 1), the A fragment's register order.
+  // This lane's row h: r0 + g8 + 8 h (value q reads row h = q & 1, the A
+  // fragment's register order).
+  auto row_of = [&](int h) { return r0 + g8 + 8 * h; };
+  typename R::Row rows[2];
+#pragma unroll
+  for (int h = 0; h < 2; ++h) rows[h] = R::load(p, grp, min(row_of(h), (long long)n - 1));
+  // Value q of a stage: row row_of(q & 1), feature 8 kt + 2t + (q >> 1).
   float xv[4];
   auto load_x = [&](int kt) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const long long row = r0 + g8 + 8 * (q & 1);
+      const long long row = row_of(q & 1);
       const int f = FS * kt + 2 * t + (q >> 1);
       xv[q] = row < n && f < nin ? xg[row * ldx + f] : 0.f;
     }
   };
-  // The basis of this lane's four values of stage kt (from xv and the
-  // staged knots), 0 outside.
+  // The basis of this lane's values of stage kt (from xv, its rows and the
+  // staged stage), 0 outside.
   auto make = [&](int kt, float (&v)[4][SC]) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
-      const long long row = r0 + g8 + 8 * (q & 1);
+      const long long row = row_of(q & 1);
       const int kf = 2 * t + (q >> 1), f = FS * kt + kf;
-      float b[SC];
-      F::template values<FS>(p, st, Elem{xv[q], kf, f, grp, row}, 0, b);
       const bool live = row < n && f < nin;
+      float b[SC];
+      R::template values<FS>(
+          p, st, Elem{xv[q], kf, min(f, nin - 1), grp, min(row, (long long)n - 1)},
+          rows[q & 1], b);
 #pragma unroll
       for (int s = 0; s < SC; ++s) v[q][s] = live ? b[s] : 0.f;
     }
   };
-  float acc[NT][4];
+  float acc[SUMS][NT][4];  // running sums: slices below SPLIT, and from it
 #pragma unroll
-  for (int j = 0; j < NT; ++j)
+  for (int a = 0; a < SUMS; ++a)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = 0.f;
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[a][j][e] = 0.f;
 
   load_w(0);
   load_x(0);
@@ -1315,10 +1407,27 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
     for (int s = 0; s < SC; ++s) {
       const float a4[4] = {v[0][s], v[1][s], v[2][s], v[3][s]};
       const typename Op::A a = Op::frag(a4);
+      uint32_t rest[4];  // slice EXACT: the values' remainders
+      if (s == EXACT)
 #pragma unroll
-      for (int j = 0; j < NT; ++j) Op::mma(acc[j], a, Op::load_b(ws + (s * BN + 8 * j) * 16));
+        for (int q = 0; q < 4; ++q) rest[q] = __float_as_uint(tf32_rest(a4[q]));
+#pragma unroll
+      for (int j = 0; j < NT; ++j) {
+        const typename Op::B b = Op::load_b(ws + (s * BN + 8 * j) * 16);
+        if (s == EXACT) {
+          const typename Op::B rb = Op::load_b(ws + (SC * BN + 8 * j) * 16);
+          Op::mma_exact(acc[s >= SPLIT][j], a, rest, b, rb.big);
+        } else {
+          Op::mma(acc[s >= SPLIT][j], a, b);
+        }
+      }
     }
   }
+  if (SUMS == 2)
+#pragma unroll
+    for (int j = 0; j < NT; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[0][j][e] += acc[SUMS - 1][j][e];
 
   const long long ldy = (long long)groups * nout;
   float* yg = y + (long long)grp * nout;
@@ -1326,50 +1435,59 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
   for (int j = 0; j < NT; ++j)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
-      const long long row = r0 + g8 + 8 * (e >> 1);
+      const long long row = row_of(e >> 1);
       const int col = o0 + 8 * j + 2 * t + (e & 1);
-      if (row < n && col < nout) yg[row * ldy + col] = acc[j][e];
+      if (row < n && col < nout) yg[row * ldy + col] = acc[0][j][e];
     }
 }
 
-// The pre-pass and kan_tc_fwd_grouped<F, NT, WARPS> over the operands of
-// launch_tc_grouped_fwd.
-template <class F, int NT, int WARPS = tcf::WARPS>
+// The pre-pass and kan_tc_fwd_grouped<F, NT, WARPS, MINB> over the
+// operands of launch_tc_grouped_fwd; cudaErrorInvalidValue when wsplit's
+// wwords words cannot hold the split W.
+template <class F, int NT, int WARPS = tcf::WARPS, int MINB = 1>
 int launch_tc_fwd_grouped(const float* x, long long ldx, typename F::Params p, const float* w,
-                          float* y, uint32_t* wsplit, int n, int groups, int nin, int nout,
-                          cudaStream_t st) {
-  constexpr int BN = 8 * NT;
+                          float* y, uint32_t* wsplit, long long wwords, int n, int groups,
+                          int nin, int nout, cudaStream_t st) {
+  constexpr int BN = 8 * NT, EXACT = TcFwdRow<F>::EXACT, STEPS = F::SC + (EXACT >= 0);
   const int nk = cdiv(nin, tcf::FS), otiles = cdiv(nout, BN);
-  if (groups > 65535 || otiles > 65535) return (int)cudaErrorInvalidValue;
-  const long long units = (long long)groups * otiles * nk * F::SC * BN * 4;
+  const long long units = (long long)groups * otiles * nk * STEPS * BN * 4;
+  if (groups > 65535 || otiles > 65535 || 4 * units > wwords)
+    return (int)cudaErrorInvalidValue;
   const long long want = (units + 255) / 256;
-  kan_tc_fwd_split<F::SC><<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, st>>>(
-      w, wsplit, F::slices(p), nin, nout, BN, otiles, nk, units);
+  kan_tc_fwd_split<F::SC, EXACT>
+      <<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, st>>>(
+          w, wsplit, F::slices(p), nin, nout, BN, otiles, nk, units);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const size_t smem = sizeof(uint32_t) * 2 * F::SC * BN * 16;
-  err = tc_attr(kan_tc_fwd_grouped<F, NT, WARPS>, smem);
+  const size_t smem = sizeof(uint32_t) * 2 * STEPS * BN * 16;
+  err = tc_attr(kan_tc_fwd_grouped<F, NT, WARPS, MINB>, smem);
   if (err != 0) return err;
-  kan_tc_fwd_grouped<F, NT, WARPS><<<dim3((unsigned)cdiv(n, 16 * WARPS), groups, otiles),
-                                     32 * WARPS, smem, st>>>(x, ldx, p, wsplit, y, n, groups,
-                                                             nin, nout, nk);
+  kan_tc_fwd_grouped<F, NT, WARPS, MINB>
+      <<<dim3((unsigned)cdiv(n, 16 * WARPS), groups, otiles), 32 * WARPS, smem, st>>>(
+          x, ldx, p, wsplit, y, n, groups, nin, nout, nk);
   return (int)cudaGetLastError();
 }
 
 // y (n, groups nout) of a grouped layer: x (n, groups nin) with row stride
-// ldx and unit column stride, w (groups, S, nin, nout) contiguous, y
-// contiguous; wsplit: scratch of groups ceil(nout / BN) ceil(nin / 8) SC BN
-// 16 words (BN 64 where nout <= 64, else 192), 16-byte aligned.
-template <class F>
+// ldx and unit column stride, w (groups, S, nin, nout) contiguous with S =
+// F::slices(p) <= F::SC, y contiguous; wsplit: scratch of wwords >= groups
+// ceil(nout / BN) ceil(nin / 8) STEPS BN 16 words (STEPS = SC, one more with
+// an exact slice; not S: the pre-pass writes zeros past S; BN 64 where nout
+// <= 64, else 192), 16-byte aligned, else cudaErrorInvalidValue. Up to 64
+// outputs (one projection) the family's shape: WARPS8 warps, MINB8 blocks
+// an SM; past them 12 warps, 192 outputs a block.
+template <class F, int WARPS8 = tcf::WARPS, int MINB8 = 1>
 int launch_tc_grouped_fwd(const float* x, long long ldx, typename F::Params p, const float* w,
-                          float* y, uint32_t* wsplit, int n, int groups, int nin, int nout,
-                          cudaStream_t st) {
+                          float* y, uint32_t* wsplit, long long wwords, int n, int groups,
+                          int nin, int nout, cudaStream_t st) {
   if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 || F::slices(p) > F::SC ||
       wsplit == nullptr || (uintptr_t)wsplit % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if (nout <= 64)
-    return launch_tc_fwd_grouped<F, 8>(x, ldx, p, w, y, wsplit, n, groups, nin, nout, st);
-  return launch_tc_fwd_grouped<F, 24>(x, ldx, p, w, y, wsplit, n, groups, nin, nout, st);
+    return launch_tc_fwd_grouped<F, 8, WARPS8, MINB8>(x, ldx, p, w, y, wsplit, wwords, n,
+                                                      groups, nin, nout, st);
+  return launch_tc_fwd_grouped<F, 24>(x, ldx, p, w, y, wsplit, wwords, n, groups, nin, nout,
+                                      st);
 }
 
 }  // namespace

@@ -17,9 +17,10 @@
 //   RBF:  _rbf_ln_base_op fwd (pallas_call at :2947) and bwd (:2995), reached
 //         from fastkan (:3600), the patch embedder; _rbf_ln_sg_op fwd
 //         (:3191) and bwd (:3246), reached from fastkan_qkv_grouped (:3300),
-//         one launch per q/k/v projection over every head, its backward's
-//         dx and dW on the tensor cores (kan_basis_tc.cuh part 2, entry
-//         kanvit_fastkan_qkv_tc_bwd); and the tiers
+//         one launch per q/k/v projection over every head, its forward on
+//         the tensor cores after the statistics pass (kan_basis_tc.cuh part
+//         3, entry kanvit_fastkan_qkv_tc_fwd), its backward's dx and dW too
+//         (part 2, entry kanvit_fastkan_qkv_tc_bwd); and the tiers
 //         the same family covers with its flags: _rbf_base_op (:2726,
 //         :2769; the LayerNorm skipped) and _rbf_op (_fused_fwd / _fused_bwd
 //         under rbf_family; no silu slice).
@@ -30,10 +31,11 @@
 //         and dW + dfreq on the tensor cores (kan_basis_tc.cuh, SineTc,
 //         the kanvit_sinekan_tc_* entries), dx on the CUDA-core dx kernel;
 //         _sine_op_sg fwd (:1518) and bwd (:1557), reached from
-//         sinekan_qkv_grouped (:1597): the forward on the CUDA-core kernel,
-//         the backward's dx, dfreq and dW on the tensor cores for G <= 4
-//         (kan_basis_tc.cuh part 2, entry kanvit_sinekan_qkv_tc_bwd), on
-//         the CUDA-core kernels past it (kanvit_sinekan_bwd); the opt-in
+//         sinekan_qkv_grouped (:1597): for G <= 4 the forward on the tensor
+//         cores (kan_basis_tc.cuh part 3, entry kanvit_sinekan_qkv_tc_fwd)
+//         and the backward's dx, dfreq and dW too (part 2, entry
+//         kanvit_sinekan_qkv_tc_bwd), on the CUDA-core kernels past it
+//         (kanvit_sinekan_fwd, kanvit_sinekan_bwd); the opt-in
 //         _fused_fwd_kb_basis (:2354)
 //         and _fused_bwd_kb_sine_res (:2401, :2433), and sinekan_qkv
 //         (:3691), compute the same functions.
@@ -83,6 +85,10 @@
 namespace {
 
 constexpr float LN_EPS = 1e-5f;
+// kan_tc_fwd_grouped's shape up to 64 outputs (one q/k/v projection) a
+// family: warps a block, blocks an SM (why these: kan_basis_tc.cuh part 3).
+constexpr int RBF_FWD_WARPS = 12, RBF_FWD_MINB = 1;
+constexpr int SINE_FWD_WARPS = 8, SINE_FWD_MINB = 3;
 
 struct Rbf : FamilyDefaults {
   static constexpr int NG = 8;           // RBF centres
@@ -120,26 +126,39 @@ struct Rbf : FamilyDefaults {
     __syncthreads();
   }
 
+  // LN(x) from the row's (mean, rstd) and the feature's gamma, beta.
+  template <int NF>
+  __device__ __forceinline__ static float normed(const Stage<NF>& st, const Elem& e,
+                                                 float mean, float rstd) {
+    return (e.x - mean) * rstd * st.gamma[e.kf] + st.beta[e.kf];
+  }
+
   // The RBF's input: LN(x) from the row's stats, or x itself.
   template <int NF>
   __device__ __forceinline__ static float normed(Params p, const Stage<NF>& st,
                                                  const Elem& e) {
     if (p.stats == nullptr) return e.x;
     const float* s = p.stats + (e.row * p.groups + e.g) * 2;
-    return (e.x - s[0]) * s[1] * st.gamma[e.kf] + st.beta[e.kf];
+    return normed(st, e, s[0], s[1]);
+  }
+
+  // The RBF slices of the RBF's input ln and the silu slice of the raw x.
+  template <int NF>
+  __device__ __forceinline__ static void from_input(Params p, const Stage<NF>& st, float ln,
+                                                    float x, float (&v)[SC]) {
+#pragma unroll
+    for (int k = 0; k < NG; ++k) {
+      const float u = (ln - st.c[k]) * p.inv_h;
+      v[k] = expf(-u * u);
+    }
+    v[NG] = p.base ? silu(x) : 0.f;
   }
 
   template <int NF>
   __device__ __forceinline__ static void values(Params p, const Stage<NF>& st,
                                                 const Elem& e, int,
                                                 float (&v)[SC]) {
-    const float ln = normed(p, st, e);
-#pragma unroll
-    for (int k = 0; k < NG; ++k) {
-      const float u = (ln - st.c[k]) * p.inv_h;
-      v[k] = expf(-u * u);
-    }
-    v[NG] = p.base ? silu(e.x) : 0.f;
+    from_input(p, st, normed(p, st, e), e.x, v);
   }
 
   // o0 += dln (the gradient of the RBF's input), o1 += gW_8 silu'(x).
@@ -186,11 +205,18 @@ struct Sine : FamilyDefaults {
   template <int NF>
   __device__ static void stage(Params, int, int, int, Stage<NF>&) {}
 
+  __device__ __forceinline__ static float freq(Params p, int g, int s) {
+    return __ldg(p.freq + (long long)g * p.grid_size + s);
+  }
   __device__ __forceinline__ static float freq(Params p, const Elem& e, int s) {
-    return __ldg(p.freq + (long long)e.g * p.grid_size + s);
+    return freq(p, e.g, s);
+  }
+  // x freq_s + phase[i, s]: the sine's argument, from a frequency at hand.
+  __device__ __forceinline__ static float arg(Params p, const Elem& e, int s, float fr) {
+    return e.x * fr + __ldg(p.phase + (long long)e.i * p.grid_size + s);
   }
   __device__ __forceinline__ static float arg(Params p, const Elem& e, int s) {
-    return e.x * freq(p, e, s) + __ldg(p.phase + (long long)e.i * p.grid_size + s);
+    return arg(p, e, s, freq(p, e, s));
   }
 
   template <int NF>
@@ -220,6 +246,58 @@ struct Sine : FamilyDefaults {
       red[j] = fmaf(gw[j] * e.x, cs, red[j]);
     }
     o0 += sum;
+  }
+};
+
+// The grouped forward on the tensor cores (kan_basis_tc.cuh, part 3) holds
+// each of a lane's rows' LayerNorm statistics in registers for the whole
+// stage loop (Rbf::normed would load them once a value), and keeps the silu
+// slice apart: silu(x) of the raw x reaches |x| (60 in the tests' inputs)
+// beside RBF bases <= 1, so it goes into a running sum of its own with
+// exact products (TcFwdRow's SPLIT and EXACT). With one running sum and
+// 3xTF32 products the forward over 2 heads of 32 features (1,849 rows,
+// tests/test_torch_port_cuda.py) landed 3.02e-7 x max|y| from f64 against
+// the plain f32 version's 1.20e-7 on the H100 80GB HBM3 at 700 W; mostly
+// the rounding of the running sum, carried through every later step once a
+// large silu product is in it, partly the products' two-word split (the
+// CPU emulation of each change alone). With both the same test passes.
+template <>
+struct TcFwdRow<Rbf> {
+  static constexpr int SPLIT = Rbf::NG, EXACT = Rbf::NG;
+  struct Row { float mean, rstd; };
+  __device__ __forceinline__ static Row load(const Rbf::Params& p, int g, long long row) {
+    if (p.stats == nullptr) return {0.f, 1.f};
+    const float* s = p.stats + (row * p.groups + g) * 2;
+    return {s[0], s[1]};
+  }
+  template <int NF>
+  __device__ __forceinline__ static void values(const Rbf::Params& p,
+                                                const Rbf::Stage<NF>& st, const Elem& e,
+                                                const Row& r, float (&v)[Rbf::SC]) {
+    Rbf::from_input(p, st, p.stats == nullptr ? e.x : Rbf::normed(st, e, r.mean, r.rstd),
+                    e.x, v);
+  }
+};
+
+// ... and each group's frequencies (a lane's rows are all of one group):
+// Sine::values would load them once a value.
+template <>
+struct TcFwdRow<Sine> {
+  static constexpr int SPLIT = Sine::SC, EXACT = -1;
+  struct Row { float freq[Sine::SC]; };
+  __device__ __forceinline__ static Row load(const Sine::Params& p, int g, long long) {
+    Row r;
+#pragma unroll
+    for (int s = 0; s < Sine::SC; ++s) r.freq[s] = s < p.grid_size ? Sine::freq(p, g, s) : 0.f;
+    return r;
+  }
+  template <int NF>
+  __device__ __forceinline__ static void values(const Sine::Params& p, const Sine::Stage<NF>&,
+                                                const Elem& e, const Row& r,
+                                                float (&v)[Sine::SC]) {
+#pragma unroll
+    for (int s = 0; s < Sine::SC; ++s)
+      v[s] = s < p.grid_size ? sinf(Sine::arg(p, e, s, r.freq[s])) : 0.f;
   }
 };
 
@@ -562,6 +640,47 @@ extern "C" int kanvit_sinekan_qkv_tc_bwd(const float* x, long long ldx,
         return launch_tc_grouped_dw<Sine>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout,
                                           splits, st);
       });
+}
+
+// The grouped FastKAN q/k/v forward (fastkan_qkv_grouped's) on the tensor
+// cores (kan_basis_tc.cuh, part 3): kanvit_fastkan_fwd's arguments and
+// steps (the LayerNorm's stats, then the contraction), with scratch wsplit
+// of wwords >= groups ceil(nout / BN) ceil(nin / 8) 10 BN 16 words
+// (launch_tc_grouped_fwd: 9 slices with or without the base branch, and
+// the silu slice's remainders).
+extern "C" int kanvit_fastkan_qkv_tc_fwd(const float* x, long long ldx, const float* gamma,
+                                         const float* beta, const float* centres,
+                                         float inv_h, const float* w, float* y, float* stats,
+                                         unsigned int* wsplit, long long wwords, int n,
+                                         int groups, int nin, int nout, int base,
+                                         void* stream) {
+  if (bad_shape(n, groups, nin, nout)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bool ln = gamma != nullptr;
+  if (ln) {
+    ln_stats_kernel<<<ln_blocks(n, groups), LN_WARPS * 32, 0, st>>>(x, ldx, stats, n, groups,
+                                                                    nin);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  const Rbf::Params p{ln ? stats : nullptr, gamma, beta, centres, inv_h, groups,
+                      base ? 1 : 0};
+  return launch_tc_grouped_fwd<Rbf, RBF_FWD_WARPS, RBF_FWD_MINB>(x, ldx, p, w, y, wsplit,
+                                                                wwords, n, groups, nin, nout,
+                                                                st);
+}
+
+// The grouped SineKAN q/k/v forward (sinekan_qkv_grouped's, grid_size <= 4)
+// on the tensor cores: kanvit_sinekan_fwd's arguments, with scratch wsplit
+// of wwords >= groups ceil(nout / BN) ceil(nin / 8) 4 BN 16 words.
+extern "C" int kanvit_sinekan_qkv_tc_fwd(const float* x, long long ldx, const float* freq,
+                                         const float* phase, const float* w, float* y,
+                                         unsigned int* wsplit, long long wwords, int n,
+                                         int groups, int nin, int nout, int grid_size,
+                                         void* stream) {
+  return launch_tc_grouped_fwd<Sine, SINE_FWD_WARPS, SINE_FWD_MINB>(
+      x, ldx, {freq, phase, grid_size}, w, y, wsplit, wwords, n, groups, nin, nout,
+      (cudaStream_t)stream);
 }
 
 // SineKAN embedder (sinekan, one group) on the tensor cores. Forward: x, freq

@@ -31,11 +31,13 @@ CUDA-core template. The backward (dx and dW) of :func:`bspline_qkv_grouped`,
 generated on chip in row splits summed in a fixed order, dx with the basis
 derivative or the family's fold in the epilogue: FastKAN's dln for its
 LayerNorm's VJP, sine's dfreq sums), and so does the forward of
-:func:`bspline_qkv_grouped` (part 3: each lane makes the basis of its own
-A fragments in registers); the other grouped forwards stay on the
-CUDA-core template. The route is chosen by call site, never by size, with
-one exception: the tensor-core tile holds at most 4 sine slices, so a
-grouped sine backward of a larger grid takes the CUDA-core kernels.
+:func:`bspline_qkv_grouped`, :func:`fastkan_qkv_grouped` (after its
+LayerNorm's statistics) and :func:`sinekan_qkv_grouped` (part 3: each lane
+makes the basis of its own A fragments in registers); the Chebyshev
+grouped forward stays on the CUDA-core template. The route is chosen by
+call site, never by size, with one exception: the tensor-core tiles hold at
+most 4 sine slices, so a grouped sine forward or backward of a larger grid
+takes the CUDA-core kernels.
 
 Dispatch is by device (``kanvit_torch.ops.dispatch``): a CPU tensor runs the
 plain version in ``kanvit_torch.ops.kan_bases`` and autograd differentiates
@@ -105,9 +107,13 @@ TCG_FEATURES, TCG_DX_ROWS, TCG_DX_STAGE = 16, 128, 16
 TCG_SLICES = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 1,
               "sine": SINE_CHUNK}
 # The grouped forward on the tensor cores (part 3): its features a stage
-# (one mma step a slice), its outputs a block as the grouped dW's.
-TC_GROUPED_FWD = ("bspline_qkv_grouped",)
+# (one mma step a slice), its outputs a block as the grouped dW's, and the
+# steps of a stage's split W a family (its tile's slices; RBF one more, the
+# silu slice's remainders; the entries take the scratch's word count and
+# refuse one too short for their steps); sine up to SINE_CHUNK slices.
+TC_GROUPED_FWD = ("bspline_qkv_grouped", "fastkan_qkv_grouped", "sinekan_qkv_grouped")
 TCG_FWD_FEATURES = 8
+TCG_FWD_STEPS = {"bspline": N_SLICES, "rbf": RBF_GRIDS + 2, "sine": SINE_CHUNK}
 TCG_DW_TARGET_BLOCKS = 4  # blocks an SM the dW row splits aim at
 
 
@@ -414,7 +420,8 @@ def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
                 wsplit = _tc_grouped_fwd_scratch(w, x2d.device)
                 err = lib.kanvit_bspline_qkv_tc_fwd(*args, gridt.data_ptr(), gstride,
                                                     w.data_ptr(), y.data_ptr(),
-                                                    wsplit.data_ptr(), *shape, stream)
+                                                    wsplit.data_ptr(), wsplit.numel(),
+                                                    *shape, stream)
             else:
                 err = lib.kanvit_bspline_kan_fwd(*args, gridt.data_ptr(), gstride,
                                                  w.data_ptr(), y.data_ptr(), *shape,
@@ -474,14 +481,17 @@ def _tc_grouped_scratch(family, w, n, need_dx, need_dw, dev):
     return wtsplit, splits, part
 
 
-def _tc_grouped_fwd_scratch(w, dev) -> torch.Tensor:
+def _tc_grouped_fwd_scratch(w, dev, family: str = "bspline") -> torch.Tensor:
     """W split for the grouped tensor-core forward: for every group and
-    block of outputs, ``ceil(nin / 8)`` stages of all the family's slices
-    x 8 features x the block's outputs, two words a value."""
-    groups, slices, nin, out = w.shape
+    block of outputs, ``ceil(nin / 8)`` stages of the family's steps (the
+    slices its tile holds, which the pre-pass writes whatever the weight's
+    S, zeros past it; RBF one more, the silu slice's remainders) x 8
+    features x the block's outputs, two words a value."""
+    groups, _, nin, out = w.shape
     outs = tc_grouped_outs(out)
-    return torch.empty(groups * -(-out // outs) * -(-nin // TCG_FWD_FEATURES) * slices
-                       * outs * TCG_FWD_FEATURES * 2, dtype=torch.int32, device=dev)
+    return torch.empty(groups * -(-out // outs) * -(-nin // TCG_FWD_FEATURES)
+                       * TCG_FWD_STEPS[family] * outs * TCG_FWD_FEATURES * 2,
+                       dtype=torch.int32, device=dev)
 
 
 def _launch_grouped_tc_bwd(name, family, x2d, w, aux, gy, dx, dw, lib, stream):
@@ -664,7 +674,9 @@ def fourierkan(x, coeffs, bias):
 def _launch_rbf(name: str, x2d, w, gamma, beta, grid, denominator: float):
     """``(y (N, G*out), stats (N, G, 2) or None)`` from the RBF forward
     kernels: the LayerNorm's statistics when ``gamma`` is given, then the
-    fused RBF (and silu, for a 9-slice weight) contraction."""
+    fused RBF (and silu, for a 9-slice weight) contraction, on the tensor
+    cores for ``fastkan_qkv_grouped``, on the CUDA cores for the
+    embedder."""
     check_rbf_args(x2d, w, gamma, beta, grid)
     _check_device(name, x2d, w, grid, *(() if gamma is None else (gamma, beta)))
     n = x2d.shape[0]
@@ -677,11 +689,16 @@ def _launch_rbf(name: str, x2d, w, gamma, beta, grid, denominator: float):
     from kanvit_torch.kernels import _build
 
     lib = _build.load()
+    common = (x2d.data_ptr(), x2d.stride(0), _ptr(gamma), _ptr(beta), grid.data_ptr(),
+              1.0 / denominator, w.data_ptr(), y.data_ptr(), _ptr(stats))
+    shape = (n, groups, nin, out, slices - RBF_GRIDS)
     with torch.cuda.device(dev):
-        err = lib.kanvit_fastkan_fwd(
-            x2d.data_ptr(), x2d.stride(0), _ptr(gamma), _ptr(beta),
-            grid.data_ptr(), 1.0 / denominator, w.data_ptr(), y.data_ptr(),
-            _ptr(stats), n, groups, nin, out, slices - RBF_GRIDS, _stream(dev))
+        if name in TC_GROUPED_FWD:
+            wsplit = _tc_grouped_fwd_scratch(w, dev, "rbf")
+            err = lib.kanvit_fastkan_qkv_tc_fwd(*common, wsplit.data_ptr(), wsplit.numel(),
+                                                *shape, _stream(dev))
+        else:
+            err = lib.kanvit_fastkan_fwd(*common, *shape, _stream(dev))
     return _counted(name, err, y, stats)
 
 
@@ -804,8 +821,10 @@ def fastkan_qkv_grouped(x2d, ln_gamma, ln_beta, rbf_grid, rbf_denominator,
 
 
 def _launch_sine(name: str, x2d, w, freq2d, phase) -> torch.Tensor:
-    """``y (N, G*out)`` from the sine forward kernel: the tensor-core one
-    for ``sinekan``, the CUDA-core one for the grouped q/k/v."""
+    """``y (N, G*out)`` from the sine forward kernel: the tensor-core ones
+    for ``sinekan`` and for the grouped q/k/v up to 4 slices (every kanvit
+    q/k/v), the CUDA-core one for the grouped q/k/v past that (the
+    tensor-core tile holds 4)."""
     tc = name in TC_ROUTES
     check_sine_args(x2d, w, freq2d, phase, tc)
     _check_device(name, x2d, w, freq2d, phase)
@@ -826,6 +845,10 @@ def _launch_sine(name: str, x2d, w, freq2d, phase) -> torch.Tensor:
                                TC_SINE_FWD_OUTS)
             err = lib.kanvit_sinekan_tc_fwd(*args, wsplit.data_ptr(), n, nin, out,
                                             slices, stream)
+        elif name in TC_GROUPED_FWD and slices <= SINE_CHUNK:
+            wsplit = _tc_grouped_fwd_scratch(w, x2d.device, "sine")
+            err = lib.kanvit_sinekan_qkv_tc_fwd(*args, wsplit.data_ptr(), wsplit.numel(),
+                                                n, groups, nin, out, slices, stream)
         else:
             err = lib.kanvit_sinekan_fwd(*args, n, groups, nin, out, slices, stream)
     return _counted(name, err, y)[0]

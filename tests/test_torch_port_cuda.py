@@ -891,6 +891,140 @@ def test_sinekan_qkv_grouped_route_by_grid(cuda, monkeypatch, grid_size, entry):
         assert torch.equal(a, c)
 
 
+def _recording(monkeypatch, names):
+    """Wrap the library's entries ``names`` to record their calls."""
+    from kanvit_torch.kernels import _build
+
+    lib, called = _build.load(), []
+    for name in names:
+        def record(*args, _fn=getattr(lib, name), _name=name):
+            called.append(_name)
+            return _fn(*args)
+        monkeypatch.setattr(lib, name, record)
+    return called
+
+
+# (n, heads, dh, base or grid size): one vit-s q/k/v projection (6 heads of
+# 64 -> 64), ragged rows over two heads of 32, dh 8 over four heads
+FWD_TC_SHAPES = [(12608, 6, 64), (37 * 50 - 1, 2, 32), (301, 4, 8)]
+
+
+@pytest.mark.parametrize("base", [True, False])
+@pytest.mark.parametrize("n,h,dh", FWD_TC_SHAPES)
+def test_fastkan_qkv_grouped_tc_forward(cuda, monkeypatch, n, h, dh, base):
+    """The tensor-core forward (the LayerNorm's statistics, then 3xTF32),
+    with and without the base branch (an 8-slice weight in the 9-slice
+    tile): within 1e-4 x max(1, max|y|) of the plain version, no further
+    from f64 than twice it, a second forward with the same bits, and the
+    tensor-core entry the one called."""
+    called = _recording(monkeypatch, ("kanvit_fastkan_qkv_tc_fwd", "kanvit_fastkan_fwd"))
+    rng = np.random.default_rng(70 + dh)
+    x = _fast_x(rng, (n, h * dh)).to(cuda)
+    ga, be, sw, bw, bb = [p.to(cuda) for p in _fast_params(rng, dh, dh, (h,))]
+    sw, bw = sw / np.sqrt(8.0), bw / 3.0
+    grid = RBF_GRID.to(cuda)
+    w = FB.pack_fastkan_qkv_weight(sw, bw, 8) if base else (
+        sw.reshape(h, dh, dh, 8).permute(0, 3, 2, 1))
+    w = w.contiguous()
+
+    def plain(x, ga, be, sw, bw):
+        return torch.cat([K.fastkan_forward(x[:, i * dh:(i + 1) * dh], ga[i], be[i],
+                                            grid.to(x.dtype), 4 / 7, sw[i],
+                                            bw[i] if base else None,
+                                            torch.zeros_like(bw[i, :, 0]) if base else None)
+                          for i in range(h)], dim=1)
+
+    with torch.inference_mode():
+        y, stats = FB._launch_rbf("fastkan_qkv_grouped", x, w, ga, be, grid, 4 / 7)
+        again, _ = FB._launch_rbf("fastkan_qkv_grouped", x, w, ga, be, grid, 4 / 7)
+        want = plain(x, ga, be, sw, bw)
+        exact = plain(*(a.double() for a in (x, ga, be, sw, bw)))
+    _close(y, want, 1e-4)
+    _f64_gate(y, want, exact)
+    assert torch.equal(y, again)
+    xs = x.reshape(n, h, dh)
+    _close(stats[..., 0], xs.mean(-1), 1e-5)
+    assert called == ["kanvit_fastkan_qkv_tc_fwd"] * 2
+    assert FB.LAUNCHES["fastkan_qkv_grouped"] == 2
+
+
+@pytest.mark.parametrize("grid_size", [4, 3, 1])
+@pytest.mark.parametrize("n,h,dh", FWD_TC_SHAPES)
+def test_sinekan_qkv_grouped_tc_forward(cuda, monkeypatch, n, h, dh, grid_size):
+    """The tensor-core forward at grids 4, 3 and 1 (tile slices left
+    empty): within 1e-4 x max(1, max|y|) of the plain version, no further
+    from f64 than twice it, a second forward with the same bits, and the
+    tensor-core entry the one called; a grid of 7 takes the CUDA-core
+    forward."""
+    called = _recording(monkeypatch, ("kanvit_sinekan_qkv_tc_fwd", "kanvit_sinekan_fwd"))
+    kernel, plain, inputs, _ = _sine_grouped(np.random.default_rng(71 + dh), n, h, dh, dh,
+                                             grid_size, cuda)
+    with torch.inference_mode():
+        y = kernel(*inputs)
+        again = kernel(*inputs)
+        want = plain(*inputs)
+        exact = plain(*(a.double() for a in inputs))
+    _close(y, want, 1e-4)
+    _f64_gate(y, want, exact)
+    assert torch.equal(y, again)
+    assert called == ["kanvit_sinekan_qkv_tc_fwd"] * 2
+    kernel, plain, inputs, _ = _sine_grouped(np.random.default_rng(72), 301, 2, 8, 8, 7, cuda)
+    with torch.inference_mode():
+        _close(kernel(*inputs), plain(*inputs), 1e-4)
+    assert called[2:] == ["kanvit_sinekan_fwd"]
+    assert FB.LAUNCHES["sinekan_qkv_grouped"] == 3
+
+
+@pytest.mark.parametrize("n,h,dh", [(1849, 2, 32), (301, 4, 8), (12608, 6, 64)])
+def test_bspline_qkv_grouped_tc_forward_large_silu_inputs(cuda, n, h, dh):
+    """The B-spline tensor-core forward (one running sum, the silu slice
+    in it) over inputs one in 9 at |x| in [20, 60], outside every knot
+    span, where silu(x) dominates the row: within 1e-4 of the plain
+    version, no further from f64 than twice it, bits repeated."""
+    rng = np.random.default_rng(47 + dh)
+    x = _fast_x(rng, (n, h * dh)).to(cuda)
+    grid = K.make_bspline_grid(dh, device=cuda)
+    bw, sw, sc = _spline_params(rng, h, 3 * dh, dh, cuda)
+
+    def plain(x, bw, sw, sc):
+        return torch.cat([K.bspline_kan_forward(x[:, i * dh:(i + 1) * dh], grid.to(x.dtype),
+                                                bw[i], sw[i], sc[i]) for i in range(h)], dim=1)
+
+    with torch.inference_mode():
+        y = FB.bspline_qkv_grouped(x, grid, bw, sw, sc)
+        again = FB.bspline_qkv_grouped(x, grid, bw, sw, sc)
+        want = plain(x, bw, sw, sc)
+        exact = plain(*(a.double() for a in (x, bw, sw, sc)))
+    _close(y, want, 1e-4)
+    _f64_gate(y, want, exact)
+    assert torch.equal(y, again)
+    assert FB.LAUNCHES["bspline_qkv_grouped"] == 2
+
+
+@pytest.mark.parametrize("family", ["bspline", "rbf", "sine"])
+def test_grouped_tc_forward_refuses_a_short_scratch(cuda, monkeypatch, family):
+    """The forward entries take the split W scratch's word count: sized for
+    one step a stage fewer than the family's tile, the entry refuses it
+    (cudaErrorInvalidValue) and the wrapper raises, writing nothing past
+    it."""
+    rng = np.random.default_rng(73)
+    h, dh = 2, 16
+    monkeypatch.setitem(FB.TCG_FWD_STEPS, family, FB.TCG_FWD_STEPS[family] - 1)
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="CUDA error 1\\b"):
+        if family == "bspline":
+            x = _spline_x(rng, (50, h * dh)).to(cuda)
+            FB.bspline_qkv_grouped(x, K.make_bspline_grid(dh, device=cuda),
+                                   *_spline_params(rng, h, 3 * dh, dh, cuda))
+        elif family == "rbf":
+            x = _fast_x(rng, (50, h * dh)).to(cuda)
+            ga, be, sw, bw, bb = [p.to(cuda) for p in _fast_params(rng, dh, dh, (h,))]
+            FB.fastkan_qkv_grouped(x, ga, be, RBF_GRID.to(cuda), 4 / 7, sw, bw, bb)
+        else:
+            kernel, _, inputs, _ = _sine_grouped(rng, 50, h, dh, dh, 4, cuda)
+            kernel(*inputs)
+    assert sum(FB.LAUNCHES.values()) == 0
+
+
 @pytest.mark.parametrize("family", ["rbf", "sine"])
 def test_rbf_sine_backward_repeats_its_bits(cuda, family):
     """dW, dgamma, dbeta and dfreq are per-block partials summed in a fixed
