@@ -291,11 +291,12 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "ffn_bwd_hidden_tc", "ffn_bwd_dx_tcILi3", "ffn_dw_tc",
                 ("ffn_gemm_tcILi0",), ("kan_tc_dw_grouped", "Bspline"),
                 ("kan_tc_dx_kernel", "Bspline"), ("kan_tc_dw_grouped", "3RbfELi1E"),
-                ("kan_tc_dx_kernel", "3RbfE"), ("kan_tc_dw_grouped", "4SineELi1E"),
+                ("kan_tc_dx_kernel", "3RbfE"), ("kan_tc_dw_grouped", "3RbfELi3E"),
+                ("kan_tc_dw_grouped", "4SineELi1E"),
                 ("kan_tc_dx_kernel", "4SineE"), ("kan_tc_dw_grouped", "5ChebyELi3E"),
                 ("kan_tc_dx_kernel", "5ChebyE"), ("kan_tc_fwd_grouped", "7BsplineELi24E"),
                 ("kan_tc_fwd_grouped", "7BsplineELi8E"), ("kan_tc_fwd_grouped", "3RbfELi8E"),
-                ("kan_tc_fwd_grouped", "4SineELi8E"),
+                ("kan_tc_fwd_grouped", "4SineELi8E"), ("kan_tc_fwd_grouped", "5ChebyELi8E"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
                 ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"))
 
@@ -1236,7 +1237,7 @@ def f64_gate(tag, got, plain32, exact):
 
 def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
               shape, f64=False, tc_grads=(), f64_gates=False, cuda_cores=None,
-              fwd_cuda_cores=None, kernel_grads=None):
+              fwd_cuda_cores=None, kernel_grads=None, fwd_on_cuda_cores=False):
     """Forward, dx and the parameter gradients of a KAN wrapper against its
     plain version and autograd through it, on the card; the backward's bits
     repeated; CUDA-event times of the forward kernel, the backward kernels
@@ -1253,7 +1254,9 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
     all-gradients route's bits, the bounds are the 3xTF32 ones, the device
     times are measured, and with ``f64_gates`` the forward and these
     gradients on both routes are held no further from f64 than twice the
-    plain f32 version.
+    plain f32 version. ``fwd_on_cuda_cores``: the forward is not on the
+    tensor cores (the FastKAN embedder's): its bound is the f32 one and it
+    has no f64 gate.
 
     ``cuda_cores(g)``: the backward is a grouped q/k/v's on the tensor cores
     (3xTF32), and this launches the CUDA-core kernels it replaces on the
@@ -1261,7 +1264,8 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
     default all) are held no further from f64 than twice the plain f32
     version, the rest (a bias's sum over the rows, which PyTorch computes
     outside every kernel) printed beside them, the backward's device time
-    is measured beside the CUDA-core kernels' time, and its bounds are the
+    is measured beside the CUDA-core kernels' time (with ``tc_grads``, also
+    their no-dx time, ``cuda_cores(g, False)``), and its bounds are the
     3xTF32 ones.
 
     ``fwd_cuda_cores()``: the forward is a grouped q/k/v's on the tensor
@@ -1279,7 +1283,7 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
         torch.cuda.synchronize()
         err_fwd = compare(f"{name} {label} {tuple(x.shape)}", y, ref, TOL_KAN)
         extra_fwd = {}
-        if f64_gates or fwd_cuda_cores is not None:
+        if (f64_gates and not fwd_on_cuda_cores) or fwd_cuda_cores is not None:
             extra_fwd["f64_err"] = f64_gate(f"{name} {label}", y, ref,
                                             plain(*(a.double() for a in inputs)))
         if fwd_cuda_cores is not None:
@@ -1344,6 +1348,8 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
         extra_bwd["cuda_core_ms"] = time_ms(torch, lambda: cuda_cores(g))
         extra_bwd["cuda_core_device_ms"] = kernel_ms(torch, lambda: cuda_cores(g), 10,
                                                      label=f"{name}_bwd {label}, CUDA cores")
+        if tc:
+            extra_bwd["cuda_core_no_dx_ms"] = time_ms(torch, lambda: cuda_cores(g, False))
     if fwd_cuda_cores is not None:
         with torch.inference_mode():
             extra_fwd["device_ms"] = kernel_ms(torch, fwd, 10,
@@ -1376,7 +1382,8 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
               f"ms, f32 {fwd_bound['f32_bound_ms']:.4f} ms")
     return ((err_fwd, ms, plain_ms, extra_fwd,
              kan_bound(*dims, extra_floats=extra,
-                       tensor_cores=tc or fwd_cuda_cores is not None)),
+                       tensor_cores=not fwd_on_cuda_cores and (
+                           tc or fwd_cuda_cores is not None))),
             (err_bwd, bwd_ms, plain_bwd_ms, extra_bwd,
              kan_bound(*dims, backward=True, extra_floats=extra,
                        tensor_cores=tc or cuda_cores is not None)))
@@ -1386,8 +1393,9 @@ def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
                 names, tc_gates=False):
     """``check_kan`` for the Chebyshev and Fourier wrappers: ``w`` is the
     packed weight and ``aux`` the degree or grid size the kernels take.
-    ``tc_gates``: the grouped Chebyshev backward's tensor-core gates and
-    times beside the CUDA-core kernels (``check_kan``'s ``cuda_cores``)."""
+    ``tc_gates``: the grouped Chebyshev forward's and backward's tensor-core
+    gates and times beside the CUDA-core kernels (``check_kan``'s
+    ``fwd_cuda_cores`` and ``cuda_cores``)."""
     from kanvit_torch.kernels import fused_basis as FB
 
     x, bname = inputs[0], f"{name}_bwd"
@@ -1398,11 +1406,15 @@ def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
     def cuda_cores(g):
         return cuda_core_route(FB, lambda: launches[1](g))
 
+    def fwd_cuda_cores():
+        return cuda_core_route(FB, launches[0])
+
     tc = family == "fourier"  # its forward and dW on the tensor cores
     return check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
                      (x.shape[0], *w.shape, 0, 1), tc_grads=("coeffs",) if tc else (),
                      f64_gates=tc and x.shape[1] >= 768,
-                     cuda_cores=cuda_cores if tc_gates else None)
+                     cuda_cores=cuda_cores if tc_gates else None,
+                     fwd_cuda_cores=fwd_cuda_cores if tc_gates else None)
 
 
 def fast_inputs(rng, shape):
@@ -1444,9 +1456,13 @@ def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False, bas
     FastKAN forward (per head) and autograd through it: x, the LayerNorm's
     gamma and beta, spline and base weights, base bias; without ``base``
     (the grouped route only) an 8-slice weight through the grouped
-    Function and no base weights. ``tc_gates``: the grouped forward's and
-    backward's tensor-core gates and times beside the CUDA-core kernels
-    (``check_kan``'s ``fwd_cuda_cores`` and ``cuda_cores``)."""
+    Function and no base weights. ``tc_gates``: the tensor-core gates and
+    times beside the CUDA-core kernels (``check_kan``'s ``cuda_cores``), of
+    the grouped forward (``fwd_cuda_cores``) and backward; of the
+    embedder's backward (its forward stays on the CUDA cores), dgamma,
+    dbeta and the spline and base weights no further from f64 than twice
+    the plain f32 version on the all-gradients and the no-dx routes, the
+    no-dx route's bits those of the all-gradients route (``tc_grads``)."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.ops import kan_bases as K
 
@@ -1492,20 +1508,23 @@ def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False, bas
         lambda g: FB._launch_rbf_bwd(bname, x, w, ga, be, grid, den, stats, g, False,
                                      True))
 
-    def cuda_cores(g):
+    def cuda_cores(g, with_dx=True):
         return cuda_core_route(FB, lambda: FB._launch_rbf_bwd(
-            bname, x, w, ga, be, grid, den, stats, g, True, True))
+            bname, x, w, ga, be, grid, den, stats, g, with_dx, True))
 
     def fwd_cuda_cores():
         return cuda_core_route(FB, launches[0])
 
     names = ("x", "gamma", "beta", "spline_weight", "base_weight", "base_bias")
+    embedder = tc_gates and groups == 1
     return check_kan(torch, rng, name, label, kernel, plain, [x, *params],
                      names[:len(params) + 1], launches,
                      (n, groups, w.shape[1], nin, nout, 2 * groups * nin + 8, 2),
+                     tc_grads=names[1:5] if embedder else (), f64_gates=embedder,
                      cuda_cores=cuda_cores if tc_gates else None,
-                     fwd_cuda_cores=fwd_cuda_cores if tc_gates else None,
-                     kernel_grads=names[:5])
+                     fwd_cuda_cores=fwd_cuda_cores if tc_gates and not embedder else None,
+                     kernel_grads=() if embedder else names[:5],
+                     fwd_on_cuda_cores=embedder)
 
 
 def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size, tc_gates=False):
@@ -1569,8 +1588,8 @@ def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size, tc_gate
 def check_cheby_qkv(torch, rng, n, h, dh, label):
     """``cheby_qkv_grouped`` (``check_basis``) over x with a share where
     tanh(x) rounds to +-1, coefficients of unit output scale; at the vit-s
-    rows with the tensor-core backward's gates beside the CUDA-core
-    kernels."""
+    rows with the tensor-core forward's and backward's gates beside the
+    CUDA-core kernels."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.ops import kan_bases as K
 
@@ -1647,7 +1666,8 @@ def phase_rbf_sine_kernels(torch):
 
     for n, nin, nout, label in ((BATCH * 196, 768, 384, "vit-s embedder"),
                                 (37 * 49, 16, 64, "ragged")):
-        keep("fastkan", check_rbf(torch, rng, "fastkan", label, n, 1, nin, nout))
+        keep("fastkan", check_rbf(torch, rng, "fastkan", label, n, 1, nin, nout,
+                                  tc_gates=n > 10000))
     for n, h, dh, label in ((BATCH * 197, 6, 64, "vit-s q/k/v"),
                             (37 * 50 - 1, 2, 32, "ragged")):
         keep("fastkan_qkv_grouped", check_rbf(torch, rng, "fastkan_qkv_grouped",
@@ -2318,9 +2338,9 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
 KAN_FAMILIES = ("Bspline", "Cheby", "Fourier", "Rbf", "Sine")
 KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
-    ("KAN q/k/v bwd on the tensor cores (B-spline, Chebyshev, RBF, sine: dW, dx)",
-     ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
-    ("KAN q/k/v fwd on the tensor cores (B-spline, RBF, sine)",
+    ("KAN q/k/v and FastKAN embedder bwd on the tensor cores (B-spline, Chebyshev, RBF, "
+     "sine: dW, dx)", ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
+    ("KAN q/k/v fwd on the tensor cores (B-spline, Chebyshev, RBF, sine)",
      ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
      ("kan_tc_kernel", "kan_tc_split")),
@@ -2765,12 +2785,12 @@ SOURCES = {
                             "kanvit/kernels/flash_attention.py:831"),
     "chebykan": (KAN_SRC, f"{FB_PY}:1067"),
     "chebykan_bwd": (KAN_SRC, f"{FB_PY}:1159"),
-    "cheby_qkv_grouped": (KAN_SRC, f"{FB_PY}:1240"),
+    "cheby_qkv_grouped": (KAN_TC_SRC, f"{FB_PY}:1240"),
     "cheby_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:1278"),
     "fourierkan": (KAN_TC_SRC, f"{FB_PY}:2317"),
     "fourierkan_bwd": (KAN_TC_SRC, f"{FB_PY}:2564"),
     "fastkan": (RBF_SINE_SRC, f"{FB_PY}:2947"),
-    "fastkan_bwd": (RBF_SINE_SRC, f"{FB_PY}:2995"),
+    "fastkan_bwd": (KAN_TC_SRC, f"{FB_PY}:2995"),
     "fastkan_qkv_grouped": (KAN_TC_SRC, f"{FB_PY}:3191"),
     "fastkan_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:3246"),
     "sinekan": (KAN_TC_SRC, f"{FB_PY}:2317"),
@@ -2816,6 +2836,11 @@ ROUTES = {
                   "once a call by kan_tc_fwd_split; both MSA routes (a shared grid, a "
                   "grid a head)",
         "instantiated_in": KAN_SRC},
+    "cheby_qkv_grouped": {
+        "kernel": "3xTF32 mma.sync.m16n8k8: kan_tc_fwd_grouped<Cheby, 8, 8, 3> (64 outputs "
+                  "a block at every width), each lane's A fragments T_0..T_4 of tanh of its "
+                  "own x values made in registers, W split once a call by kan_tc_fwd_split",
+        "instantiated_in": KAN_SRC},
     "cheby_qkv_grouped_bwd": {
         "kernel": "dW and dx on 3xTF32 mma.sync.m16n8k8: kan_tc_dw_grouped<Cheby, NJ> "
                   "over a basis generated on chip, in row splits summed in a fixed order; "
@@ -2845,6 +2870,14 @@ ROUTES = {
                   "kan_tc_dx_kernel<Rbf> with the RBF fold (dln, the silu term) in its "
                   "epilogue; the LayerNorm's VJP, dgamma and dbeta on ln_dx_kernel and "
                   "ln_dgb_kernel",
+        "instantiated_in": RBF_SINE_SRC},
+    "fastkan_bwd": {
+        "kernel": "the grouped q/k/v backward's templates at one group: dW on 3xTF32 "
+                  "mma.sync.m16n8k8, kan_tc_dw_grouped<Rbf, 3> over a basis generated on "
+                  "chip, in row splits filling whole waves, summed in a fixed order; dln "
+                  "from kan_tc_dx_kernel<Rbf> (the RBF fold in its epilogue; the silu term "
+                  "too where dx is asked); the LayerNorm's dgamma and dbeta (and its VJP "
+                  "for dx) on ln_dgb_kernel and ln_dx_kernel",
         "instantiated_in": RBF_SINE_SRC},
     "sinekan_qkv_grouped_bwd": {
         "kernel": "G <= 4: dW and dx on 3xTF32 mma.sync.m16n8k8: kan_tc_dw_grouped<Sine, NJ> "

@@ -44,6 +44,7 @@ SIGNATURES = {
     "kanvit_chebykan_bwd": (
         [_p, _i64, *[_p] * 5, *[_i32] * 5, _p], _i32),
     "kanvit_cheby_qkv_tc_bwd": ([_p, _i64, *[_p] * 6, *[_i32] * 5, _p], _i32),
+    "kanvit_cheby_qkv_tc_fwd": ([_p, _i64, _p, _p, _p, _i64, *[_i32] * 4, _p], _i32),
     "kanvit_fourierkan_fwd": ([_p, _i64, _p, _p, _p, *[_i32] * 4, _p], _i32),
     "kanvit_fourierkan_bwd": ([_p, _i64, *[_p] * 5, *[_i32] * 4, _p], _i32),
     "kanvit_fastkan_fwd": (

@@ -21,10 +21,10 @@
 //             _fused_bwd_sg (:1278), reached from the VJPs of _bspline_op_sg
 //             (:1330) and _cheby_op_sg (:1351): both run on the tensor cores
 //             (kan_basis_tc.cuh, part 2, instantiated here for Bspline and
-//             Cheby). bspline_qkv_grouped's forward (_fused_fwd_sg) runs on
-//             the tensor cores too (kan_basis_tc.cuh, part 3, for Bspline);
-//             cheby_qkv_grouped's and the embedders' forwards on the CUDA
-//             cores (kan_basis.cuh).
+//             Cheby). bspline_qkv_grouped's and cheby_qkv_grouped's
+//             forwards (_fused_fwd_sg) run on the tensor cores too
+//             (kan_basis_tc.cuh, part 3, for Bspline and Cheby); the
+//             embedders' forwards on the CUDA cores (kan_basis.cuh).
 //   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
 //   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
 //   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on
@@ -58,6 +58,10 @@
 #include "kan_basis_tc.cuh"
 
 namespace {
+
+// kan_tc_fwd_grouped's shape for Chebyshev: 64 outputs a block at every
+// width, 8 warps, three blocks an SM (why: kan_basis_tc.cuh part 3).
+constexpr int CHEBY_FWD_WARPS = 8, CHEBY_FWD_MINB = 3;
 
 // B-spline: 12 knots a feature (grid 5, order 3), 8 spline bases + silu.
 struct Bspline : FamilyDefaults {
@@ -325,6 +329,17 @@ extern "C" int kanvit_chebykan_bwd(const float* x, long long ldx,
                                    int nin, int nout, int splits, void* stream) {
   return launch_bwd<Cheby>(x, ldx, {}, w, gy, dx, dw, dw_part, n, groups, nin,
                            nout, splits, stream);
+}
+
+// The grouped q/k/v forward (cheby_qkv_grouped's) on the tensor cores
+// (kan_basis_tc.cuh, part 3): as kanvit_bspline_qkv_tc_fwd, for Chebyshev
+// (the family's values: the recurrence on tanh(x), T_n(+-1) where tanh
+// rounds to +-1, as kan_fwd_kernel).
+extern "C" int kanvit_cheby_qkv_tc_fwd(const float* x, long long ldx, const float* w, float* y,
+                                       unsigned int* wsplit, long long wwords, int n,
+                                       int groups, int nin, int nout, void* stream) {
+  return launch_tc_grouped_fwd<Cheby, CHEBY_FWD_WARPS, CHEBY_FWD_MINB, true>(
+      x, ldx, {}, w, y, wsplit, wwords, n, groups, nin, nout, (cudaStream_t)stream);
 }
 
 // The grouped q/k/v backward (cheby_qkv_grouped's) on the tensor cores

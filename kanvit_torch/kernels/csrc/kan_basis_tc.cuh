@@ -619,7 +619,13 @@ int launch_tc_dw(const float* x, long long ldx, typename F::Params p, const floa
 // and silu, S = 9, or 8 without the base slice; _rbf_ln_sg_op_bwd, :3246)
 // and sine (S = G <= 4 slices; _sine_op_sg_bwd, :1557) in kan_rbf_sine.cu.
 // A family's tile holds SC slices; a weight of S < SC slices leaves the
-// rest zero in both operands and never stores them.
+// rest zero in both operands and never stores them. The FastKAN patch
+// embedder's backward (_rbf_ln_base_op_bwd, :2995, and the tier without
+// its LayerNorm, :2769) is RBF's one-group case: at vit-s (12,544 rows,
+// 768 -> 384) dW takes 48 feature tiles x 2 tiles of 192 outputs (NJ 3),
+// its rows in 11 splits, 1,056 blocks, 8 waves of one block an SM
+// (tc_grouped_dw_splits rounds the splits up to whole waves), and the dx
+// kernel writes dln, 4,704 blocks, 384 outputs deep in one running sum.
 //
 // What bounds it on the H100: the products. At the vit-s q/k/v (n 12,608,
 // 6 heads of nin 64, nout 192) dW and dx are 16.73 GFLOP each: 0.4995 ms in
@@ -1169,8 +1175,10 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // C = A B per group: A the basis, rows x (slice, feature), generated on chip
 // from x; B W_g in (slice, feature) order. Instantiated for B-spline in
 // kan_basis.cu (the knots of group g at gridt + g gstride, so a refit grid a
-// head is one more stride), for Rbf (after the LayerNorm's statistics pass)
-// and Sine in kan_rbf_sine.cu (one projection of 64 outputs a launch).
+// head is one more stride) and for Chebyshev there (T_0..T_4 of tanh x by
+// the recurrence, S = 5; _cheby_op_sg, :1343, from cheby_qkv_grouped
+// :1395), for Rbf (after the LayerNorm's statistics pass) and Sine in
+// kan_rbf_sine.cu (one projection of 64 outputs a launch).
 //
 // What bounds it on the H100: the products. At the vit-s q/k/v (n 12,608,
 // 6 heads of nin 64, nout 192, S 9) it is 16.73 GFLOP: 0.2497 ms in f32 at
@@ -1180,7 +1188,8 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // pace of part 2's grouped dW), and the TF32 split of each value. One vit-s
 // projection (64 outputs a head) is 5.58 GFLOP for RBF (S 9; 0.0338 ms in
 // 3xTF32, 0.0832 in f32) and 2.48 for sine (S 4; 0.0150, 0.0370), 8 expf a
-// value beside the products for RBF, 4 sinf for sine.
+// value beside the products for RBF, 4 sinf for sine; the Chebyshev q|k|v
+// 9.30 (S 5; 0.0563, 0.1387), one tanhf and three FMAs a value.
 //
 // kan_tc_fwd_grouped<F, NT>: a block holds 192 rows x 8 NT outputs of one
 // group (NT 24: 192, a head's q|k|v; NT 8: 64 where nout <= 64, one
@@ -1222,6 +1231,13 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // spilling). Sine, 4 slices a stage and 80 registers, takes 8 warps at
 // three blocks an SM (0.1084 against 0.1242 at 12 warps, one block; 24
 // warps an SM against 12): 594 blocks of 128 rows, 1.5 waves of 396.
+// Chebyshev takes that 64-output shape at every width (NARROW; 8 warps,
+// three blocks an SM, 80 registers, no spills): 0.2070 ms at the vit-s
+// q|k|v on the H100 80GB HBM3 at 700 W (probe_qkv_fwd.py --cheby) against
+// 0.2452 for 192-output blocks of 12 warps (168 registers;
+// 8 warps 0.3036 at 255, spilling), though it makes each value's basis
+// three times, once an output tile: its basis is cheap, and 24 warps an SM
+// hide the products' chains that 12 could not.
 //
 // Arithmetic: 3xTF32 mma.sync.m16n8k8 (Op), each 8-deep step into a zeroed
 // accumulator added in f32, one running sum over the nin / 8 x SC steps
@@ -1473,21 +1489,24 @@ int launch_tc_fwd_grouped(const float* x, long long ldx, typename F::Params p, c
 // F::slices(p) <= F::SC, y contiguous; wsplit: scratch of wwords >= groups
 // ceil(nout / BN) ceil(nin / 8) STEPS BN 16 words (STEPS = SC, one more with
 // an exact slice; not S: the pre-pass writes zeros past S; BN 64 where nout
-// <= 64, else 192), 16-byte aligned, else cudaErrorInvalidValue. Up to 64
-// outputs (one projection) the family's shape: WARPS8 warps, MINB8 blocks
-// an SM; past them 12 warps, 192 outputs a block.
-template <class F, int WARPS8 = tcf::WARPS, int MINB8 = 1>
+// <= 64 or with NARROW, else 192), 16-byte aligned, else
+// cudaErrorInvalidValue. Up to 64 outputs (one projection), and with
+// NARROW at every width, the family's shape: 64 outputs a block, WARPS8
+// warps, MINB8 blocks an SM; past them 12 warps, 192 outputs a block.
+template <class F, int WARPS8 = tcf::WARPS, int MINB8 = 1, bool NARROW = false>
 int launch_tc_grouped_fwd(const float* x, long long ldx, typename F::Params p, const float* w,
                           float* y, uint32_t* wsplit, long long wwords, int n, int groups,
                           int nin, int nout, cudaStream_t st) {
   if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 || F::slices(p) > F::SC ||
       wsplit == nullptr || (uintptr_t)wsplit % 16 != 0)
     return (int)cudaErrorInvalidValue;
-  if (nout <= 64)
-    return launch_tc_fwd_grouped<F, 8, WARPS8, MINB8>(x, ldx, p, w, y, wsplit, wwords, n,
-                                                      groups, nin, nout, st);
-  return launch_tc_fwd_grouped<F, 24>(x, ldx, p, w, y, wsplit, wwords, n, groups, nin, nout,
-                                      st);
+  if constexpr (!NARROW) {
+    if (nout > 64)
+      return launch_tc_fwd_grouped<F, 24>(x, ldx, p, w, y, wsplit, wwords, n, groups, nin,
+                                          nout, st);
+  }
+  return launch_tc_fwd_grouped<F, 8, WARPS8, MINB8>(x, ldx, p, w, y, wsplit, wwords, n, groups,
+                                                    nin, nout, st);
 }
 
 }  // namespace

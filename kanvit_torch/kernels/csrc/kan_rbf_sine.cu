@@ -15,7 +15,9 @@
 //
 // Replaces the TPU kernels of kanvit/kernels/fused_basis.py:
 //   RBF:  _rbf_ln_base_op fwd (pallas_call at :2947) and bwd (:2995), reached
-//         from fastkan (:3600), the patch embedder; _rbf_ln_sg_op fwd
+//         from fastkan (:3600), the patch embedder, its backward's dx (dln)
+//         and dW on the tensor cores (part 2 at one group, entry
+//         kanvit_fastkan_qkv_tc_bwd); _rbf_ln_sg_op fwd
 //         (:3191) and bwd (:3246), reached from fastkan_qkv_grouped (:3300),
 //         one launch per q/k/v projection over every head, its forward on
 //         the tensor cores after the statistics pass (kan_basis_tc.cuh part
@@ -581,11 +583,13 @@ extern "C" int kanvit_sinekan_bwd(const float* x, long long ldx,
       });
 }
 
-// The grouped FastKAN q/k/v backward (fastkan_qkv_grouped's) on the tensor
-// cores (kan_basis_tc.cuh, part 2): kanvit_fastkan_bwd's arguments and
-// steps, its dx kernel (dln, and the silu term into dx) and dW kernel the
-// tensor-core ones, with their scratch wtsplit (launch_tc_grouped_dx) and
-// splits the dW kernel's row splits (at most).
+// The grouped FastKAN q/k/v backward (fastkan_qkv_grouped's) and, at one
+// group, the embedder's (fastkan's) on the tensor cores (kan_basis_tc.cuh,
+// part 2): kanvit_fastkan_bwd's arguments and steps, its dx kernel (dln,
+// and the silu term into dx) and dW kernel the tensor-core ones, with their
+// scratch wtsplit (launch_tc_grouped_dx) and splits the dW kernel's row
+// splits (at most). The embedder's training step asks for no dx: dln, the
+// LayerNorm's dgamma and dbeta and dW, the same bits as with dx.
 extern "C" int kanvit_fastkan_qkv_tc_bwd(const float* x, long long ldx,
                                          const float* gamma, const float* beta,
                                          const float* centres, float inv_h,

@@ -26,18 +26,18 @@ RBF with its LayerNorm, sine):
 3xTF32 ``mma.sync`` over a basis generated on chip), their dx on the
 CUDA-core template. The backward (dx and dW) of :func:`bspline_qkv_grouped`,
 :func:`cheby_qkv_grouped`, :func:`fastkan_qkv_grouped` and
-:func:`sinekan_qkv_grouped` runs on the tensor cores too
-(``csrc/kan_basis_tc.cuh``, part 2: 3xTF32 ``mma.sync``, dW over a basis
-generated on chip in row splits summed in a fixed order, dx with the basis
-derivative or the family's fold in the epilogue: FastKAN's dln for its
-LayerNorm's VJP, sine's dfreq sums), and so does the forward of
-:func:`bspline_qkv_grouped`, :func:`fastkan_qkv_grouped` (after its
-LayerNorm's statistics) and :func:`sinekan_qkv_grouped` (part 3: each lane
-makes the basis of its own A fragments in registers); the Chebyshev
-grouped forward stays on the CUDA-core template. The route is chosen by
-call site, never by size, with one exception: the tensor-core tiles hold at
-most 4 sine slices, so a grouped sine forward or backward of a larger grid
-takes the CUDA-core kernels.
+:func:`sinekan_qkv_grouped`, and of :func:`fastkan` as their one-group
+case, runs on the tensor cores too (``csrc/kan_basis_tc.cuh``, part 2:
+3xTF32 ``mma.sync``, dW over a basis generated on chip in row splits summed
+in a fixed order, dx with the basis derivative or the family's fold in the
+epilogue: FastKAN's dln for its LayerNorm's VJP, sine's dfreq sums), and so
+does the forward of :func:`bspline_qkv_grouped`, :func:`cheby_qkv_grouped`,
+:func:`fastkan_qkv_grouped` (after its LayerNorm's statistics) and
+:func:`sinekan_qkv_grouped` (part 3: each lane makes the basis of its own A
+fragments in registers). The route is chosen by call site, never by size,
+with one exception: the tensor-core tiles hold at most 4 sine slices, so a
+grouped sine forward or backward of a larger grid takes the CUDA-core
+kernels.
 
 Dispatch is by device (``kanvit_torch.ops.dispatch``): a CPU tensor runs the
 plain version in ``kanvit_torch.ops.kan_bases`` and autograd differentiates
@@ -97,12 +97,13 @@ TC_SINE_FWD_ROWS, TC_SINE_FWD_OUTS = 48, 384
 TC_FWD_FEATURES = {"fourier": 16, "sine": 32}
 # The call sites on the tensor-core kernels (the rest: the CUDA-core ones).
 TC_ROUTES = ("fourierkan", "sinekan")
-# The grouped backward on the tensor cores (csrc/kan_basis_tc.cuh, part 2):
-# features a block (an m16 tile a slice), the dW kernel's 32-row stages and
-# its outputs a block (64 up to nout 64, else 192), and the dx kernel's rows
-# a block and 16-output stages; the slices a family's tile holds (its SC).
+# The grouped backward on the tensor cores (csrc/kan_basis_tc.cuh, part 2),
+# and the FastKAN embedder's as its one-group case: features a block (an m16
+# tile a slice), the dW kernel's 32-row stages and its outputs a block (64
+# up to nout 64, else 192), and the dx kernel's rows a block and 16-output
+# stages; the slices a family's tile holds (its SC).
 TC_GROUPED_BWD = ("bspline_qkv_grouped_bwd", "cheby_qkv_grouped_bwd",
-                  "fastkan_qkv_grouped_bwd", "sinekan_qkv_grouped_bwd")
+                  "fastkan_qkv_grouped_bwd", "sinekan_qkv_grouped_bwd", "fastkan_bwd")
 TCG_FEATURES, TCG_DX_ROWS, TCG_DX_STAGE = 16, 128, 16
 TCG_SLICES = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 1,
               "sine": SINE_CHUNK}
@@ -111,9 +112,12 @@ TCG_SLICES = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS +
 # steps of a stage's split W a family (its tile's slices; RBF one more, the
 # silu slice's remainders; the entries take the scratch's word count and
 # refuse one too short for their steps); sine up to SINE_CHUNK slices.
-TC_GROUPED_FWD = ("bspline_qkv_grouped", "fastkan_qkv_grouped", "sinekan_qkv_grouped")
+TC_GROUPED_FWD = ("bspline_qkv_grouped", "cheby_qkv_grouped", "fastkan_qkv_grouped",
+                  "sinekan_qkv_grouped")
 TCG_FWD_FEATURES = 8
-TCG_FWD_STEPS = {"bspline": N_SLICES, "rbf": RBF_GRIDS + 2, "sine": SINE_CHUNK}
+TCG_FWD_STEPS = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 2,
+                 "sine": SINE_CHUNK}
+TCG_FWD_NARROW = ("cheby",)  # 64 outputs a forward block at every width
 TCG_DW_TARGET_BLOCKS = 4  # blocks an SM the dW row splits aim at
 
 
@@ -427,8 +431,14 @@ def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
                                                  w.data_ptr(), y.data_ptr(), *shape,
                                                  stream)
         elif family == "cheby":
-            err = lib.kanvit_chebykan_fwd(*args, w.data_ptr(), y.data_ptr(),
-                                          *shape, stream)
+            if name in TC_GROUPED_FWD:
+                wsplit = _tc_grouped_fwd_scratch(w, x2d.device, "cheby")
+                err = lib.kanvit_cheby_qkv_tc_fwd(*args, w.data_ptr(), y.data_ptr(),
+                                                  wsplit.data_ptr(), wsplit.numel(),
+                                                  *shape, stream)
+            else:
+                err = lib.kanvit_chebykan_fwd(*args, w.data_ptr(), y.data_ptr(),
+                                              *shape, stream)
         else:
             wsplit = _tc_split(_tc_fwd_stages("fourier", nin, aux), out, x2d.device)
             err = lib.kanvit_fourierkan_fwd(*args, w.data_ptr(), y.data_ptr(),
@@ -456,11 +466,16 @@ def tc_grouped_outs(nout: int) -> int:
 def tc_grouped_dw_splits(n: int, groups: int, nin: int, nout: int, n_sm: int) -> int:
     """Row splits of the grouped tensor-core dW: enough (feature tile x
     group x output tile) blocks times splits for ``TCG_DW_TARGET_BLOCKS``
-    blocks an SM, whole 32-row stages a split, none left empty. A function
-    of the shape and the card only, so a run repeats its bits."""
+    blocks an SM, rounded up to whole waves of ``n_sm`` blocks where at
+    most twice as many splits do it (the FastKAN embedder's 96 tiles: 11
+    splits, 8 waves, not 6 splits' 4.36), whole 32-row stages a split, none
+    left empty. A function of the shape and the card only, so a run
+    repeats its bits."""
     tiles = groups * -(-nin // TCG_FEATURES) * -(-nout // tc_grouped_outs(nout))
     stages = -(-n // TC_STAGE)
-    per = -(-stages // min(stages, -(-TCG_DW_TARGET_BLOCKS * n_sm // tiles)))
+    want = -(-TCG_DW_TARGET_BLOCKS * n_sm // tiles)
+    whole = next((s for s in range(want, 2 * want + 1) if tiles * s % n_sm == 0), want)
+    per = -(-stages // min(stages, whole))
     return -(-stages // per)
 
 
@@ -483,12 +498,13 @@ def _tc_grouped_scratch(family, w, n, need_dx, need_dw, dev):
 
 def _tc_grouped_fwd_scratch(w, dev, family: str = "bspline") -> torch.Tensor:
     """W split for the grouped tensor-core forward: for every group and
-    block of outputs, ``ceil(nin / 8)`` stages of the family's steps (the
+    block of outputs (64, or the grouped dW's for a family not in
+    ``TCG_FWD_NARROW``), ``ceil(nin / 8)`` stages of the family's steps (the
     slices its tile holds, which the pre-pass writes whatever the weight's
     S, zeros past it; RBF one more, the silu slice's remainders) x 8
     features x the block's outputs, two words a value."""
     groups, _, nin, out = w.shape
-    outs = tc_grouped_outs(out)
+    outs = 64 if family in TCG_FWD_NARROW else tc_grouped_outs(out)
     return torch.empty(groups * -(-out // outs) * -(-nin // TCG_FWD_FEATURES)
                        * TCG_FWD_STEPS[family] * outs * TCG_FWD_FEATURES * 2,
                        dtype=torch.int32, device=dev)
@@ -706,9 +722,9 @@ def _launch_rbf_bwd(name: str, x2d, w, gamma, beta, grid, denominator: float,
                     stats, gy, need_dx: bool, need_dw: bool):
     """``(dx or None, dw or None, dgamma, dbeta)`` from the RBF backward
     kernels; dgamma and dbeta ``(G, nin)`` whenever the layer has its
-    LayerNorm (its dln pass runs even with no dx), else None.
-    ``fastkan_qkv_grouped``'s runs its dx and dW on the tensor cores, the
-    embedder's on the CUDA cores."""
+    LayerNorm (its dln pass runs even with no dx), else None. The grouped
+    q/k/v's and the embedder's (one group) run dx and dW on the tensor
+    cores."""
     check_rbf_args(x2d, w, gamma, beta, grid)
     ln = gamma is not None
     _check_device(name, x2d, w, grid, gy, *((gamma, beta, stats) if ln else ()))

@@ -1,6 +1,6 @@
 """The grouped q/k/v forward's tile shapes on the card.
 
-    python -m kanvit_torch.probe_qkv_fwd [--bspline]
+    python -m kanvit_torch.probe_qkv_fwd [--bspline] [--cheby]
 
 Builds the kernels, then a library from ``csrc/kan_rbf_sine.cu`` with
 variants of ``kan_tc_fwd_grouped`` (``csrc/kan_basis_tc.cuh``, part 3) for
@@ -16,9 +16,13 @@ for bit, timed by CUDA events beside the route and the CUDA-core kernel it
 replaced; the two routes' host time a call (the enqueue alone) beside
 them. ``--bspline`` adds PR 13's B-spline variants from
 ``csrc/kan_basis.cu`` (12 or 8 warps, 64-output tiles at every width,
-local support) at the vit-s q/k/v, a refit grid a head and dh 8. The
-registers and spills of every variant are printed; the last line holds the
-times as JSON.
+local support) at the vit-s q/k/v, a refit grid a head and dh 8.
+``--cheby`` adds the Chebyshev shapes (``CHEBY_SHAPES``: 192- or 64-output
+tiles, warps a block, blocks an SM) of ``cheby_qkv_grouped``'s forward at
+the vit-s q/k/v (a share of x where tanh rounds to +-1) and at the
+reference preset's (6,400 rows, 2 heads of 32 -> 96). The registers and
+spills of every variant are printed; the last line holds the times as
+JSON.
 """
 
 from __future__ import annotations
@@ -36,6 +40,9 @@ VARIANTS = ("route", "8 warps", "64-output tiles", "route, local support",
             "64-output tiles, local support")
 # (warps a block, blocks an SM) at 64 outputs a block
 SHAPES = ((12, 1), (12, 2), (8, 2), (8, 3), (4, 4))
+# (n8 tiles a warp: 24 for 192 outputs a block, 8 for 64; warps a block,
+# blocks an SM); the route's first
+CHEBY_SHAPES = ((24, 12, 1), (24, 8, 1), (8, 12, 1), (8, 12, 2), (8, 8, 2), (8, 8, 3))
 
 SOURCE = r"""
 #include "kan_basis.cu"
@@ -153,6 +160,23 @@ extern "C" int probe_sinekan_fwd(int v, const float* x, long long ldx, const flo
     for i, (w, mb) in enumerate(SHAPES)))
 
 
+CHEBY_SOURCE = r"""
+#include "kan_basis.cu"
+
+extern "C" int probe_cheby_fwd(int v, const float* x, long long ldx, const float* w, float* y,
+                               unsigned int* ws, long long ww, int n, int groups, int nin,
+                               int nout, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (v) {
+CASES
+  }
+  return -1;
+}
+""".replace("CASES", "\n".join(
+    f"    case {i}: return launch_tc_fwd_grouped<Cheby, {nt}, {w}, {mb}>(x, ldx, {{}}, w, y, "
+    f"ws, ww, n, groups, nin, nout, st);" for i, (nt, w, mb) in enumerate(CHEBY_SHAPES)))
+
+
 def _nvcc(C, source, name):
     """Start nvcc on ``source`` into ``lib<name>.so``; returns (process,
     library path)."""
@@ -214,6 +238,37 @@ def bspline_variants(fn, C, torch, rng, times):
 
         times[f"bspline {label}"] = run_variants(C, torch, route, call, VARIANTS,
                                                  f"bspline {label}")
+
+
+def cheby_variants(fn, C, torch, rng, times):
+    """The Chebyshev shapes (``--cheby``)."""
+    import numpy as np
+
+    from kanvit_torch.kernels import fused_basis as FB
+
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_longlong, *[ctypes.c_void_p] * 3,
+                   ctypes.c_longlong, *[ctypes.c_int] * 4, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    for label, n, heads, dh in (("vit-s q/k/v", C.BATCH * 197, 6, 64),
+                                ("reference q/k/v", 128 * 50, 2, 32)):
+        x = torch.from_numpy(C.cheby_inputs(rng, (n, heads * dh), 0.02)).cuda()
+        cc = torch.from_numpy((rng.standard_normal((heads, dh, 3 * dh, 5))
+                               / np.sqrt(dh * 5)).astype(np.float32)).cuda()
+        w = FB.pack_cheby_qkv_weight(cc).contiguous()
+        groups, _, nin, nout = w.shape
+        # room for every variant's tiles: 64-output tiles past 64 outputs
+        ws = torch.empty(groups * -(-nin // 8) * 5 * 16 * (-(-nout // 64) * 64 + 192),
+                         dtype=torch.int32, device=x.device)
+
+        def route():
+            return FB._launch("cheby_qkv_grouped", "cheby", x, w, 4)
+
+        def call(v, y):
+            return fn(v, x.data_ptr(), x.stride(0), w.data_ptr(), y.data_ptr(), ws.data_ptr(),
+                      ws.numel(), n, groups, nin, nout, torch.cuda.current_stream().cuda_stream)
+
+        times[f"cheby {label}"] = run_variants(C, torch, route, call, CHEBY_SHAPES,
+                                               f"cheby {label}")
 
 
 def host_ms(torch, fn, calls=200):
@@ -320,6 +375,7 @@ def rbf_sine_variants(lib, C, torch, rng, times):
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bspline", action="store_true")
+    ap.add_argument("--cheby", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -331,12 +387,16 @@ def main(argv=None) -> None:
     builds = [("probe_qkv_fwd_rbf_sine", *_nvcc(C, RBF_SINE_SOURCE, "probe_qkv_fwd_rbf_sine"))]
     if args.bspline:
         builds.append(("probe_qkv_fwd", *_nvcc(C, SOURCE, "probe_qkv_fwd")))
-    libs = [_finish(C, proc, lib, name) for name, proc, lib in builds]
+    if args.cheby:
+        builds.append(("probe_qkv_fwd_cheby", *_nvcc(C, CHEBY_SOURCE, "probe_qkv_fwd_cheby")))
+    libs = dict((name, _finish(C, proc, lib, name)) for name, proc, lib in builds)
     rng = np.random.default_rng(C.SEED)
     times = {}
-    rbf_sine_variants(libs[0], C, torch, rng, times)
+    rbf_sine_variants(libs["probe_qkv_fwd_rbf_sine"], C, torch, rng, times)
     if args.bspline:
-        bspline_variants(libs[1].probe_qkv_fwd, C, torch, rng, times)
+        bspline_variants(libs["probe_qkv_fwd"].probe_qkv_fwd, C, torch, rng, times)
+    if args.cheby:
+        cheby_variants(libs["probe_qkv_fwd_cheby"].probe_cheby_fwd, C, torch, rng, times)
     print(f"[probe_qkv_fwd] {ROOT}  [{smi}]")
     print(json.dumps(times))
 

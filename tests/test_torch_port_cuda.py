@@ -529,6 +529,39 @@ def test_cheby_qkv_grouped_tc_backward(cuda, n, h, dh):
     assert FB.LAUNCHES["cheby_qkv_grouped_bwd"] == 2
 
 
+@pytest.mark.parametrize("n,h,dh,saturated", [(12608, 6, 64, 0.05), (37 * 50 - 1, 2, 32, 0.05),
+                                               (301, 4, 8, 0.05), (300, 2, 16, 1.0)])
+def test_cheby_qkv_grouped_tc_forward(cuda, monkeypatch, n, h, dh, saturated):
+    """The tensor-core forward (3xTF32; dh 8's 24 outputs a head in 64-output
+    tiles) over x with a share where tanh(x) rounds to +-1 (all of it in the
+    last case): within 1e-4 x max(1, max|y|) of the plain version and of
+    the CUDA-core kernel it replaced, no further from f64 than twice the
+    plain f32 version, a second forward with the same bits, and the
+    tensor-core entry the one called."""
+    called = _recording(monkeypatch, ("kanvit_cheby_qkv_tc_fwd", "kanvit_chebykan_fwd"))
+    rng = np.random.default_rng(74 + dh)
+    x = _cheby_x(rng, (n, h * dh), saturated).to(cuda)
+    cc = _param(rng, (h, dh, 3 * dh, 5), 1.0 / np.sqrt(dh * 5)).to(cuda)
+
+    def plain(x, cc):
+        return torch.cat([K.chebykan_forward(x[:, i * dh:(i + 1) * dh], cc[i])
+                          for i in range(h)], dim=1)
+
+    with torch.inference_mode():
+        y = FB.cheby_qkv_grouped(x, cc)
+        again = FB.cheby_qkv_grouped(x, cc)
+        want = plain(x, cc)
+        exact = plain(x.double(), cc.double())
+        monkeypatch.setattr(FB, "TC_GROUPED_FWD", ())
+        cores = FB.cheby_qkv_grouped(x, cc)
+    _close(y, want, 1e-4)
+    _close(y, cores, 1e-4)
+    _f64_gate(y, want, exact)
+    assert torch.equal(y, again)
+    assert called == ["kanvit_cheby_qkv_tc_fwd"] * 2 + ["kanvit_chebykan_fwd"]
+    assert FB.LAUNCHES["cheby_qkv_grouped"] == 3
+
+
 @pytest.mark.parametrize("n,nin,nout,grid_size", [
     (1, 8, 3, 1), (1000, 16, 24, 5), (999, 20, 70, 7), (300, 64, 96, 28)])
 def test_fourierkan_kernels(cuda, n, nin, nout, grid_size):
@@ -734,6 +767,55 @@ def test_fastkan_kernels(cuda, n, nin, nout, ln, base):
     for a, b in zip(got, want):
         _close(a, b, 1e-4)
     assert FB.LAUNCHES["fastkan"] == 1 and FB.LAUNCHES["fastkan_bwd"] == 1
+
+
+# (n, nin, nout, LayerNorm, base branch): the vit-s embedder, and ragged
+# rows, features and outputs (48 features: three 16-feature dW tiles; 40
+# outputs: one 64-output tile and gy's 4-byte copies at 70)
+EMBEDDER_TC_SHAPES = [(12544, 768, 384, True, True), (37 * 49 + 3, 48, 40, True, True),
+                      (1000, 100, 70, True, False), (999, 48, 40, False, True)]
+
+
+@pytest.mark.parametrize("n,nin,nout,ln,base", EMBEDDER_TC_SHAPES)
+def test_fastkan_tc_backward(cuda, monkeypatch, n, nin, nout, ln, base):
+    """The embedder's backward on the tensor cores (the grouped templates at
+    one group): every gradient within 1e-4 x max(1, max|g|) of the plain
+    version; dgamma, dbeta and the spline and base weights no further from
+    f64 than twice the plain f32 version; the training step's no-dx call
+    gives the all-gradients call's bits for each of them, and a second
+    backward repeats them; the tensor-core entry the one called."""
+    called = _recording(monkeypatch, ("kanvit_fastkan_qkv_tc_bwd", "kanvit_fastkan_bwd"))
+    rng = np.random.default_rng(75 + nin)
+    x = _fast_x(rng, (n, nin)).to(cuda)
+    params = [p.to(cuda) for p in _fast_params(rng, nout, nin)]
+    params[2], params[3] = params[2] / np.sqrt(8.0 * nin) * 10, params[3] / np.sqrt(nin) * 3
+    g = _param(rng, (n, nout), 1.0).to(cuda)
+    grid = RBF_GRID.to(cuda)
+    used = [True, ln, ln, True, base, base]
+
+    def through(fn):
+        def call(*a):
+            it = iter(a)
+            full = [next(it) if u else None for u in used]
+            return fn(full[0], full[1], full[2], grid.to(full[0].dtype), 4 / 7, *full[3:])
+        return call
+
+    inputs = [t for t, u in zip([x, *params], used) if u]
+    names = [nm for nm, u in zip(("x", "gamma", "beta", "sw", "bw", "bb"), used) if u]
+    _, got = _grads(through(FB.fastkan), inputs, g)
+    _, again = _grads(through(FB.fastkan), inputs, g)
+    _, no_dx = _grads(lambda *p: through(FB.fastkan)(x, *p), inputs[1:], g)
+    _, want = _grads(through(K.fastkan_forward), inputs, g)
+    _, exact = _grads(lambda *a: through(K.fastkan_forward)(*a).double(),
+                      [t.double() for t in inputs], g.double())
+    for name, a, b, c in zip(names, got, want, exact):
+        _close(a, b, 1e-4)
+        if name in ("gamma", "beta", "sw", "bw"):
+            _f64_gate(a, b, c)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    assert all(torch.equal(a, b) for a, b in zip(got[1:], no_dx))
+    assert called == ["kanvit_fastkan_qkv_tc_bwd"] * 3
+    assert FB.LAUNCHES["fastkan_bwd"] == 3
 
 
 # (n, heads, dh, out per head): the tensor-core backward at dh 32, 64 and 8,
@@ -1001,7 +1083,7 @@ def test_bspline_qkv_grouped_tc_forward_large_silu_inputs(cuda, n, h, dh):
     assert FB.LAUNCHES["bspline_qkv_grouped"] == 2
 
 
-@pytest.mark.parametrize("family", ["bspline", "rbf", "sine"])
+@pytest.mark.parametrize("family", ["bspline", "cheby", "rbf", "sine"])
 def test_grouped_tc_forward_refuses_a_short_scratch(cuda, monkeypatch, family):
     """The forward entries take the split W scratch's word count: sized for
     one step a stage fewer than the family's tile, the entry refuses it
@@ -1015,6 +1097,9 @@ def test_grouped_tc_forward_refuses_a_short_scratch(cuda, monkeypatch, family):
             x = _spline_x(rng, (50, h * dh)).to(cuda)
             FB.bspline_qkv_grouped(x, K.make_bspline_grid(dh, device=cuda),
                                    *_spline_params(rng, h, 3 * dh, dh, cuda))
+        elif family == "cheby":
+            x = _cheby_x(rng, (50, h * dh)).to(cuda)
+            FB.cheby_qkv_grouped(x, _param(rng, (h, dh, 3 * dh, 5), 0.1).to(cuda))
         elif family == "rbf":
             x = _fast_x(rng, (50, h * dh)).to(cuda)
             ga, be, sw, bw, bb = [p.to(cuda) for p in _fast_params(rng, dh, dh, (h,))]

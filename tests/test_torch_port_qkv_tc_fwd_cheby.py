@@ -78,8 +78,8 @@ def grouped_fwd(basis, w, passes="3xtf32"):
 
 def emu_tc_fwd(name, family, x2d, w, aux):
     """``_launch``: the grouped tensor-core forward a head at a time (its
-    shared grid or its own), every other route as ``test_torch_port_kernels.py``
-    emulates it."""
+    shared grid or its own; the Chebyshev degree), every other route as
+    ``test_torch_port_kernels.py`` emulates it."""
     if name not in FB.TC_GROUPED_FWD:
         return _emu_fwd(name, family, x2d, w, aux)
     FB._check(family, x2d, w, aux)
@@ -87,7 +87,8 @@ def emu_tc_fwd(name, family, x2d, w, aux):
     FB.LAUNCHES[name] += 1
     return torch.cat([
         grouped_fwd(_emu_basis(family, x2d[:, g * nin:(g + 1) * nin],
-                               aux[g] if aux.dim() == 3 else aux)[0], w[g])
+                               aux[g] if torch.is_tensor(aux) and aux.dim() == 3 else aux)[0],
+                    w[g])
         for g in range(groups)], 1)
 
 
