@@ -149,6 +149,7 @@ import json
 import re
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -284,7 +285,8 @@ def phase_build():
 # An entry is a kernel's name, or the parts its mangled name holds (the
 # Fourier and sine tensor-core kernels: the family, and Lb0 forward, Lb1 dW;
 # the grouped backward's: the family and its NJ; the forward's: the family
-# and its n8 tiles a warp).
+# and its n8 tiles a warp, B-spline's also its stages a level of the sum, 0
+# for the q/k/v's one running sum, 12 for the embedder's two levels).
 SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
                 "flash_dq_tcILi64", "flash_dkv_tcILi64", "ffn_fwd_tcILi3",
@@ -294,8 +296,11 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("kan_tc_dx_kernel", "3RbfE"), ("kan_tc_dw_grouped", "3RbfELi3E"),
                 ("kan_tc_dw_grouped", "4SineELi1E"),
                 ("kan_tc_dx_kernel", "4SineE"), ("kan_tc_dw_grouped", "5ChebyELi3E"),
-                ("kan_tc_dx_kernel", "5ChebyE"), ("kan_tc_fwd_grouped", "7BsplineELi24E"),
-                ("kan_tc_fwd_grouped", "7BsplineELi8E"), ("kan_tc_fwd_grouped", "3RbfELi8E"),
+                ("kan_tc_dx_kernel", "5ChebyE"),
+                ("kan_tc_fwd_grouped", "7BsplineELi24E", "Tf32x3ELi0E"),
+                ("kan_tc_fwd_grouped", "7BsplineELi8E", "Tf32x3ELi0E"),
+                ("kan_tc_fwd_grouped", "7BsplineELi24E", "Tf32x3ELi12E"),
+                ("kan_tc_fwd_grouped", "3RbfELi8E"),
                 ("kan_tc_fwd_grouped", "4SineELi8E"), ("kan_tc_fwd_grouped", "5ChebyELi8E"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
                 ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"))
@@ -383,14 +388,28 @@ def time_ms(torch, fn, iters=20, warmup=3) -> float:
 
 def kernel_times(events):
     """µs by kernel name of a profile's device-side events, without the GPU
-    copies of record_function ranges (they span kernels counted already)."""
+    copies of record_function ranges (they span kernels counted already)
+    and without spin kernels (``torch.cuda._sleep``'s: the fences and the
+    first kernel of a trace, ``first_kernel``)."""
     by_name = {}
     for e in events:
         if ("cuda" in str(getattr(e, "device_type", "")).lower()
-                and not getattr(e, "is_user_annotation", False)):
+                and not getattr(e, "is_user_annotation", False) and not is_spin(e)):
             by_name[e.name] = by_name.get(e.name, 0.0) + (e.time_range.end
                                                           - e.time_range.start)
     return by_name
+
+
+def is_spin(e):
+    return "spin_kernel" in e.name
+
+
+def first_kernel(torch):
+    """A 0.1 ms spin, waited for, as a trace's first kernel: a profile can
+    lose the first kernel it sees (PR 15's fast step lost its first
+    embedder forward; PERF.md), and ``kernel_times`` leaves spins out."""
+    torch.cuda._sleep(int(0.1 * spin_cycles_per_ms(torch)))
+    torch.cuda.synchronize()
 
 
 def kernel_ms(torch, fn, iters=20, warmup=3, label=None):
@@ -408,13 +427,14 @@ def kernel_ms(torch, fn, iters=20, warmup=3, label=None):
     for attempt in range(3):
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            first_kernel(torch)
             for _ in range(iters):
                 fn()
             torch.cuda.synchronize()
         got = kernel_times(prof.events())
         count = sum(1 for e in prof.events()
                     if "cuda" in str(getattr(e, "device_type", "")).lower()
-                    and not getattr(e, "is_user_annotation", False))
+                    and not getattr(e, "is_user_annotation", False) and not is_spin(e))
         if count > events:
             by_name, events = got, count
         if attempt >= 1 and by_name:
@@ -551,28 +571,71 @@ def sdpa_ms(torch, q, k, v, causal, mask, backward=None, iters=20, device=False)
     return timer(lambda: torch.autograd.grad(out, want, g, retain_graph=True))
 
 
-def check_bspline(torch, rng, n, nin, nout, label):
+def bspline_case(torch, rng, n, nin, nout):
+    """A KANLinear (n, nin) -> nout from the seed, its inputs (on and beyond
+    the knots), its parameters ``(grid, base, spline, scaler)`` and packed
+    weight ``(1, 9, nin, nout)``."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.layers import KANLinear
-    from kanvit_torch.ops import kan_bases as K
 
     layer = KANLinear(nin, nout, generator=torch.Generator().manual_seed(SEED)).cuda()
-    knots = layer.grid[0].cpu().numpy()
-    x = torch.from_numpy(spline_inputs(rng, (n, nin), knots)).cuda()
-    p = (layer.grid, layer.base_weight, layer.spline_weight, layer.spline_scaler)
+    x = torch.from_numpy(spline_inputs(rng, (n, nin), layer.grid[0].cpu().numpy())).cuda()
+    p = (layer.grid, *(t.detach() for t in (layer.base_weight, layer.spline_weight,
+                                           layer.spline_scaler)))
+    return x, p, FB.pack_weight(*p[1:]).unsqueeze(0).contiguous()
+
+
+def bspline_packed_plain(x, grid, w):
+    """The plain B-spline forward over the packed weight ``(1, 9, nin,
+    out)``: autograd through it gives the plain version's dW and dx."""
+    from kanvit_torch.ops import kan_bases as K
+
+    return K.bspline_kan_forward(x, grid.to(x.dtype), w[0, -1].T, w[0, :-1].permute(2, 1, 0),
+                                 None)
+
+
+def check_bspline(torch, rng, n, nin, nout, label):
+    """``bspline_kan``'s forward (3xTF32 on the tensor cores, its sum in two
+    levels) against the plain version, no further from f64 than twice the
+    plain f32 version, the bits of a second forward; CUDA-event and device
+    times beside the CUDA-core kernel it replaced (``cuda_core_route``) on
+    the same operands, whose distance from f64 is printed too, the plain
+    version, and the 3xTF32 and f32 bounds."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    x, p, w = bspline_case(torch, rng, n, nin, nout)
+    tag = f"bspline_kan {label} N={n} {nin}->{nout}"
+
+    def kernel():
+        return FB._launch("bspline_kan", "bspline", x, w, p[0])
+
     with torch.inference_mode():
         y = FB.bspline_kan(x, *p)
+        again = kernel()
         ref = K.bspline_kan_forward(x, *p)
+        exact = K.bspline_kan_forward(*(a.double() for a in (x, *p)))
         torch.cuda.synchronize()
-        err = compare(f"bspline_kan {label} N={n} {nin}->{nout}", y, ref, TOL_BSPLINE)
-        w = FB.pack_weight(*p[1:]).unsqueeze(0).contiguous()
-        ms = time_ms(torch, lambda: FB._launch("bspline_kan", "bspline", x, w,
-                                               layer.grid))
+        err = compare(tag, y, ref, TOL_BSPLINE)
+        check(torch.equal(y, again), f"{tag}: a second forward gave other bits")
+        f64 = f64_gate(tag, y, ref, exact)
+        scale = max(1.0, float(exact.abs().max()))
+        core_f64 = float((cuda_core_route(FB, kernel).double() - exact).abs().max()) / scale
+        ms = time_ms(torch, kernel)
+        dev_ms = kernel_ms(torch, kernel, 10, label=tag)
+        core_ms = cuda_core_route(FB, lambda: time_ms(torch, kernel))
+        core_dev_ms = cuda_core_route(FB, lambda: kernel_ms(torch, kernel, 10,
+                                                            label=f"{tag}, CUDA cores"))
         wrapper_ms = time_ms(torch, lambda: FB.bspline_kan(x, *p))
         plain_ms = time_ms(torch, lambda: K.bspline_kan_forward(x, *p))
-    print(f"[kernel] bspline_kan {label}: kernel {ms:.4f} ms  (with weight packing "
-          f"{wrapper_ms:.4f} ms)  plain {plain_ms:.4f} ms")
-    return err, ms, plain_ms, kan_bound(n, 1, 9, nin, nout)
+    bounds = kan_bound(n, 1, 9, nin, nout, tensor_cores=True)
+    print(f"[kernel] {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f}; the CUDA-core kernel "
+          f"{core_ms:.4f}, device {core_dev_ms:.4f}, {core_f64:.3e} from f64)  with weight "
+          f"packing {wrapper_ms:.4f} ms  plain {plain_ms:.4f} ms  bound 3xTF32 "
+          f"{bounds['bound_ms']:.4f}, f32 {bounds['f32_bound_ms']:.4f}  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "cuda_core_ms": core_ms,
+                               "cuda_core_device_ms": core_dev_ms,
+                               "cuda_core_f64_err": core_f64}, bounds
 
 
 def qkv_case(torch, rng, n, heads, dh, per_head):
@@ -761,6 +824,10 @@ def phase_kernels(torch):
                     [(False, mask), (True, mask), (True, None)])
     # the grouped q/k/v at nin 8 (the reference geometry), and with refit
     # grids a head at vit-s (one projection, as the refit-grid path runs it)
+    # one vit-s image: the embedder's forward runs its levels in blocks of
+    # their own
+    results["bspline_kan"] += ({"batch_1": sub_entry(check_bspline(
+        torch, rng, 196, 768, 384, "vit-s embedder, one image"))},)
     results["bspline_qkv_grouped"] += (
         {"at_dh_8_mnist": sub_entry(check_qkv(torch, rng, BATCH * 50, 8, 8,
                                               "dh-8 mnist q/k/v"))},
@@ -795,33 +862,72 @@ def compare_grads(label, names, got, want):
 
 
 def check_bspline_bwd(torch, rng, n, nin, nout, label):
+    """``bspline_kan``'s backward (dW and dx on the tensor cores, 3xTF32):
+    every gradient through the wrapper against autograd through the plain
+    version; the kernels' dW and dx no further from f64 than twice the
+    plain f32 version's (autograd over the packed weight); the training
+    step's call (no dx) with the all-gradients call's dW bits, a second
+    backward repeating them; CUDA-event and device times of both calls
+    beside the CUDA-core kernels' on the same operands (``cuda_core_route``)
+    and autograd's, and the 3xTF32 and f32 bounds of both (no dx: one
+    contraction, no dx written)."""
     from kanvit_torch.kernels import fused_basis as FB
-    from kanvit_torch.layers import KANLinear
     from kanvit_torch.ops import kan_bases as K
 
-    layer = KANLinear(nin, nout, generator=torch.Generator().manual_seed(SEED)).cuda()
-    grid = layer.grid
-    x = torch.from_numpy(spline_inputs(rng, (n, nin), grid[0].cpu().numpy())).cuda()
+    x, (grid, *params), w = bspline_case(torch, rng, n, nin, nout)
     g = torch.from_numpy(rng.standard_normal((n, nout)).astype(np.float32)).cuda()
-    inputs = [x, layer.base_weight, layer.spline_weight, layer.spline_scaler]
-    _, _, got = grads_of(torch, lambda *a: FB.bspline_kan(a[0], grid, *a[1:]),
-                         inputs, g)
+    tag = f"bspline_kan_bwd {label} N={n} {nin}->{nout}"
+    inputs = [x, *params]
+    _, _, got = grads_of(torch, lambda *a: FB.bspline_kan(a[0], grid, *a[1:]), inputs, g)
     leaves, out, want = grads_of(
         torch, lambda *a: K.bspline_kan_forward(a[0], grid, *a[1:]), inputs, g)
     torch.cuda.synchronize()
-    err = compare_grads(f"bspline_kan_bwd {label} N={n} {nin}->{nout}",
-                        ("x", "base_weight", "spline_weight", "spline_scaler"),
-                        got, want)
-    w = FB.pack_weight(*inputs[1:]).unsqueeze(0).contiguous().detach()
-    ms = time_ms(torch, lambda: FB._launch_bwd("bspline_kan_bwd", "bspline", x, w,
-                                               grid, g, True, True))
-    dw_ms = time_ms(torch, lambda: FB._launch_bwd("bspline_kan_bwd", "bspline", x, w,
-                                                  grid, g, False, True))
-    plain_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g,
-                                                          retain_graph=True))
-    print(f"[kernel] bspline_kan_bwd {label}: kernel dx+dW {ms:.4f} ms (dW alone, "
-          f"as on the training path, {dw_ms:.4f} ms)  plain autograd {plain_ms:.4f} ms")
-    return err, ms, plain_ms, {"no_dx_ms": dw_ms}, kan_bound(n, 1, 9, nin, nout, True)
+    err = compare_grads(tag, ("x", "base_weight", "spline_weight", "spline_scaler"), got, want)
+
+    def bwd(with_dx=False):
+        return FB._launch_bwd("bspline_kan_bwd", "bspline", x, w, grid, g, with_dx, True)
+
+    with torch.inference_mode():
+        dx, dw = bwd(True)
+        no_dx = bwd()[1]
+        dx2, dw2 = bwd(True)
+    same = torch.equal(no_dx, dw)
+    print(f"[kernel] {tag}: the training path's backward (no dx) gives the all-gradients "
+          f"route's dW bits: {same}")
+    check(same, f"{tag}: the no-dx dW differs from the all-gradients dW")
+    check(torch.equal(dx, dx2) and torch.equal(dw, dw2),
+          f"{tag}: a second backward gave other bits")
+    plain = grads_of(torch, lambda *a: bspline_packed_plain(a[0], grid, a[1]), [x, w], g)[2]
+    exact = grads_of(torch, lambda *a: bspline_packed_plain(a[0], grid, a[1]),
+                     [x.double(), w.double()], g.double())[2]
+    extra = {f"f64_err_{nm}": f64_gate(f"{tag} {nm}", a, b, c)
+             for nm, a, b, c in zip(("dx", "dW"), (dx, dw), plain, exact)}
+    with torch.inference_mode():
+        ms = time_ms(torch, lambda: bwd(True))
+        dw_ms = time_ms(torch, bwd)
+        extra.update({
+            "no_dx_ms": dw_ms,
+            "device_ms": kernel_ms(torch, lambda: bwd(True), 10, label=f"{tag}, all gradients"),
+            "no_dx_device_ms": kernel_ms(torch, bwd, 10, label=f"{tag}, no dx"),
+            "cuda_core_ms": cuda_core_route(FB, lambda: time_ms(torch, lambda: bwd(True))),
+            "cuda_core_no_dx_ms": cuda_core_route(FB, lambda: time_ms(torch, bwd)),
+            "cuda_core_no_dx_device_ms": cuda_core_route(FB, lambda: kernel_ms(
+                torch, bwd, 10, label=f"{tag}, no dx, CUDA cores"))})
+    plain_ms = time_ms(torch, lambda: torch.autograd.grad(out, leaves, g, retain_graph=True))
+    bounds = kan_bound(n, 1, 9, nin, nout, True, tensor_cores=True)
+    no_dx_bounds = kan_bound(n, 1, 9, nin, nout, backward=True, contractions=1, dx=False,
+                             tensor_cores=True)
+    extra.update({"no_dx_bound_ms": no_dx_bounds["bound_ms"],
+                  "no_dx_f32_bound_ms": no_dx_bounds["f32_bound_ms"]})
+    print(f"[kernel] bspline_kan_bwd {label}: kernels dx+dW {ms:.4f} ms (device "
+          f"{extra['device_ms']:.4f}; CUDA cores {extra['cuda_core_ms']:.4f}); dW alone, as "
+          f"on the training path, {dw_ms:.4f} ms (device {extra['no_dx_device_ms']:.4f}; "
+          f"CUDA cores {extra['cuda_core_no_dx_ms']:.4f}, device "
+          f"{extra['cuda_core_no_dx_device_ms']:.4f})  plain autograd {plain_ms:.4f} ms  "
+          f"bounds 3xTF32 {bounds['bound_ms']:.4f} (no dx {no_dx_bounds['bound_ms']:.4f}), "
+          f"f32 {bounds['f32_bound_ms']:.4f} (no dx {no_dx_bounds['f32_bound_ms']:.4f})  "
+          f"(bits repeated)")
+    return err, ms, plain_ms, extra, bounds
 
 
 def check_qkv_bwd(torch, rng, n, heads, dh, label, per_head=False):
@@ -2338,10 +2444,10 @@ def phase_train(torch, smi, model_cpu, tag, per_step_fwd, embedder):
 KAN_FAMILIES = ("Bspline", "Cheby", "Fourier", "Rbf", "Sine")
 KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
-    ("KAN q/k/v and FastKAN embedder bwd on the tensor cores (B-spline, Chebyshev, RBF, "
+    ("KAN q/k/v and embedder bwd on the tensor cores (B-spline, Chebyshev, RBF, "
      "sine: dW, dx)", ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
-    ("KAN q/k/v fwd on the tensor cores (B-spline, Chebyshev, RBF, sine)",
-     ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
+    ("KAN q/k/v and B-spline embedder fwd on the tensor cores (B-spline, Chebyshev, RBF, "
+     "sine)", ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
      ("kan_tc_kernel", "kan_tc_split")),
     ("KAN basis bwd", ("kan_dx_kernel", "kan_dw_kernel", "sum_splits_kernel",
@@ -2366,25 +2472,223 @@ KERNEL_GROUPS = (
 )
 
 
-def phase_profile(torch, step, state, x, y, label, steps=2, what="training steps"):
-    """Device time of ``steps`` training steps (or other calls, ``what``) by
-    kernel, from ``torch.profiler``; the idle share is of the window from
-    the first kernel's start to the last kernel's end."""
+PROFILE_TOL = 0.05  # a profile's busy time against CUDA events over the same steps
+SPIN_OPS = 128      # operations a segment of a fenced run
+_SPIN = {}
+
+
+def spin_cycles_per_ms(torch):
+    """torch.cuda._sleep's cycles a millisecond on this card (CUDA events
+    around one 20-million-cycle spin), measured once a process."""
+    if "per_ms" not in _SPIN:
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(1_000_000)
+        start.record()
+        torch.cuda._sleep(20_000_000)
+        end.record()
+        end.synchronize()
+        _SPIN["per_ms"] = 20_000_000 / start.elapsed_time(end)
+    return _SPIN["per_ms"]
+
+
+def device_kernels(prof):
+    return [e for e in prof.events()
+            if "cuda" in str(getattr(e, "device_type", "")).lower()
+            and not getattr(e, "is_user_annotation", False)]
+
+
+def spin_fence(torch, ops, spin_ms):
+    """A dispatch mode (the backward's operations too) that queues a spin
+    kernel of ``spin_ms`` before every ``ops``-th operation and after each
+    place where the host waits for the card to drain (a copy between host
+    and card, a value read back): the host enqueues the next operations'
+    kernels while the card spins, so the card runs them back to back, and
+    fewer than the launch queue holds wait at a time. CUDA events mark each
+    stretch the card runs back to back, from a spin's end to the next spin
+    or wait (``stretches``; ``cut`` closes the last one). Its ``fresh``, a
+    function mode, does the same around a tensor made on the card from host
+    data, whose copy the dispatch mode does not see; enter both."""
+    from torch.overrides import TorchFunctionMode
+    from torch.utils._pytree import tree_flatten
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+    cycles = int(spin_ms * spin_cycles_per_ms(torch))
+    copies = (aten._to_copy.default, aten.copy_.default)
+    makers = (torch.tensor, torch.as_tensor, torch.scalar_tensor, torch.Tensor.new_tensor)
+
+    def event():
+        e = torch.cuda.Event(enable_timing=True)
+        e.record()
+        return e
+
+    def waits(func, args, kwargs):
+        tensors = [t for t in tree_flatten((args, kwargs))[0] if isinstance(t, torch.Tensor)]
+        if func is aten._local_scalar_dense.default:
+            return tensors[0].is_cuda
+        kinds = {t.device.type for t in tensors if t.dim() or func in copies}
+        if func in copies and kwargs.get("device") is not None:
+            kinds.add(torch.device(kwargs["device"]).type)
+        return {"cpu", "cuda"} <= kinds
+
+    class SpinFence(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.count, self.waits, self.threads = 0, 0, set()
+            self.stretches, self.start = [], None
+            self.fresh = Fresh(self)
+
+        def spin(self):
+            torch.cuda._sleep(cycles)
+            self.start = event()
+
+        def cut(self):
+            if self.start is not None:
+                self.stretches.append((self.start, event()))
+                self.start = None
+
+        def waited(self, call):
+            self.waits += 1
+            self.cut()
+            out = call()
+            self.spin()
+            return out
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            self.threads.add(threading.get_ident())
+            if self.count % ops == 0 or self.start is None:
+                self.cut()
+                self.spin()
+            self.count += 1
+            if waits(func, args, kwargs):
+                return self.waited(lambda: func(*args, **kwargs))
+            return func(*args, **kwargs)
+
+    class Fresh(TorchFunctionMode):
+        def __init__(self, fence):
+            super().__init__()
+            self.fence = fence
+
+        def __torch_function__(self, func, types, args=(), kwargs=None):
+            kwargs = kwargs or {}
+            if func in makers:
+                dev = kwargs.get("device", args[0].device if func is makers[-1] else None)
+                if dev is not None and torch.device(dev).type == "cuda":
+                    return self.fence.waited(lambda: func(*args, **kwargs))
+            return func(*args, **kwargs)
+
+    return SpinFence()
+
+
+def host_ms_per_op(torch, step, state, x, y):
+    """The host's ms an operation of one call of ``step`` (a fence that
+    spins for no time counts them), and the operations a call."""
+    fence = spin_fence(torch, 1 << 40, 0.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with fence.fresh, fence:
+        step(state, x, y)
+    ms = (time.perf_counter() - t0) * 1e3
+    torch.cuda.synchronize()
+    return ms / max(1, fence.count), fence.count
+
+
+def fenced_run(torch, step, state, x, y, steps, spin_ms, calibration=200):
+    """``steps`` calls of ``step`` under ``torch.profiler`` and a spin fence
+    (``spin_fence``): returns the profile's kernels without the spins, the
+    card's time of the calls back to back (the sum of the fence's stretches
+    by CUDA events) in ms, and the card's launch gap in µs, measured first in
+    the same profile: ``calibration`` empty spins queued back to back, by
+    CUDA events less their own durations."""
     from torch.profiler import ProfilerActivity, profile
 
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(2)]
+    fence = spin_fence(torch, SPIN_OPS, spin_ms)
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        for _ in range(steps):
-            step(state, x, y)
+        torch.cuda._sleep(int(5 * spin_cycles_per_ms(torch)))
+        ev[0].record()
+        for _ in range(calibration):
+            torch.cuda._sleep(0)
+        ev[1].record()
         torch.cuda.synchronize()
-    kernels = [e for e in prof.events()
-               if "cuda" in str(getattr(e, "device_type", "")).lower()
-               and not getattr(e, "is_user_annotation", False)]
-    check(bool(kernels), "the profiler recorded no device time")
+        with fence.fresh, fence:
+            for _ in range(steps):
+                step(state, x, y)
+        fence.cut()
+        torch.cuda.synchronize()
+    kernels = device_kernels(prof)
+    empty = [e.time_range.end - e.time_range.start for e in kernels
+             if is_spin(e) and e.time_range.end - e.time_range.start < 50]
+    gap = (ev[0].elapsed_time(ev[1]) * 1e3 - sum(empty)) / calibration
+    window = sum(a.elapsed_time(b) for a, b in fence.stretches)
+    print(f"[profile]   fence: {fence.count} operations on {len(fence.threads)} threads, "
+          f"{fence.waits} host waits, {len(fence.stretches)} stretches behind spins of "
+          f"{spin_ms:.2f} ms; launch gap {gap:.3f} us ({len(empty)} of {calibration} empty "
+          f"spins in the profile)")
+    return [e for e in kernels if not is_spin(e)], window, gap
+
+
+def phase_profile(torch, step, state, x, y, label, steps=2, what="training steps"):
+    """Device time of ``steps`` training steps (or other calls, ``what``) by
+    kernel, from ``torch.profiler``, held against CUDA events over the same
+    steps. First the steps as the host feeds them (the idle share: of the
+    window from the first kernel's start to the last kernel's end); then
+    again behind a spin fence (``fenced_run``), so that CUDA events time
+    their kernels back to back: that time, less the card's launch gap a
+    kernel, is the device time, and each profile keeps every event when its
+    busy time lies within PROFILE_TOL of it. A profile that does not is
+    taken again, up to twice, and the phase fails if none does (a profile
+    drops kernels now and then: PERF.md, PR 15's fast step)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    def busy_of(kernels):
+        return sum(kernel_times(kernels).values()) / steps / 1e3
+
+    def fed_run():
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            first_kernel(torch)
+            for _ in range(steps):
+                step(state, x, y)
+            torch.cuda.synchronize()
+        return [e for e in device_kernels(prof) if not is_spin(e)]
+
+    fed = fed_run()
+    check(bool(fed), "the profiler recorded no device time")
+    per_op, ops = host_ms_per_op(torch, step, state, x, y)
+    spin_ms = max(1.0, 4 * SPIN_OPS * per_op)
+    print(f"[profile] {label}: {ops} operations a call, {per_op * 1e3:.1f} us of host a "
+          f"operation")
+    for _ in range(3):
+        kernels, window, gap = fenced_run(torch, step, state, x, y, steps, spin_ms)
+        busy = busy_of(kernels)
+        dev_ms = (window - len(kernels) * gap / 1e3) / steps
+        ok = abs(busy - dev_ms) <= PROFILE_TOL * dev_ms
+        print(f"[profile] {steps} {label} {what}, fenced: busy {busy:.3f} ms per step, CUDA "
+              f"events {window / steps:.3f}, less {len(kernels) / steps:.0f} kernels' launch "
+              f"gaps {dev_ms:.3f} ({busy / dev_ms - 1:+.2%})")
+        if ok:
+            break
+        spin_ms *= 2
+    check(ok, f"{label}: the profile's busy time {busy:.3f} ms a step is not within "
+              f"{PROFILE_TOL:.0%} of CUDA events' {dev_ms:.3f}")
+    fed_busy = busy_of(fed)
+    for _ in range(2):
+        if abs(fed_busy - dev_ms) <= PROFILE_TOL * dev_ms:
+            break
+        print(f"[profile] {label}: the fed profile's busy time {fed_busy:.3f} ms a step "
+              f"is not within {PROFILE_TOL:.0%} of {dev_ms:.3f}; profiling again")
+        fed = fed_run()
+        fed_busy = busy_of(fed)
+    check(abs(fed_busy - dev_ms) <= PROFILE_TOL * dev_ms,
+          f"{label}: the fed profile's busy time {fed_busy:.3f} ms a step is not within "
+          f"{PROFILE_TOL:.0%} of {dev_ms:.3f}")
     by_name = kernel_times(kernels)
-    busy = sum(by_name.values())
-    window = (max(e.time_range.end for e in kernels)
-              - min(e.time_range.start for e in kernels))
+    window_fed = max(e.time_range.end for e in fed) - min(e.time_range.start for e in fed)
+    idle = 1 - fed_busy * steps * 1e3 / window_fed
     groups = {}
     for name, us in by_name.items():
         group = next((g for g, keys in KERNEL_GROUPS
@@ -2393,14 +2697,16 @@ def phase_profile(torch, step, state, x, y, label, steps=2, what="training steps
         if group.startswith("KAN") and family:
             group = f"{group} ({family})"
         groups[group] = groups.get(group, 0.0) + us
-    print(f"[profile] {steps} {label} {what}: device busy "
-          f"{busy / steps / 1e3:.3f} ms per step, idle share "
-          f"{1 - busy / window:.4f} of the device window")
+    total = busy * steps * 1e3
+    print(f"[profile] {steps} {label} {what}: device busy {busy:.3f} ms per step (CUDA "
+          f"events, the same steps back to back: {dev_ms:.3f}); as the host feeds them busy "
+          f"{fed_busy:.3f}, idle share {idle:.4f} of the device window")
     for group, us in sorted(groups.items(), key=lambda kv: -kv[1]):
-        print(f"[profile]   {us / busy:6.1%}  {us / steps / 1e3:8.3f} ms/step  {group}")
+        print(f"[profile]   {us / total:6.1%}  {us / steps / 1e3:8.3f} ms/step  {group}")
     for name, us in sorted(by_name.items(), key=lambda kv: -kv[1])[:12]:
         print(f"[profile]     {us / steps / 1e3:8.3f} ms/step  {name[:110]}")
-    return {"busy_ms_per_step": busy / steps / 1e3, "idle_share": 1 - busy / window,
+    return {"busy_ms_per_step": busy, "events_ms_per_step": dev_ms,
+            "fed_busy_ms_per_step": fed_busy, "idle_share": idle, "launch_gap_us": gap,
             "groups_ms_per_step": {k: v / steps / 1e3 for k, v in groups.items()}}
 
 
@@ -2769,11 +3075,11 @@ RBF_SINE_SRC = "kanvit_torch/kernels/csrc/kan_rbf_sine.cu"
 KAN_TC_SRC = "kanvit_torch/kernels/csrc/kan_basis_tc.cuh"
 FB_PY = "kanvit/kernels/fused_basis.py"
 SOURCES = {
-    "bspline_kan": (KAN_SRC, f"{FB_PY}:1067"),
+    "bspline_kan": (KAN_TC_SRC, f"{FB_PY}:1067"),
     "bspline_qkv_grouped": (KAN_TC_SRC, f"{FB_PY}:1240"),
     "flash_attention_lanes": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
                               "kanvit/kernels/flash_attention.py:571"),
-    "bspline_kan_bwd": (KAN_SRC, f"{FB_PY}:1159"),
+    "bspline_kan_bwd": (KAN_TC_SRC, f"{FB_PY}:1159"),
     "bspline_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:1278"),
     "flash_attention_lanes_bwd": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
                                   "kanvit/kernels/flash_attention.py:604"),
@@ -2830,6 +3136,19 @@ TC_FWD = "3xTF32 mma.sync.m16n8k8 over a basis generated on chip (kan_tc_kernel<
 TC_BWD = ("dW{} on 3xTF32 mma.sync.m16n8k8 (kan_tc_kernel<{}, true>); dx, where "
           "asked, on the CUDA-core kan_dx_kernel")
 ROUTES = {
+    "bspline_kan": {
+        "kernel": "the grouped q/k/v forward's template at one group: 3xTF32 "
+                  "mma.sync.m16n8k8, kan_tc_fwd_grouped<Bspline, NT, 12, 1, Tf32x3, 12>, "
+                  "each lane's A fragments the basis of its own x values made in registers, "
+                  "W split once a call by kan_tc_fwd_split, the 768-deep sum in two levels "
+                  "(the running sum of every 12 stages added into y)",
+        "instantiated_in": KAN_SRC},
+    "bspline_kan_bwd": {
+        "kernel": "the grouped q/k/v backward's templates at one group: dW on 3xTF32 "
+                  "mma.sync.m16n8k8, kan_tc_dw_grouped<Bspline, NJ> over a basis generated "
+                  "on chip, in row splits filling whole waves, summed in a fixed order; dx, "
+                  "where asked, from kan_tc_dx_kernel<Bspline> with B' in its epilogue",
+        "instantiated_in": KAN_SRC},
     "bspline_qkv_grouped": {
         "kernel": "3xTF32 mma.sync.m16n8k8: kan_tc_fwd_grouped<Bspline, NT>, each lane's A "
                   "fragments the basis of its own x values made in registers, W split "

@@ -40,6 +40,8 @@ SIGNATURES = {
         [_p, _i64, _p, _i64, *[_p] * 6, *[_i32] * 5, _p], _i32),
     "kanvit_bspline_qkv_tc_fwd": (
         [_p, _i64, _p, _i64, _p, _p, _p, _i64, *[_i32] * 4, _p], _i32),
+    "kanvit_bspline_kan_tc_fwd": (
+        [_p, _i64, _p, _i64, _p, _p, _p, _i64, _p, *[_i32] * 5, _p], _i32),
     "kanvit_chebykan_fwd": ([_p, _i64, _p, _p, *[_i32] * 4, _p], _i32),
     "kanvit_chebykan_bwd": (
         [_p, _i64, *[_p] * 5, *[_i32] * 5, _p], _i32),

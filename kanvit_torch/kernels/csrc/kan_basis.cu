@@ -23,8 +23,10 @@
 //             (kan_basis_tc.cuh, part 2, instantiated here for Bspline and
 //             Cheby). bspline_qkv_grouped's and cheby_qkv_grouped's
 //             forwards (_fused_fwd_sg) run on the tensor cores too
-//             (kan_basis_tc.cuh, part 3, for Bspline and Cheby); the
-//             embedders' forwards on the CUDA cores (kan_basis.cuh).
+//             (kan_basis_tc.cuh, part 3, for Bspline and Cheby), and so do
+//             bspline_kan's forward and backward (_fused_fwd, _fused_bwd)
+//             as their one-group case; chebykan's forward and backward on
+//             the CUDA cores (kan_basis.cuh).
 //   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
 //   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
 //   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on
@@ -62,6 +64,12 @@ namespace {
 // kan_tc_fwd_grouped's shape for Chebyshev: 64 outputs a block at every
 // width, 8 warps, three blocks an SM (why: kan_basis_tc.cuh part 3).
 constexpr int CHEBY_FWD_WARPS = 8, CHEBY_FWD_MINB = 3;
+// The B-spline embedder's forward sums its 768 features (96 stages at
+// vit-s) in two levels, the running sum of every 12 stages (864 entries)
+// added into y: one running sum lands past twice the plain f32 version's
+// distance from f64 in the CPU emulation (1.6-2.4x), and at 0.86x on the
+// card, where two levels sit at 0.21x (kan_basis_tc.cuh part 3).
+constexpr int BSPLINE_EMB_FLUSH = 12;
 
 // B-spline: 12 knots a feature (grid 5, order 3), 8 spline bases + silu.
 struct Bspline : FamilyDefaults {
@@ -314,6 +322,20 @@ extern "C" int kanvit_bspline_qkv_tc_fwd(const float* x, long long ldx,
                                          int nout, void* stream) {
   return launch_tc_grouped_fwd<Bspline>(x, ldx, {gridt, gstride}, w, y, wsplit, wwords, n,
                                         groups, nin, nout, (cudaStream_t)stream);
+}
+
+// The B-spline patch embedder's forward (bspline_kan's) on the tensor cores:
+// kanvit_bspline_qkv_tc_fwd's template at one group, its sum in two levels;
+// splits 1, or one a level with part scratch of splits n groups nout floats
+// (launch_tc_grouped_fwd).
+extern "C" int kanvit_bspline_kan_tc_fwd(const float* x, long long ldx, const float* gridt,
+                                         long long gstride, const float* w, float* y,
+                                         unsigned int* wsplit, long long wwords, float* part,
+                                         int splits, int n, int groups, int nin, int nout,
+                                         void* stream) {
+  return launch_tc_grouped_fwd<Bspline, tcf::WARPS, 1, false, BSPLINE_EMB_FLUSH>(
+      x, ldx, {gridt, gstride}, w, y, wsplit, wwords, n, groups, nin, nout,
+      (cudaStream_t)stream, part, splits);
 }
 
 // Chebyshev, degree 4: S = 5.

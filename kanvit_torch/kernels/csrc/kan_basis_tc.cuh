@@ -8,13 +8,15 @@
 // Part 2 (below, "The grouped q/k/v backward"): dW and dx of a grouped KAN
 // projection, one group a head, templated over kan_basis.cuh's basis
 // families (kan_tc_dw_grouped, kan_tc_dx_kernel); instantiated for B-spline
-// and Chebyshev in kan_basis.cu and for RBF and sine in kan_rbf_sine.cu.
+// and Chebyshev in kan_basis.cu and for RBF and sine in kan_rbf_sine.cu;
+// the B-spline and FastKAN embedders' backward is its one-group case.
 //
 // Part 3 (below, "The grouped q/k/v forward"): y of a grouped KAN projection
 // (kan_tc_fwd_grouped), templated over the same families; instantiated for
-// B-spline in kan_basis.cu and for RBF and sine (up to 4 slices) in
-// kan_rbf_sine.cu. The Chebyshev grouped forward, the sine one past 4
-// slices and the B-spline, Chebyshev and RBF embedders stay on
+// B-spline and Chebyshev in kan_basis.cu and for RBF and sine (up to 4
+// slices) in kan_rbf_sine.cu; the B-spline embedder's forward is its
+// one-group case, its 768-deep sum in two levels. The sine grouped forward
+// past 4 slices and the Chebyshev and RBF embedders' forwards stay on
 // kan_basis.cuh's CUDA-core kan_fwd_kernel.
 //
 // Part 1:
@@ -625,7 +627,10 @@ int launch_tc_dw(const float* x, long long ldx, typename F::Params p, const floa
 // 768 -> 384) dW takes 48 feature tiles x 2 tiles of 192 outputs (NJ 3),
 // its rows in 11 splits, 1,056 blocks, 8 waves of one block an SM
 // (tc_grouped_dw_splits rounds the splits up to whole waves), and the dx
-// kernel writes dln, 4,704 blocks, 384 outputs deep in one running sum.
+// kernel writes dln, 4,704 blocks, 384 outputs deep in one running sum. So
+// is the B-spline patch embedder's (_fused_bwd, :1159, from bspline_kan's
+// VJP), the same shape with B' in the dx kernel's epilogue; the training
+// step asks it for dW alone.
 //
 // What bounds it on the H100: the products. At the vit-s q/k/v (n 12,608,
 // 6 heads of nin 64, nout 192) dW and dx are 16.73 GFLOP each: 0.4995 ms in
@@ -1168,7 +1173,9 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // Replaces the CUDA-core kan_fwd_kernel for the grouped q/k/v projection's
 // forward (kanvit/kernels/fused_basis.py::_fused_fwd_sg, pallas_call at
 // :1240, reached from bspline_qkv_grouped :1361; _rbf_ln_sg_op, :3191, from
-// fastkan_qkv_grouped; _sine_op_sg, :1518, from sinekan_qkv_grouped). For
+// fastkan_qkv_grouped; _sine_op_sg, :1518, from sinekan_qkv_grouped), and
+// for the B-spline patch embedder's (_fused_fwd, :1067, from bspline_kan
+// :3556) as its one-group case. For
 // every group (head) g, x_g (n, nin) the columns of x that belong to it and
 // W_g (S, nin, nout) packed:
 //   y[n, g nout + o] = sum_(s,f) B_s(x_g[n, f]) W_g[s, f, o]
@@ -1245,7 +1252,21 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // distance from f64 (tests/test_torch_port_qkv_tc_fwd_cheby.py,
 // tests/test_torch_port_qkv_tc_fwd_rbf_sine.py, and on the card
 // chip_smoke.py). A family may keep a slice of large values apart
-// (TcFwdRow's SPLIT and EXACT: Rbf's silu slice).
+// (TcFwdRow's SPLIT and EXACT: Rbf's silu slice). A launch may sum in two
+// levels (FLUSH stages a level, the running sum added into y; the loads of
+// 8 n8 tiles' y issued together): the B-spline embedder, 96 stages of 9
+// steps at vit-s, 6,912 entries deep, whose one running sum lands past
+// twice the plain f32 version's distance from f64 on the CPU
+// (tests/test_torch_port_tc_embedder_bspline.py), flushes every 12 stages
+// (864 entries, part 1's 896). At vit-s (12,544 rows, 768 -> 384, 66.6
+// GFLOP: 0.4036 ms in 3xTF32, 0.9939 in f32) it takes 192-output blocks of
+// 12 warps, 66 x 2 = 132 blocks, one wave (kanvit_torch/probe_embedder_rbf.py
+// --bspline timed 128- and 64-output blocks, 8 and 12 warps, one to three
+// blocks an SM: PERF.md). Below one wave (one vit-s image: 4 blocks of 96
+// stages, 1.70 ms against the CUDA-core kernel's 0.75 on the H100 80GB HBM3
+// at 700 W) each level runs in blocks of its own into a partial, and
+// sum_splits adds them in level order: the same sum, so a row's bits do
+// not depend on the batch (the wrapper's tc_fwd_splits).
 //
 // Edge semantics as kan_fwd_kernel's: the family's values (B-spline: x on a
 // knot starts the next interval, x outside every span has zero spline
@@ -1337,13 +1358,20 @@ kan_tc_fwd_split(const float* __restrict__ w, uint32_t* __restrict__ out, int sl
 }
 
 // y of one group's 16 WARPS rows x 8 NT outputs: grid (row tiles, groups,
-// output tiles); wsplit from kan_tc_fwd_split, nk = ceil(nin / 8) stages.
-// MINB blocks an SM bound the registers.
-template <class F, int NT, int WARPS = tcf::WARPS, int MINB = 1, class Op = Tf32x3>
+// output tiles x splits); wsplit from kan_tc_fwd_split, nk = ceil(nin / 8)
+// stages. MINB blocks an SM bound the registers. FLUSH > 0: the sum in two
+// levels, the running sum of every FLUSH stages added into y (stored the
+// first time) and restarted; 0: one running sum, y stored once. With
+// splits > 1 (FLUSH > 0 only) block z / output tiles runs that one level
+// and stores it into its slab of part, which sum_splits adds into y in
+// level order: the same sum, so the same bits.
+template <class F, int NT, int WARPS = tcf::WARPS, int MINB = 1, class Op = Tf32x3,
+          int FLUSH = 0>
 __global__ void __launch_bounds__(32 * WARPS, MINB)
 kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Params p,
-                   const uint32_t* __restrict__ wsplit, float* __restrict__ y, int n,
-                   int groups, int nin, int nout, int nk) {
+                   const uint32_t* __restrict__ wsplit, float* __restrict__ y,
+                   float* __restrict__ part, int splits, int n, int groups, int nin, int nout,
+                   int nk) {
   using R = TcFwdRow<F>;
   constexpr int SC = F::SC, BN = 8 * NT, FS = tcf::FS, THREADS = 32 * WARPS;
   constexpr int SPLIT = R::SPLIT, EXACT = R::EXACT, SUMS = SPLIT < SC ? 2 : 1;
@@ -1353,9 +1381,12 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
   uint32_t* wbuf = reinterpret_cast<uint32_t*>(sm);
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t = lane & 3;
-  const int grp = blockIdx.y, o0 = blockIdx.z * BN;
+  const bool split = FLUSH > 0 && splits > 1;
+  const int otiles = gridDim.z / splits, ot = blockIdx.z % otiles, sp = blockIdx.z / otiles;
+  const int grp = blockIdx.y, o0 = ot * BN;
+  const int kt0 = split ? sp * FLUSH : 0, kt1 = split ? min(nk, kt0 + FLUSH) : nk;
   const long long r0 = ((long long)blockIdx.x * WARPS + warp) * 16;  // the warp's rows
-  const uint32_t* wg = wsplit + ((long long)grp * gridDim.z + blockIdx.z) * nk * STAGE;
+  const uint32_t* wg = wsplit + ((long long)grp * otiles + ot) * nk * STAGE;
   const float* xg = x + (long long)grp * nin;
 
   // stage kt's split W into buffer kt & 1, by cp.async
@@ -1407,17 +1438,53 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
     for (int j = 0; j < NT; ++j)
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[a][j][e] = 0.f;
+  const long long ldy = (long long)groups * nout;
+  float* yg = (split ? part + (long long)sp * n * ldy : y) + (long long)grp * nout;
+  // The running sums (the second added into the first) into y, stored or
+  // added to y's value (the loads of CH n8 tiles' values issued together);
+  // then restarted.
+  auto flush = [&](bool first) {
+    if (SUMS == 2)
+#pragma unroll
+      for (int j = 0; j < NT; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[0][j][e] += acc[SUMS - 1][j][e];
+    constexpr int CH = NT % 8 == 0 ? 8 : NT;
+#pragma unroll
+    for (int j0 = 0; j0 < NT; j0 += CH) {
+      float old[CH][4];
+#pragma unroll
+      for (int j = 0; j < CH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const long long row = row_of(e >> 1);
+          const int col = o0 + 8 * (j0 + j) + 2 * t + (e & 1);
+          old[j][e] = !first && row < n && col < nout ? yg[row * ldy + col] : 0.f;
+        }
+#pragma unroll
+      for (int j = 0; j < CH; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const long long row = row_of(e >> 1);
+          const int col = o0 + 8 * (j0 + j) + 2 * t + (e & 1);
+          if (row < n && col < nout)
+            yg[row * ldy + col] = first ? acc[0][j0 + j][e] : old[j][e] + acc[0][j0 + j][e];
+#pragma unroll
+          for (int a = 0; a < SUMS; ++a) acc[a][j0 + j][e] = 0.f;
+        }
+    }
+  };
 
-  load_w(0);
-  load_x(0);
-  for (int kt = 0; kt < nk; ++kt) {
+  load_w(kt0);
+  load_x(kt0);
+  for (int kt = kt0; kt < kt1; ++kt) {
     cp_async_wait<0>();
     __syncthreads();  // stage kt's W landed; every warp is past stage kt - 1
     F::template stage<FS>(p, nin, FS * kt, grp, st);
-    if (kt + 1 < nk) load_w(kt + 1);
+    if (kt + 1 < kt1) load_w(kt + 1);
     float v[4][SC];
     make(kt, v);
-    if (kt + 1 < nk) load_x(kt + 1);
+    if (kt + 1 < kt1) load_x(kt + 1);
     const uint32_t* ws = wbuf + (kt & 1) * STAGE + 4 * (4 * g8 + t);
 #pragma unroll
     for (int s = 0; s < SC; ++s) {
@@ -1438,36 +1505,27 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
         }
       }
     }
-  }
-  if (SUMS == 2)
-#pragma unroll
-    for (int j = 0; j < NT; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[0][j][e] += acc[SUMS - 1][j][e];
-
-  const long long ldy = (long long)groups * nout;
-  float* yg = y + (long long)grp * nout;
-#pragma unroll
-  for (int j = 0; j < NT; ++j)
-#pragma unroll
-    for (int e = 0; e < 4; ++e) {
-      const long long row = row_of(e >> 1);
-      const int col = o0 + 8 * j + 2 * t + (e & 1);
-      if (row < n && col < nout) yg[row * ldy + col] = acc[0][j][e];
+    if constexpr (FLUSH > 0) {
+      if ((kt + 1) % FLUSH == 0 && kt + 1 < kt1) flush(kt + 1 == FLUSH);
     }
+  }
+  flush(FLUSH == 0 || kt1 - kt0 <= FLUSH);
 }
 
-// The pre-pass and kan_tc_fwd_grouped<F, NT, WARPS, MINB> over the
-// operands of launch_tc_grouped_fwd; cudaErrorInvalidValue when wsplit's
-// wwords words cannot hold the split W.
-template <class F, int NT, int WARPS = tcf::WARPS, int MINB = 1>
+// The pre-pass and kan_tc_fwd_grouped<F, NT, WARPS, MINB, Tf32x3, FLUSH>
+// over the operands of launch_tc_grouped_fwd, and with splits > 1 the sum of
+// the levels; cudaErrorInvalidValue when wsplit's wwords words cannot hold
+// the split W, or splits is neither 1 nor the levels (FLUSH > 0) with part.
+template <class F, int NT, int WARPS = tcf::WARPS, int MINB = 1, int FLUSH = 0>
 int launch_tc_fwd_grouped(const float* x, long long ldx, typename F::Params p, const float* w,
                           float* y, uint32_t* wsplit, long long wwords, int n, int groups,
-                          int nin, int nout, cudaStream_t st) {
+                          int nin, int nout, cudaStream_t st, float* part = nullptr,
+                          int splits = 1) {
   constexpr int BN = 8 * NT, EXACT = TcFwdRow<F>::EXACT, STEPS = F::SC + (EXACT >= 0);
   const int nk = cdiv(nin, tcf::FS), otiles = cdiv(nout, BN);
   const long long units = (long long)groups * otiles * nk * STEPS * BN * 4;
-  if (groups > 65535 || otiles > 65535 || 4 * units > wwords)
+  if (groups > 65535 || (long long)otiles * splits > 65535 || 4 * units > wwords ||
+      (splits != 1 && (FLUSH == 0 || part == nullptr || splits != cdiv(nk, FLUSH))))
     return (int)cudaErrorInvalidValue;
   const long long want = (units + 255) / 256;
   kan_tc_fwd_split<F::SC, EXACT>
@@ -1476,12 +1534,14 @@ int launch_tc_fwd_grouped(const float* x, long long ldx, typename F::Params p, c
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   const size_t smem = sizeof(uint32_t) * 2 * STEPS * BN * 16;
-  err = tc_attr(kan_tc_fwd_grouped<F, NT, WARPS, MINB>, smem);
+  err = tc_attr(kan_tc_fwd_grouped<F, NT, WARPS, MINB, Tf32x3, FLUSH>, smem);
   if (err != 0) return err;
-  kan_tc_fwd_grouped<F, NT, WARPS, MINB>
-      <<<dim3((unsigned)cdiv(n, 16 * WARPS), groups, otiles), 32 * WARPS, smem, st>>>(
-          x, ldx, p, wsplit, y, n, groups, nin, nout, nk);
-  return (int)cudaGetLastError();
+  kan_tc_fwd_grouped<F, NT, WARPS, MINB, Tf32x3, FLUSH>
+      <<<dim3((unsigned)cdiv(n, 16 * WARPS), groups, otiles * splits), 32 * WARPS, smem,
+          st>>>(x, ldx, p, wsplit, y, part, splits, n, groups, nin, nout, nk);
+  err = (int)cudaGetLastError();
+  if (err != 0 || splits == 1) return err;
+  return sum_splits(part, y, (long long)n * groups * nout, splits, st);
 }
 
 // y (n, groups nout) of a grouped layer: x (n, groups nin) with row stride
@@ -1493,20 +1553,25 @@ int launch_tc_fwd_grouped(const float* x, long long ldx, typename F::Params p, c
 // cudaErrorInvalidValue. Up to 64 outputs (one projection), and with
 // NARROW at every width, the family's shape: 64 outputs a block, WARPS8
 // warps, MINB8 blocks an SM; past them 12 warps, 192 outputs a block.
-template <class F, int WARPS8 = tcf::WARPS, int MINB8 = 1, bool NARROW = false>
+// FLUSH: the kernel's stages a level of a two-level sum (0: one level);
+// with it, splits > 1 runs each level in blocks of its own (as many splits
+// as levels) into part, splits n groups nout floats, summed in level order.
+template <class F, int WARPS8 = tcf::WARPS, int MINB8 = 1, bool NARROW = false,
+          int FLUSH = 0>
 int launch_tc_grouped_fwd(const float* x, long long ldx, typename F::Params p, const float* w,
                           float* y, uint32_t* wsplit, long long wwords, int n, int groups,
-                          int nin, int nout, cudaStream_t st) {
+                          int nin, int nout, cudaStream_t st, float* part = nullptr,
+                          int splits = 1) {
   if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 || F::slices(p) > F::SC ||
       wsplit == nullptr || (uintptr_t)wsplit % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if constexpr (!NARROW) {
     if (nout > 64)
-      return launch_tc_fwd_grouped<F, 24>(x, ldx, p, w, y, wsplit, wwords, n, groups, nin,
-                                          nout, st);
+      return launch_tc_fwd_grouped<F, 24, tcf::WARPS, 1, FLUSH>(
+          x, ldx, p, w, y, wsplit, wwords, n, groups, nin, nout, st, part, splits);
   }
-  return launch_tc_fwd_grouped<F, 8, WARPS8, MINB8>(x, ldx, p, w, y, wsplit, wwords, n, groups,
-                                                    nin, nout, st);
+  return launch_tc_fwd_grouped<F, 8, WARPS8, MINB8, FLUSH>(
+      x, ldx, p, w, y, wsplit, wwords, n, groups, nin, nout, st, part, splits);
 }
 
 }  // namespace

@@ -26,18 +26,21 @@ RBF with its LayerNorm, sine):
 3xTF32 ``mma.sync`` over a basis generated on chip), their dx on the
 CUDA-core template. The backward (dx and dW) of :func:`bspline_qkv_grouped`,
 :func:`cheby_qkv_grouped`, :func:`fastkan_qkv_grouped` and
-:func:`sinekan_qkv_grouped`, and of :func:`fastkan` as their one-group
-case, runs on the tensor cores too (``csrc/kan_basis_tc.cuh``, part 2:
-3xTF32 ``mma.sync``, dW over a basis generated on chip in row splits summed
-in a fixed order, dx with the basis derivative or the family's fold in the
-epilogue: FastKAN's dln for its LayerNorm's VJP, sine's dfreq sums), and so
-does the forward of :func:`bspline_qkv_grouped`, :func:`cheby_qkv_grouped`,
-:func:`fastkan_qkv_grouped` (after its LayerNorm's statistics) and
-:func:`sinekan_qkv_grouped` (part 3: each lane makes the basis of its own A
-fragments in registers). The route is chosen by call site, never by size,
-with one exception: the tensor-core tiles hold at most 4 sine slices, so a
-grouped sine forward or backward of a larger grid takes the CUDA-core
-kernels.
+:func:`sinekan_qkv_grouped`, and of :func:`bspline_kan` and :func:`fastkan`
+as their one-group case, runs on the tensor cores too
+(``csrc/kan_basis_tc.cuh``, part 2: 3xTF32 ``mma.sync``, dW over a basis
+generated on chip in row splits summed in a fixed order, dx with the basis
+derivative or the family's fold in the epilogue: FastKAN's dln for its
+LayerNorm's VJP, sine's dfreq sums), and so does the forward of
+:func:`bspline_qkv_grouped`, :func:`cheby_qkv_grouped`,
+:func:`fastkan_qkv_grouped` (after its LayerNorm's statistics),
+:func:`sinekan_qkv_grouped` and, as their one-group case with its 768-deep
+sum in two levels, :func:`bspline_kan` (part 3: each lane makes the basis of
+its own A fragments in registers). :func:`chebykan` and the forward of
+:func:`fastkan` run on the CUDA-core template. The route is chosen by call
+site, never by size, with one exception: the tensor-core tiles hold at most
+4 sine slices, so a grouped sine forward or backward of a larger grid takes
+the CUDA-core kernels.
 
 Dispatch is by device (``kanvit_torch.ops.dispatch``): a CPU tensor runs the
 plain version in ``kanvit_torch.ops.kan_bases`` and autograd differentiates
@@ -103,17 +106,31 @@ TC_ROUTES = ("fourierkan", "sinekan")
 # up to nout 64, else 192), and the dx kernel's rows a block and 16-output
 # stages; the slices a family's tile holds (its SC).
 TC_GROUPED_BWD = ("bspline_qkv_grouped_bwd", "cheby_qkv_grouped_bwd",
-                  "fastkan_qkv_grouped_bwd", "sinekan_qkv_grouped_bwd", "fastkan_bwd")
+                  "fastkan_qkv_grouped_bwd", "sinekan_qkv_grouped_bwd", "fastkan_bwd",
+                  "bspline_kan_bwd")
 TCG_FEATURES, TCG_DX_ROWS, TCG_DX_STAGE = 16, 128, 16
 TCG_SLICES = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 1,
               "sine": SINE_CHUNK}
-# The grouped forward on the tensor cores (part 3): its features a stage
-# (one mma step a slice), its outputs a block as the grouped dW's, and the
-# steps of a stage's split W a family (its tile's slices; RBF one more, the
-# silu slice's remainders; the entries take the scratch's word count and
-# refuse one too short for their steps); sine up to SINE_CHUNK slices.
+# The grouped forward on the tensor cores (part 3), and the B-spline
+# embedder's as its one-group case: its features a stage (one mma step a
+# slice), its outputs a block as the grouped dW's, and the steps of a
+# stage's split W a family (its tile's slices; RBF one more, the silu
+# slice's remainders; the entries take the scratch's word count and refuse
+# one too short for their steps); sine up to SINE_CHUNK slices.
 TC_GROUPED_FWD = ("bspline_qkv_grouped", "cheby_qkv_grouped", "fastkan_qkv_grouped",
-                  "sinekan_qkv_grouped")
+                  "sinekan_qkv_grouped", "bspline_kan")
+# The call sites whose forward sums in two levels, and the stages of a level
+# (kan_basis.cu's BSPLINE_EMB_FLUSH); the rows of a forward block (12 warps of
+# 16), which decide when its levels run in blocks of their own.
+TCG_FWD_FLUSH = {"bspline_kan": 12}
+TCG_FWD_ROWS = 192
+# The B-spline embedder's forward keeps the tensor cores at every size:
+# below one wave of their blocks (the MNIST embedders, 16 -> 64) the
+# CUDA-core kernel took 1-2 us less of the card and ~25 us less of the host
+# a call, but landed 3.0e-07 from f64 against the plain f32 version's
+# 1.3e-07, past the twice that the tensor cores hold (chip_smoke.py and
+# kanvit_torch/probe_embedder_rbf.py --bspline, NVIDIA H100 80GB HBM3 at
+# 700 W; PERF.md).
 TCG_FWD_FEATURES = 8
 TCG_FWD_STEPS = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 2,
                  "sine": SINE_CHUNK}
@@ -422,10 +439,16 @@ def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
             gridt, gstride = _knot_rows(aux)
             if name in TC_GROUPED_FWD:
                 wsplit = _tc_grouped_fwd_scratch(w, x2d.device)
-                err = lib.kanvit_bspline_qkv_tc_fwd(*args, gridt.data_ptr(), gstride,
-                                                    w.data_ptr(), y.data_ptr(),
-                                                    wsplit.data_ptr(), wsplit.numel(),
-                                                    *shape, stream)
+                head = (*args, gridt.data_ptr(), gstride, w.data_ptr(), y.data_ptr(),
+                        wsplit.data_ptr(), wsplit.numel())
+                if name == "bspline_kan":
+                    splits = tc_fwd_splits(name, *shape, torch.cuda.get_device_properties(
+                        x2d.device).multi_processor_count)
+                    part = _empty(splits, n, out, device=x2d.device) if splits > 1 else None
+                    err = lib.kanvit_bspline_kan_tc_fwd(*head, _ptr(part), splits, *shape,
+                                                        stream)
+                else:
+                    err = lib.kanvit_bspline_qkv_tc_fwd(*head, *shape, stream)
             else:
                 err = lib.kanvit_bspline_kan_fwd(*args, gridt.data_ptr(), gstride,
                                                  w.data_ptr(), y.data_ptr(), *shape,
@@ -461,6 +484,19 @@ def dw_splits(n: int, groups: int, nin: int, out: int, n_sm: int,
 def tc_grouped_outs(nout: int) -> int:
     """Outputs a block of the grouped tensor-core dW and forward kernels."""
     return 64 if nout <= 64 else 192
+
+
+def tc_fwd_splits(name: str, n: int, groups: int, nin: int, nout: int, n_sm: int) -> int:
+    """Splits of a two-level tensor-core forward (``TCG_FWD_FLUSH``): one
+    a level where its blocks fill less than one wave (a vit-s image: 4
+    blocks of 96 stages, 8 levels), else 1. The levels are summed in the
+    same order either way, so a row's bits do not depend on the batch."""
+    flush = TCG_FWD_FLUSH.get(name)
+    if flush is None:
+        return 1
+    blocks = -(-n // TCG_FWD_ROWS) * groups * -(-nout // tc_grouped_outs(nout))
+    levels = -(-(-(-nin // TCG_FWD_FEATURES)) // flush)
+    return levels if blocks < n_sm and levels > 1 else 1
 
 
 def tc_grouped_dw_splits(n: int, groups: int, nin: int, nout: int, n_sm: int) -> int:

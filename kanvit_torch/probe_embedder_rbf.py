@@ -1,7 +1,8 @@
-"""The FastKAN embedder's backward on the tensor cores: its dW's tiles and
-row splits, and the route's kernels timed apart.
+"""The patch embedders on the tensor cores: the FastKAN embedder's
+backward and the B-spline embedder's forward and backward, their tiles and
+row splits, and the routes' kernels timed apart.
 
-    python -m kanvit_torch.probe_embedder_rbf
+    python -m kanvit_torch.probe_embedder_rbf [--bspline]
 
 Builds the kernels, then a library from ``csrc/kan_rbf_sine.cu`` that runs
 ``kan_tc_dw_grouped<Rbf, NJ>`` (``csrc/kan_basis_tc.cuh``, part 2) at a
@@ -14,12 +15,27 @@ events, the no-dx route's device time by kernel (the dx kernel writing dln,
 the W^T split, the LayerNorm's dgamma and dbeta partials and their sums,
 dW and its split sums) and the CUDA-core kernels it replaced; then each
 (NJ, splits) of ``SPLITS``: its time, its blocks in waves of one SM's
-resident blocks, and its distance from the route's dW (x max|dW|). The
-last line holds the times as JSON.
+resident blocks, and its distance from the route's dW (x max|dW|).
+
+``--bspline`` does the same for the B-spline embedder (``bspline_kan``:
+12,544 rows, 768 -> 384, 8 cubic bases and the silu slice) from a second
+library built from ``csrc/kan_basis.cu`` beside the first: its forward on
+``kan_tc_fwd_grouped<Bspline, NT, WARPS, MINB, Tf32x3, FLUSH>`` in the
+shapes of ``BSPLINE_SHAPES`` (n8 tiles a warp, so 192, 128 or 64 outputs a
+block; warps a block; blocks an SM; the stages a level of the sum, 0 for
+one running sum), each against the route's bits, timed, and held against
+f64 beside the plain f32 version (inputs as ``chip_smoke.py`` draws them,
+and a third at |x| 20-60); its backward (no dx, all gradients, by kernel,
+dW and dx against f64) and dW over ``SPLITS``; and both routes (the
+tensor cores and the CUDA cores) at the MNIST embedders (1,813 and 6,272
+rows, 16 -> 64) and at one vit-s image (196 rows), forward and no-dx
+backward, by CUDA events, device time and host time a call, in three turns.
+The last line holds the times as JSON.
 """
 
 from __future__ import annotations
 
+import argparse
 import ctypes
 import json
 import sys
@@ -50,7 +66,228 @@ extern "C" int probe_rbf_dw(int nj, const float* x, long long ldx, const float* 
 """
 
 
+# (n8 tiles a warp, warps a block, blocks an SM, stages a level of the sum)
+# of the B-spline embedder's forward; the route's first
+BSPLINE_SHAPES = ((24, 12, 1, 12), (24, 12, 1, 0), (24, 12, 1, 24), (16, 12, 1, 12),
+                  (8, 12, 2, 12), (8, 8, 2, 12), (8, 8, 3, 12))
+
+BSPLINE_SOURCE = r"""
+#include "kan_basis.cu"
+
+extern "C" int probe_bspline_fwd(int v, const float* x, long long ldx, const float* gridt,
+                                 long long gstride, const float* w, float* y,
+                                 unsigned int* ws, long long ww, int n, int nin, int nout,
+                                 void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Bspline::Params p{gridt, gstride};
+  switch (v) {
+CASES
+  }
+  return -1;
+}
+
+extern "C" int probe_bspline_dw(int nj, const float* x, long long ldx, const float* gridt,
+                                long long gstride, const float* gy, float* dw, float* dw_part,
+                                int n, int nin, int nout, int splits, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Bspline::Params p{gridt, gstride};
+  const int vec = tc_gy_vec(gy, 1, nout);
+  if (nj == 1)
+    return launch_tc_dw_grouped<Bspline, 1>(x, ldx, p, gy, nout, vec, dw, dw_part, n, 1, nin,
+                                            nout, splits, st);
+  return launch_tc_dw_grouped<Bspline, 3>(x, ldx, p, gy, nout, vec, dw, dw_part, n, 1, nin,
+                                          nout, splits, st);
+}
+""".replace("CASES", "\n".join(
+    f"    case {i}: return launch_tc_fwd_grouped<Bspline, {nt}, {w}, {mb}, {fl}>(x, ldx, p, "
+    f"w, y, ws, ww, n, 1, nin, nout, st);" for i, (nt, w, mb, fl) in enumerate(BSPLINE_SHAPES)))
+
+
+def f64_dist(got, exact):
+    """max|got - exact| x max(1, max|exact|)^-1."""
+    return float((got.double() - exact).abs().max()) / max(1.0, float(exact.abs().max()))
+
+
+def large_silu(rng, x):
+    """``x`` with a third of its entries at |x| 20-60, outside every knot
+    span, where silu(x) dominates the row."""
+    flat = x.reshape(-1)
+    idx = rng.choice(flat.size, flat.size // 3, replace=False)
+    flat[idx] = rng.uniform(20.0, 60.0, idx.size) * rng.choice([-1.0, 1.0], idx.size)
+    return x
+
+
+def bspline_embedder(lib, C, torch, times):
+    """The B-spline embedder's routes, shapes and row splits (``--bspline``)."""
+    import numpy as np
+
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.layers import KANLinear
+    from kanvit_torch.ops import kan_bases as K
+    from kanvit_torch.probe_qkv_fwd import host_ms
+
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    fwd, dw_fn = lib.probe_bspline_fwd, lib.probe_bspline_dw
+    fwd.argtypes = [i32, p, i64, p, i64, *[p] * 3, i64, *[i32] * 3, p]
+    dw_fn.argtypes = [i32, p, i64, p, i64, *[p] * 3, *[i32] * 4, p]
+    fwd.restype = dw_fn.restype = i32
+    rng = np.random.default_rng(C.SEED + 10)
+
+    def case(n, nin, nout, large=False):
+        layer = KANLinear(nin, nout, generator=torch.Generator().manual_seed(C.SEED)).cuda()
+        x = C.spline_inputs(rng, (n, nin), layer.grid[0].cpu().numpy())
+        if large:
+            x = large_silu(rng, x)
+        x = torch.from_numpy(np.asarray(x, np.float32)).cuda()
+        params = (layer.grid, layer.base_weight.detach(), layer.spline_weight.detach(),
+                  layer.spline_scaler.detach())
+        w = FB.pack_weight(*params[1:]).unsqueeze(0).contiguous()
+        return x, params, w
+
+    def packed_plain(x, grid, w):  # the plain version over the packed weight
+        return K.bspline_kan_forward(x, grid.to(x.dtype), w[0, -1].T, w[0, :-1].permute(2, 1, 0),
+                                     None)
+
+    n, nin, nout = C.BATCH * 196, 768, 384
+    stream = torch.cuda.current_stream().cuda_stream
+    for tag, large in (("vit-s", False), ("vit-s, a third of x at |x| 20-60", True)):
+        x, (grid, *_), w = case(n, nin, nout, large)
+        gridt, gstride = FB._knot_rows(grid)
+        ws = torch.empty(-(-nin // 8) * 9 * 16 * (-(-nout // 64) * 64 + 192), dtype=torch.int32,
+                         device="cuda")
+        with torch.inference_mode():
+            def route():
+                return FB._launch("bspline_kan", "bspline", x, w, grid)
+
+            want = route()
+            core = C.cuda_core_route(FB, route)
+            plain = packed_plain(x, grid, w)
+            exact = packed_plain(x.double(), grid, w.double())
+            entry = {"route_ms": C.time_ms(torch, route),
+                     "route_device_ms": C.kernel_ms(torch, route, 10,
+                                                    label=f"bspline_kan {tag}, by kernel"),
+                     "cuda_core_ms": C.cuda_core_route(FB, lambda: C.time_ms(torch, route)),
+                     "f64_route": f64_dist(want, exact), "f64_plain": f64_dist(plain, exact),
+                     "f64_cuda_core": f64_dist(core, exact)}
+            for v, shape in enumerate(BSPLINE_SHAPES):
+                y = torch.empty_like(want)
+
+                def launch(v=v, y=y, shape=shape):
+                    err = fwd(v, x.data_ptr(), x.stride(0), gridt.data_ptr(), gstride,
+                              w.data_ptr(), y.data_ptr(), ws.data_ptr(), ws.numel(), n, nin,
+                              nout, stream)
+                    C.check(err == 0, f"bspline fwd {shape}: CUDA error {err}")
+
+                launch()
+                torch.cuda.synchronize()
+                entry[str(shape)] = {"ms": C.time_ms(torch, launch),
+                                     "same_bits": torch.equal(y, want),
+                                     "f64": f64_dist(y, exact)}
+        times[f"bspline_kan {tag}"] = entry
+        print(f"[probe_embedder_bspline] forward {tag}: route {entry['route_ms']:.4f} ms "
+              f"(device {entry['route_device_ms']:.4f}), CUDA cores "
+              f"{entry['cuda_core_ms']:.4f}; f64: route {entry['f64_route']:.3e}, plain f32 "
+              f"{entry['f64_plain']:.3e}, CUDA cores {entry['f64_cuda_core']:.3e}", flush=True)
+        for shape in BSPLINE_SHAPES:
+            e = entry[str(shape)]
+            print(f"[probe_embedder_bspline]   (n8 tiles, warps, blocks an SM, flush) {shape}: "
+                  f"{e['ms']:.4f} ms, f64 {e['f64']:.3e}"
+                  f"{'' if e['same_bits'] else ' (other bits than the route)'}", flush=True)
+
+    # the backward at vit-s: the route, its kernels, dW's row splits
+    x, (grid, *_), w = case(n, nin, nout)
+    gridt, gstride = FB._knot_rows(grid)
+    g = torch.from_numpy(rng.standard_normal((n, nout)).astype(np.float32)).cuda()
+    name = "bspline_kan_bwd"
+
+    def bwd(with_dx=False):
+        return FB._launch_bwd(name, "bspline", x, w, grid, g, with_dx, True)
+
+    entry = {}
+    with torch.inference_mode():
+        dx, dw = bwd(True)
+        no_dx = bwd()[1]
+        entry["no_dx_same_bits"] = torch.equal(no_dx, dw)
+    leaves = [a.detach().clone().requires_grad_(True) for a in (x, w)]
+    plain = torch.autograd.grad(packed_plain(leaves[0], grid, leaves[1]), leaves, g)
+    leaves64 = [a.detach().double().requires_grad_(True) for a in (x, w)]
+    exact = torch.autograd.grad(packed_plain(leaves64[0], grid, leaves64[1]), leaves64,
+                                g.double())
+    for nm, got, pl, ex in (("dx", dx, plain[0], exact[0]), ("dW", dw, plain[1], exact[1])):
+        entry[f"f64_{nm}"], entry[f"f64_{nm}_plain"] = f64_dist(got, ex), f64_dist(pl, ex)
+    with torch.inference_mode():
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = FB.tc_grouped_dw_splits(n, 1, nin, nout, n_sm)
+        entry.update({
+            "route_splits": splits,
+            "no_dx_ms": C.time_ms(torch, bwd),
+            "all_gradients_ms": C.time_ms(torch, lambda: bwd(True)),
+            "no_dx_device_ms": C.kernel_ms(torch, bwd, 10, label=f"{name} no dx, by kernel"),
+            "all_gradients_device_ms": C.kernel_ms(torch, lambda: bwd(True), 10,
+                                                   label=f"{name} all gradients, by kernel"),
+            "cuda_core_no_dx_ms": C.cuda_core_route(FB, lambda: C.time_ms(torch, bwd)),
+            "cuda_core_all_gradients_ms": C.cuda_core_route(
+                FB, lambda: C.time_ms(torch, lambda: bwd(True)))})
+        print(f"[probe_embedder_bspline] backward vit-s: {splits} splits; no dx "
+              f"{entry['no_dx_ms']:.4f} ms (device {entry['no_dx_device_ms']:.4f}), all "
+              f"gradients {entry['all_gradients_ms']:.4f} (device "
+              f"{entry['all_gradients_device_ms']:.4f}); CUDA cores no dx "
+              f"{entry['cuda_core_no_dx_ms']:.4f}, all {entry['cuda_core_all_gradients_ms']:.4f}; "
+              f"f64 dW {entry['f64_dW']:.3e} (plain {entry['f64_dW_plain']:.3e}), dx "
+              f"{entry['f64_dx']:.3e} (plain {entry['f64_dx_plain']:.3e}); no-dx bits = all "
+              f"gradients' bits: {entry['no_dx_same_bits']}", flush=True)
+        scale = float(dw.abs().max())
+        for nj, count in SPLITS:
+            out = torch.empty_like(w)
+            part = torch.empty(count, *w.shape, device="cuda")
+
+            def launch(nj=nj, count=count, out=out, part=part):
+                err = dw_fn(nj, x.data_ptr(), x.stride(0), gridt.data_ptr(), gstride,
+                            g.data_ptr(), out.data_ptr(), part.data_ptr(), n, nin, nout,
+                            count, stream)
+                C.check(err == 0, f"dW NJ {nj} splits {count}: CUDA error {err}")
+
+            launch()
+            torch.cuda.synchronize()
+            blocks = -(-nin // FB.TCG_FEATURES) * -(-nout // (64 * nj)) * count
+            entry[f"dW NJ {nj} splits {count}"] = e = {
+                "ms": C.time_ms(torch, launch), "waves": blocks / ({3: 1, 1: 2}[nj] * n_sm),
+                "diff": float((out - dw).abs().max()) / scale}
+            print(f"[probe_embedder_bspline]   dW NJ {nj} splits {count}: {e['ms']:.4f} ms, "
+                  f"{blocks} blocks = {e['waves']:.2f} waves, against the route "
+                  f"{e['diff']:.2e} x max|dW|", flush=True)
+    times["bspline_kan_bwd vit-s"] = entry
+
+    # both routes at the MNIST embedders and at one vit-s image
+    for tag, rows, nin, nout in (("mnist embedder (chip_smoke.py)", 37 * 49, 16, 64),
+                                 ("reference embedder, batch 128", 128 * 49, 16, 64),
+                                 ("vit-s embedder, batch 1", 196, 768, 384)):
+        x, (grid, *_), w = case(rows, nin, nout)
+        g = torch.from_numpy(rng.standard_normal((rows, nout)).astype(np.float32)).cuda()
+        entry = {}
+        with torch.inference_mode():
+            for turn in range(3):  # the routes in turns, to see the run's noise
+                for part, fn in (
+                        ("forward", lambda: FB._launch("bspline_kan", "bspline", x, w, grid)),
+                        ("no-dx backward", lambda: FB._launch_bwd(name, "bspline", x, w, grid,
+                                                                  g, False, True))):
+                    for route, wrap in (("tensor cores", lambda f: f()),
+                                        ("CUDA cores", lambda f: C.cuda_core_route(FB, f))):
+                        e = {"ms": wrap(lambda: C.time_ms(torch, fn, iters=200)),
+                             "device_ms": wrap(lambda: C.kernel_ms(torch, fn, 50)),
+                             "host_ms": wrap(lambda: host_ms(torch, fn))}
+                        entry.setdefault(f"{part}, {route}", []).append(e)
+                        print(f"[probe_embedder_bspline] {tag} {rows} x {nin} -> {nout}, turn "
+                              f"{turn}, {part} on the {route}: {e['ms']:.4f} ms (device "
+                              f"{e['device_ms']:.4f}, host {e['host_ms']:.4f} a call)",
+                              flush=True)
+        times[f"bspline_kan {tag}"] = entry
+
+
 def main(argv=None) -> None:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--bspline", action="store_true")
+    args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import numpy as np
 
@@ -60,7 +297,12 @@ def main(argv=None) -> None:
 
     torch, smi = C.phase_toolchain()
     C.phase_build()
-    lib = _finish(C, *_nvcc(C, SOURCE, "probe_embedder_rbf"), "probe_embedder_rbf")
+    builds = [("probe_embedder_rbf", *_nvcc(C, SOURCE, "probe_embedder_rbf"))]
+    if args.bspline:
+        builds.append(("probe_embedder_bspline",
+                       *_nvcc(C, BSPLINE_SOURCE, "probe_embedder_bspline")))
+    libs = {name: _finish(C, proc, lib, name) for name, proc, lib in builds}
+    lib = libs["probe_embedder_rbf"]
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
     fn = lib.probe_rbf_dw
     fn.argtypes = [i32, p, i64, p, p, p, f32, *[p] * 4, *[i32] * 5, p]
@@ -126,6 +368,8 @@ def main(argv=None) -> None:
             print(f"[probe_embedder_rbf] dW NJ {nj} splits {count}: {entry['ms']:.4f} ms, "
                   f"{blocks} blocks = {entry['waves']:.2f} waves, against the route "
                   f"{entry['diff']:.2e} x max|dW|", flush=True)
+    if args.bspline:
+        bspline_embedder(libs["probe_embedder_bspline"], C, torch, times)
     print(f"[probe_embedder_rbf] {ROOT}  [{smi}]")
     print(json.dumps(times))
 

@@ -1623,3 +1623,122 @@ def test_refit_grid_model_on_card(cuda):
         got = gpu(x.to(cuda)).cpu()
     assert float((got - want).abs().max()) <= 1e-3
     assert FB.LAUNCHES["bspline_qkv_grouped"] == 6
+
+
+# (n, nin, nout, large): the vit-s embedder, with a third of x at |x| 20-60
+# too, and one vit-s image (its forward's 8 levels in blocks of their own);
+# the reference preset's and chip_smoke.py's MNIST embedders; ragged rows,
+# features and outputs (a 192-output tile, 13 stages: past one level of the
+# forward's sum, in 2 splits)
+BSPLINE_EMBEDDER_SHAPES = [(12544, 768, 384, False), (12544, 768, 384, True),
+                           (196, 768, 384, False), (128 * 49, 16, 64, False),
+                           (37 * 49, 16, 64, False), (300, 100, 70, False)]
+
+
+def _bspline_embedder(rng, n, nin, nout, large, cuda):
+    """x (on and beyond the knots; ``large``: a third at |x| 20-60), the
+    grid, KANLinear-scaled (base, spline, scaler) and the packed weight."""
+    x = _spline_x(rng, (n, nin))
+    if large:
+        flat = x.view(-1)
+        idx = torch.from_numpy(rng.choice(flat.numel(), flat.numel() // 3, replace=False))
+        flat[idx] = torch.from_numpy((rng.uniform(20.0, 60.0, idx.numel())
+                                      * rng.choice([-1.0, 1.0], idx.numel())).astype(np.float32))
+    params = [_param(rng, (nout, nin), 1 / np.sqrt(nin)), _param(rng, (nout, nin, 8), 0.1),
+              _param(rng, (nout, nin), 1 / np.sqrt(nin))]
+    params = [p.to(cuda) for p in params]
+    return (x.to(cuda), K.make_bspline_grid(nin, device=cuda), params,
+            FB.pack_weight(*params).unsqueeze(0).contiguous())
+
+
+def _packed_plain(x, grid, w):
+    """The plain B-spline forward over the packed weight (1, 9, nin, out)."""
+    return K.bspline_kan_forward(x, grid.to(x.dtype), w[0, -1].T, w[0, :-1].permute(2, 1, 0),
+                                 None)
+
+
+@pytest.mark.parametrize("n,nin,nout,large", BSPLINE_EMBEDDER_SHAPES)
+def test_bspline_kan_tc_forward(cuda, monkeypatch, n, nin, nout, large):
+    """The embedder's forward on the tensor cores (3xTF32, its sum in two
+    levels) at every size: within 1e-4 x max(1, max|y|) of the plain
+    version, no further from f64 than twice the plain f32 version, a second
+    forward with the same bits; the tensor-core entry the one called."""
+    called = _recording(monkeypatch, ("kanvit_bspline_kan_tc_fwd", "kanvit_bspline_kan_fwd"))
+    rng = np.random.default_rng(80 + nin)
+    x, grid, params, _ = _bspline_embedder(rng, n, nin, nout, large, cuda)
+    with torch.inference_mode():
+        y = FB.bspline_kan(x, grid, *params)
+        again = FB.bspline_kan(x, grid, *params)
+        want = K.bspline_kan_forward(x, grid, *params)
+        exact = K.bspline_kan_forward(x.double(), grid.double(), *(p.double() for p in params))
+    _close(y, want, 1e-4)
+    _f64_gate(y, want, exact)
+    assert torch.equal(y, again)
+    assert called == ["kanvit_bspline_kan_tc_fwd"] * 2
+    assert FB.LAUNCHES["bspline_kan"] == 2
+
+
+def test_bspline_kan_tc_forward_rows_keep_their_bits_at_any_batch(cuda):
+    """One vit-s image runs the forward's levels in blocks of their own and
+    sums them in level order, as a batch of 64 sums them in its blocks: the
+    image's rows have the bits they have in the batch."""
+    rng = np.random.default_rng(87)
+    x, grid, params, _ = _bspline_embedder(rng, 12544, 768, 384, False, cuda)
+    with torch.inference_mode():
+        batch = FB.bspline_kan(x, grid, *params)
+        for lo, hi in ((0, 196), (196 * 7, 196 * 8), (12544 - 196, 12544)):
+            assert torch.equal(FB.bspline_kan(x[lo:hi], grid, *params), batch[lo:hi])
+
+
+@pytest.mark.parametrize("n,nin,nout,large", BSPLINE_EMBEDDER_SHAPES)
+def test_bspline_kan_tc_backward(cuda, monkeypatch, n, nin, nout, large):
+    """The embedder's backward on the tensor cores (the grouped templates at
+    one group): every gradient through the wrapper within 1e-4 x max(1,
+    max|g|) of the plain version; the kernels' dW and dx no further from
+    f64 than twice the plain f32 version's; the training step's call (no
+    dx) with the all-gradients call's dW bits, and a second backward
+    repeating them; the tensor-core entry the one called."""
+    called = _recording(monkeypatch, ("kanvit_bspline_qkv_tc_bwd", "kanvit_bspline_kan_bwd"))
+    rng = np.random.default_rng(90 + nin)
+    x, grid, params, w = _bspline_embedder(rng, n, nin, nout, large, cuda)
+    g = _param(rng, (n, nout), 1.0).to(cuda)
+    _, got = _grads(lambda *a: FB.bspline_kan(a[0], grid, *a[1:]), [x, *params], g)
+    _, want = _grads(lambda *a: K.bspline_kan_forward(a[0], grid, *a[1:]), [x, *params], g)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    with torch.inference_mode():
+        dx, dw = FB._launch_bwd("bspline_kan_bwd", "bspline", x, w, grid, g, True, True)
+        no_dx = FB._launch_bwd("bspline_kan_bwd", "bspline", x, w, grid, g, False, True)
+        again = FB._launch_bwd("bspline_kan_bwd", "bspline", x, w, grid, g, True, True)
+    _, plain = _grads(lambda *a: _packed_plain(a[0], grid, a[1]), [x, w], g)
+    _, exact = _grads(lambda *a: _packed_plain(a[0], grid, a[1]), [x.double(), w.double()],
+                      g.double())
+    for a, b, c in zip((dx, dw), plain, exact):
+        _close(a, b, 1e-4)
+        _f64_gate(a, b, c)
+    assert no_dx[0] is None and torch.equal(no_dx[1], dw)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    assert called == ["kanvit_bspline_qkv_tc_bwd"] * 4
+    assert FB.LAUNCHES["bspline_kan_bwd"] == 4
+
+
+def test_bspline_kan_tc_raises_not_falls_back(cuda, monkeypatch):
+    """A failing tensor-core entry of the embedder (here: one that returns a
+    CUDA error) makes the wrapper raise, forward and backward; the
+    CUDA-core entries are never called and nothing is counted."""
+    from kanvit_torch.kernels import _build
+
+    lib = _build.load()
+    called = _recording(monkeypatch, ("kanvit_bspline_kan_fwd", "kanvit_bspline_kan_bwd"))
+    rng = np.random.default_rng(95)
+    x, grid, params, _ = _bspline_embedder(rng, 50, 16, 24, False, cuda)
+    monkeypatch.setattr(lib, "kanvit_bspline_qkv_tc_bwd", lambda *args: 98)
+    leaves = [p.clone().requires_grad_(True) for p in params]
+    y = FB.bspline_kan(x, grid, *leaves)
+    with pytest.raises(RuntimeError, match="CUDA error 98"):
+        y.sum().backward()
+    monkeypatch.setattr(lib, "kanvit_bspline_kan_tc_fwd", lambda *args: 98)
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="CUDA error 98"):
+        FB.bspline_kan(x, grid, *params)
+    assert called == []
+    assert (FB.LAUNCHES["bspline_kan"], FB.LAUNCHES["bspline_kan_bwd"]) == (1, 0)

@@ -59,11 +59,12 @@ STAGE_FEATURES = FB.TCG_FWD_FEATURES
 CHEBY_DEGREE = FB.CHEBY_DEGREE
 
 
-def grouped_fwd(basis, w, passes="3xtf32"):
+def grouped_fwd(basis, w, passes="3xtf32", flush=None):
     """y (n, out) of one head: the basis (n, nin, S) times W (S, nin, out),
     nin in stages of 8 features (zero past nin), each stage's slices in
     order, each slice one 8-deep step of the stage's features; one running
-    sum."""
+    sum, or with ``flush`` two levels: the running sum of every ``flush``
+    stages added into the total."""
     n, nin, slices = basis.shape
     nk = -(-nin // STAGE_FEATURES)
     pad = nk * STAGE_FEATURES
@@ -73,13 +74,18 @@ def grouped_fwd(basis, w, passes="3xtf32"):
     b[:, :nin] = w
     a = a.reshape(n, nk, STAGE_FEATURES, slices).permute(0, 1, 3, 2).reshape(n, -1)
     b = b.reshape(slices, nk, STAGE_FEATURES, -1).permute(1, 0, 2, 3).reshape(a.shape[1], -1)
-    return product(a, b, passes=passes)
+    per, total = (flush or nk) * slices * STAGE_FEATURES, None
+    for c in range(0, a.shape[1], per):
+        run = product(a[:, c:c + per], b[c:c + per], passes=passes)
+        total = run if total is None else total + run
+    return total
 
 
 def emu_tc_fwd(name, family, x2d, w, aux):
     """``_launch``: the grouped tensor-core forward a head at a time (its
-    shared grid or its own; the Chebyshev degree), every other route as
-    ``test_torch_port_kernels.py`` emulates it."""
+    shared grid or its own; the Chebyshev degree; the B-spline embedder's
+    two-level sum), every other route as ``test_torch_port_kernels.py``
+    emulates it."""
     if name not in FB.TC_GROUPED_FWD:
         return _emu_fwd(name, family, x2d, w, aux)
     FB._check(family, x2d, w, aux)
@@ -88,7 +94,7 @@ def emu_tc_fwd(name, family, x2d, w, aux):
     return torch.cat([
         grouped_fwd(_emu_basis(family, x2d[:, g * nin:(g + 1) * nin],
                                aux[g] if torch.is_tensor(aux) and aux.dim() == 3 else aux)[0],
-                    w[g])
+                    w[g], flush=FB.TCG_FWD_FLUSH.get(name))
         for g in range(groups)], 1)
 
 
