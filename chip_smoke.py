@@ -52,9 +52,11 @@ Phases, in order; any failure raises, so the script exits non-zero:
    heads of 64 -> 192), ragged narrow shapes of each, inputs where tanh
    saturates (|x| >= 9.5) and Fourier inputs up to |x| = 10; the backward's
    bits repeated; error and time of both; ``fourierkan``'s tensor-core
-   forward and dW also on the training path's backward (no dx, its bits
-   those of the all-gradients route) and, at the embedder, no further from
-   f64 than twice the plain f32 version, with their kernels' device times;
+   forward and dW and ``chebykan``'s tensor-core backward also on the
+   training path's backward (no dx, its bits those of the all-gradients
+   route) and, at the embedder, no further from f64 than twice the plain
+   f32 version, with their kernels' device times (``chebykan``'s beside
+   the CUDA-core kernels');
 7. the RBF and sine kernels (forward, and the backward: dx, dW, the
    LayerNorm's dgamma and dbeta, sine's dfreq) against their plain versions
    and autograd through them: ``fastkan`` and ``sinekan`` (grid 28) at the
@@ -65,7 +67,10 @@ Phases, in order; any failure raises, so the script exits non-zero:
    arguments of several pi; the sine embedder's gradients also against f64,
    and its tensor-core forward, dW and dfreq (on both backward routes) no
    further from f64 than twice the plain f32 version, with device times;
-   the backward's bits repeated; error and time of both;
+   ``fastkan``'s tensor-core forward so too, also with a third of x at |x|
+   20-60, at one vit-s image and the MNIST shape, an image's rows with the
+   batch's bits, beside the CUDA-core kernel; the backward's bits
+   repeated; error and time of both;
 8. the fused pre-LN FF (``ffn_pre_ln``, forward and backward) and the W8A8
    ``int8_linear`` against their plain versions and autograd through them:
    at vit-s (12,608 rows, D 384, F 1,536; the embedder and both FF
@@ -285,8 +290,9 @@ def phase_build():
 # An entry is a kernel's name, or the parts its mangled name holds (the
 # Fourier and sine tensor-core kernels: the family, and Lb0 forward, Lb1 dW;
 # the grouped backward's: the family and its NJ; the forward's: the family
-# and its n8 tiles a warp, B-spline's also its stages a level of the sum, 0
-# for the q/k/v's one running sum, 12 for the embedder's two levels).
+# and its n8 tiles a warp, B-spline's and RBF's also its stages a level of
+# the sum, 0 for the q/k/v's one running sum, 12 for the embedder's two
+# levels).
 SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
                 "flash_dq_tcILi64", "flash_dkv_tcILi64", "ffn_fwd_tcILi3",
@@ -300,7 +306,8 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("kan_tc_fwd_grouped", "7BsplineELi24E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "7BsplineELi8E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "7BsplineELi24E", "Tf32x3ELi12E"),
-                ("kan_tc_fwd_grouped", "3RbfELi8E"),
+                ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi0E"),
+                ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi12E"),
                 ("kan_tc_fwd_grouped", "4SineELi8E"), ("kan_tc_fwd_grouped", "5ChebyELi8E"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
                 ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"))
@@ -1464,8 +1471,9 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
             extra_fwd["cuda_core_device_ms"] = kernel_ms(
                 torch, fwd_cuda_cores, 10, label=f"{name} {label}, CUDA cores")
     if f64_gates:
-        with torch.inference_mode():
-            extra_fwd["device_ms"] = kernel_ms(torch, fwd, 10, label=f"{name} {label}")
+        if fwd_cuda_cores is None:
+            with torch.inference_mode():
+                extra_fwd["device_ms"] = kernel_ms(torch, fwd, 10, label=f"{name} {label}")
         extra_bwd["device_ms"] = kernel_ms(torch, lambda: bwd(g), 10,
                                            label=f"{name}_bwd {label}, all gradients")
         extra_bwd["no_dx_device_ms"] = kernel_ms(torch, lambda: bwd_train(g), 10,
@@ -1501,7 +1509,11 @@ def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
     packed weight and ``aux`` the degree or grid size the kernels take.
     ``tc_gates``: the grouped Chebyshev forward's and backward's tensor-core
     gates and times beside the CUDA-core kernels (``check_kan``'s
-    ``fwd_cuda_cores`` and ``cuda_cores``)."""
+    ``fwd_cuda_cores`` and ``cuda_cores``). ``chebykan``'s backward is on
+    the tensor cores (its forward on the CUDA cores): at the embedder's 768
+    features its dx and dcoeffs are held no further from f64 than twice the
+    plain f32 version, dcoeffs on the no-dx route too, beside the CUDA-core
+    kernels' times."""
     from kanvit_torch.kernels import fused_basis as FB
 
     x, bname = inputs[0], f"{name}_bwd"
@@ -1509,18 +1521,21 @@ def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
                 lambda g: FB._launch_bwd(bname, family, x, w, aux, g, True, True),
                 lambda g: FB._launch_bwd(bname, family, x, w, aux, g, False, True))
 
-    def cuda_cores(g):
-        return cuda_core_route(FB, lambda: launches[1](g))
+    def cuda_cores(g, with_dx=True):
+        return cuda_core_route(FB, lambda: launches[1 if with_dx else 2](g))
 
     def fwd_cuda_cores():
         return cuda_core_route(FB, launches[0])
 
-    tc = family == "fourier"  # its forward and dW on the tensor cores
+    tc = family == "fourier" or name == "chebykan"  # dW on the tensor cores
+    embedder = name == "chebykan" and x.shape[1] >= 768
     return check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
                      (x.shape[0], *w.shape, 0, 1), tc_grads=("coeffs",) if tc else (),
                      f64_gates=tc and x.shape[1] >= 768,
-                     cuda_cores=cuda_cores if tc_gates else None,
-                     fwd_cuda_cores=fwd_cuda_cores if tc_gates else None)
+                     cuda_cores=cuda_cores if tc_gates or embedder else None,
+                     fwd_cuda_cores=fwd_cuda_cores if tc_gates else None,
+                     kernel_grads=("x", "coeffs") if embedder else None,
+                     fwd_on_cuda_cores=name == "chebykan")
 
 
 def fast_inputs(rng, shape):
@@ -1564,11 +1579,12 @@ def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False, bas
     (the grouped route only) an 8-slice weight through the grouped
     Function and no base weights. ``tc_gates``: the tensor-core gates and
     times beside the CUDA-core kernels (``check_kan``'s ``cuda_cores``), of
-    the grouped forward (``fwd_cuda_cores``) and backward; of the
-    embedder's backward (its forward stays on the CUDA cores), dgamma,
-    dbeta and the spline and base weights no further from f64 than twice
-    the plain f32 version on the all-gradients and the no-dx routes, the
-    no-dx route's bits those of the all-gradients route (``tc_grads``)."""
+    the forward (``fwd_cuda_cores``: the grouped q/k/v's, the embedder's
+    with its two-level sum) and the backward; of the embedder's backward,
+    dgamma, dbeta and the spline and base weights no further from f64 than
+    twice the plain f32 version on the all-gradients and the no-dx routes,
+    the no-dx route's bits those of the all-gradients route
+    (``tc_grads``)."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.ops import kan_bases as K
 
@@ -1628,9 +1644,77 @@ def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False, bas
                      (n, groups, w.shape[1], nin, nout, 2 * groups * nin + 8, 2),
                      tc_grads=names[1:5] if embedder else (), f64_gates=embedder,
                      cuda_cores=cuda_cores if tc_gates else None,
-                     fwd_cuda_cores=fwd_cuda_cores if tc_gates and not embedder else None,
-                     kernel_grads=() if embedder else names[:5],
-                     fwd_on_cuda_cores=embedder)
+                     fwd_cuda_cores=fwd_cuda_cores if tc_gates else None,
+                     kernel_grads=() if embedder else names[:5])
+
+
+def check_fastkan_fwd(torch, rng, n, nin, nout, label, large=False):
+    """``fastkan``'s forward (3xTF32 on the tensor cores, its sum in two
+    levels) at an embedder's shape, with ``large`` a third of x at |x|
+    20-60, where silu(x) dominates the base slice: against the plain
+    version, no further from f64 than twice the plain f32 version, the bits
+    of a second forward and, past one image, the first image's 196 rows'
+    bits alone (its levels then in blocks of their own); CUDA-event and
+    device times beside the CUDA-core kernel it replaced
+    (``cuda_core_route``, whose distance from f64 is printed too) and the
+    plain version, and the 3xTF32 and f32 bounds."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    def cuda(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    x = fast_inputs(rng, (n, nin))
+    if large:
+        flat = x.reshape(-1)
+        idx = rng.choice(flat.size, flat.size // 3, replace=False)
+        flat[idx] = rng.uniform(20.0, 60.0, idx.size) * rng.choice([-1.0, 1.0], idx.size)
+    x = cuda(x)
+    params = [cuda(1 + 0.1 * rng.standard_normal((1, nin))),
+              cuda(0.1 * rng.standard_normal((1, nin))),
+              cuda(rng.standard_normal((nout, nin * 8)) / np.sqrt(nin * 8)),
+              cuda(rng.standard_normal((nout, nin)) / np.sqrt(nin)), cuda(np.zeros(nout))]
+    ga, be, sw, bw, _ = params
+    w = FB.pack_fastkan_weight(sw, bw, 8).unsqueeze(0).contiguous()
+    grid, den = torch.linspace(-2.0, 2.0, 8, device="cuda"), 4.0 / 7.0
+    tag = f"fastkan {label} N={n} {nin}->{nout}"
+
+    def kernel(rows=x):
+        return FB._launch_rbf("fastkan", rows, w, ga, be, grid, den)[0]
+
+    def plain(x, ga, be, *rest):
+        return K.fastkan_forward(x, ga[0], be[0], grid.to(x.dtype), den, *rest)
+
+    with torch.inference_mode():
+        y = kernel()
+        again = kernel()
+        ref = plain(x, *params)
+        exact = plain(*(a.double() for a in (x, *params)))
+        torch.cuda.synchronize()
+        err = compare(tag, y, ref, TOL_KAN)
+        check(torch.equal(y, again), f"{tag}: a second forward gave other bits")
+        if n > 196:
+            same = torch.equal(kernel(x[:196]), y[:196])
+            print(f"[kernel] {tag}: the first image's rows alone (levels in blocks of their "
+                  f"own) give the batch's bits: {same}")
+            check(same, f"{tag}: an image's rows gave other bits alone than in the batch")
+        f64 = f64_gate(tag, y, ref, exact)
+        scale = max(1.0, float(exact.abs().max()))
+        core_f64 = float((cuda_core_route(FB, kernel).double() - exact).abs().max()) / scale
+        ms = time_ms(torch, kernel)
+        dev_ms = kernel_ms(torch, kernel, 10, label=tag)
+        core_ms = cuda_core_route(FB, lambda: time_ms(torch, kernel))
+        core_dev_ms = cuda_core_route(FB, lambda: kernel_ms(torch, kernel, 10,
+                                                            label=f"{tag}, CUDA cores"))
+        plain_ms = time_ms(torch, lambda: plain(x, *params))
+    bounds = kan_bound(n, 1, 9, nin, nout, extra_floats=2 * nin + 8, tensor_cores=True)
+    print(f"[kernel] {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f}; the CUDA-core kernel "
+          f"{core_ms:.4f}, device {core_dev_ms:.4f}, {core_f64:.3e} from f64)  plain "
+          f"{plain_ms:.4f} ms  bound 3xTF32 {bounds['bound_ms']:.4f}, f32 "
+          f"{bounds['f32_bound_ms']:.4f}  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "cuda_core_ms": core_ms,
+                               "cuda_core_device_ms": core_dev_ms,
+                               "cuda_core_f64_err": core_f64}, bounds
 
 
 def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size, tc_gates=False):
@@ -1762,7 +1846,9 @@ def phase_rbf_sine_kernels(torch):
     (grid 4) at one vit-s q/k/v projection (12,608 tokens, 6 heads of 64 ->
     64), there also FastKAN without its base branch and sine at grid 3 (the
     tensor-core tiles' slices left empty, sub-entries of their kernels),
-    and ragged narrow shapes of each (nin 16, d_head 32, odd N)."""
+    and ragged narrow shapes of each (nin 16, d_head 32, odd N); the
+    FastKAN embedder's forward also with large raw inputs, at one vit-s
+    image and at the MNIST shape (``check_fastkan_fwd``, sub-entries)."""
     rng = np.random.default_rng(SEED + 9)
     results = {}
 
@@ -1774,6 +1860,15 @@ def phase_rbf_sine_kernels(torch):
                                 (37 * 49, 16, 64, "ragged")):
         keep("fastkan", check_rbf(torch, rng, "fastkan", label, n, 1, nin, nout,
                                   tc_gates=n > 10000))
+    # the embedder's forward with large raw inputs and the batch's bits, at
+    # one vit-s image (its levels in blocks of their own) and the MNIST shape
+    results["fastkan"] += tuple(
+        {key: sub_entry(check_fastkan_fwd(torch, rng, n, nin, nout, label, large))}
+        for key, n, nin, nout, label, large in (
+            ("large_silu", BATCH * 196, 768, 384, "vit-s embedder, a third of x at |x| "
+             "20-60", True),
+            ("batch_1", 196, 768, 384, "vit-s embedder, one image", False),
+            ("mnist", 37 * 49, 16, 64, "mnist embedder", False)))
     for n, h, dh, label in ((BATCH * 197, 6, 64, "vit-s q/k/v"),
                             (37 * 50 - 1, 2, 32, "ragged")):
         keep("fastkan_qkv_grouped", check_rbf(torch, rng, "fastkan_qkv_grouped",
@@ -2446,8 +2541,8 @@ KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
     ("KAN q/k/v and embedder bwd on the tensor cores (B-spline, Chebyshev, RBF, "
      "sine: dW, dx)", ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
-    ("KAN q/k/v and B-spline embedder fwd on the tensor cores (B-spline, Chebyshev, RBF, "
-     "sine)", ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
+    ("KAN q/k/v and B-spline and FastKAN embedder fwd on the tensor cores (B-spline, "
+     "Chebyshev, RBF, sine)", ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
      ("kan_tc_kernel", "kan_tc_split")),
     ("KAN basis bwd", ("kan_dx_kernel", "kan_dw_kernel", "sum_splits_kernel",
@@ -3090,12 +3185,12 @@ SOURCES = {
     "flash_attention_dkv": ("kanvit_torch/kernels/csrc/flash_attention.cu",
                             "kanvit/kernels/flash_attention.py:831"),
     "chebykan": (KAN_SRC, f"{FB_PY}:1067"),
-    "chebykan_bwd": (KAN_SRC, f"{FB_PY}:1159"),
+    "chebykan_bwd": (KAN_TC_SRC, f"{FB_PY}:1159"),
     "cheby_qkv_grouped": (KAN_TC_SRC, f"{FB_PY}:1240"),
     "cheby_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:1278"),
     "fourierkan": (KAN_TC_SRC, f"{FB_PY}:2317"),
     "fourierkan_bwd": (KAN_TC_SRC, f"{FB_PY}:2564"),
-    "fastkan": (RBF_SINE_SRC, f"{FB_PY}:2947"),
+    "fastkan": (KAN_TC_SRC, f"{FB_PY}:2947"),
     "fastkan_bwd": (KAN_TC_SRC, f"{FB_PY}:2995"),
     "fastkan_qkv_grouped": (KAN_TC_SRC, f"{FB_PY}:3191"),
     "fastkan_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:3246"),
@@ -3160,6 +3255,13 @@ ROUTES = {
                   "a block at every width), each lane's A fragments T_0..T_4 of tanh of its "
                   "own x values made in registers, W split once a call by kan_tc_fwd_split",
         "instantiated_in": KAN_SRC},
+    "chebykan_bwd": {
+        "kernel": "the grouped q/k/v backward's templates at one group: dW on 3xTF32 "
+                  "mma.sync.m16n8k8, kan_tc_dw_grouped<Cheby, NJ> over T_0..T_4 of tanh x "
+                  "generated on chip, in row splits filling whole waves, summed in a fixed "
+                  "order; dx, where asked, from kan_tc_dx_kernel<Cheby> with T'_n (0 where "
+                  "tanh rounds to +-1) in its epilogue",
+        "instantiated_in": KAN_SRC},
     "cheby_qkv_grouped_bwd": {
         "kernel": "dW and dx on 3xTF32 mma.sync.m16n8k8: kan_tc_dw_grouped<Cheby, NJ> "
                   "over a basis generated on chip, in row splits summed in a fixed order; "
@@ -3189,6 +3291,15 @@ ROUTES = {
                   "kan_tc_dx_kernel<Rbf> with the RBF fold (dln, the silu term) in its "
                   "epilogue; the LayerNorm's VJP, dgamma and dbeta on ln_dx_kernel and "
                   "ln_dgb_kernel",
+        "instantiated_in": RBF_SINE_SRC},
+    "fastkan": {
+        "kernel": "the LayerNorm's statistics (ln_stats_kernel), then the grouped q/k/v "
+                  "forward's template at one group: 3xTF32 mma.sync.m16n8k8, "
+                  "kan_tc_fwd_grouped<Rbf, 8, 12, 1, Tf32x3, 12> (64 outputs a block), each "
+                  "lane's A fragments the RBF basis of its own x values made in registers, "
+                  "the silu slice in a second running sum with exact products, W split once "
+                  "a call by kan_tc_fwd_split, the 768-deep sum in two levels (the running "
+                  "sums of every 12 stages added into y)",
         "instantiated_in": RBF_SINE_SRC},
     "fastkan_bwd": {
         "kernel": "the grouped q/k/v backward's templates at one group: dW on 3xTF32 "

@@ -25,8 +25,9 @@
 //             forwards (_fused_fwd_sg) run on the tensor cores too
 //             (kan_basis_tc.cuh, part 3, for Bspline and Cheby), and so do
 //             bspline_kan's forward and backward (_fused_fwd, _fused_bwd)
-//             as their one-group case; chebykan's forward and backward on
-//             the CUDA cores (kan_basis.cuh).
+//             and chebykan's backward (_fused_bwd, entry
+//             kanvit_cheby_qkv_tc_bwd) as their one-group case; chebykan's
+//             forward on the CUDA cores (kan_basis.cuh).
 //   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
 //   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
 //   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on

@@ -9,14 +9,15 @@
 // projection, one group a head, templated over kan_basis.cuh's basis
 // families (kan_tc_dw_grouped, kan_tc_dx_kernel); instantiated for B-spline
 // and Chebyshev in kan_basis.cu and for RBF and sine in kan_rbf_sine.cu;
-// the B-spline and FastKAN embedders' backward is its one-group case.
+// the B-spline, FastKAN and Chebyshev embedders' backward is its one-group
+// case.
 //
 // Part 3 (below, "The grouped q/k/v forward"): y of a grouped KAN projection
 // (kan_tc_fwd_grouped), templated over the same families; instantiated for
 // B-spline and Chebyshev in kan_basis.cu and for RBF and sine (up to 4
-// slices) in kan_rbf_sine.cu; the B-spline embedder's forward is its
-// one-group case, its 768-deep sum in two levels. The sine grouped forward
-// past 4 slices and the Chebyshev and RBF embedders' forwards stay on
+// slices) in kan_rbf_sine.cu; the B-spline and FastKAN embedders' forward
+// is its one-group case, its 768-deep sum in two levels. The sine grouped
+// forward past 4 slices and the Chebyshev embedder's forward stay on
 // kan_basis.cuh's CUDA-core kan_fwd_kernel.
 //
 // Part 1:
@@ -630,7 +631,12 @@ int launch_tc_dw(const float* x, long long ldx, typename F::Params p, const floa
 // kernel writes dln, 4,704 blocks, 384 outputs deep in one running sum. So
 // is the B-spline patch embedder's (_fused_bwd, :1159, from bspline_kan's
 // VJP), the same shape with B' in the dx kernel's epilogue; the training
-// step asks it for dW alone.
+// step asks it for dW alone. And the Chebyshev patch embedder's (_fused_bwd,
+// :1159, from _cheby_op's VJP, :3499): 5 slices, one dW block an SM at NJ 3
+// too (below), 11 splits; at vit-s its dW alone ran 0.9440 ms against the
+// CUDA-core kernels' 2.4350, with dx 1.7011 against 4.3577, on the H100
+// 80GB HBM3 at 700 W (kanvit_torch/probe_embedder_rbf.py --cheby, which
+// timed 8, 16 and 22 splits within 0.04 ms of 11).
 //
 // What bounds it on the H100: the products. At the vit-s q/k/v (n 12,608,
 // 6 heads of nin 64, nout 192) dW and dx are 16.73 GFLOP each: 0.4995 ms in
@@ -1266,7 +1272,20 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // stages, 1.70 ms against the CUDA-core kernel's 0.75 on the H100 80GB HBM3
 // at 700 W) each level runs in blocks of its own into a partial, and
 // sum_splits adds them in level order: the same sum, so a row's bits do
-// not depend on the batch (the wrapper's tc_fwd_splits).
+// not depend on the batch (the wrapper's tc_fwd_splits). The FastKAN
+// embedder (_rbf_ln_base_op, :2947, from fastkan :3600; _rbf_base_op, :2726,
+// without its LayerNorm) sums in the same two levels of 12 stages, its
+// silu slice in the second running sum, in the RBF q/k/v's 64-output shape
+// (12 warps, one block an SM): 396 blocks, three waves, 1.9343 ms at vit-s
+// against the CUDA-core kernel's 3.3407 (statistics pass included: 1.9552)
+// on the H100 80GB HBM3 at 700 W. probe_embedder_rbf.py --fastkan timed 8
+// warps at two blocks an SM 2.1268, three 2.9733, 128-output tiles 2.4277
+// (12 warps) and 2.9106 (8); 192-output tiles cannot hold two stages of
+// its 10 steps. One running sum ran 1.8436 ms and landed 4.0e-7 from f64
+// (levels of 12: 1.8e-7; the plain f32 version 1.3e-6), but an image alone
+// would then run 12 blocks through all 96 stages; below one wave the levels
+// split as B-spline's (one vit-s image: 0.1025 ms device against the
+// CUDA-core kernel's 0.5541).
 //
 // Edge semantics as kan_fwd_kernel's: the family's values (B-spline: x on a
 // knot starts the next interval, x outside every span has zero spline

@@ -15,8 +15,10 @@
 //
 // Replaces the TPU kernels of kanvit/kernels/fused_basis.py:
 //   RBF:  _rbf_ln_base_op fwd (pallas_call at :2947) and bwd (:2995), reached
-//         from fastkan (:3600), the patch embedder, its backward's dx (dln)
-//         and dW on the tensor cores (part 2 at one group, entry
+//         from fastkan (:3600), the patch embedder, its forward on the
+//         tensor cores after the statistics pass (part 3 at one group, its
+//         sum in two levels, entry kanvit_fastkan_kan_tc_fwd), its
+//         backward's dx (dln) and dW too (part 2 at one group, entry
 //         kanvit_fastkan_qkv_tc_bwd); _rbf_ln_sg_op fwd
 //         (:3191) and bwd (:3246), reached from fastkan_qkv_grouped (:3300),
 //         one launch per q/k/v projection over every head, its forward on
@@ -89,8 +91,16 @@ namespace {
 constexpr float LN_EPS = 1e-5f;
 // kan_tc_fwd_grouped's shape up to 64 outputs (one q/k/v projection) a
 // family: warps a block, blocks an SM (why these: kan_basis_tc.cuh part 3).
+// RBF keeps it at every width (the launch's NARROW), the embedder's too: a
+// 192-output tile's two stages of its 10 steps would take 245,760 bytes of
+// shared memory, past a block's 232,448.
 constexpr int RBF_FWD_WARPS = 12, RBF_FWD_MINB = 1;
 constexpr int SINE_FWD_WARPS = 8, SINE_FWD_MINB = 3;
+// The FastKAN embedder's forward sums its 768 features (96 stages at
+// vit-s) in two levels of FASTKAN_EMB_FLUSH stages, as B-spline's does, so
+// that a small batch can run each level in blocks of its own
+// (kan_basis_tc.cuh part 3).
+constexpr int FASTKAN_EMB_FLUSH = 12;
 
 struct Rbf : FamilyDefaults {
   static constexpr int NG = 8;           // RBF centres
@@ -423,6 +433,22 @@ unsigned ln_blocks(int n, int groups) {
   return (unsigned)(((long long)n * groups + LN_WARPS - 1) / LN_WARPS);
 }
 
+// The forward's first pass: the LayerNorm's statistics into stats where the
+// layer has one (gamma given); then the family's parameters over them.
+int ln_stats_pass(const float* x, long long ldx, const float* gamma, float* stats, int n,
+                  int groups, int nin, cudaStream_t st) {
+  if (gamma == nullptr) return 0;
+  ln_stats_kernel<<<ln_blocks(n, groups), LN_WARPS * 32, 0, st>>>(x, ldx, stats, n, groups,
+                                                                  nin);
+  return (int)cudaGetLastError();
+}
+
+Rbf::Params rbf_params(const float* gamma, const float* beta, const float* centres,
+                       float inv_h, const float* stats, int groups, int base) {
+  return {gamma != nullptr ? stats : nullptr, gamma, beta, centres, inv_h, groups,
+          base ? 1 : 0};
+}
+
 // The LayerNorm's backward from dln: dx += its VJP (dx null: skipped), and
 // dgb = (dgamma, dbeta) (null: skipped) from ln_splits row partials.
 int ln_bwd(const float* x, long long ldx, const float* stats, const float* gamma,
@@ -500,17 +526,10 @@ extern "C" int kanvit_fastkan_fwd(const float* x, long long ldx,
                                   int n, int groups, int nin, int nout,
                                   int base, void* stream) {
   if (bad_shape(n, groups, nin, nout)) return (int)cudaErrorInvalidValue;
-  const cudaStream_t st = (cudaStream_t)stream;
-  const bool ln = gamma != nullptr;
-  if (ln) {
-    ln_stats_kernel<<<ln_blocks(n, groups), LN_WARPS * 32, 0, st>>>(
-        x, ldx, stats, n, groups, nin);
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  const Rbf::Params p{ln ? stats : nullptr, gamma, beta, centres, inv_h, groups,
-                      base ? 1 : 0};
-  return launch_fwd<Rbf>(x, ldx, p, w, y, n, groups, nin, nout, stream);
+  const int err = ln_stats_pass(x, ldx, gamma, stats, n, groups, nin, (cudaStream_t)stream);
+  if (err != 0) return err;
+  return launch_fwd<Rbf>(x, ldx, rbf_params(gamma, beta, centres, inv_h, stats, groups, base),
+                         w, y, n, groups, nin, nout, stream);
 }
 
 // FastKAN backward: x, gamma, beta, centres, inv_h, w, base as the forward,
@@ -532,8 +551,7 @@ extern "C" int kanvit_fastkan_bwd(const float* x, long long ldx,
   if (bad_shape(n, groups, nin, nout) || (dgb != nullptr && !ln))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const Rbf::Params p{ln ? stats : nullptr, gamma, beta, centres, inv_h, groups,
-                      base ? 1 : 0};
+  const Rbf::Params p = rbf_params(gamma, beta, centres, inv_h, stats, groups, base);
   return rbf_bwd(
       x, ldx, gamma, stats, dx, dw, dln, dgb, dgb_part, n, groups, nin, ln_splits, st,
       [&](float* out0, float* out1, int split) {
@@ -603,8 +621,7 @@ extern "C" int kanvit_fastkan_qkv_tc_bwd(const float* x, long long ldx,
   if (bad_shape(n, groups, nin, nout) || (dgb != nullptr && !ln))
     return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const Rbf::Params p{ln ? stats : nullptr, gamma, beta, centres, inv_h, groups,
-                      base ? 1 : 0};
+  const Rbf::Params p = rbf_params(gamma, beta, centres, inv_h, stats, groups, base);
   return rbf_bwd(
       x, ldx, gamma, stats, dx, dw, dln, dgb, dgb_part, n, groups, nin, ln_splits, st,
       [&](float* out0, float* out1, int split) {
@@ -660,18 +677,30 @@ extern "C" int kanvit_fastkan_qkv_tc_fwd(const float* x, long long ldx, const fl
                                          void* stream) {
   if (bad_shape(n, groups, nin, nout)) return (int)cudaErrorInvalidValue;
   const cudaStream_t st = (cudaStream_t)stream;
-  const bool ln = gamma != nullptr;
-  if (ln) {
-    ln_stats_kernel<<<ln_blocks(n, groups), LN_WARPS * 32, 0, st>>>(x, ldx, stats, n, groups,
-                                                                    nin);
-    const int err = (int)cudaGetLastError();
-    if (err != 0) return err;
-  }
-  const Rbf::Params p{ln ? stats : nullptr, gamma, beta, centres, inv_h, groups,
-                      base ? 1 : 0};
-  return launch_tc_grouped_fwd<Rbf, RBF_FWD_WARPS, RBF_FWD_MINB>(x, ldx, p, w, y, wsplit,
-                                                                wwords, n, groups, nin, nout,
-                                                                st);
+  const int err = ln_stats_pass(x, ldx, gamma, stats, n, groups, nin, st);
+  if (err != 0) return err;
+  return launch_tc_grouped_fwd<Rbf, RBF_FWD_WARPS, RBF_FWD_MINB, true>(
+      x, ldx, rbf_params(gamma, beta, centres, inv_h, stats, groups, base), w, y, wsplit,
+      wwords, n, groups, nin, nout, st);
+}
+
+// The FastKAN patch embedder's forward (fastkan's) on the tensor cores:
+// kanvit_fastkan_qkv_tc_fwd's arguments, steps and shape at one group, its
+// sum in two levels; splits 1, or one a level with part scratch of splits n
+// groups nout floats (launch_tc_grouped_fwd).
+extern "C" int kanvit_fastkan_kan_tc_fwd(const float* x, long long ldx, const float* gamma,
+                                         const float* beta, const float* centres,
+                                         float inv_h, const float* w, float* y, float* stats,
+                                         unsigned int* wsplit, long long wwords, float* part,
+                                         int splits, int n, int groups, int nin, int nout,
+                                         int base, void* stream) {
+  if (bad_shape(n, groups, nin, nout)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int err = ln_stats_pass(x, ldx, gamma, stats, n, groups, nin, st);
+  if (err != 0) return err;
+  return launch_tc_grouped_fwd<Rbf, RBF_FWD_WARPS, RBF_FWD_MINB, true, FASTKAN_EMB_FLUSH>(
+      x, ldx, rbf_params(gamma, beta, centres, inv_h, stats, groups, base), w, y, wsplit,
+      wwords, n, groups, nin, nout, st, part, splits);
 }
 
 // The grouped SineKAN q/k/v forward (sinekan_qkv_grouped's, grid_size <= 4)

@@ -26,8 +26,8 @@ RBF with its LayerNorm, sine):
 3xTF32 ``mma.sync`` over a basis generated on chip), their dx on the
 CUDA-core template. The backward (dx and dW) of :func:`bspline_qkv_grouped`,
 :func:`cheby_qkv_grouped`, :func:`fastkan_qkv_grouped` and
-:func:`sinekan_qkv_grouped`, and of :func:`bspline_kan` and :func:`fastkan`
-as their one-group case, runs on the tensor cores too
+:func:`sinekan_qkv_grouped`, and of :func:`bspline_kan`, :func:`fastkan` and
+:func:`chebykan` as their one-group case, runs on the tensor cores too
 (``csrc/kan_basis_tc.cuh``, part 2: 3xTF32 ``mma.sync``, dW over a basis
 generated on chip in row splits summed in a fixed order, dx with the basis
 derivative or the family's fold in the epilogue: FastKAN's dln for its
@@ -35,9 +35,9 @@ LayerNorm's VJP, sine's dfreq sums), and so does the forward of
 :func:`bspline_qkv_grouped`, :func:`cheby_qkv_grouped`,
 :func:`fastkan_qkv_grouped` (after its LayerNorm's statistics),
 :func:`sinekan_qkv_grouped` and, as their one-group case with its 768-deep
-sum in two levels, :func:`bspline_kan` (part 3: each lane makes the basis of
-its own A fragments in registers). :func:`chebykan` and the forward of
-:func:`fastkan` run on the CUDA-core template. The route is chosen by call
+sum in two levels, :func:`bspline_kan` and :func:`fastkan` (part 3: each
+lane makes the basis of its own A fragments in registers). The forward of
+:func:`chebykan` runs on the CUDA-core template. The route is chosen by call
 site, never by size, with one exception: the tensor-core tiles hold at most
 4 sine slices, so a grouped sine forward or backward of a larger grid takes
 the CUDA-core kernels.
@@ -101,40 +101,48 @@ TC_FWD_FEATURES = {"fourier": 16, "sine": 32}
 # The call sites on the tensor-core kernels (the rest: the CUDA-core ones).
 TC_ROUTES = ("fourierkan", "sinekan")
 # The grouped backward on the tensor cores (csrc/kan_basis_tc.cuh, part 2),
-# and the FastKAN embedder's as its one-group case: features a block (an m16
-# tile a slice), the dW kernel's 32-row stages and its outputs a block (64
-# up to nout 64, else 192), and the dx kernel's rows a block and 16-output
-# stages; the slices a family's tile holds (its SC).
+# and the B-spline, FastKAN and Chebyshev embedders' as its one-group case:
+# features a block (an m16 tile a slice), the dW kernel's 32-row stages and
+# its outputs a block (64 up to nout 64, else 192), and the dx kernel's rows
+# a block and 16-output stages; the slices a family's tile holds (its SC).
+# The Chebyshev embedder's no-dx backward keeps the tensor cores at one
+# vit-s image, where the CUDA-core kernels took ~5 us less of the card
+# (0.063 against 0.068 ms; at the MNIST embedders the tensor cores took 7
+# us against 39; kanvit_torch/probe_embedder_rbf.py --cheby, NVIDIA H100
+# 80GB HBM3 at 700 W; PERF.md).
 TC_GROUPED_BWD = ("bspline_qkv_grouped_bwd", "cheby_qkv_grouped_bwd",
                   "fastkan_qkv_grouped_bwd", "sinekan_qkv_grouped_bwd", "fastkan_bwd",
-                  "bspline_kan_bwd")
+                  "bspline_kan_bwd", "chebykan_bwd")
 TCG_FEATURES, TCG_DX_ROWS, TCG_DX_STAGE = 16, 128, 16
 TCG_SLICES = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 1,
               "sine": SINE_CHUNK}
-# The grouped forward on the tensor cores (part 3), and the B-spline
-# embedder's as its one-group case: its features a stage (one mma step a
-# slice), its outputs a block as the grouped dW's, and the steps of a
+# The grouped forward on the tensor cores (part 3), and the B-spline and
+# FastKAN embedders' as its one-group case: its features a stage (one mma
+# step a slice), its outputs a block (``tc_fwd_outs``), and the steps of a
 # stage's split W a family (its tile's slices; RBF one more, the silu
 # slice's remainders; the entries take the scratch's word count and refuse
 # one too short for their steps); sine up to SINE_CHUNK slices.
 TC_GROUPED_FWD = ("bspline_qkv_grouped", "cheby_qkv_grouped", "fastkan_qkv_grouped",
-                  "sinekan_qkv_grouped", "bspline_kan")
+                  "sinekan_qkv_grouped", "bspline_kan", "fastkan")
 # The call sites whose forward sums in two levels, and the stages of a level
-# (kan_basis.cu's BSPLINE_EMB_FLUSH); the rows of a forward block (12 warps of
-# 16), which decide when its levels run in blocks of their own.
-TCG_FWD_FLUSH = {"bspline_kan": 12}
+# (kan_basis.cu's BSPLINE_EMB_FLUSH, kan_rbf_sine.cu's FASTKAN_EMB_FLUSH); the
+# rows of a forward block (12 warps of 16), which decide with its outputs
+# when its levels run in blocks of their own.
+TCG_FWD_FLUSH = {"bspline_kan": 12, "fastkan": 12}
 TCG_FWD_ROWS = 192
-# The B-spline embedder's forward keeps the tensor cores at every size:
-# below one wave of their blocks (the MNIST embedders, 16 -> 64) the
-# CUDA-core kernel took 1-2 us less of the card and ~25 us less of the host
-# a call, but landed 3.0e-07 from f64 against the plain f32 version's
-# 1.3e-07, past the twice that the tensor cores hold (chip_smoke.py and
-# kanvit_torch/probe_embedder_rbf.py --bspline, NVIDIA H100 80GB HBM3 at
-# 700 W; PERF.md).
+# The B-spline and FastKAN embedders' forwards keep the tensor cores at
+# every size: below one wave of their blocks (the MNIST embedders, 16 -> 64)
+# the CUDA-core kernels took 1-6 us less of the card and ~25 us less of the
+# host a call, but landed 3.0e-07 (B-spline) and 4.6e-07 (FastKAN) from f64
+# against the plain f32 version's 1.3e-07, past the twice that the tensor
+# cores hold (chip_smoke.py and kanvit_torch/probe_embedder_rbf.py
+# --bspline, --fastkan, NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
 TCG_FWD_FEATURES = 8
 TCG_FWD_STEPS = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 2,
                  "sine": SINE_CHUNK}
-TCG_FWD_NARROW = ("cheby",)  # 64 outputs a forward block at every width
+# 64 outputs a forward block at every width (RBF: its 10 steps a stage do
+# not fit two stages of 192 outputs in shared memory)
+TCG_FWD_NARROW = ("cheby", "rbf")
 TCG_DW_TARGET_BLOCKS = 4  # blocks an SM the dW row splits aim at
 
 
@@ -486,15 +494,23 @@ def tc_grouped_outs(nout: int) -> int:
     return 64 if nout <= 64 else 192
 
 
-def tc_fwd_splits(name: str, n: int, groups: int, nin: int, nout: int, n_sm: int) -> int:
-    """Splits of a two-level tensor-core forward (``TCG_FWD_FLUSH``): one
-    a level where its blocks fill less than one wave (a vit-s image: 4
-    blocks of 96 stages, 8 levels), else 1. The levels are summed in the
-    same order either way, so a row's bits do not depend on the batch."""
+def tc_fwd_outs(family: str, nout: int) -> int:
+    """Outputs a block of the grouped tensor-core forward: 64 for a family
+    in ``TCG_FWD_NARROW``, else the grouped dW's."""
+    return 64 if family in TCG_FWD_NARROW else tc_grouped_outs(nout)
+
+
+def tc_fwd_splits(name: str, n: int, groups: int, nin: int, nout: int, n_sm: int,
+                  family: str = "bspline") -> int:
+    """Splits of a two-level tensor-core forward (``TCG_FWD_FLUSH``) of
+    ``family``: one a level where its blocks fill less than one wave (a
+    vit-s image: B-spline 4 blocks, FastKAN 12, of 96 stages, 8 levels),
+    else 1. The levels are summed in the same order either way, so a row's
+    bits do not depend on the batch."""
     flush = TCG_FWD_FLUSH.get(name)
     if flush is None:
         return 1
-    blocks = -(-n // TCG_FWD_ROWS) * groups * -(-nout // tc_grouped_outs(nout))
+    blocks = -(-n // TCG_FWD_ROWS) * groups * -(-nout // tc_fwd_outs(family, nout))
     levels = -(-(-(-nin // TCG_FWD_FEATURES)) // flush)
     return levels if blocks < n_sm and levels > 1 else 1
 
@@ -534,13 +550,12 @@ def _tc_grouped_scratch(family, w, n, need_dx, need_dw, dev):
 
 def _tc_grouped_fwd_scratch(w, dev, family: str = "bspline") -> torch.Tensor:
     """W split for the grouped tensor-core forward: for every group and
-    block of outputs (64, or the grouped dW's for a family not in
-    ``TCG_FWD_NARROW``), ``ceil(nin / 8)`` stages of the family's steps (the
-    slices its tile holds, which the pre-pass writes whatever the weight's
-    S, zeros past it; RBF one more, the silu slice's remainders) x 8
-    features x the block's outputs, two words a value."""
+    block of outputs (``tc_fwd_outs``), ``ceil(nin / 8)`` stages of the
+    family's steps (the slices its tile holds, which the pre-pass writes
+    whatever the weight's S, zeros past it; RBF one more, the silu slice's
+    remainders) x 8 features x the block's outputs, two words a value."""
     groups, _, nin, out = w.shape
-    outs = 64 if family in TCG_FWD_NARROW else tc_grouped_outs(out)
+    outs = tc_fwd_outs(family, out)
     return torch.empty(groups * -(-out // outs) * -(-nin // TCG_FWD_FEATURES)
                        * TCG_FWD_STEPS[family] * outs * TCG_FWD_FEATURES * 2,
                        dtype=torch.int32, device=dev)
@@ -726,9 +741,9 @@ def fourierkan(x, coeffs, bias):
 def _launch_rbf(name: str, x2d, w, gamma, beta, grid, denominator: float):
     """``(y (N, G*out), stats (N, G, 2) or None)`` from the RBF forward
     kernels: the LayerNorm's statistics when ``gamma`` is given, then the
-    fused RBF (and silu, for a 9-slice weight) contraction, on the tensor
-    cores for ``fastkan_qkv_grouped``, on the CUDA cores for the
-    embedder."""
+    fused RBF (and silu, for a 9-slice weight) contraction on the tensor
+    cores, the embedder's (``fastkan``) as the grouped q/k/v's one-group
+    case with its 768-deep sum in two levels (``TCG_FWD_FLUSH``)."""
     check_rbf_args(x2d, w, gamma, beta, grid)
     _check_device(name, x2d, w, grid, *(() if gamma is None else (gamma, beta)))
     n = x2d.shape[0]
@@ -747,8 +762,15 @@ def _launch_rbf(name: str, x2d, w, gamma, beta, grid, denominator: float):
     with torch.cuda.device(dev):
         if name in TC_GROUPED_FWD:
             wsplit = _tc_grouped_fwd_scratch(w, dev, "rbf")
-            err = lib.kanvit_fastkan_qkv_tc_fwd(*common, wsplit.data_ptr(), wsplit.numel(),
-                                                *shape, _stream(dev))
+            head = (*common, wsplit.data_ptr(), wsplit.numel())
+            if name in TCG_FWD_FLUSH:
+                splits = tc_fwd_splits(name, *shape[:4], torch.cuda.get_device_properties(
+                    dev).multi_processor_count, "rbf")
+                part = _empty(splits, n, groups * out, device=dev) if splits > 1 else None
+                err = lib.kanvit_fastkan_kan_tc_fwd(*head, _ptr(part), splits, *shape,
+                                                    _stream(dev))
+            else:
+                err = lib.kanvit_fastkan_qkv_tc_fwd(*head, *shape, _stream(dev))
         else:
             err = lib.kanvit_fastkan_fwd(*common, *shape, _stream(dev))
     return _counted(name, err, y, stats)

@@ -1,8 +1,9 @@
-"""The patch embedders on the tensor cores: the FastKAN embedder's
-backward and the B-spline embedder's forward and backward, their tiles and
-row splits, and the routes' kernels timed apart.
+"""The patch embedders on the tensor cores: the FastKAN embedder's forward
+and backward, the B-spline embedder's forward and backward and the
+Chebyshev embedder's backward, their tiles and row splits, and the routes'
+kernels timed apart.
 
-    python -m kanvit_torch.probe_embedder_rbf [--bspline]
+    python -m kanvit_torch.probe_embedder_rbf [--bspline] [--fastkan] [--cheby]
 
 Builds the kernels, then a library from ``csrc/kan_rbf_sine.cu`` that runs
 ``kan_tc_dw_grouped<Rbf, NJ>`` (``csrc/kan_basis_tc.cuh``, part 2) at a
@@ -30,7 +31,21 @@ dW and dx against f64) and dW over ``SPLITS``; and both routes (the
 tensor cores and the CUDA cores) at the MNIST embedders (1,813 and 6,272
 rows, 16 -> 64) and at one vit-s image (196 rows), forward and no-dx
 backward, by CUDA events, device time and host time a call, in three turns.
-The last line holds the times as JSON.
+
+``--fastkan`` builds a library from ``csrc/kan_rbf_sine.cu`` with
+``kan_tc_fwd_grouped<Rbf, NT, WARPS, MINB, Tf32x3, FLUSH>`` shapes
+(``FASTKAN_SHAPES``: 128- and 64-output tiles, 8 or 12 warps, 1-3 blocks an
+SM, flush 6, 12, 24 or none) and times the FastKAN embedder's forward at
+vit-s as ``--bspline`` times the B-spline one (each shape against the
+route's bits and f64, also with a third of x at |x| 20-60, beside the
+CUDA-core kernel), then both routes at the MNIST embedders and one vit-s
+image, with their distances from f64. ``--cheby`` builds one from
+``csrc/kan_basis.cu`` exposing ``kan_tc_dw_grouped<Cheby, NJ>`` at a split
+count and times the Chebyshev embedder's backward at vit-s (a tenth of x
+where tanh rounds to +-1: no dx, all gradients, by kernel, dW and dx
+against f64, the CUDA-core kernels), dW over ``CHEBY_SPLITS``, and both
+routes' no-dx backward at the small shapes. The last line holds the times
+as JSON.
 """
 
 from __future__ import annotations
@@ -103,6 +118,34 @@ extern "C" int probe_bspline_dw(int nj, const float* x, long long ldx, const flo
     f"w, y, ws, ww, n, 1, nin, nout, st);" for i, (nt, w, mb, fl) in enumerate(BSPLINE_SHAPES)))
 
 
+# The MNIST embedders and one vit-s image: (tag, rows, nin, nout)
+SMALL = (("mnist embedder (chip_smoke.py)", 37 * 49, 16, 64),
+         ("reference embedder, batch 128", 128 * 49, 16, 64),
+         ("vit-s embedder, batch 1", 196, 768, 384))
+
+
+def routes_in_turns(C, torch, FB, label, parts):
+    """Each ``(part, fn)`` of ``parts`` on the tensor cores and on the CUDA
+    cores (``cuda_core_route``) in three turns, to see the run's noise: CUDA
+    events, device time and host time a call."""
+    from kanvit_torch.probe_qkv_fwd import host_ms
+
+    entry = {}
+    with torch.inference_mode():
+        for turn in range(3):
+            for part, fn in parts:
+                for route, wrap in (("tensor cores", lambda f: f()),
+                                    ("CUDA cores", lambda f: C.cuda_core_route(FB, f))):
+                    e = {"ms": wrap(lambda: C.time_ms(torch, fn, iters=200)),
+                         "device_ms": wrap(lambda: C.kernel_ms(torch, fn, 50)),
+                         "host_ms": wrap(lambda: host_ms(torch, fn))}
+                    entry.setdefault(f"{part}, {route}", []).append(e)
+                    print(f"[probe_embedder] {label}, turn {turn}, {part} on the {route}: "
+                          f"{e['ms']:.4f} ms (device {e['device_ms']:.4f}, host "
+                          f"{e['host_ms']:.4f} a call)", flush=True)
+    return entry
+
+
 def f64_dist(got, exact):
     """max|got - exact| x max(1, max|exact|)^-1."""
     return float((got.double() - exact).abs().max()) / max(1.0, float(exact.abs().max()))
@@ -124,7 +167,6 @@ def bspline_embedder(lib, C, torch, times):
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.layers import KANLinear
     from kanvit_torch.ops import kan_bases as K
-    from kanvit_torch.probe_qkv_fwd import host_ms
 
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
     fwd, dw_fn = lib.probe_bspline_fwd, lib.probe_bspline_dw
@@ -258,35 +300,276 @@ def bspline_embedder(lib, C, torch, times):
                   f"{e['diff']:.2e} x max|dW|", flush=True)
     times["bspline_kan_bwd vit-s"] = entry
 
-    # both routes at the MNIST embedders and at one vit-s image
-    for tag, rows, nin, nout in (("mnist embedder (chip_smoke.py)", 37 * 49, 16, 64),
-                                 ("reference embedder, batch 128", 128 * 49, 16, 64),
-                                 ("vit-s embedder, batch 1", 196, 768, 384)):
+    for tag, rows, nin, nout in SMALL:
         x, (grid, *_), w = case(rows, nin, nout)
         g = torch.from_numpy(rng.standard_normal((rows, nout)).astype(np.float32)).cuda()
-        entry = {}
+        times[f"bspline_kan {tag}"] = routes_in_turns(C, torch, FB, f"bspline {tag} {rows} x "
+                                                      f"{nin} -> {nout}", (
+            ("forward", lambda: FB._launch("bspline_kan", "bspline", x, w, grid)),
+            ("no-dx backward", lambda: FB._launch_bwd(name, "bspline", x, w, grid, g, False,
+                                                      True))))
+
+
+# (n8 tiles a warp, warps a block, blocks an SM, stages a level of the sum)
+# of the FastKAN embedder's forward; the route's first. No 192-output tile:
+# two stages of its 10 steps (the silu slice's remainders the tenth) would
+# take 245,760 bytes of shared memory, past a block's 232,448.
+FASTKAN_SHAPES = ((8, 12, 1, 12), (8, 12, 1, 6), (8, 12, 1, 24), (8, 12, 1, 0),
+                  (8, 8, 2, 12), (8, 8, 3, 12), (16, 8, 1, 12), (16, 12, 1, 12))
+
+FASTKAN_SOURCE = r"""
+#include "kan_rbf_sine.cu"
+
+extern "C" int probe_fastkan_fwd(int v, const float* x, long long ldx, const float* gamma,
+                                 const float* beta, const float* centres, float inv_h,
+                                 const float* stats, const float* w, float* y,
+                                 unsigned int* ws, long long ww, int n, int nin, int nout,
+                                 void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Rbf::Params p{stats, gamma, beta, centres, inv_h, 1, 1};
+  switch (v) {
+CASES
+  }
+  return -1;
+}
+""".replace("CASES", "\n".join(
+    f"    case {i}: return launch_tc_fwd_grouped<Rbf, {nt}, {w}, {mb}, {fl}>(x, ldx, p, w, y, "
+    f"ws, ww, n, 1, nin, nout, st);" for i, (nt, w, mb, fl) in enumerate(FASTKAN_SHAPES)))
+
+# (NJ, row splits) of the Chebyshev embedder's dW; the route's are (3,
+# tc_grouped_dw_splits): 11 at vit-s
+CHEBY_SPLITS = ((3, 8), (3, 11), (3, 16), (3, 22), (1, 4), (1, 11), (1, 22))
+
+CHEBY_SOURCE = r"""
+#include "kan_basis.cu"
+
+extern "C" int probe_cheby_dw(int nj, const float* x, long long ldx, const float* gy,
+                              float* dw, float* dw_part, int n, int nin, int nout, int splits,
+                              void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int vec = tc_gy_vec(gy, 1, nout);
+  if (nj == 1)
+    return launch_tc_dw_grouped<Cheby, 1>(x, ldx, {}, gy, nout, vec, dw, dw_part, n, 1, nin,
+                                          nout, splits, st);
+  return launch_tc_dw_grouped<Cheby, 3>(x, ldx, {}, gy, nout, vec, dw, dw_part, n, 1, nin,
+                                        nout, splits, st);
+}
+"""
+
+
+def fastkan_embedder(lib, C, torch, times):
+    """The FastKAN embedder's forward (``--fastkan``): the route and the
+    shapes of ``FASTKAN_SHAPES`` at vit-s, each against the route's bits,
+    timed (the shapes without the LayerNorm's statistics pass, which the
+    route runs first), and held against f64 beside the plain f32 version
+    and the CUDA-core kernel (inputs as ``chip_smoke.py`` draws them, and a
+    third at |x| 20-60); then both routes at the MNIST embedders and one
+    vit-s image."""
+    import numpy as np
+
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    fwd = lib.probe_fastkan_fwd
+    fwd.argtypes = [i32, p, i64, p, p, p, f32, *[p] * 4, i64, *[i32] * 3, p]
+    fwd.restype = i32
+    rng = np.random.default_rng(C.SEED + 11)
+    grid, den = torch.linspace(-2.0, 2.0, 8, device="cuda"), 4.0 / 7.0
+
+    def cuda(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    def case(n, nin, nout, large=False):
+        x = C.fast_inputs(rng, (n, nin))
+        ga, be = cuda(1 + 0.1 * rng.standard_normal((1, nin))), cuda(
+            0.1 * rng.standard_normal((1, nin)))
+        sw = cuda(rng.standard_normal((nout, nin * 8)) / np.sqrt(nin * 8))
+        bw = cuda(rng.standard_normal((nout, nin)) / np.sqrt(nin))
+        x = cuda(large_silu(rng, x) if large else x)
+        return x, ga, be, sw, bw, FB.pack_fastkan_weight(sw, bw, 8).unsqueeze(0).contiguous()
+
+    def plain(x, ga, be, sw, bw):
+        return K.fastkan_forward(x, ga[0], be[0], grid.to(x.dtype), den, sw, bw,
+                                 torch.zeros(sw.shape[0], dtype=x.dtype, device=x.device))
+
+    def f64_of(x, ga, be, sw, bw):
+        return plain(*(a.double() for a in (x, ga, be, sw, bw)))
+
+    n, nin, nout = C.BATCH * 196, 768, 384
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = torch.empty(-(-nin // 8) * 10 * 16 * (-(-nout // 64) * 64 + 192), dtype=torch.int32,
+                     device="cuda")
+    for tag, large in (("vit-s", False), ("vit-s, a third of x at |x| 20-60", True)):
+        x, ga, be, sw, bw, w = case(n, nin, nout, large)
         with torch.inference_mode():
-            for turn in range(3):  # the routes in turns, to see the run's noise
-                for part, fn in (
-                        ("forward", lambda: FB._launch("bspline_kan", "bspline", x, w, grid)),
-                        ("no-dx backward", lambda: FB._launch_bwd(name, "bspline", x, w, grid,
-                                                                  g, False, True))):
-                    for route, wrap in (("tensor cores", lambda f: f()),
-                                        ("CUDA cores", lambda f: C.cuda_core_route(FB, f))):
-                        e = {"ms": wrap(lambda: C.time_ms(torch, fn, iters=200)),
-                             "device_ms": wrap(lambda: C.kernel_ms(torch, fn, 50)),
-                             "host_ms": wrap(lambda: host_ms(torch, fn))}
-                        entry.setdefault(f"{part}, {route}", []).append(e)
-                        print(f"[probe_embedder_bspline] {tag} {rows} x {nin} -> {nout}, turn "
-                              f"{turn}, {part} on the {route}: {e['ms']:.4f} ms (device "
-                              f"{e['device_ms']:.4f}, host {e['host_ms']:.4f} a call)",
-                              flush=True)
-        times[f"bspline_kan {tag}"] = entry
+            def route():
+                return FB._launch_rbf("fastkan", x, w, ga, be, grid, den)
+
+            want, stats = route()
+            core = C.cuda_core_route(FB, route)[0]
+            exact = f64_of(x, ga, be, sw, bw)
+            entry = {"route_ms": C.time_ms(torch, route),
+                     "route_device_ms": C.kernel_ms(torch, route, 10,
+                                                    label=f"fastkan {tag}, by kernel"),
+                     "cuda_core_ms": C.cuda_core_route(FB, lambda: C.time_ms(torch, route)),
+                     "cuda_core_device_ms": C.cuda_core_route(FB, lambda: C.kernel_ms(
+                         torch, route, 10, label=f"fastkan {tag}, CUDA cores, by kernel")),
+                     "f64_route": f64_dist(want, exact),
+                     "f64_plain": f64_dist(plain(x, ga, be, sw, bw), exact),
+                     "f64_cuda_core": f64_dist(core, exact)}
+            for v, shape in enumerate(FASTKAN_SHAPES):
+                y = torch.empty_like(want)
+
+                def launch(v=v, y=y, shape=shape):
+                    err = fwd(v, x.data_ptr(), x.stride(0), ga.data_ptr(), be.data_ptr(),
+                              grid.data_ptr(), 1.0 / den, stats.data_ptr(), w.data_ptr(),
+                              y.data_ptr(), ws.data_ptr(), ws.numel(), n, nin, nout, stream)
+                    C.check(err == 0, f"fastkan fwd {shape}: CUDA error {err}")
+
+                launch()
+                torch.cuda.synchronize()
+                entry[str(shape)] = {"ms": C.time_ms(torch, launch),
+                                     "same_bits": torch.equal(y, want),
+                                     "f64": f64_dist(y, exact)}
+        times[f"fastkan {tag}"] = entry
+        print(f"[probe_embedder_fastkan] forward {tag}: route {entry['route_ms']:.4f} ms "
+              f"(device {entry['route_device_ms']:.4f}), CUDA cores "
+              f"{entry['cuda_core_ms']:.4f} (device {entry['cuda_core_device_ms']:.4f}); f64: "
+              f"route {entry['f64_route']:.3e}, plain f32 {entry['f64_plain']:.3e}, CUDA "
+              f"cores {entry['f64_cuda_core']:.3e}", flush=True)
+        for shape in FASTKAN_SHAPES:
+            e = entry[str(shape)]
+            print(f"[probe_embedder_fastkan]   (n8 tiles, warps, blocks an SM, flush) {shape}: "
+                  f"{e['ms']:.4f} ms, f64 {e['f64']:.3e}"
+                  f"{'' if e['same_bits'] else ' (other bits than the route)'}", flush=True)
+
+    for tag, rows, nin, nout in SMALL:
+        x, ga, be, sw, bw, w = case(rows, nin, nout)
+
+        def route(x=x, ga=ga, be=be, w=w):
+            return FB._launch_rbf("fastkan", x, w, ga, be, grid, den)
+
+        label = f"fastkan {tag} {rows} x {nin} -> {nout}"
+        entry = routes_in_turns(C, torch, FB, label, (("forward", route),))
+        with torch.inference_mode():
+            exact = f64_of(x, ga, be, sw, bw)
+            entry.update({"f64_route": f64_dist(route()[0], exact),
+                          "f64_cuda_core": f64_dist(C.cuda_core_route(FB, route)[0], exact),
+                          "f64_plain": f64_dist(plain(x, ga, be, sw, bw), exact)})
+        print(f"[probe_embedder_fastkan] {label} against f64: tensor cores "
+              f"{entry['f64_route']:.3e}, CUDA cores {entry['f64_cuda_core']:.3e}, plain f32 "
+              f"{entry['f64_plain']:.3e}", flush=True)
+        times[f"fastkan {tag}"] = entry
+
+
+def cheby_embedder(lib, C, torch, times):
+    """The Chebyshev embedder's backward (``--cheby``) at vit-s, a tenth of
+    x where tanh rounds to +-1: the route (no dx, all gradients, by
+    kernel), dW and dx against f64 beside the plain f32 version, the
+    no-dx dW's bits against the all-gradients dW's, the CUDA-core kernels;
+    dW over ``CHEBY_SPLITS``; then both routes' no-dx backward at the MNIST
+    embedders and one vit-s image."""
+    import numpy as np
+
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+    dw_fn = lib.probe_cheby_dw
+    dw_fn.argtypes = [i32, p, i64, *[p] * 3, *[i32] * 4, p]
+    dw_fn.restype = i32
+    rng = np.random.default_rng(C.SEED + 12)
+    name = "chebykan_bwd"
+
+    def cuda(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda()
+
+    def case(n, nin, nout):
+        x = cuda(C.cheby_inputs(rng, (n, nin), 0.1))
+        cc = rng.standard_normal((nin, nout, 5)) / np.sqrt(nin * 5)
+        g = cuda(rng.standard_normal((n, nout)))
+        return x, FB.pack_cheby_weight(cuda(cc)).contiguous(), g
+
+    def plain(x, w):
+        return K.chebykan_forward(x, w[0].permute(1, 2, 0))
+
+    def grads(x, w, g, dtype):
+        leaves = [a.detach().to(dtype).requires_grad_(True) for a in (x, w)]
+        return torch.autograd.grad(plain(*leaves), leaves, g.to(dtype))
+
+    n, nin, nout = C.BATCH * 196, 768, 384
+    x, w, g = case(n, nin, nout)
+
+    def bwd(with_dx=False):
+        return FB._launch_bwd(name, "cheby", x, w, 4, g, with_dx, True)
+
+    entry = {}
+    with torch.inference_mode():
+        dx, dw = bwd(True)
+        no_dx = bwd()[1]
+        entry["no_dx_same_bits"] = torch.equal(no_dx, dw)
+        entry["dx_finite"] = bool(dx.isfinite().all())
+    plain32, exact = grads(x, w, g, torch.float32), grads(x, w, g, torch.float64)
+    for nm, got, pl, ex in zip(("dx", "dW"), (dx, dw), plain32, exact):
+        entry[f"f64_{nm}"], entry[f"f64_{nm}_plain"] = f64_dist(got, ex), f64_dist(pl, ex)
+    with torch.inference_mode():
+        n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+        splits = FB.tc_grouped_dw_splits(n, 1, nin, nout, n_sm)
+        entry.update({
+            "route_splits": splits,
+            "no_dx_ms": C.time_ms(torch, bwd),
+            "all_gradients_ms": C.time_ms(torch, lambda: bwd(True)),
+            "no_dx_device_ms": C.kernel_ms(torch, bwd, 10, label=f"{name} no dx, by kernel"),
+            "all_gradients_device_ms": C.kernel_ms(torch, lambda: bwd(True), 10,
+                                                   label=f"{name} all gradients, by kernel"),
+            "cuda_core_no_dx_ms": C.cuda_core_route(FB, lambda: C.time_ms(torch, bwd)),
+            "cuda_core_all_gradients_ms": C.cuda_core_route(
+                FB, lambda: C.time_ms(torch, lambda: bwd(True)))})
+        print(f"[probe_embedder_cheby] backward vit-s: {splits} splits; no dx "
+              f"{entry['no_dx_ms']:.4f} ms (device {entry['no_dx_device_ms']:.4f}), all "
+              f"gradients {entry['all_gradients_ms']:.4f} (device "
+              f"{entry['all_gradients_device_ms']:.4f}); CUDA cores no dx "
+              f"{entry['cuda_core_no_dx_ms']:.4f}, all {entry['cuda_core_all_gradients_ms']:.4f}; "
+              f"f64 dW {entry['f64_dW']:.3e} (plain {entry['f64_dW_plain']:.3e}), dx "
+              f"{entry['f64_dx']:.3e} (plain {entry['f64_dx_plain']:.3e}), dx finite "
+              f"{entry['dx_finite']}; no-dx bits = all gradients' bits: "
+              f"{entry['no_dx_same_bits']}", flush=True)
+        scale = float(dw.abs().max())
+        for nj, count in CHEBY_SPLITS:
+            out = torch.empty_like(w)
+            part = torch.empty(count, *w.shape, device="cuda")
+
+            def launch(nj=nj, count=count, out=out, part=part):
+                err = dw_fn(nj, x.data_ptr(), x.stride(0), g.data_ptr(), out.data_ptr(),
+                            part.data_ptr(), n, nin, nout, count,
+                            torch.cuda.current_stream().cuda_stream)
+                C.check(err == 0, f"dW NJ {nj} splits {count}: CUDA error {err}")
+
+            launch()
+            torch.cuda.synchronize()
+            blocks = -(-nin // FB.TCG_FEATURES) * -(-nout // (64 * nj)) * count
+            entry[f"dW NJ {nj} splits {count}"] = e = {
+                "ms": C.time_ms(torch, launch), "waves": blocks / ({3: 1, 1: 2}[nj] * n_sm),
+                "diff": float((out - dw).abs().max()) / scale}
+            print(f"[probe_embedder_cheby]   dW NJ {nj} splits {count}: {e['ms']:.4f} ms, "
+                  f"{blocks} blocks = {e['waves']:.2f} waves, against the route "
+                  f"{e['diff']:.2e} x max|dW|", flush=True)
+    times["chebykan_bwd vit-s"] = entry
+
+    for tag, rows, nin, nout in SMALL:
+        x, w, g = case(rows, nin, nout)
+        times[f"chebykan_bwd {tag}"] = routes_in_turns(
+            C, torch, FB, f"chebykan {tag} {rows} x {nin} -> {nout}",
+            (("no-dx backward", lambda x=x, w=w, g=g: FB._launch_bwd(
+                name, "cheby", x, w, 4, g, False, True)),))
 
 
 def main(argv=None) -> None:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--bspline", action="store_true")
+    ap.add_argument("--fastkan", action="store_true")
+    ap.add_argument("--cheby", action="store_true")
     args = ap.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import numpy as np
@@ -298,9 +581,11 @@ def main(argv=None) -> None:
     torch, smi = C.phase_toolchain()
     C.phase_build()
     builds = [("probe_embedder_rbf", *_nvcc(C, SOURCE, "probe_embedder_rbf"))]
-    if args.bspline:
-        builds.append(("probe_embedder_bspline",
-                       *_nvcc(C, BSPLINE_SOURCE, "probe_embedder_bspline")))
+    for flag, source, name in ((args.bspline, BSPLINE_SOURCE, "probe_embedder_bspline"),
+                               (args.fastkan, FASTKAN_SOURCE, "probe_embedder_fastkan"),
+                               (args.cheby, CHEBY_SOURCE, "probe_embedder_cheby")):
+        if flag:
+            builds.append((name, *_nvcc(C, source, name)))
     libs = {name: _finish(C, proc, lib, name) for name, proc, lib in builds}
     lib = libs["probe_embedder_rbf"]
     p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
@@ -370,6 +655,10 @@ def main(argv=None) -> None:
                   f"{entry['diff']:.2e} x max|dW|", flush=True)
     if args.bspline:
         bspline_embedder(libs["probe_embedder_bspline"], C, torch, times)
+    if args.fastkan:
+        fastkan_embedder(libs["probe_embedder_fastkan"], C, torch, times)
+    if args.cheby:
+        cheby_embedder(libs["probe_embedder_cheby"], C, torch, times)
     print(f"[probe_embedder_rbf] {ROOT}  [{smi}]")
     print(json.dumps(times))
 

@@ -11,7 +11,9 @@ shared host do not stretch as they stretch its clock); then
 ``chip_smoke.phase_profile`` over 5 steps (the device's busy ms a step,
 its idle share and its kernels) and, from the same trace, the CUDA
 runtime calls the host made a step (count and ms by name: launches,
-attribute calls, allocations). The last line holds the numbers as JSON.
+attribute calls, allocations); then the model's forward alone, as serving
+runs it (inference mode, the same batch), by CUDA events over 20 calls.
+The last line holds the numbers as JSON.
 
 To compare another tree, copy this file into that tree's ``kanvit_torch/``
 and run it from that tree's root (it uses that tree's ``chip_smoke.py``),
@@ -91,7 +93,14 @@ def main(argv=None) -> None:
         calls = runtime_calls(torch, step, state, x, y, 5)
         for name, (n, ms) in sorted(calls.items(), key=lambda kv: -kv[1][1])[:8]:
             print(f"[step]   host {ms:8.3f} ms/step  {n:6.1f} calls  {name}")
+        model = state.model.eval()
+        with torch.inference_mode():
+            forward_ms = C.time_ms(torch, lambda: model(x))
+        model.train()
+        print(f"[step] {model_type} {args.preset} batch {args.batch_size}: device forward "
+              f"{forward_ms:.3f} ms (CUDA events)")
         out[model_type] = {"host_ms_per_step": host_ms, "cpu_ms_per_step": cpu_ms, **prof,
+                           "device_forward_ms": forward_ms,
                            "runtime_calls": {k: list(v) for k, v in calls.items()}}
     print(f"[probe_step] {ROOT}  [{smi}]")
     print(json.dumps(out))

@@ -1742,3 +1742,175 @@ def test_bspline_kan_tc_raises_not_falls_back(cuda, monkeypatch):
         FB.bspline_kan(x, grid, *params)
     assert called == []
     assert (FB.LAUNCHES["bspline_kan"], FB.LAUNCHES["bspline_kan_bwd"]) == (1, 0)
+
+
+# --- the FastKAN embedder's forward and the Chebyshev embedder's backward -----
+
+# (n, nin, nout, ln, base, large): the vit-s embedder (also with a third of x
+# at |x| 20-60, and without the LayerNorm or the base branch), one vit-s
+# image (its forward's 8 levels in blocks of their own); the reference
+# preset's and chip_smoke.py's MNIST embedders; ragged rows, features and
+# outputs (13 stages: past one level of the forward's sum, in 2 splits)
+FASTKAN_EMBEDDER_SHAPES = [(12544, 768, 384, True, True, False),
+                           (12544, 768, 384, True, True, True),
+                           (12544, 768, 384, False, True, False),
+                           (12544, 768, 384, True, False, False),
+                           (196, 768, 384, True, True, False),
+                           (128 * 49, 16, 64, True, True, False),
+                           (37 * 49, 16, 64, True, True, False),
+                           (300, 100, 70, True, True, True)]
+
+
+def _fastkan_embedder(rng, n, nin, nout, ln, base, large, cuda):
+    """x (``large``: a third at |x| 20-60), the layer's (gamma, beta, spline,
+    base, bias) with None where it has no LayerNorm or base branch, and the
+    plain version over them."""
+    x = _fast_x(rng, (n, nin))
+    if large:
+        flat = x.view(-1)
+        idx = torch.from_numpy(rng.choice(flat.numel(), flat.numel() // 3, replace=False))
+        flat[idx] = torch.from_numpy((rng.uniform(20.0, 60.0, idx.numel())
+                                      * rng.choice([-1.0, 1.0], idx.numel())).astype(np.float32))
+    ga, be, sw, bw, bb = [p.to(cuda) for p in _fast_params(rng, nout, nin)]
+    params = [ga if ln else None, be if ln else None, sw / np.sqrt(nin * 8.0) * 10,
+              bw / np.sqrt(nin) * 3 if base else None, bb if base else None]
+    grid = RBF_GRID.to(cuda)
+
+    def plain(x, ga, be, sw, bw, bb):
+        return K.fastkan_forward(x, ga, be, grid.to(x.dtype), 4 / 7, sw, bw, bb)
+
+    return x.to(cuda), params, grid, plain
+
+
+def _f64(params):
+    return [None if p is None else p.double() for p in params]
+
+
+@pytest.mark.parametrize("n,nin,nout,ln,base,large", FASTKAN_EMBEDDER_SHAPES)
+def test_fastkan_tc_forward(cuda, monkeypatch, n, nin, nout, ln, base, large):
+    """The embedder's forward on the tensor cores (the LayerNorm's
+    statistics, then 3xTF32, its sum in two levels) at every size: within
+    1e-4 x max(1, max|y|) of the plain version, no further from f64 than
+    twice the plain f32 version, a second forward with the same bits; the
+    tensor-core entry the one called."""
+    called = _recording(monkeypatch, ("kanvit_fastkan_kan_tc_fwd", "kanvit_fastkan_fwd"))
+    rng = np.random.default_rng(100 + nin + 2 * ln + base)
+    x, params, grid, plain = _fastkan_embedder(rng, n, nin, nout, ln, base, large, cuda)
+    with torch.inference_mode():
+        y = FB.fastkan(x, *params[:2], grid, 4 / 7, *params[2:])
+        again = FB.fastkan(x, *params[:2], grid, 4 / 7, *params[2:])
+        want = plain(x, *params)
+        exact = plain(x.double(), *_f64(params))
+    _close(y, want, 1e-4)
+    _f64_gate(y, want, exact)
+    assert torch.equal(y, again)
+    assert called == ["kanvit_fastkan_kan_tc_fwd"] * 2
+    assert FB.LAUNCHES["fastkan"] == 2
+
+
+def test_fastkan_tc_forward_rows_keep_their_bits_at_any_batch(cuda):
+    """One vit-s image runs the forward's levels in blocks of their own and
+    sums them in level order, as a batch of 64 sums them in its blocks: the
+    image's rows have the bits they have in the batch."""
+    rng = np.random.default_rng(107)
+    x, params, grid, _ = _fastkan_embedder(rng, 12544, 768, 384, True, True, True, cuda)
+    with torch.inference_mode():
+        batch = FB.fastkan(x, *params[:2], grid, 4 / 7, *params[2:])
+        for lo, hi in ((0, 196), (196 * 7, 196 * 8), (12544 - 196, 12544)):
+            alone = FB.fastkan(x[lo:hi], *params[:2], grid, 4 / 7, *params[2:])
+            assert torch.equal(alone, batch[lo:hi])
+
+
+# (n, nin, nout, saturated share): the vit-s embedder (11 row splits), one
+# vit-s image, the MNIST embedders, ragged rows, features and outputs
+CHEBY_EMBEDDER_SHAPES = [(12544, 768, 384, 0.1), (12544, 768, 384, 0.3), (196, 768, 384, 0.1),
+                         (128 * 49, 16, 64, 0.1), (37 * 49, 16, 64, 0.2), (300, 100, 70, 0.1)]
+
+
+@pytest.mark.parametrize("n,nin,nout,saturated", CHEBY_EMBEDDER_SHAPES)
+def test_chebykan_tc_backward(cuda, monkeypatch, n, nin, nout, saturated):
+    """The embedder's backward on the tensor cores (the grouped templates at
+    one group), a share of x where tanh rounds to +-1: every gradient
+    through the wrapper within 1e-4 x max(1, max|g|) of the plain version
+    and finite; the kernels' dW and dx no further from f64 than twice the
+    plain f32 version's; the training step's call (no dx) with the
+    all-gradients call's dW bits, and a second backward repeating them; the
+    tensor-core entry the one called."""
+    called = _recording(monkeypatch, ("kanvit_cheby_qkv_tc_bwd", "kanvit_chebykan_bwd"))
+    rng = np.random.default_rng(110 + nin)
+    x = _cheby_x(rng, (n, nin), saturated).to(cuda)
+    cc = _param(rng, (nin, nout, 5), 1.0 / np.sqrt(5 * nin)).to(cuda)
+    g = _param(rng, (n, nout), 1.0).to(cuda)
+    _, got = _grads(FB.chebykan, [x, cc], g)
+    _, want = _grads(K.chebykan_forward, [x, cc], g)
+    for a, b in zip(got, want):
+        _close(a, b, 1e-4)
+    w = FB.pack_cheby_weight(cc).contiguous()
+    with torch.inference_mode():
+        dx, dw = FB._launch_bwd("chebykan_bwd", "cheby", x, w, 4, g, True, True)
+        no_dx = FB._launch_bwd("chebykan_bwd", "cheby", x, w, 4, g, False, True)
+        again = FB._launch_bwd("chebykan_bwd", "cheby", x, w, 4, g, True, True)
+
+    def packed(x, w):
+        return K.chebykan_forward(x, w[0].permute(1, 2, 0))
+
+    _, plain = _grads(packed, [x, w], g)
+    _, exact = _grads(packed, [x.double(), w.double()], g.double())
+    for a, b, c in zip((dx, dw), plain, exact):
+        _close(a, b, 1e-4)
+        _f64_gate(a, b, c)
+    assert no_dx[0] is None and torch.equal(no_dx[1], dw)
+    assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
+    assert called == ["kanvit_cheby_qkv_tc_bwd"] * 4
+    assert FB.LAUNCHES["chebykan_bwd"] == 4
+
+
+def test_fastkan_fwd_and_chebykan_bwd_raise_not_fall_back(cuda, monkeypatch):
+    """A failing tensor-core entry (here: one that returns a CUDA error)
+    makes the FastKAN embedder's forward and the Chebyshev embedder's
+    backward raise; the CUDA-core entries are never called and nothing is
+    counted for the failed launches."""
+    from kanvit_torch.kernels import _build
+
+    lib = _build.load()
+    called = _recording(monkeypatch, ("kanvit_fastkan_fwd", "kanvit_chebykan_bwd"))
+    rng = np.random.default_rng(115)
+    x, params, grid, _ = _fastkan_embedder(rng, 50, 16, 24, True, True, False, cuda)
+    monkeypatch.setattr(lib, "kanvit_fastkan_kan_tc_fwd", lambda *args: 97)
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="CUDA error 97"):
+        FB.fastkan(x, *params[:2], grid, 4 / 7, *params[2:])
+    xc = _cheby_x(rng, (50, 16)).to(cuda)
+    cc = _param(rng, (16, 24, 5), 0.1).to(cuda).requires_grad_(True)
+    y = FB.chebykan(xc, cc)
+    monkeypatch.setattr(lib, "kanvit_cheby_qkv_tc_bwd", lambda *args: 97)
+    with pytest.raises(RuntimeError, match="CUDA error 97"):
+        y.sum().backward()
+    assert called == []
+    assert (FB.LAUNCHES["fastkan"], FB.LAUNCHES["chebykan"],
+            FB.LAUNCHES["chebykan_bwd"]) == (0, 1, 0)
+
+
+@pytest.mark.parametrize("nout", [70, 192])
+def test_fastkan_qkv_grouped_tc_forward_past_64_outputs(cuda, nout):
+    """The grouped RBF forward takes 64-output blocks at every width (192
+    outputs a block would not fit two stages in shared memory): two heads
+    of 32 features to ``nout`` outputs each, within 1e-4 x max(1, max|y|)
+    of the plain version and no further from f64 than twice it."""
+    rng = np.random.default_rng(120 + nout)
+    h, dh, n = 2, 32, 37 * 50
+    x = _fast_x(rng, (n, h * dh)).to(cuda)
+    ga, be, sw, bw, bb = [p.to(cuda) for p in _fast_params(rng, nout, dh, (h,))]
+    grid = RBF_GRID.to(cuda)
+
+    def plain(x, ga, be, sw, bw, bb):
+        return torch.cat([K.fastkan_forward(x[:, i * dh:(i + 1) * dh], ga[i], be[i],
+                                            grid.to(x.dtype), 4 / 7, sw[i], bw[i], bb[i])
+                          for i in range(h)], dim=1)
+
+    with torch.inference_mode():
+        y = FB.fastkan_qkv_grouped(x, ga, be, grid, 4 / 7, sw, bw, bb)
+        want = plain(x, ga, be, sw, bw, bb)
+        exact = plain(*(a.double() for a in (x, ga, be, sw, bw, bb)))
+    _close(y, want, 1e-4)
+    _f64_gate(y, want, exact)
+    assert FB.LAUNCHES["fastkan_qkv_grouped"] == 1

@@ -99,12 +99,11 @@ def emu_tc_fwd(name, family, x2d, w, aux):
 
 
 def emu_tc_bwd(name, family, x2d, w, aux, gy, need_dx, need_dw, sms=N_SM):
-    """``_launch_bwd``: the grouped Chebyshev backward on the tensor cores
-    (row splits sized for ``sms`` SMs), every other route as
-    ``test_torch_port_qkv_tc.emu_bwd``."""
-    if name != "cheby_qkv_grouped_bwd":
+    """``_launch_bwd``: the Chebyshev backward on the tensor cores, the
+    grouped q/k/v's and the embedder's (row splits sized for ``sms`` SMs),
+    every other route as ``test_torch_port_qkv_tc.emu_bwd``."""
+    if family != "cheby" or name not in FB.TC_GROUPED_BWD:
         return emu_bwd(name, family, x2d, w, aux, gy, need_dx, need_dw, sms)
-    assert name in FB.TC_GROUPED_BWD
     FB._check(family, x2d, w, aux)
     n = x2d.shape[0]
     groups, _, nin, out = w.shape

@@ -99,30 +99,40 @@ def exact_product(a, b):
     return out
 
 
-def rbf_grouped_fwd(basis, w):
+def rbf_grouped_fwd(basis, w, flush=None):
     """y (n, out) of one head: the 8 RBF slices in ``grouped_fwd``'s order
     into one running sum; a silu slice in stage order into a second one
-    with ``exact_product``'s steps; the second added to the first."""
+    with ``exact_product``'s steps; the second added to the first. With
+    ``flush`` (the FastKAN embedder's), two levels: the two running sums of
+    every ``flush`` stages so added, then into the total in level order."""
     ng = FB.RBF_GRIDS
-    y = grouped_fwd(basis[..., :ng], w[:ng])
-    if w.shape[0] == ng:
-        return y
     n, nin, _ = basis.shape
-    pad = -(-nin // STAGE_FEATURES) * STAGE_FEATURES
-    a, b = torch.zeros(n, pad), torch.zeros(pad, w.shape[-1])
-    a[:, :nin], b[:nin] = basis[..., ng], w[ng]
-    return y + exact_product(a, b)
+    per = (flush or -(-nin // STAGE_FEATURES)) * STAGE_FEATURES
+    total = None
+    for f0 in range(0, nin, per):
+        level, wl = basis[:, f0:f0 + per], w[:, f0:f0 + per]
+        y = grouped_fwd(level[..., :ng], wl[:ng])
+        if w.shape[0] > ng:
+            depth = level.shape[1]
+            pad = -(-depth // STAGE_FEATURES) * STAGE_FEATURES
+            a, b = torch.zeros(n, pad), torch.zeros(pad, w.shape[-1])
+            a[:, :depth], b[:depth] = level[..., ng], wl[ng]
+            y = y + exact_product(a, b)
+        total = y if total is None else total + y
+    return total
 
 
-def rbf_tc_fwd(x2d, w, gamma, beta, grid, denominator):
-    """(y, stats) of ``kanvit_fastkan_qkv_tc_fwd``: the statistics, then a
-    head at a time the basis from them times W in the kernel's order."""
+def rbf_tc_fwd(x2d, w, gamma, beta, grid, denominator, flush=None):
+    """(y, stats) of ``kanvit_fastkan_qkv_tc_fwd`` (and with ``flush`` of
+    ``kanvit_fastkan_kan_tc_fwd``): the statistics, then a head at a time
+    the basis from them times W in the kernel's order."""
     n = x2d.shape[0]
     groups, _, nin, _ = w.shape
     xg = x2d.reshape(n, groups, nin)
     stats = None if gamma is None else ln_stats(xg)
     basis, _, _ = _rbf_basis(xg, w, gamma, beta, grid, denominator, stats)
-    return torch.cat([rbf_grouped_fwd(basis[:, g], w[g]) for g in range(groups)], 1), stats
+    return torch.cat([rbf_grouped_fwd(basis[:, g], w[g], flush) for g in range(groups)],
+                     1), stats
 
 
 def sine_tc_fwd(x2d, w, freq2d, phase):
@@ -134,12 +144,13 @@ def sine_tc_fwd(x2d, w, freq2d, phase):
 
 
 def emu_rbf_fwd(name, x2d, w, gamma, beta, grid, denominator):
-    """``_launch_rbf``: the grouped forward on the tensor cores, the
-    embedder's as ``test_torch_port_fast.py`` emulates it."""
+    """``_launch_rbf``: the grouped forward on the tensor cores, and the
+    embedder's as its one-group case with its two-level sum."""
     if name not in FB.TC_GROUPED_FWD:
         return _emu_rbf_fwd(name, x2d, w, gamma, beta, grid, denominator)
     FB.check_rbf_args(x2d, w, gamma, beta, grid)
-    y, stats = rbf_tc_fwd(x2d, w, gamma, beta, grid, denominator)
+    y, stats = rbf_tc_fwd(x2d, w, gamma, beta, grid, denominator,
+                          FB.TCG_FWD_FLUSH.get(name))
     FB.LAUNCHES[name] += 1
     return y, stats
 

@@ -47,10 +47,11 @@ from kanvit.ops import dispatch as jdispatch
 from kanvit_torch.kernels import fused_basis as FB
 from kanvit_torch.ops import dispatch
 from kanvit_torch.ops import kan_bases as K
-from test_torch_port_fast import DEN, GRID, _emu_rbf_fwd, fast_inputs, fast_params
+from test_torch_port_fast import DEN, GRID, fast_inputs, fast_params
 from test_torch_port_kernels import _emu_basis, _jax_grads
 from test_torch_port_qkv_tc import N_SM, TOL, TOL_KAN, _gates, _rel
 from test_torch_port_qkv_tc_fwd_cheby import cheby_inputs, emu_tc_fwd, grouped_fwd
+from test_torch_port_qkv_tc_fwd_rbf_sine import emu_rbf_fwd
 from test_torch_port_qkv_tc_rbf_sine import emu_rbf_bwd, rbf_tc
 
 CHEBY_DEGREE = FB.CHEBY_DEGREE
@@ -70,13 +71,13 @@ def one_thread():
 @pytest.fixture
 def kernel_math(monkeypatch):
     """The CUDA path's Functions with their launches replaced by the
-    emulations (the embedder's forward on the CUDA cores, its backward and
-    the grouped Chebyshev forward on the tensor cores), kanvit on its
-    Pallas kernels in interpret mode."""
+    emulations (the embedder's forward and backward and the grouped
+    Chebyshev forward on the tensor cores), kanvit on its Pallas kernels in
+    interpret mode."""
     jdispatch.set_impl("pallas")
     FB.reset_launches()
     monkeypatch.setattr(dispatch, "use_kernel", lambda x: True)
-    monkeypatch.setattr(FB, "_launch_rbf", _emu_rbf_fwd)
+    monkeypatch.setattr(FB, "_launch_rbf", emu_rbf_fwd)
     monkeypatch.setattr(FB, "_launch", emu_tc_fwd)
     yield monkeypatch
     jdispatch.set_impl("auto")
