@@ -52,11 +52,13 @@ Phases, in order; any failure raises, so the script exits non-zero:
    heads of 64 -> 192), ragged narrow shapes of each, inputs where tanh
    saturates (|x| >= 9.5) and Fourier inputs up to |x| = 10; the backward's
    bits repeated; error and time of both; ``fourierkan``'s tensor-core
-   forward and dW and ``chebykan``'s tensor-core backward also on the
-   training path's backward (no dx, its bits those of the all-gradients
-   route) and, at the embedder, no further from f64 than twice the plain
-   f32 version, with their kernels' device times (``chebykan``'s beside
-   the CUDA-core kernels');
+   forward and dW and ``chebykan``'s tensor-core forward and backward also
+   on the training path's backward (no dx, its bits those of the
+   all-gradients route) and, at the embedder, no further from f64 than
+   twice the plain f32 version, with their kernels' device times
+   (``chebykan``'s beside the CUDA-core kernels'); ``chebykan``'s forward
+   also without saturated x, at one vit-s image and the MNIST shape, its
+   bits repeated and an image's rows with the batch's bits;
 7. the RBF and sine kernels (forward, and the backward: dx, dW, the
    LayerNorm's dgamma and dbeta, sine's dfreq) against their plain versions
    and autograd through them: ``fastkan`` and ``sinekan`` (grid 28) at the
@@ -78,7 +80,8 @@ Phases, in order; any failure raises, so the script exits non-zero:
    tiled route) at vit-b's and vit-l's widths (D 768, F 3,072; D 1,024, F
    4,096) at vit-s's rows and at D 2,048, each forward also against f64 on
    the card, ``int8_linear`` within
-   kanvit's tie-aware bound with the count of elements that differ at all,
+   kanvit's tie-aware bound and with no element differing at all (also at
+   vit-b's FF2, the deepest K and a strided x),
    the FF's ReLU pattern held to the plain version's up to rounding,
    the FF forwards also against f64 on the card (within 1e-6 x
    max(1, max|y|)), and ``int8_linear`` at the TPU probe's (n, 768) x
@@ -290,9 +293,10 @@ def phase_build():
 # An entry is a kernel's name, or the parts its mangled name holds (the
 # Fourier and sine tensor-core kernels: the family, and Lb0 forward, Lb1 dW;
 # the grouped backward's: the family and its NJ; the forward's: the family
-# and its n8 tiles a warp, B-spline's and RBF's also its stages a level of
-# the sum, 0 for the q/k/v's one running sum, 12 for the embedder's two
-# levels).
+# and its n8 tiles a warp, B-spline's, RBF's and Chebyshev's also its stages
+# a level of the sum, 0 for the q/k/v's one running sum, 12 for the
+# embedder's two levels; the int8 linear's: its rows a block, its products
+# IMMA, not HMMA).
 SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
                 "flash_dq_tcILi64", "flash_dkv_tcILi64", "ffn_fwd_tcILi3",
@@ -308,9 +312,12 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("kan_tc_fwd_grouped", "7BsplineELi24E", "Tf32x3ELi12E"),
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi12E"),
-                ("kan_tc_fwd_grouped", "4SineELi8E"), ("kan_tc_fwd_grouped", "5ChebyELi8E"),
+                ("kan_tc_fwd_grouped", "4SineELi8E"),
+                ("kan_tc_fwd_grouped", "5ChebyELi8E", "Tf32x3ELi0E"),
+                ("kan_tc_fwd_grouped", "5ChebyELi8ELi12E", "Tf32x3ELi24E"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
-                ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"))
+                ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"),
+                ("int8_linear_kernelILi48E",))
 
 
 def sass_mix(lib):
@@ -411,11 +418,18 @@ def is_spin(e):
     return "spin_kernel" in e.name
 
 
+LEAD_SPINS = 200  # empty spins that open a trace, ahead of the kernels it times
+
+
 def first_kernel(torch):
-    """A 0.1 ms spin, waited for, as a trace's first kernel: a profile can
-    lose the first kernel it sees (PR 15's fast step lost its first
-    embedder forward; PERF.md), and ``kernel_times`` leaves spins out."""
+    """A 0.1 ms spin and ``LEAD_SPINS`` empty ones, waited for, as a trace's
+    first kernels: a profile can lose the first few device records it sees
+    (up to five on the H100: the spin and the next four kernels, whether the
+    spin lasts 0.1 ms or 20; PERF.md §7), so the records it loses are
+    spins, which ``kernel_times`` leaves out."""
     torch.cuda._sleep(int(0.1 * spin_cycles_per_ms(torch)))
+    for _ in range(LEAD_SPINS):
+        torch.cuda._sleep(0)
     torch.cuda.synchronize()
 
 
@@ -1350,7 +1364,7 @@ def f64_gate(tag, got, plain32, exact):
 
 def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
               shape, f64=False, tc_grads=(), f64_gates=False, cuda_cores=None,
-              fwd_cuda_cores=None, kernel_grads=None, fwd_on_cuda_cores=False):
+              fwd_cuda_cores=None, kernel_grads=None):
     """Forward, dx and the parameter gradients of a KAN wrapper against its
     plain version and autograd through it, on the card; the backward's bits
     repeated; CUDA-event times of the forward kernel, the backward kernels
@@ -1367,9 +1381,7 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
     all-gradients route's bits, the bounds are the 3xTF32 ones, the device
     times are measured, and with ``f64_gates`` the forward and these
     gradients on both routes are held no further from f64 than twice the
-    plain f32 version. ``fwd_on_cuda_cores``: the forward is not on the
-    tensor cores (the FastKAN embedder's): its bound is the f32 one and it
-    has no f64 gate.
+    plain f32 version.
 
     ``cuda_cores(g)``: the backward is a grouped q/k/v's on the tensor cores
     (3xTF32), and this launches the CUDA-core kernels it replaces on the
@@ -1396,7 +1408,7 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
         torch.cuda.synchronize()
         err_fwd = compare(f"{name} {label} {tuple(x.shape)}", y, ref, TOL_KAN)
         extra_fwd = {}
-        if (f64_gates and not fwd_on_cuda_cores) or fwd_cuda_cores is not None:
+        if f64_gates or fwd_cuda_cores is not None:
             extra_fwd["f64_err"] = f64_gate(f"{name} {label}", y, ref,
                                             plain(*(a.double() for a in inputs)))
         if fwd_cuda_cores is not None:
@@ -1496,8 +1508,7 @@ def check_kan(torch, rng, name, label, kernel, plain, inputs, names, launches,
               f"ms, f32 {fwd_bound['f32_bound_ms']:.4f} ms")
     return ((err_fwd, ms, plain_ms, extra_fwd,
              kan_bound(*dims, extra_floats=extra,
-                       tensor_cores=not fwd_on_cuda_cores and (
-                           tc or fwd_cuda_cores is not None))),
+                       tensor_cores=tc or fwd_cuda_cores is not None)),
             (err_bwd, bwd_ms, plain_bwd_ms, extra_bwd,
              kan_bound(*dims, backward=True, extra_floats=extra,
                        tensor_cores=tc or cuda_cores is not None)))
@@ -1509,11 +1520,11 @@ def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
     packed weight and ``aux`` the degree or grid size the kernels take.
     ``tc_gates``: the grouped Chebyshev forward's and backward's tensor-core
     gates and times beside the CUDA-core kernels (``check_kan``'s
-    ``fwd_cuda_cores`` and ``cuda_cores``). ``chebykan``'s backward is on
-    the tensor cores (its forward on the CUDA cores): at the embedder's 768
-    features its dx and dcoeffs are held no further from f64 than twice the
-    plain f32 version, dcoeffs on the no-dx route too, beside the CUDA-core
-    kernels' times."""
+    ``fwd_cuda_cores`` and ``cuda_cores``). ``chebykan``'s forward and
+    backward are on the tensor cores: at the embedder's 768 features its y,
+    dx and dcoeffs are held no further from f64 than twice the plain f32
+    version, dcoeffs on the no-dx route too, y's bits repeated, beside the
+    CUDA-core kernels' times."""
     from kanvit_torch.kernels import fused_basis as FB
 
     x, bname = inputs[0], f"{name}_bwd"
@@ -1533,9 +1544,8 @@ def check_basis(torch, rng, name, family, label, kernel, plain, inputs, w, aux,
                      (x.shape[0], *w.shape, 0, 1), tc_grads=("coeffs",) if tc else (),
                      f64_gates=tc and x.shape[1] >= 768,
                      cuda_cores=cuda_cores if tc_gates or embedder else None,
-                     fwd_cuda_cores=fwd_cuda_cores if tc_gates else None,
-                     kernel_grads=("x", "coeffs") if embedder else None,
-                     fwd_on_cuda_cores=name == "chebykan")
+                     fwd_cuda_cores=fwd_cuda_cores if tc_gates or embedder else None,
+                     kernel_grads=("x", "coeffs") if embedder else None)
 
 
 def fast_inputs(rng, shape):
@@ -1648,16 +1658,53 @@ def check_rbf(torch, rng, name, label, n, groups, nin, nout, tc_gates=False, bas
                      kernel_grads=() if embedder else names[:5])
 
 
+def embedder_fwd_gates(torch, tag, x, kernel, plain, exact, bounds):
+    """An embedder's tensor-core forward ``kernel(rows)`` (its sum in two
+    levels) on ``x``: against ``plain()``, no further from f64 (``exact``)
+    than twice the plain f32 version, the bits of a second forward and,
+    past one image, the first image's 196 rows' bits alone (its levels then
+    in blocks of their own); CUDA-event and device times beside the
+    CUDA-core kernel it replaced (``cuda_core_route``, whose distance from
+    f64 is printed too) and the plain version, and ``bounds`` (3xTF32 and
+    f32). Returns ``check_kan``'s ``(err, ms, plain_ms, extras, bounds)``."""
+    from kanvit_torch.kernels import fused_basis as FB
+
+    n = x.shape[0]
+    with torch.inference_mode():
+        y = kernel(x)
+        again = kernel(x)
+        ref = plain()
+        torch.cuda.synchronize()
+        err = compare(tag, y, ref, TOL_KAN)
+        check(torch.equal(y, again), f"{tag}: a second forward gave other bits")
+        if n > 196:
+            same = torch.equal(kernel(x[:196]), y[:196])
+            print(f"[kernel] {tag}: the first image's rows alone (levels in blocks of their "
+                  f"own) give the batch's bits: {same}")
+            check(same, f"{tag}: an image's rows gave other bits alone than in the batch")
+        f64 = f64_gate(tag, y, ref, exact)
+        scale = max(1.0, float(exact.abs().max()))
+        core_f64 = float((cuda_core_route(FB, lambda: kernel(x)).double() - exact).abs().max()
+                         ) / scale
+        ms = time_ms(torch, lambda: kernel(x))
+        dev_ms = kernel_ms(torch, lambda: kernel(x), 10, label=tag)
+        core_ms = cuda_core_route(FB, lambda: time_ms(torch, lambda: kernel(x)))
+        core_dev_ms = cuda_core_route(FB, lambda: kernel_ms(
+            torch, lambda: kernel(x), 10, label=f"{tag}, CUDA cores"))
+        plain_ms = time_ms(torch, plain)
+    print(f"[kernel] {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f}; the CUDA-core kernel "
+          f"{core_ms:.4f}, device {core_dev_ms:.4f}, {core_f64:.3e} from f64)  plain "
+          f"{plain_ms:.4f} ms  bound 3xTF32 {bounds['bound_ms']:.4f}, f32 "
+          f"{bounds['f32_bound_ms']:.4f}  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "cuda_core_ms": core_ms,
+                               "cuda_core_device_ms": core_dev_ms,
+                               "cuda_core_f64_err": core_f64}, bounds
+
+
 def check_fastkan_fwd(torch, rng, n, nin, nout, label, large=False):
-    """``fastkan``'s forward (3xTF32 on the tensor cores, its sum in two
-    levels) at an embedder's shape, with ``large`` a third of x at |x|
-    20-60, where silu(x) dominates the base slice: against the plain
-    version, no further from f64 than twice the plain f32 version, the bits
-    of a second forward and, past one image, the first image's 196 rows'
-    bits alone (its levels then in blocks of their own); CUDA-event and
-    device times beside the CUDA-core kernel it replaced
-    (``cuda_core_route``, whose distance from f64 is printed too) and the
-    plain version, and the 3xTF32 and f32 bounds."""
+    """``fastkan``'s forward (``embedder_fwd_gates``) at an embedder's
+    shape, with ``large`` a third of x at |x| 20-60, where silu(x)
+    dominates the base slice."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.ops import kan_bases as K
 
@@ -1677,44 +1724,36 @@ def check_fastkan_fwd(torch, rng, n, nin, nout, label, large=False):
     ga, be, sw, bw, _ = params
     w = FB.pack_fastkan_weight(sw, bw, 8).unsqueeze(0).contiguous()
     grid, den = torch.linspace(-2.0, 2.0, 8, device="cuda"), 4.0 / 7.0
-    tag = f"fastkan {label} N={n} {nin}->{nout}"
-
-    def kernel(rows=x):
-        return FB._launch_rbf("fastkan", rows, w, ga, be, grid, den)[0]
 
     def plain(x, ga, be, *rest):
         return K.fastkan_forward(x, ga[0], be[0], grid.to(x.dtype), den, *rest)
 
     with torch.inference_mode():
-        y = kernel()
-        again = kernel()
-        ref = plain(x, *params)
         exact = plain(*(a.double() for a in (x, *params)))
-        torch.cuda.synchronize()
-        err = compare(tag, y, ref, TOL_KAN)
-        check(torch.equal(y, again), f"{tag}: a second forward gave other bits")
-        if n > 196:
-            same = torch.equal(kernel(x[:196]), y[:196])
-            print(f"[kernel] {tag}: the first image's rows alone (levels in blocks of their "
-                  f"own) give the batch's bits: {same}")
-            check(same, f"{tag}: an image's rows gave other bits alone than in the batch")
-        f64 = f64_gate(tag, y, ref, exact)
-        scale = max(1.0, float(exact.abs().max()))
-        core_f64 = float((cuda_core_route(FB, kernel).double() - exact).abs().max()) / scale
-        ms = time_ms(torch, kernel)
-        dev_ms = kernel_ms(torch, kernel, 10, label=tag)
-        core_ms = cuda_core_route(FB, lambda: time_ms(torch, kernel))
-        core_dev_ms = cuda_core_route(FB, lambda: kernel_ms(torch, kernel, 10,
-                                                            label=f"{tag}, CUDA cores"))
-        plain_ms = time_ms(torch, lambda: plain(x, *params))
-    bounds = kan_bound(n, 1, 9, nin, nout, extra_floats=2 * nin + 8, tensor_cores=True)
-    print(f"[kernel] {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f}; the CUDA-core kernel "
-          f"{core_ms:.4f}, device {core_dev_ms:.4f}, {core_f64:.3e} from f64)  plain "
-          f"{plain_ms:.4f} ms  bound 3xTF32 {bounds['bound_ms']:.4f}, f32 "
-          f"{bounds['f32_bound_ms']:.4f}  (bits repeated)")
-    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "cuda_core_ms": core_ms,
-                               "cuda_core_device_ms": core_dev_ms,
-                               "cuda_core_f64_err": core_f64}, bounds
+    return embedder_fwd_gates(
+        torch, f"fastkan {label} N={n} {nin}->{nout}", x,
+        lambda rows: FB._launch_rbf("fastkan", rows, w, ga, be, grid, den)[0],
+        lambda: plain(x, *params), exact,
+        kan_bound(n, 1, 9, nin, nout, extra_floats=2 * nin + 8, tensor_cores=True))
+
+
+def check_chebykan_fwd(torch, rng, n, nin, nout, label, saturated):
+    """``chebykan``'s forward (``embedder_fwd_gates``) at an embedder's
+    shape, ``saturated`` a share of x where tanh rounds to +-1."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    x = torch.from_numpy(cheby_inputs(rng, (n, nin), saturated)).cuda()
+    cc = torch.from_numpy((rng.standard_normal((nin, nout, 5)) / np.sqrt(nin * 5))
+                          .astype(np.float32)).cuda()
+    w = FB.pack_cheby_weight(cc).contiguous()
+    with torch.inference_mode():
+        exact = K.chebykan_forward(x.double(), cc.double())
+    return embedder_fwd_gates(
+        torch, f"chebykan {label} N={n} {nin}->{nout}", x,
+        lambda rows: FB._launch("chebykan", "cheby", rows, w, 4),
+        lambda: K.chebykan_forward(x, cc), exact,
+        kan_bound(n, 1, 5, nin, nout, tensor_cores=True))
 
 
 def check_sine(torch, rng, name, label, n, groups, nin, nout, grid_size, tc_gates=False):
@@ -1824,6 +1863,14 @@ def phase_basis_kernels(torch):
             torch, rng, "chebykan", "cheby", label, FB.chebykan,
             K.chebykan_forward, [x, cc], FB.pack_cheby_weight(cc).contiguous(), 4,
             ("x", "coeffs")))
+    # the embedder's forward without saturated x and the batch's bits, at one
+    # vit-s image (its levels in blocks of their own) and the MNIST shape
+    results["chebykan"] += tuple(
+        {key: sub_entry(check_chebykan_fwd(torch, rng, n, nin, nout, label, saturated))}
+        for key, n, nin, nout, label, saturated in (
+            ("unsaturated", BATCH * 196, 768, 384, "vit-s embedder, no saturated x", 0.0),
+            ("batch_1", 196, 768, 384, "vit-s embedder, one image", 0.1),
+            ("mnist", 37 * 49, 16, 64, "mnist embedder", 0.1)))
     for n, h, dh, label in ((BATCH * 197, 6, 64, "vit-s q/k/v"),
                             (37 * 50, 2, 32, "ragged")):
         keep("cheby_qkv_grouped", check_cheby_qkv(torch, rng, n, h, dh, label))
@@ -2075,22 +2122,24 @@ def int8_bound(n, k, out, library_ms):
                  library_ms, peak=PEAK_INT8_OPS)
 
 
-def check_int8(torch, rng, n, k, out, label):
-    """``int8_linear`` against ``qdot_rowwise`` on the card within kanvit's
-    tie-aware bound (``tests/test_quant.py:44-48``), with the count of
-    elements that differ at all; times of the kernel (weight quantized
-    beforehand, as the kernel takes it), the plain version, the library
-    route (per-row quantize, ``torch._int_mm``, dequantize) and f32
-    ``F.linear``."""
+def check_int8(torch, rng, n, k, out, label, pad=0):
+    """``int8_linear`` against ``qdot_rowwise`` on the card: within kanvit's
+    tie-aware bound (``tests/test_quant.py:44-48``), and no element
+    differing at all (the same q(x) and q(W), an exact int32 sum, the same
+    rounded epilogue); ``pad``: x a window of rows ``pad`` floats wider.
+    Times of the kernel (weight quantized beforehand, as the kernel takes
+    it), the plain version, the library route (per-row quantize,
+    ``torch._int_mm``, dequantize), ``torch._int_mm`` alone and f32
+    ``F.linear``, beside the bound and the kernel's share of it."""
     import torch.nn.functional as F
 
     from kanvit_torch.kernels import int8_matmul as IM
     from kanvit_torch.ops import quant as Q
 
-    x = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).cuda()
+    x = torch.from_numpy(rng.standard_normal((n, k + pad)).astype(np.float32)).cuda()[:, :k]
     w = torch.from_numpy((rng.standard_normal((out, k)) * 0.05).astype(np.float32)).cuda()
     b = torch.from_numpy(rng.standard_normal(out).astype(np.float32)).cuda()
-    tag = f"{label} N={n} K={k} out={out}"
+    tag = f"{label} N={n} K={k} out={out}" + (f" (x rows of {k + pad})" if pad else "")
     with torch.inference_mode():
         y = IM.int8_linear(x, w, b)
         ref = Q.qdot_rowwise(x, w, b)
@@ -2098,11 +2147,13 @@ def check_int8(torch, rng, n, k, out, label):
         err = float((y - ref).abs().max())
         differ = int((y != ref).sum())
         limit = 3.0 * float(x.abs().amax(-1).max()) * float(w.abs().amax(-1).max()) / 127.0
-        ok = bool(y.isfinite().all()) and y.dtype == torch.float32 and err <= limit
+        ok = (bool(y.isfinite().all()) and y.dtype == torch.float32 and err <= limit
+              and differ == 0)
         print(f"[kernel] int8_linear {tag}: max|err| {err:.3e}  tie-aware limit "
-              f"{limit:.3e}  {differ} of {y.numel()} elements differ at all  "
+              f"{limit:.3e}  {differ} of {y.numel()} elements differ at all (gate: 0)  "
               f"{'ok' if ok else 'FAIL'}")
-        check(ok, f"int8_linear {tag}: kernel disagrees with qdot_rowwise")
+        check(ok, f"int8_linear {tag}: kernel disagrees with qdot_rowwise ({differ} "
+                  "elements differ)")
         wq, sw = Q._quantize(w, dim=-1)
         swr = sw.reshape(-1).contiguous()
 
@@ -2116,15 +2167,20 @@ def check_int8(torch, rng, n, k, out, label):
         xq = Q._quantize(x, dim=-1)[0]
         int_mm_ms = time_ms(torch, lambda: torch._int_mm(xq, wq.t()))
         f32_ms = time_ms(torch, lambda: F.linear(x, w, b))
-    print(f"[kernel] int8_linear {tag}: kernel {ms:.4f} ms  plain {plain_ms:.4f} ms  "
-          f"library (quantize, torch._int_mm, dequantize) {lib_ms:.4f} ms  "
-          f"torch._int_mm alone {int_mm_ms:.4f} ms  f32 F.linear {f32_ms:.4f} ms")
+    bounds = int8_bound(n, k, out, lib_ms)
+    print(f"[kernel] int8_linear {tag}: kernel {ms:.4f} ms ({IM.rows_per_block(k)} rows a "
+          f"block)  bound {bounds['bound_ms']:.4f} ms by {bounds['bound_by']} (share "
+          f"{bounds['bound_ms'] / ms:.3f})  plain {plain_ms:.4f} ms  library (quantize, "
+          f"torch._int_mm, dequantize) {lib_ms:.4f} ms  torch._int_mm alone "
+          f"{int_mm_ms:.4f} ms  f32 F.linear {f32_ms:.4f} ms")
     return (err, ms, plain_ms, {"elements_differing": differ, "int_mm_ms": int_mm_ms,
-                                "f32_linear_ms": f32_ms},
-            int8_bound(n, k, out, lib_ms))
+                                "f32_linear_ms": f32_ms,
+                                "rows_per_block": IM.rows_per_block(k)}, bounds)
 
 
 def phase_ffn_int8_kernels(torch, smi):
+    from kanvit_torch.kernels import int8_matmul as IM
+
     rng = np.random.default_rng(SEED + 9)
     results = {}
     n = BATCH * 197
@@ -2144,10 +2200,18 @@ def phase_ffn_int8_kernels(torch, smi):
                            TF32_PASSES * products * n * 384 * 1536 / (rate * 1e12) * 1e3},)
     # ragged: odd N, D not a multiple of 32
     check_ffn(torch, rng, 37 * 50 + 1, 100, 400, "ragged")
+    # vit-s FF1, FF2 and the embedder; vit-b's FF2 and the deepest K (the
+    # kernel's rows a block: 48 but 16 at the deepest)
     results["int8_linear"] = check_int8(torch, rng, n, 384, 1536, "vit-s FF1")
-    check_int8(torch, rng, n, 1536, 384, "vit-s FF2")
-    check_int8(torch, rng, BATCH * 196, 768, 384, "vit-s embedder")
+    results["int8_linear"] += tuple(
+        {key: sub_entry(check_int8(torch, rng, rows, k, out, label))}
+        for key, rows, k, out, label in (
+            ("vit_s_ff2", n, 1536, 384, "vit-s FF2"),
+            ("vit_s_embedder", BATCH * 196, 768, 384, "vit-s embedder"),
+            ("vit_b_ff2", n, 3072, 768, "vit-b FF2"),
+            ("deepest_k", 33, IM.MAX_K, 256, "deepest K")))
     check_int8(torch, rng, 37 * 50 + 1, 256, 128, "ragged")
+    check_int8(torch, rng, 333, 768, 384, "strided", pad=3)
     # tools/tpu_probe_mosaic_int8_rate.py's shape, (n, 768) x (768, 3072) at
     # batch 64: the kernel against torch._int_mm of pre-quantized operands
     probe = check_int8(torch, rng, n, 768, 3072, "TPU probe shape")
@@ -2541,8 +2605,8 @@ KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
     ("KAN q/k/v and embedder bwd on the tensor cores (B-spline, Chebyshev, RBF, "
      "sine: dW, dx)", ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
-    ("KAN q/k/v and B-spline and FastKAN embedder fwd on the tensor cores (B-spline, "
-     "Chebyshev, RBF, sine)", ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
+    ("KAN q/k/v and embedder fwd on the tensor cores (B-spline, Chebyshev, RBF, sine)",
+     ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
      ("kan_tc_kernel", "kan_tc_split")),
     ("KAN basis bwd", ("kan_dx_kernel", "kan_dw_kernel", "sum_splits_kernel",
@@ -2736,7 +2800,8 @@ def phase_profile(torch, step, state, x, y, label, steps=2, what="training steps
     kernel, is the device time, and each profile keeps every event when its
     busy time lies within PROFILE_TOL of it. A profile that does not is
     taken again, up to twice, and the phase fails if none does (a profile
-    drops kernels now and then: PERF.md, PR 15's fast step)."""
+    drops its first few device records, which ``first_kernel`` makes spins,
+    and now and then times a step's kernels long: PERF.md §7)."""
     from torch.profiler import ProfilerActivity, profile
 
     def busy_of(kernels):
@@ -2775,11 +2840,13 @@ def phase_profile(torch, step, state, x, y, label, steps=2, what="training steps
         if abs(fed_busy - dev_ms) <= PROFILE_TOL * dev_ms:
             break
         print(f"[profile] {label}: the fed profile's busy time {fed_busy:.3f} ms a step "
-              f"is not within {PROFILE_TOL:.0%} of {dev_ms:.3f}; profiling again")
+              f"({len(fed)} device records; the fenced one's {len(kernels)}) is not within "
+              f"{PROFILE_TOL:.0%} of {dev_ms:.3f}; profiling again")
         fed = fed_run()
         fed_busy = busy_of(fed)
     check(abs(fed_busy - dev_ms) <= PROFILE_TOL * dev_ms,
-          f"{label}: the fed profile's busy time {fed_busy:.3f} ms a step is not within "
+          f"{label}: the fed profile's busy time {fed_busy:.3f} ms a step ({len(fed)} "
+          f"device records; the fenced one's {len(kernels)}) is not within "
           f"{PROFILE_TOL:.0%} of {dev_ms:.3f}")
     by_name = kernel_times(kernels)
     window_fed = max(e.time_range.end for e in fed) - min(e.time_range.start for e in fed)
@@ -3184,7 +3251,7 @@ SOURCES = {
                            "kanvit/kernels/flash_attention.py:806"),
     "flash_attention_dkv": ("kanvit_torch/kernels/csrc/flash_attention.cu",
                             "kanvit/kernels/flash_attention.py:831"),
-    "chebykan": (KAN_SRC, f"{FB_PY}:1067"),
+    "chebykan": (KAN_TC_SRC, f"{FB_PY}:1067"),
     "chebykan_bwd": (KAN_TC_SRC, f"{FB_PY}:1159"),
     "cheby_qkv_grouped": (KAN_TC_SRC, f"{FB_PY}:1240"),
     "cheby_qkv_grouped_bwd": (KAN_TC_SRC, f"{FB_PY}:1278"),
@@ -3254,6 +3321,14 @@ ROUTES = {
         "kernel": "3xTF32 mma.sync.m16n8k8: kan_tc_fwd_grouped<Cheby, 8, 8, 3> (64 outputs "
                   "a block at every width), each lane's A fragments T_0..T_4 of tanh of its "
                   "own x values made in registers, W split once a call by kan_tc_fwd_split",
+        "instantiated_in": KAN_SRC},
+    "chebykan": {
+        "kernel": "the grouped q/k/v forward's template at one group: 3xTF32 "
+                  "mma.sync.m16n8k8, kan_tc_fwd_grouped<Cheby, 8, 12, 1, Tf32x3, 24> (64 "
+                  "outputs a block), each lane's A fragments T_0..T_4 of tanh of its own x "
+                  "values made in registers, W split once a call by kan_tc_fwd_split, the "
+                  "768-deep sum in two levels (the running sum of every 24 stages added "
+                  "into y)",
         "instantiated_in": KAN_SRC},
     "chebykan_bwd": {
         "kernel": "the grouped q/k/v backward's templates at one group: dW on 3xTF32 "

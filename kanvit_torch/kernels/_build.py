@@ -47,6 +47,7 @@ SIGNATURES = {
         [_p, _i64, *[_p] * 5, *[_i32] * 5, _p], _i32),
     "kanvit_cheby_qkv_tc_bwd": ([_p, _i64, *[_p] * 6, *[_i32] * 5, _p], _i32),
     "kanvit_cheby_qkv_tc_fwd": ([_p, _i64, _p, _p, _p, _i64, *[_i32] * 4, _p], _i32),
+    "kanvit_chebykan_tc_fwd": ([_p, _i64, _p, _p, _p, _i64, _p, *[_i32] * 5, _p], _i32),
     "kanvit_fourierkan_fwd": ([_p, _i64, _p, _p, _p, *[_i32] * 4, _p], _i32),
     "kanvit_fourierkan_bwd": ([_p, _i64, *[_p] * 5, *[_i32] * 4, _p], _i32),
     "kanvit_fastkan_fwd": (
@@ -69,7 +70,7 @@ SIGNATURES = {
     "kanvit_ffn_fwd_wide": ([*[_p] * 14, *[_i32] * 5, _p], _i32),
     "kanvit_ffn_bwd": ([*[_p] * 26, *[_i32] * 6, _p], _i32),
     "kanvit_tf32_mma_rate": ([_p, _i32, _i32, _p], _i32),
-    "kanvit_int8_linear_fwd": ([_p, _i64, *[_p] * 4, *[_i32] * 3, _p], _i32),
+    "kanvit_int8_linear_fwd": ([_p, _i64, *[_p] * 4, *[_i32] * 4, _p], _i32),
     "kanvit_attention_lanes_fwd": (
         [_p, _p, _p, *[_i64] * 9, _p, _p, _p, _i32, _i32, _i32, _i32, _i32,
          _f32, _p], _i32),

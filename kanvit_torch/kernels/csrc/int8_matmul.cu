@@ -3,27 +3,56 @@
 //
 // Replaces the TPU kernel of kanvit/kernels/int8_matmul.py: _int8_op
 // (pallas_call at :134, body _int8_kernel :88), reached from int8_linear
-// (:198) under int8 serving.
+// (:168) under int8 serving.
 //
 //   q(x)[r, k] = clip(rint(x[r, k] / s_x[r]), -127, 127),
 //   s_x[r]     = max(max_k |x[r, k]|, 1e-12) / 127;
 // W arrives quantized per output channel (q(W), s_w), as kanvit quantizes it
 // outside its kernel (int8_matmul.py:126-133). The rounding is rintf (half
-// to even, as jnp.round and torch.round), the divisions IEEE (the build has
-// no fast math), and the epilogue rounds each of acc * s_x, * s_w and + b
-// on its own (__fmul_rn, __fadd_rn: no fused multiply-add), so the kernel
-// and its plain version (kanvit_torch.ops.quant.qdot_rowwise) give the same
-// bits from the same q(W).
+// to even, as jnp.round and torch.round), the divisions IEEE (__fdiv_rn; the
+// build has no fast math), and the epilogue rounds each of acc * s_x, * s_w
+// and + b on its own (__fmul_rn, __fadd_rn: no fused multiply-add), so the
+// kernel and its plain version (kanvit_torch.ops.quant.qdot_rowwise) give
+// the same bits from the same q(W): int32 sums are exact in any order.
 //
 // What bounds it on the H100: at the ViT-S FF (N = 12,608 tokens, K 384,
 // out 1,536, or the reverse) the product is 2 N K out = 14.9 GOP, under
 // 0.01 ms at the card's dense int8 rate, against 97 MB of x and y in f32 and
-// W in int8: bytes, 0.029 ms. The design keeps x to one read: a block owns
-// BM rows, quantizes them into shared memory once (a warp reduces a row's
-// max), then walks every output tile over them with int8 tensor-core
-// products (mma.sync m16n8k32, s8 in, s32 out) whose B fragments are read
-// straight from q(W) (out x K bytes, L2-resident). A simple first version:
-// no cp.async pipeline, no wgmma, no reuse of B across warps.
+// W in int8: bytes, 0.029 ms; y is 80% of them at FF1, x at FF2. The design
+// reads x once from device memory, keeps W's reads from L2 to one a block
+// of BM rows, and stores whole 32-byte sectors of y:
+//
+// - a block owns BM rows (the wrapper's rule on K, int8_matmul.py's
+//   rows_per_block, passed in as `bm`: 48, 32 or 16, smaller as K grows, so
+//   BM rows of K bytes fit beside W's stages) and quantizes them once into
+//   shared memory (quantize_rows: many 16-byte loads in flight a lane, each
+//   row's values held in registers between its max and its quantization up
+//   to K 2,048), at a pitch of K + 16 bytes, which ldmatrix reads without
+//   bank conflicts;
+// - W (out x K int8, L2-resident: 0.6 MB at vit-s) streams through shared
+//   memory in stages of BN outputs x KC bytes, shared by all 8 warps: a ring
+//   of STAGES stages filled by 16-byte cp.async, STAGES - 1 ahead, over the
+//   flattened (output tile, K chunk) sequence, so the next tile's first
+//   stage lands while a tile's epilogue runs; the first is issued before
+//   the quantization, which it overlaps;
+// - the products are int8 tensor-core mma.sync m16n8k32 (s8 in, s32 out),
+//   A and B fragments by ldmatrix.x4 (a row pitch of KC + 16 bytes for W);
+//   each warp holds MT m16 x NT n8 accumulators of the block's BM x BN tile;
+// - the epilogue writes each fragment's two adjacent columns as one 8-byte
+//   store: a warp's store fills whole 32-byte sectors of 8 rows.
+//
+// Why 48 rows, 128-byte stages, two of them (kanvit_torch/probe_int8.py, the
+// H100 80GB HBM3 at 700 W; PERF.md): 48 rows x K 1,536 and the ring take
+// 111,744 bytes, so two blocks share an SM and one's quantization overlaps
+// the other's products, and vit-s's 12,608 rows are 263 blocks, one wave of
+// 264; W's reads from L2 are N / 48 K out bytes. At FF1 / FF2 / the
+// embedder it ran 0.0828 / 0.0874 / 0.0481 ms; 64 rows with three stages
+// 0.0824 / 0.1328 / 0.0565 (one block an SM at FF2), 32 rows 0.1158 /
+// 0.1206 / 0.0682 (W read 394 times), 64-byte stages 0.0940 / 0.0997 /
+// 0.0552. A first version that branched on each row's loads (one load in
+// flight a lane) ran FF2 at 0.26 ms.
+//
+// One block a row tile; no atomics, so a second call gives the same bits.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -31,136 +60,326 @@
 
 namespace {
 
-constexpr int BM = 32;        // rows per block
-constexpr int WARPS = 4;
+constexpr int WARPS = 8;
 constexpr int THREADS = 32 * WARPS;
-constexpr int BN = 64;        // outputs per tile: 2 warp columns of 32
-constexpr int KSTEP = 32;     // the mma's depth in int8 values
-constexpr int PAD = 16;       // bytes after each quantized row
+constexpr int BN = 128;      // outputs a tile (kanvit's eligibility: out % 128 == 0)
+constexpr int KC = 128;      // int8 values of K a stage of W
+constexpr int STAGES = 2;    // W stages in the ring
+constexpr int XPAD = 16;     // bytes after each quantized row
+constexpr int QCHUNKS = 16;  // 16-byte loads of x a lane has in flight
 constexpr float EPS = 1e-12f;
 
-__device__ __forceinline__ int ld32(const int8_t* p) {
-  return *reinterpret_cast<const int*>(p);
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return (unsigned)__cvta_generic_to_shared(p);
 }
 
-__device__ __forceinline__ void mma_s8(int (&c)[4], int a0, int a1, int a2,
-                                       int a3, int b0, int b1) {
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(smem_addr(dst)),
+               "l"(src)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void mma_s8(int (&c)[4], const unsigned (&a)[4], unsigned b0,
+                                       unsigned b1) {
   asm volatile(
       "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
       "{%0,%1,%2,%3}, {%4,%5,%6,%7}, {%8,%9}, {%0,%1,%2,%3};\n"
       : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
-      : "r"(a0), "r"(a1), "r"(a2), "r"(a3), "r"(b0), "r"(b1));
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-__device__ __forceinline__ int8_t quant(float v, float s) {
+__device__ __forceinline__ int quant(float v, float s) {
   const float q = rintf(__fdiv_rn(v, s));
-  return (int8_t)(int)fminf(fmaxf(q, -127.f), 127.f);
+  return (int)fminf(fmaxf(q, -127.f), 127.f);
 }
 
-// x (n, k) f32, row stride ldx, k % 32 == 0; wq (nout, k) int8 contiguous;
-// sw (nout) f32; bias (nout) f32 or null; y (n, nout) f32 contiguous,
-// nout % 64 == 0. Dynamic shared memory: BM * (k + PAD) bytes + BM floats.
-__global__ void __launch_bounds__(THREADS)
+// Four values quantized, packed little-endian: k, k+1, k+2, k+3.
+__device__ __forceinline__ int quant4(float4 v, float s) {
+  return (quant(v.x, s) & 0xff) | ((quant(v.y, s) & 0xff) << 8) |
+         ((quant(v.z, s) & 0xff) << 16) | (int)((unsigned)quant(v.w, s) << 24);
+}
+
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const float* p) {
+  if constexpr (VEC) return __ldg(reinterpret_cast<const float4*>(p));
+  return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
+}
+
+__device__ __forceinline__ float amax4(float m, float4 v) {
+  return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
+}
+
+// Rows r0 .. r0 + BM of x (n, k), k % 128 == 0, quantized into xq (BM rows
+// at a pitch of k + XPAD bytes) with their scales in sx (0 past row n):
+// warp w takes rows w R .. + R, then WARPS R on. A pass loads U 128-wide
+// chunks of each of its R rows, all issued before any is used (addresses
+// clamped into the row, not branched on: a value read twice leaves the max
+// as it is), R U 16-byte loads in flight a lane (4-byte ones without VEC,
+// x's rows not 16-byte aligned). The first pass takes each row's max, a
+// shuffle reduction gives it to the warp (exact, so its order does not
+// matter); the second quantizes the values and stores 4 packed int8 a lane.
+// Where k <= 128 U the values are still in registers, and x is read once;
+// past it (quantize's deepest rows) the second pass loads them again.
+template <int BM, bool VEC, int R, int U>
+__device__ __forceinline__ void quantize_rows(const float* __restrict__ x, long long ldx,
+                                              long long r0, int n, int k, int8_t* xq,
+                                              float* sx) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, xpitch = k + XPAD;
+  const bool cached = k <= 128 * U;
+  for (int rb = warp * R; rb < BM; rb += WARPS * R) {
+    const float* src[R];
+    bool live[R];
+    float m[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+      const long long row = r0 + rb + q;
+      live[q] = row < n;
+      src[q] = x + (live[q] ? row : 0) * ldx;
+      m[q] = 0.f;
+    }
+    float4 v[R][U];
+    auto load = [&](int c0) {
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = min(c0 + 128 * u, k - 4);
+#pragma unroll
+        for (int q = 0; q < R; ++q) v[q][u] = load4<VEC>(src[q] + c);
+      }
+    };
+    for (int c0 = 4 * lane; c0 < k; c0 += 128 * U) {
+      load(c0);
+#pragma unroll
+      for (int u = 0; u < U; ++u)
+#pragma unroll
+        for (int q = 0; q < R; ++q) m[q] = amax4(m[q], v[q][u]);
+    }
+    float s[R];
+#pragma unroll
+    for (int q = 0; q < R; ++q) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m[q] = fmaxf(m[q], __shfl_xor_sync(0xffffffffu, m[q], off));
+      s[q] = live[q] ? __fdiv_rn(fmaxf(m[q], EPS), 127.f) : 0.f;
+      if (lane == 0) sx[rb + q] = s[q];
+    }
+    for (int c0 = 4 * lane; c0 < k; c0 += 128 * U) {
+      if (!cached) load(c0);
+#pragma unroll
+      for (int u = 0; u < U; ++u) {
+        const int c = c0 + 128 * u;
+        if (c < k)
+#pragma unroll
+          for (int q = 0; q < R; ++q)
+            *reinterpret_cast<int*>(xq + (size_t)(rb + q) * xpitch + c) =
+                live[q] ? quant4(v[q][u], s[q]) : 0;
+      }
+    }
+  }
+}
+
+// quantize_rows with QCHUNKS 16-byte loads a lane in flight: rows of up to
+// QCHUNKS 128-wide chunks one pass each (4, 2 or 1 rows at a time), deeper
+// ones 4 rows at a time in two passes.
+template <int BM, bool VEC>
+__device__ __forceinline__ void quantize(const float* __restrict__ x, long long ldx,
+                                         long long r0, int n, int k, int8_t* xq, float* sx) {
+  if (k <= 128 * QCHUNKS / 4)
+    quantize_rows<BM, VEC, 4, QCHUNKS / 4>(x, ldx, r0, n, k, xq, sx);
+  else if (k <= 128 * QCHUNKS / 2)
+    quantize_rows<BM, VEC, 2, QCHUNKS / 2>(x, ldx, r0, n, k, xq, sx);
+  else if (k <= 128 * QCHUNKS)
+    quantize_rows<BM, VEC, 1, QCHUNKS>(x, ldx, r0, n, k, xq, sx);
+  else
+    quantize_rows<BM, VEC, 4, QCHUNKS / 4>(x, ldx, r0, n, k, xq, sx);
+}
+
+// Shared memory of a BM-row block at depth k: the row scales, the
+// quantized rows and the W ring.
+template <int BM, int KCH = KC, int NST = STAGES>
+constexpr size_t shared_bytes(int k) {
+  return (size_t)BM * sizeof(float) + (size_t)BM * (k + XPAD) +
+         (size_t)NST * BN * (KCH + 16);
+}
+
+// x (n, k) f32, row stride ldx, k % KCH == 0 (and % 32); wq (nout, k) int8
+// contiguous, nout % BN == 0; sw (nout) f32; bias (nout) f32 or null; y (n,
+// nout) f32 contiguous. Grid: ceil(n / BM) blocks of THREADS; dynamic shared
+// memory shared_bytes<BM, KCH, NST>(k).
+template <int BM, int KCH, int NST>
+__global__ void __launch_bounds__(THREADS, 2)
 int8_linear_kernel(const float* __restrict__ x, long long ldx,
                    const int8_t* __restrict__ wq, const float* __restrict__ sw,
-                   const float* __restrict__ bias, float* __restrict__ y, int n,
-                   int k, int nout) {
+                   const float* __restrict__ bias, float* __restrict__ y, int n, int k,
+                   int nout) {
+  // warps: WM along the rows (MT m16 tiles each) x WN along the tile's outputs
+  constexpr int WM = BM >= 64 ? BM / 32 : 1, MT = BM / (16 * WM);
+  constexpr int WN = WARPS / WM, NT = BN / (8 * WN);
+  constexpr int WPITCH = KCH + 16, WSTAGE = BN * WPITCH;
+  static_assert(WM * WN == WARPS && WM * MT * 16 == BM && NT % 2 == 0, "warp layout");
   extern __shared__ __align__(16) unsigned char smem[];
-  const int pitch = k + PAD;
-  int8_t* xq = reinterpret_cast<int8_t*>(smem);
-  float* sx = reinterpret_cast<float*>(smem + (size_t)BM * pitch);
+  float* sx = reinterpret_cast<float*>(smem);
+  int8_t* xq = reinterpret_cast<int8_t*>(smem + BM * sizeof(float));
+  const int xpitch = k + XPAD;
+  int8_t* wbuf = xq + (size_t)BM * xpitch;
 
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int r0 = blockIdx.x * BM;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long long r0 = (long long)blockIdx.x * BM;
+  const int kchunks = k / KCH, total = (nout / BN) * kchunks;
 
-  // Quantize: warp w owns rows w, w + WARPS, ...; a row's max by a shuffle
-  // reduction (max is exact, so its order does not matter).
-  for (int r = warp; r < BM; r += WARPS) {
-    const int row = r0 + r;
-    int8_t* dst = xq + (size_t)r * pitch;
-    if (row >= n) {
-      for (int c = lane; c < k; c += 32) dst[c] = 0;
-      if (lane == 0) sx[r] = 0.f;
-      continue;
+  // stage i of the (output tile, K chunk) sequence into ring slot i % NST
+  auto load_w = [&](int i) {
+    const int t = i / kchunks, kc = i - t * kchunks;
+    const int8_t* src = wq + (long long)t * BN * k + kc * KCH;
+    int8_t* dst = wbuf + (i % NST) * WSTAGE;
+    for (int e = tid; e < BN * (KCH / 16); e += THREADS) {
+      const int r = e / (KCH / 16), c = 16 * (e % (KCH / 16));
+      cp_async16(dst + r * WPITCH + c, src + (long long)r * k + c);
     }
-    const float* src = x + (long long)row * ldx;
-    float amax = 0.f;
-    for (int c = lane; c < k; c += 32) amax = fmaxf(amax, fabsf(src[c]));
+  };
 #pragma unroll
-    for (int off = 16; off > 0; off >>= 1)
-      amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, off));
-    const float s = __fdiv_rn(fmaxf(amax, EPS), 127.f);
-    for (int c = lane; c < k; c += 32) dst[c] = quant(src[c], s);
-    if (lane == 0) sx[r] = s;
+  for (int i = 0; i < NST - 1; ++i) {
+    if (i < total) load_w(i);
+    cp_async_commit();
   }
+
+  if ((ldx & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0)
+    quantize<BM, true>(x, ldx, r0, n, k, xq, sx);
+  else
+    quantize<BM, false>(x, ldx, r0, n, k, xq, sx);
   __syncthreads();
 
-  // Products: warp w owns rows (w & 1) * 16 .. + 16 and, of each BN-wide
-  // tile, the outputs (w >> 1) * 32 .. + 32 as four n8 fragments.
-  const int g = lane >> 2, t = lane & 3;
-  const int wr = (warp & 1) * 16, wc = (warp >> 1) * 32;
-  const int8_t* arow0 = xq + (size_t)(wr + g) * pitch + t * 4;
-  const int8_t* arow1 = arow0 + 8 * (size_t)pitch;
-  const int ra = r0 + wr + g, rb = ra + 8;
-  const float sxa = sx[wr + g], sxb = sx[wr + g + 8];
-  for (int n0 = 0; n0 < nout; n0 += BN) {
-    int acc[4][4];
+  // Products: warp (wm, wn) owns rows wm MT 16 .. + MT 16 and outputs
+  // wn NT 8 .. + NT 8 of each tile.
+  const int wm = warp % WM, wn = warp / WM;
+  const int g = lane >> 2, tq = lane & 3;
+  // ldmatrix.x4 row addresses: A's four 8x16-byte matrices are (rows 0-7,
+  // k 0-15), (8-15, 0-15), (0-7, 16-31), (8-15, 16-31): a0..a3; B's, of two
+  // n8 tiles, (n 0-7, k 0-15), (0-7, 16-31), (8-15, 0-15), (8-15, 16-31):
+  // b0, b1 of the first, then of the second.
+  const int8_t* arow = xq + (size_t)(wm * MT * 16 + (lane & 7) + ((lane >> 3) & 1) * 8) * xpitch +
+                       (lane >> 4) * 16;
+  const int brow = wn * NT * 8 + (lane & 7) + ((lane >> 4) << 3);
+  const int bcol = ((lane >> 3) & 1) * 16;
+  float sxr[MT][2];
 #pragma unroll
-    for (int j = 0; j < 4; ++j)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-      for (int e = 0; e < 4; ++e) acc[j][e] = 0;
-    const int8_t* brow = wq + (long long)(n0 + wc + g) * k + t * 4;
-    for (int k0 = 0; k0 < k; k0 += KSTEP) {
-      const int a0 = ld32(arow0 + k0), a1 = ld32(arow1 + k0);
-      const int a2 = ld32(arow0 + k0 + 16), a3 = ld32(arow1 + k0 + 16);
+    for (int h = 0; h < 2; ++h) sxr[mt][h] = sx[wm * MT * 16 + mt * 16 + g + 8 * h];
+
+  int acc[MT][NT][4];
 #pragma unroll
-      for (int j = 0; j < 4; ++j) {
-        const int8_t* bp = brow + (long long)j * 8 * k + k0;
-        mma_s8(acc[j], a0, a1, a2, a3, __ldg(reinterpret_cast<const int*>(bp)),
-               __ldg(reinterpret_cast<const int*>(bp + 16)));
+  for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+    for (int nt = 0; nt < NT; ++nt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[mt][nt][e] = 0;
+
+  for (int i = 0; i < total; ++i) {
+    cp_async_wait<NST - 2>();
+    __syncthreads();  // stage i landed; every warp is past stage i - 1's slot
+    if (i + NST - 1 < total) load_w(i + NST - 1);
+    cp_async_commit();
+    const int t = i / kchunks, kc = i - t * kchunks;
+    const int8_t* ws = wbuf + (i % NST) * WSTAGE + brow * WPITCH + bcol;
+#pragma unroll
+    for (int ks = 0; ks < KCH / 32; ++ks) {
+      unsigned a[MT][4], b[NT][2];
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+        ldmatrix_x4(a[mt], arow + (size_t)mt * 16 * xpitch + kc * KCH + ks * 32);
+#pragma unroll
+      for (int np = 0; np < NT / 2; ++np) {
+        unsigned r[4];
+        ldmatrix_x4(r, ws + np * 16 * WPITCH + ks * 32);
+        b[2 * np][0] = r[0];
+        b[2 * np][1] = r[1];
+        b[2 * np + 1][0] = r[2];
+        b[2 * np + 1][1] = r[3];
       }
+#pragma unroll
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int nt = 0; nt < NT; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
     }
+    if (kc + 1 < kchunks) continue;
+    // Epilogue of output tile t: acc * s_x * s_w (+ b), each rounded.
 #pragma unroll
-    for (int j = 0; j < 4; ++j) {
-      const int col = n0 + wc + j * 8 + t * 2;
+    for (int nt = 0; nt < NT; ++nt) {
+      const int col = t * BN + wn * NT * 8 + nt * 8 + 2 * tq;
+      const float2 swv = __ldg(reinterpret_cast<const float2*>(sw + col));
+      const float2 bv = bias != nullptr ? __ldg(reinterpret_cast<const float2*>(bias + col))
+                                        : make_float2(0.f, 0.f);
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const int row = e < 2 ? ra : rb;
-        const int c = col + (e & 1);
-        if (row < n) {
-          float v = __fmul_rn(__fmul_rn((float)acc[j][e], e < 2 ? sxa : sxb),
-                              sw[c]);
-          if (bias != nullptr) v = __fadd_rn(v, bias[c]);
-          y[(long long)row * nout + c] = v;
+      for (int mt = 0; mt < MT; ++mt)
+#pragma unroll
+        for (int h = 0; h < 2; ++h) {
+          const long long row = r0 + wm * MT * 16 + mt * 16 + g + 8 * h;
+          float2 v;
+          v.x = __fmul_rn(__fmul_rn((float)acc[mt][nt][2 * h], sxr[mt][h]), swv.x);
+          v.y = __fmul_rn(__fmul_rn((float)acc[mt][nt][2 * h + 1], sxr[mt][h]), swv.y);
+          if (bias != nullptr) {
+            v.x = __fadd_rn(v.x, bv.x);
+            v.y = __fadd_rn(v.y, bv.y);
+          }
+          if (row < n) *reinterpret_cast<float2*>(y + row * nout + col) = v;
+          acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0;
         }
-      }
     }
   }
+}
+
+// The kernel over the operands of kanvit_int8_linear_fwd at BM rows a
+// block: cudaErrorInvalidValue where k or nout do not divide into its tiles
+// or its shared memory passes a block's 232,448 bytes.
+template <int BM, int KCH = KC, int NST = STAGES>
+int launch_int8_linear(const float* x, long long ldx, const int8_t* wq, const float* sw,
+                       const float* bias, float* y, int n, int k, int nout,
+                       cudaStream_t st) {
+  const size_t smem = shared_bytes<BM, KCH, NST>(k);
+  if (n <= 0 || k <= 0 || nout <= 0 || k % KCH || k % 32 || nout % BN || smem > 232448)
+    return (int)cudaErrorInvalidValue;
+  const cudaError_t err = cudaFuncSetAttribute(
+      int8_linear_kernel<BM, KCH, NST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  int8_linear_kernel<BM, KCH, NST><<<(unsigned)((n + BM - 1) / BM), THREADS, smem, st>>>(
+      x, ldx, wq, sw, bias, y, n, k, nout);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // x: (n, k) f32 with row stride ldx (elements) and unit column stride, k a
-// positive multiple of 32 with BM * (k + 16) bytes within the block's shared
-// memory; wq: (nout, k) int8 contiguous, each row quantized with its scale
-// in sw (nout) f32; bias: (nout) f32 or null; y: (n, nout) f32 contiguous,
-// nout a positive multiple of 64. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
-extern "C" int kanvit_int8_linear_fwd(const float* x, long long ldx,
-                                      const int8_t* wq, const float* sw,
-                                      const float* bias, float* y, int n,
-                                      int k, int nout, void* stream) {
-  if (n <= 0 || k <= 0 || nout <= 0 || k % KSTEP || nout % BN)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = (size_t)BM * (k + PAD) + BM * sizeof(float);
-  if (smem > 48 * 1024) {
-    const cudaError_t err = cudaFuncSetAttribute(
-        int8_linear_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-        (int)smem);
-    if (err != cudaSuccess) return (int)err;
+// positive multiple of 128; wq: (nout, k) int8 contiguous, each row
+// quantized with its scale in sw (nout) f32; bias: (nout) f32 or null, sw
+// and bias 8-byte aligned; y: (n, nout) f32 contiguous, nout a positive
+// multiple of 128; bm: the rows a block, 48, 32 or 16 (int8_matmul.py's
+// rows_per_block(k)), with shared_bytes<bm>(k) within a block's shared
+// memory. Launches on `stream` and returns cudaGetLastError() (0 on
+// success), cudaErrorInvalidValue on anything else.
+extern "C" int kanvit_int8_linear_fwd(const float* x, long long ldx, const int8_t* wq,
+                                      const float* sw, const float* bias, float* y, int n,
+                                      int k, int nout, int bm, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (bm) {
+    case 48: return launch_int8_linear<48>(x, ldx, wq, sw, bias, y, n, k, nout, st);
+    case 32: return launch_int8_linear<32>(x, ldx, wq, sw, bias, y, n, k, nout, st);
+    case 16: return launch_int8_linear<16>(x, ldx, wq, sw, bias, y, n, k, nout, st);
+    default: return (int)cudaErrorInvalidValue;
   }
-  const dim3 grid((n + BM - 1) / BM);
-  int8_linear_kernel<<<grid, THREADS, smem, (cudaStream_t)stream>>>(
-      x, ldx, wq, sw, bias, y, n, k, nout);
-  return (int)cudaGetLastError();
 }

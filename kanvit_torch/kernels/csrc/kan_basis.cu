@@ -25,9 +25,11 @@
 //             forwards (_fused_fwd_sg) run on the tensor cores too
 //             (kan_basis_tc.cuh, part 3, for Bspline and Cheby), and so do
 //             bspline_kan's forward and backward (_fused_fwd, _fused_bwd)
-//             and chebykan's backward (_fused_bwd, entry
-//             kanvit_cheby_qkv_tc_bwd) as their one-group case; chebykan's
-//             forward on the CUDA cores (kan_basis.cuh).
+//             and chebykan's forward and backward (_fused_fwd, entry
+//             kanvit_chebykan_tc_fwd; _fused_bwd, entry
+//             kanvit_cheby_qkv_tc_bwd) as their one-group case. The
+//             CUDA-core forward of chebykan (kan_basis.cuh, entry
+//             kanvit_chebykan_fwd) stays, timed beside it.
 //   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
 //   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
 //   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on
@@ -71,6 +73,21 @@ constexpr int CHEBY_FWD_WARPS = 8, CHEBY_FWD_MINB = 3;
 // distance from f64 in the CPU emulation (1.6-2.4x), and at 0.86x on the
 // card, where two levels sit at 0.21x (kan_basis_tc.cuh part 3).
 constexpr int BSPLINE_EMB_FLUSH = 12;
+// The Chebyshev embedder's forward: the q/k/v's 64-output tiles at one
+// group, CHEBY_EMB_WARPS warps a block (16 rows each) at CHEBY_EMB_MINB
+// blocks an SM, its 768 features (96 stages of 5 steps at vit-s, 3,840
+// entries deep) summed in two levels of CHEBY_EMB_FLUSH stages: one running
+// sum lands 1.6-2.3x the plain f32 version's distance from f64 in the CPU
+// emulation (past twice it at two of five draws), levels of 6, 12 and 24
+// stages 0.39-0.77x (tests/test_torch_port_tc_embedder_cheby_fwd.py); on
+// the card one sum 1.2x, levels of 24 0.44x. At vit-s
+// (kanvit_torch/probe_embedder_rbf.py --cheby, the H100 80GB HBM3 at 700
+// W; PERF.md): 12 warps, one block an SM, levels of 24, 0.8083 ms; the
+// q/k/v's 8 warps at three blocks an SM 0.8386 (levels of 12: 0.8909), at
+// two 0.9248; 192-output tiles 0.8022, within the run's noise; one running
+// sum 0.7643, levels of 6 0.9732. Below one wave (one image: 12 blocks)
+// the 4 levels run in blocks of their own.
+constexpr int CHEBY_EMB_WARPS = 12, CHEBY_EMB_MINB = 1, CHEBY_EMB_FLUSH = 24;
 
 // B-spline: 12 knots a feature (grid 5, order 3), 8 spline bases + silu.
 struct Bspline : FamilyDefaults {
@@ -339,7 +356,8 @@ extern "C" int kanvit_bspline_kan_tc_fwd(const float* x, long long ldx, const fl
       (cudaStream_t)stream, part, splits);
 }
 
-// Chebyshev, degree 4: S = 5.
+// Chebyshev, degree 4: S = 5. The CUDA-core forward (kan_basis.cuh); the
+// route's is kanvit_chebykan_tc_fwd.
 extern "C" int kanvit_chebykan_fwd(const float* x, long long ldx,
                                    const float* w, float* y, int n, int groups,
                                    int nin, int nout, void* stream) {
@@ -363,6 +381,19 @@ extern "C" int kanvit_cheby_qkv_tc_fwd(const float* x, long long ldx, const floa
                                        int groups, int nin, int nout, void* stream) {
   return launch_tc_grouped_fwd<Cheby, CHEBY_FWD_WARPS, CHEBY_FWD_MINB, true>(
       x, ldx, {}, w, y, wsplit, wwords, n, groups, nin, nout, (cudaStream_t)stream);
+}
+
+// The Chebyshev patch embedder's forward (chebykan's) on the tensor cores:
+// kanvit_cheby_qkv_tc_fwd's template at one group, its sum in two levels;
+// splits 1, or one a level with part scratch of splits n groups nout floats
+// (launch_tc_grouped_fwd), as kanvit_bspline_kan_tc_fwd.
+extern "C" int kanvit_chebykan_tc_fwd(const float* x, long long ldx, const float* w, float* y,
+                                      unsigned int* wsplit, long long wwords, float* part,
+                                      int splits, int n, int groups, int nin, int nout,
+                                      void* stream) {
+  return launch_tc_grouped_fwd<Cheby, CHEBY_EMB_WARPS, CHEBY_EMB_MINB, true, CHEBY_EMB_FLUSH>(
+      x, ldx, {}, w, y, wsplit, wwords, n, groups, nin, nout, (cudaStream_t)stream, part,
+      splits);
 }
 
 // The grouped q/k/v backward (cheby_qkv_grouped's) on the tensor cores

@@ -1285,7 +1285,13 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // (levels of 12: 1.8e-7; the plain f32 version 1.3e-6), but an image alone
 // would then run 12 blocks through all 96 stages; below one wave the levels
 // split as B-spline's (one vit-s image: 0.1025 ms device against the
-// CUDA-core kernel's 0.5541).
+// CUDA-core kernel's 0.5541). The Chebyshev embedder (_cheby_op, :3491,
+// from chebykan :3779) takes the Chebyshev q/k/v's 64-output tiles at 12
+// warps, one block an SM, its sum in two levels of 24 stages (kan_basis.cu's
+// CHEBY_EMB_*): 0.8083 ms at vit-s against the CUDA-core kernel's 1.9360,
+// 2.6e-7 from f64 against the plain f32 version's 8.3e-7 (probe_embedder_rbf.py
+// --cheby, the H100 80GB HBM3 at 700 W); an image's 4 levels split below
+// one wave.
 //
 // Edge semantics as kan_fwd_kernel's: the family's values (B-spline: x on a
 // knot starts the next interval, x outside every span has zero spline

@@ -35,12 +35,11 @@ LayerNorm's VJP, sine's dfreq sums), and so does the forward of
 :func:`bspline_qkv_grouped`, :func:`cheby_qkv_grouped`,
 :func:`fastkan_qkv_grouped` (after its LayerNorm's statistics),
 :func:`sinekan_qkv_grouped` and, as their one-group case with its 768-deep
-sum in two levels, :func:`bspline_kan` and :func:`fastkan` (part 3: each
-lane makes the basis of its own A fragments in registers). The forward of
-:func:`chebykan` runs on the CUDA-core template. The route is chosen by call
-site, never by size, with one exception: the tensor-core tiles hold at most
-4 sine slices, so a grouped sine forward or backward of a larger grid takes
-the CUDA-core kernels.
+sum in two levels, :func:`bspline_kan`, :func:`fastkan` and :func:`chebykan`
+(part 3: each lane makes the basis of its own A fragments in registers).
+The route is chosen by call site, never by size, with one exception: the
+tensor-core tiles hold at most 4 sine slices, so a grouped sine forward or
+backward of a larger grid takes the CUDA-core kernels.
 
 Dispatch is by device (``kanvit_torch.ops.dispatch``): a CPU tensor runs the
 plain version in ``kanvit_torch.ops.kan_bases`` and autograd differentiates
@@ -123,20 +122,26 @@ TCG_SLICES = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS +
 # slice's remainders; the entries take the scratch's word count and refuse
 # one too short for their steps); sine up to SINE_CHUNK slices.
 TC_GROUPED_FWD = ("bspline_qkv_grouped", "cheby_qkv_grouped", "fastkan_qkv_grouped",
-                  "sinekan_qkv_grouped", "bspline_kan", "fastkan")
+                  "sinekan_qkv_grouped", "bspline_kan", "fastkan", "chebykan")
 # The call sites whose forward sums in two levels, and the stages of a level
-# (kan_basis.cu's BSPLINE_EMB_FLUSH, kan_rbf_sine.cu's FASTKAN_EMB_FLUSH); the
-# rows of a forward block (12 warps of 16), which decide with its outputs
-# when its levels run in blocks of their own.
-TCG_FWD_FLUSH = {"bspline_kan": 12, "fastkan": 12}
-TCG_FWD_ROWS = 192
+# (kan_basis.cu's BSPLINE_EMB_FLUSH and CHEBY_EMB_FLUSH, kan_rbf_sine.cu's
+# FASTKAN_EMB_FLUSH); the warps of 16 rows a block of each one's launch
+# (kan_basis.cu: the B-spline embedder's 192-output shape, tcf::WARPS, and
+# CHEBY_EMB_WARPS; kan_rbf_sine.cu's RBF_FWD_WARPS), which decide with its
+# outputs when its levels run in blocks of their own.
+TCG_FWD_FLUSH = {"bspline_kan": 12, "fastkan": 12, "chebykan": 24}
+TCG_FWD_WARPS = {"bspline_kan": 12, "fastkan": 12, "chebykan": 12}
 # The B-spline and FastKAN embedders' forwards keep the tensor cores at
 # every size: below one wave of their blocks (the MNIST embedders, 16 -> 64)
 # the CUDA-core kernels took 1-6 us less of the card and ~25 us less of the
 # host a call, but landed 3.0e-07 (B-spline) and 4.6e-07 (FastKAN) from f64
 # against the plain f32 version's 1.3e-07, past the twice that the tensor
 # cores hold (chip_smoke.py and kanvit_torch/probe_embedder_rbf.py
-# --bspline, --fastkan, NVIDIA H100 80GB HBM3 at 700 W; PERF.md).
+# --bspline, --fastkan, NVIDIA H100 80GB HBM3 at 700 W; PERF.md). So does
+# the Chebyshev embedder's, by the call-site rule: at the MNIST embedder its
+# CUDA-core kernel took 1.5 us less of the card (0.0097 against 0.0112 ms)
+# and held the gate (3.3e-07 from f64, the plain's 4.1e-07, the tensor
+# cores' 1.9e-07; chip_smoke.py, PERF.md).
 TCG_FWD_FEATURES = 8
 TCG_FWD_STEPS = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 2,
                  "sine": SINE_CHUNK}
@@ -464,9 +469,14 @@ def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
         elif family == "cheby":
             if name in TC_GROUPED_FWD:
                 wsplit = _tc_grouped_fwd_scratch(w, x2d.device, "cheby")
-                err = lib.kanvit_cheby_qkv_tc_fwd(*args, w.data_ptr(), y.data_ptr(),
-                                                  wsplit.data_ptr(), wsplit.numel(),
-                                                  *shape, stream)
+                head = (*args, w.data_ptr(), y.data_ptr(), wsplit.data_ptr(), wsplit.numel())
+                if name == "chebykan":
+                    splits = tc_fwd_splits(name, *shape, torch.cuda.get_device_properties(
+                        x2d.device).multi_processor_count, "cheby")
+                    part = _empty(splits, n, out, device=x2d.device) if splits > 1 else None
+                    err = lib.kanvit_chebykan_tc_fwd(*head, _ptr(part), splits, *shape, stream)
+                else:
+                    err = lib.kanvit_cheby_qkv_tc_fwd(*head, *shape, stream)
             else:
                 err = lib.kanvit_chebykan_fwd(*args, w.data_ptr(), y.data_ptr(),
                                               *shape, stream)
@@ -503,14 +513,16 @@ def tc_fwd_outs(family: str, nout: int) -> int:
 def tc_fwd_splits(name: str, n: int, groups: int, nin: int, nout: int, n_sm: int,
                   family: str = "bspline") -> int:
     """Splits of a two-level tensor-core forward (``TCG_FWD_FLUSH``) of
-    ``family``: one a level where its blocks fill less than one wave (a
-    vit-s image: B-spline 4 blocks, FastKAN 12, of 96 stages, 8 levels),
-    else 1. The levels are summed in the same order either way, so a row's
-    bits do not depend on the batch."""
+    ``family``: one a level where its blocks (``TCG_FWD_WARPS`` warps of 16
+    rows) fill less than one wave (a vit-s image of 96 stages: B-spline 4
+    blocks, FastKAN 12, 8 levels; Chebyshev 12, 4 levels), else 1. The
+    levels are summed in the same order either way, so a row's bits do not
+    depend on the batch."""
     flush = TCG_FWD_FLUSH.get(name)
     if flush is None:
         return 1
-    blocks = -(-n // TCG_FWD_ROWS) * groups * -(-nout // tc_fwd_outs(family, nout))
+    rows = 16 * TCG_FWD_WARPS[name]
+    blocks = -(-n // rows) * groups * -(-nout // tc_fwd_outs(family, nout))
     levels = -(-(-(-nin // TCG_FWD_FEATURES)) // flush)
     return levels if blocks < n_sm and levels > 1 else 1
 

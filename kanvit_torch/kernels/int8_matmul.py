@@ -15,6 +15,12 @@ decides semantics, not speed: the kernel quantizes x per row, the ``qdot``
 that ``TorchLinear`` runs elsewhere per tensor, so the two give different
 numbers.
 
+:func:`rows_per_block` is the kernel's one shape rule: the rows a block
+quantizes into shared memory, from K alone (``ROW_TIERS``), passed to the
+kernel's entry, which takes those four and refuses the rest; ``MAX_K`` is
+the deepest K whose 16-row blocks fit beside the kernel's W ring
+(:func:`shared_bytes`, the kernel's own sum).
+
 ``LAUNCHES["int8_linear"]`` counts kernel launches; the CPU path never
 counts.
 """
@@ -28,9 +34,30 @@ from kanvit_torch.ops import quant
 
 LAUNCHES = {"int8_linear": 0}
 LANE = 128          # kanvit's eligibility: K and out multiples of 128
-ROWS_PER_BLOCK = 32  # as in the kernel: BM * (K + 16) bytes of shared memory
 MAX_SHARED = 227 * 1024
-MAX_K = (MAX_SHARED - 4 * ROWS_PER_BLOCK) // ROWS_PER_BLOCK - 16
+# As in csrc/int8_matmul.cu: outputs a tile, K bytes a stage of W and the
+# stages of its ring, bytes after each quantized row (and each W row's 16).
+BN, KC, STAGES, XPAD = 128, 128, 2, 16
+# (deepest K, rows a block): the rows of a block shrink as K grows, so its
+# quantized rows fit beside the W ring; rows_per_block(k) reads it. 48
+# rows keep two blocks an SM up to K 1,536 and one wave of blocks at
+# vit-s's 12,608 tokens (263 blocks).
+ROW_TIERS = ((3968, 48), (6016, 32))
+DEEP_ROWS = 16      # past the last tier
+
+
+def shared_bytes(rows: int, k: int) -> int:
+    """A block's shared memory in the kernel: the row scales, ``rows``
+    quantized rows of ``K + XPAD`` bytes, the W ring."""
+    return rows * 4 + rows * (k + XPAD) + STAGES * BN * (KC + 16)
+
+
+MAX_K = max(k for k in range(LANE, 32768, LANE) if shared_bytes(DEEP_ROWS, k) <= MAX_SHARED)
+
+
+def rows_per_block(k: int) -> int:
+    """The rows a block of the kernel quantizes and multiplies, from K."""
+    return next((rows for deepest, rows in ROW_TIERS if k <= deepest), DEEP_ROWS)
 
 
 def reset_launches() -> None:
@@ -58,7 +85,7 @@ def check_args(x2d: torch.Tensor, w: torch.Tensor, bias) -> None:
     if not applicable(k, out):
         raise ValueError(f"K {k} and out {out} must be multiples of {LANE}")
     if k > MAX_K:
-        raise ValueError(f"K {k} exceeds the kernel's {MAX_K} (a row block's "
+        raise ValueError(f"K {k} exceeds the kernel's {MAX_K} (a block's "
                          "quantized rows live in shared memory)")
     if bias is not None and tuple(bias.shape) not in ((out,), (1, out)):
         raise ValueError(f"bias must be ({out},), got {tuple(bias.shape)}")
@@ -71,16 +98,18 @@ def _launch(x2d, wq, sw, bias) -> torch.Tensor:
     the weight quantized per output channel."""
     from kanvit_torch.kernels import _build
 
-    n = x2d.shape[0]
+    n, k = x2d.shape
     out = wq.shape[0]
     y = torch.empty(n, out, dtype=torch.float32, device=x2d.device)
     if n == 0:
         return y
+    if bias is not None and bias.data_ptr() % 8:
+        bias = bias.clone()  # the epilogue reads two columns' bias at once
     with torch.cuda.device(x2d.device):
         err = _build.load().kanvit_int8_linear_fwd(
             x2d.data_ptr(), x2d.stride(0), wq.data_ptr(), sw.data_ptr(),
-            None if bias is None else bias.data_ptr(), y.data_ptr(), n,
-            x2d.shape[1], out, torch.cuda.current_stream(x2d.device).cuda_stream)
+            None if bias is None else bias.data_ptr(), y.data_ptr(), n, k, out,
+            rows_per_block(k), torch.cuda.current_stream(x2d.device).cuda_stream)
     if err != 0:
         raise RuntimeError(f"int8_linear: kernel launch failed with CUDA error {err}")
     LAUNCHES["int8_linear"] += 1

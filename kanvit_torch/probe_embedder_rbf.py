@@ -1,7 +1,6 @@
-"""The patch embedders on the tensor cores: the FastKAN embedder's forward
-and backward, the B-spline embedder's forward and backward and the
-Chebyshev embedder's backward, their tiles and row splits, and the routes'
-kernels timed apart.
+"""The patch embedders on the tensor cores: the FastKAN, B-spline and
+Chebyshev embedders' forward and backward, their tiles and row splits, and
+the routes' kernels timed apart.
 
     python -m kanvit_torch.probe_embedder_rbf [--bspline] [--fastkan] [--cheby]
 
@@ -40,12 +39,17 @@ vit-s as ``--bspline`` times the B-spline one (each shape against the
 route's bits and f64, also with a third of x at |x| 20-60, beside the
 CUDA-core kernel), then both routes at the MNIST embedders and one vit-s
 image, with their distances from f64. ``--cheby`` builds one from
-``csrc/kan_basis.cu`` exposing ``kan_tc_dw_grouped<Cheby, NJ>`` at a split
-count and times the Chebyshev embedder's backward at vit-s (a tenth of x
-where tanh rounds to +-1: no dx, all gradients, by kernel, dW and dx
-against f64, the CUDA-core kernels), dW over ``CHEBY_SPLITS``, and both
-routes' no-dx backward at the small shapes. The last line holds the times
-as JSON.
+``csrc/kan_basis.cu`` exposing ``kan_tc_fwd_grouped<Cheby, NT, WARPS, MINB,
+Tf32x3, FLUSH>`` shapes (``CHEBY_FWD_SHAPES``: 64-output tiles at 8 warps
+and 3 or 2 blocks an SM or 12 warps and one, flush 6, 12, 24 or none, and
+a 192-output tile) and ``kan_tc_dw_grouped<Cheby, NJ>`` at a split count,
+and times the Chebyshev embedder's forward at vit-s as ``--fastkan`` times
+the FastKAN one (no saturated x, and a tenth where tanh rounds to +-1; an
+image's rows alone against the batch's bits), both routes' forward at the
+small shapes with their distances from f64, then its backward at vit-s (a
+tenth saturated: no dx, all gradients, by kernel, dW and dx against f64,
+the CUDA-core kernels), dW over ``CHEBY_SPLITS``, and both routes' no-dx
+backward at the small shapes. The last line holds the times as JSON.
 """
 
 from __future__ import annotations
@@ -340,8 +344,25 @@ CASES
 # tc_grouped_dw_splits): 11 at vit-s
 CHEBY_SPLITS = ((3, 8), (3, 11), (3, 16), (3, 22), (1, 4), (1, 11), (1, 22))
 
+# (n8 tiles a warp, warps a block, blocks an SM, stages a level of the sum)
+# of the Chebyshev embedder's forward; the route's first (kan_basis.cu's
+# CHEBY_EMB_WARPS, CHEBY_EMB_MINB, CHEBY_EMB_FLUSH at 64-output tiles)
+CHEBY_FWD_SHAPES = ((8, 8, 3, 12), (8, 12, 1, 12), (8, 8, 2, 12), (8, 8, 3, 6),
+                    (8, 8, 3, 24), (8, 8, 3, 0), (24, 12, 1, 12), (8, 12, 1, 24),
+                    (24, 12, 1, 24), (8, 8, 2, 24))
+
 CHEBY_SOURCE = r"""
 #include "kan_basis.cu"
+
+extern "C" int probe_cheby_fwd(int v, const float* x, long long ldx, const float* w, float* y,
+                               unsigned int* ws, long long ww, int n, int nin, int nout,
+                               void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (v) {
+CASES
+  }
+  return -1;
+}
 
 extern "C" int probe_cheby_dw(int nj, const float* x, long long ldx, const float* gy,
                               float* dw, float* dw_part, int n, int nin, int nout, int splits,
@@ -354,7 +375,9 @@ extern "C" int probe_cheby_dw(int nj, const float* x, long long ldx, const float
   return launch_tc_dw_grouped<Cheby, 3>(x, ldx, {}, gy, nout, vec, dw, dw_part, n, 1, nin,
                                         nout, splits, st);
 }
-"""
+""".replace("CASES", "\n".join(
+    f"    case {i}: return launch_tc_fwd_grouped<Cheby, {nt}, {w}, {mb}, {fl}>(x, ldx, {{}}, w, "
+    f"y, ws, ww, n, 1, nin, nout, st);" for i, (nt, w, mb, fl) in enumerate(CHEBY_FWD_SHAPES)))
 
 
 def fastkan_embedder(lib, C, torch, times):
@@ -464,11 +487,16 @@ def fastkan_embedder(lib, C, torch, times):
 
 
 def cheby_embedder(lib, C, torch, times):
-    """The Chebyshev embedder's backward (``--cheby``) at vit-s, a tenth of
-    x where tanh rounds to +-1: the route (no dx, all gradients, by
-    kernel), dW and dx against f64 beside the plain f32 version, the
-    no-dx dW's bits against the all-gradients dW's, the CUDA-core kernels;
-    dW over ``CHEBY_SPLITS``; then both routes' no-dx backward at the MNIST
+    """The Chebyshev embedder (``--cheby``) at vit-s, x with a share where
+    tanh rounds to +-1. Its forward: the route and the shapes of
+    ``CHEBY_FWD_SHAPES``, each against the route's bits, timed, and held
+    against f64 beside the plain f32 version and the CUDA-core kernel, with
+    no saturated entries and with a tenth; then both routes' forward at the
+    MNIST embedders and one vit-s image, with their distances from f64. Its
+    backward, a tenth saturated: the route (no dx, all gradients, by
+    kernel), dW and dx against f64 beside the plain f32 version, the no-dx
+    dW's bits against the all-gradients dW's, the CUDA-core kernels; dW
+    over ``CHEBY_SPLITS``; then both routes' no-dx backward at the MNIST
     embedders and one vit-s image."""
     import numpy as np
 
@@ -476,17 +504,18 @@ def cheby_embedder(lib, C, torch, times):
     from kanvit_torch.ops import kan_bases as K
 
     p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    dw_fn = lib.probe_cheby_dw
+    dw_fn, fwd = lib.probe_cheby_dw, lib.probe_cheby_fwd
     dw_fn.argtypes = [i32, p, i64, *[p] * 3, *[i32] * 4, p]
-    dw_fn.restype = i32
+    fwd.argtypes = [i32, p, i64, p, p, p, i64, *[i32] * 3, p]
+    dw_fn.restype = fwd.restype = i32
     rng = np.random.default_rng(C.SEED + 12)
     name = "chebykan_bwd"
 
     def cuda(a):
         return torch.from_numpy(np.asarray(a, np.float32)).cuda()
 
-    def case(n, nin, nout):
-        x = cuda(C.cheby_inputs(rng, (n, nin), 0.1))
+    def case(n, nin, nout, saturated=0.1):
+        x = cuda(C.cheby_inputs(rng, (n, nin), saturated))
         cc = rng.standard_normal((nin, nout, 5)) / np.sqrt(nin * 5)
         g = cuda(rng.standard_normal((n, nout)))
         return x, FB.pack_cheby_weight(cuda(cc)).contiguous(), g
@@ -494,11 +523,78 @@ def cheby_embedder(lib, C, torch, times):
     def plain(x, w):
         return K.chebykan_forward(x, w[0].permute(1, 2, 0))
 
+    n, nin, nout = C.BATCH * 196, 768, 384
+    stream = torch.cuda.current_stream().cuda_stream
+    ws = torch.empty(-(-nin // 8) * 5 * 16 * (-(-nout // 64) * 64 + 192), dtype=torch.int32,
+                     device="cuda")
+    for tag, saturated in (("vit-s", 0.0), ("vit-s, a tenth of x where tanh rounds to +-1",
+                                            0.1)):
+        x, w, _ = case(n, nin, nout, saturated)
+        with torch.inference_mode():
+            def route():
+                return FB._launch("chebykan", "cheby", x, w, 4)
+
+            want = route()
+            core = C.cuda_core_route(FB, route)
+            exact = plain(x.double(), w.double())
+            entry = {"route_ms": C.time_ms(torch, route),
+                     "route_device_ms": C.kernel_ms(torch, route, 10,
+                                                    label=f"chebykan {tag}, by kernel"),
+                     "cuda_core_ms": C.cuda_core_route(FB, lambda: C.time_ms(torch, route)),
+                     "cuda_core_device_ms": C.cuda_core_route(FB, lambda: C.kernel_ms(
+                         torch, route, 10, label=f"chebykan {tag}, CUDA cores, by kernel")),
+                     "f64_route": f64_dist(want, exact), "f64_plain": f64_dist(plain(x, w), exact),
+                     "f64_cuda_core": f64_dist(core, exact),
+                     "image_bits": torch.equal(FB._launch("chebykan", "cheby", x[:196], w, 4),
+                                               want[:196])}
+            for v, shape in enumerate(CHEBY_FWD_SHAPES):
+                y = torch.empty_like(want)
+
+                def launch(v=v, y=y, shape=shape):
+                    err = fwd(v, x.data_ptr(), x.stride(0), w.data_ptr(), y.data_ptr(),
+                              ws.data_ptr(), ws.numel(), n, nin, nout, stream)
+                    C.check(err == 0, f"cheby fwd {shape}: CUDA error {err}")
+
+                launch()
+                torch.cuda.synchronize()
+                entry[str(shape)] = {"ms": C.time_ms(torch, launch),
+                                     "same_bits": torch.equal(y, want),
+                                     "f64": f64_dist(y, exact)}
+        times[f"chebykan {tag}"] = entry
+        print(f"[probe_embedder_cheby] forward {tag}: route {entry['route_ms']:.4f} ms "
+              f"(device {entry['route_device_ms']:.4f}), CUDA cores "
+              f"{entry['cuda_core_ms']:.4f} (device {entry['cuda_core_device_ms']:.4f}); f64: "
+              f"route {entry['f64_route']:.3e}, plain f32 {entry['f64_plain']:.3e}, CUDA "
+              f"cores {entry['f64_cuda_core']:.3e}; an image's rows alone give the batch's "
+              f"bits: {entry['image_bits']}", flush=True)
+        for shape in CHEBY_FWD_SHAPES:
+            e = entry[str(shape)]
+            print(f"[probe_embedder_cheby]   (n8 tiles, warps, blocks an SM, flush) {shape}: "
+                  f"{e['ms']:.4f} ms, f64 {e['f64']:.3e}"
+                  f"{'' if e['same_bits'] else ' (other bits than the route)'}", flush=True)
+
+    for tag, rows, nin_s, nout_s in SMALL:
+        x, w, _ = case(rows, nin_s, nout_s)
+
+        def route(x=x, w=w):
+            return FB._launch("chebykan", "cheby", x, w, 4)
+
+        label = f"chebykan {tag} {rows} x {nin_s} -> {nout_s}"
+        entry = routes_in_turns(C, torch, FB, label, (("forward", route),))
+        with torch.inference_mode():
+            exact = plain(x.double(), w.double())
+            entry.update({"f64_route": f64_dist(route(), exact),
+                          "f64_cuda_core": f64_dist(C.cuda_core_route(FB, route), exact),
+                          "f64_plain": f64_dist(plain(x, w), exact)})
+        print(f"[probe_embedder_cheby] {label} against f64: tensor cores "
+              f"{entry['f64_route']:.3e}, CUDA cores {entry['f64_cuda_core']:.3e}, plain f32 "
+              f"{entry['f64_plain']:.3e}", flush=True)
+        times[f"chebykan {tag}"] = entry
+
     def grads(x, w, g, dtype):
         leaves = [a.detach().to(dtype).requires_grad_(True) for a in (x, w)]
         return torch.autograd.grad(plain(*leaves), leaves, g.to(dtype))
 
-    n, nin, nout = C.BATCH * 196, 768, 384
     x, w, g = case(n, nin, nout)
 
     def bwd(with_dx=False):

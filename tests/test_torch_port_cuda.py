@@ -18,6 +18,7 @@ import torch
 
 from kanvit_torch.kernels import flash_attention as FA
 from kanvit_torch.kernels import fused_basis as FB
+from kanvit_torch.kernels import int8_matmul as IM
 from kanvit_torch.ops import attention as A
 from kanvit_torch.ops import kan_bases as K
 
@@ -465,8 +466,10 @@ def _param(rng, shape, scale):
 
 
 @pytest.mark.parametrize("n,nin,nout", [(1, 8, 3), (1000, 16, 24), (300, 100, 70)])
-def test_chebykan_kernels(cuda, n, nin, nout):
-    """Forward, dx and dcoeffs, with saturated inputs: finite, and 0 dx there."""
+def test_chebykan_kernels(cuda, monkeypatch, n, nin, nout):
+    """Forward, dx and dcoeffs, with saturated inputs: finite, and 0 dx there;
+    the forward the tensor-core entry's."""
+    called = _recording(monkeypatch, ("kanvit_chebykan_tc_fwd", "kanvit_chebykan_fwd"))
     rng = np.random.default_rng(60)
     x = _cheby_x(rng, (n, nin)).to(cuda)
     cc = _param(rng, (nin, nout, 5), 1.0 / nin).to(cuda)
@@ -478,6 +481,7 @@ def test_chebykan_kernels(cuda, n, nin, nout):
         _close(a, b, 1e-4)
     assert bool((got[0][x.abs() >= 9.5] == 0).all())
     assert FB.LAUNCHES["chebykan"] == 1 and FB.LAUNCHES["chebykan_bwd"] == 1
+    assert called == ["kanvit_chebykan_tc_fwd"]
 
 
 @pytest.mark.parametrize("n,h,dh", [(37 * 50, 2, 32), (129, 6, 64)])
@@ -1478,33 +1482,59 @@ def test_ffn_pre_ln_raises_not_fall_back(cuda_all):
     assert FFN.LAUNCHES["ffn_pre_ln"] == 0
 
 
-def _quant_step_bound(x, w):
-    """The most one rounding-tie flip of q(x) can move an output (kanvit's
-    ``tests/test_quant.py:44-48``)."""
-    sx = float(x.abs().amax(-1).max()) / 127.0
-    sw = float(w.abs().amax(-1).max()) / 127.0
-    return 3.0 * sx * sw * 127.0
+# (n, K, out): K across the kernel's rows-a-block rule (48 rows up to K
+# 3,968, 32 up to 6,016, 16 past it to MAX_K), N 1, 33 (a partial row
+# tile) and the vit-s tokens
+INT8_SHAPES = [(1, 128, 128), (37, 256, 384), (300, 384, 1536), (129, 1536, 384),
+               (1, 768, 384), (33, 768, 384), (12608, 384, 1536), (12608, 1536, 384),
+               (12544, 768, 384), (33, 3072, 768), (1, 3072, 256), (12608, 3072, 768),
+               (33, 3968, 384), (33, 4096, 256), (1, 6016, 128), (33, 6144, 128),
+               (33, IM.MAX_K, 256), (1, IM.MAX_K, 128), (12608, IM.MAX_K, 128)]
 
 
-@pytest.mark.parametrize("n,k,out", [(1, 128, 128), (37, 256, 384), (300, 384, 1536),
-                                     (129, 1536, 384)])
+def _int8_case(rng, n, k, out, with_bias, cuda):
+    x = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(cuda)
+    w = torch.from_numpy((rng.standard_normal((out, k)) * 0.05).astype(np.float32)).to(cuda)
+    b = (torch.from_numpy(rng.standard_normal(out).astype(np.float32)).to(cuda)
+         if with_bias else None)
+    return x, w, b
+
+
+@pytest.mark.parametrize("n,k,out", INT8_SHAPES)
 @pytest.mark.parametrize("with_bias", [True, False])
 def test_int8_linear_kernel(cuda_all, n, k, out, with_bias):
-    from kanvit_torch.kernels import int8_matmul as IM
+    """The kernel's bits are ``qdot_rowwise``'s: the same q(x) and q(W), an
+    exact int32 sum, the same rounded epilogue."""
     from kanvit_torch.ops import quant as Q
 
     rng = np.random.default_rng(110 + k)
-    x = torch.from_numpy(rng.standard_normal((n, k)).astype(np.float32)).to(cuda_all)
-    w = torch.from_numpy((rng.standard_normal((out, k)) * 0.05).astype(np.float32))
-    w = w.to(cuda_all)
-    b = (torch.from_numpy(rng.standard_normal(out).astype(np.float32)).to(cuda_all)
-         if with_bias else None)
+    x, w, b = _int8_case(rng, n, k, out, with_bias, cuda_all)
     with torch.inference_mode():
         y = IM.int8_linear(x, w, b)
         want = Q.qdot_rowwise(x, w, b)
     torch.cuda.synchronize()
     assert y.dtype == torch.float32 and y.shape == (n, out)
-    assert float((y - want).abs().max()) <= _quant_step_bound(x, w)
+    assert torch.equal(y, want), int((y != want).sum())
+    assert IM.LAUNCHES["int8_linear"] == 1
+
+
+@pytest.mark.parametrize("pad,offset", [(4, 0), (3, 0), (0, 1), (5, 3)])
+def test_int8_linear_kernel_strided_x(cuda_all, pad, offset):
+    """x a column window of a wider tensor: rows 16-byte aligned (16-byte
+    loads) or not (4-byte loads), the same bits as ``qdot_rowwise``."""
+    from kanvit_torch.ops import quant as Q
+
+    rng = np.random.default_rng(140 + pad + offset)
+    n, k, out = 333, 768, 384
+    wide, w, b = _int8_case(rng, n, k + pad + offset, out, True, cuda_all)
+    x = wide[:, offset:offset + k]
+    w = w[:, :k].contiguous()
+    assert x.stride(0) == k + pad + offset
+    with torch.inference_mode():
+        y = IM.int8_linear(x, w, b)
+        want = Q.qdot_rowwise(x.contiguous(), w, b)
+    torch.cuda.synchronize()
+    assert torch.equal(y, want), int((y != want).sum())
     assert IM.LAUNCHES["int8_linear"] == 1
 
 
@@ -1863,6 +1893,70 @@ def test_chebykan_tc_backward(cuda, monkeypatch, n, nin, nout, saturated):
     assert torch.equal(again[0], dx) and torch.equal(again[1], dw)
     assert called == ["kanvit_cheby_qkv_tc_bwd"] * 4
     assert FB.LAUNCHES["chebykan_bwd"] == 4
+
+
+# (n, nin, nout, saturated share): the vit-s embedder without saturated x and
+# with a tenth and three tenths, one vit-s image (its 8 levels in blocks of
+# their own), the MNIST embedders, ragged rows, features and outputs (13
+# stages: past one level, in 2 splits), all of x saturated
+CHEBY_FWD_SHAPES = [(12544, 768, 384, 0.0), *CHEBY_EMBEDDER_SHAPES, (301, 100, 70, 1.0)]
+
+
+@pytest.mark.parametrize("n,nin,nout,saturated", CHEBY_FWD_SHAPES)
+def test_chebykan_tc_forward(cuda, monkeypatch, n, nin, nout, saturated):
+    """The embedder's forward on the tensor cores (3xTF32, its sum in two
+    levels) at every size, a share of x where tanh rounds to +-1: within
+    1e-4 x max(1, max|y|) of the plain version and of the CUDA-core kernel
+    it replaced, no further from f64 than twice the plain f32 version, a
+    second forward with the same bits; the tensor-core entry the one
+    called."""
+    called = _recording(monkeypatch, ("kanvit_chebykan_tc_fwd", "kanvit_chebykan_fwd"))
+    rng = np.random.default_rng(130 + nin)
+    x = _cheby_x(rng, (n, nin), saturated).to(cuda)
+    cc = _param(rng, (nin, nout, 5), 1.0 / np.sqrt(5 * nin)).to(cuda)
+    with torch.inference_mode():
+        y = FB.chebykan(x, cc)
+        again = FB.chebykan(x, cc)
+        want = K.chebykan_forward(x, cc)
+        exact = K.chebykan_forward(x.double(), cc.double())
+        monkeypatch.setattr(FB, "TC_GROUPED_FWD", ())
+        cores = FB.chebykan(x, cc)
+    _close(y, want, 1e-4)
+    _close(y, cores, 1e-4)
+    _f64_gate(y, want, exact)
+    assert torch.equal(y, again)
+    assert called == ["kanvit_chebykan_tc_fwd"] * 2 + ["kanvit_chebykan_fwd"]
+    assert FB.LAUNCHES["chebykan"] == 3
+
+
+def test_chebykan_tc_forward_rows_keep_their_bits_at_any_batch(cuda):
+    """One vit-s image (and 37 of them) runs the forward's levels in blocks
+    of their own and sums them in level order, as a batch of 64 sums them in
+    its blocks: the images' rows have the bits they have in the batch."""
+    rng = np.random.default_rng(137)
+    x = _cheby_x(rng, (12544, 768), 0.1).to(cuda)
+    cc = _param(rng, (768, 384, 5), 1.0 / np.sqrt(5 * 768)).to(cuda)
+    with torch.inference_mode():
+        batch = FB.chebykan(x, cc)
+        for lo, hi in ((0, 196), (196 * 7, 196 * 8), (12544 - 196, 12544), (0, 196 * 37)):
+            assert torch.equal(FB.chebykan(x[lo:hi], cc), batch[lo:hi])
+
+
+def test_chebykan_tc_forward_raises_not_falls_back(cuda, monkeypatch):
+    """A failing tensor-core forward entry (here: one that returns a CUDA
+    error) makes the wrapper raise; the CUDA-core entry is never called and
+    nothing is counted."""
+    from kanvit_torch.kernels import _build
+
+    lib = _build.load()
+    called = _recording(monkeypatch, ("kanvit_chebykan_fwd",))
+    rng = np.random.default_rng(138)
+    x = _cheby_x(rng, (50, 16)).to(cuda)
+    cc = _param(rng, (16, 24, 5), 0.1).to(cuda)
+    monkeypatch.setattr(lib, "kanvit_chebykan_tc_fwd", lambda *args: 96)
+    with torch.inference_mode(), pytest.raises(RuntimeError, match="CUDA error 96"):
+        FB.chebykan(x, cc)
+    assert called == [] and FB.LAUNCHES["chebykan"] == 0
 
 
 def test_fastkan_fwd_and_chebykan_bwd_raise_not_fall_back(cuda, monkeypatch):

@@ -395,6 +395,7 @@ def test_int8_linear_matches_kanvit_kernel(int8_path, monkeypatch, with_bias):
     ("dtype", TypeError, "x must be float32"),
     ("ragged", ValueError, "multiples of 128"),
     ("bias", ValueError, "bias must be"),
+    ("deep", ValueError, "exceeds the kernel's"),
 ])
 def test_int8_kernel_arg_checks(bad, err, match):
     x, w, b = (torch.from_numpy(a) for a in _xw(84))
@@ -402,10 +403,27 @@ def test_int8_kernel_arg_checks(bad, err, match):
         x = x.double()
     elif bad == "ragged":
         x, w = x[:, :100], w[:, :100]
+    elif bad == "deep":
+        x, w = torch.zeros(4, IM.MAX_K + IM.LANE), torch.zeros(128, IM.MAX_K + IM.LANE)
     else:
         b = b[:10]
     with pytest.raises(err, match=match):
         IM.check_args(x, w, b)
+
+
+def test_int8_kernel_takes_max_k(monkeypatch):
+    """K = ``MAX_K`` (a multiple of 128, the deepest the kernel's 16-row
+    blocks fit) passes the checks and runs through the emulated launch
+    with ``qdot_rowwise``'s bits."""
+    rng = np.random.default_rng(85)
+    x = torch.from_numpy(rng.standard_normal((5, IM.MAX_K)).astype(np.float32))
+    w = torch.from_numpy((rng.standard_normal((128, IM.MAX_K)) * 0.05).astype(np.float32))
+    IM.check_args(x, w, None)
+    IM.reset_launches()
+    _emulate_launches(monkeypatch)
+    np.testing.assert_array_equal(IM.int8_linear(x, w).numpy(),
+                                  Q.qdot_rowwise(x, w).numpy())
+    assert IM.LAUNCHES["int8_linear"] == 1
 
 
 def test_torchlinear_int8_dispatch(int8_path):

@@ -242,13 +242,14 @@ def test_small_batches_run_each_level_in_blocks_of_their_own():
 
 def test_two_level_sum_leaves_the_qkv_forward_alone():
     """Only the embedders' entries sum in two levels: ``TCG_FWD_FLUSH`` names
-    the B-spline one and the FastKAN one (``kan_rbf_sine.cu``),
+    the B-spline one, the FastKAN one (``kan_rbf_sine.cu``) and the
+    Chebyshev one,
     ``kan_basis.cu``'s q/k/v entry launches the template with no flush, the
     embedder's with ``BSPLINE_EMB_FLUSH`` stages, the number
     ``TCG_FWD_FLUSH`` and the emulation use; and up to that many stages (nin
     <= 96: the vit-s q/k/v's 64 take 8) a two-level sum is one running sum,
     bit for bit."""
-    assert set(FB.TCG_FWD_FLUSH) == {"bspline_kan", "fastkan"}
+    assert set(FB.TCG_FWD_FLUSH) == {"bspline_kan", "fastkan", "chebykan"}
     assert int(re.search(r"BSPLINE_EMB_FLUSH = (\d+);", KAN_BASIS_CU).group(1)) == FLUSH
 
     def body(entry):
