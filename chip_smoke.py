@@ -113,6 +113,19 @@ Phases, in order; any failure raises, so the script exits non-zero:
    fused FF kernel reports, after bounding that pattern's flips against
    f64's), the steady-state step time and images/s, and a
    ``torch.profiler`` breakdown;
+9b. bf16 serving of the vit-s ``efficientkan`` (kanvit's ``--bf16``
+   policy): first its three bf16 kernels (``bspline_kan``,
+   ``bspline_qkv_grouped``, the lanes attention's forward) against their
+   plain twins on the card at the vit-s shapes and ragged narrow ones
+   (one bf16 ulp elementwise; a fully masked row 0), against the f64 sum of
+   the same rounded operands (no further than twice the twin), bits
+   repeated, CUDA-event and device times beside the f32 kernel's on the
+   same operands and, for the attention, ``scaled_dot_product_attention``'s
+   in bf16; then ``Predictor`` on a bf16 copy of the f32 phase's weights
+   (three requests) and ``make_eval_step(bf16=True)``: exactly 1 + 12 + 12
+   bf16 launches a forward, logits within 2e-2 x max(1, max|logits|) of the
+   CPU's bf16 forward, top-1 agreement with the card's f32 logits, device
+   forward ms (in turns with f32) and images/s beside f32's;
 11. int8 serving of the vit-s ``vanilla`` model through
    ``Predictor(quant="int8")``: with the ``int8_linear`` kernel (25
    launches a batch, the 1000-class head on qdot), calibrated, and on qdot
@@ -198,6 +211,7 @@ PEAK_F32_FLOPS = 67e12
 PEAK_TF32_FLOPS = 495e12
 TF32_PASSES = 3
 PEAK_INT8_OPS = 1979e12  # dense int8 tensor-core rate
+PEAK_BF16_FLOPS = 989e12  # dense bf16 tensor-core rate (the bf16 kernels)
 PEAK_BYTES = 3.35e12
 # The fused FF against its plain version, x max(1, max|y|) and per gradient
 # x max(1, max|g|): f32 sums of depth D (384) and F (1,536) and, for dW1,
@@ -222,6 +236,18 @@ TOL_INT8_LOGITS = 2e-2
 FLIP_SHARE = 4e-6
 FLIP_FLOOR = 8
 FLIP_TOL_F64 = 1e-4
+# The bf16 kernels against their plain twins (the same bf16 policy on the
+# card), elementwise: one bf16 ulp, |a - b| <= 2^-7 |b| + 2^-12 max|b|
+# (f32 sums in another order round a few outputs to the neighbouring bf16).
+# The attention also rounds each probability to bf16, and its scores' f32
+# sums in another order round a few p to the neighbouring bf16 (one output
+# of vit-s's 4.8M lay 4.8e-6 past the one-ulp gate on the H100, PERF.md):
+# its gate adds one bf16 ulp of every p, weighted as P V weights it,
+# 2^-8 (bf16(p) @ |v|) / l.
+BF16_ULP_REL, BF16_ULP_ABS, BF16_P_ULP = 2.0 ** -7, 2.0 ** -12, 2.0 ** -8
+# bf16 serving on the card against the CPU's bf16 forward, x max(1,
+# max|logits|): kanvit's own bf16 gate (tests/test_kernels.py:871).
+TOL_BF16_LOGITS = 2e-2
 TRAIN_STEPS = 6
 GRAD_IMAGES = 4
 SEED = 0
@@ -310,6 +336,8 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("kan_tc_fwd_grouped", "7BsplineELi24E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "7BsplineELi8E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "7BsplineELi24E", "Tf32x3ELi12E"),
+                ("kan_tc_fwd_grouped", "7BsplineELi24E", "4Bf16ELi0E"),
+                "attention_lanes_fwd_bf16ILi64",
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi12E"),
                 ("kan_tc_fwd_grouped", "4SineELi8E"),
@@ -1348,16 +1376,16 @@ def fourier_inputs(rng, shape):
     return x
 
 
-def f64_gate(tag, got, plain32, exact):
+def f64_gate(tag, got, plain32, exact, plain="plain f32"):
     """The kernel's result no further from f64 than twice the plain f32
-    version's, each x max(1, max|exact|)."""
+    version's (``plain``: what that version is), each x max(1, max|exact|)."""
     scale = max(1.0, float(exact.abs().max()))
     k = float((got.double() - exact).abs().max()) / scale
     p = float((plain32.double() - exact).abs().max()) / scale
     ok = bool(got.isfinite().all()) and k <= 2 * p
-    print(f"[kernel] {tag} against f64: kernel {k:.3e}, plain f32 {p:.3e} (x max(1, "
+    print(f"[kernel] {tag} against f64: kernel {k:.3e}, {plain} {p:.3e} (x max(1, "
           f"max|.|); limit twice the plain's)  {'ok' if ok else 'FAIL'}")
-    check(ok, f"{tag}: further from f64 than twice the plain f32 version "
+    check(ok, f"{tag}: further from f64 than twice the {plain} version "
               f"({k:.3e} > 2 x {p:.3e})")
     return k
 
@@ -2328,6 +2356,301 @@ def phase_serve(torch, smi, model_cpu, tag, per_batch, seed):
 
 
 # --------------------------------------------------------------------------
+# Phase 9b: bf16 serving
+# --------------------------------------------------------------------------
+
+def bf16_ulp_gate(tag, got, want, spread=None):
+    """Elementwise within one bf16 ulp of the plain twin: |a - b| <=
+    2^-7 |b| + 2^-12 max|b|, plus, for the attention, one bf16 ulp of every
+    probability weighted as P V weights it: 2^-8 (bf16(p) @ |v|) / l
+    (``spread``, the twin's attention over |v|). Returns max|a - b|; prints
+    how many elements lie past the one-ulp part alone."""
+    got64, want64 = got.double(), want.double()
+    err = (got64 - want64).abs()
+    ulp = BF16_ULP_REL * want64.abs() + BF16_ULP_ABS * float(want64.abs().max())
+    bound = ulp if spread is None else ulp + BF16_P_ULP * spread.double()
+    ok = bool(got.isfinite().all()) and bool((err <= bound).all())
+    worst = float((err - bound).max())
+    past = int((err > ulp).sum())
+    print(f"[bf16] {tag}: max|err| {float(err.max()):.3e}, worst margin to the gate "
+          f"{worst:.3e}; {past} of {err.numel()} past one output ulp  "
+          f"{'ok' if ok else 'FAIL'}")
+    check(ok, f"{tag}: bf16 kernel further than its gate from its plain twin")
+    return float(err.max())
+
+
+def bf16_bound(flops, nbytes, library_ms=None):
+    """``bound`` at the dense bf16 tensor-core rate."""
+    return bound(flops, nbytes, library_ms, peak=PEAK_BF16_FLOPS)
+
+
+def check_bspline_bf16(torch, rng, name, label, n, heads, nin, nout, per_head=False):
+    """A bf16 B-spline forward (``bspline_kan``: ``heads`` None;
+    ``bspline_qkv_grouped``: ``heads`` groups of ``nin``) against its plain
+    twin on the card (one bf16 ulp) and the f64 sum of the same rounded
+    operands (no further than twice the twin), its bits repeated; CUDA-event
+    and device times beside the f32 kernel's on the same (upcast) operands
+    and the twin's, and the bf16 bound."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    bf16 = torch.bfloat16
+    if heads is None:
+        x, (grid, *p), _ = bspline_case(torch, rng, n, nin, nout)
+        groups, entry, pack = 1, FB.bspline_kan, FB.pack_weight
+    else:
+        x, (grid, *p), _ = qkv_case(torch, rng, n, heads, nin, per_head)
+        groups, entry, pack = heads, FB.bspline_qkv_grouped, FB.pack_qkv_weight
+    xb, pb = x.to(bf16), [t.to(bf16) for t in p]
+    out = pb[0].shape[-2]
+    tag = f"{name} bf16 {label} N={n} G={groups} {nin}->{out}"
+
+    def plain(exact=False):
+        if heads is None:
+            return K.bspline_kan_forward_bf16(xb, grid, *pb, exact=exact)
+        return torch.cat([K.bspline_kan_forward_bf16(
+            xb[:, i * nin:(i + 1) * nin], grid[i] if grid.dim() == 3 else grid,
+            *(t[i] for t in pb), exact=exact) for i in range(heads)], dim=1)
+
+    wb = pack(*pb).contiguous()
+    w32 = pack(*(t.float() for t in pb)).contiguous()
+    if heads is None:
+        wb, w32 = wb.unsqueeze(0), w32.unsqueeze(0)
+    x32 = xb.float()
+
+    def kernel():
+        return FB._launch(name, "bspline", xb, wb, grid)
+
+    def f32_kernel():
+        return FB._launch(name, "bspline", x32, w32, grid)
+
+    with torch.inference_mode():
+        y = entry(xb, grid, *pb)
+        check(y.dtype == bf16, f"{tag}: output {y.dtype}")
+        again = kernel()
+        ref, exact = plain(), plain(exact=True)
+        torch.cuda.synchronize()
+        err = bf16_ulp_gate(tag, y, ref)
+        check(torch.equal(y, again), f"{tag}: a second forward gave other bits")
+        f64 = f64_gate(tag, y, ref, exact, "bf16 plain twin")
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, 10, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, 10, label=f"{tag}, the f32 kernel")
+        plain_ms = time_ms(torch, plain)
+    flops = 2.0 * n * groups * FB.N_SLICES * nin * out
+    nbytes = 2.0 * (n * groups * nin + groups * FB.N_SLICES * nin * out
+                    + n * groups * out) + 4.0 * grid.numel()
+    bounds = bf16_bound(flops, nbytes)
+    print(f"[bf16] {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernel "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  bound "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']})  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                               "f32_device_ms": f32_dev_ms}, bounds
+
+
+def check_attention_bf16(torch, rng, b, t, heads, dh, label, cases):
+    """The bf16 lanes forward on q, k, v as strided slices of a bf16
+    (N, H*3dh) projection output, each case against the plain twin (one
+    bf16 ulp; a fully masked row exactly 0); the first case also against
+    the f64 reference (no further than twice the twin), its bits repeated,
+    CUDA-event and device times beside the f32 kernel's on the same
+    (upcast) operands, the twin's and ``scaled_dot_product_attention``'s in
+    bf16."""
+    from kanvit_torch.kernels import flash_attention as FA
+    from kanvit_torch.ops import attention as A
+
+    bf16 = torch.bfloat16
+    y = torch.from_numpy(rng.standard_normal((b * t, heads * 3 * dh))
+                         .astype(np.float32)).cuda().to(bf16)
+    y32 = y.float()
+
+    def views(a):
+        a4 = a.view(b, t, heads, 3 * dh)
+        return [a4[..., i * dh:(i + 1) * dh] for i in range(3)]
+
+    (q, k, v), (q32, k32, v32) = views(y), views(y32)
+    tag = f"flash_attention_lanes bf16 {label} B={b} T={t} H={heads} dh={dh}"
+    errs = []
+    with torch.inference_mode():
+        for causal, mask in cases:
+            o = FA.flash_attention_lanes(q, k, v, heads, causal=causal, mask=mask)
+            check(o.dtype == bf16, f"{tag}: output {o.dtype}")
+            ref = A.lanes_attention(q, k, v, heads, causal=causal, mask=mask)
+            spread = A.lanes_attention(q, k, v.abs(), heads, causal=causal, mask=mask)
+            torch.cuda.synchronize()
+            case = f"causal={causal} mask={'none' if mask is None else 'yes'}"
+            errs.append(bf16_ulp_gate(f"{tag} {case}", o, ref, spread))
+            if mask is not None:
+                dead = ~A.key_valid(mask, b, t, mask.device).any(dim=1)
+                check(bool((o[dead] == 0).all()), "a fully masked row must output exactly 0")
+        causal, mask = cases[0]
+
+        def kernel():
+            return FA.flash_attention_lanes(q, k, v, heads, causal=causal, mask=mask)
+
+        def f32_kernel():
+            return FA.flash_attention_lanes(q32, k32, v32, heads, causal=causal, mask=mask)
+
+        def plain():
+            return A.lanes_attention(q, k, v, heads, causal=causal, mask=mask)
+
+        o, again = kernel(), kernel()
+        check(torch.equal(o, again), f"{tag}: the bits of a repeated forward differ")
+        f64 = f64_gate(tag, o, plain(), A.lanes_attention(
+            q, k, v, heads, causal=causal, mask=mask, exact=True), "bf16 plain twin")
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, label=f"{tag}, the f32 kernel")
+        plain_ms = time_ms(torch, plain)
+    lviews = [a.transpose(1, 2) for a in (q, k, v)]
+    lib_ms = sdpa_ms(torch, *lviews, causal, mask)
+    lib_dev_ms = sdpa_ms(torch, *lviews, causal, mask, device=True)
+    pairs = t * (t + 1) / 2 if causal else t * t
+    bounds = bf16_bound(2.0 * b * heads * pairs * dh * 2, 2.0 * 4 * b * t * heads * dh,
+                        lib_ms)
+    print(f"[bf16] {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernel "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  "
+          f"scaled_dot_product_attention bf16 {lib_ms:.4f} (device {lib_dev_ms:.4f})  "
+          f"bound {bounds['bound_ms']:.4f} ({bounds['bound_by']})")
+    return errs[0], ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                                   "f32_device_ms": f32_dev_ms,
+                                   "library_device_ms": lib_dev_ms}, bounds
+
+
+def phase_bf16_kernels(torch):
+    """The three bf16 kernels of the bf16 serving path at its vit-s shapes,
+    then at ragged narrow shapes (sub-entries)."""
+    rng = np.random.default_rng(SEED + 11)
+    results = {
+        "bspline_kan_bf16": check_bspline_bf16(
+            torch, rng, "bspline_kan", "vit-s embedder", BATCH * 196, None, 768, 384),
+        "bspline_qkv_grouped_bf16": check_bspline_bf16(
+            torch, rng, "bspline_qkv_grouped", "vit-s q/k/v", BATCH * 197, 6, 64, 192),
+        "flash_attention_lanes_bf16": check_attention_bf16(
+            torch, rng, BATCH, 197, 6, 64, "vit-s", [(False, None)]),
+    }
+    results["bspline_kan_bf16"] += (
+        {"mnist_ragged": sub_entry(check_bspline_bf16(
+            torch, rng, "bspline_kan", "mnist embedder", 37 * 49, None, 16, 64))},
+        {"batch_1": sub_entry(check_bspline_bf16(
+            torch, rng, "bspline_kan", "vit-s embedder, one image", 196, None, 768, 384))})
+    results["bspline_qkv_grouped_bf16"] += (
+        {"mnist_ragged": sub_entry(check_bspline_bf16(
+            torch, rng, "bspline_qkv_grouped", "mnist q/k/v", 37 * 50, 2, 32, 96))},
+        {"refit_grids_per_head": sub_entry(check_bspline_bf16(
+            torch, rng, "bspline_qkv_grouped", "vit-s refit grids a head", BATCH * 197, 6,
+            64, 64, per_head=True))},
+        {"at_dh_8_mnist": sub_entry(check_bspline_bf16(
+            torch, rng, "bspline_qkv_grouped", "dh-8 q/k/v", BATCH * 50, 8, 8, 24))})
+    for key, b, t, heads, dh in (("mnist_ragged", 37, 50, 2, 32),
+                                 ("at_dh_8_mnist", BATCH, 50, 8, 8),
+                                 ("at_dh_16", 16, 197, 4, 16)):
+        results["flash_attention_lanes_bf16"] += ({key: sub_entry(check_attention_bf16(
+            torch, rng, b, t, heads, dh, key, attention_cases(torch, rng, b, t)))},)
+    return results
+
+
+BF16_PER_BATCH = {"bspline_kan_bf16": 1, "bspline_qkv_grouped_bf16": 12,
+                  "flash_attention_lanes_bf16": 12}
+
+
+def phase_bf16_serve(torch, smi, model_cpu, seed):
+    """Serve the vit-s efficientkan in bf16 (the f32 phase's weights):
+    ``Predictor`` on a bf16 copy for three requests and
+    ``make_eval_step(bf16=True)`` on the f32 model, each forward exactly
+    1 + 12 + 12 bf16 kernel launches and nothing else; logits finite, within
+    2e-2 x max(1, max|logits|) of the port's CPU bf16 forward, their top-1
+    agreement with the card's f32 logits; the device forward (CUDA events,
+    in turns f32, bf16, bf16, f32) and images/s beside f32's."""
+    from kanvit_torch.infer import Predictor
+    from kanvit_torch.models import PRESETS
+    from kanvit_torch.train import create_train_state, make_eval_step
+    from kanvit_torch.utils import precision
+
+    geom = PRESETS["vit-s"]
+    model32 = copy.deepcopy(model_cpu).to("cuda")
+    model_bf = precision.cast_params_(copy.deepcopy(model_cpu)).to("cuda")
+    check(model_bf.linear_mapper.grid.dtype == torch.float32
+          and model_bf.pos_embeddings.dtype == torch.float32,
+          "bf16 cast: the knot grid and the position table must stay f32")
+    pred = Predictor(model_bf, batch_size=BATCH, device="cuda")
+    pred32 = Predictor(model32, batch_size=BATCH, device="cuda")
+    rng = np.random.default_rng(seed)
+    images = rng.standard_normal((sum(REQUESTS), *geom["chw"])).astype(np.float32)
+    bounds = np.cumsum((0,) + REQUESTS)
+    reqs = [images[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
+
+    reset_counts()
+    logits = [pred.logits(r) for r in reqs]
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    want = {k: 0 for k in counts}
+    want.update({k: len(REQUESTS) * n for k, n in BF16_PER_BATCH.items()})
+    print(f"[bf16] vit-s efficientkan bf16 Predictor launches over {len(REQUESTS)} "
+          f"batches: { {k: n for k, n in counts.items() if n} }")
+    check(counts == want, f"bf16 serving: launch counts {counts} != {want}")
+    for r, y in zip(reqs, logits):
+        check(y.shape == (len(r), geom["out_d"]) and y.dtype == np.float32,
+              f"bf16 serving: logits {y.shape} {y.dtype}")
+        check(bool(np.isfinite(y).all()), "bf16 serving: logits are not finite")
+
+    reset_counts()
+    x = torch.from_numpy(reqs[0]).cuda()
+    labels = torch.from_numpy(rng.integers(0, geom["out_d"], len(reqs[0]))).cuda()
+    loss, step_logits = make_eval_step(bf16=True)(create_train_state(model32), x, labels)
+    torch.cuda.synchronize()
+    step_counts = {k: n for k, n in launch_counts().items() if n}
+    check(step_counts == BF16_PER_BATCH,
+          f"bf16 eval step: launch counts {step_counts} != {BF16_PER_BATCH}")
+    check(step_logits.dtype == torch.float32 and bool(torch.isfinite(loss)),
+          "bf16 eval step: logits f32 and a finite loss")
+    check(all(p.dtype == torch.float32 for p in model32.parameters()),
+          "bf16 eval step: the model's f32 parameters were changed")
+    same = bool(np.array_equal(step_logits.cpu().numpy(), logits[0]))
+    step_err = float(np.abs(step_logits.cpu().numpy() - logits[0]).max())
+
+    model_bf_cpu = precision.cast_params_(copy.deepcopy(model_cpu))
+    with torch.inference_mode():
+        ref = model_bf_cpu(torch.from_numpy(reqs[0][:2]).to(torch.bfloat16)).float().numpy()
+    err = float(np.abs(logits[0][:2] - ref).max())
+    limit = TOL_BF16_LOGITS * max(1.0, float(np.abs(ref).max()))
+    print(f"[bf16] logits of 2 images, card against the CPU's bf16 forward: max|err| "
+          f"{err:.3e}  limit {limit:.3e}; the eval step's logits against the "
+          f"Predictor's: {step_err:.3e} (bits equal {same})")
+    check(err <= limit, f"bf16 serving: card logits differ from the CPU's by {err}")
+    check(step_err <= limit, f"bf16 eval step: logits differ from the Predictor's by "
+                             f"{step_err}")
+
+    f32_logits = np.concatenate([pred32.logits(r) for r in reqs])
+    bf_logits = np.concatenate(logits)
+    top1 = float((f32_logits.argmax(-1) == bf_logits.argmax(-1)).mean())
+    diff = float(np.abs(f32_logits - bf_logits).max())
+    print(f"[bf16] top-1 agreement with the card's f32 logits over {len(images)} "
+          f"images: {top1:.4f}; max|bf16 - f32| {diff:.3e}")
+
+    batch = reqs[0]
+    xb = torch.from_numpy(batch).cuda().to(torch.bfloat16)
+    x32 = torch.from_numpy(batch).cuda()
+    with torch.inference_mode(), precision.f32_accumulation():
+        fwd = {"f32": [], "bf16": []}
+        for kind in ("f32", "bf16", "bf16", "f32"):
+            fn = (lambda: model32(x32)) if kind == "f32" else (lambda: model_bf(xb))
+            fwd[kind].append(time_ms(torch, fn, iters=10))
+        busy32 = kernel_ms(torch, lambda: model32(x32), 5, label="vit-s f32 forward")
+        busy_bf = kernel_ms(torch, lambda: model_bf(xb), 5, label="vit-s bf16 forward")
+    ips = {"f32": serve_rate(torch, pred32, batch), "bf16": serve_rate(torch, pred, batch)}
+    fwd_ms = {k: sum(v) / len(v) for k, v in fwd.items()}
+    print(f"[bf16] vit-s efficientkan, batch {BATCH}: device forward f32 "
+          f"{fwd_ms['f32']:.3f} ms ({fwd['f32']}), bf16 {fwd_ms['bf16']:.3f} ms "
+          f"({fwd['bf16']}); device busy f32 {busy32:.3f}, bf16 {busy_bf:.3f} ms; "
+          f"Predictor.logits {ips['f32']:.1f} and {ips['bf16']:.1f} images/s "
+          f"(host to host)  [{smi}]")
+    return {"launches": counts, "logits_err": err, "top1_vs_f32": top1,
+            "device_forward_ms": fwd_ms, "device_busy_ms": {"f32": busy32, "bf16": busy_bf},
+            "images_per_s": ips}
+
+
+# --------------------------------------------------------------------------
 # Phase 10: training
 # --------------------------------------------------------------------------
 
@@ -3271,6 +3594,10 @@ SOURCES = {
                        "kanvit/kernels/fused_ffn.py:217"),
     "int8_linear": ("kanvit_torch/kernels/csrc/int8_matmul.cu",
                     "kanvit/kernels/int8_matmul.py:134"),
+    "bspline_kan_bf16": (KAN_TC_SRC, f"{FB_PY}:1067"),
+    "bspline_qkv_grouped_bf16": (KAN_TC_SRC, f"{FB_PY}:1240"),
+    "flash_attention_lanes_bf16": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
+                                   "kanvit/kernels/flash_attention.py:571"),
 }
 # The single-tile tier of flash_attention runs the lanes kernels (phase 5);
 # fourierkan's and sinekan's kernels serve kanvit's generic tier below its
@@ -3282,6 +3609,8 @@ ALSO_REPLACES = {
     "flash_attention_lanes": ["kanvit/kernels/flash_attention.py:410"],
     "flash_attention_lanes_bwd": ["kanvit/kernels/flash_attention.py:442"],
     "bspline_kan": [f"{FB_PY}:777"],
+    "bspline_kan_bf16": [f"{FB_PY}:777", f"{FB_PY}:969"],
+    "flash_attention_lanes_bf16": ["kanvit/kernels/flash_attention.py:410"],
     "bspline_kan_bwd": [f"{FB_PY}:810", f"{FB_PY}:969", f"{FB_PY}:1006"],
     "fourierkan": [f"{FB_PY}:1067"],
     "fourierkan_bwd": [f"{FB_PY}:2492", f"{FB_PY}:1159"],
@@ -3390,6 +3719,24 @@ ROUTES = {
                   "kan_tc_dx_kernel<Sine> with the sine fold (dx, dfreq's block sums) in "
                   "its epilogue, sum_blocks_kernel; G > 4 on the CUDA-core kernels",
         "instantiated_in": RBF_SINE_SRC},
+    "bspline_kan_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Bspline, "
+                  "NT, 12, 1, Bf16, 0> at one group (the bf16 q/k/v's template), the basis "
+                  "made in f32 in registers and rounded to bf16 at the dot, two slices a "
+                  "16-deep step, W split once a call into bf16 pairs by kan_tc_fwd_split, one "
+                  "running sum, y rounded to bf16 once",
+        "instantiated_in": KAN_SRC},
+    "bspline_qkv_grouped_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Bspline, "
+                  "NT, 12, 1, Bf16, 0>, the basis made in f32 in registers and rounded to "
+                  "bf16 at the dot, two slices a 16-deep step, W split once a call into bf16 "
+                  "pairs by kan_tc_fwd_split; both MSA routes (a shared grid, a grid a head)",
+        "instantiated_in": KAN_SRC},
+    "flash_attention_lanes_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: attention_lanes_fwd_bf16<dh>, "
+                  "q scaled in bf16, K by ldmatrix and V by ldmatrix.trans from cp.async "
+                  "tiles, two passes over the keys (the row max, then p against it: the "
+                  "policy's whole-row softmax), p rounded to bf16 for P V, o rounded once"},
     "fourierkan": {"kernel": TC_FWD.format("FourierTc"), "instantiated_in": KAN_SRC},
     "fourierkan_bwd": {"kernel": TC_BWD.format("", "FourierTc"),
                        "instantiated_in": KAN_SRC},
@@ -3409,7 +3756,10 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
                                        ("sine", ("sinekan", "sinekan_qkv_grouped")))
                 for name in names for sfx in ("", "_bwd")},
              "ffn_pre_ln": "ffn_train", "ffn_pre_ln_bwd": "ffn_train",
-             "int8_linear": "int8_serve"}
+             "int8_linear": "int8_serve",
+             **{name: "bf16_serve" for name in ("bspline_kan_bf16",
+                                                "bspline_qkv_grouped_bf16",
+                                                "flash_attention_lanes_bf16")}}
 
 
 def timed(label, fn, *args):
@@ -3433,6 +3783,7 @@ def main():
     results.update(timed("RBF and sine kernels", phase_rbf_sine_kernels, torch))
     results.update(timed("fused FF and int8 kernels", phase_ffn_int8_kernels, torch,
                          smi))
+    results.update(timed("bf16 kernels", phase_bf16_kernels, torch))
 
     from kanvit_torch.models import PRESETS
 
@@ -3448,6 +3799,8 @@ def main():
     model_cpu = build_model("efficientkan")
     paths["serve"] = timed("efficientkan serving", phase_serve, torch, smi, model_cpu,
                            "main", efficientkan, SEED + 1)["launches"]
+    paths["bf16_serve"] = timed("efficientkan bf16 serving", phase_bf16_serve, torch, smi,
+                                model_cpu, SEED + 1)["launches"]
     paths["train"] = timed("efficientkan training", phase_train, torch, smi, model_cpu,
                            "train", efficientkan, "bspline_kan")["launches"]
     paths["decoder"] = timed("decoder training", phase_decoder, torch, smi)["launches"]

@@ -6,7 +6,10 @@ names another device (``device="cpu"``), the ragged tail zero-padded so every fo
 forward under ``torch.inference_mode()``. ``microbatch`` runs each batch as
 a plain loop over equal chunks. ``quant="int8"`` serves W8A8 Linear layers
 (``kanvit_torch.ops.quant``); :meth:`Predictor.calibrate` pins calibrated
-static activation scales.
+static activation scales. A model whose parameters are bf16
+(``kanvit_torch.utils.precision.cast_params_``) serves in bf16, as
+``benchmarks/inference_serving.py --bf16`` serves kanvit: images cast to
+bf16 on the device, logits returned as f32.
 
 Not ported yet: reading flax msgpack checkpoints, ``export`` and the CLI
 (``ROADMAP.md``, Queue 1).
@@ -21,6 +24,7 @@ import torch
 
 from kanvit_torch.models import create_model
 from kanvit_torch.ops import quant as Q
+from kanvit_torch.utils import precision
 from kanvit_torch.utils.convert import load_reference_state_dict
 
 
@@ -46,6 +50,10 @@ class Predictor:
     kernel (per-row scales) where K and out are multiples of 128, as kanvit
     does when its kernel is switched on (``KANVIT_INT8_KERNEL``); off by
     default, as kanvit's auto mode leaves it.
+
+    A model with bf16 parameters serves in bf16: each batch is copied to
+    the device as f32 and cast there, the forward runs with cuBLAS reducing
+    in f32 (``precision.f32_accumulation``), and the logits come back f32.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 256,
@@ -64,12 +72,16 @@ class Predictor:
         if placed != {self.device}:
             raise ValueError(f"model lives on {sorted(map(str, placed))}, "
                              f"not on {self.device}: call model.to(device) first")
+        self.dtype = precision.param_dtype(model)
+        if quant is not None and self.dtype != torch.float32:
+            raise NotImplementedError(
+                f"int8 serving of a {self.dtype} model is not ported (f32 only)")
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         mb = self.microbatch
         if mb and mb < self.batch_size and self.batch_size % mb == 0:
-            return torch.cat([self.model(c) for c in x.split(mb)])
-        return self.model(x)
+            return torch.cat([self.model(c) for c in x.split(mb)]).float()
+        return self.model(x).float()
 
     def _batches(self, images: np.ndarray):
         """Each ``batch_size`` chunk of ``images`` on the device, the tail
@@ -81,12 +93,14 @@ class Predictor:
             if real < self.batch_size:
                 chunk = np.concatenate([chunk, np.zeros(
                     (self.batch_size - real, *chunk.shape[1:]), np.float32)])
-            yield torch.from_numpy(chunk).to(self.device), real
+            yield torch.from_numpy(chunk).to(self.device).to(self.dtype), real
 
     def _serving(self):
-        if self.quant != "int8":
-            return contextlib.nullcontext()
-        return Q.int8_serving(self.model, self.scales, kernel=self.int8_kernel)
+        if self.quant == "int8":
+            return Q.int8_serving(self.model, self.scales, kernel=self.int8_kernel)
+        if self.dtype == torch.bfloat16:
+            return precision.f32_accumulation()
+        return contextlib.nullcontext()
 
     def calibrate(self, images: np.ndarray, max_batches: int = 2) -> dict:
         """Record each Linear layer's input max over float forwards of up to

@@ -7,7 +7,10 @@
 //   backward: _lanes_bwd (pallas_call at :604, body _lanes_bwd_kernel
 //             :498-534), _flash_lanes' VJP.
 // The single-tile tier (_small_fwd_impl :410, _small_bwd_impl :442) runs on
-// these kernels too, through (B, T, H, dh) views.
+// these kernels too, through (B, T, H, dh) views. The forward's bf16 path
+// (kanvit's bf16 serving) is attention_lanes_fwd_bf16, below the f32
+// tensor-core kernels: bf16 mma.sync.m16n8k16, dh 8, 16, 32 and 64, no
+// backward.
 //
 // Per batch item b and head h:
 //   o_h = softmax(q_h k_h^T * dh^-1/2 + key bias + causal bias) v_h
@@ -562,6 +565,236 @@ attention_lanes_dkv_tc(const float* __restrict__ q,
   }
 }
 
+// --- bf16 forward: dh 8, 16, 32, 64 ---------------------------------------
+// kanvit's bf16 policy (flash_attention.py:482-495, _small_probs :328-341):
+// q scaled in bf16 by the scale rounded to bf16 (1/8 at dh 64 is exact,
+// 1/sqrt(32) and 1/sqrt(8) are not: the wrapper rounds it), the scores and
+// the softmax in f32 over the whole row (m = max(row max, -1e30), p =
+// exp(s - m), l = max(sum of the f32 p, 1e-10)), the PV product on p rounded
+// to bf16, and o = bf16(pv * (1 / l)). Each product is bf16 mma.sync.m16n8k16
+// with f32 accumulation (attention_tc.cuh). The f32 kernel's online softmax
+// would round each tile's p against a running max, other bits than the
+// policy's; so the block streams the keys twice: the first pass takes each
+// row's max over the scores, the second recomputes the same scores (the
+// same products in the same order: the same bits) and takes p against that
+// max. The first pass stages K alone.
+//
+// The grid, the warps' rows and the 32-key tiles are the f32 kernel's. A
+// warp keeps its 16 scaled q rows as A fragments (KD 16-deep steps over dh;
+// at dh 8 one step, its upper half zero). K tiles feed the score product's
+// B by ldmatrix (a K row is a B column), V tiles the PV product's by
+// ldmatrix.trans; the score C fragments of keys 16m .. 16m+15 are, packed
+// to bf16, the PV product's A fragment (attention_tc.cuh). Staged rows have
+// a pitch of dh + 8 bf16, which puts ldmatrix's eight 16-byte rows on
+// distinct banks at dh 16, 32 and 64.
+//
+// What bounds it at vit-s: the bytes, 38.7 MB of q, k, v and o (0.0116 ms
+// at 3.35 TB/s; the two products' 3.8 GFLOP take 0.0039 at 989 TFLOP/s
+// bf16). It runs at 0.0569 ms of device time against SDPA bf16's 0.0250
+// (PERF.md, the H100 80GB HBM3 at 700 W): the second pass over the keys,
+// and a block of 4 warps for 64 query rows of one head re-stages K and V
+// for every 64 rows.
+template <int DH>
+__global__ void __launch_bounds__(32 * TC_WARPS)
+attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         long long q_sb, long long q_st, long long q_sh,
+                         long long k_sb, long long k_st, long long k_sh,
+                         long long v_sb, long long v_st, long long v_sh,
+                         const uint8_t* __restrict__ mask,
+                         __nv_bfloat16* __restrict__ o, int t_len, int heads,
+                         int causal, float scale) {
+  constexpr int P = DH + 8;          // staged row pitch, bf16
+  constexpr int KD = (DH + 15) / 16;  // 16-deep steps over dh
+  constexpr int ND = DH / 8;          // n8 tiles of o over dh
+  __shared__ __align__(16) __nv_bfloat16 ks[2][TC_TILE][P];
+  __shared__ __align__(16) __nv_bfloat16 vs[2][TC_TILE][P];
+  __shared__ int kvalid[2][TC_TILE];
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * TC_ROWS;
+  const int r0 = q0 + (tid >> 5) * 16;  // the warp's first row
+  const bool active = r0 < t_len;
+  const int last = min(r0 + 15, t_len - 1);  // the warp's last live row
+  const int ra = r0 + g, rb = r0 + g + 8;
+
+  // The warp's q rows, scaled in bf16 (0 past t_len), as A fragments.
+  uint32_t qa[KD][4];
+  {
+    const __nv_bfloat16* qpa =
+        q + b * q_sb + (long long)min(ra, t_len - 1) * q_st + h * q_sh;
+    const __nv_bfloat16* qpb =
+        q + b * q_sb + (long long)min(rb, t_len - 1) * q_st + h * q_sh;
+    const float fa = ra < t_len ? scale : 0.f, fb = rb < t_len ? scale : 0.f;
+    auto scaled = [&](const __nv_bfloat16* row, int c, float f) -> uint32_t {
+      if (c >= DH) return 0u;
+      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
+      return pack_bf16(x.x * f, x.y * f);
+    };
+#pragma unroll
+    for (int kd = 0; kd < KD; ++kd) {
+      const int c = kd * 16 + 2 * t;
+      qa[kd][0] = scaled(qpa, c, fa);
+      qa[kd][1] = scaled(qpb, c, fb);
+      qa[kd][2] = scaled(qpa, c + 8, fa);
+      qa[kd][3] = scaled(qpb, c + 8, fb);
+    }
+  }
+
+  const __nv_bfloat16* kh = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* vh = v + b * v_sb + h * v_sh;
+  const int kend = causal ? min(t_len, q0 + TC_ROWS) : t_len;
+  const int tiles = (kend + TC_TILE - 1) / TC_TILE;
+  auto stage = [&](int tile, int buf, bool with_v) {
+    stage_tile_bf16<DH, TC_TILE>(&ks[buf][0][0], kh, k_st, tile * TC_TILE, t_len, tid);
+    if (with_v)
+      stage_tile_bf16<DH, TC_TILE>(&vs[buf][0][0], vh, v_st, tile * TC_TILE, t_len, tid);
+    cp_async_commit();
+    if (tid < TC_TILE) {
+      const int key = tile * TC_TILE + tid;
+      kvalid[buf][tid] = key < t_len &&
+                         (mask == nullptr || mask[(long long)b * t_len + key] != 0);
+    }
+  };
+  // This tile's scores of the warp's rows, keys past the warp's reach -inf.
+  auto scores = [&](int buf, int k0, int steps, float (&s)[TC_STEPS][4]) {
+#pragma unroll
+    for (int n = 0; n < TC_STEPS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+    for (int n = 0; n < TC_STEPS; ++n) {
+      if (n >= steps) continue;
+      const __nv_bfloat16* krow = &ks[buf][n * 8 + (lane & 7)][0];
+#pragma unroll
+      for (int kd = 0; kd < KD; ++kd) {
+        uint32_t kb[2];
+        if constexpr (DH >= 16) {
+          ldsm_x2(kb, krow + kd * 16 + ((lane >> 3) & 1) * 8);
+        } else {
+          kb[0] = ldsm_x1(krow);
+          kb[1] = 0u;
+        }
+        mma_bf16(s[n], qa[kd], kb);
+      }
+    }
+#pragma unroll
+    for (int n = 0; n < TC_STEPS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = n * 8 + 2 * t + (c & 1);
+        const bool ok = kvalid[buf][j] && (!causal || k0 + j <= (c < 2 ? ra : rb));
+        s[n][c] = ok ? s[n][c] : -INFINITY;
+      }
+  };
+  auto steps_of = [&](int k0) {
+    return min(TC_STEPS, ((causal ? last + 1 : t_len) - k0 + 7) / 8);
+  };
+
+  // Pass 1: each row's max.
+  float ma = MAX_CLAMP, mb = MAX_CLAMP;
+  stage(0, 0, false);
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, k0 = it * TC_TILE;
+    if (it + 1 < tiles) {
+      stage(it + 1, buf ^ 1, false);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int steps = steps_of(k0);
+    if (active && steps > 0) {
+      float s[TC_STEPS][4];
+      scores(buf, k0, steps, s);
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n) {
+        ma = fmaxf(ma, fmaxf(s[n][0], s[n][1]));
+        mb = fmaxf(mb, fmaxf(s[n][2], s[n][3]));
+      }
+    }
+    __syncthreads();  // this buffer is restaged two tiles on
+  }
+  ma = quad_max(ma);
+  mb = quad_max(mb);
+
+  // Pass 2: p against the row max, its f32 sum, and P V.
+  float acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float la = 0.f, lb = 0.f;
+  stage(0, 0, true);
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, k0 = it * TC_TILE;
+    if (it + 1 < tiles) {
+      stage(it + 1, buf ^ 1, true);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int steps = steps_of(k0);
+    if (active && steps > 0) {
+      float s[TC_STEPS][4];
+      scores(buf, k0, steps, s);
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n)
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          s[n][c] = expf(s[n][c] - (c < 2 ? ma : mb));  // exactly 0 for a masked key
+          if (c < 2) la += s[n][c];
+          else lb += s[n][c];
+        }
+#pragma unroll
+      for (int m = 0; m < TC_STEPS / 2; ++m) {
+        if (2 * m >= steps) continue;
+        const uint32_t pa[4] = {pack_bf16(s[2 * m][0], s[2 * m][1]),
+                                pack_bf16(s[2 * m][2], s[2 * m][3]),
+                                pack_bf16(s[2 * m + 1][0], s[2 * m + 1][1]),
+                                pack_bf16(s[2 * m + 1][2], s[2 * m + 1][3])};
+        const __nv_bfloat16* vrow = &vs[buf][m * 16 + (lane & 15)][0];
+#pragma unroll
+        for (int d = 0; d < ND; ++d) {
+          uint32_t vb[2];
+          ldsm_x2_trans(vb, vrow + d * 8);
+          mma_bf16(acc[d], pa, vb);
+        }
+      }
+    }
+    __syncthreads();  // this buffer is restaged two tiles on
+  }
+
+  la = quad_sum(la);
+  lb = quad_sum(lb);
+  const float rla = 1.f / fmaxf(la, EPSILON), rlb = 1.f / fmaxf(lb, EPSILON);
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (!active || row >= t_len) continue;
+    const float rl = half ? rlb : rla;
+    __nv_bfloat16* op = o + (((long long)b * t_len + row) * heads + h) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      *reinterpret_cast<uint32_t*>(op + d * 8) =
+          pack_bf16(acc[d][2 * half] * rl, acc[d][2 * half + 1] * rl);
+  }
+}
+
+template <int DH>
+int launch_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                    const __nv_bfloat16* v, long long q_sb, long long q_st,
+                    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+                    long long v_sb, long long v_st, long long v_sh,
+                    const uint8_t* mask, __nv_bfloat16* o, int batch, int t_len,
+                    int heads, int causal, float scale, cudaStream_t stream) {
+  const dim3 grid((t_len + TC_ROWS - 1) / TC_ROWS, heads, batch);
+  attention_lanes_fwd_bf16<DH><<<grid, 32 * TC_WARPS, 0, stream>>>(
+      q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask, o,
+      t_len, heads, causal, scale);
+  return (int)cudaGetLastError();
+}
+
 template <int DH>
 int launch_fwd(const float* q, const float* k, const float* v, long long q_sb,
                long long q_st, long long q_sh, long long k_sb, long long k_st,
@@ -1043,4 +1276,40 @@ extern "C" int kanvit_attention_lanes_bwd(
   return launch_bwd_generic(q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,
                             v_st, v_sh, mask, o, dout, stats, delta, dq, dk, dv,
                             batch, t_len, heads, dh, causal, scale, st);
+}
+
+// The bf16 forward (kanvit's bf16 lanes kernel; no backward: a bf16 backward
+// is not ported). q, k, v: bf16, strided as kanvit_attention_lanes_fwd's;
+// o: (batch, t_len, heads*dh) bf16 contiguous; scale: dh^-1/2 rounded to
+// bf16. dh 8, 16, 32 or 64, else cudaErrorInvalidValue; q, k and v 16-byte
+// aligned with strides that are multiples of 8, else
+// cudaErrorMisalignedAddress. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int kanvit_attention_lanes_fwd_bf16(
+    const void* q, const void* k, const void* v, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
+    long long v_st, long long v_sh, const uint8_t* mask, void* o, int batch,
+    int t_len, int heads, int dh, int causal, float scale, void* stream) {
+  if (batch <= 0 || t_len <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
+      !tc_head_dim(dh))
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
+  const long long strides =
+      q_sb | q_st | q_sh | k_sb | k_st | k_sh | v_sb | v_st | v_sh;
+  if (ptrs % 16 != 0 || strides % 8 != 0) return (int)cudaErrorMisalignedAddress;
+  using bf = __nv_bfloat16;
+  const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k),
+           *vb = static_cast<const bf*>(v);
+  bf* ob = static_cast<bf*>(o);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define KANVIT_FWD_BF16(D)                                                    \
+  launch_fwd_bf16<D>(qb, kb, vb, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,    \
+                     v_st, v_sh, mask, ob, batch, t_len, heads, causal, scale, st)
+  switch (dh) {
+    case 8: return KANVIT_FWD_BF16(8);
+    case 16: return KANVIT_FWD_BF16(16);
+    case 32: return KANVIT_FWD_BF16(32);
+    default: return KANVIT_FWD_BF16(64);
+  }
+#undef KANVIT_FWD_BF16
 }

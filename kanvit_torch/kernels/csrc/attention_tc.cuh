@@ -1,11 +1,12 @@
-// The 3xTF32 tensor-core helpers of the attention kernels
-// (attention_lanes.cu, flash_attention.cu), the fused FF (fused_ffn.cu) and
-// the Fourier and sine KAN kernels (kan_basis_tc.cuh): the TF32 split of an
-// f32 operand, mma.sync.m16n8k8 fragments and the three-product step, split
-// operands stored per fragment, 16-byte cp.async staging, the reductions across a
-// fragment row's four threads, and which head dims take these kernels.
+// The tensor-core helpers of the attention kernels (attention_lanes.cu,
+// flash_attention.cu), the fused FF (fused_ffn.cu) and the KAN kernels
+// (kan_basis_tc.cuh): the TF32 split of an f32 operand, mma.sync.m16n8k8
+// fragments and the three-product step, split operands stored per fragment,
+// 16-byte cp.async staging, the reductions across a fragment row's four
+// threads, which head dims take these kernels; and the bf16
+// mma.sync.m16n8k16 step with its ldmatrix loads.
 //
-// Arithmetic: every product runs as
+// Arithmetic in f32: every product runs as
 // mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32. Each f32 operand x is
 // split into big = tf32(x) and small = tf32(x - big), both rounded to
 // nearest with ties away from zero, and a product is three mma into one
@@ -14,6 +15,12 @@
 // running sum (mma3): the tensor cores' own accumulation truncates, and
 // chained through the running sum it put the vit-s lanes forward further
 // from f64 than 1e-6. The dropped small*small term is ~2^-22 of a product.
+//
+// bf16 (the bf16 serving forwards: attention_lanes.cu, kan_basis_tc.cuh part
+// 3): mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one product a
+// 16-deep step into the f32 running sum (the products of two bf16 are exact
+// in f32); the attention's B operands are loaded from shared memory by
+// ldmatrix, the KAN forward's from its pre-pass layout.
 //
 // Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A holds (g, t),
 // (g+8, t), (g, t+4), (g+8, t+4); B holds (k t, n g), (k t+4, n g); the
@@ -24,6 +31,7 @@
 
 #pragma once
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -236,6 +244,75 @@ __device__ __forceinline__ float quad_max(float x) {
 __device__ __forceinline__ float quad_sum(float x) {
   x += __shfl_xor_sync(0xffffffffu, x, 1);
   return x + __shfl_xor_sync(0xffffffffu, x, 2);
+}
+
+// --- bf16 on mma.sync.m16n8k16 ---------------------------------------------
+// Fragments of m16n8k16 (g = lane / 4, t = lane % 4), two bf16 a 32-bit
+// word, the lower index in the low half: A holds (g, 2t..2t+1), (g+8,
+// 2t..2t+1), (g, 2t+8..2t+9), (g+8, 2t+8..2t+9); B holds (k 2t..2t+1, n g),
+// (k 2t+8..2t+9, n g); C as m16n8k8's: (g, 2t), (g, 2t+1), (g+8, 2t),
+// (g+8, 2t+1). So the C fragments of two n8 tiles side by side (columns
+// 16m .. 16m+7 and 16m+8 .. 16m+15) are, packed, the A fragment of the
+// 16-deep step over those columns, with no permutation.
+
+// Two floats rounded to bf16 (to nearest even), lo in the low half.
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const uint32_t*>(&v);
+}
+
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
+                                         const uint32_t (&b)[2]) {
+  asm("mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b[0]), "r"(b[1]));
+}
+
+// ldmatrix of 8 x 8 bf16 matrices from shared memory, each row 16 bytes at
+// a 16-byte aligned address (`row`: this lane's row of its matrix; lanes
+// 0-7 address matrix 0, 8-15 matrix 1). Without .trans lane (g, t) gets
+// (row g, columns 2t, 2t+1) of each matrix: a B fragment of a tile stored
+// (n, k). With .trans it gets (rows 2t, 2t+1, column g): a B fragment of a
+// tile stored (k, n).
+__device__ __forceinline__ void ldsm_x2(uint32_t (&r)[2], const void* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+__device__ __forceinline__ void ldsm_x2_trans(uint32_t (&r)[2], const void* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];"
+               : "=r"(r[0]), "=r"(r[1]) : "r"(a));
+}
+
+__device__ __forceinline__ uint32_t ldsm_x1(const void* row) {
+  const unsigned a = (unsigned)__cvta_generic_to_shared(row);
+  uint32_t r;
+  asm volatile("ldmatrix.sync.aligned.m8n8.x1.shared.b16 {%0}, [%1];" : "=r"(r) : "r"(a));
+  return r;
+}
+
+// Stage rows row0 .. row0+ROWS-1 of bf16 (row r at src + r*stride, dh
+// values) into a (ROWS, DH + 8) tile with 16-byte cp.async; rows past t_len
+// are zero-filled.
+template <int DH, int ROWS>
+__device__ __forceinline__ void stage_tile_bf16(__nv_bfloat16* dst,
+                                                const __nv_bfloat16* src,
+                                                long long stride, int row0,
+                                                int t_len, int tid) {
+  constexpr int CH = DH / 8;  // 16-byte chunks a row
+  constexpr int NT = 32 * TC_WARPS;
+#pragma unroll
+  for (int i = 0; i < (ROWS * CH + NT - 1) / NT; ++i) {
+    const int e = tid + i * NT;
+    if (ROWS * CH % NT != 0 && e >= ROWS * CH) break;
+    const int r = e / CH, c = (e % CH) * 8, row = row0 + r;
+    const bool in = row < t_len;
+    cp_async16(reinterpret_cast<float*>(dst + r * (DH + 8) + c),
+               reinterpret_cast<const float*>(in ? src + row * stride + c : src), in);
+  }
 }
 
 }  // namespace

@@ -30,6 +30,10 @@
 //             kanvit_cheby_qkv_tc_bwd) as their one-group case. The
 //             CUDA-core forward of chebykan (kan_basis.cuh, entry
 //             kanvit_chebykan_fwd) stays, timed beside it.
+//   bf16 (kanvit's bf16 serving): bspline_kan's and bspline_qkv_grouped's
+//   forwards (_fused_fwd :1067, _fused_fwd_sg :1240 on bf16 operands) on
+//   kan_basis_tc.cuh part 3 with its Bf16 operand type, entry
+//   kanvit_bspline_tc_fwd_bf16.
 //   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
 //   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
 //   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on
@@ -354,6 +358,22 @@ extern "C" int kanvit_bspline_kan_tc_fwd(const float* x, long long ldx, const fl
   return launch_tc_grouped_fwd<Bspline, tcf::WARPS, 1, false, BSPLINE_EMB_FLUSH>(
       x, ldx, {gridt, gstride}, w, y, wsplit, wwords, n, groups, nin, nout,
       (cudaStream_t)stream, part, splits);
+}
+
+// The bf16 forward (kanvit's bf16 serving policy, kan_basis_tc.cuh part 3's
+// Bf16 operand type): x, w and y bf16, the knots f32, the basis made in f32
+// and rounded to bf16 at the dot, f32 accumulation in one running sum, y
+// rounded to bf16 once. The grouped q/k/v's (bspline_qkv_grouped's), and the
+// B-spline patch embedder's (bspline_kan's) as its one-group case: the same
+// template, shape and entry; wsplit of wwords words (launch_tc_grouped_fwd).
+extern "C" int kanvit_bspline_tc_fwd_bf16(const void* x, long long ldx, const float* gridt,
+                                          long long gstride, const void* w, void* y,
+                                          unsigned int* wsplit, long long wwords, int n,
+                                          int groups, int nin, int nout, void* stream) {
+  using bf = __nv_bfloat16;
+  return launch_tc_grouped_fwd<Bspline, tcf::WARPS, 1, false, 0, Bf16>(
+      static_cast<const bf*>(x), ldx, {gridt, gstride}, static_cast<const bf*>(w),
+      static_cast<bf*>(y), wsplit, wwords, n, groups, nin, nout, (cudaStream_t)stream);
 }
 
 // Chebyshev, degree 4: S = 5. The CUDA-core forward (kan_basis.cuh); the

@@ -702,6 +702,13 @@ int launch_tc_dw(const float* x, long long ldx, typename F::Params p, const floa
 struct Tf32x3 {
   using A = Frag<4>;
   using B = Frag<2>;
+  // Part 3's forward: f32 x, W and y; one slice a step (8 deep); a (step,
+  // column, fragment thread) word group of the split W is 4 words.
+  using In = float;
+  using Out = float;
+  static constexpr int SPS = 1, UNIT = 4;
+  __device__ __forceinline__ static float in(float x) { return x; }
+  __device__ __forceinline__ static float out(float x) { return x; }
   __device__ __forceinline__ static A load_a(const uint32_t* at) { return ::load_a(at); }
   __device__ __forceinline__ static B load_b(const uint32_t* at) { return ::load_b(at); }
   // Two of a lane's four afrag words (2h, 2h + 1), split: big at at, small at
@@ -751,6 +758,48 @@ struct Tf32x3 {
     mma_tf32(c, a.big, b.big);
 #pragma unroll
     for (int i = 0; i < 4; ++i) d[i] += c[i];
+  }
+};
+
+// The bf16 operand type of part 3's forward (kanvit's bf16 policy,
+// fused_basis.py:521-531, :1253): bf16 x, W and y, the basis made in f32
+// from the upcast x and rounded to bf16 once, at the dot, one
+// mma.sync.m16n8k16 a step, f32 accumulation through the whole sum, y
+// rounded to bf16 once. A 16-deep step holds two slices of a stage's 8
+// features (k 0..7 slice s, k 8..15 slice s + 1; past SC zero), so a lane's
+// A fragment holds the same four x values as Tf32x3's, (rows g, g + 8;
+// features 2t, 2t + 1), in both halves: a0 (row g, slice s), a1 (row g + 8,
+// slice s), a2 and a3 the same of slice s + 1, each word the two features.
+// A (step, column, fragment thread) word group of the split W is 2 words:
+// the B fragment's (slice s, features 2t, 2t + 1) and (slice s + 1, the
+// same).
+struct Bf16 {
+  struct A { uint32_t w[4]; };
+  struct B { uint32_t w[2]; };
+  using In = __nv_bfloat16;
+  using Out = __nv_bfloat16;
+  static constexpr int SPS = 2, UNIT = 2;
+  __device__ __forceinline__ static float in(__nv_bfloat16 x) { return __bfloat162float(x); }
+  __device__ __forceinline__ static __nv_bfloat16 out(float x) {
+    return __float2bfloat16_rn(x);
+  }
+  // The step of slices s, s + 1 from a lane's basis values v[q][slice]
+  // (value q: row g + 8 (q & 1), feature 2t + (q >> 1)).
+  template <int SC>
+  __device__ __forceinline__ static A pair(const float (&v)[4][SC], int s) {
+    A a;
+    a.w[0] = pack_bf16(v[0][s], v[2][s]);
+    a.w[1] = pack_bf16(v[1][s], v[3][s]);
+    a.w[2] = s + 1 < SC ? pack_bf16(v[0][s + 1], v[2][s + 1]) : 0u;
+    a.w[3] = s + 1 < SC ? pack_bf16(v[1][s + 1], v[3][s + 1]) : 0u;
+    return a;
+  }
+  __device__ __forceinline__ static B load_b(const uint32_t* at) {
+    const uint2 w = *reinterpret_cast<const uint2*>(at);
+    return {{w.x, w.y}};
+  }
+  __device__ __forceinline__ static void mma(float (&d)[4], const A& a, const B& b) {
+    mma_bf16(d, a.w, b.w);
   }
 };
 
@@ -1293,6 +1342,18 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // --cheby, the H100 80GB HBM3 at 700 W); an image's 4 levels split below
 // one wave.
 //
+// bf16 (kanvit's bf16 serving; the B-spline embedder and q/k/v, entry
+// kanvit_bspline_tc_fwd_bf16): Op = Bf16, x, W and y bf16, one
+// mma.sync.m16n8k16 a step of two slices (Bf16 above), the basis made in
+// f32 and rounded to bf16 at the dot, one f32 running sum (no levels: a
+// bf16 y would round between them), y rounded once. At vit-s: the embedder
+// 0.5495 ms, the q|k|v 0.2025, against the f32 kernels' 1.8063 and 0.4762
+// on the same operands (PERF.md, the H100 80GB HBM3 at 700 W); their
+// bounds are the products at 989 TFLOP/s bf16, 0.0673 and 0.0169 ms. What
+// issues beside the HMMA bounds them: 120 HMMA of the 2,800 instructions
+// at 192 outputs, led by the basis's FMUL, FFMA and ISETP and the F2FP
+// that packs its bf16 pairs (chip_smoke.py's SASS report).
+//
 // Edge semantics as kan_fwd_kernel's: the family's values (B-spline: x on a
 // knot starts the next interval, x outside every span has zero spline
 // bases). Ragged rows, features (nin not a multiple of 8) and outputs are
@@ -1350,12 +1411,16 @@ __device__ __forceinline__ float tf32_rest(float x) {
 // group of (s, column c, fragment thread t) at ((s bn + c) 4 + t) 4, and
 // with an exact slice (EXACT >= 0) one more step s = SC holding the
 // remainders of slice EXACT's words (tf32_rest, as big words; zero small
-// ones); stages in order (g, ot, kt). One unit a word group.
-template <int SC, int EXACT>
+// ones); stages in order (g, ot, kt). One unit a word group. Op Bf16: W
+// bf16, ceil(SC / 2) steps of two slices, a word group of 2 words at
+// ((s bn + c) 4 + t) 2: the bf16 pairs (slice 2s, features 2t, 2t + 1) and
+// (slice 2s + 1, the same), zero past S.
+template <int SC, int EXACT, class Op = Tf32x3>
 __global__ void __launch_bounds__(256)
-kan_tc_fwd_split(const float* __restrict__ w, uint32_t* __restrict__ out, int slices,
-                 int nin, int nout, int bn, int otiles, int nk, long long units) {
-  constexpr int STEPS = SC + (EXACT >= 0);
+kan_tc_fwd_split(const typename Op::In* __restrict__ w, uint32_t* __restrict__ out,
+                 int slices, int nin, int nout, int bn, int otiles, int nk,
+                 long long units) {
+  constexpr int STEPS = (SC + Op::SPS - 1) / Op::SPS + (EXACT >= 0);
   for (long long u = blockIdx.x * 256LL + threadIdx.x; u < units;
        u += (long long)gridDim.x * 256) {
     const int t = (int)(u & 3);
@@ -1368,17 +1433,35 @@ kan_tc_fwd_split(const float* __restrict__ w, uint32_t* __restrict__ out, int sl
     r /= nk;
     const int o = (int)(r % otiles) * bn + col, f = tcf::FS * kt + 2 * t;
     const long long g = r / otiles;
-    float b[2] = {0.f, 0.f};
-    if (s < slices && o < nout) {
-      const float* wr = w + ((g * slices + s) * nin + f) * (long long)nout + o;
-      if (f < nin) b[0] = wr[0];
-      if (f + 1 < nin) b[1] = wr[nout];
+    if constexpr (Op::SPS == 2) {
+      static_assert(EXACT < 0, "the bf16 forward has no exact slice");
+      uint32_t word[2];
+#pragma unroll
+      for (int h = 0; h < 2; ++h) {
+        const int sl = 2 * step + h;
+        uint32_t lo = 0u, hi = 0u;
+        if (sl < slices && o < nout) {
+          const unsigned short* wr = reinterpret_cast<const unsigned short*>(w) +
+                                     ((g * slices + sl) * nin + f) * (long long)nout + o;
+          if (f < nin) lo = wr[0];
+          if (f + 1 < nin) hi = wr[nout];
+        }
+        word[h] = lo | (hi << 16);
+      }
+      *reinterpret_cast<uint2*>(out + 2 * u) = make_uint2(word[0], word[1]);
+    } else {
+      float b[2] = {0.f, 0.f};
+      if (s < slices && o < nout) {
+        const float* wr = w + ((g * slices + s) * nin + f) * (long long)nout + o;
+        if (f < nin) b[0] = wr[0];
+        if (f + 1 < nin) b[1] = wr[nout];
+      }
+      if (step >= SC) {
+        b[0] = tf32_rest(b[0]);
+        b[1] = tf32_rest(b[1]);
+      }
+      store_b(out + 4 * u, b[0], b[1]);
     }
-    if (step >= SC) {
-      b[0] = tf32_rest(b[0]);
-      b[1] = tf32_rest(b[1]);
-    }
-    store_b(out + 4 * u, b[0], b[1]);
   }
 }
 
@@ -1389,18 +1472,24 @@ kan_tc_fwd_split(const float* __restrict__ w, uint32_t* __restrict__ out, int sl
 // first time) and restarted; 0: one running sum, y stored once. With
 // splits > 1 (FLUSH > 0 only) block z / output tiles runs that one level
 // and stores it into its slab of part, which sum_splits adds into y in
-// level order: the same sum, so the same bits.
+// level order: the same sum, so the same bits. Op: the operand type, x and
+// y of its In and Out types (Bf16: one running sum, FLUSH 0, and no slice
+// apart or exact).
 template <class F, int NT, int WARPS = tcf::WARPS, int MINB = 1, class Op = Tf32x3,
           int FLUSH = 0>
 __global__ void __launch_bounds__(32 * WARPS, MINB)
-kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Params p,
-                   const uint32_t* __restrict__ wsplit, float* __restrict__ y,
-                   float* __restrict__ part, int splits, int n, int groups, int nin, int nout,
-                   int nk) {
+kan_tc_fwd_grouped(const typename Op::In* __restrict__ x, long long ldx,
+                   typename F::Params p, const uint32_t* __restrict__ wsplit,
+                   typename Op::Out* __restrict__ y, float* __restrict__ part, int splits,
+                   int n, int groups, int nin, int nout, int nk) {
   using R = TcFwdRow<F>;
+  using Out = typename Op::Out;
   constexpr int SC = F::SC, BN = 8 * NT, FS = tcf::FS, THREADS = 32 * WARPS;
   constexpr int SPLIT = R::SPLIT, EXACT = R::EXACT, SUMS = SPLIT < SC ? 2 : 1;
-  constexpr int STAGE = (SC + (EXACT >= 0)) * BN * 16;  // words of a stage's split W
+  constexpr int SPS = Op::SPS, STEPS = (SC + SPS - 1) / SPS + (EXACT >= 0);
+  static_assert(SPS == 1 || (FLUSH == 0 && SUMS == 1 && EXACT < 0),
+                "bf16: one running sum, no slice apart");
+  constexpr int STAGE = STEPS * BN * 4 * Op::UNIT;  // words of a stage's split W
   extern __shared__ __align__(16) float sm[];
   __shared__ typename F::template Stage<FS> st;
   uint32_t* wbuf = reinterpret_cast<uint32_t*>(sm);
@@ -1412,7 +1501,7 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
   const int kt0 = split ? sp * FLUSH : 0, kt1 = split ? min(nk, kt0 + FLUSH) : nk;
   const long long r0 = ((long long)blockIdx.x * WARPS + warp) * 16;  // the warp's rows
   const uint32_t* wg = wsplit + ((long long)grp * otiles + ot) * nk * STAGE;
-  const float* xg = x + (long long)grp * nin;
+  const typename Op::In* xg = x + (long long)grp * nin;
 
   // stage kt's split W into buffer kt & 1, by cp.async
   auto load_w = [&](int kt) {
@@ -1437,7 +1526,7 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
     for (int q = 0; q < 4; ++q) {
       const long long row = row_of(q & 1);
       const int f = FS * kt + 2 * t + (q >> 1);
-      xv[q] = row < n && f < nin ? xg[row * ldx + f] : 0.f;
+      xv[q] = row < n && f < nin ? Op::in(xg[row * ldx + f]) : 0.f;
     }
   };
   // The basis of this lane's values of stage kt (from xv, its rows and the
@@ -1464,7 +1553,8 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
 #pragma unroll
       for (int e = 0; e < 4; ++e) acc[a][j][e] = 0.f;
   const long long ldy = (long long)groups * nout;
-  float* yg = (split ? part + (long long)sp * n * ldy : y) + (long long)grp * nout;
+  Out* yg = (split ? reinterpret_cast<Out*>(part + (long long)sp * n * ldy) : y) +
+            (long long)grp * nout;
   // The running sums (the second added into the first) into y, stored or
   // added to y's value (the loads of CH n8 tiles' values issued together);
   // then restarted.
@@ -1484,7 +1574,7 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
         for (int e = 0; e < 4; ++e) {
           const long long row = row_of(e >> 1);
           const int col = o0 + 8 * (j0 + j) + 2 * t + (e & 1);
-          old[j][e] = !first && row < n && col < nout ? yg[row * ldy + col] : 0.f;
+          old[j][e] = !first && row < n && col < nout ? Op::in(yg[row * ldy + col]) : 0.f;
         }
 #pragma unroll
       for (int j = 0; j < CH; ++j)
@@ -1493,7 +1583,8 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
           const long long row = row_of(e >> 1);
           const int col = o0 + 8 * (j0 + j) + 2 * t + (e & 1);
           if (row < n && col < nout)
-            yg[row * ldy + col] = first ? acc[0][j0 + j][e] : old[j][e] + acc[0][j0 + j][e];
+            yg[row * ldy + col] =
+                Op::out(first ? acc[0][j0 + j][e] : old[j][e] + acc[0][j0 + j][e]);
 #pragma unroll
           for (int a = 0; a < SUMS; ++a) acc[a][j0 + j][e] = 0.f;
         }
@@ -1510,23 +1601,33 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
     float v[4][SC];
     make(kt, v);
     if (kt + 1 < kt1) load_x(kt + 1);
-    const uint32_t* ws = wbuf + (kt & 1) * STAGE + 4 * (4 * g8 + t);
+    const uint32_t* ws = wbuf + (kt & 1) * STAGE + Op::UNIT * (4 * g8 + t);
+    if constexpr (SPS == 2) {
 #pragma unroll
-    for (int s = 0; s < SC; ++s) {
-      const float a4[4] = {v[0][s], v[1][s], v[2][s], v[3][s]};
-      const typename Op::A a = Op::frag(a4);
-      uint32_t rest[4];  // slice EXACT: the values' remainders
-      if (s == EXACT)
+      for (int s = 0; s < SC; s += 2) {
+        const typename Op::A a = Op::pair(v, s);
 #pragma unroll
-        for (int q = 0; q < 4; ++q) rest[q] = __float_as_uint(tf32_rest(a4[q]));
+        for (int j = 0; j < NT; ++j)
+          Op::mma(acc[0][j], a, Op::load_b(ws + ((s / 2) * BN + 8 * j) * 4 * Op::UNIT));
+      }
+    } else {
 #pragma unroll
-      for (int j = 0; j < NT; ++j) {
-        const typename Op::B b = Op::load_b(ws + (s * BN + 8 * j) * 16);
-        if (s == EXACT) {
-          const typename Op::B rb = Op::load_b(ws + (SC * BN + 8 * j) * 16);
-          Op::mma_exact(acc[s >= SPLIT][j], a, rest, b, rb.big);
-        } else {
-          Op::mma(acc[s >= SPLIT][j], a, b);
+      for (int s = 0; s < SC; ++s) {
+        const float a4[4] = {v[0][s], v[1][s], v[2][s], v[3][s]};
+        const typename Op::A a = Op::frag(a4);
+        uint32_t rest[4];  // slice EXACT: the values' remainders
+        if (s == EXACT)
+#pragma unroll
+          for (int q = 0; q < 4; ++q) rest[q] = __float_as_uint(tf32_rest(a4[q]));
+#pragma unroll
+        for (int j = 0; j < NT; ++j) {
+          const typename Op::B b = Op::load_b(ws + (s * BN + 8 * j) * 16);
+          if (s == EXACT) {
+            const typename Op::B rb = Op::load_b(ws + (SC * BN + 8 * j) * 16);
+            Op::mma_exact(acc[s >= SPLIT][j], a, rest, b, rb.big);
+          } else {
+            Op::mma(acc[s >= SPLIT][j], a, b);
+          }
         }
       }
     }
@@ -1537,36 +1638,41 @@ kan_tc_fwd_grouped(const float* __restrict__ x, long long ldx, typename F::Param
   flush(FLUSH == 0 || kt1 - kt0 <= FLUSH);
 }
 
-// The pre-pass and kan_tc_fwd_grouped<F, NT, WARPS, MINB, Tf32x3, FLUSH>
-// over the operands of launch_tc_grouped_fwd, and with splits > 1 the sum of
-// the levels; cudaErrorInvalidValue when wsplit's wwords words cannot hold
-// the split W, or splits is neither 1 nor the levels (FLUSH > 0) with part.
-template <class F, int NT, int WARPS = tcf::WARPS, int MINB = 1, int FLUSH = 0>
-int launch_tc_fwd_grouped(const float* x, long long ldx, typename F::Params p, const float* w,
-                          float* y, uint32_t* wsplit, long long wwords, int n, int groups,
-                          int nin, int nout, cudaStream_t st, float* part = nullptr,
-                          int splits = 1) {
-  constexpr int BN = 8 * NT, EXACT = TcFwdRow<F>::EXACT, STEPS = F::SC + (EXACT >= 0);
+// The pre-pass and kan_tc_fwd_grouped<F, NT, WARPS, MINB, Op, FLUSH> over
+// the operands of launch_tc_grouped_fwd, and with splits > 1 the sum of the
+// levels; cudaErrorInvalidValue when wsplit's wwords words cannot hold the
+// split W, or splits is neither 1 nor the levels (FLUSH > 0) with part.
+template <class F, int NT, int WARPS = tcf::WARPS, int MINB = 1, int FLUSH = 0,
+          class Op = Tf32x3>
+int launch_tc_fwd_grouped(const typename Op::In* x, long long ldx, typename F::Params p,
+                          const typename Op::In* w, typename Op::Out* y, uint32_t* wsplit,
+                          long long wwords, int n, int groups, int nin, int nout,
+                          cudaStream_t st, float* part = nullptr, int splits = 1) {
+  constexpr int BN = 8 * NT, EXACT = TcFwdRow<F>::EXACT;
+  constexpr int STEPS = (F::SC + Op::SPS - 1) / Op::SPS + (EXACT >= 0);
   const int nk = cdiv(nin, tcf::FS), otiles = cdiv(nout, BN);
   const long long units = (long long)groups * otiles * nk * STEPS * BN * 4;
-  if (groups > 65535 || (long long)otiles * splits > 65535 || 4 * units > wwords ||
+  if (groups > 65535 || (long long)otiles * splits > 65535 || Op::UNIT * units > wwords ||
       (splits != 1 && (FLUSH == 0 || part == nullptr || splits != cdiv(nk, FLUSH))))
     return (int)cudaErrorInvalidValue;
   const long long want = (units + 255) / 256;
-  kan_tc_fwd_split<F::SC, EXACT>
+  kan_tc_fwd_split<F::SC, EXACT, Op>
       <<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, st>>>(
           w, wsplit, F::slices(p), nin, nout, BN, otiles, nk, units);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const size_t smem = sizeof(uint32_t) * 2 * STEPS * BN * 16;
-  err = tc_attr(kan_tc_fwd_grouped<F, NT, WARPS, MINB, Tf32x3, FLUSH>, smem);
+  const size_t smem = sizeof(uint32_t) * 2 * STEPS * BN * 4 * Op::UNIT;
+  err = tc_attr(kan_tc_fwd_grouped<F, NT, WARPS, MINB, Op, FLUSH>, smem);
   if (err != 0) return err;
-  kan_tc_fwd_grouped<F, NT, WARPS, MINB, Tf32x3, FLUSH>
+  kan_tc_fwd_grouped<F, NT, WARPS, MINB, Op, FLUSH>
       <<<dim3((unsigned)cdiv(n, 16 * WARPS), groups, otiles * splits), 32 * WARPS, smem,
           st>>>(x, ldx, p, wsplit, y, part, splits, n, groups, nin, nout, nk);
   err = (int)cudaGetLastError();
-  if (err != 0 || splits == 1) return err;
-  return sum_splits(part, y, (long long)n * groups * nout, splits, st);
+  if constexpr (FLUSH > 0) {
+    if (err == 0 && splits > 1)
+      return sum_splits(part, y, (long long)n * groups * nout, splits, st);
+  }
+  return err;
 }
 
 // y (n, groups nout) of a grouped layer: x (n, groups nin) with row stride
@@ -1581,21 +1687,23 @@ int launch_tc_fwd_grouped(const float* x, long long ldx, typename F::Params p, c
 // FLUSH: the kernel's stages a level of a two-level sum (0: one level);
 // with it, splits > 1 runs each level in blocks of its own (as many splits
 // as levels) into part, splits n groups nout floats, summed in level order.
+// Op: the operand type (Tf32x3, or Bf16: x, w and y bf16, FLUSH 0; the
+// scratch then ceil(SC / 2) BN 8 words a stage, no exact slice).
 template <class F, int WARPS8 = tcf::WARPS, int MINB8 = 1, bool NARROW = false,
-          int FLUSH = 0>
-int launch_tc_grouped_fwd(const float* x, long long ldx, typename F::Params p, const float* w,
-                          float* y, uint32_t* wsplit, long long wwords, int n, int groups,
-                          int nin, int nout, cudaStream_t st, float* part = nullptr,
-                          int splits = 1) {
+          int FLUSH = 0, class Op = Tf32x3>
+int launch_tc_grouped_fwd(const typename Op::In* x, long long ldx, typename F::Params p,
+                          const typename Op::In* w, typename Op::Out* y, uint32_t* wsplit,
+                          long long wwords, int n, int groups, int nin, int nout,
+                          cudaStream_t st, float* part = nullptr, int splits = 1) {
   if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 || F::slices(p) > F::SC ||
       wsplit == nullptr || (uintptr_t)wsplit % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if constexpr (!NARROW) {
     if (nout > 64)
-      return launch_tc_fwd_grouped<F, 24, tcf::WARPS, 1, FLUSH>(
+      return launch_tc_fwd_grouped<F, 24, tcf::WARPS, 1, FLUSH, Op>(
           x, ldx, p, w, y, wsplit, wwords, n, groups, nin, nout, st, part, splits);
   }
-  return launch_tc_fwd_grouped<F, 8, WARPS8, MINB8, FLUSH>(
+  return launch_tc_fwd_grouped<F, 8, WARPS8, MINB8, FLUSH, Op>(
       x, ldx, p, w, y, wsplit, wwords, n, groups, nin, nout, st, part, splits);
 }
 

@@ -10,10 +10,14 @@ Dispatch is by device: a CPU tensor runs the plain version
 (``kanvit_torch.ops.attention.lanes_attention`` or
 ``flash_attention_reference``), which autograd differentiates; a CUDA tensor
 goes through :class:`_LanesFn` or :class:`_FlashFn`, whose forward and
-backward launch the kernels or raise. f32 only; dh a multiple of 8 from 8
-through 128 (:func:`check_head_dim`).
+backward launch the kernels or raise. f32; dh a multiple of 8 from 8
+through 128 (:func:`check_head_dim`). bf16 q, k and v take the lanes
+forward's bf16 kernel (kanvit's bf16 policy, ``csrc/attention_lanes.cu``),
+at head dims 8, 16, 32 and 64 only, forward only: a backward through it,
+another head dim, or the tiled tier raises (ROADMAP.md, Queue 2 entry 3).
 
-``LAUNCHES`` counts kernel launches (``flash_attention_lanes`` forward and
+``LAUNCHES`` counts kernel launches (``flash_attention_lanes`` forward,
+``flash_attention_lanes_bf16`` its bf16 forward and
 ``flash_attention_lanes_bwd`` backward; ``flash_attention`` tiled forward,
 ``flash_attention_dq`` and ``flash_attention_dkv`` its backward); the CPU
 path never counts.
@@ -39,12 +43,15 @@ TC_HEAD_DIMS = (8, 16, 32, 64)
 # The tensor-core kernels stage rows with 16-byte copies.
 ROW_ALIGN_BYTES = 16
 
-LAUNCHES = {"flash_attention_lanes": 0, "flash_attention_lanes_bwd": 0,
-            "flash_attention": 0, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0}
+LAUNCHES = {"flash_attention_lanes": 0, "flash_attention_lanes_bf16": 0,
+            "flash_attention_lanes_bwd": 0, "flash_attention": 0,
+            "flash_attention_dq": 0, "flash_attention_dkv": 0}
+BF16_TODO = "ROADMAP.md, Queue 2 entry 3"
 
-# kanvit's tier predicates at f32 (flash_attention.py:293-309, :537-543 and
-# the bucket guard :682-688). They decide semantics, not only speed: the
+# kanvit's tier predicates (flash_attention.py:293-309, :537-543 and the
+# bucket guard :682-688), by the operands' itemsize as kanvit's take it:
+# at vit-l's width (T 197, d 1,024, 16 heads) f32 is past the 10 MiB
+# limit and bf16 within it. They decide semantics, not only speed: the
 # single-tile and lanes kernels clamp the row max at -1e30, so a row that
 # sees no valid key outputs 0, while the tiled kernel keeps the finite
 # float32 min and gives it the uniform mean of v over every valid key. The
@@ -52,7 +59,6 @@ LAUNCHES = {"flash_attention_lanes": 0, "flash_attention_lanes_bwd": 0,
 LANE = 128
 SMALL_MAX_T = 512
 _VMEM_LIMIT = 10 * 1024 * 1024
-_F32 = 4
 
 
 def _round_up(x: int, m: int) -> int:
@@ -60,23 +66,24 @@ def _round_up(x: int, m: int) -> int:
 
 
 def use_small(tq: int, tk: int, d: int, h: int, q_block: int,
-              k_block: int) -> bool:
+              k_block: int, itemsize: int = 4) -> bool:
     """True where :func:`flash_attention` takes the single-tile tier
-    (kanvit's ``_use_small``)."""
+    (kanvit's ``_use_small``) on operands of ``itemsize`` bytes."""
     tp, dp = _round_up(tq, LANE), _round_up(d, LANE)
-    vmem = 2 * (5 + 3) * h * tp * dp * _F32 + 4 * tp * tp * 4
+    vmem = 2 * (5 + 3) * h * tp * dp * itemsize + 4 * tp * tp * 4
     return (tq == tk and tp <= SMALL_MAX_T and tp <= q_block
             and tp <= k_block and vmem <= _VMEM_LIMIT)
 
 
 def lanes_applicable(t: int, tk: int, dm: int, h: int, q_block: int,
-                     k_block: int) -> bool:
+                     k_block: int, itemsize: int = 4) -> bool:
     """True where kanvit's ``FlashAttentionBlock`` takes the lanes tier on
-    its head-concatenated projections (``_lanes_ok`` and the bucket guard)."""
+    its head-concatenated projections of ``itemsize`` bytes (``_lanes_ok``
+    and the bucket guard)."""
     if t != tk or dm % h:
         return False
     tp8 = _round_up(t, 8)
-    vmem = 2 * 8 * tp8 * _round_up(dm, LANE) * _F32 + 4 * tp8 * tp8 * 4
+    vmem = 2 * 8 * tp8 * _round_up(dm, LANE) * itemsize + 4 * tp8 * tp8 * 4
     tp = _round_up(t, LANE)
     return ((dm // h) % 8 == 0 and tp8 <= SMALL_MAX_T and vmem <= _VMEM_LIMIT
             and tp <= q_block and tp <= k_block)
@@ -99,13 +106,14 @@ def check_args(q, k, v, n_heads, mask):
     """Raise on anything the kernel does not take (device aside); return
     ``q, k, v`` as ``(B, T, H, dh)`` views.
 
-    ``q, k, v``: f32 ``(B, T, H*dh)`` or ``(B, T, H, dh)``, one shape;
-    ``mask``: ``(B, T)`` or None.
+    ``q, k, v``: f32 ``(B, T, H*dh)`` or ``(B, T, H, dh)``, one shape, or
+    all bf16 at head dims ``TC_HEAD_DIMS``; ``mask``: ``(B, T)`` or None.
     """
+    want = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype} "
-                            "(bf16 is not ported yet)")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {str(want)[6:]}, got {t.dtype} (q, k "
+                            "and v all float32, or all bfloat16 for the lanes forward)")
     if not (q.shape == k.shape == v.shape) or q.dim() not in (3, 4):
         raise ValueError(f"q, k, v must share one (B, T, H*dh) or (B, T, H, dh) "
                          f"shape, got {tuple(q.shape)}, {tuple(k.shape)}, "
@@ -113,6 +121,9 @@ def check_args(q, k, v, n_heads, mask):
     q4, k4, v4 = (A.split_lanes(a, n_heads) for a in (q, k, v))
     b, t, _, dh = q4.shape
     check_head_dim(dh)
+    if want == torch.bfloat16 and dh not in TC_HEAD_DIMS:
+        raise ValueError(f"head dim {dh}: the bf16 lanes kernel takes {TC_HEAD_DIMS} "
+                         f"({BF16_TODO})")
     if b > 65535 or n_heads > 65535:
         raise ValueError(f"batch {b} x heads {n_heads} exceed the launch grid")
     if mask is not None and tuple(mask.shape) != (b, t):
@@ -181,6 +192,30 @@ def _launch(q4, k4, v4, maskb, causal, with_stats):
     return o, stats
 
 
+def _launch_bf16(q4, k4, v4, maskb, causal):
+    """bf16 forward kernel: ``o (B, T, H*dh)`` bf16, q scaled by
+    ``A.bf16_scale(dh)``."""
+    from kanvit_torch.kernels import _build
+
+    dev = q4.device
+    b, t, h, dh = q4.shape
+    o = torch.empty(b, t, h * dh, dtype=torch.bfloat16, device=dev)
+    if b == 0 or t == 0:
+        return o
+    with torch.cuda.device(dev):
+        err = _build.load().kanvit_attention_lanes_fwd_bf16(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), *_strides(q4, k4, v4),
+            None if maskb is None else maskb.data_ptr(), o.data_ptr(),
+            b, t, h, dh, int(causal), A.bf16_scale(dh),
+            torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_lanes: bf16 kernel launch failed with CUDA error {err}")
+    LAUNCHES["flash_attention_lanes_bf16"] += 1
+    return o
+
+
 def _launch_bwd(q4, k4, v4, maskb, o, stats, do, causal):
     """Backward kernels: ``dq, dk, dv``, each ``(B, T, H, dh)`` contiguous."""
     from kanvit_torch.kernels import _build
@@ -213,10 +248,14 @@ def _launch_bwd(q4, k4, v4, maskb, o, stats, do, causal):
 class _LanesFn(torch.autograd.Function):
     """Lanes attention on the card. Saves q, k, v, the mask and o (kanvit's
     residual, ``flash_attention.py:591-593``) and the forward's per-row
-    ``(m, l)``, which the backward reads instead of recomputing."""
+    ``(m, l)``, which the backward reads instead of recomputing. bf16: the
+    bf16 forward, and no backward."""
 
     @staticmethod
     def forward(ctx, q4, k4, v4, maskb, causal, for_grad):
+        ctx.bf16 = q4.dtype == torch.bfloat16
+        if ctx.bf16:
+            return _launch_bf16(q4, k4, v4, maskb, causal)
         # needs_input_grad holds under no_grad too: the caller says whether
         # autograd will ask for the backward, and only then are (m, l) kept.
         o, stats = _launch(q4, k4, v4, maskb, causal, for_grad)
@@ -227,6 +266,9 @@ class _LanesFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
+        if ctx.bf16:
+            raise NotImplementedError("flash_attention_lanes: the backward of a bf16 "
+                                      f"forward is not ported ({BF16_TODO})")
         q4, k4, v4, maskb, o, stats = ctx.saved_tensors
         dq, dk, dv = _launch_bwd(q4, k4, v4, maskb, o, stats, do, ctx.causal)
         return dq, dk, dv, None, None, None
@@ -272,8 +314,8 @@ def check_flash_args(q, k, v, mask):
     """
     for name, t in (("q", q), ("k", k), ("v", v)):
         if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype} "
-                            "(bf16 is not ported yet)")
+            raise TypeError(f"{name} must be float32, got {t.dtype} (the tiled "
+                            f"tier's bf16 kernels: {BF16_TODO})")
     if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4
             or (q.shape[0], q.shape[1], q.shape[3])
             != (k.shape[0], k.shape[1], k.shape[3])):
@@ -406,7 +448,7 @@ def flash_attention(q, k, v, causal=False, q_block=512, k_block=1024,
     """
     b, h, tq, dh = q.shape
     tk = k.shape[2]
-    if use_small(tq, tk, dh, h, q_block, k_block):
+    if use_small(tq, tk, dh, h, q_block, k_block, q.element_size()):
         o = flash_attention_lanes(*(a.transpose(1, 2) for a in (q, k, v)), h,
                                   causal=causal, mask=mask)
         return o.view(b, tq, h, dh).transpose(1, 2)

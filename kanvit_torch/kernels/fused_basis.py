@@ -49,6 +49,16 @@ The kernels are built for f32; the B-spline one for spline order 3 and a
 12-knot grid (grid size 5, the efficient-kan default), the Chebyshev one for
 degree 4, the RBF one for 8 centres; they raise on anything else.
 
+bf16 (kanvit's bf16 serving): :func:`bspline_kan` and
+:func:`bspline_qkv_grouped` take bf16 x and weights (the knot grid stays
+f32) and return bf16, forward only, through part 3's ``Bf16`` operand type
+(``csrc/kan_basis_tc.cuh``): the basis made in f32 and rounded to bf16 at
+the dot, ``spline_weight * spline_scaler`` formed in bf16 as kanvit forms
+it, f32 accumulation, y rounded once. Their launches count under
+``<name>_bf16``. A backward through a bf16 forward raises
+``NotImplementedError``, and every other entry point raises on bf16
+(ROADMAP.md, Queue 2 entry 3).
+
 The Functions take the packed weight ``(G, S, nin, out)`` and return its
 gradient, and the RBF one the LayerNorm's dgamma and dbeta, the sine one
 dfreq; the packing (:func:`pack_weight` and the other ``pack_*``) is plain
@@ -78,11 +88,15 @@ SINE_CHUNK = 4                       # sine slices per chunk, as in the kernel
 MAX_ROW_TILES = 65535                # the kernel's grid.y limit, 64 rows each
 ROWS_PER_TILE = 64
 
+# The entry points with a bf16 forward (one C entry, kanvit_bspline_tc_fwd_bf16).
+BF16_FWD = ("bspline_kan", "bspline_qkv_grouped")
+BF16_TODO = "ROADMAP.md, Queue 2 entry 3"
 LAUNCHES = {name: 0 for base in ("bspline_kan", "bspline_qkv_grouped",
                                  "chebykan", "cheby_qkv_grouped", "fourierkan",
                                  "fastkan", "fastkan_qkv_grouped", "sinekan",
                                  "sinekan_qkv_grouped")
             for name in (base, f"{base}_bwd")}
+LAUNCHES.update({f"{name}_bf16": 0 for name in BF16_FWD})
 # Blocks the dW reduction aims at before it cuts its rows into splits
 # (132 SMs of an H100, several 64-thread blocks each).
 DW_TARGET_BLOCKS = 1024
@@ -233,11 +247,15 @@ def _check_spline_order(spline_order: int) -> None:
                          f"got {spline_order}")
 
 
-def _check_common(x2d: torch.Tensor, w: torch.Tensor, slices: int) -> None:
+def _check_common(x2d: torch.Tensor, w: torch.Tensor, slices: int,
+                  bf16: bool = False) -> None:
+    """``bf16``: x and the weight may both be bf16 (a bf16 forward)."""
+    want = torch.bfloat16 if bf16 and x2d.dtype == torch.bfloat16 else torch.float32
     for name, t in (("x", x2d), ("weight", w)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype} "
-                            "(bf16 is not ported yet)")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {str(want)[6:]}, got {t.dtype} (bf16: the "
+                            f"forwards of {BF16_FWD} only, x and weight "
+                            f"both bf16; the rest is {BF16_TODO})")
     if x2d.dim() != 2 or w.dim() != 4:
         raise ValueError(f"expected x (N, G*nin) and w (G, {slices}, nin, out), "
                          f"got {tuple(x2d.shape)} and {tuple(w.shape)}")
@@ -255,17 +273,18 @@ def _check_common(x2d: torch.Tensor, w: torch.Tensor, slices: int) -> None:
 
 
 def check_args(x2d: torch.Tensor, grid: torch.Tensor, w: torch.Tensor,
-               spline_order: int) -> None:
+               spline_order: int, bf16: bool = False) -> None:
     """Raise on anything the B-spline kernel does not take (device aside).
 
     ``x2d (N, G*nin)`` with a unit column stride; ``grid (nin, 12)``, one
     for every group, or ``(G, nin, 12)``, a grid a group; ``w (G, 9, nin,
-    out)`` contiguous; all f32.
+    out)`` contiguous; all f32, or (``bf16``, the bf16 forward) x and w
+    bf16 and the grid f32.
     """
     _check_spline_order(spline_order)
     if grid.dtype != torch.float32:
         raise TypeError(f"grid must be float32, got {grid.dtype}")
-    _check_common(x2d, w, N_SLICES)
+    _check_common(x2d, w, N_SLICES, bf16)
     groups, _, nin, _ = w.shape
     if tuple(grid.shape) not in ((nin, KNOTS), (groups, nin, KNOTS)):
         raise ValueError(f"grid must be ({nin}, {KNOTS}) or ({groups}, {nin}, "
@@ -429,11 +448,38 @@ def _counted(name: str, err: int, *outputs):
     return outputs
 
 
+def _launch_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor,
+                 grid: torch.Tensor) -> torch.Tensor:
+    """``y (N, G*out)`` bf16 from the bf16 B-spline forward of ``name``
+    (``BF16_FWD``): x and the packed weight bf16, the knot grid f32."""
+    if name not in BF16_FWD:
+        raise TypeError(f"{name}: no bf16 kernel ({BF16_TODO})")
+    check_args(x2d, grid, w, SPLINE_ORDER, bf16=True)
+    _check_device(name, x2d, w, grid)
+    n = x2d.shape[0]
+    groups, _, nin, out = w.shape
+    y = torch.empty(n, groups * out, dtype=torch.bfloat16, device=x2d.device)
+    if n == 0:
+        return y
+    from kanvit_torch.kernels import _build
+
+    gridt, gstride = _knot_rows(grid)
+    wsplit = _tc_grouped_fwd_scratch(w, x2d.device, bf16=True)
+    with torch.cuda.device(x2d.device):
+        err = _build.load().kanvit_bspline_tc_fwd_bf16(
+            x2d.data_ptr(), x2d.stride(0), gridt.data_ptr(), gstride, w.data_ptr(),
+            y.data_ptr(), wsplit.data_ptr(), wsplit.numel(), n, groups, nin, out,
+            _stream(x2d.device))
+    return _counted(f"{name}_bf16", err, y)[0]
+
+
 def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
             aux) -> torch.Tensor:
     """``y (N, G*out)`` from the forward kernel of ``family`` ("bspline",
     "cheby" or "fourier"); ``aux`` is the knot grid ``(nin, 12)``, the
-    degree or the grid size."""
+    degree or the grid size. A bf16 x takes the bf16 forward."""
+    if x2d.dtype == torch.bfloat16 and family == "bspline":
+        return _launch_bf16(name, x2d, w, aux)
     _check(family, x2d, w, aux)
     _check_device(name, *_tensors(family, x2d, w, aux))
     n = x2d.shape[0]
@@ -560,16 +606,20 @@ def _tc_grouped_scratch(family, w, n, need_dx, need_dw, dev):
     return wtsplit, splits, part
 
 
-def _tc_grouped_fwd_scratch(w, dev, family: str = "bspline") -> torch.Tensor:
+def _tc_grouped_fwd_scratch(w, dev, family: str = "bspline",
+                            bf16: bool = False) -> torch.Tensor:
     """W split for the grouped tensor-core forward: for every group and
     block of outputs (``tc_fwd_outs``), ``ceil(nin / 8)`` stages of the
     family's steps (the slices its tile holds, which the pre-pass writes
     whatever the weight's S, zeros past it; RBF one more, the silu slice's
-    remainders) x 8 features x the block's outputs, two words a value."""
+    remainders) x 8 features x the block's outputs, two words a value;
+    ``bf16``: steps of two slices, one word (a bf16 pair) a value."""
     groups, _, nin, out = w.shape
     outs = tc_fwd_outs(family, out)
+    steps = TCG_FWD_STEPS[family]
+    words = -(-steps // 2) if bf16 else 2 * steps
     return torch.empty(groups * -(-out // outs) * -(-nin // TCG_FWD_FEATURES)
-                       * TCG_FWD_STEPS[family] * outs * TCG_FWD_FEATURES * 2,
+                       * words * outs * TCG_FWD_FEATURES,
                        dtype=torch.int32, device=dev)
 
 
@@ -653,6 +703,9 @@ class _KanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x2d, w, *grid = ctx.saved_tensors
+        if x2d.dtype == torch.bfloat16:
+            raise NotImplementedError(f"{ctx.name}: the backward of a bf16 forward "
+                                      f"is not ported ({BF16_TODO})")
         aux = grid[0] if grid else ctx.aux
         dx, dw = _launch_bwd(f"{ctx.name}_bwd", ctx.family, x2d, w, aux, gy,
                              ctx.needs_input_grad[0], ctx.needs_input_grad[1])

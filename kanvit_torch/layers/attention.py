@@ -188,7 +188,7 @@ class MSA(nn.Module):
             # serving or not, where its lanes tier applies; elsewhere its
             # per-head Linear modules, which int8 serving quantizes.
             if quant.int8_enabled() and not FA.lanes_applicable(
-                    t, t, d, h, FA.SMALL_MAX_T, FA.SMALL_MAX_T):
+                    t, t, d, h, FA.SMALL_MAX_T, FA.SMALL_MAX_T, x.element_size()):
                 raise NotImplementedError(
                     f"int8 serving of a {self.type} MSA at T={t}, d={d}, "
                     f"{h} heads, outside kanvit's lanes layout, is not ported "
@@ -249,7 +249,7 @@ class FlashAttentionBlock(nn.Module):
         k, v = self.to_kv(x if context is None else context).chunk(2, dim=-1)
         b, t, inner = q.shape
         tk = k.shape[1]
-        if FA.lanes_applicable(t, tk, inner, h, qb, kb):
+        if FA.lanes_applicable(t, tk, inner, h, qb, kb, q.element_size()):
             out = FA.flash_attention_lanes(q, k, v, h, causal=self.causal,
                                            mask=mask)
         else:

@@ -49,6 +49,9 @@ class TorchLinear(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not quant.int8_enabled():
+            if x.dtype == torch.bfloat16 and self.bias is not None:
+                # kanvit's order: the product rounded to bf16, then + bias
+                return F.linear(x, self.weight) + self.bias
             return F.linear(x, self.weight, self.bias)
         if quant.kernel_enabled() and IM.applicable(self.in_features,
                                                     self.out_features):
@@ -64,7 +67,10 @@ class KANLinear(nn.Module):
     ``spline_scaler (out, in)`` when standalone scaling is enabled. The knot
     grid ``(in, G+2k+1)`` is a non-persistent buffer: the uniform grid of the
     constructor arguments, unless ``load_reference_state_dict`` loads the
-    refit knots of a stateful-grid tree into it. The forward goes through
+    refit knots of a stateful-grid tree into it (and sets ``refit_grid``).
+    The grid stays f32 under bf16, as kanvit keeps it outside the param
+    tree; a refit grid is a param there, and bf16 rounds its values
+    (``kanvit_torch.utils.precision``). The forward goes through
     ``kanvit_torch.kernels.fused_basis.bspline_kan``, and so does autograd:
     the backward kernels on the card, the plain version on the CPU.
     """
@@ -90,6 +96,7 @@ class KANLinear(nn.Module):
             K.make_bspline_grid(in_features, grid_size, spline_order, grid_range),
             persistent=False,
         )
+        self.refit_grid = False
         self.base_weight = nn.Parameter(torch.empty(out_features, in_features))
         self.spline_weight = nn.Parameter(
             torch.empty(out_features, in_features, grid_size + spline_order))

@@ -104,7 +104,8 @@ class VisionTransformer(nn.Module):
         tokens = self.linear_mapper(patchify(images, self.n_patches))
         cls = self.v_class.unsqueeze(0).expand(b, 1, self.d_hidden)
         tokens = torch.cat([cls, tokens], dim=1)
-        return tokens + self.pos_embeddings[: tokens.shape[1]]
+        # the f32 table in the tokens' dtype, as kanvit adds it (vit.py:130-132)
+        return tokens + self.pos_embeddings[: tokens.shape[1]].to(tokens.dtype)
 
     def forward(self, images: torch.Tensor) -> torch.Tensor:
         out = self.embed(images)

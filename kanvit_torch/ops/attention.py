@@ -6,7 +6,8 @@
 head-concatenated layout and the same edge semantics as the TPU kernel
 (``kanvit/kernels/flash_attention.py:312-341``), which differ from
 ``multi_head_attention`` on a fully masked row: there the kernel outputs 0
-where plain softmax gives a uniform row. ``flash_attention_reference`` is the
+where plain softmax gives a uniform row; on bf16 operands it follows the
+bf16 kernel's policy, kanvit's (``flash_attention.py:482-495``). ``flash_attention_reference`` is the
 plain version of the tiled attention kernels
 (``kanvit_torch.kernels.flash_attention.flash_attention``), a copy of
 ``kanvit/ops/attention.py::flash_attention_reference``.
@@ -62,9 +63,15 @@ def key_valid(mask: torch.Tensor | None, b: int, t: int,
     return mask.to(torch.float32) > 0.5
 
 
+def bf16_scale(dh: int) -> float:
+    """``dh ** -0.5`` rounded to bf16, as kanvit's bf16 kernel scales q
+    (``jnp.asarray(scale, bf16)``): exact at dh 64, not at 32 or 8."""
+    return float(torch.tensor(dh ** -0.5, dtype=torch.bfloat16))
+
+
 def lanes_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                     n_heads: int, causal: bool = False,
-                    mask: torch.Tensor | None = None) -> torch.Tensor:
+                    mask: torch.Tensor | None = None, exact: bool = False) -> torch.Tensor:
     """Attention over head-concatenated tensors, plain version.
 
     ``q, k, v``: ``(B, T, H*dh)`` (or ``(B, T, H, dh)`` views); optional key
@@ -72,10 +79,24 @@ def lanes_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     ``softmax(q_h k_h^T * dh^-1/2 + key bias + causal bias) v_h`` with the
     row max clamped at -1e30 and the row sum at 1e-10, so masked keys add
     exactly 0 and a fully masked row outputs 0. Returns ``(B, T, H*dh)``.
+
+    bf16 ``q, k, v``: the bf16 kernel's policy, kanvit's: q scaled in bf16
+    by :func:`bf16_scale`, the scores and softmax in f32, ``l`` the sum of
+    the f32 ``p``, the PV product on ``p`` rounded to bf16 with f32
+    accumulation (f32 products of bf16 values, exact), and ``pv * (1 / l)``
+    rounded to bf16. ``exact`` (bf16 operands): the reference a kernel's
+    distance is measured from, q scaled and rounded as above, the rest in
+    f64 and unrounded.
     """
     qh, kh, vh = (split_lanes(a, n_heads).transpose(1, 2) for a in (q, k, v))
     b, h, t, dh = qh.shape
-    s = (qh * dh ** -0.5) @ kh.transpose(-1, -2)  # (B, H, T, T)
+    bf16 = q.dtype == torch.bfloat16
+    if bf16:
+        ft = torch.float64 if exact else torch.float32
+        qs = qh * torch.tensor(bf16_scale(dh), dtype=torch.bfloat16, device=q.device)
+        s = qs.to(ft) @ kh.to(ft).transpose(-1, -2)
+    else:
+        s = (qh * dh ** -0.5) @ kh.transpose(-1, -2)  # (B, H, T, T)
     valid = key_valid(mask, b, t, q.device)[:, None, None, :]
     if causal:
         valid = valid & torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
@@ -83,7 +104,12 @@ def lanes_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     m = s.amax(dim=-1, keepdim=True).clamp_min(MAX_CLAMP)
     p = torch.exp(s - m)
     l = p.sum(dim=-1, keepdim=True).clamp_min(EPSILON)
-    o = (p @ vh) * (1.0 / l)
+    if bf16 and exact:
+        o = (p @ vh.to(p.dtype)) * (1.0 / l)
+    elif bf16:
+        o = ((p.to(torch.bfloat16).float() @ vh.float()) * (1.0 / l)).to(torch.bfloat16)
+    else:
+        o = (p @ vh) * (1.0 / l)
     return o.transpose(1, 2).reshape(b, t, h * dh)
 
 

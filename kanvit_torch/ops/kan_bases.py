@@ -99,7 +99,14 @@ def bspline_kan_forward(
     ``spline_scaler (out, in)``. Output =
     ``silu(x) @ Wb.T + bases(x).reshape(N, in*K) @ Ws.reshape(out, -1).T``,
     shape-preserving over leading dims.
+
+    A bf16 ``x`` follows the bf16 kernel's policy (kanvit's kernel route,
+    ``kanvit/kernels/fused_basis.py:521-531``, not its jnp route, which
+    makes the basis in bf16): :func:`bspline_kan_forward_bf16`.
     """
+    if x.dtype == torch.bfloat16:
+        return bspline_kan_forward_bf16(x, grid, base_weight, spline_weight,
+                                        spline_scaler, spline_order)
     lead = x.shape[:-1]
     in_features = x.shape[-1]
     xf = x.reshape(-1, in_features)
@@ -111,6 +118,30 @@ def bspline_kan_forward(
     bases = bspline_bases(xf, grid, spline_order)  # (N, in, K)
     spline = bases.reshape(xf.shape[0], -1) @ scaled.reshape(out_features, -1).T
     return (base + spline).reshape(*lead, out_features)
+
+
+def bspline_kan_forward_bf16(x, grid, base_weight, spline_weight, spline_scaler,
+                             spline_order: int = 3, exact: bool = False) -> torch.Tensor:
+    """The bf16 ``KANLinear`` forward as the bf16 kernel computes it: the
+    B-spline bases and silu of the upcast x in f32 (the grid f32), each
+    rounded to bf16 once; the weights in bf16, ``spline_weight *
+    spline_scaler`` formed in bf16; the base branch folded into the one
+    contraction (the silu slice), the products exact and summed in f32;
+    y rounded to bf16 once. Returns bf16, shape-preserving over leading
+    dims. ``exact``: the same rounded operands summed in f64 and returned
+    unrounded, the reference a kernel's distance is measured from."""
+    lead, nin = x.shape[:-1], x.shape[-1]
+    xf = x.reshape(-1, nin).float()
+    nout = base_weight.shape[0]
+    bf16 = torch.bfloat16
+    sw = spline_weight.to(bf16)
+    scaled = sw * spline_scaler.to(bf16).unsqueeze(-1) if spline_scaler is not None else sw
+    w = torch.cat([scaled.permute(2, 1, 0), base_weight.to(bf16).T.unsqueeze(0)], 0)
+    bases = bspline_bases(xf, grid.float(), spline_order)  # (N, in, K)
+    a = torch.cat([bases.transpose(1, 2), F.silu(xf).unsqueeze(1)], 1)  # (N, K+1, in)
+    acc = torch.float64 if exact else torch.float32
+    y = a.to(bf16).to(acc).reshape(xf.shape[0], -1) @ w.to(acc).reshape(-1, nout)
+    return (y if exact else y.to(bf16)).reshape(*lead, nout)
 
 
 def bspline_curve2coeff(x: torch.Tensor, y: torch.Tensor, grid: torch.Tensor,

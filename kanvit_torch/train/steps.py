@@ -4,6 +4,13 @@ One step: forward, CE mean, ``loss.backward()`` (the backward kernels on the
 card, autograd through the plain versions on the CPU) and one update of the
 optimizer chain. Loss and logits stay device tensors: a step reads nothing
 back to the host, as kanvit's jitted step does not.
+
+``bf16=True`` is kanvit's policy (``kanvit/train/steps.py:23-31``): every
+f32 parameter cast to bf16 for the step (``torch.func.functional_call`` over
+a bf16 copy, the module's f32 parameters untouched), ``x`` cast to bf16,
+the logits cast to f32 before CE, cuBLAS reducing in f32
+(``kanvit_torch.utils.precision``). The eval step takes it; a bf16 training
+step needs the bf16 backward kernels (ROADMAP.md, Queue 2 entry 3).
 """
 
 from __future__ import annotations
@@ -14,10 +21,17 @@ import torch
 import torch.nn.functional as F
 
 from kanvit_torch.train.state import TrainState
+from kanvit_torch.utils import precision
 
 
-def _loss_and_logits(model, x, y, reduce: bool = True):
-    logits = model(x)
+def _loss_and_logits(model, x, y, bf16: bool = False, reduce: bool = True):
+    if bf16:
+        params = precision.bf16_params(model)
+        with precision.f32_accumulation():
+            logits = torch.func.functional_call(model, params, (x.to(torch.bfloat16),))
+        logits = logits.float()
+    else:
+        logits = model(x)
     loss = F.cross_entropy(logits, y, reduction="mean" if reduce else "none")
     return loss, logits
 
@@ -33,8 +47,9 @@ def make_train_step(bf16: bool = False, grad_accum: int = 1) -> Callable:
     """
     if bf16:
         raise NotImplementedError(
-            "bf16 training is not ported: the kernels are f32 only, and bf16 "
-            "kernels are ROADMAP.md Queue 2 item 5")
+            "bf16 training is not ported: the bf16 kernels are forwards only "
+            "(bf16 serving); the bf16 backward kernels are ROADMAP.md, Queue 2 "
+            "entry 3")
 
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         model, tx = state.model, state.tx
@@ -65,14 +80,15 @@ def make_train_step(bf16: bool = False, grad_accum: int = 1) -> Callable:
     return train_step
 
 
-def make_eval_step(per_example: bool = False) -> Callable:
+def make_eval_step(bf16: bool = False, per_example: bool = False) -> Callable:
     """Returns ``step(state, x, y) -> (loss, logits)`` under
-    ``torch.inference_mode()``. ``per_example=True`` returns the unreduced
-    ``(B,)`` CE vector, so a caller that pads the last batch can slice the
-    padding out of the loss."""
+    ``torch.inference_mode()``, the logits f32. ``bf16=True`` runs the
+    forward in bf16 (kanvit's policy, above). ``per_example=True`` returns
+    the unreduced ``(B,)`` CE vector, so a caller that pads the last batch
+    can slice the padding out of the loss."""
 
     def eval_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         with torch.inference_mode():
-            return _loss_and_logits(state.model, x, y, reduce=not per_example)
+            return _loss_and_logits(state.model, x, y, bf16, reduce=not per_example)
 
     return eval_step

@@ -7,7 +7,12 @@ kanvit param tree converted here, ``torch_compat``'s ``.npz`` and the
 executed-reference goldens all load with :func:`load_reference_state_dict`.
 
 :func:`state_dict_from_jax_params` is numpy only: it needs no jax, and
-takes the param tree as nested dicts of numpy arrays.
+takes the param tree as nested dicts of numpy arrays. A tree cast to bf16
+(``benchmarks/inference_serving.py --bf16``) has leaves of numpy dtype
+``bfloat16`` (ml_dtypes); they are read through their bits, without
+ml_dtypes, into bf16 tensors, and load into the model's f32 parameters
+exactly (``kanvit_torch.utils.precision.cast_params_`` then serves them in
+bf16).
 """
 
 from __future__ import annotations
@@ -133,7 +138,7 @@ def load_reference_state_dict(module: torch.nn.Module,
     are skipped, then raises if any parameter was left unloaded or any other
     entry was not recognized.
     """
-    tensors = {k: torch.tensor(np.asarray(v)) for k, v in state_dict.items()}
+    tensors = {k: _tensor(v) for k, v in state_dict.items()}
     grids = {}
     for key in list(tensors):
         layer = _kan_grid_owner(module, key)
@@ -149,7 +154,19 @@ def load_reference_state_dict(module: torch.nn.Module,
             if grid.shape != layer.grid.shape:
                 raise ValueError(f"{key}: grid {tuple(grid.shape)} does not match "
                                  f"the layer's {tuple(layer.grid.shape)}")
+            # moved knots: a refit grid, which bf16 rounds as kanvit's param
+            layer.refit_grid = layer.refit_grid or not torch.equal(
+                grid.to(layer.grid.dtype), layer.grid.cpu())
             layer.grid.copy_(grid)
+
+
+def _tensor(arr) -> torch.Tensor:
+    """A numpy array as a tensor; a bf16 one (ml_dtypes' ``bfloat16``, which
+    torch does not read) through its 16-bit words."""
+    arr = np.asarray(arr)
+    if arr.dtype.name == "bfloat16":
+        return torch.from_numpy(arr.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.tensor(arr)
 
 
 def _kan_grid_owner(module: torch.nn.Module, key: str):

@@ -2008,3 +2008,160 @@ def test_fastkan_qkv_grouped_tc_forward_past_64_outputs(cuda, nout):
     _close(y, want, 1e-4)
     _f64_gate(y, want, exact)
     assert FB.LAUNCHES["fastkan_qkv_grouped"] == 1
+
+
+# --- bf16 serving: the bf16 forwards of bspline_kan, bspline_qkv_grouped and
+# the lanes attention against their plain twins (kanvit's bf16 policy),
+# elementwise within one bf16 ulp (|a - b| <= 2^-7 |b| + 2^-12 max|b|), and
+# no further than twice the twin from the f64 sum of the same rounded
+# operands.
+
+BF16 = torch.bfloat16
+
+
+def _bf16_ulp(got, want, spread=None):
+    """One bf16 ulp of the output; ``spread`` (the attention): plus one of
+    every probability, weighted as P V weights it (chip_smoke.py's gate)."""
+    torch.cuda.synchronize()
+    assert got.dtype == want.dtype == BF16
+    got, want = got.double(), want.double()
+    bound = 2.0 ** -7 * want.abs() + 2.0 ** -12 * float(want.abs().max())
+    if spread is not None:
+        bound = bound + 2.0 ** -8 * spread.double()
+    assert got.isfinite().all() and bool(((got - want).abs() <= bound).all()), float(
+        ((got - want).abs() - bound).max())
+
+
+@pytest.mark.parametrize("n,nin,nout", [(37 * 49, 16, 64), (300, 100, 70),
+                                        (64 * 196, 768, 384)])
+def test_bspline_kan_bf16_kernel(cuda, n, nin, nout):
+    rng = np.random.default_rng(130)
+    x = _spline_x(rng, (n, nin)).to(cuda).to(BF16)
+    grid = K.make_bspline_grid(nin, device=cuda)
+    bw, sw, sc = (torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.1)
+                  .to(cuda).to(BF16) for s in ((nout, nin), (nout, nin, 8), (nout, nin)))
+    with torch.inference_mode():
+        y = FB.bspline_kan(x, grid, bw, sw, sc)
+        again = FB.bspline_kan(x, grid, bw, sw, sc)
+        twin = K.bspline_kan_forward(x, grid, bw, sw, sc)
+        exact = K.bspline_kan_forward_bf16(x, grid, bw, sw, sc, exact=True)
+    _bf16_ulp(y, twin)
+    _f64_gate(y, twin, exact)
+    assert torch.equal(y, again)
+    assert FB.LAUNCHES["bspline_kan_bf16"] == 2 and FB.LAUNCHES["bspline_kan"] == 0
+
+
+@pytest.mark.parametrize("n,h,dh,per_head", [(37 * 50, 2, 32, False), (64 * 50, 8, 8, False),
+                                             (64 * 197, 6, 64, False),
+                                             (64 * 197, 6, 64, True)])
+def test_bspline_qkv_grouped_bf16_kernel(cuda, n, h, dh, per_head):
+    """The shared grid at q|k|v width, and a grid a head at one projection's."""
+    rng = np.random.default_rng(131)
+    x = _spline_x(rng, (n, h * dh)).to(cuda).to(BF16)
+    grid = K.make_bspline_grid(dh, device=cuda)
+    out = dh if per_head else 3 * dh
+    if per_head:
+        grid = torch.stack([grid * (1 + 0.05 * i) + 0.01 * i for i in range(h)])
+    bw, sw, sc = (torch.from_numpy(rng.standard_normal(s).astype(np.float32) * 0.3)
+                  .to(cuda).to(BF16) for s in ((h, out, dh), (h, out, dh, 8), (h, out, dh)))
+
+    def twin(exact=False):
+        return torch.cat([K.bspline_kan_forward_bf16(
+            x[:, i * dh:(i + 1) * dh], grid[i] if per_head else grid, bw[i], sw[i], sc[i],
+            exact=exact) for i in range(h)], dim=1)
+
+    with torch.inference_mode():
+        y = FB.bspline_qkv_grouped(x, grid, bw, sw, sc)
+        again = FB.bspline_qkv_grouped(x, grid, bw, sw, sc)
+        want, exact = twin(), twin(exact=True)
+    _bf16_ulp(y, want)
+    _f64_gate(y, want, exact)
+    assert torch.equal(y, again)
+    assert FB.LAUNCHES["bspline_qkv_grouped_bf16"] == 2
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32, 64])
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, True)])
+def test_attention_lanes_bf16_kernel(cuda, dh, causal, masked):
+    rng = np.random.default_rng(132)
+    b, t, h = 5, 197 if dh == 64 else 50, 6 if dh == 64 else 3
+    y = torch.from_numpy(rng.standard_normal((b * t, h * 3 * dh)).astype(np.float32)
+                         ).to(cuda).to(BF16)
+    y4 = y.view(b, t, h, 3 * dh)
+    q, k, v = (y4[..., i * dh:(i + 1) * dh] for i in range(3))
+    mask = None
+    if masked:
+        mask = torch.from_numpy(rng.random((b, t)) > 0.2).to(cuda)
+        mask[0] = False
+    with torch.inference_mode():
+        o = FA.flash_attention_lanes(q, k, v, h, causal=causal, mask=mask)
+        again = FA.flash_attention_lanes(q, k, v, h, causal=causal, mask=mask)
+        want = A.lanes_attention(q, k, v, h, causal=causal, mask=mask)
+        spread = A.lanes_attention(q, k, v.abs(), h, causal=causal, mask=mask)
+        exact = A.lanes_attention(q, k, v, h, causal=causal, mask=mask, exact=True)
+    _bf16_ulp(o, want, spread)
+    _f64_gate(o, want, exact)
+    assert torch.equal(o, again)
+    if masked:
+        assert (o[0] == 0).all()
+    assert FA.LAUNCHES["flash_attention_lanes_bf16"] == 2
+    assert FA.LAUNCHES["flash_attention_lanes"] == 0
+
+
+def test_bf16_backward_and_other_head_dims_raise(cuda):
+    """No bf16 backward kernel and no bf16 generic head dims: each raises,
+    and nothing runs the plain version instead."""
+    rng = np.random.default_rng(133)
+    x = _spline_x(rng, (20, 16)).to(cuda).to(BF16)
+    grid = K.make_bspline_grid(16, device=cuda)
+    bw, sw, sc = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+                  .to(cuda).to(BF16).requires_grad_(True)
+                  for s in ((8, 16), (8, 16, 8), (8, 16)))
+    y = FB.bspline_kan(x, grid, bw, sw, sc)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        y.float().sum().backward()
+    q = torch.randn(2, 9, 64, device=cuda, dtype=BF16, requires_grad=True)
+    o = FA.flash_attention_lanes(q, q, q, 2)
+    with pytest.raises(NotImplementedError, match="bf16"):
+        o.float().sum().backward()
+    assert FB.LAUNCHES["bspline_kan_bwd"] == 0 and FA.LAUNCHES["flash_attention_lanes_bwd"] == 0
+    for dh in (24, 40, 128):
+        q = torch.zeros(2, 9, 2 * dh, device=cuda, dtype=BF16)
+        with torch.inference_mode(), pytest.raises(ValueError, match=f"head dim {dh}"):
+            FA.flash_attention_lanes(q, q, q, 2)
+    with torch.inference_mode(), pytest.raises(TypeError, match="float32"):
+        FB.chebykan(torch.zeros(4, 16, device=cuda, dtype=BF16),
+                    torch.zeros(16, 3, 5, device=cuda, dtype=BF16))
+    assert FA.LAUNCHES["flash_attention_lanes_bf16"] == 1
+
+
+def test_bf16_eval_step_and_predictor_on_card(cuda):
+    """A small efficientkan ViT served in bf16 on the card: 1 + 2 + 2 bf16
+    launches a forward, logits within 2e-2 x max(1, max|logits|) of the CPU's
+    bf16 forward, the Predictor on a bf16 copy giving the eval step's
+    logits, and the f32 parameters untouched."""
+    import copy
+
+    from kanvit_torch.infer import Predictor
+    from kanvit_torch.models import create_model
+    from kanvit_torch.train import create_train_state, make_eval_step
+    from kanvit_torch.utils import precision
+
+    cpu = create_model("efficientkan", chw=(1, 28, 28), n_patches=7, n_blocks=2,
+                       d_hidden=64, n_heads=2, out_d=10, seed=4)
+    x = np.random.default_rng(134).standard_normal((6, 1, 28, 28)).astype(np.float32)
+    y = torch.zeros(6, dtype=torch.long)
+    _, want = make_eval_step(bf16=True)(create_train_state(cpu), torch.from_numpy(x), y)
+    model = copy.deepcopy(cpu).to(cuda)
+    _, got = make_eval_step(bf16=True)(create_train_state(model),
+                                       torch.from_numpy(x).to(cuda), y.to(cuda))
+    assert all(p.dtype == torch.float32 for p in model.parameters())
+    counts = {k: n for k, n in {**FB.LAUNCHES, **FA.LAUNCHES}.items() if n}
+    assert counts == {"bspline_kan_bf16": 1, "bspline_qkv_grouped_bf16": 2,
+                      "flash_attention_lanes_bf16": 2}
+    err = float((got.cpu() - want).abs().max())
+    assert got.dtype == torch.float32 and err <= 2e-2 * max(1.0, float(want.abs().max()))
+    served = Predictor(precision.cast_params_(copy.deepcopy(cpu)).to(cuda), 6,
+                       device=cuda).logits(x)
+    assert np.abs(served - got.cpu().numpy()).max() <= 2e-2 * max(
+        1.0, float(want.abs().max()))

@@ -126,7 +126,7 @@ def test_make_optimizer_guards():
         make_optimizer(p, lr_schedule="cosine")
     with pytest.raises(ValueError, match="unknown lr_schedule"):
         make_optimizer(p, lr_schedule="linear")
-    with pytest.raises(NotImplementedError, match="ROADMAP.md Queue 2 item 5"):
+    with pytest.raises(NotImplementedError, match="ROADMAP.md, Queue 2 entry 3"):
         make_train_step(bf16=True)
 
 
