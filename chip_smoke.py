@@ -2517,9 +2517,171 @@ def check_attention_bf16(torch, rng, b, t, heads, dh, label, cases):
                                    "library_device_ms": lib_dev_ms}, bounds
 
 
+def check_bspline_bwd_bf16(torch, rng, name, label, n, heads, nin, nout, per_head=False,
+                           need_dx=True):
+    """A bf16 B-spline backward (``bspline_kan``: ``heads`` None, asked for
+    dx only where ``need_dx``, as the training step asks its embedder;
+    ``bspline_qkv_grouped``: ``heads`` groups of ``nin``) against its plain
+    twin on the card: dx within one bf16 ulp, dW within one bf16 ulp plus one
+    of every rounded basis value weighted as gy weighs it, 2^-8 |B|^T |gy|;
+    each no further than twice the twin from the f64 sum of the same rounded
+    operands; the bits of a second call, and the no-dx dW the all-gradients
+    dW's bits. CUDA-event and device times beside the f32 kernels' on the
+    same (upcast) operands and the twin's, and the bf16 bound."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    bf16 = torch.bfloat16
+    if heads is None:
+        x, (grid, *p), _ = bspline_case(torch, rng, n, nin, nout)
+        groups, pack = 1, FB.pack_weight
+    else:
+        x, (grid, *p), _ = qkv_case(torch, rng, n, heads, nin, per_head)
+        groups, pack = heads, FB.pack_qkv_weight
+    xb = x.to(bf16)
+    wb = pack(*(t.to(bf16) for t in p)).contiguous()
+    if heads is None:
+        wb = wb.unsqueeze(0)
+    out = wb.shape[-1]
+    gy = torch.from_numpy(rng.standard_normal((n, groups * out)).astype(np.float32)
+                          ).cuda().to(bf16)
+    x32, w32, gy32 = xb.float(), wb.float(), gy.float()
+    tag = f"{name} bwd bf16 {label} N={n} G={groups} {nin}->{out}"
+
+    def kernel(dx=need_dx):
+        return FB._launch_bwd_bf16(name, xb, wb, grid, gy, dx, True)
+
+    def f32_kernel():
+        return FB._launch_bwd(f"{name}_bwd", "bspline", x32, w32, grid, gy32, need_dx, True)
+
+    def plain(exact=False):
+        return K.bspline_grouped_backward_bf16(xb, grid, wb, gy, need_dx, True, exact=exact)
+
+    with torch.inference_mode():
+        dx, dw = kernel()
+        dx2, dw2 = kernel()
+        _, dw_all = kernel(True)
+        (pdx, pdw), (edx, edw) = plain(), plain(exact=True)
+        spread = K.bspline_dw_spread_bf16(xb, grid, wb, gy)
+        torch.cuda.synchronize()
+        check(dw.dtype == bf16 and (dx is None) != need_dx, f"{tag}: outputs")
+        err = bf16_ulp_gate(f"{tag} dW", dw, pdw, spread)
+        f64 = f64_gate(f"{tag} dW", dw, pdw, edw, "bf16 plain twin")
+        check(torch.equal(dw, dw2), f"{tag}: a second backward gave other dW bits")
+        check(torch.equal(dw, dw_all), f"{tag}: the no-dx dW differs from the "
+                                       "all-gradients dW")
+        if need_dx:
+            err = max(err, bf16_ulp_gate(f"{tag} dx", dx, pdx))
+            f64 = max(f64, f64_gate(f"{tag} dx", dx, pdx, edx, "bf16 plain twin"))
+            check(torch.equal(dx, dx2), f"{tag}: a second backward gave other dx bits")
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, 10, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, 10, label=f"{tag}, the f32 kernels")
+        plain_ms = time_ms(torch, plain)
+    flops = 2.0 * n * groups * FB.N_SLICES * nin * out * (2 if need_dx else 1)
+    wsize = groups * FB.N_SLICES * nin * out  # W read for dx only, dW written
+    nbytes = 2.0 * (n * groups * nin * (1 + need_dx) + wsize * (1 + need_dx)
+                    + n * groups * out) + 4.0 * grid.numel()
+    bounds = bf16_bound(flops, nbytes)
+    print(f"[bf16] {tag}: kernels {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernels "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  bound "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']})  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                               "f32_device_ms": f32_dev_ms}, bounds
+
+
+def check_attention_bwd_bf16(torch, rng, b, t, heads, dh, label, cases):
+    """The bf16 lanes backward on q, k, v as strided slices of a bf16
+    (N, H*3dh) projection output, each case against the plain twin on the
+    kernel forward's o: each gradient within one bf16 ulp plus one of each
+    rounded intermediate weighted as the next product weighs it (2^-8 of
+    ``A.lanes_attention_bwd_bf16(..., spread=True)``), the gradients of a
+    query that sees no key and of a masked key exactly 0; the first case
+    also against the f64 reference (no further than twice the twin), its
+    bits repeated, CUDA-event and device times beside the f32 kernels' on
+    the same (upcast) operands, the twin's and the backward of
+    ``scaled_dot_product_attention`` in bf16."""
+    from kanvit_torch.kernels import flash_attention as FA
+    from kanvit_torch.ops import attention as A
+
+    bf16 = torch.bfloat16
+    y = torch.from_numpy(rng.standard_normal((b * t, heads * 3 * dh))
+                         .astype(np.float32)).cuda().to(bf16)
+    do = torch.from_numpy(rng.standard_normal((b, t, heads * dh))
+                          .astype(np.float32)).cuda().to(bf16)
+    y32 = y.float()
+
+    def views(a):
+        a4 = a.view(b, t, heads, 3 * dh)
+        return [a4[..., i * dh:(i + 1) * dh] for i in range(3)]
+
+    (q, k, v), (q32, k32, v32) = views(y), views(y32)
+    tag = f"flash_attention_lanes bwd bf16 {label} B={b} T={t} H={heads} dh={dh}"
+    errs = []
+
+    def run(causal, mask, f32=False):
+        qq, kk, vv = (q32, k32, v32) if f32 else (q, k, v)
+        maskb = None if mask is None else A.key_valid(mask, b, t, mask.device).to(
+            torch.uint8).contiguous()
+        if f32:
+            o, stats = FA._launch(qq, kk, vv, maskb, causal, True)
+            return lambda: FA._launch_bwd(qq, kk, vv, maskb, o, stats, do.float(), causal)
+        stats = torch.empty(b, heads, t, 2, device="cuda")
+        o = FA._launch_bf16(qq, kk, vv, maskb, causal, stats)
+        return o, lambda: FA._launch_bwd_bf16(qq, kk, vv, maskb, o, stats, do, causal)
+
+    with torch.inference_mode():
+        for causal, mask in cases:
+            o, kernel = run(causal, mask)
+            got = [g.reshape(b, t, heads * dh) for g in kernel()]
+            want = A.lanes_attention_bwd_bf16(q, k, v, o, do, heads, causal, mask)
+            spread = A.lanes_attention_bwd_bf16(q, k, v, o, do, heads, causal, mask,
+                                                spread=True)
+            torch.cuda.synchronize()
+            case = f"causal={causal} mask={'none' if mask is None else 'yes'}"
+            for nm, g, w, sp in zip(("dq", "dk", "dv"), got, want, spread):
+                check(g.dtype == bf16, f"{tag}: {nm} {g.dtype}")
+                errs.append(bf16_ulp_gate(f"{tag} {case} {nm}", g, w, sp))
+            if mask is not None:
+                keys = A.key_valid(mask, b, t, mask.device)
+                dead = ~keys.any(dim=1)
+                check(bool((got[0][dead] == 0).all()) and bool((got[1][~keys] == 0).all())
+                      and bool((got[2][~keys] == 0).all()),
+                      "a query that sees no key and a masked key must get gradients of 0")
+        causal, mask = cases[0]
+        o, kernel = run(causal, mask)
+        got = [g.reshape(b, t, heads * dh) for g in kernel()]
+        again = [g.reshape(b, t, heads * dh) for g in kernel()]
+        check(all(torch.equal(a1, a2) for a1, a2 in zip(got, again)),
+              f"{tag}: the bits of a repeated backward differ")
+        want = A.lanes_attention_bwd_bf16(q, k, v, o, do, heads, causal, mask)
+        exact = A.lanes_attention_bwd_bf16(q, k, v, o, do, heads, causal, mask, exact=True)
+        f64 = max(f64_gate(f"{tag} {nm}", g, w, e, "bf16 plain twin")
+                  for nm, g, w, e in zip(("dq", "dk", "dv"), got, want, exact))
+        f32_kernel = run(causal, mask, f32=True)
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, label=f"{tag}, the f32 kernels")
+        plain_ms = time_ms(torch, lambda: A.lanes_attention_bwd_bf16(
+            q, k, v, o, do, heads, causal, mask))
+    lviews = [a.transpose(1, 2) for a in (q, k, v)]
+    lib_ms = sdpa_ms(torch, *lviews, causal, mask, backward="qkv")
+    lib_dev_ms = sdpa_ms(torch, *lviews, causal, mask, backward="qkv", device=True)
+    pairs = t * (t + 1) / 2 if causal else t * t
+    bounds = bf16_bound(2.0 * b * heads * pairs * dh * 5, 2.0 * 8 * b * t * heads * dh,
+                        lib_ms)
+    print(f"[bf16] {tag}: kernels {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernels "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  "
+          f"scaled_dot_product_attention bf16 backward {lib_ms:.4f} (device "
+          f"{lib_dev_ms:.4f})  bound {bounds['bound_ms']:.4f} ({bounds['bound_by']})")
+    return max(errs), ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                                     "f32_device_ms": f32_dev_ms,
+                                     "library_device_ms": lib_dev_ms}, bounds
+
+
 def phase_bf16_kernels(torch):
-    """The three bf16 kernels of the bf16 serving path at its vit-s shapes,
-    then at ragged narrow shapes (sub-entries)."""
+    """The six bf16 kernels of the bf16 serving and training paths at their
+    vit-s shapes, then at ragged narrow shapes (sub-entries)."""
     rng = np.random.default_rng(SEED + 11)
     results = {
         "bspline_kan_bf16": check_bspline_bf16(
@@ -2547,6 +2709,32 @@ def phase_bf16_kernels(torch):
                                  ("at_dh_16", 16, 197, 4, 16)):
         results["flash_attention_lanes_bf16"] += ({key: sub_entry(check_attention_bf16(
             torch, rng, b, t, heads, dh, key, attention_cases(torch, rng, b, t)))},)
+    # the backwards: the training step's shapes first (the embedder asked
+    # for no dx), then all gradients, the MNIST shapes and the other routes
+    results["bspline_kan_bwd_bf16"] = check_bspline_bwd_bf16(
+        torch, rng, "bspline_kan", "vit-s embedder, no dx", BATCH * 196, None, 768, 384,
+        need_dx=False) + (
+        {"all_gradients": sub_entry(check_bspline_bwd_bf16(
+            torch, rng, "bspline_kan", "vit-s embedder", BATCH * 196, None, 768, 384))},
+        {"mnist_ragged": sub_entry(check_bspline_bwd_bf16(
+            torch, rng, "bspline_kan", "mnist embedder", 37 * 49, None, 16, 64))})
+    results["bspline_qkv_grouped_bwd_bf16"] = check_bspline_bwd_bf16(
+        torch, rng, "bspline_qkv_grouped", "vit-s q/k/v", BATCH * 197, 6, 64, 192) + (
+        {"mnist_ragged": sub_entry(check_bspline_bwd_bf16(
+            torch, rng, "bspline_qkv_grouped", "mnist q/k/v", 37 * 50, 2, 32, 96))},
+        {"refit_grids_per_head": sub_entry(check_bspline_bwd_bf16(
+            torch, rng, "bspline_qkv_grouped", "vit-s refit grids a head", BATCH * 197, 6,
+            64, 64, per_head=True))},
+        {"at_dh_8_mnist": sub_entry(check_bspline_bwd_bf16(
+            torch, rng, "bspline_qkv_grouped", "dh-8 q/k/v", BATCH * 50, 8, 8, 24))})
+    results["flash_attention_lanes_bwd_bf16"] = check_attention_bwd_bf16(
+        torch, rng, BATCH, 197, 6, 64, "vit-s", [(False, None)])
+    for key, b, t, heads, dh in (("mnist_ragged", 37, 50, 2, 32),
+                                 ("at_dh_8_mnist", BATCH, 50, 8, 8),
+                                 ("at_dh_16", 16, 197, 4, 16)):
+        results["flash_attention_lanes_bwd_bf16"] += ({key: sub_entry(
+            check_attention_bwd_bf16(torch, rng, b, t, heads, dh, key,
+                                     attention_cases(torch, rng, b, t)))},)
     return results
 
 
@@ -2648,6 +2836,136 @@ def phase_bf16_serve(torch, smi, model_cpu, seed):
     return {"launches": counts, "logits_err": err, "top1_vs_f32": top1,
             "device_forward_ms": fwd_ms, "device_busy_ms": {"f32": busy32, "bf16": busy_bf},
             "images_per_s": ips}
+
+
+BF16_PER_STEP = {**BF16_PER_BATCH, **{f"{k[:-5]}_bwd_bf16": n for k, n in BF16_PER_BATCH.items()}}
+BF16_TRAIN_STEPS = 10
+# The card's bf16 step against the CPU's (the plain twins) on the same
+# weights, x max(1, max|g|) per tensor: kanvit's own bf16 gradient gate
+# (tests/test_kernels.py:966-967).
+TOL_BF16_GRADS = 5e-2
+
+
+def phase_bf16_train(torch, smi, model_cpu):
+    """Train the vit-s efficientkan in bf16 (kanvit's --bf16 policy, the f32
+    phase's weights) through ``make_train_step(bf16=True)``: exactly 1 + 12
+    + 12 bf16 forward and as many bf16 backward launches a step and no other
+    KAN or attention launch, the embedder's backward asked for no dx; loss
+    finite and falling over 10 Adam steps at batch 64; the gradients of a
+    4-image step within 5e-2 x max(1, max|g|) per tensor of the CPU's bf16
+    step (the plain twins) on the same weights, the f32 parameters and
+    gradients f32; host ms a step and images/s beside the f32 step's (in
+    turns f32, bf16, bf16, f32), CUDA events a step, the host's ms for the
+    parameter casts alone, and the profile's busy time, idle share and
+    largest device operations (``phase_profile``)."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.models import PRESETS
+    from kanvit_torch.train import create_train_state, make_train_step
+    from kanvit_torch.utils import precision
+
+    geom = PRESETS["vit-s"]
+    model = copy.deepcopy(model_cpu).to("cuda")
+    rng = np.random.default_rng(SEED + 2)
+    x = torch.from_numpy(rng.standard_normal((BATCH, *geom["chw"]))
+                         .astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, geom["out_d"], BATCH)).cuda()
+    state = create_train_state(model, 1e-3)
+    step = make_train_step(bf16=True)
+    per_step = {k: 0 for k in launch_counts()}
+    per_step.update(BF16_PER_STEP)
+
+    asked, launch_bwd = [], FB._launch_bwd_bf16
+
+    def recording(name, *args):
+        if name == "bspline_kan":
+            asked.append(tuple(args[-2:]))
+        return launch_bwd(name, *args)
+
+    reset_counts()
+    losses, steps_ok = [], True
+    FB._launch_bwd_bf16 = recording
+    try:
+        for _ in range(BF16_TRAIN_STEPS):
+            before = launch_counts()
+            state, loss, logits = step(state, x, y)
+            after = launch_counts()
+            steps_ok &= {k: after[k] - before[k] for k in after} == per_step
+            losses.append(loss)
+    finally:
+        FB._launch_bwd_bf16 = launch_bwd
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = [float(v) for v in losses]
+    print(f"[bf16-train] vit-s efficientkan bf16, batch {BATCH}, {BF16_TRAIN_STEPS} "
+          f"Adam(1e-3) steps on one batch: losses {[round(v, 6) for v in losses]}")
+    print(f"[bf16-train] launches over {BF16_TRAIN_STEPS} steps: "
+          f"{ {k: n for k, n in counts.items() if n} } (want per step "
+          f"{ {k: n for k, n in per_step.items() if n} }, nothing else); the "
+          f"embedder's backward asked for (dx, dW): {sorted(set(asked))}")
+    check(steps_ok, f"bf16 training: a step's launches differ from {per_step}")
+    check(asked == [(False, True)] * BF16_TRAIN_STEPS,
+          f"bf16 training: the embedder's backward must compute no dx, got {asked}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"bf16 training: losses not finite or not falling: {losses}")
+    check(logits.dtype == torch.float32 and tuple(logits.shape) == (BATCH, geom["out_d"]),
+          f"bf16 training: logits {logits.dtype} {tuple(logits.shape)}")
+    check(all(p.dtype == torch.float32 for p in model.parameters()),
+          "bf16 training: the parameters must stay f32")
+
+    # gradients of a 4-image step, the card's against the CPU's bf16 twins
+    xg, yg = x[:GRAD_IMAGES].cpu(), y[:GRAD_IMAGES].cpu()
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        net = copy.deepcopy(model_cpu).to(dev)
+        make_train_step(bf16=True)(create_train_state(net, 1e-3), xg.to(dev), yg.to(dev))
+        check(all(p.grad.dtype == torch.float32 for p in net.parameters()),
+              "bf16 training: the gradients must be f32")
+        grads[dev] = {k: p.grad.double().cpu() for k, p in net.named_parameters()}
+    worst, worst_name = 0.0, ""
+    for name, want in grads["cpu"].items():
+        rel = float((grads["cuda"][name] - want).abs().max()) / max(
+            1.0, float(want.abs().max()))
+        if rel > worst:
+            worst, worst_name = rel, name
+    print(f"[bf16-train] gradients of {GRAD_IMAGES} images, card against the CPU's bf16 "
+          f"twins, worst max|err| / max(1, max|g|) over tensors: {worst:.3e} ({worst_name})"
+          f"  limit {TOL_BF16_GRADS:.0e}")
+    check(worst <= TOL_BF16_GRADS, f"bf16 training: the card's gradients differ from the "
+                                   f"CPU's: {worst_name} {worst:.3e}")
+
+    # steady state in turns with the f32 step on the same model: host clock
+    # around a synchronised window, CUDA events around the same window
+    f32_step, iters = make_train_step(), 10
+    times = {"f32": [], "bf16": []}
+    for kind in ("f32", "bf16", "bf16", "f32"):
+        fn = f32_step if kind == "f32" else step
+        for _ in range(2):
+            fn(state, x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, window = device_ms(torch, lambda fn=fn: [fn(state, x, y) for _ in range(iters)])
+        torch.cuda.synchronize()
+        times[kind].append(((time.perf_counter() - t0) / iters * 1e3,
+                            window[0].elapsed_time(window[1]) / iters))
+    host = {k: float(np.mean([h for h, _ in v])) for k, v in times.items()}
+    events = {k: float(np.mean([e for _, e in v])) for k, v in times.items()}
+    ips = {k: BATCH / (v / 1e3) for k, v in host.items()}
+    # the host's share of the step that casts the parameters (autograd on)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(iters):
+        casts = precision.bf16_params(model)
+    torch.cuda.synchronize()
+    cast_ms = (time.perf_counter() - t0) / iters * 1e3
+    print(f"[bf16-train] steady state, vit-s efficientkan batch {BATCH}: bf16 "
+          f"{host['bf16']:.2f} ms a step, {ips['bf16']:.1f} images/s (host clock; CUDA "
+          f"events {events['bf16']:.2f}); f32 {host['f32']:.2f} ms, {ips['f32']:.1f} "
+          f"images/s (events {events['f32']:.2f}); turns {times}; the {len(casts)} "
+          f"parameter casts alone {cast_ms:.2f} ms of host  [{smi}]")
+    profile = phase_profile(torch, step, state, x, y, "vit-s efficientkan bf16")
+    return {"launches": counts, "losses": losses, "grad_rel_err": worst,
+            "step_ms": host, "events_ms": events, "images_per_s": ips, "cast_ms": cast_ms,
+            "profile": profile}
 
 
 # --------------------------------------------------------------------------
@@ -2928,6 +3246,8 @@ KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
     ("KAN q/k/v and embedder bwd on the tensor cores (B-spline, Chebyshev, RBF, "
      "sine: dW, dx)", ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
+    ("KAN q/k/v and embedder bwd in bf16 (B-spline: dW, dx, split sums)",
+     ("kan_bf16_dw", "kan_bf16_dx", "sum_splits_bf16")),
     ("KAN q/k/v and embedder fwd on the tensor cores (B-spline, Chebyshev, RBF, sine)",
      ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
@@ -2945,7 +3265,8 @@ KERNEL_GROUPS = (
                       "ffn_bwd_dx_tc", "ffn_dw_tc", "ffn_sum_parts_kernel",
                       "ffn_gemm_tc<2>", "ffn_dx_rows")),
     ("int8 linear", ("int8_linear_kernel",)),
-    ("GEMM (cuBLAS; torch._int_mm)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_")),
+    ("GEMM (cuBLAS; torch._int_mm)", ("gemm", "xmma", "cutlass", "sm90_", "sm80_",
+                                      "nvjet")),
     ("Adam", ("multi_tensor", "adam", "Adam")),
     ("elementwise (int8 quantize and dequantize, residuals, activations)",
      ("elementwise_kernel",)),
@@ -3533,6 +3854,14 @@ def phase_bench(torch, smi):
     print(f"[bench] reference preset, batch 128: {out['value']} images/s, "
           f"{out['step_time_ms']} ms per step  [{smi}]")
     check(out["value"] > 0 and np.isfinite(out["step_time_ms"]), "bench result")
+    args = bench.parse_args(["--preset", "vit-s", "--bf16", "--batch-size", str(BATCH),
+                             "--steps", "10", "--windows", "3", "--warmup", "3"])
+    bf = bench.run(args)
+    print(f"[bench] {json.dumps(bf)}")
+    print(f"[bench] python -m kanvit_torch.bench --preset vit-s --bf16, batch {BATCH}: "
+          f"{bf['value']} images/s, {bf['step_time_ms']} ms per step  [{smi}]")
+    check(bf["bf16"] is True and bf["value"] > 0 and np.isfinite(bf["step_time_ms"]),
+          "bf16 bench result")
 
     # where the reference step's time goes
     from kanvit_torch.models import PRESETS, create_model
@@ -3598,6 +3927,10 @@ SOURCES = {
     "bspline_qkv_grouped_bf16": (KAN_TC_SRC, f"{FB_PY}:1240"),
     "flash_attention_lanes_bf16": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
                                    "kanvit/kernels/flash_attention.py:571"),
+    "bspline_kan_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:1159"),
+    "bspline_qkv_grouped_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:1278"),
+    "flash_attention_lanes_bwd_bf16": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
+                                       "kanvit/kernels/flash_attention.py:604"),
 }
 # The single-tile tier of flash_attention runs the lanes kernels (phase 5);
 # fourierkan's and sinekan's kernels serve kanvit's generic tier below its
@@ -3611,6 +3944,8 @@ ALSO_REPLACES = {
     "bspline_kan": [f"{FB_PY}:777"],
     "bspline_kan_bf16": [f"{FB_PY}:777", f"{FB_PY}:969"],
     "flash_attention_lanes_bf16": ["kanvit/kernels/flash_attention.py:410"],
+    "bspline_kan_bwd_bf16": [f"{FB_PY}:810", f"{FB_PY}:1006"],
+    "flash_attention_lanes_bwd_bf16": ["kanvit/kernels/flash_attention.py:442"],
     "bspline_kan_bwd": [f"{FB_PY}:810", f"{FB_PY}:969", f"{FB_PY}:1006"],
     "fourierkan": [f"{FB_PY}:1067"],
     "fourierkan_bwd": [f"{FB_PY}:2492", f"{FB_PY}:1159"],
@@ -3737,6 +4072,26 @@ ROUTES = {
                   "q scaled in bf16, K by ldmatrix and V by ldmatrix.trans from cp.async "
                   "tiles, two passes over the keys (the row max, then p against it: the "
                   "policy's whole-row softmax), p rounded to bf16 for P V, o rounded once"},
+    "bspline_kan_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation, kan_basis_tc.cuh part 4 at "
+                  "one group: dW on kan_bf16_dw<Bspline, 3> over a basis made in f32 on chip "
+                  "and rounded to bf16 at the dot, gy by ldmatrix.trans, row splits in f32 "
+                  "partials summed in split order and rounded once (sum_splits_bf16_kernel); "
+                  "dx, where asked, on kan_bf16_dx<Bspline>, B' in f32 in its epilogue, "
+                  "rounded once",
+        "instantiated_in": KAN_SRC},
+    "bspline_qkv_grouped_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation, kan_basis_tc.cuh part 4: "
+                  "kan_bf16_dw<Bspline, NJ> (the basis made in f32 and rounded to bf16 at "
+                  "the dot, row splits in f32 partials, one rounding) and "
+                  "kan_bf16_dx<Bspline> (gy W^T in f32, B' in the epilogue, one rounding); "
+                  "both MSA routes (a shared grid, a grid a head)",
+        "instantiated_in": KAN_SRC},
+    "flash_attention_lanes_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: attention_lanes_dq_bf16<dh> "
+                  "(writes delta) then attention_lanes_dkv_bf16<dh>, the forward's (m, l), "
+                  "pn and dsc rounded to bf16 at their dots, qs by the bf16 scale and dq by "
+                  "the f32 one; K, V, do tiles by cp.async and ldmatrix"},
     "fourierkan": {"kernel": TC_FWD.format("FourierTc"), "instantiated_in": KAN_SRC},
     "fourierkan_bwd": {"kernel": TC_BWD.format("", "FourierTc"),
                        "instantiated_in": KAN_SRC},
@@ -3759,7 +4114,10 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
              "int8_linear": "int8_serve",
              **{name: "bf16_serve" for name in ("bspline_kan_bf16",
                                                 "bspline_qkv_grouped_bf16",
-                                                "flash_attention_lanes_bf16")}}
+                                                "flash_attention_lanes_bf16")},
+             **{name: "bf16_train" for name in ("bspline_kan_bwd_bf16",
+                                                "bspline_qkv_grouped_bwd_bf16",
+                                                "flash_attention_lanes_bwd_bf16")}}
 
 
 def timed(label, fn, *args):
@@ -3803,6 +4161,8 @@ def main():
                                 model_cpu, SEED + 1)["launches"]
     paths["train"] = timed("efficientkan training", phase_train, torch, smi, model_cpu,
                            "train", efficientkan, "bspline_kan")["launches"]
+    paths["bf16_train"] = timed("efficientkan bf16 training", phase_bf16_train, torch, smi,
+                                model_cpu)["launches"]
     paths["decoder"] = timed("decoder training", phase_decoder, torch, smi)["launches"]
     paths["flash_serve"] = timed(
         "flash-attn serving", phase_serve, torch, smi, build_model("flash-attn"),

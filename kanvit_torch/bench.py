@@ -8,6 +8,11 @@ synthetic images and labels drawn from ``--seed``. Run on one card:
 
     python -m kanvit_torch.bench --preset reference --batch-size 128
     python -m kanvit_torch.bench --preset vit-s --batch-size 64
+    python -m kanvit_torch.bench --preset vit-s --batch-size 64 --bf16
+
+``--bf16`` is ``bench.py``'s: kanvit's bf16 policy, f32 parameters and
+Adam, the step in bf16 (``make_train_step(bf16=True)``), for the models
+that take it (efficientkan, vanilla, flash-attn; the others raise).
 
 ``--device`` (default ``cuda``) is explicit: with no card the run raises,
 and it never moves to the CPU on its own (``--device cpu`` is for tests).
@@ -109,6 +114,8 @@ def parse_args(argv=None) -> argparse.Namespace:
     p.add_argument("--windows", type=int, default=5,
                    help="repeated timed windows; the MEDIAN is reported")
     p.add_argument("--warmup", type=int, default=8)
+    p.add_argument("--bf16", action="store_true",
+                   help="bf16 compute with f32 params (kanvit's --bf16 policy)")
     p.add_argument("--grad-accum", type=int, default=1,
                    help="accumulate gradients over this many batch chunks "
                         "(same update, chunked activations)")
@@ -143,7 +150,7 @@ def run(args: argparse.Namespace) -> dict:
     x = torch.from_numpy(rng.standard_normal(
         (args.batch_size, *geom["chw"])).astype(np.float32)).to(device)
     y = torch.from_numpy(rng.integers(0, geom["out_d"], args.batch_size)).to(device)
-    step = make_train_step(grad_accum=args.grad_accum)
+    step = make_train_step(bf16=args.bf16, grad_accum=args.grad_accum)
 
     for _ in range(args.warmup):
         state, loss, _ = step(state, x, y)
@@ -185,7 +192,7 @@ def run(args: argparse.Namespace) -> dict:
         "batch_size": args.batch_size,
         "grad_accum": args.grad_accum,
         "device": dev_name,
-        "bf16": False,
+        "bf16": bool(args.bf16),
         "flops_per_step": flops_model,
         "mfu": mfu,
         "flops_per_step_xla": None,

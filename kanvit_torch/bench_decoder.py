@@ -140,8 +140,8 @@ def main(argv=None) -> list[dict]:
     args = parse_args(argv)
     if args.bf16:
         raise NotImplementedError(
-            "bf16 decoder training is not ported: the tiled attention and the "
-            "backward kernels have no bf16 path (ROADMAP.md, Queue 2 entry 3)")
+            "bf16 decoder training is not ported: the tiled attention has no "
+            "bf16 kernels (ROADMAP.md, Queue 2 entry 3b.3)")
     if args.ring:
         raise NotImplementedError(
             "ring attention is not ported (ROADMAP.md Queue 1 item 8)")

@@ -44,6 +44,8 @@ SIGNATURES = {
         [_p, _i64, _p, _i64, _p, _p, _p, _i64, _p, *[_i32] * 5, _p], _i32),
     "kanvit_bspline_tc_fwd_bf16": (
         [_p, _i64, _p, _i64, _p, _p, _p, _i64, *[_i32] * 4, _p], _i32),
+    "kanvit_bspline_tc_bwd_bf16": (
+        [_p, _i64, _p, _i64, *[_p] * 5, *[_i32] * 5, _p], _i32),
     "kanvit_chebykan_fwd": ([_p, _i64, _p, _p, *[_i32] * 4, _p], _i32),
     "kanvit_chebykan_bwd": (
         [_p, _i64, *[_p] * 5, *[_i32] * 5, _p], _i32),
@@ -77,7 +79,9 @@ SIGNATURES = {
         [_p, _p, _p, *[_i64] * 9, _p, _p, _p, _i32, _i32, _i32, _i32, _i32,
          _f32, _p], _i32),
     "kanvit_attention_lanes_fwd_bf16": (
-        [_p, _p, _p, *[_i64] * 9, _p, _p, *[_i32] * 5, _f32, _p], _i32),
+        [_p, _p, _p, *[_i64] * 9, _p, _p, _p, *[_i32] * 5, _f32, _p], _i32),
+    "kanvit_attention_lanes_bwd_bf16": (
+        [_p, _p, _p, *[_i64] * 9, *[_p] * 8, *[_i32] * 5, _f32, _f32, _p], _i32),
     "kanvit_attention_lanes_bwd": (
         [_p, _p, _p, *[_i64] * 9, *[_p] * 8, _i32, _i32, _i32, _i32, _i32,
          _f32, _p], _i32),

@@ -7,10 +7,10 @@
 //   backward: _lanes_bwd (pallas_call at :604, body _lanes_bwd_kernel
 //             :498-534), _flash_lanes' VJP.
 // The single-tile tier (_small_fwd_impl :410, _small_bwd_impl :442) runs on
-// these kernels too, through (B, T, H, dh) views. The forward's bf16 path
-// (kanvit's bf16 serving) is attention_lanes_fwd_bf16, below the f32
-// tensor-core kernels: bf16 mma.sync.m16n8k16, dh 8, 16, 32 and 64, no
-// backward.
+// these kernels too, through (B, T, H, dh) views. The bf16 path (kanvit's
+// bf16 serving and training) is attention_lanes_fwd_bf16 and the backward
+// pair attention_lanes_dq_bf16 and attention_lanes_dkv_bf16, below the f32
+// tensor-core kernels: bf16 mma.sync.m16n8k16, dh 8, 16, 32 and 64.
 //
 // Per batch item b and head h:
 //   o_h = softmax(q_h k_h^T * dh^-1/2 + key bias + causal bias) v_h
@@ -565,7 +565,91 @@ attention_lanes_dkv_tc(const float* __restrict__ q,
   }
 }
 
-// --- bf16 forward: dh 8, 16, 32, 64 ---------------------------------------
+// --- bf16: dh 8, 16, 32, 64 -----------------------------------------------
+// Helpers of the bf16 forward and backward kernels (bf16 mma.sync.m16n8k16,
+// attention_tc.cuh). KD 16-deep steps span dh (at dh 8 one step, its upper
+// half zero); a staged tile has rows of dh + 8 bf16.
+
+// The A fragments of 16 rows of a head (rows g and g + 8 at pa and pb, dh
+// bf16 values each), every value times f rounded to bf16 (fa, fb: 1 takes
+// the rows as they are, 0 a row past t_len).
+template <int DH>
+__device__ __forceinline__ void bf16_a_rows(const __nv_bfloat16* pa, const __nv_bfloat16* pb,
+                                            float fa, float fb, int t,
+                                            uint32_t (&a)[(DH + 15) / 16][4]) {
+  auto scaled = [&](const __nv_bfloat16* row, int c, float f) -> uint32_t {
+    if (c >= DH) return 0u;
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
+    return pack_bf16(x.x * f, x.y * f);
+  };
+#pragma unroll
+  for (int kd = 0; kd < (DH + 15) / 16; ++kd) {
+    const int c = kd * 16 + 2 * t;
+    a[kd][0] = scaled(pa, c, fa);
+    a[kd][1] = scaled(pb, c, fb);
+    a[kd][2] = scaled(pa, c + 8, fa);
+    a[kd][3] = scaled(pb, c + 8, fb);
+  }
+}
+
+// s[n] = A T^T for the 8-row steps n < steps of a staged tile T (its rows
+// n*8 .. n*8+7 are the columns of B, read by ldmatrix), A a warp's 16 rows
+// as bf16_a_rows gives them; f32 accumulation, s zeroed first.
+template <int DH>
+__device__ __forceinline__ void bf16_rows_by_tile(const uint32_t (&a)[(DH + 15) / 16][4],
+                                                  const __nv_bfloat16* tile, int steps,
+                                                  int lane, float (&s)[TC_STEPS][4]) {
+#pragma unroll
+  for (int n = 0; n < TC_STEPS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < TC_STEPS; ++n) {
+    if (n >= steps) continue;
+    const __nv_bfloat16* row = tile + (n * 8 + (lane & 7)) * (DH + 8);
+#pragma unroll
+    for (int kd = 0; kd < (DH + 15) / 16; ++kd) {
+      uint32_t b[2];
+      if constexpr (DH >= 16) {
+        ldsm_x2(b, row + kd * 16 + ((lane >> 3) & 1) * 8);
+      } else {
+        b[0] = ldsm_x1(row);
+        b[1] = 0u;
+      }
+      mma_bf16(s[n], a[kd], b);
+    }
+  }
+}
+
+// acc[d] += C T for the 16-row steps m with 2m < steps: C the f32 tiles
+// c[2m], c[2m + 1] (8 columns each, a C fragment's layout) rounded to bf16
+// as the A fragment over those 16 columns, T the staged tile's rows
+// 16m .. 16m + 15 (read by ldmatrix.trans: a row of T is a row of B).
+template <int DH>
+__device__ __forceinline__ void bf16_c_by_tile(const float (&c)[TC_STEPS][4],
+                                               const __nv_bfloat16* tile, int steps, int lane,
+                                               float (&acc)[DH / 8][4]) {
+#pragma unroll
+  for (int m = 0; m < TC_STEPS / 2; ++m) {
+    if (2 * m >= steps) continue;
+    const uint32_t pa[4] = {pack_bf16(c[2 * m][0], c[2 * m][1]),
+                            pack_bf16(c[2 * m][2], c[2 * m][3]),
+                            pack_bf16(c[2 * m + 1][0], c[2 * m + 1][1]),
+                            pack_bf16(c[2 * m + 1][2], c[2 * m + 1][3])};
+    const __nv_bfloat16* row = tile + (m * 16 + (lane & 15)) * (DH + 8);
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      uint32_t b[2];
+      ldsm_x2_trans(b, row + d * 8);
+      mma_bf16(acc[d], pa, b);
+    }
+  }
+}
+
+// Two f32 accumulators of a C fragment, rounded to bf16, at dst (a pair).
+__device__ __forceinline__ void store_bf16_pair(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
+}
+
+// --- bf16 forward ------------------------------------------------------------
 // kanvit's bf16 policy (flash_attention.py:482-495, _small_probs :328-341):
 // q scaled in bf16 by the scale rounded to bf16 (1/8 at dh 64 is exact,
 // 1/sqrt(32) and 1/sqrt(8) are not: the wrapper rounds it), the scores and
@@ -577,7 +661,8 @@ attention_lanes_dkv_tc(const float* __restrict__ q,
 // policy's; so the block streams the keys twice: the first pass takes each
 // row's max over the scores, the second recomputes the same scores (the
 // same products in the same order: the same bits) and takes p against that
-// max. The first pass stages K alone.
+// max. The first pass stages K alone. With stats, each row's (m, l) is
+// written for the backward: the bits its own recomputation would give.
 //
 // The grid, the warps' rows and the 32-key tiles are the f32 kernel's. A
 // warp keeps its 16 scaled q rows as A fragments (KD 16-deep steps over dh;
@@ -603,8 +688,8 @@ attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                          long long k_sb, long long k_st, long long k_sh,
                          long long v_sb, long long v_st, long long v_sh,
                          const uint8_t* __restrict__ mask,
-                         __nv_bfloat16* __restrict__ o, int t_len, int heads,
-                         int causal, float scale) {
+                         __nv_bfloat16* __restrict__ o, float* __restrict__ stats,
+                         int t_len, int heads, int causal, float scale) {
   constexpr int P = DH + 8;          // staged row pitch, bf16
   constexpr int KD = (DH + 15) / 16;  // 16-deep steps over dh
   constexpr int ND = DH / 8;          // n8 tiles of o over dh
@@ -623,26 +708,9 @@ attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 
   // The warp's q rows, scaled in bf16 (0 past t_len), as A fragments.
   uint32_t qa[KD][4];
-  {
-    const __nv_bfloat16* qpa =
-        q + b * q_sb + (long long)min(ra, t_len - 1) * q_st + h * q_sh;
-    const __nv_bfloat16* qpb =
-        q + b * q_sb + (long long)min(rb, t_len - 1) * q_st + h * q_sh;
-    const float fa = ra < t_len ? scale : 0.f, fb = rb < t_len ? scale : 0.f;
-    auto scaled = [&](const __nv_bfloat16* row, int c, float f) -> uint32_t {
-      if (c >= DH) return 0u;
-      const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
-      return pack_bf16(x.x * f, x.y * f);
-    };
-#pragma unroll
-    for (int kd = 0; kd < KD; ++kd) {
-      const int c = kd * 16 + 2 * t;
-      qa[kd][0] = scaled(qpa, c, fa);
-      qa[kd][1] = scaled(qpb, c, fb);
-      qa[kd][2] = scaled(qpa, c + 8, fa);
-      qa[kd][3] = scaled(qpb, c + 8, fb);
-    }
-  }
+  bf16_a_rows<DH>(q + b * q_sb + (long long)min(ra, t_len - 1) * q_st + h * q_sh,
+                  q + b * q_sb + (long long)min(rb, t_len - 1) * q_st + h * q_sh,
+                  ra < t_len ? scale : 0.f, rb < t_len ? scale : 0.f, t, qa);
 
   const __nv_bfloat16* kh = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vh = v + b * v_sb + h * v_sh;
@@ -661,24 +729,7 @@ attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   };
   // This tile's scores of the warp's rows, keys past the warp's reach -inf.
   auto scores = [&](int buf, int k0, int steps, float (&s)[TC_STEPS][4]) {
-#pragma unroll
-    for (int n = 0; n < TC_STEPS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
-#pragma unroll
-    for (int n = 0; n < TC_STEPS; ++n) {
-      if (n >= steps) continue;
-      const __nv_bfloat16* krow = &ks[buf][n * 8 + (lane & 7)][0];
-#pragma unroll
-      for (int kd = 0; kd < KD; ++kd) {
-        uint32_t kb[2];
-        if constexpr (DH >= 16) {
-          ldsm_x2(kb, krow + kd * 16 + ((lane >> 3) & 1) * 8);
-        } else {
-          kb[0] = ldsm_x1(krow);
-          kb[1] = 0u;
-        }
-        mma_bf16(s[n], qa[kd], kb);
-      }
-    }
+    bf16_rows_by_tile<DH>(qa, &ks[buf][0][0], steps, lane, s);
 #pragma unroll
     for (int n = 0; n < TC_STEPS; ++n)
 #pragma unroll
@@ -746,21 +797,7 @@ attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
           if (c < 2) la += s[n][c];
           else lb += s[n][c];
         }
-#pragma unroll
-      for (int m = 0; m < TC_STEPS / 2; ++m) {
-        if (2 * m >= steps) continue;
-        const uint32_t pa[4] = {pack_bf16(s[2 * m][0], s[2 * m][1]),
-                                pack_bf16(s[2 * m][2], s[2 * m][3]),
-                                pack_bf16(s[2 * m + 1][0], s[2 * m + 1][1]),
-                                pack_bf16(s[2 * m + 1][2], s[2 * m + 1][3])};
-        const __nv_bfloat16* vrow = &vs[buf][m * 16 + (lane & 15)][0];
-#pragma unroll
-        for (int d = 0; d < ND; ++d) {
-          uint32_t vb[2];
-          ldsm_x2_trans(vb, vrow + d * 8);
-          mma_bf16(acc[d], pa, vb);
-        }
-      }
+      bf16_c_by_tile<DH>(s, &vs[buf][0][0], steps, lane, acc);
     }
     __syncthreads();  // this buffer is restaged two tiles on
   }
@@ -768,6 +805,7 @@ attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   la = quad_sum(la);
   lb = quad_sum(lb);
   const float rla = 1.f / fmaxf(la, EPSILON), rlb = 1.f / fmaxf(lb, EPSILON);
+  const long long srow = ((long long)b * heads + h) * t_len;
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = half ? rb : ra;
@@ -776,8 +814,276 @@ attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     __nv_bfloat16* op = o + (((long long)b * t_len + row) * heads + h) * DH + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      *reinterpret_cast<uint32_t*>(op + d * 8) =
-          pack_bf16(acc[d][2 * half] * rl, acc[d][2 * half + 1] * rl);
+      store_bf16_pair(op + d * 8, acc[d][2 * half] * rl, acc[d][2 * half + 1] * rl);
+    if (stats != nullptr && t == 0) {
+      stats[(srow + row) * 2] = half ? mb : ma;
+      stats[(srow + row) * 2 + 1] = half ? lb : la;
+    }
+  }
+}
+
+// --- bf16 backward ------------------------------------------------------------
+// kanvit's bf16 lanes backward (_lanes_bwd, pallas_call at
+// flash_attention.py:604, body _lanes_bwd_kernel :498-535) on bf16 q, k, v,
+// o and do, per head:
+//   qs = bf16(q * bf16(dh^-1/2)); s = qs k^T in f32, masked; p = exp(s - m)
+//   against the forward's row max m, pn = p * (1 / max(l, 1e-10)) in f32;
+//   dv = bf16(pn)^T do (f32 accumulation, rounded once);
+//   delta = sum(f32(do) * f32(o)) over dh; dp = do v^T in f32;
+//   dsc = bf16(pn * (dp - delta));
+//   dq = bf16((dsc k) * dh^-1/2), this scale the f32 one, not bf16(dh^-1/2);
+//   dk = bf16(dsc^T qs).
+// The forward's (m, l) (written with stats) are the bits the backward's own
+// recomputation of the scores gives (the same products in the same order),
+// so both kernels read them. Two kernels, no atomics, so the bits repeat:
+// the dq kernel (it writes delta) per 64 query rows streaming the keys,
+// then the dk/dv kernel per 64 keys streaming the queries; their grids,
+// warps and 32-row tiles are the forward's. Each product is bf16
+// mma.sync.m16n8k16 with f32 accumulation:
+//   dq    S = qs K^T, dP = do V^T   A qs, do rows (registers)    B K, V tiles (ldmatrix)
+//         dQ += dsc K               A dsc from S's C fragments    B K tile (ldmatrix.trans)
+//   dk/dv S^T = K qs^T, dP^T = V do^T  A K, V rows (registers)   B qs, do tiles (ldmatrix)
+//         dV += pn^T do, dK += dsc^T qs  A from the C fragments  B do, qs tiles (.trans)
+// The dk/dv kernel stages each q tile scaled and rounded to bf16 (qs) with
+// plain loads, and the do tiles by cp.async.
+//
+// What bounds it at vit-s (batch 64, T 197, 6 heads of 64): the bytes, q,
+// k, v, o and do read and dq, dk, dv written, 8 x 9.7 MB, 0.023 ms at 3.35
+// TB/s; its seven products (the scores and dP in each kernel, dq, dk, dv)
+// are 13.4 GFLOP, 0.0135 ms at 989 TFLOP/s bf16. Beside them, every score
+// takes one expf, twice.
+template <int DH>
+__global__ void __launch_bounds__(32 * TC_WARPS)
+attention_lanes_dq_bf16(const __nv_bfloat16* __restrict__ q,
+                        const __nv_bfloat16* __restrict__ k,
+                        const __nv_bfloat16* __restrict__ v,
+                        long long q_sb, long long q_st, long long q_sh,
+                        long long k_sb, long long k_st, long long k_sh,
+                        long long v_sb, long long v_st, long long v_sh,
+                        const uint8_t* __restrict__ mask,
+                        const __nv_bfloat16* __restrict__ o,
+                        const __nv_bfloat16* __restrict__ dout,
+                        const float* __restrict__ stats, float* __restrict__ delta_out,
+                        __nv_bfloat16* __restrict__ dq, int t_len, int heads, int causal,
+                        float qscale, float scale) {
+  constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
+  __shared__ __align__(16) __nv_bfloat16 ks[2][TC_TILE][P];
+  __shared__ __align__(16) __nv_bfloat16 vs[2][TC_TILE][P];
+  __shared__ int kvalid[2][TC_TILE];
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int q0 = blockIdx.x * TC_ROWS;
+  const int r0 = q0 + (tid >> 5) * 16;
+  const bool active = r0 < t_len;
+  const int last = min(r0 + 15, t_len - 1);
+  const int ra = r0 + g, rb = r0 + g + 8;
+  const bool la_ok = ra < t_len, lb_ok = rb < t_len;
+  const long long srow = ((long long)b * heads + h) * t_len;  // of stats, delta
+  const long long oa = (((long long)b * t_len + min(ra, t_len - 1)) * heads + h) * DH;
+  const long long ob = (((long long)b * t_len + min(rb, t_len - 1)) * heads + h) * DH;
+
+  // The warp's qs and do rows as A fragments; delta of rows ra and rb.
+  uint32_t qa[KD][4], da[KD][4];
+  bf16_a_rows<DH>(q + b * q_sb + (long long)min(ra, t_len - 1) * q_st + h * q_sh,
+                  q + b * q_sb + (long long)min(rb, t_len - 1) * q_st + h * q_sh,
+                  la_ok ? qscale : 0.f, lb_ok ? qscale : 0.f, t, qa);
+  bf16_a_rows<DH>(dout + oa, dout + ob, la_ok ? 1.f : 0.f, lb_ok ? 1.f : 0.f, t, da);
+  float dla = 0.f, dlb = 0.f;
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    const int c = d * 8 + 2 * t;
+    const float2 da2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + oa + c));
+    const float2 oa2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + oa + c));
+    const float2 db2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + ob + c));
+    const float2 ob2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + ob + c));
+    dla = fmaf(da2.y, oa2.y, fmaf(da2.x, oa2.x, dla));
+    dlb = fmaf(db2.y, ob2.y, fmaf(db2.x, ob2.x, dlb));
+  }
+  dla = quad_sum(dla);  // every lane shuffles; rows past t_len read row t_len-1
+  dlb = quad_sum(dlb);
+  const float ma = la_ok ? stats[(srow + ra) * 2] : 0.f;
+  const float mb = lb_ok ? stats[(srow + rb) * 2] : 0.f;
+  const float rla = la_ok ? 1.f / fmaxf(stats[(srow + ra) * 2 + 1], EPSILON) : 0.f;
+  const float rlb = lb_ok ? 1.f / fmaxf(stats[(srow + rb) * 2 + 1], EPSILON) : 0.f;
+
+  const __nv_bfloat16* kh = k + b * k_sb + h * k_sh;
+  const __nv_bfloat16* vh = v + b * v_sb + h * v_sh;
+  const int kend = causal ? min(t_len, q0 + TC_ROWS) : t_len;
+  const int tiles = (kend + TC_TILE - 1) / TC_TILE;
+  auto stage = [&](int tile, int buf) {
+    stage_tile_bf16<DH, TC_TILE>(&ks[buf][0][0], kh, k_st, tile * TC_TILE, t_len, tid);
+    stage_tile_bf16<DH, TC_TILE>(&vs[buf][0][0], vh, v_st, tile * TC_TILE, t_len, tid);
+    cp_async_commit();
+    if (tid < TC_TILE) {
+      const int key = tile * TC_TILE + tid;
+      kvalid[buf][tid] = key < t_len &&
+                         (mask == nullptr || mask[(long long)b * t_len + key] != 0);
+    }
+  };
+
+  float acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  stage(0, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, k0 = it * TC_TILE;
+    if (it + 1 < tiles) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const int steps = min(TC_STEPS, ((causal ? last + 1 : t_len) - k0 + 7) / 8);
+    if (active && steps > 0) {
+      float s[TC_STEPS][4], dp[TC_STEPS][4];
+      bf16_rows_by_tile<DH>(qa, &ks[buf][0][0], steps, lane, s);
+      bf16_rows_by_tile<DH>(da, &vs[buf][0][0], steps, lane, dp);
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n)  // s becomes dsc, in f32
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = n * 8 + 2 * t + (c & 1);
+          const bool hi = c >= 2;
+          const bool ok = (hi ? lb_ok : la_ok) && kvalid[buf][j] &&
+                          (!causal || k0 + j <= (hi ? rb : ra));
+          const float pn = ok ? expf(s[n][c] - (hi ? mb : ma)) * (hi ? rlb : rla) : 0.f;
+          s[n][c] = pn * (dp[n][c] - (hi ? dlb : dla));
+        }
+      bf16_c_by_tile<DH>(s, &ks[buf][0][0], steps, lane, acc);
+    }
+    __syncthreads();  // this buffer is restaged two tiles on
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (!active || row >= t_len) continue;
+    __nv_bfloat16* dqp = dq + (((long long)b * t_len + row) * heads + h) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      store_bf16_pair(dqp + d * 8, acc[d][2 * half] * scale, acc[d][2 * half + 1] * scale);
+    if (t == 0) delta_out[srow + row] = half ? dlb : dla;
+  }
+}
+
+// dk and dv. One block per (64 keys, head, batch); warp w owns keys
+// k0 + 16w .. +15 and streams the queries, reading the forward's (m, l) and
+// the dq kernel's delta.
+template <int DH>
+__global__ void __launch_bounds__(32 * TC_WARPS)
+attention_lanes_dkv_bf16(const __nv_bfloat16* __restrict__ q,
+                         const __nv_bfloat16* __restrict__ k,
+                         const __nv_bfloat16* __restrict__ v,
+                         long long q_sb, long long q_st, long long q_sh,
+                         long long k_sb, long long k_st, long long k_sh,
+                         long long v_sb, long long v_st, long long v_sh,
+                         const uint8_t* __restrict__ mask,
+                         const __nv_bfloat16* __restrict__ dout,
+                         const float* __restrict__ stats, const float* __restrict__ delta,
+                         __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
+                         int t_len, int heads, int causal, float qscale) {
+  constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
+  constexpr int NT = 32 * TC_WARPS;
+  __shared__ __align__(16) __nv_bfloat16 qs[2][TC_TILE][P];  // q scaled, rounded to bf16
+  __shared__ __align__(16) __nv_bfloat16 dos[2][TC_TILE][P];
+  __shared__ float mrow[2][TC_TILE], rlrow[2][TC_TILE], drow[2][TC_TILE];
+
+  const int tid = threadIdx.x, lane = tid & 31;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.y, b = blockIdx.z;
+  const int k0 = blockIdx.x * TC_ROWS;
+  const int j0 = k0 + (tid >> 5) * 16;  // the warp's first key
+  const bool active = j0 < t_len;
+  const int ja = j0 + g, jb = j0 + g + 8;
+  const bool va = ja < t_len && (mask == nullptr || mask[(long long)b * t_len + ja] != 0);
+  const bool vb = jb < t_len && (mask == nullptr || mask[(long long)b * t_len + jb] != 0);
+  const long long srow = ((long long)b * heads + h) * t_len;
+
+  uint32_t ka[KD][4], vfa[KD][4];  // the warp's k and v rows
+  bf16_a_rows<DH>(k + b * k_sb + (long long)min(ja, t_len - 1) * k_st + h * k_sh,
+                  k + b * k_sb + (long long)min(jb, t_len - 1) * k_st + h * k_sh,
+                  ja < t_len ? 1.f : 0.f, jb < t_len ? 1.f : 0.f, t, ka);
+  bf16_a_rows<DH>(v + b * v_sb + (long long)min(ja, t_len - 1) * v_st + h * v_sh,
+                  v + b * v_sb + (long long)min(jb, t_len - 1) * v_st + h * v_sh,
+                  ja < t_len ? 1.f : 0.f, jb < t_len ? 1.f : 0.f, t, vfa);
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dka[d][c] = dva[d][c] = 0.f;
+
+  const __nv_bfloat16* qh = q + b * q_sb + h * q_sh;
+  const __nv_bfloat16* doh = dout + (long long)b * t_len * heads * DH + h * DH;
+  // Causal: query i sees key j only for i >= j, so the tiles start at k0.
+  const int i_start = causal ? k0 : 0;
+  const int tiles = (t_len - i_start + TC_TILE - 1) / TC_TILE;
+  auto stage = [&](int tile, int buf) {
+    const int i0 = i_start + tile * TC_TILE;
+    stage_tile_bf16<DH, TC_TILE>(&dos[buf][0][0], doh, (long long)heads * DH, i0, t_len, tid);
+    cp_async_commit();
+    for (int e = tid; e < TC_TILE * DH / 2; e += NT) {
+      const int r = e / (DH / 2), c = e % (DH / 2) * 2, qi = i0 + r;
+      float2 x = make_float2(0.f, 0.f);
+      if (qi < t_len)
+        x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qh + qi * q_st + c));
+      store_bf16_pair(&qs[buf][r][c], x.x * qscale, x.y * qscale);
+    }
+    if (tid < TC_TILE) {
+      const int qi = i0 + tid;
+      const bool in = qi < t_len;
+      mrow[buf][tid] = in ? stats[(srow + qi) * 2] : 0.f;
+      rlrow[buf][tid] = in ? 1.f / fmaxf(stats[(srow + qi) * 2 + 1], EPSILON) : 0.f;
+      drow[buf][tid] = in ? delta[srow + qi] : 0.f;
+    }
+  };
+  stage(0, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, i0 = i_start + it * TC_TILE;
+    if (it + 1 < tiles) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    // 8-query steps this warp's keys may be seen from: below t_len and,
+    // causal, ending at or after its first key.
+    const int hi_step = min(TC_STEPS, (t_len - i0 + 7) / 8);
+    const int lo_step = causal ? max(0, (j0 - i0) / 8) : 0;
+    if (active && lo_step < hi_step) {
+      float st[TC_STEPS][4], dpt[TC_STEPS][4];
+      bf16_rows_by_tile<DH>(ka, &qs[buf][0][0], hi_step, lane, st);
+      bf16_rows_by_tile<DH>(vfa, &dos[buf][0][0], hi_step, lane, dpt);
+#pragma unroll
+      for (int n = 0; n < TC_STEPS; ++n)  // st becomes pn^T, dpt dsc^T, in f32
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = n * 8 + 2 * t + (c & 1), qi = i0 + r;
+          const bool hi = c >= 2;
+          const bool ok = (hi ? vb : va) && qi < t_len && (!causal || (hi ? jb : ja) <= qi);
+          const float pn = ok ? expf(st[n][c] - mrow[buf][r]) * rlrow[buf][r] : 0.f;
+          dpt[n][c] = pn * (dpt[n][c] - drow[buf][r]);
+          st[n][c] = pn;
+        }
+      bf16_c_by_tile<DH>(st, &dos[buf][0][0], hi_step, lane, dva);
+      bf16_c_by_tile<DH>(dpt, &qs[buf][0][0], hi_step, lane, dka);
+    }
+    __syncthreads();  // this buffer is restaged two tiles on
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? jb : ja;
+    if (!active || key >= t_len) continue;
+    const long long off = (((long long)b * t_len + key) * heads + h) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      store_bf16_pair(dk + off + d * 8, dka[d][2 * half], dka[d][2 * half + 1]);
+      store_bf16_pair(dv + off + d * 8, dva[d][2 * half], dva[d][2 * half + 1]);
+    }
   }
 }
 
@@ -786,12 +1092,34 @@ int launch_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                     const __nv_bfloat16* v, long long q_sb, long long q_st,
                     long long q_sh, long long k_sb, long long k_st, long long k_sh,
                     long long v_sb, long long v_st, long long v_sh,
-                    const uint8_t* mask, __nv_bfloat16* o, int batch, int t_len,
-                    int heads, int causal, float scale, cudaStream_t stream) {
+                    const uint8_t* mask, __nv_bfloat16* o, float* stats, int batch,
+                    int t_len, int heads, int causal, float scale, cudaStream_t stream) {
   const dim3 grid((t_len + TC_ROWS - 1) / TC_ROWS, heads, batch);
   attention_lanes_fwd_bf16<DH><<<grid, 32 * TC_WARPS, 0, stream>>>(
       q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask, o,
-      t_len, heads, causal, scale);
+      stats, t_len, heads, causal, scale);
+  return (int)cudaGetLastError();
+}
+
+template <int DH>
+int launch_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
+                    const __nv_bfloat16* v, long long q_sb, long long q_st,
+                    long long q_sh, long long k_sb, long long k_st, long long k_sh,
+                    long long v_sb, long long v_st, long long v_sh,
+                    const uint8_t* mask, const __nv_bfloat16* o,
+                    const __nv_bfloat16* dout, const float* stats, float* delta,
+                    __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, int batch,
+                    int t_len, int heads, int causal, float qscale, float scale,
+                    cudaStream_t stream) {
+  const dim3 grid((t_len + TC_ROWS - 1) / TC_ROWS, heads, batch);
+  attention_lanes_dq_bf16<DH><<<grid, 32 * TC_WARPS, 0, stream>>>(
+      q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask, o, dout,
+      stats, delta, dq, t_len, heads, causal, qscale, scale);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  attention_lanes_dkv_bf16<DH><<<grid, 32 * TC_WARPS, 0, stream>>>(
+      q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask, dout, stats,
+      delta, dk, dv, t_len, heads, causal, qscale);
   return (int)cudaGetLastError();
 }
 
@@ -1278,17 +1606,17 @@ extern "C" int kanvit_attention_lanes_bwd(
                             batch, t_len, heads, dh, causal, scale, st);
 }
 
-// The bf16 forward (kanvit's bf16 lanes kernel; no backward: a bf16 backward
-// is not ported). q, k, v: bf16, strided as kanvit_attention_lanes_fwd's;
-// o: (batch, t_len, heads*dh) bf16 contiguous; scale: dh^-1/2 rounded to
-// bf16. dh 8, 16, 32 or 64, else cudaErrorInvalidValue; q, k and v 16-byte
-// aligned with strides that are multiples of 8, else
-// cudaErrorMisalignedAddress. Launches on `stream` and returns
-// cudaGetLastError() (0 on success).
+// The bf16 forward (kanvit's bf16 lanes kernel). q, k, v: bf16, strided as
+// kanvit_attention_lanes_fwd's; o: (batch, t_len, heads*dh) bf16
+// contiguous; stats: (batch, heads, t_len, 2) f32, each row's (max, sum)
+// for the backward, or null; scale: dh^-1/2 rounded to bf16. dh 8, 16, 32
+// or 64, else cudaErrorInvalidValue; q, k and v 16-byte aligned with
+// strides that are multiples of 8, else cudaErrorMisalignedAddress.
+// Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int kanvit_attention_lanes_fwd_bf16(
     const void* q, const void* k, const void* v, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
-    long long v_st, long long v_sh, const uint8_t* mask, void* o, int batch,
+    long long v_st, long long v_sh, const uint8_t* mask, void* o, float* stats, int batch,
     int t_len, int heads, int dh, int causal, float scale, void* stream) {
   if (batch <= 0 || t_len <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
       !tc_head_dim(dh))
@@ -1304,7 +1632,8 @@ extern "C" int kanvit_attention_lanes_fwd_bf16(
   const cudaStream_t st = (cudaStream_t)stream;
 #define KANVIT_FWD_BF16(D)                                                    \
   launch_fwd_bf16<D>(qb, kb, vb, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,    \
-                     v_st, v_sh, mask, ob, batch, t_len, heads, causal, scale, st)
+                     v_st, v_sh, mask, ob, stats, batch, t_len, heads, causal, \
+                     scale, st)
   switch (dh) {
     case 8: return KANVIT_FWD_BF16(8);
     case 16: return KANVIT_FWD_BF16(16);
@@ -1312,4 +1641,45 @@ extern "C" int kanvit_attention_lanes_fwd_bf16(
     default: return KANVIT_FWD_BF16(64);
   }
 #undef KANVIT_FWD_BF16
+}
+
+// The bf16 backward of kanvit_attention_lanes_fwd_bf16 (kanvit's bf16 lanes
+// backward). q, k, v, mask as there; o: the forward's output and dout its
+// gradient, (batch, t_len, heads*dh) bf16 contiguous, 16-byte aligned;
+// stats: the forward's (batch, heads, t_len, 2); delta: f32 scratch of
+// batch*heads*t_len floats; dq, dk, dv: (batch, t_len, heads*dh) bf16
+// contiguous; qscale: dh^-1/2 rounded to bf16 (q's scale), scale: dh^-1/2
+// in f32 (dq's). Launches the dq kernel, then the dk/dv kernel, on `stream`
+// and returns cudaGetLastError() (0 on success).
+extern "C" int kanvit_attention_lanes_bwd_bf16(
+    const void* q, const void* k, const void* v, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
+    long long v_st, long long v_sh, const uint8_t* mask, const void* o, const void* dout,
+    const float* stats, float* delta, void* dq, void* dk, void* dv, int batch, int t_len,
+    int heads, int dh, int causal, float qscale, float scale, void* stream) {
+  if (batch <= 0 || t_len <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
+      !tc_head_dim(dh) || stats == nullptr || delta == nullptr)
+    return (int)cudaErrorInvalidValue;
+  const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
+                         (uintptr_t)dout;
+  const long long strides =
+      q_sb | q_st | q_sh | k_sb | k_st | k_sh | v_sb | v_st | v_sh;
+  if (ptrs % 16 != 0 || strides % 8 != 0) return (int)cudaErrorMisalignedAddress;
+  using bf = __nv_bfloat16;
+  const bf *qb = static_cast<const bf*>(q), *kb = static_cast<const bf*>(k),
+           *vb = static_cast<const bf*>(v), *obf = static_cast<const bf*>(o),
+           *db = static_cast<const bf*>(dout);
+  bf *dqb = static_cast<bf*>(dq), *dkb = static_cast<bf*>(dk), *dvb = static_cast<bf*>(dv);
+  const cudaStream_t st = (cudaStream_t)stream;
+#define KANVIT_BWD_BF16(D)                                                        \
+  launch_bwd_bf16<D>(qb, kb, vb, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,  \
+                     v_sh, mask, obf, db, stats, delta, dqb, dkb, dvb, batch, t_len, \
+                     heads, causal, qscale, scale, st)
+  switch (dh) {
+    case 8: return KANVIT_BWD_BF16(8);
+    case 16: return KANVIT_BWD_BF16(16);
+    case 32: return KANVIT_BWD_BF16(32);
+    default: return KANVIT_BWD_BF16(64);
+  }
+#undef KANVIT_BWD_BF16
 }

@@ -30,10 +30,12 @@
 //             kanvit_cheby_qkv_tc_bwd) as their one-group case. The
 //             CUDA-core forward of chebykan (kan_basis.cuh, entry
 //             kanvit_chebykan_fwd) stays, timed beside it.
-//   bf16 (kanvit's bf16 serving): bspline_kan's and bspline_qkv_grouped's
-//   forwards (_fused_fwd :1067, _fused_fwd_sg :1240 on bf16 operands) on
-//   kan_basis_tc.cuh part 3 with its Bf16 operand type, entry
-//   kanvit_bspline_tc_fwd_bf16.
+//   bf16 (kanvit's bf16 serving and training): bspline_kan's and
+//   bspline_qkv_grouped's forwards (_fused_fwd :1067, _fused_fwd_sg :1240
+//   on bf16 operands) on kan_basis_tc.cuh part 3 with its Bf16 operand
+//   type, entry kanvit_bspline_tc_fwd_bf16; their backwards (_fused_bwd
+//   :1159, _fused_bwd_sg :1278 on bf16 operands) on part 4, entry
+//   kanvit_bspline_tc_bwd_bf16.
 //   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
 //   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
 //   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on
@@ -374,6 +376,26 @@ extern "C" int kanvit_bspline_tc_fwd_bf16(const void* x, long long ldx, const fl
   return launch_tc_grouped_fwd<Bspline, tcf::WARPS, 1, false, 0, Bf16>(
       static_cast<const bf*>(x), ldx, {gridt, gstride}, static_cast<const bf*>(w),
       static_cast<bf*>(y), wsplit, wwords, n, groups, nin, nout, (cudaStream_t)stream);
+}
+
+// The bf16 backward (kanvit's bf16 training policy, kan_basis_tc.cuh part
+// 4): x, w, gy, dx and dw bf16, the knots f32; the basis and B' made in f32,
+// gW = gy W^T accumulated in f32 and never rounded, dx summed in f32 and
+// rounded once, dW summed in f32 over all the rows (row splits into the f32
+// scratch dw_part of splits groups 9 nin nout floats, added in split order)
+// and rounded once. The grouped q/k/v's (bspline_qkv_grouped's), and the
+// B-spline patch embedder's (bspline_kan's) as its one-group case; dx or dw
+// null to skip it.
+extern "C" int kanvit_bspline_tc_bwd_bf16(const void* x, long long ldx, const float* gridt,
+                                          long long gstride, const void* w, const void* gy,
+                                          void* dx, void* dw, float* dw_part, int n,
+                                          int groups, int nin, int nout, int splits,
+                                          void* stream) {
+  using bf = __nv_bfloat16;
+  return launch_bf16_grouped_bwd<Bspline>(
+      static_cast<const bf*>(x), ldx, {gridt, gstride}, static_cast<const bf*>(w),
+      static_cast<const bf*>(gy), static_cast<bf*>(dx), static_cast<bf*>(dw), dw_part, n,
+      groups, nin, nout, splits, (cudaStream_t)stream);
 }
 
 // Chebyshev, degree 4: S = 5. The CUDA-core forward (kan_basis.cuh); the

@@ -1,4 +1,4 @@
-// KAN contractions on Hopper's tensor cores, in three parts.
+// KAN contractions on Hopper's tensor cores, in four parts.
 //
 // Part 1: the Fourier and sine KAN layers' forward and weight gradient: one
 // templated contraction over a basis generated on chip (kan_tc_kernel),
@@ -19,6 +19,11 @@
 // is its one-group case, its 768-deep sum in two levels. The sine grouped
 // forward past 4 slices and the Chebyshev embedder's forward stay on
 // kan_basis.cuh's CUDA-core kan_fwd_kernel.
+//
+// Part 4 (below, "The bf16 backward"): dW and dx of a grouped KAN layer on
+// bf16 operands (kan_bf16_dw, kan_bf16_dx), kanvit's bf16 training policy;
+// instantiated for B-spline in kan_basis.cu, the embedder's backward its
+// one-group case.
 //
 // Part 1:
 //
@@ -1705,6 +1710,407 @@ int launch_tc_grouped_fwd(const typename Op::In* x, long long ldx, typename F::P
   }
   return launch_tc_fwd_grouped<F, 8, WARPS8, MINB8, FLUSH, Op>(
       x, ldx, p, w, y, wsplit, wwords, n, groups, nin, nout, st, part, splits);
+}
+
+
+// ===========================================================================
+// Part 4: the bf16 backward of a grouped KAN layer (kanvit's bf16 training
+// policy).
+//
+// Replaces, on bf16 operands, the TPU kernels that part 2 replaces in f32:
+// kanvit/kernels/fused_basis.py::_fused_bwd_sg (pallas_call at :1278, the
+// grouped q/k/v's backward, from _bspline_op_sg_bwd :1330) and _fused_bwd
+// (:1159, the patch embedder's, from _bspline_op's VJP :2624) as its
+// one-group case. Their body, _bwd_kernel (:566-625), keeps this policy on
+// bf16 inputs, which the kernels below follow:
+//   x upcast to f32, the basis B and its derivative B' made in f32;
+//   gW = gy W^T with bf16 operands and f32 accumulation, never rounded;
+//   dx = sum_s gW_s B'_s summed in f32, rounded to bf16 once;
+//   dW = bf16(B)^T gy summed in f32 over ALL the rows, rounded to bf16 once.
+// Every product is bf16 mma.sync.m16n8k16 with f32 accumulation
+// (attention_tc.cuh). The product of two bf16 values is exact in f32, so
+// the only roundings are the policy's and those of the f32 sums.
+//
+// dW (kan_bf16_dw<F, NJ>): part 2's dW tiling and pipeline -- 16 features
+// of one group x all F::SC slices x 64 NJ outputs a block, 8 warps side by
+// side along the outputs, SC x NJ m16n8 tiles a warp, 32-row stages (here
+// two 16-deep steps), the basis of stage kt + 1 made while stage kt's
+// products run, gy landing raw by cp.async two stages ahead, the rows cut
+// into splits (tc_grouped_dw_splits). Each thread makes two rows' values of
+// one feature (rows 2t, 2t + 1 of a step, feature g or g + 8), so it writes
+// whole words of the A fragments, and a warp reads its fragment of a slice
+// as one 16-byte load. gy's B fragments (rows 2t, 2t + 1 of the step,
+// output column g) come by ldmatrix.trans from the raw tile, whose pitch of
+// BN + 8 bf16 puts ldmatrix's eight 16-byte rows on distinct banks. Every
+// split, one split too, writes an f32 partial (inside a split the running
+// sum is added into it every tc::FLUSH stages); sum_splits_bf16_kernel adds
+// the partials in split order and rounds once: the f32 sum over all the
+// rows rounded once is kanvit's dW, where rounding each split's partial to
+// bf16 before the sum would be another function.
+//
+// dx (kan_bf16_dx<F>): part 2's dx tiling -- 128 rows x 16 features of one
+// group, all SC slices, warp (row group, half) holding 32 rows x the 8
+// features of its half x SC slices -- over 16-output stages of raw gy and
+// raw W, double buffered by cp.async. A (slice, feature) row of W holds a
+// stage's 16 outputs side by side, which is a B fragment's pair order, so W
+// needs no pre-pass. The epilogue makes B'_s(x) in f32 and sums gW_s B'_s
+// in slice order, each product rounded and added as kanvit's dx += gW_s
+// B'_s, then rounds dx to bf16 once; gW never leaves the registers.
+//
+// What bounds it at vit-s: the products. The q/k/v (n 12,608, 6 heads of
+// nin 64, nout 192): dW and dx 16.73 GFLOP each, 0.034 ms together at the
+// dense 989 TFLOP/s of bf16; the embedder's no-dx dW (12,544 x 6,912 x
+// 384) 66.6 GFLOP, 0.067 ms. Beside the products, each stage makes its
+// basis in f32 (one Cox-de Boor pass for all 9 values of an x value), the
+// work that bounds part 2's f32 dW; this first version keeps part 2's shape.
+// ===========================================================================
+
+namespace tcb {
+constexpr int THREADS = 256;     // 8 warps
+constexpr int FT = 16;           // features a block
+constexpr int KT = 32;           // rows a dW stage: two 16-deep steps
+constexpr int DX_BM = 128;       // rows a dx block
+constexpr int DX_KS = 16;        // outputs a dx stage: one 16-deep step
+constexpr int DX_P = DX_KS + 8;  // pitch of dx's staged gy and W rows, bf16
+}  // namespace tcb
+
+// dW of one group's 16 features x 64 NJ outputs over the rows of one
+// split, into split z's f32 partial at part + z groups S nin nout (S =
+// F::slices(p) <= SC; slices past S never stored): grid (npad / 64 NJ,
+// feature tiles x groups, splits). x (n, groups nin) bf16 with row stride
+// ldx; gy (n, ldg) bf16, group g's columns at g nout; vec: 16-byte copies
+// of gy (ldg and nout multiples of 8, gy on 16 bytes).
+template <class F, int NJ>
+__global__ void __launch_bounds__(tcb::THREADS, (tc_dw_blocks<F::SC, NJ>()))
+kan_bf16_dw(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Params p,
+            const __nv_bfloat16* __restrict__ gy, long long ldg, float* __restrict__ part,
+            int n, int groups, int nin, int nout, int nk, int stages_per_split, int vec) {
+  using bf = __nv_bfloat16;
+  constexpr int THREADS = tcb::THREADS, SC = F::SC, KT = tcb::KT;
+  constexpr int BN = 64 * NJ;
+  constexpr int A_WORDS = SC * 2 * 128;  // a stage's A fragments: SC slices x 2 steps
+  constexpr int RAW_P = BN + 8;          // raw gy's pitch, bf16
+  constexpr int RAW = KT * RAW_P;        // a stage's raw gy, bf16
+  extern __shared__ __align__(16) uint32_t smb[];
+  __shared__ typename F::template Stage<tcb::FT> st;
+  uint32_t* stages = smb;                                   // 2 x A_WORDS
+  bf* raw = reinterpret_cast<bf*>(smb + 2 * A_WORDS);       // 3 x RAW
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t = lane & 3;
+  const int ftn = cdiv(nin, tcb::FT);
+  const int o0 = blockIdx.x * BN, grp = blockIdx.y / ftn;
+  const int f0 = blockIdx.y % ftn * tcb::FT;
+  const int kt0 = blockIdx.z * stages_per_split;
+  const int kt1 = min(nk, kt0 + stages_per_split);
+  const int S = F::slices(p);
+  const bf* gyg = gy + (long long)grp * nout + o0;
+  F::template stage<tcb::FT>(p, nin, f0, grp, st);
+
+  // gy of stage kt (32 rows x BN outputs) into raw buffer buf
+  auto load_gy = [&](int kt, int buf) {
+    bf* r = raw + buf * RAW;
+    if (vec) {
+#pragma unroll
+      for (int i = 0; i < KT * BN / 8 / THREADS; ++i) {
+        const int e = tid + i * THREADS, k = e / (BN / 8), c = e % (BN / 8) * 8;
+        const long long row = (long long)kt * KT + k;
+        const bool in = row < n && o0 + c < nout;
+        cp_async16(reinterpret_cast<float*>(r + k * RAW_P + c),
+                   reinterpret_cast<const float*>(in ? gyg + row * ldg + c : gyg), in);
+      }
+    } else {
+      for (int e = tid; e < KT * BN; e += THREADS) {
+        const int k = e / BN, c = e % BN;
+        const long long row = (long long)kt * KT + k;
+        r[k * RAW_P + c] =
+            row < n && o0 + c < nout ? gyg[row * ldg + c] : __float2bfloat16_rn(0.f);
+      }
+    }
+  };
+
+  // This thread's x values a stage: rows rr and rr + 1 of feature f0 + kf,
+  // word wq of lane l's A fragment of step ks (m = kf, k = rr - 16 ks).
+  const int ks = tid >> 7, l = (tid >> 2) & 31, wq = tid & 3;
+  const int kf = (l >> 2) + 8 * (wq & 1), fx = f0 + kf;
+  const int rr = 16 * ks + 2 * (l & 3) + 8 * (wq >> 1);
+  const bf* xg = x + (long long)grp * nin + fx;
+  float xa, xb;  // x of the next stage to make
+  auto load_x = [&](int kt) {
+    const long long row = (long long)kt * KT + rr;
+    const bool live = kt < kt1 && fx < nin;
+    xa = live && row < n ? __bfloat162float(xg[row * ldx]) : 0.f;
+    xb = live && row + 1 < n ? __bfloat162float(xg[(row + 1) * ldx]) : 0.f;
+  };
+  // Stage kt's A into buffer buf: each slice's values of the two rows, as
+  // one bf16 pair.
+  auto make = [&](int kt, int buf) {
+    uint32_t* as = stages + buf * A_WORDS;
+    const long long row = (long long)kt * KT + rr;
+    float va[SC], vb[SC];
+#pragma unroll
+    for (int s = 0; s < SC; ++s) va[s] = vb[s] = 0.f;
+    if (fx < nin && row < n) F::template values<tcb::FT>(p, st, Elem{xa, kf, fx, grp, row}, 0, va);
+    if (fx < nin && row + 1 < n)
+      F::template values<tcb::FT>(p, st, Elem{xb, kf, fx, grp, row + 1}, 0, vb);
+#pragma unroll
+    for (int s = 0; s < SC; ++s) as[(s * 2 + ks) * 128 + (tid & 127)] = pack_bf16(va[s], vb[s]);
+  };
+
+  float acc[SC][NJ][4];
+#pragma unroll
+  for (int i = 0; i < SC; ++i)
+#pragma unroll
+    for (int j = 0; j < NJ; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+  // the running sum added into this split's partial (the first time
+  // written), then restarted
+  float* dst = part + ((long long)blockIdx.z * groups + grp) * S * nin * nout;
+  auto flush = [&](bool first) {
+#pragma unroll
+    for (int i = 0; i < SC; ++i)
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int f = f0 + g8 + 8 * (e >> 1);
+          const int o = o0 + 8 * (warp * NJ + j) + 2 * t + (e & 1);
+          if (i < S && f < nin && o < nout) {
+            float* d = dst + ((long long)i * nin + f) * nout + o;
+            *d = first ? acc[i][j][e] : *d + acc[i][j][e];
+          }
+          acc[i][j][e] = 0.f;
+        }
+  };
+
+  // Stage kt + 1's A is made, and kt + 2's gy lands, while stage kt's
+  // products run: A buffers by (stage - kt0) & 1, gy buffers by (stage -
+  // kt0) % 3; one cp.async group a stage.
+  load_gy(kt0, 0);
+  cp_async_commit();
+  if (kt0 + 1 < kt1) load_gy(kt0 + 1, 1);
+  cp_async_commit();
+  load_x(kt0);
+  make(kt0, 0);
+  load_x(kt0 + 1);
+  for (int kt = kt0; kt < kt1; ++kt) {
+    const int b = (kt - kt0) & 1, r = (kt - kt0) % 3;
+    cp_async_wait<1>();
+    __syncthreads();  // stage kt made, its gy landed; A buffer b ^ 1 and gy buffer r + 2 free
+    if (kt + 2 < kt1) load_gy(kt + 2, (r + 2) % 3);
+    cp_async_commit();
+    if (kt + 1 < kt1) {
+      make(kt + 1, b ^ 1);
+      load_x(kt + 2);
+    }
+    const uint32_t* as = stages + b * A_WORDS;
+    const bf* rs = raw + r * RAW;
+#pragma unroll
+    for (int s = 0; s < 2; ++s) {
+      uint32_t bfr[NJ][2];  // gy's rows 16 s + 2 t, + 1 (+ 8) of column 8 (warp NJ + j) + g
+#pragma unroll
+      for (int j = 0; j < NJ; ++j)
+        ldsm_x2_trans(bfr[j], rs + (16 * s + (lane & 15)) * RAW_P + 8 * (warp * NJ + j));
+#pragma unroll
+      for (int i = 0; i < SC; ++i) {
+        const uint4 a4 = *reinterpret_cast<const uint4*>(as + (i * 2 + s) * 128 + 4 * lane);
+        const uint32_t a[4] = {a4.x, a4.y, a4.z, a4.w};
+#pragma unroll
+        for (int j = 0; j < NJ; ++j) mma_bf16(acc[i][j], a, bfr[j]);
+      }
+    }
+    const int done = kt + 1 - kt0;
+    if (done % tc::FLUSH == 0 || kt + 1 == kt1) flush(done <= tc::FLUSH);
+  }
+}
+
+// out[e] = bf16(sum over splits of part[split][e]), the splits in order
+// and one rounding.
+__global__ void sum_splits_bf16_kernel(const float* __restrict__ part,
+                                       __nv_bfloat16* __restrict__ out, long long total,
+                                       int splits) {
+  for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
+       e += (long long)gridDim.x * blockDim.x) {
+    float acc = 0.f;
+    for (int sp = 0; sp < splits; ++sp) acc += part[(long long)sp * total + e];
+    out[e] = __float2bfloat16_rn(acc);
+  }
+}
+
+// dx of one group's 128 rows x 16 features: grid (feature tiles, row
+// tiles, groups). w (groups, S, nin, nout) bf16 contiguous; dx (n, groups
+// nin) bf16 contiguous; vec: 16-byte copies of gy and w.
+template <class F>
+__global__ void __launch_bounds__(tcb::THREADS, 2)
+kan_bf16_dx(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Params p,
+            const __nv_bfloat16* __restrict__ gy, long long ldg,
+            const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ dx, int n,
+            int groups, int nin, int nout, int nk, int vec) {
+  using bf = __nv_bfloat16;
+  constexpr int THREADS = tcb::THREADS, SC = F::SC, FT = tcb::FT, BM = tcb::DX_BM;
+  constexpr int KS = tcb::DX_KS, P = tcb::DX_P;
+  constexpr int NW = SC * FT;  // W rows a stage: (slice, feature)
+  __shared__ __align__(16) bf gs[2][BM * P];
+  __shared__ __align__(16) bf ws[2][NW * P];
+  __shared__ typename F::template Stage<FT> st;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int g8 = lane >> 2, t = lane & 3, wr = warp >> 1, wh = warp & 1;
+  const int f0 = blockIdx.x * FT, r0 = blockIdx.y * BM, grp = blockIdx.z;
+  const int S = F::slices(p);
+  const bf* gyg = gy + (long long)grp * nout;
+  const bf* wg = w + (long long)grp * S * nin * nout;
+  F::template stage<FT>(p, nin, f0, grp, st);
+
+  // gy's 128 rows and W's (slice, feature) rows, outputs 16 kt .. 16 kt + 15
+  auto stage = [&](int kt, int buf) {
+    bf* a = gs[buf];
+    bf* b = ws[buf];
+    const int k0 = kt * KS;
+    if (vec) {
+      for (int e = tid; e < (BM + NW) * 2; e += THREADS) {
+        const int r = e >> 1, c = (e & 1) * 8, col = k0 + c;
+        if (r < BM) {
+          const int row = r0 + r;
+          const bool in = row < n && col < nout;
+          cp_async16(reinterpret_cast<float*>(a + r * P + c),
+                     reinterpret_cast<const float*>(in ? gyg + row * ldg + col : gyg), in);
+        } else {
+          const int s = (r - BM) / FT, f = f0 + (r - BM) % FT;
+          const bool in = s < S && f < nin && col < nout;
+          cp_async16(reinterpret_cast<float*>(b + (r - BM) * P + c),
+                     reinterpret_cast<const float*>(
+                         in ? wg + ((long long)s * nin + f) * nout + col : wg),
+                     in);
+        }
+      }
+    } else {
+      for (int e = tid; e < (BM + NW) * KS; e += THREADS) {
+        const int r = e / KS, c = e % KS, col = k0 + c;
+        if (r < BM) {
+          const int row = r0 + r;
+          a[r * P + c] = row < n && col < nout ? gyg[row * ldg + col] : __float2bfloat16_rn(0.f);
+        } else {
+          const int s = (r - BM) / FT, f = f0 + (r - BM) % FT;
+          b[(r - BM) * P + c] = s < S && f < nin && col < nout
+                                    ? wg[((long long)s * nin + f) * nout + col]
+                                    : __float2bfloat16_rn(0.f);
+        }
+      }
+    }
+    cp_async_commit();
+  };
+
+  float acc[2][SC][4];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int j = 0; j < SC; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+  stage(0, 0);
+  for (int kt = 0; kt < nk; ++kt) {
+    cp_async_wait<0>();
+    __syncthreads();  // stage kt landed; the other buffer is free
+    if (kt + 1 < nk) stage(kt + 1, (kt + 1) & 1);
+    const bf* a = gs[kt & 1];
+    const bf* b = ws[kt & 1];
+    uint32_t af[2][4];  // gy rows 32 wr + 16 i + g (+ 8), outputs 2t, 2t + 1 (+ 8)
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const bf* ar = a + (32 * wr + 16 * i + g8) * P + 2 * t;
+      af[i][0] = *reinterpret_cast<const uint32_t*>(ar);
+      af[i][1] = *reinterpret_cast<const uint32_t*>(ar + 8 * P);
+      af[i][2] = *reinterpret_cast<const uint32_t*>(ar + 8);
+      af[i][3] = *reinterpret_cast<const uint32_t*>(ar + 8 * P + 8);
+    }
+#pragma unroll
+    for (int j = 0; j < SC; ++j) {  // column g: slice j, feature 8 wh + g
+      const bf* br = b + (j * FT + 8 * wh + g8) * P + 2 * t;
+      const uint32_t bfr[2] = {*reinterpret_cast<const uint32_t*>(br),
+                               *reinterpret_cast<const uint32_t*>(br + 8)};
+#pragma unroll
+      for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], af[i], bfr);
+    }
+  }
+
+  // The epilogue of this thread's rows (g, g + 8 of its two m16 tiles) and
+  // features (2t, 2t + 1 of its half), each with all SC slices of gW.
+  const long long ldd = (long long)groups * nin;
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const long long row = r0 + 32 * wr + 16 * i + g8 + 8 * (e >> 1);
+      const int kf = 8 * wh + 2 * t + (e & 1), f = f0 + kf;
+      if (row >= n || f >= nin) continue;
+      const Elem el{__bfloat162float(x[row * ldx + (long long)grp * nin + f]), kf, f, grp,
+                    row};
+      float d[SC];
+      F::template derivs<FT>(p, st, el, 0, d);
+      float o = 0.f;
+#pragma unroll
+      for (int j = 0; j < SC; ++j) o = __fadd_rn(o, __fmul_rn(acc[i][j][e], d[j]));
+      dx[row * ldd + (long long)grp * nin + f] = __float2bfloat16_rn(o);
+    }
+}
+
+template <class F, int NJ>
+int launch_bf16_dw(const __nv_bfloat16* x, long long ldx, typename F::Params p,
+                   const __nv_bfloat16* gy, long long ldg, int vec, __nv_bfloat16* dw,
+                   float* part, int n, int groups, int nin, int nout, int splits,
+                   cudaStream_t st) {
+  constexpr int BN = 64 * NJ;
+  const int nk = cdiv(n, tcb::KT);
+  const int per = cdiv(nk, min(splits, nk));
+  splits = cdiv(nk, per);  // no split left empty
+  const long long tiles = (long long)cdiv(nin, tcb::FT) * groups;
+  if (tiles > 65535 || splits > 65535) return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(uint32_t) * 2 * F::SC * 2 * 128 +
+                      sizeof(__nv_bfloat16) * 3 * tcb::KT * (BN + 8);
+  int err = tc_attr(kan_bf16_dw<F, NJ>, smem);
+  if (err != 0) return err;
+  kan_bf16_dw<F, NJ><<<dim3(cdiv(nout, BN), (unsigned)tiles, splits), tcb::THREADS, smem,
+                       st>>>(x, ldx, p, gy, ldg, part, n, groups, nin, nout, nk, per, vec);
+  err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  const long long total = (long long)groups * F::slices(p) * nin * nout;
+  const long long want = (total + 255) / 256;
+  sum_splits_bf16_kernel<<<(unsigned)(want < 4096 ? want : 4096), 256, 0, st>>>(
+      part, dw, total, splits);
+  return (int)cudaGetLastError();
+}
+
+// dx and dW of a grouped layer in bf16, either null to skip it: x (n,
+// groups nin) bf16 with row stride ldx and unit column stride, w (groups,
+// S, nin, nout), gy (n, groups nout), dx (n, groups nin) and dw (groups,
+// S, nin, nout) bf16 contiguous; part: f32 scratch of splits groups S nin
+// nout floats (the dW kernel's row splits, at most `splits`) when dw is
+// asked for. cudaErrorInvalidValue on a bad shape or a missing scratch.
+template <class F>
+int launch_bf16_grouped_bwd(const __nv_bfloat16* x, long long ldx, typename F::Params p,
+                            const __nv_bfloat16* w, const __nv_bfloat16* gy,
+                            __nv_bfloat16* dx, __nv_bfloat16* dw, float* part, int n,
+                            int groups, int nin, int nout, int splits, cudaStream_t st) {
+  if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 || F::slices(p) > F::SC ||
+      splits < 1 || (dw != nullptr && part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const long long ldg = (long long)groups * nout;
+  const int vec = nout % 8 == 0 && (uintptr_t)gy % 16 == 0 && (uintptr_t)w % 16 == 0;
+  if (dx != nullptr) {
+    const dim3 grid(cdiv(nin, tcb::FT), cdiv(n, tcb::DX_BM), groups);
+    if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidValue;
+    kan_bf16_dx<F><<<grid, tcb::THREADS, 0, st>>>(x, ldx, p, gy, ldg, w, dx, n, groups, nin,
+                                                  nout, cdiv(nout, tcb::DX_KS), vec);
+    const int err = (int)cudaGetLastError();
+    if (err != 0) return err;
+  }
+  if (dw == nullptr) return 0;
+  if (nout <= 64)
+    return launch_bf16_dw<F, 1>(x, ldx, p, gy, ldg, vec, dw, part, n, groups, nin, nout,
+                                splits, st);
+  return launch_bf16_dw<F, tcg::DW_WIDE>(x, ldx, p, gy, ldg, vec, dw, part, n, groups, nin,
+                                         nout, splits, st);
 }
 
 }  // namespace

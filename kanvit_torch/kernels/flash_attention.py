@@ -12,15 +12,19 @@ Dispatch is by device: a CPU tensor runs the plain version
 goes through :class:`_LanesFn` or :class:`_FlashFn`, whose forward and
 backward launch the kernels or raise. f32; dh a multiple of 8 from 8
 through 128 (:func:`check_head_dim`). bf16 q, k and v take the lanes
-forward's bf16 kernel (kanvit's bf16 policy, ``csrc/attention_lanes.cu``),
-at head dims 8, 16, 32 and 64 only, forward only: a backward through it,
-another head dim, or the tiled tier raises (ROADMAP.md, Queue 2 entry 3).
+tier's bf16 kernels (kanvit's bf16 policy, ``csrc/attention_lanes.cu``),
+forward and backward, at head dims 8, 16, 32 and 64 only; on the CPU their
+plain twins (``lanes_attention`` and ``lanes_attention_bwd_bf16``) through
+:class:`_LanesBf16Plain`, whose backward is explicit: autograd through the
+forward twin would round at every op, which is not kanvit's policy.
+Another head dim, or the tiled tier, raises on bf16 (ROADMAP.md, Queue 2
+entry 3b.3).
 
-``LAUNCHES`` counts kernel launches (``flash_attention_lanes`` forward,
-``flash_attention_lanes_bf16`` its bf16 forward and
-``flash_attention_lanes_bwd`` backward; ``flash_attention`` tiled forward,
-``flash_attention_dq`` and ``flash_attention_dkv`` its backward); the CPU
-path never counts.
+``LAUNCHES`` counts kernel launches (``flash_attention_lanes`` forward and
+``flash_attention_lanes_bwd`` backward, ``flash_attention_lanes_bf16`` and
+``flash_attention_lanes_bwd_bf16`` the bf16 ones; ``flash_attention``
+tiled forward, ``flash_attention_dq`` and ``flash_attention_dkv`` its
+backward); the CPU path never counts.
 """
 
 from __future__ import annotations
@@ -44,9 +48,10 @@ TC_HEAD_DIMS = (8, 16, 32, 64)
 ROW_ALIGN_BYTES = 16
 
 LAUNCHES = {"flash_attention_lanes": 0, "flash_attention_lanes_bf16": 0,
-            "flash_attention_lanes_bwd": 0, "flash_attention": 0,
-            "flash_attention_dq": 0, "flash_attention_dkv": 0}
-BF16_TODO = "ROADMAP.md, Queue 2 entry 3"
+            "flash_attention_lanes_bwd": 0, "flash_attention_lanes_bwd_bf16": 0,
+            "flash_attention": 0, "flash_attention_dq": 0,
+            "flash_attention_dkv": 0}
+BF16_TODO = "ROADMAP.md, Queue 2 entry 3b.3"
 
 # kanvit's tier predicates (flash_attention.py:293-309, :537-543 and the
 # bucket guard :682-688), by the operands' itemsize as kanvit's take it:
@@ -122,8 +127,7 @@ def check_args(q, k, v, n_heads, mask):
     b, t, _, dh = q4.shape
     check_head_dim(dh)
     if want == torch.bfloat16 and dh not in TC_HEAD_DIMS:
-        raise ValueError(f"head dim {dh}: the bf16 lanes kernel takes {TC_HEAD_DIMS} "
-                         f"({BF16_TODO})")
+        raise ValueError(f"head dim {dh}: the bf16 lanes kernels take {TC_HEAD_DIMS}")
     if b > 65535 or n_heads > 65535:
         raise ValueError(f"batch {b} x heads {n_heads} exceed the launch grid")
     if mask is not None and tuple(mask.shape) != (b, t):
@@ -192,9 +196,10 @@ def _launch(q4, k4, v4, maskb, causal, with_stats):
     return o, stats
 
 
-def _launch_bf16(q4, k4, v4, maskb, causal):
+def _launch_bf16(q4, k4, v4, maskb, causal, stats=None):
     """bf16 forward kernel: ``o (B, T, H*dh)`` bf16, q scaled by
-    ``A.bf16_scale(dh)``."""
+    ``A.bf16_scale(dh)``; each row's ``(m, l)`` written into ``stats (B, H,
+    T, 2)`` f32 when given."""
     from kanvit_torch.kernels import _build
 
     dev = q4.device
@@ -206,6 +211,7 @@ def _launch_bf16(q4, k4, v4, maskb, causal):
         err = _build.load().kanvit_attention_lanes_fwd_bf16(
             q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), *_strides(q4, k4, v4),
             None if maskb is None else maskb.data_ptr(), o.data_ptr(),
+            None if stats is None else stats.data_ptr(),
             b, t, h, dh, int(causal), A.bf16_scale(dh),
             torch.cuda.current_stream(dev).cuda_stream,
         )
@@ -214,6 +220,36 @@ def _launch_bf16(q4, k4, v4, maskb, causal):
             f"flash_attention_lanes: bf16 kernel launch failed with CUDA error {err}")
     LAUNCHES["flash_attention_lanes_bf16"] += 1
     return o
+
+
+def _launch_bwd_bf16(q4, k4, v4, maskb, o, stats, do, causal):
+    """bf16 backward kernels: ``dq, dk, dv``, each ``(B, T, H, dh)`` bf16
+    contiguous, from the bf16 forward's ``o`` and ``stats`` and ``do``."""
+    from kanvit_torch.kernels import _build
+
+    dev = q4.device
+    b, t, h, dh = q4.shape
+    grads = [torch.empty(b, t, h, dh, dtype=torch.bfloat16, device=dev)
+             for _ in range(3)]
+    if b == 0 or t == 0:
+        return grads
+    do = do.to(torch.bfloat16).reshape(b, t, h * dh).contiguous()
+    check_aligned(do=do.view(b, t, h, dh))
+    delta = torch.empty(b, h, t, dtype=torch.float32, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().kanvit_attention_lanes_bwd_bf16(
+            q4.data_ptr(), k4.data_ptr(), v4.data_ptr(), *_strides(q4, k4, v4),
+            None if maskb is None else maskb.data_ptr(), o.data_ptr(),
+            do.data_ptr(), stats.data_ptr(), delta.data_ptr(),
+            *(g.data_ptr() for g in grads), b, t, h, dh, int(causal),
+            A.bf16_scale(dh), dh ** -0.5, torch.cuda.current_stream(dev).cuda_stream,
+        )
+    if err != 0:
+        raise RuntimeError(
+            f"flash_attention_lanes: bf16 backward kernel launch failed with CUDA "
+            f"error {err}")
+    LAUNCHES["flash_attention_lanes_bwd_bf16"] += 1
+    return grads
 
 
 def _launch_bwd(q4, k4, v4, maskb, o, stats, do, causal):
@@ -248,17 +284,21 @@ def _launch_bwd(q4, k4, v4, maskb, o, stats, do, causal):
 class _LanesFn(torch.autograd.Function):
     """Lanes attention on the card. Saves q, k, v, the mask and o (kanvit's
     residual, ``flash_attention.py:591-593``) and the forward's per-row
-    ``(m, l)``, which the backward reads instead of recomputing. bf16: the
-    bf16 forward, and no backward."""
+    ``(m, l)``, which the backward reads instead of recomputing. bf16 q, k
+    and v take the bf16 kernels, forward and backward, and so return bf16
+    o, dq, dk and dv."""
 
     @staticmethod
     def forward(ctx, q4, k4, v4, maskb, causal, for_grad):
-        ctx.bf16 = q4.dtype == torch.bfloat16
-        if ctx.bf16:
-            return _launch_bf16(q4, k4, v4, maskb, causal)
         # needs_input_grad holds under no_grad too: the caller says whether
         # autograd will ask for the backward, and only then are (m, l) kept.
-        o, stats = _launch(q4, k4, v4, maskb, causal, for_grad)
+        if q4.dtype == torch.bfloat16:
+            b, t, h, _ = q4.shape
+            stats = (torch.empty(b, h, t, 2, dtype=torch.float32, device=q4.device)
+                     if for_grad else None)
+            o = _launch_bf16(q4, k4, v4, maskb, causal, stats)
+        else:
+            o, stats = _launch(q4, k4, v4, maskb, causal, for_grad)
         if for_grad:
             ctx.causal = causal
             ctx.save_for_backward(q4, k4, v4, maskb, o, stats)
@@ -266,12 +306,30 @@ class _LanesFn(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, do):
-        if ctx.bf16:
-            raise NotImplementedError("flash_attention_lanes: the backward of a bf16 "
-                                      f"forward is not ported ({BF16_TODO})")
         q4, k4, v4, maskb, o, stats = ctx.saved_tensors
-        dq, dk, dv = _launch_bwd(q4, k4, v4, maskb, o, stats, do, ctx.causal)
+        launch = _launch_bwd_bf16 if q4.dtype == torch.bfloat16 else _launch_bwd
+        dq, dk, dv = launch(q4, k4, v4, maskb, o, stats, do, ctx.causal)
         return dq, dk, dv, None, None, None
+
+
+class _LanesBf16Plain(torch.autograd.Function):
+    """The CPU route of the bf16 lanes attention: the plain twins of the
+    bf16 kernels, ``A.lanes_attention`` forward and
+    ``A.lanes_attention_bwd_bf16`` backward, on ``(B, T, H*dh)`` or ``(B, T,
+    H, dh)`` q, k and v; the gradients come back in their shapes."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, mask, n_heads, causal):
+        o = A.lanes_attention(q, k, v, n_heads, causal=causal, mask=mask)
+        ctx.n_heads, ctx.causal = n_heads, causal
+        ctx.save_for_backward(q, k, v, mask, o)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, mask, o = ctx.saved_tensors
+        grads = A.lanes_attention_bwd_bf16(q, k, v, o, do, ctx.n_heads, ctx.causal, mask)
+        return (*(g.reshape(a.shape) for g, a in zip(grads, (q, k, v))), None, None, None)
 
 
 def flash_attention_lanes(q, k, v, n_heads, causal=False, mask=None):
@@ -287,6 +345,8 @@ def flash_attention_lanes(q, k, v, n_heads, causal=False, mask=None):
     projection's slices do); an unaligned view raises.
     """
     if not dispatch.use_kernel(q):
+        if q.dtype == torch.bfloat16:
+            return _LanesBf16Plain.apply(q, k, v, mask, n_heads, bool(causal))
         return A.lanes_attention(q, k, v, n_heads, causal=causal, mask=mask)
     q4, k4, v4 = check_args(q, k, v, n_heads, mask)
     q4, k4, v4 = (_unit_inner(a, n) for a, n in ((q4, "q"), (k4, "k"), (v4, "v")))

@@ -49,15 +49,19 @@ The kernels are built for f32; the B-spline one for spline order 3 and a
 12-knot grid (grid size 5, the efficient-kan default), the Chebyshev one for
 degree 4, the RBF one for 8 centres; they raise on anything else.
 
-bf16 (kanvit's bf16 serving): :func:`bspline_kan` and
+bf16 (kanvit's bf16 serving and training): :func:`bspline_kan` and
 :func:`bspline_qkv_grouped` take bf16 x and weights (the knot grid stays
-f32) and return bf16, forward only, through part 3's ``Bf16`` operand type
-(``csrc/kan_basis_tc.cuh``): the basis made in f32 and rounded to bf16 at
-the dot, ``spline_weight * spline_scaler`` formed in bf16 as kanvit forms
-it, f32 accumulation, y rounded once. Their launches count under
-``<name>_bf16``. A backward through a bf16 forward raises
-``NotImplementedError``, and every other entry point raises on bf16
-(ROADMAP.md, Queue 2 entry 3).
+f32) and return bf16, through part 3's ``Bf16`` operand type forward and
+part 4's kernels backward (``csrc/kan_basis_tc.cuh``): the basis made in f32
+and rounded to bf16 at the dot, ``spline_weight * spline_scaler`` formed in
+bf16 as kanvit forms it, f32 accumulation, y, dx and dW each rounded once
+(kanvit's ``_bwd_kernel`` on bf16 operands). Their launches count under
+``<name>_bf16`` and ``<name>_bwd_bf16``. On the CPU the bf16 route is the
+kernels' plain twins (``K.bspline_grouped_forward_bf16`` and
+``K.bspline_grouped_backward_bf16``) through :class:`_KanBf16Plain`, whose
+backward is explicit: autograd through the forward twin would round at
+every op, which is not kanvit's policy. Every other entry point raises on
+bf16 (ROADMAP.md, Queue 2 entry 3b.2).
 
 The Functions take the packed weight ``(G, S, nin, out)`` and return its
 gradient, and the RBF one the LayerNorm's dgamma and dbeta, the sine one
@@ -88,15 +92,16 @@ SINE_CHUNK = 4                       # sine slices per chunk, as in the kernel
 MAX_ROW_TILES = 65535                # the kernel's grid.y limit, 64 rows each
 ROWS_PER_TILE = 64
 
-# The entry points with a bf16 forward (one C entry, kanvit_bspline_tc_fwd_bf16).
+# The entry points with bf16 kernels (C entries kanvit_bspline_tc_fwd_bf16 and
+# kanvit_bspline_tc_bwd_bf16).
 BF16_FWD = ("bspline_kan", "bspline_qkv_grouped")
-BF16_TODO = "ROADMAP.md, Queue 2 entry 3"
+BF16_TODO = "ROADMAP.md, Queue 2 entry 3b.2"
 LAUNCHES = {name: 0 for base in ("bspline_kan", "bspline_qkv_grouped",
                                  "chebykan", "cheby_qkv_grouped", "fourierkan",
                                  "fastkan", "fastkan_qkv_grouped", "sinekan",
                                  "sinekan_qkv_grouped")
             for name in (base, f"{base}_bwd")}
-LAUNCHES.update({f"{name}_bf16": 0 for name in BF16_FWD})
+LAUNCHES.update({f"{name}{sfx}_bf16": 0 for name in BF16_FWD for sfx in ("", "_bwd")})
 # Blocks the dW reduction aims at before it cuts its rows into splits
 # (132 SMs of an H100, several 64-thread blocks each).
 DW_TARGET_BLOCKS = 1024
@@ -249,13 +254,13 @@ def _check_spline_order(spline_order: int) -> None:
 
 def _check_common(x2d: torch.Tensor, w: torch.Tensor, slices: int,
                   bf16: bool = False) -> None:
-    """``bf16``: x and the weight may both be bf16 (a bf16 forward)."""
+    """``bf16``: x and the weight may both be bf16 (the bf16 kernels)."""
     want = torch.bfloat16 if bf16 and x2d.dtype == torch.bfloat16 else torch.float32
     for name, t in (("x", x2d), ("weight", w)):
         if t.dtype != want:
-            raise TypeError(f"{name} must be {str(want)[6:]}, got {t.dtype} (bf16: the "
-                            f"forwards of {BF16_FWD} only, x and weight "
-                            f"both bf16; the rest is {BF16_TODO})")
+            raise TypeError(f"{name} must be {str(want)[6:]}, got {t.dtype} (bf16: "
+                            f"{BF16_FWD} only, x and weight both bf16; the "
+                            f"rest is {BF16_TODO})")
     if x2d.dim() != 2 or w.dim() != 4:
         raise ValueError(f"expected x (N, G*nin) and w (G, {slices}, nin, out), "
                          f"got {tuple(x2d.shape)} and {tuple(w.shape)}")
@@ -278,7 +283,7 @@ def check_args(x2d: torch.Tensor, grid: torch.Tensor, w: torch.Tensor,
 
     ``x2d (N, G*nin)`` with a unit column stride; ``grid (nin, 12)``, one
     for every group, or ``(G, nin, 12)``, a grid a group; ``w (G, 9, nin,
-    out)`` contiguous; all f32, or (``bf16``, the bf16 forward) x and w
+    out)`` contiguous; all f32, or (``bf16``, the bf16 kernels) x and w
     bf16 and the grid f32.
     """
     _check_spline_order(spline_order)
@@ -471,6 +476,44 @@ def _launch_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor,
             y.data_ptr(), wsplit.data_ptr(), wsplit.numel(), n, groups, nin, out,
             _stream(x2d.device))
     return _counted(f"{name}_bf16", err, y)[0]
+
+
+def _launch_bwd_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor, grid: torch.Tensor,
+                     gy: torch.Tensor, need_dx: bool, need_dw: bool):
+    """``(dx (N, G*nin) or None, dw (G, 9, nin, out) or None)``, bf16, from
+    the bf16 B-spline backward of ``name`` (``BF16_FWD``): x, the packed
+    weight and ``gy (N, G*out)`` bf16, the knot grid f32; dW's row splits
+    summed in f32 in a scratch and rounded once."""
+    if name not in BF16_FWD:
+        raise NotImplementedError(f"{name}: no bf16 backward kernel ({BF16_TODO})")
+    check_args(x2d, grid, w, SPLINE_ORDER, bf16=True)
+    _check_device(name, x2d, w, grid, gy)
+    n = x2d.shape[0]
+    groups, _, nin, out = w.shape
+    if gy.dtype != torch.bfloat16 or tuple(gy.shape) != (n, groups * out):
+        raise ValueError(f"{name}: gradient must be bf16 {(n, groups * out)}, got "
+                         f"{gy.dtype} {tuple(gy.shape)}")
+    gy = gy.contiguous()
+    dev = x2d.device
+    dx = (torch.empty(n, groups * nin, dtype=torch.bfloat16, device=dev)
+          if need_dx else None)
+    dw = torch.empty_like(w) if need_dw else None
+    if n == 0:
+        return dx, (None if dw is None else dw.zero_())
+    from kanvit_torch.kernels import _build
+
+    splits, part = 1, None
+    if need_dw:
+        splits = tc_grouped_dw_splits(
+            n, groups, nin, out, torch.cuda.get_device_properties(dev).multi_processor_count)
+        part = _empty(splits, *w.shape, device=dev)
+    gridt, gstride = _knot_rows(grid)
+    with torch.cuda.device(dev):
+        err = _build.load().kanvit_bspline_tc_bwd_bf16(
+            x2d.data_ptr(), x2d.stride(0), gridt.data_ptr(), gstride, w.data_ptr(),
+            gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), n, groups, nin, out, splits,
+            _stream(dev))
+    return _counted(f"{name}_bwd_bf16", err, dx, dw)
 
 
 def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
@@ -703,13 +746,30 @@ class _KanFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x2d, w, *grid = ctx.saved_tensors
-        if x2d.dtype == torch.bfloat16:
-            raise NotImplementedError(f"{ctx.name}: the backward of a bf16 forward "
-                                      f"is not ported ({BF16_TODO})")
         aux = grid[0] if grid else ctx.aux
-        dx, dw = _launch_bwd(f"{ctx.name}_bwd", ctx.family, x2d, w, aux, gy,
-                             ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        need = ctx.needs_input_grad[:2]
+        if x2d.dtype == torch.bfloat16:
+            dx, dw = _launch_bwd_bf16(ctx.name, x2d, w, aux, gy, *need)
+        else:
+            dx, dw = _launch_bwd(f"{ctx.name}_bwd", ctx.family, x2d, w, aux, gy, *need)
         return dx, dw, None, None, None
+
+
+class _KanBf16Plain(torch.autograd.Function):
+    """The CPU route of a bf16 B-spline layer: the plain twins of the bf16
+    kernels on the packed weight, forward and an explicit backward (dx only
+    where asked, as on the card)."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, grid):
+        ctx.save_for_backward(x2d, w, grid)
+        return K.bspline_grouped_forward_bf16(x2d, grid, w)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x2d, w, grid = ctx.saved_tensors
+        dx, dw = K.bspline_grouped_backward_bf16(x2d, grid, w, gy, *ctx.needs_input_grad[:2])
+        return dx, dw, None
 
 
 def bspline_kan(x, grid, base_weight, spline_weight, spline_scaler,
@@ -720,14 +780,17 @@ def bspline_kan(x, grid, base_weight, spline_weight, spline_scaler,
     ``grid (in, 12)``, ``base_weight (out, in)``, ``spline_weight
     (out, in, 8)``, ``spline_scaler (out, in)`` or None.
     """
-    if not dispatch.use_kernel(x):
+    kernel = dispatch.use_kernel(x)
+    if not kernel and x.dtype != torch.bfloat16:
         return K.bspline_kan_forward(x, grid, base_weight, spline_weight,
                                      spline_scaler, spline_order)
     _check_spline_order(spline_order)
     lead, nin = x.shape[:-1], x.shape[-1]
-    w = pack_weight(base_weight, spline_weight, spline_scaler).unsqueeze(0)
-    y = _KanFn.apply(x.reshape(-1, nin), w.contiguous(), grid, "bspline_kan",
-                     "bspline")
+    w = pack_weight(base_weight, spline_weight, spline_scaler).unsqueeze(0).contiguous()
+    if kernel:
+        y = _KanFn.apply(x.reshape(-1, nin), w, grid, "bspline_kan", "bspline")
+    else:
+        y = _KanBf16Plain.apply(x.reshape(-1, nin), w.to(torch.bfloat16), grid)
     return y.reshape(*lead, base_weight.shape[0])
 
 
@@ -742,7 +805,12 @@ def bspline_qkv_grouped(x2d, grid, bw, sw, sc, spline_order=3):
     ``[h*out, (h+1)*out)``.
     """
     h, _, dh = bw.shape
-    if not dispatch.use_kernel(x2d):
+    kernel = dispatch.use_kernel(x2d)
+    if not kernel and x2d.dtype == torch.bfloat16:
+        _check_spline_order(spline_order)
+        w = pack_qkv_weight(bw, sw, sc).to(torch.bfloat16).contiguous()
+        return _KanBf16Plain.apply(x2d, w, grid)
+    if not kernel:
         return torch.cat([
             K.bspline_kan_forward(x2d[:, i * dh:(i + 1) * dh],
                                   grid[i] if grid.dim() == 3 else grid, bw[i],

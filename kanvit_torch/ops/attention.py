@@ -113,6 +113,65 @@ def lanes_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     return o.transpose(1, 2).reshape(b, t, h * dh)
 
 
+def lanes_attention_bwd_bf16(q, k, v, o, do, n_heads: int, causal: bool = False,
+                             mask: torch.Tensor | None = None, exact: bool = False,
+                             spread: bool = False):
+    """The bf16 lanes attention's backward as kanvit's bf16 kernel computes
+    it (``_lanes_bwd_kernel``, ``kanvit/kernels/flash_attention.py:498-535``),
+    plain version. ``q, k, v`` bf16 as :func:`lanes_attention` takes them;
+    ``o`` its bf16 output and ``do`` the gradient of it, ``(B, T, H*dh)``.
+    Per head:
+
+    - ``qs = q * bf16_scale(dh)`` in bf16; ``s = qs k^T`` in f32, masked,
+      ``p = exp(s - m)`` against the row max clamped at -1e30, ``l`` the
+      f32 sum of p clamped at 1e-10, ``pn = p * (1 / l)`` in f32;
+    - ``dv = bf16(pn)^T do``, f32 accumulation, rounded once;
+    - ``delta = sum(f32(do) * f32(o))`` over dh, from the bf16 o;
+    - ``dp = do v^T`` in f32, ``dsc = bf16(pn * (dp - delta))``;
+    - ``dq = bf16((dsc k) * dh^-1/2)``, this scale the f32 one, not
+      ``bf16_scale``;
+    - ``dk = bf16(dsc^T qs)``.
+
+    Returns ``(dq, dk, dv)``, each ``(B, T, H*dh)`` bf16. ``exact``: the
+    same rounded operands (q, k, v, o, do and qs) with every sum in f64 and
+    nothing else rounded, the reference a kernel's distance is measured
+    from. ``spread``: instead, in f32, what each gradient moves by, times
+    2^8, when every rounded intermediate rounds to its neighbouring bf16
+    value, weighted as the next product weighs it: ``(|dsc| |k|) *
+    dh^-1/2``, ``|dsc|^T |qs|`` and ``|pn|^T |do|`` (a different f32 sum
+    order can flip those roundings); the gates' second term."""
+    qh, kh, vh, oh, doh = (split_lanes(a, n_heads).transpose(1, 2)
+                           for a in (q, k, v, o, do))
+    b, h, t, dh = qh.shape
+    ft = torch.float64 if exact else torch.float32
+    bf16 = torch.bfloat16
+
+    def rnd(a):
+        return a if exact else a.to(bf16).to(ft)
+
+    qs = qh * torch.tensor(bf16_scale(dh), dtype=bf16, device=q.device)
+    kf, vf, dof = kh.to(ft), vh.to(ft), doh.to(ft)
+    s = qs.to(ft) @ kf.transpose(-1, -2)
+    valid = key_valid(mask, b, t, q.device)[:, None, None, :]
+    if causal:
+        valid = valid & torch.ones(t, t, dtype=torch.bool, device=q.device).tril()
+    s = s.masked_fill(~valid, NEG)
+    m = s.amax(dim=-1, keepdim=True).clamp_min(MAX_CLAMP)
+    p = torch.exp(s - m)
+    pn = p * (1.0 / p.sum(dim=-1, keepdim=True).clamp_min(EPSILON))
+    delta = (dof * oh.to(ft)).sum(dim=-1, keepdim=True)
+    dsc = rnd(pn * (dof @ vf.transpose(-1, -2) - delta))
+    if spread:
+        pn, dsc, kf, dof, qs = (a.abs() for a in (rnd(pn), dsc, kf, dof, qs.to(ft)))
+    dv = rnd(pn).transpose(-1, -2) @ dof
+    dq = (dsc @ kf) * dh ** -0.5
+    dk = dsc.transpose(-1, -2) @ qs.to(ft)
+    if spread:
+        return tuple(g.transpose(1, 2).reshape(b, t, h * dh) for g in (dq, dk, dv))
+    return tuple((g if exact else g.to(bf16)).transpose(1, 2).reshape(b, t, h * dh)
+                 for g in (dq, dk, dv))
+
+
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                               causal: bool = False, q_block: int = 512,
                               k_block: int = 1024,

@@ -131,17 +131,133 @@ def bspline_kan_forward_bf16(x, grid, base_weight, spline_weight, spline_scaler,
     dims. ``exact``: the same rounded operands summed in f64 and returned
     unrounded, the reference a kernel's distance is measured from."""
     lead, nin = x.shape[:-1], x.shape[-1]
-    xf = x.reshape(-1, nin).float()
     nout = base_weight.shape[0]
     bf16 = torch.bfloat16
     sw = spline_weight.to(bf16)
     scaled = sw * spline_scaler.to(bf16).unsqueeze(-1) if spline_scaler is not None else sw
     w = torch.cat([scaled.permute(2, 1, 0), base_weight.to(bf16).T.unsqueeze(0)], 0)
-    bases = bspline_bases(xf, grid.float(), spline_order)  # (N, in, K)
-    a = torch.cat([bases.transpose(1, 2), F.silu(xf).unsqueeze(1)], 1)  # (N, K+1, in)
+    y = bspline_grouped_forward_bf16(x.reshape(-1, nin), grid, w.unsqueeze(0),
+                                     spline_order, exact)
+    return y.reshape(*lead, nout)
+
+
+def _bspline_levels(x: torch.Tensor, grid: torch.Tensor, order: int) -> torch.Tensor:
+    """Cox–de Boor up to ``order`` as kanvit's kernel and the port's run
+    it (``kanvit/kernels/fused_basis.py:450-483``): each blend multiplies
+    by the reciprocal of its knot difference. ``(N, in, n0 - order)``."""
+    xe = x.unsqueeze(-1)
+    b = ((xe >= grid[:, :-1]) & ~(xe >= grid[:, 1:])).to(x.dtype)
+    for k in range(1, order + 1):
+        inv = 1.0 / (grid[:, k:] - grid[:, :-k])
+        left = (xe - grid[:, :-(k + 1)]) * inv[:, :-1]
+        right = (grid[:, k + 1:] - xe) * inv[:, 1:]
+        b = left * b[..., :-1] + right * b[..., 1:]
+    return b
+
+
+def bspline_slices_bf16(xf: torch.Tensor, grid: torch.Tensor, spline_order: int = 3,
+                        with_grad: bool = False):
+    """The B-spline layer's contracted slices of the f32 ``xf (N, in)`` as
+    the bf16 kernels make them, in f32: ``(N, K+1, in)``, the K bases then
+    silu(x). ``with_grad``: also their x-derivatives, ``(N, K+1, in)``:
+    B' in kanvit's closed form from the order-(k-1) bases, ``k (B_{k-1,j} /
+    (g_{j+k} - g_j) - B_{k-1,j+1} / (g_{j+k+1} - g_{j+1}))``, and silu' =
+    sig + silu (1 - sig)."""
+    grid = grid.float()
+    b = _bspline_levels(xf, grid, spline_order)
+    sig = torch.sigmoid(xf)
+    silu = xf * sig
+    a = torch.cat([b.transpose(1, 2), silu.unsqueeze(1)], 1)
+    if not with_grad:
+        return a
+    k = spline_order
+    prev = _bspline_levels(xf, grid, k - 1)
+    inv = 1.0 / (grid[:, k:] - grid[:, :-k])
+    db = k * (prev[..., :-1] * inv[:, :-1] - prev[..., 1:] * inv[:, 1:])
+    return a, torch.cat([db.transpose(1, 2), (sig + silu * (1.0 - sig)).unsqueeze(1)], 1)
+
+
+def _group_operands(x2d, grid, w, g):
+    groups, _, nin, _ = w.shape
+    return (x2d[:, g * nin:(g + 1) * nin].float(),
+            grid[g] if grid.dim() == 3 else grid)
+
+
+def bspline_grouped_forward_bf16(x2d: torch.Tensor, grid: torch.Tensor, w: torch.Tensor,
+                                 spline_order: int = 3, exact: bool = False) -> torch.Tensor:
+    """The bf16 B-spline kernels' forward on the packed weight: ``x2d (N,
+    G*nin)`` and ``w (G, K+1, nin, out)`` bf16, ``grid (nin, knots)`` or a
+    grid a group ``(G, nin, knots)`` f32. Per group, the slices of the
+    upcast x made in f32 (:func:`bspline_slices_bf16`) and rounded to bf16
+    once, the products exact and summed in f32, y rounded to bf16 once:
+    ``(N, G*out)`` bf16. ``exact``: the same rounded operands summed in f64
+    and returned unrounded."""
+    n = x2d.shape[0]
+    groups, _, _, nout = w.shape
     acc = torch.float64 if exact else torch.float32
-    y = a.to(bf16).to(acc).reshape(xf.shape[0], -1) @ w.to(acc).reshape(-1, nout)
-    return (y if exact else y.to(bf16)).reshape(*lead, nout)
+    ys = []
+    for g in range(groups):
+        xf, gg = _group_operands(x2d, grid, w, g)
+        a = bspline_slices_bf16(xf, gg, spline_order).to(torch.bfloat16)
+        ys.append(a.to(acc).reshape(n, -1) @ w[g].to(acc).reshape(-1, nout))
+    y = torch.cat(ys, 1)
+    return y if exact else y.to(torch.bfloat16)
+
+
+def bspline_grouped_backward_bf16(x2d, grid, w, gy, need_dx: bool = True,
+                                  need_dw: bool = True, spline_order: int = 3,
+                                  exact: bool = False):
+    """The bf16 B-spline kernels' backward (kanvit's ``_bwd_kernel`` on
+    bf16 operands, ``kanvit/kernels/fused_basis.py:566-625``, and its split
+    tier, ``:993-1039``; not ``_jnp_bwd``, which keeps the basis in f32), on
+    :func:`bspline_grouped_forward_bf16`'s operands and ``gy (N, G*out)``
+    bf16. Per group:
+
+    - ``gW = gy W^T``, bf16 operands, the products exact and summed in f32
+      (never rounded);
+    - ``dx = sum_s gW_s B'_s(x)``, B' made in f32 from the upcast x, summed
+      in f32 in slice order and rounded to bf16 once;
+    - ``dW = bf16(slices)^T gy``, summed in f32 over all the rows and
+      rounded to bf16 once.
+
+    Returns ``(dx (N, G*nin) or None, dw (G, K+1, nin, out) or None)``,
+    bf16; ``exact``: the same rounded operands summed in f64, unrounded."""
+    n = x2d.shape[0]
+    groups, slices, nin, nout = w.shape
+    acc = torch.float64 if exact else torch.float32
+    dxs, dws = [], []
+    for g in range(groups):
+        xf, gg = _group_operands(x2d, grid, w, g)
+        gyg = gy[:, g * nout:(g + 1) * nout].to(acc)
+        a, d = bspline_slices_bf16(xf, gg, spline_order, with_grad=True)
+        if need_dx:
+            gw = (gyg @ w[g].to(acc).reshape(-1, nout).T).reshape(n, slices, nin)
+            dx = torch.zeros(n, nin, dtype=acc, device=x2d.device)
+            for s in range(slices):
+                dx = dx + gw[:, s] * d[:, s].to(acc)
+            dxs.append(dx)
+        if need_dw:
+            ab = a.to(torch.bfloat16).to(acc).reshape(n, -1)
+            dws.append((ab.T @ gyg).reshape(slices, nin, nout))
+    out = (torch.cat(dxs, 1) if need_dx else None,
+           torch.stack(dws) if need_dw else None)
+    return out if exact else tuple(None if t is None else t.to(torch.bfloat16) for t in out)
+
+
+def bspline_dw_spread_bf16(x2d, grid, w, gy, spline_order: int = 3) -> torch.Tensor:
+    """``sum_n |bf16(slice)| |gy|`` in f32, ``(G, K+1, nin, out)``: what the
+    bf16 dW moves by, times 2^8, when every basis value rounds to its
+    neighbouring bf16 value (an f32 basis one f32 ulp off can). The
+    weight of the rounded intermediate in the bf16 dW's gate."""
+    n = x2d.shape[0]
+    groups, slices, nin, nout = w.shape
+    out = []
+    for g in range(groups):
+        xf, gg = _group_operands(x2d, grid, w, g)
+        a = bspline_slices_bf16(xf, gg, spline_order).to(torch.bfloat16).float().abs()
+        out.append((a.reshape(n, -1).T @ gy[:, g * nout:(g + 1) * nout].float().abs())
+                   .reshape(slices, nin, nout))
+    return torch.stack(out)
 
 
 def bspline_curve2coeff(x: torch.Tensor, y: torch.Tensor, grid: torch.Tensor,

@@ -8,13 +8,17 @@ back to the host, as kanvit's jitted step does not.
 ``bf16=True`` is kanvit's policy (``kanvit/train/steps.py:23-31``): every
 f32 parameter cast to bf16 for the step (``torch.func.functional_call`` over
 a bf16 copy, the module's f32 parameters untouched), ``x`` cast to bf16,
-the logits cast to f32 before CE, cuBLAS reducing in f32
-(``kanvit_torch.utils.precision``). The eval step takes it; a bf16 training
-step needs the bf16 backward kernels (ROADMAP.md, Queue 2 entry 3).
+the logits cast to f32 before CE, cuBLAS reducing in f32 in the forward and
+the backward (``kanvit_torch.utils.precision``). In training the gradients
+come back through the casts to the f32 parameters, whose ``.grad`` is f32,
+and the optimizer runs in f32. A bf16 training step takes the efficientkan,
+vanilla and flash-attn ViTs; the others raise before any launch
+(``precision.check_bf16_trainable``).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Callable
 
 import torch
@@ -43,36 +47,35 @@ def make_train_step(bf16: bool = False, grad_accum: int = 1) -> Callable:
     the batch into that many chunks, sums their gradients and divides by the
     count before ONE update, as kanvit's ``lax.scan`` does: CE is a
     per-example mean, so it is the full-batch update with one chunk's
-    activations. The loss is the mean of the chunk losses.
+    activations. The loss is the mean of the chunk losses. ``bf16=True``:
+    kanvit's bf16 policy (above), for the models it takes.
     """
-    if bf16:
-        raise NotImplementedError(
-            "bf16 training is not ported: the bf16 kernels are forwards only "
-            "(bf16 serving); the bf16 backward kernels are ROADMAP.md, Queue 2 "
-            "entry 3")
 
     def train_step(state: TrainState, x: torch.Tensor, y: torch.Tensor):
         model, tx = state.model, state.tx
+        if bf16:
+            precision.check_bf16_trainable(model)
         tx.zero_grad()
-        if grad_accum <= 1:
-            loss, logits = _loss_and_logits(model, x, y)
-            loss.backward()
-        else:
-            b = x.shape[0]
-            if b % grad_accum:
-                raise ValueError(
-                    f"batch {b} not divisible by grad_accum={grad_accum}")
-            losses, outs = [], []
-            for xi, yi in zip(x.chunk(grad_accum), y.chunk(grad_accum)):
-                li, oi = _loss_and_logits(model, xi, yi)
-                li.backward()  # .grad sums the chunks
-                losses.append(li.detach())
-                outs.append(oi.detach())
-            with torch.no_grad():
-                for p in tx.params.values():
-                    if p.grad is not None:
-                        p.grad.div_(grad_accum)
-            loss, logits = torch.stack(losses).mean(), torch.cat(outs)
+        with precision.f32_accumulation() if bf16 else contextlib.nullcontext():
+            if grad_accum <= 1:
+                loss, logits = _loss_and_logits(model, x, y, bf16)
+                loss.backward()
+            else:
+                b = x.shape[0]
+                if b % grad_accum:
+                    raise ValueError(
+                        f"batch {b} not divisible by grad_accum={grad_accum}")
+                losses, outs = [], []
+                for xi, yi in zip(x.chunk(grad_accum), y.chunk(grad_accum)):
+                    li, oi = _loss_and_logits(model, xi, yi, bf16)
+                    li.backward()  # the f32 .grad sums the chunks
+                    losses.append(li.detach())
+                    outs.append(oi.detach())
+                with torch.no_grad():
+                    for p in tx.params.values():
+                        if p.grad is not None:
+                            p.grad.div_(grad_accum)
+                loss, logits = torch.stack(losses).mean(), torch.cat(outs)
         tx.step()
         state.step += 1
         return state, loss.detach(), logits.detach()

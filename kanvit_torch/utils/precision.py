@@ -1,4 +1,4 @@
-"""bf16 serving (counterpart of kanvit's ``--bf16`` policy,
+"""bf16 serving and training (counterpart of kanvit's ``--bf16`` policy,
 ``kanvit/train/steps.py:23-31`` and ``benchmarks/inference_serving.py:68-80``).
 
 kanvit casts every f32 parameter to bf16 for a step and keeps its knot
@@ -15,8 +15,12 @@ skips and keeps f32.
 cuBLAS may reduce a bf16 GEMM's split-K partials in bf16
 (``torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction``, on
 by default); kanvit accumulates in f32. :func:`f32_accumulation` turns that
-off for the span of a bf16 forward and restores the caller's setting after,
-so no global changes for the port's callers.
+off for the span of a bf16 forward (and, in training, its backward) and
+restores the caller's setting after, so no global changes for the port's
+callers.
+
+:func:`check_bf16_trainable` raises for the models whose kernels have no
+bf16 backward yet, before any launch.
 """
 
 from __future__ import annotations
@@ -82,3 +86,24 @@ def f32_accumulation():
         yield
     finally:
         matmul.allow_bf16_reduced_precision_reduction = before
+
+
+# The ViT kinds whose KAN kernels have no bf16 path yet.
+BF16_UNPORTED = ("cheby", "fourier", "fast", "sine")
+
+
+def check_bf16_trainable(model: torch.nn.Module) -> None:
+    """Raise ``NotImplementedError`` for a model that a bf16 training step
+    cannot take: the cheby, fourier, fast and sine ViTs (their KAN kernels
+    have no bf16 path: ROADMAP.md, Queue 2 entry 3b.2) and a fused-FF model
+    (the fused FF's: entry 3b.4). The efficientkan, vanilla and flash-attn
+    ViTs pass."""
+    kind = getattr(model, "type", None)
+    if kind in BF16_UNPORTED:
+        raise NotImplementedError(
+            f"bf16 training of the {kind} ViT: its KAN kernels have no bf16 path "
+            "(ROADMAP.md, Queue 2 entry 3b.2)")
+    if any(getattr(m, "fused_ff", False) for m in model.modules()):
+        raise NotImplementedError(
+            "bf16 training with fused_ff=True: the fused FF kernels have no bf16 "
+            "path (ROADMAP.md, Queue 2 entry 3b.4)")

@@ -2109,22 +2109,23 @@ def test_attention_lanes_bf16_kernel(cuda, dh, causal, masked):
 
 
 def test_bf16_backward_and_other_head_dims_raise(cuda):
-    """No bf16 backward kernel and no bf16 generic head dims: each raises,
-    and nothing runs the plain version instead."""
+    """A backward through a bf16 forward takes the bf16 backward kernels
+    (no f32 kernel, no plain version); bf16 generic head dims and the other
+    KAN families raise, and nothing runs the plain version instead."""
     rng = np.random.default_rng(133)
     x = _spline_x(rng, (20, 16)).to(cuda).to(BF16)
     grid = K.make_bspline_grid(16, device=cuda)
     bw, sw, sc = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
                   .to(cuda).to(BF16).requires_grad_(True)
                   for s in ((8, 16), (8, 16, 8), (8, 16)))
-    y = FB.bspline_kan(x, grid, bw, sw, sc)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        y.float().sum().backward()
+    FB.bspline_kan(x, grid, bw, sw, sc).float().sum().backward()
+    assert bw.grad.dtype == BF16
     q = torch.randn(2, 9, 64, device=cuda, dtype=BF16, requires_grad=True)
-    o = FA.flash_attention_lanes(q, q, q, 2)
-    with pytest.raises(NotImplementedError, match="bf16"):
-        o.float().sum().backward()
+    FA.flash_attention_lanes(q, q, q, 2).float().sum().backward()
+    assert q.grad.dtype == BF16
     assert FB.LAUNCHES["bspline_kan_bwd"] == 0 and FA.LAUNCHES["flash_attention_lanes_bwd"] == 0
+    assert FB.LAUNCHES["bspline_kan_bwd_bf16"] == 1
+    assert FA.LAUNCHES["flash_attention_lanes_bwd_bf16"] == 1
     for dh in (24, 40, 128):
         q = torch.zeros(2, 9, 2 * dh, device=cuda, dtype=BF16)
         with torch.inference_mode(), pytest.raises(ValueError, match=f"head dim {dh}"):
@@ -2133,6 +2134,124 @@ def test_bf16_backward_and_other_head_dims_raise(cuda):
         FB.chebykan(torch.zeros(4, 16, device=cuda, dtype=BF16),
                     torch.zeros(16, 3, 5, device=cuda, dtype=BF16))
     assert FA.LAUNCHES["flash_attention_lanes_bf16"] == 1
+
+
+# --- bf16 training: the bf16 backwards of bspline_kan, bspline_qkv_grouped and
+# the lanes attention against their plain twins, within one bf16 ulp plus one
+# of each rounded intermediate weighted as the next product weighs it
+# (chip_smoke.py's gates), no further than twice the twin from the f64 sum
+# of the same rounded operands, their bits repeated.
+
+def _bwd_bf16_case(cuda, rng, n, groups, nin, nout, per_head=False):
+    x = _spline_x(rng, (n, groups * nin)).to(cuda).to(BF16)
+    grid = K.make_bspline_grid(nin, device=cuda)
+    if per_head:
+        grid = torch.stack([grid * (1 + 0.05 * i) + 0.01 * i for i in range(groups)])
+    w = (torch.from_numpy(rng.standard_normal((groups, 9, nin, nout)).astype(np.float32)
+                          * 0.3).to(cuda).to(BF16))
+    gy = torch.from_numpy(rng.standard_normal((n, groups * nout)).astype(np.float32)
+                          ).to(cuda).to(BF16)
+    return x, grid, w, gy
+
+
+@pytest.mark.parametrize("name,n,groups,nin,nout,per_head", [
+    ("bspline_kan", 37 * 49, 1, 16, 64, False), ("bspline_kan", 64 * 196, 1, 768, 384, False),
+    ("bspline_qkv_grouped", 37 * 50, 2, 32, 96, False),
+    ("bspline_qkv_grouped", 64 * 50, 8, 8, 24, False),
+    ("bspline_qkv_grouped", 64 * 197, 6, 64, 192, False),
+    ("bspline_qkv_grouped", 64 * 197, 6, 64, 64, True),
+    ("bspline_qkv_grouped", 301, 2, 20, 20, False)])
+def test_bspline_bwd_bf16_kernel(cuda, name, n, groups, nin, nout, per_head):
+    """At the vit-s and MNIST shapes, a grid a head, and ragged ones (nout
+    20 takes the element-wise copies)."""
+    rng = np.random.default_rng(135)
+    x, grid, w, gy = _bwd_bf16_case(cuda, rng, n, groups, nin, nout, per_head)
+    with torch.inference_mode():
+        dx, dw = FB._launch_bwd_bf16(name, x, w, grid, gy, True, True)
+        dx2, dw2 = FB._launch_bwd_bf16(name, x, w, grid, gy, True, True)
+        _, dw_nodx = FB._launch_bwd_bf16(name, x, w, grid, gy, False, True)
+        pdx, pdw = K.bspline_grouped_backward_bf16(x, grid, w, gy)
+        edx, edw = K.bspline_grouped_backward_bf16(x, grid, w, gy, exact=True)
+        spread = K.bspline_dw_spread_bf16(x, grid, w, gy)
+    _bf16_ulp(dx, pdx)
+    _bf16_ulp(dw, pdw, spread)
+    _f64_gate(dx, pdx, edx)
+    _f64_gate(dw, pdw, edw)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(dw, dw_nodx)
+    assert FB.LAUNCHES[f"{name}_bwd_bf16"] == 3 and FB.LAUNCHES[f"{name}_bwd"] == 0
+
+
+@pytest.mark.parametrize("dh", [8, 16, 32, 64])
+@pytest.mark.parametrize("causal,masked", [(False, False), (True, True)])
+def test_attention_lanes_bwd_bf16_kernel(cuda, dh, causal, masked):
+    rng = np.random.default_rng(136)
+    b, t, h = 5, 197 if dh == 64 else 50, 6 if dh == 64 else 3
+    y = torch.from_numpy(rng.standard_normal((b * t, h * 3 * dh)).astype(np.float32)
+                         ).to(cuda).to(BF16)
+    do = torch.from_numpy(rng.standard_normal((b, t, h * dh)).astype(np.float32)
+                          ).to(cuda).to(BF16)
+    y4 = y.view(b, t, h, 3 * dh)
+    q, k, v = (y4[..., i * dh:(i + 1) * dh] for i in range(3))
+    mask = None
+    if masked:
+        mask = torch.from_numpy(rng.random((b, t)) > 0.2).to(cuda)
+        mask[0] = False
+
+    def grads():
+        leaf = y.clone().requires_grad_(True)
+        l4 = leaf.view(b, t, h, 3 * dh)
+        o = FA.flash_attention_lanes(*(l4[..., i * dh:(i + 1) * dh] for i in range(3)), h,
+                                     causal=causal, mask=mask)
+        o.backward(do)
+        g4 = leaf.grad.view(b, t, h, 3 * dh)
+        return o.detach(), [g4[..., i * dh:(i + 1) * dh].reshape(b, t, h * dh)
+                            for i in range(3)]
+
+    o, got = grads()
+    _, again = grads()
+    with torch.inference_mode():
+        want = A.lanes_attention_bwd_bf16(q, k, v, o, do, h, causal, mask)
+        spread = A.lanes_attention_bwd_bf16(q, k, v, o, do, h, causal, mask, spread=True)
+        exact = A.lanes_attention_bwd_bf16(q, k, v, o, do, h, causal, mask, exact=True)
+    for g, g2, w, sp, e in zip(got, again, want, spread, exact):
+        _bf16_ulp(g, w, sp)
+        _f64_gate(g, w, e)
+        assert torch.equal(g, g2)
+    if masked:
+        assert all((g[0] == 0).all() for g in got)
+    assert FA.LAUNCHES["flash_attention_lanes_bwd_bf16"] == 2
+    assert FA.LAUNCHES["flash_attention_lanes_bwd"] == 0
+
+
+def test_bf16_train_step_on_card(cuda):
+    """One bf16 step of a 2-block MNIST-geometry efficientkan ViT on the
+    card against the CPU's (the plain twins): 1 + 2 + 2 bf16 launches
+    forward and backward and no f32 ones, loss within 2e-2 x max(1, |loss|)
+    and every gradient within 5e-2 x max(1, max|g|) (kanvit's bf16 gates),
+    the f32 parameters and gradients f32."""
+    import copy
+
+    from kanvit_torch.models import create_model
+    from kanvit_torch.train import create_train_state, make_train_step
+
+    cpu = create_model("efficientkan", chw=(1, 28, 28), n_patches=7, n_blocks=2,
+                       d_hidden=64, n_heads=2, out_d=10, seed=6)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    rng = np.random.default_rng(137)
+    x = torch.from_numpy(rng.standard_normal((6, 1, 28, 28)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 10, 6))
+    step = make_train_step(bf16=True)
+    _, lc, _ = step(create_train_state(cpu), x, y)
+    _, lg, _ = step(create_train_state(gpu), x.to(cuda), y.to(cuda))
+    counts = {k: n for k, n in {**FB.LAUNCHES, **FA.LAUNCHES}.items() if n}
+    assert counts == {"bspline_kan_bf16": 1, "bspline_qkv_grouped_bf16": 2,
+                      "flash_attention_lanes_bf16": 2, "bspline_kan_bwd_bf16": 1,
+                      "bspline_qkv_grouped_bwd_bf16": 2, "flash_attention_lanes_bwd_bf16": 2}
+    assert abs(float(lc) - float(lg)) <= 2e-2 * max(1.0, abs(float(lc)))
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        assert pg.dtype == pg.grad.dtype == torch.float32, name
+        err = float((pc.grad - pg.grad.cpu()).abs().max())
+        assert err <= 5e-2 * max(1.0, float(pc.grad.abs().max())), (name, err)
 
 
 def test_bf16_eval_step_and_predictor_on_card(cuda):
