@@ -126,6 +126,20 @@ Phases, in order; any failure raises, so the script exits non-zero:
    bf16 launches a forward, logits within 2e-2 x max(1, max|logits|) of the
    CPU's bf16 forward, top-1 agreement with the card's f32 logits, device
    forward ms (in turns with f32) and images/s beside f32's;
+9c. the cheby ViT's four bf16 kernels (``chebykan`` and
+   ``cheby_qkv_grouped``, forward and backward) against their plain twins
+   in 9b's phase, at the vit-s, one-image and MNIST shapes and dh 8 (one
+   bf16 ulp plus one of each rounded T_n weighted as the next product weighs
+   it; no further than twice the twin from f64; bits repeated; the no-dx
+   dW the all-gradients dW's bits); bf16 training of the vit-s
+   ``efficientkan`` and, after phase 10's cheby training, bf16 serving and
+   training of the vit-s ``cheby`` ViT on its weights: exactly 1 + 12 + 12
+   bf16 launches each way and no f32 KAN or attention launch, logits and a
+   4-image step's gradients against the CPU's twins (2e-2 and 5e-2 x
+   max(1, max)), the loss falling over 10 steps, images/s, device forward,
+   host ms a step, busy, idle share and the largest device operations
+   beside f32's, and the parameter casts' device kernels and the host's
+   split of a step with the flat buffer and with a cast a parameter;
 11. int8 serving of the vit-s ``vanilla`` model through
    ``Predictor(quant="int8")``: with the ``int8_linear`` kernel (25
    launches a batch, the 1000-class head on qdot), calibrated, and on qdot
@@ -461,6 +475,14 @@ def first_kernel(torch):
     torch.cuda.synchronize()
 
 
+def device_kernel_count(prof):
+    """The device kernels of a profile, without record_function ranges'
+    GPU copies and spins (``kernel_times``' events, counted)."""
+    return sum(1 for e in prof.events()
+               if "cuda" in str(getattr(e, "device_type", "")).lower()
+               and not getattr(e, "is_user_annotation", False) and not is_spin(e))
+
+
 def kernel_ms(torch, fn, iters=20, warmup=3, label=None):
     """The card's own time of one call of ``fn``: the summed durations of
     the kernels it launches, from ``torch.profiler``, over ``iters`` calls,
@@ -481,9 +503,7 @@ def kernel_ms(torch, fn, iters=20, warmup=3, label=None):
                 fn()
             torch.cuda.synchronize()
         got = kernel_times(prof.events())
-        count = sum(1 for e in prof.events()
-                    if "cuda" in str(getattr(e, "device_type", "")).lower()
-                    and not getattr(e, "is_user_annotation", False) and not is_spin(e))
+        count = device_kernel_count(prof)
         if count > events:
             by_name, events = got, count
         if attempt >= 1 and by_name:
@@ -2361,10 +2381,13 @@ def phase_serve(torch, smi, model_cpu, tag, per_batch, seed):
 
 def bf16_ulp_gate(tag, got, want, spread=None):
     """Elementwise within one bf16 ulp of the plain twin: |a - b| <=
-    2^-7 |b| + 2^-12 max|b|, plus, for the attention, one bf16 ulp of every
-    probability weighted as P V weights it: 2^-8 (bf16(p) @ |v|) / l
-    (``spread``, the twin's attention over |v|). Returns max|a - b|; prints
-    how many elements lie past the one-ulp part alone."""
+    2^-7 |b| + 2^-12 max|b|, plus one bf16 ulp of every rounded
+    intermediate weighted as the next product weighs it, 2^-8 ``spread``:
+    for the attention every probability as P V weights it, (bf16(p) @ |v|)
+    / l (the twin's attention over |v|); for a KAN forward every basis value
+    as W weighs it, |T| |W|; for a KAN dW as gy weighs it, |T|^T |gy|.
+    Returns max|a - b|; prints how many elements lie past the one-ulp part
+    alone."""
     got64, want64 = got.double(), want.double()
     err = (got64 - want64).abs()
     ulp = BF16_ULP_REL * want64.abs() + BF16_ULP_ABS * float(want64.abs().max())
@@ -2590,6 +2613,143 @@ def check_bspline_bwd_bf16(torch, rng, name, label, n, heads, nin, nout, per_hea
                                "f32_device_ms": f32_dev_ms}, bounds
 
 
+def cheby_bf16_case(torch, rng, n, heads, nin, nout):
+    """The bf16 Chebyshev operands of the embedder (``heads`` None:
+    ``chebykan``'s coefficients (nin, nout, 5)) or of the grouped q/k/v
+    (``heads`` groups of ``nin``: ``cheby_qkv_grouped``'s (H, dh, out, 5)):
+    x (n, G nin) with a tenth where tanh rounds to +-1, the coefficients at
+    the init's scale and their packed weight (G, 5, nin, nout)."""
+    from kanvit_torch.kernels import fused_basis as FB
+
+    bf16 = torch.bfloat16
+    groups = 1 if heads is None else heads
+    x = torch.from_numpy(cheby_inputs(rng, (n, groups * nin), 0.1)).cuda().to(bf16)
+    cc = torch.from_numpy((rng.standard_normal((groups, nin, nout, 5)) / np.sqrt(nin * 5))
+                          .astype(np.float32)).cuda().to(bf16)
+    if heads is None:
+        return x, cc[0], FB.pack_cheby_weight(cc[0]).contiguous(), groups
+    return x, cc, FB.pack_cheby_qkv_weight(cc).contiguous(), groups
+
+
+def check_cheby_bf16(torch, rng, name, label, n, heads, nin, nout):
+    """A bf16 Chebyshev forward (``chebykan``: ``heads`` None;
+    ``cheby_qkv_grouped``: ``heads`` groups of ``nin``) against its plain
+    twin on the card: one bf16 ulp plus one of every rounded T_n weighted as
+    W weighs it, 2^-8 |T| |W|; no further than twice the twin from the f64
+    sum of the same rounded operands; its bits repeated. CUDA-event and
+    device times beside the f32 kernel's on the same (upcast) operands and
+    the twin's, and the bf16 bound."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    bf16 = torch.bfloat16
+    x, coeffs, wb, groups = cheby_bf16_case(torch, rng, n, heads, nin, nout)
+    entry = FB.chebykan if heads is None else FB.cheby_qkv_grouped
+    x32, w32 = x.float(), wb.float()
+    tag = f"{name} bf16 {label} N={n} G={groups} {nin}->{nout}"
+
+    def kernel():
+        return FB._launch_bf16(name, x, wb, FB.CHEBY_DEGREE)
+
+    def f32_kernel():
+        return FB._launch(name, "cheby", x32, w32, FB.CHEBY_DEGREE)
+
+    def plain(exact=False):
+        return K.cheby_grouped_forward_bf16(x, wb, exact=exact)
+
+    with torch.inference_mode():
+        y = entry(x, coeffs)
+        check(y.dtype == bf16 and tuple(y.shape) == (n, groups * nout),
+              f"{tag}: output {y.dtype} {tuple(y.shape)}")
+        again = kernel()
+        ref, exact = plain(), plain(exact=True)
+        spread = K.cheby_fwd_spread_bf16(x, wb)
+        torch.cuda.synchronize()
+        err = bf16_ulp_gate(tag, y, ref, spread)
+        check(torch.equal(y, again), f"{tag}: a second forward gave other bits")
+        f64 = f64_gate(tag, y, ref, exact, "bf16 plain twin")
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, 10, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, 10, label=f"{tag}, the f32 kernel")
+        plain_ms = time_ms(torch, plain)
+    slices = FB.CHEBY_DEGREE + 1
+    flops = 2.0 * n * groups * slices * nin * nout
+    nbytes = 2.0 * (n * groups * nin + groups * slices * nin * nout + n * groups * nout)
+    bounds = bf16_bound(flops, nbytes)
+    print(f"[bf16] {tag}: kernel {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernel "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  bound "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']})  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                               "f32_device_ms": f32_dev_ms}, bounds
+
+
+def check_cheby_bwd_bf16(torch, rng, name, label, n, heads, nin, nout, need_dx=True):
+    """A bf16 Chebyshev backward (``chebykan``: ``heads`` None, asked for dx
+    only where ``need_dx``, as the training step asks its embedder;
+    ``cheby_qkv_grouped``: ``heads`` groups of ``nin``) against its plain
+    twin on the card: dx within one bf16 ulp (a tenth of x where tanh rounds
+    to +-1, whose dx is 0), dW within one bf16 ulp plus one of every rounded
+    T_n weighted as gy weighs it, 2^-8 |T|^T |gy|; each no further than
+    twice the twin from the f64 sum of the same rounded operands; the bits
+    of a second call, and the no-dx dW the all-gradients dW's bits. Times
+    beside the f32 kernels' on the same (upcast) operands and the twin's,
+    and the bf16 bound."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    bf16 = torch.bfloat16
+    x, _, wb, groups = cheby_bf16_case(torch, rng, n, heads, nin, nout)
+    gy = torch.from_numpy(rng.standard_normal((n, groups * nout)).astype(np.float32)
+                          ).cuda().to(bf16)
+    x32, w32, gy32 = x.float(), wb.float(), gy.float()
+    deg = FB.CHEBY_DEGREE
+    tag = f"{name} bwd bf16 {label} N={n} G={groups} {nin}->{nout}"
+
+    def kernel(dx=need_dx):
+        return FB._launch_bwd_bf16(name, x, wb, deg, gy, dx, True)
+
+    def f32_kernel():
+        return FB._launch_bwd(f"{name}_bwd", "cheby", x32, w32, deg, gy32, need_dx, True)
+
+    def plain(exact=False):
+        return K.cheby_grouped_backward_bf16(x, wb, gy, need_dx, True, exact=exact)
+
+    with torch.inference_mode():
+        dx, dw = kernel()
+        dx2, dw2 = kernel()
+        _, dw_all = kernel(True)
+        (pdx, pdw), (edx, edw) = plain(), plain(exact=True)
+        spread = K.cheby_dw_spread_bf16(x, wb, gy)
+        torch.cuda.synchronize()
+        check(dw.dtype == bf16 and (dx is None) != need_dx, f"{tag}: outputs")
+        err = bf16_ulp_gate(f"{tag} dW", dw, pdw, spread)
+        f64 = f64_gate(f"{tag} dW", dw, pdw, edw, "bf16 plain twin")
+        check(torch.equal(dw, dw2), f"{tag}: a second backward gave other dW bits")
+        check(torch.equal(dw, dw_all), f"{tag}: the no-dx dW differs from the "
+                                       "all-gradients dW")
+        if need_dx:
+            err = max(err, bf16_ulp_gate(f"{tag} dx", dx, pdx))
+            f64 = max(f64, f64_gate(f"{tag} dx", dx, pdx, edx, "bf16 plain twin"))
+            check(torch.equal(dx, dx2), f"{tag}: a second backward gave other dx bits")
+            check(bool((dx[x.float().abs() >= 9.5] == 0).all()),
+                  f"{tag}: dx where tanh rounds to +-1 is not 0")
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, 10, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, 10, label=f"{tag}, the f32 kernels")
+        plain_ms = time_ms(torch, plain)
+    slices = deg + 1
+    flops = 2.0 * n * groups * slices * nin * nout * (2 if need_dx else 1)
+    wsize = groups * slices * nin * nout  # W read for dx only, dW written
+    nbytes = 2.0 * (n * groups * nin * (1 + need_dx) + wsize * (1 + need_dx)
+                    + n * groups * nout)
+    bounds = bf16_bound(flops, nbytes)
+    print(f"[bf16] {tag}: kernels {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernels "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  bound "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']})  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                               "f32_device_ms": f32_dev_ms}, bounds
+
+
 def check_attention_bwd_bf16(torch, rng, b, t, heads, dh, label, cases):
     """The bf16 lanes backward on q, k, v as strided slices of a bf16
     (N, H*3dh) projection output, each case against the plain twin on the
@@ -2680,8 +2840,10 @@ def check_attention_bwd_bf16(torch, rng, b, t, heads, dh, label, cases):
 
 
 def phase_bf16_kernels(torch):
-    """The six bf16 kernels of the bf16 serving and training paths at their
-    vit-s shapes, then at ragged narrow shapes (sub-entries)."""
+    """The ten bf16 kernels of the bf16 serving and training paths at their
+    vit-s shapes, then at ragged narrow shapes (sub-entries): the
+    efficientkan ViT's six, then the Chebyshev embedder's and q/k/v's
+    forwards and backwards."""
     rng = np.random.default_rng(SEED + 11)
     results = {
         "bspline_kan_bf16": check_bspline_bf16(
@@ -2735,21 +2897,67 @@ def phase_bf16_kernels(torch):
         results["flash_attention_lanes_bwd_bf16"] += ({key: sub_entry(
             check_attention_bwd_bf16(torch, rng, b, t, heads, dh, key,
                                      attention_cases(torch, rng, b, t)))},)
+    results.update(cheby_bf16_kernels(torch))
     return results
+
+
+def cheby_bf16_kernels(torch):
+    """The cheby ViT's four bf16 kernels: the embedder (``chebykan``) and
+    the grouped q/k/v (``cheby_qkv_grouped``), forward and backward, at the
+    vit-s shapes (the embedder's backward first without dx, as the training
+    step asks it), then at one vit-s image, the MNIST shapes and dh 8
+    (sub-entries)."""
+    rng = np.random.default_rng(SEED + 13)
+    emb, qkv = "chebykan", "cheby_qkv_grouped"
+    return {
+        "chebykan_bf16": check_cheby_bf16(
+            torch, rng, emb, "vit-s embedder", BATCH * 196, None, 768, 384) + (
+            {"batch_1": sub_entry(check_cheby_bf16(
+                torch, rng, emb, "vit-s embedder, one image", 196, None, 768, 384))},
+            {"mnist_ragged": sub_entry(check_cheby_bf16(
+                torch, rng, emb, "mnist embedder", 37 * 49, None, 16, 64))}),
+        "cheby_qkv_grouped_bf16": check_cheby_bf16(
+            torch, rng, qkv, "vit-s q/k/v", BATCH * 197, 6, 64, 192) + (
+            {"mnist_ragged": sub_entry(check_cheby_bf16(
+                torch, rng, qkv, "mnist q/k/v", 37 * 50, 2, 32, 96))},
+            {"at_dh_8_mnist": sub_entry(check_cheby_bf16(
+                torch, rng, qkv, "dh-8 q/k/v", BATCH * 50, 8, 8, 24))}),
+        "chebykan_bwd_bf16": check_cheby_bwd_bf16(
+            torch, rng, emb, "vit-s embedder, no dx", BATCH * 196, None, 768, 384,
+            need_dx=False) + (
+            {"all_gradients": sub_entry(check_cheby_bwd_bf16(
+                torch, rng, emb, "vit-s embedder", BATCH * 196, None, 768, 384))},
+            {"batch_1": sub_entry(check_cheby_bwd_bf16(
+                torch, rng, emb, "vit-s embedder, one image, no dx", 196, None, 768, 384,
+                need_dx=False))},
+            {"mnist_ragged": sub_entry(check_cheby_bwd_bf16(
+                torch, rng, emb, "mnist embedder", 37 * 49, None, 16, 64))}),
+        "cheby_qkv_grouped_bwd_bf16": check_cheby_bwd_bf16(
+            torch, rng, qkv, "vit-s q/k/v", BATCH * 197, 6, 64, 192) + (
+            {"mnist_ragged": sub_entry(check_cheby_bwd_bf16(
+                torch, rng, qkv, "mnist q/k/v", 37 * 50, 2, 32, 96))},
+            {"at_dh_8_mnist": sub_entry(check_cheby_bwd_bf16(
+                torch, rng, qkv, "dh-8 q/k/v", BATCH * 50, 8, 8, 24))}),
+    }
 
 
 BF16_PER_BATCH = {"bspline_kan_bf16": 1, "bspline_qkv_grouped_bf16": 12,
                   "flash_attention_lanes_bf16": 12}
+CHEBY_BF16_PER_BATCH = {"chebykan_bf16": 1, "cheby_qkv_grouped_bf16": 12,
+                        "flash_attention_lanes_bf16": 12}
 
 
-def phase_bf16_serve(torch, smi, model_cpu, seed):
-    """Serve the vit-s efficientkan in bf16 (the f32 phase's weights):
-    ``Predictor`` on a bf16 copy for three requests and
+def phase_bf16_serve(torch, smi, model_cpu, seed, variant="efficientkan",
+                     per_batch=BF16_PER_BATCH):
+    """Serve the vit-s ``variant`` (efficientkan, cheby) in bf16 (the f32
+    phase's weights): ``Predictor`` on a bf16 copy for three requests and
     ``make_eval_step(bf16=True)`` on the f32 model, each forward exactly
-    1 + 12 + 12 bf16 kernel launches and nothing else; logits finite, within
-    2e-2 x max(1, max|logits|) of the port's CPU bf16 forward, their top-1
-    agreement with the card's f32 logits; the device forward (CUDA events,
-    in turns f32, bf16, bf16, f32) and images/s beside f32's."""
+    ``per_batch``'s 1 + 12 + 12 bf16 kernel launches and nothing else (no
+    f32 KAN or attention launch); logits finite, within 2e-2 x max(1,
+    max|logits|) of the port's CPU bf16 forward (the plain twins), their
+    top-1 agreement with the card's f32 logits; the device forward (CUDA
+    events, in turns f32, bf16, bf16, f32), its device busy time by kernel
+    and images/s beside f32's."""
     from kanvit_torch.infer import Predictor
     from kanvit_torch.models import PRESETS
     from kanvit_torch.train import create_train_state, make_eval_step
@@ -2758,7 +2966,8 @@ def phase_bf16_serve(torch, smi, model_cpu, seed):
     geom = PRESETS["vit-s"]
     model32 = copy.deepcopy(model_cpu).to("cuda")
     model_bf = precision.cast_params_(copy.deepcopy(model_cpu)).to("cuda")
-    check(model_bf.linear_mapper.grid.dtype == torch.float32
+    grid = getattr(model_bf.linear_mapper, "grid", None)
+    check((grid is None or grid.dtype == torch.float32)
           and model_bf.pos_embeddings.dtype == torch.float32,
           "bf16 cast: the knot grid and the position table must stay f32")
     pred = Predictor(model_bf, batch_size=BATCH, device="cuda")
@@ -2773,8 +2982,8 @@ def phase_bf16_serve(torch, smi, model_cpu, seed):
     torch.cuda.synchronize()
     counts = launch_counts()
     want = {k: 0 for k in counts}
-    want.update({k: len(REQUESTS) * n for k, n in BF16_PER_BATCH.items()})
-    print(f"[bf16] vit-s efficientkan bf16 Predictor launches over {len(REQUESTS)} "
+    want.update({k: len(REQUESTS) * n for k, n in per_batch.items()})
+    print(f"[bf16] vit-s {variant} bf16 Predictor launches over {len(REQUESTS)} "
           f"batches: { {k: n for k, n in counts.items() if n} }")
     check(counts == want, f"bf16 serving: launch counts {counts} != {want}")
     for r, y in zip(reqs, logits):
@@ -2788,8 +2997,8 @@ def phase_bf16_serve(torch, smi, model_cpu, seed):
     loss, step_logits = make_eval_step(bf16=True)(create_train_state(model32), x, labels)
     torch.cuda.synchronize()
     step_counts = {k: n for k, n in launch_counts().items() if n}
-    check(step_counts == BF16_PER_BATCH,
-          f"bf16 eval step: launch counts {step_counts} != {BF16_PER_BATCH}")
+    check(step_counts == per_batch,
+          f"bf16 eval step: launch counts {step_counts} != {per_batch}")
     check(step_logits.dtype == torch.float32 and bool(torch.isfinite(loss)),
           "bf16 eval step: logits f32 and a finite loss")
     check(all(p.dtype == torch.float32 for p in model32.parameters()),
@@ -2824,11 +3033,12 @@ def phase_bf16_serve(torch, smi, model_cpu, seed):
         for kind in ("f32", "bf16", "bf16", "f32"):
             fn = (lambda: model32(x32)) if kind == "f32" else (lambda: model_bf(xb))
             fwd[kind].append(time_ms(torch, fn, iters=10))
-        busy32 = kernel_ms(torch, lambda: model32(x32), 5, label="vit-s f32 forward")
-        busy_bf = kernel_ms(torch, lambda: model_bf(xb), 5, label="vit-s bf16 forward")
+        busy32 = kernel_ms(torch, lambda: model32(x32), 5, label=f"vit-s {variant} f32 forward")
+        busy_bf = kernel_ms(torch, lambda: model_bf(xb), 5,
+                            label=f"vit-s {variant} bf16 forward")
     ips = {"f32": serve_rate(torch, pred32, batch), "bf16": serve_rate(torch, pred, batch)}
     fwd_ms = {k: sum(v) / len(v) for k, v in fwd.items()}
-    print(f"[bf16] vit-s efficientkan, batch {BATCH}: device forward f32 "
+    print(f"[bf16] vit-s {variant}, batch {BATCH}: device forward f32 "
           f"{fwd_ms['f32']:.3f} ms ({fwd['f32']}), bf16 {fwd_ms['bf16']:.3f} ms "
           f"({fwd['bf16']}); device busy f32 {busy32:.3f}, bf16 {busy_bf:.3f} ms; "
           f"Predictor.logits {ips['f32']:.1f} and {ips['bf16']:.1f} images/s "
@@ -2838,7 +3048,12 @@ def phase_bf16_serve(torch, smi, model_cpu, seed):
             "images_per_s": ips}
 
 
-BF16_PER_STEP = {**BF16_PER_BATCH, **{f"{k[:-5]}_bwd_bf16": n for k, n in BF16_PER_BATCH.items()}}
+def per_step(per_batch):
+    """A bf16 training step's launches: each forward's and as many of its
+    backward's."""
+    return {**per_batch, **{f"{k[:-5]}_bwd_bf16": n for k, n in per_batch.items()}}
+
+
 BF16_TRAIN_STEPS = 10
 # The card's bf16 step against the CPU's (the plain twins) on the same
 # weights, x max(1, max|g|) per tensor: kanvit's own bf16 gradient gate
@@ -2846,22 +3061,172 @@ BF16_TRAIN_STEPS = 10
 TOL_BF16_GRADS = 5e-2
 
 
-def phase_bf16_train(torch, smi, model_cpu):
-    """Train the vit-s efficientkan in bf16 (kanvit's --bf16 policy, the f32
-    phase's weights) through ``make_train_step(bf16=True)``: exactly 1 + 12
-    + 12 bf16 forward and as many bf16 backward launches a step and no other
-    KAN or attention launch, the embedder's backward asked for no dx; loss
-    finite and falling over 10 Adam steps at batch 64; the gradients of a
-    4-image step within 5e-2 x max(1, max|g|) per tensor of the CPU's bf16
-    step (the plain twins) on the same weights, the f32 parameters and
-    gradients f32; host ms a step and images/s beside the f32 step's (in
-    turns f32, bf16, bf16, f32), CUDA events a step, the host's ms for the
-    parameter casts alone, and the profile's busy time, idle share and
-    largest device operations (``phase_profile``)."""
+def per_parameter_casts(model):
+    """The bf16 step's parameter casts as they were before the flat buffer:
+    one cast of each f32 parameter forward, so one of each gradient back
+    (refit grids rounded): the "before" of the casts' measurements."""
+    import torch
+
+    from kanvit_torch.utils import precision
+
+    out = {name: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
+           for name, p in model.named_parameters()}
+    out.update({name: precision._round_bf16(g) for name, g in precision._refit_grids(model)})
+    return out
+
+
+@contextlib.contextmanager
+def casts_per_parameter():
+    """``precision.bf16_params`` swapped for ``per_parameter_casts`` inside
+    the block."""
+    from kanvit_torch.utils import precision
+
+    flat = precision.bf16_params
+    precision.bf16_params = per_parameter_casts
+    try:
+        yield
+    finally:
+        precision.bf16_params = flat
+
+
+def cast_kernels(torch, model, reps=10):
+    """One bf16 step's parameter casts, forward and backward
+    (``precision.bf16_params`` as it is bound: the flat buffer's, or
+    ``per_parameter_casts`` inside ``casts_per_parameter``): their device
+    kernels (the casts under ``torch.profiler``, then a backward from their
+    outputs alone with gradients made outside the trace, each trace opened
+    by ``first_kernel``), and their host ms, unprofiled: the median over
+    ``reps`` of the host clock around the casts, and around that backward,
+    each ending in a synchronise."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from kanvit_torch.utils import precision
+
+    def casts_and_grads():
+        casts = precision.bf16_params(model)
+        outs = [v for v in casts.values() if v.requires_grad]
+        return outs, [torch.ones_like(v) for v in outs]
+
+    precision.bf16_params(model)  # the flat buffer, where made, made here
+    counts = []
+    for backward in (False, True):
+        outs, grads = casts_and_grads()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            first_kernel(torch)
+            if backward:
+                torch.autograd.backward(outs, grads)
+            else:
+                precision.bf16_params(model)
+            torch.cuda.synchronize()
+        counts.append(device_kernel_count(prof))
+        for p in model.parameters():
+            p.grad = None
+    host = {"forward": [], "backward": []}
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        precision.bf16_params(model)
+        torch.cuda.synchronize()
+        host["forward"].append((time.perf_counter() - t0) * 1e3)
+        outs, grads = casts_and_grads()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        torch.autograd.backward(outs, grads)
+        torch.cuda.synchronize()
+        host["backward"].append((time.perf_counter() - t0) * 1e3)
+        for p in model.parameters():
+            p.grad = None
+    return {"forward": counts[0], "backward": counts[1],
+            "host_forward_ms": float(np.median(host["forward"])),
+            "host_backward_ms": float(np.median(host["backward"]))}
+
+
+def host_split(torch, step, state, x, y, steps=3):
+    """The host's ms a bf16 step by ``torch.profiler``'s host ranges (CPU
+    activity only, over ``steps`` steps; the profiler's own cost a range and
+    an operation inflates each): the parameter casts forward
+    (``precision.bf16_params``) and backward (their autograd nodes,
+    ``_Bf16CastBackward`` or the per-parameter ``ToCopyBackward0``, whose
+    count also holds the step's few other casts), ``functional_call``'s
+    reparametrisation (``torch.func.functional_call`` less the model's
+    forward inside it), and the KAN and attention kernel wrappers, forward
+    and backward; beside the host clock a step, profiled."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    from kanvit_torch.kernels import flash_attention as FA
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.utils import precision
+
+    model, patched = state.model, []
+
+    def ranged(obj, attr, label):
+        fn = getattr(obj, attr)
+
+        def wrapper(*a, **k):
+            with record_function(label):
+                return fn(*a, **k)
+
+        setattr(obj, attr, wrapper)
+        patched.append((obj, attr, fn))
+
+    ranged(precision, "bf16_params", "split: casts forward")
+    ranged(torch.func, "functional_call", "split: functional_call")
+    ranged(model, "forward", "split: model forward")
+    for mod in (FB, FA):
+        ranged(mod, "_launch_bf16", "split: kernel wrappers forward")
+        ranged(mod, "_launch_bwd_bf16", "split: kernel wrappers backward")
+    try:
+        step(state, x, y)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        with profile(activities=[ProfilerActivity.CPU]) as prof:
+            for _ in range(steps):
+                step(state, x, y)
+            torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) * 1e3 / steps
+    finally:
+        for obj, attr, fn in reversed(patched):
+            if obj is model:
+                del model.forward
+            else:
+                setattr(obj, attr, fn)
+    ms = {}
+    for e in prof.key_averages():
+        key = e.key
+        if "Bf16CastBackward" in key or "ToCopyBackward" in key:
+            key = "split: casts backward"
+        if key.startswith("split: "):
+            ms[key[7:]] = ms.get(key[7:], 0.0) + e.cpu_time_total / steps / 1e3
+    out = {"step_ms_profiled": wall, "casts_forward_ms": ms.get("casts forward", 0.0),
+           "casts_backward_ms": ms.get("casts backward", 0.0),
+           "reparametrisation_ms": ms.get("functional_call", 0.0) - ms.get("model forward", 0.0),
+           "wrappers_forward_ms": ms.get("kernel wrappers forward", 0.0),
+           "wrappers_backward_ms": ms.get("kernel wrappers backward", 0.0)}
+    return out
+
+
+def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF16_PER_BATCH,
+                     embedder="bspline_kan"):
+    """Train the vit-s ``variant`` (efficientkan, cheby) in bf16 (kanvit's
+    --bf16 policy, the f32 phase's weights) through
+    ``make_train_step(bf16=True)``: exactly ``per_batch``'s 1 + 12 + 12 bf16
+    forward and as many bf16 backward launches a step and no other KAN or
+    attention launch, the embedder's backward asked for no dx; loss finite
+    and falling over 10 Adam steps at batch 64; the gradients of a 4-image
+    step within 5e-2 x max(1, max|g|) per tensor of the CPU's bf16 step (the
+    plain twins) on the same weights, the f32 parameters and gradients f32;
+    the parameter casts' device kernels a step, forward and backward, and
+    the host's split of a step (``host_split``), each with the flat buffer
+    and with a cast a parameter (``per_parameter_casts``, before it); host
+    ms a step and images/s of the f32 step, the bf16 step and the bf16 step
+    with a cast a parameter (in turns f32, bf16, per-parameter,
+    per-parameter, bf16, f32), CUDA events a step, and the profiles' busy
+    time, idle share and largest device operations of the bf16 and the f32
+    step (``phase_profile``)."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.models import PRESETS
     from kanvit_torch.train import create_train_state, make_train_step
-    from kanvit_torch.utils import precision
 
     geom = PRESETS["vit-s"]
     model = copy.deepcopy(model_cpu).to("cuda")
@@ -2871,13 +3236,13 @@ def phase_bf16_train(torch, smi, model_cpu):
     y = torch.from_numpy(rng.integers(0, geom["out_d"], BATCH)).cuda()
     state = create_train_state(model, 1e-3)
     step = make_train_step(bf16=True)
-    per_step = {k: 0 for k in launch_counts()}
-    per_step.update(BF16_PER_STEP)
+    want_step = {k: 0 for k in launch_counts()}
+    want_step.update(per_step(per_batch))
 
     asked, launch_bwd = [], FB._launch_bwd_bf16
 
     def recording(name, *args):
-        if name == "bspline_kan":
+        if name == embedder:
             asked.append(tuple(args[-2:]))
         return launch_bwd(name, *args)
 
@@ -2889,20 +3254,20 @@ def phase_bf16_train(torch, smi, model_cpu):
             before = launch_counts()
             state, loss, logits = step(state, x, y)
             after = launch_counts()
-            steps_ok &= {k: after[k] - before[k] for k in after} == per_step
+            steps_ok &= {k: after[k] - before[k] for k in after} == want_step
             losses.append(loss)
     finally:
         FB._launch_bwd_bf16 = launch_bwd
     torch.cuda.synchronize()
     counts = launch_counts()
     losses = [float(v) for v in losses]
-    print(f"[bf16-train] vit-s efficientkan bf16, batch {BATCH}, {BF16_TRAIN_STEPS} "
+    print(f"[bf16-train] vit-s {variant} bf16, batch {BATCH}, {BF16_TRAIN_STEPS} "
           f"Adam(1e-3) steps on one batch: losses {[round(v, 6) for v in losses]}")
     print(f"[bf16-train] launches over {BF16_TRAIN_STEPS} steps: "
           f"{ {k: n for k, n in counts.items() if n} } (want per step "
-          f"{ {k: n for k, n in per_step.items() if n} }, nothing else); the "
+          f"{ {k: n for k, n in want_step.items() if n} }, nothing else); the "
           f"embedder's backward asked for (dx, dW): {sorted(set(asked))}")
-    check(steps_ok, f"bf16 training: a step's launches differ from {per_step}")
+    check(steps_ok, f"bf16 training: a step's launches differ from {want_step}")
     check(asked == [(False, True)] * BF16_TRAIN_STEPS,
           f"bf16 training: the embedder's backward must compute no dx, got {asked}")
     check(all(np.isfinite(losses)) and losses[-1] < losses[0],
@@ -2933,12 +3298,38 @@ def phase_bf16_train(torch, smi, model_cpu):
     check(worst <= TOL_BF16_GRADS, f"bf16 training: the card's gradients differ from the "
                                    f"CPU's: {worst_name} {worst:.3e}")
 
-    # steady state in turns with the f32 step on the same model: host clock
-    # around a synchronised window, CUDA events around the same window
+    # the parameter casts: device kernels and the host's split of a step,
+    # with the flat buffer and with a cast a parameter (before it)
+    casts, split = {"flat": cast_kernels(torch, model)}, {"flat": host_split(torch, step, state,
+                                                                             x, y)}
+    with casts_per_parameter():
+        casts["per_parameter"] = cast_kernels(torch, model)
+        split["per_parameter"] = host_split(torch, step, state, x, y)
+    for kind in ("flat", "per_parameter"):
+        c = casts[kind]
+        print(f"[bf16-train] vit-s {variant} bf16 step, casts {kind}: {c['forward']} cast "
+              f"kernels forward, {c['backward']} backward, for "
+              f"{sum(1 for _ in model.parameters())} parameters; the casts alone "
+              f"{c['host_forward_ms']:.2f} ms of host forward, {c['host_backward_ms']:.2f} "
+              f"backward (median, unprofiled); host split (ms a step, torch.profiler host "
+              f"ranges): " + ", ".join(f"{k} {v:.2f}" for k, v in split[kind].items()))
+
+    # steady state in turns with the f32 step and the per-parameter casts on
+    # the same model: host clock around a synchronised window, CUDA events
+    # around the same window
     f32_step, iters = make_train_step(), 10
-    times = {"f32": [], "bf16": []}
-    for kind in ("f32", "bf16", "bf16", "f32"):
-        fn = f32_step if kind == "f32" else step
+
+    def per_parameter_step(*args):
+        with casts_per_parameter():
+            return step(*args)
+
+    fns = {"f32": f32_step, "bf16": step, "bf16_per_parameter_casts": per_parameter_step}
+    times = {k: [] for k in fns}
+    # three turns a kind, each kind first, middle and last once; medians,
+    # since the host clock of one window can stray by 2x (PERF.md §5)
+    for kind in ("f32", "bf16", "bf16_per_parameter_casts", "bf16_per_parameter_casts",
+                 "f32", "bf16", "bf16", "bf16_per_parameter_casts", "f32"):
+        fn = fns[kind]
         for _ in range(2):
             fn(state, x, y)
         torch.cuda.synchronize()
@@ -2947,25 +3338,23 @@ def phase_bf16_train(torch, smi, model_cpu):
         torch.cuda.synchronize()
         times[kind].append(((time.perf_counter() - t0) / iters * 1e3,
                             window[0].elapsed_time(window[1]) / iters))
-    host = {k: float(np.mean([h for h, _ in v])) for k, v in times.items()}
-    events = {k: float(np.mean([e for _, e in v])) for k, v in times.items()}
+    host = {k: float(np.median([h for h, _ in v])) for k, v in times.items()}
+    events = {k: float(np.median([e for _, e in v])) for k, v in times.items()}
     ips = {k: BATCH / (v / 1e3) for k, v in host.items()}
-    # the host's share of the step that casts the parameters (autograd on)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(iters):
-        casts = precision.bf16_params(model)
-    torch.cuda.synchronize()
-    cast_ms = (time.perf_counter() - t0) / iters * 1e3
-    print(f"[bf16-train] steady state, vit-s efficientkan batch {BATCH}: bf16 "
+    print(f"[bf16-train] steady state (medians of three turns), vit-s {variant} batch "
+          f"{BATCH}: bf16 "
           f"{host['bf16']:.2f} ms a step, {ips['bf16']:.1f} images/s (host clock; CUDA "
-          f"events {events['bf16']:.2f}); f32 {host['f32']:.2f} ms, {ips['f32']:.1f} "
-          f"images/s (events {events['f32']:.2f}); turns {times}; the {len(casts)} "
-          f"parameter casts alone {cast_ms:.2f} ms of host  [{smi}]")
-    profile = phase_profile(torch, step, state, x, y, "vit-s efficientkan bf16")
+          f"events {events['bf16']:.2f}); with a cast a parameter "
+          f"{host['bf16_per_parameter_casts']:.2f} ms, "
+          f"{ips['bf16_per_parameter_casts']:.1f} images/s (events "
+          f"{events['bf16_per_parameter_casts']:.2f}); f32 {host['f32']:.2f} ms, "
+          f"{ips['f32']:.1f} images/s (events {events['f32']:.2f}); turns {times}  [{smi}]")
+    profile = phase_profile(torch, step, state, x, y, f"vit-s {variant} bf16")
+    profile_f32 = phase_profile(torch, f32_step, state, x, y, f"vit-s {variant} f32")
     return {"launches": counts, "losses": losses, "grad_rel_err": worst,
-            "step_ms": host, "events_ms": events, "images_per_s": ips, "cast_ms": cast_ms,
-            "profile": profile}
+            "step_ms": host, "events_ms": events, "images_per_s": ips,
+            "cast_kernels": casts, "host_split": split, "profile": profile,
+            "profile_f32": profile_f32}
 
 
 # --------------------------------------------------------------------------
@@ -3246,8 +3635,9 @@ KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
     ("KAN q/k/v and embedder bwd on the tensor cores (B-spline, Chebyshev, RBF, "
      "sine: dW, dx)", ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
-    ("KAN q/k/v and embedder bwd in bf16 (B-spline: dW, dx, split sums)",
+    ("KAN q/k/v and embedder bwd in bf16 (B-spline, Chebyshev: dW, dx, split sums)",
      ("kan_bf16_dw", "kan_bf16_dx", "sum_splits_bf16")),
+    ("the bf16 step's parameter casts: the gradients' gather", ("CatArrayBatchedCopy",)),
     ("KAN q/k/v and embedder fwd on the tensor cores (B-spline, Chebyshev, RBF, sine)",
      ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
@@ -3931,6 +4321,10 @@ SOURCES = {
     "bspline_qkv_grouped_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:1278"),
     "flash_attention_lanes_bwd_bf16": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
                                        "kanvit/kernels/flash_attention.py:604"),
+    "chebykan_bf16": (KAN_TC_SRC, f"{FB_PY}:1067"),
+    "cheby_qkv_grouped_bf16": (KAN_TC_SRC, f"{FB_PY}:1240"),
+    "chebykan_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:1159"),
+    "cheby_qkv_grouped_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:1278"),
 }
 # The single-tile tier of flash_attention runs the lanes kernels (phase 5);
 # fourierkan's and sinekan's kernels serve kanvit's generic tier below its
@@ -3945,6 +4339,8 @@ ALSO_REPLACES = {
     "bspline_kan_bf16": [f"{FB_PY}:777", f"{FB_PY}:969"],
     "flash_attention_lanes_bf16": ["kanvit/kernels/flash_attention.py:410"],
     "bspline_kan_bwd_bf16": [f"{FB_PY}:810", f"{FB_PY}:1006"],
+    "chebykan_bf16": [f"{FB_PY}:777", f"{FB_PY}:969"],
+    "chebykan_bwd_bf16": [f"{FB_PY}:810", f"{FB_PY}:1006"],
     "flash_attention_lanes_bwd_bf16": ["kanvit/kernels/flash_attention.py:442"],
     "bspline_kan_bwd": [f"{FB_PY}:810", f"{FB_PY}:969", f"{FB_PY}:1006"],
     "fourierkan": [f"{FB_PY}:1067"],
@@ -4092,6 +4488,35 @@ ROUTES = {
                   "(writes delta) then attention_lanes_dkv_bf16<dh>, the forward's (m, l), "
                   "pn and dsc rounded to bf16 at their dots, qs by the bf16 scale and dq by "
                   "the f32 one; K, V, do tiles by cp.async and ldmatrix"},
+    "chebykan_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Cheby, "
+                  "24, 12, 1, Bf16, 0> at one group (the bf16 q/k/v's template and shape, 192 "
+                  "outputs a block), T_0..T_4 of tanh of the upcast x made in f32 in "
+                  "registers and rounded to bf16 at the dot, two slices a 16-deep step, W "
+                  "split once a call into bf16 pairs by kan_tc_fwd_split, one running sum, y "
+                  "rounded to bf16 once",
+        "instantiated_in": KAN_SRC},
+    "cheby_qkv_grouped_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Cheby, "
+                  "24, 12, 1, Bf16, 0> (192 outputs a block; up to 64 outputs <Cheby, 8, 8, 3, "
+                  "Bf16, 0>), T_0..T_4 of tanh made in f32 in registers and rounded to bf16 at "
+                  "the dot, two slices a 16-deep step, W split once a call into bf16 pairs by "
+                  "kan_tc_fwd_split",
+        "instantiated_in": KAN_SRC},
+    "chebykan_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation, kan_basis_tc.cuh part 4 at "
+                  "one group: dW on kan_bf16_dw<Cheby, 3> over T_0..T_4 made in f32 on chip "
+                  "and rounded to bf16 at the dot, gy by ldmatrix.trans, row splits in f32 "
+                  "partials summed in split order and rounded once (sum_splits_bf16_kernel); "
+                  "dx, where asked, on kan_bf16_dx<Cheby>, T'_n (1 - t^2) in f32 in its "
+                  "epilogue, rounded once",
+        "instantiated_in": KAN_SRC},
+    "cheby_qkv_grouped_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation, kan_basis_tc.cuh part 4: "
+                  "kan_bf16_dw<Cheby, NJ> (T_n made in f32 and rounded to bf16 at the dot, "
+                  "row splits in f32 partials, one rounding) and kan_bf16_dx<Cheby> (gy W^T in "
+                  "f32, T'_n (1 - t^2) in the epilogue, one rounding)",
+        "instantiated_in": KAN_SRC},
     "fourierkan": {"kernel": TC_FWD.format("FourierTc"), "instantiated_in": KAN_SRC},
     "fourierkan_bwd": {"kernel": TC_BWD.format("", "FourierTc"),
                        "instantiated_in": KAN_SRC},
@@ -4117,7 +4542,10 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
                                                 "flash_attention_lanes_bf16")},
              **{name: "bf16_train" for name in ("bspline_kan_bwd_bf16",
                                                 "bspline_qkv_grouped_bwd_bf16",
-                                                "flash_attention_lanes_bwd_bf16")}}
+                                                "flash_attention_lanes_bwd_bf16")},
+             "chebykan_bf16": "cheby_bf16_serve", "cheby_qkv_grouped_bf16": "cheby_bf16_serve",
+             "chebykan_bwd_bf16": "cheby_bf16_train",
+             "cheby_qkv_grouped_bwd_bf16": "cheby_bf16_train"}
 
 
 def timed(label, fn, *args):
@@ -4178,6 +4606,13 @@ def main():
         paths[f"{variant}_train"] = timed(
             f"{variant} training", phase_train, torch, smi, model_cpu,
             f"{variant}-train", per_batch, embedder)["launches"]
+        if variant == "cheby":  # bf16, on the f32 phases' weights
+            paths["cheby_bf16_serve"] = timed(
+                "cheby bf16 serving", phase_bf16_serve, torch, smi, model_cpu, SEED + 7,
+                "cheby", CHEBY_BF16_PER_BATCH)["launches"]
+            paths["cheby_bf16_train"] = timed(
+                "cheby bf16 training", phase_bf16_train, torch, smi, model_cpu, "cheby",
+                CHEBY_BF16_PER_BATCH, embedder)["launches"]
     vanilla_cpu = build_model("vanilla")
     paths["vanilla_serve"] = timed(
         "vanilla serving", phase_serve, torch, smi, vanilla_cpu,

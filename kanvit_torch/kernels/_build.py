@@ -51,6 +51,8 @@ SIGNATURES = {
         [_p, _i64, *[_p] * 5, *[_i32] * 5, _p], _i32),
     "kanvit_cheby_qkv_tc_bwd": ([_p, _i64, *[_p] * 6, *[_i32] * 5, _p], _i32),
     "kanvit_cheby_qkv_tc_fwd": ([_p, _i64, _p, _p, _p, _i64, *[_i32] * 4, _p], _i32),
+    "kanvit_cheby_tc_fwd_bf16": ([_p, _i64, _p, _p, _p, _i64, *[_i32] * 4, _p], _i32),
+    "kanvit_cheby_tc_bwd_bf16": ([_p, _i64, *[_p] * 5, *[_i32] * 5, _p], _i32),
     "kanvit_chebykan_tc_fwd": ([_p, _i64, _p, _p, _p, _i64, _p, *[_i32] * 5, _p], _i32),
     "kanvit_fourierkan_fwd": ([_p, _i64, _p, _p, _p, *[_i32] * 4, _p], _i32),
     "kanvit_fourierkan_bwd": ([_p, _i64, *[_p] * 5, *[_i32] * 4, _p], _i32),

@@ -35,7 +35,9 @@
 //   on bf16 operands) on kan_basis_tc.cuh part 3 with its Bf16 operand
 //   type, entry kanvit_bspline_tc_fwd_bf16; their backwards (_fused_bwd
 //   :1159, _fused_bwd_sg :1278 on bf16 operands) on part 4, entry
-//   kanvit_bspline_tc_bwd_bf16.
+//   kanvit_bspline_tc_bwd_bf16; chebykan's and cheby_qkv_grouped's the
+//   same way (_cheby_op :3491, _cheby_op_sg :1343 and their VJPs), entries
+//   kanvit_cheby_tc_fwd_bf16 and kanvit_cheby_tc_bwd_bf16.
 //   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
 //   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
 //   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on
@@ -94,6 +96,20 @@ constexpr int BSPLINE_EMB_FLUSH = 12;
 // sum 0.7643, levels of 6 0.9732. Below one wave (one image: 12 blocks)
 // the 4 levels run in blocks of their own.
 constexpr int CHEBY_EMB_WARPS = 12, CHEBY_EMB_MINB = 1, CHEBY_EMB_FLUSH = 24;
+// The bf16 forward's shape at both call sites, B-spline's bf16 rule: past
+// 64 outputs 192 a block at 12 warps, one block an SM
+// (kan_tc_fwd_grouped<Cheby, 24, 12, 1, Bf16, 0>); up to 64 outputs 64 a
+// block at CHEBY_BF16_WARPS warps, CHEBY_BF16_MINB blocks an SM. A 16-deep
+// bf16 stage is half a 3xTF32 one's bytes, so the f32 Chebyshev shapes'
+// reasons do not carry over; kanvit_torch/probe_bf16.py --cheby-shapes timed
+// nine on the H100 80GB HBM3 at 700 W (PERF.md), every one with the route's
+// bits: at the vit-s embedder 192 outputs at 12 warps took 0.2008 ms against
+// 0.2855 for the f32 q/k/v's 64 outputs at 8 warps and three blocks an SM
+// (0.2388 at 8 warps and two, 0.2732 at 64 outputs, 12 warps and two); at
+// the vit-s q/k/v 0.1140 against 0.1113, within the run's noise. Below one
+// wave the 192-output blocks lose (one vit-s image: 0.1960 ms against
+// 0.0880 at 64 outputs), as the B-spline bf16 embedder's do.
+constexpr int CHEBY_BF16_WARPS = 8, CHEBY_BF16_MINB = 3;
 
 // B-spline: 12 knots a feature (grid 5, order 3), 8 spline bases + silu.
 struct Bspline : FamilyDefaults {
@@ -447,6 +463,41 @@ extern "C" int kanvit_cheby_qkv_tc_bwd(const float* x, long long ldx, const floa
                                        void* stream) {
   return launch_tc_grouped_bwd<Cheby>(x, ldx, {}, w, gy, dx, dw, dw_part, wtsplit, n, groups,
                                       nin, nout, splits, (cudaStream_t)stream);
+}
+
+
+// The bf16 forward of the Chebyshev embedder (chebykan's) and of the grouped
+// q/k/v (cheby_qkv_grouped's), kanvit's bf16 serving policy on part 3's Bf16
+// operand type: x, w and y bf16, T_0..T_4 of tanh of the upcast x made in
+// f32 in registers and rounded to bf16 at the dot, two slices a 16-deep
+// step (three steps, the last half zero), f32 accumulation in one running
+// sum (levels would round between them in bf16), y rounded to bf16 once.
+// Both call sites take the shape above CHEBY_BF16_*; wsplit of wwords words
+// (launch_tc_grouped_fwd).
+extern "C" int kanvit_cheby_tc_fwd_bf16(const void* x, long long ldx, const void* w, void* y,
+                                        unsigned int* wsplit, long long wwords, int n,
+                                        int groups, int nin, int nout, void* stream) {
+  using bf = __nv_bfloat16;
+  return launch_tc_grouped_fwd<Cheby, CHEBY_BF16_WARPS, CHEBY_BF16_MINB, false, 0, Bf16>(
+      static_cast<const bf*>(x), ldx, {}, static_cast<const bf*>(w), static_cast<bf*>(y),
+      wsplit, wwords, n, groups, nin, nout, (cudaStream_t)stream);
+}
+
+// The bf16 backward of the Chebyshev embedder and q/k/v (kanvit's bf16
+// training policy, kan_basis_tc.cuh part 4): x, w, gy, dx and dw bf16; T_n
+// and T'_n (1 - t^2) made in f32, gW = gy W^T accumulated in f32 and never
+// rounded, dx summed in f32 and rounded once, dW summed in f32 over all the
+// rows (row splits into the f32 scratch dw_part of splits groups 5 nin nout
+// floats, added in split order) and rounded once; dx or dw null to skip it.
+extern "C" int kanvit_cheby_tc_bwd_bf16(const void* x, long long ldx, const void* w,
+                                        const void* gy, void* dx, void* dw, float* dw_part,
+                                        int n, int groups, int nin, int nout, int splits,
+                                        void* stream) {
+  using bf = __nv_bfloat16;
+  return launch_bf16_grouped_bwd<Cheby>(
+      static_cast<const bf*>(x), ldx, {}, static_cast<const bf*>(w),
+      static_cast<const bf*>(gy), static_cast<bf*>(dx), static_cast<bf*>(dw), dw_part, n,
+      groups, nin, nout, splits, (cudaStream_t)stream);
 }
 
 // Fourier, grid_size G >= 1 harmonics: S = 2G, one group. Forward: y (n,

@@ -15,15 +15,17 @@
 // Part 3 (below, "The grouped q/k/v forward"): y of a grouped KAN projection
 // (kan_tc_fwd_grouped), templated over the same families; instantiated for
 // B-spline and Chebyshev in kan_basis.cu and for RBF and sine (up to 4
-// slices) in kan_rbf_sine.cu; the B-spline and FastKAN embedders' forward
-// is its one-group case, its 768-deep sum in two levels. The sine grouped
-// forward past 4 slices and the Chebyshev embedder's forward stay on
-// kan_basis.cuh's CUDA-core kan_fwd_kernel.
+// slices) in kan_rbf_sine.cu; the B-spline, FastKAN and Chebyshev
+// embedders' forward is its one-group case, its 768-deep sum in two
+// levels. Its Bf16 operand type is kanvit's bf16 serving policy,
+// instantiated for B-spline and Chebyshev (the embedder and the q/k/v). The
+// sine grouped forward past 4 slices stays on kan_basis.cuh's CUDA-core
+// kan_fwd_kernel.
 //
 // Part 4 (below, "The bf16 backward"): dW and dx of a grouped KAN layer on
-// bf16 operands (kan_bf16_dw, kan_bf16_dx), kanvit's bf16 training policy;
-// instantiated for B-spline in kan_basis.cu, the embedder's backward its
-// one-group case.
+// bf16 operands (kan_bf16_dw, kan_bf16_dx), kanvit's bf16 training policy,
+// templated over kan_basis.cuh's families; instantiated for B-spline and
+// Chebyshev in kan_basis.cu, the embedder's backward its one-group case.
 //
 // Part 1:
 //
@@ -1348,7 +1350,8 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // one wave.
 //
 // bf16 (kanvit's bf16 serving; the B-spline embedder and q/k/v, entry
-// kanvit_bspline_tc_fwd_bf16): Op = Bf16, x, W and y bf16, one
+// kanvit_bspline_tc_fwd_bf16, and the Chebyshev ones, entry
+// kanvit_cheby_tc_fwd_bf16 at kan_basis.cu's CHEBY_BF16_* shape): Op = Bf16, x, W and y bf16, one
 // mma.sync.m16n8k16 a step of two slices (Bf16 above), the basis made in
 // f32 and rounded to bf16 at the dot, one f32 running sum (no levels: a
 // bf16 y would round between them), y rounded once. At vit-s: the embedder
@@ -1719,9 +1722,9 @@ int launch_tc_grouped_fwd(const typename Op::In* x, long long ldx, typename F::P
 //
 // Replaces, on bf16 operands, the TPU kernels that part 2 replaces in f32:
 // kanvit/kernels/fused_basis.py::_fused_bwd_sg (pallas_call at :1278, the
-// grouped q/k/v's backward, from _bspline_op_sg_bwd :1330) and _fused_bwd
-// (:1159, the patch embedder's, from _bspline_op's VJP :2624) as its
-// one-group case. Their body, _bwd_kernel (:566-625), keeps this policy on
+// grouped q/k/v's backward, from _bspline_op_sg_bwd :1330 and
+// _cheby_op_sg_bwd :1351) and _fused_bwd (:1159, the patch embedder's, from
+// _bspline_op's VJP :2624 and _cheby_op_bwd :3499) as its one-group case. Their body, _bwd_kernel (:566-625), keeps this policy on
 // bf16 inputs, which the kernels below follow:
 //   x upcast to f32, the basis B and its derivative B' made in f32;
 //   gW = gy W^T with bf16 operands and f32 accumulation, never rounded;

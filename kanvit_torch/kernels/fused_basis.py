@@ -49,16 +49,19 @@ The kernels are built for f32; the B-spline one for spline order 3 and a
 12-knot grid (grid size 5, the efficient-kan default), the Chebyshev one for
 degree 4, the RBF one for 8 centres; they raise on anything else.
 
-bf16 (kanvit's bf16 serving and training): :func:`bspline_kan` and
-:func:`bspline_qkv_grouped` take bf16 x and weights (the knot grid stays
-f32) and return bf16, through part 3's ``Bf16`` operand type forward and
-part 4's kernels backward (``csrc/kan_basis_tc.cuh``): the basis made in f32
-and rounded to bf16 at the dot, ``spline_weight * spline_scaler`` formed in
-bf16 as kanvit forms it, f32 accumulation, y, dx and dW each rounded once
-(kanvit's ``_bwd_kernel`` on bf16 operands). Their launches count under
-``<name>_bf16`` and ``<name>_bwd_bf16``. On the CPU the bf16 route is the
-kernels' plain twins (``K.bspline_grouped_forward_bf16`` and
-``K.bspline_grouped_backward_bf16``) through :class:`_KanBf16Plain`, whose
+bf16 (kanvit's bf16 serving and training): :func:`bspline_kan`,
+:func:`bspline_qkv_grouped`, :func:`chebykan` and :func:`cheby_qkv_grouped`
+(``BF16_FAMILY``) take bf16 x and weights (the knot grid stays f32) and
+return bf16, through part 3's ``Bf16`` operand type forward and part 4's
+kernels backward (``csrc/kan_basis_tc.cuh``): the basis (B-spline, or
+T_0..T_4 of tanh x) made in f32 from the upcast x and rounded to bf16 at
+the dot, ``spline_weight * spline_scaler`` formed in bf16 as kanvit forms
+it, f32 accumulation, y, dx and dW each rounded once (kanvit's
+``_fwd_kernel`` / ``_bwd_kernel`` on bf16 operands). Their launches count
+under ``<name>_bf16`` and ``<name>_bwd_bf16``. On the CPU the bf16 route is
+the kernels' plain twins (``K.bspline_grouped_forward_bf16`` and
+``K.bspline_grouped_backward_bf16``, ``K.cheby_grouped_forward_bf16`` and
+``K.cheby_grouped_backward_bf16``) through :class:`_KanBf16Plain`, whose
 backward is explicit: autograd through the forward twin would round at
 every op, which is not kanvit's policy. Every other entry point raises on
 bf16 (ROADMAP.md, Queue 2 entry 3b.2).
@@ -92,9 +95,12 @@ SINE_CHUNK = 4                       # sine slices per chunk, as in the kernel
 MAX_ROW_TILES = 65535                # the kernel's grid.y limit, 64 rows each
 ROWS_PER_TILE = 64
 
-# The entry points with bf16 kernels (C entries kanvit_bspline_tc_fwd_bf16 and
-# kanvit_bspline_tc_bwd_bf16).
-BF16_FWD = ("bspline_kan", "bspline_qkv_grouped")
+# The entry points with bf16 kernels and their families (C entries
+# kanvit_bspline_tc_fwd_bf16 and kanvit_bspline_tc_bwd_bf16,
+# kanvit_cheby_tc_fwd_bf16 and kanvit_cheby_tc_bwd_bf16).
+BF16_FAMILY = {"bspline_kan": "bspline", "bspline_qkv_grouped": "bspline",
+               "chebykan": "cheby", "cheby_qkv_grouped": "cheby"}
+BF16_FWD = tuple(BF16_FAMILY)
 BF16_TODO = "ROADMAP.md, Queue 2 entry 3b.2"
 LAUNCHES = {name: 0 for base in ("bspline_kan", "bspline_qkv_grouped",
                                  "chebykan", "cheby_qkv_grouped", "fourierkan",
@@ -165,7 +171,8 @@ TCG_FWD_FEATURES = 8
 TCG_FWD_STEPS = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 2,
                  "sine": SINE_CHUNK}
 # 64 outputs a forward block at every width (RBF: its 10 steps a stage do
-# not fit two stages of 192 outputs in shared memory)
+# not fit two stages of 192 outputs in shared memory); the bf16 forwards
+# take 192 past 64 outputs (kan_basis.cu's CHEBY_BF16_*)
 TCG_FWD_NARROW = ("cheby", "rbf")
 TCG_DW_TARGET_BLOCKS = 4  # blocks an SM the dW row splits aim at
 
@@ -304,13 +311,27 @@ def _knot_rows(grid: torch.Tensor) -> tuple[torch.Tensor, int]:
     return gridt, (gridt[0].numel() if grid.dim() == 3 else 0)
 
 
-def check_cheby_args(x2d: torch.Tensor, w: torch.Tensor, degree: int) -> None:
+def check_cheby_args(x2d: torch.Tensor, w: torch.Tensor, degree: int,
+                     bf16: bool = False) -> None:
     """Raise on anything the Chebyshev kernel does not take (device aside):
-    degree 4, ``w (G, 5, nin, out)`` contiguous, f32."""
+    degree 4, ``w (G, 5, nin, out)`` contiguous, f32, or (``bf16``, the bf16
+    kernels) x and w both bf16."""
     if degree != CHEBY_DEGREE:
         raise ValueError(f"the kernel is built for Chebyshev degree "
                          f"{CHEBY_DEGREE}, got {degree}")
-    _check_common(x2d, w, CHEBY_DEGREE + 1)
+    _check_common(x2d, w, CHEBY_DEGREE + 1, bf16)
+
+
+def _check_bf16(name: str, x2d, w, aux) -> str:
+    """The family of the bf16 kernels of ``name`` (``BF16_FAMILY``) after
+    checking their operands (``aux``: the knot grid or the degree)."""
+    family = BF16_FAMILY[name]
+    if family == "bspline":
+        check_args(x2d, aux, w, SPLINE_ORDER, bf16=True)
+    else:
+        check_cheby_args(x2d, w, aux, bf16=True)
+    _check_device(name, *_tensors(family, x2d, w, aux))
+    return family
 
 
 def _check_tc(x2d: torch.Tensor, w: torch.Tensor, harmonics: int) -> None:
@@ -453,14 +474,13 @@ def _counted(name: str, err: int, *outputs):
     return outputs
 
 
-def _launch_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor,
-                 grid: torch.Tensor) -> torch.Tensor:
-    """``y (N, G*out)`` bf16 from the bf16 B-spline forward of ``name``
-    (``BF16_FWD``): x and the packed weight bf16, the knot grid f32."""
+def _launch_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor, aux) -> torch.Tensor:
+    """``y (N, G*out)`` bf16 from the bf16 forward of ``name`` (``BF16_FWD``;
+    B-spline or Chebyshev): x and the packed weight bf16; ``aux`` the knot
+    grid (f32) or the degree."""
     if name not in BF16_FWD:
         raise TypeError(f"{name}: no bf16 kernel ({BF16_TODO})")
-    check_args(x2d, grid, w, SPLINE_ORDER, bf16=True)
-    _check_device(name, x2d, w, grid)
+    family = _check_bf16(name, x2d, w, aux)
     n = x2d.shape[0]
     groups, _, nin, out = w.shape
     y = torch.empty(n, groups * out, dtype=torch.bfloat16, device=x2d.device)
@@ -468,26 +488,31 @@ def _launch_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor,
         return y
     from kanvit_torch.kernels import _build
 
-    gridt, gstride = _knot_rows(grid)
-    wsplit = _tc_grouped_fwd_scratch(w, x2d.device, bf16=True)
+    lib = _build.load()
+    wsplit = _tc_grouped_fwd_scratch(w, x2d.device, family, bf16=True)
+    tail = (w.data_ptr(), y.data_ptr(), wsplit.data_ptr(), wsplit.numel(), n, groups, nin,
+            out, _stream(x2d.device))
     with torch.cuda.device(x2d.device):
-        err = _build.load().kanvit_bspline_tc_fwd_bf16(
-            x2d.data_ptr(), x2d.stride(0), gridt.data_ptr(), gstride, w.data_ptr(),
-            y.data_ptr(), wsplit.data_ptr(), wsplit.numel(), n, groups, nin, out,
-            _stream(x2d.device))
+        if family == "bspline":
+            gridt, gstride = _knot_rows(aux)
+            err = lib.kanvit_bspline_tc_fwd_bf16(x2d.data_ptr(), x2d.stride(0),
+                                                 gridt.data_ptr(), gstride, *tail)
+        else:
+            err = lib.kanvit_cheby_tc_fwd_bf16(x2d.data_ptr(), x2d.stride(0), *tail)
     return _counted(f"{name}_bf16", err, y)[0]
 
 
-def _launch_bwd_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor, grid: torch.Tensor,
+def _launch_bwd_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor, aux,
                      gy: torch.Tensor, need_dx: bool, need_dw: bool):
-    """``(dx (N, G*nin) or None, dw (G, 9, nin, out) or None)``, bf16, from
-    the bf16 B-spline backward of ``name`` (``BF16_FWD``): x, the packed
-    weight and ``gy (N, G*out)`` bf16, the knot grid f32; dW's row splits
-    summed in f32 in a scratch and rounded once."""
+    """``(dx (N, G*nin) or None, dw (G, S, nin, out) or None)``, bf16, from
+    the bf16 backward of ``name`` (``BF16_FWD``; B-spline or Chebyshev): x,
+    the packed weight and ``gy (N, G*out)`` bf16, ``aux`` the knot grid
+    (f32) or the degree; dW's row splits summed in f32 in a scratch and
+    rounded once."""
     if name not in BF16_FWD:
         raise NotImplementedError(f"{name}: no bf16 backward kernel ({BF16_TODO})")
-    check_args(x2d, grid, w, SPLINE_ORDER, bf16=True)
-    _check_device(name, x2d, w, grid, gy)
+    family = _check_bf16(name, x2d, w, aux)
+    _check_device(name, x2d, gy)
     n = x2d.shape[0]
     groups, _, nin, out = w.shape
     if gy.dtype != torch.bfloat16 or tuple(gy.shape) != (n, groups * out):
@@ -507,12 +532,16 @@ def _launch_bwd_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor, grid: torch.
         splits = tc_grouped_dw_splits(
             n, groups, nin, out, torch.cuda.get_device_properties(dev).multi_processor_count)
         part = _empty(splits, *w.shape, device=dev)
-    gridt, gstride = _knot_rows(grid)
+    lib = _build.load()
+    tail = (w.data_ptr(), gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), n, groups, nin, out,
+            splits, _stream(dev))
     with torch.cuda.device(dev):
-        err = _build.load().kanvit_bspline_tc_bwd_bf16(
-            x2d.data_ptr(), x2d.stride(0), gridt.data_ptr(), gstride, w.data_ptr(),
-            gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), n, groups, nin, out, splits,
-            _stream(dev))
+        if family == "bspline":
+            gridt, gstride = _knot_rows(aux)
+            err = lib.kanvit_bspline_tc_bwd_bf16(x2d.data_ptr(), x2d.stride(0),
+                                                 gridt.data_ptr(), gstride, *tail)
+        else:
+            err = lib.kanvit_cheby_tc_bwd_bf16(x2d.data_ptr(), x2d.stride(0), *tail)
     return _counted(f"{name}_bwd_bf16", err, dx, dw)
 
 
@@ -520,8 +549,9 @@ def _launch(name: str, family: str, x2d: torch.Tensor, w: torch.Tensor,
             aux) -> torch.Tensor:
     """``y (N, G*out)`` from the forward kernel of ``family`` ("bspline",
     "cheby" or "fourier"); ``aux`` is the knot grid ``(nin, 12)``, the
-    degree or the grid size. A bf16 x takes the bf16 forward."""
-    if x2d.dtype == torch.bfloat16 and family == "bspline":
+    degree or the grid size. A bf16 x takes the bf16 forward (``BF16_FWD``;
+    the others raise)."""
+    if x2d.dtype == torch.bfloat16 and name in BF16_FWD:
         return _launch_bf16(name, x2d, w, aux)
     _check(family, x2d, w, aux)
     _check_device(name, *_tensors(family, x2d, w, aux))
@@ -593,10 +623,11 @@ def tc_grouped_outs(nout: int) -> int:
     return 64 if nout <= 64 else 192
 
 
-def tc_fwd_outs(family: str, nout: int) -> int:
+def tc_fwd_outs(family: str, nout: int, bf16: bool = False) -> int:
     """Outputs a block of the grouped tensor-core forward: 64 for a family
-    in ``TCG_FWD_NARROW``, else the grouped dW's."""
-    return 64 if family in TCG_FWD_NARROW else tc_grouped_outs(nout)
+    in ``TCG_FWD_NARROW``, else (and for every ``bf16`` forward) the
+    grouped dW's."""
+    return 64 if family in TCG_FWD_NARROW and not bf16 else tc_grouped_outs(nout)
 
 
 def tc_fwd_splits(name: str, n: int, groups: int, nin: int, nout: int, n_sm: int,
@@ -658,7 +689,7 @@ def _tc_grouped_fwd_scratch(w, dev, family: str = "bspline",
     remainders) x 8 features x the block's outputs, two words a value;
     ``bf16``: steps of two slices, one word (a bf16 pair) a value."""
     groups, _, nin, out = w.shape
-    outs = tc_fwd_outs(family, out)
+    outs = tc_fwd_outs(family, out, bf16)
     steps = TCG_FWD_STEPS[family]
     words = -(-steps // 2) if bf16 else 2 * steps
     return torch.empty(groups * -(-out // outs) * -(-nin // TCG_FWD_FEATURES)
@@ -756,20 +787,30 @@ class _KanFn(torch.autograd.Function):
 
 
 class _KanBf16Plain(torch.autograd.Function):
-    """The CPU route of a bf16 B-spline layer: the plain twins of the bf16
-    kernels on the packed weight, forward and an explicit backward (dx only
-    where asked, as on the card)."""
+    """The CPU route of a bf16 B-spline or Chebyshev layer (``family``): the
+    plain twins of the bf16 kernels on the packed weight, forward and an
+    explicit backward (dx only where asked, as on the card); ``aux`` the
+    knot grid or the degree."""
 
     @staticmethod
-    def forward(ctx, x2d, w, grid):
-        ctx.save_for_backward(x2d, w, grid)
-        return K.bspline_grouped_forward_bf16(x2d, grid, w)
+    def forward(ctx, x2d, w, aux, family="bspline"):
+        ctx.family = family
+        if family == "bspline":
+            ctx.save_for_backward(x2d, w, aux)
+            return K.bspline_grouped_forward_bf16(x2d, aux, w)
+        ctx.save_for_backward(x2d, w)
+        return K.cheby_grouped_forward_bf16(x2d, w)
 
     @staticmethod
     def backward(ctx, gy):
-        x2d, w, grid = ctx.saved_tensors
-        dx, dw = K.bspline_grouped_backward_bf16(x2d, grid, w, gy, *ctx.needs_input_grad[:2])
-        return dx, dw, None
+        need = ctx.needs_input_grad[:2]
+        if ctx.family == "bspline":
+            x2d, w, grid = ctx.saved_tensors
+            dx, dw = K.bspline_grouped_backward_bf16(x2d, grid, w, gy, *need)
+        else:
+            x2d, w = ctx.saved_tensors
+            dx, dw = K.cheby_grouped_backward_bf16(x2d, w, gy, *need)
+        return dx, dw, None, None
 
 
 def bspline_kan(x, grid, base_weight, spline_weight, spline_scaler,
@@ -826,14 +867,19 @@ def chebykan(x, coeffs):
     """ChebyKAN forward, ``(..., in) -> (..., out)``, differentiable.
 
     Same signature as ``kanvit_torch.ops.kan_bases.chebykan_forward``;
-    ``coeffs (in, out, degree+1)``.
+    ``coeffs (in, out, degree+1)``. A bf16 x takes the bf16 kernels (on the
+    CPU their plain twins).
     """
-    if not dispatch.use_kernel(x):
+    kernel = dispatch.use_kernel(x)
+    if not kernel and x.dtype != torch.bfloat16:
         return K.chebykan_forward(x, coeffs)
     lead, nin = x.shape[:-1], x.shape[-1]
+    degree = coeffs.shape[2] - 1
     w = pack_cheby_weight(coeffs).contiguous()
-    y = _KanFn.apply(x.reshape(-1, nin), w, coeffs.shape[2] - 1, "chebykan",
-                     "cheby")
+    if kernel:
+        y = _KanFn.apply(x.reshape(-1, nin), w, degree, "chebykan", "cheby")
+    else:
+        y = _KanBf16Plain.apply(x.reshape(-1, nin), w.to(torch.bfloat16), degree, "cheby")
     return y.reshape(*lead, coeffs.shape[1])
 
 
@@ -846,7 +892,11 @@ def cheby_qkv_grouped(x2d, cc):
     (h+1)*out)``, as ``bspline_qkv_grouped``.
     """
     h, dh, _, deg1 = cc.shape
-    if not dispatch.use_kernel(x2d):
+    kernel = dispatch.use_kernel(x2d)
+    if not kernel and x2d.dtype == torch.bfloat16:
+        w = pack_cheby_qkv_weight(cc).to(torch.bfloat16).contiguous()
+        return _KanBf16Plain.apply(x2d, w, deg1 - 1, "cheby")
+    if not kernel:
         return torch.cat([K.chebykan_forward(x2d[:, i * dh:(i + 1) * dh], cc[i])
                           for i in range(h)], dim=1)
     w = pack_cheby_qkv_weight(cc).contiguous()

@@ -7,6 +7,11 @@ through :func:`bspline_kan_forward`, :func:`chebykan_forward`,
 :func:`sinekan_forward` is the backward kernels' plain version), and the
 card holds the kernels against them: the B-spline (efficient-kan),
 Chebyshev, Fourier, RBF (FastKAN, with its LayerNorm) and sine families.
+The bf16 kernels' plain twins (kanvit's kernel route on bf16 operands:
+the basis in f32, rounded to bf16 at the dot, f32 sums, each output
+rounded once) are :func:`grouped_forward_bf16` and
+:func:`grouped_backward_bf16` over a family's slices, for B-spline and
+Chebyshev; they are the CPU route of a bf16 layer.
 """
 
 from __future__ import annotations
@@ -177,87 +182,123 @@ def bspline_slices_bf16(xf: torch.Tensor, grid: torch.Tensor, spline_order: int 
     return a, torch.cat([db.transpose(1, 2), (sig + silu * (1.0 - sig)).unsqueeze(1)], 1)
 
 
-def _group_operands(x2d, grid, w, g):
-    groups, _, nin, _ = w.shape
-    return (x2d[:, g * nin:(g + 1) * nin].float(),
-            grid[g] if grid.dim() == 3 else grid)
+def _bspline_slices_of(grid, spline_order):
+    """``slices(g, xf, with_grad)`` of group ``g``'s B-spline layer
+    (:func:`bspline_slices_bf16` on its grid: one shared, or a grid a
+    group)."""
+    def slices(g, xf, with_grad=False):
+        return bspline_slices_bf16(xf, grid[g] if grid.dim() == 3 else grid, spline_order,
+                                   with_grad)
+    return slices
+
+
+def grouped_forward_bf16(x2d: torch.Tensor, w: torch.Tensor, slices,
+                         exact: bool = False) -> torch.Tensor:
+    """The bf16 KAN kernels' forward on the packed weight, for any family:
+    ``x2d (N, G*nin)`` and ``w (G, S, nin, out)`` bf16; ``slices(g, xf)``
+    gives group ``g``'s ``(N, S, nin)`` contracted slices of its upcast x
+    ``xf`` in f32. Per group, the slices rounded to bf16 once, the products
+    exact and summed in f32, y rounded to bf16 once: ``(N, G*out)`` bf16.
+    ``exact``: the same rounded operands summed in f64 and returned
+    unrounded."""
+    n = x2d.shape[0]
+    groups, _, nin, nout = w.shape
+    acc = torch.float64 if exact else torch.float32
+    ys = []
+    for g in range(groups):
+        a = slices(g, x2d[:, g * nin:(g + 1) * nin].float()).to(torch.bfloat16)
+        ys.append(a.to(acc).reshape(n, -1) @ w[g].to(acc).reshape(-1, nout))
+    y = torch.cat(ys, 1)
+    return y if exact else y.to(torch.bfloat16)
+
+
+def grouped_backward_bf16(x2d, w, gy, slices, need_dx: bool = True, need_dw: bool = True,
+                          exact: bool = False):
+    """The bf16 KAN kernels' backward (kanvit's ``_bwd_kernel`` on bf16
+    operands, ``kanvit/kernels/fused_basis.py:566-625``, and its split tier,
+    ``:993-1039``; not ``_jnp_bwd``, which keeps the basis in f32), on
+    :func:`grouped_forward_bf16`'s operands and ``gy (N, G*out)`` bf16;
+    ``slices(g, xf, with_grad=True)`` also gives the slices' x-derivatives
+    in f32. Per group:
+
+    - ``gW = gy W^T``, bf16 operands, the products exact and summed in f32
+      (never rounded);
+    - ``dx = sum_s gW_s d_s(x)``, the derivatives made in f32 from the
+      upcast x, summed in f32 in slice order and rounded to bf16 once;
+    - ``dW = bf16(slices)^T gy``, summed in f32 over all the rows and
+      rounded to bf16 once.
+
+    Returns ``(dx (N, G*nin) or None, dw (G, S, nin, out) or None)``, bf16;
+    ``exact``: the same rounded operands summed in f64, unrounded."""
+    n = x2d.shape[0]
+    groups, nslices, nin, nout = w.shape
+    acc = torch.float64 if exact else torch.float32
+    dxs, dws = [], []
+    for g in range(groups):
+        gyg = gy[:, g * nout:(g + 1) * nout].to(acc)
+        a, d = slices(g, x2d[:, g * nin:(g + 1) * nin].float(), with_grad=True)
+        if need_dx:
+            gw = (gyg @ w[g].to(acc).reshape(-1, nout).T).reshape(n, nslices, nin)
+            dx = torch.zeros(n, nin, dtype=acc, device=x2d.device)
+            for s in range(nslices):
+                dx = dx + gw[:, s] * d[:, s].to(acc)
+            dxs.append(dx)
+        if need_dw:
+            ab = a.to(torch.bfloat16).to(acc).reshape(n, -1)
+            dws.append((ab.T @ gyg).reshape(nslices, nin, nout))
+    out = (torch.cat(dxs, 1) if need_dx else None,
+           torch.stack(dws) if need_dw else None)
+    return out if exact else tuple(None if t is None else t.to(torch.bfloat16) for t in out)
+
+
+def grouped_dw_spread_bf16(x2d, w, gy, slices) -> torch.Tensor:
+    """``sum_n |bf16(slice)| |gy|`` in f32, ``(G, S, nin, out)``: what the
+    bf16 dW moves by, times 2^8, when every slice value rounds to its
+    neighbouring bf16 value (an f32 value one f32 ulp off can). The weight
+    of the rounded intermediate in the bf16 dW's gate."""
+    n = x2d.shape[0]
+    groups, nslices, nin, nout = w.shape
+    out = []
+    for g in range(groups):
+        a = slices(g, x2d[:, g * nin:(g + 1) * nin].float()).to(torch.bfloat16).float().abs()
+        out.append((a.reshape(n, -1).T @ gy[:, g * nout:(g + 1) * nout].float().abs())
+                   .reshape(nslices, nin, nout))
+    return torch.stack(out)
+
+
+def grouped_fwd_spread_bf16(x2d, w, slices) -> torch.Tensor:
+    """``|bf16(slices)| @ |W|`` in f32, ``(N, G*out)``: what the bf16
+    forward moves by, times 2^8, when every slice value rounds to its
+    neighbouring bf16 value. The weight of the rounded intermediate in the
+    bf16 forward's gate."""
+    n = x2d.shape[0]
+    groups, _, nin, nout = w.shape
+    return torch.cat([
+        slices(g, x2d[:, g * nin:(g + 1) * nin].float()).to(torch.bfloat16).float().abs()
+        .reshape(n, -1) @ w[g].float().abs().reshape(-1, nout) for g in range(groups)], 1)
 
 
 def bspline_grouped_forward_bf16(x2d: torch.Tensor, grid: torch.Tensor, w: torch.Tensor,
                                  spline_order: int = 3, exact: bool = False) -> torch.Tensor:
     """The bf16 B-spline kernels' forward on the packed weight: ``x2d (N,
     G*nin)`` and ``w (G, K+1, nin, out)`` bf16, ``grid (nin, knots)`` or a
-    grid a group ``(G, nin, knots)`` f32. Per group, the slices of the
-    upcast x made in f32 (:func:`bspline_slices_bf16`) and rounded to bf16
-    once, the products exact and summed in f32, y rounded to bf16 once:
-    ``(N, G*out)`` bf16. ``exact``: the same rounded operands summed in f64
-    and returned unrounded."""
-    n = x2d.shape[0]
-    groups, _, _, nout = w.shape
-    acc = torch.float64 if exact else torch.float32
-    ys = []
-    for g in range(groups):
-        xf, gg = _group_operands(x2d, grid, w, g)
-        a = bspline_slices_bf16(xf, gg, spline_order).to(torch.bfloat16)
-        ys.append(a.to(acc).reshape(n, -1) @ w[g].to(acc).reshape(-1, nout))
-    y = torch.cat(ys, 1)
-    return y if exact else y.to(torch.bfloat16)
+    grid a group ``(G, nin, knots)`` f32; :func:`grouped_forward_bf16` over
+    :func:`bspline_slices_bf16`."""
+    return grouped_forward_bf16(x2d, w, _bspline_slices_of(grid, spline_order), exact)
 
 
 def bspline_grouped_backward_bf16(x2d, grid, w, gy, need_dx: bool = True,
                                   need_dw: bool = True, spline_order: int = 3,
                                   exact: bool = False):
-    """The bf16 B-spline kernels' backward (kanvit's ``_bwd_kernel`` on
-    bf16 operands, ``kanvit/kernels/fused_basis.py:566-625``, and its split
-    tier, ``:993-1039``; not ``_jnp_bwd``, which keeps the basis in f32), on
-    :func:`bspline_grouped_forward_bf16`'s operands and ``gy (N, G*out)``
-    bf16. Per group:
-
-    - ``gW = gy W^T``, bf16 operands, the products exact and summed in f32
-      (never rounded);
-    - ``dx = sum_s gW_s B'_s(x)``, B' made in f32 from the upcast x, summed
-      in f32 in slice order and rounded to bf16 once;
-    - ``dW = bf16(slices)^T gy``, summed in f32 over all the rows and
-      rounded to bf16 once.
-
-    Returns ``(dx (N, G*nin) or None, dw (G, K+1, nin, out) or None)``,
-    bf16; ``exact``: the same rounded operands summed in f64, unrounded."""
-    n = x2d.shape[0]
-    groups, slices, nin, nout = w.shape
-    acc = torch.float64 if exact else torch.float32
-    dxs, dws = [], []
-    for g in range(groups):
-        xf, gg = _group_operands(x2d, grid, w, g)
-        gyg = gy[:, g * nout:(g + 1) * nout].to(acc)
-        a, d = bspline_slices_bf16(xf, gg, spline_order, with_grad=True)
-        if need_dx:
-            gw = (gyg @ w[g].to(acc).reshape(-1, nout).T).reshape(n, slices, nin)
-            dx = torch.zeros(n, nin, dtype=acc, device=x2d.device)
-            for s in range(slices):
-                dx = dx + gw[:, s] * d[:, s].to(acc)
-            dxs.append(dx)
-        if need_dw:
-            ab = a.to(torch.bfloat16).to(acc).reshape(n, -1)
-            dws.append((ab.T @ gyg).reshape(slices, nin, nout))
-    out = (torch.cat(dxs, 1) if need_dx else None,
-           torch.stack(dws) if need_dw else None)
-    return out if exact else tuple(None if t is None else t.to(torch.bfloat16) for t in out)
+    """The bf16 B-spline kernels' backward, :func:`grouped_backward_bf16`
+    over :func:`bspline_slices_bf16` (B' in kanvit's closed form)."""
+    return grouped_backward_bf16(x2d, w, gy, _bspline_slices_of(grid, spline_order), need_dx,
+                                 need_dw, exact)
 
 
 def bspline_dw_spread_bf16(x2d, grid, w, gy, spline_order: int = 3) -> torch.Tensor:
-    """``sum_n |bf16(slice)| |gy|`` in f32, ``(G, K+1, nin, out)``: what the
-    bf16 dW moves by, times 2^8, when every basis value rounds to its
-    neighbouring bf16 value (an f32 basis one f32 ulp off can). The
-    weight of the rounded intermediate in the bf16 dW's gate."""
-    n = x2d.shape[0]
-    groups, slices, nin, nout = w.shape
-    out = []
-    for g in range(groups):
-        xf, gg = _group_operands(x2d, grid, w, g)
-        a = bspline_slices_bf16(xf, gg, spline_order).to(torch.bfloat16).float().abs()
-        out.append((a.reshape(n, -1).T @ gy[:, g * nout:(g + 1) * nout].float().abs())
-                   .reshape(slices, nin, nout))
-    return torch.stack(out)
+    """:func:`grouped_dw_spread_bf16` of the B-spline layer."""
+    return grouped_dw_spread_bf16(x2d, w, gy, _bspline_slices_of(grid, spline_order))
 
 
 def bspline_curve2coeff(x: torch.Tensor, y: torch.Tensor, grid: torch.Tensor,
@@ -354,12 +395,67 @@ def cheby_bases_and_grad(x: torch.Tensor, degree: int):
 def chebykan_forward(x: torch.Tensor, coeffs: torch.Tensor) -> torch.Tensor:
     """ChebyKAN forward (reference ``cheby.py:36-48``), ``coeffs (in, out,
     degree+1)``. Shape-preserving over leading dims: the reference collapses
-    them and crashes the ViT, kanvit repairs that (SURVEY §2.9.1)."""
+    them and crashes the ViT, kanvit repairs that (SURVEY §2.9.1).
+
+    A bf16 ``x`` follows the bf16 kernel's policy (kanvit's kernel route,
+    not its jnp route, which makes the basis in bf16):
+    :func:`cheby_grouped_forward_bf16`."""
     lead, nin = x.shape[:-1], x.shape[-1]
     _, nout, deg1 = coeffs.shape
+    if x.dtype == torch.bfloat16:
+        w = coeffs.to(torch.bfloat16).permute(2, 0, 1).unsqueeze(0).contiguous()
+        return cheby_grouped_forward_bf16(x.reshape(-1, nin), w).reshape(*lead, nout)
     basis = cheby_bases(x.reshape(-1, nin), deg1 - 1)  # (N, in, deg+1)
     y = basis.reshape(basis.shape[0], -1) @ coeffs.transpose(0, 1).reshape(nout, -1).T
     return y.reshape(*lead, nout)
+
+
+def cheby_slices_bf16(xf: torch.Tensor, degree: int = 4, with_grad: bool = False):
+    """The Chebyshev layer's contracted slices of the f32 ``xf (N, in)`` as
+    the bf16 kernels make them, in f32 (every group the same family):
+    ``(N, degree+1, in)``, T_n(tanh x) by the recurrence. ``with_grad``:
+    also their x-derivatives, the differentiated recurrence times 1 - t^2
+    (:func:`cheby_bases_and_grad`, kanvit's ``cheby_family``)."""
+    if not with_grad:
+        return cheby_bases(xf, degree).transpose(1, 2)
+    b, d = cheby_bases_and_grad(xf, degree)
+    return b.transpose(1, 2), d.transpose(1, 2)
+
+
+def _cheby_slices_of(w):
+    degree = w.shape[1] - 1
+    return lambda g, xf, with_grad=False: cheby_slices_bf16(xf, degree, with_grad)
+
+
+def cheby_grouped_forward_bf16(x2d: torch.Tensor, w: torch.Tensor,
+                               exact: bool = False) -> torch.Tensor:
+    """The bf16 Chebyshev kernels' forward on the packed weight ``w (G,
+    degree+1, nin, out)`` bf16 (``chebykan``: one group; ``cheby_qkv_grouped``:
+    a group a head) and ``x2d (N, G*nin)`` bf16: T_n(tanh x) of the upcast x
+    made in f32 and rounded to bf16 once, the products exact and summed in
+    f32 in one running sum, y rounded to bf16 once (kanvit's ``_fwd_kernel``
+    on bf16 operands, :func:`grouped_forward_bf16`)."""
+    return grouped_forward_bf16(x2d, w, _cheby_slices_of(w), exact)
+
+
+def cheby_grouped_backward_bf16(x2d, w, gy, need_dx: bool = True, need_dw: bool = True,
+                                exact: bool = False):
+    """The bf16 Chebyshev kernels' backward (kanvit's ``_bwd_kernel`` on
+    bf16 operands), :func:`grouped_backward_bf16` over
+    :func:`cheby_slices_bf16`: gW = gy W^T in f32, never rounded; dx = sum_n
+    gW_n T'_n (1 - t^2) in f32, rounded once; dW = bf16(T)^T gy over all the
+    rows in f32, rounded once."""
+    return grouped_backward_bf16(x2d, w, gy, _cheby_slices_of(w), need_dx, need_dw, exact)
+
+
+def cheby_dw_spread_bf16(x2d, w, gy) -> torch.Tensor:
+    """:func:`grouped_dw_spread_bf16` of the Chebyshev layer, |T|^T |gy|."""
+    return grouped_dw_spread_bf16(x2d, w, gy, _cheby_slices_of(w))
+
+
+def cheby_fwd_spread_bf16(x2d, w) -> torch.Tensor:
+    """:func:`grouped_fwd_spread_bf16` of the Chebyshev layer, |T| @ |W|."""
+    return grouped_fwd_spread_bf16(x2d, w, _cheby_slices_of(w))
 
 
 # --- Gaussian RBF (FastKAN) ---------------------------------------------------

@@ -11,9 +11,10 @@ a bf16 copy, the module's f32 parameters untouched), ``x`` cast to bf16,
 the logits cast to f32 before CE, cuBLAS reducing in f32 in the forward and
 the backward (``kanvit_torch.utils.precision``). In training the gradients
 come back through the casts to the f32 parameters, whose ``.grad`` is f32,
-and the optimizer runs in f32. A bf16 training step takes the efficientkan,
-vanilla and flash-attn ViTs; the others raise before any launch
-(``precision.check_bf16_trainable``).
+and the optimizer runs in f32. The casts are a fixed number of operations
+a step, forward and backward (``precision.bf16_params``). A bf16 training
+step takes the efficientkan, cheby, vanilla and flash-attn ViTs; the
+others raise before any launch (``precision.check_bf16_trainable``).
 """
 
 from __future__ import annotations

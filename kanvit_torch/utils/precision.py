@@ -19,15 +19,30 @@ off for the span of a bf16 forward (and, in training, its backward) and
 restores the caller's setting after, so no global changes for the port's
 callers.
 
+A bf16 step casts every f32 parameter in a fixed number of operations,
+whatever the parameter count (:func:`bf16_params`): the f32 parameters are
+re-pointed once as views of one flat f32 buffer (the parameter objects,
+their names and the optimizer's state stay), so the forward is one cast of
+that buffer into a flat bf16 buffer whose views feed
+``torch.func.functional_call``; the backward gathers the views' bf16
+gradients into one flat buffer (``torch.cat``) and casts it once to f32,
+whose views become the parameters' ``.grad``. The values are kanvit's: bf16
+of each f32 parameter forward, f32 of each bf16 gradient back, bit for bit
+what a cast of each parameter gives.
+
+bf16 serving takes the efficientkan, cheby, vanilla and flash-attn ViTs;
 :func:`check_bf16_trainable` raises for the models whose kernels have no
-bf16 backward yet, before any launch.
+bf16 path yet (the fourier, fast and sine ViTs, a fused-FF model), before
+any launch.
 """
 
 from __future__ import annotations
 
 import contextlib
+import weakref
 
 import torch
+from torch._utils import _flatten_dense_tensors, _unflatten_dense_tensors
 
 
 def _refit_grids(model: torch.nn.Module):
@@ -43,13 +58,79 @@ def _round_bf16(t: torch.Tensor) -> torch.Tensor:
     return t.to(torch.bfloat16).to(t.dtype)
 
 
+class _FlatF32:
+    """A model's f32 parameters as views of one flat f32 buffer: the
+    parameter objects and the data pointers that say whether they still are
+    those views."""
+
+    def __init__(self, params: list[torch.Tensor]):
+        self.params = params
+        with torch.no_grad(), torch.inference_mode(False):
+            self.flat = _flatten_dense_tensors([p.detach() for p in params])
+            for p, view in zip(params, _unflatten_dense_tensors(self.flat, params)):
+                p.data = view
+        self.ptrs = self._ptrs(params)
+
+    @staticmethod
+    def _ptrs(params) -> tuple:
+        return tuple(p.data_ptr() for p in params)
+
+    def holds(self, params: list[torch.Tensor]) -> bool:
+        return (len(params) == len(self.params)
+                and all(p is q for p, q in zip(params, self.params))
+                and self._ptrs(params) == self.ptrs)
+
+
+# The flat buffer of each model whose f32 parameters a bf16 step re-pointed
+# (weak: it goes with the model).
+_FLAT: weakref.WeakKeyDictionary = weakref.WeakKeyDictionary()
+
+
+def _flat_f32(model: torch.nn.Module, params: list[torch.Tensor]) -> _FlatF32:
+    """``model``'s f32 ``params`` as views of one flat buffer: the kept one
+    while they still are its views, else a new one (the first bf16 step, or
+    after ``.to()``, ``copy.deepcopy`` or an assignment to a ``.data``)."""
+    flat = _FLAT.get(model)
+    if flat is None or not flat.holds(params):
+        flat = _FLAT[model] = _FlatF32(params)
+    return flat
+
+
+class _Bf16Cast(torch.autograd.Function):
+    """bf16 copies of the f32 parameters ``params``, views of the flat
+    buffer ``flat``: forward one cast of the buffer, the copies its views;
+    backward the copies' bf16 gradients gathered into one flat buffer (one
+    ``torch.cat``), one cast to f32, each parameter's gradient a view of it.
+    The views are made and gathered in C++ (``torch._utils``' dense-tensor
+    flattening), a few microseconds of host a parameter."""
+
+    @staticmethod
+    def forward(ctx, flat, *params):
+        ctx.params = params
+        return tuple(_unflatten_dense_tensors(flat.to(torch.bfloat16), params))
+
+    @staticmethod
+    def backward(ctx, *grads):
+        g32 = _flatten_dense_tensors(grads).float()
+        return (None, *_unflatten_dense_tensors(g32, ctx.params))
+
+
 def bf16_params(model: torch.nn.Module) -> dict[str, torch.Tensor]:
     """A bf16 copy of every f32 parameter of ``model`` (others as they
     are), and each refit grid rounded to bf16 values: the tensors for
-    ``torch.func.functional_call`` of a bf16 step, which leaves the model's
-    own f32 parameters untouched."""
-    out = {name: p.to(torch.bfloat16) if p.dtype == torch.float32 else p
-           for name, p in model.named_parameters()}
+    ``torch.func.functional_call`` of a bf16 step, which leaves the values
+    of the model's own f32 parameters untouched. The f32 parameters become
+    views of one flat buffer the first time, and the casts are one
+    operation forward and a gather and one cast backward (the module
+    docstring); gradients reach each f32 parameter's ``.grad`` as f32."""
+    named = list(model.named_parameters())
+    out = dict(named)
+    f32 = [(name, p) for name, p in named if p.dtype == torch.float32]
+    if f32:
+        params = [p for _, p in f32]
+        flat = _flat_f32(model, params)
+        casts = _Bf16Cast.apply(flat.flat, *params)
+        out.update(zip((name for name, _ in f32), casts))
     out.update({name: _round_bf16(g) for name, g in _refit_grids(model)})
     return out
 
@@ -89,14 +170,14 @@ def f32_accumulation():
 
 
 # The ViT kinds whose KAN kernels have no bf16 path yet.
-BF16_UNPORTED = ("cheby", "fourier", "fast", "sine")
+BF16_UNPORTED = ("fourier", "fast", "sine")
 
 
 def check_bf16_trainable(model: torch.nn.Module) -> None:
     """Raise ``NotImplementedError`` for a model that a bf16 training step
-    cannot take: the cheby, fourier, fast and sine ViTs (their KAN kernels
-    have no bf16 path: ROADMAP.md, Queue 2 entry 3b.2) and a fused-FF model
-    (the fused FF's: entry 3b.4). The efficientkan, vanilla and flash-attn
+    cannot take: the fourier, fast and sine ViTs (their KAN kernels have no
+    bf16 path: ROADMAP.md, Queue 2 entry 3b.2) and a fused-FF model (the
+    fused FF's: entry 3b.4). The efficientkan, cheby, vanilla and flash-attn
     ViTs pass."""
     kind = getattr(model, "type", None)
     if kind in BF16_UNPORTED:

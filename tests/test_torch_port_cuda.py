@@ -2131,9 +2131,73 @@ def test_bf16_backward_and_other_head_dims_raise(cuda):
         with torch.inference_mode(), pytest.raises(ValueError, match=f"head dim {dh}"):
             FA.flash_attention_lanes(q, q, q, 2)
     with torch.inference_mode(), pytest.raises(TypeError, match="float32"):
-        FB.chebykan(torch.zeros(4, 16, device=cuda, dtype=BF16),
-                    torch.zeros(16, 3, 5, device=cuda, dtype=BF16))
+        FB.fastkan(torch.zeros(4, 16, device=cuda, dtype=BF16), None, None,
+                   torch.linspace(-2, 2, 8, device=cuda), 4 / 7,
+                   torch.zeros(3, 16 * 8, device=cuda, dtype=BF16), None, None)
     assert FA.LAUNCHES["flash_attention_lanes_bf16"] == 1
+
+
+# --- bf16 Chebyshev: the bf16 forwards and backwards of chebykan and
+# cheby_qkv_grouped against their plain twins, within one bf16 ulp plus one of
+# each rounded T_n weighted as the next product weighs it (2^-8 |T| |W| for y,
+# 2^-8 |T|^T |gy| for dW; chip_smoke.py's gates), no further than twice the
+# twin from the f64 sum of the same rounded operands, their bits repeated.
+
+CHEBY_BF16_SHAPES = [("chebykan", 37 * 49, None, 16, 64), ("chebykan", 300, None, 100, 70),
+                     ("chebykan", 64 * 196, None, 768, 384),
+                     ("cheby_qkv_grouped", 37 * 50, 2, 32, 96),
+                     ("cheby_qkv_grouped", 64 * 50, 8, 8, 24),
+                     ("cheby_qkv_grouped", 64 * 197, 6, 64, 192),
+                     ("cheby_qkv_grouped", 301, 2, 20, 20)]
+
+
+def _cheby_bf16_case(cuda, rng, n, heads, nin, nout):
+    groups = 1 if heads is None else heads
+    x = _cheby_x(rng, (n, groups * nin)).to(cuda).to(BF16)
+    cc = (torch.from_numpy((rng.standard_normal((groups, nin, nout, 5))
+                            / np.sqrt(nin * 5)).astype(np.float32)).to(cuda).to(BF16))
+    if heads is None:
+        return x, cc[0], FB.pack_cheby_weight(cc[0]).contiguous()
+    return x, cc, FB.pack_cheby_qkv_weight(cc).contiguous()
+
+
+@pytest.mark.parametrize("name,n,heads,nin,nout", CHEBY_BF16_SHAPES)
+def test_cheby_bf16_kernel(cuda, name, n, heads, nin, nout):
+    rng = np.random.default_rng(138)
+    x, cc, w = _cheby_bf16_case(cuda, rng, n, heads, nin, nout)
+    entry = FB.chebykan if heads is None else FB.cheby_qkv_grouped
+    with torch.inference_mode():
+        y = entry(x, cc)
+        again = entry(x, cc)
+        twin = K.cheby_grouped_forward_bf16(x, w)
+        exact = K.cheby_grouped_forward_bf16(x, w, exact=True)
+        spread = K.cheby_fwd_spread_bf16(x, w)
+    _bf16_ulp(y, twin, spread)
+    _f64_gate(y, twin, exact)
+    assert torch.equal(y, again)
+    assert FB.LAUNCHES[f"{name}_bf16"] == 2 and FB.LAUNCHES[name] == 0
+
+
+@pytest.mark.parametrize("name,n,heads,nin,nout", CHEBY_BF16_SHAPES)
+def test_cheby_bwd_bf16_kernel(cuda, name, n, heads, nin, nout):
+    rng = np.random.default_rng(139)
+    x, _, w = _cheby_bf16_case(cuda, rng, n, heads, nin, nout)
+    gy = torch.from_numpy(rng.standard_normal((n, w.shape[0] * nout)).astype(np.float32)
+                          ).to(cuda).to(BF16)
+    with torch.inference_mode():
+        dx, dw = FB._launch_bwd_bf16(name, x, w, 4, gy, True, True)
+        dx2, dw2 = FB._launch_bwd_bf16(name, x, w, 4, gy, True, True)
+        _, dw_nodx = FB._launch_bwd_bf16(name, x, w, 4, gy, False, True)
+        pdx, pdw = K.cheby_grouped_backward_bf16(x, w, gy)
+        edx, edw = K.cheby_grouped_backward_bf16(x, w, gy, exact=True)
+        spread = K.cheby_dw_spread_bf16(x, w, gy)
+    _bf16_ulp(dx, pdx)
+    _bf16_ulp(dw, pdw, spread)
+    _f64_gate(dx, pdx, edx)
+    _f64_gate(dw, pdw, edw)
+    assert torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(dw, dw_nodx)
+    assert bool((dx[x.float().abs() >= 9.5] == 0).all())
+    assert FB.LAUNCHES[f"{name}_bwd_bf16"] == 3 and FB.LAUNCHES[f"{name}_bwd"] == 0
 
 
 # --- bf16 training: the bf16 backwards of bspline_kan, bspline_qkv_grouped and
@@ -2223,9 +2287,12 @@ def test_attention_lanes_bwd_bf16_kernel(cuda, dh, causal, masked):
     assert FA.LAUNCHES["flash_attention_lanes_bwd"] == 0
 
 
-def test_bf16_train_step_on_card(cuda):
-    """One bf16 step of a 2-block MNIST-geometry efficientkan ViT on the
-    card against the CPU's (the plain twins): 1 + 2 + 2 bf16 launches
+@pytest.mark.parametrize("kind,embedder,qkv", [("efficientkan", "bspline_kan",
+                                                 "bspline_qkv_grouped"),
+                                                ("cheby", "chebykan", "cheby_qkv_grouped")])
+def test_bf16_train_step_on_card(cuda, kind, embedder, qkv):
+    """One bf16 step of a 2-block MNIST-geometry efficientkan or cheby ViT
+    on the card against the CPU's (the plain twins): 1 + 2 + 2 bf16 launches
     forward and backward and no f32 ones, loss within 2e-2 x max(1, |loss|)
     and every gradient within 5e-2 x max(1, max|g|) (kanvit's bf16 gates),
     the f32 parameters and gradients f32."""
@@ -2234,7 +2301,7 @@ def test_bf16_train_step_on_card(cuda):
     from kanvit_torch.models import create_model
     from kanvit_torch.train import create_train_state, make_train_step
 
-    cpu = create_model("efficientkan", chw=(1, 28, 28), n_patches=7, n_blocks=2,
+    cpu = create_model(kind, chw=(1, 28, 28), n_patches=7, n_blocks=2,
                        d_hidden=64, n_heads=2, out_d=10, seed=6)
     gpu = copy.deepcopy(cpu).to(cuda)
     rng = np.random.default_rng(137)
@@ -2244,9 +2311,9 @@ def test_bf16_train_step_on_card(cuda):
     _, lc, _ = step(create_train_state(cpu), x, y)
     _, lg, _ = step(create_train_state(gpu), x.to(cuda), y.to(cuda))
     counts = {k: n for k, n in {**FB.LAUNCHES, **FA.LAUNCHES}.items() if n}
-    assert counts == {"bspline_kan_bf16": 1, "bspline_qkv_grouped_bf16": 2,
-                      "flash_attention_lanes_bf16": 2, "bspline_kan_bwd_bf16": 1,
-                      "bspline_qkv_grouped_bwd_bf16": 2, "flash_attention_lanes_bwd_bf16": 2}
+    assert counts == {f"{embedder}_bf16": 1, f"{qkv}_bf16": 2,
+                      "flash_attention_lanes_bf16": 2, f"{embedder}_bwd_bf16": 1,
+                      f"{qkv}_bwd_bf16": 2, "flash_attention_lanes_bwd_bf16": 2}
     assert abs(float(lc) - float(lg)) <= 2e-2 * max(1.0, abs(float(lc)))
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         assert pg.dtype == pg.grad.dtype == torch.float32, name
