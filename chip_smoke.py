@@ -140,6 +140,15 @@ Phases, in order; any failure raises, so the script exits non-zero:
    host ms a step, busy, idle share and the largest device operations
    beside f32's, and the parameter casts' device kernels and the host's
    split of a step with the flat buffer and with a cast a parameter;
+9d. the fast ViT's four bf16 kernels (``fastkan`` and
+   ``fastkan_qkv_grouped``, forward and backward: dx, dW, dgamma, dbeta)
+   against their plain twins in 9b's phase, at the vit-s, one-image and
+   MNIST shapes and dh 8, the forwards also with a third of x at |x|
+   20-60 (the same gates as 9c; the no-dx dW, dgamma and dbeta the
+   all-gradients route's bits); after phase 10's fast training, bf16
+   serving and training of the vit-s ``fast`` ViT on its weights: exactly
+   1 + 36 + 12 bf16 launches each way (one ``fastkan_qkv_grouped`` a q, k
+   or v projection) and nothing else, with 9c's checks and numbers;
 11. int8 serving of the vit-s ``vanilla`` model through
    ``Predictor(quant="int8")``: with the ``int8_linear`` kernel (25
    launches a batch, the 1000-class head on qdot), calibrated, and on qdot
@@ -2750,6 +2759,162 @@ def check_cheby_bwd_bf16(torch, rng, name, label, n, heads, nin, nout, need_dx=T
                                "f32_device_ms": f32_dev_ms}, bounds
 
 
+def fast_bf16_case(torch, rng, n, heads, nin, nout, large=False):
+    """The bf16 FastKAN operands of the embedder (``heads`` None, one group)
+    or of one grouped q/k/v projection (``heads`` groups of ``nin``): x (n,
+    G nin) from ``fast_inputs`` (with ``large`` a third at |x| 20-60, where
+    silu(x) dominates the base slice), the LayerNorm's gamma and beta (G,
+    nin) and the packed weight (G, 9, nin, nout) at the init's scale, all
+    bf16; the 8 centres f32 and the spacing. Returns ``(x, w, gamma, beta,
+    grid, den)``."""
+    from kanvit_torch.kernels import fused_basis as FB
+
+    bf16 = torch.bfloat16
+    groups = 1 if heads is None else heads
+    x = fast_inputs(rng, (n, groups * nin))
+    if large:
+        flat = x.reshape(-1)
+        idx = rng.choice(flat.size, flat.size // 3, replace=False)
+        flat[idx] = rng.uniform(20.0, 60.0, idx.size) * rng.choice([-1.0, 1.0], idx.size)
+
+    def cuda(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda().to(bf16)
+
+    gamma = cuda(1 + 0.1 * rng.standard_normal((groups, nin)))
+    beta = cuda(0.1 * rng.standard_normal((groups, nin)))
+    sw = cuda(rng.standard_normal((groups, nout, nin * 8)) / np.sqrt(nin * 8))
+    bw = cuda(rng.standard_normal((groups, nout, nin)) / np.sqrt(nin))
+    w = FB.pack_fastkan_qkv_weight(sw, bw, 8).contiguous()
+    grid = torch.linspace(-2.0, 2.0, 8, device="cuda")
+    return cuda(x), w, gamma, beta, grid, 4.0 / 7.0
+
+
+def check_fastkan_bf16(torch, rng, name, label, n, heads, nin, nout, large=False):
+    """A bf16 FastKAN forward (``fastkan``: ``heads`` None;
+    ``fastkan_qkv_grouped``: ``heads`` groups of ``nin``) against its plain
+    twin on the card: one bf16 ulp plus one of every rounded basis value
+    weighted as W weighs it, 2^-8 |B| |W|; no further than twice the twin
+    from the f64 sum of the same rounded operands; its bits repeated. CUDA
+    events and device times beside the f32 kernels' on the same (upcast)
+    operands and the twin's, and the bf16 bound."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    x, wb, ga, be, grid, den = fast_bf16_case(torch, rng, n, heads, nin, nout, large)
+    groups, slices = wb.shape[:2]
+    x32, w32, ga32, be32 = (t.float() for t in (x, wb, ga, be))
+    tag = f"{name} bf16 {label} N={n} G={groups} {nin}->{nout}"
+
+    def kernel():
+        return FB._launch_rbf(name, x, wb, ga, be, grid, den)[0]
+
+    def f32_kernel():
+        return FB._launch_rbf(name, x32, w32, ga32, be32, grid, den)[0]
+
+    def plain(exact=False):
+        return K.fastkan_grouped_forward_bf16(x, wb, ga, be, grid, den, exact=exact)
+
+    with torch.inference_mode():
+        y, again = kernel(), kernel()
+        check(y.dtype == torch.bfloat16 and tuple(y.shape) == (n, groups * nout),
+              f"{tag}: output {y.dtype} {tuple(y.shape)}")
+        ref, exact = plain(), plain(exact=True)
+        spread = K.fastkan_fwd_spread_bf16(x, wb, ga, be, grid, den)
+        torch.cuda.synchronize()
+        err = bf16_ulp_gate(tag, y, ref, spread)
+        check(torch.equal(y, again), f"{tag}: a second forward gave other bits")
+        f64 = f64_gate(tag, y, ref, exact, "bf16 plain twin")
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, 10, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, 10, label=f"{tag}, the f32 kernels")
+        plain_ms = time_ms(torch, plain)
+    flops = 2.0 * n * groups * slices * nin * nout
+    # x, W, gamma and beta read, y written: the LayerNorm's statistics are
+    # the port's, kept for its backward, not the function's
+    nbytes = (2.0 * (n * groups * nin + groups * slices * nin * nout + n * groups * nout
+                     + 2 * groups * nin) + 4.0 * grid.numel())
+    bounds = bf16_bound(flops, nbytes)
+    print(f"[bf16] {tag}: kernels {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernels "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  bound "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']})  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                               "f32_device_ms": f32_dev_ms}, bounds
+
+
+def check_fastkan_bwd_bf16(torch, rng, name, label, n, heads, nin, nout, need_dx=True):
+    """A bf16 FastKAN backward (``fastkan``: ``heads`` None, asked for dx
+    only where ``need_dx``, as the training step asks its embedder;
+    ``fastkan_qkv_grouped``: ``heads`` groups of ``nin``) against its plain
+    twin on the card: dx, dgamma and dbeta within one bf16 ulp, dW within one
+    bf16 ulp plus one of every rounded basis value weighted as gy weighs it,
+    2^-8 |B|^T |gy|; each no further than twice the twin from the f64 sums of
+    the same operands; the bits of a second call, and the no-dx dW, dgamma
+    and dbeta the all-gradients route's bits. Times beside the f32 kernels'
+    on the same (upcast) operands and the twin's, and the bf16 bound."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    bf16 = torch.bfloat16
+    x, wb, ga, be, grid, den = fast_bf16_case(torch, rng, n, heads, nin, nout)
+    groups, slices = wb.shape[:2]
+    gy = torch.from_numpy(rng.standard_normal((n, groups * nout)).astype(np.float32)
+                          ).cuda().to(bf16)
+    x32, w32, ga32, be32, gy32 = (t.float() for t in (x, wb, ga, be, gy))
+    tag = f"{name} bwd bf16 {label} N={n} G={groups} {nin}->{nout}"
+    with torch.inference_mode():
+        _, stats = FB._launch_rbf(name, x, wb, ga, be, grid, den)
+        _, stats32 = FB._launch_rbf(name, x32, w32, ga32, be32, grid, den)
+
+    def kernel(dx=need_dx):
+        return FB._launch_rbf_bwd(f"{name}_bwd", x, wb, ga, be, grid, den, stats, gy, dx,
+                                  True)
+
+    def f32_kernel():
+        return FB._launch_rbf_bwd(f"{name}_bwd", x32, w32, ga32, be32, grid, den, stats32,
+                                  gy32, need_dx, True)
+
+    def plain(exact=False):
+        return K.fastkan_grouped_backward_bf16(x, wb, ga, be, grid, den, gy, need_dx, True,
+                                               exact=exact)
+
+    with torch.inference_mode():
+        got, again, every = kernel(), kernel(), kernel(True)
+        twin, exact = plain(), plain(exact=True)
+        spread = K.fastkan_dw_spread_bf16(x, wb, ga, be, grid, den, gy)
+        torch.cuda.synchronize()
+        check(all(t.dtype == bf16 for t in got[1:]) and (got[0] is None) != need_dx,
+              f"{tag}: outputs")
+        err, f64 = 0.0, 0.0
+        for i, what in enumerate(("dx", "dW", "dgamma", "dbeta")):
+            if got[i] is None:
+                continue
+            err = max(err, bf16_ulp_gate(f"{tag} {what}", got[i], twin[i],
+                                         spread if what == "dW" else None))
+            f64 = max(f64, f64_gate(f"{tag} {what}", got[i], twin[i], exact[i],
+                                    "bf16 plain twin"))
+            check(torch.equal(got[i], again[i]), f"{tag}: a second backward gave other "
+                                                 f"{what} bits")
+            if what != "dx":
+                check(torch.equal(got[i], every[i]), f"{tag}: the no-dx {what} differs "
+                                                     "from the all-gradients route's")
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, 10, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, 10, label=f"{tag}, the f32 kernels")
+        plain_ms = time_ms(torch, plain)
+    # gW (dln needs it even without dx) and dW; W read once, dW written; the
+    # function's own bytes, without the statistics the port keeps
+    flops = 2.0 * n * groups * slices * nin * nout * 2
+    wsize = groups * slices * nin * nout
+    nbytes = (2.0 * (n * groups * nin * (1 + need_dx) + 2 * wsize + n * groups * nout
+                     + 4 * groups * nin) + 4.0 * grid.numel())
+    bounds = bf16_bound(flops, nbytes)
+    print(f"[bf16] {tag}: kernels {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernels "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  bound "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']})  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                               "f32_device_ms": f32_dev_ms}, bounds
+
+
 def check_attention_bwd_bf16(torch, rng, b, t, heads, dh, label, cases):
     """The bf16 lanes backward on q, k, v as strided slices of a bf16
     (N, H*3dh) projection output, each case against the plain twin on the
@@ -2898,6 +3063,7 @@ def phase_bf16_kernels(torch):
             check_attention_bwd_bf16(torch, rng, b, t, heads, dh, key,
                                      attention_cases(torch, rng, b, t)))},)
     results.update(cheby_bf16_kernels(torch))
+    results.update(fast_bf16_kernels(torch))
     return results
 
 
@@ -2941,10 +3107,61 @@ def cheby_bf16_kernels(torch):
     }
 
 
+def fast_bf16_kernels(torch):
+    """The fast ViT's four bf16 kernels: the embedder (``fastkan``) and one
+    grouped q/k/v projection (``fastkan_qkv_grouped``), forward and backward,
+    at the vit-s shapes (the embedder's backward first without dx, as the
+    training step asks it), then the forward with a third of x at |x| 20-60,
+    one vit-s image, the MNIST shapes and dh 8 (sub-entries)."""
+    rng = np.random.default_rng(SEED + 15)
+    emb, qkv = "fastkan", "fastkan_qkv_grouped"
+    return {
+        "fastkan_bf16": check_fastkan_bf16(
+            torch, rng, emb, "vit-s embedder", BATCH * 196, None, 768, 384) + (
+            {"large_silu": sub_entry(check_fastkan_bf16(
+                torch, rng, emb, "vit-s embedder, a third of x at |x| 20-60", BATCH * 196,
+                None, 768, 384, large=True))},
+            {"batch_1": sub_entry(check_fastkan_bf16(
+                torch, rng, emb, "vit-s embedder, one image", 196, None, 768, 384))},
+            {"mnist_ragged": sub_entry(check_fastkan_bf16(
+                torch, rng, emb, "mnist embedder", 37 * 49, None, 16, 64))}),
+        "fastkan_qkv_grouped_bf16": check_fastkan_bf16(
+            torch, rng, qkv, "vit-s q/k/v", BATCH * 197, 6, 64, 64) + (
+            {"large_silu": sub_entry(check_fastkan_bf16(
+                torch, rng, qkv, "vit-s q/k/v, a third of x at |x| 20-60", BATCH * 197, 6,
+                64, 64, large=True))},
+            {"mnist_ragged": sub_entry(check_fastkan_bf16(
+                torch, rng, qkv, "mnist q/k/v", 37 * 50, 2, 32, 32))},
+            {"at_dh_8_mnist": sub_entry(check_fastkan_bf16(
+                torch, rng, qkv, "dh-8 q/k/v", BATCH * 50, 8, 8, 8))}),
+        "fastkan_bwd_bf16": check_fastkan_bwd_bf16(
+            torch, rng, emb, "vit-s embedder, no dx", BATCH * 196, None, 768, 384,
+            need_dx=False) + (
+            {"all_gradients": sub_entry(check_fastkan_bwd_bf16(
+                torch, rng, emb, "vit-s embedder", BATCH * 196, None, 768, 384))},
+            {"batch_1": sub_entry(check_fastkan_bwd_bf16(
+                torch, rng, emb, "vit-s embedder, one image, no dx", 196, None, 768, 384,
+                need_dx=False))},
+            {"mnist_ragged": sub_entry(check_fastkan_bwd_bf16(
+                torch, rng, emb, "mnist embedder", 37 * 49, None, 16, 64))}),
+        "fastkan_qkv_grouped_bwd_bf16": check_fastkan_bwd_bf16(
+            torch, rng, qkv, "vit-s q/k/v", BATCH * 197, 6, 64, 64) + (
+            {"mnist_ragged": sub_entry(check_fastkan_bwd_bf16(
+                torch, rng, qkv, "mnist q/k/v", 37 * 50, 2, 32, 32))},
+            {"at_dh_8_mnist": sub_entry(check_fastkan_bwd_bf16(
+                torch, rng, qkv, "dh-8 q/k/v", BATCH * 50, 8, 8, 8))}),
+    }
+
+
 BF16_PER_BATCH = {"bspline_kan_bf16": 1, "bspline_qkv_grouped_bf16": 12,
                   "flash_attention_lanes_bf16": 12}
 CHEBY_BF16_PER_BATCH = {"chebykan_bf16": 1, "cheby_qkv_grouped_bf16": 12,
                         "flash_attention_lanes_bf16": 12}
+# one grouped launch per q, k and v projection
+FAST_BF16_PER_BATCH = {"fastkan_bf16": 1, "fastkan_qkv_grouped_bf16": 36,
+                       "flash_attention_lanes_bf16": 12}
+# The variants served and trained in bf16 after their f32 phases.
+BF16_VARIANTS = {"cheby": CHEBY_BF16_PER_BATCH, "fast": FAST_BF16_PER_BATCH}
 
 
 def phase_bf16_serve(torch, smi, model_cpu, seed, variant="efficientkan",
@@ -2966,10 +3183,10 @@ def phase_bf16_serve(torch, smi, model_cpu, seed, variant="efficientkan",
     geom = PRESETS["vit-s"]
     model32 = copy.deepcopy(model_cpu).to("cuda")
     model_bf = precision.cast_params_(copy.deepcopy(model_cpu)).to("cuda")
-    grid = getattr(model_bf.linear_mapper, "grid", None)
-    check((grid is None or grid.dtype == torch.float32)
+    grids = [getattr(model_bf.linear_mapper, g, None) for g in ("grid", "rbf_grid")]
+    check(all(g is None or g.dtype == torch.float32 for g in grids)
           and model_bf.pos_embeddings.dtype == torch.float32,
-          "bf16 cast: the knot grid and the position table must stay f32")
+          "bf16 cast: the knot grid, the RBF centres and the position table must stay f32")
     pred = Predictor(model_bf, batch_size=BATCH, device="cuda")
     pred32 = Predictor(model32, batch_size=BATCH, device="cuda")
     rng = np.random.default_rng(seed)
@@ -3239,16 +3456,20 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
     want_step = {k: 0 for k in launch_counts()}
     want_step.update(per_step(per_batch))
 
-    asked, launch_bwd = [], FB._launch_bwd_bf16
+    # the embedder's bf16 backward launcher (B-spline and Chebyshev:
+    # _launch_bwd_bf16, by the forward's name; FastKAN: _launch_rbf_bwd, by
+    # "<name>_bwd"), recording what the embedder's backward is asked for
+    asked, attr = [], EMBEDDER_BWD.get(embedder, "_launch_bwd_bf16")
+    launch_bwd = getattr(FB, attr)
 
     def recording(name, *args):
-        if name == embedder:
+        if name.removesuffix("_bwd") == embedder:
             asked.append(tuple(args[-2:]))
         return launch_bwd(name, *args)
 
     reset_counts()
     losses, steps_ok = [], True
-    FB._launch_bwd_bf16 = recording
+    setattr(FB, attr, recording)
     try:
         for _ in range(BF16_TRAIN_STEPS):
             before = launch_counts()
@@ -3257,7 +3478,7 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
             steps_ok &= {k: after[k] - before[k] for k in after} == want_step
             losses.append(loss)
     finally:
-        FB._launch_bwd_bf16 = launch_bwd
+        setattr(FB, attr, launch_bwd)
     torch.cuda.synchronize()
     counts = launch_counts()
     losses = [float(v) for v in losses]
@@ -3635,7 +3856,7 @@ KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
     ("KAN q/k/v and embedder bwd on the tensor cores (B-spline, Chebyshev, RBF, "
      "sine: dW, dx)", ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
-    ("KAN q/k/v and embedder bwd in bf16 (B-spline, Chebyshev: dW, dx, split sums)",
+    ("KAN q/k/v and embedder bwd in bf16 (B-spline, Chebyshev, RBF: dW, dx, split sums)",
      ("kan_bf16_dw", "kan_bf16_dx", "sum_splits_bf16")),
     ("the bf16 step's parameter casts: the gradients' gather", ("CatArrayBatchedCopy",)),
     ("KAN q/k/v and embedder fwd on the tensor cores (B-spline, Chebyshev, RBF, sine)",
@@ -4325,6 +4546,10 @@ SOURCES = {
     "cheby_qkv_grouped_bf16": (KAN_TC_SRC, f"{FB_PY}:1240"),
     "chebykan_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:1159"),
     "cheby_qkv_grouped_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:1278"),
+    "fastkan_bf16": (KAN_TC_SRC, f"{FB_PY}:2947"),
+    "fastkan_qkv_grouped_bf16": (KAN_TC_SRC, f"{FB_PY}:3191"),
+    "fastkan_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:2995"),
+    "fastkan_qkv_grouped_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:3246"),
 }
 # The single-tile tier of flash_attention runs the lanes kernels (phase 5);
 # fourierkan's and sinekan's kernels serve kanvit's generic tier below its
@@ -4517,6 +4742,41 @@ ROUTES = {
                   "row splits in f32 partials, one rounding) and kan_bf16_dx<Cheby> (gy W^T in "
                   "f32, T'_n (1 - t^2) in the epilogue, one rounding)",
         "instantiated_in": KAN_SRC},
+    "fastkan_bf16": {
+        "kernel": "the LayerNorm's statistics of the bf16 x in f32 (ln_stats_kernel), then "
+                  "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Rbf, 24, "
+                  "12, 1, Bf16, 0> at one group (192 outputs a block), the RBF bases of the "
+                  "f32 LayerNorm and silu of the raw x made in f32 in registers and rounded to "
+                  "bf16 at the dot, two slices a 16-deep step (silu alone in the fifth), W "
+                  "split once a call into bf16 pairs by kan_tc_fwd_split, one running sum, y "
+                  "rounded to bf16 once",
+        "instantiated_in": RBF_SINE_SRC},
+    "fastkan_qkv_grouped_bf16": {
+        "kernel": "the LayerNorm's statistics of the bf16 x in f32 (ln_stats_kernel), then "
+                  "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Rbf, 8, "
+                  "4, 4, Bf16, 0> (64 outputs a block; past 64 <Rbf, 24, 12, 1, Bf16, 0>), "
+                  "the RBF bases of each head's f32 LayerNorm and silu made in f32 in "
+                  "registers and rounded to bf16 at the dot, W split once a call into bf16 "
+                  "pairs by kan_tc_fwd_split",
+        "instantiated_in": RBF_SINE_SRC},
+    "fastkan_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation, kan_basis_tc.cuh part 4 at "
+                  "one group: dln (and, where dx is asked, the silu term) in f32 from "
+                  "kan_bf16_dx<Rbf> (gy W^T in f32, the RBF fold in its epilogue); the "
+                  "LayerNorm's dgamma and dbeta on ln_dgb_kernel, summed in two levels and "
+                  "rounded once (sum_splits_bf16_kernel), its VJP for dx on ln_dx_kernel "
+                  "(rounded once); dW on kan_bf16_dw<Rbf, 3> over the RBF basis made in f32 "
+                  "on chip and rounded to bf16 at the dot, row splits in f32 partials summed "
+                  "in split order and rounded once",
+        "instantiated_in": RBF_SINE_SRC},
+    "fastkan_qkv_grouped_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation, kan_basis_tc.cuh part 4: "
+                  "kan_bf16_dx<Rbf> (gy W^T in f32, dln and the silu term in f32 from the "
+                  "RBF fold), ln_dx_kernel (the LayerNorm's VJP, dx rounded once), "
+                  "ln_dgb_kernel (dgamma, dbeta in two levels, rounded once) and "
+                  "kan_bf16_dw<Rbf, 1> (the basis made in f32 and rounded to bf16 at the "
+                  "dot, row splits in f32 partials, one rounding)",
+        "instantiated_in": RBF_SINE_SRC},
     "fourierkan": {"kernel": TC_FWD.format("FourierTc"), "instantiated_in": KAN_SRC},
     "fourierkan_bwd": {"kernel": TC_BWD.format("", "FourierTc"),
                        "instantiated_in": KAN_SRC},
@@ -4545,7 +4805,10 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
                                                 "flash_attention_lanes_bwd_bf16")},
              "chebykan_bf16": "cheby_bf16_serve", "cheby_qkv_grouped_bf16": "cheby_bf16_serve",
              "chebykan_bwd_bf16": "cheby_bf16_train",
-             "cheby_qkv_grouped_bwd_bf16": "cheby_bf16_train"}
+             "cheby_qkv_grouped_bwd_bf16": "cheby_bf16_train",
+             "fastkan_bf16": "fast_bf16_serve", "fastkan_qkv_grouped_bf16": "fast_bf16_serve",
+             "fastkan_bwd_bf16": "fast_bf16_train",
+             "fastkan_qkv_grouped_bwd_bf16": "fast_bf16_train"}
 
 
 def timed(label, fn, *args):
@@ -4606,13 +4869,14 @@ def main():
         paths[f"{variant}_train"] = timed(
             f"{variant} training", phase_train, torch, smi, model_cpu,
             f"{variant}-train", per_batch, embedder)["launches"]
-        if variant == "cheby":  # bf16, on the f32 phases' weights
-            paths["cheby_bf16_serve"] = timed(
-                "cheby bf16 serving", phase_bf16_serve, torch, smi, model_cpu, SEED + 7,
-                "cheby", CHEBY_BF16_PER_BATCH)["launches"]
-            paths["cheby_bf16_train"] = timed(
-                "cheby bf16 training", phase_bf16_train, torch, smi, model_cpu, "cheby",
-                CHEBY_BF16_PER_BATCH, embedder)["launches"]
+        if variant in BF16_VARIANTS:  # bf16, on the f32 phases' weights
+            per_batch = BF16_VARIANTS[variant]
+            paths[f"{variant}_bf16_serve"] = timed(
+                f"{variant} bf16 serving", phase_bf16_serve, torch, smi, model_cpu, SEED + 7,
+                variant, per_batch)["launches"]
+            paths[f"{variant}_bf16_train"] = timed(
+                f"{variant} bf16 training", phase_bf16_train, torch, smi, model_cpu, variant,
+                per_batch, embedder)["launches"]
     vanilla_cpu = build_model("vanilla")
     paths["vanilla_serve"] = timed(
         "vanilla serving", phase_serve, torch, smi, vanilla_cpu,

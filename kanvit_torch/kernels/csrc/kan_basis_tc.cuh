@@ -1350,8 +1350,11 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // one wave.
 //
 // bf16 (kanvit's bf16 serving; the B-spline embedder and q/k/v, entry
-// kanvit_bspline_tc_fwd_bf16, and the Chebyshev ones, entry
-// kanvit_cheby_tc_fwd_bf16 at kan_basis.cu's CHEBY_BF16_* shape): Op = Bf16, x, W and y bf16, one
+// kanvit_bspline_tc_fwd_bf16, the Chebyshev ones, entry
+// kanvit_cheby_tc_fwd_bf16 at kan_basis.cu's CHEBY_BF16_* shape, and the
+// FastKAN ones after the LayerNorm's statistics, entry
+// kanvit_fastkan_tc_fwd_bf16 at kan_rbf_sine.cu's RBF_BF16_* shape, the
+// silu slice in the one running sum): Op = Bf16, x, W and y bf16, one
 // mma.sync.m16n8k16 a step of two slices (Bf16 above), the basis made in
 // f32 and rounded to bf16 at the dot, one f32 running sum (no levels: a
 // bf16 y would round between them), y rounded once. At vit-s: the embedder
@@ -1482,7 +1485,8 @@ kan_tc_fwd_split(const typename Op::In* __restrict__ w, uint32_t* __restrict__ o
 // and stores it into its slab of part, which sum_splits adds into y in
 // level order: the same sum, so the same bits. Op: the operand type, x and
 // y of its In and Out types (Bf16: one running sum, FLUSH 0, and no slice
-// apart or exact).
+// apart or exact, whatever the family's TcFwdRow asks of 3xTF32: Rbf's silu
+// slice sums with the rest, as in kanvit's one bf16 dot).
 template <class F, int NT, int WARPS = tcf::WARPS, int MINB = 1, class Op = Tf32x3,
           int FLUSH = 0>
 __global__ void __launch_bounds__(32 * WARPS, MINB)
@@ -1493,10 +1497,13 @@ kan_tc_fwd_grouped(const typename Op::In* __restrict__ x, long long ldx,
   using R = TcFwdRow<F>;
   using Out = typename Op::Out;
   constexpr int SC = F::SC, BN = 8 * NT, FS = tcf::FS, THREADS = 32 * WARPS;
-  constexpr int SPLIT = R::SPLIT, EXACT = R::EXACT, SUMS = SPLIT < SC ? 2 : 1;
-  constexpr int SPS = Op::SPS, STEPS = (SC + SPS - 1) / SPS + (EXACT >= 0);
-  static_assert(SPS == 1 || (FLUSH == 0 && SUMS == 1 && EXACT < 0),
-                "bf16: one running sum, no slice apart");
+  constexpr int SPS = Op::SPS;
+  // bf16: one running sum, as kanvit's one dot, whatever the family's SPLIT
+  // and EXACT (a bf16 x bf16 product is exact in f32)
+  constexpr int SPLIT = SPS == 1 ? R::SPLIT : SC, EXACT = SPS == 1 ? R::EXACT : -1;
+  constexpr int SUMS = SPLIT < SC ? 2 : 1;
+  constexpr int STEPS = (SC + SPS - 1) / SPS + (EXACT >= 0);
+  static_assert(SPS == 1 || FLUSH == 0, "bf16: one running sum, no levels");
   constexpr int STAGE = STEPS * BN * 4 * Op::UNIT;  // words of a stage's split W
   extern __shared__ __align__(16) float sm[];
   __shared__ typename F::template Stage<FS> st;
@@ -1656,7 +1663,7 @@ int launch_tc_fwd_grouped(const typename Op::In* x, long long ldx, typename F::P
                           const typename Op::In* w, typename Op::Out* y, uint32_t* wsplit,
                           long long wwords, int n, int groups, int nin, int nout,
                           cudaStream_t st, float* part = nullptr, int splits = 1) {
-  constexpr int BN = 8 * NT, EXACT = TcFwdRow<F>::EXACT;
+  constexpr int BN = 8 * NT, EXACT = Op::SPS == 1 ? TcFwdRow<F>::EXACT : -1;
   constexpr int STEPS = (F::SC + Op::SPS - 1) / Op::SPS + (EXACT >= 0);
   const int nk = cdiv(nin, tcf::FS), otiles = cdiv(nout, BN);
   const long long units = (long long)groups * otiles * nk * STEPS * BN * 4;
@@ -1724,8 +1731,12 @@ int launch_tc_grouped_fwd(const typename Op::In* x, long long ldx, typename F::P
 // kanvit/kernels/fused_basis.py::_fused_bwd_sg (pallas_call at :1278, the
 // grouped q/k/v's backward, from _bspline_op_sg_bwd :1330 and
 // _cheby_op_sg_bwd :1351) and _fused_bwd (:1159, the patch embedder's, from
-// _bspline_op's VJP :2624 and _cheby_op_bwd :3499) as its one-group case. Their body, _bwd_kernel (:566-625), keeps this policy on
-// bf16 inputs, which the kernels below follow:
+// _bspline_op's VJP :2624 and _cheby_op_bwd :3499) as its one-group case;
+// and the FastKAN backwards, _rbf_ln_sg_op's (:3246) and _rbf_ln_base_op's
+// (:2995), with the LayerNorm passes of kan_rbf_sine.cu. Their body,
+// _bwd_kernel (:566-625; _rbf_ln_bwd_kernel :2861 and its _sg form :3079
+// for FastKAN), keeps this policy on bf16 inputs, which the kernels below
+// follow:
 //   x upcast to f32, the basis B and its derivative B' made in f32;
 //   gW = gy W^T with bf16 operands and f32 accumulation, never rounded;
 //   dx = sum_s gW_s B'_s summed in f32, rounded to bf16 once;
@@ -1758,7 +1769,11 @@ int launch_tc_grouped_fwd(const typename Op::In* x, long long ldx, typename F::P
 // stage's 16 outputs side by side, which is a B fragment's pair order, so W
 // needs no pre-pass. The epilogue makes B'_s(x) in f32 and sums gW_s B'_s
 // in slice order, each product rounded and added as kanvit's dx += gW_s
-// B'_s, then rounds dx to bf16 once; gW never leaves the registers.
+// B'_s, then rounds dx to bf16 once; gW never leaves the registers. A
+// DX_FOLD family takes part 2's fold instead (Rbf: dln = sum_k gW_k (-2u_k /
+// h) b_k and the silu term gW_8 silu'(x), each left in f32 for the
+// LayerNorm's VJP, which couples a segment's features, and for dgamma and
+// dbeta; kanvit keeps both in f32 too, rounding only dx).
 //
 // What bounds it at vit-s: the products. The q/k/v (n 12,608, 6 heads of
 // nin 64, nout 192): dW and dx 16.73 GFLOP each, 0.034 ms together at the
@@ -1928,26 +1943,49 @@ kan_bf16_dw(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
 }
 
 // out[e] = bf16(sum over splits of part[split][e]), the splits in order
-// and one rounding.
+// and one rounding: sum_splits_kernel's sums (group > 0: its two levels)
+// rounded to bf16 once.
 __global__ void sum_splits_bf16_kernel(const float* __restrict__ part,
                                        __nv_bfloat16* __restrict__ out, long long total,
-                                       int splits) {
+                                       int splits, int group) {
   for (long long e = (long long)blockIdx.x * blockDim.x + threadIdx.x; e < total;
        e += (long long)gridDim.x * blockDim.x) {
     float acc = 0.f;
-    for (int sp = 0; sp < splits; ++sp) acc += part[(long long)sp * total + e];
+    if (group <= 0) {
+      for (int sp = 0; sp < splits; ++sp) acc += part[(long long)sp * total + e];
+    } else {
+      for (int g0 = 0; g0 < splits; g0 += group) {
+        float sum = 0.f;
+        for (int sp = g0; sp < min(splits, g0 + group); ++sp)
+          sum += part[(long long)sp * total + e];
+        acc += sum;
+      }
+    }
     out[e] = __float2bfloat16_rn(acc);
   }
 }
 
+// sum_splits into a bf16 out, rounded once.
+int sum_splits(const float* part, __nv_bfloat16* out, long long total, int splits,
+               cudaStream_t st, int group = 0) {
+  const long long want = (total + 255) / 256;
+  sum_splits_bf16_kernel<<<(unsigned)(want < 4096 ? want : 4096), 256, 0, st>>>(
+      part, out, total, splits, group);
+  return (int)cudaGetLastError();
+}
+
 // dx of one group's 128 rows x 16 features: grid (feature tiles, row
 // tiles, groups). w (groups, S, nin, nout) bf16 contiguous; dx (n, groups
-// nin) bf16 contiguous; vec: 16-byte copies of gy and w.
+// nin) bf16 contiguous; vec: 16-byte copies of gy and w. A DX_FOLD family
+// (Rbf) keeps part 2's two outputs of its fold: with `split`, o0 (dln) to
+// out0 and o1 (the silu term) to out1, each f32 (n, groups nin) and either
+// null to skip it, for the LayerNorm's passes; without, dx = bf16(o0 + o1).
 template <class F>
 __global__ void __launch_bounds__(tcb::THREADS, 2)
 kan_bf16_dx(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Params p,
             const __nv_bfloat16* __restrict__ gy, long long ldg,
-            const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ dx, int n,
+            const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ dx,
+            float* __restrict__ out0, float* __restrict__ out1, int split, int n,
             int groups, int nin, int nout, int nk, int vec) {
   using bf = __nv_bfloat16;
   constexpr int THREADS = tcb::THREADS, SC = F::SC, FT = tcb::FT, BM = tcb::DX_BM;
@@ -2049,12 +2087,26 @@ kan_bf16_dx(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
       if (row >= n || f >= nin) continue;
       const Elem el{__bfloat162float(x[row * ldx + (long long)grp * nin + f]), kf, f, grp,
                     row};
-      float d[SC];
-      F::template derivs<FT>(p, st, el, 0, d);
-      float o = 0.f;
+      const long long at = row * ldd + (long long)grp * nin + f;
+      if constexpr (F::DX_FOLD) {
+        float gw[SC], red[SC], o0 = 0.f, o1 = 0.f;
 #pragma unroll
-      for (int j = 0; j < SC; ++j) o = __fadd_rn(o, __fmul_rn(acc[i][j][e], d[j]));
-      dx[row * ldd + (long long)grp * nin + f] = __float2bfloat16_rn(o);
+        for (int j = 0; j < SC; ++j) gw[j] = acc[i][j][e];
+        F::template fold<FT>(p, st, el, 0, gw, o0, o1, red);
+        if (split) {
+          if (out0 != nullptr) out0[at] = o0;
+          if (out1 != nullptr) out1[at] = o1;
+        } else {
+          dx[at] = __float2bfloat16_rn(o0 + o1);
+        }
+      } else {
+        float d[SC];
+        F::template derivs<FT>(p, st, el, 0, d);
+        float o = 0.f;
+#pragma unroll
+        for (int j = 0; j < SC; ++j) o = __fadd_rn(o, __fmul_rn(acc[i][j][e], d[j]));
+        dx[at] = __float2bfloat16_rn(o);
+      }
     }
 }
 
@@ -2077,11 +2129,44 @@ int launch_bf16_dw(const __nv_bfloat16* x, long long ldx, typename F::Params p,
                        st>>>(x, ldx, p, gy, ldg, part, n, groups, nin, nout, nk, per, vec);
   err = (int)cudaGetLastError();
   if (err != 0) return err;
-  const long long total = (long long)groups * F::slices(p) * nin * nout;
-  const long long want = (total + 255) / 256;
-  sum_splits_bf16_kernel<<<(unsigned)(want < 4096 ? want : 4096), 256, 0, st>>>(
-      part, dw, total, splits);
+  return sum_splits(part, dw, (long long)groups * F::slices(p) * nin * nout, splits, st);
+}
+
+// 16-byte copies of gy (n, groups nout) and w in the bf16 kernels.
+inline int bf16_vec(const __nv_bfloat16* gy, const __nv_bfloat16* w, int nout) {
+  return nout % 8 == 0 && (uintptr_t)gy % 16 == 0 && (uintptr_t)w % 16 == 0;
+}
+
+// kan_bf16_dx<F> over launch_bf16_grouped_bwd's operands, into dx or (a
+// DX_FOLD family with split) out0 and out1.
+template <class F>
+int launch_bf16_dx(const __nv_bfloat16* x, long long ldx, typename F::Params p,
+                   const __nv_bfloat16* w, const __nv_bfloat16* gy, __nv_bfloat16* dx,
+                   float* out0, float* out1, int split, int n, int groups, int nin, int nout,
+                   cudaStream_t st) {
+  const dim3 grid(cdiv(nin, tcb::FT), cdiv(n, tcb::DX_BM), groups);
+  if (grid.y > 65535u || grid.z > 65535u || (!split && dx == nullptr))
+    return (int)cudaErrorInvalidValue;
+  kan_bf16_dx<F><<<grid, tcb::THREADS, 0, st>>>(x, ldx, p, gy, (long long)groups * nout, w, dx,
+                                                out0, out1, split, n, groups, nin, nout,
+                                                cdiv(nout, tcb::DX_KS), bf16_vec(gy, w, nout));
   return (int)cudaGetLastError();
+}
+
+// dW of launch_bf16_grouped_bwd's operands: 64 outputs a block up to nout
+// 64, else 192.
+template <class F>
+int launch_bf16_grouped_dw(const __nv_bfloat16* x, long long ldx, typename F::Params p,
+                           const __nv_bfloat16* w, const __nv_bfloat16* gy, __nv_bfloat16* dw,
+                           float* part, int n, int groups, int nin, int nout, int splits,
+                           cudaStream_t st) {
+  const long long ldg = (long long)groups * nout;
+  const int vec = bf16_vec(gy, w, nout);
+  if (nout <= 64)
+    return launch_bf16_dw<F, 1>(x, ldx, p, gy, ldg, vec, dw, part, n, groups, nin, nout,
+                                splits, st);
+  return launch_bf16_dw<F, tcg::DW_WIDE>(x, ldx, p, gy, ldg, vec, dw, part, n, groups, nin,
+                                         nout, splits, st);
 }
 
 // dx and dW of a grouped layer in bf16, either null to skip it: x (n,
@@ -2098,22 +2183,14 @@ int launch_bf16_grouped_bwd(const __nv_bfloat16* x, long long ldx, typename F::P
   if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 || F::slices(p) > F::SC ||
       splits < 1 || (dw != nullptr && part == nullptr))
     return (int)cudaErrorInvalidValue;
-  const long long ldg = (long long)groups * nout;
-  const int vec = nout % 8 == 0 && (uintptr_t)gy % 16 == 0 && (uintptr_t)w % 16 == 0;
   if (dx != nullptr) {
-    const dim3 grid(cdiv(nin, tcb::FT), cdiv(n, tcb::DX_BM), groups);
-    if (grid.y > 65535u || grid.z > 65535u) return (int)cudaErrorInvalidValue;
-    kan_bf16_dx<F><<<grid, tcb::THREADS, 0, st>>>(x, ldx, p, gy, ldg, w, dx, n, groups, nin,
-                                                  nout, cdiv(nout, tcb::DX_KS), vec);
-    const int err = (int)cudaGetLastError();
+    const int err = launch_bf16_dx<F>(x, ldx, p, w, gy, dx, nullptr, nullptr, 0, n, groups,
+                                      nin, nout, st);
     if (err != 0) return err;
   }
   if (dw == nullptr) return 0;
-  if (nout <= 64)
-    return launch_bf16_dw<F, 1>(x, ldx, p, gy, ldg, vec, dw, part, n, groups, nin, nout,
-                                splits, st);
-  return launch_bf16_dw<F, tcg::DW_WIDE>(x, ldx, p, gy, ldg, vec, dw, part, n, groups, nin,
-                                         nout, splits, st);
+  return launch_bf16_grouped_dw<F>(x, ldx, p, w, gy, dw, part, n, groups, nin, nout, splits,
+                                   st);
 }
 
 }  // namespace

@@ -27,7 +27,11 @@
 //         (part 2, entry kanvit_fastkan_qkv_tc_bwd); and the tiers
 //         the same family covers with its flags: _rbf_base_op (:2726,
 //         :2769; the LayerNorm skipped) and _rbf_op (_fused_fwd / _fused_bwd
-//         under rbf_family; no silu slice).
+//         under rbf_family; no silu slice). On bf16 operands (kanvit's bf16
+//         policy) all four of fastkan's and fastkan_qkv_grouped's: entries
+//         kanvit_fastkan_tc_fwd_bf16 (part 3's Bf16 type, one running sum)
+//         and kanvit_fastkan_tc_bwd_bf16 (part 4 with the RBF fold), the
+//         LayerNorm passes reading bf16 x, gamma and beta.
 //   Sine: the K-blocked _fused_fwd_kb (:2317), _fused_bwd_kb dx (:2492) and
 //         dW + dfreq (:2523, _dw_kernel_kb_sine), reached from sinekan
 //         (:3667), the grid-28 patch embedder, and below that tier
@@ -95,6 +99,20 @@ constexpr float LN_EPS = 1e-5f;
 // 192-output tile's two stages of its 10 steps would take 245,760 bytes of
 // shared memory, past a block's 232,448.
 constexpr int RBF_FWD_WARPS = 12, RBF_FWD_MINB = 1;
+// The bf16 forward's shape (part 3's Bf16 operand type, 5 steps of two
+// slices a stage): past 64 outputs (the embedder) 192 a block at 12 warps,
+// one block an SM, where two stages take 61,440 bytes; up to 64 (one q/k/v
+// projection) RBF_BF16_WARPS warps, RBF_BF16_MINB blocks an SM.
+// kanvit_torch/probe_bf16.py --fast-shapes timed eight shapes on the H100
+// 80GB HBM3 at 700 W (PERF.md), every one with the route's bits: at the
+// vit-s q/k/v 4 warps at four blocks an SM took 0.0963 ms against 0.1072
+// for the f32 RBF forward's 12 warps at one block (0.1019-0.1026 at 8 or 12
+// warps and two or three blocks); at the vit-s embedder 192 outputs at 12
+// warps took 0.4232 against 0.6062 at 8 warps and 0.71-0.95 for every
+// 64-output shape. Below one wave the 192-output blocks lose (one vit-s
+// image: 0.4234 ms against 0.2139 at 64 outputs, 4 warps), as the other
+// bf16 embedders' do.
+constexpr int RBF_BF16_WARPS = 4, RBF_BF16_MINB = 4;
 constexpr int SINE_FWD_WARPS = 8, SINE_FWD_MINB = 3;
 // The FastKAN embedder's forward sums its 768 features (96 stages at
 // vit-s) in two levels of FASTKAN_EMB_FLUSH stages, as B-spline's does, so
@@ -116,6 +134,10 @@ struct Rbf : FamilyDefaults {
     float inv_h;           // 1 / the grid spacing h
     int groups;
     int base;              // 1: silu(x) is slice NG
+    // the bf16 kernels' gamma and beta (groups, nin), upcast as staged; null
+    // in the f32 kernels
+    const __nv_bfloat16* gamma16;
+    const __nv_bfloat16* beta16;
   };
   template <int NF> struct Stage { float gamma[NF]; float beta[NF]; float c[NG]; };
 
@@ -131,8 +153,9 @@ struct Rbf : FamilyDefaults {
     if (tid < NF) {
       const int i = k0 + tid;
       const bool live = p.stats != nullptr && i < nin;
-      st.gamma[tid] = live ? p.gamma[(long long)g * nin + i] : 1.f;
-      st.beta[tid] = live ? p.beta[(long long)g * nin + i] : 0.f;
+      const long long at = (long long)g * nin + i;
+      st.gamma[tid] = !live ? 1.f : p.gamma16 ? __bfloat162float(p.gamma16[at]) : p.gamma[at];
+      st.beta[tid] = !live ? 0.f : p.beta16 ? __bfloat162float(p.beta16[at]) : p.beta[at];
     }
     if (tid < NG) st.c[tid] = p.centres[tid];
     __syncthreads();
@@ -326,20 +349,30 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// stats[seg] = (mean, rstd) of x's segment seg = row * groups + g.
+// x, gamma, beta as f32: the f32 kernels' values, the bf16 kernels' upcast
+__device__ __forceinline__ float f32_of(float v) { return v; }
+__device__ __forceinline__ float f32_of(__nv_bfloat16 v) { return __bfloat162float(v); }
+__device__ __forceinline__ void store_as(float* at, float v) { *at = v; }
+__device__ __forceinline__ void store_as(__nv_bfloat16* at, float v) {
+  *at = __float2bfloat16_rn(v);
+}
+
+// stats[seg] = (mean, rstd) of x's segment seg = row * groups + g, in f32
+// (x f32, or bf16 upcast).
+template <class T>
 __global__ void __launch_bounds__(LN_WARPS * 32)
-ln_stats_kernel(const float* __restrict__ x, long long ldx,
+ln_stats_kernel(const T* __restrict__ x, long long ldx,
                 float* __restrict__ stats, int n, int groups, int nin) {
   const long long seg = (long long)blockIdx.x * LN_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (seg >= (long long)n * groups) return;
-  const float* xs = x + (seg / groups) * ldx + (seg % groups) * (long long)nin;
+  const T* xs = x + (seg / groups) * ldx + (seg % groups) * (long long)nin;
   float s = 0.f;
-  for (int i = lane; i < nin; i += 32) s += xs[i];
+  for (int i = lane; i < nin; i += 32) s += f32_of(xs[i]);
   const float mean = warp_sum(s) / nin;
   float v = 0.f;
   for (int i = lane; i < nin; i += 32) {
-    const float d = xs[i] - mean;
+    const float d = f32_of(xs[i]) - mean;
     v = fmaf(d, d, v);
   }
   const float var = warp_sum(v) / nin;
@@ -349,39 +382,43 @@ ln_stats_kernel(const float* __restrict__ x, long long ldx,
   }
 }
 
-// dx[seg] += rstd (dxh - mean(dxh) - xh mean(dxh xh)), dxh = dln gamma.
+// dx[seg] = add[seg] + rstd (dxh - mean(dxh) - xh mean(dxh xh)), dxh =
+// dln gamma, in f32 and stored as T once: f32 in place (add = dx, the silu
+// term the dx kernel wrote), or bf16 from the f32 silu term.
+template <class T>
 __global__ void __launch_bounds__(LN_WARPS * 32)
-ln_dx_kernel(const float* __restrict__ x, long long ldx,
-             const float* __restrict__ stats, const float* __restrict__ gamma,
-             const float* __restrict__ dln, float* __restrict__ dx, int n,
+ln_dx_kernel(const T* __restrict__ x, long long ldx,
+             const float* __restrict__ stats, const T* __restrict__ gamma,
+             const float* __restrict__ dln, const float* add, T* dx, int n,
              int groups, int nin) {
   const long long seg = (long long)blockIdx.x * LN_WARPS + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
   if (seg >= (long long)n * groups) return;
   const long long row = seg / groups;
   const int g = (int)(seg % groups);
-  const float* xs = x + row * ldx + (long long)g * nin;
+  const T* xs = x + row * ldx + (long long)g * nin;
   const long long at = seg * nin;  // dln and dx: (n, groups * nin) contiguous
-  const float* gam = gamma + (long long)g * nin;
+  const T* gam = gamma + (long long)g * nin;
   const float mean = stats[seg * 2], rstd = stats[seg * 2 + 1];
   float m1 = 0.f, m2 = 0.f;
   for (int i = lane; i < nin; i += 32) {
-    const float gs = dln[at + i] * gam[i];
+    const float gs = dln[at + i] * f32_of(gam[i]);
     m1 += gs;
-    m2 = fmaf(gs, (xs[i] - mean) * rstd, m2);
+    m2 = fmaf(gs, (f32_of(xs[i]) - mean) * rstd, m2);
   }
   m1 = warp_sum(m1) / nin;
   m2 = warp_sum(m2) / nin;
   for (int i = lane; i < nin; i += 32) {
-    const float gs = dln[at + i] * gam[i];
-    const float xh = (xs[i] - mean) * rstd;
-    dx[at + i] += rstd * (gs - m1 - xh * m2);
+    const float gs = dln[at + i] * f32_of(gam[i]);
+    const float xh = (f32_of(xs[i]) - mean) * rstd;
+    store_as(dx + at + i, add[at + i] + rstd * (gs - m1 - xh * m2));
   }
 }
 
 // part[split] = (sum of dln xh, sum of dln) over the split's rows, per
 // column (g*nin + i): dgamma and dbeta before the second pass.
-__global__ void ln_dgb_kernel(const float* __restrict__ x, long long ldx,
+template <class T>
+__global__ void ln_dgb_kernel(const T* __restrict__ x, long long ldx,
                               const float* __restrict__ stats,
                               const float* __restrict__ dln,
                               float* __restrict__ part, int n, int groups,
@@ -396,7 +433,7 @@ __global__ void ln_dgb_kernel(const float* __restrict__ x, long long ldx,
   for (long long row = rbeg; row < rend; ++row) {
     const float* s = stats + (row * groups + g) * 2;
     const float d = dln[row * cols + col];
-    sg = fmaf(d, (x[row * ldx + col] - s[0]) * s[1], sg);
+    sg = fmaf(d, (f32_of(x[row * ldx + col]) - s[0]) * s[1], sg);
     sb += d;
   }
   float* out = part + (long long)blockIdx.y * 2 * cols;
@@ -435,35 +472,46 @@ unsigned ln_blocks(int n, int groups) {
 
 // The forward's first pass: the LayerNorm's statistics into stats where the
 // layer has one (gamma given); then the family's parameters over them.
-int ln_stats_pass(const float* x, long long ldx, const float* gamma, float* stats, int n,
+template <class T>
+int ln_stats_pass(const T* x, long long ldx, const void* gamma, float* stats, int n,
                   int groups, int nin, cudaStream_t st) {
   if (gamma == nullptr) return 0;
-  ln_stats_kernel<<<ln_blocks(n, groups), LN_WARPS * 32, 0, st>>>(x, ldx, stats, n, groups,
-                                                                  nin);
+  ln_stats_kernel<T><<<ln_blocks(n, groups), LN_WARPS * 32, 0, st>>>(x, ldx, stats, n, groups,
+                                                                     nin);
   return (int)cudaGetLastError();
 }
 
 Rbf::Params rbf_params(const float* gamma, const float* beta, const float* centres,
                        float inv_h, const float* stats, int groups, int base) {
   return {gamma != nullptr ? stats : nullptr, gamma, beta, centres, inv_h, groups,
-          base ? 1 : 0};
+          base ? 1 : 0, nullptr, nullptr};
 }
 
-// The LayerNorm's backward from dln: dx += its VJP (dx null: skipped), and
-// dgb = (dgamma, dbeta) (null: skipped) from ln_splits row partials.
-int ln_bwd(const float* x, long long ldx, const float* stats, const float* gamma,
-           const float* dln, float* dx, float* dgb, float* dgb_part, int n, int groups,
-           int nin, int ln_splits, cudaStream_t st) {
+// The bf16 kernels' parameters: gamma and beta bf16, upcast as staged.
+Rbf::Params rbf_params_bf16(const __nv_bfloat16* gamma, const __nv_bfloat16* beta,
+                            const float* centres, float inv_h, const float* stats, int groups,
+                            int base) {
+  return {gamma != nullptr ? stats : nullptr, nullptr, nullptr, centres, inv_h, groups,
+          base ? 1 : 0, gamma, beta};
+}
+
+// The LayerNorm's backward from dln: dx = add + its VJP (dx null: skipped;
+// f32 in place: add = dx), and dgb = (dgamma, dbeta) (null: skipped) from
+// ln_splits row partials summed in two levels in f32, stored as T once.
+template <class T>
+int ln_bwd(const T* x, long long ldx, const float* stats, const T* gamma,
+           const float* dln, const float* add, T* dx, T* dgb, float* dgb_part, int n,
+           int groups, int nin, int ln_splits, cudaStream_t st) {
   if (dx != nullptr) {
-    ln_dx_kernel<<<ln_blocks(n, groups), LN_WARPS * 32, 0, st>>>(x, ldx, stats, gamma, dln,
-                                                                 dx, n, groups, nin);
+    ln_dx_kernel<T><<<ln_blocks(n, groups), LN_WARPS * 32, 0, st>>>(x, ldx, stats, gamma, dln,
+                                                                    add, dx, n, groups, nin);
     const int err = (int)cudaGetLastError();
     if (err != 0) return err;
   }
   if (dgb == nullptr) return 0;
   const int rows = (n + ln_splits - 1) / ln_splits;
   const dim3 grid((groups * nin + 127) / 128, ln_splits);
-  ln_dgb_kernel<<<grid, 128, 0, st>>>(x, ldx, stats, dln, dgb_part, n, groups, nin, rows);
+  ln_dgb_kernel<T><<<grid, 128, 0, st>>>(x, ldx, stats, dln, dgb_part, n, groups, nin, rows);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
   return sum_splits(dgb_part, dgb, 2LL * groups * nin, ln_splits, st, LN_PART_GROUP);
@@ -483,7 +531,7 @@ int rbf_bwd(const float* x, long long ldx, const float* gamma, const float* stat
       return (int)cudaErrorInvalidValue;
     err = dx_launch(dln, dx, 1);
     if (err != 0) return err;
-    err = ln_bwd(x, ldx, stats, gamma, dln, dx, dgb, dgb_part, n, groups, nin, ln_splits,
+    err = ln_bwd(x, ldx, stats, gamma, dln, dx, dx, dgb, dgb_part, n, groups, nin, ln_splits,
                  st);
     if (err != 0) return err;
   } else if (dx != nullptr) {
@@ -561,6 +609,84 @@ extern "C" int kanvit_fastkan_bwd(const float* x, long long ldx,
       [&] {
         return launch_dw<Rbf>(x, ldx, p, gy, dw, dw_part, n, groups, nin, nout, splits, st);
       });
+}
+
+// The bf16 FastKAN forward (fastkan's and fastkan_qkv_grouped's, kanvit's
+// bf16 serving policy on kan_basis_tc.cuh part 3's Bf16 operand type): x,
+// gamma, beta, w and y bf16, the centres f32; the LayerNorm's statistics of
+// the upcast x in f32 into stats, then the RBF bases of the f32 LayerNorm
+// (gamma and beta upcast) and silu of the raw x made in f32 in registers and
+// rounded to bf16 at the dot, two slices a 16-deep step (five steps, silu
+// alone in the last), f32 accumulation in one running sum, y rounded to bf16
+// once; the bias is added outside. The shape above RBF_BF16_*; wsplit of
+// wwords words (launch_tc_grouped_fwd).
+extern "C" int kanvit_fastkan_tc_fwd_bf16(const void* x, long long ldx, const void* gamma,
+                                          const void* beta, const float* centres, float inv_h,
+                                          const void* w, void* y, float* stats,
+                                          unsigned int* wsplit, long long wwords, int n,
+                                          int groups, int nin, int nout, int base,
+                                          void* stream) {
+  using bf = __nv_bfloat16;
+  if (bad_shape(n, groups, nin, nout)) return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bf* xb = static_cast<const bf*>(x);
+  const int err = ln_stats_pass(xb, ldx, gamma, stats, n, groups, nin, st);
+  if (err != 0) return err;
+  return launch_tc_grouped_fwd<Rbf, RBF_BF16_WARPS, RBF_BF16_MINB, false, 0, Bf16>(
+      xb, ldx,
+      rbf_params_bf16(static_cast<const bf*>(gamma), static_cast<const bf*>(beta), centres,
+                      inv_h, stats, groups, base),
+      static_cast<const bf*>(w), static_cast<bf*>(y), wsplit, wwords, n, groups, nin, nout, st);
+}
+
+// The bf16 FastKAN backward (kanvit's bf16 training policy, part 4): x,
+// gamma, beta, w, gy, dx, dw and dgb bf16, the centres and stats (the
+// forward's) f32. With the LayerNorm: kan_bf16_dx<Rbf> writes dln, and
+// where dx is asked the silu term gW_silu silu'(x), into the f32 scratch
+// dln and dxs (n, groups nin), gW = gy W^T in f32 never rounded; then
+// ln_dx_kernel writes dx = bf16(dxs + the LayerNorm's VJP) and
+// ln_dgb_kernel dgamma and dbeta's row partials into dgb_part (ln_splits, 2,
+// groups, nin) f32, summed in two levels and rounded once into dgb (2,
+// groups, nin); the dln pass runs whenever dgb is asked (the embedder's
+// step asks no dx). Without it, dx = bf16(dln + the silu term). dW summed
+// in f32 over all the rows (row splits into dw_part, splits groups S nin
+// nout floats) and rounded once. dx, dw or dgb null to skip it.
+extern "C" int kanvit_fastkan_tc_bwd_bf16(const void* x, long long ldx, const void* gamma,
+                                          const void* beta, const float* centres, float inv_h,
+                                          const float* stats, const void* w, const void* gy,
+                                          void* dx, void* dw, float* dw_part, float* dln,
+                                          float* dxs, void* dgb, float* dgb_part, int n,
+                                          int groups, int nin, int nout, int base, int splits,
+                                          int ln_splits, void* stream) {
+  using bf = __nv_bfloat16;
+  const bool ln = gamma != nullptr;
+  if (bad_shape(n, groups, nin, nout) || splits < 1 || (dgb != nullptr && !ln) ||
+      (dw != nullptr && dw_part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bf *xb = static_cast<const bf*>(x), *wb = static_cast<const bf*>(w);
+  const bf* gyb = static_cast<const bf*>(gy);
+  bf* dxb = static_cast<bf*>(dx);
+  const Rbf::Params p = rbf_params_bf16(static_cast<const bf*>(gamma),
+                                        static_cast<const bf*>(beta), centres, inv_h, stats,
+                                        groups, base);
+  int err = 0;
+  if (ln && (dx != nullptr || dgb != nullptr)) {
+    if (dln == nullptr || ln_splits <= 0 || (dgb != nullptr && dgb_part == nullptr) ||
+        (dx != nullptr && dxs == nullptr))
+      return (int)cudaErrorInvalidValue;
+    err = launch_bf16_dx<Rbf>(xb, ldx, p, wb, gyb, nullptr, dln, dx != nullptr ? dxs : nullptr,
+                              1, n, groups, nin, nout, st);
+    if (err != 0) return err;
+    err = ln_bwd<bf>(xb, ldx, stats, static_cast<const bf*>(gamma), dln, dxs, dxb,
+                     static_cast<bf*>(dgb), dgb_part, n, groups, nin, ln_splits, st);
+  } else if (dx != nullptr) {
+    err = launch_bf16_dx<Rbf>(xb, ldx, p, wb, gyb, dxb, nullptr, nullptr, 0, n, groups, nin,
+                              nout, st);
+  }
+  if (err != 0 || dw == nullptr) return err;
+  return launch_bf16_grouped_dw<Rbf>(xb, ldx, p, wb, gyb, static_cast<bf*>(dw), dw_part, n,
+                                     groups, nin, nout, splits, st);
 }
 
 // SineKAN forward: x as FastKAN's; freq (groups, S), phase (nin, S), w

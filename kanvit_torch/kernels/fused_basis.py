@@ -50,21 +50,26 @@ The kernels are built for f32; the B-spline one for spline order 3 and a
 degree 4, the RBF one for 8 centres; they raise on anything else.
 
 bf16 (kanvit's bf16 serving and training): :func:`bspline_kan`,
-:func:`bspline_qkv_grouped`, :func:`chebykan` and :func:`cheby_qkv_grouped`
-(``BF16_FAMILY``) take bf16 x and weights (the knot grid stays f32) and
-return bf16, through part 3's ``Bf16`` operand type forward and part 4's
-kernels backward (``csrc/kan_basis_tc.cuh``): the basis (B-spline, or
-T_0..T_4 of tanh x) made in f32 from the upcast x and rounded to bf16 at
-the dot, ``spline_weight * spline_scaler`` formed in bf16 as kanvit forms
-it, f32 accumulation, y, dx and dW each rounded once (kanvit's
-``_fwd_kernel`` / ``_bwd_kernel`` on bf16 operands). Their launches count
-under ``<name>_bf16`` and ``<name>_bwd_bf16``. On the CPU the bf16 route is
-the kernels' plain twins (``K.bspline_grouped_forward_bf16`` and
-``K.bspline_grouped_backward_bf16``, ``K.cheby_grouped_forward_bf16`` and
-``K.cheby_grouped_backward_bf16``) through :class:`_KanBf16Plain`, whose
-backward is explicit: autograd through the forward twin would round at
-every op, which is not kanvit's policy. Every other entry point raises on
-bf16 (ROADMAP.md, Queue 2 entry 3b.2).
+:func:`bspline_qkv_grouped`, :func:`chebykan`, :func:`cheby_qkv_grouped`,
+:func:`fastkan` and :func:`fastkan_qkv_grouped` (``BF16_FAMILY``) take bf16
+x and weights (the knot grid and the RBF centres stay f32; FastKAN's
+LayerNorm gamma and beta bf16, upcast in the kernels) and return bf16,
+through part 3's ``Bf16`` operand type forward and part 4's kernels
+backward (``csrc/kan_basis_tc.cuh``): the basis (B-spline, T_0..T_4 of
+tanh x, or the RBF bases of the f32 LayerNorm and silu of the raw x) made
+in f32 from the upcast x and rounded to bf16 at the dot, ``spline_weight *
+spline_scaler`` formed in bf16 as kanvit forms it, f32 accumulation, y, dx,
+dW (and dgamma, dbeta) each rounded once (kanvit's ``_fwd_kernel`` /
+``_bwd_kernel`` and ``_rbf_ln_fwd_kernel`` / ``_rbf_ln_bwd_kernel`` on bf16
+operands). Their launches count under ``<name>_bf16`` and
+``<name>_bwd_bf16``. On the CPU the bf16 route is the kernels' plain twins
+(``K.bspline_grouped_forward_bf16`` and ``K.bspline_grouped_backward_bf16``,
+``K.cheby_grouped_forward_bf16`` and ``K.cheby_grouped_backward_bf16``,
+``K.fastkan_grouped_forward_bf16`` and ``K.fastkan_grouped_backward_bf16``)
+through :class:`_KanBf16Plain` and :class:`_RbfBf16Plain`, whose backward
+is explicit: autograd through the forward twin would round at every op,
+which is not kanvit's policy. Every other entry point raises on bf16
+(ROADMAP.md, Queue 2 entry 3b.2).
 
 The Functions take the packed weight ``(G, S, nin, out)`` and return its
 gradient, and the RBF one the LayerNorm's dgamma and dbeta, the sine one
@@ -97,9 +102,12 @@ ROWS_PER_TILE = 64
 
 # The entry points with bf16 kernels and their families (C entries
 # kanvit_bspline_tc_fwd_bf16 and kanvit_bspline_tc_bwd_bf16,
-# kanvit_cheby_tc_fwd_bf16 and kanvit_cheby_tc_bwd_bf16).
+# kanvit_cheby_tc_fwd_bf16 and kanvit_cheby_tc_bwd_bf16,
+# kanvit_fastkan_tc_fwd_bf16 and kanvit_fastkan_tc_bwd_bf16; the RBF ones
+# through _launch_rbf and _launch_rbf_bwd, by x's dtype).
 BF16_FAMILY = {"bspline_kan": "bspline", "bspline_qkv_grouped": "bspline",
-               "chebykan": "cheby", "cheby_qkv_grouped": "cheby"}
+               "chebykan": "cheby", "cheby_qkv_grouped": "cheby",
+               "fastkan": "rbf", "fastkan_qkv_grouped": "rbf"}
 BF16_FWD = tuple(BF16_FAMILY)
 BF16_TODO = "ROADMAP.md, Queue 2 entry 3b.2"
 LAUNCHES = {name: 0 for base in ("bspline_kan", "bspline_qkv_grouped",
@@ -323,8 +331,9 @@ def check_cheby_args(x2d: torch.Tensor, w: torch.Tensor, degree: int,
 
 
 def _check_bf16(name: str, x2d, w, aux) -> str:
-    """The family of the bf16 kernels of ``name`` (``BF16_FAMILY``) after
-    checking their operands (``aux``: the knot grid or the degree)."""
+    """The family of the bf16 kernels of ``name`` (``BF16_FAMILY``; B-spline
+    or Chebyshev) after checking their operands (``aux``: the knot grid or
+    the degree)."""
     family = BF16_FAMILY[name]
     if family == "bspline":
         check_args(x2d, aux, w, SPLINE_ORDER, bf16=True)
@@ -366,11 +375,12 @@ def _check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
                          f"{tuple(t.shape)}")
 
 
-def check_rbf_args(x2d, w, gamma, beta, grid) -> None:
+def check_rbf_args(x2d, w, gamma, beta, grid, bf16: bool = False) -> None:
     """Raise on anything the RBF kernels do not take (device aside): ``w
     (G, 8 or 9, nin, out)`` (the 9th slice the silu base branch), ``gamma``
     and ``beta`` ``(G, nin)`` or both None (no LayerNorm), ``grid`` the 8
-    centres, all f32 and contiguous."""
+    centres, all f32 and contiguous; or (``bf16``, the bf16 kernels) x, w,
+    gamma and beta bf16 and the centres f32."""
     if grid.numel() != RBF_GRIDS:
         raise ValueError(f"the kernel is built for {RBF_GRIDS} RBF centres, "
                          f"got {grid.numel()}")
@@ -378,12 +388,18 @@ def check_rbf_args(x2d, w, gamma, beta, grid) -> None:
     if w.dim() != 4 or w.shape[1] not in (RBF_GRIDS, RBF_GRIDS + 1):
         raise ValueError(f"packed weight must be (G, {RBF_GRIDS} or "
                          f"{RBF_GRIDS + 1}, nin, out), got {tuple(w.shape)}")
-    _check_common(x2d, w, w.shape[1])
+    _check_common(x2d, w, w.shape[1], bf16)
     if (gamma is None) != (beta is None):
         raise ValueError("gamma and beta are both given or both None")
     if gamma is not None:
+        shape = tuple(w.shape[:1]) + tuple(w.shape[2:3])
         for name, t in (("gamma", gamma), ("beta", beta)):
-            _check_f32(name, t, tuple(w.shape[:1]) + tuple(w.shape[2:3]))
+            if x2d.dtype == torch.bfloat16:
+                if t.dtype != torch.bfloat16 or tuple(t.shape) != shape or not t.is_contiguous():
+                    raise TypeError(f"{name} must be contiguous bf16 {shape} under a bf16 "
+                                    f"x, got {t.dtype} {tuple(t.shape)}")
+            else:
+                _check_f32(name, t, shape)
 
 
 def check_sine_args(x2d, w, freq2d, phase, tc: bool = False) -> None:
@@ -431,9 +447,11 @@ def _empty(*shape, device) -> torch.Tensor:
     return torch.empty(*shape, dtype=torch.float32, device=device)
 
 
-def _check_gy(name: str, gy: torch.Tensor, shape: tuple) -> torch.Tensor:
-    if gy.dtype != torch.float32 or tuple(gy.shape) != shape:
-        raise ValueError(f"{name}: gradient must be f32 {shape}, got "
+def _check_gy(name: str, gy: torch.Tensor, shape: tuple,
+              dtype: torch.dtype = torch.float32) -> torch.Tensor:
+    if gy.dtype != dtype or tuple(gy.shape) != shape:
+        want = "bf16" if dtype == torch.bfloat16 else "f32"
+        raise ValueError(f"{name}: gradient must be {want} {shape}, got "
                          f"{gy.dtype} {tuple(gy.shape)}")
     return gy.contiguous()
 
@@ -687,11 +705,11 @@ def _tc_grouped_fwd_scratch(w, dev, family: str = "bspline",
     family's steps (the slices its tile holds, which the pre-pass writes
     whatever the weight's S, zeros past it; RBF one more, the silu slice's
     remainders) x 8 features x the block's outputs, two words a value;
-    ``bf16``: steps of two slices, one word (a bf16 pair) a value."""
+    ``bf16``: steps of two of the tile's slices (no remainders step), one
+    word (a bf16 pair) a value."""
     groups, _, nin, out = w.shape
     outs = tc_fwd_outs(family, out, bf16)
-    steps = TCG_FWD_STEPS[family]
-    words = -(-steps // 2) if bf16 else 2 * steps
+    words = -(-TCG_SLICES[family] // 2) if bf16 else 2 * TCG_FWD_STEPS[family]
     return torch.empty(groups * -(-out // outs) * -(-nin // TCG_FWD_FEATURES)
                        * words * outs * TCG_FWD_FEATURES,
                        dtype=torch.int32, device=dev)
@@ -926,13 +944,20 @@ def _launch_rbf(name: str, x2d, w, gamma, beta, grid, denominator: float):
     kernels: the LayerNorm's statistics when ``gamma`` is given, then the
     fused RBF (and silu, for a 9-slice weight) contraction on the tensor
     cores, the embedder's (``fastkan``) as the grouped q/k/v's one-group
-    case with its 768-deep sum in two levels (``TCG_FWD_FLUSH``)."""
-    check_rbf_args(x2d, w, gamma, beta, grid)
+    case with its 768-deep sum in two levels (``TCG_FWD_FLUSH``). A bf16 x
+    (the packed weight, gamma and beta bf16, the centres f32) takes the bf16
+    kernels (entry ``kanvit_fastkan_tc_fwd_bf16``: the statistics in f32,
+    part 3's ``Bf16`` operand type, one running sum), y bf16, counted under
+    ``<name>_bf16``."""
+    bf16 = x2d.dtype == torch.bfloat16
+    if bf16 and BF16_FAMILY.get(name) != "rbf":
+        raise TypeError(f"{name}: no bf16 FastKAN kernel")
+    check_rbf_args(x2d, w, gamma, beta, grid, bf16=bf16)
     _check_device(name, x2d, w, grid, *(() if gamma is None else (gamma, beta)))
     n = x2d.shape[0]
     groups, slices, nin, out = w.shape
     dev = x2d.device
-    y = _empty(n, groups * out, device=dev)
+    y = torch.empty(n, groups * out, dtype=x2d.dtype, device=dev)
     stats = None if gamma is None else _empty(n, groups, 2, device=dev)
     if n == 0:
         return y, stats
@@ -943,6 +968,11 @@ def _launch_rbf(name: str, x2d, w, gamma, beta, grid, denominator: float):
               1.0 / denominator, w.data_ptr(), y.data_ptr(), _ptr(stats))
     shape = (n, groups, nin, out, slices - RBF_GRIDS)
     with torch.cuda.device(dev):
+        if bf16:
+            wsplit = _tc_grouped_fwd_scratch(w, dev, "rbf", bf16=True)
+            err = lib.kanvit_fastkan_tc_fwd_bf16(*common, wsplit.data_ptr(), wsplit.numel(),
+                                                 *shape, _stream(dev))
+            return _counted(f"{name}_bf16", err, y, stats)
         if name in TC_GROUPED_FWD:
             wsplit = _tc_grouped_fwd_scratch(w, dev, "rbf")
             head = (*common, wsplit.data_ptr(), wsplit.numel())
@@ -965,17 +995,25 @@ def _launch_rbf_bwd(name: str, x2d, w, gamma, beta, grid, denominator: float,
     kernels; dgamma and dbeta ``(G, nin)`` whenever the layer has its
     LayerNorm (its dln pass runs even with no dx), else None. The grouped
     q/k/v's and the embedder's (one group) run dx and dW on the tensor
-    cores."""
-    check_rbf_args(x2d, w, gamma, beta, grid)
+    cores. A bf16 x takes the bf16 kernels (entry
+    ``kanvit_fastkan_tc_bwd_bf16``), every output bf16, counted under
+    ``<name>_bf16``: dln and the silu term in f32 from part 4's dx kernel
+    (gW = gy W^T never rounded), the LayerNorm's VJP added and dx rounded
+    once; dgamma and dbeta f32 column sums in two levels, rounded once; dW's
+    row splits summed in f32 and rounded once."""
+    bf16 = x2d.dtype == torch.bfloat16
+    if bf16 and BF16_FAMILY.get(name.removesuffix("_bwd")) != "rbf":
+        raise NotImplementedError(f"{name}: no bf16 FastKAN backward kernel")
+    check_rbf_args(x2d, w, gamma, beta, grid, bf16=bf16)
     ln = gamma is not None
     _check_device(name, x2d, w, grid, gy, *((gamma, beta, stats) if ln else ()))
     n = x2d.shape[0]
     groups, slices, nin, out = w.shape
-    gy = _check_gy(name, gy, (n, groups * out))
+    gy = _check_gy(name, gy, (n, groups * out), x2d.dtype)
     dev = x2d.device
-    dx = _empty(n, groups * nin, device=dev) if need_dx else None
+    dx = torch.empty(n, groups * nin, dtype=x2d.dtype, device=dev) if need_dx else None
     dw = torch.empty_like(w) if need_dw else None
-    dgb = _empty(2, groups, nin, device=dev) if ln else None
+    dgb = torch.empty(2, groups, nin, dtype=x2d.dtype, device=dev) if ln else None
     if n == 0:
         dgb = None if dgb is None else dgb.zero_()
         return (dx, None if dw is None else dw.zero_(),
@@ -990,7 +1028,18 @@ def _launch_rbf_bwd(name: str, x2d, w, gamma, beta, grid, denominator: float,
               _ptr(dw))
     lib = _build.load()
     with torch.cuda.device(dev):
-        if name in TC_GROUPED_BWD:
+        if bf16:
+            dxs = _empty(n, groups * nin, device=dev) if ln and need_dx else None
+            splits, part = 1, None
+            if need_dw:
+                splits = tc_grouped_dw_splits(n, groups, nin, out, torch.cuda.
+                                              get_device_properties(dev).multi_processor_count)
+                part = _empty(splits, *w.shape, device=dev)
+            err = lib.kanvit_fastkan_tc_bwd_bf16(
+                *common, _ptr(part), _ptr(dln), _ptr(dxs), _ptr(dgb), _ptr(dgb_part), n,
+                groups, nin, out, slices - RBF_GRIDS, splits, ln_splits, _stream(dev))
+            name = f"{name}_bf16"
+        elif name in TC_GROUPED_BWD:
             wtsplit, splits, part = _tc_grouped_scratch("rbf", w, n, need_dx or ln,
                                                         need_dw, dev)
             err = lib.kanvit_fastkan_qkv_tc_bwd(
@@ -1008,7 +1057,8 @@ class _RbfFn(torch.autograd.Function):
     """``y = x2d -> [LN] -> RBF (+ silu) -> @ w`` on the card; the backward
     returns dx, d(packed weight), dgamma and dbeta. Saves x, the packed
     weight, gamma, beta and the LayerNorm's (mean, rstd) (kanvit saves x and
-    recomputes the statistics, ``fused_basis.py:2980``)."""
+    recomputes the statistics, ``fused_basis.py:2980``). A bf16 x takes the
+    bf16 kernels both ways."""
 
     @staticmethod
     def forward(ctx, x2d, w, gamma, beta, grid, denominator, name):
@@ -1020,10 +1070,31 @@ class _RbfFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, gy):
         x2d, w, gamma, beta, grid, stats = ctx.saved_tensors
-        dx, dw, dgamma, dbeta = _launch_rbf_bwd(
-            f"{ctx.name}_bwd", x2d, w, gamma, beta, grid, ctx.denominator, stats,
-            gy, ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        args = (x2d, w, gamma, beta, grid, ctx.denominator, stats, gy,
+                ctx.needs_input_grad[0], ctx.needs_input_grad[1])
+        dx, dw, dgamma, dbeta = _launch_rbf_bwd(f"{ctx.name}_bwd", *args)
         return dx, dw, dgamma, dbeta, None, None, None
+
+
+class _RbfBf16Plain(torch.autograd.Function):
+    """The CPU route of a bf16 FastKAN layer: the plain twins of the bf16
+    kernels on the packed weight, forward and an explicit backward (dx only
+    where asked, as on the card; dgamma and dbeta with the LayerNorm). It
+    refuses what the bf16 kernels refuse."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, gamma, beta, grid, denominator):
+        check_rbf_args(x2d, w, gamma, beta, grid, bf16=True)
+        ctx.denominator = denominator
+        ctx.save_for_backward(x2d, w, gamma, beta, grid)
+        return K.fastkan_grouped_forward_bf16(x2d, w, gamma, beta, grid, denominator)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x2d, w, gamma, beta, grid = ctx.saved_tensors
+        grads = K.fastkan_grouped_backward_bf16(x2d, w, gamma, beta, grid, ctx.denominator,
+                                                gy, *ctx.needs_input_grad[:2])
+        return (*grads, None, None)
 
 
 def fastkan(x, ln_gamma, ln_beta, rbf_grid, rbf_denominator, spline_weight,
@@ -1035,9 +1106,11 @@ def fastkan(x, ln_gamma, ln_beta, rbf_grid, rbf_denominator, spline_weight,
     the 8 centres; ``spline_weight (out, in*8)``; ``base_weight (out, in)``
     and ``base_bias (out,)``, or None (no base branch). The LayerNorm and
     the silu base branch run inside the kernels; the bias is added outside,
-    as kanvit adds it.
+    as kanvit adds it. A bf16 x (bf16 weights, gamma and beta; the centres
+    f32) takes the bf16 kernels (on the CPU their plain twins).
     """
-    if not dispatch.use_kernel(x):
+    kernel = dispatch.use_kernel(x)
+    if not kernel and x.dtype != torch.bfloat16:
         return K.fastkan_forward(x, ln_gamma, ln_beta, rbf_grid, rbf_denominator,
                                  spline_weight, base_weight, base_bias)
     lead, nin = x.shape[:-1], x.shape[-1]
@@ -1045,8 +1118,9 @@ def fastkan(x, ln_gamma, ln_beta, rbf_grid, rbf_denominator, spline_weight,
     w = pack_fastkan_weight(spline_weight, base_weight, rbf_grid.numel())
     gamma, beta = ((None, None) if ln_gamma is None
                    else (ln_gamma.reshape(1, nin), ln_beta.reshape(1, nin)))
-    y = _RbfFn.apply(x.reshape(-1, nin), w.unsqueeze(0).contiguous(), gamma, beta,
-                     rbf_grid.contiguous(), float(rbf_denominator), "fastkan")
+    args = (x.reshape(-1, nin), w.unsqueeze(0).contiguous(), gamma, beta,
+            rbf_grid.contiguous(), float(rbf_denominator))
+    y = _RbfFn.apply(*args, "fastkan") if kernel else _RbfBf16Plain.apply(*args)
     if base_weight is not None:
         y = y + base_bias
     return y.reshape(*lead, nout)
@@ -1060,10 +1134,12 @@ def fastkan_qkv_grouped(x2d, ln_gamma, ln_beta, rbf_grid, rbf_denominator,
     stacked ``ln_gamma``, ``ln_beta`` ``(H, dh)``, ``spline_weight (H, out,
     dh*8)``, ``base_weight (H, out, dh)``, ``base_bias (H, out)``. Each head
     normalises its own dh features. Returns ``y (N, H*out)``, bias
-    included, head h at ``[h*out, (h+1)*out)``.
+    included, head h at ``[h*out, (h+1)*out)``. A bf16 x takes the bf16
+    kernels (on the CPU their plain twins), the bias added in bf16.
     """
     h, nout, dh = base_weight.shape
-    if not dispatch.use_kernel(x2d):
+    kernel = dispatch.use_kernel(x2d)
+    if not kernel and x2d.dtype != torch.bfloat16:
         return torch.cat([
             K.fastkan_forward(x2d[:, i * dh:(i + 1) * dh], ln_gamma[i], ln_beta[i],
                               rbf_grid, rbf_denominator, spline_weight[i],
@@ -1071,9 +1147,10 @@ def fastkan_qkv_grouped(x2d, ln_gamma, ln_beta, rbf_grid, rbf_denominator,
             for i in range(h)
         ], dim=1)
     w = pack_fastkan_qkv_weight(spline_weight, base_weight, rbf_grid.numel())
-    y = _RbfFn.apply(x2d, w.contiguous(), ln_gamma.contiguous(),
-                     ln_beta.contiguous(), rbf_grid.contiguous(),
-                     float(rbf_denominator), "fastkan_qkv_grouped")
+    args = (x2d, w.contiguous(), ln_gamma.contiguous(), ln_beta.contiguous(),
+            rbf_grid.contiguous(), float(rbf_denominator))
+    y = (_RbfFn.apply(*args, "fastkan_qkv_grouped") if kernel
+         else _RbfBf16Plain.apply(*args))
     return y + base_bias.reshape(1, h * nout)
 
 

@@ -501,8 +501,26 @@ def fastkan_forward(x, ln_gamma, ln_beta, rbf_grid, rbf_denominator,
     inside the layer, RBF expansion, ``spline_weight (out, in*num_grids)``;
     plus ``silu(x) @ base_weight.T + base_bias`` of the RAW x when the base
     branch exists. ``ln_gamma=None`` skips the LayerNorm (the reference's
-    ``time_benchmark`` flag). Shape-preserving over leading dims."""
+    ``time_benchmark`` flag). Shape-preserving over leading dims.
+
+    A bf16 ``x`` follows the bf16 kernel's policy (kanvit's kernel route,
+    ``_rbf_ln_fwd_kernel``, not its jnp route, which runs the LayerNorm, the
+    bases and the matmul in bf16): :func:`fastkan_grouped_forward_bf16`, the
+    bias added after in bf16."""
     lead, nin = x.shape[:-1], x.shape[-1]
+    if x.dtype == torch.bfloat16:
+        bf16 = torch.bfloat16
+        nout = spline_weight.shape[0]
+        w = spline_weight.to(bf16).reshape(nout, nin, -1).permute(2, 1, 0)
+        if base_weight is not None:
+            w = torch.cat([w, base_weight.to(bf16).T.unsqueeze(0)], 0)
+        gamma, beta = ((None, None) if ln_gamma is None
+                       else (ln_gamma.reshape(1, nin), ln_beta.reshape(1, nin)))
+        y = fastkan_grouped_forward_bf16(x.reshape(-1, nin), w.unsqueeze(0), gamma, beta,
+                                         rbf_grid, rbf_denominator)
+        if base_weight is not None:
+            y = y + base_bias.to(bf16)
+        return y.reshape(*lead, nout)
     xf = x.reshape(-1, nin)
     ln = xf if ln_gamma is None else layernorm(xf, ln_gamma, ln_beta)
     basis = rbf_bases(ln, rbf_grid, rbf_denominator)  # (N, in, G)
@@ -510,6 +528,130 @@ def fastkan_forward(x, ln_gamma, ln_beta, rbf_grid, rbf_denominator,
     if base_weight is not None:
         y = y + F.silu(xf) @ base_weight.T + base_bias
     return y.reshape(*lead, spline_weight.shape[0])
+
+
+def seg_layernorm_f32(xf: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor):
+    """kanvit's in-kernel segment LayerNorm (``_seg_ln_into``) of the f32
+    ``xf (N, nin)`` with the upcast ``gamma``, ``beta (nin,)``: the mean,
+    the biased variance about it, ``rsqrt(v + 1e-5)``; returns ``(ln, xh,
+    rstd)``, ``ln = xh gamma + beta``, ``xh = (x - mean) rstd``."""
+    xc = xf - xf.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + 1e-5)
+    xh = xc * rstd
+    return xh * gamma.float() + beta.float(), xh, rstd
+
+
+def _rbf_u(ln: torch.Tensor, grid: torch.Tensor, denominator: float) -> torch.Tensor:
+    """``(N, G, nin)``: ``u_k = (ln - c_k) / h`` as the kernels form it, the
+    difference times 1/h in f32."""
+    return (ln.unsqueeze(1) - grid.float().reshape(1, -1, 1)) * (1.0 / denominator)
+
+
+def _rbf_slices_of(gamma, beta, grid, denominator, base: bool):
+    """``slices(g, xf)`` of group ``g``'s FastKAN layer as the bf16 kernels
+    make them, in f32 (kanvit's ``_rbf_ln_fwd_kernel`` on bf16 operands):
+    ``(N, 8 [+1], nin)``, exp(-u_k^2) of the group's LayerNorm of the upcast
+    x (``gamma`` None: of x itself), then silu(x) = x sigmoid(x) of the raw
+    x where the layer has its base branch."""
+    def slices(g, xf):
+        ln = xf if gamma is None else seg_layernorm_f32(xf, gamma[g], beta[g])[0]
+        u = _rbf_u(ln, grid, denominator)
+        b = torch.exp(-u * u)
+        return torch.cat([b, (xf * torch.sigmoid(xf)).unsqueeze(1)], 1) if base else b
+    return slices
+
+
+def fastkan_grouped_forward_bf16(x2d, w, gamma, beta, grid, denominator,
+                                 exact: bool = False) -> torch.Tensor:
+    """The bf16 FastKAN kernels' forward on the packed weight ``w (G, 8
+    [+1], nin, out)`` bf16 (``fastkan``: one group; ``fastkan_qkv_grouped``:
+    a group a head) and ``x2d (N, G*nin)`` bf16; ``gamma``, ``beta (G,
+    nin)`` (upcast to f32) or None; ``grid`` the 8 centres, f32. The
+    LayerNorm in f32, the RBF bases of it and silu of the raw x made in f32
+    and rounded to bf16 once, the products exact and summed in f32 in one
+    running sum, y rounded to bf16 once, no bias (kanvit adds it outside):
+    :func:`grouped_forward_bf16`."""
+    return grouped_forward_bf16(x2d, w, _rbf_slices_of(gamma, beta, grid, denominator,
+                                                       w.shape[1] > grid.numel()), exact)
+
+
+def fastkan_grouped_backward_bf16(x2d, w, gamma, beta, grid, denominator, gy,
+                                  need_dx: bool = True, need_dw: bool = True,
+                                  exact: bool = False):
+    """The bf16 FastKAN kernels' backward (kanvit's ``_rbf_ln_bwd_kernel``
+    and ``_rbf_ln_bwd_kernel_sg`` on bf16 operands) on
+    :func:`fastkan_grouped_forward_bf16`'s operands and ``gy (N, G*out)``
+    bf16. Per group:
+
+    - ``gW = gy W^T``, bf16 operands, the products exact and summed in f32
+      (never rounded);
+    - ``dln = sum_k gW_k (-2 u_k / h) b_k`` in f32 in slice order (never
+      rounded);
+    - ``dx = rstd (gs - mean(gs) - xh mean(gs xh)) + gW_silu silu'(x)``,
+      ``gs = dln gamma``, in f32 and rounded to bf16 once (no LayerNorm:
+      ``dln`` + the silu term);
+    - ``dW = bf16(slices)^T gy`` summed in f32 over all the rows, rounded
+      once; dgamma and dbeta, the f32 column sums of ``dln xh`` and ``dln``
+      over all the rows, each rounded once.
+
+    Returns ``(dx (N, G*nin) or None, dw or None, dgamma (G, nin) or None,
+    dbeta or None)``, bf16; dgamma and dbeta whenever the layer has its
+    LayerNorm. ``exact``: the same f32 basis values and rounded operands
+    summed in f64, unrounded."""
+    n = x2d.shape[0]
+    groups, nslices, nin, nout = w.shape
+    base = nslices > grid.numel()
+    acc = torch.float64 if exact else torch.float32
+    slices = _rbf_slices_of(gamma, beta, grid, denominator, base)
+    dxs, dws, dgs, dbs = [], [], [], []
+    for g in range(groups):
+        xf = x2d[:, g * nin:(g + 1) * nin].float()
+        gyg = gy[:, g * nout:(g + 1) * nout].to(acc)
+        if need_dx or gamma is not None:
+            if gamma is None:
+                ln = xf
+            else:
+                ln, xh, rstd = seg_layernorm_f32(xf, gamma[g], beta[g])
+                xh, rstd = xh.to(acc), rstd.to(acc)
+            u = _rbf_u(ln, grid, denominator)
+            coef = (-2.0 / denominator) * u * torch.exp(-u * u)
+            gw = (gyg @ w[g].to(acc).reshape(-1, nout).T).reshape(n, nslices, nin)
+            dln = torch.zeros(n, nin, dtype=acc, device=x2d.device)
+            for k in range(coef.shape[1]):
+                dln = dln + gw[:, k] * coef[:, k].to(acc)
+            if gamma is not None:
+                dgs.append((dln * xh).sum(0))
+                dbs.append(dln.sum(0))
+            if need_dx:
+                if gamma is None:
+                    dx = dln
+                else:
+                    gs = dln * gamma[g].to(acc)
+                    dx = rstd * (gs - gs.mean(-1, keepdim=True)
+                                 - xh * (gs * xh).mean(-1, keepdim=True))
+                if base:
+                    sig = torch.sigmoid(xf)
+                    dx = dx + gw[:, -1] * (sig + xf * sig * (1.0 - sig)).to(acc)
+                dxs.append(dx)
+        if need_dw:
+            ab = slices(g, xf).to(torch.bfloat16).to(acc).reshape(n, -1)
+            dws.append((ab.T @ gyg).reshape(nslices, nin, nout))
+    out = (torch.cat(dxs, 1) if need_dx else None,
+           torch.stack(dws) if need_dw else None,
+           *((None, None) if gamma is None else (torch.stack(dgs), torch.stack(dbs))))
+    return out if exact else tuple(None if t is None else t.to(torch.bfloat16) for t in out)
+
+
+def fastkan_fwd_spread_bf16(x2d, w, gamma, beta, grid, denominator) -> torch.Tensor:
+    """:func:`grouped_fwd_spread_bf16` of the FastKAN layer, |B| @ |W|."""
+    return grouped_fwd_spread_bf16(x2d, w, _rbf_slices_of(gamma, beta, grid, denominator,
+                                                          w.shape[1] > grid.numel()))
+
+
+def fastkan_dw_spread_bf16(x2d, w, gamma, beta, grid, denominator, gy) -> torch.Tensor:
+    """:func:`grouped_dw_spread_bf16` of the FastKAN layer, |B|^T |gy|."""
+    return grouped_dw_spread_bf16(x2d, w, gy, _rbf_slices_of(gamma, beta, grid, denominator,
+                                                             w.shape[1] > grid.numel()))
 
 
 # --- Sine (SineKAN) -----------------------------------------------------------

@@ -1,28 +1,32 @@
-"""bf16 serving and training of the vit-s efficientkan and cheby ViTs on the
-card: checks and times.
+"""bf16 serving and training of the vit-s efficientkan, cheby and fast ViTs
+on the card: checks and times.
 
-    python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby}] [--train]
-                                      [--cheby-shapes]
+    python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby,fast}] [--train]
+                                      [--cheby-shapes] [--fast-shapes]
 
 Builds the kernels (registers, spills and the SASS report), then runs
-``chip_smoke.py``'s bf16 phases alone: its ten bf16 kernels (the forwards
-and backwards of ``bspline_kan``, ``bspline_qkv_grouped``, ``chebykan``,
-``cheby_qkv_grouped`` and the lanes attention) against their plain twins
-and f64 at the vit-s and ragged shapes, with CUDA-event and device times
-beside the f32 kernels' (``phase_bf16_kernels``), and the bf16 serving of
-the vit-s model through ``Predictor`` and ``make_eval_step(bf16=True)``
-beside f32 (``phase_bf16_serve``); ``--train`` adds its bf16 training
-through ``make_train_step(bf16=True)`` (``phase_bf16_train``: launches, the
-loss over 10 steps, the 4-image gradients against the CPU's bf16 twins, the
-parameter casts' kernels and the host's split of a step with the flat
-buffer and with a cast a parameter, ms a step beside f32's, the profiles).
+``chip_smoke.py``'s bf16 phases alone: the bf16 kernels of the model type
+against their plain twins and f64 at the vit-s and ragged shapes, with
+CUDA-event and device times beside the f32 kernels' on the same operands
+(efficientkan: ``phase_bf16_kernels``, every bf16 kernel, ``bspline_kan``,
+``bspline_qkv_grouped``, ``chebykan``, ``cheby_qkv_grouped``, ``fastkan``,
+``fastkan_qkv_grouped`` and the lanes attention, forward and backward;
+cheby: ``cheby_bf16_kernels``; fast: ``fast_bf16_kernels``), and the bf16
+serving of the vit-s model through ``Predictor`` and
+``make_eval_step(bf16=True)`` beside f32 (``phase_bf16_serve``);
+``--train`` adds its bf16 training through ``make_train_step(bf16=True)``
+(``phase_bf16_train``: launches, the loss over 10 steps, the 4-image
+gradients against the CPU's bf16 twins, the parameter casts' kernels and
+the host's split of a step with the flat buffer and with a cast a
+parameter, ms a step beside f32's, the profiles).
 
-``--cheby-shapes`` also builds a library of the bf16 Chebyshev forward's
-shapes (``CHEBY_BF16_SHAPES``: n8 tiles a warp, warps a block, blocks an SM
-of ``kan_tc_fwd_grouped<Cheby, NT, WARPS, MINB, Bf16, 0>``) and times each
-at the vit-s embedder and q/k/v and one vit-s image beside the route, each
-held to the route's bits (a shape sums in the same order) and to the twin's
-gate. The last line holds the times as JSON.
+``--cheby-shapes`` and ``--fast-shapes`` also build a library of the bf16
+Chebyshev or RBF (FastKAN) forward's shapes (``CHEBY_BF16_SHAPES``,
+``FAST_BF16_SHAPES``: n8 tiles a warp, warps a block, blocks an SM of
+``kan_tc_fwd_grouped<F, NT, WARPS, MINB, Bf16, 0>``) and time each at the
+vit-s embedder and q/k/v and one vit-s image beside the route, each held to
+the route's bits (a shape sums in the same order) and to the twin's gate.
+The last line holds the times as JSON.
 """
 
 from __future__ import annotations
@@ -41,6 +45,41 @@ ROOT = Path(__file__).resolve().parents[1]
 # 8 warps at three blocks an SM)
 CHEBY_BF16_SHAPES = ((24, 12, 1), (8, 8, 3), (8, 8, 2), (8, 8, 4), (8, 12, 1), (8, 12, 2),
                      (8, 16, 1), (24, 8, 1), (24, 8, 2))
+
+# The same for the bf16 RBF forward; the route's first (past 64 outputs 192
+# a block at 12 warps; up to 64 kan_rbf_sine.cu's RBF_BF16_WARPS and
+# RBF_BF16_MINB, 4 warps at four blocks an SM), then the f32 RBF forward's
+# 12 warps at one block an SM
+FAST_BF16_SHAPES = ((24, 12, 1), (8, 4, 4), (8, 12, 1), (8, 8, 3), (8, 8, 2), (8, 12, 2),
+                    (8, 16, 1), (24, 8, 1))
+
+FAST_BF16_SOURCE = r"""
+#include "kan_rbf_sine.cu"
+
+extern "C" int probe_fast_fwd_bf16(int v, const void* x, long long ldx, const void* gamma,
+                                   const void* beta, const float* centres, float inv_h,
+                                   const void* w, void* y, float* stats, unsigned int* ws,
+                                   long long ww, int n, int groups, int nin, int nout,
+                                   void* stream) {
+  using bf = __nv_bfloat16;
+  const bf* xb = static_cast<const bf*>(x);
+  const bf* wb = static_cast<const bf*>(w);
+  bf* yb = static_cast<bf*>(y);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const int err = ln_stats_pass(xb, ldx, gamma, stats, n, groups, nin, st);
+  if (err != 0) return err;
+  const Rbf::Params p = rbf_params_bf16(static_cast<const bf*>(gamma),
+                                        static_cast<const bf*>(beta), centres, inv_h, stats,
+                                        groups, 1);
+  switch (v) {
+CASES
+  }
+  return -1;
+}
+""".replace("CASES", "\n".join(
+    f"    case {i}: return launch_tc_fwd_grouped<Rbf, {nt}, {w}, {mb}, 0, Bf16>(xb, ldx, "
+    f"p, wb, yb, ws, ww, n, groups, nin, nout, st);"
+    for i, (nt, w, mb) in enumerate(FAST_BF16_SHAPES)))
 
 CHEBY_BF16_SOURCE = r"""
 #include "kan_basis.cu"
@@ -64,46 +103,82 @@ CASES
     for i, (nt, w, mb) in enumerate(CHEBY_BF16_SHAPES)))
 
 
-def cheby_bf16_shapes(lib, C, torch):
-    """Each shape of ``CHEBY_BF16_SHAPES`` at the vit-s embedder, one vit-s
-    image's embedder and the vit-s q/k/v: CUDA-event ms in turns with the
-    route, the route's bits, and the twin's gate (one bf16 ulp plus the
-    rounded basis's term)."""
+def _cases(C, family):
+    """``(label, n, heads, nin, nout)`` of the shapes' timings: the vit-s
+    embedder, one vit-s image's and the vit-s q/k/v (Chebyshev: q|k|v, 192
+    outputs a head; FastKAN: one projection, 64)."""
+    qkv_out = 192 if family == "cheby" else 64
+    return (("vit-s embedder", C.BATCH * 196, None, 768, 384),
+            ("vit-s embedder, one image", 196, None, 768, 384),
+            ("vit-s q/k/v", C.BATCH * 197, 6, 64, qkv_out))
+
+
+def bf16_shapes(lib, C, torch, family):
+    """Each shape of ``CHEBY_BF16_SHAPES`` (``family`` "cheby") or
+    ``FAST_BF16_SHAPES`` ("fast") at the vit-s embedder, one vit-s image's
+    embedder and the vit-s q/k/v: CUDA-event ms in turns with the route, the
+    route's bits, and the twin's gate (one bf16 ulp plus the rounded basis's
+    term)."""
     import numpy as np
 
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.ops import kan_bases as K
 
-    fn = lib.probe_cheby_fwd_bf16
-    p, i64, i32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
-    fn.argtypes = [i32, p, i64, p, p, p, i64, *[i32] * 4, p]
+    p, i64, i32, f32 = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+    if family == "cheby":
+        shapes, fn = CHEBY_BF16_SHAPES, lib.probe_cheby_fwd_bf16
+        fn.argtypes = [i32, p, i64, p, p, p, i64, *[i32] * 4, p]
+        names = ("chebykan", "cheby_qkv_grouped")
+    else:
+        shapes, fn = FAST_BF16_SHAPES, lib.probe_fast_fwd_bf16
+        fn.argtypes = [i32, p, i64, p, p, p, f32, p, p, p, p, i64, *[i32] * 4, p]
+        names = ("fastkan", "fastkan_qkv_grouped")
     fn.restype = i32
-    rng = np.random.default_rng(C.SEED + 14)
+    rng = np.random.default_rng(C.SEED + (14 if family == "cheby" else 16))
     stream = torch.cuda.current_stream().cuda_stream
     times = {}
-    for label, n, heads, nin, nout in (("vit-s embedder", C.BATCH * 196, None, 768, 384),
-                                       ("vit-s embedder, one image", 196, None, 768, 384),
-                                       ("vit-s q/k/v", C.BATCH * 197, 6, 64, 192)):
-        x, _, w, groups = C.cheby_bf16_case(torch, rng, n, heads, nin, nout)
-        name = "chebykan" if heads is None else "cheby_qkv_grouped"
-        ws = torch.empty(groups * -(-nout // 192) * 192 * -(-nin // 8) * 3 * 8,
-                         dtype=torch.int32, device="cuda")
-        with torch.inference_mode():
+    for label, n, heads, nin, nout in _cases(C, family):
+        name = names[heads is not None]
+        if family == "cheby":
+            x, _, w, groups = C.cheby_bf16_case(torch, rng, n, heads, nin, nout)
+
             def route():
                 return FB._launch_bf16(name, x, w, FB.CHEBY_DEGREE)
 
+            twin = K.cheby_grouped_forward_bf16(x, w)
+            spread = K.cheby_fwd_spread_bf16(x, w)
+
+            def args(y):
+                return (x.data_ptr(), x.stride(0), w.data_ptr(), y.data_ptr())
+        else:
+            x, w, ga, be, grid, den = C.fast_bf16_case(torch, rng, n, heads, nin, nout)
+            groups = w.shape[0]
+            stats = torch.empty(n, groups, 2, device="cuda")
+
+            def route():
+                return FB._launch_rbf(name, x, w, ga, be, grid, den)[0]
+
+            twin = K.fastkan_grouped_forward_bf16(x, w, ga, be, grid, den)
+            spread = K.fastkan_fwd_spread_bf16(x, w, ga, be, grid, den)
+
+            def args(y):
+                return (x.data_ptr(), x.stride(0), ga.data_ptr(), be.data_ptr(),
+                        grid.data_ptr(), 1.0 / den, w.data_ptr(), y.data_ptr(),
+                        stats.data_ptr())
+        ws = torch.empty(groups * -(-nout // 192) * 192 * -(-nin // 8) * 5 * 8,
+                         dtype=torch.int32, device="cuda")
+        with torch.inference_mode():
             want = route()
-            C.bf16_ulp_gate(f"{name} {label} route", want, K.cheby_grouped_forward_bf16(x, w),
-                            K.cheby_fwd_spread_bf16(x, w))
+            C.bf16_ulp_gate(f"{name} {label} route", want, twin, spread)
             entry = {"route_ms": []}
             launches = {}
-            for v, shape in enumerate(CHEBY_BF16_SHAPES):
+            for v, shape in enumerate(shapes):
                 y = torch.empty_like(want)
 
                 def launch(v=v, y=y, shape=shape):
-                    err = fn(v, x.data_ptr(), x.stride(0), w.data_ptr(), y.data_ptr(),
-                             ws.data_ptr(), ws.numel(), n, groups, nin, nout, stream)
-                    C.check(err == 0, f"cheby bf16 fwd {shape}: CUDA error {err}")
+                    err = fn(v, *args(y), ws.data_ptr(), ws.numel(), n, groups, nin, nout,
+                             stream)
+                    C.check(err == 0, f"{family} bf16 fwd {shape}: CUDA error {err}")
 
                 launch()
                 torch.cuda.synchronize()
@@ -116,7 +191,7 @@ def cheby_bf16_shapes(lib, C, torch):
         times[f"{name} {label}"] = entry
         print(f"[probe_bf16] bf16 {name} {label} N={n} G={groups} {nin}->{nout}: route "
               f"{entry['route_ms']} ms", flush=True)
-        for shape in CHEBY_BF16_SHAPES:
+        for shape in shapes:
             e = entry[str(shape)]
             print(f"[probe_bf16]   (n8 tiles, warps, blocks an SM) {shape}: {e['ms']} ms"
                   f"{'' if e['same_bits'] else ' (other bits than the route)'}", flush=True)
@@ -125,10 +200,13 @@ def cheby_bf16_shapes(lib, C, torch):
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model-type", choices=("efficientkan", "cheby"), default="efficientkan")
+    p.add_argument("--model-type", choices=("efficientkan", "cheby", "fast"),
+                   default="efficientkan")
     p.add_argument("--train", action="store_true", help="also the bf16 training phase")
     p.add_argument("--cheby-shapes", action="store_true",
                    help="also time the bf16 Chebyshev forward's shapes")
+    p.add_argument("--fast-shapes", action="store_true",
+                   help="also time the bf16 RBF (FastKAN) forward's shapes")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
@@ -136,21 +214,26 @@ def main(argv=None) -> None:
     from kanvit_torch.probe_qkv_fwd import _finish, _nvcc
 
     torch, smi = C.phase_toolchain()
-    name = "probe_bf16_cheby"
-    shapes = _nvcc(C, CHEBY_BF16_SOURCE, name) if args.cheby_shapes else None
+    libs = {family: _nvcc(C, source, f"probe_bf16_{family}")
+            for family, source, asked in (("cheby", CHEBY_BF16_SOURCE, args.cheby_shapes),
+                                          ("fast", FAST_BF16_SOURCE, args.fast_shapes))
+            if asked}
     C.timed("build", C.phase_build)
     out = {"card": smi}
-    if shapes:
-        lib = _finish(C, *shapes, name)
-        out["cheby_bf16_shapes"] = C.timed("bf16 Chebyshev shapes", cheby_bf16_shapes, lib, C,
-                                           torch)
-    results = C.timed("bf16 kernels", C.phase_bf16_kernels, torch)
+    for family, (proc, path) in libs.items():
+        lib = _finish(C, proc, path, f"probe_bf16_{family}")
+        out[f"{family}_bf16_shapes"] = C.timed(f"bf16 {family} shapes", bf16_shapes, lib, C,
+                                               torch, family)
+    phase = {"efficientkan": C.phase_bf16_kernels, "cheby": C.cheby_bf16_kernels,
+             "fast": C.fast_bf16_kernels}[args.model_type]
+    results = C.timed("bf16 kernels", phase, torch)
     out["kernels"] = {name: {"ms": r[1], "plain_ms": r[2], **r[3], **r[4],
                              **{k: v for sub in r[5:] for k, v in sub.items()}}
                       for name, r in results.items()}
     model = C.build_model(args.model_type)
-    per_batch = C.BF16_PER_BATCH if args.model_type == "efficientkan" else C.CHEBY_BF16_PER_BATCH
-    embedder = "bspline_kan" if args.model_type == "efficientkan" else "chebykan"
+    per_batch, embedder = {"efficientkan": (C.BF16_PER_BATCH, "bspline_kan"),
+                           "cheby": (C.CHEBY_BF16_PER_BATCH, "chebykan"),
+                           "fast": (C.FAST_BF16_PER_BATCH, "fastkan")}[args.model_type]
     serve = C.timed("bf16 serving", C.phase_bf16_serve, torch, smi, model, C.SEED + 1,
                     args.model_type, per_batch)
     out["serve"] = {k: v for k, v in serve.items() if k != "launches"}

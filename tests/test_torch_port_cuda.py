@@ -2131,9 +2131,9 @@ def test_bf16_backward_and_other_head_dims_raise(cuda):
         with torch.inference_mode(), pytest.raises(ValueError, match=f"head dim {dh}"):
             FA.flash_attention_lanes(q, q, q, 2)
     with torch.inference_mode(), pytest.raises(TypeError, match="float32"):
-        FB.fastkan(torch.zeros(4, 16, device=cuda, dtype=BF16), None, None,
-                   torch.linspace(-2, 2, 8, device=cuda), 4 / 7,
-                   torch.zeros(3, 16 * 8, device=cuda, dtype=BF16), None, None)
+        FB.sinekan(torch.zeros(4, 16, device=cuda, dtype=BF16), torch.ones(5, device=cuda),
+                   torch.zeros(16, 5, device=cuda),
+                   torch.zeros(3, 16, 5, device=cuda, dtype=BF16), None)
     assert FA.LAUNCHES["flash_attention_lanes_bf16"] == 1
 
 
@@ -2197,6 +2197,84 @@ def test_cheby_bwd_bf16_kernel(cuda, name, n, heads, nin, nout):
     _f64_gate(dw, pdw, edw)
     assert torch.equal(dx, dx2) and torch.equal(dw, dw2) and torch.equal(dw, dw_nodx)
     assert bool((dx[x.float().abs() >= 9.5] == 0).all())
+    assert FB.LAUNCHES[f"{name}_bwd_bf16"] == 3 and FB.LAUNCHES[f"{name}_bwd"] == 0
+
+
+# --- bf16 FastKAN: the bf16 forwards and backwards of fastkan and
+# fastkan_qkv_grouped against their plain twins, within one bf16 ulp plus one
+# of each rounded basis value weighted as the next product weighs it (2^-8
+# |B| |W| for y, 2^-8 |B|^T |gy| for dW; dx, dgamma and dbeta one ulp;
+# chip_smoke.py's gates), no further than twice the twin from the f64 sums of
+# the same operands, their bits repeated; a third of x at |x| 20-60 where
+# silu(x) far exceeds the bases beside it in the one running sum.
+
+FAST_BF16_SHAPES = [("fastkan", 37 * 49, None, 16, 64, False),
+                    ("fastkan", 300, None, 100, 70, False),
+                    ("fastkan", 64 * 196, None, 768, 384, False),
+                    ("fastkan", 64 * 196, None, 768, 384, True),
+                    ("fastkan_qkv_grouped", 37 * 50, 2, 32, 32, False),
+                    ("fastkan_qkv_grouped", 64 * 50, 8, 8, 8, False),
+                    ("fastkan_qkv_grouped", 64 * 197, 6, 64, 64, False),
+                    ("fastkan_qkv_grouped", 64 * 197, 6, 64, 64, True),
+                    ("fastkan_qkv_grouped", 301, 2, 20, 20, False)]
+
+
+def _fast_bf16_case(cuda, rng, n, heads, nin, nout, large):
+    """bf16 x (``large``: a third at |x| 20-60), gamma, beta (G, nin) and the
+    packed weight (G, 9, nin, nout); the f32 centres."""
+    groups = 1 if heads is None else heads
+    x = _fast_x(rng, (n, groups * nin))
+    if large:
+        flat = x.view(-1)
+        idx = torch.from_numpy(rng.choice(flat.numel(), flat.numel() // 3, replace=False))
+        flat[idx] = torch.from_numpy((rng.uniform(20.0, 60.0, idx.numel())
+                                      * rng.choice([-1.0, 1.0], idx.numel())).astype(np.float32))
+    ga, be, sw, bw, _ = _fast_params(rng, nout, nin, (groups,))
+    w = FB.pack_fastkan_qkv_weight(sw, bw, 8).contiguous()
+    return [t.to(cuda).to(BF16) for t in (x, w, ga, be)]
+
+
+@pytest.mark.parametrize("name,n,heads,nin,nout,large", FAST_BF16_SHAPES)
+def test_fastkan_bf16_kernel(cuda, name, n, heads, nin, nout, large):
+    rng = np.random.default_rng(140)
+    x, w, ga, be = _fast_bf16_case(cuda, rng, n, heads, nin, nout, large)
+    grid, den = RBF_GRID.to(cuda), 4.0 / 7.0
+    with torch.inference_mode():
+        y, stats = FB._launch_rbf(name, x, w, ga, be, grid, den)
+        again, _ = FB._launch_rbf(name, x, w, ga, be, grid, den)
+        twin = K.fastkan_grouped_forward_bf16(x, w, ga, be, grid, den)
+        exact = K.fastkan_grouped_forward_bf16(x, w, ga, be, grid, den, exact=True)
+        spread = K.fastkan_fwd_spread_bf16(x, w, ga, be, grid, den)
+    _bf16_ulp(y, twin, spread)
+    _f64_gate(y, twin, exact)
+    assert torch.equal(y, again) and stats.dtype == torch.float32
+    assert FB.LAUNCHES[f"{name}_bf16"] == 2 and FB.LAUNCHES[name] == 0
+
+
+@pytest.mark.parametrize("name,n,heads,nin,nout,large",
+                         [c for c in FAST_BF16_SHAPES if not c[-1]])
+def test_fastkan_bwd_bf16_kernel(cuda, name, n, heads, nin, nout, large):
+    """dx, dW, dgamma and dbeta; the no-dx route's dW, dgamma and dbeta the
+    all-gradients route's bits."""
+    rng = np.random.default_rng(141)
+    x, w, ga, be = _fast_bf16_case(cuda, rng, n, heads, nin, nout, large)
+    grid, den = RBF_GRID.to(cuda), 4.0 / 7.0
+    gy = torch.from_numpy(rng.standard_normal((n, w.shape[0] * nout)).astype(np.float32)
+                          ).to(cuda).to(BF16)
+    with torch.inference_mode():
+        _, stats = FB._launch_rbf(name, x, w, ga, be, grid, den)
+        args = (f"{name}_bwd", x, w, ga, be, grid, den, stats, gy)
+        got = FB._launch_rbf_bwd(*args, True, True)
+        again = FB._launch_rbf_bwd(*args, True, True)
+        no_dx = FB._launch_rbf_bwd(*args, False, True)
+        twin = K.fastkan_grouped_backward_bf16(x, w, ga, be, grid, den, gy)
+        exact = K.fastkan_grouped_backward_bf16(x, w, ga, be, grid, den, gy, exact=True)
+        spread = K.fastkan_dw_spread_bf16(x, w, ga, be, grid, den, gy)
+    for i, (g, t, e) in enumerate(zip(got, twin, exact)):
+        _bf16_ulp(g, t, spread if i == 1 else None)
+        _f64_gate(g, t, e)
+        assert torch.equal(g, again[i])
+    assert no_dx[0] is None and all(torch.equal(a, b) for a, b in zip(got[1:], no_dx[1:]))
     assert FB.LAUNCHES[f"{name}_bwd_bf16"] == 3 and FB.LAUNCHES[f"{name}_bwd"] == 0
 
 
@@ -2289,13 +2367,15 @@ def test_attention_lanes_bwd_bf16_kernel(cuda, dh, causal, masked):
 
 @pytest.mark.parametrize("kind,embedder,qkv", [("efficientkan", "bspline_kan",
                                                  "bspline_qkv_grouped"),
-                                                ("cheby", "chebykan", "cheby_qkv_grouped")])
+                                                ("cheby", "chebykan", "cheby_qkv_grouped"),
+                                                ("fast", "fastkan", "fastkan_qkv_grouped")])
 def test_bf16_train_step_on_card(cuda, kind, embedder, qkv):
-    """One bf16 step of a 2-block MNIST-geometry efficientkan or cheby ViT
-    on the card against the CPU's (the plain twins): 1 + 2 + 2 bf16 launches
-    forward and backward and no f32 ones, loss within 2e-2 x max(1, |loss|)
-    and every gradient within 5e-2 x max(1, max|g|) (kanvit's bf16 gates),
-    the f32 parameters and gradients f32."""
+    """One bf16 step of a 2-block MNIST-geometry efficientkan, cheby or fast
+    ViT on the card against the CPU's (the plain twins): 1 + 2 + 2 bf16
+    launches forward and backward (fast: 2 x 3 grouped q/k/v, one a
+    projection) and no f32 ones, loss within 2e-2 x max(1, |loss|) and every
+    gradient within 5e-2 x max(1, max|g|) (kanvit's bf16 gates), the f32
+    parameters and gradients f32."""
     import copy
 
     from kanvit_torch.models import create_model
@@ -2311,9 +2391,10 @@ def test_bf16_train_step_on_card(cuda, kind, embedder, qkv):
     _, lc, _ = step(create_train_state(cpu), x, y)
     _, lg, _ = step(create_train_state(gpu), x.to(cuda), y.to(cuda))
     counts = {k: n for k, n in {**FB.LAUNCHES, **FA.LAUNCHES}.items() if n}
-    assert counts == {f"{embedder}_bf16": 1, f"{qkv}_bf16": 2,
+    grouped = 6 if kind == "fast" else 2
+    assert counts == {f"{embedder}_bf16": 1, f"{qkv}_bf16": grouped,
                       "flash_attention_lanes_bf16": 2, f"{embedder}_bwd_bf16": 1,
-                      f"{qkv}_bwd_bf16": 2, "flash_attention_lanes_bwd_bf16": 2}
+                      f"{qkv}_bwd_bf16": grouped, "flash_attention_lanes_bwd_bf16": 2}
     assert abs(float(lc) - float(lg)) <= 2e-2 * max(1.0, abs(float(lc)))
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         assert pg.dtype == pg.grad.dtype == torch.float32, name
