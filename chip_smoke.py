@@ -149,6 +149,19 @@ Phases, in order; any failure raises, so the script exits non-zero:
    serving and training of the vit-s ``fast`` ViT on its weights: exactly
    1 + 36 + 12 bf16 launches each way (one ``fastkan_qkv_grouped`` a q, k
    or v projection) and nothing else, with 9c's checks and numbers;
+9e. the sine ViT's four bf16 kernels (``sinekan`` at grid 28, its slices
+   in chunks of 4, and ``sinekan_qkv_grouped`` at grid 4, forward and
+   backward: dx, dW, dfreq) against their plain twins in 9b's phase, at the
+   vit-s, one-image and MNIST shapes and dh 8, the embedder's forward also
+   with a third of x at |x| 20-60 (9c's gates, dfreq's with a term for its
+   cancelling f32 sum; the no-dx dW and dfreq the all-gradients route's
+   bits); after phase 10's sine training, bf16 serving and training of the
+   vit-s ``sine`` ViT on its weights: exactly 1 + 36 + 12 bf16 launches
+   each way and nothing else, with 9c's checks and numbers. The bf16
+   training phases of the efficientkan, cheby and fast ViTs run at 6, 6
+   and 4 of their 12 blocks (``BF16_TRAIN_DEPTH``; their launches a step
+   scaled to them), so that the run keeps the time it took before the
+   sine phases;
 11. int8 serving of the vit-s ``vanilla`` model through
    ``Predictor(quant="int8")``: with the ``int8_linear`` kernel (25
    launches a batch, the 1000-class head on qdot), calibrated, and on qdot
@@ -363,7 +376,10 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_fwd_bf16ILi64",
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi12E"),
-                ("kan_tc_fwd_grouped", "4SineELi8E"),
+                ("kan_tc_fwd_grouped", "4SineELi8E", "Tf32x3"),
+                ("kan_tc_fwd_grouped", "4SineELi24E", "4Bf16"),
+                ("kan_tc_fwd_grouped", "4SineELi8E", "4Bf16"),
+                ("kan_bf16_dw", "4SineELi3E"), ("kan_bf16_dx", "4SineE"),
                 ("kan_tc_fwd_grouped", "5ChebyELi8E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "5ChebyELi8ELi12E", "Tf32x3ELi24E"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
@@ -2915,6 +2931,167 @@ def check_fastkan_bwd_bf16(torch, rng, name, label, n, heads, nin, nout, need_dx
                                "f32_device_ms": f32_dev_ms}, bounds
 
 
+# dfreq's f32 sum of n nin terms gW x cos a a slice cancels far below the
+# terms' magnitudes; two orders of summation differ by up to their longest
+# chain of additions times 2^-24 of sum |gW x cos a|: the gate's term, for
+# chains up to 1024 adds (the kernel's row tiles and features, the twin's
+# reductions), beside one bf16 ulp.
+SINE_DFREQ_ORDER = 2.0 ** -14
+
+
+def sine_bf16_case(torch, rng, n, heads, nin, nout, large=False):
+    """The bf16 SineKAN operands of the embedder (``heads`` None, one
+    group, grid 28) or of one grouped q/k/v projection (``heads`` groups of
+    ``nin``, grid 4): x (n, G nin) from ``sine_inputs`` (with ``large`` a
+    third at |x| 20-60, arguments in the hundreds), freq (G, S) at the
+    init's k / (S + 1), jittered, and the packed weight (G, S, nin, nout) at
+    the init's scale, all bf16; the phase table (nin, S) f32. Returns ``(x,
+    w, freq2d, phase)``."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    bf16 = torch.bfloat16
+    groups, grid_size = (1, 28) if heads is None else (heads, 4)
+    x = sine_inputs(rng, (n, groups * nin))
+    if large:
+        flat = x.reshape(-1)
+        idx = rng.choice(flat.size, flat.size // 3, replace=False)
+        flat[idx] = rng.uniform(20.0, 60.0, idx.size) * rng.choice([-1.0, 1.0], idx.size)
+
+    def cuda(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda().to(bf16)
+
+    k = np.arange(1, grid_size + 1)
+    freq = cuda(k / (grid_size + 1) + 0.05 * rng.standard_normal((groups, grid_size)))
+    amps = cuda(rng.uniform(-1.0, 1.0, (groups, nout, nin, grid_size)) / np.sqrt(nin) / k)
+    phase = K.sinekan_phase_init(nin, grid_size).cuda()
+    return cuda(x), FB.pack_sine_qkv_weight(amps).contiguous(), freq, phase
+
+
+def check_sine_bf16(torch, rng, name, label, n, heads, nin, nout, large=False):
+    """A bf16 sine forward (``sinekan``: ``heads`` None, grid 28;
+    ``sinekan_qkv_grouped``: ``heads`` groups of ``nin``, grid 4) against its
+    plain twin on the card: one bf16 ulp plus one of every rounded basis
+    value weighted as W weighs it, 2^-8 |sin a| |W|; no further than twice
+    the twin from the f64 sum of the same rounded operands; its bits
+    repeated. CUDA events and device times beside the f32 kernels' on the
+    same (upcast) operands and the twin's, and the bf16 bound."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    x, wb, f2, phase = sine_bf16_case(torch, rng, n, heads, nin, nout, large)
+    groups, slices = wb.shape[:2]
+    x32, w32, f32 = x.float(), wb.float(), f2.float()
+    tag = f"{name} bf16 {label} N={n} G={groups} S={slices} {nin}->{nout}"
+
+    def kernel():
+        return FB._launch_sine(name, x, wb, f2, phase)
+
+    def f32_kernel():
+        return FB._launch_sine(name, x32, w32, f32, phase)
+
+    def plain(exact=False):
+        return K.sine_grouped_forward_bf16(x, wb, f2, phase, exact=exact)
+
+    with torch.inference_mode():
+        y, again = kernel(), kernel()
+        check(y.dtype == torch.bfloat16 and tuple(y.shape) == (n, groups * nout),
+              f"{tag}: output {y.dtype} {tuple(y.shape)}")
+        ref, exact = plain(), plain(exact=True)
+        spread = K.sine_fwd_spread_bf16(x, wb, f2, phase)
+        torch.cuda.synchronize()
+        err = bf16_ulp_gate(tag, y, ref, spread)
+        check(torch.equal(y, again), f"{tag}: a second forward gave other bits")
+        f64 = f64_gate(tag, y, ref, exact, "bf16 plain twin")
+        del ref, exact, spread
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, 10, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, 10, label=f"{tag}, the f32 kernels")
+        plain_ms = time_ms(torch, plain, iters=5)
+    flops = 2.0 * n * groups * slices * nin * nout
+    # x, W, freq read, y written, the phase table f32
+    nbytes = (2.0 * (n * groups * nin + groups * slices * nin * nout + n * groups * nout
+                     + groups * slices) + 4.0 * phase.numel())
+    bounds = bf16_bound(flops, nbytes)
+    print(f"[bf16] {tag}: kernels {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernels "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  bound "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']})  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                               "f32_device_ms": f32_dev_ms}, bounds
+
+
+def check_sine_bwd_bf16(torch, rng, name, label, n, heads, nin, nout, need_dx=True):
+    """A bf16 sine backward (``sinekan``: ``heads`` None, asked for dx only
+    where ``need_dx``, as the training step asks its embedder;
+    ``sinekan_qkv_grouped``: ``heads`` groups of ``nin``) against its plain
+    twin on the card: dx within one bf16 ulp, dW within one bf16 ulp plus
+    2^-8 |sin a|^T |gy|, dfreq within one bf16 ulp plus SINE_DFREQ_ORDER of
+    sum |gW x cos a|; each no further than twice the twin from the f64 sums
+    of the same operands; the bits of a second call, and the no-dx dW and
+    dfreq the all-gradients route's bits. Times beside the f32 kernels' on
+    the same (upcast) operands and the twin's, and the bf16 bound."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    bf16 = torch.bfloat16
+    x, wb, f2, phase = sine_bf16_case(torch, rng, n, heads, nin, nout)
+    groups, slices = wb.shape[:2]
+    gy = torch.from_numpy(rng.standard_normal((n, groups * nout)).astype(np.float32)
+                          ).cuda().to(bf16)
+    x32, w32, f32, gy32 = (t.float() for t in (x, wb, f2, gy))
+    tag = f"{name} bwd bf16 {label} N={n} G={groups} S={slices} {nin}->{nout}"
+
+    def kernel(dx=need_dx):
+        return FB._launch_sine_bwd(f"{name}_bwd", x, wb, f2, phase, gy, dx, True)
+
+    def f32_kernel():
+        return FB._launch_sine_bwd(f"{name}_bwd", x32, w32, f32, phase, gy32, need_dx, True)
+
+    def plain(exact=False):
+        return K.sine_grouped_backward_bf16(x, wb, f2, phase, gy, need_dx, True, exact=exact)
+
+    with torch.inference_mode():
+        got, again, every = kernel(), kernel(), kernel(True)
+        twin, exact = plain(), plain(exact=True)
+        spreads = {"dW": (BF16_P_ULP, K.sine_dw_spread_bf16(x, wb, f2, phase, gy)),
+                   "dfreq": (SINE_DFREQ_ORDER, K.sine_dfreq_spread_bf16(x, wb, f2, phase, gy))}
+        torch.cuda.synchronize()
+        check(all(t.dtype == bf16 for t in got[1:]) and (got[0] is None) != need_dx,
+              f"{tag}: outputs")
+        err, f64 = 0.0, 0.0
+        for i, what in enumerate(("dx", "dW", "dfreq")):
+            if got[i] is None:
+                continue
+            weight, spread = spreads.get(what, (0.0, None))
+            err = max(err, bf16_ulp_gate(f"{tag} {what}", got[i], twin[i],
+                                         None if spread is None
+                                         else spread * (weight / BF16_P_ULP)))
+            f64 = max(f64, f64_gate(f"{tag} {what}", got[i], twin[i], exact[i],
+                                    "bf16 plain twin"))
+            check(torch.equal(got[i], again[i]), f"{tag}: a second backward gave other "
+                                                 f"{what} bits")
+            if what != "dx":
+                check(torch.equal(got[i], every[i]), f"{tag}: the no-dx {what} differs "
+                                                     "from the all-gradients route's")
+        del twin, exact, spreads
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, 10, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, 10, label=f"{tag}, the f32 kernels")
+        plain_ms = time_ms(torch, plain, iters=5)
+    # gW (dfreq needs it even without dx) and dW; W read once, dW and dfreq
+    # written, dx where asked
+    flops = 2.0 * n * groups * slices * nin * nout * 2
+    wsize = groups * slices * nin * nout
+    nbytes = (2.0 * (n * groups * nin * (1 + need_dx) + 2 * wsize + n * groups * nout
+                     + 2 * groups * slices) + 4.0 * phase.numel())
+    bounds = bf16_bound(flops, nbytes)
+    print(f"[bf16] {tag}: kernels {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernels "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  bound "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']})  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                               "f32_device_ms": f32_dev_ms}, bounds
+
+
 def check_attention_bwd_bf16(torch, rng, b, t, heads, dh, label, cases):
     """The bf16 lanes backward on q, k, v as strided slices of a bf16
     (N, H*3dh) projection output, each case against the plain twin on the
@@ -3064,6 +3241,7 @@ def phase_bf16_kernels(torch):
                                      attention_cases(torch, rng, b, t)))},)
     results.update(cheby_bf16_kernels(torch))
     results.update(fast_bf16_kernels(torch))
+    results.update(sine_bf16_kernels(torch))
     return results
 
 
@@ -3153,6 +3331,50 @@ def fast_bf16_kernels(torch):
     }
 
 
+def sine_bf16_kernels(torch):
+    """The sine ViT's four bf16 kernels: the embedder (``sinekan``, grid 28)
+    and one grouped q/k/v projection (``sinekan_qkv_grouped``, grid 4),
+    forward and backward, at the vit-s shapes (the embedder's backward first
+    without dx, as the training step asks it), then the embedder's forward
+    with a third of x at |x| 20-60, one vit-s image, the MNIST shapes and
+    dh 8 (sub-entries)."""
+    rng = np.random.default_rng(SEED + 17)
+    emb, qkv = "sinekan", "sinekan_qkv_grouped"
+    return {
+        "sinekan_bf16": check_sine_bf16(
+            torch, rng, emb, "vit-s embedder", BATCH * 196, None, 768, 384) + (
+            {"large_x": sub_entry(check_sine_bf16(
+                torch, rng, emb, "vit-s embedder, a third of x at |x| 20-60", BATCH * 196,
+                None, 768, 384, large=True))},
+            {"batch_1": sub_entry(check_sine_bf16(
+                torch, rng, emb, "vit-s embedder, one image", 196, None, 768, 384))},
+            {"mnist_ragged": sub_entry(check_sine_bf16(
+                torch, rng, emb, "mnist embedder", 37 * 49, None, 16, 64))}),
+        "sinekan_qkv_grouped_bf16": check_sine_bf16(
+            torch, rng, qkv, "vit-s q/k/v", BATCH * 197, 6, 64, 64) + (
+            {"mnist_ragged": sub_entry(check_sine_bf16(
+                torch, rng, qkv, "mnist q/k/v", 37 * 50, 2, 32, 32))},
+            {"at_dh_8_mnist": sub_entry(check_sine_bf16(
+                torch, rng, qkv, "dh-8 q/k/v", BATCH * 50, 8, 8, 8))}),
+        "sinekan_bwd_bf16": check_sine_bwd_bf16(
+            torch, rng, emb, "vit-s embedder, no dx", BATCH * 196, None, 768, 384,
+            need_dx=False) + (
+            {"all_gradients": sub_entry(check_sine_bwd_bf16(
+                torch, rng, emb, "vit-s embedder", BATCH * 196, None, 768, 384))},
+            {"batch_1": sub_entry(check_sine_bwd_bf16(
+                torch, rng, emb, "vit-s embedder, one image, no dx", 196, None, 768, 384,
+                need_dx=False))},
+            {"mnist_ragged": sub_entry(check_sine_bwd_bf16(
+                torch, rng, emb, "mnist embedder", 37 * 49, None, 16, 64))}),
+        "sinekan_qkv_grouped_bwd_bf16": check_sine_bwd_bf16(
+            torch, rng, qkv, "vit-s q/k/v", BATCH * 197, 6, 64, 64) + (
+            {"mnist_ragged": sub_entry(check_sine_bwd_bf16(
+                torch, rng, qkv, "mnist q/k/v", 37 * 50, 2, 32, 32))},
+            {"at_dh_8_mnist": sub_entry(check_sine_bwd_bf16(
+                torch, rng, qkv, "dh-8 q/k/v", BATCH * 50, 8, 8, 8))}),
+    }
+
+
 BF16_PER_BATCH = {"bspline_kan_bf16": 1, "bspline_qkv_grouped_bf16": 12,
                   "flash_attention_lanes_bf16": 12}
 CHEBY_BF16_PER_BATCH = {"chebykan_bf16": 1, "cheby_qkv_grouped_bf16": 12,
@@ -3160,8 +3382,11 @@ CHEBY_BF16_PER_BATCH = {"chebykan_bf16": 1, "cheby_qkv_grouped_bf16": 12,
 # one grouped launch per q, k and v projection
 FAST_BF16_PER_BATCH = {"fastkan_bf16": 1, "fastkan_qkv_grouped_bf16": 36,
                        "flash_attention_lanes_bf16": 12}
+SINE_BF16_PER_BATCH = {"sinekan_bf16": 1, "sinekan_qkv_grouped_bf16": 36,
+                       "flash_attention_lanes_bf16": 12}
 # The variants served and trained in bf16 after their f32 phases.
-BF16_VARIANTS = {"cheby": CHEBY_BF16_PER_BATCH, "fast": FAST_BF16_PER_BATCH}
+BF16_VARIANTS = {"cheby": CHEBY_BF16_PER_BATCH, "fast": FAST_BF16_PER_BATCH,
+                 "sine": SINE_BF16_PER_BATCH}
 
 
 def phase_bf16_serve(torch, smi, model_cpu, seed, variant="efficientkan",
@@ -3183,10 +3408,11 @@ def phase_bf16_serve(torch, smi, model_cpu, seed, variant="efficientkan",
     geom = PRESETS["vit-s"]
     model32 = copy.deepcopy(model_cpu).to("cuda")
     model_bf = precision.cast_params_(copy.deepcopy(model_cpu)).to("cuda")
-    grids = [getattr(model_bf.linear_mapper, g, None) for g in ("grid", "rbf_grid")]
+    grids = [getattr(model_bf.linear_mapper, g, None) for g in ("grid", "rbf_grid", "phase")]
     check(all(g is None or g.dtype == torch.float32 for g in grids)
           and model_bf.pos_embeddings.dtype == torch.float32,
-          "bf16 cast: the knot grid, the RBF centres and the position table must stay f32")
+          "bf16 cast: the knot grid, the RBF centres, the sine phase table and the position "
+          "table must stay f32")
     pred = Predictor(model_bf, batch_size=BATCH, device="cuda")
     pred32 = Predictor(model32, batch_size=BATCH, device="cuda")
     rng = np.random.default_rng(seed)
@@ -3263,6 +3489,30 @@ def phase_bf16_serve(torch, smi, model_cpu, seed, variant="efficientkan",
     return {"launches": counts, "logits_err": err, "top1_vs_f32": top1,
             "device_forward_ms": fwd_ms, "device_busy_ms": {"f32": busy32, "bf16": busy_bf},
             "images_per_s": ips}
+
+
+# The bf16 training phases of the variants trained in bf16 before the sine
+# ViT run at a smaller depth, the first blocks of the f32 phases' weights, so
+# that the whole run stays within the 664.9 s it took before the sine
+# phases were added; ``python -m kanvit_torch.probe_bf16 --model-type
+# <variant> --train`` runs any of them at full depth.
+BF16_TRAIN_DEPTH = {"efficientkan": 6, "cheby": 6, "fast": 4}
+
+
+def at_depth(model_cpu, per_batch, variant):
+    """``(model, label, per_batch)`` of ``variant``'s bf16 training phase,
+    in ``phase_bf16_train``'s order: the first ``BF16_TRAIN_DEPTH[variant]``
+    blocks of ``model_cpu`` (all of them where it names none), the phase's
+    label, and its launches a step scaled to those blocks (the embedder's
+    one stays)."""
+    full = len(model_cpu.blocks)
+    blocks = BF16_TRAIN_DEPTH.get(variant, full)
+    if blocks == full:
+        return model_cpu, variant, per_batch
+    model = copy.deepcopy(model_cpu)
+    model.blocks = model.blocks[:blocks]
+    return (model, f"{variant} at {blocks} of {full} blocks",
+            {k: n if n == 1 else n * blocks // full for k, n in per_batch.items()})
 
 
 def per_step(per_batch):
@@ -3390,9 +3640,12 @@ def host_split(torch, step, state, x, y, steps=3):
     ranged(precision, "bf16_params", "split: casts forward")
     ranged(torch.func, "functional_call", "split: functional_call")
     ranged(model, "forward", "split: model forward")
-    for mod in (FB, FA):
-        ranged(mod, "_launch_bf16", "split: kernel wrappers forward")
-        ranged(mod, "_launch_bwd_bf16", "split: kernel wrappers backward")
+    for mod, fwd, bwd in ((FB, "_launch_bf16", "_launch_bwd_bf16"),
+                          (FA, "_launch_bf16", "_launch_bwd_bf16"),
+                          (FB, "_launch_rbf", "_launch_rbf_bwd"),
+                          (FB, "_launch_sine", "_launch_sine_bwd")):
+        ranged(mod, fwd, "split: kernel wrappers forward")
+        ranged(mod, bwd, "split: kernel wrappers backward")
     try:
         step(state, x, y)
         torch.cuda.synchronize()
@@ -3467,6 +3720,13 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
             asked.append(tuple(args[-2:]))
         return launch_bwd(name, *args)
 
+    clock = [time.perf_counter()]
+
+    def lap(what):  # the phase's parts, on the host clock
+        now = time.perf_counter()
+        print(f"[time]   {variant} bf16 training, {what}: {now - clock[0]:.1f} s", flush=True)
+        clock[0] = now
+
     reset_counts()
     losses, steps_ok = [], True
     setattr(FB, attr, recording)
@@ -3498,6 +3758,7 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
     check(all(p.dtype == torch.float32 for p in model.parameters()),
           "bf16 training: the parameters must stay f32")
 
+    lap(f"{BF16_TRAIN_STEPS} steps")
     # gradients of a 4-image step, the card's against the CPU's bf16 twins
     xg, yg = x[:GRAD_IMAGES].cpu(), y[:GRAD_IMAGES].cpu()
     grads = {}
@@ -3519,6 +3780,7 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
     check(worst <= TOL_BF16_GRADS, f"bf16 training: the card's gradients differ from the "
                                    f"CPU's: {worst_name} {worst:.3e}")
 
+    lap("the 4-image gradients on the card and the CPU")
     # the parameter casts: device kernels and the host's split of a step,
     # with the flat buffer and with a cast a parameter (before it)
     casts, split = {"flat": cast_kernels(torch, model)}, {"flat": host_split(torch, step, state,
@@ -3535,6 +3797,7 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
               f"backward (median, unprofiled); host split (ms a step, torch.profiler host "
               f"ranges): " + ", ".join(f"{k} {v:.2f}" for k, v in split[kind].items()))
 
+    lap("the casts' kernels and host splits")
     # steady state in turns with the f32 step and the per-parameter casts on
     # the same model: host clock around a synchronised window, CUDA events
     # around the same window
@@ -3570,8 +3833,10 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
           f"{ips['bf16_per_parameter_casts']:.1f} images/s (events "
           f"{events['bf16_per_parameter_casts']:.2f}); f32 {host['f32']:.2f} ms, "
           f"{ips['f32']:.1f} images/s (events {events['f32']:.2f}); turns {times}  [{smi}]")
+    lap("the steady state's turns")
     profile = phase_profile(torch, step, state, x, y, f"vit-s {variant} bf16")
     profile_f32 = phase_profile(torch, f32_step, state, x, y, f"vit-s {variant} f32")
+    lap("the profiles")
     return {"launches": counts, "losses": losses, "grad_rel_err": worst,
             "step_ms": host, "events_ms": events, "images_per_s": ips,
             "cast_kernels": casts, "host_split": split, "profile": profile,
@@ -3856,8 +4121,9 @@ KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
     ("KAN q/k/v and embedder bwd on the tensor cores (B-spline, Chebyshev, RBF, "
      "sine: dW, dx)", ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
-    ("KAN q/k/v and embedder bwd in bf16 (B-spline, Chebyshev, RBF: dW, dx, split sums)",
-     ("kan_bf16_dw", "kan_bf16_dx", "sum_splits_bf16")),
+    ("KAN q/k/v and embedder bwd in bf16 (B-spline, Chebyshev, RBF, sine: dW, dx, split "
+     "sums, dfreq sums)",
+     ("kan_bf16_dw", "kan_bf16_dx", "sum_splits_bf16", "sum_rows_features")),
     ("the bf16 step's parameter casts: the gradients' gather", ("CatArrayBatchedCopy",)),
     ("KAN q/k/v and embedder fwd on the tensor cores (B-spline, Chebyshev, RBF, sine)",
      ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
@@ -4550,6 +4816,10 @@ SOURCES = {
     "fastkan_qkv_grouped_bf16": (KAN_TC_SRC, f"{FB_PY}:3191"),
     "fastkan_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:2995"),
     "fastkan_qkv_grouped_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:3246"),
+    "sinekan_bf16": (KAN_TC_SRC, f"{FB_PY}:2317"),
+    "sinekan_qkv_grouped_bf16": (KAN_TC_SRC, f"{FB_PY}:1518"),
+    "sinekan_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:2523"),
+    "sinekan_qkv_grouped_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:1557"),
 }
 # The single-tile tier of flash_attention runs the lanes kernels (phase 5);
 # fourierkan's and sinekan's kernels serve kanvit's generic tier below its
@@ -4575,6 +4845,9 @@ ALSO_REPLACES = {
     "sinekan": [f"{FB_PY}:1067", f"{FB_PY}:2354"],
     "sinekan_bwd": [f"{FB_PY}:2492", f"{FB_PY}:1728", f"{FB_PY}:2401",
                     f"{FB_PY}:2433"],
+    "sinekan_bf16": [f"{FB_PY}:1067", f"{FB_PY}:2354"],
+    "sinekan_bwd_bf16": [f"{FB_PY}:2492", f"{FB_PY}:1728", f"{FB_PY}:2401",
+                         f"{FB_PY}:2433"],
 }
 # The Fourier and sine embedders' routes: the tensor-core kernels
 # (kan_basis_tc.cuh, instantiated in the family's source), dx on the
@@ -4777,6 +5050,37 @@ ROUTES = {
                   "kan_bf16_dw<Rbf, 1> (the basis made in f32 and rounded to bf16 at the "
                   "dot, row splits in f32 partials, one rounding)",
         "instantiated_in": RBF_SINE_SRC},
+    "sinekan_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Sine, 24, "
+                  "12, 1, Bf16, 0> at one group (192 outputs a block), the 28 slices in 7 "
+                  "chunks of 4 walked inside each 8 features, sin(x freq + phase) made in f32 "
+                  "in registers (the argument's product and sum each rounded) and rounded to "
+                  "bf16 at the dot, W split once a call into bf16 pairs by kan_tc_fwd_split, "
+                  "one running sum, y rounded to bf16 once",
+        "instantiated_in": RBF_SINE_SRC},
+    "sinekan_qkv_grouped_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Sine, 8, "
+                  "4, 4, Bf16, 0> (64 outputs a block), each head's sin(x freq + phase) made in "
+                  "f32 in registers and rounded to bf16 at the dot, W split once a call into "
+                  "bf16 pairs by kan_tc_fwd_split",
+        "instantiated_in": RBF_SINE_SRC},
+    "sinekan_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation, kan_basis_tc.cuh part 4 at "
+                  "one group, the 28 slices in 7 chunks of 4: kan_bf16_dx<Sine> (gy W^T in "
+                  "f32, the sine fold in its epilogue: dx where asked, rounded once, and "
+                  "dfreq's per-feature row-tile sums, run without dx too), "
+                  "sum_rows_features_kernel (dfreq over the rows, then the features, rounded "
+                  "once), kan_bf16_dw<Sine, 3> (sin a made in f32 and rounded to bf16 at the "
+                  "dot, row splits in f32 partials, one rounding)",
+        "instantiated_in": RBF_SINE_SRC},
+    "sinekan_qkv_grouped_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation, kan_basis_tc.cuh part 4: "
+                  "kan_bf16_dx<Sine> (gy W^T in f32; dx and dfreq's per-feature row-tile sums "
+                  "from the sine fold), sum_rows_features_kernel (each head's dfreq over the "
+                  "rows, then its lanes, rounded once) and kan_bf16_dw<Sine, 1> (the basis "
+                  "made in f32 and rounded to bf16 at the dot, row splits in f32 partials, "
+                  "one rounding)",
+        "instantiated_in": RBF_SINE_SRC},
     "fourierkan": {"kernel": TC_FWD.format("FourierTc"), "instantiated_in": KAN_SRC},
     "fourierkan_bwd": {"kernel": TC_BWD.format("", "FourierTc"),
                        "instantiated_in": KAN_SRC},
@@ -4808,7 +5112,10 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
              "cheby_qkv_grouped_bwd_bf16": "cheby_bf16_train",
              "fastkan_bf16": "fast_bf16_serve", "fastkan_qkv_grouped_bf16": "fast_bf16_serve",
              "fastkan_bwd_bf16": "fast_bf16_train",
-             "fastkan_qkv_grouped_bwd_bf16": "fast_bf16_train"}
+             "fastkan_qkv_grouped_bwd_bf16": "fast_bf16_train",
+             "sinekan_bf16": "sine_bf16_serve", "sinekan_qkv_grouped_bf16": "sine_bf16_serve",
+             "sinekan_bwd_bf16": "sine_bf16_train",
+             "sinekan_qkv_grouped_bwd_bf16": "sine_bf16_train"}
 
 
 def timed(label, fn, *args):
@@ -4853,7 +5160,7 @@ def main():
     paths["train"] = timed("efficientkan training", phase_train, torch, smi, model_cpu,
                            "train", efficientkan, "bspline_kan")["launches"]
     paths["bf16_train"] = timed("efficientkan bf16 training", phase_bf16_train, torch, smi,
-                                model_cpu)["launches"]
+                                *at_depth(model_cpu, BF16_PER_BATCH, "efficientkan"))["launches"]
     paths["decoder"] = timed("decoder training", phase_decoder, torch, smi)["launches"]
     paths["flash_serve"] = timed(
         "flash-attn serving", phase_serve, torch, smi, build_model("flash-attn"),
@@ -4875,8 +5182,8 @@ def main():
                 f"{variant} bf16 serving", phase_bf16_serve, torch, smi, model_cpu, SEED + 7,
                 variant, per_batch)["launches"]
             paths[f"{variant}_bf16_train"] = timed(
-                f"{variant} bf16 training", phase_bf16_train, torch, smi, model_cpu, variant,
-                per_batch, embedder)["launches"]
+                f"{variant} bf16 training", phase_bf16_train, torch, smi,
+                *at_depth(model_cpu, per_batch, variant), embedder)["launches"]
     vanilla_cpu = build_model("vanilla")
     paths["vanilla_serve"] = timed(
         "vanilla serving", phase_serve, torch, smi, vanilla_cpu,

@@ -10,7 +10,7 @@ static activation scales. A model whose parameters are bf16
 (``kanvit_torch.utils.precision.cast_params_``) serves in bf16, as
 ``benchmarks/inference_serving.py --bf16`` serves kanvit: images cast to
 bf16 on the device, logits returned as f32 (the efficientkan, cheby, fast,
-vanilla and flash-attn ViTs; the fourier and sine ViTs' KAN kernels have no
+sine, vanilla and flash-attn ViTs; the fourier ViT's KAN kernels have no
 bf16 path).
 
 Not ported yet: reading flax msgpack checkpoints, ``export`` and the CLI

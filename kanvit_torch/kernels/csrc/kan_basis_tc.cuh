@@ -18,14 +18,18 @@
 // slices) in kan_rbf_sine.cu; the B-spline, FastKAN and Chebyshev
 // embedders' forward is its one-group case, its 768-deep sum in two
 // levels. Its Bf16 operand type is kanvit's bf16 serving policy,
-// instantiated for B-spline and Chebyshev (the embedder and the q/k/v). The
-// sine grouped forward past 4 slices stays on kan_basis.cuh's CUDA-core
-// kan_fwd_kernel.
+// instantiated for B-spline and Chebyshev (the embedder and the q/k/v) and
+// for RBF and sine in kan_rbf_sine.cu; a family's slices past its tile walk
+// it in chunks inside each 8 features (the bf16 sine embedder's 28 in 7
+// chunks of 4). The f32 sine grouped forward past 4 slices stays on
+// kan_basis.cuh's CUDA-core kan_fwd_kernel.
 //
 // Part 4 (below, "The bf16 backward"): dW and dx of a grouped KAN layer on
 // bf16 operands (kan_bf16_dw, kan_bf16_dx), kanvit's bf16 training policy,
 // templated over kan_basis.cuh's families; instantiated for B-spline and
-// Chebyshev in kan_basis.cu, the embedder's backward its one-group case.
+// Chebyshev in kan_basis.cu and for RBF and sine in kan_rbf_sine.cu, the
+// embedder's backward its one-group case, the sine embedder's 28 slices in
+// chunks of 4 (dW a block a chunk, dx the chunks in turn in each block).
 //
 // Part 1:
 //
@@ -1378,11 +1382,12 @@ constexpr int FS = 8;      // features a stage: one mma step a slice
 }  // namespace tcf
 
 // What kan_tc_fwd_grouped holds of each of a lane's rows for the whole
-// stage loop, and the family's values from it: by default nothing, and
-// F::values. A family specialises it where a value reads something of its
-// row (Rbf: the row's LayerNorm statistics, loaded once a lane instead of
-// once a value). `row` is always a row of x: the kernel clamps the ragged
-// edge's rows to the last one, and zeroes their values itself.
+// stage loop, and the family's values from it (of slice chunk c): by
+// default nothing, and F::values. A family specialises it where a value
+// reads something of its row (Rbf: the row's LayerNorm statistics, loaded
+// once a lane instead of once a value). `row` is always a row of x: the
+// kernel clamps the ragged edge's rows to the last one, and zeroes their
+// values itself.
 //
 // SPLIT and EXACT shape the sum for a family with one slice of values far
 // larger than the rest (Rbf's silu(x) of the raw x, up to |x|, beside RBF
@@ -1403,9 +1408,9 @@ struct TcFwdRow {
   template <int NF>
   __device__ __forceinline__ static void values(const typename F::Params& p,
                                                 const typename F::template Stage<NF>& st,
-                                                const Elem& e, const Row&,
+                                                const Elem& e, const Row&, int c,
                                                 float (&v)[F::SC]) {
-    F::template values<NF>(p, st, e, 0, v);
+    F::template values<NF>(p, st, e, c, v);
   }
 };
 
@@ -1425,11 +1430,14 @@ __device__ __forceinline__ float tf32_rest(float x) {
 // ones); stages in order (g, ot, kt). One unit a word group. Op Bf16: W
 // bf16, ceil(SC / 2) steps of two slices, a word group of 2 words at
 // ((s bn + c) 4 + t) 2: the bf16 pairs (slice 2s, features 2t, 2t + 1) and
-// (slice 2s + 1, the same), zero past S.
+// (slice 2s + 1, the same), zero past S. A weight of `chunks` chunks of SC
+// slices (S > SC: the bf16 sine embedder's) walks them inside each 8
+// features: stage kt is features 8 (kt / chunks) .., slices SC (kt %
+// chunks) ..
 template <int SC, int EXACT, class Op = Tf32x3>
 __global__ void __launch_bounds__(256)
 kan_tc_fwd_split(const typename Op::In* __restrict__ w, uint32_t* __restrict__ out,
-                 int slices, int nin, int nout, int bn, int otiles, int nk,
+                 int slices, int chunks, int nin, int nout, int bn, int otiles, int nk,
                  long long units) {
   constexpr int STEPS = (SC + Op::SPS - 1) / Op::SPS + (EXACT >= 0);
   for (long long u = blockIdx.x * 256LL + threadIdx.x; u < units;
@@ -1440,18 +1448,18 @@ kan_tc_fwd_split(const typename Op::In* __restrict__ w, uint32_t* __restrict__ o
     r /= bn;
     const int step = (int)(r % STEPS), s = step < SC ? step : EXACT;
     r /= STEPS;
-    const int kt = (int)(r % nk);
+    const int kt = (int)(r % nk), s0 = kt % chunks * SC;
     r /= nk;
-    const int o = (int)(r % otiles) * bn + col, f = tcf::FS * kt + 2 * t;
+    const int o = (int)(r % otiles) * bn + col, f = tcf::FS * (kt / chunks) + 2 * t;
     const long long g = r / otiles;
     if constexpr (Op::SPS == 2) {
       static_assert(EXACT < 0, "the bf16 forward has no exact slice");
       uint32_t word[2];
 #pragma unroll
       for (int h = 0; h < 2; ++h) {
-        const int sl = 2 * step + h;
+        const int sl = s0 + 2 * step + h;
         uint32_t lo = 0u, hi = 0u;
-        if (sl < slices && o < nout) {
+        if (2 * step + h < SC && sl < slices && o < nout) {
           const unsigned short* wr = reinterpret_cast<const unsigned short*>(w) +
                                      ((g * slices + sl) * nin + f) * (long long)nout + o;
           if (f < nin) lo = wr[0];
@@ -1462,8 +1470,8 @@ kan_tc_fwd_split(const typename Op::In* __restrict__ w, uint32_t* __restrict__ o
       *reinterpret_cast<uint2*>(out + 2 * u) = make_uint2(word[0], word[1]);
     } else {
       float b[2] = {0.f, 0.f};
-      if (s < slices && o < nout) {
-        const float* wr = w + ((g * slices + s) * nin + f) * (long long)nout + o;
+      if (s0 + s < slices && o < nout) {
+        const float* wr = w + ((g * slices + s0 + s) * nin + f) * (long long)nout + o;
         if (f < nin) b[0] = wr[0];
         if (f + 1 < nin) b[1] = wr[nout];
       }
@@ -1478,12 +1486,14 @@ kan_tc_fwd_split(const typename Op::In* __restrict__ w, uint32_t* __restrict__ o
 
 // y of one group's 16 WARPS rows x 8 NT outputs: grid (row tiles, groups,
 // output tiles x splits); wsplit from kan_tc_fwd_split, nk = ceil(nin / 8)
-// stages. MINB blocks an SM bound the registers. FLUSH > 0: the sum in two
-// levels, the running sum of every FLUSH stages added into y (stored the
-// first time) and restarted; 0: one running sum, y stored once. With
-// splits > 1 (FLUSH > 0 only) block z / output tiles runs that one level
-// and stores it into its slab of part, which sum_splits adds into y in
-// level order: the same sum, so the same bits. Op: the operand type, x and
+// F::chunks(p) stages (a family's slices past its tile's SC in chunks of
+// SC, walked inside each 8 features). MINB blocks an SM bound the
+// registers. FLUSH > 0: the sum in two levels, the running sum of every
+// FLUSH stages added into y (stored the first time) and restarted; 0: one
+// running sum, y stored once. With splits > 1 (FLUSH > 0 only) block z /
+// output tiles runs that one level and stores it into its slab of part,
+// which sum_splits adds into y in level order: the same sum, so the same
+// bits. Op: the operand type, x and
 // y of its In and Out types (Bf16: one running sum, FLUSH 0, and no slice
 // apart or exact, whatever the family's TcFwdRow asks of 3xTF32: Rbf's silu
 // slice sums with the rest, as in kanvit's one bf16 dot).
@@ -1517,6 +1527,7 @@ kan_tc_fwd_grouped(const typename Op::In* __restrict__ x, long long ldx,
   const long long r0 = ((long long)blockIdx.x * WARPS + warp) * 16;  // the warp's rows
   const uint32_t* wg = wsplit + ((long long)grp * otiles + ot) * nk * STAGE;
   const typename Op::In* xg = x + (long long)grp * nin;
+  const int CH = F::chunks(p);  // stage kt: features FS (kt / CH) .., slice chunk kt % CH
 
   // stage kt's split W into buffer kt & 1, by cp.async
   auto load_w = [&](int kt) {
@@ -1534,13 +1545,13 @@ kan_tc_fwd_grouped(const typename Op::In* __restrict__ x, long long ldx,
   typename R::Row rows[2];
 #pragma unroll
   for (int h = 0; h < 2; ++h) rows[h] = R::load(p, grp, min(row_of(h), (long long)n - 1));
-  // Value q of a stage: row row_of(q & 1), feature 8 kt + 2t + (q >> 1).
+  // Value q of a stage: row row_of(q & 1), feature 8 (kt / CH) + 2t + (q >> 1).
   float xv[4];
   auto load_x = [&](int kt) {
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const long long row = row_of(q & 1);
-      const int f = FS * kt + 2 * t + (q >> 1);
+      const int f = FS * (kt / CH) + 2 * t + (q >> 1);
       xv[q] = row < n && f < nin ? Op::in(xg[row * ldx + f]) : 0.f;
     }
   };
@@ -1550,12 +1561,12 @@ kan_tc_fwd_grouped(const typename Op::In* __restrict__ x, long long ldx,
 #pragma unroll
     for (int q = 0; q < 4; ++q) {
       const long long row = row_of(q & 1);
-      const int kf = 2 * t + (q >> 1), f = FS * kt + kf;
+      const int kf = 2 * t + (q >> 1), f = FS * (kt / CH) + kf;
       const bool live = row < n && f < nin;
       float b[SC];
       R::template values<FS>(
           p, st, Elem{xv[q], kf, min(f, nin - 1), grp, min(row, (long long)n - 1)},
-          rows[q & 1], b);
+          rows[q & 1], kt % CH, b);
 #pragma unroll
       for (int s = 0; s < SC; ++s) v[q][s] = live ? b[s] : 0.f;
     }
@@ -1611,7 +1622,7 @@ kan_tc_fwd_grouped(const typename Op::In* __restrict__ x, long long ldx,
   for (int kt = kt0; kt < kt1; ++kt) {
     cp_async_wait<0>();
     __syncthreads();  // stage kt's W landed; every warp is past stage kt - 1
-    F::template stage<FS>(p, nin, FS * kt, grp, st);
+    F::template stage<FS>(p, nin, FS * (kt / CH), grp, st);
     if (kt + 1 < kt1) load_w(kt + 1);
     float v[4][SC];
     make(kt, v);
@@ -1665,7 +1676,7 @@ int launch_tc_fwd_grouped(const typename Op::In* x, long long ldx, typename F::P
                           cudaStream_t st, float* part = nullptr, int splits = 1) {
   constexpr int BN = 8 * NT, EXACT = Op::SPS == 1 ? TcFwdRow<F>::EXACT : -1;
   constexpr int STEPS = (F::SC + Op::SPS - 1) / Op::SPS + (EXACT >= 0);
-  const int nk = cdiv(nin, tcf::FS), otiles = cdiv(nout, BN);
+  const int nk = cdiv(nin, tcf::FS) * F::chunks(p), otiles = cdiv(nout, BN);
   const long long units = (long long)groups * otiles * nk * STEPS * BN * 4;
   if (groups > 65535 || (long long)otiles * splits > 65535 || Op::UNIT * units > wwords ||
       (splits != 1 && (FLUSH == 0 || part == nullptr || splits != cdiv(nk, FLUSH))))
@@ -1673,7 +1684,7 @@ int launch_tc_fwd_grouped(const typename Op::In* x, long long ldx, typename F::P
   const long long want = (units + 255) / 256;
   kan_tc_fwd_split<F::SC, EXACT, Op>
       <<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, st>>>(
-          w, wsplit, F::slices(p), nin, nout, BN, otiles, nk, units);
+          w, wsplit, F::slices(p), F::chunks(p), nin, nout, BN, otiles, nk, units);
   int err = (int)cudaGetLastError();
   if (err != 0) return err;
   const size_t smem = sizeof(uint32_t) * 2 * STEPS * BN * 4 * Op::UNIT;
@@ -1692,11 +1703,11 @@ int launch_tc_fwd_grouped(const typename Op::In* x, long long ldx, typename F::P
 
 // y (n, groups nout) of a grouped layer: x (n, groups nin) with row stride
 // ldx and unit column stride, w (groups, S, nin, nout) contiguous with S =
-// F::slices(p) <= F::SC, y contiguous; wsplit: scratch of wwords >= groups
-// ceil(nout / BN) ceil(nin / 8) STEPS BN 16 words (STEPS = SC, one more with
-// an exact slice; not S: the pre-pass writes zeros past S; BN 64 where nout
-// <= 64 or with NARROW, else 192), 16-byte aligned, else
-// cudaErrorInvalidValue. Up to 64 outputs (one projection), and with
+// F::slices(p) <= F::SC F::chunks(p), y contiguous; wsplit: scratch of
+// wwords >= groups ceil(nout / BN) ceil(nin / 8) chunks STEPS BN 16 words
+// (STEPS = SC, one more with an exact slice; not S: the pre-pass writes
+// zeros past S; BN 64 where nout <= 64 or with NARROW, else 192), 16-byte
+// aligned, else cudaErrorInvalidValue. Up to 64 outputs (one projection), and with
 // NARROW at every width, the family's shape: 64 outputs a block, WARPS8
 // warps, MINB8 blocks an SM; past them 12 warps, 192 outputs a block.
 // FLUSH: the kernel's stages a level of a two-level sum (0: one level);
@@ -1710,8 +1721,9 @@ int launch_tc_grouped_fwd(const typename Op::In* x, long long ldx, typename F::P
                           const typename Op::In* w, typename Op::Out* y, uint32_t* wsplit,
                           long long wwords, int n, int groups, int nin, int nout,
                           cudaStream_t st, float* part = nullptr, int splits = 1) {
-  if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 || F::slices(p) > F::SC ||
-      wsplit == nullptr || (uintptr_t)wsplit % 16 != 0)
+  if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 ||
+      F::slices(p) > F::SC * F::chunks(p) || wsplit == nullptr ||
+      (uintptr_t)wsplit % 16 != 0)
     return (int)cudaErrorInvalidValue;
   if constexpr (!NARROW) {
     if (nout > 64)
@@ -1733,7 +1745,10 @@ int launch_tc_grouped_fwd(const typename Op::In* x, long long ldx, typename F::P
 // _cheby_op_sg_bwd :1351) and _fused_bwd (:1159, the patch embedder's, from
 // _bspline_op's VJP :2624 and _cheby_op_bwd :3499) as its one-group case;
 // and the FastKAN backwards, _rbf_ln_sg_op's (:3246) and _rbf_ln_base_op's
-// (:2995), with the LayerNorm passes of kan_rbf_sine.cu. Their body,
+// (:2995), with the LayerNorm passes of kan_rbf_sine.cu; and the sine
+// backwards, _sine_op_sg's (:1557, _bwd_kernel_sine_sg :1447) and the
+// embedder's (_fused_bwd_sine_plain :1728, _fused_bwd_kb :2523 with
+// _dw_kernel_kb_sine :2104), dfreq from the dx kernel's fold. Their body,
 // _bwd_kernel (:566-625; _rbf_ln_bwd_kernel :2861 and its _sg form :3079
 // for FastKAN), keeps this policy on bf16 inputs, which the kernels below
 // follow:
@@ -1773,7 +1788,11 @@ int launch_tc_grouped_fwd(const typename Op::In* x, long long ldx, typename F::P
 // DX_FOLD family takes part 2's fold instead (Rbf: dln = sum_k gW_k (-2u_k /
 // h) b_k and the silu term gW_8 silu'(x), each left in f32 for the
 // LayerNorm's VJP, which couples a segment's features, and for dgamma and
-// dbeta; kanvit keeps both in f32 too, rounding only dx).
+// dbeta; kanvit keeps both in f32 too, rounding only dx; Sine: dx =
+// sum_s gW_s (freq_s cos a_s) in slice order, and dfreq's terms gW_s x cos
+// a_s summed over the block's rows a feature, for a second pass that sums
+// the row tiles and then the features; the dx kernel runs without dx for
+// them, as dfreq needs gW).
 //
 // What bounds it at vit-s: the products. The q/k/v (n 12,608, 6 heads of
 // nin 64, nout 192): dW and dx 16.73 GFLOP each, 0.034 ms together at the
@@ -1781,6 +1800,10 @@ int launch_tc_grouped_fwd(const typename Op::In* x, long long ldx, typename F::P
 // 384) 66.6 GFLOP, 0.067 ms. Beside the products, each stage makes its
 // basis in f32 (one Cox-de Boor pass for all 9 values of an x value), the
 // work that bounds part 2's f32 dW; this first version keeps part 2's shape.
+// The sine embedder (28 slices, 207 GFLOP a product, 0.42 ms for both at
+// the bf16 rate) makes 270 M sinf for dW per output tile and 270 M cosf in
+// dx's fold: its dW took 3.93 ms and its dx (for dfreq) 2.66 at vit-s on
+// the H100 80GB HBM3 at 700 W (PERF.md), each chunk of dx restaging gy.
 // ===========================================================================
 
 namespace tcb {
@@ -1792,14 +1815,25 @@ constexpr int DX_KS = 16;        // outputs a dx stage: one 16-deep step
 constexpr int DX_P = DX_KS + 8;  // pitch of dx's staged gy and W rows, bf16
 }  // namespace tcb
 
-// dW of one group's 16 features x 64 NJ outputs over the rows of one
-// split, into split z's f32 partial at part + z groups S nin nout (S =
-// F::slices(p) <= SC; slices past S never stored): grid (npad / 64 NJ,
-// feature tiles x groups, splits). x (n, groups nin) bf16 with row stride
-// ldx; gy (n, ldg) bf16, group g's columns at g nout; vec: 16-byte copies
-// of gy (ldg and nout multiples of 8, gy on 16 bytes).
+// dW of one group's 16 features x one chunk of SC slices x 64 NJ outputs
+// over the rows of one split, into split z's f32 partial at part + z groups
+// S nin nout (S = F::slices(p) <= SC chunks; slices past S never stored):
+// grid (npad / 64 NJ, feature tiles x chunks x groups, splits). x (n,
+// groups nin) bf16 with row stride ldx; gy (n, ldg) bf16, group g's columns
+// at g nout; vec: 16-byte copies of gy (ldg and nout multiples of 8, gy on
+// 16 bytes).
+// Blocks an SM the bf16 dW kernel is built for: part 2's, and two at NJ 3
+// for a tile of at most 4 slices (the sine embedder's, 48 accumulators a
+// thread): at vit-s its dW took 3.93 ms at 128 registers (a few spilled)
+// against 6.47 at one block an SM (probe_bf16.py --model-type sine, the H100
+// 80GB HBM3 at 700 W), the sinf of its basis stalling 8 warps an SM.
+template <int SC, int NJ>
+constexpr int bf16_dw_blocks() {
+  return NJ > 1 && SC <= 4 ? 2 : tc_dw_blocks<SC, NJ>();
+}
+
 template <class F, int NJ>
-__global__ void __launch_bounds__(tcb::THREADS, (tc_dw_blocks<F::SC, NJ>()))
+__global__ void __launch_bounds__(tcb::THREADS, (bf16_dw_blocks<F::SC, NJ>()))
 kan_bf16_dw(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Params p,
             const __nv_bfloat16* __restrict__ gy, long long ldg, float* __restrict__ part,
             int n, int groups, int nin, int nout, int nk, int stages_per_split, int vec) {
@@ -1815,8 +1849,9 @@ kan_bf16_dw(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
   bf* raw = reinterpret_cast<bf*>(smb + 2 * A_WORDS);       // 3 x RAW
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t = lane & 3;
-  const int ftn = cdiv(nin, tcb::FT);
-  const int o0 = blockIdx.x * BN, grp = blockIdx.y / ftn;
+  const int ftn = cdiv(nin, tcb::FT), CH = F::chunks(p);
+  const int o0 = blockIdx.x * BN, grp = blockIdx.y / (ftn * CH);
+  const int c = blockIdx.y / ftn % CH, s0 = c * SC;  // the block's slices s0 ..
   const int f0 = blockIdx.y % ftn * tcb::FT;
   const int kt0 = blockIdx.z * stages_per_split;
   const int kt1 = min(nk, kt0 + stages_per_split);
@@ -1867,9 +1902,9 @@ kan_bf16_dw(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
     float va[SC], vb[SC];
 #pragma unroll
     for (int s = 0; s < SC; ++s) va[s] = vb[s] = 0.f;
-    if (fx < nin && row < n) F::template values<tcb::FT>(p, st, Elem{xa, kf, fx, grp, row}, 0, va);
+    if (fx < nin && row < n) F::template values<tcb::FT>(p, st, Elem{xa, kf, fx, grp, row}, c, va);
     if (fx < nin && row + 1 < n)
-      F::template values<tcb::FT>(p, st, Elem{xb, kf, fx, grp, row + 1}, 0, vb);
+      F::template values<tcb::FT>(p, st, Elem{xb, kf, fx, grp, row + 1}, c, vb);
 #pragma unroll
     for (int s = 0; s < SC; ++s) as[(s * 2 + ks) * 128 + (tid & 127)] = pack_bf16(va[s], vb[s]);
   };
@@ -1893,8 +1928,8 @@ kan_bf16_dw(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
         for (int e = 0; e < 4; ++e) {
           const int f = f0 + g8 + 8 * (e >> 1);
           const int o = o0 + 8 * (warp * NJ + j) + 2 * t + (e & 1);
-          if (i < S && f < nin && o < nout) {
-            float* d = dst + ((long long)i * nin + f) * nout + o;
+          if (s0 + i < S && f < nin && o < nout) {
+            float* d = dst + ((long long)(s0 + i) * nin + f) * nout + o;
             *d = first ? acc[i][j][e] : *d + acc[i][j][e];
           }
           acc[i][j][e] = 0.f;
@@ -1976,17 +2011,27 @@ int sum_splits(const float* part, __nv_bfloat16* out, long long total, int split
 
 // dx of one group's 128 rows x 16 features: grid (feature tiles, row
 // tiles, groups). w (groups, S, nin, nout) bf16 contiguous; dx (n, groups
-// nin) bf16 contiguous; vec: 16-byte copies of gy and w. A DX_FOLD family
-// (Rbf) keeps part 2's two outputs of its fold: with `split`, o0 (dln) to
-// out0 and o1 (the silu term) to out1, each f32 (n, groups nin) and either
-// null to skip it, for the LayerNorm's passes; without, dx = bf16(o0 + o1).
+// nin) bf16 contiguous (null: not written); vec: 16-byte copies of gy and
+// w. A family of more than one chunk of SC slices (the bf16 sine
+// embedder's 28) runs the chunks in turn, each over every output stage
+// into SC fresh sums, its fold adding into the same per-(row, feature)
+// outputs in slice order. A DX_FOLD family (Rbf) keeps part 2's two
+// outputs of its fold: with `split`, o0 (dln) to out0 and o1 (the silu
+// term) to out1, each f32 (n, groups nin) and either null to skip it, for
+// the LayerNorm's passes; without, dx = bf16(o0 + o1). A DX_RED family
+// (Sine) sums its fold's per-slice values over the block's 128 rows for
+// each of its 16 features (lanes by a fixed butterfly, then the row
+// warps in order) into red_part (groups, S, row tiles, nin) f32 (null:
+// skipped), the rows of each feature before the features, which a second
+// pass sums.
 template <class F>
 __global__ void __launch_bounds__(tcb::THREADS, 2)
 kan_bf16_dx(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Params p,
             const __nv_bfloat16* __restrict__ gy, long long ldg,
             const __nv_bfloat16* __restrict__ w, __nv_bfloat16* __restrict__ dx,
-            float* __restrict__ out0, float* __restrict__ out1, int split, int n,
-            int groups, int nin, int nout, int nk, int vec) {
+            float* __restrict__ out0, float* __restrict__ out1, int split,
+            float* __restrict__ red_part, int n, int groups, int nin, int nout, int nk,
+            int vec) {
   using bf = __nv_bfloat16;
   constexpr int THREADS = tcb::THREADS, SC = F::SC, FT = tcb::FT, BM = tcb::DX_BM;
   constexpr int KS = tcb::DX_KS, P = tcb::DX_P;
@@ -1994,31 +2039,33 @@ kan_bf16_dx(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
   __shared__ __align__(16) bf gs[2][BM * P];
   __shared__ __align__(16) bf ws[2][NW * P];
   __shared__ typename F::template Stage<FT> st;
+  __shared__ float redw[F::DX_RED ? THREADS / 64 : 1][F::DX_RED ? FT : 1][SC];
   const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
   const int g8 = lane >> 2, t = lane & 3, wr = warp >> 1, wh = warp & 1;
   const int f0 = blockIdx.x * FT, r0 = blockIdx.y * BM, grp = blockIdx.z;
-  const int S = F::slices(p);
+  const int S = F::slices(p), CH = F::chunks(p);
   const bf* gyg = gy + (long long)grp * nout;
   const bf* wg = w + (long long)grp * S * nin * nout;
   F::template stage<FT>(p, nin, f0, grp, st);
 
-  // gy's 128 rows and W's (slice, feature) rows, outputs 16 kt .. 16 kt + 15
-  auto stage = [&](int kt, int buf) {
+  // gy's 128 rows and W's (slice, feature) rows of chunk c, outputs 16 kt ..
+  // 16 kt + 15
+  auto stage = [&](int c, int kt, int buf) {
     bf* a = gs[buf];
     bf* b = ws[buf];
     const int k0 = kt * KS;
     if (vec) {
       for (int e = tid; e < (BM + NW) * 2; e += THREADS) {
-        const int r = e >> 1, c = (e & 1) * 8, col = k0 + c;
+        const int r = e >> 1, cc = (e & 1) * 8, col = k0 + cc;
         if (r < BM) {
           const int row = r0 + r;
           const bool in = row < n && col < nout;
-          cp_async16(reinterpret_cast<float*>(a + r * P + c),
+          cp_async16(reinterpret_cast<float*>(a + r * P + cc),
                      reinterpret_cast<const float*>(in ? gyg + row * ldg + col : gyg), in);
         } else {
-          const int s = (r - BM) / FT, f = f0 + (r - BM) % FT;
+          const int s = c * SC + (r - BM) / FT, f = f0 + (r - BM) % FT;
           const bool in = s < S && f < nin && col < nout;
-          cp_async16(reinterpret_cast<float*>(b + (r - BM) * P + c),
+          cp_async16(reinterpret_cast<float*>(b + (r - BM) * P + cc),
                      reinterpret_cast<const float*>(
                          in ? wg + ((long long)s * nin + f) * nout + col : wg),
                      in);
@@ -2026,86 +2073,133 @@ kan_bf16_dx(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
       }
     } else {
       for (int e = tid; e < (BM + NW) * KS; e += THREADS) {
-        const int r = e / KS, c = e % KS, col = k0 + c;
+        const int r = e / KS, cc = e % KS, col = k0 + cc;
         if (r < BM) {
           const int row = r0 + r;
-          a[r * P + c] = row < n && col < nout ? gyg[row * ldg + col] : __float2bfloat16_rn(0.f);
+          a[r * P + cc] = row < n && col < nout ? gyg[row * ldg + col] : __float2bfloat16_rn(0.f);
         } else {
-          const int s = (r - BM) / FT, f = f0 + (r - BM) % FT;
-          b[(r - BM) * P + c] = s < S && f < nin && col < nout
-                                    ? wg[((long long)s * nin + f) * nout + col]
-                                    : __float2bfloat16_rn(0.f);
+          const int s = c * SC + (r - BM) / FT, f = f0 + (r - BM) % FT;
+          b[(r - BM) * P + cc] = s < S && f < nin && col < nout
+                                     ? wg[((long long)s * nin + f) * nout + col]
+                                     : __float2bfloat16_rn(0.f);
         }
       }
     }
     cp_async_commit();
   };
 
-  float acc[2][SC][4];
+  // this thread's outputs of its rows (g, g + 8 of its two m16 tiles) and
+  // features (2t, 2t + 1 of its half), summed over the chunks
+  float o0s[2][4], o1s[2][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
-    for (int j = 0; j < SC; ++j)
-#pragma unroll
-      for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+    for (int e = 0; e < 4; ++e) o0s[i][e] = o1s[i][e] = 0.f;
 
-  stage(0, 0);
-  for (int kt = 0; kt < nk; ++kt) {
-    cp_async_wait<0>();
-    __syncthreads();  // stage kt landed; the other buffer is free
-    if (kt + 1 < nk) stage(kt + 1, (kt + 1) & 1);
-    const bf* a = gs[kt & 1];
-    const bf* b = ws[kt & 1];
-    uint32_t af[2][4];  // gy rows 32 wr + 16 i + g (+ 8), outputs 2t, 2t + 1 (+ 8)
+  for (int c = 0; c < CH; ++c) {
+    float acc[2][SC][4];
 #pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      const bf* ar = a + (32 * wr + 16 * i + g8) * P + 2 * t;
-      af[i][0] = *reinterpret_cast<const uint32_t*>(ar);
-      af[i][1] = *reinterpret_cast<const uint32_t*>(ar + 8 * P);
-      af[i][2] = *reinterpret_cast<const uint32_t*>(ar + 8);
-      af[i][3] = *reinterpret_cast<const uint32_t*>(ar + 8 * P + 8);
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int j = 0; j < SC; ++j)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) acc[i][j][e] = 0.f;
+
+    if (c > 0) __syncthreads();  // the last chunk's stages and sums are read
+    stage(c, 0, 0);
+    for (int kt = 0; kt < nk; ++kt) {
+      cp_async_wait<0>();
+      __syncthreads();  // stage kt landed; the other buffer is free
+      if (kt + 1 < nk) stage(c, kt + 1, (kt + 1) & 1);
+      const bf* a = gs[kt & 1];
+      const bf* b = ws[kt & 1];
+      uint32_t af[2][4];  // gy rows 32 wr + 16 i + g (+ 8), outputs 2t, 2t + 1 (+ 8)
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const bf* ar = a + (32 * wr + 16 * i + g8) * P + 2 * t;
+        af[i][0] = *reinterpret_cast<const uint32_t*>(ar);
+        af[i][1] = *reinterpret_cast<const uint32_t*>(ar + 8 * P);
+        af[i][2] = *reinterpret_cast<const uint32_t*>(ar + 8);
+        af[i][3] = *reinterpret_cast<const uint32_t*>(ar + 8 * P + 8);
+      }
+#pragma unroll
+      for (int j = 0; j < SC; ++j) {  // column g: slice j, feature 8 wh + g
+        const bf* br = b + (j * FT + 8 * wh + g8) * P + 2 * t;
+        const uint32_t bfr[2] = {*reinterpret_cast<const uint32_t*>(br),
+                                 *reinterpret_cast<const uint32_t*>(br + 8)};
+#pragma unroll
+        for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], af[i], bfr);
+      }
     }
+
+    // The epilogue of chunk c, each (row, feature) with the chunk's SC
+    // slices of gW.
+    float red[2][SC];  // DX_RED: this thread's rows' sums, feature 2t + h
 #pragma unroll
-    for (int j = 0; j < SC; ++j) {  // column g: slice j, feature 8 wh + g
-      const bf* br = b + (j * FT + 8 * wh + g8) * P + 2 * t;
-      const uint32_t bfr[2] = {*reinterpret_cast<const uint32_t*>(br),
-                               *reinterpret_cast<const uint32_t*>(br + 8)};
+    for (int h = 0; h < 2; ++h)
 #pragma unroll
-      for (int i = 0; i < 2; ++i) mma_bf16(acc[i][j], af[i], bfr);
+      for (int j = 0; j < SC; ++j) red[h][j] = 0.f;
+#pragma unroll
+    for (int i = 0; i < 2; ++i)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const long long row = r0 + 32 * wr + 16 * i + g8 + 8 * (e >> 1);
+        const int kf = 8 * wh + 2 * t + (e & 1), f = f0 + kf;
+        if (row >= n || f >= nin) continue;
+        const Elem el{__bfloat162float(x[row * ldx + (long long)grp * nin + f]), kf, f, grp,
+                      row};
+        if constexpr (F::DX_FOLD) {
+          float gw[SC];
+#pragma unroll
+          for (int j = 0; j < SC; ++j) gw[j] = acc[i][j][e];
+          F::template fold<FT>(p, st, el, c, gw, o0s[i][e], o1s[i][e], red[e & 1]);
+        } else {
+          float d[SC];
+          F::template derivs<FT>(p, st, el, c, d);
+#pragma unroll
+          for (int j = 0; j < SC; ++j)
+            o0s[i][e] = __fadd_rn(o0s[i][e], __fmul_rn(acc[i][j][e], d[j]));
+        }
+      }
+    if constexpr (F::DX_RED) {
+      if (red_part != nullptr) {
+        // over the warp's 32 rows (the lanes of one t), then its row group's
+        // warps in order; features kf = 8 wh + 2t + h
+#pragma unroll
+        for (int h = 0; h < 2; ++h)
+#pragma unroll
+          for (int j = 0; j < SC; ++j) {
+            float v = red[h][j];
+#pragma unroll
+            for (int off = 4; off < 32; off <<= 1) v += __shfl_xor_sync(0xffffffffu, v, off);
+            if (g8 == 0) redw[wr][8 * wh + 2 * t + h][j] = v;
+          }
+        __syncthreads();
+        if (tid < FT * SC) {
+          const int kf = tid / SC, j = tid % SC, s = c * SC + j, f = f0 + kf;
+          float sum = 0.f;
+          for (int q = 0; q < THREADS / 64; ++q) sum += redw[q][kf][j];
+          if (f < nin && s < S)
+            red_part[(((long long)grp * S + s) * gridDim.y + blockIdx.y) * nin + f] = sum;
+        }
+      }
     }
   }
 
-  // The epilogue of this thread's rows (g, g + 8 of its two m16 tiles) and
-  // features (2t, 2t + 1 of its half), each with all SC slices of gW.
   const long long ldd = (long long)groups * nin;
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
     for (int e = 0; e < 4; ++e) {
       const long long row = r0 + 32 * wr + 16 * i + g8 + 8 * (e >> 1);
-      const int kf = 8 * wh + 2 * t + (e & 1), f = f0 + kf;
+      const int f = f0 + 8 * wh + 2 * t + (e & 1);
       if (row >= n || f >= nin) continue;
-      const Elem el{__bfloat162float(x[row * ldx + (long long)grp * nin + f]), kf, f, grp,
-                    row};
       const long long at = row * ldd + (long long)grp * nin + f;
-      if constexpr (F::DX_FOLD) {
-        float gw[SC], red[SC], o0 = 0.f, o1 = 0.f;
-#pragma unroll
-        for (int j = 0; j < SC; ++j) gw[j] = acc[i][j][e];
-        F::template fold<FT>(p, st, el, 0, gw, o0, o1, red);
-        if (split) {
-          if (out0 != nullptr) out0[at] = o0;
-          if (out1 != nullptr) out1[at] = o1;
-        } else {
-          dx[at] = __float2bfloat16_rn(o0 + o1);
-        }
-      } else {
-        float d[SC];
-        F::template derivs<FT>(p, st, el, 0, d);
-        float o = 0.f;
-#pragma unroll
-        for (int j = 0; j < SC; ++j) o = __fadd_rn(o, __fmul_rn(acc[i][j][e], d[j]));
-        dx[at] = __float2bfloat16_rn(o);
+      if (F::DX_FOLD && split) {
+        if (out0 != nullptr) out0[at] = o0s[i][e];
+        if (out1 != nullptr) out1[at] = o1s[i][e];
+      } else if (dx != nullptr) {
+        dx[at] = __float2bfloat16_rn(F::DX_FOLD ? o0s[i][e] + o1s[i][e] : o0s[i][e]);
       }
     }
 }
@@ -2119,7 +2213,7 @@ int launch_bf16_dw(const __nv_bfloat16* x, long long ldx, typename F::Params p,
   const int nk = cdiv(n, tcb::KT);
   const int per = cdiv(nk, min(splits, nk));
   splits = cdiv(nk, per);  // no split left empty
-  const long long tiles = (long long)cdiv(nin, tcb::FT) * groups;
+  const long long tiles = (long long)cdiv(nin, tcb::FT) * F::chunks(p) * groups;
   if (tiles > 65535 || splits > 65535) return (int)cudaErrorInvalidValue;
   const size_t smem = sizeof(uint32_t) * 2 * F::SC * 2 * 128 +
                       sizeof(__nv_bfloat16) * 3 * tcb::KT * (BN + 8);
@@ -2138,18 +2232,20 @@ inline int bf16_vec(const __nv_bfloat16* gy, const __nv_bfloat16* w, int nout) {
 }
 
 // kan_bf16_dx<F> over launch_bf16_grouped_bwd's operands, into dx or (a
-// DX_FOLD family with split) out0 and out1.
+// DX_FOLD family with split) out0 and out1, and a DX_RED family's
+// per-feature row-tile sums into red_part (either may be null, not both).
 template <class F>
 int launch_bf16_dx(const __nv_bfloat16* x, long long ldx, typename F::Params p,
                    const __nv_bfloat16* w, const __nv_bfloat16* gy, __nv_bfloat16* dx,
                    float* out0, float* out1, int split, int n, int groups, int nin, int nout,
-                   cudaStream_t st) {
+                   cudaStream_t st, float* red_part = nullptr) {
   const dim3 grid(cdiv(nin, tcb::FT), cdiv(n, tcb::DX_BM), groups);
-  if (grid.y > 65535u || grid.z > 65535u || (!split && dx == nullptr))
+  if (grid.y > 65535u || grid.z > 65535u || (!split && dx == nullptr && red_part == nullptr))
     return (int)cudaErrorInvalidValue;
   kan_bf16_dx<F><<<grid, tcb::THREADS, 0, st>>>(x, ldx, p, gy, (long long)groups * nout, w, dx,
-                                                out0, out1, split, n, groups, nin, nout,
-                                                cdiv(nout, tcb::DX_KS), bf16_vec(gy, w, nout));
+                                                out0, out1, split, red_part, n, groups, nin,
+                                                nout, cdiv(nout, tcb::DX_KS),
+                                                bf16_vec(gy, w, nout));
   return (int)cudaGetLastError();
 }
 

@@ -46,7 +46,12 @@
 //         (kanvit_sinekan_fwd, kanvit_sinekan_bwd); the opt-in
 //         _fused_fwd_kb_basis (:2354)
 //         and _fused_bwd_kb_sine_res (:2401, :2433), and sinekan_qkv
-//         (:3691), compute the same functions.
+//         (:3691), compute the same functions. On bf16 operands (kanvit's
+//         bf16 policy) all four of sinekan's and sinekan_qkv_grouped's:
+//         entries kanvit_sinekan_tc_fwd_bf16 (part 3's Bf16 type, one
+//         running sum, the embedder's 28 slices in chunks of 4) and
+//         kanvit_sinekan_tc_bwd_bf16 (part 4 with the sine fold; dfreq
+//         summed over the rows, then the features, rounded once).
 //
 // What bounds them on the H100: the contractions, in f32 FMAs, and the
 // transcendentals beside them. At the ViT-S embedder (N = 12,544, 768 ->
@@ -114,6 +119,19 @@ constexpr int RBF_FWD_WARPS = 12, RBF_FWD_MINB = 1;
 // bf16 embedders' do.
 constexpr int RBF_BF16_WARPS = 4, RBF_BF16_MINB = 4;
 constexpr int SINE_FWD_WARPS = 8, SINE_FWD_MINB = 3;
+// The bf16 sine forward's shape up to 64 outputs (one q/k/v projection;
+// part 3's Bf16 type, two 16-deep steps of two slices a stage): warps a
+// block, blocks an SM. Past 64 outputs (the embedder) 192 a block at 12
+// warps, one block an SM, 132 blocks at vit-s: one wave.
+// kanvit_torch/probe_bf16.py --sine-shapes timed eight shapes on the H100
+// 80GB HBM3 at 700 W (PERF.md), every one with the route's bits: at the
+// vit-s q/k/v 4 warps at six blocks an SM took 0.0809 ms against 0.0943 at
+// four blocks and 0.0859 at 8 warps and three (the f32 sine forward's
+// shape); at the vit-s embedder 192 outputs at 12 warps took 3.05 against
+// 5.19 at 8 warps and 5.9-8.4 for every 64-output shape, which makes each
+// basis value six times. Below one wave the 192-output blocks lose (one
+// vit-s image: 3.04 ms against 2.30 at 64 outputs, 4 warps, four blocks).
+constexpr int SINE_BF16_WARPS = 4, SINE_BF16_MINB = 6;
 // The FastKAN embedder's forward sums its 768 features (96 stages at
 // vit-s) in two levels of FASTKAN_EMB_FLUSH stages, as B-spline's does, so
 // that a small batch can run each level in blocks of its own
@@ -228,6 +246,10 @@ struct Sine : FamilyDefaults {
     const float* freq;   // (groups, S)
     const float* phase;  // (nin, S)
     int grid_size;       // S
+    // the bf16 kernels' freq (groups, S), upcast as read, in place of freq;
+    // with it the argument and the fold round each product and sum as
+    // kanvit's x * freq + phase, dx += gW (freq cos a), gW x cos a do
+    const __nv_bfloat16* freq16;
   };
   template <int NF> using Stage = Empty;
 
@@ -241,14 +263,16 @@ struct Sine : FamilyDefaults {
   __device__ static void stage(Params, int, int, int, Stage<NF>&) {}
 
   __device__ __forceinline__ static float freq(Params p, int g, int s) {
-    return __ldg(p.freq + (long long)g * p.grid_size + s);
+    const long long at = (long long)g * p.grid_size + s;
+    return p.freq16 != nullptr ? __bfloat162float(p.freq16[at]) : __ldg(p.freq + at);
   }
   __device__ __forceinline__ static float freq(Params p, const Elem& e, int s) {
     return freq(p, e.g, s);
   }
   // x freq_s + phase[i, s]: the sine's argument, from a frequency at hand.
   __device__ __forceinline__ static float arg(Params p, const Elem& e, int s, float fr) {
-    return e.x * fr + __ldg(p.phase + (long long)e.i * p.grid_size + s);
+    const float ph = __ldg(p.phase + (long long)e.i * p.grid_size + s);
+    return p.freq16 != nullptr ? __fadd_rn(__fmul_rn(e.x, fr), ph) : e.x * fr + ph;
   }
   __device__ __forceinline__ static float arg(Params p, const Elem& e, int s) {
     return arg(p, e, s, freq(p, e, s));
@@ -265,7 +289,9 @@ struct Sine : FamilyDefaults {
     }
   }
 
-  // o0 += sum_s gW_s freq_s cos(arg_s); red_s += gW_s x cos(arg_s).
+  // o0 += sum_s gW_s freq_s cos(arg_s); red_s += gW_s x cos(arg_s). The
+  // bf16 kernels (freq16) add each term into o0 in slice order, o0 carried
+  // across the chunks, every product and sum rounded as kanvit's.
   template <int NF>
   __device__ __forceinline__ static void fold(Params p, const Stage<NF>&,
                                               const Elem& e, int c,
@@ -276,11 +302,16 @@ struct Sine : FamilyDefaults {
     for (int j = 0; j < SC; ++j) {
       const int s = c * SC + j;
       if (s >= p.grid_size) continue;
-      const float cs = cosf(arg(p, e, s));
-      sum = fmaf(gw[j], freq(p, e, s) * cs, sum);
-      red[j] = fmaf(gw[j] * e.x, cs, red[j]);
+      const float fr = freq(p, e, s), cs = cosf(arg(p, e, s, fr));
+      if (p.freq16 != nullptr) {
+        o0 = __fadd_rn(o0, __fmul_rn(gw[j], __fmul_rn(fr, cs)));
+        red[j] = __fadd_rn(red[j], __fmul_rn(__fmul_rn(gw[j], e.x), cs));
+      } else {
+        sum = fmaf(gw[j], fr * cs, sum);
+        red[j] = fmaf(gw[j] * e.x, cs, red[j]);
+      }
     }
-    o0 += sum;
+    if (p.freq16 == nullptr) o0 += sum;
   }
 };
 
@@ -308,14 +339,15 @@ struct TcFwdRow<Rbf> {
   template <int NF>
   __device__ __forceinline__ static void values(const Rbf::Params& p,
                                                 const Rbf::Stage<NF>& st, const Elem& e,
-                                                const Row& r, float (&v)[Rbf::SC]) {
+                                                const Row& r, int, float (&v)[Rbf::SC]) {
     Rbf::from_input(p, st, p.stats == nullptr ? e.x : Rbf::normed(st, e, r.mean, r.rstd),
                     e.x, v);
   }
 };
 
-// ... and each group's frequencies (a lane's rows are all of one group):
-// Sine::values would load them once a value.
+// ... and each group's frequencies of its first chunk (a lane's rows are all
+// of one group): Sine::values would load them once a value. A later chunk
+// (the bf16 embedder's, one group) reads its own as it goes.
 template <>
 struct TcFwdRow<Sine> {
   static constexpr int SPLIT = Sine::SC, EXACT = -1;
@@ -328,11 +360,14 @@ struct TcFwdRow<Sine> {
   }
   template <int NF>
   __device__ __forceinline__ static void values(const Sine::Params& p, const Sine::Stage<NF>&,
-                                                const Elem& e, const Row& r,
+                                                const Elem& e, const Row& r, int c,
                                                 float (&v)[Sine::SC]) {
 #pragma unroll
-    for (int s = 0; s < Sine::SC; ++s)
-      v[s] = s < p.grid_size ? sinf(Sine::arg(p, e, s, r.freq[s])) : 0.f;
+    for (int j = 0; j < Sine::SC; ++j) {
+      const int s = c * Sine::SC + j;
+      const float fr = c == 0 ? r.freq[j] : s < p.grid_size ? Sine::freq(p, e.g, s) : 0.f;
+      v[j] = s < p.grid_size ? sinf(Sine::arg(p, e, s, fr)) : 0.f;
+    }
   }
 };
 
@@ -466,6 +501,33 @@ sum_blocks_kernel(const float* __restrict__ part, float* __restrict__ out,
   if (tid == 0) out[(long long)g * slices + s] = sm[0];
 }
 
+// The bf16 sine backward's dfreq: out[g S + s] = bf16(sum over features f
+// of (sum over row tiles t of part[g][s][t][f])), the rows of each feature
+// before the features, as kanvit sums a lane over the rows and then a
+// head's lanes: one block a (slice, group), each thread a feature's row
+// tiles in order, then its features in order, then a fixed tree; rounded
+// once.
+__global__ void __launch_bounds__(RED_THREADS)
+sum_rows_features_kernel(const float* __restrict__ part, __nv_bfloat16* __restrict__ out,
+                         int nin, int tiles, int slices) {
+  __shared__ float sm[RED_THREADS];
+  const int s = blockIdx.x, g = blockIdx.y, tid = threadIdx.x;
+  const float* pg = part + ((long long)g * slices + s) * tiles * nin;
+  float acc = 0.f;
+  for (int f = tid; f < nin; f += RED_THREADS) {
+    float rows = 0.f;
+    for (int t = 0; t < tiles; ++t) rows += pg[(long long)t * nin + f];
+    acc += rows;
+  }
+  sm[tid] = acc;
+  __syncthreads();
+  for (int w = RED_THREADS / 2; w > 0; w >>= 1) {
+    if (tid < w) sm[tid] += sm[tid + w];
+    __syncthreads();
+  }
+  if (tid == 0) out[(long long)g * slices + s] = __float2bfloat16_rn(sm[0]);
+}
+
 unsigned ln_blocks(int n, int groups) {
   return (unsigned)(((long long)n * groups + LN_WARPS - 1) / LN_WARPS);
 }
@@ -539,6 +601,12 @@ int rbf_bwd(const float* x, long long ldx, const float* gamma, const float* stat
     if (err != 0) return err;
   }
   return dw != nullptr ? dw_launch() : 0;
+}
+
+// The bf16 sine kernels' parameters: freq bf16 (groups, S), upcast as read;
+// the phase table f32.
+Sine::Params sine_params_bf16(const void* freq, const float* phase, int grid_size) {
+  return {nullptr, phase, grid_size, static_cast<const __nv_bfloat16*>(freq)};
 }
 
 // The grouped sine backward's steps over its two launches: dx_launch(part)
@@ -687,6 +755,65 @@ extern "C" int kanvit_fastkan_tc_bwd_bf16(const void* x, long long ldx, const vo
   if (err != 0 || dw == nullptr) return err;
   return launch_bf16_grouped_dw<Rbf>(xb, ldx, p, wb, gyb, static_cast<bf*>(dw), dw_part, n,
                                      groups, nin, nout, splits, st);
+}
+
+// The bf16 SineKAN forward (sinekan's and sinekan_qkv_grouped's, kanvit's
+// bf16 serving policy on kan_basis_tc.cuh part 3's Bf16 operand type): x,
+// freq, w and y bf16, phase f32; the argument x freq + phase formed in f32
+// (freq upcast, the product and the sum each rounded), sin of it made in f32
+// in registers and rounded to bf16 at the dot, two slices a 16-deep step,
+// f32 accumulation in one running sum, y rounded to bf16 once; the bias is
+// added outside. A grid past 4 slices (the embedder's 28) walks them in
+// chunks of 4 inside each 8 features (7 stages of 8 features at grid 28).
+// The shape above SINE_BF16_*; wsplit of wwords words (launch_tc_grouped_fwd,
+// chunks included).
+extern "C" int kanvit_sinekan_tc_fwd_bf16(const void* x, long long ldx, const void* freq,
+                                          const float* phase, const void* w, void* y,
+                                          unsigned int* wsplit, long long wwords, int n,
+                                          int groups, int nin, int nout, int grid_size,
+                                          void* stream) {
+  using bf = __nv_bfloat16;
+  if (grid_size <= 0) return (int)cudaErrorInvalidValue;
+  return launch_tc_grouped_fwd<Sine, SINE_BF16_WARPS, SINE_BF16_MINB, false, 0, Bf16>(
+      static_cast<const bf*>(x), ldx, sine_params_bf16(freq, phase, grid_size),
+      static_cast<const bf*>(w), static_cast<bf*>(y), wsplit, wwords, n, groups, nin, nout,
+      (cudaStream_t)stream);
+}
+
+// The bf16 SineKAN backward (kanvit's bf16 training policy, part 4): x,
+// freq, w, gy, dx, dw and dfreq bf16, phase f32. kan_bf16_dx<Sine> (gW = gy
+// W^T in f32, never rounded; the sine fold in its epilogue: dx = sum_s gW_s
+// (freq_s cos a_s) in f32, rounded once, written where dx is not null, and
+// gW_s x cos a_s summed over each block's 128 rows a feature into
+// dfreq_part (groups, S, ceil(n / 128), nin) f32) runs on every call: dfreq
+// needs gW, and the embedder's training step asks no dx. Then
+// sum_rows_features_kernel sums dfreq_part over the row tiles and then the
+// features in a fixed order and rounds once into dfreq (groups, S). dW on
+// kan_bf16_dw<Sine> over the basis made in f32 and rounded to bf16 at the
+// dot, the rows in at most `splits` splits into dw_part (splits groups S
+// nin nout floats), summed in f32 and rounded once; dw null to skip it.
+extern "C" int kanvit_sinekan_tc_bwd_bf16(const void* x, long long ldx, const void* freq,
+                                          const float* phase, const void* w, const void* gy,
+                                          void* dx, void* dw, float* dw_part, void* dfreq,
+                                          float* dfreq_part, int n, int groups, int nin,
+                                          int nout, int grid_size, int splits, void* stream) {
+  using bf = __nv_bfloat16;
+  if (bad_shape(n, groups, nin, nout) || grid_size <= 0 || splits < 1 || dfreq == nullptr ||
+      dfreq_part == nullptr || (dw != nullptr && dw_part == nullptr))
+    return (int)cudaErrorInvalidValue;
+  const cudaStream_t st = (cudaStream_t)stream;
+  const bf *xb = static_cast<const bf*>(x), *wb = static_cast<const bf*>(w);
+  const bf* gyb = static_cast<const bf*>(gy);
+  const Sine::Params p = sine_params_bf16(freq, phase, grid_size);
+  int err = launch_bf16_dx<Sine>(xb, ldx, p, wb, gyb, static_cast<bf*>(dx), nullptr, nullptr,
+                                 0, n, groups, nin, nout, st, dfreq_part);
+  if (err != 0) return err;
+  sum_rows_features_kernel<<<dim3(grid_size, groups), RED_THREADS, 0, st>>>(
+      dfreq_part, static_cast<bf*>(dfreq), nin, cdiv(n, tcb::DX_BM), grid_size);
+  err = (int)cudaGetLastError();
+  if (err != 0 || dw == nullptr) return err;
+  return launch_bf16_grouped_dw<Sine>(xb, ldx, p, wb, gyb, static_cast<bf*>(dw), dw_part, n,
+                                      groups, nin, nout, splits, st);
 }
 
 // SineKAN forward: x as FastKAN's; freq (groups, S), phase (nin, S), w

@@ -51,25 +51,30 @@ degree 4, the RBF one for 8 centres; they raise on anything else.
 
 bf16 (kanvit's bf16 serving and training): :func:`bspline_kan`,
 :func:`bspline_qkv_grouped`, :func:`chebykan`, :func:`cheby_qkv_grouped`,
-:func:`fastkan` and :func:`fastkan_qkv_grouped` (``BF16_FAMILY``) take bf16
-x and weights (the knot grid and the RBF centres stay f32; FastKAN's
-LayerNorm gamma and beta bf16, upcast in the kernels) and return bf16,
-through part 3's ``Bf16`` operand type forward and part 4's kernels
-backward (``csrc/kan_basis_tc.cuh``): the basis (B-spline, T_0..T_4 of
-tanh x, or the RBF bases of the f32 LayerNorm and silu of the raw x) made
-in f32 from the upcast x and rounded to bf16 at the dot, ``spline_weight *
+:func:`fastkan`, :func:`fastkan_qkv_grouped`, :func:`sinekan` and
+:func:`sinekan_qkv_grouped` (``BF16_FAMILY``) take bf16 x and weights (the
+knot grid, the RBF centres and the sine phase table stay f32; FastKAN's
+LayerNorm gamma and beta and sine's freq bf16, upcast in the kernels) and
+return bf16, through part 3's ``Bf16`` operand type forward and part 4's
+kernels backward (``csrc/kan_basis_tc.cuh``): the basis (B-spline,
+T_0..T_4 of tanh x, the RBF bases of the f32 LayerNorm and silu of the raw
+x, or sin(x freq + phase) with its argument formed in f32) made in f32 from
+the upcast x and rounded to bf16 at the dot, ``spline_weight *
 spline_scaler`` formed in bf16 as kanvit forms it, f32 accumulation, y, dx,
-dW (and dgamma, dbeta) each rounded once (kanvit's ``_fwd_kernel`` /
-``_bwd_kernel`` and ``_rbf_ln_fwd_kernel`` / ``_rbf_ln_bwd_kernel`` on bf16
-operands). Their launches count under ``<name>_bf16`` and
-``<name>_bwd_bf16``. On the CPU the bf16 route is the kernels' plain twins
-(``K.bspline_grouped_forward_bf16`` and ``K.bspline_grouped_backward_bf16``,
-``K.cheby_grouped_forward_bf16`` and ``K.cheby_grouped_backward_bf16``,
-``K.fastkan_grouped_forward_bf16`` and ``K.fastkan_grouped_backward_bf16``)
-through :class:`_KanBf16Plain` and :class:`_RbfBf16Plain`, whose backward
-is explicit: autograd through the forward twin would round at every op,
-which is not kanvit's policy. Every other entry point raises on bf16
-(ROADMAP.md, Queue 2 entry 3b.2).
+dW (and dgamma, dbeta, dfreq) each rounded once (kanvit's ``_fwd_kernel`` /
+``_bwd_kernel``, ``_rbf_ln_fwd_kernel`` / ``_rbf_ln_bwd_kernel`` and the
+sine kernels on bf16 operands). The sine embedder's 28 slices walk the
+kernels' 4-slice tile in chunks. Their launches count under ``<name>_bf16``
+and ``<name>_bwd_bf16``. On the CPU the bf16 route is the kernels' plain
+twins (``K.bspline_grouped_forward_bf16`` and
+``K.bspline_grouped_backward_bf16``, ``K.cheby_grouped_forward_bf16`` and
+``K.cheby_grouped_backward_bf16``, ``K.fastkan_grouped_forward_bf16`` and
+``K.fastkan_grouped_backward_bf16``, ``K.sine_grouped_forward_bf16`` and
+``K.sine_grouped_backward_bf16``) through :class:`_KanBf16Plain`,
+:class:`_RbfBf16Plain` and :class:`_SineBf16Plain`, whose backward is
+explicit: autograd through the forward twin would round at every op, which
+is not kanvit's policy. Every other entry point raises on bf16 (ROADMAP.md,
+Queue 2 entry 3b.2).
 
 The Functions take the packed weight ``(G, S, nin, out)`` and return its
 gradient, and the RBF one the LayerNorm's dgamma and dbeta, the sine one
@@ -103,11 +108,14 @@ ROWS_PER_TILE = 64
 # The entry points with bf16 kernels and their families (C entries
 # kanvit_bspline_tc_fwd_bf16 and kanvit_bspline_tc_bwd_bf16,
 # kanvit_cheby_tc_fwd_bf16 and kanvit_cheby_tc_bwd_bf16,
-# kanvit_fastkan_tc_fwd_bf16 and kanvit_fastkan_tc_bwd_bf16; the RBF ones
-# through _launch_rbf and _launch_rbf_bwd, by x's dtype).
+# kanvit_fastkan_tc_fwd_bf16 and kanvit_fastkan_tc_bwd_bf16,
+# kanvit_sinekan_tc_fwd_bf16 and kanvit_sinekan_tc_bwd_bf16; the RBF and sine
+# ones through _launch_rbf / _launch_rbf_bwd and _launch_sine /
+# _launch_sine_bwd, by x's dtype).
 BF16_FAMILY = {"bspline_kan": "bspline", "bspline_qkv_grouped": "bspline",
                "chebykan": "cheby", "cheby_qkv_grouped": "cheby",
-               "fastkan": "rbf", "fastkan_qkv_grouped": "rbf"}
+               "fastkan": "rbf", "fastkan_qkv_grouped": "rbf",
+               "sinekan": "sine", "sinekan_qkv_grouped": "sine"}
 BF16_FWD = tuple(BF16_FAMILY)
 BF16_TODO = "ROADMAP.md, Queue 2 entry 3b.2"
 LAUNCHES = {name: 0 for base in ("bspline_kan", "bspline_qkv_grouped",
@@ -402,16 +410,29 @@ def check_rbf_args(x2d, w, gamma, beta, grid, bf16: bool = False) -> None:
                 _check_f32(name, t, shape)
 
 
-def check_sine_args(x2d, w, freq2d, phase, tc: bool = False) -> None:
+def check_sine_args(x2d, w, freq2d, phase, tc: bool = False, bf16: bool = False) -> None:
     """Raise on anything the sine kernels do not take (device aside): ``w
     (G, S, nin, out)``, ``freq2d (G, S)``, ``phase (nin, S)``, all f32 and
     contiguous, and a dW launch grid of (features / 8) x (S / 4) blocks
-    within 65535; ``tc``: the tensor-core kernels' limits too."""
+    within 65535; ``tc``: the tensor-core kernels' limits too. ``bf16``
+    (the bf16 kernels): x, w and freq bf16 and the phase table f32, and
+    the grouped tensor-core kernels' grid of (features / 16) x groups x (S
+    / 4) blocks within 65535."""
     if w.dim() != 4 or w.shape[1] < 1:
         raise ValueError(f"packed weight must be (G, S, nin, out), got "
                          f"{tuple(w.shape)}")
     groups, slices, nin, _ = w.shape
-    _check_common(x2d, w, slices)
+    _check_common(x2d, w, slices, bf16)
+    if bf16:
+        if (freq2d.dtype != torch.bfloat16 or tuple(freq2d.shape) != (groups, slices)
+                or not freq2d.is_contiguous()):
+            raise TypeError(f"freq must be contiguous bf16 {(groups, slices)} under a "
+                            f"bf16 x, got {freq2d.dtype} {tuple(freq2d.shape)}")
+        _check_f32("phase", phase, (nin, slices))
+        if -(-nin // TCG_FEATURES) * groups * _chunks("sine", slices) > 65535:
+            raise ValueError(f"{nin} features x {groups} groups x grid size {slices} "
+                             "exceed the dW kernel's launch grid")
+        return
     _check_f32("freq", freq2d, (groups, slices))
     _check_f32("phase", phase, (nin, slices))
     if -(-nin // DW_TILE[0]) * _chunks("sine", slices) > 65535:
@@ -665,15 +686,18 @@ def tc_fwd_splits(name: str, n: int, groups: int, nin: int, nout: int, n_sm: int
     return levels if blocks < n_sm and levels > 1 else 1
 
 
-def tc_grouped_dw_splits(n: int, groups: int, nin: int, nout: int, n_sm: int) -> int:
+def tc_grouped_dw_splits(n: int, groups: int, nin: int, nout: int, n_sm: int,
+                         chunks: int = 1) -> int:
     """Row splits of the grouped tensor-core dW: enough (feature tile x
-    group x output tile) blocks times splits for ``TCG_DW_TARGET_BLOCKS``
-    blocks an SM, rounded up to whole waves of ``n_sm`` blocks where at
-    most twice as many splits do it (the FastKAN embedder's 96 tiles: 11
-    splits, 8 waves, not 6 splits' 4.36), whole 32-row stages a split, none
-    left empty. A function of the shape and the card only, so a run
-    repeats its bits."""
-    tiles = groups * -(-nin // TCG_FEATURES) * -(-nout // tc_grouped_outs(nout))
+    group x slice chunk x output tile) blocks times splits for
+    ``TCG_DW_TARGET_BLOCKS`` blocks an SM, rounded up to whole waves of
+    ``n_sm`` blocks where at most twice as many splits do it (the FastKAN
+    embedder's 96 tiles: 11 splits, 8 waves, not 6 splits' 4.36), whole
+    32-row stages a split, none left empty. ``chunks``: the bf16 sine
+    kernels' chunks of 4 slices. A function of the shape and the card only,
+    so a run repeats its bits."""
+    tiles = (groups * chunks * -(-nin // TCG_FEATURES)
+             * -(-nout // tc_grouped_outs(nout)))
     stages = -(-n // TC_STAGE)
     want = -(-TCG_DW_TARGET_BLOCKS * n_sm // tiles)
     whole = next((s for s in range(want, 2 * want + 1) if tiles * s % n_sm == 0), want)
@@ -706,11 +730,13 @@ def _tc_grouped_fwd_scratch(w, dev, family: str = "bspline",
     whatever the weight's S, zeros past it; RBF one more, the silu slice's
     remainders) x 8 features x the block's outputs, two words a value;
     ``bf16``: steps of two of the tile's slices (no remainders step), one
-    word (a bf16 pair) a value."""
-    groups, _, nin, out = w.shape
+    word (a bf16 pair) a value, and a bf16 sine weight past 4 slices a stage
+    for each chunk of 4."""
+    groups, slices, nin, out = w.shape
     outs = tc_fwd_outs(family, out, bf16)
     words = -(-TCG_SLICES[family] // 2) if bf16 else 2 * TCG_FWD_STEPS[family]
-    return torch.empty(groups * -(-out // outs) * -(-nin // TCG_FWD_FEATURES)
+    chunks = _chunks(family, slices) if bf16 else 1
+    return torch.empty(groups * -(-out // outs) * -(-nin // TCG_FWD_FEATURES) * chunks
                        * words * outs * TCG_FWD_FEATURES,
                        dtype=torch.int32, device=dev)
 
@@ -1158,13 +1184,20 @@ def _launch_sine(name: str, x2d, w, freq2d, phase) -> torch.Tensor:
     """``y (N, G*out)`` from the sine forward kernel: the tensor-core ones
     for ``sinekan`` and for the grouped q/k/v up to 4 slices (every kanvit
     q/k/v), the CUDA-core one for the grouped q/k/v past that (the
-    tensor-core tile holds 4)."""
+    tensor-core tile holds 4). A bf16 x (the packed weight and freq bf16,
+    the phase table f32) takes the bf16 kernel (entry
+    ``kanvit_sinekan_tc_fwd_bf16``: part 3's ``Bf16`` operand type, the
+    embedder's slices in chunks of 4, one running sum), y bf16, counted under
+    ``<name>_bf16``."""
+    bf16 = x2d.dtype == torch.bfloat16
+    if bf16 and BF16_FAMILY.get(name) != "sine":
+        raise TypeError(f"{name}: no bf16 SineKAN kernel")
     tc = name in TC_ROUTES
-    check_sine_args(x2d, w, freq2d, phase, tc)
+    check_sine_args(x2d, w, freq2d, phase, tc, bf16)
     _check_device(name, x2d, w, freq2d, phase)
     n = x2d.shape[0]
     groups, slices, nin, out = w.shape
-    y = _empty(n, groups * out, device=x2d.device)
+    y = torch.empty(n, groups * out, dtype=x2d.dtype, device=x2d.device)
     if n == 0:
         return y
     from kanvit_torch.kernels import _build
@@ -1174,6 +1207,11 @@ def _launch_sine(name: str, x2d, w, freq2d, phase) -> torch.Tensor:
             w.data_ptr(), y.data_ptr())
     with torch.cuda.device(x2d.device):
         stream = _stream(x2d.device)
+        if bf16:
+            wsplit = _tc_grouped_fwd_scratch(w, x2d.device, "sine", bf16=True)
+            err = lib.kanvit_sinekan_tc_fwd_bf16(*args, wsplit.data_ptr(), wsplit.numel(),
+                                                 n, groups, nin, out, slices, stream)
+            return _counted(f"{name}_bf16", err, y)[0]
         if tc:
             wsplit = _tc_split(_tc_fwd_stages("sine", nin, slices), out, x2d.device,
                                TC_SINE_FWD_OUTS)
@@ -1197,6 +1235,8 @@ def _launch_sine_bwd(name: str, x2d, w, freq2d, phase, gy, need_dx: bool,
     asked) with its dfreq sums, and dW; on the tensor cores up to 4 slices
     (every kanvit q/k/v), on the CUDA cores past that (the tensor-core tile
     holds 4)."""
+    if x2d.dtype == torch.bfloat16:
+        return _launch_sine_bwd_bf16(name, x2d, w, freq2d, phase, gy, need_dx, need_dw)
     tc = name[:-len("_bwd")] in TC_ROUTES
     check_sine_args(x2d, w, freq2d, phase, tc)
     _check_device(name, x2d, w, freq2d, phase, gy)
@@ -1243,6 +1283,46 @@ def _launch_sine_bwd(name: str, x2d, w, freq2d, phase, gy, need_dx: bool,
     return _counted(name, err, dx, dw, dfreq)
 
 
+def _launch_sine_bwd_bf16(name: str, x2d, w, freq2d, phase, gy, need_dx: bool,
+                          need_dw: bool):
+    """``(dx or None, dw or None, dfreq (G, S))``, bf16, from the bf16 sine
+    backward (entry ``kanvit_sinekan_tc_bwd_bf16``, part 4), counted under
+    ``<name>_bf16``: part 4's dx kernel (gW = gy W^T in f32, never rounded)
+    runs on every call for dfreq, its per-(feature, slice) row-tile partials
+    summed over the rows and then the features in a fixed order and rounded
+    once, and writes dx only where asked (the embedder's training step asks
+    none); dW over the sine basis made in f32 and rounded to bf16 at the dot,
+    row splits summed in f32 and rounded once."""
+    if BF16_FAMILY.get(name.removesuffix("_bwd")) != "sine":
+        raise NotImplementedError(f"{name}: no bf16 SineKAN backward kernel")
+    check_sine_args(x2d, w, freq2d, phase, bf16=True)
+    _check_device(name, x2d, w, freq2d, phase, gy)
+    n = x2d.shape[0]
+    groups, slices, nin, out = w.shape
+    gy = _check_gy(name, gy, (n, groups * out), torch.bfloat16)
+    dev = x2d.device
+    dx = torch.empty(n, groups * nin, dtype=torch.bfloat16, device=dev) if need_dx else None
+    dw = torch.empty_like(w) if need_dw else None
+    dfreq = torch.empty(groups, slices, dtype=torch.bfloat16, device=dev)
+    if n == 0:
+        return dx, None if dw is None else dw.zero_(), dfreq.zero_()
+    from kanvit_torch.kernels import _build
+
+    splits, part = 1, None
+    if need_dw:
+        splits = tc_grouped_dw_splits(
+            n, groups, nin, out, torch.cuda.get_device_properties(dev).multi_processor_count,
+            _chunks("sine", slices))
+        part = _empty(splits, *w.shape, device=dev)
+    dfreq_part = _empty(groups, slices, -(-n // TCG_DX_ROWS), nin, device=dev)
+    with torch.cuda.device(dev):
+        err = _build.load().kanvit_sinekan_tc_bwd_bf16(
+            x2d.data_ptr(), x2d.stride(0), freq2d.data_ptr(), phase.data_ptr(), w.data_ptr(),
+            gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), dfreq.data_ptr(),
+            dfreq_part.data_ptr(), n, groups, nin, out, slices, splits, _stream(dev))
+    return _counted(f"{name}_bf16", err, dx, dw, dfreq)
+
+
 class _SineFn(torch.autograd.Function):
     """``y = sin(x2d * freq + phase) @ w`` on the card; the backward returns
     dx, d(packed weight) and dfreq. Saves x, the packed weight, freq and
@@ -1263,21 +1343,44 @@ class _SineFn(torch.autograd.Function):
         return dx, dw, dfreq, None, None
 
 
+class _SineBf16Plain(torch.autograd.Function):
+    """The CPU route of a bf16 SineKAN layer: the plain twins of the bf16
+    kernels on the packed weight, forward and an explicit backward (dx only
+    where asked, as on the card; dfreq always). It refuses what the bf16
+    kernels refuse."""
+
+    @staticmethod
+    def forward(ctx, x2d, w, freq2d, phase):
+        check_sine_args(x2d, w, freq2d, phase, bf16=True)
+        ctx.save_for_backward(x2d, w, freq2d, phase)
+        return K.sine_grouped_forward_bf16(x2d, w, freq2d, phase)
+
+    @staticmethod
+    def backward(ctx, gy):
+        x2d, w, freq2d, phase = ctx.saved_tensors
+        dx, dw, dfreq = K.sine_grouped_backward_bf16(x2d, w, freq2d, phase, gy,
+                                                     *ctx.needs_input_grad[:2])
+        return dx, dw, dfreq, None
+
+
 def sinekan(x, freq, phase, amplitudes, bias):
     """SineKAN forward, ``(..., in) -> (..., out)``, differentiable.
 
     Same signature as ``kanvit_torch.ops.kan_bases.sinekan_forward``:
     ``freq`` with G entries (``(G,)`` or the reference's ``(1, 1, 1, G)``),
     ``phase (in, G)``, ``amplitudes (out, in, G)``, ``bias`` ``(out,)``,
-    ``(1, out)`` or None, added outside the kernel as kanvit adds it.
+    ``(1, out)`` or None, added outside the kernel as kanvit adds it. A bf16
+    x (bf16 freq, amplitudes and bias; the phase table f32) takes the bf16
+    kernels (on the CPU their plain twins), the bias added in bf16.
     """
-    if not dispatch.use_kernel(x):
+    kernel = dispatch.use_kernel(x)
+    if not kernel and x.dtype != torch.bfloat16:
         return K.sinekan_forward(x, freq, phase, amplitudes, bias)
     lead, nin = x.shape[:-1], x.shape[-1]
     nout = amplitudes.shape[0]
     w = pack_sine_weight(amplitudes).contiguous()
-    y = _SineFn.apply(x.reshape(-1, nin), w, freq.reshape(1, -1).contiguous(),
-                      phase.contiguous(), "sinekan")
+    args = (x.reshape(-1, nin), w, freq.reshape(1, -1).contiguous(), phase.contiguous())
+    y = _SineFn.apply(*args, "sinekan") if kernel else _SineBf16Plain.apply(*args)
     if bias is not None:
         y = y + bias.reshape(nout)
     return y.reshape(*lead, nout)
@@ -1289,16 +1392,19 @@ def sinekan_qkv_grouped(x2d, freq, phase, amplitudes, bias):
     ``x2d (N, H*dh)`` with head h at columns ``[h*dh, (h+1)*dh)``; ``freq
     (H, G)`` per head; ``phase (dh, G)``, the table every head shares;
     ``amplitudes (H, out, dh, G)``; ``bias (H, out)`` or None. Returns ``y
-    (N, H*out)``, head h at ``[h*out, (h+1)*out)``.
+    (N, H*out)``, head h at ``[h*out, (h+1)*out)``. A bf16 x takes the bf16
+    kernels (on the CPU their plain twins), the bias added in bf16.
     """
     h, nout, dh, _ = amplitudes.shape
-    if not dispatch.use_kernel(x2d):
+    kernel = dispatch.use_kernel(x2d)
+    if not kernel and x2d.dtype != torch.bfloat16:
         return torch.cat([
             K.sinekan_forward(x2d[:, i * dh:(i + 1) * dh], freq[i], phase,
                               amplitudes[i], None if bias is None else bias[i])
             for i in range(h)
         ], dim=1)
     w = pack_sine_qkv_weight(amplitudes).contiguous()
-    y = _SineFn.apply(x2d, w, freq.contiguous(), phase.contiguous(),
-                      "sinekan_qkv_grouped")
+    args = (x2d, w, freq.contiguous(), phase.contiguous())
+    y = (_SineFn.apply(*args, "sinekan_qkv_grouped") if kernel
+         else _SineBf16Plain.apply(*args))
     return y if bias is None else y + bias.reshape(1, h * nout)

@@ -11,7 +11,8 @@ The bf16 kernels' plain twins (kanvit's kernel route on bf16 operands:
 the basis in f32, rounded to bf16 at the dot, f32 sums, each output
 rounded once) are :func:`grouped_forward_bf16` and
 :func:`grouped_backward_bf16` over a family's slices, for B-spline and
-Chebyshev; they are the CPU route of a bf16 layer.
+Chebyshev, and the FastKAN and SineKAN layers' own (``fastkan_grouped_*``,
+``sine_grouped_*``); they are the CPU route of a bf16 layer.
 """
 
 from __future__ import annotations
@@ -676,14 +677,124 @@ def sine_bases_and_grad(x: torch.Tensor, freq: torch.Tensor, phase: torch.Tensor
 def sinekan_forward(x, freq, phase, amplitudes, bias) -> torch.Tensor:
     """SineKAN forward (reference ``sinekan.py:81-91``): ``amplitudes (out,
     in, grid)``, ``bias`` ``(out,)``, ``(1, out)`` or None; the reference's
-    einsum as one flattened matmul. Shape-preserving over leading dims."""
+    einsum as one flattened matmul. Shape-preserving over leading dims.
+
+    A bf16 ``x`` follows the bf16 kernel's policy (kanvit's kernel route,
+    not its jnp route, which makes the basis in bf16):
+    :func:`sine_grouped_forward_bf16`, the bias added after in bf16."""
     lead, nin = x.shape[:-1], x.shape[-1]
     nout = amplitudes.shape[0]
+    if x.dtype == torch.bfloat16:
+        w = amplitudes.to(torch.bfloat16).permute(2, 1, 0).unsqueeze(0)
+        y = sine_grouped_forward_bf16(x.reshape(-1, nin), w, freq.reshape(1, -1), phase)
+        if bias is not None:
+            y = y + bias.to(torch.bfloat16).reshape(nout)
+        return y.reshape(*lead, nout)
     s = sine_bases(x.reshape(-1, nin), freq, phase)  # (N, in, grid)
     y = s.reshape(s.shape[0], -1) @ amplitudes.reshape(nout, -1).T
     if bias is not None:
         y = y + bias.reshape(nout)
     return y.reshape(*lead, nout)
+
+
+def sine_slices_bf16(xf: torch.Tensor, freq: torch.Tensor, phase: torch.Tensor,
+                     with_grad: bool = False):
+    """The SineKAN layer's contracted slices of the f32 ``xf (N, in)`` as the
+    bf16 kernels make them, in f32: ``(N, S, in)``, sin(a) with the argument
+    ``a = x freq_s + phase[i, s]`` formed in f32, the product and the sum
+    each rounded (kanvit's ``x * freq + phase``); ``freq (S,)`` upcast,
+    ``phase (in, S)`` f32. ``with_grad``: also ``(freq_s cos a, x cos a)``,
+    the slices' derivatives in x and in freq_s."""
+    a = xf.unsqueeze(1) * freq.float().reshape(1, -1, 1) + phase.float().T.unsqueeze(0)
+    if not with_grad:
+        return torch.sin(a)
+    c = torch.cos(a)
+    return torch.sin(a), freq.float().reshape(1, -1, 1) * c, xf.unsqueeze(1) * c
+
+
+def _sine_slices_of(freq2d, phase):
+    """``slices(g, xf)`` of group ``g``'s SineKAN layer (its row of ``freq2d
+    (G, S)``, the shared phase table)."""
+    return lambda g, xf: sine_slices_bf16(xf, freq2d[g], phase)
+
+
+def sine_grouped_forward_bf16(x2d, w, freq2d, phase, exact: bool = False) -> torch.Tensor:
+    """The bf16 SineKAN kernels' forward on the packed weight ``w (G, S,
+    nin, out)`` bf16 (``sinekan``: one group; ``sinekan_qkv_grouped``: a
+    group a head), ``x2d (N, G*nin)`` and ``freq2d (G, S)`` bf16, ``phase
+    (nin, S)`` f32: sin(x freq + phase) of the upcast x made in f32 and
+    rounded to bf16 once, the products exact and summed in f32 in one
+    running sum, y rounded to bf16 once, no bias (kanvit's
+    ``_fwd_kernel_sine_sg``, ``_fwd_kernel_kb`` and ``_fwd_kernel`` under
+    the sine family on bf16 operands): :func:`grouped_forward_bf16`."""
+    return grouped_forward_bf16(x2d, w, _sine_slices_of(freq2d, phase), exact)
+
+
+def sine_grouped_backward_bf16(x2d, w, freq2d, phase, gy, need_dx: bool = True,
+                               need_dw: bool = True, exact: bool = False):
+    """The bf16 SineKAN kernels' backward (kanvit's ``_bwd_kernel_sine_sg``,
+    ``_bwd_kernel_sine``, ``_dx_kernel_kb`` and ``_dw_kernel_kb_sine`` on
+    bf16 operands) on :func:`sine_grouped_forward_bf16`'s operands and ``gy
+    (N, G*out)`` bf16. Per group:
+
+    - ``gW = gy W^T``, bf16 operands, the products exact and summed in f32
+      (never rounded);
+    - ``dx = sum_s gW_s (freq_s cos a_s)`` in f32 in slice order, rounded to
+      bf16 once;
+    - ``dW = bf16(sin a)^T gy`` summed in f32 over all the rows, rounded once;
+    - ``dfreq_s = sum gW_s x cos a_s`` in f32, over the rows first and then
+      the group's features (kanvit's q/k/v sums each lane over the rows, then
+      a head's lanes in ``freqrow``'s VJP), rounded to bf16 once.
+
+    Returns ``(dx (N, G*nin) or None, dw (G, S, nin, out) or None, dfreq (G,
+    S))``, bf16; ``exact``: the same f32 basis values and rounded operands
+    summed in f64, unrounded."""
+    n = x2d.shape[0]
+    groups, nslices, nin, nout = w.shape
+    acc = torch.float64 if exact else torch.float32
+    dxs, dws, dfs = [], [], []
+    for g in range(groups):
+        xf = x2d[:, g * nin:(g + 1) * nin].float()
+        gyg = gy[:, g * nout:(g + 1) * nout].to(acc)
+        s, dfx, dff = sine_slices_bf16(xf, freq2d[g], phase, with_grad=True)
+        gw = (gyg @ w[g].to(acc).reshape(-1, nout).T).reshape(n, nslices, nin)
+        dfs.append((gw * dff.to(acc)).sum(0).sum(-1))
+        if need_dx:
+            dx = torch.zeros(n, nin, dtype=acc, device=x2d.device)
+            for k in range(nslices):
+                dx = dx + gw[:, k] * dfx[:, k].to(acc)
+            dxs.append(dx)
+        if need_dw:
+            ab = s.to(torch.bfloat16).to(acc).reshape(n, -1)
+            dws.append((ab.T @ gyg).reshape(nslices, nin, nout))
+    out = (torch.cat(dxs, 1) if need_dx else None,
+           torch.stack(dws) if need_dw else None, torch.stack(dfs))
+    return out if exact else tuple(None if t is None else t.to(torch.bfloat16) for t in out)
+
+
+def sine_dfreq_spread_bf16(x2d, w, freq2d, phase, gy) -> torch.Tensor:
+    """``sum |gW_s x cos a_s|`` in f32 over each group's rows and features,
+    ``(G, S)``: what an f32 sum of dfreq's terms in another order can move
+    by, times its order's rounding (the sum can cancel far below it)."""
+    n = x2d.shape[0]
+    groups, nslices, nin, nout = w.shape
+    out = []
+    for g in range(groups):
+        xf = x2d[:, g * nin:(g + 1) * nin].float()
+        dff = sine_slices_bf16(xf, freq2d[g], phase, with_grad=True)[2]
+        gw = (gy[:, g * nout:(g + 1) * nout].float() @ w[g].float().reshape(-1, nout).T)
+        out.append((gw.reshape(n, nslices, nin) * dff).abs().sum((0, 2)))
+    return torch.stack(out)
+
+
+def sine_fwd_spread_bf16(x2d, w, freq2d, phase) -> torch.Tensor:
+    """:func:`grouped_fwd_spread_bf16` of the SineKAN layer, |sin a| @ |W|."""
+    return grouped_fwd_spread_bf16(x2d, w, _sine_slices_of(freq2d, phase))
+
+
+def sine_dw_spread_bf16(x2d, w, freq2d, phase, gy) -> torch.Tensor:
+    """:func:`grouped_dw_spread_bf16` of the SineKAN layer, |sin a|^T |gy|."""
+    return grouped_dw_spread_bf16(x2d, w, gy, _sine_slices_of(freq2d, phase))
 
 
 def sinekan_phase_init(input_dim: int, grid_size: int) -> torch.Tensor:

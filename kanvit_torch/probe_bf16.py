@@ -1,8 +1,9 @@
-"""bf16 serving and training of the vit-s efficientkan, cheby and fast ViTs
-on the card: checks and times.
+"""bf16 serving and training of the vit-s efficientkan, cheby, fast and sine
+ViTs on the card: checks and times.
 
-    python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby,fast}] [--train]
-                                      [--cheby-shapes] [--fast-shapes]
+    python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby,fast,sine}]
+                                      [--train] [--cheby-shapes] [--fast-shapes]
+                                      [--sine-shapes]
 
 Builds the kernels (registers, spills and the SASS report), then runs
 ``chip_smoke.py``'s bf16 phases alone: the bf16 kernels of the model type
@@ -10,8 +11,9 @@ against their plain twins and f64 at the vit-s and ragged shapes, with
 CUDA-event and device times beside the f32 kernels' on the same operands
 (efficientkan: ``phase_bf16_kernels``, every bf16 kernel, ``bspline_kan``,
 ``bspline_qkv_grouped``, ``chebykan``, ``cheby_qkv_grouped``, ``fastkan``,
-``fastkan_qkv_grouped`` and the lanes attention, forward and backward;
-cheby: ``cheby_bf16_kernels``; fast: ``fast_bf16_kernels``), and the bf16
+``fastkan_qkv_grouped``, ``sinekan``, ``sinekan_qkv_grouped`` and the lanes
+attention, forward and backward; cheby: ``cheby_bf16_kernels``; fast:
+``fast_bf16_kernels``; sine: ``sine_bf16_kernels``), and the bf16
 serving of the vit-s model through ``Predictor`` and
 ``make_eval_step(bf16=True)`` beside f32 (``phase_bf16_serve``);
 ``--train`` adds its bf16 training through ``make_train_step(bf16=True)``
@@ -20,12 +22,13 @@ gradients against the CPU's bf16 twins, the parameter casts' kernels and
 the host's split of a step with the flat buffer and with a cast a
 parameter, ms a step beside f32's, the profiles).
 
-``--cheby-shapes`` and ``--fast-shapes`` also build a library of the bf16
-Chebyshev or RBF (FastKAN) forward's shapes (``CHEBY_BF16_SHAPES``,
-``FAST_BF16_SHAPES``: n8 tiles a warp, warps a block, blocks an SM of
-``kan_tc_fwd_grouped<F, NT, WARPS, MINB, Bf16, 0>``) and time each at the
-vit-s embedder and q/k/v and one vit-s image beside the route, each held to
-the route's bits (a shape sums in the same order) and to the twin's gate.
+``--cheby-shapes``, ``--fast-shapes`` and ``--sine-shapes`` also build a
+library of the bf16 Chebyshev, RBF (FastKAN) or sine forward's shapes
+(``CHEBY_BF16_SHAPES``, ``FAST_BF16_SHAPES``, ``SINE_BF16_SHAPES``: n8
+tiles a warp, warps a block, blocks an SM of ``kan_tc_fwd_grouped<F, NT,
+WARPS, MINB, Bf16, 0>``) and time each at the vit-s embedder and q/k/v and
+one vit-s image beside the route, each held to the route's bits (a shape
+sums in the same order) and to the twin's gate.
 The last line holds the times as JSON.
 """
 
@@ -81,6 +84,36 @@ CASES
     f"p, wb, yb, ws, ww, n, groups, nin, nout, st);"
     for i, (nt, w, mb) in enumerate(FAST_BF16_SHAPES)))
 
+# The same for the bf16 sine forward; the route's first (past 64 outputs 192
+# a block at 12 warps; up to 64 kan_rbf_sine.cu's SINE_BF16_WARPS and
+# SINE_BF16_MINB, 4 warps at four blocks an SM), then the f32 sine q/k/v's
+# 8 warps at three blocks an SM
+SINE_BF16_SHAPES = ((24, 12, 1), (8, 4, 4), (8, 8, 3), (8, 8, 2), (8, 12, 1), (8, 4, 6),
+                    (8, 16, 1), (24, 8, 1))
+
+SINE_BF16_SOURCE = r"""
+#include "kan_rbf_sine.cu"
+
+extern "C" int probe_sine_fwd_bf16(int v, const void* x, long long ldx, const void* freq,
+                                   const float* phase, const void* w, void* y,
+                                   unsigned int* ws, long long ww, int n, int groups, int nin,
+                                   int nout, int grid_size, void* stream) {
+  using bf = __nv_bfloat16;
+  const bf* xb = static_cast<const bf*>(x);
+  const bf* wb = static_cast<const bf*>(w);
+  bf* yb = static_cast<bf*>(y);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const Sine::Params p = sine_params_bf16(freq, phase, grid_size);
+  switch (v) {
+CASES
+  }
+  return -1;
+}
+""".replace("CASES", "\n".join(
+    f"    case {i}: return launch_tc_fwd_grouped<Sine, {nt}, {w}, {mb}, 0, Bf16>(xb, ldx, "
+    f"p, wb, yb, ws, ww, n, groups, nin, nout, st);"
+    for i, (nt, w, mb) in enumerate(SINE_BF16_SHAPES)))
+
 CHEBY_BF16_SOURCE = r"""
 #include "kan_basis.cu"
 
@@ -106,7 +139,7 @@ CASES
 def _cases(C, family):
     """``(label, n, heads, nin, nout)`` of the shapes' timings: the vit-s
     embedder, one vit-s image's and the vit-s q/k/v (Chebyshev: q|k|v, 192
-    outputs a head; FastKAN: one projection, 64)."""
+    outputs a head; FastKAN and sine: one projection, 64)."""
     qkv_out = 192 if family == "cheby" else 64
     return (("vit-s embedder", C.BATCH * 196, None, 768, 384),
             ("vit-s embedder, one image", 196, None, 768, 384),
@@ -114,11 +147,11 @@ def _cases(C, family):
 
 
 def bf16_shapes(lib, C, torch, family):
-    """Each shape of ``CHEBY_BF16_SHAPES`` (``family`` "cheby") or
-    ``FAST_BF16_SHAPES`` ("fast") at the vit-s embedder, one vit-s image's
-    embedder and the vit-s q/k/v: CUDA-event ms in turns with the route, the
-    route's bits, and the twin's gate (one bf16 ulp plus the rounded basis's
-    term)."""
+    """Each shape of ``CHEBY_BF16_SHAPES`` (``family`` "cheby"),
+    ``FAST_BF16_SHAPES`` ("fast") or ``SINE_BF16_SHAPES`` ("sine") at the
+    vit-s embedder, one vit-s image's embedder and the vit-s q/k/v:
+    CUDA-event ms in turns with the route, the route's bits, and the twin's
+    gate (one bf16 ulp plus the rounded basis's term)."""
     import numpy as np
 
     from kanvit_torch.kernels import fused_basis as FB
@@ -129,16 +162,21 @@ def bf16_shapes(lib, C, torch, family):
         shapes, fn = CHEBY_BF16_SHAPES, lib.probe_cheby_fwd_bf16
         fn.argtypes = [i32, p, i64, p, p, p, i64, *[i32] * 4, p]
         names = ("chebykan", "cheby_qkv_grouped")
-    else:
+    elif family == "fast":
         shapes, fn = FAST_BF16_SHAPES, lib.probe_fast_fwd_bf16
         fn.argtypes = [i32, p, i64, p, p, p, f32, p, p, p, p, i64, *[i32] * 4, p]
         names = ("fastkan", "fastkan_qkv_grouped")
+    else:
+        shapes, fn = SINE_BF16_SHAPES, lib.probe_sine_fwd_bf16
+        fn.argtypes = [i32, p, i64, p, p, p, p, p, i64, *[i32] * 5, p]
+        names = ("sinekan", "sinekan_qkv_grouped")
     fn.restype = i32
-    rng = np.random.default_rng(C.SEED + (14 if family == "cheby" else 16))
+    rng = np.random.default_rng(C.SEED + {"cheby": 14, "fast": 16, "sine": 18}[family])
     stream = torch.cuda.current_stream().cuda_stream
     times = {}
     for label, n, heads, nin, nout in _cases(C, family):
         name = names[heads is not None]
+        extra, chunks = (), 1
         if family == "cheby":
             x, _, w, groups = C.cheby_bf16_case(torch, rng, n, heads, nin, nout)
 
@@ -150,6 +188,20 @@ def bf16_shapes(lib, C, torch, family):
 
             def args(y):
                 return (x.data_ptr(), x.stride(0), w.data_ptr(), y.data_ptr())
+        elif family == "sine":
+            x, w, f2, phase = C.sine_bf16_case(torch, rng, n, heads, nin, nout)
+            groups, slices = w.shape[:2]
+            extra, chunks = (slices,), -(-slices // 4)
+
+            def route():
+                return FB._launch_sine(name, x, w, f2, phase)
+
+            twin = K.sine_grouped_forward_bf16(x, w, f2, phase)
+            spread = K.sine_fwd_spread_bf16(x, w, f2, phase)
+
+            def args(y):
+                return (x.data_ptr(), x.stride(0), f2.data_ptr(), phase.data_ptr(),
+                        w.data_ptr(), y.data_ptr())
         else:
             x, w, ga, be, grid, den = C.fast_bf16_case(torch, rng, n, heads, nin, nout)
             groups = w.shape[0]
@@ -165,7 +217,7 @@ def bf16_shapes(lib, C, torch, family):
                 return (x.data_ptr(), x.stride(0), ga.data_ptr(), be.data_ptr(),
                         grid.data_ptr(), 1.0 / den, w.data_ptr(), y.data_ptr(),
                         stats.data_ptr())
-        ws = torch.empty(groups * -(-nout // 192) * 192 * -(-nin // 8) * 5 * 8,
+        ws = torch.empty(groups * -(-nout // 192) * 192 * -(-nin // 8) * chunks * 5 * 8,
                          dtype=torch.int32, device="cuda")
         with torch.inference_mode():
             want = route()
@@ -177,7 +229,7 @@ def bf16_shapes(lib, C, torch, family):
 
                 def launch(v=v, y=y, shape=shape):
                     err = fn(v, *args(y), ws.data_ptr(), ws.numel(), n, groups, nin, nout,
-                             stream)
+                             *extra, stream)
                     C.check(err == 0, f"{family} bf16 fwd {shape}: CUDA error {err}")
 
                 launch()
@@ -200,13 +252,15 @@ def bf16_shapes(lib, C, torch, family):
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model-type", choices=("efficientkan", "cheby", "fast"),
+    p.add_argument("--model-type", choices=("efficientkan", "cheby", "fast", "sine"),
                    default="efficientkan")
     p.add_argument("--train", action="store_true", help="also the bf16 training phase")
     p.add_argument("--cheby-shapes", action="store_true",
                    help="also time the bf16 Chebyshev forward's shapes")
     p.add_argument("--fast-shapes", action="store_true",
                    help="also time the bf16 RBF (FastKAN) forward's shapes")
+    p.add_argument("--sine-shapes", action="store_true",
+                   help="also time the bf16 sine forward's shapes")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
@@ -216,7 +270,8 @@ def main(argv=None) -> None:
     torch, smi = C.phase_toolchain()
     libs = {family: _nvcc(C, source, f"probe_bf16_{family}")
             for family, source, asked in (("cheby", CHEBY_BF16_SOURCE, args.cheby_shapes),
-                                          ("fast", FAST_BF16_SOURCE, args.fast_shapes))
+                                          ("fast", FAST_BF16_SOURCE, args.fast_shapes),
+                                          ("sine", SINE_BF16_SOURCE, args.sine_shapes))
             if asked}
     C.timed("build", C.phase_build)
     out = {"card": smi}
@@ -225,7 +280,7 @@ def main(argv=None) -> None:
         out[f"{family}_bf16_shapes"] = C.timed(f"bf16 {family} shapes", bf16_shapes, lib, C,
                                                torch, family)
     phase = {"efficientkan": C.phase_bf16_kernels, "cheby": C.cheby_bf16_kernels,
-             "fast": C.fast_bf16_kernels}[args.model_type]
+             "fast": C.fast_bf16_kernels, "sine": C.sine_bf16_kernels}[args.model_type]
     results = C.timed("bf16 kernels", phase, torch)
     out["kernels"] = {name: {"ms": r[1], "plain_ms": r[2], **r[3], **r[4],
                              **{k: v for sub in r[5:] for k, v in sub.items()}}
@@ -233,7 +288,8 @@ def main(argv=None) -> None:
     model = C.build_model(args.model_type)
     per_batch, embedder = {"efficientkan": (C.BF16_PER_BATCH, "bspline_kan"),
                            "cheby": (C.CHEBY_BF16_PER_BATCH, "chebykan"),
-                           "fast": (C.FAST_BF16_PER_BATCH, "fastkan")}[args.model_type]
+                           "fast": (C.FAST_BF16_PER_BATCH, "fastkan"),
+                           "sine": (C.SINE_BF16_PER_BATCH, "sinekan")}[args.model_type]
     serve = C.timed("bf16 serving", C.phase_bf16_serve, torch, smi, model, C.SEED + 1,
                     args.model_type, per_batch)
     out["serve"] = {k: v for k, v in serve.items() if k != "launches"}

@@ -30,10 +30,10 @@ whose views become the parameters' ``.grad``. The values are kanvit's: bf16
 of each f32 parameter forward, f32 of each bf16 gradient back, bit for bit
 what a cast of each parameter gives.
 
-bf16 serving takes the efficientkan, cheby, fast, vanilla and flash-attn
-ViTs; :func:`check_bf16_trainable` raises for the models whose kernels have
-no bf16 path yet (the fourier and sine ViTs, a fused-FF model), before any
-launch.
+bf16 serving takes the efficientkan, cheby, fast, sine, vanilla and
+flash-attn ViTs; :func:`check_bf16_trainable` raises for the models whose
+kernels have no bf16 path yet (the fourier ViT, a fused-FF model), before
+any launch.
 """
 
 from __future__ import annotations
@@ -170,14 +170,14 @@ def f32_accumulation():
 
 
 # The ViT kinds whose KAN kernels have no bf16 path yet.
-BF16_UNPORTED = ("fourier", "sine")
+BF16_UNPORTED = ("fourier",)
 
 
 def check_bf16_trainable(model: torch.nn.Module) -> None:
     """Raise ``NotImplementedError`` for a model that a bf16 training step
-    cannot take: the fourier and sine ViTs (their KAN kernels have no bf16
-    path: ROADMAP.md, Queue 2 entry 3b.2) and a fused-FF model (the fused
-    FF's: entry 3b.4). The efficientkan, cheby, fast, vanilla and flash-attn
+    cannot take: the fourier ViT (its KAN kernels have no bf16 path:
+    ROADMAP.md, Queue 2 entry 3b.2) and a fused-FF model (the fused FF's:
+    entry 3b.4). The efficientkan, cheby, fast, sine, vanilla and flash-attn
     ViTs pass."""
     kind = getattr(model, "type", None)
     if kind in BF16_UNPORTED:

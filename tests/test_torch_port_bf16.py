@@ -269,7 +269,7 @@ def test_bf16_training_raises():
     """bf16 training of a model whose kernels have no bf16 path raises,
     naming its ROADMAP entry; the efficientkan ViT trains in bf16
     (tests/test_torch_port_bf16_train.py)."""
-    model = create_model("sine", **SMALL, seed=3)
+    model = create_model("fourier", **SMALL, seed=3)
     x = torch.zeros(2, *SMALL["chw"])
     with pytest.raises(NotImplementedError, match="Queue 2 entry 3"):
         make_train_step(bf16=True)(create_train_state(model), x, torch.zeros(2, dtype=torch.long))
@@ -350,9 +350,8 @@ def test_kernel_route_refuses(kernel_route):
     x = _bf16(rng, (5, 16))[0]
     with pytest.raises(TypeError):   # f32 weights under bf16 x
         FB.bspline_kan(x, grid, torch.ones(4, 16), torch.ones(4, 16, 8), None)
-    with pytest.raises(TypeError, match="bf16"):   # no bf16 SineKAN kernel
-        FB.sinekan(x, torch.ones(5), torch.zeros(16, 5), torch.ones(4, 16, 5, dtype=BF16),
-                   None)
+    with pytest.raises(TypeError, match="bf16"):   # no bf16 Fourier kernel
+        FB.fourierkan(x, torch.ones(2, 4, 16, 5, dtype=BF16), None)
 
 
 # --- the attention tier predicates, by itemsize --------------------------------

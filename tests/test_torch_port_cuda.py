@@ -2131,9 +2131,8 @@ def test_bf16_backward_and_other_head_dims_raise(cuda):
         with torch.inference_mode(), pytest.raises(ValueError, match=f"head dim {dh}"):
             FA.flash_attention_lanes(q, q, q, 2)
     with torch.inference_mode(), pytest.raises(TypeError, match="float32"):
-        FB.sinekan(torch.zeros(4, 16, device=cuda, dtype=BF16), torch.ones(5, device=cuda),
-                   torch.zeros(16, 5, device=cuda),
-                   torch.zeros(3, 16, 5, device=cuda, dtype=BF16), None)
+        FB.fourierkan(torch.zeros(4, 16, device=cuda, dtype=BF16),
+                      torch.zeros(2, 3, 16, 5, device=cuda, dtype=BF16), None)
     assert FA.LAUNCHES["flash_attention_lanes_bf16"] == 1
 
 
@@ -2278,6 +2277,78 @@ def test_fastkan_bwd_bf16_kernel(cuda, name, n, heads, nin, nout, large):
     assert FB.LAUNCHES[f"{name}_bwd_bf16"] == 3 and FB.LAUNCHES[f"{name}_bwd"] == 0
 
 
+# --- bf16 sine: the bf16 forwards and backwards of sinekan (grid 28, its
+# slices in chunks of 4) and sinekan_qkv_grouped (grid 4) against their plain
+# twins, within one bf16 ulp plus one of each rounded basis value weighted as
+# the next product weighs it (2^-8 |sin a| |W| for y, 2^-8 |sin a|^T |gy| for
+# dW; dx one ulp; dfreq one ulp plus 2^-14 of sum |gW x cos a|, two f32 sums
+# of its cancelling terms in other orders; chip_smoke.py's gates), no
+# further than twice the twin from the f64 sums of the same operands, their
+# bits repeated.
+
+SINE_BF16_SHAPES = [("sinekan", 37 * 49, None, 16, 64, 28),
+                    ("sinekan", 300, None, 100, 70, 5),
+                    ("sinekan", 64 * 196, None, 768, 384, 28),
+                    ("sinekan_qkv_grouped", 37 * 50, 2, 32, 32, 4),
+                    ("sinekan_qkv_grouped", 64 * 50, 8, 8, 8, 4),
+                    ("sinekan_qkv_grouped", 64 * 197, 6, 64, 64, 4),
+                    ("sinekan_qkv_grouped", 301, 2, 20, 20, 3)]
+
+
+def _sine_bf16_case(cuda, rng, n, heads, nin, nout, grid_size):
+    """bf16 x (|x| up to 20), freq (G, S) and the packed weight (G, S, nin,
+    nout); the f32 phase table."""
+    groups = 1 if heads is None else heads
+    x = _sine_x(rng, (n, groups * nin))
+    freq = ((torch.arange(1, grid_size + 1) / (grid_size + 1)).repeat(groups, 1)
+            + _param(rng, (groups, grid_size), 0.05))
+    amps = _param(rng, (groups, nout, nin, grid_size), 1.0 / np.sqrt(nin))
+    w = FB.pack_sine_qkv_weight(amps).contiguous()
+    return ([t.to(cuda).to(BF16) for t in (x, w, freq)]
+            + [K.sinekan_phase_init(nin, grid_size).to(cuda)])
+
+
+@pytest.mark.parametrize("name,n,heads,nin,nout,grid_size", SINE_BF16_SHAPES)
+def test_sine_bf16_kernel(cuda, name, n, heads, nin, nout, grid_size):
+    rng = np.random.default_rng(150)
+    x, w, f2, phase = _sine_bf16_case(cuda, rng, n, heads, nin, nout, grid_size)
+    with torch.inference_mode():
+        y = FB._launch_sine(name, x, w, f2, phase)
+        again = FB._launch_sine(name, x, w, f2, phase)
+        twin = K.sine_grouped_forward_bf16(x, w, f2, phase)
+        exact = K.sine_grouped_forward_bf16(x, w, f2, phase, exact=True)
+        spread = K.sine_fwd_spread_bf16(x, w, f2, phase)
+    _bf16_ulp(y, twin, spread)
+    _f64_gate(y, twin, exact)
+    assert torch.equal(y, again)
+    assert FB.LAUNCHES[f"{name}_bf16"] == 2 and FB.LAUNCHES[name] == 0
+
+
+@pytest.mark.parametrize("name,n,heads,nin,nout,grid_size", SINE_BF16_SHAPES)
+def test_sine_bwd_bf16_kernel(cuda, name, n, heads, nin, nout, grid_size):
+    """dx, dW and dfreq; the no-dx route's dW and dfreq the all-gradients
+    route's bits."""
+    rng = np.random.default_rng(151)
+    x, w, f2, phase = _sine_bf16_case(cuda, rng, n, heads, nin, nout, grid_size)
+    gy = torch.from_numpy(rng.standard_normal((n, w.shape[0] * nout)).astype(np.float32)
+                          ).to(cuda).to(BF16)
+    with torch.inference_mode():
+        args = (f"{name}_bwd", x, w, f2, phase, gy)
+        got = FB._launch_sine_bwd(*args, True, True)
+        again = FB._launch_sine_bwd(*args, True, True)
+        no_dx = FB._launch_sine_bwd(*args, False, True)
+        twin = K.sine_grouped_backward_bf16(x, w, f2, phase, gy)
+        exact = K.sine_grouped_backward_bf16(x, w, f2, phase, gy, exact=True)
+        spreads = (None, K.sine_dw_spread_bf16(x, w, f2, phase, gy),
+                   K.sine_dfreq_spread_bf16(x, w, f2, phase, gy) * 2.0 ** -6)
+    for g, t, e, spread, a in zip(got, twin, exact, spreads, again):
+        _bf16_ulp(g, t, spread)
+        _f64_gate(g, t, e)
+        assert torch.equal(g, a)
+    assert no_dx[0] is None and all(torch.equal(a, b) for a, b in zip(got[1:], no_dx[1:]))
+    assert FB.LAUNCHES[f"{name}_bwd_bf16"] == 3 and FB.LAUNCHES[f"{name}_bwd"] == 0
+
+
 # --- bf16 training: the bf16 backwards of bspline_kan, bspline_qkv_grouped and
 # the lanes attention against their plain twins, within one bf16 ulp plus one
 # of each rounded intermediate weighted as the next product weighs it
@@ -2368,11 +2439,12 @@ def test_attention_lanes_bwd_bf16_kernel(cuda, dh, causal, masked):
 @pytest.mark.parametrize("kind,embedder,qkv", [("efficientkan", "bspline_kan",
                                                  "bspline_qkv_grouped"),
                                                 ("cheby", "chebykan", "cheby_qkv_grouped"),
-                                                ("fast", "fastkan", "fastkan_qkv_grouped")])
+                                                ("fast", "fastkan", "fastkan_qkv_grouped"),
+                                                ("sine", "sinekan", "sinekan_qkv_grouped")])
 def test_bf16_train_step_on_card(cuda, kind, embedder, qkv):
-    """One bf16 step of a 2-block MNIST-geometry efficientkan, cheby or fast
-    ViT on the card against the CPU's (the plain twins): 1 + 2 + 2 bf16
-    launches forward and backward (fast: 2 x 3 grouped q/k/v, one a
+    """One bf16 step of a 2-block MNIST-geometry efficientkan, cheby, fast or
+    sine ViT on the card against the CPU's (the plain twins): 1 + 2 + 2 bf16
+    launches forward and backward (fast, sine: 2 x 3 grouped q/k/v, one a
     projection) and no f32 ones, loss within 2e-2 x max(1, |loss|) and every
     gradient within 5e-2 x max(1, max|g|) (kanvit's bf16 gates), the f32
     parameters and gradients f32."""
@@ -2391,7 +2463,7 @@ def test_bf16_train_step_on_card(cuda, kind, embedder, qkv):
     _, lc, _ = step(create_train_state(cpu), x, y)
     _, lg, _ = step(create_train_state(gpu), x.to(cuda), y.to(cuda))
     counts = {k: n for k, n in {**FB.LAUNCHES, **FA.LAUNCHES}.items() if n}
-    grouped = 6 if kind == "fast" else 2
+    grouped = 6 if kind in ("fast", "sine") else 2
     assert counts == {f"{embedder}_bf16": 1, f"{qkv}_bf16": grouped,
                       "flash_attention_lanes_bf16": 2, f"{embedder}_bwd_bf16": 1,
                       f"{qkv}_bwd_bf16": grouped, "flash_attention_lanes_bwd_bf16": 2}
