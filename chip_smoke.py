@@ -162,6 +162,15 @@ Phases, in order; any failure raises, so the script exits non-zero:
    and 4 of their 12 blocks (``BF16_TRAIN_DEPTH``; their launches a step
    scaled to them), so that the run keeps the time it took before the
    sine phases;
+9f. the fourier ViT's two bf16 KAN kernels (``fourierkan`` at grid 28, its
+   56 slices in 14 chunks of 2 harmonics, cos/sin(kx) by the angle-addition
+   recurrence; forward and backward: dx, dW) against their plain twins in
+   9b's phase, at the vit-s, one-image and MNIST shapes and grid 5 (9c's
+   gates; the no-dx dW the all-gradients route's bits), each beside the f32
+   kernels on the same operands; after phase 10's fourier training, bf16
+   serving and training of the vit-s ``fourier`` ViT on its weights (its
+   q/k/v Linear): exactly 1 + 12 bf16 launches each way and nothing else,
+   with 9c's checks and numbers;
 11. int8 serving of the vit-s ``vanilla`` model through
    ``Predictor(quant="int8")``: with the ``int8_linear`` kernel (25
    launches a batch, the 1000-class head on qdot), calibrated, and on qdot
@@ -3092,6 +3101,133 @@ def check_sine_bwd_bf16(torch, rng, name, label, n, heads, nin, nout, need_dx=Tr
                                "f32_device_ms": f32_dev_ms}, bounds
 
 
+def fourier_bf16_case(torch, rng, n, nin, nout, grid_size=28):
+    """The bf16 Fourier embedder's operands: x (n, nin) from
+    ``fourier_inputs`` (every 7th entry over [-10, 10], arguments k x up to
+    280) and the packed weight (1, 2G, nin, nout), cos harmonics first, at
+    NaiveFourierKAN's init scale, normals / sqrt(nin G), both bf16. Returns
+    ``(x, w)``."""
+    from kanvit_torch.kernels import fused_basis as FB
+
+    def cuda(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda().to(torch.bfloat16)
+
+    coeffs = rng.standard_normal((2, nout, nin, grid_size)) / np.sqrt(nin * grid_size)
+    return (cuda(fourier_inputs(rng, (n, nin))),
+            FB.pack_fourier_weight(cuda(coeffs)).contiguous())
+
+
+def check_fourier_bf16(torch, rng, label, n, nin, nout, grid_size=28):
+    """The bf16 ``fourierkan`` forward against its plain twin on the card:
+    one bf16 ulp plus one of every rounded basis value weighted as W weighs
+    it, 2^-8 |B| |W|; no further than twice the twin from the f64 sum of the
+    same rounded operands; its bits repeated. CUDA events and device times
+    beside the f32 kernels' on the same (upcast) operands and the twin's,
+    and the bf16 bound."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    x, wb = fourier_bf16_case(torch, rng, n, nin, nout, grid_size)
+    x32, w32 = x.float(), wb.float()
+    tag = f"fourierkan bf16 {label} N={n} G={grid_size} {nin}->{nout}"
+
+    def kernel():
+        return FB._launch_bf16("fourierkan", x, wb, grid_size)
+
+    def f32_kernel():
+        return FB._launch("fourierkan", "fourier", x32, w32, grid_size)
+
+    def plain(exact=False):
+        return K.fourier_grouped_forward_bf16(x, wb, exact=exact)
+
+    with torch.inference_mode():
+        y, again = kernel(), kernel()
+        check(y.dtype == torch.bfloat16 and tuple(y.shape) == (n, nout),
+              f"{tag}: output {y.dtype} {tuple(y.shape)}")
+        ref, exact = plain(), plain(exact=True)
+        spread = K.fourier_fwd_spread_bf16(x, wb)
+        torch.cuda.synchronize()
+        err = bf16_ulp_gate(tag, y, ref, spread)
+        check(torch.equal(y, again), f"{tag}: a second forward gave other bits")
+        f64 = f64_gate(tag, y, ref, exact, "bf16 plain twin")
+        del ref, exact, spread
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, 10, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, 10, label=f"{tag}, the f32 kernels")
+        plain_ms = time_ms(torch, plain, iters=5)
+    flops = 2.0 * n * 2 * grid_size * nin * nout
+    nbytes = 2.0 * (n * nin + 2 * grid_size * nin * nout + n * nout)  # x, W read, y written
+    bounds = bf16_bound(flops, nbytes)
+    print(f"[bf16] {tag}: kernels {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernels "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  bound "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']})  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                               "f32_device_ms": f32_dev_ms}, bounds
+
+
+def check_fourier_bwd_bf16(torch, rng, label, n, nin, nout, need_dx=True, grid_size=28):
+    """The bf16 ``fourierkan`` backward (asked for dx only where
+    ``need_dx``, as the training step asks its embedder) against its plain
+    twin on the card: dx within one bf16 ulp, dW within one bf16 ulp plus
+    2^-8 |B|^T |gy|; each no further than twice the twin from the f64 sums of
+    the same operands; the bits of a second call, and the no-dx dW the
+    all-gradients route's bits. Times beside the f32 kernels' on the same
+    (upcast) operands and the twin's, and the bf16 bound."""
+    from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.ops import kan_bases as K
+
+    bf16 = torch.bfloat16
+    x, wb = fourier_bf16_case(torch, rng, n, nin, nout, grid_size)
+    gy = torch.from_numpy(rng.standard_normal((n, nout)).astype(np.float32)).cuda().to(bf16)
+    x32, w32, gy32 = x.float(), wb.float(), gy.float()
+    tag = f"fourierkan bwd bf16 {label} N={n} G={grid_size} {nin}->{nout}"
+
+    def kernel(dx=need_dx):
+        return FB._launch_bwd_bf16("fourierkan", x, wb, grid_size, gy, dx, True)
+
+    def f32_kernel():
+        return FB._launch_bwd("fourierkan_bwd", "fourier", x32, w32, grid_size, gy32,
+                              need_dx, True)
+
+    def plain(exact=False):
+        return K.fourier_grouped_backward_bf16(x, wb, gy, need_dx, True, exact=exact)
+
+    with torch.inference_mode():
+        got, again, every = kernel(), kernel(), kernel(True)
+        twin, exact = plain(), plain(exact=True)
+        spread = K.fourier_dw_spread_bf16(x, wb, gy)
+        torch.cuda.synchronize()
+        check(got[1].dtype == bf16 and (got[0] is None) != need_dx, f"{tag}: outputs")
+        err, f64 = 0.0, 0.0
+        for i, what in enumerate(("dx", "dW")):
+            if got[i] is None:
+                continue
+            err = max(err, bf16_ulp_gate(f"{tag} {what}", got[i], twin[i],
+                                         spread if what == "dW" else None))
+            f64 = max(f64, f64_gate(f"{tag} {what}", got[i], twin[i], exact[i],
+                                    "bf16 plain twin"))
+            check(torch.equal(got[i], again[i]), f"{tag}: a second backward gave other "
+                                                 f"{what} bits")
+        check(torch.equal(got[1], every[1]), f"{tag}: the no-dx dW differs from the "
+                                             "all-gradients route's")
+        del twin, exact, spread
+        ms, dev_ms = time_ms(torch, kernel), kernel_ms(torch, kernel, 10, label=tag)
+        f32_ms = time_ms(torch, f32_kernel)
+        f32_dev_ms = kernel_ms(torch, f32_kernel, 10, label=f"{tag}, the f32 kernels")
+        plain_ms = time_ms(torch, plain, iters=5)
+    # dW, and gW for dx where asked; x and gy read, dW written, and W read
+    # and dx written where dx is asked
+    wsize = 2 * grid_size * nin * nout
+    flops = 2.0 * n * wsize * (1 + need_dx)
+    nbytes = 2.0 * (n * nin * (1 + need_dx) + n * nout + wsize * (1 + need_dx))
+    bounds = bf16_bound(flops, nbytes)
+    print(f"[bf16] {tag}: kernels {ms:.4f} ms (device {dev_ms:.4f})  the f32 kernels "
+          f"{f32_ms:.4f} (device {f32_dev_ms:.4f})  plain twin {plain_ms:.4f}  bound "
+          f"{bounds['bound_ms']:.4f} ({bounds['bound_by']})  (bits repeated)")
+    return err, ms, plain_ms, {"f64_err": f64, "device_ms": dev_ms, "f32_ms": f32_ms,
+                               "f32_device_ms": f32_dev_ms}, bounds
+
+
 def check_attention_bwd_bf16(torch, rng, b, t, heads, dh, label, cases):
     """The bf16 lanes backward on q, k, v as strided slices of a bf16
     (N, H*3dh) projection output, each case against the plain twin on the
@@ -3242,6 +3378,7 @@ def phase_bf16_kernels(torch):
     results.update(cheby_bf16_kernels(torch))
     results.update(fast_bf16_kernels(torch))
     results.update(sine_bf16_kernels(torch))
+    results.update(fourier_bf16_kernels(torch))
     return results
 
 
@@ -3375,6 +3512,36 @@ def sine_bf16_kernels(torch):
     }
 
 
+def fourier_bf16_kernels(torch):
+    """The fourier ViT's two bf16 KAN kernels: the embedder (``fourierkan``,
+    grid 28, its 56 slices in 14 chunks of 2 harmonics), forward and
+    backward, at the vit-s shape (the backward first without dx, as the
+    training step asks it), then at one vit-s image, the MNIST embedder and
+    grid 5 (an odd grid: a last chunk of one harmonic; sub-entries). Its
+    q/k/v are Linear and its attention the lanes tier, in phase 9b."""
+    rng = np.random.default_rng(SEED + 19)
+    vit_s, image, mnist = (BATCH * 196, 768, 384), (196, 768, 384), (37 * 49, 16, 64)
+    return {
+        "fourierkan_bf16": check_fourier_bf16(torch, rng, "vit-s embedder", *vit_s) + (
+            {"batch_1": sub_entry(check_fourier_bf16(
+                torch, rng, "vit-s embedder, one image", *image))},
+            {"mnist_ragged": sub_entry(check_fourier_bf16(
+                torch, rng, "mnist embedder", *mnist))},
+            {"grid_5": sub_entry(check_fourier_bf16(
+                torch, rng, "mnist embedder, grid 5", *mnist, grid_size=5))}),
+        "fourierkan_bwd_bf16": check_fourier_bwd_bf16(
+            torch, rng, "vit-s embedder, no dx", *vit_s, need_dx=False) + (
+            {"all_gradients": sub_entry(check_fourier_bwd_bf16(
+                torch, rng, "vit-s embedder", *vit_s))},
+            {"batch_1": sub_entry(check_fourier_bwd_bf16(
+                torch, rng, "vit-s embedder, one image, no dx", *image, need_dx=False))},
+            {"mnist_ragged": sub_entry(check_fourier_bwd_bf16(
+                torch, rng, "mnist embedder", *mnist))},
+            {"grid_5": sub_entry(check_fourier_bwd_bf16(
+                torch, rng, "mnist embedder, grid 5", *mnist, grid_size=5))}),
+    }
+
+
 BF16_PER_BATCH = {"bspline_kan_bf16": 1, "bspline_qkv_grouped_bf16": 12,
                   "flash_attention_lanes_bf16": 12}
 CHEBY_BF16_PER_BATCH = {"chebykan_bf16": 1, "cheby_qkv_grouped_bf16": 12,
@@ -3384,9 +3551,11 @@ FAST_BF16_PER_BATCH = {"fastkan_bf16": 1, "fastkan_qkv_grouped_bf16": 36,
                        "flash_attention_lanes_bf16": 12}
 SINE_BF16_PER_BATCH = {"sinekan_bf16": 1, "sinekan_qkv_grouped_bf16": 36,
                        "flash_attention_lanes_bf16": 12}
+# the fourier ViT's q/k/v are Linear (cuBLAS)
+FOURIER_BF16_PER_BATCH = {"fourierkan_bf16": 1, "flash_attention_lanes_bf16": 12}
 # The variants served and trained in bf16 after their f32 phases.
-BF16_VARIANTS = {"cheby": CHEBY_BF16_PER_BATCH, "fast": FAST_BF16_PER_BATCH,
-                 "sine": SINE_BF16_PER_BATCH}
+BF16_VARIANTS = {"cheby": CHEBY_BF16_PER_BATCH, "fourier": FOURIER_BF16_PER_BATCH,
+                 "fast": FAST_BF16_PER_BATCH, "sine": SINE_BF16_PER_BATCH}
 
 
 def phase_bf16_serve(torch, smi, model_cpu, seed, variant="efficientkan",
@@ -4121,11 +4290,12 @@ KERNEL_GROUPS = (
     ("KAN basis fwd", ("kan_fwd_kernel",)),
     ("KAN q/k/v and embedder bwd on the tensor cores (B-spline, Chebyshev, RBF, "
      "sine: dW, dx)", ("kan_tc_dw_grouped", "kan_tc_dx_kernel", "WtSource")),
-    ("KAN q/k/v and embedder bwd in bf16 (B-spline, Chebyshev, RBF, sine: dW, dx, split "
-     "sums, dfreq sums)",
+    ("KAN q/k/v and embedder bwd in bf16 (B-spline, Chebyshev, RBF, sine, Fourier: dW, "
+     "dx, split sums, dfreq sums)",
      ("kan_bf16_dw", "kan_bf16_dx", "sum_splits_bf16", "sum_rows_features")),
     ("the bf16 step's parameter casts: the gradients' gather", ("CatArrayBatchedCopy",)),
-    ("KAN q/k/v and embedder fwd on the tensor cores (B-spline, Chebyshev, RBF, sine)",
+    ("KAN q/k/v and embedder fwd on the tensor cores (B-spline, Chebyshev, RBF, sine; "
+     "Fourier in bf16)",
      ("kan_tc_fwd_grouped", "kan_tc_fwd_split")),
     ("KAN basis on the tensor cores (Fourier, sine: fwd, dW)",
      ("kan_tc_kernel", "kan_tc_split")),
@@ -4820,6 +4990,8 @@ SOURCES = {
     "sinekan_qkv_grouped_bf16": (KAN_TC_SRC, f"{FB_PY}:1518"),
     "sinekan_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:2523"),
     "sinekan_qkv_grouped_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:1557"),
+    "fourierkan_bf16": (KAN_TC_SRC, f"{FB_PY}:2317"),
+    "fourierkan_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:2564"),
 }
 # The single-tile tier of flash_attention runs the lanes kernels (phase 5);
 # fourierkan's and sinekan's kernels serve kanvit's generic tier below its
@@ -4848,6 +5020,8 @@ ALSO_REPLACES = {
     "sinekan_bf16": [f"{FB_PY}:1067", f"{FB_PY}:2354"],
     "sinekan_bwd_bf16": [f"{FB_PY}:2492", f"{FB_PY}:1728", f"{FB_PY}:2401",
                          f"{FB_PY}:2433"],
+    "fourierkan_bf16": [f"{FB_PY}:1067"],
+    "fourierkan_bwd_bf16": [f"{FB_PY}:2492", f"{FB_PY}:1159"],
 }
 # The Fourier and sine embedders' routes: the tensor-core kernels
 # (kan_basis_tc.cuh, instantiated in the family's source), dx on the
@@ -5081,6 +5255,24 @@ ROUTES = {
                   "made in f32 and rounded to bf16 at the dot, row splits in f32 partials, "
                   "one rounding)",
         "instantiated_in": RBF_SINE_SRC},
+    "fourierkan_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<FourierBf16, "
+                  "24, 12, 1, Bf16, 0> at one group (192 outputs a block), the 56 slices in 14 "
+                  "chunks of 2 harmonics walked inside each 8 features, cos/sin(kx) by the "
+                  "angle-addition recurrence from cos/sin(x) in f32 in registers, seeded once "
+                  "and carried through the chunks, rounded to bf16 at the dot, W split once a "
+                  "call into bf16 pairs by kan_tc_fwd_split (cos harmonics first, read a chunk "
+                  "at a time), one running sum, y rounded to bf16 once",
+        "instantiated_in": KAN_SRC},
+    "fourierkan_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation, kan_basis_tc.cuh part 4 at "
+                  "one group, the 56 slices in 14 chunks of 2 harmonics: kan_bf16_dx<FourierBf16>"
+                  " where dx is asked (gy W^T in f32, k (gW_sin c_k - gW_cos s_k) added "
+                  "harmonic by harmonic in its epilogue, the recurrence carried through the "
+                  "chunks, rounded once), kan_bf16_dw<FourierBf16, 3> (a block a chunk, seeded "
+                  "at its first harmonic, the basis rounded to bf16 at the dot, row splits in "
+                  "f32 partials, one rounding)",
+        "instantiated_in": KAN_SRC},
     "fourierkan": {"kernel": TC_FWD.format("FourierTc"), "instantiated_in": KAN_SRC},
     "fourierkan_bwd": {"kernel": TC_BWD.format("", "FourierTc"),
                        "instantiated_in": KAN_SRC},
@@ -5115,7 +5307,8 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
              "fastkan_qkv_grouped_bwd_bf16": "fast_bf16_train",
              "sinekan_bf16": "sine_bf16_serve", "sinekan_qkv_grouped_bf16": "sine_bf16_serve",
              "sinekan_bwd_bf16": "sine_bf16_train",
-             "sinekan_qkv_grouped_bwd_bf16": "sine_bf16_train"}
+             "sinekan_qkv_grouped_bwd_bf16": "sine_bf16_train",
+             "fourierkan_bf16": "fourier_bf16_serve", "fourierkan_bwd_bf16": "fourier_bf16_train"}
 
 
 def timed(label, fn, *args):

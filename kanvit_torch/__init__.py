@@ -18,7 +18,9 @@ kernels, Adam): every ViT variant (``vanilla``, ``efficientkan``, ``fast``,
 ``sine``, ``fourier``, ``cheby``, ``flash-attn``), the opt-in fused pre-LN
 FF (``fused_ff=True``), int8 serving (``Predictor(quant="int8")``, with the
 W8A8 ``int8_linear`` kernel on request), and the ``CausalDecoder`` on the
-tiled flash attention. bf16, export and the trainer surface are listed in
+tiled flash attention. In bf16 (kanvit's ``--bf16`` policy), serving and the
+training step of every ViT variant on hand-written bf16 kernels; the bf16
+fused FF and tiled attention, export and the trainer surface are listed in
 ``ROADMAP.md``. This package imports torch and numpy only, never jax.
 """
 

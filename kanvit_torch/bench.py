@@ -11,8 +11,9 @@ synthetic images and labels drawn from ``--seed``. Run on one card:
     python -m kanvit_torch.bench --preset vit-s --batch-size 64 --bf16
 
 ``--bf16`` is ``bench.py``'s: kanvit's bf16 policy, f32 parameters and
-Adam, the step in bf16 (``make_train_step(bf16=True)``), for the models
-that take it (efficientkan, vanilla, flash-attn; the others raise).
+Adam, the step in bf16 (``make_train_step(bf16=True)``), for every ViT kind
+(efficientkan, cheby, fourier, fast, sine, vanilla, flash-attn; a
+``fused_ff`` model raises).
 
 ``--device`` (default ``cuda``) is explicit: with no card the run raises,
 and it never moves to the CPU on its own (``--device cpu`` is for tests).

@@ -9,9 +9,8 @@ a plain loop over equal chunks. ``quant="int8"`` serves W8A8 Linear layers
 static activation scales. A model whose parameters are bf16
 (``kanvit_torch.utils.precision.cast_params_``) serves in bf16, as
 ``benchmarks/inference_serving.py --bf16`` serves kanvit: images cast to
-bf16 on the device, logits returned as f32 (the efficientkan, cheby, fast,
-sine, vanilla and flash-attn ViTs; the fourier ViT's KAN kernels have no
-bf16 path).
+bf16 on the device, logits returned as f32 (every ViT kind: efficientkan,
+cheby, fourier, fast, sine, vanilla and flash-attn).
 
 Not ported yet: reading flax msgpack checkpoints, ``export`` and the CLI
 (``ROADMAP.md``, Queue 1).

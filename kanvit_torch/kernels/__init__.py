@@ -4,7 +4,9 @@
   B-spline, Chebyshev and Fourier families (``csrc/kan_basis.cu``) and the
   RBF and sine families (``csrc/kan_rbf_sine.cu``) for the patch embedder
   and the grouped q/k/v projection; the Fourier and sine embedders' forward
-  and weight gradient on the tensor cores (``csrc/kan_basis_tc.cuh``).
+  and weight gradient on the tensor cores (``csrc/kan_basis_tc.cuh``), and
+  every family's bf16 forward and backward there (``Bf16`` operand type,
+  ``mma.sync.m16n8k16``).
 - ``flash_attention``: the lanes-layout attention (``csrc/attention_lanes.cu``)
   and the tiled flash attention (``csrc/flash_attention.cu``), forward and
   backward.

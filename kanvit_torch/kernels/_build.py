@@ -74,6 +74,9 @@ SIGNATURES = {
     "kanvit_fastkan_tc_bwd_bf16": (
         [_p, _i64, _p, _p, _p, _f32, *[_p] * 10, *[_i32] * 7, _p], _i32),
     "kanvit_sinekan_tc_fwd_bf16": ([_p, _i64, *[_p] * 5, _i64, *[_i32] * 5, _p], _i32),
+    "kanvit_fourierkan_tc_fwd_bf16": ([_p, _i64, _i32, *[_p] * 3, _i64, *[_i32] * 4, _p],
+                                      _i32),
+    "kanvit_fourierkan_tc_bwd_bf16": ([_p, _i64, _i32, *[_p] * 5, *[_i32] * 5, _p], _i32),
     "kanvit_sinekan_tc_bwd_bf16": ([_p, _i64, *[_p] * 9, *[_i32] * 6, _p], _i32),
     "kanvit_fastkan_qkv_tc_bwd": (
         [_p, _i64, _p, _p, _p, _f32, *[_p] * 10, *[_i32] * 7, _p], _i32),

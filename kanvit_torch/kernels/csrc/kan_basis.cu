@@ -37,7 +37,11 @@
 //   :1159, _fused_bwd_sg :1278 on bf16 operands) on part 4, entry
 //   kanvit_bspline_tc_bwd_bf16; chebykan's and cheby_qkv_grouped's the
 //   same way (_cheby_op :3491, _cheby_op_sg :1343 and their VJPs), entries
-//   kanvit_cheby_tc_fwd_bf16 and kanvit_cheby_tc_bwd_bf16.
+//   kanvit_cheby_tc_fwd_bf16 and kanvit_cheby_tc_bwd_bf16; fourierkan's
+//   (_fused_fwd_kb :2317 with _fwd_kernel_kbf, _fused_bwd_kb :2492 and
+//   :2564 with _dx_kernel_kbf and _dw_kernel_kbf, and _fused_fwd :1067 /
+//   _fused_bwd :1159 below that tier) as FourierBf16, entries
+//   kanvit_fourierkan_tc_fwd_bf16 and kanvit_fourierkan_tc_bwd_bf16.
 //   Fourier's forward (fourierkan (:3748): the K-blocked _fused_fwd_kb
 //   (:2317, _fwd_kernel_kbf) and, below that tier, _fused_fwd (:1067)) and
 //   its weight gradient (_fused_bwd_kb dW, :2564, _dw_kernel_kbf) run on
@@ -110,6 +114,19 @@ constexpr int CHEBY_EMB_WARPS = 12, CHEBY_EMB_MINB = 1, CHEBY_EMB_FLUSH = 24;
 // wave the 192-output blocks lose (one vit-s image: 0.1960 ms against
 // 0.0880 at 64 outputs), as the B-spline bf16 embedder's do.
 constexpr int CHEBY_BF16_WARPS = 8, CHEBY_BF16_MINB = 3;
+// The bf16 Fourier forward's shape up to 64 outputs (the MNIST embedder:
+// 16 -> 64; part 3's Bf16 type, two 16-deep steps of two slices a stage):
+// warps a block, blocks an SM. Past 64 outputs (the vit-s embedder) 192 a
+// block at 12 warps, one block an SM, as every bf16 embedder takes.
+// kanvit_torch/probe_bf16.py --fourier-shapes timed eight shapes on the
+// H100 80GB HBM3 at 700 W (PERF.md), every one with the route's bits: at
+// the vit-s embedder 192 outputs at 12 warps took 1.97 ms against 2.82 for
+// 96 outputs at 8 warps, two blocks an SM, and 3.09-3.99 for 64-output
+// shapes; at the MNIST embedder 4 warps at four blocks an SM 0.0235 against
+// 0.0239-0.0307 for the other 64-output shapes. Below one wave the
+// 192-output blocks lose (one vit-s image: 1.97 ms against 0.93 at 64
+// outputs, 4 warps, four blocks an SM), as the other bf16 embedders' do.
+constexpr int FOURIER_BF16_WARPS = 4, FOURIER_BF16_MINB = 4;
 
 // B-spline: 12 knots a feature (grid 5, order 3), 8 spline bases + silu.
 struct Bspline : FamilyDefaults {
@@ -281,6 +298,108 @@ struct Fourier : FamilyDefaults {
       d[q] = -k * sh;
       d[HC + q] = k * ch;
     }
+  }
+};
+
+// Fourier on bf16 operands (kan_basis_tc.cuh parts 3 and 4; kanvit's
+// K-blocked recurrence kernels _fwd_kernel_kbf, _dx_kernel_kbf and
+// _dw_kernel_kbf, fused_basis.py:1858-1960): G harmonics at run time in
+// chunks of HC = 2, chunk c = (cos k, sin k, cos k+1, sin k+1) for k = 2c +
+// 1, read from and written to the packed weight (cos harmonics first, then
+// sin) through wslice, so that a chunk's values follow from one state.
+// cos/sin(kx) by angle addition from c1 = cos(x), s1 = sin(x), each product
+// and sum rounded as kanvit's ch*c1 - sh*s1, sh*c1 + ch*s1 reads (no FMA
+// contraction): the forward (TcFwdRow<FourierBf16>, below) and dx (fold)
+// seed once, at harmonic 1, and carry (c1, s1, ch, sh) from chunk to chunk,
+// as kanvit's forward and dx carry it through every harmonic; dW (values)
+// seeds each chunk afresh at its first harmonic by cos and sin of the f32
+// product k x, as kanvit's dW seeds each slab's first harmonic. The seeds
+// are IEEE sincosf, the same bits as cosf and sinf (the plain twin's
+// torch.cos and torch.sin on the card): none of 2^31 floats differed on the
+// H100 (kanvit_torch/probe_bf16.py --sincos; PERF.md), so the kernels'
+// basis is the twin's bit for bit.
+struct FourierBf16 : FamilyDefaults {
+  static constexpr int HC = 2;
+  static constexpr int SC = 2 * HC;
+  static constexpr bool DX_FOLD = true, DX_CARRY = true;
+  struct Params { int grid_size; };
+  template <int NF> using Stage = Empty;
+  struct Carry { float c1, s1, ch, sh; };  // cos/sin(x), cos/sin(kx) of the next k
+
+  __host__ __device__ static int slices(Params p) { return 2 * p.grid_size; }
+  __host__ __device__ static int chunks(Params p) { return (p.grid_size + HC - 1) / HC; }
+  // slice l of the chunk walk: harmonic l / 2 + 1, its cos (l even) or sin
+  __host__ __device__ static int wslice(int slices, int l) {
+    return (l & 1) * (slices / 2) + (l >> 1);
+  }
+  template <int NF>
+  __device__ static void stage(Params, int, int, int, Stage<NF>&) {}
+
+  __device__ __forceinline__ static void rotate(Carry& r) {
+    const float ch = __fsub_rn(__fmul_rn(r.ch, r.c1), __fmul_rn(r.sh, r.s1));
+    r.sh = __fadd_rn(__fmul_rn(r.sh, r.c1), __fmul_rn(r.ch, r.s1));
+    r.ch = ch;
+  }
+  __device__ __forceinline__ static Carry seed(float x) {
+    float c1, s1;
+    sincosf(x, &s1, &c1);
+    return {c1, s1, c1, s1};
+  }
+  // A chunk's values from the state at its first harmonic; the state moved
+  // past the chunk.
+  __device__ __forceinline__ static void walk(Carry& r, float (&v)[SC]) {
+#pragma unroll
+    for (int h = 0; h < HC; ++h) {
+      v[2 * h] = r.ch;
+      v[2 * h + 1] = r.sh;
+      rotate(r);
+    }
+  }
+
+  // dW's values of chunk c, seeded at its first harmonic.
+  template <int NF>
+  __device__ __forceinline__ static void values(Params, const Stage<NF>&, const Elem& e,
+                                                int c, float (&v)[SC]) {
+    Carry r;
+    sincosf(e.x, &r.s1, &r.c1);
+    sincosf(__fmul_rn((float)(HC * c + 1), e.x), &r.sh, &r.ch);
+    walk(r, v);
+  }
+
+  // dx's fold of chunk c (gw: the chunk's gW in walk order): o0 += k (gW_sin,k
+  // c_k - gW_cos,k s_k) for its harmonics in turn, as kanvit's acc += m *
+  // (gw_sin * ch - gw_cos * sh) reads.
+  __device__ __forceinline__ static void fold(Params p, const Elem& e, int c,
+                                              const float (&gw)[SC], float& o0, Carry& r) {
+    if (c == 0) r = seed(e.x);
+#pragma unroll
+    for (int h = 0; h < HC; ++h) {
+      const int k = HC * c + h + 1;
+      if (k <= p.grid_size)
+        o0 = __fadd_rn(o0, __fmul_rn((float)k, __fsub_rn(__fmul_rn(gw[2 * h + 1], r.ch),
+                                                         __fmul_rn(gw[2 * h], r.sh))));
+      rotate(r);
+    }
+  }
+};
+
+// The bf16 Fourier forward's lanes carry the recurrence's state of their
+// row's two values a stage (features 2t, 2t + 1 of its 8: value kf & 1)
+// through the stage's chunks, seeded at chunk 0.
+template <>
+struct TcFwdRow<FourierBf16> {
+  static constexpr int SPLIT = FourierBf16::SC, EXACT = -1;
+  struct Row { FourierBf16::Carry f[2]; };
+  __device__ __forceinline__ static Row load(const FourierBf16::Params&, int, long long) {
+    return {};
+  }
+  template <int NF>
+  __device__ __forceinline__ static void values(const FourierBf16::Params&,
+                                                const FourierBf16::Stage<NF>&, const Elem& e,
+                                                Row& r, int c, float (&v)[FourierBf16::SC]) {
+    FourierBf16::Carry& s = r.f[e.kf & 1];
+    if (c == 0) s = FourierBf16::seed(e.x);
+    FourierBf16::walk(s, v);
   }
 };
 
@@ -529,4 +648,47 @@ extern "C" int kanvit_fourierkan_bwd(const float* x, long long ldx,
   if (dw == nullptr) return 0;
   return launch_tc_dw<FourierTc>(x, ldx, {grid_size}, nullptr, gy, dw, gysplit,
                                  nullptr, n, nin, nout, st);
+}
+
+// The bf16 Fourier embedder's forward (fourierkan's, kanvit's bf16 serving
+// policy, _fwd_kernel_kbf on bf16 operands, on part 3's Bf16 operand type):
+// x, w and y bf16, w (groups, 2G, nin, nout) packed cos harmonics first;
+// cos/sin(kx) of the upcast x by the recurrence in f32 in registers, seeded
+// once and carried through the stage's chunks of 2 harmonics (walked inside
+// each 8 features: ceil(nin / 8) ceil(G / 2) stages), rounded to bf16 at the
+// dot, f32 accumulation in one running sum, y rounded to bf16 once; the bias
+// is added outside. The shape above FOURIER_BF16_*; wsplit of wwords words
+// (launch_tc_grouped_fwd, chunks included).
+extern "C" int kanvit_fourierkan_tc_fwd_bf16(const void* x, long long ldx, int grid_size,
+                                             const void* w, void* y, unsigned int* wsplit,
+                                             long long wwords, int n, int groups, int nin,
+                                             int nout, void* stream) {
+  using bf = __nv_bfloat16;
+  if (grid_size <= 0) return (int)cudaErrorInvalidValue;
+  return launch_tc_grouped_fwd<FourierBf16, FOURIER_BF16_WARPS, FOURIER_BF16_MINB, false, 0,
+                               Bf16>(
+      static_cast<const bf*>(x), ldx, {grid_size}, static_cast<const bf*>(w),
+      static_cast<bf*>(y), wsplit, wwords, n, groups, nin, nout, (cudaStream_t)stream);
+}
+
+// The bf16 Fourier embedder's backward (kanvit's bf16 training policy,
+// _dx_kernel_kbf and _dw_kernel_kbf on bf16 operands, part 4): x, w, gy, dx
+// and dw bf16. dx on kan_bf16_dx<FourierBf16>: gW = gy W^T in f32, never
+// rounded, the Fourier fold in its epilogue (k (gW_sin c_k - gW_cos s_k)
+// added harmonic by harmonic in f32, the recurrence seeded once and carried
+// through the chunks), rounded once. dW on kan_bf16_dw<FourierBf16, NJ>, a
+// block a chunk of 2 harmonics seeded at its first, the basis rounded to
+// bf16 at the dot, the rows in at most `splits` splits into dw_part (splits
+// groups 2G nin nout floats), summed in f32 and rounded once. dx or dw null
+// to skip it.
+extern "C" int kanvit_fourierkan_tc_bwd_bf16(const void* x, long long ldx, int grid_size,
+                                             const void* w, const void* gy, void* dx, void* dw,
+                                             float* dw_part, int n, int groups, int nin,
+                                             int nout, int splits, void* stream) {
+  using bf = __nv_bfloat16;
+  if (grid_size <= 0) return (int)cudaErrorInvalidValue;
+  return launch_bf16_grouped_bwd<FourierBf16>(
+      static_cast<const bf*>(x), ldx, {grid_size}, static_cast<const bf*>(w),
+      static_cast<const bf*>(gy), static_cast<bf*>(dx), static_cast<bf*>(dw), dw_part, n,
+      groups, nin, nout, splits, (cudaStream_t)stream);
 }

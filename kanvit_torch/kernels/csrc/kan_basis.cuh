@@ -109,11 +109,19 @@ struct Elem {
 struct Empty {};
 
 // What a family does not override: one FMA chain per output, dx from the
-// family's `derivs`, no per-slice sums.
+// family's `derivs`, no per-slice sums, no state carried from one chunk's
+// fold to the next (DX_CARRY: kan_basis_tc.cuh part 4's dx hands the fold a
+// Carry a (row, feature), chunk after chunk), and a chunk's slices stored in
+// the packed weight in chunk order (wslice: where slice l of the chunk walk,
+// chunk l / SC, is stored in a weight of `slices` slices; kan_basis_tc.cuh
+// parts 3 and 4).
 struct FamilyDefaults {
   static constexpr bool STEP_SUMS = false;
   static constexpr bool DX_FOLD = false;
   static constexpr bool DX_RED = false;
+  static constexpr bool DX_CARRY = false;
+  using Carry = Empty;
+  __host__ __device__ static int wslice(int, int l) { return l; }
 };
 
 // s[i][j] += sum over the KS staged entries of as[kk][row i] * bs[kk][out j],

@@ -19,17 +19,19 @@
 // embedders' forward is its one-group case, its 768-deep sum in two
 // levels. Its Bf16 operand type is kanvit's bf16 serving policy,
 // instantiated for B-spline and Chebyshev (the embedder and the q/k/v) and
-// for RBF and sine in kan_rbf_sine.cu; a family's slices past its tile walk
-// it in chunks inside each 8 features (the bf16 sine embedder's 28 in 7
-// chunks of 4). The f32 sine grouped forward past 4 slices stays on
-// kan_basis.cuh's CUDA-core kan_fwd_kernel.
+// the Fourier embedder in kan_basis.cu and for RBF and sine in
+// kan_rbf_sine.cu; a family's slices past its tile walk it in chunks inside
+// each 8 features (the bf16 sine embedder's 28 in 7 chunks of 4, the bf16
+// Fourier embedder's 56 in 14). The f32 sine grouped forward past 4 slices
+// stays on kan_basis.cuh's CUDA-core kan_fwd_kernel.
 //
 // Part 4 (below, "The bf16 backward"): dW and dx of a grouped KAN layer on
 // bf16 operands (kan_bf16_dw, kan_bf16_dx), kanvit's bf16 training policy,
-// templated over kan_basis.cuh's families; instantiated for B-spline and
-// Chebyshev in kan_basis.cu and for RBF and sine in kan_rbf_sine.cu, the
-// embedder's backward its one-group case, the sine embedder's 28 slices in
-// chunks of 4 (dW a block a chunk, dx the chunks in turn in each block).
+// templated over kan_basis.cuh's families; instantiated for B-spline,
+// Chebyshev and Fourier in kan_basis.cu and for RBF and sine in
+// kan_rbf_sine.cu, the embedder's backward its one-group case, the sine
+// embedder's 28 slices and the Fourier embedder's 56 in chunks of 4 (dW a
+// block a chunk, dx the chunks in turn in each block).
 //
 // Part 1:
 //
@@ -1367,7 +1369,12 @@ int launch_tc_grouped_dw(const float* x, long long ldx, typename F::Params p,
 // bounds are the products at 989 TFLOP/s bf16, 0.0673 and 0.0169 ms. What
 // issues beside the HMMA bounds them: 120 HMMA of the 2,800 instructions
 // at 192 outputs, led by the basis's FMUL, FFMA and ISETP and the F2FP
-// that packs its bf16 pairs (chip_smoke.py's SASS report).
+// that packs its bf16 pairs (chip_smoke.py's SASS report). The Fourier
+// embedder (entry kanvit_fourierkan_tc_fwd_bf16; 1,344 stages of two steps
+// at vit-s, its basis a rotation a harmonic) took 2.00 ms against its
+// 0.42 bound: each of the 12 warps reads the stage's whole W from shared
+// memory, 144 KB a stage at 128 bytes a cycle against 576 cycles of HMMA
+// (PERF.md).
 //
 // Edge semantics as kan_fwd_kernel's: the family's values (B-spline: x on a
 // knot starts the next interval, x outside every span has zero spline
@@ -1388,6 +1395,11 @@ constexpr int FS = 8;      // features a stage: one mma step a slice
 // once a lane instead of once a value). `row` is always a row of x: the
 // kernel clamps the ragged edge's rows to the last one, and zeroes their
 // values itself.
+//
+// A family whose values follow from the last chunk's (the bf16 Fourier
+// family's recurrence) keeps that state in its Row too and takes it by
+// reference: the kernel makes each lane's values stage after stage in order,
+// chunk 0 of a stage's 8 features first.
 //
 // SPLIT and EXACT shape the sum for a family with one slice of values far
 // larger than the rest (Rbf's silu(x) of the raw x, up to |x|, beside RBF
@@ -1431,14 +1443,15 @@ __device__ __forceinline__ float tf32_rest(float x) {
 // bf16, ceil(SC / 2) steps of two slices, a word group of 2 words at
 // ((s bn + c) 4 + t) 2: the bf16 pairs (slice 2s, features 2t, 2t + 1) and
 // (slice 2s + 1, the same), zero past S. A weight of `chunks` chunks of SC
-// slices (S > SC: the bf16 sine embedder's) walks them inside each 8
-// features: stage kt is features 8 (kt / chunks) .., slices SC (kt %
-// chunks) ..
-template <int SC, int EXACT, class Op = Tf32x3>
+// slices (S > SC: the bf16 sine and Fourier embedders') walks them inside
+// each 8 features: stage kt is features 8 (kt / chunks) .., slices SC (kt %
+// chunks) .. of the chunk walk, each read where F::wslice stores it.
+template <class F, int EXACT, class Op = Tf32x3>
 __global__ void __launch_bounds__(256)
 kan_tc_fwd_split(const typename Op::In* __restrict__ w, uint32_t* __restrict__ out,
                  int slices, int chunks, int nin, int nout, int bn, int otiles, int nk,
                  long long units) {
+  constexpr int SC = F::SC;
   constexpr int STEPS = (SC + Op::SPS - 1) / Op::SPS + (EXACT >= 0);
   for (long long u = blockIdx.x * 256LL + threadIdx.x; u < units;
        u += (long long)gridDim.x * 256) {
@@ -1460,8 +1473,9 @@ kan_tc_fwd_split(const typename Op::In* __restrict__ w, uint32_t* __restrict__ o
         const int sl = s0 + 2 * step + h;
         uint32_t lo = 0u, hi = 0u;
         if (2 * step + h < SC && sl < slices && o < nout) {
-          const unsigned short* wr = reinterpret_cast<const unsigned short*>(w) +
-                                     ((g * slices + sl) * nin + f) * (long long)nout + o;
+          const unsigned short* wr =
+              reinterpret_cast<const unsigned short*>(w) +
+              ((g * slices + F::wslice(slices, sl)) * nin + f) * (long long)nout + o;
           if (f < nin) lo = wr[0];
           if (f + 1 < nin) hi = wr[nout];
         }
@@ -1471,7 +1485,8 @@ kan_tc_fwd_split(const typename Op::In* __restrict__ w, uint32_t* __restrict__ o
     } else {
       float b[2] = {0.f, 0.f};
       if (s0 + s < slices && o < nout) {
-        const float* wr = w + ((g * slices + s0 + s) * nin + f) * (long long)nout + o;
+        const float* wr =
+            w + ((g * slices + F::wslice(slices, s0 + s)) * nin + f) * (long long)nout + o;
         if (f < nin) b[0] = wr[0];
         if (f + 1 < nin) b[1] = wr[nout];
       }
@@ -1682,7 +1697,7 @@ int launch_tc_fwd_grouped(const typename Op::In* x, long long ldx, typename F::P
       (splits != 1 && (FLUSH == 0 || part == nullptr || splits != cdiv(nk, FLUSH))))
     return (int)cudaErrorInvalidValue;
   const long long want = (units + 255) / 256;
-  kan_tc_fwd_split<F::SC, EXACT, Op>
+  kan_tc_fwd_split<F, EXACT, Op>
       <<<(unsigned)(want < 132 * 16 ? want : 132 * 16), 256, 0, st>>>(
           w, wsplit, F::slices(p), F::chunks(p), nin, nout, BN, otiles, nk, units);
   int err = (int)cudaGetLastError();
@@ -1748,7 +1763,9 @@ int launch_tc_grouped_fwd(const typename Op::In* x, long long ldx, typename F::P
 // (:2995), with the LayerNorm passes of kan_rbf_sine.cu; and the sine
 // backwards, _sine_op_sg's (:1557, _bwd_kernel_sine_sg :1447) and the
 // embedder's (_fused_bwd_sine_plain :1728, _fused_bwd_kb :2523 with
-// _dw_kernel_kb_sine :2104), dfreq from the dx kernel's fold. Their body,
+// _dw_kernel_kb_sine :2104), dfreq from the dx kernel's fold; and the
+// Fourier embedder's (_fused_bwd_kb :2492 dx with _dx_kernel_kbf, :2564 dW
+// with _dw_kernel_kbf; _fused_bwd :1159 below that tier). Their body,
 // _bwd_kernel (:566-625; _rbf_ln_bwd_kernel :2861 and its _sg form :3079
 // for FastKAN), keeps this policy on bf16 inputs, which the kernels below
 // follow:
@@ -1929,7 +1946,7 @@ kan_bf16_dw(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
           const int f = f0 + g8 + 8 * (e >> 1);
           const int o = o0 + 8 * (warp * NJ + j) + 2 * t + (e & 1);
           if (s0 + i < S && f < nin && o < nout) {
-            float* d = dst + ((long long)(s0 + i) * nin + f) * nout + o;
+            float* d = dst + ((long long)F::wslice(S, s0 + i) * nin + f) * nout + o;
             *d = first ? acc[i][j][e] : *d + acc[i][j][e];
           }
           acc[i][j][e] = 0.f;
@@ -2013,9 +2030,11 @@ int sum_splits(const float* part, __nv_bfloat16* out, long long total, int split
 // tiles, groups). w (groups, S, nin, nout) bf16 contiguous; dx (n, groups
 // nin) bf16 contiguous (null: not written); vec: 16-byte copies of gy and
 // w. A family of more than one chunk of SC slices (the bf16 sine
-// embedder's 28) runs the chunks in turn, each over every output stage
-// into SC fresh sums, its fold adding into the same per-(row, feature)
-// outputs in slice order. A DX_FOLD family (Rbf) keeps part 2's two
+// embedder's 28, the bf16 Fourier embedder's 56) runs the chunks in turn,
+// each over every output stage into SC fresh sums, its fold adding into the
+// same per-(row, feature) outputs in slice order; a DX_CARRY family's fold
+// (Fourier: dx and its recurrence's state) takes a Carry of each (row,
+// feature) from chunk to chunk. A DX_FOLD family (Rbf) keeps part 2's two
 // outputs of its fold: with `split`, o0 (dln) to out0 and o1 (the silu
 // term) to out1, each f32 (n, groups nin) and either null to skip it, for
 // the LayerNorm's passes; without, dx = bf16(o0 + o1). A DX_RED family
@@ -2067,7 +2086,7 @@ kan_bf16_dx(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
           const bool in = s < S && f < nin && col < nout;
           cp_async16(reinterpret_cast<float*>(b + (r - BM) * P + cc),
                      reinterpret_cast<const float*>(
-                         in ? wg + ((long long)s * nin + f) * nout + col : wg),
+                         in ? wg + ((long long)F::wslice(S, s) * nin + f) * nout + col : wg),
                      in);
         }
       }
@@ -2080,7 +2099,7 @@ kan_bf16_dx(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
         } else {
           const int s = c * SC + (r - BM) / FT, f = f0 + (r - BM) % FT;
           b[(r - BM) * P + cc] = s < S && f < nin && col < nout
-                                     ? wg[((long long)s * nin + f) * nout + col]
+                                     ? wg[((long long)F::wslice(S, s) * nin + f) * nout + col]
                                      : __float2bfloat16_rn(0.f);
         }
       }
@@ -2089,8 +2108,10 @@ kan_bf16_dx(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
   };
 
   // this thread's outputs of its rows (g, g + 8 of its two m16 tiles) and
-  // features (2t, 2t + 1 of its half), summed over the chunks
+  // features (2t, 2t + 1 of its half), summed over the chunks, and a
+  // DX_CARRY family's state of each from chunk to chunk
   float o0s[2][4], o1s[2][4];
+  typename F::Carry carry[2][4];
 #pragma unroll
   for (int i = 0; i < 2; ++i)
 #pragma unroll
@@ -2152,7 +2173,10 @@ kan_bf16_dx(const __nv_bfloat16* __restrict__ x, long long ldx, typename F::Para
           float gw[SC];
 #pragma unroll
           for (int j = 0; j < SC; ++j) gw[j] = acc[i][j][e];
-          F::template fold<FT>(p, st, el, c, gw, o0s[i][e], o1s[i][e], red[e & 1]);
+          if constexpr (F::DX_CARRY)
+            F::fold(p, el, c, gw, o0s[i][e], carry[i][e]);
+          else
+            F::template fold<FT>(p, st, el, c, gw, o0s[i][e], o1s[i][e], red[e & 1]);
         } else {
           float d[SC];
           F::template derivs<FT>(p, st, el, c, d);
@@ -2276,8 +2300,8 @@ int launch_bf16_grouped_bwd(const __nv_bfloat16* x, long long ldx, typename F::P
                             const __nv_bfloat16* w, const __nv_bfloat16* gy,
                             __nv_bfloat16* dx, __nv_bfloat16* dw, float* part, int n,
                             int groups, int nin, int nout, int splits, cudaStream_t st) {
-  if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 || F::slices(p) > F::SC ||
-      splits < 1 || (dw != nullptr && part == nullptr))
+  if (bad_shape(n, groups, nin, nout) || F::slices(p) <= 0 ||
+      F::slices(p) > F::SC * F::chunks(p) || splits < 1 || (dw != nullptr && part == nullptr))
     return (int)cudaErrorInvalidValue;
   if (dx != nullptr) {
     const int err = launch_bf16_dx<F>(x, ldx, p, w, gy, dx, nullptr, nullptr, 0, n, groups,

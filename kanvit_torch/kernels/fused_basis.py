@@ -49,32 +49,28 @@ The kernels are built for f32; the B-spline one for spline order 3 and a
 12-knot grid (grid size 5, the efficient-kan default), the Chebyshev one for
 degree 4, the RBF one for 8 centres; they raise on anything else.
 
-bf16 (kanvit's bf16 serving and training): :func:`bspline_kan`,
-:func:`bspline_qkv_grouped`, :func:`chebykan`, :func:`cheby_qkv_grouped`,
-:func:`fastkan`, :func:`fastkan_qkv_grouped`, :func:`sinekan` and
-:func:`sinekan_qkv_grouped` (``BF16_FAMILY``) take bf16 x and weights (the
-knot grid, the RBF centres and the sine phase table stay f32; FastKAN's
-LayerNorm gamma and beta and sine's freq bf16, upcast in the kernels) and
-return bf16, through part 3's ``Bf16`` operand type forward and part 4's
-kernels backward (``csrc/kan_basis_tc.cuh``): the basis (B-spline,
-T_0..T_4 of tanh x, the RBF bases of the f32 LayerNorm and silu of the raw
-x, or sin(x freq + phase) with its argument formed in f32) made in f32 from
-the upcast x and rounded to bf16 at the dot, ``spline_weight *
-spline_scaler`` formed in bf16 as kanvit forms it, f32 accumulation, y, dx,
-dW (and dgamma, dbeta, dfreq) each rounded once (kanvit's ``_fwd_kernel`` /
-``_bwd_kernel``, ``_rbf_ln_fwd_kernel`` / ``_rbf_ln_bwd_kernel`` and the
-sine kernels on bf16 operands). The sine embedder's 28 slices walk the
-kernels' 4-slice tile in chunks. Their launches count under ``<name>_bf16``
-and ``<name>_bwd_bf16``. On the CPU the bf16 route is the kernels' plain
-twins (``K.bspline_grouped_forward_bf16`` and
-``K.bspline_grouped_backward_bf16``, ``K.cheby_grouped_forward_bf16`` and
-``K.cheby_grouped_backward_bf16``, ``K.fastkan_grouped_forward_bf16`` and
-``K.fastkan_grouped_backward_bf16``, ``K.sine_grouped_forward_bf16`` and
-``K.sine_grouped_backward_bf16``) through :class:`_KanBf16Plain`,
+bf16 (kanvit's bf16 serving and training): every entry point above
+(``BF16_FAMILY``) takes bf16 x and weights (the knot grid, the RBF centres
+and the sine phase table stay f32; FastKAN's LayerNorm gamma and beta and
+sine's freq bf16, upcast in the kernels) and returns bf16, through part 3's
+``Bf16`` operand type forward and part 4's kernels backward
+(``csrc/kan_basis_tc.cuh``): the basis (B-spline, T_0..T_4 of tanh x, the
+RBF bases of the f32 LayerNorm and silu of the raw x, sin(x freq + phase)
+with its argument formed in f32, or cos/sin(kx) by the angle-addition
+recurrence from cos/sin(x)) made in f32 from the upcast x and rounded to
+bf16 at the dot, ``spline_weight * spline_scaler`` formed in bf16 as kanvit
+forms it, f32 accumulation, y, dx, dW (and dgamma, dbeta, dfreq) each
+rounded once (kanvit's ``_fwd_kernel`` / ``_bwd_kernel``,
+``_rbf_ln_fwd_kernel`` / ``_rbf_ln_bwd_kernel``, the sine kernels and the
+Fourier K-blocked kernels on bf16 operands). The sine embedder's 28 slices
+and the Fourier embedder's 56 walk the kernels' 4-slice tile in chunks.
+Their launches count under ``<name>_bf16`` and ``<name>_bwd_bf16``. On the
+CPU the bf16 route is the kernels' plain twins (``K.<family>_grouped_forward_bf16``
+and ``K.<family>_grouped_backward_bf16`` of ``bspline``, ``cheby``,
+``fourier``, ``fastkan`` and ``sine``) through :class:`_KanBf16Plain`,
 :class:`_RbfBf16Plain` and :class:`_SineBf16Plain`, whose backward is
 explicit: autograd through the forward twin would round at every op, which
-is not kanvit's policy. Every other entry point raises on bf16 (ROADMAP.md,
-Queue 2 entry 3b.2).
+is not kanvit's policy.
 
 The Functions take the packed weight ``(G, S, nin, out)`` and return its
 gradient, and the RBF one the LayerNorm's dgamma and dbeta, the sine one
@@ -101,7 +97,7 @@ N_SPLINE = KNOTS - SPLINE_ORDER - 1  # 8 spline bases
 N_SLICES = N_SPLINE + 1              # + the silu slice
 CHEBY_DEGREE = 4
 RBF_GRIDS = 8                        # RBF centres, as the kernel is built
-SINE_CHUNK = 4                       # sine slices per chunk, as in the kernel
+SINE_CHUNK = 4                       # sine (and bf16 Fourier) slices a chunk, as in the kernels
 MAX_ROW_TILES = 65535                # the kernel's grid.y limit, 64 rows each
 ROWS_PER_TILE = 64
 
@@ -109,15 +105,18 @@ ROWS_PER_TILE = 64
 # kanvit_bspline_tc_fwd_bf16 and kanvit_bspline_tc_bwd_bf16,
 # kanvit_cheby_tc_fwd_bf16 and kanvit_cheby_tc_bwd_bf16,
 # kanvit_fastkan_tc_fwd_bf16 and kanvit_fastkan_tc_bwd_bf16,
-# kanvit_sinekan_tc_fwd_bf16 and kanvit_sinekan_tc_bwd_bf16; the RBF and sine
-# ones through _launch_rbf / _launch_rbf_bwd and _launch_sine /
+# kanvit_sinekan_tc_fwd_bf16 and kanvit_sinekan_tc_bwd_bf16,
+# kanvit_fourierkan_tc_fwd_bf16 and kanvit_fourierkan_tc_bwd_bf16; the RBF and
+# sine ones through _launch_rbf / _launch_rbf_bwd and _launch_sine /
 # _launch_sine_bwd, by x's dtype).
 BF16_FAMILY = {"bspline_kan": "bspline", "bspline_qkv_grouped": "bspline",
                "chebykan": "cheby", "cheby_qkv_grouped": "cheby",
+               "fourierkan": "fourier",
                "fastkan": "rbf", "fastkan_qkv_grouped": "rbf",
                "sinekan": "sine", "sinekan_qkv_grouped": "sine"}
 BF16_FWD = tuple(BF16_FAMILY)
-BF16_TODO = "ROADMAP.md, Queue 2 entry 3b.2"
+# The families _launch_bf16 and _launch_bwd_bf16 take.
+KAN_BF16 = ("bspline", "cheby", "fourier")
 LAUNCHES = {name: 0 for base in ("bspline_kan", "bspline_qkv_grouped",
                                  "chebykan", "cheby_qkv_grouped", "fourierkan",
                                  "fastkan", "fastkan_qkv_grouped", "sinekan",
@@ -155,7 +154,7 @@ TC_GROUPED_BWD = ("bspline_qkv_grouped_bwd", "cheby_qkv_grouped_bwd",
                   "bspline_kan_bwd", "chebykan_bwd")
 TCG_FEATURES, TCG_DX_ROWS, TCG_DX_STAGE = 16, 128, 16
 TCG_SLICES = {"bspline": N_SLICES, "cheby": CHEBY_DEGREE + 1, "rbf": RBF_GRIDS + 1,
-              "sine": SINE_CHUNK}
+              "sine": SINE_CHUNK, "fourier": SINE_CHUNK}
 # The grouped forward on the tensor cores (part 3), and the B-spline and
 # FastKAN embedders' as its one-group case: its features a stage (one mma
 # step a slice), its outputs a block (``tc_fwd_outs``), and the steps of a
@@ -264,9 +263,11 @@ def pack_sine_qkv_weight(amps):
     return amps.permute(0, 3, 2, 1)
 
 
-def _chunks(family: str, aux) -> int:
-    """Slice chunks the CUDA-core dW kernel walks (sine: 4 slices a chunk)."""
-    return -(-aux // SINE_CHUNK) if family == "sine" else 1
+def _chunks(family: str, slices: int) -> int:
+    """Chunks of 4 slices a kernel walks: sine's (the CUDA-core dW and the
+    bf16 kernels) and the bf16 Fourier kernels' (2 harmonics a chunk) of
+    ``slices`` slices; one for the other families."""
+    return -(-slices // SINE_CHUNK) if family in ("sine", "fourier") else 1
 
 
 def _check_spline_order(spline_order: int) -> None:
@@ -282,8 +283,7 @@ def _check_common(x2d: torch.Tensor, w: torch.Tensor, slices: int,
     for name, t in (("x", x2d), ("weight", w)):
         if t.dtype != want:
             raise TypeError(f"{name} must be {str(want)[6:]}, got {t.dtype} (bf16: "
-                            f"{BF16_FWD} only, x and weight both bf16; the "
-                            f"rest is {BF16_TODO})")
+                            "x and weight both bf16)")
     if x2d.dim() != 2 or w.dim() != 4:
         raise ValueError(f"expected x (N, G*nin) and w (G, {slices}, nin, out), "
                          f"got {tuple(x2d.shape)} and {tuple(w.shape)}")
@@ -339,14 +339,16 @@ def check_cheby_args(x2d: torch.Tensor, w: torch.Tensor, degree: int,
 
 
 def _check_bf16(name: str, x2d, w, aux) -> str:
-    """The family of the bf16 kernels of ``name`` (``BF16_FAMILY``; B-spline
-    or Chebyshev) after checking their operands (``aux``: the knot grid or
-    the degree)."""
+    """The family of the bf16 kernels of ``name`` (``BF16_FAMILY``;
+    B-spline, Chebyshev or Fourier) after checking their operands (``aux``:
+    the knot grid, the degree or the grid size)."""
     family = BF16_FAMILY[name]
     if family == "bspline":
         check_args(x2d, aux, w, SPLINE_ORDER, bf16=True)
-    else:
+    elif family == "cheby":
         check_cheby_args(x2d, w, aux, bf16=True)
+    else:
+        check_fourier_args(x2d, w, aux, bf16=True)
     _check_device(name, *_tensors(family, x2d, w, aux))
     return family
 
@@ -365,14 +367,24 @@ def _check_tc(x2d: torch.Tensor, w: torch.Tensor, harmonics: int) -> None:
                          "kernel's launch grid")
 
 
-def check_fourier_args(x2d: torch.Tensor, w: torch.Tensor, grid_size: int) -> None:
+def check_fourier_args(x2d: torch.Tensor, w: torch.Tensor, grid_size: int,
+                       bf16: bool = False) -> None:
     """Raise on anything the Fourier kernels do not take (device aside):
     ``w (1, 2*grid_size, nin, out)`` contiguous, f32, within the
-    tensor-core kernels' launch grids."""
+    tensor-core kernels' launch grids; or (``bf16``, the bf16 kernels) x and
+    w both bf16, one group, and a dW launch grid of (features / 16) x
+    (harmonics / 2) blocks within 65535."""
     if grid_size < 1:
         raise ValueError(f"grid size must be >= 1, got {grid_size}")
-    _check_common(x2d, w, 2 * grid_size)
-    _check_tc(x2d, w, grid_size)
+    _check_common(x2d, w, 2 * grid_size, bf16)
+    if x2d.dtype != torch.bfloat16:
+        _check_tc(x2d, w, grid_size)
+        return
+    if w.shape[0] != 1:
+        raise ValueError(f"the Fourier kernels take one group, got {w.shape[0]}")
+    if -(-w.shape[2] // TCG_FEATURES) * _chunks("fourier", 2 * grid_size) > 65535:
+        raise ValueError(f"{w.shape[2]} features x grid size {grid_size} exceed the dW "
+                         "kernel's launch grid")
 
 
 def _check_f32(name: str, t: torch.Tensor, shape: tuple) -> None:
@@ -483,7 +495,7 @@ def _dw_scratch(n, w, family, aux, dev):
     groups, _, nin, out = w.shape
     splits = dw_splits(n, groups, nin, out,
                        torch.cuda.get_device_properties(dev).multi_processor_count,
-                       _chunks(family, aux))
+                       _chunks(family, w.shape[1]))
     return splits, (_empty(splits, *w.shape, device=dev) if splits > 1 else None)
 
 
@@ -515,10 +527,12 @@ def _counted(name: str, err: int, *outputs):
 
 def _launch_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor, aux) -> torch.Tensor:
     """``y (N, G*out)`` bf16 from the bf16 forward of ``name`` (``BF16_FWD``;
-    B-spline or Chebyshev): x and the packed weight bf16; ``aux`` the knot
-    grid (f32) or the degree."""
-    if name not in BF16_FWD:
-        raise TypeError(f"{name}: no bf16 kernel ({BF16_TODO})")
+    B-spline, Chebyshev or Fourier): x and the packed weight bf16; ``aux``
+    the knot grid (f32), the degree or the grid size (Fourier's packed
+    weight cos harmonics first, its chunks of 2 harmonics read from it)."""
+    if BF16_FAMILY.get(name) not in KAN_BF16:
+        raise TypeError(f"{name}: no bf16 kernel on this launcher (FastKAN and SineKAN: "
+                        "_launch_rbf, _launch_sine)")
     family = _check_bf16(name, x2d, w, aux)
     n = x2d.shape[0]
     groups, _, nin, out = w.shape
@@ -536,20 +550,24 @@ def _launch_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor, aux) -> torch.Te
             gridt, gstride = _knot_rows(aux)
             err = lib.kanvit_bspline_tc_fwd_bf16(x2d.data_ptr(), x2d.stride(0),
                                                  gridt.data_ptr(), gstride, *tail)
-        else:
+        elif family == "cheby":
             err = lib.kanvit_cheby_tc_fwd_bf16(x2d.data_ptr(), x2d.stride(0), *tail)
+        else:
+            err = lib.kanvit_fourierkan_tc_fwd_bf16(x2d.data_ptr(), x2d.stride(0), aux,
+                                                    *tail)
     return _counted(f"{name}_bf16", err, y)[0]
 
 
 def _launch_bwd_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor, aux,
                      gy: torch.Tensor, need_dx: bool, need_dw: bool):
     """``(dx (N, G*nin) or None, dw (G, S, nin, out) or None)``, bf16, from
-    the bf16 backward of ``name`` (``BF16_FWD``; B-spline or Chebyshev): x,
-    the packed weight and ``gy (N, G*out)`` bf16, ``aux`` the knot grid
-    (f32) or the degree; dW's row splits summed in f32 in a scratch and
-    rounded once."""
-    if name not in BF16_FWD:
-        raise NotImplementedError(f"{name}: no bf16 backward kernel ({BF16_TODO})")
+    the bf16 backward of ``name`` (``BF16_FWD``; B-spline, Chebyshev or
+    Fourier): x, the packed weight and ``gy (N, G*out)`` bf16, ``aux`` the
+    knot grid (f32), the degree or the grid size; dW's row splits summed in
+    f32 in a scratch and rounded once."""
+    if BF16_FAMILY.get(name) not in KAN_BF16:
+        raise NotImplementedError(f"{name}: no bf16 backward kernel on this launcher "
+                                  "(FastKAN and SineKAN: _launch_rbf_bwd, _launch_sine_bwd)")
     family = _check_bf16(name, x2d, w, aux)
     _check_device(name, x2d, gy)
     n = x2d.shape[0]
@@ -569,7 +587,8 @@ def _launch_bwd_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor, aux,
     splits, part = 1, None
     if need_dw:
         splits = tc_grouped_dw_splits(
-            n, groups, nin, out, torch.cuda.get_device_properties(dev).multi_processor_count)
+            n, groups, nin, out, torch.cuda.get_device_properties(dev).multi_processor_count,
+            _chunks(family, w.shape[1]))
         part = _empty(splits, *w.shape, device=dev)
     lib = _build.load()
     tail = (w.data_ptr(), gy.data_ptr(), _ptr(dx), _ptr(dw), _ptr(part), n, groups, nin, out,
@@ -579,8 +598,11 @@ def _launch_bwd_bf16(name: str, x2d: torch.Tensor, w: torch.Tensor, aux,
             gridt, gstride = _knot_rows(aux)
             err = lib.kanvit_bspline_tc_bwd_bf16(x2d.data_ptr(), x2d.stride(0),
                                                  gridt.data_ptr(), gstride, *tail)
-        else:
+        elif family == "cheby":
             err = lib.kanvit_cheby_tc_bwd_bf16(x2d.data_ptr(), x2d.stride(0), *tail)
+        else:
+            err = lib.kanvit_fourierkan_tc_bwd_bf16(x2d.data_ptr(), x2d.stride(0), aux,
+                                                    *tail)
     return _counted(f"{name}_bwd_bf16", err, dx, dw)
 
 
@@ -831,10 +853,11 @@ class _KanFn(torch.autograd.Function):
 
 
 class _KanBf16Plain(torch.autograd.Function):
-    """The CPU route of a bf16 B-spline or Chebyshev layer (``family``): the
-    plain twins of the bf16 kernels on the packed weight, forward and an
-    explicit backward (dx only where asked, as on the card); ``aux`` the
-    knot grid or the degree."""
+    """The CPU route of a bf16 B-spline, Chebyshev or Fourier layer
+    (``family``): the plain twins of the bf16 kernels on the packed weight,
+    forward and an explicit backward (dx only where asked, as on the card);
+    ``aux`` the knot grid, the degree or the grid size. The Fourier route
+    refuses what its bf16 kernels refuse."""
 
     @staticmethod
     def forward(ctx, x2d, w, aux, family="bspline"):
@@ -843,6 +866,9 @@ class _KanBf16Plain(torch.autograd.Function):
             ctx.save_for_backward(x2d, w, aux)
             return K.bspline_grouped_forward_bf16(x2d, aux, w)
         ctx.save_for_backward(x2d, w)
+        if family == "fourier":
+            check_fourier_args(x2d, w, aux, bf16=True)
+            return K.fourier_grouped_forward_bf16(x2d, w)
         return K.cheby_grouped_forward_bf16(x2d, w)
 
     @staticmethod
@@ -851,6 +877,9 @@ class _KanBf16Plain(torch.autograd.Function):
         if ctx.family == "bspline":
             x2d, w, grid = ctx.saved_tensors
             dx, dw = K.bspline_grouped_backward_bf16(x2d, grid, w, gy, *need)
+        elif ctx.family == "fourier":
+            x2d, w = ctx.saved_tensors
+            dx, dw = K.fourier_grouped_backward_bf16(x2d, w, gy, *need)
         else:
             x2d, w = ctx.saved_tensors
             dx, dw = K.cheby_grouped_backward_bf16(x2d, w, gy, *need)
@@ -952,14 +981,18 @@ def fourierkan(x, coeffs, bias):
 
     Same signature as ``kanvit_torch.ops.kan_bases.fourierkan_forward``;
     ``coeffs (2, out, in, grid)``, ``bias`` ``(out,)``, ``(1, out)`` or
-    None. The bias is added outside the kernel, as kanvit adds it.
+    None. The bias is added outside the kernel, as kanvit adds it. A bf16 x
+    (bf16 coefficients and bias) takes the bf16 kernels (on the CPU their
+    plain twins), the bias added in bf16.
     """
-    if not dispatch.use_kernel(x):
+    kernel = dispatch.use_kernel(x)
+    if not kernel and x.dtype != torch.bfloat16:
         return K.fourierkan_forward(x, coeffs, bias)
     lead, nin = x.shape[:-1], x.shape[-1]
     _, nout, _, grid_size = coeffs.shape
     w = pack_fourier_weight(coeffs).contiguous()
-    y = _KanFn.apply(x.reshape(-1, nin), w, grid_size, "fourierkan", "fourier")
+    y = (_KanFn.apply(x.reshape(-1, nin), w, grid_size, "fourierkan", "fourier") if kernel
+         else _KanBf16Plain.apply(x.reshape(-1, nin), w, grid_size, "fourier"))
     if bias is not None:
         y = y + bias.reshape(nout)
     return y.reshape(*lead, nout)

@@ -348,15 +348,136 @@ def fourierkan_forward(x: torch.Tensor, coeffs: torch.Tensor,
     ``coeffs (2, out, in, grid)``: ``coeffs[0]`` weights the cos terms,
     ``coeffs[1]`` the sin terms; ``bias`` ``(out,)`` or the reference's
     ``(1, out)``, or None. Shape-preserving over leading dims.
+
+    A bf16 ``x`` follows the bf16 kernel's policy (kanvit's kernel route,
+    not its jnp route, which makes the basis in bf16):
+    :func:`fourier_grouped_forward_bf16`, the bias added after in bf16.
     """
     lead, nin = x.shape[:-1], x.shape[-1]
     _, nout, _, grid_size = coeffs.shape
+    if x.dtype == torch.bfloat16:
+        w = coeffs.to(torch.bfloat16).permute(0, 3, 2, 1).reshape(1, 2 * grid_size, nin, nout)
+        y = fourier_grouped_forward_bf16(x.reshape(-1, nin), w)
+        if bias is not None:
+            y = y + bias.to(torch.bfloat16).reshape(nout)
+        return y.reshape(*lead, nout)
     basis = fourier_bases(x.reshape(-1, nin), grid_size)  # (N, in, 2G)
     w = torch.cat([coeffs[0], coeffs[1]], dim=-1)         # (out, in, 2G)
     y = basis.reshape(basis.shape[0], -1) @ w.reshape(nout, -1).T
     if bias is not None:
         y = y + bias.reshape(nout)
     return y.reshape(*lead, nout)
+
+
+# Harmonics a chunk of the bf16 Fourier kernels (cos k, sin k, cos k+1, sin
+# k+1: their 4-slice tile); the dW kernel seeds each chunk afresh.
+FOURIER_BF16_HARMONICS = 2
+
+
+def _rotate(ch, sh, c1, s1):
+    """One harmonic up by angle addition, each product and sum rounded as
+    kanvit's ``ch * c1 - sh * s1, sh * c1 + ch * s1`` reads
+    (``kanvit/kernels/fused_basis.py:1890``), no product fused into a sum."""
+    return ch * c1 - sh * s1, sh * c1 + ch * s1
+
+
+def fourier_slices_bf16(xf: torch.Tensor, grid_size: int, seed_chunks: bool = False):
+    """The Fourier layer's contracted slices of the f32 ``xf (N, in)`` as the
+    bf16 kernels make them, in f32: ``(N, 2G, in)``, cos(kx) for k = 1..G
+    then sin(kx) (the packed weight's order), by the angle-addition
+    recurrence of kanvit's K-blocked kernels (``_fwd_kernel_kbf``,
+    ``_dx_kernel_kbf``, ``_dw_kernel_kbf``) from cos(x), sin(x):
+
+    - ``seed_chunks`` False (the forward and dx): seeded once, at harmonic 1
+      (cos(x), sin(x)), and carried through every harmonic, as kanvit's
+      forward and dx carry it;
+    - ``seed_chunks`` True (dW): seeded afresh at each chunk's first
+      harmonic k = 1, 3, 5, .. by cos and sin of the f32 product k x, then
+      one step on, as kanvit's dW seeds each slab's first harmonic.
+
+    kanvit's plain tier evaluates cos and sin of k x directly instead; the
+    two differ by up to ~k (1 + |x|) 2^-23."""
+    c1, s1 = torch.cos(xf), torch.sin(xf)
+    ch, sh = c1, s1
+    cos, sin = [], []
+    for k in range(1, grid_size + 1):
+        if seed_chunks and (k - 1) % FOURIER_BF16_HARMONICS == 0:
+            ch, sh = torch.cos(xf * float(k)), torch.sin(xf * float(k))
+        cos.append(ch)
+        sin.append(sh)
+        ch, sh = _rotate(ch, sh, c1, s1)
+    return torch.stack(cos + sin, 1)
+
+
+def _fourier_slices_of(w, seed_chunks: bool = False):
+    grid_size = w.shape[1] // 2
+    return lambda g, xf: fourier_slices_bf16(xf, grid_size, seed_chunks)
+
+
+def fourier_grouped_forward_bf16(x2d: torch.Tensor, w: torch.Tensor,
+                                 exact: bool = False) -> torch.Tensor:
+    """The bf16 Fourier kernel's forward on the packed weight ``w (1, 2G,
+    nin, out)`` bf16 (cos harmonics first) and ``x2d (N, nin)`` bf16:
+    cos/sin(kx) of the upcast x by the recurrence seeded once
+    (:func:`fourier_slices_bf16`) in f32, rounded to bf16 once, the products
+    exact and summed in f32 in one running sum, y rounded to bf16 once, no
+    bias (kanvit's ``_fwd_kernel_kbf`` on bf16 operands):
+    :func:`grouped_forward_bf16`."""
+    return grouped_forward_bf16(x2d, w, _fourier_slices_of(w), exact)
+
+
+def fourier_grouped_backward_bf16(x2d, w, gy, need_dx: bool = True, need_dw: bool = True,
+                                  exact: bool = False):
+    """The bf16 Fourier kernels' backward (kanvit's ``_dx_kernel_kbf`` and
+    ``_dw_kernel_kbf`` on bf16 operands) on
+    :func:`fourier_grouped_forward_bf16`'s operands and ``gy (N, out)``
+    bf16:
+
+    - ``gW = gy W^T``, bf16 operands, the products exact and summed in f32
+      (never rounded);
+    - ``dx``: for each harmonic k = 1..G in turn, ``k (gW_sin,k c_k -
+      gW_cos,k s_k)`` added in f32, each product and sum rounded as kanvit's
+      ``acc += m * (gw_sin * ch - gw_cos * sh)`` reads (:1917-1924), with
+      c_k, s_k the recurrence seeded once; rounded to bf16 once;
+    - ``dW = bf16(B)^T gy`` summed in f32 over all the rows and rounded once,
+      B the recurrence seeded at each chunk of 2 harmonics.
+
+    Returns ``(dx (N, nin) or None, dw (1, 2G, nin, out) or None)``, bf16;
+    ``exact``: the same f32 basis values and rounded operands summed in f64,
+    unrounded."""
+    n = x2d.shape[0]
+    groups, nslices, nin, nout = w.shape
+    grid_size = nslices // 2
+    acc = torch.float64 if exact else torch.float32
+    dxs, dws = [], []
+    for g in range(groups):
+        xf = x2d[:, g * nin:(g + 1) * nin].float()
+        gyg = gy[:, g * nout:(g + 1) * nout].to(acc)
+        if need_dx:
+            gw = (gyg @ w[g].to(acc).reshape(-1, nout).T).reshape(n, nslices, nin)
+            b = fourier_slices_bf16(xf, grid_size).to(acc)
+            dx = torch.zeros(n, nin, dtype=acc, device=x2d.device)
+            for k in range(1, grid_size + 1):
+                c, s = b[:, k - 1], b[:, grid_size + k - 1]
+                dx = dx + (gw[:, grid_size + k - 1] * c - gw[:, k - 1] * s) * float(k)
+            dxs.append(dx)
+        if need_dw:
+            ab = fourier_slices_bf16(xf, grid_size, True).to(torch.bfloat16).to(acc)
+            dws.append((ab.reshape(n, -1).T @ gyg).reshape(nslices, nin, nout))
+    out = (torch.cat(dxs, 1) if need_dx else None,
+           torch.stack(dws) if need_dw else None)
+    return out if exact else tuple(None if t is None else t.to(torch.bfloat16) for t in out)
+
+
+def fourier_fwd_spread_bf16(x2d, w) -> torch.Tensor:
+    """:func:`grouped_fwd_spread_bf16` of the Fourier layer, |B| @ |W|."""
+    return grouped_fwd_spread_bf16(x2d, w, _fourier_slices_of(w))
+
+
+def fourier_dw_spread_bf16(x2d, w, gy) -> torch.Tensor:
+    """:func:`grouped_dw_spread_bf16` of the Fourier layer, |B|^T |gy|
+    (B seeded a chunk, as dW makes it)."""
+    return grouped_dw_spread_bf16(x2d, w, gy, _fourier_slices_of(w, True))
 
 
 # --- Chebyshev (ChebyKAN) -----------------------------------------------------

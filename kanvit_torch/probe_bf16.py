@@ -1,9 +1,9 @@
-"""bf16 serving and training of the vit-s efficientkan, cheby, fast and sine
-ViTs on the card: checks and times.
+"""bf16 serving and training of the vit-s efficientkan, cheby, fast, sine and
+fourier ViTs on the card: checks and times.
 
-    python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby,fast,sine}]
+    python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby,fast,sine,fourier}]
                                       [--train] [--cheby-shapes] [--fast-shapes]
-                                      [--sine-shapes]
+                                      [--sine-shapes] [--fourier-shapes] [--sincos]
 
 Builds the kernels (registers, spills and the SASS report), then runs
 ``chip_smoke.py``'s bf16 phases alone: the bf16 kernels of the model type
@@ -13,7 +13,8 @@ CUDA-event and device times beside the f32 kernels' on the same operands
 ``bspline_qkv_grouped``, ``chebykan``, ``cheby_qkv_grouped``, ``fastkan``,
 ``fastkan_qkv_grouped``, ``sinekan``, ``sinekan_qkv_grouped`` and the lanes
 attention, forward and backward; cheby: ``cheby_bf16_kernels``; fast:
-``fast_bf16_kernels``; sine: ``sine_bf16_kernels``), and the bf16
+``fast_bf16_kernels``; sine: ``sine_bf16_kernels``; fourier:
+``fourier_bf16_kernels``, whose q/k/v are Linear), and the bf16
 serving of the vit-s model through ``Predictor`` and
 ``make_eval_step(bf16=True)`` beside f32 (``phase_bf16_serve``);
 ``--train`` adds its bf16 training through ``make_train_step(bf16=True)``
@@ -22,9 +23,14 @@ gradients against the CPU's bf16 twins, the parameter casts' kernels and
 the host's split of a step with the flat buffer and with a cast a
 parameter, ms a step beside f32's, the profiles).
 
-``--cheby-shapes``, ``--fast-shapes`` and ``--sine-shapes`` also build a
-library of the bf16 Chebyshev, RBF (FastKAN) or sine forward's shapes
-(``CHEBY_BF16_SHAPES``, ``FAST_BF16_SHAPES``, ``SINE_BF16_SHAPES``: n8
+``--sincos`` counts the floats (2^31 from a seed) whose ``sincosf``
+differs from ``cosf`` and ``sinf`` in any bit: the bf16 Fourier kernels'
+seeds against their plain twin's ``torch.cos`` and ``torch.sin``.
+
+``--cheby-shapes``, ``--fast-shapes``, ``--sine-shapes`` and
+``--fourier-shapes`` also build a library of the bf16 Chebyshev, RBF
+(FastKAN), sine or Fourier forward's shapes (``CHEBY_BF16_SHAPES``,
+``FAST_BF16_SHAPES``, ``SINE_BF16_SHAPES``, ``FOURIER_BF16_SHAPES``: n8
 tiles a warp, warps a block, blocks an SM of ``kan_tc_fwd_grouped<F, NT,
 WARPS, MINB, Bf16, 0>``) and time each at the vit-s embedder and q/k/v and
 one vit-s image beside the route, each held to the route's bits (a shape
@@ -114,6 +120,81 @@ CASES
     f"p, wb, yb, ws, ww, n, groups, nin, nout, st);"
     for i, (nt, w, mb) in enumerate(SINE_BF16_SHAPES)))
 
+# The same for the bf16 Fourier forward; the route's first (past 64 outputs
+# 192 a block at 12 warps; up to 64 kan_basis.cu's FOURIER_BF16_WARPS and
+# FOURIER_BF16_MINB, 4 warps at four blocks an SM), then 64- and 96-output
+# tiles at more blocks an SM: the basis by the recurrence is cheap to make
+# again an output tile, and 192-output blocks of 12 warps hold one block an
+# SM
+FOURIER_BF16_SHAPES = ((24, 12, 1), (8, 4, 4), (8, 4, 6), (8, 8, 2), (8, 8, 3), (8, 12, 1),
+                       (12, 8, 2), (24, 8, 1))
+
+FOURIER_BF16_SOURCE = r"""
+#include "kan_basis.cu"
+
+extern "C" int probe_fourier_fwd_bf16(int v, const void* x, long long ldx, const void* w,
+                                      void* y, unsigned int* ws, long long ww, int n,
+                                      int groups, int nin, int nout, int grid_size,
+                                      void* stream) {
+  using bf = __nv_bfloat16;
+  const bf* xb = static_cast<const bf*>(x);
+  const bf* wb = static_cast<const bf*>(w);
+  bf* yb = static_cast<bf*>(y);
+  const cudaStream_t st = (cudaStream_t)stream;
+  const FourierBf16::Params p{grid_size};
+  switch (v) {
+CASES
+  }
+  return -1;
+}
+""".replace("CASES", "\n".join(
+    f"    case {i}: return launch_tc_fwd_grouped<FourierBf16, {nt}, {w}, {mb}, 0, Bf16>(xb, "
+    f"ldx, p, wb, yb, ws, ww, n, groups, nin, nout, st);"
+    for i, (nt, w, mb) in enumerate(FOURIER_BF16_SHAPES)))
+
+# sincosf against cosf and sinf, bit for bit: the bf16 Fourier kernels seed
+# the recurrence with sincosf, their plain twin with torch.cos and torch.sin
+# (cosf, sinf on the card). Half the floats any finite bit pattern, half
+# over [-300, 300] (the arguments k x of the vit-s embedder's inputs).
+SINCOS_SOURCE = r"""
+#include <cstdint>
+#include <cuda_runtime.h>
+
+__global__ void sincos_differ(unsigned long long n, unsigned long long seed,
+                              unsigned long long* bad) {
+  for (unsigned long long i = blockIdx.x * (unsigned long long)blockDim.x + threadIdx.x; i < n;
+       i += (unsigned long long)gridDim.x * blockDim.x) {
+    unsigned long long h = (i + 1) * 0x9E3779B97F4A7C15ull ^ seed;
+    h ^= h >> 31;
+    h *= 0xBF58476D1CE4E5B9ull;
+    h ^= h >> 29;
+    const float x = (i & 1) ? __uint_as_float((uint32_t)h)
+                            : ((float)(h >> 40) / (float)(1ull << 24) - 0.5f) * 600.f;
+    if (!isfinite(x)) continue;
+    float s, c;
+    sincosf(x, &s, &c);
+    if (__float_as_uint(s) != __float_as_uint(sinf(x)) ||
+        __float_as_uint(c) != __float_as_uint(cosf(x)))
+      atomicAdd(bad, 1ull);
+  }
+}
+
+// The floats of n drawn from seed whose sincosf differs from cosf, sinf;
+// ~0ull on a CUDA error.
+extern "C" unsigned long long probe_sincos(unsigned long long n, unsigned long long seed) {
+  unsigned long long* bad = nullptr;
+  unsigned long long out = ~0ull;
+  if (cudaMalloc(&bad, sizeof(*bad)) != cudaSuccess) return out;
+  cudaMemset(bad, 0, sizeof(*bad));
+  sincos_differ<<<132 * 16, 256>>>(n, seed, bad);
+  if (cudaDeviceSynchronize() == cudaSuccess)
+    cudaMemcpy(&out, bad, sizeof(out), cudaMemcpyDeviceToHost);
+  cudaFree(bad);
+  return out;
+}
+"""
+SINCOS_FLOATS = 1 << 31
+
 CHEBY_BF16_SOURCE = r"""
 #include "kan_basis.cu"
 
@@ -139,17 +220,20 @@ CASES
 def _cases(C, family):
     """``(label, n, heads, nin, nout)`` of the shapes' timings: the vit-s
     embedder, one vit-s image's and the vit-s q/k/v (Chebyshev: q|k|v, 192
-    outputs a head; FastKAN and sine: one projection, 64)."""
+    outputs a head; FastKAN and sine: one projection, 64; Fourier: the MNIST
+    embedder in its place, its q/k/v Linear)."""
     qkv_out = 192 if family == "cheby" else 64
+    last = (("mnist embedder", 37 * 49, None, 16, 64) if family == "fourier"
+            else ("vit-s q/k/v", C.BATCH * 197, 6, 64, qkv_out))
     return (("vit-s embedder", C.BATCH * 196, None, 768, 384),
-            ("vit-s embedder, one image", 196, None, 768, 384),
-            ("vit-s q/k/v", C.BATCH * 197, 6, 64, qkv_out))
+            ("vit-s embedder, one image", 196, None, 768, 384), last)
 
 
 def bf16_shapes(lib, C, torch, family):
     """Each shape of ``CHEBY_BF16_SHAPES`` (``family`` "cheby"),
-    ``FAST_BF16_SHAPES`` ("fast") or ``SINE_BF16_SHAPES`` ("sine") at the
-    vit-s embedder, one vit-s image's embedder and the vit-s q/k/v:
+    ``FAST_BF16_SHAPES`` ("fast"), ``SINE_BF16_SHAPES`` ("sine") or
+    ``FOURIER_BF16_SHAPES`` ("fourier") at the vit-s embedder, one vit-s
+    image's embedder and the vit-s q/k/v (Fourier: the MNIST embedder):
     CUDA-event ms in turns with the route, the route's bits, and the twin's
     gate (one bf16 ulp plus the rounded basis's term)."""
     import numpy as np
@@ -166,12 +250,17 @@ def bf16_shapes(lib, C, torch, family):
         shapes, fn = FAST_BF16_SHAPES, lib.probe_fast_fwd_bf16
         fn.argtypes = [i32, p, i64, p, p, p, f32, p, p, p, p, i64, *[i32] * 4, p]
         names = ("fastkan", "fastkan_qkv_grouped")
-    else:
+    elif family == "sine":
         shapes, fn = SINE_BF16_SHAPES, lib.probe_sine_fwd_bf16
         fn.argtypes = [i32, p, i64, p, p, p, p, p, i64, *[i32] * 5, p]
         names = ("sinekan", "sinekan_qkv_grouped")
+    else:
+        shapes, fn = FOURIER_BF16_SHAPES, lib.probe_fourier_fwd_bf16
+        fn.argtypes = [i32, p, i64, p, p, p, i64, *[i32] * 5, p]
+        names = ("fourierkan", "fourierkan")
     fn.restype = i32
-    rng = np.random.default_rng(C.SEED + {"cheby": 14, "fast": 16, "sine": 18}[family])
+    rng = np.random.default_rng(C.SEED + {"cheby": 14, "fast": 16, "sine": 18,
+                                          "fourier": 20}[family])
     stream = torch.cuda.current_stream().cuda_stream
     times = {}
     for label, n, heads, nin, nout in _cases(C, family):
@@ -185,6 +274,19 @@ def bf16_shapes(lib, C, torch, family):
 
             twin = K.cheby_grouped_forward_bf16(x, w)
             spread = K.cheby_fwd_spread_bf16(x, w)
+
+            def args(y):
+                return (x.data_ptr(), x.stride(0), w.data_ptr(), y.data_ptr())
+        elif family == "fourier":
+            x, w = C.fourier_bf16_case(torch, rng, n, nin, nout)
+            groups, slices = w.shape[:2]
+            extra, chunks = (slices // 2,), -(-slices // 4)
+
+            def route():
+                return FB._launch_bf16(name, x, w, slices // 2)
+
+            twin = K.fourier_grouped_forward_bf16(x, w)
+            spread = K.fourier_fwd_spread_bf16(x, w)
 
             def args(y):
                 return (x.data_ptr(), x.stride(0), w.data_ptr(), y.data_ptr())
@@ -252,7 +354,7 @@ def bf16_shapes(lib, C, torch, family):
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model-type", choices=("efficientkan", "cheby", "fast", "sine"),
+    p.add_argument("--model-type", choices=("efficientkan", "cheby", "fast", "sine", "fourier"),
                    default="efficientkan")
     p.add_argument("--train", action="store_true", help="also the bf16 training phase")
     p.add_argument("--cheby-shapes", action="store_true",
@@ -261,6 +363,10 @@ def main(argv=None) -> None:
                    help="also time the bf16 RBF (FastKAN) forward's shapes")
     p.add_argument("--sine-shapes", action="store_true",
                    help="also time the bf16 sine forward's shapes")
+    p.add_argument("--fourier-shapes", action="store_true",
+                   help="also time the bf16 Fourier forward's shapes")
+    p.add_argument("--sincos", action="store_true",
+                   help="also count the floats whose sincosf differs from cosf, sinf")
     args = p.parse_args(argv)
     sys.path.insert(0, str(ROOT))
     import chip_smoke as C
@@ -271,16 +377,30 @@ def main(argv=None) -> None:
     libs = {family: _nvcc(C, source, f"probe_bf16_{family}")
             for family, source, asked in (("cheby", CHEBY_BF16_SOURCE, args.cheby_shapes),
                                           ("fast", FAST_BF16_SOURCE, args.fast_shapes),
-                                          ("sine", SINE_BF16_SOURCE, args.sine_shapes))
+                                          ("sine", SINE_BF16_SOURCE, args.sine_shapes),
+                                          ("fourier", FOURIER_BF16_SOURCE,
+                                           args.fourier_shapes))
             if asked}
+    if args.sincos:
+        libs["sincos"] = _nvcc(C, SINCOS_SOURCE, "probe_sincos")
     C.timed("build", C.phase_build)
     out = {"card": smi}
+    if args.sincos:
+        lib = _finish(C, *libs.pop("sincos"), "probe_sincos")
+        lib.probe_sincos.argtypes = [ctypes.c_ulonglong, ctypes.c_ulonglong]
+        lib.probe_sincos.restype = ctypes.c_ulonglong
+        differ = lib.probe_sincos(SINCOS_FLOATS, 12345)
+        print(f"[probe_bf16] sincosf against cosf and sinf: {differ} of {SINCOS_FLOATS} floats "
+              f"differ  [{smi}]", flush=True)
+        C.check(differ != 2 ** 64 - 1, "probe_sincos: CUDA error")
+        out["sincos_differ"] = {"floats": SINCOS_FLOATS, "differ": differ}
     for family, (proc, path) in libs.items():
         lib = _finish(C, proc, path, f"probe_bf16_{family}")
         out[f"{family}_bf16_shapes"] = C.timed(f"bf16 {family} shapes", bf16_shapes, lib, C,
                                                torch, family)
     phase = {"efficientkan": C.phase_bf16_kernels, "cheby": C.cheby_bf16_kernels,
-             "fast": C.fast_bf16_kernels, "sine": C.sine_bf16_kernels}[args.model_type]
+             "fast": C.fast_bf16_kernels, "sine": C.sine_bf16_kernels,
+             "fourier": C.fourier_bf16_kernels}[args.model_type]
     results = C.timed("bf16 kernels", phase, torch)
     out["kernels"] = {name: {"ms": r[1], "plain_ms": r[2], **r[3], **r[4],
                              **{k: v for sub in r[5:] for k, v in sub.items()}}
@@ -289,7 +409,8 @@ def main(argv=None) -> None:
     per_batch, embedder = {"efficientkan": (C.BF16_PER_BATCH, "bspline_kan"),
                            "cheby": (C.CHEBY_BF16_PER_BATCH, "chebykan"),
                            "fast": (C.FAST_BF16_PER_BATCH, "fastkan"),
-                           "sine": (C.SINE_BF16_PER_BATCH, "sinekan")}[args.model_type]
+                           "sine": (C.SINE_BF16_PER_BATCH, "sinekan"),
+                           "fourier": (C.FOURIER_BF16_PER_BATCH, "fourierkan")}[args.model_type]
     serve = C.timed("bf16 serving", C.phase_bf16_serve, torch, smi, model, C.SEED + 1,
                     args.model_type, per_batch)
     out["serve"] = {k: v for k, v in serve.items() if k != "launches"}

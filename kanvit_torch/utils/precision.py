@@ -30,10 +30,10 @@ whose views become the parameters' ``.grad``. The values are kanvit's: bf16
 of each f32 parameter forward, f32 of each bf16 gradient back, bit for bit
 what a cast of each parameter gives.
 
-bf16 serving takes the efficientkan, cheby, fast, sine, vanilla and
-flash-attn ViTs; :func:`check_bf16_trainable` raises for the models whose
-kernels have no bf16 path yet (the fourier ViT, a fused-FF model), before
-any launch.
+bf16 serving and training take every ViT kind (efficientkan, cheby,
+fourier, fast, sine, vanilla, flash-attn); :func:`check_bf16_trainable`
+raises for a model whose kernels have no bf16 path yet (a fused-FF model),
+before any launch.
 """
 
 from __future__ import annotations
@@ -169,21 +169,22 @@ def f32_accumulation():
         matmul.allow_bf16_reduced_precision_reduction = before
 
 
-# The ViT kinds whose KAN kernels have no bf16 path yet.
-BF16_UNPORTED = ("fourier",)
+# The ViT kinds whose KAN kernels have no bf16 path yet: none (the fourier
+# ViT's last, ROADMAP.md Queue 2 entry 3b.2).
+BF16_UNPORTED = ()
 
 
 def check_bf16_trainable(model: torch.nn.Module) -> None:
     """Raise ``NotImplementedError`` for a model that a bf16 training step
-    cannot take: the fourier ViT (its KAN kernels have no bf16 path:
-    ROADMAP.md, Queue 2 entry 3b.2) and a fused-FF model (the fused FF's:
-    entry 3b.4). The efficientkan, cheby, fast, sine, vanilla and flash-attn
-    ViTs pass."""
+    cannot take: a ViT kind in ``BF16_UNPORTED`` (none) and a fused-FF model
+    (the fused FF's kernels have no bf16 path: ROADMAP.md, Queue 2 entry
+    3b.4). The efficientkan, cheby, fourier, fast, sine, vanilla and
+    flash-attn ViTs pass."""
     kind = getattr(model, "type", None)
     if kind in BF16_UNPORTED:
         raise NotImplementedError(
             f"bf16 training of the {kind} ViT: its KAN kernels have no bf16 path "
-            "(ROADMAP.md, Queue 2 entry 3b.2)")
+            "(ROADMAP.md, Queue 2 entry 3b)")
     if any(getattr(m, "fused_ff", False) for m in model.modules()):
         raise NotImplementedError(
             "bf16 training with fused_ff=True: the fused FF kernels have no bf16 "

@@ -266,10 +266,11 @@ def test_converter_takes_a_bf16_tree(served):
 
 
 def test_bf16_training_raises():
-    """bf16 training of a model whose kernels have no bf16 path raises,
-    naming its ROADMAP entry; the efficientkan ViT trains in bf16
-    (tests/test_torch_port_bf16_train.py)."""
-    model = create_model("fourier", **SMALL, seed=3)
+    """bf16 training of a model whose kernels have no bf16 path (a fused-FF
+    model: here a fourier ViT with the fused FF; the fourier ViT itself
+    trains in bf16) raises, naming its ROADMAP entry; the efficientkan ViT
+    trains in bf16 (tests/test_torch_port_bf16_train.py)."""
+    model = create_model("fourier", **SMALL, seed=3, fused_ff=True)
     x = torch.zeros(2, *SMALL["chw"])
     with pytest.raises(NotImplementedError, match="Queue 2 entry 3"):
         make_train_step(bf16=True)(create_train_state(model), x, torch.zeros(2, dtype=torch.long))
@@ -278,6 +279,10 @@ def test_bf16_training_raises():
 # --- the CUDA route's wrappers, each launch emulated on the CPU ---------------
 
 def _emu_kan_bf16(name, x2d, w, grid):
+    if name == "fourierkan":  # grid: the grid size
+        FB.check_fourier_args(x2d, w, grid, bf16=True)
+        FB.LAUNCHES[f"{name}_bf16"] += 1
+        return K.fourier_grouped_forward_bf16(x2d, w)
     FB.check_args(x2d, grid, w, FB.SPLINE_ORDER, bf16=True)
     groups, _, nin, nout = w.shape
     ys = []
@@ -350,8 +355,9 @@ def test_kernel_route_refuses(kernel_route):
     x = _bf16(rng, (5, 16))[0]
     with pytest.raises(TypeError):   # f32 weights under bf16 x
         FB.bspline_kan(x, grid, torch.ones(4, 16), torch.ones(4, 16, 8), None)
-    with pytest.raises(TypeError, match="bf16"):   # no bf16 Fourier kernel
-        FB.fourierkan(x, torch.ones(2, 4, 16, 5, dtype=BF16), None)
+    with pytest.raises(TypeError, match="weight"):   # f32 coefficients under bf16 x
+        FB.fourierkan(x, torch.ones(2, 4, 16, 5), None)
+    assert FB.fourierkan(x, torch.ones(2, 4, 16, 5, dtype=BF16), None).dtype == BF16
 
 
 # --- the attention tier predicates, by itemsize --------------------------------

@@ -415,10 +415,11 @@ def test_grad_accum_bf16_matches_one_chunk():
 
 
 def test_check_bf16_trainable():
-    """The sine ViT passes; the fourier ViT and a fused-FF model still
-    raise, naming their ROADMAP entries."""
-    precision.check_bf16_trainable(create_model("sine", **SMALL, seed=3))
-    for kind, kw, entry in (("fourier", {}, "3b.2"),
+    """The sine and fourier ViTs pass; a fused-FF model (of either
+    kind) still raises, naming its ROADMAP entry."""
+    for kind in ("sine", "fourier"):
+        precision.check_bf16_trainable(create_model(kind, **SMALL, seed=3))
+    for kind, kw, entry in (("fourier", {"fused_ff": True}, "3b.4"),
                             ("efficientkan", {"fused_ff": True}, "3b.4")):
         with pytest.raises(NotImplementedError, match=entry):
             precision.check_bf16_trainable(create_model(kind, **SMALL, seed=3, **kw))

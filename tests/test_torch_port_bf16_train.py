@@ -24,13 +24,14 @@ rounded intermediate weighted as the next product weighs it, 2^-8 of
 - the lanes backward at dh 8, 32 and 64, masked and causal;
 - the CUDA route's wrappers with each launch emulated on the CPU: a bf16
   step's launches (1 + 2 + 2 bf16 forwards and backwards at 2 blocks), the
-  embedder's no-dx route, the plain route's gradient bits, and the
-  fourier ViT and ``fused_ff=True`` raising before any launch (the cheby,
-  fast and sine ViTs' bf16 training: ``test_torch_port_bf16_cheby.py``,
-  ``test_torch_port_bf16_fast.py``, ``test_torch_port_bf16_sine.py``);
+  embedder's no-dx route, the plain route's gradient bits, and
+  ``fused_ff=True`` (of the efficientkan and fourier ViTs) raising before
+  any launch (the cheby, fast, sine and fourier ViTs' bf16 training:
+  ``test_torch_port_bf16_cheby.py``, ``test_torch_port_bf16_fast.py``,
+  ``test_torch_port_bf16_sine.py``, ``test_torch_port_bf16_fourier.py``);
 - the slice: the port's ``make_train_step(bf16=True)`` against ``jax.grad``
   of kanvit's ``_loss_and_logits(..., bf16=True)`` at the MNIST geometry
-  with 2 blocks (the efficientkan, cheby, fast, sine, vanilla and flash-attn ViTs,
+  with 2 blocks (the efficientkan, cheby, fast, sine, fourier, vanilla and flash-attn ViTs,
   kanvit's weights carried across), loss within 2e-2 x max(1, |loss|) and every
   gradient within 5e-2 x max(1, max|g|), kanvit's own bf16 gradient gate
   (``tests/test_kernels.py:966-967``); ``grad_accum=2``; the caller's cuBLAS
@@ -338,7 +339,7 @@ def test_kernel_route_trains_bf16(monkeypatch):
         assert torch.equal(p, q), name
 
 
-@pytest.mark.parametrize("kind,kw,entry", [("fourier", {}, "3b.2"),
+@pytest.mark.parametrize("kind,kw,entry", [("fourier", {"fused_ff": True}, "3b.4"),
                                            ("efficientkan", {"fused_ff": True}, "3b.4")])
 def test_bf16_training_of_unported_kinds_raises(kernel_route, kind, kw, entry):
     """No bf16 kernels: the step raises, naming the ROADMAP entry, before
@@ -353,17 +354,20 @@ def test_bf16_training_of_unported_kinds_raises(kernel_route, kind, kw, entry):
 
 
 def test_bf16_backward_wrappers_refuse():
-    """The bf16 backward launcher takes the B-spline and Chebyshev entry
-    points and bf16 gradients only (FastKAN and SineKAN have launchers of
-    their own); it raises before touching a device, never falls back."""
+    """The bf16 backward launcher takes the B-spline, Chebyshev and Fourier
+    entry points, each with its own operands, and bf16 gradients only
+    (FastKAN and SineKAN have launchers of their own); it raises before
+    touching a device, never falls back."""
     rng = np.random.default_rng(77)
     grid = K.make_bspline_grid(16)
     x = _spline_x(rng, (10, 16), grid[0].numpy())[0]
     w = FB.pack_weight(*(_bf16(rng, s)[0] for s in ((8, 16), (8, 16, 8), (8, 16)))
                        ).unsqueeze(0).contiguous()
     gy = _bf16(rng, (10, 8))[0]
-    with pytest.raises(NotImplementedError, match="3b.2"):
-        FB._launch_bwd_bf16("fourierkan", x, w, grid, gy, True, True)
+    with pytest.raises(NotImplementedError, match="_launch_rbf_bwd"):
+        FB._launch_bwd_bf16("fastkan", x, w, grid, gy, True, True)
+    with pytest.raises(ValueError, match="does not match"):  # not a Fourier weight
+        FB._launch_bwd_bf16("fourierkan", x, w, 5, gy, True, True)
     with pytest.raises(ValueError, match="bf16"):
         FB._launch_bwd_bf16("bspline_kan", x, w, grid, gy.float(), True, True)
     with pytest.raises(TypeError):
@@ -413,8 +417,8 @@ def _grads_close(got, want):
         assert err <= GRAD_TOL * max(1.0, float(np.abs(ref).max())), (name, err)
 
 
-@pytest.mark.parametrize("kind", ["efficientkan", "cheby", "fast", "sine", "vanilla",
-                                  "flash-attn"])
+@pytest.mark.parametrize("kind", ["efficientkan", "cheby", "fast", "sine", "fourier",
+                                  "vanilla", "flash-attn"])
 def test_train_step_matches_kanvit(kind):
     params, jloss, jgrads = _kanvit_bf16(kind)
     model = _port_model(kind, params)

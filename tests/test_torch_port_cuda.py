@@ -2110,8 +2110,9 @@ def test_attention_lanes_bf16_kernel(cuda, dh, causal, masked):
 
 def test_bf16_backward_and_other_head_dims_raise(cuda):
     """A backward through a bf16 forward takes the bf16 backward kernels
-    (no f32 kernel, no plain version); bf16 generic head dims and the other
-    KAN families raise, and nothing runs the plain version instead."""
+    (no f32 kernel, no plain version); bf16 generic head dims and f32
+    Fourier coefficients under a bf16 x raise, and nothing runs the plain
+    version instead."""
     rng = np.random.default_rng(133)
     x = _spline_x(rng, (20, 16)).to(cuda).to(BF16)
     grid = K.make_bspline_grid(16, device=cuda)
@@ -2130,9 +2131,9 @@ def test_bf16_backward_and_other_head_dims_raise(cuda):
         q = torch.zeros(2, 9, 2 * dh, device=cuda, dtype=BF16)
         with torch.inference_mode(), pytest.raises(ValueError, match=f"head dim {dh}"):
             FA.flash_attention_lanes(q, q, q, 2)
-    with torch.inference_mode(), pytest.raises(TypeError, match="float32"):
+    with torch.inference_mode(), pytest.raises(TypeError, match="weight"):
         FB.fourierkan(torch.zeros(4, 16, device=cuda, dtype=BF16),
-                      torch.zeros(2, 3, 16, 5, device=cuda, dtype=BF16), None)
+                      torch.zeros(2, 3, 16, 5, device=cuda), None)
     assert FA.LAUNCHES["flash_attention_lanes_bf16"] == 1
 
 
@@ -2349,6 +2350,64 @@ def test_sine_bwd_bf16_kernel(cuda, name, n, heads, nin, nout, grid_size):
     assert FB.LAUNCHES[f"{name}_bwd_bf16"] == 3 and FB.LAUNCHES[f"{name}_bwd"] == 0
 
 
+# --- bf16 Fourier: the bf16 forward and backward of fourierkan (its 2G slices
+# in chunks of 2 harmonics, cos/sin(kx) by the angle-addition recurrence)
+# against their plain twins, within one bf16 ulp plus one of each rounded
+# basis value weighted as the next product weighs it (2^-8 |B| |W| for y,
+# 2^-8 |B|^T |gy| for dW; dx one ulp; chip_smoke.py's gates), no further
+# than twice the twin from the f64 sums of the same operands, their bits
+# repeated.
+
+FOURIER_BF16_SHAPES = [(37 * 49, 16, 64, 28), (300, 100, 70, 5), (301, 24, 20, 3),
+                       (64 * 196, 768, 384, 28)]
+
+
+def _fourier_bf16_case(cuda, rng, n, nin, nout, grid_size):
+    """bf16 x (every 7th entry over [-10, 10]) and the packed weight (1, 2G,
+    nin, nout), cos harmonics first."""
+    coeffs = _param(rng, (2, nout, nin, grid_size), 1.0 / np.sqrt(nin * grid_size))
+    return (_fourier_x(rng, (n, nin)).to(cuda).to(BF16),
+            FB.pack_fourier_weight(coeffs).contiguous().to(cuda).to(BF16))
+
+
+@pytest.mark.parametrize("n,nin,nout,grid_size", FOURIER_BF16_SHAPES)
+def test_fourier_bf16_kernel(cuda, n, nin, nout, grid_size):
+    rng = np.random.default_rng(160)
+    x, w = _fourier_bf16_case(cuda, rng, n, nin, nout, grid_size)
+    with torch.inference_mode():
+        y = FB._launch_bf16("fourierkan", x, w, grid_size)
+        again = FB._launch_bf16("fourierkan", x, w, grid_size)
+        twin = K.fourier_grouped_forward_bf16(x, w)
+        exact = K.fourier_grouped_forward_bf16(x, w, exact=True)
+        spread = K.fourier_fwd_spread_bf16(x, w)
+    _bf16_ulp(y, twin, spread)
+    _f64_gate(y, twin, exact)
+    assert torch.equal(y, again)
+    assert FB.LAUNCHES["fourierkan_bf16"] == 2 and FB.LAUNCHES["fourierkan"] == 0
+
+
+@pytest.mark.parametrize("n,nin,nout,grid_size", FOURIER_BF16_SHAPES)
+def test_fourier_bwd_bf16_kernel(cuda, n, nin, nout, grid_size):
+    """dx and dW, all gradients and without dx (the training step's); the
+    no-dx route's dW the all-gradients route's bits."""
+    rng = np.random.default_rng(161)
+    x, w = _fourier_bf16_case(cuda, rng, n, nin, nout, grid_size)
+    gy = torch.from_numpy(rng.standard_normal((n, nout)).astype(np.float32)).to(cuda).to(BF16)
+    with torch.inference_mode():
+        got = FB._launch_bwd_bf16("fourierkan", x, w, grid_size, gy, True, True)
+        again = FB._launch_bwd_bf16("fourierkan", x, w, grid_size, gy, True, True)
+        no_dx = FB._launch_bwd_bf16("fourierkan", x, w, grid_size, gy, False, True)
+        twin = K.fourier_grouped_backward_bf16(x, w, gy)
+        exact = K.fourier_grouped_backward_bf16(x, w, gy, exact=True)
+        spreads = (None, K.fourier_dw_spread_bf16(x, w, gy))
+    for g, t, e, spread, a in zip(got, twin, exact, spreads, again):
+        _bf16_ulp(g, t, spread)
+        _f64_gate(g, t, e)
+        assert torch.equal(g, a)
+    assert no_dx[0] is None and torch.equal(no_dx[1], got[1])
+    assert FB.LAUNCHES["fourierkan_bwd_bf16"] == 3 and FB.LAUNCHES["fourierkan_bwd"] == 0
+
+
 # --- bf16 training: the bf16 backwards of bspline_kan, bspline_qkv_grouped and
 # the lanes attention against their plain twins, within one bf16 ulp plus one
 # of each rounded intermediate weighted as the next product weighs it
@@ -2440,14 +2499,16 @@ def test_attention_lanes_bwd_bf16_kernel(cuda, dh, causal, masked):
                                                  "bspline_qkv_grouped"),
                                                 ("cheby", "chebykan", "cheby_qkv_grouped"),
                                                 ("fast", "fastkan", "fastkan_qkv_grouped"),
-                                                ("sine", "sinekan", "sinekan_qkv_grouped")])
+                                                ("sine", "sinekan", "sinekan_qkv_grouped"),
+                                                ("fourier", "fourierkan", None)])
 def test_bf16_train_step_on_card(cuda, kind, embedder, qkv):
-    """One bf16 step of a 2-block MNIST-geometry efficientkan, cheby, fast or
-    sine ViT on the card against the CPU's (the plain twins): 1 + 2 + 2 bf16
-    launches forward and backward (fast, sine: 2 x 3 grouped q/k/v, one a
-    projection) and no f32 ones, loss within 2e-2 x max(1, |loss|) and every
-    gradient within 5e-2 x max(1, max|g|) (kanvit's bf16 gates), the f32
-    parameters and gradients f32."""
+    """One bf16 step of a 2-block MNIST-geometry efficientkan, cheby, fast,
+    sine or fourier ViT on the card against the CPU's (the plain twins): 1 +
+    2 + 2 bf16 launches forward and backward (fast, sine: 2 x 3 grouped
+    q/k/v, one a projection; fourier: 1 + 2, its q/k/v Linear) and no f32
+    ones, loss within 2e-2 x max(1, |loss|) and every gradient within 5e-2
+    x max(1, max|g|) (kanvit's bf16 gates), the f32 parameters and
+    gradients f32."""
     import copy
 
     from kanvit_torch.models import create_model
@@ -2464,9 +2525,11 @@ def test_bf16_train_step_on_card(cuda, kind, embedder, qkv):
     _, lg, _ = step(create_train_state(gpu), x.to(cuda), y.to(cuda))
     counts = {k: n for k, n in {**FB.LAUNCHES, **FA.LAUNCHES}.items() if n}
     grouped = 6 if kind in ("fast", "sine") else 2
-    assert counts == {f"{embedder}_bf16": 1, f"{qkv}_bf16": grouped,
-                      "flash_attention_lanes_bf16": 2, f"{embedder}_bwd_bf16": 1,
-                      f"{qkv}_bwd_bf16": grouped, "flash_attention_lanes_bwd_bf16": 2}
+    want = {f"{embedder}_bf16": 1, "flash_attention_lanes_bf16": 2,
+            f"{embedder}_bwd_bf16": 1, "flash_attention_lanes_bwd_bf16": 2}
+    if qkv is not None:
+        want.update({f"{qkv}_bf16": grouped, f"{qkv}_bwd_bf16": grouped})
+    assert counts == want
     assert abs(float(lc) - float(lg)) <= 2e-2 * max(1.0, abs(float(lc)))
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         assert pg.dtype == pg.grad.dtype == torch.float32, name
