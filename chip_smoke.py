@@ -45,6 +45,20 @@ Phases, in order; any failure raises, so the script exits non-zero:
    seq 2048 also against f64 on the card (1e-6 x max(1, max|o|)); then
    ``flash_attention``'s single-tile route against ``lanes_attention``,
    forward and backward, with its device time;
+5b. the tiled attention's three bf16 kernels (kanvit's bf16 policy: the
+   f32 scale after the product, p and ds rounded to bf16 at their
+   products) against their plain twins on the card at the decoder's shapes
+   and layout (B 16, H 4, T 2048 and B 4, H 4, T 8192, dh 64, causal) and
+   at ragged masked shapes at dh 32, 16, 8 and 64 (``tq < tk``, keys 0-3
+   masked, an item with every key masked, not causal): o within one bf16
+   ulp plus the two-sided p term (2^-7 of the twin's attention over |v|:
+   the kernel rounds p against its own 32-key tiles' running max), the
+   forward's (m, l), each gradient within one ulp plus one of each rounded
+   p and ds; rows that see no valid key the mean of v; bits repeated; the
+   forward at seq 2048 no further from f64 than twice the twin; each
+   kernel's time (CUDA events, device), the twin's and
+   ``scaled_dot_product_attention``'s in bf16 (forward, backward to q, to
+   k and v, and to all three);
 6. the Chebyshev and Fourier kernels (forward, dx and dW) against their
    plain versions and autograd through them on the card: ``chebykan`` and
    ``fourierkan`` (grid 28) at the vit-s embedder's shapes (12,544 x 768
@@ -190,6 +204,13 @@ Phases, in order; any failure raises, so the script exits non-zero:
    step and no lanes launch), the gradients of a 1-sequence batch at seq
    2048 against the CPU, tokens/s and ms a step of the kernel impl and, at
    seq 2048, of the plain impl, and a ``torch.profiler`` breakdown;
+13b. the same in bf16 (``bench_decoder --bf16``, kanvit's policy): exactly
+   4 bf16 tiled forward, 4 dq and 4 dk/dv launches a step and nothing else,
+   the loss finite and falling, the gradients of a 1-sequence batch at seq
+   2048 within 5e-2 x max|g| of the CPU's, each tensor's own (the kernels'
+   plain twins), device ms a step by part (CUDA events), the idle share and a
+   ``torch.profiler`` breakdown, and tokens/s and ms a step of the bf16 and
+   the f32 kernel impl in turns (bf16, f32, bf16, f32);
 14. the reference MNIST preset (batch 128) through ``kanvit_torch.bench``,
     whose JSON line is printed;
 15. one JSON line of per-kernel results (each kernel's launches on its main
@@ -290,6 +311,15 @@ FLIP_TOL_F64 = 1e-4
 # its gate adds one bf16 ulp of every p, weighted as P V weights it,
 # 2^-8 (bf16(p) @ |v|) / l.
 BF16_ULP_REL, BF16_ULP_ABS, BF16_P_ULP = 2.0 ** -7, 2.0 ** -12, 2.0 ** -8
+# The tiled bf16 forward rounds each p against its own 32-key tiles' running
+# max, its twin against kanvit's 1,024-key blocks': each bf16(p) within
+# 2^-8 of its f32 value on either side, so 2^-7 (bf16(p) @ |v|) / l.
+BF16_P_TWO_SIDED = 2.0 ** -7
+# The tiled bf16 forward's (m, l) against the twin's: m of max(1, max|m|),
+# l of max(1, l) (a row with no valid key at all sums 1e-10 a tile, the
+# kernel's tiles not the twin's blocks, and its p are all 0); f32 scores of
+# depth dh and row sums of up to 8,192 terms in another order.
+TOL_FLASH_STATS = 1e-4
 # bf16 serving on the card against the CPU's bf16 forward, x max(1,
 # max|logits|): kanvit's own bf16 gate (tests/test_kernels.py:871).
 TOL_BF16_LOGITS = 2e-2
@@ -382,7 +412,8 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("kan_tc_fwd_grouped", "7BsplineELi8E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "7BsplineELi24E", "Tf32x3ELi12E"),
                 ("kan_tc_fwd_grouped", "7BsplineELi24E", "4Bf16ELi0E"),
-                "attention_lanes_fwd_bf16ILi64",
+                "attention_lanes_fwd_bf16ILi64", "flash_fwd_bf16ILi64",
+                "flash_dq_bf16ILi64", "flash_dkv_bf16ILi64",
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi12E"),
                 ("kan_tc_fwd_grouped", "4SineELi8E", "Tf32x3"),
@@ -1291,16 +1322,17 @@ def check_flash_f64(torch, rng):
     return err
 
 
-def check_no_visible_key(torch, o, v, mask, rows, item, label):
+def check_no_visible_key(torch, o, v, mask, rows, item, label, tol=TOL_ATTN):
     """Rows of ``item`` that see no valid key causally are the mean of v
-    over every valid key (the tiled tier's semantics), or 0 with none."""
+    over every valid key (the tiled tier's semantics), or 0 with none;
+    within ``tol`` x max(1, max|mean|) (bf16: one ulp)."""
     valid = mask[item].bool()
     want = (v[item][:, valid].mean(dim=1) if bool(valid.any())
             else torch.zeros_like(v[item][:, 0]))
     err = float((o[item][:, rows] - want[:, None]).abs().max())
     print(f"[kernel] tiled attention {label}: rows with no visible valid key "
           f"against the mean of v over the valid keys: max|err| {err:.3e}")
-    check(err <= TOL_ATTN * max(1.0, float(want.abs().max())),
+    check(err <= tol * max(1.0, float(want.abs().max())),
           f"{label}: rows with no visible valid key are not the mean of v")
 
 
@@ -1404,6 +1436,191 @@ def phase_flash_kernels(torch):
            for name in main}
     out["flash_attention"] += ({"err_vs_f64": err64},)
     return out
+
+
+# --------------------------------------------------------------------------
+# Phase 5b: the tiled attention's bf16 kernels
+# --------------------------------------------------------------------------
+
+def flash_bf16_inputs(torch, rng, b, h, tq, tk, dh):
+    """bf16 q as a ``(B, H, T, dh)`` view of a ``(B, T, H*dh)`` projection,
+    k and v of one ``(B, T, 2*H*dh)`` projection's two halves, as
+    ``FlashAttentionBlock`` hands them over; do ``(B, H, Tq, dh)``."""
+    def draw(t, width):
+        return torch.from_numpy(rng.standard_normal((b, t, width)).astype(np.float32)
+                                ).cuda().to(torch.bfloat16)
+
+    q = draw(tq, h * dh).view(b, tq, h, dh).transpose(1, 2)
+    k, v = (a.view(b, tk, h, dh).transpose(1, 2) for a in draw(tk, 2 * h * dh).chunk(2, -1))
+    return q, k, v, draw(tq, h * dh).view(b, tq, h, dh).transpose(1, 2)
+
+
+def attention_bound_bf16(b, h, tq, tk, dh, causal, part, library_ms=None):
+    """The tiled bf16 kernels' work: 2 tq tk dh FLOPs a product (causal:
+    the pairs at or before each query, tq == tk), forward 2 products, dq 3
+    (s, dp, dq), dk/dv 4 (s, dp, dv, dk), at the dense bf16 rate; bytes:
+    bf16 q, k, v, o (+ do, and dq or dk, dv) read or written once, f32
+    (m, l) and delta."""
+    pairs = tk * (tk + 1) / 2 if causal else tq * tk
+    products = {"fwd": 2, "dq": 3, "dkv": 4}[part]
+    row, col, rows = b * h * tq * dh, b * h * tk * dh, b * h * tq
+    nbytes = {"fwd": 2 * (2 * row + 2 * col) + 4 * 2 * rows,
+              "dq": 2 * (4 * row + 2 * col) + 4 * 3 * rows,
+              "dkv": 2 * (2 * row + 4 * col) + 4 * 3 * rows}[part]
+    return bf16_bound(2.0 * b * h * pairs * dh * products, float(nbytes), library_ms)
+
+
+def check_flash_bf16(torch, rng, b, h, tq, tk, dh, causal, mask, label, iters,
+                     f64=False):
+    """The bf16 tiled forward, dq and dk/dv kernels, each launched alone on
+    the decoder's layout, against their plain twins on the card
+    (``A.flash_attention_bf16`` over kanvit's 1,024-key blocks, and
+    ``A.flash_attention_bwd_bf16`` on the kernel forward's o and (m, l)):
+    o within one bf16 ulp plus the two-sided p term (2^-7 of the twin's
+    attention over |v|: the kernel rounds p against its 32-key tiles'
+    running max, the twin against kanvit's blocks'), (m, l) within
+    TOL_FLASH_STATS, each gradient within one ulp plus one of each rounded
+    p and ds (2^-8 of ``spread=True``); a row that sees no valid key the
+    mean of v over the valid keys; the bits of a repeated forward and
+    backward; with ``f64`` the forward no further from the f64 reference
+    than twice the twin. Times of each kernel (CUDA events, device), of the
+    twin (forward; the whole backward for dq and dk/dv) and of
+    ``scaled_dot_product_attention`` in bf16 (forward; backward to q, to k
+    and v, and to all three). Returns ``(o, v, {kernel: (err, ms, plain_ms,
+    extras, bound)})``."""
+    from kanvit_torch.kernels import flash_attention as FA
+    from kanvit_torch.ops import attention as A
+
+    q, k, v, g = flash_bf16_inputs(torch, rng, b, h, tq, tk, dh)
+    keys = None if mask is None else A.key_valid(mask, b, tk, mask.device)
+    maskb = None if keys is None else keys.to(torch.uint8).contiguous()
+    check(not FA.use_small(tq, tk, dh, h, 512, 1024, 2), f"{label}: not the tiled tier")
+    tag = (f"bf16 {label} B={b} H={h} Tq={tq} Tk={tk} dh={dh} causal={causal} "
+           f"mask={'none' if mask is None else 'yes'}")
+    do = g.transpose(1, 2).contiguous()
+
+    def forward():
+        return FA._launch_tiled(q, k, v, maskb, causal, True)
+
+    def backward(o4, stats):
+        dq, delta = FA._launch_tiled_dq(q, k, v, maskb, o4, stats, do, causal)
+        return (dq, *FA._launch_tiled_dkv(q, k, v, maskb, stats, do, delta, causal))
+
+    with torch.inference_mode():
+        o4, stats = forward()
+        grads4 = backward(o4, stats)
+        again4, again_stats = forward()
+        again = backward(again4, again_stats)
+        same = (torch.equal(o4, again4) and torch.equal(stats, again_stats)
+                and all(torch.equal(a, w) for a, w in zip(grads4, again)))
+        o = o4.transpose(1, 2)
+        check(o.dtype == torch.bfloat16 and all(a.dtype == torch.bfloat16 for a in grads4),
+              f"{tag}: the kernels' outputs are not bf16")
+        twin, m, l = A.flash_attention_bf16(q, k, v, causal, 1024, keys)
+        spread_o = A.flash_attention_bf16(q, k, v.abs(), causal, 1024, keys)[0]
+        err_fwd = bf16_ulp_gate(f"flash_attention_bf16 {tag}", o, twin, spread_o,
+                                BF16_P_TWO_SIDED)
+        err_m = float((stats[..., 0] - m).abs().max()) / max(1.0, float(m.abs().max()))
+        err_l = float(((stats[..., 1] - l).abs() / l.clamp_min(1.0)).max())
+        print(f"[bf16] flash_attention_bf16 {tag}: (m, l) against the twin's: m "
+              f"{err_m:.3e} of max(1, max|m|), l {err_l:.3e} of max(1, l)  limit "
+              f"{TOL_FLASH_STATS:.0e}")
+        check(err_m <= TOL_FLASH_STATS and err_l <= TOL_FLASH_STATS,
+              f"{tag}: the forward's (m, l) differ from the twin's")
+        want = A.flash_attention_bwd_bf16(q, k, v, o, g, stats[..., 0], stats[..., 1],
+                                          causal, keys)
+        spread = A.flash_attention_bwd_bf16(q, k, v, o, g, stats[..., 0], stats[..., 1],
+                                            causal, keys, spread=True)
+        errs = {nm: bf16_ulp_gate(f"flash_attention_{part}_bf16 {tag} {nm}",
+                                  a.transpose(1, 2), w, sp)
+                for nm, part, a, w, sp in zip(("dq", "dk", "dv"), ("dq", "dkv", "dkv"),
+                                              grads4, want, spread)}
+        del want, spread, spread_o
+        print(f"[kernel] tiled attention {tag}: bits repeat forward and backward {same}")
+        check(same, f"{tag}: the bits of a repeated forward or backward differ")
+        extras = {}
+        if f64:
+            exact = A.flash_attention_bf16(q, k, v, causal, 1024, keys, exact=True)[0]
+            extras["f64_err"] = f64_gate(f"flash_attention_bf16 {tag}", o, twin, exact,
+                                         "bf16 plain twin")
+            del exact
+        del twin
+        delta = FA._launch_tiled_dq(q, k, v, maskb, o4, stats, do, causal)[1]
+        calls = {"fwd": lambda: FA._launch_tiled(q, k, v, maskb, causal, False),
+                 "dq": lambda: FA._launch_tiled_dq(q, k, v, maskb, o4, stats, do, causal),
+                 "dkv": lambda: FA._launch_tiled_dkv(q, k, v, maskb, stats, do, delta,
+                                                    causal)}
+        ms = {part: time_ms(torch, fn, iters, 2) for part, fn in calls.items()}
+        ms.update({f"{part} device": kernel_ms(torch, fn, iters, 2)
+                   for part, fn in calls.items()})
+        ms["plain fwd"] = time_ms(torch, lambda: A.flash_attention_bf16(
+            q, k, v, causal, 1024, keys), max(1, iters // 2), 1)
+        ms["plain bwd"] = time_ms(torch, lambda: A.flash_attention_bwd_bf16(
+            q, k, v, o, g, stats[..., 0], stats[..., 1], causal, keys), max(1, iters // 2), 1)
+    for part, grad_of in (("fwd", None), ("dq", "q"), ("dkv", "kv"), ("bwd", "qkv")):
+        ms[f"sdpa {part}"] = sdpa_ms(torch, q, k, v, causal, keys, grad_of, iters)
+        ms[f"sdpa {part} device"] = sdpa_ms(torch, q, k, v, causal, keys, grad_of, iters,
+                                            device=True)
+    print(f"[bf16] tiled attention {tag}: " + "  ".join(
+        f"{key} {val:.4f} ms" for key, val in ms.items()))
+    results = {}
+    for name, part, err in (("flash_attention_bf16", "fwd", err_fwd),
+                            ("flash_attention_dq_bf16", "dq", errs["dq"]),
+                            ("flash_attention_dkv_bf16", "dkv", max(errs["dk"], errs["dv"]))):
+        bnd = attention_bound_bf16(b, h, tq, tk, dh, causal and tq == tk, part,
+                                   ms[f"sdpa {part}"])
+        plain = ms["plain fwd" if part == "fwd" else "plain bwd"]
+        results[name] = (err, ms[part], plain,
+                         {"device_ms": ms[f"{part} device"],
+                          "library_device_ms": ms[f"sdpa {part} device"],
+                          "library_bwd_ms": ms["sdpa bwd"],
+                          "library_bwd_device_ms": ms["sdpa bwd device"], **extras},
+                         bnd)
+        print(f"[bf16] {name} {tag}: {ms[part]:.4f} ms (device {ms[f'{part} device']:.4f}); "
+              f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
+              f"{bnd['bound_ms'] / ms[f'{part} device']:.1%} of the device time); "
+              f"scaled_dot_product_attention bf16 {ms[f'sdpa {part}']:.4f} (device "
+              f"{ms[f'sdpa {part} device']:.4f})")
+    return o, v, results
+
+
+def phase_flash_bf16_kernels(torch):
+    """Phase 5b: the tiled attention's three bf16 kernels at the causal
+    decoder's shapes (B 16, H 4, T 2048, the forward also against f64; B
+    4, H 4, T 8192; dh 64), then at ragged masked shapes at dh 8, 16 and
+    32 whose rows see no valid key (sub-entries)."""
+    rng = np.random.default_rng(SEED + 12)
+    _, _, main = check_flash_bf16(torch, rng, 16, 4, 2048, 2048, 64, True, None,
+                                  "decoder seq 2048", iters=10, f64=True)
+    _, _, long = check_flash_bf16(torch, rng, 4, 4, 8192, 8192, 64, True, None,
+                                  "decoder seq 8192", iters=3)
+    subs = {}
+    # tq < tk: rows 0-216 sit at qpos < 0 and see no key; item 1 masks every
+    # key, item 0 keys 0-3
+    mask = torch.from_numpy(rng.random((3, 517)) > 0.2).cuda()
+    mask[0, :4] = False
+    mask[1] = False
+    o, v, subs["ragged_tq_lt_tk_masked_dh_32"] = check_flash_bf16(
+        torch, rng, 3, 2, 300, 517, 32, True, mask, "ragged tq<tk masked", iters=3)
+    for item in (0, 1, 2):
+        check_no_visible_key(torch, o.float(), v.float(), mask, slice(0, 217), item,
+                             f"bf16 ragged tq<tk masked, item {item}", tol=BF16_ULP_REL)
+    # tq == tk, keys 0-3 masked: causal rows 0-3 see no valid key
+    mask = torch.ones(2, 1000, dtype=torch.bool, device="cuda")
+    mask[0, :4] = False
+    for dh in (16, 8):
+        o, v, subs[f"keys_0_3_masked_dh_{dh}"] = check_flash_bf16(
+            torch, rng, 2, 2, 1000, 1000, dh, True, mask, f"keys 0-3 masked dh {dh}",
+            iters=3)
+        check_no_visible_key(torch, o.float(), v.float(), mask, slice(0, 4), 0,
+                             f"bf16 keys 0-3 masked dh {dh}", tol=BF16_ULP_REL)
+    # not causal, tq > tk, a key mask
+    mask = torch.from_numpy(rng.random((2, 700)) > 0.3).cuda()
+    _, _, subs["not_causal_tq_gt_tk_masked_dh_64"] = check_flash_bf16(
+        torch, rng, 2, 3, 900, 700, 64, False, mask, "not causal tq>tk masked", iters=3)
+    return {name: (*main[name], {"at_seq_8192_batch_4": sub_entry(long[name])},
+                   *({key: sub_entry(r[name])} for key, r in subs.items()))
+            for name in main}
 
 
 # --------------------------------------------------------------------------
@@ -2413,19 +2630,20 @@ def phase_serve(torch, smi, model_cpu, tag, per_batch, seed):
 # Phase 9b: bf16 serving
 # --------------------------------------------------------------------------
 
-def bf16_ulp_gate(tag, got, want, spread=None):
+def bf16_ulp_gate(tag, got, want, spread=None, p_ulp=BF16_P_ULP):
     """Elementwise within one bf16 ulp of the plain twin: |a - b| <=
     2^-7 |b| + 2^-12 max|b|, plus one bf16 ulp of every rounded
     intermediate weighted as the next product weighs it, 2^-8 ``spread``:
     for the attention every probability as P V weights it, (bf16(p) @ |v|)
     / l (the twin's attention over |v|); for a KAN forward every basis value
     as W weighs it, |T| |W|; for a KAN dW as gy weighs it, |T|^T |gy|.
+    ``p_ulp`` replaces 2^-8 (the tiled bf16 forward: 2^-7, two-sided).
     Returns max|a - b|; prints how many elements lie past the one-ulp part
     alone."""
     got64, want64 = got.double(), want.double()
     err = (got64 - want64).abs()
     ulp = BF16_ULP_REL * want64.abs() + BF16_ULP_ABS * float(want64.abs().max())
-    bound = ulp if spread is None else ulp + BF16_P_ULP * spread.double()
+    bound = ulp if spread is None else ulp + p_ulp * spread.double()
     ok = bool(got.isfinite().all()) and bool((err <= bound).all())
     worst = float((err - bound).max())
     past = int((err > ulp).sum())
@@ -4786,17 +5004,20 @@ def phase_faults(torch, smi):
 # Phase 13: decoder training
 # --------------------------------------------------------------------------
 
-def decoder_parts(torch, model, tokens):
+def decoder_parts(torch, model, tokens, bf16=False):
     """Device ms of forward + loss, backward and an Adam step (CUDA events),
-    medians of 3."""
+    medians of 3; ``bf16``: the step in kanvit's bf16 policy."""
     from kanvit_torch import bench_decoder as BD
+    from kanvit_torch.utils import precision
 
     opt = torch.optim.Adam(model.parameters(), lr=1e-3)
     parts = {"forward+loss": [], "backward": [], "optimizer": []}
     for _ in range(3):
         opt.zero_grad()
-        loss, ev_f = device_ms(torch, lambda: BD.lm_loss(model(tokens), tokens))
-        _, ev_b = device_ms(torch, loss.backward)
+        with precision.f32_accumulation():
+            (loss, _), ev_f = device_ms(torch, lambda: BD.loss_and_logits(
+                model, tokens, bf16=bf16))
+            _, ev_b = device_ms(torch, loss.backward)
         _, ev_o = device_ms(torch, opt.step)
         torch.cuda.synchronize()
         for key, (a, b) in zip(parts, (ev_f, ev_b, ev_o)):
@@ -4804,39 +5025,54 @@ def decoder_parts(torch, model, tokens):
     return {k: float(np.median(v)) for k, v in parts.items()}
 
 
-def decoder_grads_against_cpu(torch, tokens):
+def decoder_grads_against_cpu(torch, tokens, bf16=False):
     """Parameter gradients of a 1-sequence batch on the card against the
-    same model's on the CPU; the worst max|err| / max|g| over tensors."""
+    same model's on the CPU (``bf16``: both in kanvit's bf16 policy, the CPU
+    through the kernels' plain twins); prints each tensor's max|g| and
+    max|err| / max|g|, and returns the worst of those and its tensor. Each
+    tensor is held to its own max|g|: this decoder's gradients are all
+    below 1, where kanvit's max(1, max|g|) would make the bf16 gate an
+    absolute one that a zeroed gradient passes."""
     from kanvit_torch import bench_decoder as BD
+    from kanvit_torch.utils import precision
 
     cpu = BD.build_model(**DECODER, seed=SEED)
     gpu = copy.deepcopy(cpu).cuda()
     one = tokens[:1]
-    BD.lm_loss(gpu(one), one).backward()
-    BD.lm_loss(cpu(one.cpu()), one.cpu()).backward()
-    worst, worst_name = 0.0, ""
+    with precision.f32_accumulation():
+        BD.loss_and_logits(gpu, one, bf16=bf16)[0].backward()
+        BD.loss_and_logits(cpu, one.cpu(), bf16=bf16)[0].backward()
+    worst, worst_name, rows = 0.0, "", []
     for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
         scale = float(pc.grad.abs().max())
         err = float((pg.grad.cpu() - pc.grad).abs().max())
         rel = err / scale if scale > 0 else (0.0 if err == 0 else float("inf"))
+        rows.append(f"{name} max|g| {scale:.3e} err {rel:.3e}")
         if rel > worst:
             worst, worst_name = rel, name
+    print(f"[decoder] {'bf16' if bf16 else 'f32'} gradients, GPU against CPU: "
+          + "; ".join(rows))
     return worst, worst_name
 
 
-def phase_decoder(torch, smi):
+def phase_decoder(torch, smi, bf16=False):
+    """Phase 13 (``bf16``: 13b, kanvit's bf16 policy, its tiled attention on
+    the bf16 kernels, with the f32 step's tokens/s beside it)."""
     from kanvit_torch import bench_decoder as BD
 
     blocks = DECODER["n_blocks"]
+    sfx = "_bf16" if bf16 else ""
     per_step = {k: 0 for k in launch_counts()}
-    per_step.update(flash_attention=blocks, flash_attention_dq=blocks,
-                    flash_attention_dkv=blocks)
+    per_step.update({f"flash_attention{sfx}": blocks, f"flash_attention_dq{sfx}": blocks,
+                     f"flash_attention_dkv{sfx}": blocks})
     launches = {k: 0 for k in per_step}
+    tol = TOL_BF16_GRADS if bf16 else TOL_GRADS
+    precision_tag = "bf16" if bf16 else "f32"
     out = []
     for seq, batch in DECODER_CONFIGS:
         model = BD.build_model(**DECODER, seed=SEED).cuda()
         tokens = BD.make_tokens(batch, seq, DECODER["vocab"], SEED).cuda()
-        step = BD.make_step(model)
+        step = BD.make_step(model, bf16=bf16)
         reset_counts()
         losses, steps_ok = [], True
         for _ in range(TRAIN_STEPS):
@@ -4848,39 +5084,45 @@ def phase_decoder(torch, smi):
         counts = launch_counts()
         launches = {k: launches[k] + counts[k] for k in launches}
         losses = [float(v) for v in losses]
-        label = f"decoder seq {seq} batch {batch}"
+        label = f"decoder {precision_tag} seq {seq} batch {batch}"
         print(f"[decoder] {label}, {TRAIN_STEPS} Adam(1e-3) steps on one batch: "
               f"losses {[round(v, 6) for v in losses]}")
         print(f"[decoder] launches over {TRAIN_STEPS} steps: {counts} (want per "
-              f"step {blocks} tiled forward, {blocks} dq, {blocks} dk/dv, nothing else)")
+              f"step {blocks} {precision_tag} tiled forward, {blocks} dq, {blocks} dk/dv, "
+              "nothing else)")
         check(steps_ok, f"{label}: a step's launches differ from {per_step}")
         check(all(np.isfinite(losses)), f"{label}: losses are not finite: {losses}")
         check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
         result = {"seq": seq, "batch": batch, "losses": losses}
         if seq == DECODER_CONFIGS[0][0]:
-            worst, name = decoder_grads_against_cpu(torch, tokens)
-            print(f"[decoder] {label}: gradients of 1 sequence, GPU against CPU, per "
-                  f"tensor: worst max|err| / max|g| {worst:.3e} ({name})  limit "
-                  f"{TOL_GRADS:.0e}")
-            check(worst <= TOL_GRADS, f"{label}: GPU gradients differ from the "
-                                      f"CPU's: {name} {worst:.3e}")
+            worst, name = decoder_grads_against_cpu(torch, tokens, bf16)
+            print(f"[decoder] {label}: gradients of 1 sequence, GPU against CPU"
+                  f"{' (its plain twins)' if bf16 else ''}, per tensor: worst max|err| / "
+                  f"max|g| {worst:.3e} ({name})  limit {tol:.0e}")
+            check(worst <= tol, f"{label}: GPU gradients differ from the CPU's: {name} "
+                                f"{worst:.3e}")
             result["grad_rel_err"] = worst
-        parts = decoder_parts(torch, model, tokens)
+        parts = decoder_parts(torch, model, tokens, bf16)
         total = sum(parts.values())
         print(f"[decoder] {label}: device ms per step: " + ", ".join(
             f"{k} {v:.2f} ({v / total:.1%})" for k, v in parts.items()))
         result["parts_ms"] = parts
         result["profile"] = phase_profile(torch, lambda *_: step(tokens), None, None,
                                           None, label)
-        impls = ("kernel", "plain") if seq == DECODER_CONFIGS[0][0] else ("kernel",)
-        for impl in impls:
+        # bf16: the kernel impl in turns with f32's, on one seed's weights
+        runs = ([("kernel", True), ("kernel", False), ("kernel", True), ("kernel", False)]
+                if bf16 else [("kernel", False)]
+                + ([("plain", False)] if seq == DECODER_CONFIGS[0][0] else []))
+        for impl, in_bf16 in runs:
             r = BD.bench_config(seq, batch, **DECODER, steps=5, warmup=2, impl=impl,
-                                seed=SEED)
+                                seed=SEED, bf16=in_bf16)
             print(f"[decoder] {json.dumps(r)}")
-            print(f"[decoder] {label} impl={impl}: {r['tokens_per_sec']:.1f} tokens/s, "
-                  f"{r['step_ms']:.2f} ms per step  [{smi}]")
+            print(f"[decoder] {label} impl={impl} bf16={in_bf16}: "
+                  f"{r['tokens_per_sec']:.1f} tokens/s, {r['step_ms']:.2f} ms per step  "
+                  f"[{smi}]")
             check(np.isfinite(r["loss"]) and r["step_ms"] > 0, f"{label}: bench result")
-            result[impl] = r
+            result.setdefault(impl if not bf16 else ("bf16" if in_bf16 else "f32"),
+                              []).append(r)
         out.append(result)
         del model, step
         torch.cuda.empty_cache()
@@ -4992,6 +5234,12 @@ SOURCES = {
     "sinekan_qkv_grouped_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:1557"),
     "fourierkan_bf16": (KAN_TC_SRC, f"{FB_PY}:2317"),
     "fourierkan_bwd_bf16": (KAN_TC_SRC, f"{FB_PY}:2564"),
+    "flash_attention_bf16": ("kanvit_torch/kernels/csrc/flash_attention.cu",
+                             "kanvit/kernels/flash_attention.py:132"),
+    "flash_attention_dq_bf16": ("kanvit_torch/kernels/csrc/flash_attention.cu",
+                                "kanvit/kernels/flash_attention.py:806"),
+    "flash_attention_dkv_bf16": ("kanvit_torch/kernels/csrc/flash_attention.cu",
+                                 "kanvit/kernels/flash_attention.py:831"),
 }
 # The single-tile tier of flash_attention runs the lanes kernels (phase 5);
 # fourierkan's and sinekan's kernels serve kanvit's generic tier below its
@@ -5160,6 +5408,22 @@ ROUTES = {
                   "(writes delta) then attention_lanes_dkv_bf16<dh>, the forward's (m, l), "
                   "pn and dsc rounded to bf16 at their dots, qs by the bf16 scale and dq by "
                   "the f32 one; K, V, do tiles by cp.async and ldmatrix"},
+    "flash_attention_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: flash_fwd_bf16<dh>, one "
+                  "pass over 32-key tiles (K by ldmatrix, V by ldmatrix.trans, cp.async, "
+                  "double buffered), the f32 product scaled by the f32 dh^-1/2, online "
+                  "softmax in f32, p rounded to bf16 for P V against its tiles' running "
+                  "max, o = bf16(acc / l); the causal frontier, longest blocks first"},
+    "flash_attention_dq_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: flash_dq_bf16<dh> (writes "
+                  "delta from the bf16 o and do), p from the forward's (m, l), ds = p scale "
+                  "(dp - delta) rounded to bf16 for dS K, dq rounded once with no scale "
+                  "after it; K, V tiles by cp.async and ldmatrix"},
+    "flash_attention_dkv_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: flash_dkv_bf16<dh>, the "
+                  "warp's keys' k and v rows in registers, q and do tiles by cp.async and "
+                  "ldmatrix, p and ds rounded to bf16 for P^T do and dS^T q (q unscaled), "
+                  "each rounded once; the dead-row scan of the f32 kernel"},
     "chebykan_bf16": {
         "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Cheby, "
                   "24, 12, 1, Bf16, 0> at one group (the bf16 q/k/v's template and shape, 192 "
@@ -5283,6 +5547,7 @@ ROUTES = {
 # The main path each kernel must have been launched on ("train" otherwise).
 MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
              "flash_attention_dkv": "decoder",
+             **{f"flash_attention{part}_bf16": "decoder_bf16" for part in ("", "_dq", "_dkv")},
              "chebykan": "cheby_train", "chebykan_bwd": "cheby_train",
              "cheby_qkv_grouped": "cheby_train",
              "cheby_qkv_grouped_bwd": "cheby_train",
@@ -5324,6 +5589,7 @@ def main():
     results = timed("forward kernels", phase_kernels, torch)
     results.update(timed("backward kernels", phase_backward_kernels, torch))
     results.update(timed("tiled attention kernels", phase_flash_kernels, torch))
+    results.update(timed("bf16 tiled attention kernels", phase_flash_bf16_kernels, torch))
     fwd, bwd = timed("single-tile route", check_single_tile, torch,
                      np.random.default_rng(SEED + 9))
     results["flash_attention_lanes"] += ({"single_tile_route": sub_entry(fwd)},)
@@ -5355,6 +5621,8 @@ def main():
     paths["bf16_train"] = timed("efficientkan bf16 training", phase_bf16_train, torch, smi,
                                 *at_depth(model_cpu, BF16_PER_BATCH, "efficientkan"))["launches"]
     paths["decoder"] = timed("decoder training", phase_decoder, torch, smi)["launches"]
+    paths["decoder_bf16"] = timed("decoder bf16 training", phase_decoder, torch, smi,
+                                  True)["launches"]
     paths["flash_serve"] = timed(
         "flash-attn serving", phase_serve, torch, smi, build_model("flash-attn"),
         "flash-serve", lanes, SEED + 5)["launches"]

@@ -102,6 +102,12 @@ SIGNATURES = {
         [_p, _p, _p, *[_i64] * 9, *[_p] * 6, *[_i32] * 6, _f32, _p], _i32),
     "kanvit_flash_attention_dkv": (
         [_p, _p, _p, *[_i64] * 9, *[_p] * 6, *[_i32] * 6, _f32, _p], _i32),
+    "kanvit_flash_attention_fwd_bf16": (
+        [_p, _p, _p, *[_i64] * 9, *[_p] * 3, *[_i32] * 6, _f32, _p], _i32),
+    "kanvit_flash_attention_dq_bf16": (
+        [_p, _p, _p, *[_i64] * 9, *[_p] * 6, *[_i32] * 6, _f32, _p], _i32),
+    "kanvit_flash_attention_dkv_bf16": (
+        [_p, _p, _p, *[_i64] * 9, *[_p] * 6, *[_i32] * 6, _f32, _p], _i32),
 }
 
 _lib: ctypes.CDLL | None = None

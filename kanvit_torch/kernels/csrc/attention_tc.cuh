@@ -16,11 +16,12 @@
 // chained through the running sum it put the vit-s lanes forward further
 // from f64 than 1e-6. The dropped small*small term is ~2^-22 of a product.
 //
-// bf16 (the bf16 serving forwards: attention_lanes.cu, kan_basis_tc.cuh part
-// 3): mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one product a
-// 16-deep step into the f32 running sum (the products of two bf16 are exact
-// in f32); the attention's B operands are loaded from shared memory by
-// ldmatrix, the KAN forward's from its pre-pass layout.
+// bf16 (the bf16 attention kernels, attention_lanes.cu and
+// flash_attention.cu; the KAN kernels, kan_basis_tc.cuh parts 3-4):
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one product a 16-deep
+// step into the f32 running sum (the products of two bf16 are exact in f32);
+// the attention's B operands are loaded from shared memory by ldmatrix, the
+// KAN forward's from its pre-pass layout.
 //
 // Fragments of m16n8k8 (g = lane / 4, t = lane % 4): A holds (g, t),
 // (g+8, t), (g, t+4), (g+8, t+4); B holds (k t, n g), (k t+4, n g); the
@@ -44,15 +45,17 @@ inline bool tc_head_dim(int dh) {
   return dh == 8 || dh == 16 || dh == 32 || dh == 64;
 }
 
-// Every row of q, k and v starts 16-byte aligned (cp.async of 16 bytes).
-inline bool rows_aligned(const float* q, const float* k, const float* v,
+// Every row of q, k and v (elements of T, strides in elements) starts
+// 16-byte aligned (cp.async of 16 bytes).
+template <typename T>
+inline bool rows_aligned(const T* q, const T* k, const T* v,
                          long long q_sb, long long q_st, long long q_sh,
                          long long k_sb, long long k_st, long long k_sh,
                          long long v_sb, long long v_st, long long v_sh) {
   const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
   const long long strides =
       q_sb | q_st | q_sh | k_sb | k_st | k_sh | v_sb | v_st | v_sh;
-  return ptrs % 16 == 0 && strides % 4 == 0;
+  return ptrs % 16 == 0 && strides % (16 / (long long)sizeof(T)) == 0;
 }
 
 __device__ __forceinline__ uint32_t tf32_rna(float x) {
@@ -313,6 +316,90 @@ __device__ __forceinline__ void stage_tile_bf16(__nv_bfloat16* dst,
     cp_async16(reinterpret_cast<float*>(dst + r * (DH + 8) + c),
                reinterpret_cast<const float*>(in ? src + row * stride + c : src), in);
   }
+}
+
+// The bf16 attention kernels' fragments (attention_lanes.cu,
+// flash_attention.cu). KD 16-deep steps span dh (at dh 8 one step, its
+// upper half zero); a staged tile has rows of dh + 8 bf16 and STEPS 8-row
+// steps.
+
+// The A fragments of 16 rows of a head (rows g and g + 8 at pa and pb, dh
+// bf16 values each), every value times f rounded to bf16 (fa, fb: 1 takes
+// the rows as they are, 0 a row past t_len).
+template <int DH>
+__device__ __forceinline__ void bf16_a_rows(const __nv_bfloat16* pa, const __nv_bfloat16* pb,
+                                            float fa, float fb, int t,
+                                            uint32_t (&a)[(DH + 15) / 16][4]) {
+  auto scaled = [&](const __nv_bfloat16* row, int c, float f) -> uint32_t {
+    if (c >= DH) return 0u;
+    const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
+    return pack_bf16(x.x * f, x.y * f);
+  };
+#pragma unroll
+  for (int kd = 0; kd < (DH + 15) / 16; ++kd) {
+    const int c = kd * 16 + 2 * t;
+    a[kd][0] = scaled(pa, c, fa);
+    a[kd][1] = scaled(pb, c, fb);
+    a[kd][2] = scaled(pa, c + 8, fa);
+    a[kd][3] = scaled(pb, c + 8, fb);
+  }
+}
+
+// s[n] = A T^T for the 8-row steps n < steps of a staged tile T (its rows
+// n*8 .. n*8+7 are the columns of B, read by ldmatrix), A a warp's 16 rows
+// as bf16_a_rows gives them; f32 accumulation, s zeroed first.
+template <int DH, int STEPS>
+__device__ __forceinline__ void bf16_rows_by_tile(const uint32_t (&a)[(DH + 15) / 16][4],
+                                                  const __nv_bfloat16* tile, int steps,
+                                                  int lane, float (&s)[STEPS][4]) {
+#pragma unroll
+  for (int n = 0; n < STEPS; ++n) s[n][0] = s[n][1] = s[n][2] = s[n][3] = 0.f;
+#pragma unroll
+  for (int n = 0; n < STEPS; ++n) {
+    if (n >= steps) continue;
+    const __nv_bfloat16* row = tile + (n * 8 + (lane & 7)) * (DH + 8);
+#pragma unroll
+    for (int kd = 0; kd < (DH + 15) / 16; ++kd) {
+      uint32_t b[2];
+      if constexpr (DH >= 16) {
+        ldsm_x2(b, row + kd * 16 + ((lane >> 3) & 1) * 8);
+      } else {
+        b[0] = ldsm_x1(row);
+        b[1] = 0u;
+      }
+      mma_bf16(s[n], a[kd], b);
+    }
+  }
+}
+
+// acc[d] += C T for the 16-row steps m with 2m < steps: C the f32 tiles
+// c[2m], c[2m + 1] (8 columns each, a C fragment's layout) rounded to bf16
+// as the A fragment over those 16 columns, T the staged tile's rows
+// 16m .. 16m + 15 (read by ldmatrix.trans: a row of T is a row of B).
+template <int DH, int STEPS>
+__device__ __forceinline__ void bf16_c_by_tile(const float (&c)[STEPS][4],
+                                               const __nv_bfloat16* tile, int steps, int lane,
+                                               float (&acc)[DH / 8][4]) {
+#pragma unroll
+  for (int m = 0; m < STEPS / 2; ++m) {
+    if (2 * m >= steps) continue;
+    const uint32_t pa[4] = {pack_bf16(c[2 * m][0], c[2 * m][1]),
+                            pack_bf16(c[2 * m][2], c[2 * m][3]),
+                            pack_bf16(c[2 * m + 1][0], c[2 * m + 1][1]),
+                            pack_bf16(c[2 * m + 1][2], c[2 * m + 1][3])};
+    const __nv_bfloat16* row = tile + (m * 16 + (lane & 15)) * (DH + 8);
+#pragma unroll
+    for (int d = 0; d < DH / 8; ++d) {
+      uint32_t b[2];
+      ldsm_x2_trans(b, row + d * 8);
+      mma_bf16(acc[d], pa, b);
+    }
+  }
+}
+
+// Two f32 accumulators of a C fragment, rounded to bf16, at dst (a pair).
+__device__ __forceinline__ void store_bf16_pair(__nv_bfloat16* dst, float a, float b) {
+  *reinterpret_cast<uint32_t*>(dst) = pack_bf16(a, b);
 }
 
 }  // namespace

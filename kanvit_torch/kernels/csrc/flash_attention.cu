@@ -6,6 +6,9 @@
 //   backward: _flash_bwd's dq kernel (pallas_call at :806, body
 //             _bwd_dq_kernel :176-223) and its dk/dv kernel (:831, body
 //             _bwd_dkv_kernel :226-272).
+// On bf16 operands (kanvit's bf16 policy, the causal decoder's --bf16) the
+// same three run as flash_fwd_bf16, flash_dq_bf16 and flash_dkv_bf16, below
+// the f32 tensor-core kernels, at dh 8, 16, 32 and 64.
 //
 // Per batch item b and head h, with qpos = row - max(tk - tq, 0):
 //   s = q k^T * dh^-1/2, set to NEG_INF (the finite float32 min) on masked
@@ -99,14 +102,17 @@ constexpr int BT = 32;   // rows per staged generic backward tile
 constexpr float EPSILON = 1e-10f;
 constexpr float NEG_INF = -FLT_MAX;
 
-// An f32 (B, T, H, dh) tensor read through its strides (in elements).
-struct View {
-  const float* p;
+// A (B, T, H, dh) tensor of T read through its strides (in elements).
+template <typename T>
+struct StridedView {
+  const T* p;
   long long sb, st, sh;
-  __device__ __forceinline__ const float* at(int b, int t, int h) const {
+  __device__ __forceinline__ const T* at(int b, int t, int h) const {
     return p + b * sb + t * st + h * sh;
   }
 };
+using View = StridedView<float>;
+using View16 = StridedView<__nv_bfloat16>;
 
 __device__ __forceinline__ bool key_ok(const uint8_t* mask, int b, int tk,
                                        int key) {
@@ -793,6 +799,418 @@ flash_dkv_tc(View q, View k, View v, const uint8_t* __restrict__ mask,
   }
 }
 
+// --- bf16 tensor-core kernels: dh 8, 16, 32, 64 ----------------------------
+// kanvit's bf16 policy for the tiled kernels (_fwd_kernel :66-123,
+// _bwd_dq_kernel :176-223, _bwd_dkv_kernel :226-272) on bf16 q, k, v, o and
+// do, with the f32 kernels' edge semantics above:
+//   s = (q k^T) * dh^-1/2, f32 sums of bf16 products, the f32 scale after
+//       the product; the finite NEG_INF where masked;
+//   forward: online softmax in f32 (running max m, p = exp(s - m) zeroed on
+//       invalid keys, each tile's sum of the unrounded p clamped at 1e-10),
+//       acc = acc * corr + bf16(p) v in f32, o = bf16(acc / max(l, 1e-10)),
+//       a true division; (m, l) in f32 for the backward;
+//   backward: p = exp(s - m) * (1 / l), delta = rowsum(f32(do) f32(o)) from
+//       the bf16 o, ds = (p * dh^-1/2) * (do v^T - delta) in f32, 0 where
+//       causally unseen; dq = bf16(bf16(ds) k) with no scale after it,
+//       dk = bf16(bf16(ds)^T q) with q unscaled, dv = bf16(bf16(p)^T do).
+// Every product is bf16 mma.sync.m16n8k16 with f32 accumulation, fed by
+// ldmatrix (attention_tc.cuh's bf16 helpers, as the lanes bf16 kernels):
+//   forward S = q K^T        A q rows (registers)       B K tile (ldmatrix)
+//           O += P V         A P from S's C fragments   B V tile (.trans)
+//   dq      S, dP = do V^T   A q, do rows (registers)   B K, V tiles
+//           dQ += dS K       A dS from C                B K tile (.trans)
+//   dk/dv   S^T = K q^T,     A K, V rows of the warp's  B q, do tiles
+//           dP^T = V do^T      keys (registers)
+//           dV += P^T do,    A from the C fragments     B do, q tiles (.trans)
+//           dK += dS^T q
+// The grids, the 64 resident rows a block (16 a warp), the causal frontier
+// and its exceptions for rows with m == NEG_INF, the longest blocks first,
+// the two backward kernels (dq writes delta) and the layout of o, do and
+// the gradients are the f32 kernels'. Streamed tiles are 32 rows, staged
+// raw by 16-byte cp.async, double buffered (rows of dh + 8 bf16), so every
+// row of q, k, v and do must start 16-byte aligned.
+//
+// One pass: the forward rounds p against its running max over its own
+// 32-key tiles, where kanvit rounds it against the running max over its
+// 128-multiple key blocks (_plan's bk). Each bf16(p) is within 2^-8 of its
+// f32 value on either side, so o may differ from the twin's by 2^-7 of
+// sum(p |v|) / l besides one output ulp (chip_smoke.py's gate; the CPU
+// tests emulate these tiles). The backward renormalises by the final (m, l), so
+// no tiling enters it.
+
+constexpr int BF_TILE = 32;            // rows a streamed bf16 tile
+constexpr int BF_STEPS = BF_TILE / 8;  // its 8-row steps
+
+// Forward. One block per (head, batch, 64 query rows), the query tiles
+// longest first; warp w owns rows q0 + 16w .. +15, its q rows as A
+// fragments in registers.
+template <int DH>
+__global__ void __launch_bounds__(NT)
+flash_fwd_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
+               __nv_bfloat16* __restrict__ o, float* __restrict__ stats, int tq, int tk,
+               int heads, int causal, float scale) {
+  constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
+  __shared__ __align__(16) __nv_bfloat16 ks[2][BF_TILE][P];
+  __shared__ __align__(16) __nv_bfloat16 vs[2][BF_TILE][P];
+  __shared__ unsigned kbits[2];  // key_bits of each buffer's tile
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  const int r0 = q0 + warp * 16;
+  const bool active = r0 < tq;
+  const int ra = r0 + g, rb = ra + 8;
+  const bool la = ra < tq, lb = rb < tq;
+  const int diff = max(tk - tq, 0);
+  // Keys the warp's rows may see: below tk and, causal, at or before its
+  // last live row's position.
+  const int wkeys = causal ? min(tk, min(r0 + 15, tq - 1) - diff + 1) : tk;
+
+  uint32_t qa[KD][4];
+  bf16_a_rows<DH>(q.at(b, min(ra, tq - 1), h), q.at(b, min(rb, tq - 1), h),
+                  la ? 1.f : 0.f, lb ? 1.f : 0.f, t, qa);
+  float acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  float ma = NEG_INF, mb = NEG_INF, sa = 0.f, sb = 0.f;  // running max and sum
+
+  // Keys past the block's last row are causally masked for all its rows.
+  const int frontier = causal ? min(tk, max(0, q0 + TC_ROWS - diff)) : tk;
+  const int tiles = (tk + BF_TILE - 1) / BF_TILE;
+  const __nv_bfloat16* kh = k.at(b, 0, h);
+  const __nv_bfloat16* vh = v.at(b, 0, h);
+  auto stage = [&](int tile, int buf) {
+    stage_tile_bf16<DH, BF_TILE>(&ks[buf][0][0], kh, k.st, tile * BF_TILE, tk, tid);
+    stage_tile_bf16<DH, BF_TILE>(&vs[buf][0][0], vh, v.st, tile * BF_TILE, tk, tid);
+    cp_async_commit();
+    if (warp == 0) {
+      const unsigned bits = key_bits(mask, b, tk, tile * BF_TILE, lane);
+      if (lane == 0) kbits[buf] = bits;
+    }
+  };
+  stage(0, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, k0 = it * BF_TILE;
+    const bool dead = (la && ma == NEG_INF) || (lb && mb == NEG_INF);
+    // Past the frontier only a row with no valid key so far still changes.
+    // The barrier also frees the buffer the next stage fills.
+    if (!__syncthreads_or(k0 < frontier || dead)) break;
+    if (it + 1 < tiles) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the tile and its key bits have landed
+
+    // Skip the tile when no row of the warp sees one of its keys, unless a
+    // row has m == NEG_INF: it takes every valid key, seen or not.
+    if (!active || (k0 >= wkeys && !__any_sync(0xffffffffu, dead))) continue;
+    const unsigned kv = kbits[buf] >> (2 * t);  // bit 8n + c: key k0 + 8n + 2t + c
+    const int steps = min(BF_STEPS, (tk - k0 + 7) / 8);
+    // key k0 + 8n + 2t + (c & 1) is causally seen by row r iff
+    // 8n + (c & 1) <= r - diff - k0 - 2t
+    const int lim_a = causal ? ra - diff - k0 - 2 * t : BF_TILE;
+    const int lim_b = causal ? rb - diff - k0 - 2 * t : BF_TILE;
+    float s[BF_STEPS][4];
+    bf16_rows_by_tile<DH>(qa, &ks[buf][0][0], steps, lane, s);
+    float mxa = ma, mxb = mb;
+#pragma unroll
+    for (int n = 0; n < BF_STEPS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        const int j = n * 8 + (c & 1);
+        const bool ok = ((kv >> j) & 1u) && j <= (c < 2 ? lim_a : lim_b);
+        s[n][c] = ok ? s[n][c] * scale : NEG_INF;
+        if (c < 2) mxa = fmaxf(mxa, s[n][c]);
+        else mxb = fmaxf(mxb, s[n][c]);
+      }
+    mxa = quad_max(mxa);
+    mxb = quad_max(mxb);
+    const float ca = expf(ma - mxa), cb = expf(mb - mxb);
+    float ta = 0.f, tb = 0.f;
+#pragma unroll
+    for (int n = 0; n < BF_STEPS; ++n)
+#pragma unroll
+      for (int c = 0; c < 4; ++c) {
+        // 1 on a valid, causally masked key of a row whose max is NEG_INF
+        const int j = n * 8 + (c & 1);
+        const float e = expf(s[n][c] - (c < 2 ? mxa : mxb));  // in [0, 1]
+        s[n][c] = ((kv >> j) & 1u) ? e : 0.f;
+        if (c < 2) ta += s[n][c];
+        else tb += s[n][c];
+      }
+    sa = ca * sa + fmaxf(quad_sum(ta), EPSILON);
+    sb = cb * sb + fmaxf(quad_sum(tb), EPSILON);
+    ma = mxa;
+    mb = mxb;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      acc[d][0] *= ca;
+      acc[d][1] *= ca;
+      acc[d][2] *= cb;
+      acc[d][3] *= cb;
+    }
+    bf16_c_by_tile<DH>(s, &vs[buf][0][0], steps, lane, acc);  // + bf16(p) V
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (row >= tq) continue;
+    const float lc = fmaxf(half ? sb : sa, EPSILON);
+    __nv_bfloat16* op = o + (((long long)b * tq + row) * heads + h) * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      store_bf16_pair(op + d * 8, acc[d][2 * half] / lc, acc[d][2 * half + 1] / lc);
+    if (stats != nullptr && t == 0) {
+      float* sp = stats + (((long long)b * heads + h) * tq + row) * 2;
+      sp[0] = half ? mb : ma;
+      sp[1] = lc;
+    }
+  }
+}
+
+// dq and delta. One block per (head, batch, 64 query rows), the query tiles
+// longest first; warp w owns rows q0 + 16w .. +15, its q and do rows as A
+// fragments in registers. Streams K and V tiles up to the block's causal
+// frontier (ds is 0 past it).
+template <int DH>
+__global__ void __launch_bounds__(NT)
+flash_dq_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
+              const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
+              const float* __restrict__ stats, float* __restrict__ delta_out,
+              __nv_bfloat16* __restrict__ dq, int tq, int tk, int heads, int causal,
+              float scale) {
+  constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
+  __shared__ __align__(16) __nv_bfloat16 ks[2][BF_TILE][P];
+  __shared__ __align__(16) __nv_bfloat16 vs[2][BF_TILE][P];
+  __shared__ unsigned kbits[2];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
+  const int r0 = q0 + warp * 16;
+  const bool active = r0 < tq;
+  const int ra = r0 + g, rb = ra + 8;
+  const bool la = ra < tq, lb = rb < tq;
+  const int diff = max(tk - tq, 0);
+  const int wkeys = causal ? min(tk, min(r0 + 15, tq - 1) - diff + 1) : tk;
+  const long long hs = (long long)heads * DH;  // row stride of o, do and dq
+  const long long oa = ((long long)b * tq + min(ra, tq - 1)) * hs + h * DH;
+  const long long ob = ((long long)b * tq + min(rb, tq - 1)) * hs + h * DH;
+  const long long srow = ((long long)b * heads + h) * tq;  // of stats, delta
+
+  uint32_t qa[KD][4], da[KD][4];
+  bf16_a_rows<DH>(q.at(b, min(ra, tq - 1), h), q.at(b, min(rb, tq - 1), h),
+                  la ? 1.f : 0.f, lb ? 1.f : 0.f, t, qa);
+  bf16_a_rows<DH>(dout + oa, dout + ob, la ? 1.f : 0.f, lb ? 1.f : 0.f, t, da);
+  float dla = 0.f, dlb = 0.f;  // delta = rowsum(f32(do) f32(o))
+#pragma unroll
+  for (int d = 0; d < ND; ++d) {
+    const int c = d * 8 + 2 * t;
+    const float2 da2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + oa + c));
+    const float2 oa2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + oa + c));
+    const float2 db2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + ob + c));
+    const float2 ob2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + ob + c));
+    dla = fmaf(da2.y, oa2.y, fmaf(da2.x, oa2.x, dla));
+    dlb = fmaf(db2.y, ob2.y, fmaf(db2.x, ob2.x, dlb));
+  }
+  dla = quad_sum(dla);  // every lane shuffles; rows past tq read row tq - 1
+  dlb = quad_sum(dlb);
+  const float ma = la ? stats[(srow + ra) * 2] : 0.f;
+  const float mb = lb ? stats[(srow + rb) * 2] : 0.f;
+  const float rla = la ? 1.f / stats[(srow + ra) * 2 + 1] : 0.f;
+  const float rlb = lb ? 1.f / stats[(srow + rb) * 2 + 1] : 0.f;
+
+  float acc[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
+  const int kend = causal ? min(tk, max(0, q0 + TC_ROWS - diff)) : tk;
+  const int tiles = (kend + BF_TILE - 1) / BF_TILE;
+  const __nv_bfloat16* kh = k.at(b, 0, h);
+  const __nv_bfloat16* vh = v.at(b, 0, h);
+  auto stage = [&](int tile, int buf) {
+    stage_tile_bf16<DH, BF_TILE>(&ks[buf][0][0], kh, k.st, tile * BF_TILE, tk, tid);
+    stage_tile_bf16<DH, BF_TILE>(&vs[buf][0][0], vh, v.st, tile * BF_TILE, tk, tid);
+    cp_async_commit();
+    if (warp == 0) {
+      const unsigned bits = key_bits(mask, b, tk, tile * BF_TILE, lane);
+      if (lane == 0) kbits[buf] = bits;
+    }
+  };
+  if (tiles > 0) stage(0, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, k0 = it * BF_TILE;
+    if (it + 1 < tiles) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the tile and its key bits have landed
+    if (active && k0 < wkeys) {
+      const unsigned kv = kbits[buf] >> (2 * t);  // bit 8n + c: key k0 + 8n + 2t + c
+      const int steps = min(BF_STEPS, (wkeys - k0 + 7) / 8);
+      // key k0 + 8n + 2t + (c & 1) is seen by row r iff 8n + (c & 1) <= lim
+      const int lim_a = !la ? -1 : causal ? ra - diff - k0 - 2 * t : BF_TILE;
+      const int lim_b = !lb ? -1 : causal ? rb - diff - k0 - 2 * t : BF_TILE;
+      float s[BF_STEPS][4], dp[BF_STEPS][4];
+      bf16_rows_by_tile<DH>(qa, &ks[buf][0][0], steps, lane, s);
+      bf16_rows_by_tile<DH>(da, &vs[buf][0][0], steps, lane, dp);
+#pragma unroll
+      for (int n = 0; n < BF_STEPS; ++n)  // s becomes ds, in f32
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int j = n * 8 + (c & 1);
+          const bool hi = c >= 2;
+          const bool vis = j <= (hi ? lim_b : lim_a);
+          // computed for every entry, then selected: no branch a score
+          const float e = expf((vis ? s[n][c] * scale : NEG_INF) - (hi ? mb : ma)) *
+                          (hi ? rlb : rla);
+          const float p = ((kv >> j) & 1u) ? e : 0.f;
+          s[n][c] = vis ? (p * scale) * (dp[n][c] - (hi ? dlb : dla)) : 0.f;
+        }
+      bf16_c_by_tile<DH>(s, &ks[buf][0][0], steps, lane, acc);  // + bf16(ds) K
+    }
+    __syncthreads();  // this buffer is restaged two tiles on
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int row = half ? rb : ra;
+    if (row >= tq) continue;
+    __nv_bfloat16* dqp = dq + ((long long)b * tq + row) * hs + h * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d)
+      store_bf16_pair(dqp + d * 8, acc[d][2 * half], acc[d][2 * half + 1]);
+    if (t == 0) delta_out[srow + row] = half ? dlb : dla;
+  }
+}
+
+// dk and dv. One block per (head, batch, 64 keys), key tile 0 (the one the
+// most queries see) first; warp w owns keys k0 + 16w .. +15, its k and v
+// rows as A fragments in registers. Streams q and do tiles with their
+// queries' (m, 1 / l) and delta.
+template <int DH>
+__global__ void __launch_bounds__(NT)
+flash_dkv_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
+               const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
+               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+               __nv_bfloat16* __restrict__ dv, int tq, int tk, int heads, int causal,
+               float scale) {
+  constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
+  __shared__ __align__(16) __nv_bfloat16 qs[2][BF_TILE][P];
+  __shared__ __align__(16) __nv_bfloat16 dos[2][BF_TILE][P];
+  __shared__ float mrow[2][BF_TILE], rlrow[2][BF_TILE], drow[2][BF_TILE];
+
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const int g = lane >> 2, t = lane & 3;
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * TC_ROWS;
+  const int j0 = k0 + warp * 16;  // the warp's first key
+  const bool active = j0 < tk;
+  const int ja = j0 + g, jb = ja + 8;
+  const bool va = key_ok(mask, b, tk, ja), vb = key_ok(mask, b, tk, jb);
+  const int diff = max(tk - tq, 0);
+  const long long hs = (long long)heads * DH;  // row stride of do, dk and dv
+  const long long srow = ((long long)b * heads + h) * tq;  // of stats, delta
+
+  uint32_t ka[KD][4], vfa[KD][4];
+  bf16_a_rows<DH>(k.at(b, min(ja, tk - 1), h), k.at(b, min(jb, tk - 1), h),
+                  ja < tk ? 1.f : 0.f, jb < tk ? 1.f : 0.f, t, ka);
+  bf16_a_rows<DH>(v.at(b, min(ja, tk - 1), h), v.at(b, min(jb, tk - 1), h),
+                  ja < tk ? 1.f : 0.f, jb < tk ? 1.f : 0.f, t, vfa);
+  float dka[ND][4], dva[ND][4];
+#pragma unroll
+  for (int d = 0; d < ND; ++d)
+#pragma unroll
+    for (int c = 0; c < 4; ++c) dka[d][c] = dva[d][c] = 0.f;
+
+  // Causal: query i sees key j only for i - diff >= j. A query that sees
+  // none of the block's keys adds only where it saw no valid key at all
+  // (m = NEG_INF: p = 1/l on every valid key, into dv). Unless a row before
+  // the one that sees the block's last key is such a row, the block starts
+  // at the tile of the first query that sees its first key and each warp
+  // skips the tiles that see none of its keys; else it streams every query.
+  bool skip = false;
+  int i_start = 0;
+  if (causal) {
+    const int scan = min(tq, k0 + TC_ROWS - 1 + diff);
+    bool dead = false;
+    for (int r = tid; r < scan; r += NT) dead |= stats[(srow + r) * 2] == NEG_INF;
+    skip = !__syncthreads_or(dead);
+    if (skip) i_start = min(tq, k0 + diff) / BF_TILE * BF_TILE;
+  }
+  const int tiles = (tq - i_start + BF_TILE - 1) / BF_TILE;
+  const __nv_bfloat16* qh = q.at(b, 0, h);
+  const __nv_bfloat16* doh = dout + (long long)b * tq * hs + h * DH;
+  auto stage = [&](int tile, int buf) {
+    const int i0 = i_start + tile * BF_TILE;
+    stage_tile_bf16<DH, BF_TILE>(&qs[buf][0][0], qh, q.st, i0, tq, tid);
+    stage_tile_bf16<DH, BF_TILE>(&dos[buf][0][0], doh, hs, i0, tq, tid);
+    cp_async_commit();
+    if (tid < BF_TILE) {
+      const int qi = i0 + tid;
+      const bool in = qi < tq;
+      mrow[buf][tid] = in ? stats[(srow + qi) * 2] : 0.f;
+      rlrow[buf][tid] = in ? 1.f / stats[(srow + qi) * 2 + 1] : 0.f;
+      drow[buf][tid] = in ? delta[srow + qi] : 0.f;
+    }
+  };
+  if (tiles > 0) stage(0, 0);
+  for (int it = 0; it < tiles; ++it) {
+    const int buf = it & 1, i0 = i_start + it * BF_TILE;
+    if (it + 1 < tiles) {
+      stage(it + 1, buf ^ 1);
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // the tiles and their rows' (m, 1 / l, delta) have landed
+    // Skipping, a tile whose last query sees none of the warp's keys adds
+    // nothing; every 8-query step below tq is computed otherwise, the masks
+    // zeroing p and ds where a query does not see a key.
+    const int steps = min(BF_STEPS, (tq - i0 + 7) / 8);
+    if (active && !(skip && i0 + BF_TILE - 1 - diff < j0)) {
+      float st[BF_STEPS][4], dpt[BF_STEPS][4];
+      bf16_rows_by_tile<DH>(ka, &qs[buf][0][0], steps, lane, st);
+      bf16_rows_by_tile<DH>(vfa, &dos[buf][0][0], steps, lane, dpt);
+#pragma unroll
+      for (int n = 0; n < BF_STEPS; ++n)  // st becomes p^T, dpt ds^T, in f32
+#pragma unroll
+        for (int c = 0; c < 4; ++c) {
+          const int r = n * 8 + 2 * t + (c & 1), qi = i0 + r;
+          const bool hi = c >= 2;
+          const bool vis = !causal || (hi ? jb : ja) <= qi - diff;
+          const float e = expf((vis ? st[n][c] * scale : NEG_INF) - mrow[buf][r]) *
+                          rlrow[buf][r];
+          const float p = ((hi ? vb : va) && qi < tq) ? e : 0.f;
+          dpt[n][c] = vis ? (p * scale) * (dpt[n][c] - drow[buf][r]) : 0.f;
+          st[n][c] = p;
+        }
+      bf16_c_by_tile<DH>(st, &dos[buf][0][0], steps, lane, dva);  // + bf16(p)^T do
+      bf16_c_by_tile<DH>(dpt, &qs[buf][0][0], steps, lane, dka);  // + bf16(ds)^T q
+    }
+    __syncthreads();  // this buffer is restaged two tiles on
+  }
+
+#pragma unroll
+  for (int half = 0; half < 2; ++half) {
+    const int key = half ? jb : ja;
+    if (key >= tk) continue;
+    const long long off = ((long long)b * tk + key) * hs + h * DH + 2 * t;
+#pragma unroll
+    for (int d = 0; d < ND; ++d) {
+      store_bf16_pair(dk + off + d * 8, dka[d][2 * half], dka[d][2 * half + 1]);
+      store_bf16_pair(dv + off + d * 8, dva[d][2 * half], dva[d][2 * half + 1]);
+    }
+  }
+}
+
 // --- generic head dims (attention_common.cuh): the same functions, one
 // thread a row, the head dim walked at run time in chunks of C; the q (and
 // do) row re-read per staged tile, the accumulators in shared memory.
@@ -1229,5 +1647,89 @@ extern "C" int kanvit_flash_attention_dkv(
   flash_dkv_generic<<<dim3((tk + BR - 1) / BR, heads, batch), BR, smem, st>>>(
       qv, kv, vv, mask, dout, stats, delta, dk, dv, tq, tk, heads, dh, causal,
       scale);
+  return (int)cudaGetLastError();
+}
+
+// --- bf16 entries: dh 8, 16, 32, 64 -------------------------------------------
+// As the f32 entries above, on bf16 q, k, v (and o, dout, dq, dk, dv), with
+// (m, l) stats and delta in f32. Every row of q, k and v must start 16-byte
+// aligned (strides multiples of 8 elements), and dout too, else
+// cudaErrorMisalignedAddress; another head dim is cudaErrorInvalidValue.
+// The bf16 forward: o (batch, tq, heads*dh) bf16 contiguous; stats as the
+// f32 forward's, or null. Launches on `stream` and returns
+// cudaGetLastError() (0 on success).
+extern "C" int kanvit_flash_attention_fwd_bf16(
+    const void* q, const void* k, const void* v, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
+    long long v_st, long long v_sh, const uint8_t* mask, void* o, float* stats,
+    int batch, int tq, int tk, int heads, int dh, int causal, float scale,
+    void* stream) {
+  if (bad_dims(batch, tq, tk, heads) || !tc_head_dim(dh)) return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  const View16 qv{static_cast<const bf*>(q), q_sb, q_st, q_sh},
+      kv{static_cast<const bf*>(k), k_sb, k_st, k_sh},
+      vv{static_cast<const bf*>(v), v_sb, v_st, v_sh};
+  if (!rows_aligned(qv.p, kv.p, vv.p, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh))
+    return (int)cudaErrorMisalignedAddress;
+  const dim3 grid(heads, batch, (tq + TC_ROWS - 1) / TC_ROWS);
+#define KANVIT_FWD_BF16(D)                                                   \
+  flash_fwd_bf16<D><<<grid, NT, 0, (cudaStream_t)stream>>>(                 \
+      qv, kv, vv, mask, static_cast<bf*>(o), stats, tq, tk, heads, causal, \
+      scale)
+  KANVIT_TC_SWITCH(KANVIT_FWD_BF16)
+#undef KANVIT_FWD_BF16
+  return (int)cudaGetLastError();
+}
+
+// dq of the bf16 forward and delta = rowsum(dout * o) in f32. o, dout:
+// (batch, tq, heads*dh) bf16 contiguous; stats: the forward's; delta:
+// (batch, heads, tq) f32, written; dq: (batch, tq, heads*dh) bf16 contiguous.
+extern "C" int kanvit_flash_attention_dq_bf16(
+    const void* q, const void* k, const void* v, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
+    long long v_st, long long v_sh, const uint8_t* mask, const void* o,
+    const void* dout, const float* stats, float* delta, void* dq, int batch, int tq,
+    int tk, int heads, int dh, int causal, float scale, void* stream) {
+  if (bad_dims(batch, tq, tk, heads) || !tc_head_dim(dh)) return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  const View16 qv{static_cast<const bf*>(q), q_sb, q_st, q_sh},
+      kv{static_cast<const bf*>(k), k_sb, k_st, k_sh},
+      vv{static_cast<const bf*>(v), v_sb, v_st, v_sh};
+  if (!rows_aligned(qv.p, kv.p, vv.p, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh))
+    return (int)cudaErrorMisalignedAddress;
+  const dim3 grid(heads, batch, (tq + TC_ROWS - 1) / TC_ROWS);
+#define KANVIT_DQ_BF16(D)                                                      \
+  flash_dq_bf16<D><<<grid, NT, 0, (cudaStream_t)stream>>>(                    \
+      qv, kv, vv, mask, static_cast<const bf*>(o), static_cast<const bf*>(dout), \
+      stats, delta, static_cast<bf*>(dq), tq, tk, heads, causal, scale)
+  KANVIT_TC_SWITCH(KANVIT_DQ_BF16)
+#undef KANVIT_DQ_BF16
+  return (int)cudaGetLastError();
+}
+
+// dk and dv of the bf16 forward. dout, stats as for the dq entry (dout
+// 16-byte aligned); delta: what the dq entry wrote; dk, dv: (batch, tk,
+// heads*dh) bf16 contiguous.
+extern "C" int kanvit_flash_attention_dkv_bf16(
+    const void* q, const void* k, const void* v, long long q_sb, long long q_st,
+    long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
+    long long v_st, long long v_sh, const uint8_t* mask, const void* dout,
+    const float* stats, const float* delta, void* dk, void* dv, int batch, int tq,
+    int tk, int heads, int dh, int causal, float scale, void* stream) {
+  if (bad_dims(batch, tq, tk, heads) || !tc_head_dim(dh)) return (int)cudaErrorInvalidValue;
+  using bf = __nv_bfloat16;
+  const View16 qv{static_cast<const bf*>(q), q_sb, q_st, q_sh},
+      kv{static_cast<const bf*>(k), k_sb, k_st, k_sh},
+      vv{static_cast<const bf*>(v), v_sb, v_st, v_sh};
+  if (!rows_aligned(qv.p, kv.p, vv.p, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh) ||
+      (uintptr_t)dout % 16 != 0)
+    return (int)cudaErrorMisalignedAddress;
+  const dim3 grid(heads, batch, (tk + TC_ROWS - 1) / TC_ROWS);
+#define KANVIT_DKV_BF16(D)                                                        \
+  flash_dkv_bf16<D><<<grid, NT, 0, (cudaStream_t)stream>>>(                      \
+      qv, kv, vv, mask, static_cast<const bf*>(dout), stats, delta,               \
+      static_cast<bf*>(dk), static_cast<bf*>(dv), tq, tk, heads, causal, scale)
+  KANVIT_TC_SWITCH(KANVIT_DKV_BF16)
+#undef KANVIT_DKV_BF16
   return (int)cudaGetLastError();
 }

@@ -11,20 +11,26 @@ Dispatch is by device: a CPU tensor runs the plain version
 ``flash_attention_reference``), which autograd differentiates; a CUDA tensor
 goes through :class:`_LanesFn` or :class:`_FlashFn`, whose forward and
 backward launch the kernels or raise. f32; dh a multiple of 8 from 8
-through 128 (:func:`check_head_dim`). bf16 q, k and v take the lanes
-tier's bf16 kernels (kanvit's bf16 policy, ``csrc/attention_lanes.cu``),
-forward and backward, at head dims 8, 16, 32 and 64 only; on the CPU their
-plain twins (``lanes_attention`` and ``lanes_attention_bwd_bf16``) through
-:class:`_LanesBf16Plain`, whose backward is explicit: autograd through the
-forward twin would round at every op, which is not kanvit's policy.
-Another head dim, or the tiled tier, raises on bf16 (ROADMAP.md, Queue 2
-entry 3b.3).
+through 128 (:func:`check_head_dim`).
+
+bf16 q, k and v (kanvit's bf16 policy) take bf16 kernels, forward and
+backward, at head dims 8, 16, 32 and 64: the lanes tier's
+(``csrc/attention_lanes.cu``) and the tiled tier's
+(``csrc/flash_attention.cu``), which return bf16 o and gradients. On the
+CPU their plain twins run through :class:`_LanesBf16Plain`
+(``lanes_attention`` and ``lanes_attention_bwd_bf16``) and
+:class:`_FlashBf16Plain` (``flash_attention_bf16`` and
+``flash_attention_bwd_bf16``), whose backwards are explicit: autograd
+through a forward twin would round at every op, which is not kanvit's
+policy. The tiled tier at another head dim raises on bf16
+(``NotImplementedError``, ``BF16_TODO``: ROADMAP.md, Queue 2 entry 3b.5),
+on the CPU too.
 
 ``LAUNCHES`` counts kernel launches (``flash_attention_lanes`` forward and
 ``flash_attention_lanes_bwd`` backward, ``flash_attention_lanes_bf16`` and
 ``flash_attention_lanes_bwd_bf16`` the bf16 ones; ``flash_attention``
 tiled forward, ``flash_attention_dq`` and ``flash_attention_dkv`` its
-backward); the CPU path never counts.
+backward, each with a ``_bf16`` twin); the CPU path never counts.
 """
 
 from __future__ import annotations
@@ -50,8 +56,10 @@ ROW_ALIGN_BYTES = 16
 LAUNCHES = {"flash_attention_lanes": 0, "flash_attention_lanes_bf16": 0,
             "flash_attention_lanes_bwd": 0, "flash_attention_lanes_bwd_bf16": 0,
             "flash_attention": 0, "flash_attention_dq": 0,
-            "flash_attention_dkv": 0}
-BF16_TODO = "ROADMAP.md, Queue 2 entry 3b.3"
+            "flash_attention_dkv": 0, "flash_attention_bf16": 0,
+            "flash_attention_dq_bf16": 0, "flash_attention_dkv_bf16": 0}
+# Where the bf16 attention at the generic head dims stands.
+BF16_TODO = "ROADMAP.md, Queue 2 entry 3b.5"
 
 # kanvit's tier predicates (flash_attention.py:293-309, :537-543 and the
 # bucket guard :682-688), by the operands' itemsize as kanvit's take it:
@@ -369,13 +377,15 @@ def flash_attention_lanes(q, k, v, n_heads, causal=False, mask=None):
 def check_flash_args(q, k, v, mask):
     """Raise on anything the tiled kernels do not take (device aside).
 
-    ``q``: f32 ``(B, H, Tq, dh)``; ``k, v``: f32 ``(B, H, Tk, dh)``, any
-    strides; ``mask``: ``(B, Tk)`` or None.
+    ``q``: ``(B, H, Tq, dh)``; ``k, v``: ``(B, H, Tk, dh)``, any strides;
+    all f32, or all bf16 at head dims ``TC_HEAD_DIMS``; ``mask``: ``(B, Tk)``
+    or None.
     """
+    want = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
     for name, t in (("q", q), ("k", k), ("v", v)):
-        if t.dtype != torch.float32:
-            raise TypeError(f"{name} must be float32, got {t.dtype} (the tiled "
-                            f"tier's bf16 kernels: {BF16_TODO})")
+        if t.dtype != want:
+            raise TypeError(f"{name} must be {str(want)[6:]}, got {t.dtype} (q, k "
+                            "and v all float32, or all bfloat16)")
     if (q.dim() != 4 or k.shape != v.shape or k.dim() != 4
             or (q.shape[0], q.shape[1], q.shape[3])
             != (k.shape[0], k.shape[1], k.shape[3])):
@@ -385,6 +395,10 @@ def check_flash_args(q, k, v, mask):
     b, h, _, dh = q.shape
     tk = k.shape[2]
     check_head_dim(dh)
+    if want == torch.bfloat16 and dh not in TC_HEAD_DIMS:
+        raise NotImplementedError(
+            f"flash_attention: bf16 at head dim {dh}: the tiled tier's bf16 kernels "
+            f"take {TC_HEAD_DIMS} ({BF16_TODO})")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} x heads {h} exceed the launch grid")
     if tk == 0:
@@ -398,60 +412,66 @@ def _tiled_strides(*views: torch.Tensor) -> list[int]:
     return [st for a in views for st in (a.stride(0), a.stride(2), a.stride(1))]
 
 
+# The launch counter of each tiled entry (``_bf16`` added on bf16 q).
+_TILED_COUNTS = {"fwd": "flash_attention", "dq": "flash_attention_dq",
+                 "dkv": "flash_attention_dkv"}
+
+
 def _tiled_call(name, q, k, v, maskb, causal, *ptrs):
-    """Call the C entry ``kanvit_flash_attention_<name>`` with the shared
-    leading and trailing arguments; raise on a launch error."""
+    """Call the C entry ``kanvit_flash_attention_<name>`` (``_bf16`` added
+    on bf16 q) with the shared leading and trailing arguments, and count
+    the launch; raise on a launch error."""
     from kanvit_torch.kernels import _build
 
+    sfx = "_bf16" if q.dtype == torch.bfloat16 else ""
     dev = q.device
     b, h, tq, dh = q.shape
     with torch.cuda.device(dev):
-        err = getattr(_build.load(), f"kanvit_flash_attention_{name}")(
+        err = getattr(_build.load(), f"kanvit_flash_attention_{name}{sfx}")(
             q.data_ptr(), k.data_ptr(), v.data_ptr(), *_tiled_strides(q, k, v),
             None if maskb is None else maskb.data_ptr(), *ptrs,
             b, tq, k.shape[2], h, dh, int(causal), dh ** -0.5,
             torch.cuda.current_stream(dev).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"flash_attention: {name} kernel launch failed with "
+        raise RuntimeError(f"flash_attention: {name}{sfx} kernel launch failed with "
                            f"CUDA error {err}")
+    LAUNCHES[_TILED_COUNTS[name] + sfx] += 1
 
 
 def _launch_tiled(q, k, v, maskb, causal, with_stats):
-    """Tiled forward kernel: ``o (B, Tq, H, dh)`` contiguous and, when
-    asked, each row's ``(m, l)`` as ``stats (B, H, Tq, 2)``."""
+    """Tiled forward kernel: ``o (B, Tq, H, dh)`` contiguous in q's dtype
+    and, when asked, each row's ``(m, l)`` as ``stats (B, H, Tq, 2)`` f32."""
     b, h, tq, dh = q.shape
-    o = torch.empty(b, tq, h, dh, dtype=torch.float32, device=q.device)
+    o = torch.empty(b, tq, h, dh, dtype=q.dtype, device=q.device)
     stats = (torch.empty(b, h, tq, 2, dtype=torch.float32, device=q.device)
              if with_stats else None)
     if b == 0 or tq == 0:
         return o, stats
     _tiled_call("fwd", q, k, v, maskb, causal, o.data_ptr(),
                 None if stats is None else stats.data_ptr())
-    LAUNCHES["flash_attention"] += 1
     return o, stats
 
 
 def _launch_tiled_dq(q, k, v, maskb, o, stats, do, causal):
-    """dq kernel: ``dq (B, Tq, H, dh)`` contiguous and ``delta (B, H, Tq)``
-    = rowsum(do * o). ``o`` and ``do``: ``(B, Tq, H, dh)`` contiguous."""
+    """dq kernel: ``dq (B, Tq, H, dh)`` contiguous in q's dtype and ``delta
+    (B, H, Tq)`` f32 = rowsum(do * o). ``o`` and ``do``: ``(B, Tq, H, dh)``
+    contiguous in q's dtype."""
     b, h, tq, dh = q.shape
-    dq = torch.empty(b, tq, h, dh, dtype=torch.float32, device=q.device)
+    dq = torch.empty(b, tq, h, dh, dtype=q.dtype, device=q.device)
     delta = torch.empty(b, h, tq, dtype=torch.float32, device=q.device)
     _tiled_call("dq", q, k, v, maskb, causal, o.data_ptr(), do.data_ptr(),
                 stats.data_ptr(), delta.data_ptr(), dq.data_ptr())
-    LAUNCHES["flash_attention_dq"] += 1
     return dq, delta
 
 
 def _launch_tiled_dkv(q, k, v, maskb, stats, do, delta, causal):
-    """dk/dv kernel: ``dk, dv (B, Tk, H, dh)`` contiguous."""
+    """dk/dv kernel: ``dk, dv (B, Tk, H, dh)`` contiguous in q's dtype."""
     b, h, _, dh = q.shape
-    dk, dv = (torch.empty(b, k.shape[2], h, dh, dtype=torch.float32,
-                          device=q.device) for _ in range(2))
+    dk, dv = (torch.empty(b, k.shape[2], h, dh, dtype=q.dtype, device=q.device)
+              for _ in range(2))
     _tiled_call("dkv", q, k, v, maskb, causal, do.data_ptr(), stats.data_ptr(),
                 delta.data_ptr(), dk.data_ptr(), dv.data_ptr())
-    LAUNCHES["flash_attention_dkv"] += 1
     return dk, dv
 
 
@@ -460,8 +480,8 @@ def _launch_tiled_bwd(q, k, v, maskb, o, stats, do, causal):
     as ``(B, T, H, dh)`` contiguous."""
     b, h, tq, dh = q.shape
     if b == 0 or tq == 0:
-        return (torch.empty(b, tq, h, dh, device=q.device),
-                *(torch.zeros(b, k.shape[2], h, dh, device=q.device)
+        return (torch.empty(b, tq, h, dh, dtype=q.dtype, device=q.device),
+                *(torch.zeros(b, k.shape[2], h, dh, dtype=q.dtype, device=q.device)
                   for _ in range(2)))
     dq, delta = _launch_tiled_dq(q, k, v, maskb, o, stats, do, causal)
     return (dq, *_launch_tiled_dkv(q, k, v, maskb, stats, do, delta, causal))
@@ -470,7 +490,9 @@ def _launch_tiled_bwd(q, k, v, maskb, o, stats, do, causal):
 class _FlashFn(torch.autograd.Function):
     """Tiled attention on the card. Saves q, k, v, the mask, o and the
     forward's per-row ``(m, l)`` (kanvit's residuals, ``flash_attention.py:
-    771-772``); the backward reads them and recomputes the scores."""
+    771-772``); the backward reads them and recomputes the scores. bf16 q,
+    k and v take the bf16 kernels, forward and backward, and so return bf16
+    o, dq, dk and dv; ``(m, l)`` stay f32."""
 
     @staticmethod
     def forward(ctx, q, k, v, maskb, causal, for_grad):
@@ -484,16 +506,51 @@ class _FlashFn(torch.autograd.Function):
     @staticmethod
     def backward(ctx, do):
         q, k, v, maskb, o, stats = ctx.saved_tensors
-        grads = _launch_tiled_bwd(q, k, v, maskb, o.transpose(1, 2),
-                                  stats, do.transpose(1, 2).contiguous(),
+        do4 = do.to(q.dtype).transpose(1, 2).contiguous()
+        grads = _launch_tiled_bwd(q, k, v, maskb, o.transpose(1, 2), stats, do4,
                                   ctx.causal)
         return (*(g.transpose(1, 2) for g in grads), None, None, None)
+
+
+class _FlashBf16Plain(torch.autograd.Function):
+    """The CPU route of the bf16 tiled attention: the plain twins of the
+    bf16 kernels, ``A.flash_attention_bf16`` forward (over kanvit's key
+    blocks for the bucket ``k_block``) and ``A.flash_attention_bwd_bf16``
+    backward on its ``(m, l)``; ``keys``: ``(B, Tk)`` bool or None."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, keys, causal, k_block):
+        block = A.kanvit_key_block(k.shape[2], k_block)
+        o, m, l = A.flash_attention_bf16(q, k, v, causal, block, keys)
+        ctx.causal = causal
+        ctx.save_for_backward(q, k, v, keys, o, m, l)
+        return o
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, keys, o, m, l = ctx.saved_tensors
+        grads = A.flash_attention_bwd_bf16(q, k, v, o, do, m, l, ctx.causal, keys)
+        return (*grads, None, None, None)
+
+
+def flash_attention_plain(q, k, v, causal=False, q_block=512, k_block=1024,
+                          mask=None):
+    """The tiled tier's plain version on any device, the CPU route of
+    :func:`flash_attention`: ``flash_attention_reference`` on f32, the bf16
+    kernels' twins (:class:`_FlashBf16Plain`) on bf16, which first refuse
+    what the card's kernels refuse (:func:`check_flash_args`)."""
+    b, tk = q.shape[0], k.shape[2]
+    keys = None if mask is None else A.key_valid(mask, b, tk, mask.device)
+    if q.dtype == torch.bfloat16:
+        check_flash_args(q, k, v, mask)
+        return _FlashBf16Plain.apply(q, k, v, keys, bool(causal), k_block)
+    return A.flash_attention_reference(q, k, v, causal, q_block, k_block, keys)[0]
 
 
 def flash_attention(q, k, v, causal=False, q_block=512, k_block=1024,
                     mask=None):
     """Attention over ``(B, H, T, dh)`` tensors, differentiable in ``q``,
-    ``k`` and ``v``; ``(B, H, Tq, dh)`` out.
+    ``k`` and ``v``; ``(B, H, Tq, dh)`` out, in q's dtype.
 
     ``q, k, v`` may be ``(B, T, H, dh)`` strided views transposed to
     ``(B, H, T, dh)``, read without a copy; on the card at head dims
@@ -504,7 +561,10 @@ def flash_attention(q, k, v, causal=False, q_block=512, k_block=1024,
     fully masked row giving 0; elsewhere the tiled attention with
     ``flash_attention_reference``'s semantics: causal rows at
     ``row - max(tk - tq, 0)``, and a row that sees no valid key gets the
-    mean of v over the valid keys.
+    mean of v over the valid keys. bf16 q, k and v follow kanvit's bf16
+    policy on both tiers (the tiled tier's roundings of p over kanvit's key
+    blocks of ``k_block``: ``A.flash_attention_bf16``), at head dims
+    ``TC_HEAD_DIMS``.
     """
     b, h, tq, dh = q.shape
     tk = k.shape[2]
@@ -512,11 +572,10 @@ def flash_attention(q, k, v, causal=False, q_block=512, k_block=1024,
         o = flash_attention_lanes(*(a.transpose(1, 2) for a in (q, k, v)), h,
                                   causal=causal, mask=mask)
         return o.view(b, tq, h, dh).transpose(1, 2)
-    keys = None if mask is None else A.key_valid(mask, b, tk, mask.device)
     if not dispatch.use_kernel(q):
-        return A.flash_attention_reference(q, k, v, causal, q_block, k_block,
-                                           keys)[0]
+        return flash_attention_plain(q, k, v, causal, q_block, k_block, mask)
     check_flash_args(q, k, v, mask)
+    keys = None if mask is None else A.key_valid(mask, b, tk, mask.device)
     q, k, v = (_unit_inner(a, n) for a, n in ((q, "q"), (k, "k"), (v, "v")))
     devices = {t.device for t in (q, k, v)}
     if mask is not None:

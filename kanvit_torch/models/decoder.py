@@ -3,7 +3,10 @@
 Token embedding -> N residual causal ``FlashAttentionBlock``s -> LayerNorm
 -> vocab projection, trained with next-token CE
 (``kanvit_torch.bench_decoder``). Past one tile (T > 512 at the default
-buckets) every block runs the tiled attention kernels. Ring attention
+buckets) every block runs the tiled attention kernels; on bf16 parameters
+(``bench_decoder --bf16``, kanvit's bf16 policy through
+``torch.func.functional_call``) the embedding gives bf16 activations and
+every block runs the tiled attention's bf16 kernels. Ring attention
 (``seq_axis``) and kanvit's ``remat`` option are not ported.
 """
 

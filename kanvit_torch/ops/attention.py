@@ -10,7 +10,10 @@ where plain softmax gives a uniform row; on bf16 operands it follows the
 bf16 kernel's policy, kanvit's (``flash_attention.py:482-495``). ``flash_attention_reference`` is the
 plain version of the tiled attention kernels
 (``kanvit_torch.kernels.flash_attention.flash_attention``), a copy of
-``kanvit/ops/attention.py::flash_attention_reference``.
+``kanvit/ops/attention.py::flash_attention_reference``;
+``flash_attention_bf16`` and ``flash_attention_bwd_bf16`` are the plain
+versions of the tiled kernels on bf16 operands, kanvit's bf16 policy
+(``kanvit/kernels/flash_attention.py:66-123``, ``:176-272``).
 """
 
 from __future__ import annotations
@@ -170,6 +173,114 @@ def lanes_attention_bwd_bf16(q, k, v, o, do, n_heads: int, causal: bool = False,
         return tuple(g.transpose(1, 2).reshape(b, t, h * dh) for g in (dq, dk, dv))
     return tuple((g if exact else g.to(bf16)).transpose(1, 2).reshape(b, t, h * dh)
                  for g in (dq, dk, dv))
+
+
+def kanvit_key_block(tk: int, k_block: int) -> int:
+    """kanvit's tiled key block (``_plan``, ``flash_attention.py:713-722``):
+    the bucket rounded up to 128, capped at ``tk`` rounded up to 128."""
+    return min(-(-k_block // 128) * 128, -(-tk // 128) * 128)
+
+
+def _tiled_masks(b, tq, tk, causal, mask, device):
+    """``(valid (B, 1, 1, Tk), seen (Tq, Tk))``: valid keys, and the keys
+    each query sees causally at ``qpos = row - max(tk - tq, 0)``."""
+    valid = key_valid(mask, b, tk, device)[:, None, None, :]
+    qpos = torch.arange(tq, device=device) - max(tk - tq, 0)
+    seen = (qpos[:, None] >= torch.arange(tk, device=device)[None, :] if causal
+            else torch.ones(tq, tk, dtype=torch.bool, device=device))
+    return valid, seen
+
+
+def flash_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         causal: bool = False, block: int = 1024,
+                         mask: torch.Tensor | None = None, exact: bool = False):
+    """The tiled attention on bf16 operands as kanvit's tiled kernel
+    computes it (``_fwd_kernel``, ``kanvit/kernels/flash_attention.py:
+    66-123``), plain version; returns ``(o, m, l)``.
+
+    ``q`` ``(B, H, Tq, dh)``, ``k, v`` ``(B, H, Tk, dh)`` bf16; optional key
+    mask ``(B, Tk)``. The edge semantics are ``flash_attention_reference``'s
+    (a row that sees no valid key gets the mean of v over the valid keys).
+    Per query row, over key blocks of ``block`` keys, which decide every
+    rounding of p (kanvit's kernel: :func:`kanvit_key_block` of its bucket):
+
+    - ``s = (q k^T) * dh^-1/2``: f32 sums of bf16 products, the f32 scale
+      after the product; masked scores the finite f32 min;
+    - ``m`` the running max over the blocks, ``p = exp(s - m)`` zeroed on
+      invalid keys, each block's sum of the unrounded ``p`` clamped at
+      1e-10, ``l = l * exp(m_old - m) + sum``;
+    - ``acc = acc * exp(m_old - m) + bf16(p) v``, f32 accumulation;
+    - ``o = bf16(acc / max(l, 1e-10))``, a true division.
+
+    ``m`` and ``l`` ``(B, H, Tq)`` f32 are the kernel's residuals.
+    ``exact``: the reference a kernel's distance is measured from, the same
+    bf16 operands with everything after them in f64 and unrounded.
+    """
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    ft = torch.float64 if exact else torch.float32
+    scale = torch.tensor(dh ** -0.5, dtype=ft)
+    vf = v.to(ft)
+    valid, seen = _tiled_masks(b, tq, tk, causal, mask, q.device)
+    s = (q.to(ft) @ k.to(ft).transpose(-1, -2)) * scale
+    s = s.masked_fill(~(valid & seen), NEG)
+    m = torch.full((b, h, tq, 1), NEG, dtype=ft, device=q.device)
+    l = torch.zeros(b, h, tq, 1, dtype=ft, device=q.device)
+    acc = torch.zeros(b, h, tq, dh, dtype=ft, device=q.device)
+    for k0 in range(0, tk, block):
+        sb = s[..., k0:k0 + block]
+        m_new = torch.maximum(m, sb.amax(dim=-1, keepdim=True))
+        p = torch.exp(sb - m_new).masked_fill(~valid[..., k0:k0 + block], 0.0)
+        corr = torch.exp(m - m_new)
+        l = corr * l + p.sum(dim=-1, keepdim=True).clamp_min(EPSILON)
+        pr = p if exact else p.to(torch.bfloat16).to(ft)
+        acc = acc * corr + pr @ vf[:, :, k0:k0 + block]
+        m = m_new
+    l = l.clamp_min(EPSILON)
+    o = acc / l
+    return (o if exact else o.to(torch.bfloat16)), m[..., 0], l[..., 0]
+
+
+def flash_attention_bwd_bf16(q, k, v, o, do, m, l, causal: bool = False,
+                             mask: torch.Tensor | None = None, spread: bool = False):
+    """The tiled attention's backward on bf16 operands as kanvit's dq and
+    dk/dv kernels compute it (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``,
+    ``kanvit/kernels/flash_attention.py:176-272``), plain version.
+
+    ``q, k, v`` as :func:`flash_attention_bf16` takes them, ``o`` its bf16
+    output and ``do`` the gradient of it ``(B, H, Tq, dh)``, ``m, l`` its
+    residuals ``(B, H, Tq)``. Per head, with the final ``(m, l)`` (no tiling
+    enters):
+
+    - ``s = (q k^T) * dh^-1/2`` in f32, the finite f32 min where causally
+      unseen; ``p = exp(s - m) * (1 / l)`` zeroed on invalid keys;
+    - ``delta = sum(f32(do) * f32(o))`` over dh, from the bf16 o;
+    - ``ds = (p * dh^-1/2) * (do v^T - delta)`` in f32, 0 where causally
+      unseen, rounded to bf16 at both of its products, the scale inside;
+    - ``dq = bf16(bf16(ds) k)``, no scale after it;
+      ``dk = bf16(bf16(ds)^T q)``, q unscaled; ``dv = bf16(bf16(p)^T do)``.
+
+    Returns ``(dq, dk, dv)`` bf16 in the shapes of q, k, v. ``spread``:
+    instead, in f32, what each gradient moves by, times 2^8,
+    when every rounded ds and p rounds to its neighbouring bf16 value,
+    weighted as the next product weighs it: ``|ds| |k|``, ``|ds|^T |q|``
+    and ``|p|^T |do|`` (the gates' second term)."""
+    b, h, tq, dh = q.shape
+    tk = k.shape[2]
+    scale = torch.tensor(dh ** -0.5)
+    qf, kf, vf, dof = (a.float() for a in (q, k, v, do))
+    valid, seen = _tiled_masks(b, tq, tk, causal, mask, q.device)
+    s = ((qf @ kf.transpose(-1, -2)) * scale).masked_fill(~seen, NEG)
+    p = (torch.exp(s - m[..., None]) * (1.0 / l)[..., None]).masked_fill(~valid, 0.0)
+    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    ds = ((p * scale) * (dof @ vf.transpose(-1, -2) - delta)).masked_fill(~seen, 0.0)
+    ds, p = (a.to(torch.bfloat16).float() for a in (ds, p))
+    if spread:
+        ds, p, qf, kf, dof = (a.abs() for a in (ds, p, qf, kf, dof))
+    grads = (ds @ kf, ds.transpose(-1, -2) @ qf, p.transpose(-1, -2) @ dof)
+    if spread:
+        return grads
+    return tuple(g.to(torch.bfloat16) for g in grads)
 
 
 def flash_attention_reference(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

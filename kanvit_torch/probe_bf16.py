@@ -1,9 +1,17 @@
 """bf16 serving and training of the vit-s efficientkan, cheby, fast, sine and
-fourier ViTs on the card: checks and times.
+fourier ViTs, and bf16 training of the causal decoder, on the card: checks
+and times.
 
-    python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby,fast,sine,fourier}]
+    python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby,fast,sine,fourier,
+                                                     decoder}]
                                       [--train] [--cheby-shapes] [--fast-shapes]
                                       [--sine-shapes] [--fourier-shapes] [--sincos]
+
+``--model-type decoder`` runs ``chip_smoke.py``'s phase 5b alone (the tiled
+attention's bf16 forward, dq and dk/dv against their twins at the
+decoder's and ragged shapes; ``phase_flash_bf16_kernels``) and, with
+``--train``, phase 13b (``bench_decoder``'s bf16 training beside f32's;
+``phase_decoder(bf16=True)``); there is no decoder serving.
 
 Builds the kernels (registers, spills and the SASS report), then runs
 ``chip_smoke.py``'s bf16 phases alone: the bf16 kernels of the model type
@@ -354,7 +362,8 @@ def bf16_shapes(lib, C, torch, family):
 
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
-    p.add_argument("--model-type", choices=("efficientkan", "cheby", "fast", "sine", "fourier"),
+    p.add_argument("--model-type",
+                   choices=("efficientkan", "cheby", "fast", "sine", "fourier", "decoder"),
                    default="efficientkan")
     p.add_argument("--train", action="store_true", help="also the bf16 training phase")
     p.add_argument("--cheby-shapes", action="store_true",
@@ -400,11 +409,18 @@ def main(argv=None) -> None:
                                                torch, family)
     phase = {"efficientkan": C.phase_bf16_kernels, "cheby": C.cheby_bf16_kernels,
              "fast": C.fast_bf16_kernels, "sine": C.sine_bf16_kernels,
-             "fourier": C.fourier_bf16_kernels}[args.model_type]
+             "fourier": C.fourier_bf16_kernels,
+             "decoder": C.phase_flash_bf16_kernels}[args.model_type]
     results = C.timed("bf16 kernels", phase, torch)
     out["kernels"] = {name: {"ms": r[1], "plain_ms": r[2], **r[3], **r[4],
                              **{k: v for sub in r[5:] for k, v in sub.items()}}
                       for name, r in results.items()}
+    if args.model_type == "decoder":
+        if args.train:
+            train = C.timed("decoder bf16 training", C.phase_decoder, torch, smi, True)
+            out["train"] = {k: v for k, v in train.items() if k != "launches"}
+        print(json.dumps(out))
+        return
     model = C.build_model(args.model_type)
     per_batch, embedder = {"efficientkan": (C.BF16_PER_BATCH, "bspline_kan"),
                            "cheby": (C.CHEBY_BF16_PER_BATCH, "chebykan"),

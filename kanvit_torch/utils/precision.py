@@ -33,7 +33,10 @@ what a cast of each parameter gives.
 bf16 serving and training take every ViT kind (efficientkan, cheby,
 fourier, fast, sine, vanilla, flash-attn); :func:`check_bf16_trainable`
 raises for a model whose kernels have no bf16 path yet (a fused-FF model),
-before any launch.
+before any launch. The causal decoder's bf16 step
+(``kanvit_torch.bench_decoder --bf16``) takes :func:`bf16_params` and
+:func:`f32_accumulation` the same way; its embedding's bf16 weight makes
+bf16 activations, as flax ``nn.Embed`` does on a bf16 table.
 """
 
 from __future__ import annotations

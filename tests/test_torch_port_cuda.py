@@ -2567,3 +2567,127 @@ def test_bf16_eval_step_and_predictor_on_card(cuda):
                        device=cuda).logits(x)
     assert np.abs(served - got.cpu().numpy()).max() <= 2e-2 * max(
         1.0, float(want.abs().max()))
+
+
+# --- bf16 tiled attention (flash_attention.cu's bf16 kernels) and the bf16
+# decoder: each kernel against its plain twin (A.flash_attention_bf16 over
+# kanvit's key blocks, A.flash_attention_bwd_bf16 on the kernel forward's o
+# and (m, l)); o within one bf16 ulp plus the two-sided p term (2^-7 of the
+# twin's attention over |v|: the kernel rounds p against its own 32-key
+# tiles' running max), each gradient within one ulp plus one of each rounded
+# p and ds (chip_smoke.py's gates).
+
+def _flash_bf16_case(rng, b, h, tq, tk, dh, masked):
+    (q, k, v), mask = _flash_inputs(rng, b, h, tq, tk, dh, masked)
+    do = torch.from_numpy(rng.standard_normal((b, h, tq, dh)).astype(np.float32)).cuda()
+    return [a.to(BF16) for a in (q, k, v)], do.to(BF16), mask
+
+
+def _flash_bf16_launch(q, k, v, mask, causal, do):
+    """The three bf16 kernels launched alone: o, stats, (dq, dk, dv) as
+    (B, H, T, dh) views."""
+    maskb = None if mask is None else mask.to(torch.uint8).contiguous()
+    do4 = do.transpose(1, 2).contiguous()
+    with torch.inference_mode():
+        o4, stats = FA._launch_tiled(q, k, v, maskb, causal, True)
+        grads = FA._launch_tiled_bwd(q, k, v, maskb, o4, stats, do4, causal)
+    return o4.transpose(1, 2), stats, [g.transpose(1, 2) for g in grads]
+
+
+@pytest.mark.parametrize("causal,masked", [(True, False), (True, True), (False, True)])
+@pytest.mark.parametrize("b,h,tq,tk,dh", [
+    (2, 4, 1100, 1100, 64),
+    (3, 2, 300, 517, 32),   # tq < tk: rows with qpos < 0
+    (2, 2, 517, 300, 16),   # tq > tk
+    (2, 2, 700, 700, 8),
+])
+def test_flash_attention_bf16_kernels(cuda, b, h, tq, tk, dh, causal, masked):
+    rng = np.random.default_rng(135)
+    (q, k, v), do, mask = _flash_bf16_case(rng, b, h, tq, tk, dh, masked)
+    o, stats, grads = _flash_bf16_launch(q, k, v, mask, causal, do)
+    want, m, l = A.flash_attention_bf16(q, k, v, causal, 1024, mask)
+    spread = A.flash_attention_bf16(q, k, v.abs(), causal, 1024, mask)[0]
+    torch.cuda.synchronize()
+    assert o.dtype == BF16
+    bound = (2.0 ** -7 * want.double().abs() + 2.0 ** -12 * float(want.double().abs().max())
+             + 2.0 ** -7 * spread.double())
+    assert bool(((o.double() - want.double()).abs() <= bound).all())
+    assert float((stats[..., 0] - m).abs().max()) <= 1e-4 * max(1.0, float(m.abs().max()))
+    assert float(((stats[..., 1] - l).abs() / l.clamp_min(1.0)).max()) <= 1e-4
+    twin = A.flash_attention_bwd_bf16(q, k, v, o, do, stats[..., 0], stats[..., 1], causal,
+                                      mask)
+    spreads = A.flash_attention_bwd_bf16(q, k, v, o, do, stats[..., 0], stats[..., 1],
+                                         causal, mask, spread=True)
+    for got, w, sp in zip(grads, twin, spreads):
+        _bf16_ulp(got, w, sp)
+    assert (FA.LAUNCHES["flash_attention_bf16"], FA.LAUNCHES["flash_attention_dq_bf16"],
+            FA.LAUNCHES["flash_attention_dkv_bf16"]) == (1, 1, 1)
+    assert FA.LAUNCHES["flash_attention"] == FA.LAUNCHES["flash_attention_dq"] == 0
+
+
+def test_flash_attention_bf16_repeats_its_bits(cuda):
+    """Forward and backward at the decoder's seq 2048 (B 2, H 4, dh 64,
+    causal) give the same bits twice, through ``flash_attention`` and
+    autograd; o, dq, dk and dv are bf16."""
+    rng = np.random.default_rng(136)
+    (q, k, v), do, _ = _flash_bf16_case(rng, 2, 4, 2048, 2048, 64, False)
+
+    def run():
+        leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+        o = FA.flash_attention(*leaves, True, 512, 1024)
+        o.backward(do)
+        return [o.detach()] + [a.grad for a in leaves]
+
+    first, second = run(), run()
+    assert all(a.dtype == BF16 for a in first)
+    assert all(torch.equal(a, b) for a, b in zip(first, second))
+    assert (FA.LAUNCHES["flash_attention_bf16"], FA.LAUNCHES["flash_attention_dq_bf16"],
+            FA.LAUNCHES["flash_attention_dkv_bf16"]) == (2, 2, 2)
+
+
+def test_flash_attention_bf16_raises_not_falls_back(cuda):
+    """A generic head dim in bf16 raises before any launch, naming its
+    ROADMAP entry; mixed dtypes raise; an unaligned view raises."""
+    q = torch.zeros(1, 2, 600, 40, device=cuda, dtype=BF16)
+    with pytest.raises(NotImplementedError, match="3b.5"):
+        FA.flash_attention(q, q, q, True)
+    q = torch.zeros(1, 2, 600, 32, device=cuda, dtype=BF16)
+    with pytest.raises(TypeError, match="bfloat16"):
+        FA.flash_attention(q, q.float(), q, True)
+    flat = torch.zeros(2 * 600 * 2 * 16 + 1, device=cuda, dtype=BF16)
+    q = flat[1:].view(2, 600, 2, 16).transpose(1, 2)
+    with pytest.raises(ValueError, match="16-byte"):
+        FA.flash_attention(q, q, q, True)
+    assert sum(FA.LAUNCHES.values()) == 0
+
+
+def test_decoder_bf16_train_step_on_card(cuda):
+    """A bf16 step (``bench_decoder``'s) of a 2-block decoder at T 600 on the
+    card against the same on the CPU (the kernels' twins): 2 + 2 + 2 bf16
+    tiled launches and nothing else, the loss within 2e-2 and each f32
+    parameter's gradient within 5e-2 of its own max|g| (the gradients are
+    all below 1, where max(1, max|g|) would pass a zeroed one)."""
+    import copy
+
+    from kanvit_torch import bench_decoder as BD
+    from kanvit_torch.utils import precision
+
+    cpu = BD.build_model(64, 2, 2, 128, seed=7)
+    gpu = copy.deepcopy(cpu).to(cuda)
+    tokens = BD.make_tokens(2, 600, 128)
+    with precision.f32_accumulation():
+        lc = BD.loss_and_logits(cpu, tokens, bf16=True)[0]
+        lc.backward()
+        lg = BD.loss_and_logits(gpu, tokens.to(cuda), bf16=True)[0]
+        lg.backward()
+    lc, lg = float(lc.detach()), float(lg.detach())
+    assert abs(lc - lg) <= 2e-2 * max(1.0, abs(lc))
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        assert pg.dtype == pg.grad.dtype == torch.float32, name
+        err = float((pc.grad - pg.grad.cpu()).abs().max())
+        assert err <= 5e-2 * float(pc.grad.abs().max()), (name, err)
+    assert {k: n for k, n in FA.LAUNCHES.items() if n} == {
+        "flash_attention_bf16": 2, "flash_attention_dq_bf16": 2, "flash_attention_dkv_bf16": 2}
+    step = BD.make_step(gpu, bf16=True)
+    losses = [float(step(tokens.to(cuda))) for _ in range(3)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]

@@ -53,21 +53,22 @@ def _maxdiff(a, b):
     return float(np.abs(np.asarray(a, np.float64) - np.asarray(b, np.float64)).max())
 
 
-def _kanvit_decoder(monkeypatch, tier):
-    if TIERS[tier] is not None:
-        qb, kb = TIERS[tier]
+def _kanvit_decoder(monkeypatch, buckets):
+    """kanvit's decoder, its blocks on ``buckets`` (q, k) or the defaults."""
+    if buckets is not None:
+        qb, kb = buckets
         monkeypatch.setattr(jdecoder, "FlashAttentionBlock", functools.partial(
             JBlock, q_bucket_size=qb, k_bucket_size=kb))
     return jdecoder.CausalDecoder(vocab=VOCAB, dim=DIM, heads=HEADS,
                                   n_blocks=BLOCKS)
 
 
-def _port_decoder(params, tier):
+def _port_decoder(params, buckets):
     model = CausalDecoder(VOCAB, DIM, HEADS, BLOCKS)
     load_reference_state_dict(model, state_dict_from_jax_params(params))
-    if TIERS[tier] is not None:
+    if buckets is not None:
         for blk in model.blocks:
-            blk.q_bucket_size, blk.k_bucket_size = TIERS[tier]
+            blk.q_bucket_size, blk.k_bucket_size = buckets
     return model
 
 
@@ -91,13 +92,13 @@ def _lm_loss_jax(jmodel):
 @pytest.mark.parametrize("tier", list(TIERS))
 def test_decoder_logits_and_grads_match_kanvit(monkeypatch, tier):
     tokens = _tokens(2, 40)
-    jmodel = _kanvit_decoder(monkeypatch, tier)
+    jmodel = _kanvit_decoder(monkeypatch, TIERS[tier])
     params = _init(jmodel, tokens)
     want_logits = np.asarray(jmodel.apply({"params": params}, jnp.asarray(tokens)))
     want_loss, want_grads = jax.value_and_grad(_lm_loss_jax(jmodel))(
         params, jnp.asarray(tokens))
 
-    model = _port_decoder(params, tier)
+    model = _port_decoder(params, TIERS[tier])
     ttok = torch.from_numpy(tokens).long()
     logits = model(ttok)
     assert logits.shape == (2, 40, VOCAB)
@@ -118,7 +119,7 @@ def test_lm_steps_match_optax_adam(monkeypatch):
     ``benchmarks/causal_decoder.py`` step (next-token CE, optax.adam(1e-3)),
     on the tiled tier, the decoder's main path."""
     tokens = _tokens(2, 48, seed=71)
-    jmodel = _kanvit_decoder(monkeypatch, "tiled")
+    jmodel = _kanvit_decoder(monkeypatch, TIERS["tiled"])
     params = _init(jmodel, tokens)
     tx = optax.adam(1e-3)
     loss_fn = _lm_loss_jax(jmodel)
@@ -129,7 +130,7 @@ def test_lm_steps_match_optax_adam(monkeypatch):
         updates, o = tx.update(grads, o, p)
         return optax.apply_updates(p, updates), o, loss
 
-    model = _port_decoder(params, "tiled")
+    model = _port_decoder(params, TIERS["tiled"])
     step = BD.make_step(model, "kernel")
     ttok = torch.from_numpy(tokens).long()
     p, o = params, tx.init(params)
@@ -192,7 +193,23 @@ def test_bench_decoder_cli(capsys):
     assert [r["impl"] for r in only] == ["kernel"]
 
 
-@pytest.mark.parametrize("flag", [["--bf16"], ["--ring", "4"]])
+def test_bench_decoder_bf16_cli(capsys):
+    """``--bf16`` trains in kanvit's bf16 policy (here on the CPU, the lanes
+    tier at T 40 and the tiled tier at T 600) and says so in its lines; at
+    T 600 the plain impl (the tiled kernels' twins) and the model on the CPU
+    (the same twins) take the same steps."""
+    results = BD.main(["--device", "cpu", "--bf16", "--seqs", "40", "600", "--dim", "32",
+                       "--heads", "2", "--n-blocks", "1", "--vocab", "32", "--steps", "2",
+                       "--warmup", "1", "--tokens-per-batch", "600"])
+    assert len(capsys.readouterr().out.strip().splitlines()) == len(results) == 4
+    assert [(r["seq"], r["batch"], r["impl"]) for r in results] == [
+        (40, 15, "kernel"), (40, 15, "plain"), (600, 1, "kernel"), (600, 1, "plain")]
+    for r in results:
+        assert r["bf16"] is True and r["step_ms"] > 0 and np.isfinite(r["loss"])
+    assert results[2]["loss"] == results[3]["loss"]
+
+
+@pytest.mark.parametrize("flag", [["--ring", "4"]])
 def test_bench_decoder_refuses_unported(flag):
     with pytest.raises(NotImplementedError):
         BD.main(["--device", "cpu", "--seqs", "16", *flag])
@@ -205,7 +222,7 @@ def test_decoder_refuses_ring_attention():
 
 def test_decoder_state_dict_names(monkeypatch):
     """kanvit's decoder tree converts to exactly the port's parameters."""
-    params = _init(_kanvit_decoder(monkeypatch, "lanes"), _tokens(1, 8))
+    params = _init(_kanvit_decoder(monkeypatch, TIERS["lanes"]), _tokens(1, 8))
     sd = state_dict_from_jax_params(params)
     port = CausalDecoder(VOCAB, DIM, HEADS, BLOCKS).state_dict()
     assert set(sd) == set(port)
