@@ -105,6 +105,18 @@ Phases, in order; any failure raises, so the script exits non-zero:
    ``torch._int_mm`` with its quantize and dequantize passes, and f32
    ``F.linear``), and the card's ``mma.sync`` TF32 rate, the FF kernels'
    instruction (``csrc/mma_rate_probe.cu``);
+8b. the bf16 fused FF (``csrc/fused_ffn_bf16.cu``, forward and backward)
+   against its plain twins (``K.ffn_pre_ln_bf16`` / ``K.ffn_pre_ln_bwd_bf16``)
+   at vit-s, one image, a ragged shape and vit-b's and vit-l's widths (the
+   tiled route): one bf16 ulp plus one of LN, r and dh as the next product
+   weighs them and the row sums' other order; the kernel's ReLU pattern
+   within rounding of the twin's, the backward on it; no further than
+   twice the twin from f64; bits repeated; times beside the f32 kernels',
+   the twins' and ``F.layer_norm`` + cuBLAS bf16's; then (after phase 10)
+   bf16 serving and training of the fused-FF ``efficientkan`` (+ 12
+   ``ffn_pre_ln_bf16`` a forward, 12 ``ffn_pre_ln_bwd_bf16`` a backward,
+   no f32 launch) beside the same model unfused, its gradients against the
+   CPU's twins on the card's ReLU pattern;
 9. serving, through ``Predictor(batch_size=64, device="cuda")`` for three
    requests (64, 64 and 37 images), of the vit-s ``efficientkan`` (1 + 12
    + 12 launches a batch), ``flash-attn`` (12 lanes), ``cheby`` (1
@@ -172,10 +184,10 @@ Phases, in order; any failure raises, so the script exits non-zero:
    bits); after phase 10's sine training, bf16 serving and training of the
    vit-s ``sine`` ViT on its weights: exactly 1 + 36 + 12 bf16 launches
    each way and nothing else, with 9c's checks and numbers. The bf16
-   training phases of the efficientkan, cheby and fast ViTs run at 6, 6
-   and 4 of their 12 blocks (``BF16_TRAIN_DEPTH``; their launches a step
-   scaled to them), so that the run keeps the time it took before the
-   sine phases;
+   training phases of the efficientkan, cheby, fast, sine and fourier ViTs
+   run at 6, 6, 4, 6 and 6 of their 12 blocks (``BF16_TRAIN_DEPTH``; their
+   launches a step scaled to them), so that the run stays well inside its
+   time limit as phases are added;
 9f. the fourier ViT's two bf16 KAN kernels (``fourierkan`` at grid 28, its
    56 slices in 14 chunks of 2 harmonics, cos/sin(kx) by the angle-addition
    recurrence; forward and backward: dx, dW) against their plain twins in
@@ -424,7 +436,8 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("kan_tc_fwd_grouped", "5ChebyELi8ELi12E", "Tf32x3ELi24E"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
                 ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"),
-                ("int8_linear_kernelILi48E",))
+                ("int8_linear_kernelILi48E",), "ffn_fwd_bf16ILi3", "ffn_bwd_hidden_bf16",
+                "ffn_bwd_dx_bf16ILi3", "ffn_dw_bf16")
 
 
 def sass_mix(lib):
@@ -2294,9 +2307,9 @@ def mma_sync_rate(torch, smi):
     return tflops
 
 
-def check_flips(tag, flips, total, worst, limit):
+def check_flips(tag, flips, total, worst, limit, share=FLIP_SHARE):
     """Gate the ReLU inputs on the other side of 0 (see FLIP_SHARE)."""
-    most = max(FLIP_FLOOR, int(FLIP_SHARE * total))
+    most = max(FLIP_FLOOR, int(share * total))
     print(f"{tag}: {flips} of {total} ReLU inputs on the other side of 0 (at most "
           f"{most}); the largest such |h| {worst:.3e} (limit {limit:.3e})")
     check(flips <= most and worst <= limit,
@@ -2518,6 +2531,176 @@ def phase_ffn_int8_kernels(torch, smi):
         "ms": probe[1], "int_mm_ms": probe[3]["int_mm_ms"],
         "library_ms": probe[4]["library_ms"], "bound_ms": probe[4]["bound_ms"]}
     return results
+
+
+# --------------------------------------------------------------------------
+# Phase 8b: the bf16 fused FF
+# --------------------------------------------------------------------------
+
+# The bf16 fused FF's ReLU pattern against its twin's: the kernel's LN
+# rounds to another bf16 where its f32 statistics (sums in another order)
+# sit next to a rounding boundary, one LN value in ~2^15, and each such
+# value moves F pre-activations by up to 2^-8 of their terms, flipping those
+# within that of 0: at most FLIP_SHARE_BF16 of them, each within 2^-8 of its
+# sum of |terms| plus the f32 sums' 2 D 2^-24. The backward is then held on
+# the kernel's own pattern.
+FLIP_SHARE_BF16 = 2.0 ** -14
+# The bf16 FF's parameter gradients sum over all N rows in f32: the
+# kernels in row splits and 48- and 64-row blocks, the twin in kanvit's
+# 512-row blocks; each order within N 2^-24 of the sum of |terms|, 2 N 2^-24
+# between the two (``K.ffn_spread_bf16(...)``).
+FFN_BF16_GRADS = ("dx", "dgamma", "dbeta", "dw1", "db1", "dw2", "db2")
+
+
+def ffn_bf16_case(torch, rng, n, d, f):
+    """``check_ffn``'s operands at (n, d, f), rounded to bf16 on the card:
+    ``(x, gamma, beta, w1, b1, w2, b2), g``."""
+    shapes = ((n, d), (d,), (d,), (f, d), (f,), (d, f), (d,))
+    scales = (1.0, 0.3, 0.1, d ** -0.5, 0.1, f ** -0.5, 0.1)
+    arrays = [rng.standard_normal(s) * sc for s, sc in zip(shapes, scales)]
+    arrays[1] += 1.0
+
+    def card(a):
+        return torch.from_numpy(np.asarray(a, np.float32)).cuda().to(torch.bfloat16)
+
+    return [card(a) for a in arrays], card(rng.standard_normal((n, d)))
+
+
+def ffn_library_bf16(torch, args):
+    """``ffn_library`` on the bf16 operands, cuBLAS bf16 reducing in f32
+    (``precision.f32_accumulation``): the yardstick, never used by the port."""
+    from kanvit_torch.utils import precision
+
+    with precision.f32_accumulation():
+        return ffn_library(*args)
+
+
+def check_ffn_bf16(torch, rng, n, d, f, label, timing=True):
+    """The bf16 ``ffn_pre_ln`` kernels against their plain twins on the card
+    (``K.ffn_pre_ln_bf16`` / ``K.ffn_pre_ln_bwd_bf16``): y within one bf16
+    ulp plus 2^-8 of ``K.ffn_spread_bf16`` (one ulp of LN and r, weighted as
+    W1 and W2 weigh them); the kernel's ReLU pattern (``relu_mask``) within
+    rounding of the twin's (``check_flips``, FLIP_SHARE_BF16); the seven
+    gradients, the twin held on the kernel's pattern, each within one bf16
+    ulp plus 2^-8 of its spread (dh's ulp through W1 and the LayerNorm's
+    VJP, LN's and r's, dh's and LN's) and, for the sums over the rows,
+    2 N 2^-24 of the sum of |terms|; every result no further than twice
+    the twin from the f64 sums of the same rounded operands; the bits of a
+    second call. With ``timing``: CUDA-event and device times beside the f32
+    kernels' on the same (upcast) operands, the twin's and the library's
+    (``F.layer_norm`` + cuBLAS bf16 ``F.linear``, f32 reduction), and the
+    bf16 bound."""
+    from kanvit_torch.kernels import fused_ffn as FFN
+    from kanvit_torch.ops import kan_bases as K
+    from kanvit_torch.utils import precision
+
+    args, g = ffn_bf16_case(torch, rng, n, d, f)
+    tag = f"ffn_pre_ln bf16 {label} N={n} D={d} F={f}"
+    with torch.inference_mode():
+        y, again = FFN._launch_bf16(*args), FFN._launch_bf16(*args)
+        check(y.dtype == torch.bfloat16 and tuple(y.shape) == (n, d),
+              f"{tag}: output {y.dtype} {tuple(y.shape)}")
+        twin, exact = K.ffn_pre_ln_bf16(*args), K.ffn_pre_ln_bf16(*args, exact=True)
+        torch.cuda.synchronize()
+        err = bf16_ulp_gate(tag, y, twin, K.ffn_spread_bf16(*args[:6]))
+        check(torch.equal(y, again), f"{tag}: a second forward gave other bits")
+        f64 = f64_gate(tag, y, twin, exact, "bf16 plain twin")
+        del twin, exact, again
+        mask = torch.empty(n, f, dtype=torch.uint8, device="cuda")
+        FFN._launch_bf16(*args, relu_mask=mask)
+        pattern = mask.bool()
+        check(torch.equal(FFN._launch_bf16(*args, relu_mask=mask), y),
+              f"{tag}: the forward with relu_mask gave other bits")
+        _, ln, _ = K._ln_f32(*args[:3])
+        lnd = ln.to(torch.bfloat16).float()
+        h = lnd @ args[3].float().T + args[4].float()
+        flipped = pattern != (h > 0)
+        flips = int(flipped.sum())
+        terms = lnd.abs() @ args[3].float().abs().T + args[4].float().abs()
+        worst = float((h.abs() / terms)[flipped].max()) if flips else 0.0
+        del ln, lnd, h, terms, flipped
+    check_flips(f"[bf16] {tag}", flips, n * f, worst, 2.0 ** -8 + 2 * d * 2.0 ** -24,
+                share=FLIP_SHARE_BF16)
+
+    bwd_tag = tag.replace("ffn_pre_ln", "ffn_pre_ln_bwd")
+    with torch.inference_mode():
+        got, again = FFN._launch_bwd_bf16(*args[:6], g), FFN._launch_bwd_bf16(*args[:6], g)
+        twin = K.ffn_pre_ln_bwd_bf16(*args[:6], g, pattern=pattern)
+        exact = K.ffn_pre_ln_bwd_bf16(*args[:6], g, pattern=pattern, exact=True)
+        # the sums over the rows: 2 N 2^-24 of their sum of |terms| beside
+        # the rounded operands' spread (db1, db2: the order alone)
+        spreads = K.ffn_spread_bf16(*args[:6], g=g, pattern=pattern)
+        torch.cuda.synchronize()
+        err_bwd, f64_bwd = 0.0, 0.0
+        for name, a, b, c, e, sp in zip(FFN_BF16_GRADS, got, twin, exact, again, spreads):
+            check(a.dtype == torch.bfloat16 and a.shape == b.shape,
+                  f"{bwd_tag} {name}: {a.dtype} {tuple(a.shape)}")
+            err_bwd = max(err_bwd, bf16_ulp_gate(f"{bwd_tag} {name}", a, b, sp))
+            f64_bwd = max(f64_bwd, f64_gate(f"{bwd_tag} {name}", a, b, c, "bf16 plain twin"))
+            check(torch.equal(a, e), f"{bwd_tag}: a second backward gave other {name} bits")
+        del twin, exact, spreads, again, got
+    fwd_extra, bwd_extra = {"f64_err": f64}, {"f64_err": f64_bwd}
+    if not timing:
+        return (err, None, None, fwd_extra), (err_bwd, None, None, bwd_extra)
+    args32, g32 = [a.float() for a in args], g.float()
+    lib_leaves, lib_out, _ = grads_of(torch, lambda *a: ffn_library_bf16(torch, a), args, g)
+
+    def lib_grad():
+        with precision.f32_accumulation():
+            return torch.autograd.grad(lib_out, lib_leaves, g, retain_graph=True)
+
+    with torch.inference_mode():
+        times = {
+            "ms": time_ms(torch, lambda: FFN._launch_bf16(*args)),
+            "device_ms": kernel_ms(torch, lambda: FFN._launch_bf16(*args), label=tag),
+            "f32_ms": time_ms(torch, lambda: FFN._launch(*args32)),
+            "f32_device_ms": kernel_ms(torch, lambda: FFN._launch(*args32)),
+            "plain_ms": time_ms(torch, lambda: K.ffn_pre_ln_bf16(*args), iters=5),
+            "library_ms": time_ms(torch, lambda: ffn_library_bf16(torch, args)),
+            "library_device_ms": kernel_ms(torch, lambda: ffn_library_bf16(torch, args))}
+        btimes = {
+            "ms": time_ms(torch, lambda: FFN._launch_bwd_bf16(*args[:6], g)),
+            "device_ms": kernel_ms(torch, lambda: FFN._launch_bwd_bf16(*args[:6], g),
+                                   label=bwd_tag),
+            "f32_ms": time_ms(torch, lambda: FFN._launch_bwd(*args32[:6], g32)),
+            "f32_device_ms": kernel_ms(torch, lambda: FFN._launch_bwd(*args32[:6], g32)),
+            "plain_ms": time_ms(torch, lambda: K.ffn_pre_ln_bwd_bf16(*args[:6], g), iters=3)}
+    btimes["library_ms"] = time_ms(torch, lib_grad)
+    btimes["library_device_ms"] = kernel_ms(torch, lib_grad)
+    # bytes in bf16: x, W1, W2, vectors in, y out; backward x, g, W1, W2 and
+    # vectors in, dx, dW1, dW2 and the vector gradients out
+    fwd_bound = bf16_bound(4.0 * n * d * f, 2.0 * (2 * n * d + 2 * d * f + f + 3 * d),
+                           times["library_ms"])
+    bwd_bound = bf16_bound(10.0 * n * d * f,
+                           2.0 * (3 * n * d + 4 * d * f + 2 * f + 6 * d), btimes["library_ms"])
+    for what, t, b in ((tag, times, fwd_bound), (bwd_tag, btimes, bwd_bound)):
+        print(f"[bf16] {what}: kernels {t['ms']:.4f} ms (device {t['device_ms']:.4f})  the "
+              f"f32 kernels {t['f32_ms']:.4f} (device {t['f32_device_ms']:.4f})  plain twin "
+              f"{t['plain_ms']:.4f}  library (F.layer_norm, cuBLAS bf16 F.linear) "
+              f"{t['library_ms']:.4f} (device {t['library_device_ms']:.4f})  bound "
+              f"{b['bound_ms']:.4f} ({b['bound_by']}; share of device "
+              f"{b['bound_ms'] / t['device_ms']:.3f})  (bits repeated)")
+    return ((err, times.pop("ms"), times.pop("plain_ms"), {**fwd_extra, **times}, fwd_bound),
+            (err_bwd, btimes.pop("ms"), btimes.pop("plain_ms"), {**bwd_extra, **btimes},
+             bwd_bound))
+
+
+def phase_ffn_bf16_kernels(torch):
+    """The bf16 fused FF's forward and backward kernels at vit-s (12,608 x
+    384 x 1,536), then (sub-entries) one vit-s image (197 rows), a ragged
+    narrow shape, and vit-b's (768 x 3,072) and vit-l's (1,024 x 4,096)
+    widths at vit-s's rows (the tiled route), timed there too."""
+    rng = np.random.default_rng(SEED + 23)
+    n = BATCH * 197
+    fwd, bwd = check_ffn_bf16(torch, rng, n, 384, 1536, "vit-s")
+    for key, rows, d, f, timing in (("batch_1", 197, 384, 1536, False),
+                                    ("ragged", 37 * 50 + 1, 100, 400, False),
+                                    ("vit_b_widths", n, 768, 3072, True),
+                                    ("vit_l_widths", n, 1024, 4096, True)):
+        sub_f, sub_b = check_ffn_bf16(torch, rng, rows, d, f, key.replace("_", "-"), timing)
+        fwd += ({key: sub_entry(sub_f)},)
+        bwd += ({key: sub_entry(sub_b)},)
+    return {"ffn_pre_ln_bf16": fwd, "ffn_pre_ln_bwd_bf16": bwd}
 
 
 # --------------------------------------------------------------------------
@@ -3771,6 +3954,8 @@ SINE_BF16_PER_BATCH = {"sinekan_bf16": 1, "sinekan_qkv_grouped_bf16": 36,
                        "flash_attention_lanes_bf16": 12}
 # the fourier ViT's q/k/v are Linear (cuBLAS)
 FOURIER_BF16_PER_BATCH = {"fourierkan_bf16": 1, "flash_attention_lanes_bf16": 12}
+# the efficientkan ViT with the fused FF
+FFN_BF16_PER_BATCH = {**BF16_PER_BATCH, "ffn_pre_ln_bf16": 12}
 # The variants served and trained in bf16 after their f32 phases.
 BF16_VARIANTS = {"cheby": CHEBY_BF16_PER_BATCH, "fourier": FOURIER_BF16_PER_BATCH,
                  "fast": FAST_BF16_PER_BATCH, "sine": SINE_BF16_PER_BATCH}
@@ -3781,12 +3966,15 @@ def phase_bf16_serve(torch, smi, model_cpu, seed, variant="efficientkan",
     """Serve the vit-s ``variant`` (efficientkan, cheby) in bf16 (the f32
     phase's weights): ``Predictor`` on a bf16 copy for three requests and
     ``make_eval_step(bf16=True)`` on the f32 model, each forward exactly
-    ``per_batch``'s 1 + 12 + 12 bf16 kernel launches and nothing else (no
-    f32 KAN or attention launch); logits finite, within 2e-2 x max(1,
-    max|logits|) of the port's CPU bf16 forward (the plain twins), their
-    top-1 agreement with the card's f32 logits; the device forward (CUDA
-    events, in turns f32, bf16, bf16, f32), its device busy time by kernel
-    and images/s beside f32's."""
+    ``per_batch``'s 1 + 12 + 12 bf16 kernel launches (and a fused-FF
+    model's 12 bf16 FF launches) and nothing else (no f32 KAN, attention or
+    FF launch); logits finite, within 2e-2 x max(1, max|logits|) of the
+    port's CPU bf16 forward (the plain twins), their top-1 agreement with
+    the card's f32 logits; the device forward (CUDA events, in turns f32,
+    bf16, bf16, f32), its device busy time by kernel and images/s beside
+    f32's; a fused-FF model's also beside the same model with its FF
+    unfused (cuBLAS bf16), in turns f32, bf16, unfused, unfused, bf16,
+    f32."""
     from kanvit_torch.infer import Predictor
     from kanvit_torch.models import PRESETS
     from kanvit_torch.train import create_train_state, make_eval_step
@@ -3858,24 +4046,28 @@ def phase_bf16_serve(torch, smi, model_cpu, seed, variant="efficientkan",
     batch = reqs[0]
     xb = torch.from_numpy(batch).cuda().to(torch.bfloat16)
     x32 = torch.from_numpy(batch).cuda()
+    models = {"f32": (model32, x32), "bf16": (model_bf, xb)}
+    preds = {"f32": pred32, "bf16": pred}
+    turns = ("f32", "bf16", "bf16", "f32")
+    if is_fused(model_cpu):
+        model_un = unfused(copy.deepcopy(model_bf))
+        models["bf16_unfused"] = (model_un, xb)
+        preds["bf16_unfused"] = Predictor(model_un, batch_size=BATCH, device="cuda")
+        turns = ("f32", "bf16", "bf16_unfused", "bf16_unfused", "bf16", "f32")
     with torch.inference_mode(), precision.f32_accumulation():
-        fwd = {"f32": [], "bf16": []}
-        for kind in ("f32", "bf16", "bf16", "f32"):
-            fn = (lambda: model32(x32)) if kind == "f32" else (lambda: model_bf(xb))
-            fwd[kind].append(time_ms(torch, fn, iters=10))
-        busy32 = kernel_ms(torch, lambda: model32(x32), 5, label=f"vit-s {variant} f32 forward")
-        busy_bf = kernel_ms(torch, lambda: model_bf(xb), 5,
-                            label=f"vit-s {variant} bf16 forward")
-    ips = {"f32": serve_rate(torch, pred32, batch), "bf16": serve_rate(torch, pred, batch)}
+        fwd = {k: [] for k in models}
+        for kind in turns:
+            net, inp = models[kind]
+            fwd[kind].append(time_ms(torch, lambda: net(inp), iters=10))
+        busy = {k: kernel_ms(torch, lambda: net(inp), 5, label=f"vit-s {variant} {k} forward")
+                for k, (net, inp) in models.items()}
+    ips = {k: serve_rate(torch, p, batch) for k, p in preds.items()}
     fwd_ms = {k: sum(v) / len(v) for k, v in fwd.items()}
-    print(f"[bf16] vit-s {variant}, batch {BATCH}: device forward f32 "
-          f"{fwd_ms['f32']:.3f} ms ({fwd['f32']}), bf16 {fwd_ms['bf16']:.3f} ms "
-          f"({fwd['bf16']}); device busy f32 {busy32:.3f}, bf16 {busy_bf:.3f} ms; "
-          f"Predictor.logits {ips['f32']:.1f} and {ips['bf16']:.1f} images/s "
-          f"(host to host)  [{smi}]")
+    print(f"[bf16] vit-s {variant}, batch {BATCH}: device forward " + "; ".join(
+        f"{k} {fwd_ms[k]:.3f} ms ({fwd[k]}), busy {busy[k]:.3f} ms, Predictor.logits "
+        f"{ips[k]:.1f} images/s (host to host)" for k in models) + f"  [{smi}]")
     return {"launches": counts, "logits_err": err, "top1_vs_f32": top1,
-            "device_forward_ms": fwd_ms, "device_busy_ms": {"f32": busy32, "bf16": busy_bf},
-            "images_per_s": ips}
+            "device_forward_ms": fwd_ms, "device_busy_ms": busy, "images_per_s": ips}
 
 
 # The bf16 training phases of the variants trained in bf16 before the sine
@@ -3883,7 +4075,7 @@ def phase_bf16_serve(torch, smi, model_cpu, seed, variant="efficientkan",
 # that the whole run stays within the 664.9 s it took before the sine
 # phases were added; ``python -m kanvit_torch.probe_bf16 --model-type
 # <variant> --train`` runs any of them at full depth.
-BF16_TRAIN_DEPTH = {"efficientkan": 6, "cheby": 6, "fast": 4}
+BF16_TRAIN_DEPTH = {"efficientkan": 6, "cheby": 6, "fast": 4, "sine": 6, "fourier": 6}
 
 
 def at_depth(model_cpu, per_batch, variant):
@@ -3909,10 +4101,99 @@ def per_step(per_batch):
 
 
 BF16_TRAIN_STEPS = 10
+# A fused-FF model's bf16 gradients are held on the card's ReLU pattern.
+# The CPU's bf16 forward differs from the card's by bf16 rounding
+# compounded over the blocks, so pre-activations within that of 0 fall on
+# the other side of the ReLU on one of them, and each such flip moves its
+# hidden unit's dW1 and db1 by a whole row's term (the phase prints how many
+# tensors lie past the gate with the CPU's own pattern). So the CPU's twins
+# take each block's pattern from the card's forward (``relu_mask``), after
+# bounding the flips: at most MODEL_FLIP_SHARE_BF16 of the ReLU inputs,
+# each within MODEL_FLIP_TOL_BF16 of its row's max|h| (16 bf16 ulps of the
+# row's largest).
+MODEL_FLIP_SHARE_BF16 = 2.0 ** -7
+MODEL_FLIP_TOL_BF16 = 2.0 ** -4
+# On that pattern every tensor is held within 5e-2 of its own max|g| of the
+# twins', but for the attention's q and k projections (QK_TENSOR): in the
+# late blocks bf16 rounding of p and dsc alone moves them further, the
+# twins too from the f64 step. A q/k tensor may instead lie, in RMS, no
+# further from the f64 step than F64_RATIO_BF16 x the twins'. The twins
+# share the CPU's exp and sums with the f64 step and the card does not, so
+# in a few such tensors the card lies further: over the 752 tensors the
+# card's RMS distance over the twins' had a median of 0.95 and a largest of
+# 2.73 (PERF.md). The phase reads planted faults against the gate.
+F64_RATIO_BF16 = 3.0
+QK_TENSOR = re.compile(r"\.attn\.[qk]_mappings\.")
 # The card's bf16 step against the CPU's (the plain twins) on the same
 # weights, x max(1, max|g|) per tensor: kanvit's own bf16 gradient gate
 # (tests/test_kernels.py:966-967).
 TOL_BF16_GRADS = 5e-2
+
+
+def own_max_errs(got, want):
+    """max|got - want| over want's max|g|, per tensor."""
+    return {k: float((got[k] - w).abs().max()) / max(float(w.abs().max()), 1e-30)
+            for k, w in want.items()}
+
+
+def qk_fallback_errs(got, twin, exact):
+    """``own_max_errs(got, twin)``, a q/k tensor's (QK_TENSOR) the smaller of
+    that and TOL_BF16_GRADS x its RMS distance from ``exact`` over
+    F64_RATIO_BF16 x the twin's; and each tensor's RMS ratio."""
+    errs, ratios = own_max_errs(got, twin), {}
+    for name, want in twin.items():
+        ratios[name] = float((got[name] - exact[name]).norm()) / max(
+            float((want - exact[name]).norm()), 1e-30)
+        if QK_TENSOR.search(name):
+            errs[name] = min(errs[name], TOL_BF16_GRADS * ratios[name] / F64_RATIO_BF16)
+    return errs, ratios
+
+
+def fused_ff_grad_gate(torch, grads):
+    """A fused-FF model's bf16 gradient gate: ``grads``' "cuda" against the
+    CPU's twins ("cpu") on the card's ReLU pattern, by ``qk_fallback_errs``
+    with the f64 step ("f64"). Prints the tensors by kind, the reading with
+    the twins' own pattern ("own") and three faults planted in the card's
+    gradients of the middle block: its dW1 zeroed and one hidden unit's dh
+    dropped (the gate must fail both), and a q/k tensor scaled by 1.1
+    (read). Returns the errors per tensor."""
+    card, twin, exact = grads["cuda"], grads["cpu"], grads["f64"]
+    rels, ratios = qk_fallback_errs(card, twin, exact)
+    strict = own_max_errs(card, twin)
+    own = own_max_errs(card, grads["own"])
+    ff = [k for k in rels if re.search(r"\.(norm2|ff\.[02])\.", k)]
+    qk = [k for k in rels if QK_TENSOR.search(k)]
+    rest = [k for k in rels if k not in ff and k not in qk]
+    r = list(ratios.values())
+    print(f"[bf16-train] each tensor's RMS distance from the f64 step, the card's over the "
+          f"CPU twins': median {float(np.median(r)):.3f}, largest {max(r):.3f}, past 2: "
+          f"{sum(v > 2 for v in r)} of {len(r)}; q/k past 5e-2 of their own max|g|: "
+          f"{sum(strict[k] > TOL_BF16_GRADS for k in qk)} of {len(qk)}, their largest RMS "
+          f"ratio {max(ratios[k] for k in qk):.3f} (limit {F64_RATIO_BF16}); worst max|err| / "
+          f"max|g|: the FF's {max(strict[k] for k in ff):.3e} "
+          f"({max(ff, key=strict.get)}), the rest's {max(strict[k] for k in rest):.3e} "
+          f"({max(rest, key=strict.get)}); with the CPU's own ReLU pattern "
+          f"{sum(v > TOL_BF16_GRADS for v in own.values())} of {len(own)} past 5e-2, the "
+          f"largest {max(own.values()):.3e} ({max(own, key=own.get)})")
+    blocks = sorted({int(k.split(".")[1]) for k in ff})
+    mid = blocks[len(blocks) // 2]
+    w1, b1 = f"blocks.{mid}.ff.0.weight", f"blocks.{mid}.ff.0.bias"
+    unit = int(card[w1].abs().amax(1).argsort()[card[w1].shape[0] // 2])
+    no_dh = {w1: card[w1].clone(), b1: card[b1].clone()}
+    no_dh[w1][unit], no_dh[b1][unit] = 0.0, 0.0
+    near = max(qk, key=strict.get)
+    faults = {f"block {mid}'s dW1 zeroed": {w1: torch.zeros_like(card[w1])},
+              f"block {mid}'s hidden unit {unit} given no dh": no_dh,
+              f"{near} x 1.1": {near: 1.1 * card[near]}}
+    read = {}
+    for label, planted in faults.items():
+        errs = qk_fallback_errs({**card, **planted}, twin, exact)[0]
+        read[label] = max(errs[k] for k in planted)
+    print("[bf16-train] planted faults in the card's gradients, the gate's reading (limit "
+          f"{TOL_BF16_GRADS:.0e}): " + "; ".join(f"{k} {v:.3e}" for k, v in read.items()))
+    check(all(v > TOL_BF16_GRADS for v in list(read.values())[:2]),
+          f"bf16 training: the gradient gate passed a planted FF fault: {read}")
+    return rels
 
 
 def per_parameter_casts(model):
@@ -4004,12 +4285,13 @@ def host_split(torch, step, state, x, y, steps=3):
     ``_Bf16CastBackward`` or the per-parameter ``ToCopyBackward0``, whose
     count also holds the step's few other casts), ``functional_call``'s
     reparametrisation (``torch.func.functional_call`` less the model's
-    forward inside it), and the KAN and attention kernel wrappers, forward
+    forward inside it), and the KAN, attention and FF kernel wrappers, forward
     and backward; beside the host clock a step, profiled."""
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from kanvit_torch.kernels import flash_attention as FA
     from kanvit_torch.kernels import fused_basis as FB
+    from kanvit_torch.kernels import fused_ffn as FFN
     from kanvit_torch.utils import precision
 
     model, patched = state.model, []
@@ -4029,6 +4311,7 @@ def host_split(torch, step, state, x, y, steps=3):
     ranged(model, "forward", "split: model forward")
     for mod, fwd, bwd in ((FB, "_launch_bf16", "_launch_bwd_bf16"),
                           (FA, "_launch_bf16", "_launch_bwd_bf16"),
+                          (FFN, "_launch_bf16", "_launch_bwd_bf16"),
                           (FB, "_launch_rbf", "_launch_rbf_bwd"),
                           (FB, "_launch_sine", "_launch_sine_bwd")):
         ranged(mod, fwd, "split: kernel wrappers forward")
@@ -4063,16 +4346,92 @@ def host_split(torch, step, state, x, y, steps=3):
     return out
 
 
+@contextlib.contextmanager
+def recorded_ffn_patterns(torch, patterns):
+    """The card's bf16 FF forwards inside the block write their ReLU
+    pattern (``relu_mask``): each is appended to ``patterns`` (bool, on the
+    CPU), in launch order."""
+    from kanvit_torch.kernels import fused_ffn as FFN
+
+    launch = FFN._launch_bf16
+
+    def recording(*args):
+        mask = torch.empty(args[0].shape[0], args[3].shape[0], dtype=torch.uint8,
+                           device=args[0].device)
+        y = launch(*args, relu_mask=mask)
+        patterns.append(mask.bool().cpu())
+        return y
+
+    FFN._launch_bf16 = recording
+    try:
+        yield
+    finally:
+        FFN._launch_bf16 = launch
+
+
+@contextlib.contextmanager
+def imposed_ffn_patterns(patterns, flips, exact=False):
+    """The CPU's FF inside the block on ``patterns``, one a forward in order:
+    the bf16 twins (their backwards take the patterns in reverse, as
+    autograd runs them), or with ``exact`` the plain version (the f32 or
+    f64 step, autograd through it); each forward's flips against its own
+    h > 0 appended to ``flips`` as (flipped, total, the largest flipped |h|
+    over its row's max|h|)."""
+    import torch
+
+    from kanvit_torch.ops import kan_bases as K
+
+    forward, backward, plain = K.ffn_pre_ln_bf16, K.ffn_pre_ln_bwd_bf16, K.ffn_pre_ln
+    queue, stack = list(patterns), []
+
+    def take(h):
+        pattern = queue.pop(0).reshape(h.shape)
+        flipped = pattern != (h > 0)
+        share = h.abs() / h.abs().amax(-1, keepdim=True).clamp_min(1e-30)
+        flips.append((int(flipped.sum()), flipped.numel(),
+                      float(share[flipped].max()) if flipped.any() else 0.0))
+        return pattern
+
+    def on_pattern(x2d, gamma, beta, w1, b1, w2, b2):
+        _, ln, _ = K._ln_f32(x2d, gamma, beta)
+        pattern = take(ln.to(torch.bfloat16).float() @ w1.float().T + b1.float())
+        stack.append(pattern)
+        return forward(x2d, gamma, beta, w1, b1, w2, b2, pattern=pattern)
+
+    def bwd_on_pattern(*args):
+        return backward(*args, pattern=stack.pop())
+
+    def plain_on_pattern(x, gamma, beta, w1, b1, w2, b2):
+        h = K.layernorm(x, gamma, beta) @ w1.T + b1
+        with torch.no_grad():
+            pattern = take(h)
+        return x + ((h * pattern) @ w2.T + b2)
+
+    if exact:
+        K.ffn_pre_ln = plain_on_pattern
+    else:
+        K.ffn_pre_ln_bf16, K.ffn_pre_ln_bwd_bf16 = on_pattern, bwd_on_pattern
+    try:
+        yield
+    finally:
+        K.ffn_pre_ln_bf16, K.ffn_pre_ln_bwd_bf16, K.ffn_pre_ln = forward, backward, plain
+
+
 def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF16_PER_BATCH,
                      embedder="bspline_kan"):
     """Train the vit-s ``variant`` (efficientkan, cheby) in bf16 (kanvit's
     --bf16 policy, the f32 phase's weights) through
     ``make_train_step(bf16=True)``: exactly ``per_batch``'s 1 + 12 + 12 bf16
-    forward and as many bf16 backward launches a step and no other KAN or
-    attention launch, the embedder's backward asked for no dx; loss finite
-    and falling over 10 Adam steps at batch 64; the gradients of a 4-image
-    step within 5e-2 x max(1, max|g|) per tensor of the CPU's bf16 step (the
-    plain twins) on the same weights, the f32 parameters and gradients f32;
+    forward and as many bf16 backward launches a step (a fused-FF model's
+    12 bf16 FF launches each way too) and no other KAN, attention or FF
+    launch, the embedder's backward asked for no dx; loss finite and falling
+    over 10 Adam steps at batch 64; the gradients of a 4-image step within
+    5e-2 x max(1, max|g|) per tensor of the CPU's bf16 step (the plain
+    twins) on the same weights (a fused-FF model: the CPU's FF on the
+    card's ReLU pattern, its flips bounded first, each tensor within 5e-2
+    of its own max|g|, a q/k tensor or, in RMS, no further from the f64
+    step on that pattern than F64_RATIO_BF16 x the twins; planted faults
+    read, ``fused_ff_grad_gate``), the f32 parameters and gradients f32;
     the parameter casts' device kernels a step, forward and backward, and
     the host's split of a step (``host_split``), each with the flat buffer
     and with a cast a parameter (``per_parameter_casts``, before it); host
@@ -4080,12 +4439,15 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
     with a cast a parameter (in turns f32, bf16, per-parameter,
     per-parameter, bf16, f32), CUDA events a step, and the profiles' busy
     time, idle share and largest device operations of the bf16 and the f32
-    step (``phase_profile``)."""
+    step (``phase_profile``); a fused-FF model's bf16 step beside the same
+    model with its FF unfused (cuBLAS bf16) in place of the cast a
+    parameter, and profiled."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.models import PRESETS
     from kanvit_torch.train import create_train_state, make_train_step
 
     geom = PRESETS["vit-s"]
+    fused = is_fused(model_cpu)
     model = copy.deepcopy(model_cpu).to("cuda")
     rng = np.random.default_rng(SEED + 2)
     x = torch.from_numpy(rng.standard_normal((BATCH, *geom["chw"]))
@@ -4146,24 +4508,50 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
           "bf16 training: the parameters must stay f32")
 
     lap(f"{BF16_TRAIN_STEPS} steps")
-    # gradients of a 4-image step, the card's against the CPU's bf16 twins
+    # gradients of a 4-image step, the card's against the CPU's bf16 twins;
+    # a fused-FF model's also in f64, both on the card's ReLU pattern, and
+    # the twins' on their own ("own", read and not gated)
     xg, yg = x[:GRAD_IMAGES].cpu(), y[:GRAD_IMAGES].cpu()
-    grads = {}
-    for dev in ("cuda", "cpu"):
-        net = copy.deepcopy(model_cpu).to(dev)
-        make_train_step(bf16=True)(create_train_state(net, 1e-3), xg.to(dev), yg.to(dev))
-        check(all(p.grad.dtype == torch.float32 for p in net.parameters()),
-              "bf16 training: the gradients must be f32")
+    grads, patterns, flips = {}, [], {"cpu": [], "f64": []}
+    for dev in ("cuda", "cpu", "f64", "own") if fused else ("cuda", "cpu"):
+        net = copy.deepcopy(model_cpu)
+        where = "cpu" if dev == "own" else dev
+        net, xd, yd = ((net.double(), xg.double(), yg) if dev == "f64"
+                       else (net.to(where), xg.to(where), yg.to(where)))
+        on = contextlib.nullcontext()
+        if fused and dev != "own":  # the fused FF: the CPU's FF on the card's ReLU pattern
+            on = (recorded_ffn_patterns(torch, patterns) if dev == "cuda"
+                  else imposed_ffn_patterns(patterns, flips[dev], exact=dev == "f64"))
+        with on:
+            make_train_step(bf16=dev != "f64")(create_train_state(net, 1e-3), xd, yd)
+        check(all(p.grad.dtype == (torch.float64 if dev == "f64" else torch.float32)
+                  for p in net.parameters()), "bf16 training: the gradients must be f32")
         grads[dev] = {k: p.grad.double().cpu() for k, p in net.named_parameters()}
-    worst, worst_name = 0.0, ""
-    for name, want in grads["cpu"].items():
-        rel = float((grads["cuda"][name] - want).abs().max()) / max(
-            1.0, float(want.abs().max()))
-        if rel > worst:
-            worst, worst_name = rel, name
+    for ref in ("cpu", "f64") if fused else ():
+        got = flips[ref]
+        flipped, total = sum(f[0] for f in got), sum(f[1] for f in got)
+        far = max(f[2] for f in got)
+        print(f"[bf16-train] the {ref} step's ReLU inputs on the other side of 0 from the "
+              f"card's, block by block: {[f[0] for f in got]}; {flipped} of {total} (at most "
+              f"{MODEL_FLIP_SHARE_BF16 * total:.0f}), the largest such |h| {far:.3e} of its "
+              f"row's max|h| (limit {MODEL_FLIP_TOL_BF16:.3e})")
+        check(len(got) == len(patterns) and flipped <= MODEL_FLIP_SHARE_BF16 * total
+              and far <= MODEL_FLIP_TOL_BF16,
+              f"bf16 training: the {ref} step's ReLU pattern is further from the card's "
+              "than rounding")
+    if fused:
+        rels = fused_ff_grad_gate(torch, grads)
+    else:  # x max(1, max|g|)
+        rels = {name: float((grads["cuda"][name] - want).abs().max())
+                / max(1.0, float(want.abs().max())) for name, want in grads["cpu"].items()}
+    worst_name = max(rels, key=rels.get)
+    worst = rels[worst_name]
+    how = ("max|g| over tensors (a q/k tensor: or 5e-2 x its RMS distance from f64 over "
+           "3x the twins)") if fused else "max(1, max|g|) over tensors"
     print(f"[bf16-train] gradients of {GRAD_IMAGES} images, card against the CPU's bf16 "
-          f"twins, worst max|err| / max(1, max|g|) over tensors: {worst:.3e} ({worst_name})"
-          f"  limit {TOL_BF16_GRADS:.0e}")
+          f"twins, worst max|err| / {how}: {worst:.3e} ({worst_name})  limit "
+          f"{TOL_BF16_GRADS:.0e}; the next: " +
+          ", ".join(f"{k} {v:.3e}" for k, v in sorted(rels.items(), key=lambda kv: -kv[1])[1:6]))
     check(worst <= TOL_BF16_GRADS, f"bf16 training: the card's gradients differ from the "
                                    f"CPU's: {worst_name} {worst:.3e}")
 
@@ -4172,10 +4560,11 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
     # with the flat buffer and with a cast a parameter (before it)
     casts, split = {"flat": cast_kernels(torch, model)}, {"flat": host_split(torch, step, state,
                                                                              x, y)}
-    with casts_per_parameter():
-        casts["per_parameter"] = cast_kernels(torch, model)
-        split["per_parameter"] = host_split(torch, step, state, x, y)
-    for kind in ("flat", "per_parameter"):
+    if not fused:
+        with casts_per_parameter():
+            casts["per_parameter"] = cast_kernels(torch, model)
+            split["per_parameter"] = host_split(torch, step, state, x, y)
+    for kind in casts:
         c = casts[kind]
         print(f"[bf16-train] vit-s {variant} bf16 step, casts {kind}: {c['forward']} cast "
               f"kernels forward, {c['backward']} backward, for "
@@ -4194,12 +4583,17 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
         with casts_per_parameter():
             return step(*args)
 
-    fns = {"f32": f32_step, "bf16": step, "bf16_per_parameter_casts": per_parameter_step}
+    third = "bf16_per_parameter_casts"
+    fns = {"f32": f32_step, "bf16": step, third: per_parameter_step}
+    if fused:
+        third = "bf16_unfused"
+        other = create_train_state(unfused(copy.deepcopy(model_cpu)).to("cuda"), 1e-3)
+        fns = {"f32": f32_step, "bf16": step,
+               third: lambda _state, xs, ys: step(other, xs, ys)}
     times = {k: [] for k in fns}
     # three turns a kind, each kind first, middle and last once; medians,
     # since the host clock of one window can stray by 2x (PERF.md §5)
-    for kind in ("f32", "bf16", "bf16_per_parameter_casts", "bf16_per_parameter_casts",
-                 "f32", "bf16", "bf16", "bf16_per_parameter_casts", "f32"):
+    for kind in ("f32", "bf16", third, third, "f32", "bf16", "bf16", third, "f32"):
         fn = fns[kind]
         for _ in range(2):
             fn(state, x, y)
@@ -4215,19 +4609,21 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
     print(f"[bf16-train] steady state (medians of three turns), vit-s {variant} batch "
           f"{BATCH}: bf16 "
           f"{host['bf16']:.2f} ms a step, {ips['bf16']:.1f} images/s (host clock; CUDA "
-          f"events {events['bf16']:.2f}); with a cast a parameter "
-          f"{host['bf16_per_parameter_casts']:.2f} ms, "
-          f"{ips['bf16_per_parameter_casts']:.1f} images/s (events "
-          f"{events['bf16_per_parameter_casts']:.2f}); f32 {host['f32']:.2f} ms, "
+          f"events {events['bf16']:.2f}); {third} {host[third]:.2f} ms, "
+          f"{ips[third]:.1f} images/s (events {events[third]:.2f}); f32 {host['f32']:.2f} ms, "
           f"{ips['f32']:.1f} images/s (events {events['f32']:.2f}); turns {times}  [{smi}]")
     lap("the steady state's turns")
     profile = phase_profile(torch, step, state, x, y, f"vit-s {variant} bf16")
     profile_f32 = phase_profile(torch, f32_step, state, x, y, f"vit-s {variant} f32")
+    out = {"launches": counts, "losses": losses, "grad_rel_err": worst,
+           "step_ms": host, "events_ms": events, "images_per_s": ips,
+           "cast_kernels": casts, "host_split": split, "profile": profile,
+           "profile_f32": profile_f32}
+    if fused:
+        out["profile_bf16_unfused"] = phase_profile(torch, fns[third], state, x, y,
+                                                    f"vit-s {variant} bf16, FF unfused")
     lap("the profiles")
-    return {"launches": counts, "losses": losses, "grad_rel_err": worst,
-            "step_ms": host, "events_ms": events, "images_per_s": ips,
-            "cast_kernels": casts, "host_split": split, "profile": profile,
-            "profile_f32": profile_f32}
+    return out
 
 
 # --------------------------------------------------------------------------
@@ -4326,6 +4722,11 @@ def fused_relu_patterns(torch, net):
 
     FFN._launch = recording
     return seen, lambda: setattr(FFN, "_launch", launch)
+
+
+def is_fused(net):
+    """Whether ``net``'s blocks run the fused FF."""
+    return any(getattr(blk, "fused_ff", False) for blk in getattr(net, "blocks", ()))
 
 
 def unfused(net):
@@ -4525,6 +4926,10 @@ KERNEL_GROUPS = (
     ("tiled attention fwd", ("flash_fwd_",)),
     ("tiled attention dq", ("flash_dq_",)),
     ("tiled attention dk/dv", ("flash_dkv_",)),
+    ("fused FF fwd in bf16", ("ffn_fwd_bf16", "ffn_gemm_bf16<0", "ffn_gemm_bf16<1")),
+    ("fused FF bwd in bf16", ("ffn_ln_rows_bf16", "ffn_bwd_hidden_bf16", "ffn_bwd_dx_bf16",
+                              "ffn_dw_bf16", "ffn_sum_parts_bf16", "ffn_gemm_bf16<2",
+                              "ffn_dx_rows_bf16")),
     ("fused FF fwd", ("ffn_fwd_tc", "ffn_gemm_tc<0>", "ffn_gemm_tc<1>", "ffn_split_rows")),
     ("fused FF bwd", ("ffn_ln_rows", "ffn_split_weights", "ffn_bwd_hidden_tc",
                       "ffn_bwd_dx_tc", "ffn_dw_tc", "ffn_sum_parts_kernel",
@@ -5210,6 +5615,10 @@ SOURCES = {
                    "kanvit/kernels/fused_ffn.py:177"),
     "ffn_pre_ln_bwd": ("kanvit_torch/kernels/csrc/fused_ffn.cu",
                        "kanvit/kernels/fused_ffn.py:217"),
+    "ffn_pre_ln_bf16": ("kanvit_torch/kernels/csrc/fused_ffn_bf16.cu",
+                        "kanvit/kernels/fused_ffn.py:177"),
+    "ffn_pre_ln_bwd_bf16": ("kanvit_torch/kernels/csrc/fused_ffn_bf16.cu",
+                            "kanvit/kernels/fused_ffn.py:217"),
     "int8_linear": ("kanvit_torch/kernels/csrc/int8_matmul.cu",
                     "kanvit/kernels/int8_matmul.py:134"),
     "bspline_kan_bf16": (KAN_TC_SRC, f"{FB_PY}:1067"),
@@ -5537,6 +5946,21 @@ ROUTES = {
                   "at its first harmonic, the basis rounded to bf16 at the dot, row splits in "
                   "f32 partials, one rounding)",
         "instantiated_in": KAN_SRC},
+    "ffn_pre_ln_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 fed by ldmatrix, f32 accumulation: ffn_fwd_bf16<JJ> "
+                  "(D <= 512), 48 rows and all of D a block, LN in f32 rounded once to bf16 "
+                  "in shared memory, h over 256-unit chunks, relu(h + b1) rounded to bf16 as "
+                  "the next product's A fragments, y in registers, (y + b2) + x rounded "
+                  "once; W1, W2 tiles 32 deep by cp.async, double-buffered; past D 512 "
+                  "ffn_ln_rows_bf16 + ffn_gemm_bf16 twice through device memory"},
+    "ffn_pre_ln_bwd_bf16": {
+        "kernel": "bf16 mma.sync.m16n8k16 fed by ldmatrix, f32 accumulation: ffn_ln_rows_bf16 "
+                  "(LN as bf16, row stats), ffn_bwd_hidden_bf16 (h and dr = g W2 over D; r "
+                  "and dh written as bf16, db1 from the f32 dh), ffn_bwd_dx_bf16<JJ> (dln = "
+                  "dh W1, the LayerNorm's VJP in f32, dx rounded once, dgamma/dbeta "
+                  "partials; past D 512 ffn_gemm_bf16 + ffn_dx_rows_bf16), ffn_dw_bf16 (dW2 "
+                  "= g^T r with db2, dW1 = dh^T LN, row splits in f32 partials), "
+                  "ffn_sum_parts_bf16 (fixed order, one rounding)"},
     "fourierkan": {"kernel": TC_FWD.format("FourierTc"), "instantiated_in": KAN_SRC},
     "fourierkan_bwd": {"kernel": TC_BWD.format("", "FourierTc"),
                        "instantiated_in": KAN_SRC},
@@ -5557,6 +5981,7 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
                                        ("sine", ("sinekan", "sinekan_qkv_grouped")))
                 for name in names for sfx in ("", "_bwd")},
              "ffn_pre_ln": "ffn_train", "ffn_pre_ln_bwd": "ffn_train",
+             "ffn_pre_ln_bf16": "ffn_bf16_serve", "ffn_pre_ln_bwd_bf16": "ffn_bf16_train",
              "int8_linear": "int8_serve",
              **{name: "bf16_serve" for name in ("bspline_kan_bf16",
                                                 "bspline_qkv_grouped_bf16",
@@ -5599,6 +6024,7 @@ def main():
     results.update(timed("fused FF and int8 kernels", phase_ffn_int8_kernels, torch,
                          smi))
     results.update(timed("bf16 kernels", phase_bf16_kernels, torch))
+    results.update(timed("bf16 fused FF kernels", phase_ffn_bf16_kernels, torch))
 
     from kanvit_torch.models import PRESETS
 
@@ -5664,6 +6090,14 @@ def main():
                                "ffn-serve", fused, SEED + 10)["launches"]
     paths["ffn_train"] = timed("fused-FF training", phase_train, torch, smi, fused_cpu,
                                "ffn-train", fused, "bspline_kan")["launches"]
+    # bf16, on the fused-FF f32 phases' weights, beside the same model unfused
+    paths["ffn_bf16_serve"] = timed(
+        "fused-FF bf16 serving", phase_bf16_serve, torch, smi, fused_cpu, SEED + 10,
+        "efficientkan fused-FF", FFN_BF16_PER_BATCH)["launches"]
+    paths["ffn_bf16_train"] = timed(
+        "fused-FF bf16 training", phase_bf16_train, torch, smi,
+        *at_depth(fused_cpu, FFN_BF16_PER_BATCH, "efficientkan fused-FF"),
+        "bspline_kan")["launches"]
     paths["int8_serve"] = timed("int8 serving", phase_int8_serve, torch, smi,
                                 vanilla_cpu, blocks)["kernel"]["launches"]
     paths.update(timed("head dim 8 and refit grids", phase_faults, torch, smi))

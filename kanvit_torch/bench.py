@@ -12,8 +12,8 @@ synthetic images and labels drawn from ``--seed``. Run on one card:
 
 ``--bf16`` is ``bench.py``'s: kanvit's bf16 policy, f32 parameters and
 Adam, the step in bf16 (``make_train_step(bf16=True)``), for every ViT kind
-(efficientkan, cheby, fourier, fast, sine, vanilla, flash-attn; a
-``fused_ff`` model raises).
+(efficientkan, cheby, fourier, fast, sine, vanilla, flash-attn; the step
+takes a ``fused_ff`` model too).
 
 ``--device`` (default ``cuda``) is explicit: with no card the run raises,
 and it never moves to the CPU on its own (``--device cpu`` is for tests).

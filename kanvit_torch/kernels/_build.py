@@ -84,6 +84,9 @@ SIGNATURES = {
     "kanvit_ffn_fwd": ([*[_p] * 9, *[_i32] * 5, _p], _i32),
     "kanvit_ffn_fwd_wide": ([*[_p] * 14, *[_i32] * 5, _p], _i32),
     "kanvit_ffn_bwd": ([*[_p] * 26, *[_i32] * 6, _p], _i32),
+    "kanvit_ffn_fwd_bf16": ([*[_p] * 9, *[_i32] * 5, _p], _i32),
+    "kanvit_ffn_fwd_wide_bf16": ([*[_p] * 12, *[_i32] * 5, _p], _i32),
+    "kanvit_ffn_bwd_bf16": ([*[_p] * 23, *[_i32] * 6, _p], _i32),
     "kanvit_tf32_mma_rate": ([_p, _i32, _i32, _p], _i32),
     "kanvit_int8_linear_fwd": ([_p, _i64, *[_p] * 4, *[_i32] * 4, _p], _i32),
     "kanvit_attention_lanes_fwd": (

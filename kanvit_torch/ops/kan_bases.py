@@ -12,7 +12,9 @@ the basis in f32, rounded to bf16 at the dot, f32 sums, each output
 rounded once) are :func:`grouped_forward_bf16` and
 :func:`grouped_backward_bf16` over a family's slices, for B-spline and
 Chebyshev, and the FastKAN and SineKAN layers' own (``fastkan_grouped_*``,
-``sine_grouped_*``); they are the CPU route of a bf16 layer.
+``sine_grouped_*``); they are the CPU route of a bf16 layer. The fused
+pre-LN FF's plain version is :func:`ffn_pre_ln`, its bf16 kernels' twins
+:func:`ffn_pre_ln_bf16` and :func:`ffn_pre_ln_bwd_bf16`.
 """
 
 from __future__ import annotations
@@ -601,6 +603,130 @@ def ffn_pre_ln(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor,
     ``kanvit_torch.kernels.fused_ffn``."""
     h = torch.relu(layernorm(x, gamma, beta) @ w1.T + b1)
     return x + (h @ w2.T + b2)
+
+
+# kanvit's row block of the fused FF on bf16 dots (``_bn``,
+# ``kanvit/kernels/fused_ffn.py:146-152``): its backward sums the parameter
+# gradients over blocks of this many rows, in f32, in block order.
+FFN_BLOCK_BF16 = 512
+
+
+def _ln_f32(x: torch.Tensor, gamma: torch.Tensor, beta: torch.Tensor, eps: float = 1e-5):
+    """kanvit's ``_ln_stats`` on the upcast rows: ``(xhat, ln, rstd)`` in f32."""
+    xr = x.float()
+    xc = xr - xr.mean(-1, keepdim=True)
+    rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + eps)
+    xhat = xc * rstd
+    return xhat, xhat * gamma.float() + beta.float(), rstd
+
+
+def ffn_pre_ln_bf16(x2d, gamma, beta, w1, b1, w2, b2, exact: bool = False,
+                    pattern: torch.Tensor | None = None) -> torch.Tensor:
+    """The bf16 fused FF's forward (kanvit's ``_ffn_fwd_kernel`` on bf16
+    operands, ``kanvit/kernels/fused_ffn.py:62-77``), all seven tensors
+    bf16: LN statistics and LN in f32 from the upcast x, LN rounded to bf16
+    at the first dot; h = bf16(LN) W1^T, the products exact and summed in
+    f32, + b1 in f32; relu(h) rounded to bf16 at the second dot; y = (r W2^T
+    + b2) + x in f32, rounded to bf16 once: ``(N, D)`` bf16. ``exact``: the
+    same rounded operands (bf16 LN and r) through the second product in
+    f64, y unrounded. ``pattern`` (N, F) bool, if given, replaces h > 0
+    (a check holds a model's gradients on the card's ReLU pattern)."""
+    _, ln, _ = _ln_f32(x2d, gamma, beta)
+    h = ln.to(torch.bfloat16).float() @ w1.float().T + b1.float()
+    r = (torch.relu(h) if pattern is None else torch.where(pattern, h, 0.0)).to(torch.bfloat16)
+    acc = torch.float64 if exact else torch.float32
+    y = (r.to(acc) @ w2.to(acc).T + b2.to(acc)) + x2d.to(acc)
+    return y if exact else y.to(torch.bfloat16)
+
+
+def ffn_pre_ln_bwd_bf16(x2d, gamma, beta, w1, b1, w2, g, block: int = FFN_BLOCK_BF16,
+                        pattern: torch.Tensor | None = None, exact: bool = False):
+    """The bf16 fused FF's backward (kanvit's ``_ffn_bwd_kernel`` on bf16
+    operands, ``kanvit/kernels/fused_ffn.py:80-143``) on
+    :func:`ffn_pre_ln_bf16`'s operands and ``g (N, D)`` bf16, a block of
+    ``block`` rows at a time (kanvit's ``_bn``): LN and h recomputed as the
+    forward makes them; dW2 = g^T bf16(r), dr = g W2, dh = dr [h > 0],
+    dW1 = bf16(dh)^T bf16(LN), dln = bf16(dh) W1, all with the products exact
+    and summed in f32; db1 sums the unrounded dh, db2 g, dgamma dln xhat,
+    dbeta dln; dx = g + rstd (gs - mean(gs) - xhat mean(gs xhat)), gs = dln
+    gamma, in f32, rounded once. The parameter gradients sum over the blocks
+    in f32 in block order and are rounded once. ``pattern`` (N, F) bool, if
+    given, replaces h > 0 (a check holds the card's kernels on their own ReLU
+    pattern). ``exact``: the same rounded operands (bf16 LN, r, dh) through
+    every product and the LayerNorm's VJP in f64 over all the rows at once,
+    unrounded. Returns ``(dx, dgamma, dbeta, dw1, db1, dw2, db2)``."""
+    n, d = x2d.shape
+    f = w1.shape[0]
+    acc = torch.float64 if exact else torch.float32
+    on = dict(dtype=acc, device=x2d.device)
+    w1a, w2a = w1.to(acc), w2.to(acc)
+    dw1, dw2 = torch.zeros(f, d, **on), torch.zeros(d, f, **on)
+    db1, db2, dgam, dbet = (torch.zeros(k, **on) for k in (f, d, d, d))
+    dx = torch.empty(n, d, dtype=acc if exact else torch.bfloat16, device=x2d.device)
+    for r0 in range(0, n, n if exact else block):
+        rows = slice(r0, r0 + (n if exact else block))
+        xhat, ln, rstd = _ln_f32(x2d[rows], gamma, beta)
+        lnd = ln.to(torch.bfloat16).float()
+        h = lnd @ w1.float().T + b1.float()
+        pos = h > 0 if pattern is None else pattern[rows]
+        r = torch.where(pos, h, 0.0).to(torch.bfloat16)
+        gb = g[rows].to(acc)
+        dh = torch.where(pos, gb @ w2a, 0.0)
+        dhd = (dh if not exact else torch.where(pos, g[rows].float() @ w2.float(), 0.0)
+               ).to(torch.bfloat16).to(acc)
+        if exact:
+            xr = x2d[rows].double()
+            xc = xr - xr.mean(-1, keepdim=True)
+            rstd = torch.rsqrt((xc * xc).mean(-1, keepdim=True) + 1e-5)
+            xhat = xc * rstd
+        dw2 += gb.T @ r.to(acc)
+        dw1 += dhd.T @ lnd.to(acc)
+        dlnp = dhd @ w1a
+        db1 += dh.sum(0)
+        db2 += gb.sum(0)
+        dgam += (dlnp * xhat).sum(0)
+        dbet += dlnp.sum(0)
+        gs = dlnp * gamma.to(acc)
+        m1 = gs.mean(1, keepdim=True)
+        m2 = (gs * xhat).mean(1, keepdim=True)
+        dx[rows] = gb + rstd * (gs - m1 - xhat * m2)
+    out = (dx, dgam, dbet, dw1, db1, dw2, db2)
+    return out if exact else tuple(t.to(torch.bfloat16) for t in out)
+
+
+def ffn_spread_bf16(x2d, gamma, beta, w1, b1, w2, g=None, pattern=None):
+    """How one bf16 ulp (2^-8 relative) of each rounded intermediate moves
+    the bf16 fused FF's results, for their gates: ``|a| |b|`` in place of
+    each product on the twin's operands. Forward: y by r's ulp through
+    |r| |W2|^T and by LN's through h, (|LN| |W1|^T) |W2|^T. With ``g``, the
+    backward's seven (dx, dgamma, dbeta, dW1, db1, dW2, db2), on
+    ``pattern`` (N, F) bool in place of h > 0 if given: dln by dh's ulp,
+    S = |dh| |W1|, into dx through the LayerNorm's VJP (rstd (|gamma| S +
+    mean |gamma| S + |xhat| mean |gamma| S |xhat|)), dgamma (sum S |xhat|)
+    and dbeta (sum S); dW1 by dh's and LN's, 2 |dh|^T |LN|; dW2 by r's and
+    LN's (through h), |g|^T (|r| + |LN| |W1|^T). The sums over the rows
+    are taken in other blocks than the twin's, so each also gets 2 N 2^-24
+    of its sum of |terms|, as a share of 2^-8: db1 of |dh|, db2 of |g|, the
+    others in proportion. f32."""
+    xhat, ln, rstd = _ln_f32(x2d, gamma, beta)
+    lnd = ln.to(torch.bfloat16).float().abs()
+    w1a, w2a = w1.float().abs(), w2.float().abs()
+    h = ln.to(torch.bfloat16).float() @ w1.float().T + b1.float()
+    r = torch.relu(h).to(torch.bfloat16).float()
+    via_h = lnd @ w1a.T
+    if g is None:
+        return (r + via_h) @ w2a.T
+    gf = g.float()
+    dhf = torch.where(h > 0 if pattern is None else pattern, gf @ w2.float(), 0.0).abs()
+    dh = dhf.to(torch.bfloat16).float()
+    s = dh @ w1a
+    gs = gamma.float().abs() * s
+    dx = rstd * (gs + gs.mean(1, keepdim=True)
+                 + xhat.abs() * (gs * xhat.abs()).mean(1, keepdim=True))
+    order = 2.0 * x2d.shape[0] * 2.0 ** -24 / 2.0 ** -8
+    grow = 1.0 + order
+    return (dx, grow * (s * xhat.abs()).sum(0), grow * s.sum(0), grow * 2 * dh.T @ lnd,
+            order * dhf.sum(0), grow * gf.abs().T @ (r + via_h), order * gf.abs().sum(0))
 
 
 def rbf_bases(x: torch.Tensor, grid: torch.Tensor,

@@ -1,11 +1,17 @@
-"""bf16 serving and training of the vit-s efficientkan, cheby, fast, sine and
-fourier ViTs, and bf16 training of the causal decoder, on the card: checks
-and times.
+"""bf16 serving and training of the vit-s efficientkan (with and without
+the fused FF), cheby, fast, sine and fourier ViTs, and bf16 training of the
+causal decoder, on the card: checks and times.
 
     python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby,fast,sine,fourier,
-                                                     decoder}]
+                                                     decoder,ffn}]
                                       [--train] [--cheby-shapes] [--fast-shapes]
                                       [--sine-shapes] [--fourier-shapes] [--sincos]
+
+``--model-type ffn`` runs phase 8b alone (the bf16 fused FF's forward and
+backward kernels against their twins at vit-s, one image, a ragged shape
+and vit-b's and vit-l's widths; ``phase_ffn_bf16_kernels``), then the bf16
+serving and, with ``--train``, training of the vit-s efficientkan ViT with
+``fused_ff=True`` beside the same model unfused.
 
 ``--model-type decoder`` runs ``chip_smoke.py``'s phase 5b alone (the tiled
 attention's bf16 forward, dq and dk/dv against their twins at the
@@ -363,7 +369,8 @@ def bf16_shapes(lib, C, torch, family):
 def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model-type",
-                   choices=("efficientkan", "cheby", "fast", "sine", "fourier", "decoder"),
+                   choices=("efficientkan", "cheby", "fast", "sine", "fourier", "decoder",
+                            "ffn"),
                    default="efficientkan")
     p.add_argument("--train", action="store_true", help="also the bf16 training phase")
     p.add_argument("--cheby-shapes", action="store_true",
@@ -410,7 +417,8 @@ def main(argv=None) -> None:
     phase = {"efficientkan": C.phase_bf16_kernels, "cheby": C.cheby_bf16_kernels,
              "fast": C.fast_bf16_kernels, "sine": C.sine_bf16_kernels,
              "fourier": C.fourier_bf16_kernels,
-             "decoder": C.phase_flash_bf16_kernels}[args.model_type]
+             "decoder": C.phase_flash_bf16_kernels,
+             "ffn": C.phase_ffn_bf16_kernels}[args.model_type]
     results = C.timed("bf16 kernels", phase, torch)
     out["kernels"] = {name: {"ms": r[1], "plain_ms": r[2], **r[3], **r[4],
                              **{k: v for sub in r[5:] for k, v in sub.items()}}
@@ -418,6 +426,18 @@ def main(argv=None) -> None:
     if args.model_type == "decoder":
         if args.train:
             train = C.timed("decoder bf16 training", C.phase_decoder, torch, smi, True)
+            out["train"] = {k: v for k, v in train.items() if k != "launches"}
+        print(json.dumps(out))
+        return
+    if args.model_type == "ffn":  # the efficientkan ViT with the fused FF
+        model = C.build_model("efficientkan", fused_ff=True)
+        label, per_batch = "efficientkan fused-FF", C.FFN_BF16_PER_BATCH
+        serve = C.timed("bf16 serving", C.phase_bf16_serve, torch, smi, model, C.SEED + 10,
+                        label, per_batch)
+        out["serve"] = {k: v for k, v in serve.items() if k != "launches"}
+        if args.train:
+            train = C.timed("bf16 training", C.phase_bf16_train, torch, smi,
+                            *C.at_depth(model, per_batch, label), "bspline_kan")
             out["train"] = {k: v for k, v in train.items() if k != "launches"}
         print(json.dumps(out))
         return

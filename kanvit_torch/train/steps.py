@@ -13,8 +13,8 @@ the backward (``kanvit_torch.utils.precision``). In training the gradients
 come back through the casts to the f32 parameters, whose ``.grad`` is f32,
 and the optimizer runs in f32. The casts are a fixed number of operations
 a step, forward and backward (``precision.bf16_params``). A bf16 training
-step takes the efficientkan, cheby, fast, vanilla and flash-attn ViTs; the
-others raise before any launch (``precision.check_bf16_trainable``).
+step takes every ViT kind, with or without the fused FF
+(``precision.check_bf16_trainable``).
 """
 
 from __future__ import annotations

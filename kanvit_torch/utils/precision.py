@@ -31,9 +31,9 @@ of each f32 parameter forward, f32 of each bf16 gradient back, bit for bit
 what a cast of each parameter gives.
 
 bf16 serving and training take every ViT kind (efficientkan, cheby,
-fourier, fast, sine, vanilla, flash-attn); :func:`check_bf16_trainable`
-raises for a model whose kernels have no bf16 path yet (a fused-FF model),
-before any launch. The causal decoder's bf16 step
+fourier, fast, sine, vanilla, flash-attn), with or without the fused FF
+(``fused_ff=True``); :func:`check_bf16_trainable` would raise, before any
+launch, for a ViT kind whose kernels had no bf16 path (none has). The causal decoder's bf16 step
 (``kanvit_torch.bench_decoder --bf16``) takes :func:`bf16_params` and
 :func:`f32_accumulation` the same way; its embedding's bf16 weight makes
 bf16 activations, as flax ``nn.Embed`` does on a bf16 table.
@@ -179,16 +179,11 @@ BF16_UNPORTED = ()
 
 def check_bf16_trainable(model: torch.nn.Module) -> None:
     """Raise ``NotImplementedError`` for a model that a bf16 training step
-    cannot take: a ViT kind in ``BF16_UNPORTED`` (none) and a fused-FF model
-    (the fused FF's kernels have no bf16 path: ROADMAP.md, Queue 2 entry
-    3b.4). The efficientkan, cheby, fourier, fast, sine, vanilla and
-    flash-attn ViTs pass."""
+    cannot take: a ViT kind in ``BF16_UNPORTED``. None is: every model
+    passes, the efficientkan, cheby, fourier, fast, sine, vanilla and
+    flash-attn ViTs, each with or without the fused FF."""
     kind = getattr(model, "type", None)
     if kind in BF16_UNPORTED:
         raise NotImplementedError(
             f"bf16 training of the {kind} ViT: its KAN kernels have no bf16 path "
             "(ROADMAP.md, Queue 2 entry 3b)")
-    if any(getattr(m, "fused_ff", False) for m in model.modules()):
-        raise NotImplementedError(
-            "bf16 training with fused_ff=True: the fused FF kernels have no bf16 "
-            "path (ROADMAP.md, Queue 2 entry 3b.4)")

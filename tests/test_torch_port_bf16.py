@@ -266,14 +266,17 @@ def test_converter_takes_a_bf16_tree(served):
 
 
 def test_bf16_training_raises():
-    """bf16 training of a model whose kernels have no bf16 path (a fused-FF
-    model: here a fourier ViT with the fused FF; the fourier ViT itself
-    trains in bf16) raises, naming its ROADMAP entry; the efficientkan ViT
-    trains in bf16 (tests/test_torch_port_bf16_train.py)."""
+    """bf16 training of a fused-FF model (here a fourier ViT with the fused
+    FF), which raised until ROADMAP.md Queue 2 entry 3b.4 ported the fused
+    FF's bf16 kernels, trains: a finite f32 loss, f32 gradients
+    (tests/test_torch_port_bf16_ffn.py holds it against kanvit)."""
     model = create_model("fourier", **SMALL, seed=3, fused_ff=True)
     x = torch.zeros(2, *SMALL["chw"])
-    with pytest.raises(NotImplementedError, match="Queue 2 entry 3"):
-        make_train_step(bf16=True)(create_train_state(model), x, torch.zeros(2, dtype=torch.long))
+    _, loss, _ = make_train_step(bf16=True)(create_train_state(model), x,
+                                            torch.zeros(2, dtype=torch.long))
+    assert loss.dtype == torch.float32 and bool(torch.isfinite(loss))
+    assert all(p.grad is not None and p.grad.dtype == torch.float32
+               for p in model.parameters() if p.requires_grad)
 
 
 # --- the CUDA route's wrappers, each launch emulated on the CPU ---------------

@@ -421,13 +421,12 @@ def test_grad_accum_bf16_matches_one_chunk():
 
 
 def test_check_bf16_trainable():
-    """The fourier ViT passes (``precision.BF16_UNPORTED`` is empty); a
-    fused-FF fourier ViT still raises, naming its ROADMAP entry."""
+    """The fourier ViT passes (``precision.BF16_UNPORTED`` is empty), and so
+    does a fused-FF fourier ViT since ROADMAP.md Queue 2 entry 3b.4 ported
+    the fused FF's bf16 kernels."""
     assert precision.BF16_UNPORTED == ()
     precision.check_bf16_trainable(create_model("fourier", **SMALL, seed=3))
-    with pytest.raises(NotImplementedError, match="3b.4"):
-        precision.check_bf16_trainable(create_model("fourier", **SMALL, seed=3,
-                                                    fused_ff=True))
+    precision.check_bf16_trainable(create_model("fourier", **SMALL, seed=3, fused_ff=True))
 
 
 # --- the CUDA route's wrappers, each launch emulated on the CPU ---------------

@@ -415,14 +415,14 @@ def test_grad_accum_bf16_matches_one_chunk():
 
 
 def test_check_bf16_trainable():
-    """The sine and fourier ViTs pass; a fused-FF model (of either
-    kind) still raises, naming its ROADMAP entry."""
+    """The sine and fourier ViTs pass, and so does a fused-FF model of
+    either kind, refused until ROADMAP.md Queue 2 entry 3b.4 ported the
+    fused FF's bf16 kernels."""
     for kind in ("sine", "fourier"):
         precision.check_bf16_trainable(create_model(kind, **SMALL, seed=3))
-    for kind, kw, entry in (("fourier", {"fused_ff": True}, "3b.4"),
-                            ("efficientkan", {"fused_ff": True}, "3b.4")):
-        with pytest.raises(NotImplementedError, match=entry):
-            precision.check_bf16_trainable(create_model(kind, **SMALL, seed=3, **kw))
+    for kind, kw in (("fourier", {"fused_ff": True}), ("efficientkan", {"fused_ff": True}),
+                     ("sine", {"fused_ff": True})):
+        precision.check_bf16_trainable(create_model(kind, **SMALL, seed=3, **kw))
 
 
 # --- the CUDA route's wrappers, each launch emulated on the CPU ---------------

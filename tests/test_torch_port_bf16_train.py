@@ -25,8 +25,9 @@ rounded intermediate weighted as the next product weighs it, 2^-8 of
 - the CUDA route's wrappers with each launch emulated on the CPU: a bf16
   step's launches (1 + 2 + 2 bf16 forwards and backwards at 2 blocks), the
   embedder's no-dx route, the plain route's gradient bits, and
-  ``fused_ff=True`` (of the efficientkan and fourier ViTs) raising before
-  any launch (the cheby, fast, sine and fourier ViTs' bf16 training:
+  ``fused_ff=True`` (of the efficientkan and fourier ViTs) training a bf16
+  step since the fused FF's bf16 kernels (the cheby, fast, sine and fourier
+  ViTs' bf16 training:
   ``test_torch_port_bf16_cheby.py``, ``test_torch_port_bf16_fast.py``,
   ``test_torch_port_bf16_sine.py``, ``test_torch_port_bf16_fourier.py``);
 - the slice: the port's ``make_train_step(bf16=True)`` against ``jax.grad``
@@ -60,6 +61,7 @@ from kanvit_torch.ops import attention as A
 from kanvit_torch.ops import dispatch
 from kanvit_torch.ops import kan_bases as K
 from kanvit_torch.train import create_train_state, make_train_step
+from kanvit_torch.utils import precision
 from kanvit_torch.utils.convert import load_reference_state_dict, state_dict_from_jax_params
 
 BF16 = torch.bfloat16
@@ -341,16 +343,23 @@ def test_kernel_route_trains_bf16(monkeypatch):
 
 @pytest.mark.parametrize("kind,kw,entry", [("fourier", {"fused_ff": True}, "3b.4"),
                                            ("efficientkan", {"fused_ff": True}, "3b.4")])
-def test_bf16_training_of_unported_kinds_raises(kernel_route, kind, kw, entry):
-    """No bf16 kernels: the step raises, naming the ROADMAP entry, before
-    any launch, and leaves the weights as they were."""
+def test_bf16_training_of_unported_kinds_raises(kind, kw, entry):
+    """A fused-FF model, refused in bf16 until ROADMAP.md Queue 2 entry
+    ``entry`` ported the fused FF's bf16 kernels, raises no more: it passes
+    ``check_bf16_trainable`` and trains a bf16 step (the CPU route: the
+    twins), a finite loss, every parameter moved or not as Adam moves it,
+    f32 parameters with f32 gradients, and no launch counted
+    (``tests/test_torch_port_bf16_ffn.py`` holds the card's route)."""
+    assert entry == "3b.4"
     model = create_model(kind, **SMALL, seed=3, **kw)
+    precision.check_bf16_trainable(model)
     before = {k: p.detach().clone() for k, p in model.named_parameters()}
     x, y = _batch(76, n=2)
-    with pytest.raises(NotImplementedError, match=entry):
-        make_train_step(bf16=True)(create_train_state(model), x, y)
+    _, loss, logits = make_train_step(bf16=True)(create_train_state(model), x, y)
+    assert bool(torch.isfinite(loss)) and logits.dtype == torch.float32
     assert not any({**FB.LAUNCHES, **FA.LAUNCHES}.values())
-    assert all(torch.equal(p, before[k]) for k, p in model.named_parameters())
+    assert all(p.dtype == p.grad.dtype == torch.float32 for p in model.parameters())
+    assert any(not torch.equal(p, before[k]) for k, p in model.named_parameters())
 
 
 def test_bf16_backward_wrappers_refuse():

@@ -1397,7 +1397,8 @@ def test_ffn_pre_ln_kernels(cuda_all, n, d, f):
         _close(a, b, 1e-4)
     _, again = _grads(FFN.ffn_pre_ln, args, g)
     assert all(torch.equal(a, b) for a, b in zip(gg, again))
-    assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2}
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2, "ffn_pre_ln_bf16": 0,
+                            "ffn_pre_ln_bwd_bf16": 0}
 
 
 def test_ffn_pre_ln_vit_s_holds_f64_and_repeats_bits(cuda_all):
@@ -1418,7 +1419,8 @@ def test_ffn_pre_ln_vit_s_holds_f64_and_repeats_bits(cuda_all):
     _, first = _grads(FFN.ffn_pre_ln, args, g)
     _, second = _grads(FFN.ffn_pre_ln, args, g)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
-    assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2}
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2, "ffn_pre_ln_bf16": 0,
+                            "ffn_pre_ln_bwd_bf16": 0}
 
 
 def test_ffn_pre_ln_wide_holds_f64_and_repeats_bits(cuda_all):
@@ -1439,7 +1441,8 @@ def test_ffn_pre_ln_wide_holds_f64_and_repeats_bits(cuda_all):
     _, first = _grads(FFN.ffn_pre_ln, args, g)
     _, second = _grads(FFN.ffn_pre_ln, args, g)
     assert all(torch.equal(a, b) for a, b in zip(first, second))
-    assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2}
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 3, "ffn_pre_ln_bwd": 2, "ffn_pre_ln_bf16": 0,
+                            "ffn_pre_ln_bwd_bf16": 0}
 
 
 def test_ffn_pre_ln_unaligned_inputs_run(cuda_all):
@@ -1466,7 +1469,8 @@ def test_ffn_pre_ln_unaligned_inputs_run(cuda_all):
     want, wg = _grads(FFN.ffn_pre_ln, args, g)
     assert torch.equal(got, want)
     assert all(torch.equal(a, b) for a, b in zip(gg, wg))
-    assert FFN.LAUNCHES == {"ffn_pre_ln": 2, "ffn_pre_ln_bwd": 2}
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 2, "ffn_pre_ln_bwd": 2, "ffn_pre_ln_bf16": 0,
+                            "ffn_pre_ln_bwd_bf16": 0}
 
 
 def test_ffn_pre_ln_raises_not_fall_back(cuda_all):
@@ -1575,7 +1579,8 @@ def test_fused_ff_train_step_on_card(cuda_all):
     from kanvit_torch.kernels import fused_ffn as FFN
 
     _train_against_cpu(cuda_all, "efficientkan", fused_ff=True)
-    assert FFN.LAUNCHES == {"ffn_pre_ln": 4, "ffn_pre_ln_bwd": 4}
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 4, "ffn_pre_ln_bwd": 4, "ffn_pre_ln_bf16": 0,
+                            "ffn_pre_ln_bwd_bf16": 0}
     assert FA.LAUNCHES["flash_attention_lanes_bwd"] == 4
 
 
@@ -2690,4 +2695,82 @@ def test_decoder_bf16_train_step_on_card(cuda):
         "flash_attention_bf16": 2, "flash_attention_dq_bf16": 2, "flash_attention_dkv_bf16": 2}
     step = BD.make_step(gpu, bf16=True)
     losses = [float(step(tokens.to(cuda))) for _ in range(3)]
+    assert np.isfinite(losses).all() and losses[-1] < losses[0]
+
+
+# --- the bf16 fused FF: forward and backward kernels against their plain
+# twins (K.ffn_pre_ln_bf16 / K.ffn_pre_ln_bwd_bf16, kanvit's bf16 policy),
+# within one bf16 ulp plus 2^-8 of K.ffn_spread_bf16 (one ulp of LN, r and
+# dh weighted as the next product weighs it) and, for the sums over the
+# rows (in other blocks than the twin's), 2 N 2^-24 of their sum of |terms|
+# (K.ffn_spread_bf16); the backward held on the kernel's own ReLU pattern;
+# bits repeated.
+
+@pytest.mark.parametrize("n,d,f", [(12 * 197, 384, 1536), (37 * 50 + 1, 100, 400),
+                                   (2 * 197, 768, 3072), (200, 1024, 4096)])
+def test_ffn_pre_ln_bf16_kernels(cuda_all, n, d, f):
+    """vit-s, a ragged narrow shape, vit-b's and vit-l's widths (the tiled
+    route): y and the seven gradients within their gates of the twins, bf16,
+    their bits repeated; 3 bf16 forward and 2 backward launches, no f32."""
+    from kanvit_torch.kernels import fused_ffn as FFN
+
+    rng = np.random.default_rng(140 + d)
+    args = [a.to(BF16) for a in _ffn_inputs(rng, n, d, f, cuda_all)]
+    g = torch.from_numpy(rng.standard_normal((n, d)).astype(np.float32)).to(cuda_all).to(BF16)
+    mask = torch.empty(n, f, dtype=torch.uint8, device=cuda_all)
+    with torch.inference_mode():
+        y, again = FFN._launch_bf16(*args), FFN._launch_bf16(*args, relu_mask=mask)
+        _bf16_ulp(y, K.ffn_pre_ln_bf16(*args), K.ffn_spread_bf16(*args[:6]))
+        assert torch.equal(y, again)
+        pattern = mask.bool()
+        got = FFN._launch_bwd_bf16(*args[:6], g)
+        second = FFN._launch_bwd_bf16(*args[:6], g)
+        twin = K.ffn_pre_ln_bwd_bf16(*args[:6], g, pattern=pattern)
+        spreads = K.ffn_spread_bf16(*args[:6], g=g, pattern=pattern)
+        for a, b, c, sp in zip(got, twin, second, spreads):
+            _bf16_ulp(a, b, sp)
+            assert torch.equal(a, c)
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 0, "ffn_pre_ln_bwd": 0, "ffn_pre_ln_bf16": 2,
+                            "ffn_pre_ln_bwd_bf16": 2}
+    leaves = [a.clone().requires_grad_(True) for a in args]
+    out = FFN.ffn_pre_ln(*leaves)
+    grads = torch.autograd.grad(out, leaves, g)
+    assert out.dtype == BF16 and all(t.dtype == BF16 for t in grads)
+    assert torch.equal(out, y) and all(torch.equal(a, b) for a, b in zip(grads, got))
+    assert FFN.LAUNCHES["ffn_pre_ln_bf16"] == 3 and FFN.LAUNCHES["ffn_pre_ln_bwd_bf16"] == 3
+    mixed = [args[0].float(), *args[1:]]
+    with pytest.raises(TypeError, match="gamma must be float32 as x is"):
+        FFN.ffn_pre_ln(*mixed)
+
+
+def test_fused_ff_bf16_train_step_on_card(cuda_all):
+    """A bf16 step (``make_train_step(bf16=True)``) of a 2-block efficientkan
+    ViT with the fused FF at the reference geometry on the card against the
+    same on the CPU (the kernels' twins): 2 + 2 bf16 FF launches and no f32
+    one, the loss within 2e-2 x max(1, |loss|), each f32 parameter's
+    gradient within 5e-2 of its own max|g|, and the loss falling over 3
+    steps."""
+    import copy
+
+    from kanvit_torch.kernels import fused_ffn as FFN
+    from kanvit_torch.models import create_model
+    from kanvit_torch.train import create_train_state, make_train_step
+
+    cpu = create_model("efficientkan", chw=(3, 32, 32), n_patches=4, n_blocks=2, d_hidden=64,
+                       n_heads=8, out_d=100, seed=6, fused_ff=True)
+    gpu = copy.deepcopy(cpu).to(cuda_all)
+    rng = np.random.default_rng(114)
+    x = torch.from_numpy(rng.standard_normal((6, 3, 32, 32)).astype(np.float32))
+    y = torch.from_numpy(rng.integers(0, 100, 6))
+    step = make_train_step(bf16=True)
+    _, lc, _ = step(create_train_state(cpu), x, y)
+    sg, lg, _ = step(create_train_state(gpu), x.to(cuda_all), y.to(cuda_all))
+    assert abs(float(lc) - float(lg)) <= 2e-2 * max(1.0, abs(float(lc)))
+    for (name, pc), pg in zip(cpu.named_parameters(), gpu.parameters()):
+        assert pg.dtype == pg.grad.dtype == torch.float32, name
+        err = float((pc.grad - pg.grad.cpu()).abs().max())
+        assert err <= 5e-2 * float(pc.grad.abs().max()), (name, err)
+    assert FFN.LAUNCHES == {"ffn_pre_ln": 0, "ffn_pre_ln_bwd": 0, "ffn_pre_ln_bf16": 2,
+                            "ffn_pre_ln_bwd_bf16": 2}
+    losses = [float(lg)] + [float(step(sg, x.to(cuda_all), y.to(cuda_all))[1]) for _ in range(2)]
     assert np.isfinite(losses).all() and losses[-1] < losses[0]
