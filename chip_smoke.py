@@ -104,7 +104,12 @@ Phases, in order; any failure raises, so the script exits non-zero:
    and the library calls (``F.layer_norm`` + cuBLAS ``F.linear``;
    ``torch._int_mm`` with its quantize and dequantize passes, and f32
    ``F.linear``), and the card's ``mma.sync`` TF32 rate, the FF kernels'
-   instruction (``csrc/mma_rate_probe.cu``);
+   instruction (``csrc/mma_rate_probe.cu``); then ``int8_linear`` on bf16
+   x, W and bias (its bf16 kernel) against its bf16 twin, no element
+   differing and its bits repeated, at vit-b's FF1, FF2 and embedder
+   (12,608 and 12,544 rows), vit-s's FF1, ragged rows and x strided by 3
+   and by 4 values, timed beside the f32 kernel on the same operands, the
+   twin and ``torch._int_mm`` with its quantize and dequantize passes;
 8b. the bf16 fused FF (``csrc/fused_ffn_bf16.cu``, forward and backward)
    against its plain twins (``K.ffn_pre_ln_bf16`` / ``K.ffn_pre_ln_bwd_bf16``)
    at vit-s, one image, a ragged shape and vit-b's and vit-l's widths (the
@@ -186,8 +191,9 @@ Phases, in order; any failure raises, so the script exits non-zero:
    each way and nothing else, with 9c's checks and numbers. The bf16
    training phases of the efficientkan, cheby, fast, sine and fourier ViTs
    run at 6, 6, 4, 6 and 6 of their 12 blocks (``BF16_TRAIN_DEPTH``; their
-   launches a step scaled to them), so that the run stays well inside its
-   time limit as phases are added;
+   launches a step scaled to them), time two turns of each step, and
+   profile the bf16 step alone (the f32 step's profile is phase 10's), so
+   that the run stays well inside its time limit as phases are added;
 9f. the fourier ViT's two bf16 KAN kernels (``fourierkan`` at grid 28, its
    56 slices in 14 chunks of 2 harmonics, cos/sin(kx) by the angle-addition
    recurrence; forward and backward: dx, dW) against their plain twins in
@@ -201,9 +207,19 @@ Phases, in order; any failure raises, so the script exits non-zero:
    ``Predictor(quant="int8")``: with the ``int8_linear`` kernel (25
    launches a batch, the 1000-class head on qdot), calibrated, and on qdot
    alone; top-1 agreement with f32 and the probabilities' change (kanvit's
-   gates), four images against the CPU's int8 forward, images/s of each and
-   of f32, the device forward's time and profile of each and of f32, and the
-   time of quantizing the weights once over;
+   gates), four images against the CPU's int8 forward and the same four
+   replayed on the CPU a block at a time from the card's inputs, images/s
+   of each and of f32, the device forward's time and profile of each and
+   of f32, and the time of quantizing the weights once over;
+11b. the same for a bf16 model (kanvit's ``--bf16 --quant int8``): the
+   vit-b ``vanilla`` (d 768, 12 heads, 12 blocks) on a bf16 copy of seeded
+   f32 weights, with the kernel (25 bf16 ``int8_linear`` + 12 bf16 lanes a
+   batch), calibrated, and on qdot (no ``int8_linear``, 12 f32 lanes: the
+   stream f32 after the embedder), the gates against the same bf16 model's
+   float logits, and on qdot the widening casts; then gates and counts
+   alone at 4 blocks: the vit-b ``flash-attn`` on the kernel route (its
+   chained four images read, not gated) and the vit-s ``efficientkan`` on
+   qdot;
 12. the repaired faults: ``load_predictor``'s defaults (MNIST, d 64, 8 heads
    of 8) serving a request, the CIFAR geometry (d 64, 8 heads, 17 tokens)
    training ``efficientkan`` and ``vanilla`` with the gradient gate, and a
@@ -408,8 +424,8 @@ def phase_build():
 # the grouped backward's: the family and its NJ; the forward's: the family
 # and its n8 tiles a warp, B-spline's, RBF's and Chebyshev's also its stages
 # a level of the sum, 0 for the q/k/v's one running sum, 12 for the
-# embedder's two levels; the int8 linear's: its rows a block, its products
-# IMMA, not HMMA).
+# embedder's two levels; the int8 linear's: its rows a block and its
+# activation type, f32 or bf16, its products IMMA, counted with the HMMA).
 SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
                 "flash_dq_tcILi64", "flash_dkv_tcILi64", "ffn_fwd_tcILi3",
@@ -436,14 +452,17 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("kan_tc_fwd_grouped", "5ChebyELi8ELi12E", "Tf32x3ELi24E"),
                 ("kan_tc_kernel", "FourierTc", "Lb0"), ("kan_tc_kernel", "FourierTc", "Lb1"),
                 ("kan_tc_kernel", "SineTc", "Lb0"), ("kan_tc_kernel", "SineTc", "Lb1"),
-                ("int8_linear_kernelILi48E",), "ffn_fwd_bf16ILi3", "ffn_bwd_hidden_bf16",
+                ("int8_linear_kernelILi48E", "Li2EfE"),
+                ("int8_linear_kernelILi48E", "nv_bfloat16"), "ffn_fwd_bf16ILi3",
+                "ffn_bwd_hidden_bf16",
                 "ffn_bwd_dx_bf16ILi3", "ffn_dw_bf16")
 
 
 def sass_mix(lib):
     """Static SASS instruction counts of ``SASS_KERNELS`` (cuobjdump): the
-    HMMAs against everything else, and the most frequent mnemonics. A
-    report for PERF.md, not a gate."""
+    HMMAs (tensor-core products; an int8 kernel's IMMA counted as one)
+    against everything else, and the most frequent mnemonics. A report for
+    PERF.md, not a gate."""
     from kanvit_torch.kernels import _build
 
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
@@ -464,6 +483,7 @@ def sass_mix(lib):
         if not code:
             print(f"[build] SASS {name}: not found in the library")
             continue
+        code = [(at, "HMMA" if op == "IMMA" else op, rest) for at, op, rest in code]
         counts = {}
         for _, op, _ in code:
             counts[op] = counts.get(op, 0) + 1
@@ -2490,6 +2510,77 @@ def check_int8(torch, rng, n, k, out, label, pad=0):
                                 "rows_per_block": IM.rows_per_block(k)}, bounds)
 
 
+def int8_bound_bf16(n, k, out, library_ms):
+    """``int8_bound`` with x and y in bf16 bytes."""
+    return bound(2.0 * n * k * out, 2.0 * n * k + k * out + 2.0 * n * out + 8.0 * out,
+                 library_ms, peak=PEAK_INT8_OPS)
+
+
+def check_int8_bf16(torch, rng, n, k, out, label, pad=0):
+    """``int8_linear`` on bf16 x, W and bias against its bf16 twin
+    (``qdot_rowwise`` rounded once to bf16) on the card: no element
+    differing at all, and its bits repeated on a second call; ``pad``: x a
+    window of rows ``pad`` values wider. Times (CUDA events; the device's
+    own by ``torch.profiler``) of the kernel (weight quantized beforehand,
+    as the kernel takes it), the f32 kernel on the same operands widened,
+    the twin, the library route (per-row quantize, ``torch._int_mm``,
+    dequantize, + b, one rounding to bf16) and ``torch._int_mm`` alone,
+    beside the bound (x and y in bf16 bytes) and the kernel's share."""
+    from kanvit_torch.kernels import int8_matmul as IM
+    from kanvit_torch.ops import quant as Q
+
+    bf16 = torch.bfloat16
+    x = torch.from_numpy(rng.standard_normal((n, k + pad)).astype(np.float32)).cuda()
+    x = x.to(bf16)[:, :k]
+    w = torch.from_numpy((rng.standard_normal((out, k)) * 0.05).astype(np.float32)).cuda()
+    w = w.to(bf16)
+    b = torch.from_numpy(rng.standard_normal(out).astype(np.float32)).cuda().to(bf16)
+    tag = f"{label} N={n} K={k} out={out}" + (f" (x rows of {k + pad})" if pad else "")
+    with torch.inference_mode():
+        y = IM.int8_linear(x, w, b)
+        again = IM.int8_linear(x, w, b)
+        ref = Q.qdot_rowwise(x, w, b).to(bf16)
+        torch.cuda.synchronize()
+        err = float((y.float() - ref.float()).abs().max())
+        differ = int((y != ref).sum())
+        repeated = bool(torch.equal(y, again))
+        ok = (y.dtype == bf16 and bool(y.isfinite().all()) and differ == 0 and repeated)
+        print(f"[kernel] int8_linear bf16 {tag}: {differ} of {y.numel()} elements differ "
+              f"from the bf16 twin at all (gate: 0; max|err| {err:.3e}); bits repeated "
+              f"{repeated}  {'ok' if ok else 'FAIL'}")
+        check(ok, f"int8_linear bf16 {tag}: kernel disagrees with its bf16 twin ({differ} "
+                  f"elements differ; bits repeated {repeated})")
+        wq, sw = Q._quantize(w, dim=-1)
+        swr, b32, x32 = sw.reshape(-1).contiguous(), b.float(), x.float()
+
+        def library():
+            xq, sx = Q._quantize(x, dim=-1)
+            return (torch._int_mm(xq, wq.t()).float() * sx * sw.reshape(1, -1)
+                    + b32).to(bf16)
+
+        def kernel():
+            return IM._launch(x, wq, swr, b32)
+
+        ms = time_ms(torch, kernel)
+        dev_ms = kernel_ms(torch, kernel)
+        f32_ms = time_ms(torch, lambda: IM._launch(x32, wq, swr, b32))
+        plain_ms = time_ms(torch, lambda: Q.qdot_rowwise(x, w, b).to(bf16))
+        lib_ms = time_ms(torch, library)
+        xq = Q._quantize(x, dim=-1)[0]
+        int_mm_ms = time_ms(torch, lambda: torch._int_mm(xq, wq.t()))
+    bounds = int8_bound_bf16(n, k, out, lib_ms)
+    print(f"[kernel] int8_linear bf16 {tag}: kernel {ms:.4f} ms, device {dev_ms:.4f} "
+          f"({IM.rows_per_block(k)} rows a block)  bound {bounds['bound_ms']:.4f} ms by "
+          f"{bounds['bound_by']} (share {bounds['bound_ms'] / dev_ms:.3f})  the f32 kernel "
+          f"on the same operands {f32_ms:.4f} ms  plain {plain_ms:.4f} ms  library "
+          f"(quantize, torch._int_mm, dequantize) {lib_ms:.4f} ms  torch._int_mm alone "
+          f"{int_mm_ms:.4f} ms")
+    return (err, ms, plain_ms, {"elements_differing": differ, "bits_repeated": repeated,
+                                "device_ms": dev_ms, "f32_ms": f32_ms,
+                                "int_mm_ms": int_mm_ms,
+                                "rows_per_block": IM.rows_per_block(k)}, bounds)
+
+
 def phase_ffn_int8_kernels(torch, smi):
     from kanvit_torch.kernels import int8_matmul as IM
 
@@ -2530,7 +2621,26 @@ def phase_ffn_int8_kernels(torch, smi):
     results["int8_linear"][3]["at_probe_shape_768x3072"] = {
         "ms": probe[1], "int_mm_ms": probe[3]["int_mm_ms"],
         "library_ms": probe[4]["library_ms"], "bound_ms": probe[4]["bound_ms"]}
+    results.update(timed("  bf16 int8_linear checks", int8_bf16_kernels, torch, rng))
     return results
+
+
+def int8_bf16_kernels(torch, rng):
+    """``int8_linear`` on bf16 x (``check_int8_bf16``): vit-b's FF1 (the
+    entry), FF2 and embedder, vit-s FF1, ragged rows, and x strided by 3
+    values (the scalar loads) and by 4 (the 8-byte ones)."""
+    n = BATCH * 197
+    entry = check_int8_bf16(torch, rng, n, 768, 3072, "vit-b FF1")
+    entry += tuple(
+        {key: sub_entry(check_int8_bf16(torch, rng, rows, k, out, label, pad))}
+        for key, rows, k, out, label, pad in (
+            ("vit_b_ff2", n, 3072, 768, "vit-b FF2", 0),
+            ("vit_b_embedder", BATCH * 196, 768, 768, "vit-b embedder", 0),
+            ("vit_s_ff1", n, 384, 1536, "vit-s FF1", 0),
+            ("ragged", 37 * 50 + 1, 256, 128, "ragged", 0),
+            ("strided_3", 333, 768, 384, "strided", 3),
+            ("strided_4", 333, 768, 384, "strided", 4)))
+    return {"int8_linear_bf16": entry}
 
 
 # --------------------------------------------------------------------------
@@ -2726,13 +2836,15 @@ def reset_counts():
         module.reset_launches()
 
 
-def build_model(variant, **kw):
+def build_model(variant, preset="vit-s", **kw):
+    """``preset``'s ``variant`` (``kw`` overriding the preset, e.g.
+    ``n_blocks``), f32 weights from ``SEED``, on the CPU."""
     from kanvit_torch.models import PRESETS, create_model
 
     t0 = time.perf_counter()
-    model_cpu = create_model(variant, **PRESETS["vit-s"], seed=SEED, **kw)
+    model_cpu = create_model(variant, **{**PRESETS[preset], **kw}, seed=SEED)
     n_params = sum(p.numel() for p in model_cpu.parameters())
-    print(f"[main] vit-s {variant} {kw or ''} f32: {n_params} params, built in "
+    print(f"[main] {preset} {variant} {kw or ''} f32: {n_params} params, built in "
           f"{time.perf_counter() - t0:.2f} s")
     return model_cpu
 
@@ -4437,11 +4549,11 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
     and with a cast a parameter (``per_parameter_casts``, before it); host
     ms a step and images/s of the f32 step, the bf16 step and the bf16 step
     with a cast a parameter (in turns f32, bf16, per-parameter,
-    per-parameter, bf16, f32), CUDA events a step, and the profiles' busy
-    time, idle share and largest device operations of the bf16 and the f32
-    step (``phase_profile``); a fused-FF model's bf16 step beside the same
+    per-parameter, bf16, f32), CUDA events a step, and the profile's busy
+    time, idle share and largest device operations of the bf16 step
+    (``phase_profile``); a fused-FF model's bf16 step beside the same
     model with its FF unfused (cuBLAS bf16) in place of the cast a
-    parameter, and profiled."""
+    parameter."""
     from kanvit_torch.kernels import fused_basis as FB
     from kanvit_torch.models import PRESETS
     from kanvit_torch.train import create_train_state, make_train_step
@@ -4591,9 +4703,10 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
         fns = {"f32": f32_step, "bf16": step,
                third: lambda _state, xs, ys: step(other, xs, ys)}
     times = {k: [] for k in fns}
-    # three turns a kind, each kind first, middle and last once; medians,
-    # since the host clock of one window can stray by 2x (PERF.md §5)
-    for kind in ("f32", "bf16", third, third, "f32", "bf16", "bf16", third, "f32"):
+    # two turns a kind, in the order f32, bf16, third, third, bf16, f32;
+    # medians (here means), since the host clock of one window can stray by
+    # 2x (PERF.md §5)
+    for kind in ("f32", "bf16", third, third, "bf16", "f32"):
         fn = fns[kind]
         for _ in range(2):
             fn(state, x, y)
@@ -4606,24 +4719,20 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
     host = {k: float(np.median([h for h, _ in v])) for k, v in times.items()}
     events = {k: float(np.median([e for _, e in v])) for k, v in times.items()}
     ips = {k: BATCH / (v / 1e3) for k, v in host.items()}
-    print(f"[bf16-train] steady state (medians of three turns), vit-s {variant} batch "
+    print(f"[bf16-train] steady state (medians of two turns), vit-s {variant} batch "
           f"{BATCH}: bf16 "
           f"{host['bf16']:.2f} ms a step, {ips['bf16']:.1f} images/s (host clock; CUDA "
           f"events {events['bf16']:.2f}); {third} {host[third]:.2f} ms, "
           f"{ips[third]:.1f} images/s (events {events[third]:.2f}); f32 {host['f32']:.2f} ms, "
           f"{ips['f32']:.1f} images/s (events {events['f32']:.2f}); turns {times}  [{smi}]")
     lap("the steady state's turns")
+    # the bf16 step's profile alone: the f32 step's is phase 10's, and the
+    # unfused bf16 step's is the efficientkan bf16 phase's
     profile = phase_profile(torch, step, state, x, y, f"vit-s {variant} bf16")
-    profile_f32 = phase_profile(torch, f32_step, state, x, y, f"vit-s {variant} f32")
-    out = {"launches": counts, "losses": losses, "grad_rel_err": worst,
-           "step_ms": host, "events_ms": events, "images_per_s": ips,
-           "cast_kernels": casts, "host_split": split, "profile": profile,
-           "profile_f32": profile_f32}
-    if fused:
-        out["profile_bf16_unfused"] = phase_profile(torch, fns[third], state, x, y,
-                                                    f"vit-s {variant} bf16, FF unfused")
-    lap("the profiles")
-    return out
+    lap("the profile")
+    return {"launches": counts, "losses": losses, "grad_rel_err": worst,
+            "step_ms": host, "events_ms": events, "images_per_s": ips,
+            "cast_kernels": casts, "host_split": split, "profile": profile}
 
 
 # --------------------------------------------------------------------------
@@ -5201,105 +5310,289 @@ def top1_and_probs(logits, ref):
             float(np.abs(probs(logits) - probs(ref)).max()))
 
 
-def phase_int8_serve(torch, smi, model_cpu, blocks):
-    """vit-s vanilla served f32 and int8 through ``Predictor``: with the
-    ``int8_linear`` kernel (25 launches a batch: the embedder and 12 FF
-    pairs; the 1000-class head on qdot), calibrated, and on qdot alone;
-    exact launch counts, top-1 agreement with f32 at least 0.9 and
-    probabilities within 0.2, four images' logits against the CPU's int8
-    forward, and images/s of each; the device forward's time (CUDA events)
-    and its ``torch.profiler`` split for f32 and each int8 route, and the
-    time of quantizing the weights that run once over (which every int8
-    forward does again)."""
-    from kanvit_torch.infer import Predictor
-    from kanvit_torch.models import PRESETS
-    from kanvit_torch.ops import quant as Q
+def widening_casts(torch, fwd, reps=5):
+    """The widening of bf16 parameters to f32 in one forward ``fwd()``
+    (``precision.promote``, counted where the layers call it): how many
+    tensors it widens, their device kernels and device ms (each widening
+    call in a ``torch.profiler`` host range of its own, the kernels under
+    it), and the host ms of the promote calls (median over ``reps``
+    unprofiled forwards)."""
+    import kanvit_torch.layers.attention as layer_attention
+    import kanvit_torch.layers.kan as layer_kan
+    import kanvit_torch.layers.transformer as layer_transformer
+    import kanvit_torch.models.vit as model_vit
+    from torch.profiler import ProfilerActivity, profile, record_function
 
-    geom = PRESETS["vit-s"]
+    from kanvit_torch.utils import precision
+
+    users = (layer_attention, layer_kan, layer_transformer, model_vit)
+    seen = {"casts": 0, "host_s": 0.0, "ranges": False}
+
+    def counted(x, *params):
+        t0 = time.perf_counter()
+        out = precision.promote(x, *params)
+        widened = sum(1 for p, q in zip(params, out) if p is not q)
+        if widened and seen["ranges"]:
+            with record_function("kanvit_widen"):
+                out = precision.promote(x, *params)
+        seen["host_s"] += time.perf_counter() - t0
+        seen["casts"] += widened
+        return out
+
+    for module in users:
+        module.promote = counted
+    try:
+        host = []
+        for _ in range(reps):
+            seen.update(casts=0, host_s=0.0)
+            fwd()
+            torch.cuda.synchronize()
+            host.append(seen["host_s"] * 1e3)
+        casts = seen["casts"]
+        seen["ranges"] = True
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            first_kernel(torch)
+            fwd()
+            torch.cuda.synchronize()
+    finally:
+        for module in users:
+            module.promote = precision.promote
+    found = {"kernels": 0, "device_us": 0.0}
+
+    def walk(event):
+        for k in getattr(event, "kernels", ()):
+            found["kernels"] += 1
+            found["device_us"] += k.duration
+        for child in event.cpu_children:
+            walk(child)
+
+    for event in prof.events():
+        if event.name == "kanvit_widen":
+            walk(event)
+    return {"tensors_widened": casts, "device_kernels": found["kernels"],
+            "device_ms": found["device_us"] / 1e3,
+            "host_ms": float(np.median(host))}
+
+
+def replay_blocks(torch, model, model_cpu, x, scales, kernel):
+    """The card's int8 forward of ``x`` replayed on the CPU a block at a
+    time: each block's input on the card fed to the same block of
+    ``model_cpu``, and the card's last hidden state to the CPU's head, under
+    the same int8 serving. Returns each block's and the head's max|card -
+    CPU| over max(1, max|CPU|): the card's own inputs, so no earlier
+    rounding difference carries into a block."""
+    from kanvit_torch.ops import quant as Q
+    from kanvit_torch.utils import precision
+
+    seen = []
+    hooks = [blk.register_forward_hook(
+        lambda m, args, out: seen.append((args[0].detach().cpu(), out.detach().cpu())))
+        for blk in model.blocks]
+    try:
+        with torch.inference_mode(), precision.f32_accumulation(), \
+                Q.int8_serving(model, scales, kernel=kernel):
+            logits = model(x).float().cpu()
+    finally:
+        for h in hooks:
+            h.remove()
+
+    def rel(got, want):
+        want = want.float()
+        return float((got.float() - want).abs().max()) / max(1.0, float(want.abs().max()))
+
+    errs = []
+    with torch.inference_mode(), Q.int8_serving(model_cpu, scales, kernel=kernel):
+        for blk, (inp, out) in zip(model_cpu.blocks, seen):
+            errs.append(rel(out, blk(inp)))
+        errs.append(rel(logits, model_cpu.mlp_head(seen[-1][1][:, 0]).float()))
+    return errs
+
+
+# launches a batch of each int8 route ("kernel" also calibrated), by phase
+INT8_PER_BATCH = {
+    "vit-s vanilla": {"kernel": {"int8_linear": 25, "flash_attention_lanes": 12},
+                      "qdot": {"flash_attention_lanes": 12}},
+    "vit-b vanilla bf16": {"kernel": {"int8_linear_bf16": 25,
+                                      "flash_attention_lanes_bf16": 12},
+                           "qdot": {"flash_attention_lanes": 12}},
+    # to_q, to_kv and to_out a block, and the embedder
+    "vit-b flash-attn at 4 of 12 blocks bf16": {
+        "kernel": {"int8_linear_bf16": 1 + 3 * 4, "flash_attention_lanes_bf16": 4}},
+    # block 0 bf16 up to its FF, the stream f32 after it
+    "vit-s efficientkan at 4 of 12 blocks bf16": {
+        "qdot": {"bspline_kan_bf16": 1, "bspline_qkv_grouped_bf16": 1,
+                 "flash_attention_lanes_bf16": 1, "bspline_qkv_grouped": 3,
+                 "flash_attention_lanes": 3}},
+}
+
+
+def phase_int8_serve(torch, smi, model_f32, tag, bf16=False,
+                     routes=("kernel", "calibrated", "qdot"), measure=True,
+                     chained_gate=True):
+    """``model_f32`` (random weights from ``SEED``; with ``bf16``, a bf16
+    copy of it, kanvit's ``--bf16 --quant int8``) served float and int8
+    through ``Predictor`` for three requests on each of ``routes``: the
+    ``int8_linear`` kernel (the embedder and 12 FF pairs of a vanilla ViT;
+    on bf16 its bf16 form, the stream bf16 up to the head), calibrated
+    static scales with the kernel, and ``qdot`` alone (a bf16 stream turns
+    f32 at the first int8 Linear, later layers on widened weights). Each:
+    exactly ``INT8_PER_BATCH[tag]``'s launches a batch and nothing else;
+    top-1 agreement at least 0.9 and no probability moved by 0.2 against
+    the same model's float logits (kanvit's gates); four images against the
+    CPU's int8 forward of the same model within 2e-2 x max(1,
+    max|logit|), and the same four replayed on the CPU a block at a time
+    from the card's own inputs (``replay_blocks``), each block and the head
+    within 2e-2 x max(1, max|out|). ``chained_gate=False`` prints the
+    chained four images' gap, and the f32 model's on the same path, without
+    gating it: the flash-attn ViT's raw attention blocks (no residual or
+    LayerNorm) turn a one-ulp difference of the attention, which int8 turns
+    into whole quantization steps, into a gap at its class token that the
+    head's LayerNorm spreads over the logits; in f32 too (PERF.md, §6).
+    ``measure``: images/s host to host, the device forward (CUDA events)
+    and one profile each of the float forward and each route, the time of
+    quantizing the weights that run once over (which every int8 forward does
+    again), and on a bf16 model the qdot route's widening casts
+    (``widening_casts``)."""
+    from kanvit_torch.infer import Predictor
+    from kanvit_torch.ops import quant as Q
+    from kanvit_torch.utils import precision
+
+    dtype = torch.bfloat16 if bf16 else torch.float32
+    model_cpu = precision.cast_params_(copy.deepcopy(model_f32)) if bf16 else model_f32
     model = copy.deepcopy(model_cpu).to("cuda")
-    rng = np.random.default_rng(SEED + 11)
-    images = rng.standard_normal((sum(REQUESTS), *geom["chw"])).astype(np.float32)
+    rng = np.random.default_rng(SEED + (12 if bf16 else 11))
+    images = rng.standard_normal((sum(REQUESTS), *model.chw)).astype(np.float32)
     bounds = np.cumsum((0,) + REQUESTS)
     reqs = [images[lo:hi] for lo, hi in zip(bounds[:-1], bounds[1:])]
-    x = torch.from_numpy(reqs[0]).cuda()
+    x = torch.from_numpy(reqs[0]).cuda().to(dtype)
 
     def device_forward(name, scales=None, kernel=None):
-        """CUDA-event ms of one batch-64 forward, and its profile, f32
-        (``kernel`` None) or under int8 serving."""
+        """CUDA-event ms of one batch-64 forward and its profile, float
+        (``kernel`` None) or under int8 serving (bf16: with f32 reduction)."""
         def fwd(*_):
-            with torch.inference_mode(), (
+            with torch.inference_mode(), precision.f32_accumulation(), (
                     contextlib.nullcontext() if kernel is None
                     else Q.int8_serving(model, scales, kernel=kernel)):
                 return model(x)
         ms = time_ms(torch, fwd, iters=10)
-        profile = phase_profile(torch, fwd, None, None, None, f"vit-s vanilla {name}",
+        profile = phase_profile(torch, fwd, None, None, None, f"{tag} {name}",
                                 steps=3, what="forwards at batch 64")
-        return ms, profile
+        return ms, profile, fwd
 
-    f32_pred = Predictor(model, batch_size=BATCH, device="cuda")
-    f32 = np.concatenate([f32_pred.logits(r) for r in reqs])
-    f32_ms, f32_profile = device_forward("f32")
-    out = {"f32_images_per_s": serve_rate(torch, f32_pred, reqs[0]),
-           "f32_device_forward_ms": f32_ms, "f32_profile": f32_profile}
-    print(f"[int8] vit-s vanilla f32: {out['f32_images_per_s']:.1f} images/s host to "
-          f"host; device forward {f32_ms:.3f} ms  [{smi}]")
-    # the Linear layers an int8 forward quantizes (those that run), and the
-    # time of quantizing their weights, once over
-    with torch.inference_mode(), Q.calibrating(model) as ran:
-        model(x)
-    modules = dict(model.named_modules())
-    weights = [modules[name].weight for name in ran]
-    with torch.inference_mode():
-        wq_ms = time_ms(torch, lambda: [Q._quantize(w, dim=-1) for w in weights],
-                        iters=10)
-    out["weight_quantize_ms"] = wq_ms
-    print(f"[int8] quantizing the weights of the {len(weights)} Linear layers that run, "
-          f"per output channel, once over: {wq_ms:.3f} ms (every int8 forward does it "
-          f"again)  [{smi}]")
-    configs = (("kernel", dict(int8_kernel=True), False),
-               ("calibrated", dict(int8_kernel=True), True),
-               ("qdot", dict(int8_kernel=False), False))
-    for name, kw, calibrate in configs:
-        pred = Predictor(model, batch_size=BATCH, device="cuda", quant="int8", **kw)
-        if calibrate:
+    float_pred = Predictor(model, batch_size=BATCH, device="cuda")
+    ref = np.concatenate([float_pred.logits(r) for r in reqs])
+    out = {}
+    if measure:
+        fwd_ms, profile, _ = device_forward("float")
+        out["float"] = {"images_per_s": serve_rate(torch, float_pred, reqs[0]),
+                        "device_forward_ms": fwd_ms, "profile": profile}
+        # the Linear layers an int8 forward quantizes (those that run), and
+        # the time of quantizing their weights, once over
+        with torch.inference_mode(), Q.calibrating(model) as ran:
+            model(x)
+        modules = dict(model.named_modules())
+        weights = [modules[name].weight for name in ran]
+        with torch.inference_mode():
+            wq_ms = time_ms(torch, lambda: [Q._quantize(w, dim=-1) for w in weights],
+                            iters=10)
+        out["weight_quantize_ms"] = wq_ms
+        print(f"[int8] {tag} float: {out['float']['images_per_s']:.1f} images/s host to "
+              f"host; device forward {fwd_ms:.3f} ms; quantizing the weights of the "
+              f"{len(weights)} Linear layers that run, per output channel, once over: "
+              f"{wq_ms:.3f} ms (every int8 forward does it again)  [{smi}]")
+    for route in routes:
+        kernel = route != "qdot"
+        pred = Predictor(model, batch_size=BATCH, device="cuda", quant="int8",
+                         int8_kernel=kernel)
+        if route == "calibrated":
             pred.calibrate(images)
         reset_counts()
         logits = np.concatenate([pred.logits(r) for r in reqs])
         torch.cuda.synchronize()
         counts = launch_counts()
         want = {k: 0 for k in counts}
-        want["flash_attention_lanes"] = len(REQUESTS) * blocks
-        if kw["int8_kernel"]:
-            want["int8_linear"] = len(REQUESTS) * (1 + 2 * blocks)
-        check(counts == want, f"int8 {name}: launch counts {counts} != {want}")
-        agree, dprob = top1_and_probs(logits, f32)
-        # the same 4-image batch on the card and the CPU: qdot's per-tensor
-        # scale is the batch's, so both sides must see one batch
+        want.update({k: len(REQUESTS) * n for k, n in
+                     INT8_PER_BATCH[tag]["kernel" if kernel else "qdot"].items()})
+        check(counts == want, f"int8 {tag} {route}: launch counts "
+                              f"{ {k: n for k, n in counts.items() if n} } != "
+                              f"{ {k: n for k, n in want.items() if n} }")
+        check(logits.dtype == np.float32 and bool(np.isfinite(logits).all()),
+              f"int8 {tag} {route}: logits {logits.dtype}, not finite")
+        agree, dprob = top1_and_probs(logits, ref)
+        # the same 4-image batch on the card and the CPU (qdot's per-tensor
+        # scale is the batch's)
         few = reqs[0][:4]
         on = {}
         for dev, net in (("cuda", model), ("cpu", model_cpu)):
-            small = Predictor(net, batch_size=len(few), device=dev, quant="int8", **kw)
+            small = Predictor(net, batch_size=len(few), device=dev, quant="int8",
+                              int8_kernel=kernel)
             small.scales = pred.scales
             on[dev] = small.logits(few)
         cpu_err = float(np.abs(on["cuda"] - on["cpu"]).max())
-        scale = float(np.abs(on["cpu"]).max())
-        f32_err = float(np.abs(logits - f32).max())
-        ips = serve_rate(torch, pred, reqs[0])
-        fwd_ms, profile = device_forward(name, pred.scales, kw["int8_kernel"])
-        print(f"[int8] {name}: launches over {len(REQUESTS)} batches "
-              f"{ {k: n for k, n in counts.items() if n} }; top-1 agreement with f32 "
-              f"{agree:.4f} (gate 0.9), max probability change {dprob:.4f} (gate 0.2), "
-              f"max|logit - f32| {f32_err:.4f}; 4 images against the CPU's int8 "
-              f"forward: max|err| {cpu_err:.3e}  limit {TOL_INT8_LOGITS * scale:.3e}; "
-              f"{ips:.1f} images/s host to host; device forward {fwd_ms:.3f} ms "
-              f"(f32 {f32_ms:.3f} ms)  [{smi}]")
-        check(agree >= 0.9 and dprob < 0.2, f"int8 {name}: off f32 beyond the gates")
-        check(cpu_err <= TOL_INT8_LOGITS * scale, f"int8 {name}: GPU logits differ "
-                                                   f"from the CPU's by {cpu_err}")
-        out[name] = {"images_per_s": ips, "device_forward_ms": fwd_ms,
-                     "profile": profile, "top1_agreement": agree,
-                     "max_prob_change": dprob, "launches": counts}
+        limit = TOL_INT8_LOGITS * max(1.0, float(np.abs(on["cpu"]).max()))
+        replay = replay_blocks(torch, model, model_cpu,
+                               torch.from_numpy(few).cuda().to(dtype), pred.scales, kernel)
+        f32_gap = ""
+        if not chained_gate:  # the same path on the f32 model
+            on32 = [Predictor(net, batch_size=len(few), device=dev, quant="int8",
+                              int8_kernel=kernel).logits(few)
+                    for dev, net in (("cuda", copy.deepcopy(model_f32).to("cuda")),
+                                     ("cpu", model_f32))]
+            gap = float(np.abs(on32[0] - on32[1]).max()) / max(1.0, float(
+                np.abs(on32[1]).max()))
+            f32_gap = (f" (not gated; the f32 model on this path: {gap:.3e} of max(1, "
+                       "max|logit|))")
+        print(f"[int8] {tag} {route}: launches over {len(REQUESTS)} batches "
+              f"{ {k: n for k, n in counts.items() if n} }; top-1 agreement with the "
+              f"float logits {agree:.4f} (gate 0.9), max probability change {dprob:.4f} "
+              f"(gate 0.2), max|logit - float| {float(np.abs(logits - ref).max()):.4f}; "
+              f"4 images against the CPU's int8 forward: max|err| {cpu_err:.3e}  limit "
+              f"{limit:.3e}{f32_gap}; replayed a block at a time from the card's inputs, "
+              f"err / max(1, max|out|) by block, then the head: "
+              + " ".join(f"{e:.2e}" for e in replay) + f"  limit {TOL_INT8_LOGITS:.0e}")
+        check(agree >= 0.9 and dprob < 0.2, f"int8 {tag} {route}: off the float logits "
+                                            "beyond kanvit's gates")
+        check(cpu_err <= limit or not chained_gate,
+              f"int8 {tag} {route}: card logits differ from the CPU's by {cpu_err}")
+        check(max(replay) <= TOL_INT8_LOGITS, f"int8 {tag} {route}: a block replayed on "
+                                              f"the CPU differs by {max(replay):.3e}")
+        out[route] = {"top1_agreement": agree, "max_prob_change": dprob,
+                      "cpu_logits_err": cpu_err, "replay_errs": replay, "launches": counts}
+        if measure:
+            ips = serve_rate(torch, pred, reqs[0])
+            fwd_ms, profile, fwd = device_forward(route, pred.scales, kernel)
+            out[route].update(images_per_s=ips, device_forward_ms=fwd_ms, profile=profile)
+            extra = ""
+            if route == "qdot" and bf16:
+                out[route]["widening"] = widen = widening_casts(torch, fwd)
+                extra = (f"; the widening casts a forward: {widen['tensors_widened']} "
+                         f"tensors, {widen['device_kernels']} device kernels, "
+                         f"{widen['device_ms']:.3f} ms of device, {widen['host_ms']:.3f} ms "
+                         f"of host in the promote calls")
+            print(f"[int8] {tag} {route}: {ips:.1f} images/s host to host; device forward "
+                  f"{fwd_ms:.3f} ms (float {out['float']['device_forward_ms']:.3f} "
+                  f"ms){extra}  [{smi}]")
     return out
+
+
+def int8_bf16_phases(torch, smi):
+    """Phase 11b, a bf16 model served int8: vit-b vanilla at full depth on
+    the three routes, measured; then gates and counts alone at 4 blocks:
+    vit-b flash-attn on the kernel route (its chained gap read, not gated),
+    vit-s efficientkan on qdot (its later blocks on the f32 KAN kernels over
+    widened weights). The launches of each, by path."""
+    vit_b = timed("  vit-b vanilla bf16 int8 serving", phase_int8_serve, torch, smi,
+                  build_model("vanilla", "vit-b"), "vit-b vanilla bf16", True)
+    flash = timed("  vit-b flash-attn bf16 int8 serving, 4 blocks", phase_int8_serve,
+                  torch, smi, build_model("flash-attn", "vit-b", n_blocks=4),
+                  "vit-b flash-attn at 4 of 12 blocks bf16", True, ("kernel",), False, False)
+    kan = timed("  vit-s efficientkan bf16 int8 serving, 4 blocks", phase_int8_serve,
+                torch, smi, build_model("efficientkan", n_blocks=4),
+                "vit-s efficientkan at 4 of 12 blocks bf16", True, ("qdot",), False)
+    return {"int8_bf16_serve": vit_b["kernel"]["launches"],
+            "int8_bf16_flash": flash["kernel"]["launches"],
+            "int8_bf16_efficientkan": kan["qdot"]["launches"]}
 
 
 # --------------------------------------------------------------------------
@@ -5621,6 +5914,8 @@ SOURCES = {
                             "kanvit/kernels/fused_ffn.py:217"),
     "int8_linear": ("kanvit_torch/kernels/csrc/int8_matmul.cu",
                     "kanvit/kernels/int8_matmul.py:134"),
+    "int8_linear_bf16": ("kanvit_torch/kernels/csrc/int8_matmul.cu",
+                         "kanvit/kernels/int8_matmul.py:134"),
     "bspline_kan_bf16": (KAN_TC_SRC, f"{FB_PY}:1067"),
     "bspline_qkv_grouped_bf16": (KAN_TC_SRC, f"{FB_PY}:1240"),
     "flash_attention_lanes_bf16": ("kanvit_torch/kernels/csrc/attention_lanes.cu",
@@ -5687,6 +5982,13 @@ TC_FWD = "3xTF32 mma.sync.m16n8k8 over a basis generated on chip (kan_tc_kernel<
 TC_BWD = ("dW{} on 3xTF32 mma.sync.m16n8k8 (kan_tc_kernel<{}, true>); dx, where "
           "asked, on the CUDA-core kan_dx_kernel")
 ROUTES = {
+    "int8_linear_bf16": {
+        "kernel": "int8_linear_kernel<48, 128, 2, __nv_bfloat16> (32 or 16 rows a block as "
+                  "K grows): bf16 x read 8 bytes for 4 values and widened, rows quantized "
+                  "once into shared memory, W through a ring of two 128-byte cp.async "
+                  "stages, mma.sync s8 fed by ldmatrix, the f32 epilogue rounded once to "
+                  "bf16 pairs",
+        "instantiated_in": "kanvit_torch/kernels/csrc/int8_matmul.cu"},
     "bspline_kan": {
         "kernel": "the grouped q/k/v forward's template at one group: 3xTF32 "
                   "mma.sync.m16n8k8, kan_tc_fwd_grouped<Bspline, NT, 12, 1, Tf32x3, 12>, "
@@ -5982,7 +6284,7 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
                 for name in names for sfx in ("", "_bwd")},
              "ffn_pre_ln": "ffn_train", "ffn_pre_ln_bwd": "ffn_train",
              "ffn_pre_ln_bf16": "ffn_bf16_serve", "ffn_pre_ln_bwd_bf16": "ffn_bf16_train",
-             "int8_linear": "int8_serve",
+             "int8_linear": "int8_serve", "int8_linear_bf16": "int8_bf16_serve",
              **{name: "bf16_serve" for name in ("bspline_kan_bf16",
                                                 "bspline_qkv_grouped_bf16",
                                                 "flash_attention_lanes_bf16")},
@@ -6001,14 +6303,20 @@ MAIN_PATH = {"flash_attention": "decoder", "flash_attention_dq": "decoder",
              "fourierkan_bf16": "fourier_bf16_serve", "fourierkan_bwd_bf16": "fourier_bf16_train"}
 
 
+_START = [time.perf_counter()]
+
+
 def timed(label, fn, *args):
+    """``fn(*args)``, its seconds printed beside the run's total so far."""
     t0 = time.perf_counter()
     out = fn(*args)
-    print(f"[time] {label}: {time.perf_counter() - t0:.1f} s", flush=True)
+    now = time.perf_counter()
+    print(f"[time] {label}: {now - t0:.1f} s (total {now - _START[0]:.1f} s)", flush=True)
     return out
 
 
 def main():
+    _START[0] = time.perf_counter()
     torch, smi = phase_toolchain()
     timed("build", phase_build)
     results = timed("forward kernels", phase_kernels, torch)
@@ -6099,7 +6407,8 @@ def main():
         *at_depth(fused_cpu, FFN_BF16_PER_BATCH, "efficientkan fused-FF"),
         "bspline_kan")["launches"]
     paths["int8_serve"] = timed("int8 serving", phase_int8_serve, torch, smi,
-                                vanilla_cpu, blocks)["kernel"]["launches"]
+                                vanilla_cpu, "vit-s vanilla")["kernel"]["launches"]
+    paths.update(timed("bf16 int8 serving", int8_bf16_phases, torch, smi))
     paths.update(timed("head dim 8 and refit grids", phase_faults, torch, smi))
     timed("reference bench", phase_bench, torch, smi)
     kernels = []

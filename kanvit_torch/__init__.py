@@ -18,10 +18,12 @@ kernels, Adam): every ViT variant (``vanilla``, ``efficientkan``, ``fast``,
 ``sine``, ``fourier``, ``cheby``, ``flash-attn``), the opt-in fused pre-LN
 FF (``fused_ff=True``), int8 serving (``Predictor(quant="int8")``, with the
 W8A8 ``int8_linear`` kernel on request), and the ``CausalDecoder`` on the
-tiled flash attention. In bf16 (kanvit's ``--bf16`` policy), serving and the
-training step of every ViT variant on hand-written bf16 kernels; the bf16
-fused FF and tiled attention, export and the trainer surface are listed in
-``ROADMAP.md``. This package imports torch and numpy only, never jax.
+tiled flash attention. In bf16 (kanvit's ``--bf16`` policy), serving (float
+or int8) and the training step of every ViT variant, with or without the
+fused FF, and the decoder's step, on hand-written bf16 kernels; bf16
+attention at the generic head dims, export and the trainer surface are
+listed in ``ROADMAP.md``. This package imports torch and numpy only, never
+jax.
 """
 
 __version__ = "0.1.0"

@@ -10,7 +10,10 @@ static activation scales. A model whose parameters are bf16
 (``kanvit_torch.utils.precision.cast_params_``) serves in bf16, as
 ``benchmarks/inference_serving.py --bf16`` serves kanvit: images cast to
 bf16 on the device, logits returned as f32 (every ViT kind: efficientkan,
-cheby, fourier, fast, sine, vanilla and flash-attn).
+cheby, fourier, fast, sine, vanilla and flash-attn), in float or int8 as
+``--bf16 --quant int8`` serves it: on ``qdot`` the first int8 Linear turns
+the stream f32 and the rest runs in f32 on widened bf16 weights; with the
+``int8_linear`` kernel the stream stays bf16 up to the head.
 
 Not ported yet: reading flax msgpack checkpoints, ``export`` and the CLI
 (``ROADMAP.md``, Queue 1).
@@ -53,8 +56,13 @@ class Predictor:
     default, as kanvit's auto mode leaves it.
 
     A model with bf16 parameters serves in bf16: each batch is copied to
-    the device as f32 and cast there, the forward runs with cuBLAS reducing
-    in f32 (``precision.f32_accumulation``), and the logits come back f32.
+    the device as f32 and cast there, the forward (and a calibration's)
+    runs with cuBLAS reducing in f32 (``precision.f32_accumulation``), and
+    the logits come back f32. With ``quant="int8"`` it follows kanvit's
+    dtypes: ``qdot`` returns f32, so the first Linear on it turns the stream
+    f32 and every later layer widens its bf16 weights
+    (``precision.promote``); ``int8_linear`` returns bf16 on bf16 x, so with
+    the kernel the stream stays bf16 where every Linear takes it.
     """
 
     def __init__(self, model: torch.nn.Module, batch_size: int = 256,
@@ -74,9 +82,6 @@ class Predictor:
             raise ValueError(f"model lives on {sorted(map(str, placed))}, "
                              f"not on {self.device}: call model.to(device) first")
         self.dtype = precision.param_dtype(model)
-        if quant is not None and self.dtype != torch.float32:
-            raise NotImplementedError(
-                f"int8 serving of a {self.dtype} model is not ported (f32 only)")
 
     def _forward(self, x: torch.Tensor) -> torch.Tensor:
         mb = self.microbatch
@@ -96,12 +101,19 @@ class Predictor:
                     (self.batch_size - real, *chunk.shape[1:]), np.float32)])
             yield torch.from_numpy(chunk).to(self.device).to(self.dtype), real
 
-    def _serving(self):
-        if self.quant == "int8":
-            return Q.int8_serving(self.model, self.scales, kernel=self.int8_kernel)
+    def _float(self):
+        """The float forward's context: f32 reduction for a bf16 model."""
         if self.dtype == torch.bfloat16:
             return precision.f32_accumulation()
         return contextlib.nullcontext()
+
+    def _serving(self):
+        stack = contextlib.ExitStack()
+        stack.enter_context(self._float())
+        if self.quant == "int8":
+            stack.enter_context(Q.int8_serving(self.model, self.scales,
+                                               kernel=self.int8_kernel))
+        return stack
 
     def calibrate(self, images: np.ndarray, max_batches: int = 2) -> dict:
         """Record each Linear layer's input max over float forwards of up to
@@ -111,7 +123,7 @@ class Predictor:
         if self.quant != "int8":
             raise ValueError("calibrate() only applies to quant='int8'")
         n = min(len(images), self.batch_size * max_batches)
-        with torch.inference_mode(), Q.calibrating(self.model) as amax:
+        with torch.inference_mode(), self._float(), Q.calibrating(self.model) as amax:
             for x, _ in self._batches(images[:n]):
                 self._forward(x)
         self.scales = Q.scales_from_amax(amax)

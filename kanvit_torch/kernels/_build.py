@@ -89,6 +89,7 @@ SIGNATURES = {
     "kanvit_ffn_bwd_bf16": ([*[_p] * 23, *[_i32] * 6, _p], _i32),
     "kanvit_tf32_mma_rate": ([_p, _i32, _i32, _p], _i32),
     "kanvit_int8_linear_fwd": ([_p, _i64, *[_p] * 4, *[_i32] * 4, _p], _i32),
+    "kanvit_int8_linear_fwd_bf16": ([_p, _i64, *[_p] * 4, *[_i32] * 4, _p], _i32),
     "kanvit_attention_lanes_fwd": (
         [_p, _p, _p, *[_i64] * 9, _p, _p, _p, _i32, _i32, _i32, _i32, _i32,
          _f32, _p], _i32),

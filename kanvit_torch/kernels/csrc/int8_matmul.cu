@@ -53,7 +53,23 @@
 // flight a lane) ran FF2 at 0.26 ms.
 //
 // One block a row tile; no atomics, so a second call gives the same bits.
+//
+// The bf16 form (entry kanvit_int8_linear_fwd_bf16; the same TPU kernel on
+// bf16 activations, int8_matmul.py:111,149, reached when a bf16 model serves
+// int8 with the kernel on): the kernel templated on the activation type T.
+// x is read as bf16, 8 bytes for 4 values, and widened exactly to f32, so
+// the row max and rintf(__fdiv_rn(v, s)) see kanvit's f32 values; the
+// epilogue is the f32 one above, then rounds each value once to bf16
+// (__float2bfloat16_rn) and stores bf16 pairs. The bias stays f32 (the
+// wrapper widens a bf16 bias, as kanvit's brow = bias.astype(f32)). The
+// quantized rows in shared memory are int8 either way, so shared_bytes and
+// the rows a block do not change. Its bits: qdot_rowwise's f32 result
+// rounded once to bf16. At vit-b (N = 12,608 tokens, K 768 and out 3,072,
+// or the reverse) the product is 59.5 G int8 operations, 0.030 ms at the
+// card's dense int8 rate, against 99 MB of x and y in bf16 and W in int8,
+// 0.030 ms: bytes and operations bound it alike.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -66,7 +82,7 @@ constexpr int BN = 128;      // outputs a tile (kanvit's eligibility: out % 128 
 constexpr int KC = 128;      // int8 values of K a stage of W
 constexpr int STAGES = 2;    // W stages in the ring
 constexpr int XPAD = 16;     // bytes after each quantized row
-constexpr int QCHUNKS = 16;  // 16-byte loads of x a lane has in flight
+constexpr int QCHUNKS = 16;  // loads of 4 x values a lane has in flight (16 or 8 bytes)
 constexpr float EPS = 1e-12f;
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -120,6 +136,36 @@ __device__ __forceinline__ float4 load4(const float* p) {
   return make_float4(__ldg(p), __ldg(p + 1), __ldg(p + 2), __ldg(p + 3));
 }
 
+// bf16 widened exactly: its 16 bits are the top half of an f32.
+__device__ __forceinline__ float widen(unsigned short h) {
+  return __uint_as_float((unsigned)h << 16);
+}
+
+// Four bf16 values as f32, k .. k + 3: one 8-byte load with VEC.
+template <bool VEC>
+__device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
+  const unsigned short* h = reinterpret_cast<const unsigned short*>(p);
+  if constexpr (VEC) {
+    const uint2 u = __ldg(reinterpret_cast<const uint2*>(p));
+    return make_float4(__uint_as_float(u.x << 16), __uint_as_float(u.x & 0xffff0000u),
+                       __uint_as_float(u.y << 16), __uint_as_float(u.y & 0xffff0000u));
+  }
+  return make_float4(widen(__ldg(h)), widen(__ldg(h + 1)), widen(__ldg(h + 2)),
+                     widen(__ldg(h + 3)));
+}
+
+// Two adjacent outputs: f32 as they are, bf16 each rounded once.
+__device__ __forceinline__ void store2(float* p, float2 v) {
+  *reinterpret_cast<float2*>(p) = v;
+}
+
+__device__ __forceinline__ void store2(__nv_bfloat16* p, float2 v) {
+  __nv_bfloat162 h;
+  h.x = __float2bfloat16_rn(v.x);
+  h.y = __float2bfloat16_rn(v.y);
+  *reinterpret_cast<__nv_bfloat162*>(p) = h;
+}
+
 __device__ __forceinline__ float amax4(float m, float4 v) {
   return fmaxf(fmaxf(m, fmaxf(fabsf(v.x), fabsf(v.y))), fmaxf(fabsf(v.z), fabsf(v.w)));
 }
@@ -129,20 +175,21 @@ __device__ __forceinline__ float amax4(float m, float4 v) {
 // warp w takes rows w R .. + R, then WARPS R on. A pass loads U 128-wide
 // chunks of each of its R rows, all issued before any is used (addresses
 // clamped into the row, not branched on: a value read twice leaves the max
-// as it is), R U 16-byte loads in flight a lane (4-byte ones without VEC,
-// x's rows not 16-byte aligned). The first pass takes each row's max, a
-// shuffle reduction gives it to the warp (exact, so its order does not
-// matter); the second quantizes the values and stores 4 packed int8 a lane.
+// as it is), R U 16-byte loads in flight a lane (8-byte ones for bf16 x;
+// single values without VEC, x's rows not aligned to 4 values). The first
+// pass takes each row's max, a shuffle reduction gives it to the warp
+// (exact, so its order does not matter); the second quantizes the values
+// and stores 4 packed int8 a lane.
 // Where k <= 128 U the values are still in registers, and x is read once;
 // past it (quantize's deepest rows) the second pass loads them again.
-template <int BM, bool VEC, int R, int U>
-__device__ __forceinline__ void quantize_rows(const float* __restrict__ x, long long ldx,
+template <int BM, bool VEC, int R, int U, typename T>
+__device__ __forceinline__ void quantize_rows(const T* __restrict__ x, long long ldx,
                                               long long r0, int n, int k, int8_t* xq,
                                               float* sx) {
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, xpitch = k + XPAD;
   const bool cached = k <= 128 * U;
   for (int rb = warp * R; rb < BM; rb += WARPS * R) {
-    const float* src[R];
+    const T* src[R];
     bool live[R];
     float m[R];
 #pragma unroll
@@ -195,8 +242,8 @@ __device__ __forceinline__ void quantize_rows(const float* __restrict__ x, long 
 // quantize_rows with QCHUNKS 16-byte loads a lane in flight: rows of up to
 // QCHUNKS 128-wide chunks one pass each (4, 2 or 1 rows at a time), deeper
 // ones 4 rows at a time in two passes.
-template <int BM, bool VEC>
-__device__ __forceinline__ void quantize(const float* __restrict__ x, long long ldx,
+template <int BM, bool VEC, typename T>
+__device__ __forceinline__ void quantize(const T* __restrict__ x, long long ldx,
                                          long long r0, int n, int k, int8_t* xq, float* sx) {
   if (k <= 128 * QCHUNKS / 4)
     quantize_rows<BM, VEC, 4, QCHUNKS / 4>(x, ldx, r0, n, k, xq, sx);
@@ -216,15 +263,15 @@ constexpr size_t shared_bytes(int k) {
          (size_t)NST * BN * (KCH + 16);
 }
 
-// x (n, k) f32, row stride ldx, k % KCH == 0 (and % 32); wq (nout, k) int8
-// contiguous, nout % BN == 0; sw (nout) f32; bias (nout) f32 or null; y (n,
-// nout) f32 contiguous. Grid: ceil(n / BM) blocks of THREADS; dynamic shared
-// memory shared_bytes<BM, KCH, NST>(k).
-template <int BM, int KCH, int NST>
+// x (n, k) T (f32 or bf16), row stride ldx, k % KCH == 0 (and % 32); wq
+// (nout, k) int8 contiguous, nout % BN == 0; sw (nout) f32; bias (nout) f32
+// or null; y (n, nout) T contiguous. Grid: ceil(n / BM) blocks of THREADS;
+// dynamic shared memory shared_bytes<BM, KCH, NST>(k).
+template <int BM, int KCH, int NST, typename T>
 __global__ void __launch_bounds__(THREADS, 2)
-int8_linear_kernel(const float* __restrict__ x, long long ldx,
+int8_linear_kernel(const T* __restrict__ x, long long ldx,
                    const int8_t* __restrict__ wq, const float* __restrict__ sw,
-                   const float* __restrict__ bias, float* __restrict__ y, int n, int k,
+                   const float* __restrict__ bias, T* __restrict__ y, int n, int k,
                    int nout) {
   // warps: WM along the rows (MT m16 tiles each) x WN along the tile's outputs
   constexpr int WM = BM >= 64 ? BM / 32 : 1, MT = BM / (16 * WM);
@@ -257,7 +304,7 @@ int8_linear_kernel(const float* __restrict__ x, long long ldx,
     cp_async_commit();
   }
 
-  if ((ldx & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & 15) == 0)
+  if ((ldx & 3) == 0 && (reinterpret_cast<uintptr_t>(x) & (4 * sizeof(T) - 1)) == 0)
     quantize<BM, true>(x, ldx, r0, n, k, xq, sx);
   else
     quantize<BM, false>(x, ldx, r0, n, k, xq, sx);
@@ -317,7 +364,8 @@ int8_linear_kernel(const float* __restrict__ x, long long ldx,
         for (int nt = 0; nt < NT; ++nt) mma_s8(acc[mt][nt], a[mt], b[nt][0], b[nt][1]);
     }
     if (kc + 1 < kchunks) continue;
-    // Epilogue of output tile t: acc * s_x * s_w (+ b), each rounded.
+    // Epilogue of output tile t: acc * s_x * s_w (+ b), each rounded in f32
+    // (then once to bf16 for a bf16 y).
 #pragma unroll
     for (int nt = 0; nt < NT; ++nt) {
       const int col = t * BN + wn * NT * 8 + nt * 8 + 2 * tq;
@@ -336,7 +384,7 @@ int8_linear_kernel(const float* __restrict__ x, long long ldx,
             v.x = __fadd_rn(v.x, bv.x);
             v.y = __fadd_rn(v.y, bv.y);
           }
-          if (row < n) *reinterpret_cast<float2*>(y + row * nout + col) = v;
+          if (row < n) store2(y + row * nout + col, v);
           acc[mt][nt][2 * h] = acc[mt][nt][2 * h + 1] = 0;
         }
     }
@@ -346,18 +394,18 @@ int8_linear_kernel(const float* __restrict__ x, long long ldx,
 // The kernel over the operands of kanvit_int8_linear_fwd at BM rows a
 // block: cudaErrorInvalidValue where k or nout do not divide into its tiles
 // or its shared memory passes a block's 232,448 bytes.
-template <int BM, int KCH = KC, int NST = STAGES>
-int launch_int8_linear(const float* x, long long ldx, const int8_t* wq, const float* sw,
-                       const float* bias, float* y, int n, int k, int nout,
+template <int BM, int KCH = KC, int NST = STAGES, typename T = float>
+int launch_int8_linear(const T* x, long long ldx, const int8_t* wq, const float* sw,
+                       const float* bias, T* y, int n, int k, int nout,
                        cudaStream_t st) {
   const size_t smem = shared_bytes<BM, KCH, NST>(k);
   if (n <= 0 || k <= 0 || nout <= 0 || k % KCH || k % 32 || nout % BN || smem > 232448)
     return (int)cudaErrorInvalidValue;
   const cudaError_t err = cudaFuncSetAttribute(
-      int8_linear_kernel<BM, KCH, NST>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      int8_linear_kernel<BM, KCH, NST, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       (int)smem);
   if (err != cudaSuccess) return (int)err;
-  int8_linear_kernel<BM, KCH, NST><<<(unsigned)((n + BM - 1) / BM), THREADS, smem, st>>>(
+  int8_linear_kernel<BM, KCH, NST, T><<<(unsigned)((n + BM - 1) / BM), THREADS, smem, st>>>(
       x, ldx, wq, sw, bias, y, n, k, nout);
   return (int)cudaGetLastError();
 }
@@ -375,6 +423,22 @@ int launch_int8_linear(const float* x, long long ldx, const int8_t* wq, const fl
 extern "C" int kanvit_int8_linear_fwd(const float* x, long long ldx, const int8_t* wq,
                                       const float* sw, const float* bias, float* y, int n,
                                       int k, int nout, int bm, void* stream) {
+  const cudaStream_t st = (cudaStream_t)stream;
+  switch (bm) {
+    case 48: return launch_int8_linear<48>(x, ldx, wq, sw, bias, y, n, k, nout, st);
+    case 32: return launch_int8_linear<32>(x, ldx, wq, sw, bias, y, n, k, nout, st);
+    case 16: return launch_int8_linear<16>(x, ldx, wq, sw, bias, y, n, k, nout, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+// The bf16 form: x (n, k) and y (n, nout) bf16 (x 8-byte aligned rows take
+// the vector loads), every other operand and rule as kanvit_int8_linear_fwd;
+// y is the f32 epilogue rounded once to bf16.
+extern "C" int kanvit_int8_linear_fwd_bf16(const __nv_bfloat16* x, long long ldx,
+                                           const int8_t* wq, const float* sw,
+                                           const float* bias, __nv_bfloat16* y, int n,
+                                           int k, int nout, int bm, void* stream) {
   const cudaStream_t st = (cudaStream_t)stream;
   switch (bm) {
     case 48: return launch_int8_linear<48>(x, ldx, wq, sw, bias, y, n, k, nout, st);

@@ -30,7 +30,9 @@ outputs, with no copy:
 
 All of it is differentiable: autograd reaches the backward kernels on the
 card, and the per-head weight stacking carries the packed weight's gradient
-back to each head's projection.
+back to each head's projection. On f32 activations the stacked bf16 weights
+are widened to f32 (``kanvit_torch.utils.precision.promote``), as kanvit's
+kernels take f32 operands whenever x is f32.
 
 ``FlashAttentionBlock`` is the reference's flash-attention module
 (``attention.py:13-109``): bias-free ``to_q`` / ``to_kv`` / ``to_out``
@@ -46,6 +48,7 @@ from kanvit_torch.kernels import flash_attention as FA
 from kanvit_torch.kernels import fused_basis as FB
 from kanvit_torch.layers.kan import TorchLinear, make_kan_layer
 from kanvit_torch.ops import quant
+from kanvit_torch.utils.precision import promote
 
 # Projection kinds of the reference MSA dispatch table
 # (``_head_projection_cls_and_kwargs``, ``attention.py:36-53``).
@@ -168,7 +171,7 @@ class MSA(nn.Module):
             first = self.q_mappings[0]  # every head's centres / phase table
             qkv = []
             for mappings in (self.q_mappings, self.k_mappings, self.v_mappings):
-                w = self.projection_weights(mappings)
+                w = promote(x2d, *self.projection_weights(mappings))
                 if self.type == "fast":
                     y = FB.fastkan_qkv_grouped(x2d, *w[:2], first.rbf_grid,
                                                first.denominator, *w[2:])
@@ -178,11 +181,12 @@ class MSA(nn.Module):
                     y = FB.bspline_qkv_grouped(x2d, *w)
                 qkv.append(y.view(b, t, d))
             return FA.flash_attention_lanes(*qkv, h)
+        weights = promote(x2d, *self.grouped_weights())
         if self.type == "efficientkan":
             grid = self.q_mappings[0].grid  # every head's (dh, knots) grid is equal
-            y = FB.bspline_qkv_grouped(x2d, grid, *self.grouped_weights())
+            y = FB.bspline_qkv_grouped(x2d, grid, *weights)
         elif self.type == "cheby":
-            y = FB.cheby_qkv_grouped(x2d, *self.grouped_weights())
+            y = FB.cheby_qkv_grouped(x2d, *weights)
         else:
             # kanvit runs these q/k/v as block-diagonal float matmuls, int8
             # serving or not, where its lanes tier applies; elsewhere its
@@ -193,7 +197,7 @@ class MSA(nn.Module):
                     f"int8 serving of a {self.type} MSA at T={t}, d={d}, "
                     f"{h} heads, outside kanvit's lanes layout, is not ported "
                     "(ROADMAP.md, Queue 1 item 7c)")
-            w, bias = self.grouped_weights()
+            w, bias = weights
             # (H, N, dh) @ (H, dh, 3dh) + (H, 1, 3dh) -> (H, N, 3dh)
             y = torch.baddbmm(bias.unsqueeze(1), x2d.view(b * t, h, dh).transpose(0, 1),
                               w.transpose(1, 2)).transpose(0, 1)

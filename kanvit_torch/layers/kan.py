@@ -5,6 +5,8 @@ Parameter names, shapes and init distributions follow the PyTorch reference
 (``kanvit_torch.utils.convert``). Modules are built on the CPU from an
 explicit ``torch.Generator``; move them with ``.to(device)``: the Linear,
 B-spline (efficient-kan), Chebyshev, Fourier, FastKAN and SineKAN layers.
+Each widens its bf16 parameters to f32 where they meet f32 activations
+(``kanvit_torch.utils.precision.promote``, JAX's promotion in kanvit).
 """
 
 from __future__ import annotations
@@ -20,6 +22,7 @@ from kanvit_torch.kernels import int8_matmul as IM
 from kanvit_torch.ops import kan_bases as K
 from kanvit_torch.ops import quant
 from kanvit_torch.utils import torch_init as tinit
+from kanvit_torch.utils.precision import promote
 
 
 class TorchLinear(nn.Module):
@@ -30,7 +33,9 @@ class TorchLinear(nn.Module):
     order (``kan.py:63-70``): the ``int8_linear`` kernel when it is switched
     on and K and out are multiples of 128 (per-row activation scales, the
     bias in its epilogue); otherwise ``qdot`` with the layer's calibrated
-    static scale, or a dynamic one, and the bias added in f32.
+    static scale, or a dynamic one, and the bias added in f32. ``qdot``
+    returns f32 and ``int8_linear`` x's dtype, as kanvit's do; bf16 weights
+    meeting f32 x are widened first.
     """
 
     def __init__(self, in_features: int, out_features: int,
@@ -48,16 +53,17 @@ class TorchLinear(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        w, b = promote(x, self.weight, self.bias)
         if not quant.int8_enabled():
-            if x.dtype == torch.bfloat16 and self.bias is not None:
+            if x.dtype == torch.bfloat16 and b is not None:
                 # kanvit's order: the product rounded to bf16, then + bias
-                return F.linear(x, self.weight) + self.bias
-            return F.linear(x, self.weight, self.bias)
+                return F.linear(x, w) + b
+            return F.linear(x, w, b)
         if quant.kernel_enabled() and IM.applicable(self.in_features,
                                                     self.out_features):
-            return IM.int8_linear(x, self.weight, self.bias)
-        y = quant.qdot(x, self.weight, quant.static_scale_for(self))
-        return y if self.bias is None else y + self.bias
+            return IM.int8_linear(x, w, b)
+        y = quant.qdot(x, w, quant.static_scale_for(self))
+        return y if b is None else y + b
 
 
 class KANLinear(nn.Module):
@@ -129,9 +135,9 @@ class KANLinear(nn.Module):
                                    math.sqrt(5.0) * self.scale_spline, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return FB.bspline_kan(x, self.grid, self.base_weight,
-                              self.spline_weight, self.spline_scaler,
-                              self.spline_order)
+        return FB.bspline_kan(x, self.grid, *promote(
+            x, self.base_weight, self.spline_weight, self.spline_scaler),
+            self.spline_order)
 
 
 class ChebyKANLayer(nn.Module):
@@ -154,7 +160,7 @@ class ChebyKANLayer(nn.Module):
         tinit.chebykan_coeffs_(self.cheby_coeffs, input_dim, degree, generator)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return FB.chebykan(x, self.cheby_coeffs)
+        return FB.chebykan(x, *promote(x, self.cheby_coeffs))
 
 
 class FourierKANLayer(nn.Module):
@@ -185,7 +191,7 @@ class FourierKANLayer(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return FB.fourierkan(x, self.fouriercoeffs, self.bias)
+        return FB.fourierkan(x, *promote(x, self.fouriercoeffs, self.bias))
 
 
 class SplineLinear(nn.Module):
@@ -237,11 +243,12 @@ class FastKANLayer(nn.Module):
     def forward(self, x: torch.Tensor, time_benchmark: bool = False) -> torch.Tensor:
         ln = None if time_benchmark else self.layernorm
         base = self.base_linear
-        return FB.fastkan(x, None if ln is None else ln.weight,
-                          None if ln is None else ln.bias, self.rbf_grid,
-                          self.denominator, self.spline_linear.weight,
-                          None if base is None else base.weight,
-                          None if base is None else base.bias)
+        gamma, beta, spline_w, base_w, base_b = promote(
+            x, None if ln is None else ln.weight, None if ln is None else ln.bias,
+            self.spline_linear.weight, None if base is None else base.weight,
+            None if base is None else base.bias)
+        return FB.fastkan(x, gamma, beta, self.rbf_grid, self.denominator,
+                          spline_w, base_w, base_b)
 
 
 class SineKANLayer(nn.Module):
@@ -275,7 +282,8 @@ class SineKANLayer(nn.Module):
             self.register_parameter("bias", None)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return FB.sinekan(x, self.freq, self.phase, self.amplitudes, self.bias)
+        freq, amplitudes, bias = promote(x, self.freq, self.amplitudes, self.bias)
+        return FB.sinekan(x, freq, self.phase, amplitudes, bias)
 
 
 def make_kan_layer(kind: str, in_features: int, out_features: int, *,

@@ -11,7 +11,9 @@ layer (Linear for ``vanilla`` and ``fourier``, SineKAN grid 4 for
 ``sine``); and ``flash-attn`` (Linear embedder, raw ``FlashAttentionBlock``s
 with no LayerNorm, FF or residual, reference ``model.py:93-95,156-159``).
 ``fused_ff=True`` runs each block's FF as the fused ``ffn_pre_ln`` kernels
-(kanvit's ``KANVIT_FF=1``); off by default, as in kanvit.
+(kanvit's ``KANVIT_FF=1``); off by default, as in kanvit. Where a bf16
+model's stream turns f32 (int8 serving on ``qdot``), the class token and the
+head's LayerNorm are widened to it, as JAX promotes them.
 """
 
 from __future__ import annotations
@@ -22,9 +24,10 @@ from torch import nn
 from kanvit_torch import VARIANTS
 from kanvit_torch.layers.attention import FlashAttentionBlock
 from kanvit_torch.layers.kan import TorchLinear, make_kan_layer
-from kanvit_torch.layers.transformer import TransformerBlock
+from kanvit_torch.layers.transformer import LayerNorm, TransformerBlock
 from kanvit_torch.ops.patchify import patchify
 from kanvit_torch.ops.posemb import sinusoidal_positional_embeddings
+from kanvit_torch.utils.precision import promote
 
 # Model geometry presets, a copy of ``bench.py:28-37``: "reference" is the
 # reference's MNIST ctor config (model.py:49); the ViT ones are 224x224
@@ -94,7 +97,7 @@ class VisionTransformer(nn.Module):
                       for _ in range(n_blocks))
         self.blocks = nn.ModuleList(blocks)
         self.mlp_head = nn.Sequential(
-            nn.LayerNorm(d_hidden, eps=1e-5),
+            LayerNorm(d_hidden, eps=1e-5),
             TorchLinear(d_hidden, out_d, generator=generator),
         )
 
@@ -102,7 +105,8 @@ class VisionTransformer(nn.Module):
         """``[B, C, H, W] -> [B, T, d_hidden]`` tokens."""
         b = images.shape[0]
         tokens = self.linear_mapper(patchify(images, self.n_patches))
-        cls = self.v_class.unsqueeze(0).expand(b, 1, self.d_hidden)
+        cls, = promote(tokens, self.v_class)
+        cls = cls.unsqueeze(0).expand(b, 1, self.d_hidden)
         tokens = torch.cat([cls, tokens], dim=1)
         # the f32 table in the tokens' dtype, as kanvit adds it (vit.py:130-132)
         return tokens + self.pos_embeddings[: tokens.shape[1]].to(tokens.dtype)

@@ -10,6 +10,10 @@ the classifier head) W8A8:
   (:func:`qdot_rowwise`, the plain version of the ``int8_linear`` kernel);
 - the products in exact int32, dequantized in f32.
 
+x and W may be f32 or bf16: each is quantized from its exact f32 cast, and
+:func:`qdot` and :func:`qdot_rowwise` return f32 either way, as kanvit's do
+(``int8_linear`` rounds its result to x's dtype).
+
 The int32 products are exact: ``torch._int_mm`` (on the card padded to its
 shape rules). An f32 product of the int8 values would not be: 127 * 127 * K
 passes 2**24 at K = 1,041, and the FF's second Linear has K 1,536.
@@ -19,7 +23,10 @@ runs (eager PyTorch has no trace time): :func:`int8_serving` turns the Linear
 layers of a model to int8, with calibrated static scales where there are
 some and the ``int8_linear`` kernel where it applies; :func:`calibrating`
 records each Linear layer's input max through forward hooks, where kanvit's
-flax layers ``sow`` it. KAN bases, LayerNorms and the attention stay f32.
+flax layers ``sow`` it. KAN bases, LayerNorms and the attention stay float:
+in the model's dtype, or in f32 on widened bf16 weights once a ``qdot``
+has turned a bf16 model's stream f32 (``kanvit_torch.utils.precision.
+promote``).
 """
 
 from __future__ import annotations
@@ -93,8 +100,9 @@ def int8_serving(model: torch.nn.Module | None = None,
 def calibrating(model: torch.nn.Module):
     """Record ``max|x|`` of every Linear layer's input over the forward
     passes run inside this context (forward pre-hooks, one on each
-    ``TorchLinear``); yields a dict that holds ``{module name: amax}`` once
-    the context exits. A layer that never runs (the q/k/v of an MSA, whose
+    ``TorchLinear``, a bf16 input's max taken in bf16 and widened, which is
+    exact); yields a dict that holds ``{module name: amax}`` once the
+    context exits. A layer that never runs (the q/k/v of an MSA, whose
     weights the batched projection reads, or a fused FF pair) records
     nothing, as in kanvit."""
     from kanvit_torch.layers.kan import TorchLinear
@@ -159,8 +167,9 @@ def qdot_rowwise(x: torch.Tensor, w: torch.Tensor,
                  bias: torch.Tensor | None = None) -> torch.Tensor:
     """``x @ w.T (+ bias)`` with per-row activation scales and
     per-output-channel weight scales: ``(xq @ wq.T) * sx * sw (+ bias)`` in
-    f32, each product and the sum rounded in that order. The plain version
-    of the ``int8_linear`` kernel (kanvit's ``qdot_rowwise``)."""
+    f32, each product and the sum rounded in that order, for f32 or bf16
+    ``x``, ``w`` and ``bias``. kanvit's ``qdot_rowwise``; rounded once to
+    x's dtype, the plain version of the ``int8_linear`` kernel."""
     k = x.shape[-1]
     xq, sx = _quantize(x.reshape(-1, k), dim=-1)  # (n, k), (n, 1)
     wq, sw = _quantize(w, dim=-1)                 # (out, k), (out, 1)
@@ -175,7 +184,8 @@ def qdot(x: torch.Tensor, w: torch.Tensor,
     """``x @ w.T`` with both operands quantized to int8 and an exact int32
     product: ``(xq @ wq.T) * (sx * sw)`` in f32. ``x`` is quantized per
     tensor with a scale computed per call, or with ``static_scale`` (from
-    calibration, rounded to f32); ``w (out, in)`` per output channel."""
+    calibration, rounded to f32); ``w (out, in)`` per output channel. f32
+    out for f32 or bf16 operands."""
     k = x.shape[-1]
     x2 = x.reshape(-1, k)
     if static_scale is not None:

@@ -3,7 +3,7 @@ the fused FF), cheby, fast, sine and fourier ViTs, and bf16 training of the
 causal decoder, on the card: checks and times.
 
     python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby,fast,sine,fourier,
-                                                     decoder,ffn}]
+                                                     decoder,ffn,int8}]
                                       [--train] [--cheby-shapes] [--fast-shapes]
                                       [--sine-shapes] [--fourier-shapes] [--sincos]
 
@@ -12,6 +12,13 @@ backward kernels against their twins at vit-s, one image, a ragged shape
 and vit-b's and vit-l's widths; ``phase_ffn_bf16_kernels``), then the bf16
 serving and, with ``--train``, training of the vit-s efficientkan ViT with
 ``fused_ff=True`` beside the same model unfused.
+
+``--model-type int8`` runs phase 8's bf16 ``int8_linear`` checks alone
+(``int8_bf16_kernels``: the bf16 kernel against its twin at vit-b's and
+vit-s's shapes, ragged and strided), phase 11 (the vit-s vanilla served
+f32 and int8) and phase 11b (``int8_bf16_phases``:
+the vit-b vanilla bf16 served int8 on the kernel, calibrated and qdot
+routes, then the 4-block flash-attn and efficientkan holds).
 
 ``--model-type decoder`` runs ``chip_smoke.py``'s phase 5b alone (the tiled
 attention's bf16 forward, dq and dk/dv against their twins at the
@@ -59,6 +66,8 @@ import ctypes
 import json
 import sys
 from pathlib import Path
+
+import numpy as np
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -370,7 +379,7 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model-type",
                    choices=("efficientkan", "cheby", "fast", "sine", "fourier", "decoder",
-                            "ffn"),
+                            "ffn", "int8"),
                    default="efficientkan")
     p.add_argument("--train", action="store_true", help="also the bf16 training phase")
     p.add_argument("--cheby-shapes", action="store_true",
@@ -414,6 +423,17 @@ def main(argv=None) -> None:
         lib = _finish(C, proc, path, f"probe_bf16_{family}")
         out[f"{family}_bf16_shapes"] = C.timed(f"bf16 {family} shapes", bf16_shapes, lib, C,
                                                torch, family)
+    if args.model_type == "int8":
+        results = C.timed("bf16 int8 kernels", C.int8_bf16_kernels, torch,
+                          np.random.default_rng(C.SEED + 9))
+        out["kernels"] = {name: {"ms": r[1], "plain_ms": r[2], **r[3], **r[4],
+                                 **{k: v for sub in r[5:] for k, v in sub.items()}}
+                          for name, r in results.items()}
+        C.timed("int8 serving", C.phase_int8_serve, torch, smi, C.build_model("vanilla"),
+                "vit-s vanilla")
+        C.timed("bf16 int8 serving", C.int8_bf16_phases, torch, smi)
+        print(json.dumps(out))
+        return
     phase = {"efficientkan": C.phase_bf16_kernels, "cheby": C.cheby_bf16_kernels,
              "fast": C.fast_bf16_kernels, "sine": C.sine_bf16_kernels,
              "fourier": C.fourier_bf16_kernels,

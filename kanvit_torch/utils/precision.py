@@ -30,6 +30,15 @@ whose views become the parameters' ``.grad``. The values are kanvit's: bf16
 of each f32 parameter forward, f32 of each bf16 gradient back, bit for bit
 what a cast of each parameter gives.
 
+Where a bf16 model's parameters meet f32 activations, :func:`promote`
+widens them exactly to f32 and the f32 route runs, as JAX's promotion does
+in kanvit. That happens under int8 serving: ``qdot`` returns f32, so the
+first Linear on it turns the residual stream to f32 (the vanilla and
+flash-attn embedder, a KAN ViT's first FF), and every later LayerNorm, q/k/v
+projection, attention and FF runs in f32 on widened bf16 weights; on the
+kernel route ``int8_linear`` returns x's dtype and the stream stays bf16 up
+to the head. The kernel wrappers stay strict: only the layers widen.
+
 bf16 serving and training take every ViT kind (efficientkan, cheby,
 fourier, fast, sine, vanilla, flash-attn), with or without the fused FF
 (``fused_ff=True``); :func:`check_bf16_trainable` would raise, before any
@@ -151,6 +160,17 @@ def cast_params_(model: torch.nn.Module, dtype: torch.dtype = torch.bfloat16):
         for _, g in _refit_grids(model):
             g.copy_(_round_bf16(g))
     return model
+
+
+def promote(x: torch.Tensor, *params):
+    """``params`` as they meet the activations ``x``, by kanvit's promotion:
+    where x is f32, each bf16 parameter widened exactly to f32 (a new
+    tensor; autograd flows through the cast); every other mix, and None, as
+    it is. Returns a tuple, one entry a parameter."""
+    if x.dtype != torch.float32:
+        return params
+    return tuple(p.float() if p is not None and p.dtype == torch.bfloat16 else p
+                 for p in params)
 
 
 def param_dtype(model: torch.nn.Module) -> torch.dtype:

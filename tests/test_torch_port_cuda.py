@@ -1542,6 +1542,31 @@ def test_int8_linear_kernel_strided_x(cuda_all, pad, offset):
     assert IM.LAUNCHES["int8_linear"] == 1
 
 
+@pytest.mark.parametrize("n,k,out", [(1, 128, 128), (37 * 50 + 1, 256, 128),
+                                     (12608, 768, 3072), (33, IM.MAX_K, 256)])
+@pytest.mark.parametrize("pad", [0, 3, 4])
+def test_int8_linear_bf16_kernel(cuda_all, n, k, out, pad):
+    """bf16 x, W and bias (x rows ``pad`` values wider: 8-byte loads at 0
+    and 4, single values at 3): bf16 y with the bits of ``qdot_rowwise``
+    rounded once to bf16, counted under ``int8_linear_bf16``."""
+    from kanvit_torch.ops import quant as Q
+
+    rng = np.random.default_rng(150 + pad)
+    wide, w, b = (t.to(torch.bfloat16) if t is not None else None
+                  for t in _int8_case(rng, n, k + pad, out, True, cuda_all))
+    x, w = wide[:, :k], w[:, :k].contiguous()
+    IM.reset_launches()
+    with torch.inference_mode():
+        y = IM.int8_linear(x, w, b)
+        want = Q.qdot_rowwise(x, w, b).to(torch.bfloat16)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.bfloat16 and y.shape == (n, out)
+    assert torch.equal(y, want), int((y != want).sum())
+    assert IM.LAUNCHES == {"int8_linear": 0, "int8_linear_bf16": 1}
+    with pytest.raises(TypeError, match="as x is"):
+        IM.int8_linear(x, w.float(), b)
+
+
 def test_int8_predictor_on_card(cuda_all):
     """A vanilla ViT whose Linears are multiples of 128 serves int8 with the
     kernel (embedder, 2 FF pairs: 5 launches a batch; the 10-class head on
@@ -1571,6 +1596,35 @@ def test_int8_predictor_on_card(cuda_all):
         assert float(np.abs(got - f32).max()) <= 0.05 * scale
         assert pred.calibrate(x).keys() == ref.calibrate(x).keys()
         assert float(np.abs(pred.logits(x) - f32).max()) <= 0.05 * scale
+
+
+def test_int8_bf16_predictor_on_card(cuda_all):
+    """The same ViT with bf16 parameters: with the kernel its stream stays
+    bf16 (5 bf16 launches a batch), on qdot it turns f32; both near the
+    bf16 float logits and the CPU's int8 logits of the bf16 model."""
+    import copy
+
+    from kanvit_torch.infer import Predictor
+    from kanvit_torch.models import create_model
+    from kanvit_torch.utils import precision
+
+    cpu = precision.cast_params_(create_model(
+        "vanilla", chw=(2, 32, 32), n_patches=4, n_blocks=2, d_hidden=128, n_heads=4,
+        out_d=10, seed=5))
+    gpu = copy.deepcopy(cpu).to(cuda_all)
+    x = np.random.default_rng(112).standard_normal((20, 2, 32, 32)).astype(np.float32)
+    ref = Predictor(gpu, batch_size=8, device=cuda_all).logits(x)
+    scale = max(1.0, float(np.abs(ref).max()))
+    for kernel in (True, False):
+        IM.reset_launches()
+        got = Predictor(gpu, batch_size=8, device=cuda_all, quant="int8",
+                        int8_kernel=kernel).logits(x)
+        assert IM.LAUNCHES == {"int8_linear": 0, "int8_linear_bf16": 3 * 5 if kernel else 0}
+        cpu_int8 = Predictor(cpu, batch_size=8, device="cpu", quant="int8",
+                             int8_kernel=kernel).logits(x)
+        assert got.dtype == np.float32
+        assert float(np.abs(got - cpu_int8).max()) <= 0.02 * scale
+        assert float(np.abs(got - ref).max()) <= 0.05 * scale
 
 
 def test_fused_ff_train_step_on_card(cuda_all):

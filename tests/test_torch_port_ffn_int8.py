@@ -349,11 +349,13 @@ def test_int_mm_is_exact_past_f32():
 
 def _emu_int8(x2d, wq, sw, bias):
     """The kernel's arithmetic on the CPU: x quantized per row, the int32
-    product, acc * s_x * s_w + b rounded step by step."""
+    product, acc * s_x * s_w + b rounded step by step in f32, then once to
+    x's dtype (the bf16 kernel's launches under ``int8_linear_bf16``)."""
     xq, sx = Q._quantize(x2d, dim=-1)
     y = torch._int_mm(xq, wq.t()).float() * sx * sw.reshape(1, -1)
-    IM.LAUNCHES["int8_linear"] += 1
-    return y if bias is None else y + bias
+    bf16 = x2d.dtype == torch.bfloat16
+    IM.LAUNCHES["int8_linear_bf16" if bf16 else "int8_linear"] += 1
+    return (y if bias is None else y + bias).to(x2d.dtype)
 
 
 def _emulate_launches(monkeypatch):
@@ -392,7 +394,7 @@ def test_int8_linear_matches_kanvit_kernel(int8_path, monkeypatch, with_bias):
 
 
 @pytest.mark.parametrize("bad,err,match", [
-    ("dtype", TypeError, "x must be float32"),
+    ("dtype", TypeError, "x must be float32 or bfloat16, got torch.float16"),
     ("ragged", ValueError, "multiples of 128"),
     ("bias", ValueError, "bias must be"),
     ("deep", ValueError, "exceeds the kernel's"),
@@ -400,7 +402,7 @@ def test_int8_linear_matches_kanvit_kernel(int8_path, monkeypatch, with_bias):
 def test_int8_kernel_arg_checks(bad, err, match):
     x, w, b = (torch.from_numpy(a) for a in _xw(84))
     if bad == "dtype":
-        x = x.double()
+        x = x.half()
     elif bad == "ragged":
         x, w = x[:, :100], w[:, :100]
     elif bad == "deep":

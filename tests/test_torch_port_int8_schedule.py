@@ -169,14 +169,15 @@ def test_rows_a_block_rule_and_max_k():
 def test_wrapper_constants_are_the_kernels():
     """The wrapper's tile constants and shared-memory sum are the kernel's:
     ``BN``, ``KC``, ``STAGES``, ``XPAD``, the row scales, the W ring's rows
-    of KC + 16 bytes; the entry takes the four rows a block the rule gives
-    and the wrapper passes ``rows_per_block(K)``."""
+    of KC + 16 bytes; each entry (f32 and bf16 x) takes the rows a block
+    the rule gives and the wrapper passes ``rows_per_block(K)``."""
     for name in ("BN", "KC", "STAGES", "XPAD"):
         assert _const(name) == getattr(IM, name), name
     assert ("(size_t)BM * sizeof(float) + (size_t)BM * (k + XPAD) +\n"
             "         (size_t)NST * BN * (KCH + 16)") in SRC
-    entry = SRC.split('extern "C" int kanvit_int8_linear_fwd(')[1]
-    assert sorted(int(v) for v in re.findall(r"case (\d+):", entry)) == sorted(
-        {rows for _, rows in IM.ROW_TIERS} | {IM.DEEP_ROWS})
+    for name in ("kanvit_int8_linear_fwd(", "kanvit_int8_linear_fwd_bf16("):
+        entry = SRC.split(f'extern "C" int {name}')[1].split('extern "C"')[0]
+        assert sorted(int(v) for v in re.findall(r"case (\d+):", entry)) == sorted(
+            {rows for _, rows in IM.ROW_TIERS} | {IM.DEEP_ROWS}), name
     wrapper = Path(IM.__file__).read_text()
     assert "rows_per_block(k), torch.cuda.current_stream" in wrapper
