@@ -442,6 +442,9 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("kan_tc_fwd_grouped", "7BsplineELi24E", "4Bf16ELi0E"),
                 "attention_lanes_fwd_bf16ILi64", "flash_fwd_bf16ILi64",
                 "flash_dq_bf16ILi64", "flash_dkv_bf16ILi64",
+                "attention_lanes_fwd_bf16ILi128ELb1", "attention_lanes_dq_bf16ILi128ELb1",
+                "attention_lanes_dkv_bf16ILi128ELb1", "flash_fwd_bf16ILi128ELb1",
+                "flash_dq_bf16ILi128ELb1", "flash_dkv_bf16ILi128ELb1",
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi12E"),
                 ("kan_tc_fwd_grouped", "4SineELi8E", "Tf32x3"),
@@ -1621,7 +1624,9 @@ def phase_flash_bf16_kernels(torch):
     """Phase 5b: the tiled attention's three bf16 kernels at the causal
     decoder's shapes (B 16, H 4, T 2048, the forward also against f64; B
     4, H 4, T 8192; dh 64), then at ragged masked shapes at dh 8, 16 and
-    32 whose rows see no valid key (sub-entries)."""
+    32 whose rows see no valid key (sub-entries), then at the generic head
+    dims (the padded kernels): the decoder's shapes at 2 heads of 128 and
+    ragged masked shapes at dh 24, 40, 72 and 120."""
     rng = np.random.default_rng(SEED + 12)
     _, _, main = check_flash_bf16(torch, rng, 16, 4, 2048, 2048, 64, True, None,
                                   "decoder seq 2048", iters=10, f64=True)
@@ -1651,9 +1656,41 @@ def phase_flash_bf16_kernels(torch):
     mask = torch.from_numpy(rng.random((2, 700)) > 0.3).cuda()
     _, _, subs["not_causal_tq_gt_tk_masked_dh_64"] = check_flash_bf16(
         torch, rng, 2, 3, 900, 700, 64, False, mask, "not causal tq>tk masked", iters=3)
+    subs.update(flash_bf16_generic(torch))
     return {name: (*main[name], {"at_seq_8192_batch_4": sub_entry(long[name])},
                    *({key: sub_entry(r[name])} for key, r in subs.items()))
             for name in main}
+
+
+def flash_bf16_generic(torch):
+    """The tiled bf16 kernels at head dims outside 8/16/32/64, on the
+    instantiation padded to 128: the decoder's shapes at 2 heads of 128
+    (``bench_decoder --bf16 --heads 2``: B 16, T 2048, the forward also
+    against f64; B 4, T 8192), then ragged masked shapes at dh 24, 40, 72
+    and 120 (odd multiples of 8 but 40: a 16-deep step's upper half past
+    dh), rows that see no valid key among them. Returns the sub-entries."""
+    rng = np.random.default_rng(SEED + 14)
+    subs = {}
+    _, _, subs["decoder_dh_128_seq_2048"] = check_flash_bf16(
+        torch, rng, 16, 2, 2048, 2048, 128, True, None, "decoder dh 128 seq 2048",
+        iters=10, f64=True)
+    _, _, subs["decoder_dh_128_seq_8192"] = check_flash_bf16(
+        torch, rng, 4, 2, 8192, 8192, 128, True, None, "decoder dh 128 seq 8192", iters=3)
+    # tq < tk: rows 0-216 at qpos < 0 see no key; item 1 masks every key
+    mask = torch.from_numpy(rng.random((3, 517)) > 0.2).cuda()
+    mask[0, :4] = False
+    mask[1] = False
+    for dh, causal, tq in ((24, True, 300), (40, False, 700), (72, True, 300),
+                           (120, True, 517)):
+        label = f"ragged masked dh {dh}"
+        o, v, subs[f"ragged_masked_dh_{dh}"] = check_flash_bf16(
+            torch, rng, 3, 2, tq, 517, dh, causal, mask, label, iters=3)
+        if causal:
+            rows = slice(0, 517 - tq + 4)  # qpos < 4: keys 0-3 of item 0 masked
+            for item in (0, 1):
+                check_no_visible_key(torch, o.float(), v.float(), mask, rows, item,
+                                     f"bf16 {label}, item {item}", tol=BF16_ULP_REL)
+    return subs
 
 
 # --------------------------------------------------------------------------
@@ -3888,11 +3925,115 @@ def phase_bf16_kernels(torch):
         results["flash_attention_lanes_bwd_bf16"] += ({key: sub_entry(
             check_attention_bwd_bf16(torch, rng, b, t, heads, dh, key,
                                      attention_cases(torch, rng, b, t)))},)
+    for name, subs in lanes_bf16_generic(torch).items():
+        results[name] += tuple({key: entry} for key, entry in subs.items())
     results.update(cheby_bf16_kernels(torch))
     results.update(fast_bf16_kernels(torch))
     results.update(sine_bf16_kernels(torch))
     results.update(fourier_bf16_kernels(torch))
     return results
+
+
+def lanes_bf16_generic(torch):
+    """The bf16 lanes kernels at head dims outside 8/16/32/64, on the
+    instantiation padded to 128: vit-s's width and tokens (B 64, T 197, d
+    384) in 4 heads of 96 and 3 of 128, forward and backward, then the
+    single-tile route at dh 40. Returns ``{kernel: {sub-entry: result}}``."""
+    rng = np.random.default_rng(SEED + 15)
+    fwd, bwd = {}, {}
+    for heads, dh in ((4, 96), (3, 128)):
+        key = f"vit_s_width_dh_{dh}"
+        cases = [(False, None), (True, masked_items(torch, rng, BATCH, 197))]
+        fwd[key] = sub_entry(check_attention_bf16(torch, rng, BATCH, 197, heads, dh, key,
+                                                  cases))
+        bwd[key] = sub_entry(check_attention_bwd_bf16(torch, rng, BATCH, 197, heads, dh,
+                                                      key, cases))
+    one, two = check_single_tile_bf16(torch, rng)
+    fwd["single_tile_route_dh_40"], bwd["single_tile_route_dh_40"] = one, two
+    return {"flash_attention_lanes_bf16": fwd, "flash_attention_lanes_bwd_bf16": bwd}
+
+
+def check_single_tile_bf16(torch, rng, b=16, h=4, t=256, dh=40):
+    """``flash_attention`` on bf16 where kanvit's ``_use_small`` holds: the
+    bf16 lanes kernels on (B, T, H, dh) views, through autograd, causal with
+    a key mask, against the twins (``A.lanes_attention``, and
+    ``A.lanes_attention_bwd_bf16`` on the kernel's o) within the bf16 gates;
+    one bf16 lanes forward and backward launch and no tiled one. Returns
+    the forward's and the backward's sub-entries."""
+    from kanvit_torch.kernels import flash_attention as FA
+    from kanvit_torch.ops import attention as A
+
+    check(FA.use_small(t, t, dh, h, 512, 1024, 2), "bf16 single tile: not the small tier")
+    q, k, v = (a.to(torch.bfloat16) for a in flash_inputs(torch, rng, b, h, t, t, dh))
+    mask = masked_items(torch, rng, b, t)
+    g = torch.from_numpy(rng.standard_normal((b, h, t, dh)).astype(np.float32)
+                         ).cuda().to(torch.bfloat16)
+    tag = f"bf16 single-tile route B={b} H={h} T={t} dh={dh} causal masked"
+
+    def lanes(a):
+        return a.transpose(1, 2)
+
+    def run():
+        leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+        o = FA.flash_attention(*leaves, True, 512, 1024, mask)
+        o.backward(g)
+        return o.detach(), [a.grad for a in leaves]
+
+    reset_counts()
+    o, grads = run()
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    check(counts["flash_attention_lanes_bf16"] == 1
+          and counts["flash_attention_lanes_bwd_bf16"] == 1
+          and counts["flash_attention_bf16"] == counts["flash_attention_lanes"] == 0,
+          f"{tag}: launches {counts}, want one bf16 lanes forward and backward")
+    again, again_grads = run()
+    check(torch.equal(o, again) and all(torch.equal(x, y) for x, y in zip(grads, again_grads)),
+          f"{tag}: the bits of a repeated forward or backward differ")
+    o3 = lanes(o).reshape(b, t, h * dh)
+    with torch.inference_mode():
+        ref = A.lanes_attention(*map(lanes, (q, k, v)), h, causal=True, mask=mask)
+        spread = A.lanes_attention(lanes(q), lanes(k), lanes(v).abs(), h, causal=True,
+                                   mask=mask)
+        err = bf16_ulp_gate(f"flash_attention {tag}", o3, ref, spread)
+        args = (*map(lanes, (q, k, v)), o3, lanes(g), h, True, mask)
+        want = A.lanes_attention_bwd_bf16(*args)
+        spreads = A.lanes_attention_bwd_bf16(*args, spread=True)
+        err_bwd = max(bf16_ulp_gate(f"flash_attention {tag} {nm}",
+                                    lanes(a).reshape(b, t, h * dh), w, sp)
+                      for nm, a, w, sp in zip(("dq", "dk", "dv"), grads, want, spreads))
+        dead = ~A.key_valid(mask, b, t, mask.device).any(dim=1)
+        check(bool((o3[dead] == 0).all()), f"{tag}: a fully masked row must output 0")
+
+        def forward():
+            return FA.flash_attention(q, k, v, True, 512, 1024, mask)
+        ms = {"fwd": time_ms(torch, forward),
+              "fwd device": kernel_ms(torch, forward, label=f"{tag} fwd"),
+              "plain fwd": time_ms(torch, lambda: A.lanes_attention(
+                  *map(lanes, (q, k, v)), h, causal=True, mask=mask))}
+    leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
+    out = FA.flash_attention(*leaves, True, 512, 1024, mask)
+
+    def backward():
+        return torch.autograd.grad(out, leaves, g, retain_graph=True)
+    ms["bwd"] = time_ms(torch, backward)
+    ms["bwd device"] = kernel_ms(torch, backward, label=f"{tag} bwd")
+    ms["plain bwd"] = time_ms(torch, lambda: A.lanes_attention_bwd_bf16(*args))
+    for part, grad_of in (("fwd", None), ("bwd", "qkv")):
+        ms[f"sdpa {part}"] = sdpa_ms(torch, q, k, v, True, mask, backward=grad_of)
+        ms[f"sdpa {part} device"] = sdpa_ms(torch, q, k, v, True, mask, backward=grad_of,
+                                            device=True)
+    print(f"[bf16] {tag}: " + "  ".join(f"{key} {val:.4f} ms" for key, val in ms.items()))
+    pairs = t * (t + 1) / 2
+    bounds = {"fwd": bf16_bound(2.0 * b * h * pairs * dh * 2, 2.0 * 4 * b * t * h * dh,
+                                ms["sdpa fwd"]),
+              "bwd": bf16_bound(2.0 * b * h * pairs * dh * 5, 2.0 * 8 * b * t * h * dh,
+                                ms["sdpa bwd"])}
+    return tuple(sub_entry((e, ms[part], ms[f"plain {part}"],
+                            {"device_ms": ms[f"{part} device"],
+                             "library_device_ms": ms[f"sdpa {part} device"]},
+                            bounds[part]))
+                 for e, part in ((err, "fwd"), (err_bwd, "bwd")))
 
 
 def cheby_bf16_kernels(torch):
@@ -4733,6 +4874,90 @@ def phase_bf16_train(torch, smi, model_cpu, variant="efficientkan", per_batch=BF
     return {"launches": counts, "losses": losses, "grad_rel_err": worst,
             "step_ms": host, "events_ms": events, "images_per_s": ips,
             "cast_kernels": casts, "host_split": split, "profile": profile}
+
+
+# The vit-s vanilla ViT in 3 heads of 128 (kanvit's --n-heads on the
+# preset's width): its attention is the only kernel, the bf16 lanes one at a
+# generic head dim (the padded instantiation), its q/k/v one baddbmm.
+HEADS_BF16 = 3
+HEADS_BF16_PER_BATCH = {"flash_attention_lanes_bf16": 12}
+
+
+def phase_heads_bf16(torch, smi, vanilla_cpu):
+    """Phase 12c: the vit-s vanilla ViT at ``HEADS_BF16`` heads of 128 served
+    in bf16 (``phase_bf16_serve``: logits within 2e-2 x max(1, max|logit|)
+    of the CPU's bf16 forward, 12 bf16 lanes launches a forward), then
+    trained in bf16 through ``make_train_step(bf16=True)`` at batch 64:
+    exactly 12 bf16 lanes forward and 12 backward launches a step and
+    nothing else, losses finite and falling, the gradients of a 4-image
+    step within 5e-2 x max(1, max|g|) per tensor of the CPU's bf16 step
+    (the plain twins), and ms a step beside the 6-head (dh 64) model's in
+    turns (3, 6, 6, 3 heads; host clock, CUDA events). Returns the serving
+    and training launches as two paths."""
+    from kanvit_torch.train import create_train_state, make_train_step
+
+    model_cpu = build_model("vanilla", n_heads=HEADS_BF16)
+    label = f"vanilla {HEADS_BF16} heads"
+    serve = phase_bf16_serve(torch, smi, model_cpu, SEED + 16, label, HEADS_BF16_PER_BATCH)
+    rng = np.random.default_rng(SEED + 17)
+    x = torch.from_numpy(rng.standard_normal((BATCH, 3, 224, 224)).astype(np.float32)).cuda()
+    y = torch.from_numpy(rng.integers(0, 1000, BATCH)).cuda()
+    step = make_train_step(bf16=True)
+    states = {HEADS_BF16: create_train_state(copy.deepcopy(model_cpu).cuda(), 1e-3),
+              6: create_train_state(copy.deepcopy(vanilla_cpu).cuda(), 1e-3)}
+    want = {k: 0 for k in launch_counts()}
+    want.update(per_step(HEADS_BF16_PER_BATCH))
+    reset_counts()
+    losses, steps_ok, state = [], True, states[HEADS_BF16]
+    for _ in range(TRAIN_STEPS):
+        before = launch_counts()
+        state, loss, _ = step(state, x, y)
+        after = launch_counts()
+        steps_ok &= {k: after[k] - before[k] for k in after} == want
+        losses.append(loss)
+    states[HEADS_BF16] = state
+    torch.cuda.synchronize()
+    counts = launch_counts()
+    losses = [float(v) for v in losses]
+    print(f"[bf16-train] vit-s {label} bf16, batch {BATCH}, {TRAIN_STEPS} Adam(1e-3) steps "
+          f"on one batch: losses {[round(v, 6) for v in losses]}; launches "
+          f"{ {k: n for k, n in counts.items() if n} } (want per step "
+          f"{ {k: n for k, n in want.items() if n} }, nothing else)")
+    check(steps_ok, f"{label} bf16 training: a step's launches differ from {want}")
+    check(all(np.isfinite(losses)) and losses[-1] < losses[0],
+          f"{label} bf16 training: losses not finite or not falling: {losses}")
+    grads = {}
+    for dev in ("cuda", "cpu"):
+        net = copy.deepcopy(model_cpu).to(dev)
+        make_train_step(bf16=True)(create_train_state(net, 1e-3), x[:GRAD_IMAGES].to(dev),
+                                   y[:GRAD_IMAGES].to(dev))
+        grads[dev] = {k: p.grad.double().cpu() for k, p in net.named_parameters()}
+    rels = {name: float((grads["cuda"][name] - w).abs().max()) / max(1.0, float(w.abs().max()))
+            for name, w in grads["cpu"].items()}
+    worst = max(rels, key=rels.get)
+    print(f"[bf16-train] {label}: gradients of {GRAD_IMAGES} images, card against the "
+          f"CPU's bf16 twins, worst max|err| / max(1, max|g|) over tensors: "
+          f"{rels[worst]:.3e} ({worst})  limit {TOL_BF16_GRADS:.0e}")
+    check(rels[worst] <= TOL_BF16_GRADS,
+          f"{label} bf16 training: the card's gradients differ from the CPU's: {worst}")
+    times, iters = {h: [] for h in states}, 10
+    for h in (HEADS_BF16, 6, 6, HEADS_BF16):
+        for _ in range(2):
+            states[h] = step(states[h], x, y)[0]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        _, window = device_ms(torch, lambda h=h: [step(states[h], x, y) for _ in range(iters)])
+        torch.cuda.synchronize()
+        times[h].append(((time.perf_counter() - t0) / iters * 1e3,
+                         window[0].elapsed_time(window[1]) / iters))
+    host = {h: float(np.mean([a for a, _ in v])) for h, v in times.items()}
+    events = {h: float(np.mean([e for _, e in v])) for h, v in times.items()}
+    print(f"[bf16-train] vit-s vanilla bf16 steady state, batch {BATCH} (means of two "
+          f"turns): " + "; ".join(f"{h} heads (dh {384 // h}) {host[h]:.2f} ms a step, "
+                                  f"{BATCH / host[h] * 1e3:.1f} images/s (host clock; CUDA "
+                                  f"events {events[h]:.2f})" for h in host)
+          + f"; turns {times}  [{smi}]")
+    return {"vanilla_3h_bf16_serve": serve["launches"], "vanilla_3h_bf16_train": counts}
 
 
 # --------------------------------------------------------------------------
@@ -5723,7 +5948,7 @@ def decoder_parts(torch, model, tokens, bf16=False):
     return {k: float(np.median(v)) for k, v in parts.items()}
 
 
-def decoder_grads_against_cpu(torch, tokens, bf16=False):
+def decoder_grads_against_cpu(torch, tokens, bf16=False, config=DECODER):
     """Parameter gradients of a 1-sequence batch on the card against the
     same model's on the CPU (``bf16``: both in kanvit's bf16 policy, the CPU
     through the kernels' plain twins); prints each tensor's max|g| and
@@ -5734,7 +5959,7 @@ def decoder_grads_against_cpu(torch, tokens, bf16=False):
     from kanvit_torch import bench_decoder as BD
     from kanvit_torch.utils import precision
 
-    cpu = BD.build_model(**DECODER, seed=SEED)
+    cpu = BD.build_model(**config, seed=SEED)
     gpu = copy.deepcopy(cpu).cuda()
     one = tokens[:1]
     with precision.f32_accumulation():
@@ -5753,22 +5978,27 @@ def decoder_grads_against_cpu(torch, tokens, bf16=False):
     return worst, worst_name
 
 
-def phase_decoder(torch, smi, bf16=False):
+def phase_decoder(torch, smi, bf16=False, heads=None):
     """Phase 13 (``bf16``: 13b, kanvit's bf16 policy, its tiled attention on
-    the bf16 kernels, with the f32 step's tokens/s beside it)."""
+    the bf16 kernels, with the f32 step's tokens/s beside it; ``heads``:
+    13c, the bf16 decoder in that many heads, ``bench_decoder --bf16
+    --heads 2``'s dh 128 on the padded bf16 kernels, with the tokens/s of
+    the decoder's own heads beside it in the same turns)."""
     from kanvit_torch import bench_decoder as BD
 
-    blocks = DECODER["n_blocks"]
+    config = DECODER if heads is None else {**DECODER, "heads": heads}
+    dh = config["dim"] // config["heads"]
+    blocks = config["n_blocks"]
     sfx = "_bf16" if bf16 else ""
     per_step = {k: 0 for k in launch_counts()}
     per_step.update({f"flash_attention{sfx}": blocks, f"flash_attention_dq{sfx}": blocks,
                      f"flash_attention_dkv{sfx}": blocks})
     launches = {k: 0 for k in per_step}
     tol = TOL_BF16_GRADS if bf16 else TOL_GRADS
-    precision_tag = "bf16" if bf16 else "f32"
+    precision_tag = ("bf16" if bf16 else "f32") + ("" if heads is None else f" dh {dh}")
     out = []
     for seq, batch in DECODER_CONFIGS:
-        model = BD.build_model(**DECODER, seed=SEED).cuda()
+        model = BD.build_model(**config, seed=SEED).cuda()
         tokens = BD.make_tokens(batch, seq, DECODER["vocab"], SEED).cuda()
         step = BD.make_step(model, bf16=bf16)
         reset_counts()
@@ -5793,7 +6023,7 @@ def phase_decoder(torch, smi, bf16=False):
         check(losses[-1] < losses[0], f"{label}: loss did not fall: {losses}")
         result = {"seq": seq, "batch": batch, "losses": losses}
         if seq == DECODER_CONFIGS[0][0]:
-            worst, name = decoder_grads_against_cpu(torch, tokens, bf16)
+            worst, name = decoder_grads_against_cpu(torch, tokens, bf16, config)
             print(f"[decoder] {label}: gradients of 1 sequence, GPU against CPU"
                   f"{' (its plain twins)' if bf16 else ''}, per tensor: worst max|err| / "
                   f"max|g| {worst:.3e} ({name})  limit {tol:.0e}")
@@ -5807,20 +6037,29 @@ def phase_decoder(torch, smi, bf16=False):
         result["parts_ms"] = parts
         result["profile"] = phase_profile(torch, lambda *_: step(tokens), None, None,
                                           None, label)
-        # bf16: the kernel impl in turns with f32's, on one seed's weights
-        runs = ([("kernel", True), ("kernel", False), ("kernel", True), ("kernel", False)]
-                if bf16 else [("kernel", False)]
-                + ([("plain", False)] if seq == DECODER_CONFIGS[0][0] else []))
-        for impl, in_bf16 in runs:
-            r = BD.bench_config(seq, batch, **DECODER, steps=5, warmup=2, impl=impl,
-                                seed=SEED, bf16=in_bf16)
+        # bf16: the kernel impl in turns with f32's, on one seed's weights;
+        # 13c: in turns with the decoder's own heads in bf16
+        own = DECODER["heads"]
+        if heads is not None:
+            runs = [("kernel", True, heads), ("kernel", True, own), ("kernel", True, own),
+                    ("kernel", True, heads)]
+        elif bf16:
+            runs = [("kernel", True, own), ("kernel", False, own), ("kernel", True, own),
+                    ("kernel", False, own)]
+        else:
+            runs = [("kernel", False, own)] + (
+                [("plain", False, own)] if seq == DECODER_CONFIGS[0][0] else [])
+        for impl, in_bf16, n_heads in runs:
+            r = BD.bench_config(seq, batch, **{**DECODER, "heads": n_heads}, steps=5,
+                                warmup=2, impl=impl, seed=SEED, bf16=in_bf16)
             print(f"[decoder] {json.dumps(r)}")
-            print(f"[decoder] {label} impl={impl} bf16={in_bf16}: "
-                  f"{r['tokens_per_sec']:.1f} tokens/s, {r['step_ms']:.2f} ms per step  "
-                  f"[{smi}]")
+            print(f"[decoder] {label} impl={impl} bf16={in_bf16} heads={n_heads} (dh "
+                  f"{DECODER['dim'] // n_heads}): {r['tokens_per_sec']:.1f} tokens/s, "
+                  f"{r['step_ms']:.2f} ms per step  [{smi}]")
             check(np.isfinite(r["loss"]) and r["step_ms"] > 0, f"{label}: bench result")
-            result.setdefault(impl if not bf16 else ("bf16" if in_bf16 else "f32"),
-                              []).append(r)
+            key = (impl if not bf16 else "bf16" if in_bf16 else "f32") if heads is None \
+                else f"dh_{DECODER['dim'] // n_heads}"
+            result.setdefault(key, []).append(r)
         out.append(result)
         del model, step
         torch.cuda.empty_cache()
@@ -5981,6 +6220,12 @@ ALSO_REPLACES = {
 TC_FWD = "3xTF32 mma.sync.m16n8k8 over a basis generated on chip (kan_tc_kernel<{}, false>)"
 TC_BWD = ("dW{} on 3xTF32 mma.sync.m16n8k8 (kan_tc_kernel<{}, true>); dx, where "
           "asked, on the CUDA-core kan_dx_kernel")
+# The bf16 attention kernels' head dims (attention_tc.cuh, BF16_PAD_DH).
+PADDED_DH = ("; dh 8/16/32/64 on their own instantiations, every other multiple of 8 "
+             "through 128 on <128, true>: rows zero past dh, the products over all 128 "
+             "columns, stores stopping at dh")
+PADDED_DKV = (", a padded dk/dv block holding 64 of dh's columns (ceil(dh / 64) blocks a "
+              "key tile, each recomputing the scores)")
 ROUTES = {
     "int8_linear_bf16": {
         "kernel": "int8_linear_kernel<48, 128, 2, __nv_bfloat16> (32 or 16 rows a block as "
@@ -6098,7 +6343,8 @@ ROUTES = {
         "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: attention_lanes_fwd_bf16<dh>, "
                   "q scaled in bf16, K by ldmatrix and V by ldmatrix.trans from cp.async "
                   "tiles, two passes over the keys (the row max, then p against it: the "
-                  "policy's whole-row softmax), p rounded to bf16 for P V, o rounded once"},
+                  "policy's whole-row softmax), p rounded to bf16 for P V, o rounded once"
+                  + PADDED_DH},
     "bspline_kan_bwd_bf16": {
         "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation, kan_basis_tc.cuh part 4 at "
                   "one group: dW on kan_bf16_dw<Bspline, 3> over a basis made in f32 on chip "
@@ -6118,23 +6364,26 @@ ROUTES = {
         "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: attention_lanes_dq_bf16<dh> "
                   "(writes delta) then attention_lanes_dkv_bf16<dh>, the forward's (m, l), "
                   "pn and dsc rounded to bf16 at their dots, qs by the bf16 scale and dq by "
-                  "the f32 one; K, V, do tiles by cp.async and ldmatrix"},
+                  "the f32 one; K, V, do tiles by cp.async and ldmatrix" + PADDED_DH
+                  + PADDED_DKV},
     "flash_attention_bf16": {
         "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: flash_fwd_bf16<dh>, one "
                   "pass over 32-key tiles (K by ldmatrix, V by ldmatrix.trans, cp.async, "
                   "double buffered), the f32 product scaled by the f32 dh^-1/2, online "
                   "softmax in f32, p rounded to bf16 for P V against its tiles' running "
-                  "max, o = bf16(acc / l); the causal frontier, longest blocks first"},
+                  "max, o = bf16(acc / l); the causal frontier, longest blocks first"
+                  + PADDED_DH},
     "flash_attention_dq_bf16": {
         "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: flash_dq_bf16<dh> (writes "
                   "delta from the bf16 o and do), p from the forward's (m, l), ds = p scale "
                   "(dp - delta) rounded to bf16 for dS K, dq rounded once with no scale "
-                  "after it; K, V tiles by cp.async and ldmatrix"},
+                  "after it; K, V tiles by cp.async and ldmatrix" + PADDED_DH},
     "flash_attention_dkv_bf16": {
         "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: flash_dkv_bf16<dh>, the "
                   "warp's keys' k and v rows in registers, q and do tiles by cp.async and "
                   "ldmatrix, p and ds rounded to bf16 for P^T do and dS^T q (q unscaled), "
-                  "each rounded once; the dead-row scan of the f32 kernel"},
+                  "each rounded once; the dead-row scan of the f32 kernel" + PADDED_DH
+                  + PADDED_DKV},
     "chebykan_bf16": {
         "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Cheby, "
                   "24, 12, 1, Bf16, 0> at one group (the bf16 q/k/v's template and shape, 192 "
@@ -6357,6 +6606,8 @@ def main():
     paths["decoder"] = timed("decoder training", phase_decoder, torch, smi)["launches"]
     paths["decoder_bf16"] = timed("decoder bf16 training", phase_decoder, torch, smi,
                                   True)["launches"]
+    paths["decoder_bf16_dh_128"] = timed("decoder bf16 training at 2 heads of 128",
+                                         phase_decoder, torch, smi, True, 2)["launches"]
     paths["flash_serve"] = timed(
         "flash-attn serving", phase_serve, torch, smi, build_model("flash-attn"),
         "flash-serve", lanes, SEED + 5)["launches"]
@@ -6385,6 +6636,8 @@ def main():
         "vanilla-serve", lanes, SEED + 8)["launches"]
     paths["vanilla_train"] = timed("vanilla training", phase_train, torch, smi,
                                    vanilla_cpu, "vanilla-train", lanes, None)["launches"]
+    paths.update(timed("vanilla 3-head bf16 serving and training", phase_heads_bf16, torch,
+                       smi, vanilla_cpu))
     # The flash-attn ViT chains raw attention blocks (no LayerNorm, FF or
     # residual), whose softmax saturates within a few blocks: the later
     # blocks' to_q gradients are 0 in exact arithmetic (f64 too), and the

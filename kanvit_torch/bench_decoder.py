@@ -21,6 +21,10 @@ tiled kernels (``plain``: their twins, through ``FA.flash_attention_plain``):
 
     python -m kanvit_torch.bench_decoder --bf16 --seqs 2048 8192
 
+``--heads`` sets the head count at ``--dim``: ``--bf16 --heads 2`` trains d
+256 in 2 heads of 128 (kanvit's ``benchmarks/causal_decoder.py --bf16
+--heads 2``) on the bf16 tiled kernels' instantiation padded to 128.
+
 ``batch = tokens_per_batch // seq``. ``--device`` (default ``cuda``) is
 explicit: with no card the run raises. The timed window of ``--steps``
 steps ends in a synchronise; ``loss`` is the last step's. Nothing is written

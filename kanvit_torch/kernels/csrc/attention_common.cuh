@@ -25,10 +25,16 @@ inline bool generic_head_dim(int dh) {
   return dh % GENERIC_CHUNK == 0 && dh >= GENERIC_CHUNK && dh <= MAX_HEAD_DIM;
 }
 
-// Dynamic shared memory above the static 48 KB needs the kernel's opt-in.
+// Shared memory past 48 KB a block, the kernel's static and `bytes` of
+// dynamic, needs the kernel's opt-in. (The dynamic bytes alone at exactly
+// 48 KB, the f32 generic lanes forward at dh 96, failed to launch.)
 template <class K>
 int allow_shared(K kernel, size_t bytes) {
-  if (bytes <= 48 * 1024) return 0;
+  if (bytes == 0) return 0;
+  cudaFuncAttributes attr;
+  const int err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err != 0) return err;
+  if (bytes + attr.sharedSizeBytes <= 48 * 1024) return 0;
   return (int)cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
 }

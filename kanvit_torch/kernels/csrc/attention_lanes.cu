@@ -10,7 +10,9 @@
 // these kernels too, through (B, T, H, dh) views. The bf16 path (kanvit's
 // bf16 serving and training) is attention_lanes_fwd_bf16 and the backward
 // pair attention_lanes_dq_bf16 and attention_lanes_dkv_bf16, below the f32
-// tensor-core kernels: bf16 mma.sync.m16n8k16, dh 8, 16, 32 and 64.
+// tensor-core kernels: bf16 mma.sync.m16n8k16, every head dim the f32
+// kernels take (dh 8, 16, 32 and 64 on instantiations of their own, every
+// other multiple of 8 through 128 on one padded to 128).
 //
 // Per batch item b and head h:
 //   o_h = softmax(q_h k_h^T * dh^-1/2 + key bias + causal bias) v_h
@@ -47,10 +49,12 @@
 // were each no faster.
 //
 // Head dims 8, 16, 32 and 64 (vit-s/b/l 64, the reference preset 32,
-// load_predictor's defaults 8) run the tensor-core kernels below; every
+// load_predictor's defaults 8) run the f32 tensor-core kernels below; every
 // other multiple of 8 through 128 runs the generic CUDA-core kernels at the
 // end of the file (attention_common.cuh): no main path runs them, and a
 // templated instantiation per dh made the build run past its time limit.
+// In bf16 every such dh runs on the tensor cores: the generic ones on one
+// instantiation padded to 128 (below, "--- bf16").
 //
 // -- Arithmetic: 3xTF32 on mma.sync.m16n8k8 (helpers: attention_tc.cuh) ----
 // Every product runs as mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32.
@@ -565,10 +569,19 @@ attention_lanes_dkv_tc(const float* __restrict__ q,
   }
 }
 
-// --- bf16: dh 8, 16, 32, 64 -----------------------------------------------
+// --- bf16: every multiple of 8 through 128 --------------------------------
 // The bf16 forward and backward kernels (bf16 mma.sync.m16n8k16), on the
 // fragment helpers of attention_tc.cuh (bf16_a_rows, bf16_rows_by_tile,
-// bf16_c_by_tile, store_bf16_pair) over TC_STEPS 8-row steps a tile.
+// bf16_c_by_tile, store_bf16_pair) over TC_STEPS 8-row steps a tile. dh 8,
+// 16, 32 and 64 are instantiated as they are; every other dh runs the
+// instantiation padded to 128 (PAD, BF16_PAD_DH) with the true dh at run
+// time, as the tiled kernels do (flash_attention.cu, "Head dims"): staged
+// rows zero-filled past dh (the dk/dv kernel's scaled q tile by its plain
+// stores), the products over all of DH, stores stopping at dh, and a padded
+// dk/dv block holding 64 of dh's columns (ceil(dh / 64) blocks a key tile,
+// each recomputing the scores), so that its accumulators fit beside the
+// warp's k and v rows. At vit-s's width in 3 heads of 128 the bytes bound
+// them as at 6 heads of 64 (the same H*dh; PERF.md).
 
 // --- bf16 forward ------------------------------------------------------------
 // kanvit's bf16 policy (flash_attention.py:482-495, _small_probs :328-341):
@@ -600,7 +613,7 @@ attention_lanes_dkv_tc(const float* __restrict__ q,
 // (PERF.md, the H100 80GB HBM3 at 700 W): the second pass over the keys,
 // and a block of 4 warps for 64 query rows of one head re-stages K and V
 // for every 64 rows.
-template <int DH>
+template <int DH, bool PAD = false>
 __global__ void __launch_bounds__(32 * TC_WARPS)
 attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -610,10 +623,11 @@ attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
                          long long v_sb, long long v_st, long long v_sh,
                          const uint8_t* __restrict__ mask,
                          __nv_bfloat16* __restrict__ o, float* __restrict__ stats,
-                         int t_len, int heads, int causal, float scale) {
+                         int t_len, int heads, int causal, float scale, int dh_run) {
   constexpr int P = DH + 8;          // staged row pitch, bf16
   constexpr int KD = (DH + 15) / 16;  // 16-deep steps over dh
   constexpr int ND = DH / 8;          // n8 tiles of o over dh
+  const int dh = PAD ? dh_run : DH;
   __shared__ __align__(16) __nv_bfloat16 ks[2][TC_TILE][P];
   __shared__ __align__(16) __nv_bfloat16 vs[2][TC_TILE][P];
   __shared__ int kvalid[2][TC_TILE];
@@ -631,16 +645,18 @@ attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
   uint32_t qa[KD][4];
   bf16_a_rows<DH>(q + b * q_sb + (long long)min(ra, t_len - 1) * q_st + h * q_sh,
                   q + b * q_sb + (long long)min(rb, t_len - 1) * q_st + h * q_sh,
-                  ra < t_len ? scale : 0.f, rb < t_len ? scale : 0.f, t, qa);
+                  ra < t_len ? scale : 0.f, rb < t_len ? scale : 0.f, t, qa, dh);
 
   const __nv_bfloat16* kh = k + b * k_sb + h * k_sh;
   const __nv_bfloat16* vh = v + b * v_sb + h * v_sh;
   const int kend = causal ? min(t_len, q0 + TC_ROWS) : t_len;
   const int tiles = (kend + TC_TILE - 1) / TC_TILE;
   auto stage = [&](int tile, int buf, bool with_v) {
-    stage_tile_bf16<DH, TC_TILE>(&ks[buf][0][0], kh, k_st, tile * TC_TILE, t_len, tid);
+    stage_tile_bf16<DH, TC_TILE, PAD>(&ks[buf][0][0], kh, k_st, tile * TC_TILE, t_len, tid,
+                                      dh);
     if (with_v)
-      stage_tile_bf16<DH, TC_TILE>(&vs[buf][0][0], vh, v_st, tile * TC_TILE, t_len, tid);
+      stage_tile_bf16<DH, TC_TILE, PAD>(&vs[buf][0][0], vh, v_st, tile * TC_TILE, t_len,
+                                        tid, dh);
     cp_async_commit();
     if (tid < TC_TILE) {
       const int key = tile * TC_TILE + tid;
@@ -732,10 +748,11 @@ attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
     const int row = half ? rb : ra;
     if (!active || row >= t_len) continue;
     const float rl = half ? rlb : rla;
-    __nv_bfloat16* op = o + (((long long)b * t_len + row) * heads + h) * DH + 2 * t;
+    __nv_bfloat16* op = o + (((long long)b * t_len + row) * heads + h) * dh + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      store_bf16_pair(op + d * 8, acc[d][2 * half] * rl, acc[d][2 * half + 1] * rl);
+      if (d * 8 < dh)
+        store_bf16_pair(op + d * 8, acc[d][2 * half] * rl, acc[d][2 * half + 1] * rl);
     if (stats != nullptr && t == 0) {
       stats[(srow + row) * 2] = half ? mb : ma;
       stats[(srow + row) * 2 + 1] = half ? lb : la;
@@ -773,7 +790,7 @@ attention_lanes_fwd_bf16(const __nv_bfloat16* __restrict__ q,
 // TB/s; its seven products (the scores and dP in each kernel, dq, dk, dv)
 // are 13.4 GFLOP, 0.0135 ms at 989 TFLOP/s bf16. Beside them, every score
 // takes one expf, twice.
-template <int DH>
+template <int DH, bool PAD = false>
 __global__ void __launch_bounds__(32 * TC_WARPS)
 attention_lanes_dq_bf16(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ k,
@@ -786,8 +803,9 @@ attention_lanes_dq_bf16(const __nv_bfloat16* __restrict__ q,
                         const __nv_bfloat16* __restrict__ dout,
                         const float* __restrict__ stats, float* __restrict__ delta_out,
                         __nv_bfloat16* __restrict__ dq, int t_len, int heads, int causal,
-                        float qscale, float scale) {
+                        float qscale, float scale, int dh_run) {
   constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
+  const int dh = PAD ? dh_run : DH;
   __shared__ __align__(16) __nv_bfloat16 ks[2][TC_TILE][P];
   __shared__ __align__(16) __nv_bfloat16 vs[2][TC_TILE][P];
   __shared__ int kvalid[2][TC_TILE];
@@ -802,18 +820,19 @@ attention_lanes_dq_bf16(const __nv_bfloat16* __restrict__ q,
   const int ra = r0 + g, rb = r0 + g + 8;
   const bool la_ok = ra < t_len, lb_ok = rb < t_len;
   const long long srow = ((long long)b * heads + h) * t_len;  // of stats, delta
-  const long long oa = (((long long)b * t_len + min(ra, t_len - 1)) * heads + h) * DH;
-  const long long ob = (((long long)b * t_len + min(rb, t_len - 1)) * heads + h) * DH;
+  const long long oa = (((long long)b * t_len + min(ra, t_len - 1)) * heads + h) * dh;
+  const long long ob = (((long long)b * t_len + min(rb, t_len - 1)) * heads + h) * dh;
 
   // The warp's qs and do rows as A fragments; delta of rows ra and rb.
   uint32_t qa[KD][4], da[KD][4];
   bf16_a_rows<DH>(q + b * q_sb + (long long)min(ra, t_len - 1) * q_st + h * q_sh,
                   q + b * q_sb + (long long)min(rb, t_len - 1) * q_st + h * q_sh,
-                  la_ok ? qscale : 0.f, lb_ok ? qscale : 0.f, t, qa);
-  bf16_a_rows<DH>(dout + oa, dout + ob, la_ok ? 1.f : 0.f, lb_ok ? 1.f : 0.f, t, da);
+                  la_ok ? qscale : 0.f, lb_ok ? qscale : 0.f, t, qa, dh);
+  bf16_a_rows<DH>(dout + oa, dout + ob, la_ok ? 1.f : 0.f, lb_ok ? 1.f : 0.f, t, da, dh);
   float dla = 0.f, dlb = 0.f;
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
+    if (d * 8 >= dh) continue;
     const int c = d * 8 + 2 * t;
     const float2 da2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + oa + c));
     const float2 oa2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + oa + c));
@@ -834,8 +853,10 @@ attention_lanes_dq_bf16(const __nv_bfloat16* __restrict__ q,
   const int kend = causal ? min(t_len, q0 + TC_ROWS) : t_len;
   const int tiles = (kend + TC_TILE - 1) / TC_TILE;
   auto stage = [&](int tile, int buf) {
-    stage_tile_bf16<DH, TC_TILE>(&ks[buf][0][0], kh, k_st, tile * TC_TILE, t_len, tid);
-    stage_tile_bf16<DH, TC_TILE>(&vs[buf][0][0], vh, v_st, tile * TC_TILE, t_len, tid);
+    stage_tile_bf16<DH, TC_TILE, PAD>(&ks[buf][0][0], kh, k_st, tile * TC_TILE, t_len, tid,
+                                      dh);
+    stage_tile_bf16<DH, TC_TILE, PAD>(&vs[buf][0][0], vh, v_st, tile * TC_TILE, t_len, tid,
+                                      dh);
     cp_async_commit();
     if (tid < TC_TILE) {
       const int key = tile * TC_TILE + tid;
@@ -882,18 +903,20 @@ attention_lanes_dq_bf16(const __nv_bfloat16* __restrict__ q,
   for (int half = 0; half < 2; ++half) {
     const int row = half ? rb : ra;
     if (!active || row >= t_len) continue;
-    __nv_bfloat16* dqp = dq + (((long long)b * t_len + row) * heads + h) * DH + 2 * t;
+    __nv_bfloat16* dqp = dq + (((long long)b * t_len + row) * heads + h) * dh + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      store_bf16_pair(dqp + d * 8, acc[d][2 * half] * scale, acc[d][2 * half + 1] * scale);
+      if (d * 8 < dh)
+        store_bf16_pair(dqp + d * 8, acc[d][2 * half] * scale, acc[d][2 * half + 1] * scale);
     if (t == 0) delta_out[srow + row] = half ? dlb : dla;
   }
 }
 
 // dk and dv. One block per (64 keys, head, batch); warp w owns keys
 // k0 + 16w .. +15 and streams the queries, reading the forward's (m, l) and
-// the dq kernel's delta.
-template <int DH>
+// the dq kernel's delta. Padded, a block holds the dk and dv columns of one
+// half of dh (BF16_DKV_SPLIT wide, the halves of a key tile neighbours in x).
+template <int DH, bool PAD = false>
 __global__ void __launch_bounds__(32 * TC_WARPS)
 attention_lanes_dkv_bf16(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ k,
@@ -905,9 +928,12 @@ attention_lanes_dkv_bf16(const __nv_bfloat16* __restrict__ q,
                          const __nv_bfloat16* __restrict__ dout,
                          const float* __restrict__ stats, const float* __restrict__ delta,
                          __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv,
-                         int t_len, int heads, int causal, float qscale) {
-  constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
+                         int t_len, int heads, int causal, float qscale, int dh_run) {
+  constexpr int P = DH + 8, KD = (DH + 15) / 16;
+  constexpr int NA = PAD ? BF16_DKV_SPLIT / 8 : DH / 8;  // n8 tiles of dk, dv a block
   constexpr int NT = 32 * TC_WARPS;
+  const int dh = PAD ? dh_run : DH;
+  const int halves = PAD ? bf16_dkv_halves(dh) : 1;
   __shared__ __align__(16) __nv_bfloat16 qs[2][TC_TILE][P];  // q scaled, rounded to bf16
   __shared__ __align__(16) __nv_bfloat16 dos[2][TC_TILE][P];
   __shared__ float mrow[2][TC_TILE], rlrow[2][TC_TILE], drow[2][TC_TILE];
@@ -915,7 +941,8 @@ attention_lanes_dkv_bf16(const __nv_bfloat16* __restrict__ q,
   const int tid = threadIdx.x, lane = tid & 31;
   const int g = lane >> 2, t = lane & 3;
   const int h = blockIdx.y, b = blockIdx.z;
-  const int k0 = blockIdx.x * TC_ROWS;
+  const int k0 = (PAD ? blockIdx.x / halves : blockIdx.x) * TC_ROWS;
+  const int d0 = PAD ? blockIdx.x % halves * NA : 0;  // the block's first n8 tile
   const int j0 = k0 + (tid >> 5) * 16;  // the warp's first key
   const bool active = j0 < t_len;
   const int ja = j0 + g, jb = j0 + g + 8;
@@ -926,29 +953,30 @@ attention_lanes_dkv_bf16(const __nv_bfloat16* __restrict__ q,
   uint32_t ka[KD][4], vfa[KD][4];  // the warp's k and v rows
   bf16_a_rows<DH>(k + b * k_sb + (long long)min(ja, t_len - 1) * k_st + h * k_sh,
                   k + b * k_sb + (long long)min(jb, t_len - 1) * k_st + h * k_sh,
-                  ja < t_len ? 1.f : 0.f, jb < t_len ? 1.f : 0.f, t, ka);
+                  ja < t_len ? 1.f : 0.f, jb < t_len ? 1.f : 0.f, t, ka, dh);
   bf16_a_rows<DH>(v + b * v_sb + (long long)min(ja, t_len - 1) * v_st + h * v_sh,
                   v + b * v_sb + (long long)min(jb, t_len - 1) * v_st + h * v_sh,
-                  ja < t_len ? 1.f : 0.f, jb < t_len ? 1.f : 0.f, t, vfa);
-  float dka[ND][4], dva[ND][4];
+                  ja < t_len ? 1.f : 0.f, jb < t_len ? 1.f : 0.f, t, vfa, dh);
+  float dka[NA][4], dva[NA][4];
 #pragma unroll
-  for (int d = 0; d < ND; ++d)
+  for (int d = 0; d < NA; ++d)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dka[d][c] = dva[d][c] = 0.f;
 
   const __nv_bfloat16* qh = q + b * q_sb + h * q_sh;
-  const __nv_bfloat16* doh = dout + (long long)b * t_len * heads * DH + h * DH;
+  const __nv_bfloat16* doh = dout + (long long)b * t_len * heads * dh + h * dh;
   // Causal: query i sees key j only for i >= j, so the tiles start at k0.
   const int i_start = causal ? k0 : 0;
   const int tiles = (t_len - i_start + TC_TILE - 1) / TC_TILE;
   auto stage = [&](int tile, int buf) {
     const int i0 = i_start + tile * TC_TILE;
-    stage_tile_bf16<DH, TC_TILE>(&dos[buf][0][0], doh, (long long)heads * DH, i0, t_len, tid);
+    stage_tile_bf16<DH, TC_TILE, PAD>(&dos[buf][0][0], doh, (long long)heads * dh, i0, t_len,
+                                      tid, dh);
     cp_async_commit();
-    for (int e = tid; e < TC_TILE * DH / 2; e += NT) {
+    for (int e = tid; e < TC_TILE * DH / 2; e += NT) {  // zeros past dh
       const int r = e / (DH / 2), c = e % (DH / 2) * 2, qi = i0 + r;
       float2 x = make_float2(0.f, 0.f);
-      if (qi < t_len)
+      if (qi < t_len && (!PAD || c < dh))
         x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(qh + qi * q_st + c));
       store_bf16_pair(&qs[buf][r][c], x.x * qscale, x.y * qscale);
     }
@@ -989,8 +1017,8 @@ attention_lanes_dkv_bf16(const __nv_bfloat16* __restrict__ q,
           dpt[n][c] = pn * (dpt[n][c] - drow[buf][r]);
           st[n][c] = pn;
         }
-      bf16_c_by_tile<DH>(st, &dos[buf][0][0], hi_step, lane, dva);
-      bf16_c_by_tile<DH>(dpt, &qs[buf][0][0], hi_step, lane, dka);
+      bf16_c_by_tile<DH, TC_STEPS, NA>(st, &dos[buf][0][0], hi_step, lane, dva, d0);
+      bf16_c_by_tile<DH, TC_STEPS, NA>(dpt, &qs[buf][0][0], hi_step, lane, dka, d0);
     }
     __syncthreads();  // this buffer is restaged two tiles on
   }
@@ -999,30 +1027,33 @@ attention_lanes_dkv_bf16(const __nv_bfloat16* __restrict__ q,
   for (int half = 0; half < 2; ++half) {
     const int key = half ? jb : ja;
     if (!active || key >= t_len) continue;
-    const long long off = (((long long)b * t_len + key) * heads + h) * DH + 2 * t;
+    const long long off = (((long long)b * t_len + key) * heads + h) * dh + 2 * t;
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      store_bf16_pair(dk + off + d * 8, dka[d][2 * half], dka[d][2 * half + 1]);
-      store_bf16_pair(dv + off + d * 8, dva[d][2 * half], dva[d][2 * half + 1]);
+    for (int d = 0; d < NA; ++d) {
+      const int c = (d0 + d) * 8;
+      if (c >= dh) continue;
+      store_bf16_pair(dk + off + c, dka[d][2 * half], dka[d][2 * half + 1]);
+      store_bf16_pair(dv + off + c, dva[d][2 * half], dva[d][2 * half + 1]);
     }
   }
 }
 
-template <int DH>
+template <int DH, bool PAD>
 int launch_fwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                     const __nv_bfloat16* v, long long q_sb, long long q_st,
                     long long q_sh, long long k_sb, long long k_st, long long k_sh,
                     long long v_sb, long long v_st, long long v_sh,
                     const uint8_t* mask, __nv_bfloat16* o, float* stats, int batch,
-                    int t_len, int heads, int causal, float scale, cudaStream_t stream) {
+                    int t_len, int heads, int dh, int causal, float scale,
+                    cudaStream_t stream) {
   const dim3 grid((t_len + TC_ROWS - 1) / TC_ROWS, heads, batch);
-  attention_lanes_fwd_bf16<DH><<<grid, 32 * TC_WARPS, 0, stream>>>(
+  attention_lanes_fwd_bf16<DH, PAD><<<grid, 32 * TC_WARPS, 0, stream>>>(
       q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask, o,
-      stats, t_len, heads, causal, scale);
+      stats, t_len, heads, causal, scale, dh);
   return (int)cudaGetLastError();
 }
 
-template <int DH>
+template <int DH, bool PAD>
 int launch_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                     const __nv_bfloat16* v, long long q_sb, long long q_st,
                     long long q_sh, long long k_sb, long long k_st, long long k_sh,
@@ -1030,17 +1061,19 @@ int launch_bwd_bf16(const __nv_bfloat16* q, const __nv_bfloat16* k,
                     const uint8_t* mask, const __nv_bfloat16* o,
                     const __nv_bfloat16* dout, const float* stats, float* delta,
                     __nv_bfloat16* dq, __nv_bfloat16* dk, __nv_bfloat16* dv, int batch,
-                    int t_len, int heads, int causal, float qscale, float scale,
+                    int t_len, int heads, int dh, int causal, float qscale, float scale,
                     cudaStream_t stream) {
-  const dim3 grid((t_len + TC_ROWS - 1) / TC_ROWS, heads, batch);
-  attention_lanes_dq_bf16<DH><<<grid, 32 * TC_WARPS, 0, stream>>>(
+  const int tiles = (t_len + TC_ROWS - 1) / TC_ROWS;
+  attention_lanes_dq_bf16<DH, PAD><<<dim3(tiles, heads, batch), 32 * TC_WARPS, 0, stream>>>(
       q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask, o, dout,
-      stats, delta, dq, t_len, heads, causal, qscale, scale);
+      stats, delta, dq, t_len, heads, causal, qscale, scale, dh);
   const int err = (int)cudaGetLastError();
   if (err != 0) return err;
-  attention_lanes_dkv_bf16<DH><<<grid, 32 * TC_WARPS, 0, stream>>>(
+  // a padded dh: bf16_dkv_halves(dh) blocks a key tile
+  attention_lanes_dkv_bf16<DH, PAD><<<dim3(tiles * bf16_dkv_halves(dh), heads, batch),
+                                      32 * TC_WARPS, 0, stream>>>(
       q, k, v, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, mask, dout, stats,
-      delta, dk, dv, t_len, heads, causal, qscale);
+      delta, dk, dv, t_len, heads, causal, qscale, dh);
   return (int)cudaGetLastError();
 }
 
@@ -1530,9 +1563,11 @@ extern "C" int kanvit_attention_lanes_bwd(
 // The bf16 forward (kanvit's bf16 lanes kernel). q, k, v: bf16, strided as
 // kanvit_attention_lanes_fwd's; o: (batch, t_len, heads*dh) bf16
 // contiguous; stats: (batch, heads, t_len, 2) f32, each row's (max, sum)
-// for the backward, or null; scale: dh^-1/2 rounded to bf16. dh 8, 16, 32
-// or 64, else cudaErrorInvalidValue; q, k and v 16-byte aligned with
-// strides that are multiples of 8, else cudaErrorMisalignedAddress.
+// for the backward, or null; scale: dh^-1/2 rounded to bf16. dh a multiple
+// of 8 from 8 through 128 (8, 16, 32 and 64 each on an instantiation of its
+// own, the rest padded to BF16_PAD_DH), else cudaErrorInvalidValue; q, k
+// and v 16-byte aligned with strides that are multiples of 8, else
+// cudaErrorMisalignedAddress.
 // Launches on `stream` and returns cudaGetLastError() (0 on success).
 extern "C" int kanvit_attention_lanes_fwd_bf16(
     const void* q, const void* k, const void* v, long long q_sb, long long q_st,
@@ -1540,7 +1575,7 @@ extern "C" int kanvit_attention_lanes_fwd_bf16(
     long long v_st, long long v_sh, const uint8_t* mask, void* o, float* stats, int batch,
     int t_len, int heads, int dh, int causal, float scale, void* stream) {
   if (batch <= 0 || t_len <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
-      !tc_head_dim(dh))
+      !generic_head_dim(dh))
     return (int)cudaErrorInvalidValue;
   const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v;
   const long long strides =
@@ -1551,15 +1586,16 @@ extern "C" int kanvit_attention_lanes_fwd_bf16(
            *vb = static_cast<const bf*>(v);
   bf* ob = static_cast<bf*>(o);
   const cudaStream_t st = (cudaStream_t)stream;
-#define KANVIT_FWD_BF16(D)                                                    \
-  launch_fwd_bf16<D>(qb, kb, vb, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb,    \
-                     v_st, v_sh, mask, ob, stats, batch, t_len, heads, causal, \
-                     scale, st)
+#define KANVIT_FWD_BF16(D, PAD)                                               \
+  launch_fwd_bf16<D, PAD>(qb, kb, vb, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, \
+                          v_st, v_sh, mask, ob, stats, batch, t_len, heads, dh, \
+                          causal, scale, st)
   switch (dh) {
-    case 8: return KANVIT_FWD_BF16(8);
-    case 16: return KANVIT_FWD_BF16(16);
-    case 32: return KANVIT_FWD_BF16(32);
-    default: return KANVIT_FWD_BF16(64);
+    case 8: return KANVIT_FWD_BF16(8, false);
+    case 16: return KANVIT_FWD_BF16(16, false);
+    case 32: return KANVIT_FWD_BF16(32, false);
+    case 64: return KANVIT_FWD_BF16(64, false);
+    default: return KANVIT_FWD_BF16(BF16_PAD_DH, true);
   }
 #undef KANVIT_FWD_BF16
 }
@@ -1579,7 +1615,7 @@ extern "C" int kanvit_attention_lanes_bwd_bf16(
     const float* stats, float* delta, void* dq, void* dk, void* dv, int batch, int t_len,
     int heads, int dh, int causal, float qscale, float scale, void* stream) {
   if (batch <= 0 || t_len <= 0 || heads <= 0 || batch > 65535 || heads > 65535 ||
-      !tc_head_dim(dh) || stats == nullptr || delta == nullptr)
+      !generic_head_dim(dh) || stats == nullptr || delta == nullptr)
     return (int)cudaErrorInvalidValue;
   const uintptr_t ptrs = (uintptr_t)q | (uintptr_t)k | (uintptr_t)v | (uintptr_t)o |
                          (uintptr_t)dout;
@@ -1592,15 +1628,16 @@ extern "C" int kanvit_attention_lanes_bwd_bf16(
            *db = static_cast<const bf*>(dout);
   bf *dqb = static_cast<bf*>(dq), *dkb = static_cast<bf*>(dk), *dvb = static_cast<bf*>(dv);
   const cudaStream_t st = (cudaStream_t)stream;
-#define KANVIT_BWD_BF16(D)                                                        \
-  launch_bwd_bf16<D>(qb, kb, vb, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,  \
-                     v_sh, mask, obf, db, stats, delta, dqb, dkb, dvb, batch, t_len, \
-                     heads, causal, qscale, scale, st)
+#define KANVIT_BWD_BF16(D, PAD)                                                      \
+  launch_bwd_bf16<D, PAD>(qb, kb, vb, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,  \
+                          v_sh, mask, obf, db, stats, delta, dqb, dkb, dvb, batch,     \
+                          t_len, heads, dh, causal, qscale, scale, st)
   switch (dh) {
-    case 8: return KANVIT_BWD_BF16(8);
-    case 16: return KANVIT_BWD_BF16(16);
-    case 32: return KANVIT_BWD_BF16(32);
-    default: return KANVIT_BWD_BF16(64);
+    case 8: return KANVIT_BWD_BF16(8, false);
+    case 16: return KANVIT_BWD_BF16(16, false);
+    case 32: return KANVIT_BWD_BF16(32, false);
+    case 64: return KANVIT_BWD_BF16(64, false);
+    default: return KANVIT_BWD_BF16(BF16_PAD_DH, true);
   }
 #undef KANVIT_BWD_BF16
 }

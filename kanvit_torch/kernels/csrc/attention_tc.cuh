@@ -17,7 +17,8 @@
 // from f64 than 1e-6. The dropped small*small term is ~2^-22 of a product.
 //
 // bf16 (the bf16 attention kernels, attention_lanes.cu and
-// flash_attention.cu; the KAN kernels, kan_basis_tc.cuh parts 3-4):
+// flash_attention.cu, at every head dim through 128: the generic ones padded
+// to BF16_PAD_DH; the KAN kernels, kan_basis_tc.cuh parts 3-4):
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one product a 16-deep
 // step into the f32 running sum (the products of two bf16 are exact in f32);
 // the attention's B operands are loaded from shared memory by ldmatrix, the
@@ -41,8 +42,25 @@ namespace {
 constexpr int TC_WARPS = 4;  // warps a block
 constexpr int TC_PAD = 4;    // a staged f32 tile's row pitch is dh + 4 floats
 
-inline bool tc_head_dim(int dh) {
+__host__ __device__ inline bool tc_head_dim(int dh) {
   return dh == 8 || dh == 16 || dh == 32 || dh == 64;
+}
+
+// The bf16 attention kernels take every head dim that is a multiple of 8
+// from 8 through 128 (attention_common.cuh's generic_head_dim): dh 8, 16,
+// 32 and 64 each on an instantiation of its own, every other dh on one
+// instantiation padded to BF16_PAD_DH with the true dh passed at run time.
+// Padded, staged rows and A fragments hold dh values and zeros past them,
+// the products walk all of DH as at DH itself (no branch on dh in the
+// loops: a step past dh adds exact zeros), and the stores stop at dh.
+// Padded, a dk/dv block holds the gradients of BF16_DKV_SPLIT columns of
+// dh, so that its accumulators fit the registers beside the warp's k and v
+// rows: bf16_dkv_halves(dh) blocks a key tile, each recomputing the scores.
+constexpr int BF16_PAD_DH = 128;
+constexpr int BF16_DKV_SPLIT = 64;
+
+__host__ __device__ inline int bf16_dkv_halves(int dh) {
+  return tc_head_dim(dh) ? 1 : (dh + BF16_DKV_SPLIT - 1) / BF16_DKV_SPLIT;
 }
 
 // Every row of q, k and v (elements of T, strides in elements) starts
@@ -299,12 +317,14 @@ __device__ __forceinline__ uint32_t ldsm_x1(const void* row) {
 
 // Stage rows row0 .. row0+ROWS-1 of bf16 (row r at src + r*stride, dh
 // values) into a (ROWS, DH + 8) tile with 16-byte cp.async; rows past t_len
-// are zero-filled.
-template <int DH, int ROWS>
+// are zero-filled. PAD (a padded DH, dh given at run time): the columns
+// past dh are zero-filled too (a cp.async that reads no source), so that
+// the products over all of DH add exact zeros there.
+template <int DH, int ROWS, bool PAD = false>
 __device__ __forceinline__ void stage_tile_bf16(__nv_bfloat16* dst,
                                                 const __nv_bfloat16* src,
                                                 long long stride, int row0,
-                                                int t_len, int tid) {
+                                                int t_len, int tid, int dh = DH) {
   constexpr int CH = DH / 8;  // 16-byte chunks a row
   constexpr int NT = 32 * TC_WARPS;
 #pragma unroll
@@ -312,26 +332,26 @@ __device__ __forceinline__ void stage_tile_bf16(__nv_bfloat16* dst,
     const int e = tid + i * NT;
     if (ROWS * CH % NT != 0 && e >= ROWS * CH) break;
     const int r = e / CH, c = (e % CH) * 8, row = row0 + r;
-    const bool in = row < t_len;
+    const bool in = row < t_len && (!PAD || c < dh);
     cp_async16(reinterpret_cast<float*>(dst + r * (DH + 8) + c),
                reinterpret_cast<const float*>(in ? src + row * stride + c : src), in);
   }
 }
 
 // The bf16 attention kernels' fragments (attention_lanes.cu,
-// flash_attention.cu). KD 16-deep steps span dh (at dh 8 one step, its
-// upper half zero); a staged tile has rows of dh + 8 bf16 and STEPS 8-row
-// steps.
+// flash_attention.cu). KD 16-deep steps span DH (at dh 8 one step, its
+// upper half zero); a staged tile has rows of DH + 8 bf16 and STEPS 8-row
+// steps. A padded DH walks all of DH: its rows are zero past dh.
 
 // The A fragments of 16 rows of a head (rows g and g + 8 at pa and pb, dh
-// bf16 values each), every value times f rounded to bf16 (fa, fb: 1 takes
-// the rows as they are, 0 a row past t_len).
+// bf16 values each, zeros past them), every value times f rounded to bf16
+// (fa, fb: 1 takes the rows as they are, 0 a row past t_len).
 template <int DH>
 __device__ __forceinline__ void bf16_a_rows(const __nv_bfloat16* pa, const __nv_bfloat16* pb,
                                             float fa, float fb, int t,
-                                            uint32_t (&a)[(DH + 15) / 16][4]) {
+                                            uint32_t (&a)[(DH + 15) / 16][4], int dh = DH) {
   auto scaled = [&](const __nv_bfloat16* row, int c, float f) -> uint32_t {
-    if (c >= DH) return 0u;
+    if (c >= dh) return 0u;
     const float2 x = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(row + c));
     return pack_bf16(x.x * f, x.y * f);
   };
@@ -375,11 +395,12 @@ __device__ __forceinline__ void bf16_rows_by_tile(const uint32_t (&a)[(DH + 15) 
 // acc[d] += C T for the 16-row steps m with 2m < steps: C the f32 tiles
 // c[2m], c[2m + 1] (8 columns each, a C fragment's layout) rounded to bf16
 // as the A fragment over those 16 columns, T the staged tile's rows
-// 16m .. 16m + 15 (read by ldmatrix.trans: a row of T is a row of B).
-template <int DH, int STEPS>
+// 16m .. 16m + 15 (read by ldmatrix.trans: a row of T is a row of B). acc
+// holds the NA n8 tiles of columns 8 d0 .. 8 (d0 + NA) - 1.
+template <int DH, int STEPS, int NA = DH / 8>
 __device__ __forceinline__ void bf16_c_by_tile(const float (&c)[STEPS][4],
                                                const __nv_bfloat16* tile, int steps, int lane,
-                                               float (&acc)[DH / 8][4]) {
+                                               float (&acc)[NA][4], int d0 = 0) {
 #pragma unroll
   for (int m = 0; m < STEPS / 2; ++m) {
     if (2 * m >= steps) continue;
@@ -389,9 +410,9 @@ __device__ __forceinline__ void bf16_c_by_tile(const float (&c)[STEPS][4],
                             pack_bf16(c[2 * m + 1][2], c[2 * m + 1][3])};
     const __nv_bfloat16* row = tile + (m * 16 + (lane & 15)) * (DH + 8);
 #pragma unroll
-    for (int d = 0; d < DH / 8; ++d) {
+    for (int d = 0; d < NA; ++d) {
       uint32_t b[2];
-      ldsm_x2_trans(b, row + d * 8);
+      ldsm_x2_trans(b, row + (d0 + d) * 8);
       mma_bf16(acc[d], pa, b);
     }
   }

@@ -8,7 +8,9 @@
 //             _bwd_dkv_kernel :226-272).
 // On bf16 operands (kanvit's bf16 policy, the causal decoder's --bf16) the
 // same three run as flash_fwd_bf16, flash_dq_bf16 and flash_dkv_bf16, below
-// the f32 tensor-core kernels, at dh 8, 16, 32 and 64.
+// the f32 tensor-core kernels, at every head dim the f32 kernels take: dh
+// 8, 16, 32 and 64 on instantiations of their own, every other multiple of
+// 8 through 128 on one padded to 128 (the decoder's --heads 2: dh 128).
 //
 // Per batch item b and head h, with qpos = row - max(tk - tq, 0):
 //   s = q k^T * dh^-1/2, set to NEG_INF (the finite float32 min) on masked
@@ -799,7 +801,7 @@ flash_dkv_tc(View q, View k, View v, const uint8_t* __restrict__ mask,
   }
 }
 
-// --- bf16 tensor-core kernels: dh 8, 16, 32, 64 ----------------------------
+// --- bf16 tensor-core kernels: every multiple of 8 through 128 ---------------
 // kanvit's bf16 policy for the tiled kernels (_fwd_kernel :66-123,
 // _bwd_dq_kernel :176-223, _bwd_dkv_kernel :226-272) on bf16 q, k, v, o and
 // do, with the f32 kernels' edge semantics above:
@@ -837,6 +839,28 @@ flash_dkv_tc(View q, View k, View v, const uint8_t* __restrict__ mask,
 // sum(p |v|) / l besides one output ulp (chip_smoke.py's gate; the CPU
 // tests emulate these tiles). The backward renormalises by the final (m, l), so
 // no tiling enters it.
+//
+// Head dims. dh 8, 16, 32 and 64 are instantiated as they are; every other
+// multiple of 8 through 128 runs the instantiation padded to DH 128
+// (BF16_PAD_DH, attention_tc.cuh) with the true dh at run time, one more
+// kernel each, not one per dh (an instantiation per dh ran the f32 build
+// past its limit). Padded, staged rows and the A fragments hold dh values
+// and zeros past them (cp.async reading no source), and the products walk
+// all of DH: a step past dh, or the upper half of the last step of dh 24,
+// 40, ..., 120, adds exact zeros, so the bits at a padded dh are those of
+// the same arithmetic at that dh; the stores stop at dh. (Skipping the
+// steps past dh at run time put a branch beside each mma, and the dh-128
+// kernels ran at 1.9-2.8x dh 64's time: PERF.md.) At DH 128 the dk/dv
+// kernel's k and v rows (64 registers a thread) and its dk and dv
+// accumulators (128) would not fit beside the scores, so a padded block
+// holds the dk and dv of 64 of dh's columns (BF16_DKV_SPLIT): ceil(dh / 64)
+// blocks a key tile, each recomputing S^T and dP^T, 1.5x the products of
+// one block; no kernel spills (ptxas: 176, 233 and 232 registers). Shared
+// memory at DH 128: two double-buffered 32-row tiles of 136 bf16, 34.8 KB
+// static. What bounds them at the decoder's dh 128 (B 16, H 2, T 2048): the
+// products, as at dh 64, H*dh being equal (2 B H T^2 dh causal FLOPs a
+// product); the exps are half dh 64's (half the scores). They run at
+// 8-15% of that bound (PERF.md), latency-bound as the dh-64 kernels.
 
 constexpr int BF_TILE = 32;            // rows a streamed bf16 tile
 constexpr int BF_STEPS = BF_TILE / 8;  // its 8-row steps
@@ -844,12 +868,13 @@ constexpr int BF_STEPS = BF_TILE / 8;  // its 8-row steps
 // Forward. One block per (head, batch, 64 query rows), the query tiles
 // longest first; warp w owns rows q0 + 16w .. +15, its q rows as A
 // fragments in registers.
-template <int DH>
+template <int DH, bool PAD = false>
 __global__ void __launch_bounds__(NT)
 flash_fwd_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
                __nv_bfloat16* __restrict__ o, float* __restrict__ stats, int tq, int tk,
-               int heads, int causal, float scale) {
+               int heads, int causal, float scale, int dh_run) {
   constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
+  const int dh = PAD ? dh_run : DH;
   __shared__ __align__(16) __nv_bfloat16 ks[2][BF_TILE][P];
   __shared__ __align__(16) __nv_bfloat16 vs[2][BF_TILE][P];
   __shared__ unsigned kbits[2];  // key_bits of each buffer's tile
@@ -869,7 +894,7 @@ flash_fwd_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
 
   uint32_t qa[KD][4];
   bf16_a_rows<DH>(q.at(b, min(ra, tq - 1), h), q.at(b, min(rb, tq - 1), h),
-                  la ? 1.f : 0.f, lb ? 1.f : 0.f, t, qa);
+                  la ? 1.f : 0.f, lb ? 1.f : 0.f, t, qa, dh);
   float acc[ND][4];
 #pragma unroll
   for (int d = 0; d < ND; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
@@ -881,8 +906,8 @@ flash_fwd_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
   const __nv_bfloat16* kh = k.at(b, 0, h);
   const __nv_bfloat16* vh = v.at(b, 0, h);
   auto stage = [&](int tile, int buf) {
-    stage_tile_bf16<DH, BF_TILE>(&ks[buf][0][0], kh, k.st, tile * BF_TILE, tk, tid);
-    stage_tile_bf16<DH, BF_TILE>(&vs[buf][0][0], vh, v.st, tile * BF_TILE, tk, tid);
+    stage_tile_bf16<DH, BF_TILE, PAD>(&ks[buf][0][0], kh, k.st, tile * BF_TILE, tk, tid, dh);
+    stage_tile_bf16<DH, BF_TILE, PAD>(&vs[buf][0][0], vh, v.st, tile * BF_TILE, tk, tid, dh);
     cp_async_commit();
     if (warp == 0) {
       const unsigned bits = key_bits(mask, b, tk, tile * BF_TILE, lane);
@@ -961,10 +986,11 @@ flash_fwd_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
     const int row = half ? rb : ra;
     if (row >= tq) continue;
     const float lc = fmaxf(half ? sb : sa, EPSILON);
-    __nv_bfloat16* op = o + (((long long)b * tq + row) * heads + h) * DH + 2 * t;
+    __nv_bfloat16* op = o + (((long long)b * tq + row) * heads + h) * dh + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      store_bf16_pair(op + d * 8, acc[d][2 * half] / lc, acc[d][2 * half + 1] / lc);
+      if (d * 8 < dh)
+        store_bf16_pair(op + d * 8, acc[d][2 * half] / lc, acc[d][2 * half + 1] / lc);
     if (stats != nullptr && t == 0) {
       float* sp = stats + (((long long)b * heads + h) * tq + row) * 2;
       sp[0] = half ? mb : ma;
@@ -977,14 +1003,15 @@ flash_fwd_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
 // longest first; warp w owns rows q0 + 16w .. +15, its q and do rows as A
 // fragments in registers. Streams K and V tiles up to the block's causal
 // frontier (ds is 0 past it).
-template <int DH>
+template <int DH, bool PAD = false>
 __global__ void __launch_bounds__(NT)
 flash_dq_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
               const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
               const float* __restrict__ stats, float* __restrict__ delta_out,
               __nv_bfloat16* __restrict__ dq, int tq, int tk, int heads, int causal,
-              float scale) {
+              float scale, int dh_run) {
   constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
+  const int dh = PAD ? dh_run : DH;
   __shared__ __align__(16) __nv_bfloat16 ks[2][BF_TILE][P];
   __shared__ __align__(16) __nv_bfloat16 vs[2][BF_TILE][P];
   __shared__ unsigned kbits[2];
@@ -999,18 +1026,19 @@ flash_dq_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
   const bool la = ra < tq, lb = rb < tq;
   const int diff = max(tk - tq, 0);
   const int wkeys = causal ? min(tk, min(r0 + 15, tq - 1) - diff + 1) : tk;
-  const long long hs = (long long)heads * DH;  // row stride of o, do and dq
-  const long long oa = ((long long)b * tq + min(ra, tq - 1)) * hs + h * DH;
-  const long long ob = ((long long)b * tq + min(rb, tq - 1)) * hs + h * DH;
+  const long long hs = (long long)heads * dh;  // row stride of o, do and dq
+  const long long oa = ((long long)b * tq + min(ra, tq - 1)) * hs + h * dh;
+  const long long ob = ((long long)b * tq + min(rb, tq - 1)) * hs + h * dh;
   const long long srow = ((long long)b * heads + h) * tq;  // of stats, delta
 
   uint32_t qa[KD][4], da[KD][4];
   bf16_a_rows<DH>(q.at(b, min(ra, tq - 1), h), q.at(b, min(rb, tq - 1), h),
-                  la ? 1.f : 0.f, lb ? 1.f : 0.f, t, qa);
-  bf16_a_rows<DH>(dout + oa, dout + ob, la ? 1.f : 0.f, lb ? 1.f : 0.f, t, da);
+                  la ? 1.f : 0.f, lb ? 1.f : 0.f, t, qa, dh);
+  bf16_a_rows<DH>(dout + oa, dout + ob, la ? 1.f : 0.f, lb ? 1.f : 0.f, t, da, dh);
   float dla = 0.f, dlb = 0.f;  // delta = rowsum(f32(do) f32(o))
 #pragma unroll
   for (int d = 0; d < ND; ++d) {
+    if (d * 8 >= dh) continue;
     const int c = d * 8 + 2 * t;
     const float2 da2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + oa + c));
     const float2 oa2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + oa + c));
@@ -1034,8 +1062,8 @@ flash_dq_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
   const __nv_bfloat16* kh = k.at(b, 0, h);
   const __nv_bfloat16* vh = v.at(b, 0, h);
   auto stage = [&](int tile, int buf) {
-    stage_tile_bf16<DH, BF_TILE>(&ks[buf][0][0], kh, k.st, tile * BF_TILE, tk, tid);
-    stage_tile_bf16<DH, BF_TILE>(&vs[buf][0][0], vh, v.st, tile * BF_TILE, tk, tid);
+    stage_tile_bf16<DH, BF_TILE, PAD>(&ks[buf][0][0], kh, k.st, tile * BF_TILE, tk, tid, dh);
+    stage_tile_bf16<DH, BF_TILE, PAD>(&vs[buf][0][0], vh, v.st, tile * BF_TILE, tk, tid, dh);
     cp_async_commit();
     if (warp == 0) {
       const unsigned bits = key_bits(mask, b, tk, tile * BF_TILE, lane);
@@ -1083,10 +1111,10 @@ flash_dq_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
   for (int half = 0; half < 2; ++half) {
     const int row = half ? rb : ra;
     if (row >= tq) continue;
-    __nv_bfloat16* dqp = dq + ((long long)b * tq + row) * hs + h * DH + 2 * t;
+    __nv_bfloat16* dqp = dq + ((long long)b * tq + row) * hs + h * dh + 2 * t;
 #pragma unroll
     for (int d = 0; d < ND; ++d)
-      store_bf16_pair(dqp + d * 8, acc[d][2 * half], acc[d][2 * half + 1]);
+      if (d * 8 < dh) store_bf16_pair(dqp + d * 8, acc[d][2 * half], acc[d][2 * half + 1]);
     if (t == 0) delta_out[srow + row] = half ? dlb : dla;
   }
 }
@@ -1094,15 +1122,20 @@ flash_dq_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
 // dk and dv. One block per (head, batch, 64 keys), key tile 0 (the one the
 // most queries see) first; warp w owns keys k0 + 16w .. +15, its k and v
 // rows as A fragments in registers. Streams q and do tiles with their
-// queries' (m, 1 / l) and delta.
-template <int DH>
+// queries' (m, 1 / l) and delta. Padded, a block holds the dk and dv
+// columns of one half of dh (BF16_DKV_SPLIT wide, the halves of a key tile
+// neighbours in z).
+template <int DH, bool PAD = false>
 __global__ void __launch_bounds__(NT)
 flash_dkv_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
                const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
                __nv_bfloat16* __restrict__ dv, int tq, int tk, int heads, int causal,
-               float scale) {
-  constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
+               float scale, int dh_run) {
+  constexpr int P = DH + 8, KD = (DH + 15) / 16;
+  constexpr int NA = PAD ? BF16_DKV_SPLIT / 8 : DH / 8;  // n8 tiles of dk, dv a block
+  const int dh = PAD ? dh_run : DH;
+  const int halves = PAD ? bf16_dkv_halves(dh) : 1;
   __shared__ __align__(16) __nv_bfloat16 qs[2][BF_TILE][P];
   __shared__ __align__(16) __nv_bfloat16 dos[2][BF_TILE][P];
   __shared__ float mrow[2][BF_TILE], rlrow[2][BF_TILE], drow[2][BF_TILE];
@@ -1110,23 +1143,24 @@ flash_dkv_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const int g = lane >> 2, t = lane & 3;
   const int h = blockIdx.x, b = blockIdx.y;
-  const int k0 = blockIdx.z * TC_ROWS;
+  const int k0 = (PAD ? blockIdx.z / halves : blockIdx.z) * TC_ROWS;
+  const int d0 = PAD ? blockIdx.z % halves * NA : 0;  // the block's first n8 tile
   const int j0 = k0 + warp * 16;  // the warp's first key
   const bool active = j0 < tk;
   const int ja = j0 + g, jb = ja + 8;
   const bool va = key_ok(mask, b, tk, ja), vb = key_ok(mask, b, tk, jb);
   const int diff = max(tk - tq, 0);
-  const long long hs = (long long)heads * DH;  // row stride of do, dk and dv
+  const long long hs = (long long)heads * dh;  // row stride of do, dk and dv
   const long long srow = ((long long)b * heads + h) * tq;  // of stats, delta
 
   uint32_t ka[KD][4], vfa[KD][4];
   bf16_a_rows<DH>(k.at(b, min(ja, tk - 1), h), k.at(b, min(jb, tk - 1), h),
-                  ja < tk ? 1.f : 0.f, jb < tk ? 1.f : 0.f, t, ka);
+                  ja < tk ? 1.f : 0.f, jb < tk ? 1.f : 0.f, t, ka, dh);
   bf16_a_rows<DH>(v.at(b, min(ja, tk - 1), h), v.at(b, min(jb, tk - 1), h),
-                  ja < tk ? 1.f : 0.f, jb < tk ? 1.f : 0.f, t, vfa);
-  float dka[ND][4], dva[ND][4];
+                  ja < tk ? 1.f : 0.f, jb < tk ? 1.f : 0.f, t, vfa, dh);
+  float dka[NA][4], dva[NA][4];
 #pragma unroll
-  for (int d = 0; d < ND; ++d)
+  for (int d = 0; d < NA; ++d)
 #pragma unroll
     for (int c = 0; c < 4; ++c) dka[d][c] = dva[d][c] = 0.f;
 
@@ -1147,11 +1181,11 @@ flash_dkv_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
   }
   const int tiles = (tq - i_start + BF_TILE - 1) / BF_TILE;
   const __nv_bfloat16* qh = q.at(b, 0, h);
-  const __nv_bfloat16* doh = dout + (long long)b * tq * hs + h * DH;
+  const __nv_bfloat16* doh = dout + (long long)b * tq * hs + h * dh;
   auto stage = [&](int tile, int buf) {
     const int i0 = i_start + tile * BF_TILE;
-    stage_tile_bf16<DH, BF_TILE>(&qs[buf][0][0], qh, q.st, i0, tq, tid);
-    stage_tile_bf16<DH, BF_TILE>(&dos[buf][0][0], doh, hs, i0, tq, tid);
+    stage_tile_bf16<DH, BF_TILE, PAD>(&qs[buf][0][0], qh, q.st, i0, tq, tid, dh);
+    stage_tile_bf16<DH, BF_TILE, PAD>(&dos[buf][0][0], doh, hs, i0, tq, tid, dh);
     cp_async_commit();
     if (tid < BF_TILE) {
       const int qi = i0 + tid;
@@ -1192,8 +1226,10 @@ flash_dkv_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
           dpt[n][c] = vis ? (p * scale) * (dpt[n][c] - drow[buf][r]) : 0.f;
           st[n][c] = p;
         }
-      bf16_c_by_tile<DH>(st, &dos[buf][0][0], steps, lane, dva);  // + bf16(p)^T do
-      bf16_c_by_tile<DH>(dpt, &qs[buf][0][0], steps, lane, dka);  // + bf16(ds)^T q
+      bf16_c_by_tile<DH, BF_STEPS, NA>(st, &dos[buf][0][0], steps, lane, dva,
+                                       d0);  // + bf16(p)^T do
+      bf16_c_by_tile<DH, BF_STEPS, NA>(dpt, &qs[buf][0][0], steps, lane, dka,
+                                       d0);  // + bf16(ds)^T q
     }
     __syncthreads();  // this buffer is restaged two tiles on
   }
@@ -1202,11 +1238,13 @@ flash_dkv_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
   for (int half = 0; half < 2; ++half) {
     const int key = half ? jb : ja;
     if (key >= tk) continue;
-    const long long off = ((long long)b * tk + key) * hs + h * DH + 2 * t;
+    const long long off = ((long long)b * tk + key) * hs + h * dh + 2 * t;
 #pragma unroll
-    for (int d = 0; d < ND; ++d) {
-      store_bf16_pair(dk + off + d * 8, dka[d][2 * half], dka[d][2 * half + 1]);
-      store_bf16_pair(dv + off + d * 8, dva[d][2 * half], dva[d][2 * half + 1]);
+    for (int d = 0; d < NA; ++d) {
+      const int c = (d0 + d) * 8;
+      if (c >= dh) continue;
+      store_bf16_pair(dk + off + c, dka[d][2 * half], dka[d][2 * half + 1]);
+      store_bf16_pair(dv + off + c, dva[d][2 * half], dva[d][2 * half + 1]);
     }
   }
 }
@@ -1650,11 +1688,22 @@ extern "C" int kanvit_flash_attention_dkv(
   return (int)cudaGetLastError();
 }
 
-// --- bf16 entries: dh 8, 16, 32, 64 -------------------------------------------
+// --- bf16 entries: every multiple of 8 from 8 through 128 --------------------
 // As the f32 entries above, on bf16 q, k, v (and o, dout, dq, dk, dv), with
 // (m, l) stats and delta in f32. Every row of q, k and v must start 16-byte
 // aligned (strides multiples of 8 elements), and dout too, else
 // cudaErrorMisalignedAddress; another head dim is cudaErrorInvalidValue.
+// dh 8, 16, 32 and 64 take their own instantiations, every other dh the
+// one padded to BF16_PAD_DH (attention_tc.cuh).
+#define KANVIT_BF16_SWITCH(LAUNCH)          \
+  switch (dh) {                             \
+    case 8: LAUNCH(8, false); break;        \
+    case 16: LAUNCH(16, false); break;      \
+    case 32: LAUNCH(32, false); break;      \
+    case 64: LAUNCH(64, false); break;      \
+    default: LAUNCH(BF16_PAD_DH, true); break; \
+  }
+
 // The bf16 forward: o (batch, tq, heads*dh) bf16 contiguous; stats as the
 // f32 forward's, or null. Launches on `stream` and returns
 // cudaGetLastError() (0 on success).
@@ -1664,7 +1713,7 @@ extern "C" int kanvit_flash_attention_fwd_bf16(
     long long v_st, long long v_sh, const uint8_t* mask, void* o, float* stats,
     int batch, int tq, int tk, int heads, int dh, int causal, float scale,
     void* stream) {
-  if (bad_dims(batch, tq, tk, heads) || !tc_head_dim(dh)) return (int)cudaErrorInvalidValue;
+  if (bad_dims(batch, tq, tk, heads) || !generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
   const View16 qv{static_cast<const bf*>(q), q_sb, q_st, q_sh},
       kv{static_cast<const bf*>(k), k_sb, k_st, k_sh},
@@ -1672,11 +1721,11 @@ extern "C" int kanvit_flash_attention_fwd_bf16(
   if (!rows_aligned(qv.p, kv.p, vv.p, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh))
     return (int)cudaErrorMisalignedAddress;
   const dim3 grid(heads, batch, (tq + TC_ROWS - 1) / TC_ROWS);
-#define KANVIT_FWD_BF16(D)                                                   \
-  flash_fwd_bf16<D><<<grid, NT, 0, (cudaStream_t)stream>>>(                 \
+#define KANVIT_FWD_BF16(D, PAD)                                              \
+  flash_fwd_bf16<D, PAD><<<grid, NT, 0, (cudaStream_t)stream>>>(            \
       qv, kv, vv, mask, static_cast<bf*>(o), stats, tq, tk, heads, causal, \
-      scale)
-  KANVIT_TC_SWITCH(KANVIT_FWD_BF16)
+      scale, dh)
+  KANVIT_BF16_SWITCH(KANVIT_FWD_BF16)
 #undef KANVIT_FWD_BF16
   return (int)cudaGetLastError();
 }
@@ -1690,7 +1739,7 @@ extern "C" int kanvit_flash_attention_dq_bf16(
     long long v_st, long long v_sh, const uint8_t* mask, const void* o,
     const void* dout, const float* stats, float* delta, void* dq, int batch, int tq,
     int tk, int heads, int dh, int causal, float scale, void* stream) {
-  if (bad_dims(batch, tq, tk, heads) || !tc_head_dim(dh)) return (int)cudaErrorInvalidValue;
+  if (bad_dims(batch, tq, tk, heads) || !generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
   const View16 qv{static_cast<const bf*>(q), q_sb, q_st, q_sh},
       kv{static_cast<const bf*>(k), k_sb, k_st, k_sh},
@@ -1698,25 +1747,26 @@ extern "C" int kanvit_flash_attention_dq_bf16(
   if (!rows_aligned(qv.p, kv.p, vv.p, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh))
     return (int)cudaErrorMisalignedAddress;
   const dim3 grid(heads, batch, (tq + TC_ROWS - 1) / TC_ROWS);
-#define KANVIT_DQ_BF16(D)                                                      \
-  flash_dq_bf16<D><<<grid, NT, 0, (cudaStream_t)stream>>>(                    \
+#define KANVIT_DQ_BF16(D, PAD)                                                 \
+  flash_dq_bf16<D, PAD><<<grid, NT, 0, (cudaStream_t)stream>>>(               \
       qv, kv, vv, mask, static_cast<const bf*>(o), static_cast<const bf*>(dout), \
-      stats, delta, static_cast<bf*>(dq), tq, tk, heads, causal, scale)
-  KANVIT_TC_SWITCH(KANVIT_DQ_BF16)
+      stats, delta, static_cast<bf*>(dq), tq, tk, heads, causal, scale, dh)
+  KANVIT_BF16_SWITCH(KANVIT_DQ_BF16)
 #undef KANVIT_DQ_BF16
   return (int)cudaGetLastError();
 }
 
 // dk and dv of the bf16 forward. dout, stats as for the dq entry (dout
 // 16-byte aligned); delta: what the dq entry wrote; dk, dv: (batch, tk,
-// heads*dh) bf16 contiguous.
+// heads*dh) bf16 contiguous. A padded dh launches bf16_dkv_halves(dh)
+// blocks a key tile.
 extern "C" int kanvit_flash_attention_dkv_bf16(
     const void* q, const void* k, const void* v, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
     long long v_st, long long v_sh, const uint8_t* mask, const void* dout,
     const float* stats, const float* delta, void* dk, void* dv, int batch, int tq,
     int tk, int heads, int dh, int causal, float scale, void* stream) {
-  if (bad_dims(batch, tq, tk, heads) || !tc_head_dim(dh)) return (int)cudaErrorInvalidValue;
+  if (bad_dims(batch, tq, tk, heads) || !generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
   const View16 qv{static_cast<const bf*>(q), q_sb, q_st, q_sh},
       kv{static_cast<const bf*>(k), k_sb, k_st, k_sh},
@@ -1724,12 +1774,14 @@ extern "C" int kanvit_flash_attention_dkv_bf16(
   if (!rows_aligned(qv.p, kv.p, vv.p, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh) ||
       (uintptr_t)dout % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  const dim3 grid(heads, batch, (tk + TC_ROWS - 1) / TC_ROWS);
-#define KANVIT_DKV_BF16(D)                                                        \
-  flash_dkv_bf16<D><<<grid, NT, 0, (cudaStream_t)stream>>>(                      \
+  const int blocks = (tk + TC_ROWS - 1) / TC_ROWS * bf16_dkv_halves(dh);
+  if (blocks > 65535) return (int)cudaErrorInvalidValue;
+  const dim3 grid(heads, batch, blocks);
+#define KANVIT_DKV_BF16(D, PAD)                                                   \
+  flash_dkv_bf16<D, PAD><<<grid, NT, 0, (cudaStream_t)stream>>>(                 \
       qv, kv, vv, mask, static_cast<const bf*>(dout), stats, delta,               \
-      static_cast<bf*>(dk), static_cast<bf*>(dv), tq, tk, heads, causal, scale)
-  KANVIT_TC_SWITCH(KANVIT_DKV_BF16)
+      static_cast<bf*>(dk), static_cast<bf*>(dv), tq, tk, heads, causal, scale, dh)
+  KANVIT_BF16_SWITCH(KANVIT_DKV_BF16)
 #undef KANVIT_DKV_BF16
   return (int)cudaGetLastError();
 }

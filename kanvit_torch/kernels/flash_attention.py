@@ -14,17 +14,21 @@ backward launch the kernels or raise. f32; dh a multiple of 8 from 8
 through 128 (:func:`check_head_dim`).
 
 bf16 q, k and v (kanvit's bf16 policy) take bf16 kernels, forward and
-backward, at head dims 8, 16, 32 and 64: the lanes tier's
+backward, at every head dim the f32 kernels take: the lanes tier's
 (``csrc/attention_lanes.cu``) and the tiled tier's
-(``csrc/flash_attention.cu``), which return bf16 o and gradients. On the
-CPU their plain twins run through :class:`_LanesBf16Plain`
-(``lanes_attention`` and ``lanes_attention_bwd_bf16``) and
-:class:`_FlashBf16Plain` (``flash_attention_bf16`` and
-``flash_attention_bwd_bf16``), whose backwards are explicit: autograd
-through a forward twin would round at every op, which is not kanvit's
-policy. The tiled tier at another head dim raises on bf16
-(``NotImplementedError``, ``BF16_TODO``: ROADMAP.md, Queue 2 entry 3b.5),
-on the CPU too.
+(``csrc/flash_attention.cu``), which return bf16 o and gradients. dh 8, 16,
+32 and 64 run instantiations of their own; every other dh runs one
+instantiation padded to 128 with the true dh given at run time (staged rows
+and fragments zero past dh, the products over all 128 columns, stores
+stopping at dh; padded, a dk/dv block holds 64 of dh's columns, so a key
+tile takes ``ceil(dh / 64)`` blocks). On the CPU their
+plain twins run through :class:`_LanesBf16Plain` (``lanes_attention`` and
+``lanes_attention_bwd_bf16``) and :class:`_FlashBf16Plain`
+(``flash_attention_bf16`` and ``flash_attention_bwd_bf16``), whose
+backwards are explicit: autograd through a forward twin would round at
+every op, which is not kanvit's policy. A head dim that is not a multiple
+of 8, or is past 128, raises in f32 and bf16 alike (``HEAD_DIM_TODO``);
+kanvit takes it.
 
 ``LAUNCHES`` counts kernel launches (``flash_attention_lanes`` forward and
 ``flash_attention_lanes_bwd`` backward, ``flash_attention_lanes_bf16`` and
@@ -44,23 +48,24 @@ from kanvit_torch.ops import dispatch
 
 # kanvit's lanes tier takes any head dim with dh % 8 == 0
 # (flash_attention.py:537-543). The kernels take each such dh up to
-# MAX_HEAD_DIM: the lanes and the tiled kernels run 8, 16, 32 and 64 on the
-# tensor cores (3xTF32 mma.sync, TC_HEAD_DIMS), and generic kernels that
-# walk dh in chunks of 8 take the rest (csrc/attention_common.cuh).
+# MAX_HEAD_DIM: in f32 the lanes and the tiled kernels run 8, 16, 32 and 64
+# on the tensor cores (3xTF32 mma.sync, TC_HEAD_DIMS), and generic kernels
+# that walk dh in chunks of 8 take the rest (csrc/attention_common.cuh); in
+# bf16 every such dh runs on the tensor cores, those outside TC_HEAD_DIMS on
+# one instantiation padded to MAX_HEAD_DIM.
 HEAD_DIM_STEP = 8
 MAX_HEAD_DIM = 128
 TC_HEAD_DIMS = (8, 16, 32, 64)
 # The tensor-core kernels stage rows with 16-byte copies.
 ROW_ALIGN_BYTES = 16
+# Where the head dims that kanvit takes and the kernels refuse stand.
+HEAD_DIM_TODO = "ROADMAP.md, Queue 2 entry 3c"
 
 LAUNCHES = {"flash_attention_lanes": 0, "flash_attention_lanes_bf16": 0,
             "flash_attention_lanes_bwd": 0, "flash_attention_lanes_bwd_bf16": 0,
             "flash_attention": 0, "flash_attention_dq": 0,
             "flash_attention_dkv": 0, "flash_attention_bf16": 0,
             "flash_attention_dq_bf16": 0, "flash_attention_dkv_bf16": 0}
-# Where the bf16 attention at the generic head dims stands.
-BF16_TODO = "ROADMAP.md, Queue 2 entry 3b.5"
-
 # kanvit's tier predicates (flash_attention.py:293-309, :537-543 and the
 # bucket guard :682-688), by the operands' itemsize as kanvit's take it:
 # at vit-l's width (T 197, d 1,024, 16 heads) f32 is past the 10 MiB
@@ -108,19 +113,20 @@ def reset_launches() -> None:
 
 
 def check_head_dim(dh: int) -> None:
-    """Raise unless the kernels are built for head dim ``dh``."""
+    """Raise unless the kernels are built for head dim ``dh`` (f32 and bf16
+    alike)."""
     if dh % HEAD_DIM_STEP or not HEAD_DIM_STEP <= dh <= MAX_HEAD_DIM:
         raise ValueError(f"head dim {dh}: the kernels take a multiple of "
                          f"{HEAD_DIM_STEP} from {HEAD_DIM_STEP} through "
-                         f"{MAX_HEAD_DIM}")
+                         f"{MAX_HEAD_DIM} ({HEAD_DIM_TODO})")
 
 
 def check_args(q, k, v, n_heads, mask):
     """Raise on anything the kernel does not take (device aside); return
     ``q, k, v`` as ``(B, T, H, dh)`` views.
 
-    ``q, k, v``: f32 ``(B, T, H*dh)`` or ``(B, T, H, dh)``, one shape, or
-    all bf16 at head dims ``TC_HEAD_DIMS``; ``mask``: ``(B, T)`` or None.
+    ``q, k, v``: ``(B, T, H*dh)`` or ``(B, T, H, dh)``, one shape, all f32
+    or all bf16; ``mask``: ``(B, T)`` or None.
     """
     want = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -134,8 +140,6 @@ def check_args(q, k, v, n_heads, mask):
     q4, k4, v4 = (A.split_lanes(a, n_heads) for a in (q, k, v))
     b, t, _, dh = q4.shape
     check_head_dim(dh)
-    if want == torch.bfloat16 and dh not in TC_HEAD_DIMS:
-        raise ValueError(f"head dim {dh}: the bf16 lanes kernels take {TC_HEAD_DIMS}")
     if b > 65535 or n_heads > 65535:
         raise ValueError(f"batch {b} x heads {n_heads} exceed the launch grid")
     if mask is not None and tuple(mask.shape) != (b, t):
@@ -161,11 +165,12 @@ def rows_aligned(a: torch.Tensor) -> bool:
 def check_aligned(who: str = "flash_attention_lanes",
                   **tensors: torch.Tensor) -> None:
     """Raise unless every row of each tensor starts 16-byte aligned, as the
-    tensor-core kernels (head dims ``TC_HEAD_DIMS``) need; ``who`` names
-    the caller in the message. Nothing is copied: a caller with an
-    unaligned view makes it contiguous itself."""
+    tensor-core kernels (f32 at head dims ``TC_HEAD_DIMS``, bf16 at every
+    head dim) need; ``who`` names the caller in the message. Nothing is
+    copied: a caller with an unaligned view makes it contiguous itself."""
     for name, a in tensors.items():
-        if a.shape[-1] in TC_HEAD_DIMS and not rows_aligned(a):
+        staged = a.dtype == torch.bfloat16 or a.shape[-1] in TC_HEAD_DIMS
+        if staged and not rows_aligned(a):
             raise ValueError(
                 f"{who}: {name}'s rows are not 16-byte aligned "
                 f"(data_ptr % 16 = {a.data_ptr() % ROW_ALIGN_BYTES}, strides "
@@ -348,9 +353,9 @@ def flash_attention_lanes(q, k, v, n_heads, causal=False, mask=None):
     q/k/v slices of the grouped projection's output, read without a copy);
     ``mask``: optional ``(B, T)`` key mask (> 0.5 = attend). Masked keys add
     exactly 0 and a fully masked row outputs 0 and gets gradients of exactly
-    0, as on the TPU. On the card at head dims ``TC_HEAD_DIMS`` every row of
-    ``q``, ``k`` and ``v`` must start 16-byte aligned (the grouped
-    projection's slices do); an unaligned view raises.
+    0, as on the TPU. On the card (f32 at head dims ``TC_HEAD_DIMS``, bf16 at
+    every head dim) every row of ``q``, ``k`` and ``v`` must start 16-byte
+    aligned (the grouped projection's slices do); an unaligned view raises.
     """
     if not dispatch.use_kernel(q):
         if q.dtype == torch.bfloat16:
@@ -378,8 +383,7 @@ def check_flash_args(q, k, v, mask):
     """Raise on anything the tiled kernels do not take (device aside).
 
     ``q``: ``(B, H, Tq, dh)``; ``k, v``: ``(B, H, Tk, dh)``, any strides;
-    all f32, or all bf16 at head dims ``TC_HEAD_DIMS``; ``mask``: ``(B, Tk)``
-    or None.
+    all f32 or all bf16; ``mask``: ``(B, Tk)`` or None.
     """
     want = torch.bfloat16 if q.dtype == torch.bfloat16 else torch.float32
     for name, t in (("q", q), ("k", k), ("v", v)):
@@ -395,10 +399,6 @@ def check_flash_args(q, k, v, mask):
     b, h, _, dh = q.shape
     tk = k.shape[2]
     check_head_dim(dh)
-    if want == torch.bfloat16 and dh not in TC_HEAD_DIMS:
-        raise NotImplementedError(
-            f"flash_attention: bf16 at head dim {dh}: the tiled tier's bf16 kernels "
-            f"take {TC_HEAD_DIMS} ({BF16_TODO})")
     if b > 65535 or h > 65535:
         raise ValueError(f"batch {b} x heads {h} exceed the launch grid")
     if tk == 0:
@@ -553,9 +553,9 @@ def flash_attention(q, k, v, causal=False, q_block=512, k_block=1024,
     ``k`` and ``v``; ``(B, H, Tq, dh)`` out, in q's dtype.
 
     ``q, k, v`` may be ``(B, T, H, dh)`` strided views transposed to
-    ``(B, H, T, dh)``, read without a copy; on the card at head dims
-    ``TC_HEAD_DIMS`` their rows must start 16-byte aligned (an unaligned
-    view raises). ``mask``: optional ``(B, Tk)``
+    ``(B, H, T, dh)``, read without a copy; on the card (f32 at head dims
+    ``TC_HEAD_DIMS``, bf16 at every head dim) their rows must start 16-byte
+    aligned (an unaligned view raises). ``mask``: optional ``(B, Tk)``
     key mask (> 0.5 = attend). Where kanvit's ``_use_small`` holds (one
     tile of the buckets covers ``tq == tk``) this is the lanes attention, a
     fully masked row giving 0; elsewhere the tiled attention with
@@ -563,8 +563,7 @@ def flash_attention(q, k, v, causal=False, q_block=512, k_block=1024,
     ``row - max(tk - tq, 0)``, and a row that sees no valid key gets the
     mean of v over the valid keys. bf16 q, k and v follow kanvit's bf16
     policy on both tiers (the tiled tier's roundings of p over kanvit's key
-    blocks of ``k_block``: ``A.flash_attention_bf16``), at head dims
-    ``TC_HEAD_DIMS``.
+    blocks of ``k_block``: ``A.flash_attention_bf16``).
     """
     b, h, tq, dh = q.shape
     tk = k.shape[2]

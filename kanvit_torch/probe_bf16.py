@@ -3,7 +3,7 @@ the fused FF), cheby, fast, sine and fourier ViTs, and bf16 training of the
 causal decoder, on the card: checks and times.
 
     python -m kanvit_torch.probe_bf16 [--model-type {efficientkan,cheby,fast,sine,fourier,
-                                                     decoder,ffn,int8}]
+                                                     decoder,attention,ffn,int8}]
                                       [--train] [--cheby-shapes] [--fast-shapes]
                                       [--sine-shapes] [--fourier-shapes] [--sincos]
 
@@ -25,6 +25,15 @@ attention's bf16 forward, dq and dk/dv against their twins at the
 decoder's and ragged shapes; ``phase_flash_bf16_kernels``) and, with
 ``--train``, phase 13b (``bench_decoder``'s bf16 training beside f32's;
 ``phase_decoder(bf16=True)``); there is no decoder serving.
+
+``--model-type attention`` runs the bf16 attention kernels at the head dims
+outside 8/16/32/64 alone (the instantiations padded to 128: phase 5b's
+``flash_bf16_generic``, the decoder's shapes at 2 heads of 128 and ragged
+masked shapes at dh 24, 40, 72 and 120; ``lanes_bf16_generic``, vit-s's
+width in 4 heads of 96 and 3 of 128 and the single-tile route at dh 40)
+and, with ``--train``, phase 13c (the bf16 decoder at ``--heads 2``,
+``phase_decoder(bf16=True, heads=2)``) and phase 12c (the vit-s vanilla
+ViT in 3 heads served and trained in bf16, ``phase_heads_bf16``).
 
 Builds the kernels (registers, spills and the SASS report), then runs
 ``chip_smoke.py``'s bf16 phases alone: the bf16 kernels of the model type
@@ -379,7 +388,7 @@ def main(argv=None) -> None:
     p = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     p.add_argument("--model-type",
                    choices=("efficientkan", "cheby", "fast", "sine", "fourier", "decoder",
-                            "ffn", "int8"),
+                            "attention", "ffn", "int8"),
                    default="efficientkan")
     p.add_argument("--train", action="store_true", help="also the bf16 training phase")
     p.add_argument("--cheby-shapes", action="store_true",
@@ -432,6 +441,23 @@ def main(argv=None) -> None:
         C.timed("int8 serving", C.phase_int8_serve, torch, smi, C.build_model("vanilla"),
                 "vit-s vanilla")
         C.timed("bf16 int8 serving", C.int8_bf16_phases, torch, smi)
+        print(json.dumps(out))
+        return
+    if args.model_type == "attention":
+        kernels = {}
+        for key, results in C.timed("bf16 tiled attention, generic dh", C.flash_bf16_generic,
+                                    torch).items():
+            for name, r in results.items():
+                kernels.setdefault(name, {})[key] = C.sub_entry(r)
+        kernels.update(C.timed("bf16 lanes attention, generic dh", C.lanes_bf16_generic,
+                               torch))
+        out["kernels"] = kernels
+        if args.train:
+            train = C.timed("decoder bf16 training at 2 heads", C.phase_decoder, torch, smi,
+                            True, 2)
+            out["train"] = {k: v for k, v in train.items() if k != "launches"}
+            C.timed("vanilla 3-head bf16", C.phase_heads_bf16, torch, smi,
+                    C.build_model("vanilla"))
         print(json.dumps(out))
         return
     phase = {"efficientkan": C.phase_bf16_kernels, "cheby": C.cheby_bf16_kernels,

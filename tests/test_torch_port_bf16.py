@@ -8,7 +8,8 @@ kernel in Pallas interpret mode (``dispatch.set_impl("pallas")``) on the
 same bf16 inputs, drawn with numpy from a seed:
 
 - ``bspline_kan`` (ragged rows, row-packed and not), ``bspline_qkv_grouped``
-  at 2 heads of dh 16 and 32, the lanes attention at dh 8, 32 and 64
+  at 2 heads of dh 16 and 32, the lanes attention at dh 8, 32 and 64 and at
+  the head dims the card runs on its padded kernels, 24, 40, 72 and 128
   (masked, causal): within one bf16 ulp elementwise, |a - b| <= 2^-7 |b| +
   2^-12 max|b|, stated before any run;
 - the scale rounded to bf16 as kanvit rounds it (not exact at dh 8, 32);
@@ -22,7 +23,8 @@ same bf16 inputs, drawn with numpy from a seed:
 - the CUDA route's wrappers with each launch emulated on the CPU: the
   launch counts of a bf16 forward (1 + 2 + 2), a backward through it going
   to the bf16 backward kernels (which raise without a card, never falling
-  back) and a head dim the bf16 kernel does not take raising;
+  back), a generic head dim (40) on the bf16 lanes and tiled kernels
+  against kanvit's, and mixed dtypes raising;
 - the attention tier predicates against kanvit's, by itemsize, over a grid
   of shapes with vit-l's;
 - the converter on a tree whose leaves are already bf16.
@@ -57,6 +59,7 @@ from kanvit_torch.ops import kan_bases as K
 from kanvit_torch.train import create_train_state, make_eval_step, make_train_step
 from kanvit_torch.utils import precision
 from kanvit_torch.utils.convert import load_reference_state_dict, state_dict_from_jax_params
+from test_torch_port_bf16_flash import _emu_fwd_bf16
 
 BF16 = torch.bfloat16
 ULP_REL, ULP_ABS = 2.0 ** -7, 2.0 ** -12   # one bf16 ulp, elementwise
@@ -145,7 +148,8 @@ def _mask(b, t):
     return m
 
 
-@pytest.mark.parametrize("dh,heads", [(8, 3), (32, 2), (64, 2)])
+@pytest.mark.parametrize("dh,heads", [(8, 3), (32, 2), (64, 2), (24, 2), (40, 2), (72, 1),
+                                      (128, 1)])
 @pytest.mark.parametrize("causal,masked", [(False, False), (True, True)])
 def test_lanes_attention_matches_pallas(dh, heads, causal, masked):
     rng = np.random.default_rng(62)
@@ -163,7 +167,7 @@ def test_lanes_attention_matches_pallas(dh, heads, causal, masked):
         assert (got[0] == 0).all()
 
 
-@pytest.mark.parametrize("dh", [8, 32, 64])
+@pytest.mark.parametrize("dh", [8, 32, 64, 40, 128])
 def test_scale_rounded_as_kanvit(dh):
     exact = dh ** -0.5
     got = A.bf16_scale(dh)
@@ -347,17 +351,31 @@ def test_kernel_route_backward_raises(kernel_route):
     assert not any(n for name, n in {**FB.LAUNCHES, **FA.LAUNCHES}.items() if "bwd" in name)
 
 
-def test_kernel_route_refuses(kernel_route):
+def test_kernel_route_refuses(kernel_route, monkeypatch):
+    """A generic head dim (40, two heads) runs on the bf16 lanes and tiled
+    kernels' route (each launch emulated by its twin) within one bf16 ulp
+    of kanvit's lanes and tiled kernels (the tiled o also within 2^-7 of its
+    attention over |v|: the kernel rounds p against its own tiles' max);
+    mixed dtypes and f32 weights under a bf16 x still raise."""
     rng = np.random.default_rng(65)
-    q, k, v = (_bf16(rng, (2, 9, 80))[0] for _ in range(3))
-    with pytest.raises(ValueError, match="head dim 40"):
-        FA.flash_attention_lanes(q, k, v, 2)
+    (q, jq), (k, jk), (v, jv) = (_bf16(rng, (2, 9, 80)) for _ in range(3))
     with pytest.raises(TypeError):
         FA.flash_attention_lanes(q, k.float(), v, 2)
-    # the tiled tier's bf16 kernels take dh 8, 16, 32 and 64
-    with pytest.raises(NotImplementedError, match="3b.5"):
-        FA.flash_attention(*(a.view(2, 9, 2, 40).transpose(1, 2) for a in (q, k, v)),
-                           q_block=8, k_block=8)
+    assert sum(FA.LAUNCHES.values()) == 0
+    got = FA.flash_attention_lanes(q, k, v, 2)
+    assert got.dtype == BF16 and FA.LAUNCHES["flash_attention_lanes_bf16"] == 1
+    _one_ulp(got, JFA.flash_attention_lanes(jq, jk, jv, 2))
+    monkeypatch.setattr(FA, "_launch_tiled", _emu_fwd_bf16)
+    heads = [a.view(2, 9, 2, 40).transpose(1, 2) for a in (q, k, v)]
+    tiled = FA.flash_attention(*heads, q_block=8, k_block=8)
+    assert tiled.dtype == BF16 and FA.LAUNCHES["flash_attention_bf16"] == 1
+    want = JFA.flash_attention(*(jnp.transpose(a.reshape(2, 9, 2, 40), (0, 2, 1, 3))
+                                 for a in (jq, jk, jv)), False, 8, 8)
+    spread = A.flash_attention_bf16(heads[0], heads[1], heads[2].abs(), False, 128)[0]
+    err = np.abs(_f32(tiled).astype(np.float64) - _f32(want))
+    bound = (ULP_REL * np.abs(_f32(want)) + ULP_ABS * np.abs(_f32(want)).max()
+             + 2.0 ** -7 * _f32(spread))
+    assert (err <= bound).all()
     grid = K.make_bspline_grid(16)
     x = _bf16(rng, (5, 16))[0]
     with pytest.raises(TypeError):   # f32 weights under bf16 x

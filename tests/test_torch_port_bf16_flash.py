@@ -34,9 +34,14 @@ differs in 0.02% of them, by one ulp (measured once on a CPU).
 Shapes: B 1-2, H 2, T 250-330 with 128-key buckets (at least three kanvit
 key blocks, so p rounds against a moving max), causal and not, tq < tk with
 masked keys (rows that see no valid key), dh 64 and dh 32 and 8 (where
-dh^-1/2 is not a power of two and the scale's place shows in the bits).
+dh^-1/2 is not a power of two and the scale's place shows in the bits), and
+the head dims the card runs on its kernels padded to 128: 24, 40, 72 and
+128 (kanvit pads every d to 128 lanes; the port pads in shared memory), at
+the same gates. A head dim that is not a multiple of 8, or is past 128,
+raises in f32 and bf16 on the card's route (kanvit takes it).
 The bf16 ``CausalDecoder`` against kanvit's bf16 decoder (its params cast
-to bf16 for the step, CE on f32 logits) on the same weights at both tiers:
+to bf16 for the step, CE on f32 logits) on the same weights at both tiers,
+at 2 heads of 16 and of 40:
 logits within 2e-2 x max(1, max|logit|) and the loss within 5e-2 x
 max(1, |loss|), kanvit's own bf16 gates (``tests/test_kernels.py:871``,
 ``:966-967``); every gradient within 5e-2 of its own max|g|, tighter than
@@ -54,13 +59,16 @@ import optax
 import pytest
 import torch
 
+import kanvit.models.decoder as jdecoder
 from kanvit.kernels import flash_attention as JFA
+from kanvit.layers.attention import FlashAttentionBlock as JBlock
 from kanvit.ops import dispatch as jdispatch
 from kanvit_torch import bench_decoder as BD
 from kanvit_torch.kernels import flash_attention as FA
+from kanvit_torch.models import CausalDecoder
 from kanvit_torch.ops import attention as A
 from kanvit_torch.ops import dispatch
-from kanvit_torch.utils.convert import state_dict_from_jax_params
+from kanvit_torch.utils.convert import load_reference_state_dict, state_dict_from_jax_params
 from test_torch_port_bf16_train import _emu_lanes_bf16, _emu_lanes_bwd_bf16
 from test_torch_port_decoder import (
     BLOCKS,
@@ -125,6 +133,13 @@ CASES = {
     # no valid key; item 1 masks every key
     "causal_tq_lt_tk_dh32": (2, 2, 250, 330, 32, True, [range(4), range(330)]),
     "causal_masked_dh8": (1, 2, 300, 300, 8, True, [list(range(4)) + list(range(130, 200))]),
+    # the head dims on the card's padded kernels: odd multiples of 8 (24, 72)
+    # end in half a 16-deep step
+    "causal_dh24": (2, 2, 300, 300, 24, True, None),
+    "masked_dh40": (2, 2, 270, 270, 40, False, [range(5, 40)]),
+    "causal_tq_lt_tk_dh72": (2, 2, 250, 330, 72, True, [range(4), range(330)]),
+    "causal_masked_dh128": (1, 2, 300, 300, 128, True,
+                            [list(range(4)) + list(range(130, 200))]),
 }
 
 
@@ -312,15 +327,28 @@ def test_kernel_tiles_within_the_gate(monkeypatch, name):
 
 
 def test_generic_head_dim_raises():
-    """bf16 at the tiled tier takes head dims 8, 16, 32 and 64; dh 40
-    raises before any launch, naming its ROADMAP entry, on the CPU route
-    and in the card route's argument check. The CPU route refuses what the
-    card refuses: a bf16 q with an f32 v, or a mask of another shape."""
+    """bf16 at the tiled tier takes every multiple of 8 through 128: dh 40
+    runs through the CPU route and passes the card route's argument check,
+    within the gates of kanvit's kernel; dh 12 and 136 raise before any
+    launch, naming their ROADMAP entry. The CPU route refuses what the card
+    refuses: a bf16 q with an f32 v, or a mask of another shape."""
+    name = "masked_dh40"
+    qkv, do, mask, causal = _case(name)
+    tmask = torch.from_numpy(mask)
+    with torch.inference_mode():
+        o = FA.flash_attention(*qkv, causal, *BUCKETS, tmask)
+    FA.check_flash_args(*qkv, tmask)
+    assert o.dtype == BF16 and o.shape == qkv[0].shape
+    spread_o = A.flash_attention_bf16(qkv[0], qkv[1], qkv[2].abs(), causal, BUCKETS[1],
+                                      tmask)[0]
+    _gate(o, _pallas(name)[0], spread_o)
+    for dh in (12, 136):
+        q = torch.zeros(1, 2, 300, dh, dtype=BF16)
+        with pytest.raises(ValueError, match=f"head dim {dh}.*3c"):
+            FA.flash_attention(q, q, q, True, *BUCKETS)
+        with pytest.raises(ValueError, match=f"head dim {dh}.*3c"):
+            FA.check_flash_args(q, q, q, None)
     q = torch.zeros(1, 2, 300, 40, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="3b.5"):
-        FA.flash_attention(q, q, q, True, *BUCKETS)
-    with pytest.raises(NotImplementedError, match="3b.5"):
-        FA.check_flash_args(q, q, q, None)
     with pytest.raises(TypeError, match="v must be bfloat16"):
         FA.check_flash_args(q, q, q.float(), None)
     q64 = torch.zeros(1, 2, 300, 64, dtype=BF16)
@@ -329,6 +357,23 @@ def test_generic_head_dim_raises():
     with pytest.raises(ValueError, match="mask must be"):
         FA.flash_attention(q64, q64, q64, True, *BUCKETS, torch.ones(1, 299))
     FA.check_flash_args(q64, q64, q64, None)
+    assert sum(FA.LAUNCHES.values()) == 0
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, BF16])
+@pytest.mark.parametrize("dh", [12, 136])
+def test_head_dims_past_the_kernels_raise(monkeypatch, dh, dtype):
+    """On the card's route (``use_kernel`` forced on CPU tensors) a head dim
+    that is not a multiple of 8, or is past 128, raises on both tiers, in
+    f32 and bf16, before any launch, naming the ROADMAP entry of the head
+    dims kanvit takes and the port does not."""
+    monkeypatch.setattr(dispatch, "use_kernel", lambda x: True)
+    lanes = torch.zeros(1, 9, 2 * dh, dtype=dtype)
+    with pytest.raises(ValueError, match=f"head dim {dh}.*3c"):
+        FA.flash_attention_lanes(lanes, lanes, lanes, 2)
+    tiled = torch.zeros(1, 2, 600, dh, dtype=dtype)
+    with pytest.raises(ValueError, match=f"head dim {dh}.*3c"):
+        FA.flash_attention(tiled, tiled, tiled, True)
     assert sum(FA.LAUNCHES.values()) == 0
 
 
@@ -372,6 +417,39 @@ def test_bf16_decoder_matches_kanvit(monkeypatch, tier):
     assert set(want) == set(grads)
     for name, g in want.items():
         assert grads[name].grad.dtype == torch.float32, name
+        _close(grads[name].grad, g, GRAD_TOL, floor=0.0)
+
+
+@pytest.mark.parametrize("tier", list(DECODER_TIERS))
+def test_bf16_decoder_generic_head_dim_matches_kanvit(monkeypatch, tier):
+    """The bf16 decoder at d 80 in 2 heads of 40 (the card's padded kernels),
+    against kanvit's on the same weights at both tiers: logits, loss and
+    every gradient at the gates above."""
+    dim = 80
+    buckets, seq = DECODER_TIERS[tier]
+    tokens = _tokens(2, seq, seed=93)
+    if buckets is not None:
+        monkeypatch.setattr(jdecoder, "FlashAttentionBlock", functools.partial(
+            JBlock, q_bucket_size=buckets[0], k_bucket_size=buckets[1]))
+    jmodel = jdecoder.CausalDecoder(vocab=VOCAB, dim=dim, heads=HEADS, n_blocks=BLOCKS)
+    params = _init(jmodel, tokens)
+    (want_loss, want_logits), want_grads = jax.value_and_grad(
+        _bf16_loss_jax(jmodel), has_aux=True)(params, jnp.asarray(tokens))
+    model = CausalDecoder(VOCAB, dim, HEADS, BLOCKS)
+    load_reference_state_dict(model, state_dict_from_jax_params(params))
+    for blk in model.blocks:
+        assert blk.dim_head == 40
+        if buckets is not None:
+            blk.q_bucket_size, blk.k_bucket_size = buckets
+    loss, logits = BD.loss_and_logits(model, torch.from_numpy(tokens).long(), bf16=True)
+    assert logits.dtype == BF16
+    _close(logits, want_logits, LOGIT_TOL)
+    _close(loss, want_loss, GRAD_TOL)
+    loss.backward()
+    want = state_dict_from_jax_params(jax.tree.map(np.asarray, want_grads))
+    grads = dict(model.named_parameters())
+    assert set(want) == set(grads)
+    for name, g in want.items():
         _close(grads[name].grad, g, GRAD_TOL, floor=0.0)
 
 

@@ -21,7 +21,8 @@ rounded intermediate weighted as the next product weighs it, 2^-8 of
 - ``bspline_qkv_grouped``: 2 heads of dh 16 and 32 against kanvit's
   slot-grouped op (``_bspline_op_sg``) on the same packed weight, and a
   grid a head against kanvit's per-head op (``_bspline_op``);
-- the lanes backward at dh 8, 32 and 64, masked and causal;
+- the lanes backward at dh 8, 32 and 64, and at the head dims the card runs
+  on its padded kernels, 24, 40, 72 and 128, masked and causal;
 - the CUDA route's wrappers with each launch emulated on the CPU: a bf16
   step's launches (1 + 2 + 2 bf16 forwards and backwards at 2 blocks), the
   embedder's no-dx route, the plain route's gradient bits, and
@@ -35,8 +36,11 @@ rounded intermediate weighted as the next product weighs it, 2^-8 of
   with 2 blocks (the efficientkan, cheby, fast, sine, fourier, vanilla and flash-attn ViTs,
   kanvit's weights carried across), loss within 2e-2 x max(1, |loss|) and every
   gradient within 5e-2 x max(1, max|g|), kanvit's own bf16 gradient gate
-  (``tests/test_kernels.py:966-967``); ``grad_accum=2``; the caller's cuBLAS
-  reduction flag; ``python -m kanvit_torch.bench --bf16``.
+  (``tests/test_kernels.py:966-967``); the vanilla ViT also at 2 heads of 40
+  and of 72 (kanvit's ``--n-heads`` on another width: the bf16 lanes
+  attention at a generic head dim), its bf16 eval logits within 2e-2 x
+  max(1, max|logit|) too; ``grad_accum=2``; the caller's cuBLAS reduction
+  flag; ``python -m kanvit_torch.bench --bf16``.
 
 Small shapes; torch on one thread.
 """
@@ -60,7 +64,7 @@ from kanvit_torch.models import create_model
 from kanvit_torch.ops import attention as A
 from kanvit_torch.ops import dispatch
 from kanvit_torch.ops import kan_bases as K
-from kanvit_torch.train import create_train_state, make_train_step
+from kanvit_torch.train import create_train_state, make_eval_step, make_train_step
 from kanvit_torch.utils import precision
 from kanvit_torch.utils.convert import load_reference_state_dict, state_dict_from_jax_params
 
@@ -221,7 +225,8 @@ def _mask(b, t):
     return m
 
 
-@pytest.mark.parametrize("dh,heads", [(8, 3), (32, 2), (64, 2)])
+@pytest.mark.parametrize("dh,heads", [(8, 3), (32, 2), (64, 2), (24, 2), (40, 2), (72, 1),
+                                      (128, 1)])
 def test_lanes_bwd_matches_pallas(dh, heads):
     """Unmasked, then masked and causal, on the same inputs."""
     rng = np.random.default_rng(73)
@@ -387,32 +392,35 @@ def test_bf16_backward_wrappers_refuse():
 # --- the slice: the port's bf16 train step against kanvit's ------------------
 
 _KANVIT = {}
+_KANVIT_LOGITS = {}  # the bf16 step's logits, by _kanvit_bf16's key
 
 
-def _kanvit_bf16(kind):
-    """kanvit's ``kind`` ViT (2 blocks, MNIST geometry): its weights, and
-    the loss and gradients of its bf16 policy on 6 images under forced
-    Pallas, from ``jax.grad`` of ``_loss_and_logits(..., bf16=True)``;
-    computed once a kind."""
-    if kind not in _KANVIT:
+def _kanvit_bf16(kind, geom=None):
+    """kanvit's ``kind`` ViT (2 blocks, MNIST geometry, ``geom`` overriding
+    it): its weights, and the loss and gradients of its bf16 policy on 6
+    images under forced Pallas, from ``jax.grad`` of
+    ``_loss_and_logits(..., bf16=True)``; computed once a kind."""
+    key = (kind, tuple(sorted((geom or {}).items())))
+    if key not in _KANVIT:
         x, y = _batch(78)
-        jmodel = j_create_model(kind, **SMALL)
+        jmodel = j_create_model(kind, **{**SMALL, **(geom or {})})
         jdispatch.set_impl("jnp")  # init is plain jnp; only the weights matter
         state = j_create_train_state(jmodel, jax.random.PRNGKey(6),
                                      jnp.zeros((1, *SMALL["chw"])))
         jdispatch.set_impl("pallas")
-        (loss, _), grads = jax.jit(jax.value_and_grad(
+        (loss, logits), grads = jax.jit(jax.value_and_grad(
             lambda p: j_loss_and_logits(state.apply_fn, p, jnp.asarray(x.numpy()),
                                         jnp.asarray(y.numpy()), True), has_aux=True,
         ))(state.params)
-        _KANVIT[kind] = (state_dict_from_jax_params(jax.tree.map(np.asarray, state.params)),
-                         float(loss),
-                         state_dict_from_jax_params(jax.tree.map(np.asarray, grads)))
-    return _KANVIT[kind]
+        _KANVIT[key] = (state_dict_from_jax_params(jax.tree.map(np.asarray, state.params)),
+                        float(loss),
+                        state_dict_from_jax_params(jax.tree.map(np.asarray, grads)))
+        _KANVIT_LOGITS[key] = np.asarray(logits.astype(jnp.float32), np.float64)
+    return _KANVIT[key]
 
 
-def _port_model(kind, params):
-    model = create_model(kind, **SMALL, seed=9)
+def _port_model(kind, params, geom=None):
+    model = create_model(kind, **{**SMALL, **(geom or {})}, seed=9)
     load_reference_state_dict(model, params)
     return model
 
@@ -437,6 +445,26 @@ def test_train_step_matches_kanvit(kind):
     assert abs(float(loss) - jloss) <= LOSS_TOL * max(1.0, abs(jloss))
     _grads_close({k: p.grad for k, p in model.named_parameters()}, jgrads)
     assert all(p.dtype == torch.float32 for p in model.parameters())
+
+
+@pytest.mark.parametrize("dh", [40, 72])
+def test_generic_head_dim_vit_matches_kanvit(dh):
+    """The vanilla ViT at 2 heads of ``dh`` (d 2 dh): a bf16 training step's
+    loss and gradients against kanvit's, as above, and the bf16 eval step's
+    logits against kanvit's on the same weights."""
+    geom = dict(d_hidden=2 * dh, n_heads=2)
+    params, jloss, jgrads = _kanvit_bf16("vanilla", geom)
+    model = _port_model("vanilla", params, geom)
+    assert all(blk.attn.d_head == dh for blk in model.blocks)
+    x, y = _batch(78)
+    _, loss, _ = make_train_step(bf16=True)(create_train_state(model), x, y)
+    assert abs(float(loss) - jloss) <= LOSS_TOL * max(1.0, abs(jloss))
+    _grads_close({k: p.grad for k, p in model.named_parameters()}, jgrads)
+    want = _KANVIT_LOGITS[("vanilla", tuple(sorted(geom.items())))]
+    _, logits = make_eval_step(bf16=True)(create_train_state(_port_model("vanilla", params,
+                                                                         geom)), x, y)
+    err = float(np.abs(logits.double().numpy() - want).max())
+    assert err <= LOSS_TOL * max(1.0, float(np.abs(want).max())), err
 
 
 def test_grad_accum_bf16_matches_one_chunk():

@@ -2078,15 +2078,16 @@ def test_fastkan_qkv_grouped_tc_forward_past_64_outputs(cuda, nout):
 BF16 = torch.bfloat16
 
 
-def _bf16_ulp(got, want, spread=None):
-    """One bf16 ulp of the output; ``spread`` (the attention): plus one of
-    every probability, weighted as P V weights it (chip_smoke.py's gate)."""
+def _bf16_ulp(got, want, spread=None, mid=2.0 ** -8):
+    """One bf16 ulp of the output; ``spread`` (the attention): plus ``mid``
+    (one ulp; the tiled forward 2^-7, two-sided) of every probability,
+    weighted as P V weights it (chip_smoke.py's gate)."""
     torch.cuda.synchronize()
     assert got.dtype == want.dtype == BF16
     got, want = got.double(), want.double()
     bound = 2.0 ** -7 * want.abs() + 2.0 ** -12 * float(want.abs().max())
     if spread is not None:
-        bound = bound + 2.0 ** -8 * spread.double()
+        bound = bound + mid * spread.double()
     assert got.isfinite().all() and bool(((got - want).abs() <= bound).all()), float(
         ((got - want).abs() - bound).max())
 
@@ -2139,7 +2140,7 @@ def test_bspline_qkv_grouped_bf16_kernel(cuda, n, h, dh, per_head):
     assert FB.LAUNCHES["bspline_qkv_grouped_bf16"] == 2
 
 
-@pytest.mark.parametrize("dh", [8, 16, 32, 64])
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 24, 40, 72, 96, 128])
 @pytest.mark.parametrize("causal,masked", [(False, False), (True, True)])
 def test_attention_lanes_bf16_kernel(cuda, dh, causal, masked):
     rng = np.random.default_rng(132)
@@ -2169,9 +2170,9 @@ def test_attention_lanes_bf16_kernel(cuda, dh, causal, masked):
 
 def test_bf16_backward_and_other_head_dims_raise(cuda):
     """A backward through a bf16 forward takes the bf16 backward kernels
-    (no f32 kernel, no plain version); bf16 generic head dims and f32
-    Fourier coefficients under a bf16 x raise, and nothing runs the plain
-    version instead."""
+    (no f32 kernel, no plain version), at dh 64 and at a generic dh (40, the
+    padded kernels); dh 12 and 136 and f32 Fourier coefficients under a bf16
+    x raise, and nothing runs the plain version instead."""
     rng = np.random.default_rng(133)
     x = _spline_x(rng, (20, 16)).to(cuda).to(BF16)
     grid = K.make_bspline_grid(16, device=cuda)
@@ -2186,14 +2187,18 @@ def test_bf16_backward_and_other_head_dims_raise(cuda):
     assert FB.LAUNCHES["bspline_kan_bwd"] == 0 and FA.LAUNCHES["flash_attention_lanes_bwd"] == 0
     assert FB.LAUNCHES["bspline_kan_bwd_bf16"] == 1
     assert FA.LAUNCHES["flash_attention_lanes_bwd_bf16"] == 1
-    for dh in (24, 40, 128):
+    q = torch.randn(2, 9, 80, device=cuda, dtype=BF16, requires_grad=True)
+    FA.flash_attention_lanes(q, q, q, 2).float().sum().backward()
+    assert q.grad.dtype == BF16 and FA.LAUNCHES["flash_attention_lanes_bwd_bf16"] == 2
+    for dh in (12, 136):
         q = torch.zeros(2, 9, 2 * dh, device=cuda, dtype=BF16)
         with torch.inference_mode(), pytest.raises(ValueError, match=f"head dim {dh}"):
             FA.flash_attention_lanes(q, q, q, 2)
     with torch.inference_mode(), pytest.raises(TypeError, match="weight"):
         FB.fourierkan(torch.zeros(4, 16, device=cuda, dtype=BF16),
                       torch.zeros(2, 3, 16, 5, device=cuda), None)
-    assert FA.LAUNCHES["flash_attention_lanes_bf16"] == 1
+    assert FA.LAUNCHES["flash_attention_lanes_bf16"] == 2
+    assert FA.LAUNCHES["flash_attention_lanes_bwd"] == 0
 
 
 # --- bf16 Chebyshev: the bf16 forwards and backwards of chebykan and
@@ -2512,7 +2517,7 @@ def test_bspline_bwd_bf16_kernel(cuda, name, n, groups, nin, nout, per_head):
     assert FB.LAUNCHES[f"{name}_bwd_bf16"] == 3 and FB.LAUNCHES[f"{name}_bwd"] == 0
 
 
-@pytest.mark.parametrize("dh", [8, 16, 32, 64])
+@pytest.mark.parametrize("dh", [8, 16, 32, 64, 24, 40, 72, 96, 128])
 @pytest.mark.parametrize("causal,masked", [(False, False), (True, True)])
 def test_attention_lanes_bwd_bf16_kernel(cuda, dh, causal, masked):
     rng = np.random.default_rng(136)
@@ -2659,6 +2664,12 @@ def _flash_bf16_launch(q, k, v, mask, causal, do):
     (3, 2, 300, 517, 32),   # tq < tk: rows with qpos < 0
     (2, 2, 517, 300, 16),   # tq > tk
     (2, 2, 700, 700, 8),
+    # the padded kernels: odd multiples of 8 end in half a 16-deep step
+    (2, 2, 1100, 1100, 128),
+    (3, 2, 300, 517, 24),
+    (2, 2, 517, 300, 40),
+    (2, 2, 700, 700, 72),
+    (1, 3, 600, 600, 120),
 ])
 def test_flash_attention_bf16_kernels(cuda, b, h, tq, tk, dh, causal, masked):
     rng = np.random.default_rng(135)
@@ -2684,12 +2695,14 @@ def test_flash_attention_bf16_kernels(cuda, b, h, tq, tk, dh, causal, masked):
     assert FA.LAUNCHES["flash_attention"] == FA.LAUNCHES["flash_attention_dq"] == 0
 
 
-def test_flash_attention_bf16_repeats_its_bits(cuda):
-    """Forward and backward at the decoder's seq 2048 (B 2, H 4, dh 64,
-    causal) give the same bits twice, through ``flash_attention`` and
-    autograd; o, dq, dk and dv are bf16."""
+@pytest.mark.parametrize("h,dh", [(4, 64), (2, 128), (3, 40)])
+def test_flash_attention_bf16_repeats_its_bits(cuda, h, dh):
+    """Forward and backward at the decoder's seq 2048 (B 2, causal; 4 heads
+    of 64, and on the padded kernels 2 of 128 and 3 of 40) give the same
+    bits twice, through ``flash_attention`` and autograd; o, dq, dk and dv
+    are bf16."""
     rng = np.random.default_rng(136)
-    (q, k, v), do, _ = _flash_bf16_case(rng, 2, 4, 2048, 2048, 64, False)
+    (q, k, v), do, _ = _flash_bf16_case(rng, 2, h, 2048, 2048, dh, False)
 
     def run():
         leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
@@ -2705,18 +2718,36 @@ def test_flash_attention_bf16_repeats_its_bits(cuda):
 
 
 def test_flash_attention_bf16_raises_not_falls_back(cuda):
-    """A generic head dim in bf16 raises before any launch, naming its
-    ROADMAP entry; mixed dtypes raise; an unaligned view raises."""
-    q = torch.zeros(1, 2, 600, 40, device=cuda, dtype=BF16)
-    with pytest.raises(NotImplementedError, match="3b.5"):
-        FA.flash_attention(q, q, q, True)
+    """A generic head dim in bf16 (40) runs on the padded kernels within the
+    twin's gates, one launch of each; dh 12 and 136 raise before any
+    launch, naming their ROADMAP entry; mixed dtypes raise; an unaligned
+    view raises, at dh 16 and at dh 40."""
+    rng = np.random.default_rng(137)
+    (q, k, v), do, _ = _flash_bf16_case(rng, 1, 2, 600, 600, 40, False)
+    o, stats, grads = _flash_bf16_launch(q, k, v, None, True, do)
+    want, m, l = A.flash_attention_bf16(q, k, v, True, 1024)
+    spread = A.flash_attention_bf16(q, k, v.abs(), True, 1024)[0]
+    _bf16_ulp(o, want, spread, mid=2.0 ** -7)
+    twin = A.flash_attention_bwd_bf16(q, k, v, o, do, stats[..., 0], stats[..., 1], True)
+    spreads = A.flash_attention_bwd_bf16(q, k, v, o, do, stats[..., 0], stats[..., 1], True,
+                                         spread=True)
+    for got, w, sp in zip(grads, twin, spreads):
+        _bf16_ulp(got, w, sp)
+    assert (FA.LAUNCHES["flash_attention_bf16"], FA.LAUNCHES["flash_attention_dq_bf16"],
+            FA.LAUNCHES["flash_attention_dkv_bf16"]) == (1, 1, 1)
+    FA.reset_launches()
+    for dh in (12, 136):
+        q = torch.zeros(1, 2, 600, dh, device=cuda, dtype=BF16)
+        with pytest.raises(ValueError, match=f"head dim {dh}.*3c"):
+            FA.flash_attention(q, q, q, True)
     q = torch.zeros(1, 2, 600, 32, device=cuda, dtype=BF16)
     with pytest.raises(TypeError, match="bfloat16"):
         FA.flash_attention(q, q.float(), q, True)
-    flat = torch.zeros(2 * 600 * 2 * 16 + 1, device=cuda, dtype=BF16)
-    q = flat[1:].view(2, 600, 2, 16).transpose(1, 2)
-    with pytest.raises(ValueError, match="16-byte"):
-        FA.flash_attention(q, q, q, True)
+    for dh in (16, 40):
+        flat = torch.zeros(2 * 600 * 2 * dh + 1, device=cuda, dtype=BF16)
+        q = flat[1:].view(2, 600, 2, dh).transpose(1, 2)
+        with pytest.raises(ValueError, match="16-byte"):
+            FA.flash_attention(q, q, q, True)
     assert sum(FA.LAUNCHES.values()) == 0
 
 
