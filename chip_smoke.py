@@ -425,7 +425,8 @@ def phase_build():
 # and its n8 tiles a warp, B-spline's, RBF's and Chebyshev's also its stages
 # a level of the sum, 0 for the q/k/v's one running sum, 12 for the
 # embedder's two levels; the int8 linear's: its rows a block and its
-# activation type, f32 or bf16, its products IMMA, counted with the HMMA).
+# activation type, f32 or bf16, its products IMMA, counted with the HMMA;
+# the bf16 tiled backward's: its DH, its products wgmma, HGMMA).
 SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "attention_lanes_dkv_tcILi64", "flash_fwd_tcILi64",
                 "flash_dq_tcILi64", "flash_dkv_tcILi64", "ffn_fwd_tcILi3",
@@ -441,10 +442,10 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 ("kan_tc_fwd_grouped", "7BsplineELi24E", "Tf32x3ELi12E"),
                 ("kan_tc_fwd_grouped", "7BsplineELi24E", "4Bf16ELi0E"),
                 "attention_lanes_fwd_bf16ILi64", "flash_fwd_bf16ILi64",
-                "flash_dq_bf16ILi64", "flash_dkv_bf16ILi64",
+                "flash_dq_bf16ILi64EE", "flash_dkv_bf16ILi64EE",
                 "attention_lanes_fwd_bf16ILi128ELb1", "attention_lanes_dq_bf16ILi128ELb1",
                 "attention_lanes_dkv_bf16ILi128ELb1", "flash_fwd_bf16ILi128ELb1",
-                "flash_dq_bf16ILi128ELb1", "flash_dkv_bf16ILi128ELb1",
+                "flash_dq_bf16ILi128EE", "flash_dkv_bf16ILi128EE",
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi0E"),
                 ("kan_tc_fwd_grouped", "3RbfELi8E", "Tf32x3ELi12E"),
                 ("kan_tc_fwd_grouped", "4SineELi8E", "Tf32x3"),
@@ -461,11 +462,14 @@ SASS_KERNELS = ("attention_lanes_fwd_tcILi64", "attention_lanes_dq_tcILi64",
                 "ffn_bwd_dx_bf16ILi3", "ffn_dw_bf16")
 
 
+PRODUCTS = {"HMMA", "HGMMA"}  # the tensor cores' products in SASS: mma.sync, wgmma
+
+
 def sass_mix(lib):
     """Static SASS instruction counts of ``SASS_KERNELS`` (cuobjdump): the
-    HMMAs (tensor-core products; an int8 kernel's IMMA counted as one)
-    against everything else, and the most frequent mnemonics. A report for
-    PERF.md, not a gate."""
+    HMMAs (tensor-core products of mma.sync; an int8 kernel's IMMA counted
+    as one) and HGMMAs (wgmma) against everything else, and the most
+    frequent mnemonics. A report for PERF.md, not a gate."""
     from kanvit_torch.kernels import _build
 
     cuobjdump = Path(_build.find_nvcc()).with_name("cuobjdump")
@@ -501,7 +505,7 @@ def sass_mix(lib):
         if back:
             def hmma(span):
                 return sum(1 for at, op, _ in code if span[0] <= at <= span[1]
-                           and op == "HMMA")
+                           and op in PRODUCTS)
 
             most = max(hmma(b) for b in back)
             lo, hi = min((b for b in back if hmma(b) == most), key=lambda b: b[1] - b[0])
@@ -518,11 +522,14 @@ def sass_mix(lib):
                     blocks.append(cur)
                     cur = []
             blocks.append(cur)
-            in_blocks = sum(len(b) for b in blocks if "HMMA" in b)
-            loop = (f"; main loop {most} HMMA of {len(body)}, its HMMA blocks "
-                    f"{in_blocks} ({(in_blocks - most) / max(most, 1):.2f} others a HMMA)")
-        print(f"[build] SASS {name}: {counts.get('HMMA', 0)} HMMA of {len(code)} "
-              f"instructions{loop}; " + " ".join(f"{op} {n}" for op, n in top))
+            in_blocks = sum(len(b) for b in blocks if PRODUCTS & set(b))
+            loop_ops = [op for _, op, _ in body]
+            loop = (f"; main loop {loop_ops.count('HMMA')} HMMA + {loop_ops.count('HGMMA')} "
+                    f"HGMMA of {len(body)}, its product blocks {in_blocks} "
+                    f"({(in_blocks - most) / max(most, 1):.2f} others a product)")
+        print(f"[build] SASS {name}: {counts.get('HMMA', 0)} HMMA + {counts.get('HGMMA', 0)} "
+              f"HGMMA of {len(code)} instructions{loop}; "
+              + " ".join(f"{op} {n}" for op, n in top))
 
 
 # --------------------------------------------------------------------------
@@ -1516,10 +1523,11 @@ def check_flash_bf16(torch, rng, b, h, tq, tk, dh, causal, mask, label, iters,
     attention over |v|: the kernel rounds p against its 32-key tiles'
     running max, the twin against kanvit's blocks'), (m, l) within
     TOL_FLASH_STATS, each gradient within one ulp plus one of each rounded
-    p and ds (2^-8 of ``spread=True``); a row that sees no valid key the
-    mean of v over the valid keys; the bits of a repeated forward and
-    backward; with ``f64`` the forward no further from the f64 reference
-    than twice the twin. Times of each kernel (CUDA events, device), of the
+    p and ds (2^-8 of ``spread=True``) and no further from the same
+    function in f64 (``exact=True``) than twice the twin; a row that sees
+    no valid key the mean of v over the valid keys; the bits of a repeated
+    forward and backward; with ``f64`` the forward no further from the f64
+    reference than twice the twin. Times of each kernel (CUDA events, device), of the
     twin (forward; the whole backward for dq and dk/dv) and of
     ``scaled_dot_product_attention`` in bf16 (forward; backward to q, to k
     and v, and to all three). Returns ``(o, v, {kernel: (err, ms, plain_ms,
@@ -1571,7 +1579,19 @@ def check_flash_bf16(torch, rng, b, h, tq, tk, dh, causal, mask, label, iters,
                                   a.transpose(1, 2), w, sp)
                 for nm, part, a, w, sp in zip(("dq", "dk", "dv"), ("dq", "dkv", "dkv"),
                                               grads4, want, spread)}
-        del want, spread, spread_o
+        del spread, spread_o
+        # the same function in f64 with nothing rounded, a batch item at a time
+        exact = [torch.cat(parts, 0) for parts in zip(*(
+            A.flash_attention_bwd_bf16(q[i:i + 1], k[i:i + 1], v[i:i + 1], o[i:i + 1],
+                                       g[i:i + 1], stats[i:i + 1, ..., 0],
+                                       stats[i:i + 1, ..., 1], causal,
+                                       None if keys is None else keys[i:i + 1], exact=True)
+            for i in range(b)))]
+        grad_f64 = {nm: f64_gate(f"flash_attention_{part}_bf16 {tag} {nm}", a.transpose(1, 2),
+                                 w, e, "bf16 plain twin")
+                    for nm, part, a, w, e in zip(("dq", "dk", "dv"), ("dq", "dkv", "dkv"),
+                                                 grads4, want, exact)}
+        del want, exact
         print(f"[kernel] tiled attention {tag}: bits repeat forward and backward {same}")
         check(same, f"{tag}: the bits of a repeated forward or backward differ")
         extras = {}
@@ -1606,11 +1626,14 @@ def check_flash_bf16(torch, rng, b, h, tq, tk, dh, causal, mask, label, iters,
         bnd = attention_bound_bf16(b, h, tq, tk, dh, causal and tq == tk, part,
                                    ms[f"sdpa {part}"])
         plain = ms["plain fwd" if part == "fwd" else "plain bwd"]
+        grad_err = {"fwd": {}, "dq": {"grad_f64_err": grad_f64["dq"]},
+                    "dkv": {"grad_f64_err": max(grad_f64["dk"], grad_f64["dv"])}}[part]
         results[name] = (err, ms[part], plain,
                          {"device_ms": ms[f"{part} device"],
                           "library_device_ms": ms[f"sdpa {part} device"],
                           "library_bwd_ms": ms["sdpa bwd"],
-                          "library_bwd_device_ms": ms["sdpa bwd device"], **extras},
+                          "library_bwd_device_ms": ms["sdpa bwd device"], **extras,
+                          **grad_err},
                          bnd)
         print(f"[bf16] {name} {tag}: {ms[part]:.4f} ms (device {ms[f'{part} device']:.4f}); "
               f"bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}, "
@@ -1624,9 +1647,10 @@ def phase_flash_bf16_kernels(torch):
     """Phase 5b: the tiled attention's three bf16 kernels at the causal
     decoder's shapes (B 16, H 4, T 2048, the forward also against f64; B
     4, H 4, T 8192; dh 64), then at ragged masked shapes at dh 8, 16 and
-    32 whose rows see no valid key (sub-entries), then at the generic head
-    dims (the padded kernels): the decoder's shapes at 2 heads of 128 and
-    ragged masked shapes at dh 24, 40, 72 and 120."""
+    32 whose rows see no valid key (sub-entries) and at the backward's tile
+    edges at dh 64 (``flash_bf16_edges``), then at the generic head dims:
+    the decoder's shapes at 2 heads of 128, ragged masked shapes at dh 24,
+    40, 72 and 120 and the tile edges at dh 128."""
     rng = np.random.default_rng(SEED + 12)
     _, _, main = check_flash_bf16(torch, rng, 16, 4, 2048, 2048, 64, True, None,
                                   "decoder seq 2048", iters=10, f64=True)
@@ -1656,19 +1680,46 @@ def phase_flash_bf16_kernels(torch):
     mask = torch.from_numpy(rng.random((2, 700)) > 0.3).cuda()
     _, _, subs["not_causal_tq_gt_tk_masked_dh_64"] = check_flash_bf16(
         torch, rng, 2, 3, 900, 700, 64, False, mask, "not causal tq>tk masked", iters=3)
+    subs.update(flash_bf16_edges(torch, rng, 64))
     subs.update(flash_bf16_generic(torch))
     return {name: (*main[name], {"at_seq_8192_batch_4": sub_entry(long[name])},
                    *({key: sub_entry(r[name])} for key, r in subs.items()))
             for name in main}
 
 
+def flash_bf16_edges(torch, rng, dh):
+    """The tiled bf16 kernels at the backward's tile edges (blocks of 128
+    resident rows, two consumers of 64, streamed tiles of 64) at head dim
+    ``dh``: tq = tk = 577 (just past 9 x 64) and 641 (just past 5 x 128),
+    causal; tk > tq causal (449 queries, 705 keys: rows 0-255 at qpos < 0);
+    masked keys with rows that see no valid key (tq 193 < tk 257, keys 0-3
+    of item 0 off, item 1 all off). Returns the sub-entries."""
+    subs = {}
+    for b, h, tq, tk in ((2, 2, 577, 577), (1, 3, 641, 641), (2, 2, 449, 705)):
+        subs[f"edge_tq_{tq}_tk_{tk}_dh_{dh}"] = check_flash_bf16(
+            torch, rng, b, h, tq, tk, dh, True, None, f"edge tq {tq} tk {tk} dh {dh}",
+            iters=3)[2]
+    mask = torch.from_numpy(rng.random((2, 257)) > 0.2).cuda()
+    mask[0, :4] = False
+    mask[1] = False
+    o, v, subs[f"edge_masked_tq_193_tk_257_dh_{dh}"] = check_flash_bf16(
+        torch, rng, 2, 2, 193, 257, dh, True, mask, f"edge masked dh {dh}", iters=3)
+    for item in (0, 1):  # qpos < 4: keys 0-3 of item 0 masked
+        check_no_visible_key(torch, o.float(), v.float(), mask, slice(0, 257 - 193 + 4), item,
+                             f"bf16 edge masked dh {dh}, item {item}", tol=BF16_ULP_REL)
+    return subs
+
+
 def flash_bf16_generic(torch):
-    """The tiled bf16 kernels at head dims outside 8/16/32/64, on the
-    instantiation padded to 128: the decoder's shapes at 2 heads of 128
-    (``bench_decoder --bf16 --heads 2``: B 16, T 2048, the forward also
-    against f64; B 4, T 8192), then ragged masked shapes at dh 24, 40, 72
-    and 120 (odd multiples of 8 but 40: a 16-deep step's upper half past
-    dh), rows that see no valid key among them. Returns the sub-entries."""
+    """The tiled bf16 kernels at head dims outside 8/16/32/64 (the forward's
+    instantiation padded to 128; the backward's DH 64 through dh 64, DH 128
+    past it): the decoder's shapes at 2 heads of 128 (``bench_decoder
+    --bf16 --heads 2``: B 16, T 2048, the forward also against f64; B 4, T
+    8192), then ragged masked shapes at dh 24, 40, 72 and 120 (odd
+    multiples of 8 but 40: a 16-deep step's upper half past dh), rows that
+    see no valid key among them, then the backward's tile edges at dh 128
+    and a ragged masked shape at each other multiple of 8 through 128.
+    Returns the sub-entries."""
     rng = np.random.default_rng(SEED + 14)
     subs = {}
     _, _, subs["decoder_dh_128_seq_2048"] = check_flash_bf16(
@@ -1690,6 +1741,14 @@ def flash_bf16_generic(torch):
             for item in (0, 1):
                 check_no_visible_key(torch, o.float(), v.float(), mask, rows, item,
                                      f"bf16 {label}, item {item}", tol=BF16_ULP_REL)
+    subs.update(flash_bf16_edges(torch, rng, 128))
+    # the other multiples of 8 through 128, causal, rows 0-216 at qpos < 0,
+    # keys 0-3 of item 0 masked (so every dh runs here)
+    mask = torch.from_numpy(rng.random((2, 517)) > 0.2).cuda()
+    mask[0, :4] = False
+    for dh in (48, 56, 80, 88, 96, 104, 112):
+        subs[f"sweep_dh_{dh}"] = check_flash_bf16(
+            torch, rng, 2, 2, 300, 517, dh, True, mask, f"sweep dh {dh}", iters=3)[2]
     return subs
 
 
@@ -6374,16 +6433,27 @@ ROUTES = {
                   "max, o = bf16(acc / l); the causal frontier, longest blocks first"
                   + PADDED_DH},
     "flash_attention_dq_bf16": {
-        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: flash_dq_bf16<dh> (writes "
-                  "delta from the bf16 o and do), p from the forward's (m, l), ds = p scale "
-                  "(dp - delta) rounded to bf16 for dS K, dq rounded once with no scale "
-                  "after it; K, V tiles by cp.async and ldmatrix" + PADDED_DH},
+        "kernel": "bf16 wgmma.mma_async m64nNk16 with f32 accumulation on TMA-fed tiles: "
+                  "flash_dq_bf16<DH> (DH 64 through dh 64, 128 past it; rows zero past dh "
+                  "by TMA's fill), 384 threads a block of 128 query rows: a producer warp "
+                  "streams 64-key tiles of K and V (4-D tensor maps, 128-byte swizzle) with "
+                  "their keys' valid bits through a 3-stage mbarrier ring, two consumer "
+                  "warpgroups (setmaxnreg 24 / 240) of 64 rows each take S and dP with their "
+                  "q and do rows as register A fragments, delta from the bf16 o and do, p = "
+                  "ex2.approx(y log2 e) (1 / l) from the forward's (m, l), ds = p scale (dp - "
+                  "delta) rounded to bf16 for dS K (K MN-major), dq rounded once with no "
+                  "scale after it; an interior tile skips the masks; longest blocks first"},
     "flash_attention_dkv_bf16": {
-        "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: flash_dkv_bf16<dh>, the "
-                  "warp's keys' k and v rows in registers, q and do tiles by cp.async and "
-                  "ldmatrix, p and ds rounded to bf16 for P^T do and dS^T q (q unscaled), "
-                  "each rounded once; the dead-row scan of the f32 kernel" + PADDED_DH
-                  + PADDED_DKV},
+        "kernel": "bf16 wgmma.mma_async m64nNk16 with f32 accumulation on TMA-fed tiles: "
+                  "flash_dkv_bf16<DH> (DH 64 through dh 64, 128 past it), 384 threads a "
+                  "block of 128 keys: a producer warp streams 64-query tiles of q and do "
+                  "with their rows' m, 1 / l and delta (loaded a tile ahead), two consumer "
+                  "warpgroups (setmaxnreg 32 / 232) of 64 keys each hold all of dh's dK and "
+                  "dV (no recomputation at dh 128), S^T and dP^T with k and v as register A "
+                  "fragments at DH 64 and from shared memory at DH 128, p and ds as in dq "
+                  "rounded to bf16 for P^T do and dS^T q (do, q MN-major, q unscaled), each "
+                  "rounded once; without a key mask the rows with no valid key are those "
+                  "at qpos < 0 (no scan), with one the block scans the rows' m"},
     "chebykan_bf16": {
         "kernel": "bf16 mma.sync.m16n8k16 with f32 accumulation: kan_tc_fwd_grouped<Cheby, "
                   "24, 12, 1, Bf16, 0> at one group (the bf16 q/k/v's template and shape, 192 "

@@ -16,9 +16,10 @@
 // chained through the running sum it put the vit-s lanes forward further
 // from f64 than 1e-6. The dropped small*small term is ~2^-22 of a product.
 //
-// bf16 (the bf16 attention kernels, attention_lanes.cu and
-// flash_attention.cu, at every head dim through 128: the generic ones padded
-// to BF16_PAD_DH; the KAN kernels, kan_basis_tc.cuh parts 3-4):
+// bf16 (the bf16 lanes kernels, attention_lanes.cu, and the bf16 tiled
+// forward, flash_attention.cu, at every head dim through 128: the generic
+// ones padded to BF16_PAD_DH; the KAN kernels, kan_basis_tc.cuh parts 3-4;
+// the tiled backward is wgmma, hopper.cuh):
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32, one product a 16-deep
 // step into the f32 running sum (the products of two bf16 are exact in f32);
 // the attention's B operands are loaded from shared memory by ldmatrix, the
@@ -46,16 +47,17 @@ __host__ __device__ inline bool tc_head_dim(int dh) {
   return dh == 8 || dh == 16 || dh == 32 || dh == 64;
 }
 
-// The bf16 attention kernels take every head dim that is a multiple of 8
-// from 8 through 128 (attention_common.cuh's generic_head_dim): dh 8, 16,
-// 32 and 64 each on an instantiation of its own, every other dh on one
-// instantiation padded to BF16_PAD_DH with the true dh passed at run time.
-// Padded, staged rows and A fragments hold dh values and zeros past them,
-// the products walk all of DH as at DH itself (no branch on dh in the
-// loops: a step past dh adds exact zeros), and the stores stop at dh.
-// Padded, a dk/dv block holds the gradients of BF16_DKV_SPLIT columns of
-// dh, so that its accumulators fit the registers beside the warp's k and v
-// rows: bf16_dkv_halves(dh) blocks a key tile, each recomputing the scores.
+// The bf16 lanes kernels and the bf16 tiled forward take every head dim
+// that is a multiple of 8 from 8 through 128 (attention_common.cuh's
+// generic_head_dim): dh 8, 16, 32 and 64 each on an instantiation of its
+// own, every other dh on one instantiation padded to BF16_PAD_DH with the
+// true dh passed at run time. Padded, staged rows and A fragments hold dh
+// values and zeros past them, the products walk all of DH as at DH itself
+// (no branch on dh in the loops: a step past dh adds exact zeros), and the
+// stores stop at dh. Padded, a lanes dk/dv block holds the gradients of
+// BF16_DKV_SPLIT columns of dh, so that its accumulators fit the registers
+// beside the warp's k and v rows: bf16_dkv_halves(dh) blocks a key tile,
+// each recomputing the scores.
 constexpr int BF16_PAD_DH = 128;
 constexpr int BF16_DKV_SPLIT = 64;
 
@@ -64,7 +66,7 @@ __host__ __device__ inline int bf16_dkv_halves(int dh) {
 }
 
 // Every row of q, k and v (elements of T, strides in elements) starts
-// 16-byte aligned (cp.async of 16 bytes).
+// 16-byte aligned (cp.async of 16 bytes; TMA's strides and bases).
 template <typename T>
 inline bool rows_aligned(const T* q, const T* k, const T* v,
                          long long q_sb, long long q_st, long long q_sh,

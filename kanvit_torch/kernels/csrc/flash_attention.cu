@@ -7,10 +7,10 @@
 //             _bwd_dq_kernel :176-223) and its dk/dv kernel (:831, body
 //             _bwd_dkv_kernel :226-272).
 // On bf16 operands (kanvit's bf16 policy, the causal decoder's --bf16) the
-// same three run as flash_fwd_bf16, flash_dq_bf16 and flash_dkv_bf16, below
-// the f32 tensor-core kernels, at every head dim the f32 kernels take: dh
-// 8, 16, 32 and 64 on instantiations of their own, every other multiple of
-// 8 through 128 on one padded to 128 (the decoder's --heads 2: dh 128).
+// same three run as flash_fwd_bf16 (mma.sync), flash_dq_bf16 and
+// flash_dkv_bf16 (wgmma on TMA-fed tiles, warp-specialised: hopper.cuh),
+// below the f32 tensor-core kernels, at every head dim the f32 kernels
+// take (the decoder's --heads 2: dh 128).
 //
 // Per batch item b and head h, with qpos = row - max(tk - tq, 0):
 //   s = q k^T * dh^-1/2, set to NEG_INF (the finite float32 min) on masked
@@ -92,8 +92,11 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 #include "attention_common.cuh"
 #include "attention_tc.cuh"
+#include "hopper.cuh"
 
 namespace {
 
@@ -815,52 +818,31 @@ flash_dkv_tc(View q, View k, View v, const uint8_t* __restrict__ mask,
 //       the bf16 o, ds = (p * dh^-1/2) * (do v^T - delta) in f32, 0 where
 //       causally unseen; dq = bf16(bf16(ds) k) with no scale after it,
 //       dk = bf16(bf16(ds)^T q) with q unscaled, dv = bf16(bf16(p)^T do).
-// Every product is bf16 mma.sync.m16n8k16 with f32 accumulation, fed by
-// ldmatrix (attention_tc.cuh's bf16 helpers, as the lanes bf16 kernels):
-//   forward S = q K^T        A q rows (registers)       B K tile (ldmatrix)
-//           O += P V         A P from S's C fragments   B V tile (.trans)
-//   dq      S, dP = do V^T   A q, do rows (registers)   B K, V tiles
-//           dQ += dS K       A dS from C                B K tile (.trans)
-//   dk/dv   S^T = K q^T,     A K, V rows of the warp's  B q, do tiles
-//           dP^T = V do^T      keys (registers)
-//           dV += P^T do,    A from the C fragments     B do, q tiles (.trans)
-//           dK += dS^T q
-// The grids, the 64 resident rows a block (16 a warp), the causal frontier
-// and its exceptions for rows with m == NEG_INF, the longest blocks first,
-// the two backward kernels (dq writes delta) and the layout of o, do and
-// the gradients are the f32 kernels'. Streamed tiles are 32 rows, staged
-// raw by 16-byte cp.async, double buffered (rows of dh + 8 bf16), so every
-// row of q, k, v and do must start 16-byte aligned.
+// The causal frontier and its exceptions for rows with m == NEG_INF, the
+// longest blocks first, the two backward kernels (dq writes delta) and the
+// layout of o, do and the gradients are the f32 kernels'. Every row of q,
+// k, v and do must start 16-byte aligned (cp.async and TMA).
 //
-// One pass: the forward rounds p against its running max over its own
-// 32-key tiles, where kanvit rounds it against the running max over its
-// 128-multiple key blocks (_plan's bk). Each bf16(p) is within 2^-8 of its
-// f32 value on either side, so o may differ from the twin's by 2^-7 of
-// sum(p |v|) / l besides one output ulp (chip_smoke.py's gate; the CPU
-// tests emulate these tiles). The backward renormalises by the final (m, l), so
-// no tiling enters it.
+// The forward, flash_fwd_bf16: bf16 mma.sync.m16n8k16 with f32
+// accumulation fed by ldmatrix (attention_tc.cuh's bf16 helpers, as the
+// lanes bf16 kernels), S = q K^T with the warp's q rows as A fragments in
+// registers, O += P V with P from S's C fragments; 64 resident rows a
+// block (16 a warp), streamed 32-key tiles staged raw by 16-byte cp.async,
+// double buffered (rows of dh + 8 bf16). One pass: it rounds p against its
+// running max over its own 32-key tiles, where kanvit rounds it against the
+// running max over its 128-multiple key blocks (_plan's bk). Each bf16(p)
+// is within 2^-8 of its f32 value on either side, so o may differ from the
+// twin's by 2^-7 of sum(p |v|) / l besides one output ulp (chip_smoke.py's
+// gate; the CPU tests emulate these tiles). dh 8, 16, 32 and 64 are
+// instantiated as they are; every other multiple of 8 through 128 runs the
+// instantiation padded to DH 128 (BF16_PAD_DH, attention_tc.cuh) with the
+// true dh at run time: staged rows and A fragments zero past dh (cp.async
+// reading no source), the products over all of DH (a step past dh adds
+// exact zeros; a branch on dh beside each mma ran 1.9-2.8x slower:
+// PERF.md), the stores stopping at dh.
 //
-// Head dims. dh 8, 16, 32 and 64 are instantiated as they are; every other
-// multiple of 8 through 128 runs the instantiation padded to DH 128
-// (BF16_PAD_DH, attention_tc.cuh) with the true dh at run time, one more
-// kernel each, not one per dh (an instantiation per dh ran the f32 build
-// past its limit). Padded, staged rows and the A fragments hold dh values
-// and zeros past them (cp.async reading no source), and the products walk
-// all of DH: a step past dh, or the upper half of the last step of dh 24,
-// 40, ..., 120, adds exact zeros, so the bits at a padded dh are those of
-// the same arithmetic at that dh; the stores stop at dh. (Skipping the
-// steps past dh at run time put a branch beside each mma, and the dh-128
-// kernels ran at 1.9-2.8x dh 64's time: PERF.md.) At DH 128 the dk/dv
-// kernel's k and v rows (64 registers a thread) and its dk and dv
-// accumulators (128) would not fit beside the scores, so a padded block
-// holds the dk and dv of 64 of dh's columns (BF16_DKV_SPLIT): ceil(dh / 64)
-// blocks a key tile, each recomputing S^T and dP^T, 1.5x the products of
-// one block; no kernel spills (ptxas: 176, 233 and 232 registers). Shared
-// memory at DH 128: two double-buffered 32-row tiles of 136 bf16, 34.8 KB
-// static. What bounds them at the decoder's dh 128 (B 16, H 2, T 2048): the
-// products, as at dh 64, H*dh being equal (2 B H T^2 dh causal FLOPs a
-// product); the exps are half dh 64's (half the scores). They run at
-// 8-15% of that bound (PERF.md), latency-bound as the dh-64 kernels.
+// The backward, flash_dq_bf16 and flash_dkv_bf16, is written for Hopper:
+// see its section below.
 
 constexpr int BF_TILE = 32;            // rows a streamed bf16 tile
 constexpr int BF_STEPS = BF_TILE / 8;  // its 8-row steps
@@ -999,252 +981,532 @@ flash_fwd_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
   }
 }
 
-// dq and delta. One block per (head, batch, 64 query rows), the query tiles
-// longest first; warp w owns rows q0 + 16w .. +15, its q and do rows as A
-// fragments in registers. Streams K and V tiles up to the block's causal
-// frontier (ds is 0 past it).
-template <int DH, bool PAD = false>
-__global__ void __launch_bounds__(NT)
-flash_dq_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
+// --- the bf16 backward on Hopper: warp-specialised, TMA-fed wgmma ------------
+// flash_dq_bf16 and flash_dkv_bf16 replace kanvit's _bwd_dq_kernel
+// (kanvit/kernels/flash_attention.py:176-223, pallas_call :806) and
+// _bwd_dkv_kernel (:226-272, pallas_call :831) on bf16 operands, with the
+// policy above; the renormalisation by the forward's final (m, l) lets no
+// tiling enter. What bounds them on the H100 at the causal decoder's shapes
+// (B H T^2 dh bf16 FLOPs a product, 3 in dq and 4 in dk/dv, against a few
+// bytes a row): the tensor cores, 989 TFLOP/s dense bf16, which only
+// wgmma reaches (mma.sync, the forward's, does not), and beside them the
+// score pass, ~14 instructions a score of an exp, masks and ds for every
+// query-key pair: at dh 64 it is as long as the products.
+//
+// The design. A block is 384 threads: a producer warpgroup, of which one
+// warp issues TMA copies and stages per-tile data (setmaxnreg down), and
+// two consumer warpgroups (setmaxnreg up), each owning 64 resident rows,
+// the M of a wgmma (queries in dq, keys in dk/dv; 128 a block, launched
+// longest first). Every 64-row tile the producer streams (keys of k and v
+// in dq, queries of q and do in dk/dv) serves both consumers, through a
+// ring of HB_STAGES stages, each with a full and an empty mbarrier; no
+// __syncthreads in the loop. TMA reads q, k, v in place through 4-D tensor
+// maps (dh, H, T, B) of their strides and do (and o for delta) contiguous,
+// 64-column boxes with 128-byte swizzle (hopper.cuh's panels), and fills
+// zeros past T and past dh: DH 64 takes dh 8-64 and DH 128 dh 72-128, the
+// true dh at run time, the padded columns exact zeros. Products, all
+// wgmma m64nNk16 with f32 accumulators:
+//   dq      S = q K^T, dP = do V^T   A q, do rows (registers, once)  B K, V tile
+//           dQ += bf16(dS) K         A dS from the accumulators    B K tile, MN-major
+//   dk/dv   S^T = K q^T, dP^T = V do^T  A k, v rows (registers at     B q, do tile
+//                                    DH 64; shared memory at 128)
+//           dV += bf16(P^T) do,      A from the accumulators        B do, q tile,
+//           dK += bf16(dS^T) q                                       MN-major
+// At DH 128 a dk/dv consumer holds all of dh's dK and dV (128 registers a
+// thread), so no block recomputes the scores for a part of dh. The two
+// independent chains of each phase are issued interleaved. Each tile's
+// scores take one pass, computed for every entry and selected, with exp
+// on the SFU (exp_sfu); a tile every row of which sees every key, all
+// valid, takes the pass without the masks. dq reads each row's (m, 1/l)
+// and computes delta (two threads a row, 16-byte loads of o and do) once;
+// dk/dv's producer stages each tile's rows' m, 1/l and delta in shared
+// memory on the tile's barrier (loaded a tile ahead; plain loads, as a
+// (b, h) row of stats starts only 8-byte aligned at odd tq). Rows with no
+// valid key: without a key mask they are exactly the rows at qpos < 0, so
+// dk/dv knows them from tq and tk; with one it scans the rows' m. Each sum
+// is in a fixed order and no atomics: the bits repeat. Measured (PERF.md):
+// the consumers run their phases in step, the products of both together;
+// taking turns, or deferring a tile's second products into the next turn,
+// ran slower (one warpgroup's chains alone do not fill the tensor cores).
+
+constexpr int HB_WG = 128;                              // threads a warpgroup
+constexpr int HB_CONSUMERS = 2;                         // consumer warpgroups a block
+constexpr int HB_THREADS = HB_WG * (1 + HB_CONSUMERS);  // and one producer warpgroup
+constexpr int HB_ROWS = PANEL_ROWS;                     // resident rows a consumer (wgmma M)
+constexpr int HB_BLOCK = HB_ROWS * HB_CONSUMERS;        // resident rows a block
+constexpr int HB_TILE = PANEL_ROWS;                     // rows a streamed tile
+constexpr int HB_STAGES = 3;                            // streamed tiles in flight
+// setmaxnreg: dq 128 x 24 + 256 x 240 = 384 x 168, the registers the block
+// launches with (__launch_bounds__(384, 1)); dk/dv's producer takes 32
+// (its row loads), its consumers 232.
+constexpr int HB_PRODUCER_REGS = 24, HB_CONSUMER_REGS = 240;
+constexpr int HB_DKV_PRODUCER_REGS = 32, HB_DKV_CONSUMER_REGS = 232;
+
+// Shared memory of both kernels at DH (64 or 128), from a 1024-byte aligned
+// base: the resident rows (tensor x: 0 q, 1 do in dq; 0 k, 1 v in dk/dv; a
+// 64-row tile of DH / 64 panels for each consumer), the stages (tensor x: 0
+// k, 1 v in dq; 0 q, 1 do in dk/dv), each stage's streamed rows' m, 1 / l
+// and delta (dk/dv, floats [stage][3][64]) or its keys' valid bits (dq,
+// words [stage][2]), the barriers (full and empty a stage, one for the
+// resident rows) and dq's delta of each resident row.
+template <int DH>
+struct HbSmem {
+  static constexpr int TILE = DH / 64 * PANEL_BYTES;
+  static constexpr int STAGE = 2 * HB_CONSUMERS * TILE;
+  static constexpr int ROWS = STAGE + HB_STAGES * 2 * TILE;
+  static constexpr int BITS = ROWS + HB_STAGES * 3 * HB_TILE * 4;
+  static constexpr int BARS = BITS + HB_STAGES * 8;
+  static constexpr int DELTA = BARS + (2 * HB_STAGES + 1) * 8;
+  static constexpr int BYTES = DELTA + HB_CONSUMERS * HB_ROWS * 4;
+  static constexpr int ALLOC = BYTES + 1024;  // and room to align the base
+  static __device__ __forceinline__ int res(int x, int w) { return (x * HB_CONSUMERS + w) * TILE; }
+  static __device__ __forceinline__ int stage(int s, int x) { return STAGE + (s * 2 + x) * TILE; }
+};
+
+__device__ __forceinline__ uint8_t* hb_base(uint8_t* raw) {
+  return raw + ((1024 - (smem_addr(raw) & 1023)) & 1023);
+}
+
+// full[s]: the producer warp's 32 arrivals (its lane 0's with the stage's
+// TMA bytes); empty[s]: one arrival from each consumer warp; resident: the
+// resident rows' bytes.
+__device__ __forceinline__ void hb_init_barriers(uint64_t* bars) {
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < HB_STAGES; ++s) {
+      mbar_init(&bars[s], 32);
+      mbar_init(&bars[HB_STAGES + s], HB_CONSUMERS * HB_WG / 32);
+    }
+    mbar_init(&bars[2 * HB_STAGES], 1);
+    mbar_init_fence();
+  }
+}
+
+// The producer's lane 0: both resident tensors' rows r0 + 64 w of every
+// consumer w whose rows start below t_len, on the resident barrier.
+template <int DH>
+__device__ __forceinline__ void hb_load_resident(uint8_t* sm, const CUtensorMap* m0,
+                                                 const CUtensorMap* m1, uint64_t* bar, int r0,
+                                                 int t_len, int h, int b) {
+  using L = HbSmem<DH>;
+  uint32_t bytes = 0;
+  for (int w = 0; w < HB_CONSUMERS; ++w)
+    if (r0 + w * HB_ROWS < t_len) bytes += 2 * L::TILE;
+  mbar_arrive_expect_tx(bar, bytes);
+  for (int w = 0; w < HB_CONSUMERS; ++w) {
+    if (r0 + w * HB_ROWS >= t_len) continue;
+    for (int p = 0; p < DH / 64; ++p) {
+      tma_load_4d(sm + L::res(0, w) + p * PANEL_BYTES, m0, bar, p * 64, h, r0 + w * HB_ROWS, b);
+      tma_load_4d(sm + L::res(1, w) + p * PANEL_BYTES, m1, bar, p * 64, h, r0 + w * HB_ROWS, b);
+    }
+  }
+}
+
+// The producer's lane 0: stage s's tiles of both streamed tensors, rows
+// row0 .. row0 + 63, completing on full (its arrival with their bytes).
+template <int DH>
+__device__ __forceinline__ void hb_load_stage(uint8_t* sm, const CUtensorMap* m0,
+                                              const CUtensorMap* m1, uint64_t* full, int s,
+                                              int row0, int h, int b) {
+  using L = HbSmem<DH>;
+  mbar_arrive_expect_tx(full, 2 * L::TILE);
+  for (int p = 0; p < DH / 64; ++p) {
+    tma_load_4d(sm + L::stage(s, 0) + p * PANEL_BYTES, m0, full, p * 64, h, row0, b);
+    tma_load_4d(sm + L::stage(s, 1) + p * PANEL_BYTES, m1, full, p * 64, h, row0, b);
+  }
+}
+
+// A consumer warp is done with stage s.
+__device__ __forceinline__ void hb_release(uint64_t* empty, int lane) {
+  __syncwarp();
+  if (lane == 0) mbar_arrive(empty);
+}
+
+// x + the dot product of 8 bf16 pairs, f32, in column order.
+__device__ __forceinline__ float dot8_bf16(uint4 a, uint4 b, float x) {
+  const uint32_t wa[4] = {a.x, a.y, a.z, a.w}, wb[4] = {b.x, b.y, b.z, b.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 fa = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wa[i]));
+    const float2 fb = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&wb[i]));
+    x = fmaf(fa.y, fb.y, fmaf(fa.x, fb.x, x));
+  }
+  return x;
+}
+
+// exp(y) as 2^(y log2 e) on the SFU (ex2.approx.ftz): two instructions
+// where IEEE expf takes eight, six of them on the FMA pipe, in a score pass
+// that is issue-bound (PERF.md). ~2 ulp beside the rounding of y log2 e
+// (|y| 2^-24 relative), far below p's and ds's bf16 rounding; exp(0) = 1
+// and exp(-huge) = 0 exactly, so a row with m == NEG_INF still takes p =
+// 1 / l on every valid key.
+__device__ __forceinline__ float exp_sfu(float y) {
+  float r;
+  asm("ex2.approx.ftz.f32 %0, %1;" : "=f"(r) : "f"(y * 1.44269504f));
+  return r;
+}
+
+// dq and delta. One block per (head, batch, 128 query rows), the query
+// tiles longest first: a producer warp streams 64-key tiles of K and V up
+// to the block's causal frontier (ds is 0 past it) with their keys' valid
+// bits; consumer w owns rows q0 + 64 w .. + 63, its q and do rows loaded
+// once by TMA and held as A fragments, and skips the tiles its rows see
+// no key of.
+template <int DH>
+__global__ void __launch_bounds__(HB_THREADS, 1)
+flash_dq_bf16(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+              const __grid_constant__ CUtensorMap v_map,
+              const __grid_constant__ CUtensorMap do_map, const uint8_t* __restrict__ mask,
               const __nv_bfloat16* __restrict__ o, const __nv_bfloat16* __restrict__ dout,
               const float* __restrict__ stats, float* __restrict__ delta_out,
               __nv_bfloat16* __restrict__ dq, int tq, int tk, int heads, int causal,
-              float scale, int dh_run) {
-  constexpr int P = DH + 8, KD = (DH + 15) / 16, ND = DH / 8;
-  const int dh = PAD ? dh_run : DH;
-  __shared__ __align__(16) __nv_bfloat16 ks[2][BF_TILE][P];
-  __shared__ __align__(16) __nv_bfloat16 vs[2][BF_TILE][P];
-  __shared__ unsigned kbits[2];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * TC_ROWS;
-  const int r0 = q0 + warp * 16;
-  const bool active = r0 < tq;
-  const int ra = r0 + g, rb = ra + 8;
-  const bool la = ra < tq, lb = rb < tq;
+              float scale, int dh) {
+  using L = HbSmem<DH>;
+  extern __shared__ uint8_t hb_raw[];
+  uint8_t* sm = hb_base(hb_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + HB_STAGES;
+  uint64_t* resident = empty + HB_STAGES;
+  uint32_t* bits = reinterpret_cast<uint32_t*>(sm + L::BITS);
+  const int tid = threadIdx.x, h = blockIdx.x, b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * HB_BLOCK;
   const int diff = max(tk - tq, 0);
-  const int wkeys = causal ? min(tk, min(r0 + 15, tq - 1) - diff + 1) : tk;
-  const long long hs = (long long)heads * dh;  // row stride of o, do and dq
-  const long long oa = ((long long)b * tq + min(ra, tq - 1)) * hs + h * dh;
-  const long long ob = ((long long)b * tq + min(rb, tq - 1)) * hs + h * dh;
-  const long long srow = ((long long)b * heads + h) * tq;  // of stats, delta
+  const int kend = causal ? min(tk, max(0, q0 + HB_BLOCK - diff)) : tk;
+  const int tiles = (kend + HB_TILE - 1) / HB_TILE;
+  hb_init_barriers(full);
+  __syncthreads();
 
-  uint32_t qa[KD][4], da[KD][4];
-  bf16_a_rows<DH>(q.at(b, min(ra, tq - 1), h), q.at(b, min(rb, tq - 1), h),
-                  la ? 1.f : 0.f, lb ? 1.f : 0.f, t, qa, dh);
-  bf16_a_rows<DH>(dout + oa, dout + ob, la ? 1.f : 0.f, lb ? 1.f : 0.f, t, da, dh);
-  float dla = 0.f, dlb = 0.f;  // delta = rowsum(f32(do) f32(o))
-#pragma unroll
-  for (int d = 0; d < ND; ++d) {
-    if (d * 8 >= dh) continue;
-    const int c = d * 8 + 2 * t;
-    const float2 da2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + oa + c));
-    const float2 oa2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + oa + c));
-    const float2 db2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(dout + ob + c));
-    const float2 ob2 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(o + ob + c));
-    dla = fmaf(da2.y, oa2.y, fmaf(da2.x, oa2.x, dla));
-    dlb = fmaf(db2.y, ob2.y, fmaf(db2.x, ob2.x, dlb));
+  if (tid < HB_WG) {  // the producer
+    regs_dec<HB_PRODUCER_REGS>();
+    if (tid >= 32) return;
+    if (tid == 0) hb_load_resident<DH>(sm, &q_map, &do_map, resident, q0, tq, h, b);
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % HB_STAGES, k0 = it * HB_TILE;
+      const unsigned lo = key_bits(mask, b, tk, k0, tid);
+      const unsigned hi = key_bits(mask, b, tk, k0 + 32, tid);
+      mbar_wait(&empty[s], (it / HB_STAGES & 1) ^ 1);
+      if (tid == 0) {
+        bits[2 * s] = lo;
+        bits[2 * s + 1] = hi;
+        hb_load_stage<DH>(sm, &k_map, &v_map, &full[s], s, k0, h, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+    }
+    return;
   }
-  dla = quad_sum(dla);  // every lane shuffles; rows past tq read row tq - 1
-  dlb = quad_sum(dlb);
+
+  regs_inc<HB_CONSUMER_REGS>();
+  const int w = tid / HB_WG - 1, ct = tid % HB_WG;
+  const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int r0 = q0 + w * HB_ROWS;
+  const int ra = r0 + warp * 16 + g, rb = ra + 8;
+  const bool la = ra < tq, lb = rb < tq;
+  // Keys the warpgroup's rows may see: below tk and, causal, at or before
+  // its last live row's position.
+  const int wkeys = r0 >= tq ? 0
+                    : causal ? min(tk, min(r0 + HB_ROWS - 1, tq - 1) - diff + 1)
+                             : tk;
+  const long long hs = (long long)heads * dh;  // row stride of o, do and dq
+  const long long srow = ((long long)b * heads + h) * tq;  // of stats, delta
+  float* dsm = reinterpret_cast<float*>(sm + L::DELTA) + w * HB_ROWS;
+  {  // delta = rowsum(f32(do) f32(o)): two threads a row, 8 columns a load
+    const int row = r0 + ct / 2;
+    float d = 0.f;
+    if (row < tq) {
+      const long long at = ((long long)b * tq + row) * hs + (long long)h * dh;
+      for (int c = (ct & 1) * 8; c < dh; c += 16)
+        d = dot8_bf16(*reinterpret_cast<const uint4*>(dout + at + c),
+                      *reinterpret_cast<const uint4*>(o + at + c), d);
+    }
+    d += __shfl_xor_sync(0xffffffffu, d, 1);
+    if ((ct & 1) == 0) {
+      dsm[ct / 2] = d;
+      if (row < tq) delta_out[srow + row] = d;
+    }
+  }
+  named_sync(1 + w, HB_WG);
+  const float dla = dsm[warp * 16 + g], dlb = dsm[warp * 16 + g + 8];
   const float ma = la ? stats[(srow + ra) * 2] : 0.f;
   const float mb = lb ? stats[(srow + rb) * 2] : 0.f;
   const float rla = la ? 1.f / stats[(srow + ra) * 2 + 1] : 0.f;
   const float rlb = lb ? 1.f / stats[(srow + rb) * 2 + 1] : 0.f;
 
-  float acc[ND][4];
+  float acc[DH / 2];  // dQ, f32
 #pragma unroll
-  for (int d = 0; d < ND; ++d) acc[d][0] = acc[d][1] = acc[d][2] = acc[d][3] = 0.f;
-  const int kend = causal ? min(tk, max(0, q0 + TC_ROWS - diff)) : tk;
-  const int tiles = (kend + BF_TILE - 1) / BF_TILE;
-  const __nv_bfloat16* kh = k.at(b, 0, h);
-  const __nv_bfloat16* vh = v.at(b, 0, h);
-  auto stage = [&](int tile, int buf) {
-    stage_tile_bf16<DH, BF_TILE, PAD>(&ks[buf][0][0], kh, k.st, tile * BF_TILE, tk, tid, dh);
-    stage_tile_bf16<DH, BF_TILE, PAD>(&vs[buf][0][0], vh, v.st, tile * BF_TILE, tk, tid, dh);
-    cp_async_commit();
-    if (warp == 0) {
-      const unsigned bits = key_bits(mask, b, tk, tile * BF_TILE, lane);
-      if (lane == 0) kbits[buf] = bits;
-    }
-  };
-  if (tiles > 0) stage(0, 0);
+  for (int i = 0; i < DH / 2; ++i) acc[i] = 0.f;
+  mbar_wait(resident, 0);
+  uint32_t qa[DH / 16][4], doa[DH / 16][4];  // the rows of q and do as A fragments
+  panel_a_frags<DH>(sm + L::res(0, w), warp, lane, qa);
+  panel_a_frags<DH>(sm + L::res(1, w), warp, lane, doa);
   for (int it = 0; it < tiles; ++it) {
-    const int buf = it & 1, k0 = it * BF_TILE;
-    if (it + 1 < tiles) {
-      stage(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // the tile and its key bits have landed
-    if (active && k0 < wkeys) {
-      const unsigned kv = kbits[buf] >> (2 * t);  // bit 8n + c: key k0 + 8n + 2t + c
-      const int steps = min(BF_STEPS, (wkeys - k0 + 7) / 8);
+    const int s = it % HB_STAGES, k0 = it * HB_TILE;
+    mbar_wait(&full[s], it / HB_STAGES & 1);
+    if (k0 < wkeys) {  // the warpgroup's rows see a key of the tile
+      const uint32_t kt = smem_addr(sm + L::stage(s, 0)), vt = smem_addr(sm + L::stage(s, 1));
+      float sc[32], dp[32];  // S and dP, written by their first step (accumulate 0)
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < DH / 16; ++kk) {  // two chains, interleaved
+        wgmma_rs_n64_k(sc, qa[kk], desc_k(kt, kk), kk);
+        wgmma_rs_n64_k(dp, doa[kk], desc_k(vt, kk), kk);
+      }
+      wgmma_commit();
+      // bit 8n + c of kv: key k0 + 8n + 2t + c is valid
+      const unsigned long long kv =
+          ((unsigned long long)bits[2 * s + 1] << 32 | bits[2 * s]) >> (2 * t);
       // key k0 + 8n + 2t + (c & 1) is seen by row r iff 8n + (c & 1) <= lim
-      const int lim_a = !la ? -1 : causal ? ra - diff - k0 - 2 * t : BF_TILE;
-      const int lim_b = !lb ? -1 : causal ? rb - diff - k0 - 2 * t : BF_TILE;
-      float s[BF_STEPS][4], dp[BF_STEPS][4];
-      bf16_rows_by_tile<DH>(qa, &ks[buf][0][0], steps, lane, s);
-      bf16_rows_by_tile<DH>(da, &vs[buf][0][0], steps, lane, dp);
+      const int lim_a = !la ? -1 : causal ? ra - diff - k0 - 2 * t : HB_TILE;
+      const int lim_b = !lb ? -1 : causal ? rb - diff - k0 - 2 * t : HB_TILE;
+      wgmma_wait<0>();
+      fence_regs(sc);
+      fence_regs(dp);
+      uint32_t da[HB_TILE / 16][4];  // bf16(ds), the A fragments of dQ += dS K
+      // ds of every score, computed and then selected (no branch a score);
+      // an interior tile (every row below tq sees every key of it, all
+      // valid) takes the pass without the masks.
+      auto scores = [&](auto interior) {
+        constexpr bool IN = decltype(interior)::value;
 #pragma unroll
-      for (int n = 0; n < BF_STEPS; ++n)  // s becomes ds, in f32
+        for (int n = 0; n < HB_TILE / 8; ++n) {
+          float ds[4];
 #pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int j = n * 8 + (c & 1);
-          const bool hi = c >= 2;
-          const bool vis = j <= (hi ? lim_b : lim_a);
-          // computed for every entry, then selected: no branch a score
-          const float e = expf((vis ? s[n][c] * scale : NEG_INF) - (hi ? mb : ma)) *
-                          (hi ? rlb : rla);
-          const float p = ((kv >> j) & 1u) ? e : 0.f;
-          s[n][c] = vis ? (p * scale) * (dp[n][c] - (hi ? dlb : dla)) : 0.f;
+          for (int c = 0; c < 4; ++c) {
+            const int j = n * 8 + (c & 1);
+            const bool hi = c >= 2;
+            const bool vis = IN || j <= (hi ? lim_b : lim_a);
+            const float x = vis ? __fmul_rn(sc[4 * n + c], scale) : NEG_INF;
+            const float e = exp_sfu(x - (hi ? mb : ma)) * (hi ? rlb : rla);
+            const float p = IN || ((kv >> j) & 1ull) ? e : 0.f;
+            ds[c] = vis ? (p * scale) * (dp[4 * n + c] - (hi ? dlb : dla)) : 0.f;
+          }
+          da[n / 2][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+          da[n / 2][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
         }
-      bf16_c_by_tile<DH>(s, &ks[buf][0][0], steps, lane, acc);  // + bf16(ds) K
+      };
+      if ((!causal || k0 + HB_TILE - 1 <= r0 - diff) && r0 + HB_ROWS <= tq &&
+          k0 + HB_TILE <= tk && mask == nullptr)
+        scores(std::true_type());
+      else
+        scores(std::false_type());
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HB_TILE / 16; ++kk) wgmma_rs<DH>(acc, da[kk], desc_mn(kt, kk));
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(acc);
+      fence_regs(da);
     }
-    __syncthreads();  // this buffer is restaged two tiles on
+    hb_release(&empty[s], lane);
   }
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int row = half ? rb : ra;
     if (row >= tq) continue;
-    __nv_bfloat16* dqp = dq + ((long long)b * tq + row) * hs + h * dh + 2 * t;
+    __nv_bfloat16* dqp = dq + ((long long)b * tq + row) * hs + (long long)h * dh + 2 * t;
 #pragma unroll
-    for (int d = 0; d < ND; ++d)
-      if (d * 8 < dh) store_bf16_pair(dqp + d * 8, acc[d][2 * half], acc[d][2 * half + 1]);
-    if (t == 0) delta_out[srow + row] = half ? dlb : dla;
+    for (int n = 0; n < DH / 8; ++n)
+      if (n * 8 < dh) store_bf16_pair(dqp + n * 8, acc[4 * n + 2 * half], acc[4 * n + 2 * half + 1]);
   }
 }
 
-// dk and dv. One block per (head, batch, 64 keys), key tile 0 (the one the
-// most queries see) first; warp w owns keys k0 + 16w .. +15, its k and v
-// rows as A fragments in registers. Streams q and do tiles with their
-// queries' (m, 1 / l) and delta. Padded, a block holds the dk and dv
-// columns of one half of dh (BF16_DKV_SPLIT wide, the halves of a key tile
-// neighbours in z).
-template <int DH, bool PAD = false>
-__global__ void __launch_bounds__(NT)
-flash_dkv_bf16(View16 q, View16 k, View16 v, const uint8_t* __restrict__ mask,
-               const __nv_bfloat16* __restrict__ dout, const float* __restrict__ stats,
-               const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
-               __nv_bfloat16* __restrict__ dv, int tq, int tk, int heads, int causal,
-               float scale, int dh_run) {
-  constexpr int P = DH + 8, KD = (DH + 15) / 16;
-  constexpr int NA = PAD ? BF16_DKV_SPLIT / 8 : DH / 8;  // n8 tiles of dk, dv a block
-  const int dh = PAD ? dh_run : DH;
-  const int halves = PAD ? bf16_dkv_halves(dh) : 1;
-  __shared__ __align__(16) __nv_bfloat16 qs[2][BF_TILE][P];
-  __shared__ __align__(16) __nv_bfloat16 dos[2][BF_TILE][P];
-  __shared__ float mrow[2][BF_TILE], rlrow[2][BF_TILE], drow[2][BF_TILE];
-
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int g = lane >> 2, t = lane & 3;
-  const int h = blockIdx.x, b = blockIdx.y;
-  const int k0 = (PAD ? blockIdx.z / halves : blockIdx.z) * TC_ROWS;
-  const int d0 = PAD ? blockIdx.z % halves * NA : 0;  // the block's first n8 tile
-  const int j0 = k0 + warp * 16;  // the warp's first key
-  const bool active = j0 < tk;
-  const int ja = j0 + g, jb = ja + 8;
-  const bool va = key_ok(mask, b, tk, ja), vb = key_ok(mask, b, tk, jb);
+// dk and dv. One block per (head, batch, 128 keys), key tile 0 (the one the
+// most queries see) first: a producer warp streams 64-query tiles of q and
+// do with their rows' m, 1 / l and delta; consumer w owns keys k0 + 64 w ..
+// + 63, its k and v rows resident in shared memory.
+template <int DH>
+__global__ void __launch_bounds__(HB_THREADS, 1)
+flash_dkv_bf16(const __grid_constant__ CUtensorMap q_map, const __grid_constant__ CUtensorMap k_map,
+               const __grid_constant__ CUtensorMap v_map,
+               const __grid_constant__ CUtensorMap do_map, const uint8_t* __restrict__ mask,
+               const float* __restrict__ stats, const float* __restrict__ delta,
+               __nv_bfloat16* __restrict__ dk, __nv_bfloat16* __restrict__ dv, int tq, int tk,
+               int heads, int causal, float scale, int dh) {
+  using L = HbSmem<DH>;
+  extern __shared__ uint8_t hb_raw[];
+  uint8_t* sm = hb_base(hb_raw);
+  uint64_t* full = reinterpret_cast<uint64_t*>(sm + L::BARS);
+  uint64_t* empty = full + HB_STAGES;
+  uint64_t* resident = empty + HB_STAGES;
+  float* rows = reinterpret_cast<float*>(sm + L::ROWS);
+  const int tid = threadIdx.x, h = blockIdx.x, b = blockIdx.y;
+  const int k0 = blockIdx.z * HB_BLOCK;
   const int diff = max(tk - tq, 0);
-  const long long hs = (long long)heads * dh;  // row stride of do, dk and dv
   const long long srow = ((long long)b * heads + h) * tq;  // of stats, delta
-
-  uint32_t ka[KD][4], vfa[KD][4];
-  bf16_a_rows<DH>(k.at(b, min(ja, tk - 1), h), k.at(b, min(jb, tk - 1), h),
-                  ja < tk ? 1.f : 0.f, jb < tk ? 1.f : 0.f, t, ka, dh);
-  bf16_a_rows<DH>(v.at(b, min(ja, tk - 1), h), v.at(b, min(jb, tk - 1), h),
-                  ja < tk ? 1.f : 0.f, jb < tk ? 1.f : 0.f, t, vfa, dh);
-  float dka[NA][4], dva[NA][4];
-#pragma unroll
-  for (int d = 0; d < NA; ++d)
-#pragma unroll
-    for (int c = 0; c < 4; ++c) dka[d][c] = dva[d][c] = 0.f;
+  hb_init_barriers(full);
 
   // Causal: query i sees key j only for i - diff >= j. A query that sees
   // none of the block's keys adds only where it saw no valid key at all
   // (m = NEG_INF: p = 1/l on every valid key, into dv). Unless a row before
   // the one that sees the block's last key is such a row, the block starts
-  // at the tile of the first query that sees its first key and each warp
-  // skips the tiles that see none of its keys; else it streams every query.
+  // at the tile of the first query that sees its first key and each
+  // consumer skips the tiles that see none of its keys; else it streams
+  // every query.
+  // Without a key mask such rows are exactly those at qpos < 0 (rows below
+  // diff; scores are finite), so no stats are read; with one, the block
+  // scans the m of the rows before its last key's first query.
   bool skip = false;
   int i_start = 0;
-  if (causal) {
-    const int scan = min(tq, k0 + TC_ROWS - 1 + diff);
+  if (causal && mask != nullptr) {
+    const int scan = min(tq, k0 + HB_BLOCK - 1 + diff);
     bool dead = false;
-    for (int r = tid; r < scan; r += NT) dead |= stats[(srow + r) * 2] == NEG_INF;
+    for (int r = tid; r < scan; r += HB_THREADS) dead |= stats[(srow + r) * 2] == NEG_INF;
     skip = !__syncthreads_or(dead);
-    if (skip) i_start = min(tq, k0 + diff) / BF_TILE * BF_TILE;
+  } else {
+    skip = causal && diff == 0;
+    __syncthreads();
   }
-  const int tiles = (tq - i_start + BF_TILE - 1) / BF_TILE;
-  const __nv_bfloat16* qh = q.at(b, 0, h);
-  const __nv_bfloat16* doh = dout + (long long)b * tq * hs + h * dh;
-  auto stage = [&](int tile, int buf) {
-    const int i0 = i_start + tile * BF_TILE;
-    stage_tile_bf16<DH, BF_TILE, PAD>(&qs[buf][0][0], qh, q.st, i0, tq, tid, dh);
-    stage_tile_bf16<DH, BF_TILE, PAD>(&dos[buf][0][0], doh, hs, i0, tq, tid, dh);
-    cp_async_commit();
-    if (tid < BF_TILE) {
-      const int qi = i0 + tid;
-      const bool in = qi < tq;
-      mrow[buf][tid] = in ? stats[(srow + qi) * 2] : 0.f;
-      rlrow[buf][tid] = in ? 1.f / stats[(srow + qi) * 2 + 1] : 0.f;
-      drow[buf][tid] = in ? delta[srow + qi] : 0.f;
+  if (skip) i_start = min(tq, k0 + diff) / HB_TILE * HB_TILE;
+  const int tiles = (tq - i_start + HB_TILE - 1) / HB_TILE;
+
+  if (tid < HB_WG) {  // the producer
+    regs_dec<HB_DKV_PRODUCER_REGS>();
+    if (tid >= 32) return;
+    if (tid == 0) hb_load_resident<DH>(sm, &k_map, &v_map, resident, k0, tk, h, b);
+    // Rows i0 + tid and i0 + 32 + tid of the next tile: m, l and delta (0
+    // past tq), loaded a tile ahead so that they land during the wait.
+    float m[2], l[2], dl[2];
+    auto fetch = [&](int it) {
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const int qi = i_start + it * HB_TILE + 32 * e + tid;
+        const bool in = it < tiles && qi < tq;
+        m[e] = in ? stats[(srow + qi) * 2] : 0.f;
+        l[e] = in ? stats[(srow + qi) * 2 + 1] : 0.f;
+        dl[e] = in ? delta[srow + qi] : 0.f;
+      }
+    };
+    fetch(0);
+    for (int it = 0; it < tiles; ++it) {
+      const int s = it % HB_STAGES, i0 = i_start + it * HB_TILE;
+      mbar_wait(&empty[s], (it / HB_STAGES & 1) ^ 1);
+      float* r = rows + s * 3 * HB_TILE;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        r[32 * e + tid] = m[e];
+        r[HB_TILE + 32 * e + tid] = i0 + 32 * e + tid < tq ? 1.f / l[e] : 0.f;
+        r[2 * HB_TILE + 32 * e + tid] = dl[e];
+      }
+      if (tid == 0) {
+        hb_load_stage<DH>(sm, &q_map, &do_map, &full[s], s, i0, h, b);
+      } else {
+        mbar_arrive(&full[s]);
+      }
+      fetch(it + 1);
     }
-  };
-  if (tiles > 0) stage(0, 0);
+    return;
+  }
+
+  regs_inc<HB_DKV_CONSUMER_REGS>();
+  const int w = tid / HB_WG - 1, ct = tid % HB_WG;
+  const int warp = ct >> 5, lane = ct & 31, g = lane >> 2, t = lane & 3;
+  const int j0 = k0 + w * HB_ROWS;  // the warpgroup's first key
+  const bool active = j0 < tk;
+  const int ja = j0 + warp * 16 + g, jb = ja + 8;
+  const bool va = key_ok(mask, b, tk, ja), vb = key_ok(mask, b, tk, jb);
+  const long long hs = (long long)heads * dh;  // row stride of dk and dv
+
+  float dka[DH / 2], dva[DH / 2];  // dK, dV, f32
+#pragma unroll
+  for (int i = 0; i < DH / 2; ++i) dka[i] = dva[i] = 0.f;
+  const uint32_t kr = smem_addr(sm + L::res(0, w)), vr = smem_addr(sm + L::res(1, w));
+  mbar_wait(resident, 0);
+  // At DH 64 the rows of k and v as A fragments (S^T and dP^T from
+  // registers); at DH 128 they would not fit beside dK and dV, and the
+  // products read them from shared memory.
+  constexpr bool A_REGS = DH == 64;
+  uint32_t ka[DH / 16][4], vfa[DH / 16][4];
+  if constexpr (A_REGS) {
+    panel_a_frags<DH>(sm + L::res(0, w), warp, lane, ka);
+    panel_a_frags<DH>(sm + L::res(1, w), warp, lane, vfa);
+  }
   for (int it = 0; it < tiles; ++it) {
-    const int buf = it & 1, i0 = i_start + it * BF_TILE;
-    if (it + 1 < tiles) {
-      stage(it + 1, buf ^ 1);
-      cp_async_wait<1>();
-    } else {
-      cp_async_wait<0>();
-    }
-    __syncthreads();  // the tiles and their rows' (m, 1 / l, delta) have landed
-    // Skipping, a tile whose last query sees none of the warp's keys adds
-    // nothing; every 8-query step below tq is computed otherwise, the masks
-    // zeroing p and ds where a query does not see a key.
-    const int steps = min(BF_STEPS, (tq - i0 + 7) / 8);
-    if (active && !(skip && i0 + BF_TILE - 1 - diff < j0)) {
-      float st[BF_STEPS][4], dpt[BF_STEPS][4];
-      bf16_rows_by_tile<DH>(ka, &qs[buf][0][0], steps, lane, st);
-      bf16_rows_by_tile<DH>(vfa, &dos[buf][0][0], steps, lane, dpt);
+    const int s = it % HB_STAGES, i0 = i_start + it * HB_TILE;
+    mbar_wait(&full[s], it / HB_STAGES & 1);
+    // Skipping, a tile whose last query sees none of the warpgroup's keys
+    // adds nothing; the masks zero p and ds where a query does not see a key.
+    if (active && !(skip && i0 + HB_TILE - 1 - diff < j0)) {
+      const uint32_t qt = smem_addr(sm + L::stage(s, 0)), dt = smem_addr(sm + L::stage(s, 1));
+      float st[32], dpt[32];  // S^T and dP^T, keys by queries; written by their first step
+      wgmma_fence();
 #pragma unroll
-      for (int n = 0; n < BF_STEPS; ++n)  // st becomes p^T, dpt ds^T, in f32
-#pragma unroll
-        for (int c = 0; c < 4; ++c) {
-          const int r = n * 8 + 2 * t + (c & 1), qi = i0 + r;
-          const bool hi = c >= 2;
-          const bool vis = !causal || (hi ? jb : ja) <= qi - diff;
-          const float e = expf((vis ? st[n][c] * scale : NEG_INF) - mrow[buf][r]) *
-                          rlrow[buf][r];
-          const float p = ((hi ? vb : va) && qi < tq) ? e : 0.f;
-          dpt[n][c] = vis ? (p * scale) * (dpt[n][c] - drow[buf][r]) : 0.f;
-          st[n][c] = p;
+      for (int kk = 0; kk < DH / 16; ++kk) {  // two chains, interleaved
+        if constexpr (A_REGS) {
+          wgmma_rs_n64_k(st, ka[kk], desc_k(qt, kk), kk);
+          wgmma_rs_n64_k(dpt, vfa[kk], desc_k(dt, kk), kk);
+        } else {
+          wgmma_ss_n64(st, desc_k(kr, kk), desc_k(qt, kk), kk);
+          wgmma_ss_n64(dpt, desc_k(vr, kk), desc_k(dt, kk), kk);
         }
-      bf16_c_by_tile<DH, BF_STEPS, NA>(st, &dos[buf][0][0], steps, lane, dva,
-                                       d0);  // + bf16(p)^T do
-      bf16_c_by_tile<DH, BF_STEPS, NA>(dpt, &qs[buf][0][0], steps, lane, dka,
-                                       d0);  // + bf16(ds)^T q
+      }
+      wgmma_commit();
+      // query i0 + 8n + 2t + (c & 1) sees key ja (jb) causally iff
+      // 8n + (c & 1) >= from_a (from_b), and lies below tq iff < qlim
+      const int from_a = causal ? ja + diff - i0 - 2 * t : 0;
+      const int from_b = causal ? jb + diff - i0 - 2 * t : 0;
+      const int qlim = tq - i0 - 2 * t;
+      const float* r = rows + s * 3 * HB_TILE + 2 * t;
+      wgmma_wait<0>();
+      fence_regs(st);
+      fence_regs(dpt);
+      uint32_t pa[HB_TILE / 16][4], sa[HB_TILE / 16][4];  // bf16(p^T), bf16(ds^T)
+      // As in dq; an interior tile (every query of it below tq sees every
+      // key of the warpgroup, all valid) takes the pass without the masks.
+      auto scores = [&](auto interior) {
+        constexpr bool IN = decltype(interior)::value;
+#pragma unroll
+        for (int n = 0; n < HB_TILE / 8; ++n) {
+          const float2 m2 = *reinterpret_cast<const float2*>(r + 8 * n);
+          const float2 rl2 = *reinterpret_cast<const float2*>(r + HB_TILE + 8 * n);
+          const float2 dl2 = *reinterpret_cast<const float2*>(r + 2 * HB_TILE + 8 * n);
+          float p[4], ds[4];
+#pragma unroll
+          for (int c = 0; c < 4; ++c) {
+            const int j = n * 8 + (c & 1);
+            const bool hi = c >= 2;
+            const bool vis = IN || j >= (hi ? from_b : from_a);
+            const float x = vis ? __fmul_rn(st[4 * n + c], scale) : NEG_INF;
+            const float e = exp_sfu(x - (c & 1 ? m2.y : m2.x)) * (c & 1 ? rl2.y : rl2.x);
+            p[c] = IN || ((hi ? vb : va) && j < qlim) ? e : 0.f;
+            ds[c] = vis ? (p[c] * scale) * (dpt[4 * n + c] - (c & 1 ? dl2.y : dl2.x)) : 0.f;
+          }
+          pa[n / 2][(n & 1) * 2] = pack_bf16(p[0], p[1]);
+          pa[n / 2][(n & 1) * 2 + 1] = pack_bf16(p[2], p[3]);
+          sa[n / 2][(n & 1) * 2] = pack_bf16(ds[0], ds[1]);
+          sa[n / 2][(n & 1) * 2 + 1] = pack_bf16(ds[2], ds[3]);
+        }
+      };
+      if ((!causal || i0 - diff >= j0 + HB_ROWS - 1) && i0 + HB_TILE <= tq &&
+          j0 + HB_ROWS <= tk && mask == nullptr)
+        scores(std::true_type());
+      else
+        scores(std::false_type());
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < HB_TILE / 16; ++kk) {  // two chains, interleaved
+        wgmma_rs<DH>(dva, pa[kk], desc_mn(dt, kk));
+        wgmma_rs<DH>(dka, sa[kk], desc_mn(qt, kk));
+      }
+      wgmma_commit();
+      wgmma_wait<0>();
+      fence_regs(dva);
+      fence_regs(dka);
+      fence_regs(pa);
+      fence_regs(sa);
     }
-    __syncthreads();  // this buffer is restaged two tiles on
+    hb_release(&empty[s], lane);
   }
 
 #pragma unroll
   for (int half = 0; half < 2; ++half) {
     const int key = half ? jb : ja;
     if (key >= tk) continue;
-    const long long off = ((long long)b * tk + key) * hs + h * dh + 2 * t;
+    const long long off = ((long long)b * tk + key) * hs + (long long)h * dh + 2 * t;
 #pragma unroll
-    for (int d = 0; d < NA; ++d) {
-      const int c = (d0 + d) * 8;
-      if (c >= dh) continue;
-      store_bf16_pair(dk + off + c, dka[d][2 * half], dka[d][2 * half + 1]);
-      store_bf16_pair(dv + off + c, dva[d][2 * half], dva[d][2 * half + 1]);
+    for (int n = 0; n < DH / 8; ++n) {
+      if (n * 8 >= dh) continue;
+      store_bf16_pair(dk + off + n * 8, dka[4 * n + 2 * half], dka[4 * n + 2 * half + 1]);
+      store_bf16_pair(dv + off + n * 8, dva[4 * n + 2 * half], dva[4 * n + 2 * half + 1]);
     }
   }
 }
@@ -1730,9 +1992,45 @@ extern "C" int kanvit_flash_attention_fwd_bf16(
   return (int)cudaGetLastError();
 }
 
+// The bf16 backward's launch: the tensor maps of q, k and v (through their
+// strides) and of do ((batch, tq, heads*dh) contiguous), DH 64 for dh
+// through 64 and DH 128 past it, the block's shared memory opted into.
+// Returns a CUDA error code (0 on success).
+template <int DH, class Kernel, class... Args>
+int hb_launch(Kernel kernel, int blocks, int heads, int batch, cudaStream_t st, Args... args) {
+  // setmaxnreg moves registers between a block's warpgroups, within what
+  // the block launched with: less would leave the consumers waiting.
+  cudaFuncAttributes attr;
+  int err = (int)cudaFuncGetAttributes(&attr, kernel);
+  if (err != 0) return err;
+  if (attr.numRegs * HB_THREADS < HB_WG * (HB_PRODUCER_REGS + HB_CONSUMERS * HB_CONSUMER_REGS))
+    return (int)cudaErrorInvalidConfiguration;
+  err = allow_shared(kernel, HbSmem<DH>::ALLOC);
+  if (err != 0) return err;
+  kernel<<<dim3(heads, batch, blocks), HB_THREADS, HbSmem<DH>::ALLOC, st>>>(args...);
+  return (int)cudaGetLastError();
+}
+
+struct HbMaps {
+  CUtensorMap q, k, v, dout;
+};
+
+static bool hb_maps(HbMaps* m, const void* q, const void* k, const void* v, const void* dout,
+             long long q_sb, long long q_st, long long q_sh, long long k_sb, long long k_st,
+             long long k_sh, long long v_sb, long long v_st, long long v_sh, int batch, int tq,
+             int tk, int heads, int dh) {
+  const long long hs = (long long)heads * dh;
+  return bf16_rows_map(&m->q, q, dh, heads, tq, batch, q_sh, q_st, q_sb) &&
+         bf16_rows_map(&m->k, k, dh, heads, tk, batch, k_sh, k_st, k_sb) &&
+         bf16_rows_map(&m->v, v, dh, heads, tk, batch, v_sh, v_st, v_sb) &&
+         bf16_rows_map(&m->dout, dout, dh, heads, tq, batch, dh, hs, tq * hs);
+}
+
 // dq of the bf16 forward and delta = rowsum(dout * o) in f32. o, dout:
-// (batch, tq, heads*dh) bf16 contiguous; stats: the forward's; delta:
-// (batch, heads, tq) f32, written; dq: (batch, tq, heads*dh) bf16 contiguous.
+// (batch, tq, heads*dh) bf16 contiguous, 16-byte aligned; stats: the
+// forward's; delta: (batch, heads, tq) f32, written; dq: (batch, tq,
+// heads*dh) bf16 contiguous. Launches flash_dq_bf16<64> for dh through 64,
+// <128> past it.
 extern "C" int kanvit_flash_attention_dq_bf16(
     const void* q, const void* k, const void* v, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
@@ -1741,25 +2039,28 @@ extern "C" int kanvit_flash_attention_dq_bf16(
     int tk, int heads, int dh, int causal, float scale, void* stream) {
   if (bad_dims(batch, tq, tk, heads) || !generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
-  const View16 qv{static_cast<const bf*>(q), q_sb, q_st, q_sh},
-      kv{static_cast<const bf*>(k), k_sb, k_st, k_sh},
-      vv{static_cast<const bf*>(v), v_sb, v_st, v_sh};
-  if (!rows_aligned(qv.p, kv.p, vv.p, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh))
+  if (!rows_aligned(static_cast<const bf*>(q), static_cast<const bf*>(k),
+                    static_cast<const bf*>(v), q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,
+                    v_sh) ||
+      (uintptr_t)o % 16 != 0 || (uintptr_t)dout % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  const dim3 grid(heads, batch, (tq + TC_ROWS - 1) / TC_ROWS);
-#define KANVIT_DQ_BF16(D, PAD)                                                 \
-  flash_dq_bf16<D, PAD><<<grid, NT, 0, (cudaStream_t)stream>>>(               \
-      qv, kv, vv, mask, static_cast<const bf*>(o), static_cast<const bf*>(dout), \
-      stats, delta, static_cast<bf*>(dq), tq, tk, heads, causal, scale, dh)
-  KANVIT_BF16_SWITCH(KANVIT_DQ_BF16)
+  HbMaps m;
+  if (!hb_maps(&m, q, k, v, dout, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, batch,
+               tq, tk, heads, dh))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (tq + HB_BLOCK - 1) / HB_BLOCK;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define KANVIT_DQ_BF16(D)                                                                  \
+  hb_launch<D>(flash_dq_bf16<D>, blocks, heads, batch, st, m.q, m.k, m.v, m.dout, mask,    \
+               static_cast<const bf*>(o), static_cast<const bf*>(dout), stats, delta,      \
+               static_cast<bf*>(dq), tq, tk, heads, causal, scale, dh)
+  return dh <= 64 ? KANVIT_DQ_BF16(64) : KANVIT_DQ_BF16(128);
 #undef KANVIT_DQ_BF16
-  return (int)cudaGetLastError();
 }
 
-// dk and dv of the bf16 forward. dout, stats as for the dq entry (dout
-// 16-byte aligned); delta: what the dq entry wrote; dk, dv: (batch, tk,
-// heads*dh) bf16 contiguous. A padded dh launches bf16_dkv_halves(dh)
-// blocks a key tile.
+// dk and dv of the bf16 forward. dout, stats as for the dq entry; delta:
+// what the dq entry wrote; dk, dv: (batch, tk, heads*dh) bf16 contiguous.
+// Launches flash_dkv_bf16<64> for dh through 64, <128> past it.
 extern "C" int kanvit_flash_attention_dkv_bf16(
     const void* q, const void* k, const void* v, long long q_sb, long long q_st,
     long long q_sh, long long k_sb, long long k_st, long long k_sh, long long v_sb,
@@ -1768,20 +2069,22 @@ extern "C" int kanvit_flash_attention_dkv_bf16(
     int tk, int heads, int dh, int causal, float scale, void* stream) {
   if (bad_dims(batch, tq, tk, heads) || !generic_head_dim(dh)) return (int)cudaErrorInvalidValue;
   using bf = __nv_bfloat16;
-  const View16 qv{static_cast<const bf*>(q), q_sb, q_st, q_sh},
-      kv{static_cast<const bf*>(k), k_sb, k_st, k_sh},
-      vv{static_cast<const bf*>(v), v_sb, v_st, v_sh};
-  if (!rows_aligned(qv.p, kv.p, vv.p, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh) ||
+  if (!rows_aligned(static_cast<const bf*>(q), static_cast<const bf*>(k),
+                    static_cast<const bf*>(v), q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st,
+                    v_sh) ||
       (uintptr_t)dout % 16 != 0)
     return (int)cudaErrorMisalignedAddress;
-  const int blocks = (tk + TC_ROWS - 1) / TC_ROWS * bf16_dkv_halves(dh);
-  if (blocks > 65535) return (int)cudaErrorInvalidValue;
-  const dim3 grid(heads, batch, blocks);
-#define KANVIT_DKV_BF16(D, PAD)                                                   \
-  flash_dkv_bf16<D, PAD><<<grid, NT, 0, (cudaStream_t)stream>>>(                 \
-      qv, kv, vv, mask, static_cast<const bf*>(dout), stats, delta,               \
-      static_cast<bf*>(dk), static_cast<bf*>(dv), tq, tk, heads, causal, scale, dh)
-  KANVIT_BF16_SWITCH(KANVIT_DKV_BF16)
+  HbMaps m;
+  if (!hb_maps(&m, q, k, v, dout, q_sb, q_st, q_sh, k_sb, k_st, k_sh, v_sb, v_st, v_sh, batch,
+               tq, tk, heads, dh))
+    return (int)cudaErrorInvalidValue;
+  const int blocks = (tk + HB_BLOCK - 1) / HB_BLOCK;
+  const cudaStream_t st = (cudaStream_t)stream;
+#define KANVIT_DKV_BF16(D)                                                                 \
+  hb_launch<D>(flash_dkv_bf16<D>, blocks, heads, batch, st, m.q, m.k, m.v, m.dout, mask,   \
+               stats, delta, static_cast<bf*>(dk), static_cast<bf*>(dv), tq, tk, heads,    \
+               causal, scale, dh)
+  return dh <= 64 ? KANVIT_DKV_BF16(64) : KANVIT_DKV_BF16(128);
 #undef KANVIT_DKV_BF16
-  return (int)cudaGetLastError();
 }
+

@@ -16,12 +16,15 @@ through 128 (:func:`check_head_dim`).
 bf16 q, k and v (kanvit's bf16 policy) take bf16 kernels, forward and
 backward, at every head dim the f32 kernels take: the lanes tier's
 (``csrc/attention_lanes.cu``) and the tiled tier's
-(``csrc/flash_attention.cu``), which return bf16 o and gradients. dh 8, 16,
-32 and 64 run instantiations of their own; every other dh runs one
-instantiation padded to 128 with the true dh given at run time (staged rows
-and fragments zero past dh, the products over all 128 columns, stores
-stopping at dh; padded, a dk/dv block holds 64 of dh's columns, so a key
-tile takes ``ceil(dh / 64)`` blocks). On the CPU their
+(``csrc/flash_attention.cu``), which return bf16 o and gradients. The
+lanes kernels and the tiled forward run dh 8, 16, 32 and 64 on
+instantiations of their own and every other dh on one instantiation padded
+to 128 with the true dh given at run time (staged rows and fragments zero
+past dh, the products over all 128 columns, stores stopping at dh; padded,
+a lanes dk/dv block holds 64 of dh's columns, so a key tile takes
+``ceil(dh / 64)`` blocks). The tiled backward (wgmma on TMA-fed tiles) runs
+dh 8-64 on its DH-64 instantiation and 72-128 on its DH-128 one, the tiles
+zero past dh. On the CPU their
 plain twins run through :class:`_LanesBf16Plain` (``lanes_attention`` and
 ``lanes_attention_bwd_bf16``) and :class:`_FlashBf16Plain`
 (``flash_attention_bf16`` and ``flash_attention_bwd_bf16``), whose

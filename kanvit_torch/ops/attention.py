@@ -242,7 +242,8 @@ def flash_attention_bf16(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def flash_attention_bwd_bf16(q, k, v, o, do, m, l, causal: bool = False,
-                             mask: torch.Tensor | None = None, spread: bool = False):
+                             mask: torch.Tensor | None = None, spread: bool = False,
+                             exact: bool = False):
     """The tiled attention's backward on bf16 operands as kanvit's dq and
     dk/dv kernels compute it (``_bwd_dq_kernel``, ``_bwd_dkv_kernel``,
     ``kanvit/kernels/flash_attention.py:176-272``), plain version.
@@ -264,16 +265,23 @@ def flash_attention_bwd_bf16(q, k, v, o, do, m, l, causal: bool = False,
     instead, in f32, what each gradient moves by, times 2^8,
     when every rounded ds and p rounds to its neighbouring bf16 value,
     weighted as the next product weighs it: ``|ds| |k|``, ``|ds|^T |q|``
-    and ``|p|^T |do|`` (the gates' second term)."""
+    and ``|p|^T |do|`` (the gates' second term). ``exact``: instead, the
+    same function on the same operands in f64 with nothing rounded (the
+    reference the kernels' gradients are held to, no further from it than
+    twice the twin), f64."""
     b, h, tq, dh = q.shape
     tk = k.shape[2]
-    scale = torch.tensor(dh ** -0.5)
-    qf, kf, vf, dof = (a.float() for a in (q, k, v, do))
+    dt = torch.float64 if exact else torch.float32
+    scale = torch.tensor(dh ** -0.5, dtype=dt)
+    qf, kf, vf, dof = (a.to(dt) for a in (q, k, v, do))
     valid, seen = _tiled_masks(b, tq, tk, causal, mask, q.device)
     s = ((qf @ kf.transpose(-1, -2)) * scale).masked_fill(~seen, NEG)
-    p = (torch.exp(s - m[..., None]) * (1.0 / l)[..., None]).masked_fill(~valid, 0.0)
-    delta = (dof * o.float()).sum(dim=-1, keepdim=True)
+    p = (torch.exp(s - m.to(dt)[..., None])
+         * (1.0 / l.to(dt))[..., None]).masked_fill(~valid, 0.0)
+    delta = (dof * o.to(dt)).sum(dim=-1, keepdim=True)
     ds = ((p * scale) * (dof @ vf.transpose(-1, -2) - delta)).masked_fill(~seen, 0.0)
+    if exact:
+        return ds @ kf, ds.transpose(-1, -2) @ qf, p.transpose(-1, -2) @ dof
     ds, p = (a.to(torch.bfloat16).float() for a in (ds, p))
     if spread:
         ds, p, qf, kf, dof = (a.abs() for a in (ds, p, qf, kf, dof))

@@ -2670,6 +2670,13 @@ def _flash_bf16_launch(q, k, v, mask, causal, do):
     (2, 2, 517, 300, 40),
     (2, 2, 700, 700, 72),
     (1, 3, 600, 600, 120),
+    # the backward's tile edges (blocks of 128 rows in two consumers of 64,
+    # streamed tiles of 64): T just past 9 x 64 and 5 x 128, tk > tq
+    (2, 2, 577, 577, 64), (1, 2, 641, 641, 64), (2, 2, 449, 705, 64),
+    (2, 2, 577, 577, 72), (1, 2, 641, 641, 72), (2, 2, 449, 705, 72),
+    (2, 2, 577, 577, 128), (1, 2, 641, 641, 128), (2, 2, 449, 705, 128),
+    # the other multiples of 8 through 128
+    *((2, 2, 300, 517, dh) for dh in (48, 56, 80, 88, 96, 104, 112)),
 ])
 def test_flash_attention_bf16_kernels(cuda, b, h, tq, tk, dh, causal, masked):
     rng = np.random.default_rng(135)
@@ -2695,14 +2702,21 @@ def test_flash_attention_bf16_kernels(cuda, b, h, tq, tk, dh, causal, masked):
     assert FA.LAUNCHES["flash_attention"] == FA.LAUNCHES["flash_attention_dq"] == 0
 
 
-@pytest.mark.parametrize("h,dh", [(4, 64), (2, 128), (3, 40)])
-def test_flash_attention_bf16_repeats_its_bits(cuda, h, dh):
+@pytest.mark.parametrize("h,dh,tq,tk", [
+    (4, 64, 2048, 2048), (2, 128, 2048, 2048), (3, 40, 2048, 2048),
+    # the backward's tile edges: T just past 9 x 64 and 5 x 128, tk > tq
+    (2, 64, 577, 577), (2, 64, 641, 641), (2, 64, 449, 705),
+    (2, 72, 577, 577), (2, 72, 641, 641), (2, 72, 449, 705),
+    (2, 128, 577, 577), (2, 128, 641, 641), (2, 128, 449, 705),
+])
+def test_flash_attention_bf16_repeats_its_bits(cuda, h, dh, tq, tk):
     """Forward and backward at the decoder's seq 2048 (B 2, causal; 4 heads
-    of 64, and on the padded kernels 2 of 128 and 3 of 40) give the same
-    bits twice, through ``flash_attention`` and autograd; o, dq, dk and dv
+    of 64, and 2 of 128 and 3 of 40) and at the backward's tile edges give
+    the same bits twice, through ``flash_attention`` and autograd (the
+    tiled tier: T past the 512-row bucket, or tq != tk); o, dq, dk and dv
     are bf16."""
     rng = np.random.default_rng(136)
-    (q, k, v), do, _ = _flash_bf16_case(rng, 2, h, 2048, 2048, dh, False)
+    (q, k, v), do, _ = _flash_bf16_case(rng, 2, h, tq, tk, dh, False)
 
     def run():
         leaves = [a.detach().requires_grad_(True) for a in (q, k, v)]
